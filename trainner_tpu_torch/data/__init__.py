@@ -1,0 +1,10 @@
+"""Data layer of the inference slice: host-side datasets and a loader that
+hands batches to the card through pinned memory."""
+
+from .common import img2tensor, modcrop, read_img, save_img, tensor2img
+from .datasets import AlignedDataset, SingleDataset, SyntheticDataset, create_dataset
+from .loader import DataLoader, create_dataloader
+
+__all__ = ["read_img", "img2tensor", "tensor2img", "save_img", "modcrop",
+           "AlignedDataset", "SingleDataset", "SyntheticDataset",
+           "create_dataset", "DataLoader", "create_dataloader"]

@@ -1,0 +1,166 @@
+"""Options: parse a YAML/JSON options file into a NoneDict config tree.
+
+Counterpart of ``trainner_tpu/options/config.py`` (``parse:255``,
+``parse_dict:266``) for the port's inference slice. JSON options (with
+``//`` comments) need nothing beyond the standard library; ``yaml`` is
+imported only when a YAML file is read.
+
+Not ported yet (ROADMAP Queue A, "the torch CLI trainer"): degradation
+preset overlays of train datasets, network presets, ``use_unshuffle`` and
+``*_rel`` training schedules. Asking for one raises.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import re
+
+from .defaults import get_network_defaults
+
+__all__ = ["NoneDict", "dict_to_nonedict", "parse", "parse_dict",
+           "read_json", "read_yaml"]
+
+
+class NoneDict(dict):
+    """dict that returns None for missing keys."""
+
+    def __missing__(self, key):
+        return None
+
+
+def dict_to_nonedict(opt):
+    if isinstance(opt, dict):
+        return NoneDict((k, dict_to_nonedict(v)) for k, v in opt.items())
+    if isinstance(opt, list):
+        return [dict_to_nonedict(x) for x in opt]
+    return opt
+
+
+# YAML 1.1 reads "5e3" as a string; this resolver reads scientific notation
+# without a dot as a float, as the JAX package's loader does.
+_SCI_RE = re.compile(
+    r"""^(?:[-+]?(?:[0-9][0-9_]*)\.[0-9_]*(?:[eE][-+]?[0-9]+)?
+    |[-+]?(?:[0-9][0-9_]*)(?:[eE][-+]?[0-9]+)
+    |\.[0-9_]+(?:[eE][-+][0-9]+)?
+    |[-+]?[0-9][0-9_]*(?::[0-5]?[0-9])+\.[0-9_]*
+    |[-+]?\.(?:inf|Inf|INF)
+    |\.(?:nan|NaN|NAN))$""",
+    re.X,
+)
+
+
+def read_yaml(path: str) -> dict:
+    import yaml
+
+    class _OptLoader(yaml.SafeLoader):
+        pass
+
+    _OptLoader.add_implicit_resolver("tag:yaml.org,2002:float", _SCI_RE,
+                                     list("-+0123456789."))
+    with open(path, "r") as f:
+        return yaml.load(f.read(), Loader=_OptLoader)
+
+
+def read_json(path: str) -> dict:
+    """JSON options; text after ``//`` on a line is a comment."""
+    with open(path, "r") as f:
+        lines = f.readlines()
+    txt = "".join(ln.split("//")[0] + ("\n" if "//" in ln else "")
+                  for ln in lines)
+    return json.loads(txt)
+
+
+def load_file(path: str) -> dict:
+    ext = os.path.splitext(path)[1].lower()
+    if ext in (".yml", ".yaml"):
+        return read_yaml(path)
+    if ext == ".json":
+        return read_json(path)
+    raise ValueError(f"Unknown options file extension: {path}")
+
+
+_DATAROOT_ALIASES = {
+    "dataroot_HR": ("dataroot_HR", "dataroot_B", "dataroot_gt",
+                    "dataroot_target"),
+    "dataroot_LR": ("dataroot_LR", "dataroot_A", "dataroot_lq",
+                    "dataroot_input"),
+}
+
+
+def _expand_paths(val):
+    if isinstance(val, str):
+        return os.path.expanduser(val)
+    if isinstance(val, list):
+        return [_expand_paths(v) for v in val]
+    return val
+
+
+def parse_datasets(opt: dict) -> None:
+    scale = opt.get("scale", 1)
+    for phase_key, dataset in (opt.get("datasets") or {}).items():
+        phase = phase_key.split("_")[0]
+        dataset["phase"] = phase
+        dataset["scale"] = scale
+        for canon, aliases in _DATAROOT_ALIASES.items():
+            for a in aliases:
+                if dataset.get(a) is not None:
+                    dataset[canon] = dataset[a]
+                    break
+        if phase == "train" and (dataset.get("augs_strategy") or any(
+                k.startswith("add_") and k.endswith("_preset")
+                for k in dataset)):
+            raise NotImplementedError(
+                "degradation presets are not ported yet (ROADMAP Queue A, "
+                "the torch CLI trainer)")
+        if dataset.get("HR_size") is not None and \
+                dataset.get("crop_size") is None:
+            dataset["crop_size"] = dataset["HR_size"]
+        for k in ("dataroot_HR", "dataroot_LR"):
+            if dataset.get(k) is not None:
+                dataset[k] = _expand_paths(dataset[k])
+                roots = dataset[k] if isinstance(dataset[k], list) \
+                    else [dataset[k]]
+                if any(str(r).endswith(".lmdb") for r in roots):
+                    dataset["data_type"] = "lmdb"
+        dataset.setdefault("data_type", "img")
+
+
+def parse(opt_path: str, is_train: bool = True) -> NoneDict:
+    """Parse an options file into a NoneDict config tree."""
+    return parse_dict(load_file(opt_path), opt_path=opt_path,
+                      is_train=is_train)
+
+
+def parse_dict(opt: dict, opt_path: str = "",
+               is_train: bool = True) -> NoneDict:
+    for key in ("network_G_preset", "network_D_preset", "use_unshuffle"):
+        if opt.get(key):
+            raise NotImplementedError(
+                f"option {key!r} is not ported yet (ROADMAP Queue A, "
+                "the torch CLI trainer)")
+    opt["is_train"] = is_train
+    opt.setdefault("model", "sr")
+    opt.setdefault("scale", 1)
+    name = opt.get("name", "unnamed")
+    if name.startswith("debug"):
+        opt["is_debug"] = True
+    parse_datasets(opt)
+    get_network_defaults(opt)
+
+    paths = {k: _expand_paths(v) for k, v in (opt.get("path") or {}).items()}
+    root = os.path.expanduser(paths.get("root") or ".")
+    if is_train:
+        exp_root = os.path.join(root, "experiments", name)
+        paths.setdefault("experiments_root", exp_root)
+        paths.setdefault("models", os.path.join(exp_root, "models"))
+        paths.setdefault("training_state",
+                         os.path.join(exp_root, "training_state"))
+        paths.setdefault("log", exp_root)
+        paths.setdefault("val_images", os.path.join(exp_root, "val_images"))
+    else:
+        res_root = os.path.join(root, "results", name)
+        paths.setdefault("results_root", res_root)
+        paths.setdefault("log", res_root)
+    opt["path"] = paths
+    return dict_to_nonedict(opt)

@@ -1,0 +1,139 @@
+"""Inference and metrics CLI of the port: counterpart of the JAX package's
+``test.py`` for ``model: sr`` and its plain ``eval_step`` branch.
+
+Runs G over every configured test dataset, writes one PNG per image and
+logs PSNR and SSIM (RGB and Y) per image and per dataset, with the same
+options keys and log lines as the JAX CLI.
+
+Usage: python -m trainner_tpu_torch.test -opt options.json
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+from typing import Dict, List, Optional, Union
+
+import torch
+
+# Options that select a branch of the JAX CLI this slice does not port,
+# with the ROADMAP item that will.
+_DEFERRED = (
+    (("self_ensemble", "x8"), "x8 self-ensemble inference",
+     "Queue A, deferred inference branches: x8"),
+    (("chop_forward", "chop"), "chop/tile inference",
+     "Queue A, deferred inference branches: chop"),
+    (("spatial_shards",), "band-parallel spatial inference",
+     "Queue A, multi-GPU"),
+    (("use_cem",), "CEM inference",
+     "Queue A, deferred inference branches: CEM"),
+)
+
+
+def parse_options(argv=None):
+    parser = argparse.ArgumentParser()
+    parser.add_argument("-opt", type=str, required=True)
+    args = parser.parse_args(argv)
+    from .options import parse
+
+    return parse(args.opt, is_train=False)
+
+
+def _check_ported(opt) -> None:
+    model = (opt.get("model") or "sr").lower()
+    if model not in ("sr", "srgan", "srragan"):
+        raise NotImplementedError(
+            f"model [{model}] inference is not ported yet (ROADMAP Queue A, "
+            "other generator types)")
+    for keys, what, item in _DEFERRED:
+        if any(opt.get(k) for k in keys):
+            raise NotImplementedError(
+                f"{what} is not ported yet (ROADMAP {item})")
+
+
+def main(argv=None, device: Union[str, torch.device, None] = None
+         ) -> Dict[str, List[Dict]]:
+    """Runs the CLI. ``device`` defaults to ``cuda``. Returns, by dataset
+    name, the averages that the last log line of each dataset reports."""
+    opt = parse_options(argv)
+    _check_ported(opt)
+
+    from .data import create_dataloader, create_dataset
+    from .data.common import save_img, tensor2img
+    from .train.sr_trainer import create_trainer
+    from .utils.logging_utils import get_root_logger, mkdirs
+    from .utils.metrics import MetricsDict
+
+    mkdirs([opt["path"]["results_root"], opt["path"]["log"]])
+    logger = get_root_logger("base", opt["path"]["log"], "test")
+
+    trainer = create_trainer(opt, device=device)
+    if trainer.dtype == torch.float32:
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
+    logger.info(f"Inference on {trainer.device} in {trainer.dtype}; "
+                f"cudnn.allow_tf32={torch.backends.cudnn.allow_tf32} "
+                f"cuda.matmul.allow_tf32="
+                f"{torch.backends.cuda.matmul.allow_tf32}")
+
+    pin = trainer.device.type == "cuda"
+    test_loaders = []
+    for phase_key, dataset_opt in (opt.get("datasets") or {}).items():
+        ds = create_dataset(dataset_opt)
+        test_loaders.append((dataset_opt.get("name") or phase_key,
+                             create_dataloader(ds, dataset_opt,
+                                               pin_memory=pin)))
+
+    state = None
+    scale = int(opt.get("scale") or 1)
+    znorm = False
+    averages: Dict[str, List[Dict]] = {}
+    for name, loader in test_loaders:
+        logger.info(f"Testing [{name}]...")
+        res_dir = os.path.join(opt["path"]["results_root"], name)
+        os.makedirs(res_dir, exist_ok=True)
+        metrics = MetricsDict(opt.get("metrics") or "psnr,ssim")
+        metrics_y = MetricsDict(opt.get("metrics") or "psnr,ssim")
+        n_img = 0
+        for i, batch in enumerate(loader):
+            if state is None:
+                g_path: Optional[str] = opt["path"].get("pretrain_model_G")
+                state = trainer.init_state(0, g_path)
+                if g_path:
+                    logger.info(f"Loaded G from {g_path}")
+                else:
+                    logger.warning("No pretrain_model_G given — running "
+                                   "random-init weights.")
+            sr = trainer.eval_step(state, batch["LR"])
+            sr_img = tensor2img(sr[0], znorm)
+            img_name = os.path.splitext(os.path.basename(
+                batch.get("LR_path", [str(i)])[0]))[0]
+            save_img(sr_img, os.path.join(res_dir, img_name + ".png"))
+            n_img += 1
+            if batch.get("HR") is not None:
+                gt_img = tensor2img(batch["HR"][0], znorm)
+                r = metrics.calculate_metrics(sr_img, gt_img,
+                                              crop_size=scale)
+                ry = metrics_y.calculate_metrics(sr_img, gt_img,
+                                                 crop_size=scale,
+                                                 only_y=True)
+                msg = " ".join(f"{k}: {v:.6g}" for k, v in r.items())
+                msgy = " ".join(f"{k}_Y: {v:.6g}" for k, v in ry.items())
+                logger.info(f"{img_name:20s} | {msg} | {msgy}")
+        avg = metrics.get_averages()
+        avgy = metrics_y.get_averages()
+        averages[name] = avg + [{"name": m["name"] + "_Y",
+                                 "average": m["average"]} for m in avgy]
+        if avg:
+            msg = " ".join(f"{m['name']}: {m['average']:.6g}" for m in avg)
+            msgy = " ".join(f"{m['name']}_Y: {m['average']:.6g}"
+                            for m in avgy)
+            logger.info(f"[{name}] average ({n_img} images) | {msg} | "
+                        f"{msgy}")
+        else:
+            logger.info(f"[{name}] saved {n_img} images (no GT metrics)")
+    return averages
+
+
+if __name__ == "__main__":
+    main()
