@@ -6,17 +6,26 @@ Phases, each printing lines of its own; any failure ends the run with a
 non-zero exit code and no result line:
 
 1. device: the card's name and power limit, and the build of every CUDA
-   kernel of the main path from the sources in ``trainner_tpu_torch/csrc``;
+   kernel of the main paths from the sources in ``trainner_tpu_torch/csrc``;
 2. kernels: each kernel's wrapper against its plain PyTorch version on the
-   card, TF32 off, at the main path's shape and at a ragged one;
-3. slice: ``python -m trainner_tpu_torch.test`` at the full width of the
-   ESRGAN generator (nf 64, nb 23, gc 32, 4x) on a synthetic test set, in
-   f32 and with ``use_amp``, counting kernel launches; then the full G on
-   the kernel against the same G on the plain version;
-4. times: CUDA-event times of each kernel, its plain version, the cuDNN
-   five-conv chain as a yardstick, and the G forward at b=8, 128->512 px;
-5. trace: one f32 G forward at b=8 under ``torch.profiler``: device time
-   by kernel and the device's idle share of the forward's wall time.
+   card, TF32 off, f32 and bf16: the block's forward at the serving shape,
+   the training shape and a ragged one, its backward at the training shape
+   and the ragged one;
+3. serving slice: ``python -m trainner_tpu_torch.test`` at the full width
+   of the ESRGAN generator (nf 64, nb 23, gc 32, 4x) on a synthetic test
+   set, in f32 and with ``use_amp``, counting kernel launches; then the
+   full G on the kernel against the same G on the plain version;
+4. training slice: ``create_trainer`` -> ``init_state`` -> ``train_step`` on
+   the flagship GAN configuration at full width (that G, D-VGG-128, VGG19
+   conv5_4, Adam; batch 32, 32 -> 128 px, latent noise on) in bf16 and in
+   f32, counting forward and backward launches, with the step's time; two
+   steps at ``D_update_ratio: 2``; then one f32 G-stage gradient of the
+   full G on the kernels against the same on both plain versions;
+5. times: CUDA-event times of each kernel, its plain version, its bound
+   and the cuDNN five-conv chain as a yardstick, and the G forward at b=8,
+   128->512 px;
+6. trace: one f32 G forward at b=8 and one bf16 train step under
+   ``torch.profiler``: device time by kernel and the device's idle share.
 
 The second-to-last lines are a JSON summary of the kernels and the card's
 ``nvidia-smi`` name and power limit; the last line is
@@ -41,9 +50,12 @@ PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}
 PEAK_BYTES = 3.35e12
 
 MAIN_SHAPE = (8, 128, 128)   # b, h, w of the LR trunk at b=8, 128->512 px
+TRAIN_SHAPE = (32, 32, 32)   # the trunk of a training step: b=32, 32->128 px
 RAGGED_SHAPE = (3, 37, 53)
 NF, GC, NB = 64, 32, 23
 N_IMAGES = 3
+BWD_NAMES = ("dx", "dW0", "dW1", "dW2", "dW3", "dW4",
+             "db1", "db2", "db3", "db4", "db5")
 
 
 def _smi() -> str:
@@ -98,21 +110,41 @@ def _tolerance(dtype, ref) -> float:
     return 1e-4 if dtype == torch.float32 else 2 * _bf16_ulp(ref)
 
 
+def _backward_tolerance(dtype, name, ref) -> float:
+    """f32: dx sums up to 1,728 products (2e-6 of its largest magnitude);
+    dW and db sum over every pixel in another order than cuDNN's weight
+    gradient (1e-4 of theirs). bf16: a da_k that rounds the other way feeds
+    the later stages: two bf16 ulps at dx's largest magnitude; dW and db
+    are f32 sums over thousands of pixels of which a few differ by such a
+    rounding: 2^-11 of their largest magnitude."""
+    import torch
+
+    top = float(ref.abs().max())
+    if dtype == torch.float32:
+        return (2e-6 if name == "dx" else 1e-4) * top
+    return 2 * _bf16_ulp(ref) if name == "dx" else top * 2.0 ** -11
+
+
 def phase_kernels(smi: str):
-    """Kernel against plain version on the card; returns the max abs error
-    at the main shape in f32 (the main path's default)."""
+    """Kernel against plain version on the card. Returns the max abs errors
+    at the main paths' shapes: the forward's at the serving shape in f32,
+    the backward's at the training shape in bf16 (each path's default
+    type)."""
     import torch
 
     from trainner_tpu_torch.ops.rdb5c import (pack_rdb_weights,
+                                              rdb5c_backward,
+                                              rdb5c_backward_plain,
                                               rdb5c_forward,
                                               rdb5c_forward_plain)
 
     gen = torch.Generator().manual_seed(0)
     ws, bs = _block_weights(gen)
     bs = [b.cuda() for b in bs]
-    main_err = None
-    for shape in (MAIN_SHAPE, RAGGED_SHAPE):
+    main_err = bwd_err = None
+    for shape in (MAIN_SHAPE, TRAIN_SHAPE, RAGGED_SHAPE):
         x = (torch.randn(*shape, NF, generator=gen) * 0.5).cuda()
+        g_out = torch.randn(*shape, NF, generator=gen).cuda()
         for dt in (torch.float32, torch.bfloat16):
             packed = pack_rdb_weights([w.cuda() for w in ws], NF, GC, dt)
             xd = x.to(dt).contiguous()
@@ -133,25 +165,50 @@ def phase_kernels(smi: str):
                     raise AssertionError(
                         f"rdb5c {shape} {dt} {name}: {err} > {tol}")
                 errs.append(err)
-            if shape == MAIN_SHAPE and dt == torch.float32:
-                main_err = max(errs)
+            if shape == MAIN_SHAPE:
+                if dt == torch.float32:
+                    main_err = max(errs)
+                continue
+            gd = g_out.to(dt).contiguous()
+            got_b = rdb5c_backward(gd, xd, *got[1:], packed)
+            torch.cuda.synchronize()
+            ref_b = rdb5c_backward_plain(gd, xd, *got[1:], packed)
+            errs = []
+            for name, a, r in zip(BWD_NAMES, got_b, ref_b):
+                if a.shape != r.shape or a.dtype != r.dtype:
+                    raise AssertionError(f"{name}: {a.shape} {a.dtype} vs "
+                                         f"{r.shape} {r.dtype}")
+                err = float((a.float() - r.float()).abs().max())
+                tol = _backward_tolerance(dt, name, r.float())
+                print(f"kernels: rdb5c_bwd {shape} {dt} {name} max_abs_err "
+                      f"{err:.3e} tol {tol:.3e} max|ref| "
+                      f"{float(r.float().abs().max()):.3f}")
+                if not err <= tol:
+                    raise AssertionError(
+                        f"rdb5c_bwd {shape} {dt} {name}: {err} > {tol}")
+                errs.append(err)
+            again = rdb5c_backward(gd, xd, *got[1:], packed)
+            if not all(torch.equal(a, b) for a, b in zip(got_b, again)):
+                raise AssertionError("rdb5c_bwd differs from run to run")
+            if shape == TRAIN_SHAPE and dt == torch.bfloat16:
+                bwd_err = max(errs)
     print(f"kernels: ok ({smi})")
-    return main_err
+    return main_err, bwd_err
 
 
 @contextlib.contextmanager
 def _plain_blocks():
-    """Runs every residual dense block of G through the plain version, for
-    the comparison with the kernel on the card."""
-    from trainner_tpu_torch.models import rrdb
-    from trainner_tpu_torch.ops.rdb5c import rdb5c_forward_plain
+    """Runs every residual dense block of G through the plain versions of
+    both kernels, for the comparison with the kernels on the card."""
+    from trainner_tpu_torch.ops import rdb5c
 
-    kernel = rrdb.rdb5c_forward
-    rrdb.rdb5c_forward = rdb5c_forward_plain
+    kernels = rdb5c.rdb5c_forward, rdb5c.rdb5c_backward
+    rdb5c.rdb5c_forward = rdb5c.rdb5c_forward_plain
+    rdb5c.rdb5c_backward = rdb5c.rdb5c_backward_plain
     try:
         yield
     finally:
-        rrdb.rdb5c_forward = kernel
+        rdb5c.rdb5c_forward, rdb5c.rdb5c_backward = kernels
 
 
 def _options(root: str, **extra) -> str:
@@ -179,9 +236,11 @@ def _gain_weights(net, seed: int) -> None:
     gen = torch.Generator().manual_seed(seed)
     for m in net.modules():
         if isinstance(m, _Conv):
-            kaiming_init_(m.weight, 0.7, gen)
-            with torch.no_grad():
-                m.bias.normal_(0.0, 0.01, generator=gen)
+            with torch.no_grad():  # drawn on the CPU, wherever net lies
+                m.weight.copy_(kaiming_init_(torch.empty(m.weight.shape),
+                                             0.7, gen))
+                m.bias.copy_(torch.empty(m.bias.shape).normal_(
+                    0.0, 0.01, generator=gen))
 
 
 def phase_slice(smi: str, root: str):
@@ -258,58 +317,295 @@ def phase_g_compare(smi: str, root: str) -> None:
             raise AssertionError(f"full G {dt}: {err} > {rel_tol * scale}")
 
 
-def phase_times(smi: str, root: str, main_err: float, launches: int):
-    """CUDA-event times at the main path's shapes; returns the kernel
-    summary for the JSON line."""
+def _train_options(**train) -> dict:
+    """The flagship GAN configuration at full width: ESRGAN G, D-VGG-128,
+    pixel L1 x 1e-2 + VGG19 conv5_4 L1 x 1 + relativistic vanilla GAN x
+    5e-3, Adam at 1e-4, MultiStepLR."""
+    return {
+        "is_train": True, "scale": 4,
+        "network_G": {"type": "rrdb_net", "nf": NF, "nb": NB, "gc": GC,
+                      "upscale": 4},
+        "network_D": {"type": "discriminator_vgg", "size": 128,
+                      "base_nf": 64},
+        "train": {
+            "lr_G": 1e-4, "lr_D": 1e-4,
+            "pixel_criterion": "l1", "pixel_weight": 1e-2,
+            "feature_criterion": "l1", "feature_weight": 1.0,
+            "gan_type": "vanilla", "gan_weight": 5e-3,
+            "lr_scheme": "MultiStepLR", "lr_steps": [50000], **train},
+    }
+
+
+def _train_batch(batch: int = TRAIN_SHAPE[0], seed: int = 0) -> dict:
+    import torch
+
+    gen = torch.Generator().manual_seed(seed)
+    lr_px = TRAIN_SHAPE[1]
+    return {"LR": torch.rand(batch, lr_px, lr_px, 3, generator=gen).cuda(),
+            "HR": torch.rand(batch, lr_px * 4, lr_px * 4, 3,
+                             generator=gen).cuda()}
+
+
+def _snapshot(net) -> dict:
+    return {k: v.detach().clone() for k, v in net.state_dict().items()}
+
+
+def _count_moved(net, before: dict, pick) -> tuple:
+    keys = [k for k in before if pick(k)]
+    moved = sum(int(not bool((net.state_dict()[k] == before[k]).all()))
+                for k in keys)
+    return moved, len(keys)
+
+
+def phase_train(smi: str) -> dict:
+    """The training path: a few train steps at full width in bf16 (the
+    training default) and in f32, with the launches of both kernels counted
+    over each run, and the step's time. Returns the launches counted over
+    the bf16 run and the step times."""
+    import torch
+
+    from trainner_tpu_torch.ops import rdb5c
+    from trainner_tpu_torch.train.sr_trainer import create_trainer
+
+    per_g = NB * 3
+    batch = _train_batch()
+    result = {}
+    for use_amp, n_check, n_timed in ((True, 3, 10), (False, 2, 10)):
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
+        trainer = create_trainer({**_train_options(), "use_amp": use_amp})
+        name = str(trainer.dtype).replace("torch.", "")
+        state = trainer.init_state(0)
+        g0, d0 = _snapshot(state.g.net), _snapshot(state.d.net)
+        rdb5c.launches = rdb5c.backward_launches = 0
+        for _ in range(n_check):
+            state, logs = trainer.train_step(state, batch)
+        torch.cuda.synchronize()
+        fwd, bwd = rdb5c.launches, rdb5c.backward_launches
+        vals = {k: float(v) for k, v in logs.items()}
+        print(f"train: {name} b={batch['LR'].shape[0]} "
+              f"{TRAIN_SHAPE[1]}->{TRAIN_SHAPE[1] * 4} px, {n_check} steps: "
+              f"forward launches {fwd}, backward launches {bwd}, "
+              f"logs {vals}")
+        if fwd != per_g * n_check or bwd != per_g * n_check:
+            raise AssertionError(
+                f"{fwd} forward and {bwd} backward launches, expected "
+                f"{per_g} per G forward and per G update x {n_check}")
+        want = {"l_g_pix", "l_g_fea", "l_g_gan", "l_g_total", "l_d_real",
+                "l_d_fake", "D_real", "D_fake", "l_d_total"}
+        if set(vals) != want or not all(math.isfinite(v)
+                                        for v in vals.values()):
+            raise AssertionError(f"logs {vals}")
+        if state.step != n_check:
+            raise AssertionError(f"step counter {state.step}")
+        # D's biases are left out: before a batch norm, and in the dense
+        # layers under the relativistic loss, their gradient is zero but
+        # for rounding, and may be exactly zero
+        is_stat = lambda k: "running_" in k  # noqa: E731
+        for label, net, before, pick in (
+                ("G parameters", state.g.net, g0, lambda k: True),
+                ("D weights", state.d.net, d0,
+                 lambda k: k.endswith("weight")),
+                ("D running statistics", state.d.net, d0, is_stat)):
+            moved, total = _count_moved(net, before, pick)
+            print(f"train: {name} {label}: {moved} of {total} tensors moved")
+            if moved != total:
+                raise AssertionError(f"{label}: {moved} of {total} moved")
+        for p in list(state.g.net.parameters()) \
+                + list(state.d.net.parameters()):
+            if p.dtype != torch.float32 or not bool(p.isfinite().all()):
+                raise AssertionError("a parameter is not finite f32")
+
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        for _ in range(n_timed):
+            state, logs = trainer.train_step(state, batch)
+        torch.cuda.synchronize()
+        step_ms = (time.perf_counter() - t0) / n_timed * 1e3
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        print(f"times: train_step {name} b={batch['LR'].shape[0]} "
+              f"{TRAIN_SHAPE[1]}->{TRAIN_SHAPE[1] * 4} px over {n_timed} "
+              f"steps after {n_check}: {step_ms:.3f} ms, "
+              f"{1e3 / step_ms:.4f} it/s, peak memory {peak:.3f} GiB "
+              f"({smi})")
+        if not math.isfinite(float(logs["l_g_total"])):
+            raise AssertionError("l_g_total is not finite after the timed "
+                                 "steps")
+        result[name] = dict(step_ms=step_ms, forward=fwd, backward=bwd)
+        del trainer, state
+        torch.cuda.empty_cache()
+
+    # D_update_ratio 2: the second step updates D only
+    trainer = create_trainer(_train_options(D_update_ratio=2))
+    state = trainer.init_state(1)
+    for step, (want_f, want_b) in enumerate(((per_g, per_g), (per_g, 0))):
+        rdb5c.launches = rdb5c.backward_launches = 0
+        g0 = _snapshot(state.g.net)
+        state, logs = trainer.train_step(state, batch)
+        torch.cuda.synchronize()
+        fwd, bwd = rdb5c.launches, rdb5c.backward_launches
+        moved, _ = _count_moved(state.g.net, g0, lambda k: True)
+        print(f"train: D_update_ratio 2, step {step}: forward launches "
+              f"{fwd}, backward launches {bwd}, G tensors moved {moved}, "
+              f"logs {sorted(logs)}")
+        if (fwd, bwd) != (want_f, want_b) or bool(moved) != bool(want_b) \
+                or ("l_g_total" in logs) != bool(want_b) \
+                or not math.isfinite(float(logs["l_d_total"])):
+            raise AssertionError(f"step {step} at D_update_ratio 2")
+    del trainer, state
+    torch.cuda.empty_cache()
+    return result
+
+
+def phase_g_gradient(smi: str) -> None:
+    """One f32 G-stage gradient of the full-width G (pixel, feature and GAN
+    losses, b=2, noise off, weights at gain 0.7) on the two kernels against
+    the same on both plain versions, TF32 off."""
+    import torch
+
+    from trainner_tpu_torch.ops import rdb5c
+    from trainner_tpu_torch.train.sr_trainer import create_trainer
+
+    opt = {**_train_options(), "use_amp": False}
+    opt["network_G"]["gaussian_noise"] = False
+    trainer = create_trainer(opt)
+    state = trainer.init_state(2)
+    _gain_weights(state.g.net, seed=3)
+    batch = _train_batch(batch=2, seed=4)
+
+    def grads():
+        # a G update at learning rate 0: the gradients stay on .grad
+        trainer._train_step(state, batch, 0.0, 0.0, update_d=False,
+                            update_g=True)
+        torch.cuda.synchronize()
+        return {k: p.grad.clone()
+                for k, p in state.g.net.named_parameters()}
+
+    before = rdb5c.backward_launches
+    got = grads()
+    if rdb5c.backward_launches - before != NB * 3:
+        raise AssertionError("the G stage did not run the backward kernel")
+    with _plain_blocks():
+        ref = grads()
+    if rdb5c.backward_launches - before != NB * 3:
+        raise AssertionError("the plain pass launched a kernel")
+    # f32 through 69 chained blocks forward and back, sums in another
+    # order, and a c_k within rounding of zero may take the other slope,
+    # which changes that pixel's gradient by a finite step: each tensor
+    # within 3e-3 of its own largest gradient
+    worst, worst_name, top = 0.0, "", 0.0
+    for k, r in ref.items():
+        scale = float(r.abs().max())
+        top = max(top, scale)
+        ratio = float((got[k] - r).abs().max()) / max(scale, 1e-30)
+        if ratio > worst:
+            worst, worst_name = ratio, k
+    print(f"train: full G f32 gradient, kernels vs plain: worst relative "
+          f"error {worst:.3e} ({worst_name}), tol 3.000e-03, largest "
+          f"gradient {top:.3e} over {len(ref)} tensors")
+    if not (worst <= 3e-3 and top > 0 and math.isfinite(top)):
+        raise AssertionError(f"full G gradient: {worst} at {worst_name}")
+    del trainer, state
+    torch.cuda.empty_cache()
+
+
+def _bound(name: str, flops: float, nbytes: float) -> tuple:
+    """The least time in ms the card could take: the larger of operations
+    over the type's peak and bytes over the memory rate, and which."""
+    t_ops = flops / PEAK_FLOPS[name] * 1e3
+    t_bytes = nbytes / PEAK_BYTES * 1e3
+    return max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
+
+
+def phase_times(smi: str, root: str):
+    """CUDA-event times of both kernels at the main paths' shapes, beside
+    the plain version, the bound and the cuDNN five-conv chain (its forward,
+    and autograd's backward through it); then the G forward at b=8. Returns
+    {(kernel, shape, dtype name): row}."""
     import torch
 
     from trainner_tpu_torch.models import define_G
     from trainner_tpu_torch.models.rrdb import ResidualDenseBlock5C
-    from trainner_tpu_torch.ops.rdb5c import (rdb5c_forward,
+    from trainner_tpu_torch.ops.rdb5c import (rdb5c_backward,
+                                              rdb5c_backward_plain,
+                                              rdb5c_forward,
                                               rdb5c_forward_plain)
     from trainner_tpu_torch.options import parse
 
-    b, h, w = MAIN_SHAPE
-    flops = 2 * 9 * (NF * (4 * GC + NF) + GC * (3 * GC + NF)
-                     + GC * (2 * GC + NF) + GC * (GC + NF) + GC * NF)
+    n_q = (NF * (4 * GC + NF) + GC * (3 * GC + NF) + GC * (2 * GC + NF)
+           + GC * (GC + NF) + GC * NF)
     gen = torch.Generator().manual_seed(2)
     rows = {}
-    for dt in (torch.float32, torch.bfloat16):
-        blk = ResidualDenseBlock5C(NF, GC)
-        ws, bs = _block_weights(gen)
-        with torch.no_grad():
-            for conv, wt, bt in zip(blk.convs(), ws, bs):
-                conv.weight.copy_(wt)
-                conv.bias.copy_(bt)
-        blk = blk.cuda()
-        packed, biases = blk.packed(dt)
-        x = (torch.randn(b, h, w, NF, generator=gen) * 0.5).cuda().to(dt)
-        x_nchw = x.permute(0, 3, 1, 2)
-        with torch.inference_mode():
-            ms = _time_ms(lambda: rdb5c_forward(x, packed, biases))
-            plain_ms = _time_ms(
-                lambda: rdb5c_forward_plain(x, packed, biases), iters=5)
+    for shape in (MAIN_SHAPE, TRAIN_SHAPE):
+        b, h, w = shape
+        npix = b * h * w
+        for dt in (torch.float32, torch.bfloat16):
+            name = str(dt).replace("torch.", "")
+            blk = ResidualDenseBlock5C(NF, GC)
+            ws, bs = _block_weights(gen)
+            with torch.no_grad():
+                for conv, wt, bt in zip(blk.convs(), ws, bs):
+                    conv.weight.copy_(wt)
+                    conv.bias.copy_(bt)
+            blk = blk.cuda()
+            packed, biases = blk.packed(dt)
+            x = (torch.randn(b, h, w, NF, generator=gen) * 0.5).cuda().to(dt)
+            x_nchw = x.permute(0, 3, 1, 2)
             conv_blk = blk.to(dt)
-            library_ms = _time_ms(lambda: conv_blk._unfused_forward(x_nchw))
-        name = str(dt).replace("torch.", "")
-        nbytes = (x.numel() * 2 * x.element_size()
-                  + sum(p.numel() * p.element_size() for p in packed)
-                  + sum(t.numel() * 4 for t in biases))
-        work = flops * b * h * w
-        t_ops = work / PEAK_FLOPS[name] * 1e3
-        t_bytes = nbytes / PEAK_BYTES * 1e3
-        bound_ms = max(t_ops, t_bytes)
-        rows[name] = dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
-                          bound_ms=bound_ms,
-                          bound_by="operations" if t_ops >= t_bytes
-                          else "bytes")
-        print(f"times: rdb5c {name} b={b} {h}x{w}: kernel {ms:.4f} ms, "
-              f"plain {plain_ms:.4f} ms, cuDNN 5-conv chain "
-              f"{library_ms:.4f} ms, bound {bound_ms:.4f} ms "
-              f"({rows[name]['bound_by']}), "
-              f"{work / ms / 1e9:.2f} TFLOP/s ({smi})")
-        del blk, conv_blk
+            with torch.inference_mode():
+                ms = _time_ms(lambda: rdb5c_forward(x, packed, biases))
+                plain_ms = _time_ms(
+                    lambda: rdb5c_forward_plain(x, packed, biases), iters=5)
+                library_ms = _time_ms(
+                    lambda: conv_blk._unfused_forward(x_nchw))
+            w_bytes = sum(p.numel() * p.element_size() for p in packed)
+            nbytes = (x.numel() * 2 * x.element_size() + w_bytes
+                      + sum(t.numel() * 4 for t in biases))
+            work = 2 * 9 * n_q * npix
+            bound_ms, bound_by = _bound(name, work, nbytes)
+            rows["rdb5c_forward", shape, name] = dict(
+                ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                bound_ms=bound_ms, bound_by=bound_by)
+            print(f"times: rdb5c {name} b={b} {h}x{w}: kernel {ms:.4f} ms, "
+                  f"plain {plain_ms:.4f} ms, cuDNN 5-conv chain "
+                  f"{library_ms:.4f} ms, bound {bound_ms:.4f} ms "
+                  f"({bound_by}), {work / ms / 1e9:.2f} TFLOP/s ({smi})")
+            if shape != TRAIN_SHAPE:
+                del blk, conv_blk
+                continue
 
+            # the backward at the training shape, from the forward's
+            # residuals; the yardstick is autograd's backward through the
+            # cuDNN chain on a kept graph
+            g = torch.randn(b, h, w, NF, generator=gen).cuda().to(dt)
+            with torch.no_grad():
+                _, *cs = rdb5c_forward(x, packed, biases,
+                                       return_residuals=True)
+                ms = _time_ms(lambda: rdb5c_backward(g, x, *cs, packed))
+                plain_ms = _time_ms(
+                    lambda: rdb5c_backward_plain(g, x, *cs, packed), iters=3)
+            xin = x_nchw.detach().requires_grad_(True)
+            out = conv_blk._unfused_forward(xin)
+            inputs = [xin, *conv_blk.parameters()]
+            g_nchw = g.permute(0, 3, 1, 2)
+            library_ms = _time_ms(lambda: torch.autograd.grad(
+                out, inputs, g_nchw, retain_graph=True))
+            nbytes = ((3 * NF + 4 * GC) * npix * x.element_size() + w_bytes
+                      + sum(p.numel() for p in packed) * 4
+                      + (4 * GC + NF) * 4)
+            work = 4 * 9 * n_q * npix
+            bound_ms, bound_by = _bound(name, work, nbytes)
+            rows["rdb5c_backward", shape, name] = dict(
+                ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                bound_ms=bound_ms, bound_by=bound_by)
+            print(f"times: rdb5c_bwd {name} b={b} {h}x{w}: kernel "
+                  f"{ms:.4f} ms, plain {plain_ms:.4f} ms, autograd through "
+                  f"the cuDNN 5-conv chain {library_ms:.4f} ms, bound "
+                  f"{bound_ms:.4f} ms ({bound_by}), "
+                  f"{work / ms / 1e9:.2f} TFLOP/s ({smi})")
+            del blk, conv_blk, out, inputs, xin
+
+    b, h, w = MAIN_SHAPE
     opt = parse(_options(root, name="smoke_times"), is_train=False)
     lr = torch.rand(b, h, w, 3, generator=gen).cuda()
     for dt in (torch.float32, torch.bfloat16):
@@ -323,45 +619,52 @@ def phase_times(smi: str, root: str, main_err: float, launches: int):
               f"{mpx:.3f} Mpx/s ({smi})")
         del net
         torch.cuda.empty_cache()
-
-    f32 = rows["float32"]
-    return [{"name": "rdb5c_forward", "route": "cuda",
-             "source": "trainner_tpu_torch/csrc/rdb5c.cu",
-             "replaces": "trainner_tpu/ops/pallas_kernels.py:180",
-             "launches": launches, "max_abs_err": main_err,
-             "ms": f32["ms"], "plain_ms": f32["plain_ms"],
-             "bound_ms": f32["bound_ms"], "bound_by": f32["bound_by"],
-             "library_ms": f32["library_ms"]}]
+    return rows
 
 
-def phase_trace(smi: str, root: str) -> None:
-    """Where the G forward's time goes, from a profiler trace of one f32
-    forward at b=8, 128->512 px."""
+def _kernel_rows(rows, serving_launches, train, main_err, bwd_err):
+    """The JSON summary: each kernel at its main path's shape and type (the
+    forward at the serving shape in f32, the backward at the training shape
+    in bf16), with the launches counted over the main paths' runs."""
+    fwd = rows["rdb5c_forward", MAIN_SHAPE, "float32"]
+    bwd = rows["rdb5c_backward", TRAIN_SHAPE, "bfloat16"]
+    keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    return [
+        {"name": "rdb5c_forward", "route": "cuda",
+         "source": "trainner_tpu_torch/csrc/rdb5c.cu",
+         "replaces": "trainner_tpu/ops/pallas_kernels.py:180",
+         "launches": serving_launches + sum(
+             r["forward"] for r in train.values()),
+         "max_abs_err": main_err, **{k: fwd[k] for k in keys},
+         "shape": list(MAIN_SHAPE), "dtype": "float32"},
+        {"name": "rdb5c_backward", "route": "cuda",
+         "source": "trainner_tpu_torch/csrc/rdb5c_bwd.cu",
+         "replaces": "trainner_tpu/ops/pallas_kernels.py:355",
+         "launches": sum(r["backward"] for r in train.values()),
+         "max_abs_err": bwd_err, **{k: bwd[k] for k in keys},
+         "shape": list(TRAIN_SHAPE), "dtype": "bfloat16"},
+    ]
+
+
+def _traced(fn, label: str, smi: str, untraced_ms: float = 0.0) -> None:
+    """Runs ``fn`` once under torch.profiler and prints the device time by
+    kernel and the device's idle share of the wall time; with
+    ``untraced_ms``, the time of the same work without the profiler, also
+    the idle share against that (the profiler slows the host)."""
     import collections
 
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    from trainner_tpu_torch.models import define_G
-    from trainner_tpu_torch.options import parse
-
-    b, h, w = MAIN_SHAPE
-    opt = parse(_options(root, name="smoke_trace"), is_train=False)
-    net = define_G(opt, dtype=torch.float32)
-    net.init_weights(torch.Generator().manual_seed(0))
-    net = net.cuda().eval()
-    lr = torch.rand(b, h, w, 3, generator=torch.Generator().manual_seed(3)
-                    ).cuda()
-    with torch.inference_mode():
-        net(lr)
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            net(lr)
-            torch.cuda.synchronize()
-            wall_us = (time.perf_counter() - t0) * 1e6
+        wall_us = (time.perf_counter() - t0) * 1e6
     by_name = collections.Counter()
     calls = collections.Counter()
     for e in prof.events():
@@ -373,14 +676,48 @@ def phase_trace(smi: str, root: str) -> None:
     busy_us = sum(by_name.values())
     if not busy_us:
         print(f"trace: the profiler recorded no device time; the breakdown "
-              f"is not measured ({smi})")
+              f"of {label} is not measured ({smi})")
         return
-    print(f"trace: f32 G forward b={b} {h}->{h * 4} px: wall "
-          f"{wall_us / 1e3:.3f} ms, device busy {busy_us / 1e3:.3f} ms, "
-          f"idle share {1 - busy_us / wall_us:.4f} ({smi})")
-    for name, us in by_name.most_common(8):
+    print(f"trace: {label}: wall {wall_us / 1e3:.3f} ms, device busy "
+          f"{busy_us / 1e3:.3f} ms, idle share "
+          f"{1 - busy_us / wall_us:.4f} ({smi})")
+    if untraced_ms:
+        print(f"trace: {label}: untraced {untraced_ms:.3f} ms, idle share "
+              f"against it {1 - busy_us / 1e3 / untraced_ms:.4f} ({smi})")
+    for name, us in by_name.most_common(12):
         print(f"trace:   {us / 1e3:9.3f} ms {us / max(busy_us, 1):7.2%} "
               f"{calls[name]:4d} x {name}")
+
+
+def phase_trace(smi: str, root: str, step_ms: float) -> None:
+    """Where the time goes, from profiler traces: one f32 G forward at b=8,
+    128->512 px, and one bf16 train step at b=32, 32->128 px (``step_ms``:
+    its time without the profiler, from the training phase)."""
+    import torch
+
+    from trainner_tpu_torch.models import define_G
+    from trainner_tpu_torch.options import parse
+    from trainner_tpu_torch.train.sr_trainer import create_trainer
+
+    b, h, w = MAIN_SHAPE
+    opt = parse(_options(root, name="smoke_trace"), is_train=False)
+    net = define_G(opt, dtype=torch.float32)
+    net.init_weights(torch.Generator().manual_seed(0))
+    net = net.cuda().eval()
+    lr = torch.rand(b, h, w, 3, generator=torch.Generator().manual_seed(3)
+                    ).cuda()
+    with torch.inference_mode():
+        _traced(lambda: net(lr), f"f32 G forward b={b} {h}->{h * 4} px", smi)
+    del net
+    torch.cuda.empty_cache()
+
+    trainer = create_trainer(_train_options())
+    state = trainer.init_state(0)
+    batch = _train_batch()
+    trainer.train_step(state, batch)
+    _traced(lambda: trainer.train_step(state, batch),
+            f"bf16 train_step b={TRAIN_SHAPE[0]} "
+            f"{TRAIN_SHAPE[1]}->{TRAIN_SHAPE[1] * 4} px", smi, step_ms)
 
 
 def main() -> int:
@@ -404,14 +741,17 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
 
-    main_err = phase_kernels(smi)
+    main_err, bwd_err = phase_kernels(smi)
     with tempfile.TemporaryDirectory() as root:
         launches = phase_slice(smi, root)
         phase_g_compare(smi, root)
+        train = phase_train(smi)
+        phase_g_gradient(smi)
         torch.backends.cudnn.allow_tf32 = False
         torch.backends.cuda.matmul.allow_tf32 = False
-        kernels = phase_times(smi, root, main_err, launches)
-        phase_trace(smi, root)
+        rows = phase_times(smi, root)
+        phase_trace(smi, root, train["bfloat16"]["step_ms"])
+    kernels = _kernel_rows(rows, launches, train, main_err, bwd_err)
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -15,7 +15,7 @@ import pytest
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 PORT = ROOT / "trainner_tpu_torch"
 FILES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
-FORBIDDEN = ("jax", "jaxlib", "flax", "trainner_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "trainner_tpu")
 ABSENT_ON_CARD = ("yaml", "cv2", "msgpack", "triton")
 
 
@@ -45,7 +45,16 @@ def test_no_jax_import_in_source(path):
 def test_port_has_modules_to_scan():
     names = {_module_name(p) for p in FILES}
     assert {"trainner_tpu_torch.ops.rdb5c", "trainner_tpu_torch.test",
-            "trainner_tpu_torch.models.rrdb", "chip_smoke"} <= names
+            "trainner_tpu_torch.models.rrdb", "chip_smoke",
+            "trainner_tpu_torch.models.discriminators",
+            "trainner_tpu_torch.models.perceptual",
+            "trainner_tpu_torch.losses.gan",
+            "trainner_tpu_torch.losses.generator_loss",
+            "trainner_tpu_torch.losses.perceptual",
+            "trainner_tpu_torch.train.optimizers",
+            "trainner_tpu_torch.train.schedulers",
+            "trainner_tpu_torch.train.state",
+            "trainner_tpu_torch.train.sr_trainer"} <= names
 
 
 _GUARD = """

@@ -34,46 +34,13 @@
 // times. Tensor-core products (wgmma for bf16, 3xTF32 for f32), TMA loads
 // and one fused launch for all five stages are work for later versions.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "conv3x3_tile.cuh"
 
 namespace {
 
-constexpr int TH = 16;              // output rows per block
-constexpr int TW = 16;              // output columns per block
-constexpr int HH = TH + 2;          // halo tile rows
-constexpr int HW = TW + 2;          // halo tile columns
-constexpr int HPIX = HH * HW;       // 324 halo pixels
-constexpr int LDA = 329;            // A-tile row pitch; LDA % 8 == 1 keeps the stores conflict-free
-constexpr int KC = 32;              // input channels per chunk
-constexpr int BN = 32;              // product columns per block
-constexpr int THREADS = 256;        // 64 pixel groups x 4 column groups
-constexpr size_t SMEM_BYTES = (size_t)(KC * LDA + 9 * KC * BN) * sizeof(float);
+using namespace rdbk;
 
-__device__ __forceinline__ void load4(const float* p, float* o) {
-  const float4 v = *reinterpret_cast<const float4*>(p);
-  o[0] = v.x; o[1] = v.y; o[2] = v.z; o[3] = v.w;
-}
-
-__device__ __forceinline__ void load4(const __nv_bfloat16* p, float* o) {
-  const uint2 v = *reinterpret_cast<const uint2*>(p);
-  const __nv_bfloat162 lo = *reinterpret_cast<const __nv_bfloat162*>(&v.x);
-  const __nv_bfloat162 hi = *reinterpret_cast<const __nv_bfloat162*>(&v.y);
-  o[0] = __low2float(lo); o[1] = __high2float(lo);
-  o[2] = __low2float(hi); o[3] = __high2float(hi);
-}
-
-__device__ __forceinline__ void store4(float* p, const float* v) {
-  *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
-}
-
-__device__ __forceinline__ void store4(__nv_bfloat16* p, const float* v) {
-  uint2 u;
-  *reinterpret_cast<__nv_bfloat162*>(&u.x) = __floats2bfloat162_rn(v[0], v[1]);
-  *reinterpret_cast<__nv_bfloat162*>(&u.y) = __floats2bfloat162_rn(v[2], v[3]);
-  *reinterpret_cast<uint2*>(p) = u;
-}
+constexpr size_t SMEM_BYTES = CONV_SMEM_BYTES;
 
 // One 3x3 implicit-GEMM stage. Block = 16x16 output pixels of one image x
 // 32 product columns. Thread = 4 consecutive pixels of one row x 8 columns.
@@ -88,86 +55,18 @@ rdb_stage(const T* __restrict__ in, int cin,
           int gc, int first, int last,
           int h, int w, int tiles_x, int tiles_y) {
   extern __shared__ float smem[];
-  float* As = smem;               // [KC][LDA]: channel-major halo tile
-  float* Ws = smem + KC * LDA;    // [9][KC][BN]
-
-  const int tid = threadIdx.x;
-  int tile = blockIdx.x;
-  const int tx_t = tile % tiles_x;
-  tile /= tiles_x;
-  const int ty_t = tile % tiles_y;
-  const int bi = tile / tiles_y;
-  const int y0 = ty_t * TH;
-  const int x0 = tx_t * TW;
-  const int n0 = blockIdx.y * BN;
-
-  const int tc = tid & 3;          // columns n0 + tc*8 .. +8
-  const int tp = tid >> 2;         // pixel group 0..63
-  const int prow = tp >> 2;        // tile row 0..15
-  const int pcol = (tp & 3) * 4;   // tile columns pcol .. pcol+4
-
   float r[4][8];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 8; ++j) r[i][j] = 0.f;
+  conv3x3_tile<T>(smem, in, cin, 0, cin, wp, ncols, h, w, tiles_x, tiles_y, r);
 
-  for (int c0 = 0; c0 < cin; c0 += KC) {
-    // halo tile of channels c0..c0+KC; zeros outside the image
-    for (int i = tid; i < HPIX * (KC / 4); i += THREADS) {
-      const int hp = i >> 3;
-      const int cg = i & 7;
-      const int yy = y0 + hp / HW - 1;
-      const int xx = x0 + hp % HW - 1;
-      float v[4] = {0.f, 0.f, 0.f, 0.f};
-      if (yy >= 0 && yy < h && xx >= 0 && xx < w) {
-        const long long pix = ((long long)bi * h + yy) * w + xx;
-        load4(in + pix * cin + c0 + cg * 4, v);
-      }
-#pragma unroll
-      for (int e = 0; e < 4; ++e) As[(cg * 4 + e) * LDA + hp] = v[e];
-    }
-    // weights of all nine taps for these channels and columns
-    for (int i = tid; i < 9 * KC * (BN / 4); i += THREADS) {
-      const int cg = i & 7;
-      const int k = (i >> 3) % KC;
-      const int t = (i >> 3) / KC;
-      float v[4];
-      load4(wp + (long long)(t * cin + c0 + k) * ncols + n0 + cg * 4, v);
-      store4(Ws + (t * KC + k) * BN + cg * 4, v);
-    }
-    __syncthreads();
-
-#pragma unroll 1
-    for (int t = 0; t < 9; ++t) {
-      const float* ab = As + (prow + t / 3) * HW + pcol + t % 3;
-      const float* wb = Ws + t * KC * BN + tc * 8;
-#pragma unroll 8
-      for (int k = 0; k < KC; ++k) {
-        float a[4], b[8];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) a[i] = ab[k * LDA + i];
-        const float4 b0 = *reinterpret_cast<const float4*>(wb + k * BN);
-        const float4 b1 = *reinterpret_cast<const float4*>(wb + k * BN + 4);
-        b[0] = b0.x; b[1] = b0.y; b[2] = b0.z; b[3] = b0.w;
-        b[4] = b1.x; b[5] = b1.y; b[6] = b1.z; b[7] = b1.w;
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int j = 0; j < 8; ++j) r[i][j] = fmaf(a[i], b[j], r[i][j]);
-      }
-    }
-    __syncthreads();
-  }
-
-  const int yy = y0 + prow;
+  const TileCoords tc = tile_coords(tiles_x, tiles_y);
+  const int yy = tc.yy;
   if (yy >= h) return;
-  const int n = n0 + tc * 8;
+  const int n = tc.n;
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
-    const int xx = x0 + pcol + i;
+    const int xx = tc.xx0 + i;
     if (xx >= w) break;
-    const long long pix = ((long long)bi * h + yy) * w + xx;
+    const long long pix = ((long long)tc.bi * h + yy) * w + xx;
     float* s = acc + pix * accw + acc_off + n;
 #pragma unroll
     for (int g = 0; g < 8; g += 4) {

@@ -1,3 +1,3 @@
-from .networks import define_G
+from .networks import define_D, define_G
 
-__all__ = ["define_G"]
+__all__ = ["define_D", "define_G"]

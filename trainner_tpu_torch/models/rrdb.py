@@ -7,9 +7,11 @@ the reference ``.pth`` "new" layout (``conv_first``,
 ``HRconv``, ``conv_last``), so a reference state_dict loads with
 ``load_state_dict``.
 
-Every residual dense block runs ``ops.rdb5c.rdb5c_forward``: the CUDA kernel
-on the card, its plain PyTorch version on the CPU. The unfused five-conv
-chain (``_unfused_forward``) is kept only as a test oracle.
+Every residual dense block runs the hand-written kernels of ``ops.rdb5c``
+(their plain PyTorch versions on the CPU): ``rdb5c_forward`` alone when no
+gradient is asked for, ``RDB5CFunction`` (forward with residuals, kernel
+backward) under autograd. The unfused five-conv chain (``_unfused_forward``)
+is kept only as a test oracle.
 """
 
 from __future__ import annotations
@@ -22,7 +24,8 @@ from torch import nn
 
 from ..ops.blocks import (ConvBlock, GaussianNoise, PixelShuffleBlock,
                           UpconvBlock, _Conv, finalact)
-from ..ops.rdb5c import pack_rdb_weights, rdb5c_forward
+from ..ops import rdb5c
+from ..ops.rdb5c import pack_rdb_weights
 
 
 class ResidualDenseBlock5C(nn.Module):
@@ -49,7 +52,9 @@ class ResidualDenseBlock5C(nn.Module):
     def packed(self, dtype: torch.dtype):
         """(packed weights in ``dtype``, f32 biases) for the kernel."""
         params = [p for c in self.convs() for p in (c.weight, c.bias)]
-        key = (dtype, params[0].device)
+        # tensors made under inference_mode cannot be saved for backward,
+        # so the two modes keep separate entries
+        key = (dtype, params[0].device, torch.is_inference_mode_enabled())
         stamp = tuple(p._version for p in params) + tuple(
             p.data_ptr() for p in params)
         hit = self._packed.get(key)
@@ -65,8 +70,13 @@ class ResidualDenseBlock5C(nn.Module):
 
     def forward(self, x):
         """x: NCHW in channels_last memory."""
-        ws, bs = self.packed(x.dtype)
-        out = rdb5c_forward(x.permute(0, 2, 3, 1), ws, bs)
+        nhwc = x.permute(0, 2, 3, 1)
+        if torch.is_grad_enabled():
+            params = [p for c in self.convs() for p in (c.weight, c.bias)]
+            out = rdb5c.RDB5CFunction.apply(nhwc, self.packed, *params)
+        else:
+            ws, bs = self.packed(x.dtype)
+            out = rdb5c.rdb5c_forward(nhwc, ws, bs)
         out = out.permute(0, 3, 1, 2)
         return out if self.noise is None else self.noise(out)
 

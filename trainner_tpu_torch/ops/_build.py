@@ -3,7 +3,8 @@
 Each source under ``trainner_tpu_torch/csrc/`` is compiled by ``nvcc`` for
 ``sm_90a`` into a shared library with a plain C interface, in
 ``<repo>/build/kernels/``. The library's file name carries a hash of the
-source and the flags, so a library is rebuilt only when its source changes.
+source, the headers beside it (``*.cuh``) and the flags, so a library is
+rebuilt only when one of them changes.
 Nothing is built when this module is imported: ``load`` builds at first use,
 and ``build_all`` starts one ``nvcc`` per source, all at once.
 """
@@ -21,7 +22,7 @@ from typing import Dict, List
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
-SOURCES = ("rdb5c.cu",)
+SOURCES = ("rdb5c.cu", "rdb5c_bwd.cu")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -42,6 +43,8 @@ def nvcc_path() -> str:
 
 def library_path(source: str) -> Path:
     text = (CSRC / source).read_bytes() + " ".join(NVCC_FLAGS).encode()
+    for header in sorted(CSRC.glob("*.cuh")):
+        text += header.read_bytes()
     digest = hashlib.sha256(text).hexdigest()[:16]
     return BUILD_DIR / f"{Path(source).stem}-{digest}.so"
 

@@ -1,9 +1,11 @@
-"""Building blocks of the generator.
+"""Building blocks of the generator and the discriminator.
 
 Counterpart of ``trainner_tpu/ops/blocks.py``: ``kaiming_init:27``,
-``act:44``, ``finalact:73``, ``depth_to_space:112``, ``nearest_up:180``,
-``ConvBlock:192`` (CNA, no norm, zero padding), ``GaussianNoise:282``
-(identity at eval), ``PixelShuffleBlock:315`` and ``UpconvBlock:369``.
+``act:44``, ``finalact:73``, ``depth_to_space:112``, ``wire_to_f01:169``,
+``nearest_up:180``, ``ConvBlock:192`` (CNA, zero padding, no norm or a
+batch norm that reproduces flax's), ``GaussianNoise:282`` (relative noise
+in train mode, the identity at eval), ``PixelShuffleBlock:315`` and
+``UpconvBlock:369``.
 
 Modules take and return NCHW tensors (the network keeps them in
 ``channels_last`` memory, so NHWC views of them are contiguous); the free
@@ -84,6 +86,15 @@ def depth_to_space(x: torch.Tensor, r: int) -> torch.Tensor:
     return x.reshape(b, h * r, w * r, c_out)
 
 
+def wire_to_f01(x: torch.Tensor, znorm: bool = False) -> torch.Tensor:
+    """Normalises a wire batch on the device: uint8 -> [0, 1] f32 (/255,
+    and to [-1, 1] with ``znorm``); float batches pass through as f32."""
+    if x.dtype == torch.uint8:
+        y = x.float() * (1.0 / 255.0)
+        return y * 2.0 - 1.0 if znorm else y
+    return x.float()
+
+
 def nearest_up(x: torch.Tensor, r: int) -> torch.Tensor:
     """Exact nearest upsample of an NHWC tensor by an integer factor."""
     b, h, w, c = x.shape
@@ -95,11 +106,12 @@ class _Conv(nn.Module):
     """Holds one conv's f32 ``weight`` (OIHW) and ``bias``."""
 
     def __init__(self, in_nc: int, out_nc: int, kernel_size: int,
-                 use_bias: bool = True):
+                 use_bias: bool = True, stride: int = 1):
         super().__init__()
         self.weight = nn.Parameter(
             torch.zeros(out_nc, in_nc, kernel_size, kernel_size))
         self.bias = nn.Parameter(torch.zeros(out_nc)) if use_bias else None
+        self.stride = stride
 
     def init_weights(self, scale: float, generator: torch.Generator):
         kaiming_init_(self.weight, scale, generator)
@@ -108,47 +120,105 @@ class _Conv(nn.Module):
                 self.bias.zero_()
 
     def _conv(self, x, weight=None, bias=None):
+        """Zero padding of (k - 1) // 2 on each side, as ``explicit_pad``
+        before a VALID conv gives (1 for the 4x4 stride-2 kernel)."""
         weight = self.weight if weight is None else weight
         bias = self.bias if bias is None else bias
         return F.conv2d(x, weight.to(x.dtype),
                         None if bias is None else bias.to(x.dtype),
-                        padding=weight.shape[-1] // 2)
+                        stride=self.stride,
+                        padding=(weight.shape[-1] - 1) // 2)
+
+
+class BatchNorm(nn.Module):
+    """flax's ``nn.BatchNorm`` over NCHW: momentum 0.99, eps 1e-5,
+    statistics in f32 whatever the input's type, variance as E[x^2] -
+    E[x]^2 clipped at 0, and a running variance that is the *biased* batch
+    variance (torch stores the unbiased one).
+
+    In train mode it normalises with the batch statistics and leaves the
+    new running statistics in ``pending`` instead of writing them:
+    ``commit`` writes the last pass's. So a caller can run the module
+    several times per step and keep one update, or none, as the JAX
+    trainer does with the ``batch_stats`` collection."""
+
+    def __init__(self, num_features: int, momentum: float = 0.99,
+                 eps: float = 1e-5):
+        super().__init__()
+        self.momentum, self.eps = momentum, eps
+        self.weight = nn.Parameter(torch.ones(num_features))
+        self.bias = nn.Parameter(torch.zeros(num_features))
+        self.register_buffer("running_mean", torch.zeros(num_features))
+        self.register_buffer("running_var", torch.ones(num_features))
+        self.pending = None
+
+    def forward(self, x):
+        x32 = x.float()
+        if self.training:
+            mean = x32.mean((0, 2, 3))
+            var = ((x32 * x32).mean((0, 2, 3)) - mean * mean).clamp_min(0.0)
+            with torch.no_grad():
+                m = self.momentum
+                self.pending = (m * self.running_mean + (1 - m) * mean,
+                                m * self.running_var + (1 - m) * var)
+        else:
+            mean, var = self.running_mean, self.running_var
+        mul = torch.rsqrt(var + self.eps) * self.weight
+        y = (x32 - mean[None, :, None, None]) * mul[None, :, None, None] \
+            + self.bias[None, :, None, None]
+        return y.to(x.dtype)
+
+    def commit(self) -> None:
+        """Writes the running statistics of the last train-mode pass."""
+        if self.pending is not None:
+            self.running_mean.copy_(self.pending[0])
+            self.running_var.copy_(self.pending[1])
+            self.pending = None
 
 
 class ConvBlock(_Conv):
-    """conv + act in the CNA order, zero padding, no norm."""
+    """conv (+ batch norm) + act in the CNA order, zero padding."""
 
     def __init__(self, in_nc: int, out_nc: int, kernel_size: int = 3,
                  act_type: Optional[str] = "relu", norm_type=None,
                  mode: str = "CNA", pad_type: str = "zero",
-                 use_bias: bool = True):
-        if norm_type or mode != "CNA" or pad_type != "zero" \
-                or kernel_size % 2 == 0:
+                 use_bias: bool = True, stride: int = 1):
+        norm_type = (norm_type or "").lower() or None
+        if norm_type not in (None, "batch") or mode != "CNA" \
+                or pad_type != "zero":
             raise NotImplementedError(
-                "ConvBlock supports CNA, zero padding, odd kernels and no "
-                "norm; the rest is not ported yet (ROADMAP Queue A, norms "
-                "and other block options)")
-        super().__init__(in_nc, out_nc, kernel_size, use_bias)
+                "ConvBlock supports CNA, zero padding and no norm or batch "
+                "norm; the rest is not ported yet (ROADMAP Queue A 2.5, "
+                "norms and other block options)")
+        super().__init__(in_nc, out_nc, kernel_size, use_bias, stride)
+        self.norm = BatchNorm(out_nc) if norm_type == "batch" else None
         self.act = act(act_type)
 
     def forward(self, x):
-        return self.act(self._conv(x))
+        x = self._conv(x)
+        if self.norm is not None:
+            x = self.norm(x)
+        return self.act(x)
 
 
 class GaussianNoise(nn.Module):
-    """Train-time latent noise; the identity in eval mode, the only mode
-    that the port runs yet."""
+    """Train-time latent noise, relative to the input and with no gradient
+    through the scale: ``x + sigma * x.detach() * randn``. The identity in
+    eval mode. The draw comes from ``generator`` (one on x's device, which
+    the trainer owns and sets), or from torch's default generator when
+    none is set."""
 
     def __init__(self, sigma: float = 0.1):
         super().__init__()
         self.sigma = sigma
+        self.generator: Optional[torch.Generator] = None
 
     def forward(self, x):
-        if self.training and self.sigma:
-            raise NotImplementedError(
-                "train-mode GaussianNoise is not ported yet (ROADMAP Queue "
-                "A, the training step)")
-        return x
+        if not self.training or not self.sigma:
+            return x
+        noise = torch.randn(x.shape, dtype=x.dtype, device=x.device,
+                            generator=self.generator)
+        return x + self.sigma * x.detach() * noise
 
 
 class PixelShuffleBlock(_Conv):

@@ -1,16 +1,21 @@
-"""Forward of one residual dense block (5C): the hand-written CUDA kernel
-``csrc/rdb5c.cu`` and its plain PyTorch version.
+"""One residual dense block (5C), forward and backward: the hand-written
+CUDA kernels ``csrc/rdb5c.cu`` and ``csrc/rdb5c_bwd.cu``, their plain
+PyTorch versions, and ``RDB5CFunction``, which joins them under autograd.
 
-Counterpart of the TPU kernel ``trainner_tpu/ops/pallas_kernels.py::
-rdb5c_canvas`` (and of the XLA form ``models/rrdb.py::rdb5c_fused``, which
-computes the same function). The block runs as five 3x3 "scatter-to-future"
-stages against the packed weights of ``pack_rdb_weights``; see the kernel
-source for the design and its bound.
+Counterpart of the TPU kernels ``trainner_tpu/ops/pallas_kernels.py::
+rdb5c_canvas`` and ``rdb5c_canvas_bwd`` (and of the XLA form
+``models/rrdb.py::rdb5c_fused`` with its ``_bwd_dual``, which computes the
+same function). The block runs as five 3x3 "scatter-to-future" stages
+against the packed weights of ``pack_rdb_weights``; the backward walks the
+stages in reverse and returns packed weight gradients, which
+``unpack_rdb_wgrads`` cuts into the five per-conv gradients. See the kernel
+sources for the designs and their bounds.
 
 Layout at this module's functions is NHWC, as in the JAX package:
 x ``(b, h, w, nf)``, c1..c4 ``(b, h, w, gc)``. Packed weights are
 ``(9*cin, N)``, tap-major (HWIO reshaped), in the working type; biases are
-f32. Sums are taken in f32; c1..c4 and out are rounded to the working type.
+f32. Sums are taken in f32; c1..c4 and out, and in the backward dc5,
+da1..da4 and dx, are rounded to the working type once.
 """
 
 from __future__ import annotations
@@ -21,10 +26,13 @@ from typing import Sequence, Tuple
 import torch
 import torch.nn.functional as F
 
-# Launches of the CUDA kernel: one count per block forward (five stages).
+# Launches of the CUDA kernels: one count per block forward (five stages)
+# and one per block backward.
 launches = 0
+backward_launches = 0
 
 _SOURCE = "rdb5c.cu"
+_BWD_SOURCE = "rdb5c_bwd.cu"
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -87,32 +95,46 @@ def rdb5c_forward_plain(x: torch.Tensor, packed_w: Sequence[torch.Tensor],
     return out
 
 
-def _check(x, packed_w, biases):
+def _check_packed(x, packed_w):
     if x.dim() != 4 or not x.is_contiguous():
         raise ValueError("x must be a contiguous NHWC (b, h, w, nf) tensor")
     if x.dtype not in _DTYPES:
         raise TypeError(f"x dtype {x.dtype} is not float32 or bfloat16")
     nf = x.shape[-1]
-    if len(packed_w) != 5 or len(biases) != 5:
-        raise ValueError("need five packed weights and five biases")
+    if len(packed_w) != 5:
+        raise ValueError("need five packed weights")
     gc = packed_w[1].shape[0] // 9
     if nf % 32 or gc % 32:
         raise ValueError(f"the kernel needs nf and gc multiples of 32, "
                          f"got nf={nf}, gc={gc}")
-    for s, (p, b) in enumerate(zip(packed_w, biases)):
+    for s, p in enumerate(packed_w):
         cin = nf if s == 0 else gc
         n = 4 * gc + nf - s * gc
         if tuple(p.shape) != (9 * cin, n):
             raise ValueError(f"packed weight {s} has shape {tuple(p.shape)}"
                              f", expected {(9 * cin, n)}")
+        if p.dtype != x.dtype:
+            raise TypeError("packed weights take x's dtype")
+        if p.device != x.device:
+            raise ValueError("all operands must be on x's device")
+        if not p.is_contiguous():
+            raise ValueError("packed weights must be contiguous")
+    return nf, gc
+
+
+def _check(x, packed_w, biases):
+    nf, gc = _check_packed(x, packed_w)
+    if len(biases) != 5:
+        raise ValueError("need five biases")
+    for s, b in enumerate(biases):
         if tuple(b.shape) != ((gc,) if s < 4 else (nf,)):
             raise ValueError(f"bias {s} has shape {tuple(b.shape)}")
-        if p.dtype != x.dtype or b.dtype != torch.float32:
-            raise TypeError("packed weights take x's dtype, biases f32")
-        if p.device != x.device or b.device != x.device:
+        if b.dtype != torch.float32:
+            raise TypeError("biases are f32")
+        if b.device != x.device:
             raise ValueError("all operands must be on x's device")
-        if not (p.is_contiguous() and b.is_contiguous()):
-            raise ValueError("packed weights and biases must be contiguous")
+        if not b.is_contiguous():
+            raise ValueError("biases must be contiguous")
     return nf, gc
 
 
@@ -164,3 +186,172 @@ def rdb5c_forward(x: torch.Tensor, packed_w: Sequence[torch.Tensor],
     if return_residuals:
         return (out, *cs)
     return out
+
+
+def unpack_rdb_wgrads(dws: Sequence[torch.Tensor], nf: int, gc: int
+                      ) -> Tuple[torch.Tensor, ...]:
+    """Five packed ``(9*cin, N)`` weight gradients -> the five per-conv OIHW
+    gradients (``models/rrdb.py::_unpack_wgrads``): the inverse of
+    ``pack_rdb_weights`` on the output axis."""
+    h = [d.reshape(3, 3, nf if s == 0 else gc, -1) for s, d in enumerate(dws)]
+    outs = []
+    for k in range(5):
+        lo = k * gc
+        hi = lo + (gc if k < 4 else nf)
+        parts = [h[0][..., lo:hi]]
+        for s in range(1, k + 1):
+            parts.append(h[s][..., lo - s * gc:hi - s * gc])
+        outs.append(torch.cat(parts, dim=2).permute(3, 2, 0, 1))
+    return tuple(outs)
+
+
+def rdb5c_backward_plain(g: torch.Tensor, x: torch.Tensor, c1: torch.Tensor,
+                         c2: torch.Tensor, c3: torch.Tensor,
+                         c4: torch.Tensor,
+                         packed_w: Sequence[torch.Tensor]):
+    """The backward kernel's arithmetic in plain PyTorch: f32 transposed
+    convs and weight-gradient convs of working-type values, dc5 and da_k
+    rounded to the working type before any product, lrelu' read from the
+    sign of c_k (1 at c_k == 0, where torch's own backward gives 0.2), db5
+    summed from the f32 dc5 and db1..db4 from the rounded da_k. Returns
+    (dx, dW0..dW4 packed f32, db1..db5 f32)."""
+    dt = x.dtype
+    nchw32 = lambda t: t.permute(0, 3, 1, 2).float()  # noqa: E731
+    rounded = lambda t: t.to(dt).float()  # noqa: E731
+    g32 = nchw32(g)
+    dc5 = g32 * 0.2
+    db5 = dc5.sum((0, 2, 3))
+    grads = [None, None, None, None, rounded(dc5)]  # da1..da4, dc5
+    acts = (x, c1, c2, c3, c4)
+    dws = [None] * 5
+    for k in range(4, -1, -1):
+        dy = torch.cat(grads[k:], 1)
+        w = _unpack9(packed_w[k])
+        a = nchw32(acts[k])
+        dc = F.conv_transpose2d(dy, w, padding=1)
+        dw = torch.nn.grad.conv2d_weight(a, w.shape, dy, padding=1)
+        dws[k] = dw.permute(2, 3, 1, 0).reshape(9 * w.shape[1], w.shape[0])
+        if k == 0:
+            dx = (dc + g32).to(dt).permute(0, 2, 3, 1).contiguous()
+        else:
+            slope = torch.where(a >= 0, 1.0, 0.2)
+            grads[k - 1] = rounded(dc * slope)
+    dbs = [t.sum((0, 2, 3)) for t in grads[:4]] + [db5]
+    return (dx, *[d.contiguous() for d in dws], *dbs)
+
+
+def _check_backward(g, x, cs, packed_w):
+    nf, gc = _check_packed(x, packed_w)
+    for name, t, c in (("g", g, nf),
+                       *[(f"c{i + 1}", c_, gc) for i, c_ in enumerate(cs)]):
+        if tuple(t.shape) != (*x.shape[:3], c) or not t.is_contiguous():
+            raise ValueError(f"{name} must be a contiguous NHWC tensor of "
+                             f"shape {(*x.shape[:3], c)}")
+        if t.dtype != x.dtype or t.device != x.device:
+            raise TypeError(f"{name} must have x's dtype and device")
+    if 4 * gc + nf > 1024:
+        raise ValueError("the kernel needs 4*gc + nf <= 1024")
+    return nf, gc
+
+
+def _bwd_library():
+    from ._build import load
+
+    lib = load(_BWD_SOURCE)
+    if not getattr(lib, "_typed", False):
+        p, i = ctypes.c_void_p, ctypes.c_int
+        lib.rdb5c_backward.argtypes = [i] + [p] * 18 + [i] * 7 + [p]
+        lib.rdb5c_backward.restype = i
+        lib.rdb5c_bwd_error_string.argtypes = [i]
+        lib.rdb5c_bwd_error_string.restype = ctypes.c_char_p
+        lib._typed = True
+    return lib
+
+
+def rdb5c_backward(g: torch.Tensor, x: torch.Tensor, c1: torch.Tensor,
+                   c2: torch.Tensor, c3: torch.Tensor, c4: torch.Tensor,
+                   packed_w: Sequence[torch.Tensor]):
+    """One block backward from ``g = d out``, the forward's residuals and
+    the packed weights. On a CUDA tensor it launches the CUDA kernel (or
+    raises); on a CPU tensor it runs ``rdb5c_backward_plain``. Returns
+    (dx, dW0..dW4 packed f32, db1..db5 f32)."""
+    global backward_launches
+    if x.device.type == "cpu":
+        return rdb5c_backward_plain(g, x, c1, c2, c3, c4, packed_w)
+    if x.device.type != "cuda":
+        raise ValueError(f"rdb5c_backward runs on cuda or cpu, not {x.device}")
+    cs = (c1, c2, c3, c4)
+    nf, gc = _check_backward(g, x, cs, packed_w)
+    b, h, w, _ = x.shape
+    gw = 4 * gc + nf
+    npix = b * h * w
+    total = sum(p.numel() for p in packed_w)
+    # pixel tiles of 16x16; partial sums per split are added in a fixed
+    # order, so the result does not change from run to run
+    dw_splits = min(b * (-(-h // 16)) * (-(-w // 16)), 64)
+    db_splits = min(npix, 256)
+    lib = _bwd_library()
+    dev = x.device
+    grads = torch.empty((npix, gw), dtype=x.dtype, device=dev)
+    vt = torch.empty(total, dtype=x.dtype, device=dev)
+    dw_part = torch.empty((dw_splits, total), dtype=torch.float32, device=dev)
+    db_part = torch.empty((db_splits, gw), dtype=torch.float32, device=dev)
+    dx = torch.empty_like(x)
+    dw = torch.empty(total, dtype=torch.float32, device=dev)
+    db = torch.empty(gw, dtype=torch.float32, device=dev)
+    ptrs = [g, x, *cs, *packed_w, grads, vt, dw_part, db_part, dx, dw, db]
+    if any(t.data_ptr() % 16 for t in ptrs):
+        raise ValueError("operands must be 16-byte aligned")
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    with torch.cuda.device(dev):
+        err = lib.rdb5c_backward(_DTYPES[x.dtype],
+                                 *[t.data_ptr() for t in ptrs],
+                                 b, h, w, nf, gc, dw_splits, db_splits,
+                                 stream)
+    if err:
+        raise RuntimeError("rdb5c backward kernel launch failed: "
+                           + lib.rdb5c_bwd_error_string(err).decode())
+    backward_launches += 1
+    sizes = [p.numel() for p in packed_w]
+    dws = [d.view(p.shape) for d, p in zip(dw.split(sizes), packed_w)]
+    dbs = db.split([gc] * 4 + [nf])
+    return (dx, *dws, *dbs)
+
+
+class RDB5CFunction(torch.autograd.Function):
+    """One residual dense block under autograd: ``rdb5c_forward`` with its
+    residuals kept, ``rdb5c_backward`` as the gradient.
+
+    ``apply(x, packer, w1, b1, ..., w5, b5)``: x is NHWC in the working
+    type, the ten conv parameters are f32 OIHW weights and biases.
+    ``packer(dtype)`` returns the (cached) packed weights and f32 biases of
+    those parameters; with ``None`` they are packed here. Returns out in
+    NHWC; the parameters' gradients are f32."""
+
+    @staticmethod
+    def forward(ctx, x, packer, *params):
+        nf = x.shape[-1]
+        gc = params[0].shape[0]
+        with torch.no_grad():
+            if packer is None:
+                ws = pack_rdb_weights(params[0::2], nf, gc, x.dtype)
+                bs = tuple(b.float().contiguous() for b in params[1::2])
+            else:
+                ws, bs = packer(x.dtype)
+            x = x.contiguous()
+            out, *cs = rdb5c_forward(x, ws, bs, return_residuals=True)
+        ctx.save_for_backward(x, *cs, *ws)
+        ctx.dims = (nf, gc)
+        return out
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, g):
+        x, c1, c2, c3, c4, *ws = ctx.saved_tensors
+        nf, gc = ctx.dims
+        # g arrives as a permuted view, possibly in another type
+        g = g.to(x.dtype).contiguous()
+        dx, *rest = rdb5c_backward(g, x, c1, c2, c3, c4, ws)
+        dws = unpack_rdb_wgrads(rest[:5], nf, gc)
+        param_grads = [t for pair in zip(dws, rest[5:]) for t in pair]
+        return (dx, None, *param_grads)
