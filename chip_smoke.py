@@ -10,7 +10,9 @@ non-zero exit code and no result line:
 2. kernels: each kernel's wrapper against its plain PyTorch version on the
    card, TF32 off, f32 and bf16: the block's forward at the serving shape,
    the training shape and a ragged one, its backward at the training shape
-   and the ragged one;
+   and the ragged one; the per-sample blur at the producer's two shapes
+   (the HR and the LR canvas, k 21) and at a ragged one with asymmetric
+   kernels, and an identity kernel bit for bit;
 3. serving slice: ``python -m trainner_tpu_torch.test`` at the full width
    of the ESRGAN generator (nf 64, nb 23, gc 32, 4x) on a synthetic test
    set, in f32 and with ``use_amp``, counting kernel launches; then the
@@ -21,10 +23,18 @@ non-zero exit code and no result line:
    f32, counting forward and backward launches, with the step's time; two
    steps at ``D_update_ratio: 2``; then one f32 G-stage gradient of the
    full G on the kernels against the same on both plain versions;
-5. times: CUDA-event times of each kernel, its plain version, its bound
-   and the cuDNN five-conv chain as a yardstick, and the G forward at b=8,
-   128->512 px;
-6. trace: one f32 G forward at b=8 and one bf16 train step under
+5. producer slice: a corpus of PNGs written from a seed, then the
+   end-to-end training path at full width: train dataset (uint8 fast path,
+   tile cache) -> loader (pinned) -> ``device_prefetch`` ->
+   ``make_otf_degradation`` (the fixed-order bsrgan pipeline on the card,
+   two blur launches per batch) -> ``train_step`` in bf16; its it/s beside
+   the compute-only it/s of the same call, the degrader's and the loader's
+   time per batch, and a traced end-to-end step;
+6. times: CUDA-event times of each kernel, its plain version, its bound
+   and a library call as a yardstick (the cuDNN five-conv chain; reflect
+   padding and a grouped cuDNN convolution for the blur), and the G forward
+   at b=8, 128->512 px;
+7. trace: one f32 G forward at b=8 and one bf16 train step under
    ``torch.profiler``: device time by kernel and the device's idle share.
 
 The second-to-last lines are a JSON summary of the kernels and the card's
@@ -52,6 +62,10 @@ PEAK_BYTES = 3.35e12
 MAIN_SHAPE = (8, 128, 128)   # b, h, w of the LR trunk at b=8, 128->512 px
 TRAIN_SHAPE = (32, 32, 32)   # the trunk of a training step: b=32, 32->128 px
 RAGGED_SHAPE = (3, 37, 53)
+BLUR_HR = (32, 128, 128, 3)  # the HR canvas of the producer's first blur
+BLUR_LR = (32, 32, 32, 3)    # the LR canvas of its second blur
+BLUR_K = 21
+N_CORPUS, CORPUS_PX = 64, 256
 NF, GC, NB = 64, 32, 23
 N_IMAGES = 3
 BWD_NAMES = ("dx", "dW0", "dW1", "dW2", "dW3", "dW4",
@@ -194,6 +208,56 @@ def phase_kernels(smi: str):
                 bwd_err = max(errs)
     print(f"kernels: ok ({smi})")
     return main_err, bwd_err
+
+
+def _blur_kernels(gen, b: int, k: int):
+    """Asymmetric random kernels (b, k, k), each summing to 1."""
+    import torch
+
+    kern = torch.rand(b, k, k, generator=gen) ** 3
+    return (kern / kern.sum(dim=(1, 2), keepdim=True)).cuda()
+
+
+def phase_blur_kernel(smi: str) -> float:
+    """The per-sample blur against its plain version on the card. f32:
+    1e-5 absolute on inputs in [0, 1] (up to 441 products, the plain
+    version multiplies and adds in two roundings where the kernel fuses
+    them); bf16: one bf16 ulp of the output (both sum in f32 and round
+    once). Returns the f32 error at the HR canvas."""
+    import torch
+
+    from trainner_tpu_torch.ops.blur import (blur_per_sample,
+                                             blur_per_sample_plain)
+
+    gen = torch.Generator().manual_seed(5)
+    main_err = None
+    for shape, k in ((BLUR_HR, BLUR_K), (BLUR_LR, BLUR_K),
+                     ((5, 37, 53, 3), 7), ((5, 37, 53, 3), 21),
+                     ((5, 37, 53, 1), 21)):
+        x = torch.rand(*shape, generator=gen).cuda()
+        kern = _blur_kernels(gen, shape[0], k)
+        ident = torch.zeros(shape[0], k, k, device="cuda")
+        ident[:, k // 2, k // 2] = 1.0
+        for dt in (torch.float32, torch.bfloat16):
+            xd = x.to(dt)
+            got = blur_per_sample(xd, kern)
+            torch.cuda.synchronize()
+            ref = blur_per_sample_plain(xd, kern)
+            if got.shape != ref.shape or got.dtype != dt:
+                raise AssertionError(f"blur {shape}: {got.shape} {got.dtype}")
+            err = float((got.float() - ref.float()).abs().max())
+            tol = 1e-5 if dt == torch.float32 else _bf16_ulp(ref.float())
+            print(f"kernels: blur_per_sample {shape} k={k} {dt} max_abs_err "
+                  f"{err:.3e} tol {tol:.3e}")
+            if not err <= tol:
+                raise AssertionError(f"blur {shape} k={k} {dt}: {err} > {tol}")
+            if not torch.equal(blur_per_sample(xd, ident), xd):
+                raise AssertionError(f"blur {shape} k={k} {dt}: the identity "
+                                     "kernel changed the input")
+            if shape == BLUR_HR and dt == torch.float32:
+                main_err = err
+    print(f"kernels: blur ok ({smi})")
+    return main_err
 
 
 @contextlib.contextmanager
@@ -509,6 +573,170 @@ def phase_g_gradient(smi: str) -> None:
     torch.cuda.empty_cache()
 
 
+def _write_corpus(root: str, n: int = N_CORPUS, px: int = CORPUS_PX,
+                  seed: int = 0) -> None:
+    """``n`` PNGs of ``px`` x ``px``: random fields with a 1/f^1.2
+    spectrum from a seed (smooth, not white noise, so that blur and JPEG
+    act on something), channels correlated, written by the port's own PNG
+    writer."""
+    import torch
+
+    from trainner_tpu_torch.data import save_img
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    f = torch.fft.fftfreq(px, device="cuda")
+    radius = torch.hypot(f[:, None], f[None, :])
+    radius[0, 0] = 1.0
+    white = torch.randn(n, 3, px, px, generator=gen, device="cuda")
+    img = torch.fft.ifft2(torch.fft.fft2(white) / radius ** 1.2).real
+    img = img + 0.6 * img.mean(dim=1, keepdim=True)
+    img = (img - img.mean(dim=(1, 2, 3), keepdim=True)) \
+        / img.std(dim=(1, 2, 3), keepdim=True) * 0.18 + 0.5
+    u8 = (img.clamp(0, 1) * 255).round().to(torch.uint8).permute(0, 2, 3, 1)
+    for i, arr in enumerate(u8.cpu().numpy()):
+        save_img(arr, os.path.join(root, f"{i:04d}.png"))
+
+
+def _e2e_options(root: str) -> dict:
+    """The end-to-end training configuration: the flagship GAN step fed
+    by the aligned train dataset under the bsrgan blind-SR degradations in
+    their fixed order, uint8 on the wire."""
+    return {**_train_options(), "model": "sr", "datasets": {"train": {
+        "name": "smoke", "mode": "aligned", "dataroot_HR": root,
+        "crop_size": TRAIN_SHAPE[1] * 4, "batch_size": TRAIN_SHAPE[0],
+        "use_flip": True, "use_rot": True, "augs_strategy": "bsrgan",
+        "resize_strat": "in", "n_workers": 4, "wire_dtype": "uint8",
+        "shuffle_degradations": False}}}
+
+
+def phase_producer(smi: str, root: str) -> dict:
+    """The end-to-end path at full width, bf16: 3 warm-up and 10 timed
+    steps of loader -> prefetch -> degradations -> train_step, with the
+    three kernels' launches counted over the timed steps. Returns the
+    counts."""
+    import torch
+
+    from trainner_tpu_torch.data import create_dataloader, create_dataset
+    from trainner_tpu_torch.ops import blur, rdb5c
+    from trainner_tpu_torch.options import parse_dict
+    from trainner_tpu_torch.train import (batches, create_trainer,
+                                          make_otf_degradation)
+
+    corpus = os.path.join(root, "corpus")
+    os.makedirs(corpus)
+    t0 = time.perf_counter()
+    _write_corpus(corpus)
+    print(f"producer: {N_CORPUS} PNGs of {CORPUS_PX}x{CORPUS_PX} written in "
+          f"{time.perf_counter() - t0:.2f} s")
+    opt = parse_dict(_e2e_options(corpus), is_train=True)
+    ds_opt = opt["datasets"]["train"]
+    dataset = create_dataset(ds_opt)
+    if not (dataset._fast_u8 and dataset.skip_host_lr):
+        raise AssertionError("the dataset is not on its uint8 fast path")
+    loader = create_dataloader(dataset, ds_opt, pin_memory=True)
+    t0 = time.perf_counter()
+    n_first = sum(1 for _ in loader)  # the first epoch decodes every file
+    print(f"producer: first epoch ({n_first} batches, every PNG decoded "
+          f"into the tile cache) {time.perf_counter() - t0:.2f} s")
+    if len(dataset._cache) != N_CORPUS:
+        raise AssertionError(f"{len(dataset._cache)} images in the cache")
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    degrade = make_otf_degradation(opt, generator=gen)
+    trainer = create_trainer(opt)
+    state = trainer.init_state(0)
+    stream = batches(loader)
+    b, lr_px = TRAIN_SHAPE[0], TRAIN_SHAPE[1]
+    per_g = NB * 3
+
+    def e2e_step():
+        nonlocal state
+        batch = degrade(next(stream))
+        state, logs = trainer.train_step(state, batch)
+        return batch, logs
+
+    for _ in range(3):
+        batch, logs = e2e_step()
+    torch.cuda.synchronize()
+    hr, lr = batch["HR"], batch["LR"]
+    if hr.dtype != torch.uint8 or tuple(hr.shape) != (b, lr_px * 4,
+                                                      lr_px * 4, 3):
+        raise AssertionError(f"HR {hr.dtype} {tuple(hr.shape)}")
+    if lr.dtype != torch.float32 or not lr.is_cuda \
+            or tuple(lr.shape) != (b, lr_px, lr_px, 3):
+        raise AssertionError(f"LR {lr.dtype} {lr.device} {tuple(lr.shape)}")
+    lo, hi = float(lr.min()), float(lr.max())
+    off = float((lr * 255 - (lr * 255).round()).abs().max())
+    moved = float((lr - hr[:, ::4, ::4].float() / 255).abs().mean())
+    print(f"producer: LR {tuple(lr.shape)} {lr.dtype} on {lr.device}, in "
+          f"[{lo:.4f}, {hi:.4f}], off the 1/255 lattice by {off:.2e}, mean "
+          f"distance from the strided placeholder {moved:.4f}")
+    if not (0.0 <= lo and hi <= 1.0 and off <= 1e-4 and moved > 1e-3):
+        raise AssertionError("the degraded LR batch is not as expected")
+
+    n_timed = 10
+    blur.launches = rdb5c.launches = rdb5c.backward_launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n_timed):
+        batch, logs = e2e_step()
+    torch.cuda.synchronize()
+    e2e_ms = (time.perf_counter() - t0) / n_timed * 1e3
+    counts = dict(blur=blur.launches, forward=rdb5c.launches,
+                  backward=rdb5c.backward_launches)
+    vals = {k: float(v) for k, v in logs.items()}
+    print(f"producer: {n_timed} end-to-end steps: blur launches "
+          f"{counts['blur']}, forward launches {counts['forward']}, backward "
+          f"launches {counts['backward']}, logs {vals}")
+    if counts != dict(blur=2 * n_timed, forward=per_g * n_timed,
+                      backward=per_g * n_timed):
+        raise AssertionError(
+            f"launches {counts}: expected 2 blur launches per batch and "
+            f"{per_g} + {per_g} block launches per G update x {n_timed}")
+    if not all(math.isfinite(v) for v in vals.values()):
+        raise AssertionError(f"logs {vals}")
+
+    # the same call's compute-only steps, on the last degraded batch
+    t0 = time.perf_counter()
+    for _ in range(n_timed):
+        state, logs = trainer.train_step(state, batch)
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) / n_timed * 1e3
+    # and the degrader in front of the step without the loader's threads
+    raw = next(stream)
+    t0 = time.perf_counter()
+    for _ in range(n_timed):
+        state, logs = trainer.train_step(state, degrade(raw))
+    torch.cuda.synchronize()
+    fed_ms = (time.perf_counter() - t0) / n_timed * 1e3
+    print(f"times: train_e2e bfloat16 b={b} {lr_px}->{lr_px * 4} px over "
+          f"{n_timed} steps after 3: {e2e_ms:.3f} ms, {1e3 / e2e_ms:.4f} "
+          f"it/s; compute-only in the same call {step_ms:.3f} ms, "
+          f"{1e3 / step_ms:.4f} it/s; degrade + step on one resident batch "
+          f"(no loader) {fed_ms:.3f} ms, {1e3 / fed_ms:.4f} it/s ({smi})")
+
+    # the producer's parts alone
+    deg_ms = _time_ms(lambda: degrade(raw), iters=10, warmup=2)
+    t0 = time.perf_counter()
+    for _ in range(10):
+        degrade(raw)
+    torch.cuda.synchronize()
+    deg_host_ms = (time.perf_counter() - t0) / 10 * 1e3
+    t0 = time.perf_counter()
+    n_loaded = sum(1 for _ in range(5) for _ in loader)
+    load_ms = (time.perf_counter() - t0) / n_loaded * 1e3
+    print(f"times: producer alone, per batch of {b}: degrade {deg_ms:.3f} ms "
+          f"(CUDA events), {deg_host_ms:.3f} ms (host clock, synchronised "
+          f"after 10); loader {load_ms:.3f} ms (host clock, {n_loaded} "
+          f"batches, cache warm, pinned) ({smi})")
+    _traced(lambda: degrade(raw), f"degrade b={b} {lr_px * 4}->{lr_px} px",
+            smi, deg_host_ms)
+    _traced(e2e_step, f"bf16 end-to-end step b={b} {lr_px}->{lr_px * 4} px",
+            smi, e2e_ms)
+    del trainer, state, stream
+    torch.cuda.empty_cache()
+    return counts
+
+
 def _bound(name: str, flops: float, nbytes: float) -> tuple:
     """The least time in ms the card could take: the larger of operations
     over the type's peak and bytes over the memory rate, and which."""
@@ -622,10 +850,82 @@ def phase_times(smi: str, root: str):
     return rows
 
 
-def _kernel_rows(rows, serving_launches, train, main_err, bwd_err):
+def _device_ms(fn, match: str, calls: int = 10) -> float:
+    """Device time per launch, under torch.profiler, of the kernels whose
+    name holds ``match`` over ``calls`` calls of ``fn``; 0.0 when the
+    profiler recorded none."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    spans = [e.time_range.elapsed_us() for e in prof.events()
+             if e.device_type == DeviceType.CUDA and match in e.name]
+    return sum(spans) / len(spans) / 1e3 if spans else 0.0
+
+
+def phase_blur_times(smi: str) -> dict:
+    """CUDA-event times of the blur kernel in f32 at the producer's two
+    shapes, beside its bound, its plain version and the library call
+    (reflect ``F.pad`` and one grouped cuDNN convolution over b*c groups).
+    Returns {shape: row}."""
+    import torch
+    import torch.nn.functional as F
+
+    from trainner_tpu_torch.ops.blur import (blur_per_sample,
+                                             blur_per_sample_plain)
+
+    def library(x, kern):
+        b, h, w, c = x.shape
+        k = kern.shape[-1]
+        xg = F.pad(x.permute(0, 3, 1, 2).reshape(1, b * c, h, w),
+                   (k // 2,) * 4, mode="reflect")
+        y = F.conv2d(xg, kern.repeat_interleave(c, 0)[:, None], groups=b * c)
+        return y.reshape(b, c, h, w).permute(0, 2, 3, 1).contiguous()
+
+    gen = torch.Generator().manual_seed(6)
+    rows = {}
+    for shape in (BLUR_HR, BLUR_LR):
+        b, h, w, c = shape
+        x = torch.rand(*shape, generator=gen).cuda()
+        kern = _blur_kernels(gen, b, BLUR_K)
+        lib_err = float((library(x, kern) - blur_per_sample(x, kern)
+                         ).abs().max())
+        if not lib_err <= 1e-5:
+            raise AssertionError(f"the library call disagrees: {lib_err}")
+        ms = _time_ms(lambda: blur_per_sample(x, kern), iters=50)
+        plain_ms = _time_ms(lambda: blur_per_sample_plain(x, kern), iters=3,
+                            warmup=1)
+        library_ms = _time_ms(lambda: library(x, kern))
+        device_ms = _device_ms(lambda: blur_per_sample(x, kern),
+                               "blur_kernel")
+        work = 2 * BLUR_K * BLUR_K * x.numel()
+        nbytes = 2 * x.numel() * 4 + kern.numel() * 4
+        bound_ms, bound_by = _bound("float32", work, nbytes)
+        rows[shape] = dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                           bound_ms=bound_ms, bound_by=bound_by,
+                           device_ms=device_ms)
+        print(f"times: blur_per_sample float32 {shape} k={BLUR_K}: kernel "
+              f"{ms:.4f} ms per call of the wrapper (CUDA events over 50 "
+              f"calls), {device_ms:.4f} ms on the device alone (profiler), "
+              f"plain {plain_ms:.4f} ms, reflect pad + grouped cuDNN conv "
+              f"{library_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}), "
+              f"{work / ms / 1e9:.2f} TFLOP/s ({smi})")
+    return rows
+
+
+def _kernel_rows(rows, serving_launches, train, main_err, bwd_err,
+                 blur_rows, producer, blur_err):
     """The JSON summary: each kernel at its main path's shape and type (the
     forward at the serving shape in f32, the backward at the training shape
-    in bf16), with the launches counted over the main paths' runs."""
+    in bf16, the blur at the HR canvas in f32, with its times at the LR
+    canvas beside), with the launches counted over the main paths' runs."""
     fwd = rows["rdb5c_forward", MAIN_SHAPE, "float32"]
     bwd = rows["rdb5c_backward", TRAIN_SHAPE, "bfloat16"]
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
@@ -633,16 +933,26 @@ def _kernel_rows(rows, serving_launches, train, main_err, bwd_err):
         {"name": "rdb5c_forward", "route": "cuda",
          "source": "trainner_tpu_torch/csrc/rdb5c.cu",
          "replaces": "trainner_tpu/ops/pallas_kernels.py:180",
-         "launches": serving_launches + sum(
+         "launches": serving_launches + producer["forward"] + sum(
              r["forward"] for r in train.values()),
          "max_abs_err": main_err, **{k: fwd[k] for k in keys},
          "shape": list(MAIN_SHAPE), "dtype": "float32"},
         {"name": "rdb5c_backward", "route": "cuda",
          "source": "trainner_tpu_torch/csrc/rdb5c_bwd.cu",
          "replaces": "trainner_tpu/ops/pallas_kernels.py:355",
-         "launches": sum(r["backward"] for r in train.values()),
+         "launches": producer["backward"] + sum(
+             r["backward"] for r in train.values()),
          "max_abs_err": bwd_err, **{k: bwd[k] for k in keys},
          "shape": list(TRAIN_SHAPE), "dtype": "bfloat16"},
+        {"name": "blur_per_sample", "route": "cuda",
+         "source": "trainner_tpu_torch/csrc/blur_per_sample.cu",
+         "replaces": "trainner_tpu/ops/pallas_kernels.py:466",
+         "launches": producer["blur"], "max_abs_err": blur_err,
+         **{k: blur_rows[BLUR_HR][k] for k in keys + ("device_ms",)},
+         "shape": list(BLUR_HR), "k": BLUR_K, "dtype": "float32",
+         "at_lr_canvas": {"shape": list(BLUR_LR),
+                          **{k: blur_rows[BLUR_LR][k]
+                             for k in keys + ("device_ms",)}}},
     ]
 
 
@@ -679,8 +989,8 @@ def _traced(fn, label: str, smi: str, untraced_ms: float = 0.0) -> None:
               f"of {label} is not measured ({smi})")
         return
     print(f"trace: {label}: wall {wall_us / 1e3:.3f} ms, device busy "
-          f"{busy_us / 1e3:.3f} ms, idle share "
-          f"{1 - busy_us / wall_us:.4f} ({smi})")
+          f"{busy_us / 1e3:.3f} ms in {sum(calls.values())} kernels and "
+          f"copies, idle share {1 - busy_us / wall_us:.4f} ({smi})")
     if untraced_ms:
         print(f"trace: {label}: untraced {untraced_ms:.3f} ms, idle share "
               f"against it {1 - busy_us / 1e3 / untraced_ms:.4f} ({smi})")
@@ -742,16 +1052,20 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
 
     main_err, bwd_err = phase_kernels(smi)
+    blur_err = phase_blur_kernel(smi)
     with tempfile.TemporaryDirectory() as root:
         launches = phase_slice(smi, root)
         phase_g_compare(smi, root)
         train = phase_train(smi)
         phase_g_gradient(smi)
+        producer = phase_producer(smi, root)
         torch.backends.cudnn.allow_tf32 = False
         torch.backends.cuda.matmul.allow_tf32 = False
         rows = phase_times(smi, root)
+        blur_rows = phase_blur_times(smi)
         phase_trace(smi, root, train["bfloat16"]["step_ms"])
-    kernels = _kernel_rows(rows, launches, train, main_err, bwd_err)
+    kernels = _kernel_rows(rows, launches, train, main_err, bwd_err,
+                           blur_rows, producer, blur_err)
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -2,8 +2,8 @@
 ``chip_smoke.py``, imports JAX, flax or anything of the JAX package. Checked
 twice: by scanning every import statement, and by importing every module in
 a fresh interpreter that refuses those names (and the packages that the
-machine with the card lacks: PyYAML, OpenCV, msgpack; and triton, which only
-a kernel's launch may import)."""
+machine with the card lacks: PyYAML, OpenCV, lmdb, msgpack; and triton, which
+only a kernel's launch may import)."""
 
 import ast
 import pathlib
@@ -16,7 +16,7 @@ ROOT = pathlib.Path(__file__).resolve().parent.parent
 PORT = ROOT / "trainner_tpu_torch"
 FILES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "trainner_tpu")
-ABSENT_ON_CARD = ("yaml", "cv2", "msgpack", "triton")
+ABSENT_ON_CARD = ("yaml", "cv2", "lmdb", "msgpack", "triton")
 
 
 def _top_level_imports(path):
@@ -54,7 +54,16 @@ def test_port_has_modules_to_scan():
             "trainner_tpu_torch.train.optimizers",
             "trainner_tpu_torch.train.schedulers",
             "trainner_tpu_torch.train.state",
-            "trainner_tpu_torch.train.sr_trainer"} <= names
+            "trainner_tpu_torch.train.sr_trainer",
+            "trainner_tpu_torch.options.presets",
+            "trainner_tpu_torch.ops.imresize",
+            "trainner_tpu_torch.ops.blur",
+            "trainner_tpu_torch.ops.degradations",
+            "trainner_tpu_torch.data.pipeline",
+            "trainner_tpu_torch.data.common",
+            "trainner_tpu_torch.data.datasets",
+            "trainner_tpu_torch.data.loader",
+            "trainner_tpu_torch.train.producer"} <= names
 
 
 _GUARD = """

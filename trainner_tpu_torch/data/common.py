@@ -1,10 +1,12 @@
-"""Host-side image IO and tensor conversion.
+"""Host-side image IO, tensor conversion and the paired crop and flip.
 
 Counterpart of ``trainner_tpu/data/common.py`` (``scan_images:44``,
-``read_img:60``, ``img2tensor:202``, ``tensor2img:218``, ``save_img:232``).
-Host images are numpy HWC float32 RGB in [0, 1]. ``save_img`` writes 8-bit
-PNG with the standard library (``zlib``, ``struct``); ``read_img`` imports
-``cv2`` only when it is called.
+``read_img:60``, ``augment_pair:155``, ``paired_random_crop:178``,
+``img2tensor:202``, ``tensor2img:218``, ``save_img:232``). Host images are
+numpy HWC float32 RGB in [0, 1]. ``save_img`` writes and ``read_png`` reads
+8-bit PNG with the standard library (``zlib``, ``struct``); ``read_img``
+decodes with ``cv2`` where it is installed (imported only when called) and
+with ``read_png`` where it is not.
 """
 
 from __future__ import annotations
@@ -12,7 +14,7 @@ from __future__ import annotations
 import os
 import struct
 import zlib
-from typing import List, Optional
+from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -28,8 +30,8 @@ def scan_images(root: str) -> List[str]:
     """Sorted recursive image listing."""
     if str(root).endswith(".lmdb"):
         raise NotImplementedError(
-            "LMDB datasets are not ported yet (ROADMAP Queue A, end-to-end "
-            "producer)")
+            "LMDB datasets are not ported yet (ROADMAP Queue A 5.3, LMDB "
+            "datasets)")
     out = []
     for dirpath, _, files in os.walk(root):
         for f in files:
@@ -38,23 +40,118 @@ def scan_images(root: str) -> List[str]:
     return sorted(out)
 
 
-def read_img(path: str, out_nc: int = 3) -> np.ndarray:
-    """Image file -> float32 RGB HWC in [0, 1]."""
-    import cv2
+_PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
+_PNG_CHANNELS = {0: 1, 2: 3, 6: 4}  # colour type -> channels
 
+
+def _paeth_row(cur: bytearray, prev: bytes, bpp: int) -> None:
+    """Undoes the Paeth filter of one row in place."""
+    for i in range(len(cur)):
+        a = cur[i - bpp] if i >= bpp else 0
+        b = prev[i]
+        c = prev[i - bpp] if i >= bpp else 0
+        p = a + b - c
+        pa, pb, pc = abs(p - a), abs(p - b), abs(p - c)
+        pred = a if (pa <= pb and pa <= pc) else (b if pb <= pc else c)
+        cur[i] = (cur[i] + pred) & 0xFF
+
+
+def _average_row(cur: bytearray, prev: bytes, bpp: int) -> None:
+    for i in range(len(cur)):
+        a = cur[i - bpp] if i >= bpp else 0
+        cur[i] = (cur[i] + ((a + prev[i]) >> 1)) & 0xFF
+
+
+def read_png(path: str) -> np.ndarray:
+    """8-bit PNG file -> uint8 array, HW for gray, HWC in RGB(A) order
+    otherwise. Reads gray, RGB and RGBA, non-interlaced, with all five
+    row filters; anything else raises."""
+    with open(path, "rb") as f:
+        data = f.read()
+    if data[:8] != _PNG_SIGNATURE:
+        raise IOError(f"not a PNG file [{path}]")
+    pos, idat, header = 8, [], None
+    while pos < len(data):
+        (length,), kind = struct.unpack(">I", data[pos:pos + 4]), \
+            data[pos + 4:pos + 8]
+        body = data[pos + 8:pos + 8 + length]
+        if kind == b"IHDR":
+            header = struct.unpack(">IIBBBBB", body)
+        elif kind == b"IDAT":
+            idat.append(body)
+        elif kind == b"IEND":
+            break
+        pos += 12 + length
+    if header is None:
+        raise IOError(f"PNG without a header [{path}]")
+    w, h, depth, color, _, _, interlace = header
+    if depth != 8 or color not in _PNG_CHANNELS or interlace:
+        raise NotImplementedError(
+            f"read_png reads 8-bit gray, RGB and RGBA without interlace; "
+            f"[{path}] has depth {depth}, colour type {color}, interlace "
+            f"{interlace} (install OpenCV for the rest)")
+    bpp = _PNG_CHANNELS[color]
+    stride = w * bpp
+    raw = zlib.decompress(b"".join(idat))
+    if len(raw) != h * (stride + 1):
+        raise IOError(f"PNG data of the wrong length [{path}]")
+    rows = np.frombuffer(raw, np.uint8).reshape(h, stride + 1)
+    filters = rows[:, 0]
+    out = np.empty((h, stride), np.uint8)
+    prev = np.zeros(stride, np.uint8)
+    for y in range(h):
+        ft, line = int(filters[y]), rows[y, 1:]
+        if ft == 0:
+            cur = line
+        elif ft == 1:  # Sub: a running sum per channel, modulo 256
+            cur = np.cumsum(line.reshape(w, bpp), axis=0,
+                            dtype=np.uint8).reshape(stride)
+        elif ft == 2:  # Up
+            cur = line + prev
+        elif ft in (3, 4):
+            buf = bytearray(line.tobytes())
+            (_average_row if ft == 3 else _paeth_row)(buf, prev.tobytes(),
+                                                      bpp)
+            cur = np.frombuffer(bytes(buf), np.uint8)
+        else:
+            raise IOError(f"PNG row filter {ft} [{path}]")
+        out[y] = cur
+        prev = out[y]
+    return out.reshape(h, w) if bpp == 1 else out.reshape(h, w, bpp)
+
+
+def decode_image(path: str) -> np.ndarray:
+    """Image file -> array as stored (uint8, or uint16 through OpenCV), HW
+    or HWC in RGB(A) order. Without OpenCV only 8-bit PNG is read."""
+    try:
+        import cv2
+    except ImportError:
+        cv2 = None
+    if cv2 is None:
+        if path.lower().endswith(".png"):
+            return read_png(path)
+        raise ImportError(f"reading [{path}] needs OpenCV: without it only "
+                          "8-bit PNG files are read")
     img = cv2.imread(path, cv2.IMREAD_UNCHANGED)
     if img is None:
         raise IOError(f"cannot read image [{path}]")
-    if img.dtype == np.uint16:
-        img = (img / 65535.0).astype(np.float32)
-    else:
-        img = (img / 255.0).astype(np.float32)
+    if img.ndim == 3 and img.shape[2] == 4:
+        img = img[:, :, [2, 1, 0, 3]]
+    elif img.ndim == 3 and img.shape[2] == 3:
+        img = img[:, :, ::-1]
+    return img
+
+
+def read_img(path: str, out_nc: int = 3) -> np.ndarray:
+    """Image file -> float32 RGB HWC in [0, 1]; an alpha channel is
+    dropped."""
+    img = decode_image(path)
+    img = (img / (65535.0 if img.dtype == np.uint16 else 255.0)
+           ).astype(np.float32)
     if img.ndim == 2:
         img = img[:, :, None]
     if img.shape[2] == 4:
-        img = cv2.cvtColor(img, cv2.COLOR_BGRA2BGR)
-    if img.shape[2] == 3:
-        img = img[:, :, ::-1]  # BGR -> RGB
+        img = img[:, :, :3]
     return fix_img_channels(np.ascontiguousarray(img), out_nc)
 
 
@@ -98,9 +195,60 @@ def modcrop(img: np.ndarray, scale: int) -> np.ndarray:
     return img[: h - h % scale, : w - w % scale]
 
 
-def img2tensor(img: np.ndarray, znorm: bool = False) -> np.ndarray:
+def augment_pair(imgs: Sequence[np.ndarray], hflip: bool = True,
+                 rot: bool = True,
+                 rng: Optional[np.random.Generator] = None
+                 ) -> List[np.ndarray]:
+    """The same random flips and transpose for every image of a list."""
+    rng = rng or np.random.default_rng()
+    do_h = hflip and rng.random() < 0.5
+    do_v = rot and rng.random() < 0.5
+    do_r = rot and rng.random() < 0.5
+
+    def one(img):
+        if do_h:
+            img = img[:, ::-1]
+        if do_v:
+            img = img[::-1]
+        if do_r:
+            img = img.transpose(1, 0, 2)
+        return np.ascontiguousarray(img)
+
+    return [one(i) for i in imgs]
+
+
+def paired_random_crop(hr: np.ndarray, lr: np.ndarray, hr_crop: int,
+                       scale: int,
+                       rng: Optional[np.random.Generator] = None
+                       ) -> Tuple[np.ndarray, np.ndarray]:
+    """Aligned random crop: ``hr_crop`` px of HR and ``hr_crop / scale`` of
+    LR at the same place; images smaller than the crop are reflect-padded."""
+    rng = rng or np.random.default_rng()
+    lr_crop = hr_crop // scale
+    lh, lw = lr.shape[:2]
+    if lh < lr_crop or lw < lr_crop:
+        lr = np.pad(lr, ((0, max(0, lr_crop - lh)),
+                         (0, max(0, lr_crop - lw)), (0, 0)), "reflect")
+        hr = np.pad(hr, ((0, max(0, lr_crop - lh) * scale),
+                         (0, max(0, lr_crop - lw) * scale), (0, 0)),
+                    "reflect")
+        lh, lw = lr.shape[:2]
+    y = int(rng.integers(0, lh - lr_crop + 1))
+    x = int(rng.integers(0, lw - lr_crop + 1))
+    lr_c = lr[y: y + lr_crop, x: x + lr_crop]
+    hr_c = hr[y * scale: y * scale + hr_crop,
+              x * scale: x * scale + hr_crop]
+    return hr_c, lr_c
+
+
+def img2tensor(img: np.ndarray, znorm: bool = False,
+               wire_u8: bool = False) -> np.ndarray:
     """HWC float32 [0, 1] -> network input array (HWC); znorm maps to
-    [-1, 1]."""
+    [-1, 1]. ``wire_u8`` keeps the array uint8 on the wire (a quarter of
+    the bytes to the device, lossless for 8-bit sources); the device
+    normalises it (``ops.blocks.wire_to_f01``)."""
+    if wire_u8:
+        return np.clip(img * 255.0 + 0.5, 0, 255).astype(np.uint8)
     img = img.astype(np.float32)
     if znorm:
         img = img * 2.0 - 1.0
@@ -147,7 +295,7 @@ def save_img(img: np.ndarray, path: str) -> None:
     rows = np.ascontiguousarray(img).reshape(h, -1)
     raw = np.concatenate([np.zeros((h, 1), np.uint8), rows], axis=1)
     ihdr = struct.pack(">IIBBBBB", w, h, 8, color, 0, 0, 0)
-    png = (b"\x89PNG\r\n\x1a\n" + _png_chunk(b"IHDR", ihdr)
+    png = (_PNG_SIGNATURE + _png_chunk(b"IHDR", ihdr)
            + _png_chunk(b"IDAT", zlib.compress(raw.tobytes(), 6))
            + _png_chunk(b"IEND", b""))
     os.makedirs(os.path.dirname(path) or ".", exist_ok=True)

@@ -1,20 +1,26 @@
-"""DataLoader: batches in order from a background thread, as torch
-tensors.
+"""DataLoader: batches from background threads as torch tensors, and the
+prefetch that keeps batches on the card ahead of the step.
 
 Counterpart of ``trainner_tpu/data/loader.py`` (``DataLoader:36``,
-``create_dataloader:159``). A worker thread overlaps image IO with the
-card's work. With ``pin_memory`` the worker pins each batch, so that the
-copy to the card can run with ``non_blocking=True``.
+``device_prefetch:136``, ``create_dataloader:159``). A coordinator thread
+builds the batches in order, reading the samples of a batch with a pool of
+``num_workers`` threads, so that image IO overlaps the card's work. With
+``pin_memory`` each batch is collated into pinned memory, so that
+``device_prefetch`` can copy it to the card with ``non_blocking=True`` on a
+stream of its own.
 """
 
 from __future__ import annotations
 
 import queue
 import threading
-from typing import Any, Dict, Iterator, List
+from concurrent.futures import ThreadPoolExecutor
+from typing import Any, Dict, Iterator, List, Union
 
 import numpy as np
 import torch
+
+from ..utils.device import resolve_device
 
 
 def _collate(samples: List[Dict[str, Any]], pin: bool) -> Dict[str, Any]:
@@ -30,47 +36,70 @@ def _collate(samples: List[Dict[str, Any]], pin: bool) -> Dict[str, Any]:
 
 
 class DataLoader:
-    """Iterates a dataset in order, in batches, produced by a background
-    thread (``num_workers`` > 0) or inline."""
+    """Iterates a dataset in batches: in order, or in an order shuffled
+    anew every epoch from ``seed`` plus the epoch's number. Batches are
+    produced by background threads (``num_workers`` > 0) or inline."""
 
-    def __init__(self, dataset, batch_size: int = 1, num_workers: int = 1,
-                 prefetch: int = 4, pin_memory: bool = False):
+    def __init__(self, dataset, batch_size: int = 1, shuffle: bool = False,
+                 drop_last: bool = False, num_workers: int = 1,
+                 seed: int = 0, prefetch: int = 4, pin_memory: bool = False):
         self.dataset = dataset
         self.batch_size = batch_size
+        self.shuffle = shuffle
+        self.drop_last = drop_last
         self.num_workers = max(0, num_workers)
+        self.seed = seed
         self.prefetch = prefetch
         self.pin_memory = pin_memory
+        self._epoch = 0
 
     def __len__(self) -> int:
-        return (len(self.dataset) + self.batch_size - 1) // self.batch_size
+        n = len(self.dataset)
+        if self.drop_last:
+            return n // self.batch_size
+        return (n + self.batch_size - 1) // self.batch_size
 
-    def _batch(self, start: int) -> Dict[str, Any]:
-        stop = min(start + self.batch_size, len(self.dataset))
-        return _collate([self.dataset[i] for i in range(start, stop)],
-                        self.pin_memory)
+    def _index_batches(self) -> List[List[int]]:
+        n = len(self.dataset)
+        idx = np.arange(n)
+        if self.shuffle:
+            np.random.default_rng(self.seed + self._epoch).shuffle(idx)
+        batches = [idx[i: i + self.batch_size].tolist()
+                   for i in range(0, n, self.batch_size)]
+        if self.drop_last and batches and \
+                len(batches[-1]) < self.batch_size:
+            batches.pop()
+        return batches
 
     def __iter__(self) -> Iterator[Dict[str, Any]]:
-        starts = range(0, len(self.dataset), self.batch_size)
+        batches = self._index_batches()
+        self._epoch += 1
         if self.num_workers == 0:
-            for s in starts:
-                yield self._batch(s)
+            for b in batches:
+                yield _collate([self.dataset[i] for i in b], self.pin_memory)
             return
         q: "queue.Queue" = queue.Queue(maxsize=self.prefetch)
         stop = threading.Event()
         failure: List[BaseException] = []
 
-        def worker():
+        def coordinator():
+            pool = ThreadPoolExecutor(self.num_workers) \
+                if self.num_workers > 1 else None
             try:
-                for s in starts:
+                for b in batches:
                     if stop.is_set():
                         break
-                    q.put(self._batch(s))
+                    samples = list(pool.map(self.dataset.__getitem__, b)) \
+                        if pool else [self.dataset[i] for i in b]
+                    q.put(_collate(samples, self.pin_memory))
             except Exception as e:  # handed to the consumer below
                 failure.append(e)
             finally:
+                if pool:
+                    pool.shutdown(wait=True)
                 q.put(None)
 
-        t = threading.Thread(target=worker, daemon=True)
+        t = threading.Thread(target=coordinator, daemon=True)
         t.start()
         try:
             while True:
@@ -82,19 +111,76 @@ class DataLoader:
                 raise failure[0]
         finally:
             stop.set()
-            while t.is_alive():  # unblock a worker waiting on a full queue
+            while t.is_alive():  # unblock a thread waiting on a full queue
                 try:
                     q.get_nowait()
                 except queue.Empty:
                     t.join(0.01)
 
 
+def device_prefetch(iterator: Iterator[Dict[str, Any]], size: int = 2,
+                    device: Union[str, torch.device, None] = None
+                    ) -> Iterator[Dict[str, Any]]:
+    """Keeps ``size`` batches on the device ahead of the consumer.
+
+    On the card every tensor of a batch is copied with
+    ``non_blocking=True`` on a side stream (from pinned memory the copy
+    overlaps the step). When a batch is handed out, the consumer's current
+    stream waits on the copy's event, and ``record_stream`` tells the
+    allocator that the buffers are in use there. On the CPU the tensors
+    are yielded as they are. Entries that are not tensors pass through."""
+    dev = resolve_device(device)
+    if dev.type == "cpu":
+        yield from iterator
+        return
+    side = torch.cuda.Stream(device=dev)
+
+    def put(batch):
+        with torch.cuda.stream(side):
+            moved = {k: v.to(dev, non_blocking=True)
+                     if isinstance(v, torch.Tensor) else v
+                     for k, v in batch.items()}
+            done = torch.cuda.Event()
+            done.record(side)
+        # the host batch stays referenced until its copy has been waited on
+        return moved, done, batch
+
+    def take(entry):
+        moved, done, _ = entry
+        current = torch.cuda.current_stream(dev)
+        current.wait_event(done)
+        for v in moved.values():
+            if isinstance(v, torch.Tensor):
+                v.record_stream(current)
+        return moved
+
+    buf: List[Any] = []
+    for batch in iterator:
+        buf.append(put(batch))
+        if len(buf) >= size:
+            yield take(buf.pop(0))
+    while buf:
+        yield take(buf.pop(0))
+
+
 def create_dataloader(dataset, dataset_opt: dict,
                       pin_memory: bool = False) -> DataLoader:
-    """Evaluation loaders are sequential, batch 1, one worker thread."""
+    """Train loaders shuffle (unless ``use_shuffle`` is off) and drop the
+    last short batch; evaluation loaders are sequential, batch 1, one
+    thread."""
     if dataset_opt.get("phase", "train") == "train":
-        raise NotImplementedError(
-            "training loaders are not ported yet (ROADMAP Queue A, "
-            "end-to-end producer)")
+        if isinstance(dataset, (list, tuple)):
+            raise NotImplementedError(
+                "a list of train datasets (weighted sampling) is not "
+                "ported yet (ROADMAP Queue A 5.4, the other train-dataset "
+                "options)")
+        return DataLoader(
+            dataset,
+            batch_size=int(dataset_opt.get("batch_size", 16) or 16),
+            shuffle=bool(dataset_opt.get("use_shuffle", True)),
+            drop_last=True,
+            num_workers=int(dataset_opt.get("n_workers", 2) or 2),
+            seed=int(dataset_opt.get("seed", 0) or 0),
+            pin_memory=pin_memory)
     return DataLoader(dataset, batch_size=1, num_workers=1,
                       pin_memory=pin_memory)

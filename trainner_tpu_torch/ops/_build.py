@@ -22,7 +22,7 @@ from typing import Dict, List
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
-SOURCES = ("rdb5c.cu", "rdb5c_bwd.cu")
+SOURCES = ("rdb5c.cu", "rdb5c_bwd.cu", "blur_per_sample.cu")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 

@@ -1,18 +1,23 @@
-"""MATLAB-style antialiased bicubic resize on the host (numpy).
+"""MATLAB-style antialiased resize as two dense contractions.
 
-The numpy path of ``trainner_tpu/ops/imresize.py`` (``cubic:30``,
-``resize_matrix:155``, ``_out_len:208``, ``imresize_np:269``) for the cubic
-kernel and the reference's live "resizeright" grid: each spatial axis is
-resized by one dense ``(out_len, in_len)`` weight matrix. The synthetic and
-aligned datasets make their LR images with it.
+Counterpart of ``trainner_tpu/ops/imresize.py`` (kernels ``:30-152``,
+``resize_matrix:155``, ``_out_len:208``, ``imresize:223``,
+``imresize_np:269``) on the reference's live "resizeright" grid: each
+spatial axis is resized by one dense ``(out_len, in_len)`` weight matrix
+with the mirrored boundary folded in. The matrices are built on the host in
+numpy, once per (sizes, kernel); ``imresize`` keeps a copy of each on the
+tensor's device and contracts in f32 with ``torch.matmul`` (which runs in
+full f32 on the card while ``torch.backends.cuda.matmul.allow_tf32`` is
+off, its default). ``imresize_np`` is the numpy path the datasets use.
 """
 
 from __future__ import annotations
 
 import functools
-from typing import Optional, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 import numpy as np
+import torch
 
 
 def cubic(x, a: float = -0.5):
@@ -23,20 +28,131 @@ def cubic(x, a: float = -0.5):
             ((ax > 1) & (ax <= 2)))
 
 
-@functools.lru_cache(maxsize=64)
-def resize_matrix(in_length: int, out_length: int,
+def box(x):
+    # support (-1, 1]: the reference's width-2 'box'
+    return (((-1 <= x) & (x < 0)) * 1.0 + ((0 <= x) & (x <= 1)) * 1.0)
+
+
+def linear(x):
+    ax = np.abs(x)
+    return (1 - ax) * (ax <= 1)
+
+
+def lanczos(x, a: int = 3):
+    eps = np.finfo(np.float32).eps
+    xp = np.pi * x
+    return ((np.sin(xp) * np.sin(xp / a) + eps) /
+            (xp ** 2 / a + eps)) * (np.abs(x) <= a)
+
+
+def sinc_k(x, a: int = 2):
+    # unwindowed: the tap window alone truncates it
+    eps = np.finfo(np.float32).eps
+    xp = np.pi * x
+    out = (np.sin(xp) + eps) / (xp + eps) * (np.abs(x) != 0)
+    return out + 1.0 * (np.abs(x) == 0)
+
+
+def blackman(x, a: int = 2):
+    # the window alone (no sinc), with a spike of 1 at x == 0
+    xp = np.pi * x
+    win = 0.42 - 0.5 * np.cos(xp / a) + 0.08 * np.cos(2 * xp / a)
+    return win * (np.abs(x) <= a) + 1.0 * (np.abs(x) == 0)
+
+
+def hermite(x):
+    ax = np.abs(x)
+    return (2 * ax ** 3 - 3 * ax ** 2 + 1) * (ax <= 1)
+
+
+def bell(x):
+    ax = np.abs(x)
+    return np.where(ax <= 0.5, 0.75 - ax ** 2,
+                    np.where(ax <= 1.5, 0.5 * (ax - 1.5) ** 2, 0.0))
+
+
+def mitchell(x, b: float = 1 / 3, c: float = 1 / 3):
+    ax = np.abs(x)
+    p1 = ((12 - 9 * b - 6 * c) * ax ** 3 + (-18 + 12 * b + 6 * c) * ax ** 2 +
+          (6 - 2 * b)) / 6
+    p2 = ((-b - 6 * c) * ax ** 3 + (6 * b + 30 * c) * ax ** 2 +
+          (-12 * b - 48 * c) * ax + (8 * b + 24 * c)) / 6
+    return np.where(ax < 1, p1, np.where(ax < 2, p2, 0.0))
+
+
+def catrom(x):
+    return mitchell(x, b=0.0, c=0.5)
+
+
+def hanning(x):
+    return (0.5 + 0.5 * np.cos(np.pi * x)) * (np.abs(x) < 5)
+
+
+def hamming(x):
+    return (0.54 + 0.46 * np.cos(np.pi * x)) * (np.abs(x) < 5)
+
+
+def gaussian(x, sigma: float = 0.5):
+    return np.exp(-x ** 2 / (2 * sigma ** 2)) / (sigma * np.sqrt(2 * np.pi))
+
+
+# name -> (kernel function, width of its support in taps)
+_KERNELS: dict = {
+    "cubic": (cubic, 4.0),
+    "box": (box, 1.0),
+    "linear": (linear, 2.0),
+    "lanczos2": (functools.partial(lanczos, a=2), 4.0),
+    "lanczos3": (functools.partial(lanczos, a=3), 6.0),
+    "lanczos4": (functools.partial(lanczos, a=4), 8.0),
+    "lanczos5": (functools.partial(lanczos, a=5), 10.0),
+    "sinc2": (functools.partial(sinc_k, a=2), 4.0),
+    "sinc3": (functools.partial(sinc_k, a=3), 6.0),
+    "sinc4": (functools.partial(sinc_k, a=4), 8.0),
+    "sinc5": (functools.partial(sinc_k, a=5), 10.0),
+    "blackman2": (functools.partial(blackman, a=2), 4.0),
+    "blackman3": (functools.partial(blackman, a=3), 6.0),
+    "blackman4": (functools.partial(blackman, a=4), 8.0),
+    "blackman5": (functools.partial(blackman, a=5), 10.0),
+    "hermite": (hermite, 2.0),
+    "bell": (bell, 2.0),
+    "mitchell": (mitchell, 4.0),
+    "catrom": (catrom, 4.0),
+    "hanning": (hanning, 2.0),
+    "hamming": (hamming, 2.0),
+    "gaussian": (gaussian, 4.0),
+}
+
+_ALIASES = {
+    "bicubic": "cubic", "matlab_bicubic": "cubic", "nearest": "box",
+    "bilinear": "linear", "lanczos": "lanczos3", "blackman": "blackman2",
+    "sinc": "sinc2",
+}
+
+
+def get_kernel(name: str) -> Tuple[Callable, float]:
+    name = (name or "cubic").lower()
+    name = _ALIASES.get(name, name)
+    if name not in _KERNELS:
+        raise ValueError(f"unknown resize kernel [{name}]")
+    return _KERNELS[name]
+
+
+@functools.lru_cache(maxsize=256)
+def resize_matrix(in_length: int, out_length: int, kernel: str = "cubic",
                   antialiasing: bool = True,
                   scale: Optional[float] = None) -> np.ndarray:
-    """Dense (out_length, in_length) bicubic weights with a mirrored
-    boundary and normalized rows (the JAX package's grid='resizeright')."""
-    kwidth = 4.0
+    """Dense (out_length, in_length) f32 weights of one axis: the kernel
+    evaluated at the mirrored source positions, rows normalised (the JAX
+    package's grid='resizeright'). The cached array is shared: callers do
+    not write to it."""
+    kfunc, kwidth = get_kernel(kernel)
     s = scale if scale else out_length / in_length
     if s < 1 and antialiasing:
         kw = kwidth / s
-        kf = lambda d: s * cubic(s * d)  # noqa: E731
+        kf = lambda d: s * kfunc(s * d)  # noqa: E731
     else:
         kw = kwidth
-        kf = cubic
+        kf = kfunc
     eps = np.finfo(np.float32).eps
     u = (np.arange(out_length, dtype=np.float64) / s +
          (in_length - 1) / 2 - (out_length - 1) / (2 * s))
@@ -60,28 +176,72 @@ def _out_len(in_len: int, scale: float) -> int:
     return int(np.ceil(in_len * scale))
 
 
-def imresize_np(img: np.ndarray, scale: float = None,
-                out_shape: Optional[Tuple[int, int]] = None,
-                kernel: str = "cubic", antialiasing: bool = True
-                ) -> np.ndarray:
-    """Bicubic resize of an HWC / HW / NHWC numpy array; float results
-    are clipped to [0, 1], integer ones rounded and clipped to [0, 255]."""
-    if kernel not in ("cubic", "bicubic", "matlab_bicubic"):
-        raise NotImplementedError(
-            f"resize kernel [{kernel}] is not ported yet (ROADMAP Queue A, "
-            "end-to-end producer)")
-    img = np.asarray(img)
-    nd = img.ndim
+def _sizes(shape, scale, out_shape):
+    nd = len(shape)
     h_ax, w_ax = (0, 1) if nd == 2 else (nd - 3, nd - 2)
-    in_h, in_w = img.shape[h_ax], img.shape[w_ax]
+    in_h, in_w = shape[h_ax], shape[w_ax]
     if out_shape is not None:
         out_h, out_w = int(out_shape[0]), int(out_shape[1])
         sc_h, sc_w = out_h / in_h, out_w / in_w
     else:
+        if scale is None:
+            raise ValueError("imresize needs a scale or an out_shape")
         sc_h = sc_w = float(scale)
         out_h, out_w = _out_len(in_h, sc_h), _out_len(in_w, sc_w)
-    wh = resize_matrix(in_h, out_h, antialiasing, sc_h)
-    ww = resize_matrix(in_w, out_w, antialiasing, sc_w)
+    return h_ax, w_ax, (in_h, out_h, sc_h), (in_w, out_w, sc_w)
+
+
+# (in, out, kernel, antialiasing, scale, device) -> the matrix on that device
+_device_matrices: Dict[tuple, torch.Tensor] = {}
+
+
+def _device_matrix(in_len: int, out_len: int, kernel: str, antialiasing: bool,
+                   scale: float, device: torch.device) -> torch.Tensor:
+    key = (in_len, out_len, kernel, antialiasing, scale, str(device))
+    mat = _device_matrices.get(key)
+    if mat is None:
+        mat = torch.from_numpy(resize_matrix(
+            in_len, out_len, kernel, antialiasing, scale)).to(device)
+        _device_matrices[key] = mat
+    return mat
+
+
+def imresize(img: torch.Tensor, scale: Optional[float] = None,
+             out_shape: Optional[Tuple[int, int]] = None,
+             kernel: str = "cubic", antialiasing: bool = True,
+             clip: bool = True) -> torch.Tensor:
+    """Resize of an HW / HWC / NHWC tensor on its device: H then W are
+    contracted with their weight matrices in f32. Float results are clipped
+    to [0, 1] (unless ``clip`` is off), uint8 ones rounded and clipped to
+    [0, 255]."""
+    h_ax, w_ax, (in_h, out_h, sc_h), (in_w, out_w, sc_w) = _sizes(
+        img.shape, scale, out_shape)
+    wh = _device_matrix(in_h, out_h, kernel, antialiasing, sc_h, img.device)
+    ww = _device_matrix(in_w, out_w, kernel, antialiasing, sc_w, img.device)
+    x = img.float()
+    if img.dim() == 2:
+        x = wh @ x @ ww.T
+    else:
+        # (..., H, W, C): H is contracted against (H, W*C) rows, then W
+        # against each row's (W, C) matrix
+        x = torch.matmul(wh, x.flatten(-2)).unflatten(-1, x.shape[-2:])
+        x = torch.matmul(ww, x)
+    if img.dtype == torch.uint8:
+        return x.round().clamp_(0, 255).to(torch.uint8)
+    return x.clamp_(0.0, 1.0) if clip else x
+
+
+def imresize_np(img: np.ndarray, scale: float = None,
+                out_shape: Optional[Tuple[int, int]] = None,
+                kernel: str = "cubic", antialiasing: bool = True
+                ) -> np.ndarray:
+    """Resize of an HWC / HW / NHWC numpy array on the host; float results
+    are clipped to [0, 1], integer ones rounded and clipped to [0, 255]."""
+    img = np.asarray(img)
+    h_ax, w_ax, (in_h, out_h, sc_h), (in_w, out_w, sc_w) = _sizes(
+        img.shape, scale, out_shape)
+    wh = resize_matrix(in_h, out_h, kernel, antialiasing, sc_h)
+    ww = resize_matrix(in_w, out_w, kernel, antialiasing, sc_w)
     x = img.astype(np.float32)
     x = np.moveaxis(np.tensordot(wh, x, axes=(1, h_ax)), 0, h_ax)
     x = np.moveaxis(np.tensordot(ww, x, axes=(1, w_ax)), 0, w_ax)

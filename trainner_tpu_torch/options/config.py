@@ -1,13 +1,15 @@
 """Options: parse a YAML/JSON options file into a NoneDict config tree.
 
 Counterpart of ``trainner_tpu/options/config.py`` (``parse:255``,
-``parse_dict:266``) for the port's inference slice. JSON options (with
-``//`` comments) need nothing beyond the standard library; ``yaml`` is
-imported only when a YAML file is read.
+``parse_dict:266``, ``parse_datasets:195``, ``INTERP_CODES:113``). JSON
+options (with ``//`` comments) need nothing beyond the standard library;
+``yaml`` is imported only when a YAML file is read. A train dataset gets its
+degradation preset overlay (``options/presets``) before its resize algorithm
+names are mapped to the reference's integer codes.
 
-Not ported yet (ROADMAP Queue A, "the torch CLI trainer"): degradation
-preset overlays of train datasets, network presets, ``use_unshuffle`` and
-``*_rel`` training schedules. Asking for one raises.
+Not ported yet (ROADMAP Queue A 8, "the torch CLI trainer"): network
+presets, ``use_unshuffle`` and ``*_rel`` training schedules. Asking for one
+raises.
 """
 
 from __future__ import annotations
@@ -16,10 +18,11 @@ import json
 import os
 import re
 
+from . import presets as _presets
 from .defaults import get_network_defaults
 
-__all__ = ["NoneDict", "dict_to_nonedict", "parse", "parse_dict",
-           "read_json", "read_yaml"]
+__all__ = ["INTERP_CODES", "NoneDict", "dict_to_nonedict", "parse",
+           "parse_dict", "read_json", "read_yaml"]
 
 
 class NoneDict(dict):
@@ -80,6 +83,35 @@ def load_file(path: str) -> dict:
     raise ValueError(f"Unknown options file extension: {path}")
 
 
+# The reference's integer codes: 0-6 are cv2 methods, 77x the MATLAB-style
+# antialiased kernels of ops/imresize, 997/998/999 special dispatch.
+# 'linear' and 'cubic' are the antialiased kernels (773, 777), not cv2's.
+INTERP_CODES = {
+    "cv2_nearest": 0, "nearest": 0, "cv2_linear": 1, "cv2_cubic": 2,
+    "cv2_area": 3, "area": 3, "cv2_lanczos4": 4, "cv2_linear_exact": 5,
+    "linear": 773, "bilinear": 773, "box": 774, "lanczos2": 775,
+    "lanczos3": 776, "cubic": 777, "bicubic": 777, "matlab_bicubic": 777,
+    "mitchell": 778, "hermite": 779, "lanczos4": 780, "lanczos5": 781,
+    "bell": 782, "catrom": 783, "hanning": 784, "hamming": 785,
+    "gaussian": 786, "sinc2": 787, "sinc3": 788, "sinc4": 789, "sinc5": 790,
+    "blackman2": 791, "blackman3": 792, "blackman4": 793, "blackman5": 794,
+    "nearest_aligned": 997, "down_up": 998, "realistic": 999,
+    "matlab_nearest": 774, "matlab_box": 774, "matlab_linear": 773,
+    "matlab_bilinear": 773, "matlab_lanczos2": 775, "matlab_lanczos3": 776,
+}
+_ALGO_KEYS = ("lr_downscale_types", "lr_downscale_types2",
+              "hr_downscale_types", "final_scale_types", "down_up_types",
+              "resize_algos")
+
+
+def _algo2int(value):
+    if isinstance(value, str):
+        return INTERP_CODES.get(value.lower(), value)
+    if isinstance(value, (list, tuple)):
+        return [_algo2int(v) for v in value]
+    return value
+
+
 _DATAROOT_ALIASES = {
     "dataroot_HR": ("dataroot_HR", "dataroot_B", "dataroot_gt",
                     "dataroot_target"),
@@ -96,7 +128,7 @@ def _expand_paths(val):
     return val
 
 
-def parse_datasets(opt: dict) -> None:
+def parse_datasets(opt: dict, opt_path: str = "") -> None:
     scale = opt.get("scale", 1)
     for phase_key, dataset in (opt.get("datasets") or {}).items():
         phase = phase_key.split("_")[0]
@@ -107,12 +139,9 @@ def parse_datasets(opt: dict) -> None:
                 if dataset.get(a) is not None:
                     dataset[canon] = dataset[a]
                     break
-        if phase == "train" and (dataset.get("augs_strategy") or any(
-                k.startswith("add_") and k.endswith("_preset")
-                for k in dataset)):
-            raise NotImplementedError(
-                "degradation presets are not ported yet (ROADMAP Queue A, "
-                "the torch CLI trainer)")
+        if phase == "train":
+            # the preset overlay lands before the algorithm names are mapped
+            _presets.apply_presets(dataset, opt_path=opt_path)
         if dataset.get("HR_size") is not None and \
                 dataset.get("crop_size") is None:
             dataset["crop_size"] = dataset["HR_size"]
@@ -124,6 +153,13 @@ def parse_datasets(opt: dict) -> None:
                 if any(str(r).endswith(".lmdb") for r in roots):
                     dataset["data_type"] = "lmdb"
         dataset.setdefault("data_type", "img")
+        if phase == "train":
+            bs = dataset.get("batch_size") or 1
+            vbs = dataset.get("virtual_batch_size") or bs
+            dataset["virtual_batch_size"] = max(vbs, bs)
+        for k in _ALGO_KEYS:
+            if dataset.get(k) is not None:
+                dataset[k] = _algo2int(dataset[k])
 
 
 def parse(opt_path: str, is_train: bool = True) -> NoneDict:
@@ -145,7 +181,7 @@ def parse_dict(opt: dict, opt_path: str = "",
     name = opt.get("name", "unnamed")
     if name.startswith("debug"):
         opt["is_debug"] = True
-    parse_datasets(opt)
+    parse_datasets(opt, opt_path=opt_path)
     get_network_defaults(opt)
 
     paths = {k: _expand_paths(v) for k, v in (opt.get("path") or {}).items()}
