@@ -5,12 +5,18 @@ NVIDIA card.
 Phases, each printing lines of its own; any failure ends the run with a
 non-zero exit code and no result line:
 
-1. device: the card's name and power limit, and the build of every CUDA
-   kernel of the main paths from the sources in ``trainner_tpu_torch/csrc``;
+1. device: the card's name and power limit, the build of every CUDA
+   kernel of the main paths from the sources in ``trainner_tpu_torch/csrc``
+   (registers, spills, shared memory) and, from the build's SASS, the
+   instruction that multiplies in each bf16 block kernel (``HMMA`` for
+   ``mma.sync``, ``HGMMA`` for ``wgmma``);
 2. kernels: each kernel's wrapper against its plain PyTorch version on the
    card, TF32 off, f32 and bf16: the block's forward at the serving shape,
-   the training shape and a ragged one, its backward at the training shape
-   and the ragged one; the per-sample blur at the producer's two shapes
+   the training shape and two ragged ones (the second at b=1), its backward
+   at the training shape and the ragged ones, bit-equal from run to run;
+   both again with every output and scratch buffer filled with NaN before
+   the launch, and in bf16 at two other widths (nf 32 and nf 128 with gc
+   32); the per-sample blur at the producer's two shapes
    (the HR and the LR canvas, k 21) and at a ragged one with asymmetric
    kernels, and an identity kernel bit for bit;
 3. serving slice: ``python -m trainner_tpu_torch.test`` at the full width
@@ -32,8 +38,9 @@ non-zero exit code and no result line:
    time per batch, and a traced end-to-end step;
 6. times: CUDA-event times of each kernel, its plain version, its bound
    and a library call as a yardstick (the cuDNN five-conv chain; reflect
-   padding and a grouped cuDNN convolution for the blur), and the G forward
-   at b=8, 128->512 px;
+   padding and a grouped cuDNN convolution for the blur), the device-alone
+   time of the bf16 block kernels from the profiler, and the G forward at
+   b=8, 128->512 px;
 7. trace: one f32 G forward at b=8 and one bf16 train step under
    ``torch.profiler``: device time by kernel and the device's idle share.
 
@@ -42,6 +49,9 @@ The second-to-last lines are a JSON summary of the kernels and the card's
 ``{"ok": true, "device": {...}}``.
 
 Usage: python3 chip_smoke.py
+       python3 chip_smoke.py --kernels-only   (phases 1, 2 and the block
+           kernels' part of 6: a short run while a kernel is worked on; it
+           prints no result line)
 """
 
 from __future__ import annotations
@@ -62,6 +72,7 @@ PEAK_BYTES = 3.35e12
 MAIN_SHAPE = (8, 128, 128)   # b, h, w of the LR trunk at b=8, 128->512 px
 TRAIN_SHAPE = (32, 32, 32)   # the trunk of a training step: b=32, 32->128 px
 RAGGED_SHAPE = (3, 37, 53)
+RAGGED_B1_SHAPE = (1, 21, 45)  # one image, no multiple of the 16x16 tile
 BLUR_HR = (32, 128, 128, 3)  # the HR canvas of the producer's first blur
 BLUR_LR = (32, 32, 32, 3)    # the LR canvas of its second blur
 BLUR_K = 21
@@ -139,12 +150,14 @@ def _backward_tolerance(dtype, name, ref) -> float:
     return 2 * _bf16_ulp(ref) if name == "dx" else top * 2.0 ** -11
 
 
-def phase_kernels(smi: str):
-    """Kernel against plain version on the card. Returns the max abs errors
-    at the main paths' shapes: the forward's at the serving shape in f32,
-    the backward's at the training shape in bf16 (each path's default
-    type)."""
+def _compare_block(shape, dt, x, g_out, ws, bs, label: str):
+    """One block forward and, with ``g_out``, backward on the kernels
+    against the plain versions; raises past the tolerances. Returns the
+    two largest errors (forward, backward or None). The widths are the
+    weights' own."""
     import torch
+
+    nf, gc = ws[0].shape[1], ws[0].shape[0]
 
     from trainner_tpu_torch.ops.rdb5c import (pack_rdb_weights,
                                               rdb5c_backward,
@@ -152,60 +165,112 @@ def phase_kernels(smi: str):
                                               rdb5c_forward,
                                               rdb5c_forward_plain)
 
+    packed = pack_rdb_weights([w.cuda() for w in ws], nf, gc, dt)
+    xd = x.to(dt).contiguous()
+    got = rdb5c_forward(xd, packed, bs, return_residuals=True)
+    torch.cuda.synchronize()
+    ref = rdb5c_forward_plain(xd, packed, bs, return_residuals=True)
+    errs = []
+    for name, g, r in zip(("out", "c1", "c2", "c3", "c4"), got, ref):
+        if g.shape != r.shape or g.dtype != r.dtype:
+            raise AssertionError(f"{name}: {g.shape} {g.dtype} vs "
+                                 f"{r.shape} {r.dtype}")
+        err = float((g.float() - r.float()).abs().max())
+        tol = _tolerance(dt, r.float())
+        print(f"kernels: {label}rdb5c {shape} {dt} {name} max_abs_err "
+              f"{err:.3e} tol {tol:.3e} max|ref| "
+              f"{float(r.float().abs().max()):.3f}")
+        if not err <= tol:
+            raise AssertionError(
+                f"{label}rdb5c {shape} {dt} {name}: {err} > {tol}")
+        errs.append(err)
+    if g_out is None:
+        return max(errs), None
+    gd = g_out.to(dt).contiguous()
+    got_b = rdb5c_backward(gd, xd, *got[1:], packed)
+    torch.cuda.synchronize()
+    ref_b = rdb5c_backward_plain(gd, xd, *got[1:], packed)
+    errs_b = []
+    for name, a, r in zip(BWD_NAMES, got_b, ref_b):
+        if a.shape != r.shape or a.dtype != r.dtype:
+            raise AssertionError(f"{name}: {a.shape} {a.dtype} vs "
+                                 f"{r.shape} {r.dtype}")
+        err = float((a.float() - r.float()).abs().max())
+        tol = _backward_tolerance(dt, name, r.float())
+        print(f"kernels: {label}rdb5c_bwd {shape} {dt} {name} max_abs_err "
+              f"{err:.3e} tol {tol:.3e} max|ref| "
+              f"{float(r.float().abs().max()):.3f}")
+        if not err <= tol:
+            raise AssertionError(
+                f"{label}rdb5c_bwd {shape} {dt} {name}: {err} > {tol}")
+        errs_b.append(err)
+    again = rdb5c_backward(gd, xd, *got[1:], packed)
+    if not all(torch.equal(a, b) for a, b in zip(got_b, again)):
+        raise AssertionError("rdb5c_bwd differs from run to run")
+    return max(errs), max(errs_b)
+
+
+@contextlib.contextmanager
+def _poisoned_buffers():
+    """Every output and scratch buffer the block wrappers allocate comes
+    filled with NaN, so a stale partial sum or a halo that was never
+    written shows in the result."""
+    import torch
+
+    from trainner_tpu_torch.ops import rdb5c
+
+    plain_alloc = rdb5c._alloc
+
+    def poisoned(shape, dtype, device):
+        return torch.full(shape if isinstance(shape, (tuple, torch.Size))
+                          else (shape,), float("nan"), dtype=dtype,
+                          device=device)
+
+    rdb5c._alloc = poisoned
+    try:
+        yield
+    finally:
+        rdb5c._alloc = plain_alloc
+
+
+def phase_kernels(smi: str):
+    """Kernel against plain version on the card. Returns the max abs errors
+    at the main paths' shapes: the forward's at the serving shape in f32,
+    the backward's at the training shape in bf16 (each path's default
+    type)."""
+    import torch
+
     gen = torch.Generator().manual_seed(0)
     ws, bs = _block_weights(gen)
     bs = [b.cuda() for b in bs]
     main_err = bwd_err = None
-    for shape in (MAIN_SHAPE, TRAIN_SHAPE, RAGGED_SHAPE):
+    inputs = {}
+    for shape in (MAIN_SHAPE, TRAIN_SHAPE, RAGGED_SHAPE, RAGGED_B1_SHAPE):
         x = (torch.randn(*shape, NF, generator=gen) * 0.5).cuda()
         g_out = torch.randn(*shape, NF, generator=gen).cuda()
+        inputs[shape] = x, g_out
         for dt in (torch.float32, torch.bfloat16):
-            packed = pack_rdb_weights([w.cuda() for w in ws], NF, GC, dt)
-            xd = x.to(dt).contiguous()
-            got = rdb5c_forward(xd, packed, bs, return_residuals=True)
-            torch.cuda.synchronize()
-            ref = rdb5c_forward_plain(xd, packed, bs, return_residuals=True)
-            errs = []
-            for name, g, r in zip(("out", "c1", "c2", "c3", "c4"), got, ref):
-                if g.shape != r.shape or g.dtype != r.dtype:
-                    raise AssertionError(f"{name}: {g.shape} {g.dtype} vs "
-                                         f"{r.shape} {r.dtype}")
-                err = float((g.float() - r.float()).abs().max())
-                tol = _tolerance(dt, r.float())
-                print(f"kernels: rdb5c {shape} {dt} {name} max_abs_err "
-                      f"{err:.3e} tol {tol:.3e} max|ref| "
-                      f"{float(r.float().abs().max()):.3f}")
-                if not err <= tol:
-                    raise AssertionError(
-                        f"rdb5c {shape} {dt} {name}: {err} > {tol}")
-                errs.append(err)
-            if shape == MAIN_SHAPE:
-                if dt == torch.float32:
-                    main_err = max(errs)
-                continue
-            gd = g_out.to(dt).contiguous()
-            got_b = rdb5c_backward(gd, xd, *got[1:], packed)
-            torch.cuda.synchronize()
-            ref_b = rdb5c_backward_plain(gd, xd, *got[1:], packed)
-            errs = []
-            for name, a, r in zip(BWD_NAMES, got_b, ref_b):
-                if a.shape != r.shape or a.dtype != r.dtype:
-                    raise AssertionError(f"{name}: {a.shape} {a.dtype} vs "
-                                         f"{r.shape} {r.dtype}")
-                err = float((a.float() - r.float()).abs().max())
-                tol = _backward_tolerance(dt, name, r.float())
-                print(f"kernels: rdb5c_bwd {shape} {dt} {name} max_abs_err "
-                      f"{err:.3e} tol {tol:.3e} max|ref| "
-                      f"{float(r.float().abs().max()):.3f}")
-                if not err <= tol:
-                    raise AssertionError(
-                        f"rdb5c_bwd {shape} {dt} {name}: {err} > {tol}")
-                errs.append(err)
-            again = rdb5c_backward(gd, xd, *got[1:], packed)
-            if not all(torch.equal(a, b) for a, b in zip(got_b, again)):
-                raise AssertionError("rdb5c_bwd differs from run to run")
+            fwd, bwd = _compare_block(
+                shape, dt, x, None if shape == MAIN_SHAPE else g_out, ws, bs,
+                "")
+            if shape == MAIN_SHAPE and dt == torch.float32:
+                main_err = fwd
             if shape == TRAIN_SHAPE and dt == torch.bfloat16:
-                bwd_err = max(errs)
+                bwd_err = bwd
+    # the same with NaN in every buffer the wrappers allocate
+    with _poisoned_buffers():
+        for shape in (TRAIN_SHAPE, RAGGED_B1_SHAPE):
+            for dt in (torch.float32, torch.bfloat16):
+                _compare_block(shape, dt, *inputs[shape], ws, bs,
+                               "NaN-filled buffers: ")
+    # other widths the bf16 kernels take: chunks, slices and dW slots are
+    # counted from nf and gc at run time
+    for nf, gc in ((32, 32), (128, 32)):
+        ws2, bs2 = _block_weights(gen, nf, gc)
+        x = (torch.randn(*RAGGED_B1_SHAPE, nf, generator=gen) * 0.5).cuda()
+        g_out = torch.randn(*RAGGED_B1_SHAPE, nf, generator=gen).cuda()
+        _compare_block(RAGGED_B1_SHAPE, torch.bfloat16, x, g_out, ws2,
+                       [b.cuda() for b in bs2], f"nf {nf} gc {gc}: ")
     print(f"kernels: ok ({smi})")
     return main_err, bwd_err
 
@@ -737,6 +802,55 @@ def phase_producer(smi: str, root: str) -> dict:
     return counts
 
 
+BF16_BLOCK_KERNELS = {"rdb5c.cu": ("rdb_stage_mma",),
+                      "rdb5c_bwd.cu": ("rdb_dx_stage_mma", "dw_mma_kernel")}
+
+
+def _instruction_forms(smi: str) -> dict:
+    """Reads the SASS of the two block libraries (``cuobjdump -sass``) and
+    returns {kernel: "HGMMA" or "HMMA"} for the bf16 block kernels. Fails
+    if one of them multiplies on neither, or if a bf16 instantiation of the
+    f32-FMA kernels is still in the build."""
+    import collections
+
+    from trainner_tpu_torch.ops import _build
+
+    cuobjdump = os.path.join(os.path.dirname(_build.nvcc_path()), "cuobjdump")
+    forms = {}
+    for source, kernels in BF16_BLOCK_KERNELS.items():
+        sass = subprocess.run(
+            [cuobjdump, "-sass", str(_build.library_path(source))],
+            capture_output=True, text=True, timeout=300, check=True).stdout
+        counts, name = {}, None
+        for line in sass.splitlines():
+            if "Function :" in line:
+                name = line.split("Function :")[1].strip()
+                counts[name] = collections.Counter()
+            elif name is not None:
+                for op in ("HGMMA", "HMMA", "FFMA", "LDSM", "LDGSTS"):
+                    if op + "." in line or op + " " in line:
+                        counts[name][op] += 1
+        for fn in counts:
+            if "bfloat16" in fn and any(k in fn for k in (
+                    "rdb_stageI", "rdb_dx_stageI", "dw_kernelI",
+                    "vtab_kernelI")):
+                raise AssertionError(f"{source} still builds {fn}")
+        for kernel in kernels:
+            found = [c for fn, c in counts.items() if kernel in fn]
+            if len(found) != 1:
+                raise AssertionError(f"{source}: {len(found)} functions "
+                                     f"named {kernel}")
+            c = found[0]
+            form = "HGMMA" if c["HGMMA"] else "HMMA" if c["HMMA"] else None
+            print(f"device: {source}: {kernel}: " + ", ".join(
+                f"{n} {op}" for op, n in sorted(c.items())) + f" -> {form}")
+            if form is None:
+                raise AssertionError(f"{kernel} has no tensor-core "
+                                     "instruction")
+            forms[kernel] = form
+    return forms
+
+
 def _bound(name: str, flops: float, nbytes: float) -> tuple:
     """The least time in ms the card could take: the larger of operations
     over the type's peak and bytes over the memory rate, and which."""
@@ -745,11 +859,12 @@ def _bound(name: str, flops: float, nbytes: float) -> tuple:
     return max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
 
 
-def phase_times(smi: str, root: str):
-    """CUDA-event times of both kernels at the main paths' shapes, beside
-    the plain version, the bound and the cuDNN five-conv chain (its forward,
-    and autograd's backward through it); then the G forward at b=8. Returns
-    {(kernel, shape, dtype name): row}."""
+def phase_times(smi: str, root: str, kernels_only: bool = False):
+    """CUDA-event times of both block kernels at the main paths' shapes in
+    both types, beside the plain version, the bound and the cuDNN five-conv
+    chain (its forward, and autograd's backward through it), and the bf16
+    kernels' time on the device alone; then (unless ``kernels_only``) the G
+    forward at b=8. Returns {(kernel, shape, dtype name): row}."""
     import torch
 
     from trainner_tpu_torch.models import define_G
@@ -796,15 +911,13 @@ def phase_times(smi: str, root: str):
                 bound_ms=bound_ms, bound_by=bound_by)
             print(f"times: rdb5c {name} b={b} {h}x{w}: kernel {ms:.4f} ms, "
                   f"plain {plain_ms:.4f} ms, cuDNN 5-conv chain "
-                  f"{library_ms:.4f} ms, bound {bound_ms:.4f} ms "
-                  f"({bound_by}), {work / ms / 1e9:.2f} TFLOP/s ({smi})")
-            if shape != TRAIN_SHAPE:
-                del blk, conv_blk
-                continue
+                  f"{library_ms:.4f} ms ({library_ms / ms:.2f}x the kernel), "
+                  f"bound {bound_ms:.4f} ms ({bound_by}, "
+                  f"{bound_ms / ms:.1%} of it reached), "
+                  f"{work / ms / 1e9:.2f} TFLOP/s ({smi})")
 
-            # the backward at the training shape, from the forward's
-            # residuals; the yardstick is autograd's backward through the
-            # cuDNN chain on a kept graph
+            # the backward, from the forward's residuals; the yardstick is
+            # autograd's backward through the cuDNN chain on a kept graph
             g = torch.randn(b, h, w, NF, generator=gen).cuda().to(dt)
             with torch.no_grad():
                 _, *cs = rdb5c_forward(x, packed, biases,
@@ -828,10 +941,31 @@ def phase_times(smi: str, root: str):
                 bound_ms=bound_ms, bound_by=bound_by)
             print(f"times: rdb5c_bwd {name} b={b} {h}x{w}: kernel "
                   f"{ms:.4f} ms, plain {plain_ms:.4f} ms, autograd through "
-                  f"the cuDNN 5-conv chain {library_ms:.4f} ms, bound "
-                  f"{bound_ms:.4f} ms ({bound_by}), "
-                  f"{work / ms / 1e9:.2f} TFLOP/s ({smi})")
+                  f"the cuDNN 5-conv chain {library_ms:.4f} ms "
+                  f"({library_ms / ms:.2f}x the kernel), bound "
+                  f"{bound_ms:.4f} ms ({bound_by}, {bound_ms / ms:.1%} of "
+                  f"it reached), {work / ms / 1e9:.2f} TFLOP/s ({smi})")
+            if dt == torch.bfloat16:
+                # the three hot kernels on the device alone, all their
+                # launches in one block added up
+                with torch.no_grad():
+                    dev = {k: _device_ms(fn, k) for k, fn in (
+                        ("rdb_stage_mma",
+                         lambda: rdb5c_forward(x, packed, biases)),
+                        ("rdb_dx_stage_mma",
+                         lambda: rdb5c_backward(g, x, *cs, packed)),
+                        ("dw_mma_kernel",
+                         lambda: rdb5c_backward(g, x, *cs, packed)))}
+                rows["rdb5c_forward", shape, name]["device_ms"] = \
+                    dev["rdb_stage_mma"]
+                rows["rdb5c_backward", shape, name]["device_ms"] = dev
+                print(f"times: bf16 block kernels b={b} {h}x{w} on the "
+                      f"device alone (profiler, per block): "
+                      + ", ".join(f"{k} {v:.4f} ms" for k, v in dev.items())
+                      + f" ({smi})")
             del blk, conv_blk, out, inputs, xin
+    if kernels_only:
+        return rows
 
     b, h, w = MAIN_SHAPE
     opt = parse(_options(root, name="smoke_times"), is_train=False)
@@ -851,9 +985,9 @@ def phase_times(smi: str, root: str):
 
 
 def _device_ms(fn, match: str, calls: int = 10) -> float:
-    """Device time per launch, under torch.profiler, of the kernels whose
-    name holds ``match`` over ``calls`` calls of ``fn``; 0.0 when the
-    profiler recorded none."""
+    """Device time per call of ``fn``, under torch.profiler, of the kernels
+    whose name holds ``match`` (all their launches in one call added up),
+    over ``calls`` calls; 0.0 when the profiler recorded none."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -867,7 +1001,7 @@ def _device_ms(fn, match: str, calls: int = 10) -> float:
         torch.cuda.synchronize()
     spans = [e.time_range.elapsed_us() for e in prof.events()
              if e.device_type == DeviceType.CUDA and match in e.name]
-    return sum(spans) / len(spans) / 1e3 if spans else 0.0
+    return sum(spans) / calls / 1e3
 
 
 def phase_blur_times(smi: str) -> dict:
@@ -921,7 +1055,7 @@ def phase_blur_times(smi: str) -> dict:
 
 
 def _kernel_rows(rows, serving_launches, train, main_err, bwd_err,
-                 blur_rows, producer, blur_err):
+                 blur_rows, producer, blur_err, forms):
     """The JSON summary: each kernel at its main path's shape and type (the
     forward at the serving shape in f32, the backward at the training shape
     in bf16, the blur at the HR canvas in f32, with its times at the LR
@@ -929,6 +1063,12 @@ def _kernel_rows(rows, serving_launches, train, main_err, bwd_err,
     fwd = rows["rdb5c_forward", MAIN_SHAPE, "float32"]
     bwd = rows["rdb5c_backward", TRAIN_SHAPE, "bfloat16"]
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+
+    def bf16_at(kernel):
+        return {f"b={sh[0]} {sh[1]}x{sh[2]}": {
+            k: rows[kernel, sh, "bfloat16"][k] for k in keys + ("device_ms",)}
+            for sh in (MAIN_SHAPE, TRAIN_SHAPE)}
+
     return [
         {"name": "rdb5c_forward", "route": "cuda",
          "source": "trainner_tpu_torch/csrc/rdb5c.cu",
@@ -936,14 +1076,20 @@ def _kernel_rows(rows, serving_launches, train, main_err, bwd_err,
          "launches": serving_launches + producer["forward"] + sum(
              r["forward"] for r in train.values()),
          "max_abs_err": main_err, **{k: fwd[k] for k in keys},
-         "shape": list(MAIN_SHAPE), "dtype": "float32"},
+         "shape": list(MAIN_SHAPE), "dtype": "float32",
+         "bfloat16": bf16_at("rdb5c_forward"),
+         "bfloat16_form": {k: forms[k]
+                           for k in BF16_BLOCK_KERNELS["rdb5c.cu"]}},
         {"name": "rdb5c_backward", "route": "cuda",
          "source": "trainner_tpu_torch/csrc/rdb5c_bwd.cu",
          "replaces": "trainner_tpu/ops/pallas_kernels.py:355",
          "launches": producer["backward"] + sum(
              r["backward"] for r in train.values()),
          "max_abs_err": bwd_err, **{k: bwd[k] for k in keys},
-         "shape": list(TRAIN_SHAPE), "dtype": "bfloat16"},
+         "shape": list(TRAIN_SHAPE), "dtype": "bfloat16",
+         "bfloat16": bf16_at("rdb5c_backward"),
+         "bfloat16_form": {k: forms[k]
+                           for k in BF16_BLOCK_KERNELS["rdb5c_bwd.cu"]}},
         {"name": "blur_per_sample", "route": "cuda",
          "source": "trainner_tpu_torch/csrc/blur_per_sample.cu",
          "replaces": "trainner_tpu/ops/pallas_kernels.py:466",
@@ -1030,13 +1176,18 @@ def phase_trace(smi: str, root: str, step_ms: float) -> None:
             f"{TRAIN_SHAPE[1]}->{TRAIN_SHAPE[1] * 4} px", smi, step_ms)
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    import argparse
+
     import torch
 
+    parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    parser.add_argument("--kernels-only", action="store_true")
+    flags = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 1
-    from trainner_tpu_torch.ops import _build
+    from trainner_tpu_torch.ops import _build, rdb5c
 
     smi = _smi()
     print(f"device: {smi}; torch {torch.__version__}, CUDA "
@@ -1048,10 +1199,21 @@ def main() -> int:
         for line in log.splitlines():
             if "registers" in line or "spill" in line:
                 print(f"device: {source}: {line.strip()}")
+    smem = {f"rdb_stage_mma / rdb_dx_stage_mma over {c} channels":
+            rdb5c._library().rdb5c_stage_smem_bytes(c)
+            for c in range(NF, NF + 4 * GC + 1, GC)}
+    smem["dw_mma_kernel"] = rdb5c._bwd_library().rdb5c_backward_dw_smem_bytes()
+    print("device: dynamic shared memory of the bf16 block kernels, bytes "
+          f"per block: {smem}")
+    forms = _instruction_forms(smi)
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
 
     main_err, bwd_err = phase_kernels(smi)
+    if flags.kernels_only:
+        phase_times(smi, "", kernels_only=True)
+        print(smi)
+        return 0
     blur_err = phase_blur_kernel(smi)
     with tempfile.TemporaryDirectory() as root:
         launches = phase_slice(smi, root)
@@ -1065,7 +1227,7 @@ def main() -> int:
         blur_rows = phase_blur_times(smi)
         phase_trace(smi, root, train["bfloat16"]["step_ms"])
     kernels = _kernel_rows(rows, launches, train, main_err, bwd_err,
-                           blur_rows, producer, blur_err)
+                           blur_rows, producer, blur_err, forms)
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

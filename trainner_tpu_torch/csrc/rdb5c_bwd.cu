@@ -24,22 +24,51 @@
 //    pitch; each dx stage writes its da_k into slot k-1. The five db are
 //    column sums of G.
 //  * A dx stage is a zero-padded 3x3 correlation of dy_k with the
-//    tap-flipped, transposed weight V_k[t'] = W_k[8-t']^T, built once per
-//    call by vtab_kernel. It runs the forward's implicit-GEMM tile
-//    (conv3x3_tile: halo tile with zeros outside the image, f32 FMAs on
-//    the CUDA cores) with its own epilogue.
+//    tap-flipped, transposed weight V_k[t'] = W_k[8-t']^T: the forward's
+//    implicit-GEMM tile with its own epilogue (lrelu' from the sign of c_k,
+//    or + g for dx).
 //  * dW reduces over all b*h*w pixels, which the TPU kernel gets from its
-//    sequential grid. Here pixel tiles run in parallel: dw_kernel writes
+//    sequential grid. Here pixel tiles run in parallel: the dW kernel writes
 //    one partial per split of the pixel tiles, and reduce_splits adds the
 //    partials in a fixed order. No atomics: results are the same from run
-//    to run. The db column sums go the same two-pass way.
+//    to run. The db column sums go the same two-pass way. The number of
+//    splits is rdb5c_backward_dw_splits, which the caller asks for to size
+//    the partials and the launch checks.
 //
 // Bound: 4*9*(nf(4gc+nf) + gc(3gc+nf) + gc(2gc+nf) + gc(gc+nf) + gc*nf)
 // = 958,464 FLOPs per pixel at nf 64, gc 32 (twice the forward: dx and dW)
-// against (3nf + 4gc) values read or written per pixel: compute-bound on
-// this card. Tensor-core products (wgmma for bf16, 3xTF32 for f32), TMA
-// and one fused launch are work for later versions.
+// against (3nf + 4gc) values read or written per pixel: bound by operations
+// on this card.
+//
+// Two paths, chosen by the working type alone:
+//
+// bf16, on the tensor cores (mma.sync m16n8k16, f32 sums in registers):
+//  * dx stages: rdb_dx_stage_mma, the tile of conv3x3_mma.cuh with DX set.
+//    It reads V_k straight from the packed W_k (the rows of a tap's
+//    [cin][N] slab are already "output column major" for the transposed
+//    product), so no V table is built. See that header for what the tile
+//    does about shared-memory traffic, weight loads, overlap and grids.
+//  * dW: dw_mma_kernel. Per tap the product is c_k[p + s_t]^T dy_k[p] with
+//    the pixels as K, so both operands are K-slow in their natural
+//    pixel-major tiles and both come through ldmatrix.trans; a row of 16
+//    tile pixels is one k16 step. A block owns one (stage, 32 channels, 32
+//    columns) slot for all nine taps; a warp owns 16 channels x 16 columns x
+//    9 taps (72 f32 sums a thread), kept in registers over all the block's
+//    pixel tiles. For each halo row of c_k it loads three A fragments (the
+//    three column shifts) and uses each against three rows of dy_k, whose
+//    fragments stay in registers from row to row: 4 ldmatrix feed 18 mma.
+//    The activation's halo tile and the dy tile are loaded once per tile by
+//    cp.async (zeros outside the image) into two buffers, the next tile in
+//    flight while this one is multiplied. Splits are sized so that one wave
+//    of blocks (two per SM) covers the card: at b=32, 32x32 that is 10
+//    splits x 26 slots, and 10 partials to add instead of 64.
+//
+// f32, exact FMAs on the CUDA cores: rdb_dx_stage (tile of
+// conv3x3_tile.cuh) on a V table built once per call by vtab_kernel, and
+// dw_kernel. 3xTF32 on the tensor cores and one fused launch are work for
+// later versions.
 
+#include "conv3x3_mma.cuh"
 #include "conv3x3_tile.cuh"
 
 namespace {
@@ -343,6 +372,326 @@ int launch_bwd(const void* g_, const void* x_, void* const* cs,
   return 0;
 }
 
+// ---------------------------------------------------------------------------
+// bf16 on the tensor cores.
+// ---------------------------------------------------------------------------
+struct DxEpilogue {
+  const rdbm::bf16* act;  // c_k (k >= 1) or g (k == 0), pitch = ncols
+  int ncols;
+  rdbm::bf16* dst;        // G's slot k-1 (pitch gw) or dx (pitch nf)
+  int dst_pitch;
+  int last;               // k == 0
+  int h, w;
+
+  __device__ __forceinline__ void operator()(float (&acc)[2][4][4], int bi,
+                                             int y0, int x0) const {
+    const rdbm::FragCoords f = rdbm::frag_coords();
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt) {
+      const int yy = y0 + f.row0 + mt;
+      if (yy >= h) continue;
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int xx = x0 + f.col0 + 8 * half;
+        if (xx >= w) continue;
+        const long long pix = ((long long)bi * h + yy) * w + xx;
+#pragma unroll
+        for (int nt = 0; nt < 4; ++nt) {
+          const int n = f.n + nt * 8;
+          const __nv_bfloat162 av = *reinterpret_cast<const __nv_bfloat162*>(
+              act + pix * ncols + n);
+          const float a0 = __low2float(av), a1 = __high2float(av);
+          float v0 = acc[mt][nt][2 * half], v1 = acc[mt][nt][2 * half + 1];
+          if (last) {
+            v0 += a0;
+            v1 += a1;
+          } else {
+            v0 *= a0 >= 0.f ? 1.f : 0.2f;
+            v1 *= a1 >= 0.f ? 1.f : 0.2f;
+          }
+          *reinterpret_cast<__nv_bfloat162*>(dst + pix * dst_pitch + n) =
+              __floats2bfloat162_rn(v0, v1);
+        }
+      }
+    }
+  }
+};
+
+// two blocks fit an SM where the stage is narrow: at most 128 registers
+__global__ void __launch_bounds__(rdbm::THREADS, 2)
+rdb_dx_stage_mma(const __grid_constant__ rdbm::ConvArgs args,
+                 const DxEpilogue epi) {
+  rdbm::conv3x3_mma<true>(args, epi);
+}
+
+constexpr int DWM_THREADS = 128;  // 4 warps: 2 channel halves x 2 column halves
+constexpr int DWM_A_BYTES = rdbm::HPIX * rdbm::PITCH;          // c_k halo tile
+constexpr int DWM_D_BYTES = rdbm::TH * rdbm::TW * rdbm::PITCH;  // dy_k tile
+constexpr int DWM_BUF_BYTES = DWM_A_BYTES + DWM_D_BYTES;
+constexpr size_t DWM_SMEM_BYTES = 2 * (size_t)DWM_BUF_BYTES;
+constexpr int DWM_BLOCKS_PER_SM = 2;
+
+// One block = one (stage, 32-channel slice, 32-column slice) slot, all nine
+// taps, over the pixel tiles blockIdx.x, blockIdx.x + nsplit, ...
+__global__ void __launch_bounds__(DWM_THREADS)
+dw_mma_kernel(const __grid_constant__ Stages st,
+              const rdbm::bf16* __restrict__ G, int gw, int gc,
+              float* __restrict__ part, int h, int w, int tiles_x,
+              int tiles_y, int ntiles, int nsplit) {
+  using rdbm::bf16;
+  using rdbm::BN;
+  using rdbm::HPIX;
+  using rdbm::HW;
+  using rdbm::KC;
+  using rdbm::PITCH;
+  using rdbm::TH;
+  using rdbm::TW;
+  using rdbm::cp_async16;
+  using rdbm::cp_async_commit;
+  using rdbm::cp_async_wait;
+  using rdbm::ldmatrix_x4_trans;
+  using rdbm::mma_bf16;
+  using rdbm::smem_u32;
+  extern __shared__ __align__(128) unsigned char smem_dw[];
+  const uint32_t base = smem_u32(smem_dw);
+
+  int k = 0, slot = blockIdx.y;
+  for (;; ++k) {
+    const int n_here = (st.cin[k] / KC) * (st.ncols[k] / BN);
+    if (slot < n_here) break;
+    slot -= n_here;
+  }
+  const int cin = st.cin[k], ncols = st.ncols[k];
+  const int cs = slot / (ncols / BN);
+  const int ns = slot % (ncols / BN);
+  const bf16* act = static_cast<const bf16*>(st.act[k]) + cs * KC;
+  const bf16* dy = G + k * gc + ns * BN;
+
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int mt = warp & 1;   // channels cs*32 + mt*16 .. +16
+  const int nh = warp >> 1;  // columns ns*32 + nh*16 .. +16
+  const int mi = lane >> 3;
+
+  auto start_loads = [&](int tile, int buf) {
+    if (tile < ntiles) {
+      int rest = tile;
+      const int x0 = (rest % tiles_x) * TW;
+      rest /= tiles_x;
+      const int y0 = (rest % tiles_y) * TH;
+      const int bi = rest / tiles_y;
+      const uint32_t abuf = base + buf * DWM_BUF_BYTES;
+      const uint32_t dbuf = abuf + DWM_A_BYTES;
+      for (int i = tid; i < HPIX * 4; i += DWM_THREADS) {
+        const int hp = i >> 2, q = i & 3;
+        const int yy = y0 + hp / HW - 1;
+        const int xx = x0 + hp % HW - 1;
+        const bool inside = yy >= 0 && yy < h && xx >= 0 && xx < w;
+        const long long pix = inside ? ((long long)bi * h + yy) * w + xx : 0;
+        cp_async16(abuf + hp * PITCH + q * 16, act + pix * cin + q * 8,
+                   inside ? 16 : 0);
+      }
+      for (int i = tid; i < TH * TW * 4; i += DWM_THREADS) {
+        const int p = i >> 2, q = i & 3;
+        const int yy = y0 + p / TW;
+        const int xx = x0 + p % TW;
+        const bool inside = yy < h && xx < w;
+        const long long pix = inside ? ((long long)bi * h + yy) * w + xx : 0;
+        cp_async16(dbuf + p * PITCH + q * 16, dy + pix * gw + q * 8,
+                   inside ? 16 : 0);
+      }
+    }
+    cp_async_commit();
+  };
+
+  // A (c_k^T, 16 channels x 16 pixels of a halo row): matrix mi holds
+  // channels (mi & 1)*8.., pixels (mi >> 1)*8..; stored pixel-major.
+  const int a_lane = ((lane & 7) + 8 * (mi >> 1)) * PITCH + mt * 32 + (mi & 1) * 16;
+  // B (dy_k, 16 pixels of a tile row x 16 columns): matrix mi holds column
+  // group mi >> 1, pixels (mi & 1)*8..
+  const int d_lane = ((lane & 7) + 8 * (mi & 1)) * PITCH + nh * 32 + (mi >> 1) * 16;
+
+  float acc[9][2][4];
+#pragma unroll
+  for (int t = 0; t < 9; ++t)
+#pragma unroll
+    for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[t][nt][e] = 0.f;
+
+  int buf = 0;
+  start_loads(blockIdx.x, 0);
+#pragma unroll 1
+  for (int tile = blockIdx.x; tile < ntiles; tile += nsplit, buf ^= 1) {
+    cp_async_wait<0>();
+    __syncthreads();
+    start_loads(tile + nsplit, buf ^ 1);
+
+    const uint32_t abuf = base + buf * DWM_BUF_BYTES + a_lane;
+    const uint32_t dbuf = base + buf * DWM_BUF_BYTES + DWM_A_BYTES + d_lane;
+    uint32_t bw[3][4];  // dy fragments of tile rows r with r % 3 = index
+#pragma unroll 1
+    for (int o = 0; o < 6; ++o) {
+#pragma unroll
+      for (int u = 0; u < 3; ++u) {
+        const int rp = 3 * o + u;  // halo row of c_k
+        if (rp < TH) ldmatrix_x4_trans(bw[u], dbuf + rp * TW * PITCH);
+#pragma unroll
+        for (int dx = 0; dx < 3; ++dx) {
+          uint32_t a[4];
+          ldmatrix_x4_trans(a, abuf + (rp * HW + dx) * PITCH);
+#pragma unroll
+          for (int dyi = 0; dyi < 3; ++dyi) {
+            const int r = rp - dyi;  // tile row of dy_k under tap row dyi
+            if (r >= 0 && r < TH) {
+              const uint32_t(&bf)[4] = bw[(u - dyi + 3) % 3];
+              mma_bf16(acc[dyi * 3 + dx][0], a, bf[0], bf[1]);
+              mma_bf16(acc[dyi * 3 + dx][1], a, bf[2], bf[3]);
+            }
+          }
+        }
+      }
+    }
+  }
+  cp_async_wait<0>();
+
+  float* out = part + (long long)blockIdx.x * st.off[5] + st.off[k];
+  const int c = cs * KC + mt * 16 + (lane >> 2);
+  const int n = ns * BN + nh * 16 + 2 * (lane & 3);
+#pragma unroll
+  for (int t = 0; t < 9; ++t)
+#pragma unroll
+    for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+      for (int half = 0; half < 2; ++half)
+        *reinterpret_cast<float2*>(
+            out + (long long)(t * cin + c + 8 * half) * ncols + n + nt * 8) =
+            make_float2(acc[t][nt][2 * half], acc[t][nt][2 * half + 1]);
+}
+
+int count_dw_slots(int nf, int gc) {
+  int slots = 0;
+  for (int k = 0; k < 5; ++k)
+    slots += ((k == 0 ? nf : gc) / 32) * ((4 * gc + nf - k * gc) / 32);
+  return slots;
+}
+
+// Splits of the pixel tiles among the dW blocks. f32: up to 64. bf16: one
+// wave of DWM_BLOCKS_PER_SM blocks per SM over all slots.
+int dw_split_count(int dtype, int b, int h, int w, int nf, int gc) {
+  const int ntiles = b * ((h + TH - 1) / TH) * ((w + TW - 1) / TW);
+  int cap = 64;
+  if (dtype == 1) {
+    static int sms = 0;
+    if (!sms) {
+      int dev = 0;
+      cudaGetDevice(&dev);
+      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    }
+    cap = DWM_BLOCKS_PER_SM * sms / count_dw_slots(nf, gc);
+    if (cap < 1) cap = 1;
+  }
+  return ntiles < cap ? ntiles : cap;
+}
+
+int launch_bwd_mma(const void* g_, const void* x_, void* const* cs,
+                   const void* const* wts, void* G_, float* dw_part,
+                   float* db_part, void* dx_, float* dw, float* db,
+                   int b, int h, int w, int nf, int gc, int dw_splits_,
+                   int db_splits, cudaStream_t stream) {
+  using rdbm::bf16;
+  if ((nf + 4 * gc) / rdbm::KC > rdbm::MAXCH) return (int)cudaErrorInvalidValue;
+  static bool configured = false;
+  static int per_sm[rdbm::MAXCH + 1] = {0};
+  if (!configured) {
+    cudaError_t e = cudaFuncSetAttribute(
+        rdb_dx_stage_mma, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)rdbm::conv_smem_bytes(rdbm::MAXCH));
+    if (e != cudaSuccess) return (int)e;
+    e = cudaFuncSetAttribute(
+        dw_mma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)DWM_SMEM_BYTES);
+    if (e != cudaSuccess) return (int)e;
+    configured = true;
+  }
+  const bf16* g = static_cast<const bf16*>(g_);
+  bf16* G = static_cast<bf16*>(G_);
+  const int gw = 4 * gc + nf;
+  const long long npix = (long long)b * h * w;
+
+  rdbm::ConvArgs args;
+  args.h = h;
+  args.w = w;
+  args.tiles_x = (w + rdbm::TW - 1) / rdbm::TW;
+  args.tiles_y = (h + rdbm::TH - 1) / rdbm::TH;
+  args.ntiles = b * args.tiles_y * args.tiles_x;
+
+  Stages st;
+  st.off[0] = 0;
+  for (int k = 0; k < 5; ++k) {
+    st.w[k] = wts[k];
+    st.act[k] = k == 0 ? x_ : cs[k - 1];
+    st.cin[k] = k == 0 ? nf : gc;
+    st.ncols[k] = gw - k * gc;
+    st.off[k + 1] = st.off[k] + 9 * st.cin[k] * st.ncols[k];
+  }
+  const int total = st.off[5];
+
+  dc5_kernel<bf16><<<(unsigned)((npix * (nf / 4) + 255) / 256), 256, 0,
+                     stream>>>(g, G, npix, nf, gw);
+  RDB_CHECK_LAUNCH();
+
+  for (int k = 4; k >= 0; --k) {
+    const int ncols = st.cin[k];  // columns of dc_k
+    args.nchunks = st.ncols[k] / rdbm::KC;
+    for (int j = 0; j < args.nchunks; ++j) {
+      rdbm::ChunkSrc& c = args.ch[j];
+      c.a = G + k * gc + j * rdbm::KC;
+      c.a_pitch = gw;
+      c.w = static_cast<const bf16*>(wts[k]) + j * rdbm::KC;
+      c.w_pitch = st.ncols[k];
+      c.w_tap = st.cin[k];
+    }
+    DxEpilogue epi;
+    epi.act = k == 0 ? g : static_cast<const bf16*>(cs[k - 1]);
+    epi.ncols = ncols;
+    epi.dst = k == 0 ? static_cast<bf16*>(dx_) : G + (k - 1) * gc;
+    epi.dst_pitch = k == 0 ? nf : gw;
+    epi.last = k == 0;
+    epi.h = h;
+    epi.w = w;
+    const int nslices = ncols / rdbm::BN;
+    const dim3 grid((unsigned)rdbm::conv_grid_x(rdb_dx_stage_mma, per_sm,
+                                                args.nchunks, args.ntiles,
+                                                nslices),
+                    (unsigned)nslices);
+    rdb_dx_stage_mma<<<grid, rdbm::THREADS,
+                       rdbm::conv_smem_bytes(args.nchunks), stream>>>(args,
+                                                                      epi);
+    RDB_CHECK_LAUNCH();
+  }
+
+  const dim3 dw_grid((unsigned)dw_splits_,
+                     (unsigned)count_dw_slots(nf, gc));
+  dw_mma_kernel<<<dw_grid, DWM_THREADS, DWM_SMEM_BYTES, stream>>>(
+      st, G, gw, gc, dw_part, h, w, args.tiles_x, args.tiles_y, args.ntiles,
+      dw_splits_);
+  RDB_CHECK_LAUNCH();
+  reduce_splits<<<(total + 255) / 256, 256, 0, stream>>>(dw_part, dw, total,
+                                                         dw_splits_);
+  RDB_CHECK_LAUNCH();
+
+  const int rows = (int)((npix + db_splits - 1) / db_splits);
+  colsum_kernel<bf16><<<db_splits, gw, 0, stream>>>(G, g, db_part, npix, nf,
+                                                    gw, rows);
+  RDB_CHECK_LAUNCH();
+  reduce_splits<<<(gw + 255) / 256, 256, 0, stream>>>(db_part, db, gw,
+                                                      db_splits);
+  RDB_CHECK_LAUNCH();
+  return 0;
+}
+
 }  // namespace
 
 extern "C" {
@@ -350,12 +699,13 @@ extern "C" {
 // dtype: 0 = float32, 1 = bfloat16. g, x, dx: (b, h, w, nf) NHWC; c1..c4:
 // (b, h, w, gc); w0..w4: packed (9*cin, N) in the working type.
 // Scratch, allocated by the caller: G (b*h*w, 4gc+nf) and vt (as many
-// values as w0..w4 together) in the working type; dw_part (dw_splits x
-// that many) and db_part (db_splits x (4gc+nf)) f32.
+// values as w0..w4 together; f32 only, bf16 does not read it and it may be
+// null) in the working type; dw_part (dw_splits x that many) and db_part
+// (db_splits x (4gc+nf)) f32. dw_splits must be what
+// rdb5c_backward_dw_splits returns for the same call.
 // Outputs: dx in the working type; dw: the five packed dW one after the
 // other, f32; db: [db1|db2|db3|db4|db5], f32. nf and gc are multiples of
-// 32, 4gc+nf <= 1024, dw_splits <= the number of 16x16 pixel tiles.
-// Returns cudaGetLastError() of the first launch that failed, else 0.
+// 32, 4gc+nf <= 1024 (bf16: <= 256). Returns the first CUDA error, else 0.
 int rdb5c_backward(int dtype, const void* g, const void* x,
                    void* c1, void* c2, void* c3, void* c4,
                    const void* w0, const void* w1, const void* w2,
@@ -367,15 +717,25 @@ int rdb5c_backward(int dtype, const void* g, const void* x,
   void* cs[4] = {c1, c2, c3, c4};
   const void* wts[5] = {w0, w1, w2, w3, w4};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dw_splits != dw_split_count(dtype, b, h, w, nf, gc))
+    return (int)cudaErrorInvalidValue;
   if (dtype == 0)
     return launch_bwd<float>(g, x, cs, wts, G, vt, dw_part, db_part, dx, dw,
                              db, b, h, w, nf, gc, dw_splits, db_splits, s);
   if (dtype == 1)
-    return launch_bwd<__nv_bfloat16>(g, x, cs, wts, G, vt, dw_part, db_part,
-                                     dx, dw, db, b, h, w, nf, gc, dw_splits,
-                                     db_splits, s);
+    return launch_bwd_mma(g, x, cs, wts, G, dw_part, db_part, dx, dw, db, b,
+                          h, w, nf, gc, dw_splits, db_splits, s);
   return (int)cudaErrorInvalidValue;
 }
+
+// The number of dW partials the kernel of this type writes for this shape:
+// the caller sizes dw_part by it.
+int rdb5c_backward_dw_splits(int dtype, int b, int h, int w, int nf, int gc) {
+  return dw_split_count(dtype, b, h, w, nf, gc);
+}
+
+// Dynamic shared memory of the bf16 dW kernel.
+int rdb5c_backward_dw_smem_bytes() { return (int)DWM_SMEM_BYTES; }
 
 const char* rdb5c_bwd_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));

@@ -5,11 +5,22 @@ PyTorch versions, and ``RDB5CFunction``, which joins them under autograd.
 Counterpart of the TPU kernels ``trainner_tpu/ops/pallas_kernels.py::
 rdb5c_canvas`` and ``rdb5c_canvas_bwd`` (and of the XLA form
 ``models/rrdb.py::rdb5c_fused`` with its ``_bwd_dual``, which computes the
-same function). The block runs as five 3x3 "scatter-to-future" stages
-against the packed weights of ``pack_rdb_weights``; the backward walks the
-stages in reverse and returns packed weight gradients, which
-``unpack_rdb_wgrads`` cuts into the five per-conv gradients. See the kernel
-sources for the designs and their bounds.
+same function). The block runs as five 3x3 stages against the packed
+weights of ``pack_rdb_weights``; the backward walks the stages in reverse
+and returns packed weight gradients, which ``unpack_rdb_wgrads`` cuts into
+the five per-conv gradients. See the kernel sources for the designs and
+their bounds.
+
+The working type alone selects the kernel. bf16 runs on the tensor cores
+(``mma.sync`` with f32 sums; tile in ``csrc/conv3x3_mma.cuh``): the forward
+as five gather convs over ``[x|c1..ck]`` with no scratch in device memory,
+the backward as five dx stages of the same tile and one dW kernel whose
+per-split partials are added in a fixed order. f32 runs exact FMAs on the
+CUDA cores ("scatter-to-future" stages with an f32 scratch; tile in
+``csrc/conv3x3_tile.cuh``). On a CPU tensor both wrappers run the plain
+versions below, which the CPU tests hold against the JAX package;
+``python3 chip_smoke.py`` builds the kernels with ``nvcc`` at first use and
+holds them against the plain versions on the card.
 
 Layout at this module's functions is NHWC, as in the JAX package:
 x ``(b, h, w, nf)``, c1..c4 ``(b, h, w, gc)``. Packed weights are
@@ -21,6 +32,7 @@ da1..da4 and dx, are rounded to the working type once.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Sequence, Tuple
 
 import torch
@@ -34,6 +46,14 @@ backward_launches = 0
 _SOURCE = "rdb5c.cu"
 _BWD_SOURCE = "rdb5c_bwd.cu"
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+# The bf16 kernels keep a stage's weights for 32 columns in shared memory:
+# (nf + 4*gc) / 32 chunks of 18 KB beside the ring of halo tiles.
+_BF16_MAX_WIDTH = 256
+
+
+def _alloc(shape, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
+    """Every output and scratch buffer of the kernels comes from here."""
+    return torch.empty(shape, dtype=dtype, device=device)
 
 
 def pack_rdb_weights(ws: Sequence[torch.Tensor], nf: int, gc: int,
@@ -107,6 +127,13 @@ def _check_packed(x, packed_w):
     if nf % 32 or gc % 32:
         raise ValueError(f"the kernel needs nf and gc multiples of 32, "
                          f"got nf={nf}, gc={gc}")
+    if x.shape[0] * x.shape[1] * x.shape[2] >= 2 ** 31:
+        raise ValueError("the kernel indexes pixels with 32 bits: "
+                         f"b*h*w = {x.shape[0] * x.shape[1] * x.shape[2]}")
+    if x.dtype == torch.bfloat16 and nf + 4 * gc > _BF16_MAX_WIDTH:
+        raise ValueError(f"the bf16 kernel needs nf + 4*gc <= "
+                         f"{_BF16_MAX_WIDTH} (its weights stay in shared "
+                         f"memory), got nf={nf}, gc={gc}")
     for s, p in enumerate(packed_w):
         cin = nf if s == 0 else gc
         n = 4 * gc + nf - s * gc
@@ -138,6 +165,14 @@ def _check(x, packed_w, biases):
     return nf, gc
 
 
+def _pointers(tensors):
+    """Device addresses for the C interface (None stays a null pointer)."""
+    ptrs = [None if t is None else t.data_ptr() for t in tensors]
+    if any(p is not None and p % 16 for p in ptrs):
+        raise ValueError("operands must be 16-byte aligned")
+    return ptrs
+
+
 def _library():
     from ._build import load
 
@@ -146,6 +181,8 @@ def _library():
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.rdb5c_forward.argtypes = [i] + [p] * 17 + [i] * 5 + [p]
         lib.rdb5c_forward.restype = i
+        lib.rdb5c_stage_smem_bytes.argtypes = [i]
+        lib.rdb5c_stage_smem_bytes.restype = i
         lib.rdb5c_error_string.argtypes = [i]
         lib.rdb5c_error_string.restype = ctypes.c_char_p
         lib._typed = True
@@ -166,18 +203,15 @@ def rdb5c_forward(x: torch.Tensor, packed_w: Sequence[torch.Tensor],
     nf, gc = _check(x, packed_w, biases)
     b, h, w, _ = x.shape
     lib = _library()
-    out = torch.empty_like(x)
-    cs = [torch.empty((b, h, w, gc), dtype=x.dtype, device=x.device)
-          for _ in range(4)]
-    acc = torch.empty((b * h * w, 4 * gc + nf), dtype=torch.float32,
-                      device=x.device)
+    out = _alloc(x.shape, x.dtype, x.device)
+    cs = [_alloc((b, h, w, gc), x.dtype, x.device) for _ in range(4)]
+    # the f32 kernel's scratch of future partial sums; bf16 has none
+    acc = (_alloc((b * h * w, 4 * gc + nf), torch.float32, x.device)
+           if x.dtype == torch.float32 else None)
     ptrs = [x, *packed_w, *biases, acc, *cs, out]
-    if any(t.data_ptr() % 16 for t in ptrs):
-        raise ValueError("operands must be 16-byte aligned")
     stream = torch.cuda.current_stream(x.device).cuda_stream
     with torch.cuda.device(x.device):
-        err = lib.rdb5c_forward(_DTYPES[x.dtype],
-                                *[t.data_ptr() for t in ptrs],
+        err = lib.rdb5c_forward(_DTYPES[x.dtype], *_pointers(ptrs),
                                 b, h, w, nf, gc, stream)
     if err:
         raise RuntimeError("rdb5c kernel launch failed: "
@@ -262,10 +296,23 @@ def _bwd_library():
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.rdb5c_backward.argtypes = [i] + [p] * 18 + [i] * 7 + [p]
         lib.rdb5c_backward.restype = i
+        lib.rdb5c_backward_dw_splits.argtypes = [i] * 6
+        lib.rdb5c_backward_dw_splits.restype = i
+        lib.rdb5c_backward_dw_smem_bytes.argtypes = []
+        lib.rdb5c_backward_dw_smem_bytes.restype = i
         lib.rdb5c_bwd_error_string.argtypes = [i]
         lib.rdb5c_bwd_error_string.restype = ctypes.c_char_p
         lib._typed = True
     return lib
+
+
+@functools.lru_cache(maxsize=None)
+def _dw_splits(dt: int, b: int, h: int, w: int, nf: int, gc: int,
+               device_index) -> int:
+    """How many dW partials the kernel of this type writes at this shape
+    on this card: its own tiling decides, so the C side is asked."""
+    with torch.cuda.device(device_index):
+        return _bwd_library().rdb5c_backward_dw_splits(dt, b, h, w, nf, gc)
 
 
 def rdb5c_backward(g: torch.Tensor, x: torch.Tensor, c1: torch.Tensor,
@@ -286,26 +333,26 @@ def rdb5c_backward(g: torch.Tensor, x: torch.Tensor, c1: torch.Tensor,
     gw = 4 * gc + nf
     npix = b * h * w
     total = sum(p.numel() for p in packed_w)
-    # pixel tiles of 16x16; partial sums per split are added in a fixed
-    # order, so the result does not change from run to run
-    dw_splits = min(b * (-(-h // 16)) * (-(-w // 16)), 64)
-    db_splits = min(npix, 256)
     lib = _bwd_library()
     dev = x.device
-    grads = torch.empty((npix, gw), dtype=x.dtype, device=dev)
-    vt = torch.empty(total, dtype=x.dtype, device=dev)
-    dw_part = torch.empty((dw_splits, total), dtype=torch.float32, device=dev)
-    db_part = torch.empty((db_splits, gw), dtype=torch.float32, device=dev)
-    dx = torch.empty_like(x)
-    dw = torch.empty(total, dtype=torch.float32, device=dev)
-    db = torch.empty(gw, dtype=torch.float32, device=dev)
+    dt = _DTYPES[x.dtype]
+    # one partial per split of the pixel tiles, added in a fixed order, so
+    # the result does not change from run to run
+    dw_splits = _dw_splits(dt, b, h, w, nf, gc, dev.index)
+    db_splits = min(npix, 256)
+    grads = _alloc((npix, gw), x.dtype, dev)
+    # the f32 kernel's tap-flipped transposed weights; bf16 reads the
+    # packed weights as they are
+    vt = _alloc(total, x.dtype, dev) if x.dtype == torch.float32 else None
+    dw_part = _alloc((dw_splits, total), torch.float32, dev)
+    db_part = _alloc((db_splits, gw), torch.float32, dev)
+    dx = _alloc(x.shape, x.dtype, dev)
+    dw = _alloc(total, torch.float32, dev)
+    db = _alloc(gw, torch.float32, dev)
     ptrs = [g, x, *cs, *packed_w, grads, vt, dw_part, db_part, dx, dw, db]
-    if any(t.data_ptr() % 16 for t in ptrs):
-        raise ValueError("operands must be 16-byte aligned")
     stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
-        err = lib.rdb5c_backward(_DTYPES[x.dtype],
-                                 *[t.data_ptr() for t in ptrs],
+        err = lib.rdb5c_backward(dt, *_pointers(ptrs),
                                  b, h, w, nf, gc, dw_splits, db_splits,
                                  stream)
     if err:
