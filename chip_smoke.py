@@ -8,15 +8,16 @@ non-zero exit code and no result line:
 1. device: the card's name and power limit, the build of every CUDA
    kernel of the main paths from the sources in ``trainner_tpu_torch/csrc``
    (registers, spills, shared memory) and, from the build's SASS, the
-   instruction that multiplies in each bf16 block kernel (``HMMA`` for
-   ``mma.sync``, ``HGMMA`` for ``wgmma``);
+   instruction that multiplies in each block kernel (``HMMA`` for
+   ``mma.sync``, ``HGMMA`` for ``wgmma``; tf32 ``HMMA`` in f32), with no
+   f32-FMA block kernel left in the build;
 2. kernels: each kernel's wrapper against its plain PyTorch version on the
    card, TF32 off, f32 and bf16: the block's forward at the serving shape,
    the training shape and two ragged ones (the second at b=1), its backward
    at the training shape and the ragged ones, bit-equal from run to run;
    both again with every output and scratch buffer filled with NaN before
-   the launch, and in bf16 at two other widths (nf 32 and nf 128 with gc
-   32); the per-sample blur at the producer's two shapes
+   the launch, and at other widths (nf 32 and nf 128 with gc 32 in both
+   types, nf 64 with gc 64 in f32, which bf16 refuses); the per-sample blur at the producer's two shapes
    (the HR and the LR canvas, k 21) and at a ragged one with asymmetric
    kernels, and an identity kernel bit for bit;
 3. serving slice: ``python -m trainner_tpu_torch.test`` at the full width
@@ -39,10 +40,13 @@ non-zero exit code and no result line:
 6. times: CUDA-event times of each kernel, its plain version, its bound
    and a library call as a yardstick (the cuDNN five-conv chain; reflect
    padding and a grouped cuDNN convolution for the blur), the device-alone
-   time of the bf16 block kernels from the profiler, and the G forward at
-   b=8, 128->512 px;
-7. trace: one f32 G forward at b=8 and one bf16 train step under
-   ``torch.profiler``: device time by kernel and the device's idle share.
+   time of the block kernels from the profiler, and the G forward at b=8,
+   128->512 px. The f32 block kernels run 3xTF32: their bound is three
+   tf32 products per f32 product at the tensor cores' tf32 rate, printed
+   beside the bound of the same work on the CUDA cores;
+7. trace: one f32 G forward at b=8 and one train step in bf16 and in f32
+   under ``torch.profiler``: device time by kernel and the device's idle
+   share.
 
 The second-to-last lines are a JSON summary of the kernels and the card's
 ``nvidia-smi`` name and power limit; the last line is
@@ -65,8 +69,9 @@ import sys
 import tempfile
 import time
 
-# Published H100 SXM peaks (NVIDIA data sheet, dense, 700 W).
-PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}
+# Published H100 SXM peaks (NVIDIA data sheet, dense, 700 W): f32 on the
+# CUDA cores, tf32 and bf16 on the tensor cores.
+PEAK_FLOPS = {"float32": 67e12, "tfloat32": 495e12, "bfloat16": 989e12}
 PEAK_BYTES = 3.35e12
 
 MAIN_SHAPE = (8, 128, 128)   # b, h, w of the LR trunk at b=8, 128->512 px
@@ -126,8 +131,9 @@ def _bf16_ulp(t) -> float:
 
 
 def _tolerance(dtype, ref) -> float:
-    """f32: sums in another order over K <= 576 terms, 1e-4 on values of
-    size ~5. bf16: both round c1..c4 and out once from f32 sums, but a
+    """f32: sums in another order over K <= 576 terms, each product taken
+    as 3xTF32 on the card (about 2^-21 of it), 1e-4 on values of size ~5.
+    bf16: both round c1..c4 and out once from f32 sums, but a
     rounding that differs in c_k feeds the later stages: two bf16 ulps at
     the output's largest magnitude."""
     import torch
@@ -136,9 +142,11 @@ def _tolerance(dtype, ref) -> float:
 
 
 def _backward_tolerance(dtype, name, ref) -> float:
-    """f32: dx sums up to 1,728 products (2e-6 of its largest magnitude);
-    dW and db sum over every pixel in another order than cuDNN's weight
-    gradient (1e-4 of theirs). bf16: a da_k that rounds the other way feeds
+    """f32: dx sums up to 1,728 products (2e-6 of its largest magnitude;
+    3xTF32's error, about 2^-21 of each product, stays under a tenth of
+    that in the CPU emulation of tests/test_torch_rdb5c_tf32.py); dW and db
+    sum over every pixel in another order than cuDNN's weight gradient
+    (1e-4 of theirs). bf16: a da_k that rounds the other way feeds
     the later stages: two bf16 ulps at dx's largest magnitude; dW and db
     are f32 sums over thousands of pixels of which a few differ by such a
     rounding: 2^-11 of their largest magnitude."""
@@ -263,14 +271,17 @@ def phase_kernels(smi: str):
             for dt in (torch.float32, torch.bfloat16):
                 _compare_block(shape, dt, *inputs[shape], ws, bs,
                                "NaN-filled buffers: ")
-    # other widths the bf16 kernels take: chunks, slices and dW slots are
-    # counted from nf and gc at run time
-    for nf, gc in ((32, 32), (128, 32)):
+    # other widths: chunks, segments, slices and dW slots are counted from
+    # nf and gc at run time; bf16 refuses nf + 4*gc > 256
+    for nf, gc in ((32, 32), (128, 32), (64, 64)):
         ws2, bs2 = _block_weights(gen, nf, gc)
         x = (torch.randn(*RAGGED_B1_SHAPE, nf, generator=gen) * 0.5).cuda()
         g_out = torch.randn(*RAGGED_B1_SHAPE, nf, generator=gen).cuda()
-        _compare_block(RAGGED_B1_SHAPE, torch.bfloat16, x, g_out, ws2,
-                       [b.cuda() for b in bs2], f"nf {nf} gc {gc}: ")
+        for dt in (torch.float32, torch.bfloat16):
+            if dt == torch.bfloat16 and nf + 4 * gc > 256:
+                continue
+            _compare_block(RAGGED_B1_SHAPE, dt, x, g_out, ws2,
+                           [b.cuda() for b in bs2], f"nf {nf} gc {gc}: ")
     print(f"kernels: ok ({smi})")
     return main_err, bwd_err
 
@@ -804,20 +815,25 @@ def phase_producer(smi: str, root: str) -> dict:
 
 BF16_BLOCK_KERNELS = {"rdb5c.cu": ("rdb_stage_mma",),
                       "rdb5c_bwd.cu": ("rdb_dx_stage_mma", "dw_mma_kernel")}
+F32_BLOCK_KERNELS = {"rdb5c.cu": ("rdb_stage_tf32",),
+                     "rdb5c_bwd.cu": ("rdb_dx_stage_tf32", "dw_tf32_kernel")}
+# the f32-FMA block kernels of earlier versions (mangled name parts)
+GONE_KERNELS = ("rdb_stageI", "rdb_dx_stageI", "dw_kernelI", "vtab_kernel")
 
 
 def _instruction_forms(smi: str) -> dict:
     """Reads the SASS of the two block libraries (``cuobjdump -sass``) and
-    returns {kernel: "HGMMA" or "HMMA"} for the bf16 block kernels. Fails
-    if one of them multiplies on neither, or if a bf16 instantiation of the
-    f32-FMA kernels is still in the build."""
+    returns {kernel: "HGMMA" or "HMMA"} for the block kernels of both
+    types. Fails if one of them multiplies on neither, if an f32 kernel's
+    ``HMMA`` is not tf32, or if an f32-FMA block kernel of an earlier
+    version is still in the build."""
     import collections
 
     from trainner_tpu_torch.ops import _build
 
     cuobjdump = os.path.join(os.path.dirname(_build.nvcc_path()), "cuobjdump")
     forms = {}
-    for source, kernels in BF16_BLOCK_KERNELS.items():
+    for source in BF16_BLOCK_KERNELS:
         sass = subprocess.run(
             [cuobjdump, "-sass", str(_build.library_path(source))],
             capture_output=True, text=True, timeout=300, check=True).stdout
@@ -827,15 +843,15 @@ def _instruction_forms(smi: str) -> dict:
                 name = line.split("Function :")[1].strip()
                 counts[name] = collections.Counter()
             elif name is not None:
-                for op in ("HGMMA", "HMMA", "FFMA", "LDSM", "LDGSTS"):
+                for op in ("HGMMA", "HMMA", "FFMA", "LDSM", "LDS", "LDGSTS"):
                     if op + "." in line or op + " " in line:
                         counts[name][op] += 1
+                if "HMMA" in line and "TF32" in line:
+                    counts[name]["HMMA.TF32"] += 1
         for fn in counts:
-            if "bfloat16" in fn and any(k in fn for k in (
-                    "rdb_stageI", "rdb_dx_stageI", "dw_kernelI",
-                    "vtab_kernelI")):
+            if any(k in fn for k in GONE_KERNELS):
                 raise AssertionError(f"{source} still builds {fn}")
-        for kernel in kernels:
+        for kernel in BF16_BLOCK_KERNELS[source] + F32_BLOCK_KERNELS[source]:
             found = [c for fn, c in counts.items() if kernel in fn]
             if len(found) != 1:
                 raise AssertionError(f"{source}: {len(found)} functions "
@@ -847,24 +863,55 @@ def _instruction_forms(smi: str) -> dict:
             if form is None:
                 raise AssertionError(f"{kernel} has no tensor-core "
                                      "instruction")
+            if kernel in F32_BLOCK_KERNELS[source] and \
+                    c["HMMA.TF32"] != c["HMMA"]:
+                raise AssertionError(f"{kernel}: {c['HMMA']} HMMA, of which "
+                                     f"{c['HMMA.TF32']} tf32")
             forms[kernel] = form
     return forms
 
 
 def _bound(name: str, flops: float, nbytes: float) -> tuple:
     """The least time in ms the card could take: the larger of operations
-    over the type's peak and bytes over the memory rate, and which."""
+    over the type's peak and bytes over the memory rate, and which. ``name``
+    is a key of PEAK_FLOPS; for "tfloat32" ``flops`` counts the tf32
+    products (three per f32 product in 3xTF32)."""
     t_ops = flops / PEAK_FLOPS[name] * 1e3
     t_bytes = nbytes / PEAK_BYTES * 1e3
     return max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
 
 
+def _bounds(name: str, work: float, nbytes: float) -> dict:
+    """A block kernel's bound. bf16: the tensor cores' bf16 rate. f32: the
+    kernels run 3xTF32, so three tf32 products per f32 product at the tf32
+    rate; the same work on the CUDA cores rides along."""
+    if name == "bfloat16":
+        bound_ms, bound_by = _bound(name, work, nbytes)
+        return dict(bound_ms=bound_ms, bound_by=bound_by)
+    bound_ms, bound_by = _bound("tfloat32", 3 * work, nbytes)
+    cores_ms, _ = _bound("float32", work, nbytes)
+    return dict(bound_ms=bound_ms, bound_by=bound_by,
+                bound_ms_cuda_cores=cores_ms)
+
+
+def _bound_text(row: dict) -> str:
+    text = (f"bound {row['bound_ms']:.4f} ms ({row['bound_by']}, "
+            f"{row['bound_ms'] / row['ms']:.1%} of it reached)")
+    if "bound_ms_cuda_cores" in row:
+        cores = row["bound_ms_cuda_cores"]
+        text += (f", 3xTF32; on the CUDA cores {cores:.4f} ms "
+                 f"({cores / row['ms']:.1%})")
+    return text
+
+
 def phase_times(smi: str, root: str, kernels_only: bool = False):
     """CUDA-event times of both block kernels at the main paths' shapes in
     both types, beside the plain version, the bound and the cuDNN five-conv
-    chain (its forward, and autograd's backward through it), and the bf16
+    chain (its forward, and autograd's backward through it), and the
     kernels' time on the device alone; then (unless ``kernels_only``) the G
-    forward at b=8. Returns {(kernel, shape, dtype name): row}."""
+    forward at b=8. f32 rows carry two bounds: 3xTF32 on the tensor cores
+    (``bound_ms``, what the kernels run) and the same work on the CUDA cores
+    (``bound_ms_cuda_cores``). Returns {(kernel, shape, dtype name): row}."""
     import torch
 
     from trainner_tpu_torch.models import define_G
@@ -905,16 +952,14 @@ def phase_times(smi: str, root: str, kernels_only: bool = False):
             nbytes = (x.numel() * 2 * x.element_size() + w_bytes
                       + sum(t.numel() * 4 for t in biases))
             work = 2 * 9 * n_q * npix
-            bound_ms, bound_by = _bound(name, work, nbytes)
-            rows["rdb5c_forward", shape, name] = dict(
-                ms=ms, plain_ms=plain_ms, library_ms=library_ms,
-                bound_ms=bound_ms, bound_by=bound_by)
+            row = _bounds(name, work, nbytes)
+            row.update(ms=ms, plain_ms=plain_ms, library_ms=library_ms)
+            rows["rdb5c_forward", shape, name] = row
             print(f"times: rdb5c {name} b={b} {h}x{w}: kernel {ms:.4f} ms, "
                   f"plain {plain_ms:.4f} ms, cuDNN 5-conv chain "
                   f"{library_ms:.4f} ms ({library_ms / ms:.2f}x the kernel), "
-                  f"bound {bound_ms:.4f} ms ({bound_by}, "
-                  f"{bound_ms / ms:.1%} of it reached), "
-                  f"{work / ms / 1e9:.2f} TFLOP/s ({smi})")
+                  f"{_bound_text(row)}, {work / ms / 1e9:.2f} TFLOP/s "
+                  f"({smi})")
 
             # the backward, from the forward's residuals; the yardstick is
             # autograd's backward through the cuDNN chain on a kept graph
@@ -935,34 +980,32 @@ def phase_times(smi: str, root: str, kernels_only: bool = False):
                       + sum(p.numel() for p in packed) * 4
                       + (4 * GC + NF) * 4)
             work = 4 * 9 * n_q * npix
-            bound_ms, bound_by = _bound(name, work, nbytes)
-            rows["rdb5c_backward", shape, name] = dict(
-                ms=ms, plain_ms=plain_ms, library_ms=library_ms,
-                bound_ms=bound_ms, bound_by=bound_by)
+            row = _bounds(name, work, nbytes)
+            row.update(ms=ms, plain_ms=plain_ms, library_ms=library_ms)
+            rows["rdb5c_backward", shape, name] = row
             print(f"times: rdb5c_bwd {name} b={b} {h}x{w}: kernel "
                   f"{ms:.4f} ms, plain {plain_ms:.4f} ms, autograd through "
                   f"the cuDNN 5-conv chain {library_ms:.4f} ms "
-                  f"({library_ms / ms:.2f}x the kernel), bound "
-                  f"{bound_ms:.4f} ms ({bound_by}, {bound_ms / ms:.1%} of "
-                  f"it reached), {work / ms / 1e9:.2f} TFLOP/s ({smi})")
-            if dt == torch.bfloat16:
-                # the three hot kernels on the device alone, all their
-                # launches in one block added up
-                with torch.no_grad():
-                    dev = {k: _device_ms(fn, k) for k, fn in (
-                        ("rdb_stage_mma",
-                         lambda: rdb5c_forward(x, packed, biases)),
-                        ("rdb_dx_stage_mma",
-                         lambda: rdb5c_backward(g, x, *cs, packed)),
-                        ("dw_mma_kernel",
-                         lambda: rdb5c_backward(g, x, *cs, packed)))}
-                rows["rdb5c_forward", shape, name]["device_ms"] = \
-                    dev["rdb_stage_mma"]
-                rows["rdb5c_backward", shape, name]["device_ms"] = dev
-                print(f"times: bf16 block kernels b={b} {h}x{w} on the "
-                      f"device alone (profiler, per block): "
-                      + ", ".join(f"{k} {v:.4f} ms" for k, v in dev.items())
-                      + f" ({smi})")
+                  f"({library_ms / ms:.2f}x the kernel), {_bound_text(row)}, "
+                  f"{work / ms / 1e9:.2f} TFLOP/s ({smi})")
+            # the three hot kernels on the device alone, all their launches
+            # in one block added up
+            kernels = (BF16_BLOCK_KERNELS if dt == torch.bfloat16
+                       else F32_BLOCK_KERNELS)
+            (fwd_k,), (dx_k, dw_k) = (kernels["rdb5c.cu"],
+                                      kernels["rdb5c_bwd.cu"])
+            with torch.no_grad():
+                dev = {k: _device_ms(fn, k) for k, fn in (
+                    (fwd_k, lambda: rdb5c_forward(x, packed, biases)),
+                    (dx_k, lambda: rdb5c_backward(g, x, *cs, packed)),
+                    (dw_k, lambda: rdb5c_backward(g, x, *cs, packed)))}
+            rows["rdb5c_forward", shape, name]["device_ms"] = dev[fwd_k]
+            rows["rdb5c_backward", shape, name]["device_ms"] = {
+                k: dev[k] for k in (dx_k, dw_k)}
+            print(f"times: {name} block kernels b={b} {h}x{w} on the "
+                  f"device alone (profiler, per block): "
+                  + ", ".join(f"{k} {v:.4f} ms" for k, v in dev.items())
+                  + f" ({smi})")
             del blk, conv_blk, out, inputs, xin
     if kernels_only:
         return rows
@@ -1059,15 +1102,20 @@ def _kernel_rows(rows, serving_launches, train, main_err, bwd_err,
     """The JSON summary: each kernel at its main path's shape and type (the
     forward at the serving shape in f32, the backward at the training shape
     in bf16, the blur at the HR canvas in f32, with its times at the LR
-    canvas beside), with the launches counted over the main paths' runs."""
+    canvas beside), with the launches counted over the main paths' runs,
+    and both types' times at both block shapes beside."""
     fwd = rows["rdb5c_forward", MAIN_SHAPE, "float32"]
     bwd = rows["rdb5c_backward", TRAIN_SHAPE, "bfloat16"]
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
 
-    def bf16_at(kernel):
+    def at(kernel, dtype):
         return {f"b={sh[0]} {sh[1]}x{sh[2]}": {
-            k: rows[kernel, sh, "bfloat16"][k] for k in keys + ("device_ms",)}
+            k: v for k, v in rows[kernel, sh, dtype].items()}
             for sh in (MAIN_SHAPE, TRAIN_SHAPE)}
+
+    def forms_of(source):
+        return {k: forms[k] for k in BF16_BLOCK_KERNELS[source]
+                + F32_BLOCK_KERNELS[source]}
 
     return [
         {"name": "rdb5c_forward", "route": "cuda",
@@ -1076,10 +1124,11 @@ def _kernel_rows(rows, serving_launches, train, main_err, bwd_err,
          "launches": serving_launches + producer["forward"] + sum(
              r["forward"] for r in train.values()),
          "max_abs_err": main_err, **{k: fwd[k] for k in keys},
+         "bound_ms_cuda_cores": fwd["bound_ms_cuda_cores"],
          "shape": list(MAIN_SHAPE), "dtype": "float32",
-         "bfloat16": bf16_at("rdb5c_forward"),
-         "bfloat16_form": {k: forms[k]
-                           for k in BF16_BLOCK_KERNELS["rdb5c.cu"]}},
+         "float32": at("rdb5c_forward", "float32"),
+         "bfloat16": at("rdb5c_forward", "bfloat16"),
+         "forms": forms_of("rdb5c.cu")},
         {"name": "rdb5c_backward", "route": "cuda",
          "source": "trainner_tpu_torch/csrc/rdb5c_bwd.cu",
          "replaces": "trainner_tpu/ops/pallas_kernels.py:355",
@@ -1087,9 +1136,9 @@ def _kernel_rows(rows, serving_launches, train, main_err, bwd_err,
              r["backward"] for r in train.values()),
          "max_abs_err": bwd_err, **{k: bwd[k] for k in keys},
          "shape": list(TRAIN_SHAPE), "dtype": "bfloat16",
-         "bfloat16": bf16_at("rdb5c_backward"),
-         "bfloat16_form": {k: forms[k]
-                           for k in BF16_BLOCK_KERNELS["rdb5c_bwd.cu"]}},
+         "float32": at("rdb5c_backward", "float32"),
+         "bfloat16": at("rdb5c_backward", "bfloat16"),
+         "forms": forms_of("rdb5c_bwd.cu")},
         {"name": "blur_per_sample", "route": "cuda",
          "source": "trainner_tpu_torch/csrc/blur_per_sample.cu",
          "replaces": "trainner_tpu/ops/pallas_kernels.py:466",
@@ -1145,10 +1194,11 @@ def _traced(fn, label: str, smi: str, untraced_ms: float = 0.0) -> None:
               f"{calls[name]:4d} x {name}")
 
 
-def phase_trace(smi: str, root: str, step_ms: float) -> None:
+def phase_trace(smi: str, root: str, step_ms: dict) -> None:
     """Where the time goes, from profiler traces: one f32 G forward at b=8,
-    128->512 px, and one bf16 train step at b=32, 32->128 px (``step_ms``:
-    its time without the profiler, from the training phase)."""
+    128->512 px, and one train step at b=32, 32->128 px in bf16 and in f32
+    (``step_ms``: their times without the profiler by type name, from the
+    training phase)."""
     import torch
 
     from trainner_tpu_torch.models import define_G
@@ -1167,13 +1217,17 @@ def phase_trace(smi: str, root: str, step_ms: float) -> None:
     del net
     torch.cuda.empty_cache()
 
-    trainer = create_trainer(_train_options())
-    state = trainer.init_state(0)
     batch = _train_batch()
-    trainer.train_step(state, batch)
-    _traced(lambda: trainer.train_step(state, batch),
-            f"bf16 train_step b={TRAIN_SHAPE[0]} "
-            f"{TRAIN_SHAPE[1]}->{TRAIN_SHAPE[1] * 4} px", smi, step_ms)
+    for use_amp, name in ((True, "bfloat16"), (False, "float32")):
+        trainer = create_trainer({**_train_options(), "use_amp": use_amp})
+        state = trainer.init_state(0)
+        trainer.train_step(state, batch)
+        _traced(lambda: trainer.train_step(state, batch),
+                f"{'bf16' if use_amp else 'f32'} train_step b={TRAIN_SHAPE[0]} "
+                f"{TRAIN_SHAPE[1]}->{TRAIN_SHAPE[1] * 4} px", smi,
+                step_ms[name])
+        del trainer, state
+        torch.cuda.empty_cache()
 
 
 def main(argv=None) -> int:
@@ -1200,11 +1254,14 @@ def main(argv=None) -> int:
             if "registers" in line or "spill" in line:
                 print(f"device: {source}: {line.strip()}")
     smem = {f"rdb_stage_mma / rdb_dx_stage_mma over {c} channels":
-            rdb5c._library().rdb5c_stage_smem_bytes(c)
+            rdb5c._library().rdb5c_stage_smem_bytes(1, c)
             for c in range(NF, NF + 4 * GC + 1, GC)}
-    smem["dw_mma_kernel"] = rdb5c._bwd_library().rdb5c_backward_dw_smem_bytes()
-    print("device: dynamic shared memory of the bf16 block kernels, bytes "
-          f"per block: {smem}")
+    smem["rdb_stage_tf32 / rdb_dx_stage_tf32, any width"] = \
+        rdb5c._library().rdb5c_stage_smem_bytes(0, NF)
+    for dt, kernel in ((1, "dw_mma_kernel"), (0, "dw_tf32_kernel")):
+        smem[kernel] = rdb5c._bwd_library().rdb5c_backward_dw_smem_bytes(dt)
+    print("device: dynamic shared memory of the block kernels, bytes per "
+          f"block: {smem}")
     forms = _instruction_forms(smi)
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1225,7 +1282,7 @@ def main(argv=None) -> int:
         torch.backends.cuda.matmul.allow_tf32 = False
         rows = phase_times(smi, root)
         blur_rows = phase_blur_times(smi)
-        phase_trace(smi, root, train["bfloat16"]["step_ms"])
+        phase_trace(smi, root, {k: r["step_ms"] for k, r in train.items()})
     kernels = _kernel_rows(rows, launches, train, main_err, bwd_err,
                            blur_rows, producer, blur_err, forms)
     print(json.dumps({"kernels": kernels}))

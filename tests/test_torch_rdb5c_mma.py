@@ -221,12 +221,21 @@ def test_pointers_for_the_c_interface(case):
 @pytest.mark.parametrize("source,gone", [
     ("rdb5c.cu", "launch_all<__nv_bfloat16>"),
     ("rdb5c_bwd.cu", "launch_bwd<__nv_bfloat16>"),
+    # the f32-FMA kernels, their tile and the V table
+    ("rdb5c.cu", "rdb_stage<"),
+    ("rdb5c.cu", "conv3x3_tile.cuh"),
+    ("rdb5c_bwd.cu", "rdb_dx_stage<"),
+    ("rdb5c_bwd.cu", "dw_kernel<"),
+    ("rdb5c_bwd.cu", "vtab_kernel"),
+    ("rdb5c_bwd.cu", "conv3x3_tile.cuh"),
 ])
 def test_bf16_fma_instantiations_are_gone_from_the_build(source, gone):
     text = (CSRC / source).read_text()
     assert gone not in text
     assert '#include "conv3x3_mma.cuh"' in text
-    for kernel in chip_smoke.BF16_BLOCK_KERNELS[source]:
+    assert not (CSRC / "conv3x3_tile.cuh").exists()
+    for kernel in (chip_smoke.BF16_BLOCK_KERNELS[source]
+                   + chip_smoke.F32_BLOCK_KERNELS[source]):
         assert re.search(rf"\b{kernel}<<<", text), kernel
 
 

@@ -1,0 +1,442 @@
+"""What the f32 block kernels (3xTF32 on the tensor cores: ``csrc/
+conv3x3_mma.cuh`` with ``rdb_stage_tf32`` / ``rdb_dx_stage_tf32``, and
+``dw_tf32_kernel`` in ``rdb5c_bwd.cu``) rely on, held on the CPU:
+
+- the split a = hi + lo of each f32 operand into two tf32 values
+  (``cvt.rna.tf32.f32``, emulated through an int32 view), run through the
+  plain forward and backward, meets the tolerances ``chip_smoke.py`` holds
+  the kernels to on the card, and one tf32 product alone does not;
+- the fragment maps: a non-transposed 32-bit ``ldmatrix.x4`` over the
+  pixel-major halo tile gives the m16n8k8 tf32 A fragment, and the swizzled
+  weight slabs and the dW tiles give the B fragments, so that one tile's
+  products, emulated lane by lane from the kernels' own address formulas,
+  are the conv's and the weight gradient's;
+- bank maps free of conflicts and shared-memory budgets within a block's
+  232,448 bytes.
+
+The kernels themselves run only on the card, where ``chip_smoke.py`` holds
+them against the same plain versions.
+"""
+
+import contextlib
+import pathlib
+import re
+import types
+
+import numpy as np
+import pytest
+import torch
+import torch.nn.functional as F
+
+import chip_smoke
+from trainner_tpu_torch.ops import rdb5c
+from trainner_tpu_torch.ops.rdb5c import (pack_rdb_weights,
+                                          rdb5c_backward_plain,
+                                          rdb5c_forward_plain)
+
+torch.set_num_threads(2)
+
+CSRC = pathlib.Path(rdb5c.__file__).resolve().parent.parent / "csrc"
+SMEM_PER_BLOCK = 232448
+
+
+def _constants(source, names=None):
+    """``constexpr int NAME = expr;`` of a source, evaluated in order with
+    ``rdbm::`` dropped; a name whose expression is not plain arithmetic is
+    left out."""
+    names = dict(names or {})
+    text = (CSRC / source).read_text().replace("rdbm::", "")
+    for name, expr in re.findall(r"constexpr int (\w+) = ([^;]+);", text):
+        try:
+            names[name] = eval(expr, {}, names)  # noqa: S307 - the repo's source
+        except (NameError, SyntaxError, TypeError):
+            pass
+    return names
+
+
+HDR = _constants("conv3x3_mma.cuh")
+BWD = _constants("rdb5c_bwd.cu", HDR)
+
+
+# ---------------------------------------------------------------------------
+# cvt.rna.tf32.f32 and the three-product split
+# ---------------------------------------------------------------------------
+def tf32(t: torch.Tensor) -> torch.Tensor:
+    """cvt.rna.tf32.f32: round to nearest on the 13 dropped mantissa bits,
+    ties away from zero (sign and magnitude: adding half of the dropped
+    range to the magnitude's bits rounds the magnitude up at a tie)."""
+    bits = t.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def split(t):
+    hi = tf32(t)
+    return hi, tf32(t - hi)
+
+
+def _products(op, passes):
+    """op(a, b, ...) in tf32: three products (lo*hi' + hi*lo' + hi*hi', as
+    the kernels take them) or one (hi*hi')."""
+    def f(a, b, *args, **kw):
+        ah, al = split(a)
+        bh, bl = split(b)
+        if passes == 1:
+            return op(ah, bh, *args, **kw)
+        return (op(al, bh, *args, **kw) + op(ah, bl, *args, **kw)
+                + op(ah, bh, *args, **kw))
+    return f
+
+
+@contextlib.contextmanager
+def tf32_products(passes):
+    """The plain versions' convs, transposed convs and weight gradients
+    taken in tf32 products."""
+    saved = rdb5c.F, torch.nn.grad.conv2d_weight
+    conv_weight = saved[1]
+
+    def dw(a, shape, dy, **kw):
+        return _products(lambda a_, d_: conv_weight(a_, shape, d_, **kw),
+                         passes)(a, dy)
+
+    rdb5c.F = types.SimpleNamespace(
+        conv2d=_products(F.conv2d, passes),
+        conv_transpose2d=_products(F.conv_transpose2d, passes))
+    torch.nn.grad.conv2d_weight = dw
+    try:
+        yield
+    finally:
+        rdb5c.F, torch.nn.grad.conv2d_weight = saved
+
+
+@pytest.mark.parametrize("bits,want", [
+    (0x3F800000, 0x3F800000),  # 1.0 stays
+    (0x3F800FFF, 0x3F800000),  # below half of the dropped range: down
+    (0x3F801000, 0x3F802000),  # a tie: away from zero
+    (0xBF801000, 0xBF802000),  # the same on the negative side
+    (0x3F801001, 0x3F802000),  # above half: up
+    (0x3FFFF000, 0x40000000),  # the carry runs into the exponent
+])
+def test_tf32_rounds_to_nearest_ties_away(bits, want):
+    t = torch.tensor([bits], dtype=torch.int64).to(torch.int32)
+    got = tf32(t.view(torch.float32)).view(torch.int32)
+    assert int(got) & 0xFFFFFFFF == want
+
+
+def test_split_parts_are_tf32_and_sum_to_the_value():
+    x = torch.from_numpy(np.random.RandomState(0).randn(10000)
+                         .astype(np.float32))
+    hi, lo = split(x)
+    for part in (hi, lo):
+        assert int((part.view(torch.int32) & 0x1FFF).abs().max()) == 0
+    assert bool((lo.abs() <= hi.abs() * 2.0 ** -11).all())
+    # lo*lo' is what 3xTF32 drops: the split itself is good to 2^-22
+    err = (x.double() - hi.double() - lo.double()).abs()
+    assert bool((err <= x.double().abs() * 2.0 ** -22).all())
+
+
+def _block(nf, gc, shape, seed):
+    gen = torch.Generator().manual_seed(seed)
+    ws, bs = chip_smoke._block_weights(gen, nf, gc)
+    packed = pack_rdb_weights(ws, nf, gc, torch.float32)
+    x = torch.randn(*shape, nf, generator=gen) * 0.5
+    g = torch.randn(*shape, nf, generator=gen)
+    return packed, bs, x, g
+
+
+def _errors(passes, shape, seed=0, nf=32, gc=32):
+    """Largest error of each output of the plain forward and backward in
+    tf32 products against the same in f32, beside the card's tolerance."""
+    packed, bs, x, g = _block(nf, gc, shape, seed)
+    ref = rdb5c_forward_plain(x, packed, bs, return_residuals=True)
+    ref_b = rdb5c_backward_plain(g, x, *ref[1:], packed)
+    with tf32_products(passes):
+        got = rdb5c_forward_plain(x, packed, bs, return_residuals=True)
+        got_b = rdb5c_backward_plain(g, x, *ref[1:], packed)
+    out = {}
+    for name, a, r in zip(("out", "c1", "c2", "c3", "c4"), got, ref):
+        out[name] = (float((a - r).abs().max()),
+                     chip_smoke._tolerance(torch.float32, r))
+    for name, a, r in zip(chip_smoke.BWD_NAMES, got_b, ref_b):
+        out[name] = (float((a - r).abs().max()),
+                     chip_smoke._backward_tolerance(torch.float32, name, r))
+    return out
+
+
+@pytest.mark.parametrize("shape", [(1, 21, 45), (2, 9, 7), (3, 17, 5)])
+def test_three_tf32_products_meet_the_card_tolerances(shape):
+    for name, (err, tol) in _errors(3, shape).items():
+        assert err <= tol, (name, err, tol)
+
+
+def test_three_tf32_products_leave_dx_far_inside_its_tolerance():
+    """dx sums up to 1,728 products. 3xTF32 drops lo*lo' (2^-22 of each)
+    and takes hi*lo' and lo*hi' exactly: at these inputs its error stays
+    under a tenth of the 2e-6 of max|dx| that f32 sums in another order
+    are held to."""
+    err, tol = _errors(3, (2, 21, 45), seed=1)["dx"]
+    assert err <= tol / 10
+
+
+def test_one_tf32_product_fails_the_card_tolerances():
+    """The tolerances can tell 3xTF32 from plain TF32: one product keeps
+    about 11 bits of each operand (out, scaled by 0.2, may pass)."""
+    errs = _errors(1, (1, 21, 45))
+    for name in ("c1", "dx", "dW0", "dW4"):
+        err, tol = errs[name]
+        assert err > tol, (name, err, tol)
+
+
+# ---------------------------------------------------------------------------
+# the fragment maps, lane by lane
+# ---------------------------------------------------------------------------
+LANE = np.arange(32)
+G_, T4 = LANE >> 2, LANE & 3
+
+
+def _mma(a, b):
+    """m16n8k8 over a warp: a (32 lanes, 4), b (32, 2) -> c (32, 4), from
+    PTX's fragment layouts (a0 = A[g][t], a1 = A[g+8][t], a2 = A[g][t+4],
+    a3 = A[g+8][t+4]; b0 = B[t][g], b1 = B[t+4][g]; c0/c1 = C[g][2t, 2t+1],
+    c2/c3 = C[g+8][2t, 2t+1]; g = lane / 4, t = lane % 4)."""
+    A = np.full((16, 8), np.nan)
+    B = np.full((8, 8), np.nan)
+    for r, (dm, dk) in enumerate(((0, 0), (8, 0), (0, 4), (8, 4))):
+        A[G_ + dm, T4 + dk] = a[:, r]
+    for r in range(2):
+        B[T4 + 4 * r, G_] = b[:, r]
+    assert not np.isnan(A).any() and not np.isnan(B).any()
+    C = A @ B
+    return np.stack([C[G_, 2 * T4], C[G_, 2 * T4 + 1],
+                     C[G_ + 8, 2 * T4], C[G_ + 8, 2 * T4 + 1]], axis=1)
+
+
+def _ldmatrix_x4(words, addrs):
+    """ldmatrix.x4 (b16, not transposed) on 32-bit data: lane l names row
+    l % 8 of matrix l / 8; lane T gets, from each matrix, the 32-bit word
+    T % 4 of row T / 4."""
+    assert all(a % 16 == 0 for a in addrs)
+    out = np.empty((32, 4))
+    for i in range(4):
+        rows = np.asarray([addrs[8 * i + r] for r in range(8)])
+        out[:, i] = words[(rows[LANE >> 2] + 4 * (LANE & 3)) // 4]
+    return out
+
+
+def _swizzle128(dx, row, q):
+    return row * 128 + ((q ^ ((row & 7) if dx else (row & 3) << 1)) << 4)
+
+
+def _tile_inputs(seed):
+    """One 16x16 tile (tile (1, 1) of a 37 x 45 image, so the halo crosses
+    nothing but the tile) and another at the image's corner, 32 channels."""
+    rng = np.random.RandomState(seed)
+    img = rng.randn(37, 45, 32).astype(np.float32)
+    return img
+
+
+def _conv_tile_emulated(img, w, w_tap, w_pitch, n0, dx, y0, x0):
+    """One f32 tile of conv3x3_mma.cuh for one chunk, from its own address
+    formulas: the halo tile and the slab filled as its cp.async loops fill
+    them, A by ldmatrix, B by 32-bit loads, 3xTF32 taken as one exact
+    product. Returns r[tile row][tile col][column]."""
+    h, w_img, _ = img.shape
+    pitch, a_bytes = HDR["F32_PITCH"], HDR["F32_A_BYTES"]
+    hw, kc = HDR["HW"], HDR["KC"]
+    smem = np.zeros((a_bytes + HDR["F32_W_BYTES"]) // 4, np.float32)
+    for i in range(HDR["HPIX"] * 8):
+        hp, q = i >> 3, i & 7
+        yy, xx = y0 + hp // hw - 1, x0 + hp % hw - 1
+        if 0 <= yy < h and 0 <= xx < w_img:
+            smem[(hp * pitch + q * 16) // 4:][:4] = img[yy, xx, 4 * q:4 * q + 4]
+    wflat = w.reshape(-1)
+    for i in range(9 * kc * 8):
+        q, r, t = i & 7, (i >> 3) & (kc - 1), i >> 8
+        src = (((8 - t) * w_tap + n0 + r) * w_pitch + q * 4 if dx
+               else (t * w_tap + r) * w_pitch + n0 + q * 4)
+        dst = (a_bytes + _swizzle128(dx, t * kc + r, q)) // 4
+        smem[dst:dst + 4] = wflat[src:src + 4]
+    out = np.zeros((16, 16, 32))
+    for warp in range(8):
+        a_lane = ((2 * warp) * hw + (LANE & 15)) * pitch + (LANE >> 4) * 16
+        acc = np.zeros((2, 4, 32, 4))
+        for t in range(9):
+            for kk in range(4):
+                a = [_ldmatrix_x4(smem, a_lane + ((mt + t // 3) * hw + t % 3)
+                                  * pitch + kk * 32) for mt in range(2)]
+                for nt in range(4):
+                    b = np.empty((32, 2))
+                    for e in range(2):
+                        off = (_swizzle128(True, t * kc + nt * 8 + G_,
+                                           2 * kk + e) + T4 * 4 if dx else
+                               _swizzle128(False, t * kc + kk * 8 + e * 4 + T4,
+                                           2 * nt + (G_ >> 2)) + (G_ & 3) * 4)
+                        b[:, e] = smem[(a_bytes + off) // 4]
+                    for mt in range(2):
+                        acc[mt, nt] += _mma(a[mt], b)
+        for mt in range(2):
+            for half in range(2):
+                for nt in range(4):
+                    for e in range(2):
+                        out[2 * warp + mt, G_ + 8 * half,
+                            nt * 8 + 2 * T4 + e] = acc[mt, nt, :, 2 * half + e]
+    return out
+
+
+@pytest.mark.parametrize("dx", [False, True])
+@pytest.mark.parametrize("corner", [(16, 16), (32, 32)])
+def test_f32_conv_tile_lane_maps_compute_the_conv(dx, corner):
+    """B[t][c][n] as the header defines it (DX false: k-major rows of the
+    packed weights; DX true: the tap-flipped transpose), the column slice
+    n0 = 32, one tile inside the image and one across its corner."""
+    img = _tile_inputs(0)
+    rng = np.random.RandomState(1)
+    if dx:
+        w_tap, w_pitch = 64, 32   # (9 * 64, 32): columns of dc are rows
+        w = rng.randn(9 * w_tap, w_pitch).astype(np.float32)
+        B = np.stack([w.reshape(9, w_tap, w_pitch)[8 - t, 32:64, :].T
+                      for t in range(9)])          # [t][c][n]
+    else:
+        w_tap, w_pitch = 32, 64   # (9 * 32, 64)
+        w = rng.randn(9 * w_tap, w_pitch).astype(np.float32)
+        B = w.reshape(9, w_tap, w_pitch)[:, :, 32:64]
+    y0, x0 = corner
+    got = _conv_tile_emulated(img, w, w_tap, w_pitch, 32, dx, y0, x0)
+    pad = np.pad(img.astype(np.float64), ((1, 16), (1, 16), (0, 0)))
+    want = sum(np.einsum("yxc,cn->yxn",
+                         pad[y0 + t // 3:y0 + t // 3 + 16,
+                             x0 + t % 3:x0 + t % 3 + 16], B[t])
+               for t in range(9))
+    h, w_img = img.shape[:2]
+    inside = (slice(0, min(16, h - y0)), slice(0, min(16, w_img - x0)))
+    np.testing.assert_allclose(got[inside], want[inside], rtol=0, atol=1e-9)
+
+
+def _dw_tile_emulated(act, dy, y0, x0):
+    """dw_tf32_kernel's products for one tile and slot (32 channels x 32
+    columns x 9 taps), from its own address formulas: c_k's halo tile and
+    dy_k's tile at a pitch of DWT_PITCH bytes, fragments by 32-bit loads,
+    the two row halves added at the end. Returns dW[t][c][n]."""
+    pw, hw = BWD["DWT_PITCH"] // 4, HDR["HW"]
+    h, w, _ = act.shape
+    A = np.zeros((HDR["HPIX"], pw))
+    D = np.zeros((256, pw))
+    for hp in range(HDR["HPIX"]):
+        yy, xx = y0 + hp // hw - 1, x0 + hp % hw - 1
+        if 0 <= yy < h and 0 <= xx < w:
+            A[hp, :32] = act[yy, xx]
+    for p in range(256):
+        yy, xx = y0 + p // 16, x0 + p % 16
+        if yy < h and xx < w:
+            D[p, :32] = dy[yy, xx]
+    a_flat, d_flat = A.reshape(-1), D.reshape(-1)
+    out = np.zeros((9, 32, 32))
+    halves = {}
+    for warp in range(8):
+        mt, nh, rh = warp & 1, (warp >> 1) & 1, warp >> 2
+        a_base = T4 * pw + mt * 16 + G_
+        d_base = T4 * pw + nh * 16 + G_
+        acc = np.zeros((9, 2, 32, 4))
+        rows = {}
+        for j in range(10):
+            rp = 8 * rh + j
+            if j < 8:
+                rows[j] = [[np.stack([d_flat[d_base + (rp * 16 + 8 * s + 4 * e)
+                                             * pw + nt * 8]
+                                      for e in range(2)], 1)
+                            for nt in range(2)] for s in range(2)]
+            for dx in range(3):
+                a = [np.stack([a_flat[a_base + (rp * hw + dx + 8 * s
+                                                + 4 * (e >> 1)) * pw
+                                      + 8 * (e & 1)] for e in range(4)], 1)
+                     for s in range(2)]
+                for dyi in range(3):
+                    if 0 <= j - dyi < 8:
+                        for s in range(2):
+                            for nt in range(2):
+                                acc[dyi * 3 + dx, nt] += _mma(
+                                    a[s], rows[j - dyi][s][nt])
+        halves[warp] = acc
+    for warp in range(4):
+        mt, nh = warp & 1, warp >> 1
+        acc = halves[warp] + halves[warp + 4]
+        for t in range(9):
+            for nt in range(2):
+                for half in range(2):
+                    for e in range(2):
+                        out[t, mt * 16 + G_ + 8 * half,
+                            nh * 16 + nt * 8 + 2 * T4 + e] = \
+                            acc[t, nt, :, 2 * half + e]
+    return out
+
+
+@pytest.mark.parametrize("corner", [(0, 0), (16, 16)])
+def test_dw_tf32_lane_maps_compute_the_tap_products(corner):
+    """dW[t][c][n] = sum over the tile's pixels p of c_k[p + s_t][c] *
+    dy_k[p][n], zeros outside the image (a 21 x 29 image: the second tile
+    is ragged)."""
+    rng = np.random.RandomState(2)
+    act = rng.randn(21, 29, 32)
+    dy = rng.randn(21, 29, 32)
+    y0, x0 = corner
+    got = _dw_tile_emulated(act, dy, y0, x0)
+    pad = np.pad(act, ((1, 32), (1, 32), (0, 0)))
+    dyt = np.zeros((16, 16, 32))
+    part = dy[y0:y0 + 16, x0:x0 + 16]
+    dyt[:part.shape[0], :part.shape[1]] = part
+    for t in range(9):
+        shifted = pad[y0 + t // 3:y0 + t // 3 + 16, x0 + t % 3:x0 + t % 3 + 16]
+        want = np.einsum("yxc,yxn->cn", shifted, dyt)
+        np.testing.assert_allclose(got[t], want, rtol=0, atol=1e-9)
+
+
+# ---------------------------------------------------------------------------
+# bank maps and budgets
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("dx", [False, True])
+def test_f32_weight_slab_loads_are_free_of_bank_conflicts(dx):
+    """Every 32-bit B load of a warp (one tap, k-step, n-tile and register)
+    touches 32 different banks, and the swizzle keeps each group in its
+    row."""
+    kc = HDR["KC"]
+    for t in (0, 4, 8):
+        for kk in range(4):
+            for nt in range(4):
+                for e in range(2):
+                    if dx:
+                        rows = t * kc + nt * 8 + G_
+                        off = _swizzle128(True, rows, 2 * kk + e) + T4 * 4
+                    else:
+                        rows = t * kc + kk * 8 + e * 4 + T4
+                        off = (_swizzle128(False, rows, 2 * nt + (G_ >> 2))
+                               + (G_ & 3) * 4)
+                    assert sorted((off // 4) % 32) == list(range(32))
+                    assert all(r * 128 <= o < (r + 1) * 128
+                               for r, o in zip(rows, off))
+
+
+def test_f32_halo_pitch_and_dw_pitch_are_free_of_bank_conflicts():
+    # ldmatrix: eight neighbouring pixels' 16-byte rows in eight groups
+    assert sorted((i * HDR["F32_PITCH"] % 128) // 16 for i in range(8)) \
+        == list(range(8))
+    # dW: four pixels x eight channels (or columns) of one 32-bit load
+    pw = BWD["DWT_PITCH"] // 4
+    for extra in (0, 8, 4 * pw, 4 * pw + 8):
+        assert sorted((T4 * pw + G_ + extra) % 32) == list(range(32))
+    assert BWD["DWT_PITCH"] % 16 == 0
+
+
+def test_f32_shared_memory_fits_a_block():
+    """The conv stage's ring (two halo tiles, each with its chunk's slab)
+    and the lo halves of one slab do not grow with the width, so the
+    widest stage fits; dW's two buffers hold the row halves' 4 x 72 x 32
+    sums at the end."""
+    stage = HDR["F32_NSTAGE"] * HDR["F32_SLOT_BYTES"] + HDR["F32_W_BYTES"]
+    assert HDR["F32_SMEM_BYTES"] == stage <= SMEM_PER_BLOCK
+    assert HDR["F32_A_BYTES"] == HDR["HPIX"] * (HDR["KC"] * 4 + 16)
+    assert HDR["F32_W_BYTES"] == 9 * HDR["KC"] * HDR["BN"] * 4
+    dw = 2 * BWD["DWT_BUF_BYTES"]
+    assert dw <= SMEM_PER_BLOCK
+    assert 4 * 72 * 32 * 4 <= dw
+    # stationary weights of the widest stage at nf 64, gc 32 (6 chunks)
+    # beside two halo tiles would not fit
+    assert 6 * HDR["F32_W_BYTES"] + 2 * HDR["F32_A_BYTES"] > SMEM_PER_BLOCK

@@ -11,16 +11,17 @@ and returns packed weight gradients, which ``unpack_rdb_wgrads`` cuts into
 the five per-conv gradients. See the kernel sources for the designs and
 their bounds.
 
-The working type alone selects the kernel. bf16 runs on the tensor cores
-(``mma.sync`` with f32 sums; tile in ``csrc/conv3x3_mma.cuh``): the forward
-as five gather convs over ``[x|c1..ck]`` with no scratch in device memory,
-the backward as five dx stages of the same tile and one dW kernel whose
-per-split partials are added in a fixed order. f32 runs exact FMAs on the
-CUDA cores ("scatter-to-future" stages with an f32 scratch; tile in
-``csrc/conv3x3_tile.cuh``). On a CPU tensor both wrappers run the plain
-versions below, which the CPU tests hold against the JAX package;
-``python3 chip_smoke.py`` builds the kernels with ``nvcc`` at first use and
-holds them against the plain versions on the card.
+The working type alone selects the kernel; both types run on the tensor
+cores on one tile (``csrc/conv3x3_mma.cuh``): bf16 as ``mma.sync`` with
+f32 sums, f32 as 3xTF32 (each operand split into two tf32 parts, three
+tf32 products per f32 product, f32 sums). The forward runs as five gather
+convs over ``[x|c1..ck]`` with no scratch in device memory, the backward as
+five dx stages of the same tile, reading the packed weights as they lie,
+and one dW kernel whose per-split partials are added in a fixed order. On
+a CPU tensor both wrappers run the plain versions below, which the CPU
+tests hold against the JAX package; ``python3 chip_smoke.py`` builds the
+kernels with ``nvcc`` at first use and holds them against the plain
+versions on the card.
 
 Layout at this module's functions is NHWC, as in the JAX package:
 x ``(b, h, w, nf)``, c1..c4 ``(b, h, w, gc)``. Packed weights are
@@ -179,9 +180,9 @@ def _library():
     lib = load(_SOURCE)
     if not getattr(lib, "_typed", False):
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.rdb5c_forward.argtypes = [i] + [p] * 17 + [i] * 5 + [p]
+        lib.rdb5c_forward.argtypes = [i] + [p] * 16 + [i] * 5 + [p]
         lib.rdb5c_forward.restype = i
-        lib.rdb5c_stage_smem_bytes.argtypes = [i]
+        lib.rdb5c_stage_smem_bytes.argtypes = [i, i]
         lib.rdb5c_stage_smem_bytes.restype = i
         lib.rdb5c_error_string.argtypes = [i]
         lib.rdb5c_error_string.restype = ctypes.c_char_p
@@ -205,10 +206,7 @@ def rdb5c_forward(x: torch.Tensor, packed_w: Sequence[torch.Tensor],
     lib = _library()
     out = _alloc(x.shape, x.dtype, x.device)
     cs = [_alloc((b, h, w, gc), x.dtype, x.device) for _ in range(4)]
-    # the f32 kernel's scratch of future partial sums; bf16 has none
-    acc = (_alloc((b * h * w, 4 * gc + nf), torch.float32, x.device)
-           if x.dtype == torch.float32 else None)
-    ptrs = [x, *packed_w, *biases, acc, *cs, out]
+    ptrs = [x, *packed_w, *biases, *cs, out]
     stream = torch.cuda.current_stream(x.device).cuda_stream
     with torch.cuda.device(x.device):
         err = lib.rdb5c_forward(_DTYPES[x.dtype], *_pointers(ptrs),
@@ -294,11 +292,11 @@ def _bwd_library():
     lib = load(_BWD_SOURCE)
     if not getattr(lib, "_typed", False):
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.rdb5c_backward.argtypes = [i] + [p] * 18 + [i] * 7 + [p]
+        lib.rdb5c_backward.argtypes = [i] + [p] * 17 + [i] * 7 + [p]
         lib.rdb5c_backward.restype = i
         lib.rdb5c_backward_dw_splits.argtypes = [i] * 6
         lib.rdb5c_backward_dw_splits.restype = i
-        lib.rdb5c_backward_dw_smem_bytes.argtypes = []
+        lib.rdb5c_backward_dw_smem_bytes.argtypes = [i]
         lib.rdb5c_backward_dw_smem_bytes.restype = i
         lib.rdb5c_bwd_error_string.argtypes = [i]
         lib.rdb5c_bwd_error_string.restype = ctypes.c_char_p
@@ -341,15 +339,12 @@ def rdb5c_backward(g: torch.Tensor, x: torch.Tensor, c1: torch.Tensor,
     dw_splits = _dw_splits(dt, b, h, w, nf, gc, dev.index)
     db_splits = min(npix, 256)
     grads = _alloc((npix, gw), x.dtype, dev)
-    # the f32 kernel's tap-flipped transposed weights; bf16 reads the
-    # packed weights as they are
-    vt = _alloc(total, x.dtype, dev) if x.dtype == torch.float32 else None
     dw_part = _alloc((dw_splits, total), torch.float32, dev)
     db_part = _alloc((db_splits, gw), torch.float32, dev)
     dx = _alloc(x.shape, x.dtype, dev)
     dw = _alloc(total, torch.float32, dev)
     db = _alloc(gw, torch.float32, dev)
-    ptrs = [g, x, *cs, *packed_w, grads, vt, dw_part, db_part, dx, dw, db]
+    ptrs = [g, x, *cs, *packed_w, grads, dw_part, db_part, dx, dw, db]
     stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
         err = lib.rdb5c_backward(dt, *_pointers(ptrs),
