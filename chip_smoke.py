@@ -7,44 +7,57 @@ non-zero exit code and no result line:
 
 1. device: the card's name and power limit, the build of every CUDA
    kernel of the main paths from the sources in ``trainner_tpu_torch/csrc``
-   (registers, spills, shared memory) and, from the build's SASS, the
-   instruction that multiplies in each block kernel (``HMMA`` for
-   ``mma.sync``, ``HGMMA`` for ``wgmma``; tf32 ``HMMA`` in f32), with no
-   f32-FMA block kernel left in the build;
-2. kernels: each kernel's wrapper against its plain PyTorch version on the
+   (one ``nvcc`` per source, all at once: registers, spills, shared memory)
+   and, from the build's SASS, the instruction that multiplies in each
+   block kernel (``HMMA`` for ``mma.sync``, ``HGMMA`` for ``wgmma``; tf32
+   ``HMMA`` in f32), with no f32-FMA block kernel left in the build, and
+   the blur kernel's FFMA against shared-memory reads at k 21;
+2. tf32 mma: how one tf32 ``mma.sync`` adds its products on the card
+   (``csrc/tf32_mma_probe.cu`` on inputs that tell the ways apart), held to
+   ``TF32_MMA``, which the CPU emulation of 3xTF32 follows;
+3. kernels: each kernel's wrapper against its plain PyTorch version on the
    card, TF32 off, f32 and bf16: the block's forward at the serving shape,
    the training shape and two ragged ones (the second at b=1), its backward
    at the training shape and the ragged ones, bit-equal from run to run;
    both again with every output and scratch buffer filled with NaN before
-   the launch, and at other widths (nf 32 and nf 128 with gc 32 in both
-   types, nf 64 with gc 64 in f32, which bf16 refuses); the per-sample blur at the producer's two shapes
-   (the HR and the LR canvas, k 21) and at a ragged one with asymmetric
-   kernels, and an identity kernel bit for bit;
-3. serving slice: ``python -m trainner_tpu_torch.test`` at the full width
+   the launch, and at other widths (``OTHER_WIDTHS``: nf 16 / gc 8 and nf
+   48 / gc 16, which the wrappers pad to multiples of 32 and which are held
+   to the unpadded plain versions; nf 64 and 128 with gc 64, whose widest
+   bf16 stages stream their weights); the per-sample blur at the producer's
+   two shapes (the HR and the LR canvas, k 21), at k 3 and 7 on the HR
+   canvas, at ragged shapes with asymmetric kernels, k/2 close to h and a k
+   past the instantiated ones, and an identity kernel bit for bit;
+4. serving slice: ``python -m trainner_tpu_torch.test`` at the full width
    of the ESRGAN generator (nf 64, nb 23, gc 32, 4x) on a synthetic test
    set, in f32 and with ``use_amp``, counting kernel launches; then the
    full G on the kernel against the same G on the plain version;
-4. training slice: ``create_trainer`` -> ``init_state`` -> ``train_step`` on
+5. debug configs: ``options/sr/test_sr_debug.yml``'s G (nf 16, nb 2, gc 8)
+   served through the CLI with random weights, and two train steps of
+   ``options/sr/train_sr_debug.yml``'s G and D, in f32 and bf16;
+6. training slice: ``create_trainer`` -> ``init_state`` -> ``train_step`` on
    the flagship GAN configuration at full width (that G, D-VGG-128, VGG19
    conv5_4, Adam; batch 32, 32 -> 128 px, latent noise on) in bf16 and in
    f32, counting forward and backward launches, with the step's time; two
    steps at ``D_update_ratio: 2``; then one f32 G-stage gradient of the
    full G on the kernels against the same on both plain versions;
-5. producer slice: a corpus of PNGs written from a seed, then the
+7. producer slice: a corpus of PNGs written from a seed, then the
    end-to-end training path at full width: train dataset (uint8 fast path,
    tile cache) -> loader (pinned) -> ``device_prefetch`` ->
    ``make_otf_degradation`` (the fixed-order bsrgan pipeline on the card,
    two blur launches per batch) -> ``train_step`` in bf16; its it/s beside
    the compute-only it/s of the same call, the degrader's and the loader's
    time per batch, and a traced end-to-end step;
-6. times: CUDA-event times of each kernel, its plain version, its bound
+8. times: CUDA-event times of each kernel, its plain version, its bound
    and a library call as a yardstick (the cuDNN five-conv chain; reflect
    padding and a grouped cuDNN convolution for the blur), the device-alone
-   time of the block kernels from the profiler, and the G forward at b=8,
-   128->512 px. The f32 block kernels run 3xTF32: their bound is three
-   tf32 products per f32 product at the tensor cores' tf32 rate, printed
-   beside the bound of the same work on the CUDA cores;
-7. trace: one f32 G forward at b=8 and one train step in bf16 and in f32
+   time of the block kernels and the blur from the profiler, the block at
+   the padded and the streamed widths at the training shape, and the G
+   forward at b=8, 128->512 px. The f32 block kernels run 3xTF32: their
+   bound is three tf32 products per f32 product at the tensor cores' tf32
+   rate, printed beside the bound of the same work on the CUDA cores. With
+   ``--parent DIR``, the blur kernel of the tree in DIR is timed beside
+   this one's in turns;
+9. trace: one f32 G forward at b=8 and one train step in bf16 and in f32
    under ``torch.profiler``: device time by kernel and the device's idle
    share.
 
@@ -52,10 +65,10 @@ The second-to-last lines are a JSON summary of the kernels and the card's
 ``nvidia-smi`` name and power limit; the last line is
 ``{"ok": true, "device": {...}}``.
 
-Usage: python3 chip_smoke.py
-       python3 chip_smoke.py --kernels-only   (phases 1, 2 and the block
-           kernels' part of 6: a short run while a kernel is worked on; it
-           prints no result line)
+Usage: python3 chip_smoke.py [--parent DIR]
+       python3 chip_smoke.py --kernels-only [--parent DIR]   (phases 1-3
+           and the kernels' part of 8: a short run while a kernel is worked
+           on; it prints no result line)
 """
 
 from __future__ import annotations
@@ -81,7 +94,25 @@ RAGGED_B1_SHAPE = (1, 21, 45)  # one image, no multiple of the 16x16 tile
 BLUR_HR = (32, 128, 128, 3)  # the HR canvas of the producer's first blur
 BLUR_LR = (32, 32, 32, 3)    # the LR canvas of its second blur
 BLUR_K = 21
+# the widths the block runs at besides (64, 32): narrow ones the wrappers
+# pad to multiples of 32, and bf16 stages over 256 channels, which stream
+# their weights
+OTHER_WIDTHS = ((16, 8), (48, 16), (32, 32), (128, 32), (64, 64), (128, 64))
+OPTIONS_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           "options", "sr")
+DEBUG_TEST_YML = os.path.join(OPTIONS_DIR, "test_sr_debug.yml")
+DEBUG_TRAIN_YML = os.path.join(OPTIONS_DIR, "train_sr_debug.yml")
+# How one tf32 mma.sync.m16n8k8 adds on the card, as phase_tf32_mma reads
+# it (mma_tf32_sum): the eight products, exact, and the running sum are
+# aligned to the largest exponent among them, a product's exponent being
+# the sum of its operands' (its significand not renormalised); every term
+# is cut towards zero below 2^(E - 25), the cut terms are added exactly and
+# the sum is cut towards zero to f32. The CPU emulation of 3xTF32 in
+# tests/test_torch_rdb5c_tf32.py adds the same way.
+TF32_MMA = dict(frac_bits=25, product_exponent="operands", acc_in_group=True,
+                group=8, cut="trunc", rounding="rz")
 N_CORPUS, CORPUS_PX = 64, 256
+PROBE_SOURCE = "tf32_mma_probe.cu"
 NF, GC, NB = 64, 32, 23
 N_IMAGES = 3
 BWD_NAMES = ("dx", "dW0", "dW1", "dW2", "dW3", "dW4",
@@ -143,8 +174,9 @@ def _tolerance(dtype, ref) -> float:
 
 def _backward_tolerance(dtype, name, ref) -> float:
     """f32: dx sums up to 1,728 products (2e-6 of its largest magnitude;
-    3xTF32's error, about 2^-21 of each product, stays under a tenth of
-    that in the CPU emulation of tests/test_torch_rdb5c_tf32.py); dW and db
+    3xTF32 on the card, whose mma cuts its sums towards zero (TF32_MMA),
+    reads about 0.3 of that, as the CPU emulation of
+    tests/test_torch_rdb5c_tf32.py predicts); dW and db
     sum over every pixel in another order than cuDNN's weight gradient
     (1e-4 of theirs). bf16: a da_k that rounds the other way feeds
     the later stages: two bf16 ulps at dx's largest magnitude; dW and db
@@ -162,7 +194,9 @@ def _compare_block(shape, dt, x, g_out, ws, bs, label: str):
     """One block forward and, with ``g_out``, backward on the kernels
     against the plain versions; raises past the tolerances. Returns the
     two largest errors (forward, backward or None). The widths are the
-    weights' own."""
+    weights' own; where they are not multiples of 32 the wrappers pad the
+    block and the plain versions run it unpadded: the padded residuals'
+    extra channels must be exactly zero and the rest agree."""
     import torch
 
     nf, gc = ws[0].shape[1], ws[0].shape[0]
@@ -177,9 +211,14 @@ def _compare_block(shape, dt, x, g_out, ws, bs, label: str):
     xd = x.to(dt).contiguous()
     got = rdb5c_forward(xd, packed, bs, return_residuals=True)
     torch.cuda.synchronize()
+    for i, c in enumerate(got[1:]):
+        if c.shape[-1] > gc and bool(c[..., gc:].any()):
+            raise AssertionError(f"{label}rdb5c {shape} {dt}: c{i + 1}'s "
+                                 "padded channels are not zero")
+    cut = [got[0]] + [c[..., :gc] for c in got[1:]]
     ref = rdb5c_forward_plain(xd, packed, bs, return_residuals=True)
     errs = []
-    for name, g, r in zip(("out", "c1", "c2", "c3", "c4"), got, ref):
+    for name, g, r in zip(("out", "c1", "c2", "c3", "c4"), cut, ref):
         if g.shape != r.shape or g.dtype != r.dtype:
             raise AssertionError(f"{name}: {g.shape} {g.dtype} vs "
                                  f"{r.shape} {r.dtype}")
@@ -197,7 +236,7 @@ def _compare_block(shape, dt, x, g_out, ws, bs, label: str):
     gd = g_out.to(dt).contiguous()
     got_b = rdb5c_backward(gd, xd, *got[1:], packed)
     torch.cuda.synchronize()
-    ref_b = rdb5c_backward_plain(gd, xd, *got[1:], packed)
+    ref_b = rdb5c_backward_plain(gd, xd, *cut[1:], packed)
     errs_b = []
     for name, a, r in zip(BWD_NAMES, got_b, ref_b):
         if a.shape != r.shape or a.dtype != r.dtype:
@@ -241,6 +280,168 @@ def _poisoned_buffers():
         rdb5c._alloc = plain_alloc
 
 
+def _exponent(v):
+    """floor(log2 |v|) of each value; far below any other for 0."""
+    import torch
+
+    _, e = torch.frexp(v)
+    return torch.where(v == 0, torch.full_like(e, -100000), e - 1)
+
+
+def _round_f32(s, rounding: str):
+    """f64 -> the f32 value nearest (rn) or next towards zero (rz), as
+    f64."""
+    import torch
+
+    r = s.float()
+    if rounding == "rz":
+        over = r.double().abs() > s.abs()
+        r = torch.where(over, torch.nextafter(r, torch.zeros_like(r)), r)
+    return r.double()
+
+
+def mma_tf32_sum(acc, a, b, frac_bits: int, product_exponent: str,
+                 acc_in_group: bool, group: int, cut: str, rounding: str):
+    """One tf32 mma.sync's sums as a model of the unit: ``acc`` (...,) and
+    the tf32 operands ``a``, ``b`` (..., 8), which may broadcast against
+    each other, all f64; returns the f32 sums as f64. Group by group of ``group`` products (and the running sum, with
+    ``acc_in_group``), every term is cut (``trunc``: towards zero,
+    ``floor``: down) to a multiple of 2^(E - frac_bits), E the largest
+    term's exponent, a product's taken as the sum of its operands'
+    exponents (``operands``: its significand, in [1, 4), not renormalised)
+    or its own (``product``); the cut terms are added exactly and the sum
+    rounded to f32 (``rn``: to nearest, ``rz``: towards zero)."""
+    import torch
+
+    prods = a * b  # a and b may broadcast against each other
+    if product_exponent == "operands":
+        pe = _exponent(a) + _exponent(b)
+        pe = torch.where(prods == 0, -100000, pe)
+    else:
+        pe = _exponent(prods)
+    for lo in range(0, prods.shape[-1], group):
+        terms, exps = prods[..., lo:lo + group], pe[..., lo:lo + group]
+        if acc_in_group:
+            terms = torch.cat([acc[..., None], terms], -1)
+            exps = torch.cat([_exponent(acc)[..., None], exps], -1)
+        # a group of zeros cuts nothing: its quantum stays far from 0
+        top = exps.amax(-1, keepdim=True).clamp(min=-900)
+        quantum = torch.ldexp(torch.ones_like(terms[..., :1]),
+                              top - frac_bits)
+        units = terms / quantum
+        units = units.trunc() if cut == "trunc" else units.floor()
+        s = (units * quantum).sum(-1)
+        acc = _round_f32(s if acc_in_group else s + acc, rounding)
+    return acc
+
+
+def tf32_mma_cases():
+    """Inputs of the probe, each one dot product of eight tf32 products
+    and an accumulator: (acc, a (8,), b (8,)). They tell apart where a
+    small term is cut (with how many extra bits, towards zero or down),
+    whether the accumulator joins the products' alignment, whether the
+    eight products are one group or two, and how the sum is rounded."""
+    import torch
+
+    cases = []
+
+    def case(acc, pairs):
+        a = torch.zeros(8, dtype=torch.float64)
+        b = torch.zeros(8, dtype=torch.float64)
+        for k, (x, y) in pairs.items():
+            a[k], b[k] = x, y
+        cases.append((float(acc), a, b))
+
+    for j in range(18, 50):
+        small = 2.0 ** -j
+        case(0.0, {0: (1.0, 1.0), 1: (-1.0, 1.0), 2: (small, 1.0)})
+        case(0.0, {0: (1.0, 1.0), 1: (-1.0, 1.0), 6: (small, 1.0)})
+        case(0.0, {4: (1.0, 1.0), 5: (-1.0, 1.0), 2: (small, 1.0)})
+        case(0.0, {0: (1.0, 1.0), 1: (-1.0, 1.0), 2: (1.5 * small, 1.0)})
+        case(0.0, {0: (1.0, 1.0), 1: (-1.0, 1.0), 2: (-1.5 * small, 1.0)})
+        case(small, {0: (1.0, 1.0), 1: (-1.0, 1.0)})
+        case(1.0, {0: (-1.0, 1.0), 3: (small, 1.0)})
+        case(2.0 ** 8, {0: (-2.0 ** 8, 1.0), 3: (small, 1.0)})
+    for frac in (0.25, 0.5, 0.75, 1.25, 1.5):
+        for sign in (1.0, -1.0):
+            case(sign, {0: (sign * frac, 2.0 ** -23)})
+            case(sign, {0: (sign * frac, 2.0 ** -24), 5: (sign * frac,
+                                                          2.0 ** -24)})
+    # random dot products, eleven significant bits an operand, exponents
+    # over a narrow and over a wide range
+    gen = torch.Generator().manual_seed(11)
+    for lo, hi, n in ((-12, 4, 64), (-24, 8, 200)):
+        for _ in range(n):
+            mant = torch.randint(1024, 2048, (17,), generator=gen).double()
+            expo = torch.randint(lo, hi, (17,), generator=gen).double()
+            sign = torch.randint(0, 2, (17,), generator=gen).double() * 2 - 1
+            v = sign * mant * 2.0 ** (expo - 10)
+            case(float(v[16]), {k: (float(v[k]), float(v[8 + k]))
+                                for k in range(8)})
+    return cases
+
+
+def tf32_mma_models():
+    """The models ``mma_tf32_sum`` can be: every combination of its
+    options."""
+    return [dict(frac_bits=f, product_exponent=p, acc_in_group=a, group=g,
+                 cut=c, rounding=r)
+            for f in range(20, 32) for p in ("operands", "product")
+            for a in (True, False) for g in (8, 4)
+            for c in ("trunc", "floor") for r in ("rz", "rn")]
+
+
+def phase_tf32_mma(smi: str) -> list:
+    """One tf32 mma.sync.m16n8k8 per case of ``tf32_mma_cases`` on the
+    card (``csrc/tf32_mma_probe.cu``); prints which models of
+    ``tf32_mma_models`` give every case's sum bit for bit, and fails
+    unless TF32_MMA, which the CPU emulation uses, is one. Returns the
+    models that fit."""
+    import ctypes
+
+    import torch
+
+    from trainner_tpu_torch.ops import _build
+
+    lib = _build.load(PROBE_SOURCE)
+    p = ctypes.c_void_p
+    lib.tf32_mma_probe.argtypes = [p, p, p, p, ctypes.c_int, p]
+    lib.tf32_mma_probe.restype = ctypes.c_int
+    cases = tf32_mma_cases()
+    n = len(cases)
+    a = torch.zeros(n, 16, 8)
+    b = torch.zeros(n, 8, 8)
+    c = torch.zeros(n, 16, 8)
+    for i, (acc, av, bv) in enumerate(cases):
+        a[i, 0], b[i, :, 0], c[i, 0, 0] = av.float(), bv.float(), acc
+    a, b, c = a.cuda(), b.cuda(), c.cuda()
+    d = torch.zeros_like(c)
+    err = lib.tf32_mma_probe(a.data_ptr(), b.data_ptr(), c.data_ptr(),
+                             d.data_ptr(), n,
+                             torch.cuda.current_stream().cuda_stream)
+    torch.cuda.synchronize()
+    if err:
+        raise AssertionError(f"tf32 mma probe launch failed: {err}")
+    got = d[:, 0, 0].double().cpu()
+    accs = torch.tensor([cs[0] for cs in cases], dtype=torch.float64)
+    av = torch.stack([cs[1] for cs in cases])
+    bv = torch.stack([cs[2] for cs in cases])
+    fits = [model for model in tf32_mma_models()
+            if torch.equal(mma_tf32_sum(accs, av, bv, **model), got)]
+    exact = _round_f32(accs + (av * bv).sum(-1), "rn")
+    print(f"tf32 mma: {n} cases, {int((got != exact).sum())} differ from "
+          f"the sum rounded once to nearest; models that give every case: "
+          f"{fits or 'none'} ({smi})")
+    short = [j for j, g in zip(range(18, 50), got[0:8 * 32:8].tolist())
+             if g != 2.0 ** -j]
+    print(f"tf32 mma: 1 - 1 + 2^-j in one mma comes out short of 2^-j "
+          f"from j = {short[0] if short else 'none'} on")
+    if TF32_MMA not in fits:
+        raise AssertionError(f"the card does not add as TF32_MMA = "
+                             f"{TF32_MMA} says")
+    return fits
+
+
 def phase_kernels(smi: str):
     """Kernel against plain version on the card. Returns the max abs errors
     at the main paths' shapes: the forward's at the serving shape in f32,
@@ -272,14 +473,13 @@ def phase_kernels(smi: str):
                 _compare_block(shape, dt, *inputs[shape], ws, bs,
                                "NaN-filled buffers: ")
     # other widths: chunks, segments, slices and dW slots are counted from
-    # nf and gc at run time; bf16 refuses nf + 4*gc > 256
-    for nf, gc in ((32, 32), (128, 32), (64, 64)):
+    # nf and gc at run time; narrow blocks run padded, and bf16 stages over
+    # 256 channels stream their weights
+    for nf, gc in OTHER_WIDTHS:
         ws2, bs2 = _block_weights(gen, nf, gc)
         x = (torch.randn(*RAGGED_B1_SHAPE, nf, generator=gen) * 0.5).cuda()
         g_out = torch.randn(*RAGGED_B1_SHAPE, nf, generator=gen).cuda()
         for dt in (torch.float32, torch.bfloat16):
-            if dt == torch.bfloat16 and nf + 4 * gc > 256:
-                continue
             _compare_block(RAGGED_B1_SHAPE, dt, x, g_out, ws2,
                            [b.cuda() for b in bs2], f"nf {nf} gc {gc}: ")
     print(f"kernels: ok ({smi})")
@@ -307,9 +507,10 @@ def phase_blur_kernel(smi: str) -> float:
 
     gen = torch.Generator().manual_seed(5)
     main_err = None
-    for shape, k in ((BLUR_HR, BLUR_K), (BLUR_LR, BLUR_K),
-                     ((5, 37, 53, 3), 7), ((5, 37, 53, 3), 21),
-                     ((5, 37, 53, 1), 21)):
+    for shape, k in ((BLUR_HR, BLUR_K), (BLUR_LR, BLUR_K), (BLUR_HR, 3),
+                     (BLUR_HR, 7), ((5, 37, 53, 3), 7), ((5, 37, 53, 3), 21),
+                     ((5, 37, 53, 1), 21), ((2, 11, 70, 3), 21),
+                     ((3, 40, 9, 3), 17), ((2, 30, 30, 3), 25)):
         x = torch.rand(*shape, generator=gen).cuda()
         kern = _blur_kernels(gen, shape[0], k)
         ident = torch.zeros(shape[0], k, k, device="cuda")
@@ -455,6 +656,119 @@ def phase_g_compare(smi: str, root: str) -> None:
               f"on max|ref| {scale:.3e}, tol {rel_tol * scale:.3e}")
         if not err <= rel_tol * scale:
             raise AssertionError(f"full G {dt}: {err} > {rel_tol * scale}")
+
+
+def _yml_scalar(text: str):
+    text = text.strip()
+    if text.startswith("[") and text.endswith("]"):
+        return [_yml_scalar(t) for t in text[1:-1].split(",") if t.strip()]
+    lower = text.lower()
+    if lower in ("true", "false"):
+        return lower == "true"
+    if lower in ("null", "~", ""):
+        return None
+    for cast in (int, float):
+        try:
+            return cast(text)
+        except ValueError:
+            pass
+    return text.strip("\"'")
+
+
+def read_options_yml(path: str) -> dict:
+    """The YAML of the repo's options files without PyYAML (which the card's
+    machine lacks): nested maps by indentation, scalars, ``[a, b]`` lists
+    and ``#`` comments; numbers like ``1e-4`` are floats, as the port's
+    ``options.read_yaml`` reads them."""
+    root: dict = {}
+    stack = [(-1, root)]
+    with open(path) as f:
+        for raw in f:
+            line = raw.split("#")[0].rstrip()
+            if not line.strip():
+                continue
+            indent = len(line) - len(line.lstrip())
+            key, _, value = line.strip().partition(":")
+            while indent <= stack[-1][0]:
+                stack.pop()
+            parent = stack[-1][1]
+            if value.strip():
+                parent[key] = _yml_scalar(value)
+            else:
+                parent[key] = {}
+                stack.append((indent, parent[key]))
+    return root
+
+
+def phase_debug_configs(smi: str, root: str) -> None:
+    """The repo's debug configs on the card, at their narrow widths (nf 16,
+    gc 8), which the kernels run padded to 32: test_sr_debug.yml's G
+    through the CLI in f32 and bf16 with random weights (its
+    pretrain_model_G dropped), and two train steps of train_sr_debug.yml's
+    G and D in f32 and bf16, counting the block kernels' launches."""
+    import torch
+
+    from trainner_tpu_torch import test as test_cli
+    from trainner_tpu_torch.ops import rdb5c
+    from trainner_tpu_torch.train.sr_trainer import create_trainer
+
+    opt = read_options_yml(DEBUG_TEST_YML)
+    opt["path"] = {"root": root}
+    g_opt = opt["network_G"]
+    per_g = g_opt["nb"] * 3
+    n_img = opt["datasets"]["test_1"]["n_samples"]
+    for use_amp in (False, True):
+        opt["name"] = f"debug_serve_{'bf16' if use_amp else 'f32'}"
+        opt["use_amp"] = use_amp
+        path = os.path.join(root, opt["name"] + ".json")
+        with open(path, "w") as f:
+            json.dump(opt, f)
+        rdb5c.launches = 0
+        averages = test_cli.main(["-opt", path])
+        torch.cuda.synchronize()
+        vals = {m["name"]: m["average"] for v in averages.values()
+                for m in v}
+        print(f"debug: {os.path.basename(DEBUG_TEST_YML)} G (nf "
+              f"{g_opt['nf']}, nb {g_opt['nb']}, gc {g_opt['gc']}) served, "
+              f"use_amp {use_amp}: {n_img} images, launches "
+              f"{rdb5c.launches}, metrics {vals}")
+        if rdb5c.launches != per_g * n_img or not vals or not all(
+                math.isfinite(v) for v in vals.values()):
+            raise AssertionError(f"debug serving: {rdb5c.launches} launches,"
+                                 f" metrics {vals}")
+
+    opt = read_options_yml(DEBUG_TRAIN_YML)
+    train = {"is_train": True, "scale": opt["scale"],
+             "network_G": opt["network_G"], "network_D": opt["network_D"],
+             "train": opt["train"]}
+    hr_px = opt["datasets"]["train"]["crop_size"]
+    b = opt["datasets"]["train"]["batch_size"]
+    gen = torch.Generator().manual_seed(8)
+    batch = {"LR": torch.rand(b, hr_px // 4, hr_px // 4, 3,
+                              generator=gen).cuda(),
+             "HR": torch.rand(b, hr_px, hr_px, 3, generator=gen).cuda()}
+    for use_amp in (False, True):
+        trainer = create_trainer({**train, "use_amp": use_amp})
+        state = trainer.init_state(0)
+        g0 = _snapshot(state.g.net)
+        rdb5c.launches = rdb5c.backward_launches = 0
+        for _ in range(2):
+            state, logs = trainer.train_step(state, batch)
+        torch.cuda.synchronize()
+        vals = {k: float(v) for k, v in logs.items()}
+        moved, total = _count_moved(state.g.net, g0, lambda k: True)
+        print(f"debug: {os.path.basename(DEBUG_TRAIN_YML)} G and D, "
+              f"{trainer.dtype}, b={b} {hr_px // 4}->{hr_px} px, 2 steps: "
+              f"forward launches {rdb5c.launches}, backward launches "
+              f"{rdb5c.backward_launches}, G tensors moved {moved} of "
+              f"{total}, logs {vals}")
+        if (rdb5c.launches, rdb5c.backward_launches) != (2 * per_g,
+                                                          2 * per_g) \
+                or moved != total or not all(math.isfinite(v)
+                                             for v in vals.values()):
+            raise AssertionError("debug training did not run as expected")
+        del trainer, state
+    print(f"debug: ok ({smi})")
 
 
 def _train_options(**train) -> dict:
@@ -815,6 +1129,9 @@ def phase_producer(smi: str, root: str) -> dict:
 
 BF16_BLOCK_KERNELS = {"rdb5c.cu": ("rdb_stage_mma",),
                       "rdb5c_bwd.cu": ("rdb_dx_stage_mma", "dw_mma_kernel")}
+# bf16 stages over more than 256 channels, which stream their weights
+BF16_STREAMED_KERNELS = {"rdb5c.cu": ("rdb_streamed_stage_mma",),
+                         "rdb5c_bwd.cu": ("rdb_dx_streamed_stage_mma",)}
 F32_BLOCK_KERNELS = {"rdb5c.cu": ("rdb_stage_tf32",),
                      "rdb5c_bwd.cu": ("rdb_dx_stage_tf32", "dw_tf32_kernel")}
 # the f32-FMA block kernels of earlier versions (mangled name parts)
@@ -851,7 +1168,9 @@ def _instruction_forms(smi: str) -> dict:
         for fn in counts:
             if any(k in fn for k in GONE_KERNELS):
                 raise AssertionError(f"{source} still builds {fn}")
-        for kernel in BF16_BLOCK_KERNELS[source] + F32_BLOCK_KERNELS[source]:
+        for kernel in (BF16_BLOCK_KERNELS[source]
+                       + BF16_STREAMED_KERNELS[source]
+                       + F32_BLOCK_KERNELS[source]):
             found = [c for fn, c in counts.items() if kernel in fn]
             if len(found) != 1:
                 raise AssertionError(f"{source}: {len(found)} functions "
@@ -869,6 +1188,36 @@ def _instruction_forms(smi: str) -> dict:
                                      f"{c['HMMA.TF32']} tf32")
             forms[kernel] = form
     return forms
+
+
+def _blur_sass_mix(smi: str) -> None:
+    """The static instruction mix of the blur kernel at k = 21 in f32, one
+    line per tile (``cuobjdump -sass``): FFMA against shared-memory reads
+    (LDS, of which LDS.128 the taps') in its main loop's body."""
+    import collections
+
+    from trainner_tpu_torch.ops import _build
+
+    cuobjdump = os.path.join(os.path.dirname(_build.nvcc_path()), "cuobjdump")
+    sass = subprocess.run(
+        [cuobjdump, "-sass", str(_build.library_path("blur_per_sample.cu"))],
+        capture_output=True, text=True, timeout=300, check=True).stdout
+    counts, name = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            name = line.split("Function :")[1].strip()
+            counts[name] = collections.Counter()
+        elif name is not None:
+            for op in ("FFMA", "LDS.128", "LDS", "STS", "LDG"):
+                if op + " " in line or op + "." in line:
+                    counts[name][op] += 1
+                    break
+    for fn, c in counts.items():
+        if "blur_kernelIfLi21E" in fn:
+            print(f"device: blur_per_sample.cu: {fn}: " + ", ".join(
+                f"{n} {op}" for op, n in sorted(c.items()))
+                + f"; FFMA per shared-memory read "
+                f"{c['FFMA'] / max(c['LDS'] + c['LDS.128'], 1):.2f}")
 
 
 def _bound(name: str, flops: float, nbytes: float) -> tuple:
@@ -1007,6 +1356,7 @@ def phase_times(smi: str, root: str, kernels_only: bool = False):
                   + ", ".join(f"{k} {v:.4f} ms" for k, v in dev.items())
                   + f" ({smi})")
             del blk, conv_blk, out, inputs, xin
+    _width_times(smi, gen)
     if kernels_only:
         return rows
 
@@ -1025,6 +1375,64 @@ def phase_times(smi: str, root: str, kernels_only: bool = False):
         del net
         torch.cuda.empty_cache()
     return rows
+
+
+def _width_times(smi: str, gen) -> None:
+    """The block at the other widths of OTHER_WIDTHS that the main paths do
+    not run (narrow ones padded, bf16 stages over 256 channels streamed), at
+    the training shape in both types: CUDA-event times of the wrappers
+    (padding included) and the stage, dx and dW kernels' device time, beside
+    the bound of the block's own (unpadded) work."""
+    import torch
+
+    from trainner_tpu_torch.models.rrdb import ResidualDenseBlock5C
+    from trainner_tpu_torch.ops.rdb5c import (padded_width, rdb5c_backward,
+                                              rdb5c_forward)
+
+    b, h, w = TRAIN_SHAPE
+    for nf, gc in OTHER_WIDTHS:
+        if (nf, gc) in ((32, 32), (128, 32)):
+            continue
+        n_q = (nf * (4 * gc + nf) + gc * (3 * gc + nf) + gc * (2 * gc + nf)
+               + gc * (gc + nf) + gc * nf)
+        ws, bs = _block_weights(gen, nf, gc)
+        blk = ResidualDenseBlock5C(nf, gc)
+        with torch.no_grad():
+            for conv, wt, bt in zip(blk.convs(), ws, bs):
+                conv.weight.copy_(wt)
+                conv.bias.copy_(bt)
+        blk = blk.cuda()
+        x32 = (torch.randn(b, h, w, nf, generator=gen) * 0.5).cuda()
+        g32 = torch.randn(b, h, w, nf, generator=gen).cuda()
+        for dt in (torch.float32, torch.bfloat16):
+            name = str(dt).replace("torch.", "")
+            packed, biases = blk.packed(dt)
+            x, g = x32.to(dt), g32.to(dt)
+            with torch.no_grad():
+                _, *cs = rdb5c_forward(x, packed, biases,
+                                       return_residuals=True)
+                fwd = lambda: rdb5c_forward(x, packed, biases)  # noqa: E731
+                bwd = lambda: rdb5c_backward(  # noqa: E731
+                    g, x, *cs, packed)
+                ms, bwd_ms = _time_ms(fwd), _time_ms(bwd)
+                dev = (_device_ms(fwd, "stage"), _device_ms(bwd, "dx_"),
+                       _device_ms(bwd, "dw_"))
+            npix, size = b * h * w, x.element_size()
+            n_w = sum(wt.numel() for wt in ws)
+            fwd_bound = _bounds(name, 2 * 9 * n_q * npix,
+                                (2 * nf + 4 * gc) * npix * size + n_w * size
+                                + (nf + 4 * gc) * 4)
+            bwd_bound = _bounds(name, 4 * 9 * n_q * npix,
+                                (3 * nf + 4 * gc) * npix * size
+                                + n_w * (size + 4) + (nf + 4 * gc) * 4)
+            print(f"times: widths {name} b={b} {h}x{w} nf {nf} gc {gc} "
+                  f"(kernels at nf {padded_width(nf)}, gc "
+                  f"{padded_width(gc)}): forward {ms:.4f} ms (stages on "
+                  f"the device {dev[0]:.4f}), backward {bwd_ms:.4f} ms (dx "
+                  f"{dev[1]:.4f} + dW {dev[2]:.4f}); bound of the block's "
+                  f"own work: forward {fwd_bound['bound_ms']:.4f} ms, "
+                  f"backward {bwd_bound['bound_ms']:.4f} ms ({smi})")
+        del blk
 
 
 def _device_ms(fn, match: str, calls: int = 10) -> float:
@@ -1047,14 +1455,39 @@ def _device_ms(fn, match: str, calls: int = 10) -> float:
     return sum(spans) / calls / 1e3
 
 
-def phase_blur_times(smi: str) -> dict:
+def _parent_blur(parent: str):
+    """The blur kernel of another tree (``parent``, e.g. the parent commit
+    unpacked with ``git archive``), built from its source into the build
+    directory and loaded; its C interface is this tree's."""
+    import ctypes
+
+    from trainner_tpu_torch.ops import _build
+
+    src = os.path.join(parent, "trainner_tpu_torch", "csrc",
+                       "blur_per_sample.cu")
+    out = _build.BUILD_DIR / "parent-blur_per_sample.so"
+    _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    subprocess.run([_build.nvcc_path(), *_build.NVCC_FLAGS, "-o", str(out),
+                    src], capture_output=True, text=True, timeout=600,
+                   check=True)
+    lib = ctypes.CDLL(str(out))
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.blur_per_sample.argtypes = [i, p, p, p, i, i, i, i, i, p]
+    lib.blur_per_sample.restype = i
+    return lib
+
+
+def phase_blur_times(smi: str, parent: str = "") -> dict:
     """CUDA-event times of the blur kernel in f32 at the producer's two
-    shapes, beside its bound, its plain version and the library call
-    (reflect ``F.pad`` and one grouped cuDNN convolution over b*c groups).
-    Returns {shape: row}."""
+    shapes, its time on the device alone (profiler) and its share of the
+    bound, beside its plain version and the library call (reflect
+    ``F.pad`` and one grouped cuDNN convolution over b*c groups). With
+    ``parent``, the same of that tree's blur kernel in the same call, in
+    turns (parent, this, this, parent). Returns {shape: row}."""
     import torch
     import torch.nn.functional as F
 
+    from trainner_tpu_torch.ops import blur as port_blur
     from trainner_tpu_torch.ops.blur import (blur_per_sample,
                                              blur_per_sample_plain)
 
@@ -1066,6 +1499,7 @@ def phase_blur_times(smi: str) -> dict:
         y = F.conv2d(xg, kern.repeat_interleave(c, 0)[:, None], groups=b * c)
         return y.reshape(b, c, h, w).permute(0, 2, 3, 1).contiguous()
 
+    old = _parent_blur(parent) if parent else None
     gen = torch.Generator().manual_seed(6)
     rows = {}
     for shape in (BLUR_HR, BLUR_LR):
@@ -1076,24 +1510,51 @@ def phase_blur_times(smi: str) -> dict:
                          ).abs().max())
         if not lib_err <= 1e-5:
             raise AssertionError(f"the library call disagrees: {lib_err}")
-        ms = _time_ms(lambda: blur_per_sample(x, kern), iters=50)
-        plain_ms = _time_ms(lambda: blur_per_sample_plain(x, kern), iters=3,
-                            warmup=1)
-        library_ms = _time_ms(lambda: library(x, kern))
-        device_ms = _device_ms(lambda: blur_per_sample(x, kern),
-                               "blur_kernel")
         work = 2 * BLUR_K * BLUR_K * x.numel()
         nbytes = 2 * x.numel() * 4 + kern.numel() * 4
         bound_ms, bound_by = _bound("float32", work, nbytes)
+        fn = lambda: blur_per_sample(x, kern)  # noqa: E731
+        if old is not None:
+            # both libraries called alike, straight through their C
+            # interface, into one output buffer
+            out = torch.empty_like(x)
+            stream = torch.cuda.current_stream().cuda_stream
+
+            def direct(lib):
+                return lambda: lib.blur_per_sample(
+                    0, x.data_ptr(), kern.data_ptr(), out.data_ptr(), b, h,
+                    w, c, BLUR_K, stream)
+
+            old_fn, new_fn = direct(old), direct(port_blur._library())
+            old_fn()
+            torch.cuda.synchronize()
+            if not torch.equal(out, fn()):
+                raise AssertionError("the parent's blur gives other sums")
+            turns = []
+            for f, who in ((old_fn, "parent"), (new_fn, "this"),
+                           (new_fn, "this"), (old_fn, "parent")):
+                turns.append((who, _time_ms(f, iters=50),
+                              _device_ms(f, "blur_kernel")))
+            print(f"times: blur_per_sample float32 {shape} k={BLUR_K}, its C "
+                  f"interface called in turns (CUDA events ms per call, "
+                  f"device ms): " + ", ".join(
+                      f"{who} {ms:.4f} / {dev:.4f}" for who, ms, dev in turns)
+                  + f"; bound {bound_ms:.4f} ms ({smi})")
+        ms = _time_ms(fn, iters=50)
+        plain_ms = _time_ms(lambda: blur_per_sample_plain(x, kern), iters=3,
+                            warmup=1)
+        library_ms = _time_ms(lambda: library(x, kern))
+        device_ms = _device_ms(fn, "blur_kernel")
         rows[shape] = dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
                            bound_ms=bound_ms, bound_by=bound_by,
                            device_ms=device_ms)
+        share = f"{bound_ms / device_ms:.1%}" if device_ms else "not measured"
         print(f"times: blur_per_sample float32 {shape} k={BLUR_K}: kernel "
               f"{ms:.4f} ms per call of the wrapper (CUDA events over 50 "
               f"calls), {device_ms:.4f} ms on the device alone (profiler), "
-              f"plain {plain_ms:.4f} ms, reflect pad + grouped cuDNN conv "
-              f"{library_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}), "
-              f"{work / ms / 1e9:.2f} TFLOP/s ({smi})")
+              f"{share} of the bound {bound_ms:.4f} ms ({bound_by}), plain "
+              f"{plain_ms:.4f} ms, reflect pad + grouped cuDNN conv "
+              f"{library_ms:.4f} ms, {work / ms / 1e9:.2f} TFLOP/s ({smi})")
     return rows
 
 
@@ -1115,7 +1576,7 @@ def _kernel_rows(rows, serving_launches, train, main_err, bwd_err,
 
     def forms_of(source):
         return {k: forms[k] for k in BF16_BLOCK_KERNELS[source]
-                + F32_BLOCK_KERNELS[source]}
+                + BF16_STREAMED_KERNELS[source] + F32_BLOCK_KERNELS[source]}
 
     return [
         {"name": "rdb5c_forward", "route": "cuda",
@@ -1237,6 +1698,10 @@ def main(argv=None) -> int:
 
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--kernels-only", action="store_true")
+    parser.add_argument("--parent", default="",
+                        help="another tree (e.g. the parent commit from "
+                        "git archive) whose blur kernel is timed beside "
+                        "this one's")
     flags = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -1247,7 +1712,7 @@ def main(argv=None) -> int:
     print(f"device: {smi}; torch {torch.__version__}, CUDA "
           f"{torch.version.cuda}, {torch.cuda.device_count()} device(s)")
     t0 = time.time()
-    logs = _build.build_all()
+    logs = _build.build_all(_build.SOURCES + (PROBE_SOURCE,))
     print(f"device: kernels built in {time.time() - t0:.2f} s")
     for source, log in logs.items():
         for line in log.splitlines():
@@ -1256,6 +1721,8 @@ def main(argv=None) -> int:
     smem = {f"rdb_stage_mma / rdb_dx_stage_mma over {c} channels":
             rdb5c._library().rdb5c_stage_smem_bytes(1, c)
             for c in range(NF, NF + 4 * GC + 1, GC)}
+    smem["rdb_streamed_stage_mma / rdb_dx_streamed_stage_mma, over 256 "
+         "channels"] = rdb5c._library().rdb5c_stage_smem_bytes(1, 288)
     smem["rdb_stage_tf32 / rdb_dx_stage_tf32, any width"] = \
         rdb5c._library().rdb5c_stage_smem_bytes(0, NF)
     for dt, kernel in ((1, "dw_mma_kernel"), (0, "dw_tf32_kernel")):
@@ -1263,25 +1730,29 @@ def main(argv=None) -> int:
     print("device: dynamic shared memory of the block kernels, bytes per "
           f"block: {smem}")
     forms = _instruction_forms(smi)
+    _blur_sass_mix(smi)
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
 
+    phase_tf32_mma(smi)
     main_err, bwd_err = phase_kernels(smi)
+    blur_err = phase_blur_kernel(smi)
     if flags.kernels_only:
         phase_times(smi, "", kernels_only=True)
+        phase_blur_times(smi, flags.parent)
         print(smi)
         return 0
-    blur_err = phase_blur_kernel(smi)
     with tempfile.TemporaryDirectory() as root:
         launches = phase_slice(smi, root)
         phase_g_compare(smi, root)
+        phase_debug_configs(smi, root)
         train = phase_train(smi)
         phase_g_gradient(smi)
         producer = phase_producer(smi, root)
         torch.backends.cudnn.allow_tf32 = False
         torch.backends.cuda.matmul.allow_tf32 = False
         rows = phase_times(smi, root)
-        blur_rows = phase_blur_times(smi)
+        blur_rows = phase_blur_times(smi, flags.parent)
         phase_trace(smi, root, {k: r["step_ms"] for k, r in train.items()})
     kernels = _kernel_rows(rows, launches, train, main_err, bwd_err,
                            blur_rows, producer, blur_err, forms)

@@ -9,9 +9,16 @@ to that version on the card by ``chip_smoke.py``.
 Tolerances: f32 1e-5 absolute on inputs in [0, 1] (up to 441 products
 summed in another order); bf16 one bf16 ulp of the output (both sum in f32
 and round once).
+
+The CUDA kernel's own index maps are emulated lane by lane from its source's
+constants and address formulas: every output sums its taps over the
+reflected sources in order, the inner loop's shared-memory reads are free of
+bank conflicts, and a block's shared memory fits.
 """
 
 import math
+import pathlib
+import re
 
 import jax.numpy as jnp
 import numpy as np
@@ -143,3 +150,184 @@ def test_a_cuda_tensor_never_reaches_the_plain_version(monkeypatch):
     with pytest.raises(RuntimeError, match="no nvcc"):
         blur_per_sample(x, kern)
     assert not called
+
+
+# ---------------------------------------------------------------------------
+# the CUDA kernel's index maps, lane by lane, from its own formulas
+# ---------------------------------------------------------------------------
+CSRC = pathlib.Path(port_blur.__file__).resolve().parent.parent / "csrc"
+SMEM_PER_BLOCK = 232448
+
+
+def _kernel_constants():
+    """``constexpr int NAME = value;`` of the blur source."""
+    text = (CSRC / "blur_per_sample.cu").read_text()
+    return {n: int(v) for n, v in
+            re.findall(r"constexpr int (\w+) = (\d+);", text)}
+
+
+KC = _kernel_constants()
+TILES = {"wide": (KC["WIDE_R"], KC["WIDE_NWX"]),
+         "narrow": (KC["NARROW_R"], KC["NARROW_NWX"])}
+
+
+class _Geometry:
+    """The kernel's ``Geometry``: shared-memory offsets in floats."""
+
+    def __init__(self, r, nwx, c, k):
+        self.tw = r * nwx
+        self.hh = KC["TH"] + k - 1
+        self.hwid = self.tw + k - 1
+        self.pitch = self.hwid | 1
+        self.plane = self.hh * self.pitch
+        self.kp = (k + 3) & ~3
+        self.taps = k * self.kp
+        self.halo = c * self.plane
+        self.stage_pitch = self.tw * c + 1
+        self.words = self.taps + self.halo + KC["TH"] * self.stage_pitch
+
+
+def _reflect(i, n):
+    if i < 0:
+        i = -i
+    if i >= n:
+        i = 2 * (n - 1) - i
+    return min(max(i, 0), n - 1)
+
+
+def _banks_distinct(words):
+    return len({int(a) % 32 for a in words}) == len(words)
+
+
+def _emulate(b, h, w, c, k, tile):
+    """Runs the kernel's loads, inner loop, staging and stores with labels
+    in place of values: a tap is labelled dy * k + dx (-1 the padding of a
+    tap row), a halo word by the flat NHWC index it was read from. Returns
+    {output flat index: (terms, 2) array of (tap, source) in the order the
+    output's FMAs take them} and checks every warp-wide shared-memory read
+    and the staging writes for bank conflicts on the way."""
+    r_out, nwx = TILES[tile]
+    th, g = KC["TH"], _Geometry(r_out, nwx, c, k)
+    generic = k > KC["MAX_K"]
+    tiles_x, tiles_y = -(-w // g.tw), -(-h // th)
+    nthreads = 32 * min(c, KC["CW_MAX"]) * nwx
+    lanes = np.arange(32)
+    result = {}
+    for blk in range(b * tiles_y * tiles_x):
+        tile_x, rest = blk % tiles_x, blk // tiles_x
+        tile_y, n = rest % tiles_y, rest // tiles_y
+        y0, x0, pad = tile_y * th, tile_x * g.tw, k // 2
+        smem = np.full(g.words, -2, dtype=np.int64)  # -2: never written
+        for i in range(g.taps):
+            dy, dx = divmod(i, g.kp)
+            smem[i] = dy * k + dx if dx < k else -1
+        for p in range(g.hh * g.hwid):
+            r, col = divmod(p, g.hwid)
+            gy, gx = _reflect(y0 - pad + r, h), _reflect(x0 - pad + col, w)
+            for ch in range(c):
+                smem[g.taps + ch * g.plane + r * g.pitch + col] = \
+                    ((n * h + gy) * w + gx) * c + ch
+        stage = {}
+        cw = nthreads // (32 * nwx)
+        for warp in range(nthreads // 32):
+            lx0 = (warp // cw) * r_out
+            for ch in range(warp % cw, c, cw):
+                acc = [[] for _ in range(r_out)]
+                src0 = g.taps + ch * g.plane + lanes * g.pitch + lx0
+                for dy in range(k):
+                    src, tp = src0 + dy * g.pitch, dy * g.kp
+                    if not generic:
+                        assert tp % 4 == 0  # 16-byte broadcast reads
+                        t = smem[tp:tp + g.kp]
+                        win = []
+                        for i in range(r_out + k - 1):
+                            assert _banks_distinct(src + i)
+                            win.append(smem[src + i])
+                        for dx in range(k):
+                            for r in range(r_out):
+                                acc[r].append((np.full(32, t[dx]),
+                                               win[r + dx]))
+                    else:
+                        win = [smem[src + r] for r in range(r_out)]
+                        for dx in range(k):
+                            t = smem[tp + dx]
+                            for r in range(r_out):
+                                acc[r].append((np.full(32, t), win[r]))
+                            if dx + 1 < k:
+                                assert _banks_distinct(src + dx + r_out)
+                                win = win[1:] + [smem[src + dx + r_out]]
+                st0 = g.taps + g.halo + lanes * g.stage_pitch + lx0 * c + ch
+                for r in range(r_out):
+                    assert _banks_distinct(st0 + r * c)
+                    terms = np.stack([np.stack(p, -1) for p in acc[r]], 1)
+                    for lane in range(32):
+                        stage[int(st0[lane] + r * c)] = terms[lane]
+        vh, row_len = min(th, h - y0), min(g.tw, w - x0) * c
+        for i in range(vh * row_len):
+            r, e = divmod(i, row_len)
+            dst = ((n * h + y0) * w + x0) * c + r * w * c + e
+            assert dst not in result
+            result[dst] = stage[g.taps + g.halo + r * g.stage_pitch + e]
+    return result
+
+
+@pytest.mark.parametrize("tile", ["wide", "narrow"])
+@pytest.mark.parametrize("b,h,w,c,k", [
+    (2, 13, 37, 3, 3),    # ragged h and w
+    (1, 11, 40, 3, 21),   # k/2 = 10 against h = 11
+    (2, 34, 9, 1, 7),     # two row tiles, one channel
+    (1, 12, 25, 1, 21),   # k/2 = 10 against h = 12, one channel
+    (1, 12, 30, 3, 23),   # past MAX_K: the sliding window of any k
+])
+def test_kernel_index_maps_sum_every_tap_in_order(b, h, w, c, k, tile):
+    """Every output of every tile sums exactly its k*k taps over the
+    reflected sources, dy outer and dx inner, as the plain version does;
+    every output is written once; no read of the inner loop meets a bank
+    conflict."""
+    got = _emulate(b, h, w, c, k, tile)
+    assert len(got) == b * h * w * c
+    pad = k // 2
+    taps = np.arange(k * k)
+    dys, dxs = taps // k, taps % k
+    for n in range(b):
+        for y in range(h):
+            for x in range(w):
+                for ch in range(c):
+                    src = [((n * h + _reflect(y + dy - pad, h)) * w
+                            + _reflect(x + dx - pad, w)) * c + ch
+                           for dy, dx in zip(dys, dxs)]
+                    want = np.stack([taps, np.asarray(src)], -1)
+                    idx = ((n * h + y) * w + x) * c + ch
+                    np.testing.assert_array_equal(got[idx], want)
+
+
+@pytest.mark.parametrize("tile", ["wide", "narrow"])
+@pytest.mark.parametrize("c", [1, 3])
+def test_kernel_shared_memory_fits(tile, c):
+    """Every instantiated k (odd, up to MAX_K) fits one block's shared
+    memory on both tiles; the taps and the halo start on 16 bytes."""
+    r, nwx = TILES[tile]
+    for k in range(1, KC["MAX_K"] + 1, 2):
+        g = _Geometry(r, nwx, c, k)
+        assert g.words * 4 <= SMEM_PER_BLOCK
+        assert g.taps % 4 == 0 and g.pitch % 2 == 1
+        # the staging rows fit beside the halo, at an odd pitch
+        assert g.stage_pitch % 2 == 1 and g.stage_pitch >= g.tw * c
+
+
+@pytest.mark.parametrize("shape,tile,blocks", [
+    ((32, 128, 128, 3), "wide", 512),   # the producer's HR canvas
+    ((32, 32, 32, 3), "narrow", 256),   # its LR canvas
+    ((5, 37, 53, 3), "narrow", 140),
+])
+def test_kernel_grid_follows_the_canvas(shape, tile, blocks):
+    """The wide tile where it gives at least two blocks per SM (132 on an
+    H100), else the narrow one, which spreads a small canvas over more
+    blocks."""
+    b, h, w, _ = shape
+    r, nwx = TILES["wide"]
+    wide = b * -(-h // KC["TH"]) * -(-w // (r * nwx))
+    picked = "wide" if wide >= 2 * 132 else "narrow"
+    assert picked == tile
+    r, nwx = TILES[picked]
+    assert b * -(-h // KC["TH"]) * -(-w // (r * nwx)) == blocks

@@ -3,8 +3,9 @@
 the CPU against the plain versions of ``trainner_tpu_torch/ops/rdb5c.py``
 (which ``test_torch_rdb5c.py`` and ``test_torch_rdb5c_bwd.py`` hold against
 the JAX package): the gather form of the forward, the dx stages' reading of
-the packed weights as they are, the dW tap formula, the shapes the wrappers
-refuse, and the constants the Python and the C side share. The kernels
+the packed weights as they are, the dW tap formula, the widths the wrappers
+take and which bf16 stages stream their weights, and the constants the
+Python and the C side share. The kernels
 themselves run only on the card, where ``chip_smoke.py`` holds them against
 the same plain versions.
 """
@@ -151,26 +152,35 @@ def test_backward_plain_packs_dw_as_the_kernel_writes_it():
 # ---------------------------------------------------------------------------
 # what the wrappers refuse, and the constants both sides share
 # ---------------------------------------------------------------------------
-@pytest.mark.parametrize("nf,gc,dtype,ok", [
-    (64, 32, torch.bfloat16, True),
-    (128, 32, torch.bfloat16, True),     # 256: the widest that fits
-    (64, 64, torch.bfloat16, False),     # 320
-    (128, 64, torch.bfloat16, False),
-    (64, 64, torch.float32, True),       # the f32 kernel has no such limit
+@pytest.mark.parametrize("nf,gc,dtype,streams", [
+    (64, 32, torch.bfloat16, False),
+    (128, 32, torch.bfloat16, False),    # 256: the widest stationary stage
+    (64, 64, torch.bfloat16, True),      # 320: conv5 and the first dx stage
+    (128, 64, torch.bfloat16, True),
+    (64, 64, torch.float32, True),       # the f32 stages always stream
     (128, 64, torch.float32, True),
 ])
-def test_bf16_kernel_width_limit(nf, gc, dtype, ok):
+def test_bf16_kernel_width_limit(nf, gc, dtype, streams):
+    """Every width is taken, in both types: a bf16 stage over more than
+    MAXCH chunks streams its weights through the ring instead of keeping
+    them beside it. The backward's column sums still need 4*gc + nf <=
+    1024."""
+    c = _header_constants()
     _, packed, bs = _block(nf, gc, dtype)
     x = torch.zeros(1, 4, 4, nf, dtype=dtype)
     cs = [torch.zeros(1, 4, 4, gc, dtype=dtype) for _ in range(4)]
-    if ok:
-        assert rdb5c._check(x, packed, bs) == (nf, gc)
-        assert rdb5c._check_backward(x, x, cs, packed) == (nf, gc)
-        return
-    for check, args in ((rdb5c._check, (x, packed, bs)),
-                        (rdb5c._check_backward, (x, x, cs, packed))):
-        with pytest.raises(ValueError, match=r"nf \+ 4\*gc <= 256"):
-            check(*args)
+    assert rdb5c._check(x, packed, bs) == (nf, gc)
+    assert rdb5c._check_backward(x, x, cs, packed) == (nf, gc)
+    # chunks of the forward stages [x|c1..ck] and of the dx stages' dy_k
+    chunks = [(nf + k * gc) // 32 for k in range(5)] + [
+        (4 * gc + nf - k * gc) // 32 for k in range(5)]
+    bf16_streams = any(n > c["MAXCH"] for n in chunks)
+    assert streams == (bf16_streams if dtype == torch.bfloat16 else True)
+    wide = torch.zeros(1, 4, 4, 512, dtype=dtype)
+    _, wide_packed, _ = _block(512, 160, dtype)
+    with pytest.raises(ValueError, match=r"4\*gc \+ nf <= 1024"):
+        rdb5c._check_backward(wide, wide, [wide[..., :160].contiguous()] * 4,
+                              wide_packed)
 
 
 def _header_constants():
@@ -183,13 +193,37 @@ def _header_constants():
 
 def test_width_limit_is_the_headers():
     c = _header_constants()
-    assert rdb5c._BF16_MAX_WIDTH == c["MAXCH"] * c["KC"]
-    # the widest stage's weights and the ring of halo tiles fit a block's
-    # 227 KB of shared memory on sm_90
+    # the stationary form takes stages up to 256 channels: the widest
+    # stage's weights and the ring of halo tiles fit a block's 227 KB of
+    # shared memory on sm_90, one chunk more would not
+    assert c["MAXCH"] * c["KC"] == 256
     assert c["MAXCH"] * c["W_BYTES"] + c["NSTAGE"] * c["A_BYTES"] <= 232448
+    assert (c["MAXCH"] + 1) * c["W_BYTES"] + c["NSTAGE"] * c["A_BYTES"] \
+        > 232448
+    # the streamed ring takes any width: a slot is one halo tile and one
+    # chunk's slab, whatever the number of chunks
+    assert c["STREAM_SLOT_BYTES"] == c["A_BYTES"] + c["W_BYTES"]
+    assert c["STREAM_NSTAGE"] * c["STREAM_SLOT_BYTES"] <= 232448
+    # every slot, and the slab inside it, starts on 16 bytes (cp.async,
+    # ldmatrix)
+    assert c["STREAM_SLOT_BYTES"] % 16 == 0 and c["A_BYTES"] % 16 == 0
     # eight neighbouring pixels at this pitch fall in eight bank groups
     assert sorted((i * c["PITCH"] % 128) // 16 for i in range(8)) \
         == list(range(8))
+
+
+@pytest.mark.parametrize("slot", range(3))
+def test_streamed_slab_is_free_of_bank_conflicts(slot):
+    """The slab of a streamed slot lies A_BYTES into the slot, not on 128
+    bytes: eight consecutive rows of one 16-byte group still fall in eight
+    bank groups, since one offset moves all eight alike."""
+    c = _header_constants()
+    start = slot * c["STREAM_SLOT_BYTES"] + c["A_BYTES"]
+    for row0 in (0, 8, 40, 287):
+        for q in range(4):
+            offs = [start + r * 64 + ((q ^ ((r >> 1) & 3)) << 4)
+                    for r in range(row0, row0 + 8)]
+            assert sorted((o % 128) // 16 for o in offs) == list(range(8))
 
 
 @pytest.mark.parametrize("row0", [0, 8, 40, 287])
@@ -235,6 +269,7 @@ def test_bf16_fma_instantiations_are_gone_from_the_build(source, gone):
     assert '#include "conv3x3_mma.cuh"' in text
     assert not (CSRC / "conv3x3_tile.cuh").exists()
     for kernel in (chip_smoke.BF16_BLOCK_KERNELS[source]
+                   + chip_smoke.BF16_STREAMED_KERNELS[source]
                    + chip_smoke.F32_BLOCK_KERNELS[source]):
         assert re.search(rf"\b{kernel}<<<", text), kernel
 

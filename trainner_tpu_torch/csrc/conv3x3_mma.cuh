@@ -39,11 +39,15 @@
 //     sub-tile), so both types read A the same way.
 //  2. Weights. bf16: a block keeps its 32-column slice of the stage's
 //     weights for all nine taps and all chunks in shared memory (18 KB per
-//     chunk, XOR-swizzled rows of 64 bytes; at most MAXCH chunks). f32: one
-//     chunk's slab is 36 KB, so the widest stage's would not fit beside a
-//     halo tile; each chunk's slab streams through the ring beside its halo
-//     tile instead (from L2, where it stays hot), which takes every width;
-//     its lo halves take one more slab beside the ring (203,904 bytes).
+//     chunk, XOR-swizzled rows of 64 bytes) where the stage has at most
+//     MAXCH chunks. A wider stage (nf + 4gc > 256: the last forward stage,
+//     the first dx stages) streams each chunk's slab through the ring
+//     beside its halo tile instead (STREAM: three 44,352-byte slots, the
+//     slab from L2, where it stays hot), which takes every width; the
+//     stationary form stays as it was where it fits. f32: one chunk's slab
+//     is 36 KB, so the widest stage's would not fit beside a halo tile; f32
+//     always streams, its lo halves in one more slab beside the ring
+//     (203,904 bytes).
 //     There is no 32-bit ldmatrix.trans, so f32 B fragments come by 32-bit
 //     loads from rows of 128 bytes whose 16-byte groups are XOR-swizzled so
 //     that a warp's 32 loads hit 32 banks, k-major rows for the forward and
@@ -52,9 +56,10 @@
 //     its own activation (pointer, pitch) and its own rows of the packed
 //     weights, so a forward stage reads [x|c1..ck] where they already lie
 //     and writes only its own columns.
-//  4. Overlap. Halo tiles (and the f32 slabs) come by 16-byte cp.async
+//  4. Overlap. Halo tiles (and the streamed slabs) come by 16-byte cp.async
 //     (source size 0 outside the image, which is the zero padding) into a
-//     ring: three bf16 halo tiles, or two f32 (halo tile, slab) pairs. One
+//     ring: three bf16 halo tiles, three bf16 (halo tile, slab) pairs, or
+//     two f32 pairs. One
 //     load is in flight while a chunk is multiplied, across tile borders.
 //  5. Grids. Persistent blocks walk over pixel tiles blockIdx.x,
 //     blockIdx.x + gridDim.x, ...; one launch takes min(tiles, blocks the
@@ -92,6 +97,8 @@ constexpr int A_BYTES = HPIX * PITCH;      // one halo tile of one chunk
 constexpr int W_BYTES = 9 * KC * BN * 2;   // one chunk's weights, nine taps
 constexpr int NSTAGE = 3;                  // halo tiles in the ring
 constexpr int MAXCH = 8;                   // chunks whose weights fit beside the ring
+constexpr int STREAM_SLOT_BYTES = A_BYTES + W_BYTES;  // streamed: halo tile + its slab
+constexpr int STREAM_NSTAGE = 3;           // slots in the streamed ring
 // f32
 constexpr int F32_PITCH = 144;             // bytes per tile pixel: 128 + 16 of padding
 constexpr int F32_A_BYTES = HPIX * F32_PITCH;
@@ -102,10 +109,14 @@ constexpr int F32_NSTAGE = 2;              // slots in the ring
 constexpr int F32_SMEM_BYTES = F32_NSTAGE * F32_SLOT_BYTES + F32_W_BYTES;
 constexpr int NSEG = 5;                    // activations a stage reads at most
 
+// Whether a bf16 stage over nchunks chunks streams its weights.
+constexpr bool bf16_streams(int nchunks) { return nchunks > MAXCH; }
+
 template <typename T>
 constexpr size_t conv_smem_bytes(int nchunks) {
-  return std::is_same<T, float>::value
-             ? (size_t)F32_SMEM_BYTES
+  return std::is_same<T, float>::value ? (size_t)F32_SMEM_BYTES
+         : bf16_streams(nchunks)
+             ? (size_t)STREAM_NSTAGE * STREAM_SLOT_BYTES
              : (size_t)nchunks * W_BYTES + (size_t)NSTAGE * A_BYTES;
 }
 
@@ -273,11 +284,13 @@ __device__ __forceinline__ FragCoords frag_coords() {
 // Dynamic shared memory: conv_smem_bytes<T>(args.nchunks). Block = THREADS
 // threads; blockIdx.x < args.ntiles starts the walk over pixel tiles,
 // blockIdx.y is the column slice. epi(acc, image, y0, x0) is called once
-// per tile with the finished sums.
-template <bool DX, typename T, typename Epilogue>
+// per tile with the finished sums. STREAM (bf16 only, where
+// bf16_streams(args.nchunks)): the weights ride through the ring.
+template <bool DX, bool STREAM, typename T, typename Epilogue>
 __device__ __forceinline__ void conv3x3_mma(const ConvArgs<T>& args,
                                             const Epilogue& epi) {
   constexpr bool F32 = std::is_same<T, float>::value;
+  static_assert(!(F32 && STREAM), "f32 always streams, in its own ring");
   // 16-byte pieces per pixel, 1 << PSH: shifts and masks keep the piece
   // arithmetic free of the sign fix-ups a signed / or % would add to
   // every cp.async
@@ -285,13 +298,13 @@ __device__ __forceinline__ void conv3x3_mma(const ConvArgs<T>& args,
   const int PPX = 1 << PSH;
   const int VPP = 16 / (int)sizeof(T);       // values per piece
   const int APITCH = F32 ? F32_PITCH : PITCH;
-  const int NST = F32 ? F32_NSTAGE : NSTAGE;
-  const int SLOT = F32 ? F32_SLOT_BYTES : A_BYTES;
+  const int NST = F32 ? F32_NSTAGE : STREAM ? STREAM_NSTAGE : NSTAGE;
+  const int SLOT = F32 ? F32_SLOT_BYTES : STREAM ? STREAM_SLOT_BYTES : A_BYTES;
   extern __shared__ __align__(128) unsigned char smem_mma[];
-  // bf16: the stage's weights, then the ring of halo tiles; f32: the ring,
-  // each slot a halo tile and its chunk's weights
+  // bf16: the stage's weights, then the ring of halo tiles; streamed bf16
+  // and f32: the ring, each slot a halo tile and its chunk's weights
   const uint32_t base = smem_u32(smem_mma);
-  const uint32_t ring = F32 ? base : base + args.nchunks * W_BYTES;
+  const uint32_t ring = F32 || STREAM ? base : base + args.nchunks * W_BYTES;
 
   const int tid = threadIdx.x;
   const int lane = tid & 31;
@@ -365,6 +378,8 @@ __device__ __forceinline__ void conv3x3_mma(const ConvArgs<T>& args,
                        q * 4;
           cp_async16(wbuf + swizzle128<DX>(t * KC + r, q), src, 16);
         }
+      } else if constexpr (STREAM) {  // this chunk's slab, every tile
+        load_w_slab<DX>(abuf + A_BYTES, wsrc, sg.w_tap, sg.w_pitch, n0);
       } else if (ld_item < nch) {  // first tile: this chunk's weights ride along
         load_w_slab<DX>(base + ld_item * W_BYTES, wsrc, sg.w_tap, sg.w_pitch,
                         n0);
@@ -472,7 +487,7 @@ __device__ __forceinline__ void conv3x3_mma(const ConvArgs<T>& args,
       // B, x4 number p: column group nt = 2p + (mi >> 1), k half mi & 1
       const int mi = lane >> 3;  // the 8x8 matrix of an x4 this lane addresses
       const int b_sw = (lane & 7) >> 1;  // bits 1-2 of every row it reads
-      const uint32_t wbuf = base + chunk * W_BYTES;
+      const uint32_t wbuf = STREAM ? slot + A_BYTES : base + chunk * W_BYTES;
 #pragma unroll
       for (int t = 0; t < 9; ++t) {
 #pragma unroll

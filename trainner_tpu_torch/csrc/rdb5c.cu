@@ -21,8 +21,8 @@
 // padding, so ragged and non-square h, w need nothing else.
 //
 // Five launches, one per conv, each a gather on the tile of conv3x3_mma.cuh
-// (rdb_stage_mma in bf16, rdb_stage_tf32 in f32; the working type alone
-// selects): stage k reads the chunks of [x|c1..ck] where they lie
+// (rdb_stage_mma in bf16, rdb_streamed_stage_mma for a bf16 stage over more
+// than 256 channels, rdb_stage_tf32 in f32): stage k reads the chunks of [x|c1..ck] where they lie
 // (K = 9*(nf + k*gc)) against the rows of the packed weights that belong to
 // conv k, and writes only c_{k+1} (or out). There is no f32 scratch in
 // device memory: a block moves 512 (bf16) or 1,024 (f32) bytes per pixel
@@ -83,14 +83,22 @@ struct FwdEpilogue {
 __global__ void __launch_bounds__(rdbm::THREADS, 2)
 rdb_stage_mma(const __grid_constant__ rdbm::ConvArgs<bf16> args,
               const FwdEpilogue<bf16> epi) {
-  rdbm::conv3x3_mma<false>(args, epi);
+  rdbm::conv3x3_mma<false, false>(args, epi);
+}
+
+// a bf16 stage over more than MAXCH chunks: one block per SM, the ring of
+// three (halo tile, slab) pairs
+__global__ void __launch_bounds__(rdbm::THREADS, 1)
+rdb_streamed_stage_mma(const __grid_constant__ rdbm::ConvArgs<bf16> args,
+                       const FwdEpilogue<bf16> epi) {
+  rdbm::conv3x3_mma<false, true>(args, epi);
 }
 
 // one block per SM: the ring of two f32 (halo tile, slab) pairs
 __global__ void __launch_bounds__(rdbm::THREADS, 1)
 rdb_stage_tf32(const __grid_constant__ rdbm::ConvArgs<float> args,
                const FwdEpilogue<float> epi) {
-  rdbm::conv3x3_mma<false>(args, epi);
+  rdbm::conv3x3_mma<false, false>(args, epi);
 }
 
 template <typename T>
@@ -102,15 +110,20 @@ int launch_all(const void* x_, const void* const* wts,
     if constexpr (F32) return rdb_stage_tf32;
     else return rdb_stage_mma;
   }();
-  if (!F32 && (nf + 4 * gc) / rdbm::KC > rdbm::MAXCH)
-    return (int)cudaErrorInvalidValue;
   static bool configured = false;
   static int per_sm[rdbm::MAXCH + 1] = {0};
+  static int per_sm_streamed[1] = {0};
   if (!configured) {
-    const cudaError_t e = cudaFuncSetAttribute(
+    cudaError_t e = cudaFuncSetAttribute(
         stage, cudaFuncAttributeMaxDynamicSharedMemorySize,
         (int)rdbm::conv_smem_bytes<T>(rdbm::MAXCH));
     if (e != cudaSuccess) return (int)e;
+    if (!F32) {
+      e = cudaFuncSetAttribute(
+          rdb_streamed_stage_mma, cudaFuncAttributeMaxDynamicSharedMemorySize,
+          (int)rdbm::conv_smem_bytes<T>(rdbm::MAXCH + 1));
+      if (e != cudaSuccess) return (int)e;
+    }
     configured = true;
   }
   const T* x = static_cast<const T*>(x_);
@@ -149,13 +162,24 @@ int launch_all(const void* x_, const void* const* wts,
     const int nslices = cout / rdbm::BN;
     const int key = F32 ? 0 : args.nchunks;
     const size_t smem = rdbm::conv_smem_bytes<T>(args.nchunks);
-    const dim3 grid((unsigned)rdbm::conv_grid_x(stage, per_sm, key, smem,
-                                                args.ntiles, nslices),
-                    (unsigned)nslices);
-    if constexpr (F32)
+    if constexpr (F32) {
+      const dim3 grid((unsigned)rdbm::conv_grid_x(stage, per_sm, key, smem,
+                                                  args.ntiles, nslices),
+                      (unsigned)nslices);
       rdb_stage_tf32<<<grid, rdbm::THREADS, smem, stream>>>(args, epi);
-    else
+    } else if (rdbm::bf16_streams(args.nchunks)) {
+      const dim3 grid(
+          (unsigned)rdbm::conv_grid_x(rdb_streamed_stage_mma, per_sm_streamed,
+                                      0, smem, args.ntiles, nslices),
+          (unsigned)nslices);
+      rdb_streamed_stage_mma<<<grid, rdbm::THREADS, smem, stream>>>(args,
+                                                                    epi);
+    } else {
+      const dim3 grid((unsigned)rdbm::conv_grid_x(stage, per_sm, key, smem,
+                                                  args.ntiles, nslices),
+                      (unsigned)nslices);
       rdb_stage_mma<<<grid, rdbm::THREADS, smem, stream>>>(args, epi);
+    }
     const cudaError_t e = cudaGetLastError();
     if (e != cudaSuccess) return (int)e;
   }
@@ -168,8 +192,7 @@ extern "C" {
 
 // dtype: 0 = float32, 1 = bfloat16. x, out: (b, h, w, nf) NHWC; c1..c4:
 // (b, h, w, gc); w0..w4: packed (9*cin, N) in the working type; b0..b4:
-// f32. nf and gc are multiples of 32; bf16 needs nf + 4gc <= 256. Returns
-// the first CUDA error, else 0.
+// f32. nf and gc are multiples of 32. Returns the first CUDA error, else 0.
 int rdb5c_forward(int dtype, const void* x,
                   const void* w0, const void* w1, const void* w2,
                   const void* w3, const void* w4,

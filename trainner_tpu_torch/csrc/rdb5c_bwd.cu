@@ -26,7 +26,8 @@
 //  * A dx stage is a zero-padded 3x3 correlation of dy_k with the
 //    tap-flipped, transposed weight V_k[t'] = W_k[8-t']^T: the tile of
 //    conv3x3_mma.cuh with DX set (rdb_dx_stage_mma in bf16,
-//    rdb_dx_stage_tf32 in f32) and its own epilogue (lrelu' from the sign
+//    rdb_dx_streamed_stage_mma for a bf16 stage over more than 256 columns
+//    of dy, rdb_dx_stage_tf32 in f32) and its own epilogue (lrelu' from the sign
 //    of c_k, or + g for dx). It reads V_k straight from the packed W_k (the
 //    rows of a tap's [cin][N] slab are already "output column major" for
 //    the transposed product), so no V table is built.
@@ -209,14 +210,22 @@ struct DxEpilogue {
 __global__ void __launch_bounds__(rdbm::THREADS, 2)
 rdb_dx_stage_mma(const __grid_constant__ rdbm::ConvArgs<bf16> args,
                  const DxEpilogue<bf16> epi) {
-  rdbm::conv3x3_mma<true>(args, epi);
+  rdbm::conv3x3_mma<true, false>(args, epi);
+}
+
+// a bf16 dx stage over more than MAXCH chunks of dy: one block per SM, the
+// ring of three (halo tile, slab) pairs
+__global__ void __launch_bounds__(rdbm::THREADS, 1)
+rdb_dx_streamed_stage_mma(const __grid_constant__ rdbm::ConvArgs<bf16> args,
+                          const DxEpilogue<bf16> epi) {
+  rdbm::conv3x3_mma<true, true>(args, epi);
 }
 
 // one block per SM: the ring of two f32 (halo tile, slab) pairs
 __global__ void __launch_bounds__(rdbm::THREADS, 1)
 rdb_dx_stage_tf32(const __grid_constant__ rdbm::ConvArgs<float> args,
                   const DxEpilogue<float> epi) {
-  rdbm::conv3x3_mma<true>(args, epi);
+  rdbm::conv3x3_mma<true, false>(args, epi);
 }
 
 // ---------------------------------------------------------------------------
@@ -594,15 +603,20 @@ int launch_bwd(const void* g_, const void* x_, void* const* cs,
     else return dw_mma_kernel;
   }();
   const size_t dw_smem = F32 ? DWT_SMEM_BYTES : DWM_SMEM_BYTES;
-  if (!F32 && (nf + 4 * gc) / rdbm::KC > rdbm::MAXCH)
-    return (int)cudaErrorInvalidValue;
   static bool configured = false;
   static int per_sm[rdbm::MAXCH + 1] = {0};
+  static int per_sm_streamed[1] = {0};
   if (!configured) {
     cudaError_t e = cudaFuncSetAttribute(
         dx_stage, cudaFuncAttributeMaxDynamicSharedMemorySize,
         (int)rdbm::conv_smem_bytes<T>(rdbm::MAXCH));
     if (e != cudaSuccess) return (int)e;
+    if (!F32) {
+      e = cudaFuncSetAttribute(rdb_dx_streamed_stage_mma,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)rdbm::conv_smem_bytes<T>(rdbm::MAXCH + 1));
+      if (e != cudaSuccess) return (int)e;
+    }
     e = cudaFuncSetAttribute(
         dw_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)dw_smem);
     if (e != cudaSuccess) return (int)e;
@@ -658,14 +672,25 @@ int launch_bwd(const void* g_, const void* x_, void* const* cs,
     epi.w = w;
     const int nslices = ncols / rdbm::BN;
     const size_t smem = rdbm::conv_smem_bytes<T>(args.nchunks);
-    const dim3 grid((unsigned)rdbm::conv_grid_x(dx_stage, per_sm,
-                                                F32 ? 0 : args.nchunks, smem,
-                                                args.ntiles, nslices),
-                    (unsigned)nslices);
-    if constexpr (F32)
+    if constexpr (F32) {
+      const dim3 grid((unsigned)rdbm::conv_grid_x(dx_stage, per_sm, 0, smem,
+                                                  args.ntiles, nslices),
+                      (unsigned)nslices);
       rdb_dx_stage_tf32<<<grid, rdbm::THREADS, smem, stream>>>(args, epi);
-    else
+    } else if (rdbm::bf16_streams(args.nchunks)) {
+      const dim3 grid((unsigned)rdbm::conv_grid_x(rdb_dx_streamed_stage_mma,
+                                                  per_sm_streamed, 0, smem,
+                                                  args.ntiles, nslices),
+                      (unsigned)nslices);
+      rdb_dx_streamed_stage_mma<<<grid, rdbm::THREADS, smem, stream>>>(args,
+                                                                       epi);
+    } else {
+      const dim3 grid((unsigned)rdbm::conv_grid_x(dx_stage, per_sm,
+                                                  args.nchunks, smem,
+                                                  args.ntiles, nslices),
+                      (unsigned)nslices);
       rdb_dx_stage_mma<<<grid, rdbm::THREADS, smem, stream>>>(args, epi);
+    }
     RDB_CHECK_LAUNCH();
   }
 
@@ -705,7 +730,7 @@ extern "C" {
 // rdb5c_backward_dw_splits returns for the same call.
 // Outputs: dx in the working type; dw: the five packed dW one after the
 // other, f32; db: [db1|db2|db3|db4|db5], f32. nf and gc are multiples of
-// 32, 4gc+nf <= 1024 (bf16: <= 256). Returns the first CUDA error, else 0.
+// 32, 4gc+nf <= 1024. Returns the first CUDA error, else 0.
 int rdb5c_backward(int dtype, const void* g, const void* x,
                    void* c1, void* c2, void* c3, void* c4,
                    const void* w0, const void* w1, const void* w2,

@@ -25,7 +25,7 @@ from torch import nn
 from ..ops.blocks import (ConvBlock, GaussianNoise, PixelShuffleBlock,
                           UpconvBlock, _Conv, finalact)
 from ..ops import rdb5c
-from ..ops.rdb5c import pack_rdb_weights
+from ..ops.rdb5c import pack_block
 
 
 class ResidualDenseBlock5C(nn.Module):
@@ -33,7 +33,10 @@ class ResidualDenseBlock5C(nn.Module):
 
     The packed stage weights are built once per (dtype, device) and again
     only after the conv weights change (a load_state_dict, an optimizer
-    step), tracked by the parameters' version counters."""
+    step), tracked by the parameters' version counters. They are packed at
+    the kernels' widths (nf and gc padded with zeros to multiples of 32,
+    ``ops.rdb5c.pack_block``), so a narrow block pads only its activations
+    per call."""
 
     def __init__(self, nf: int = 64, gc: int = 32,
                  gaussian_noise: bool = False):
@@ -50,7 +53,8 @@ class ResidualDenseBlock5C(nn.Module):
         return [getattr(self, f"conv{k}") for k in range(1, 6)]
 
     def packed(self, dtype: torch.dtype):
-        """(packed weights in ``dtype``, f32 biases) for the kernel."""
+        """(packed weights in ``dtype``, f32 biases) for the kernel, at its
+        widths."""
         params = [p for c in self.convs() for p in (c.weight, c.bias)]
         # tensors made under inference_mode cannot be saved for backward,
         # so the two modes keep separate entries
@@ -60,10 +64,9 @@ class ResidualDenseBlock5C(nn.Module):
         hit = self._packed.get(key)
         if hit is None or hit[0] != stamp:
             with torch.no_grad():
-                ws = pack_rdb_weights([c.weight for c in self.convs()],
-                                      self.nf, self.gc, dtype)
-                bs = tuple(c.bias.detach().float().contiguous()
-                           for c in self.convs())
+                ws, bs = pack_block([c.weight for c in self.convs()],
+                                    [c.bias for c in self.convs()],
+                                    self.nf, self.gc, dtype)
             hit = (stamp, ws, bs)
             self._packed[key] = hit
         return hit[1], hit[2]

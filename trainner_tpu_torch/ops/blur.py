@@ -11,7 +11,9 @@ FFT product for k >= 13 that flips the kernel; this does not).
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
+import functools
 
 import torch
 import torch.nn.functional as F
@@ -80,6 +82,12 @@ def _library():
     return lib
 
 
+@functools.lru_cache(maxsize=None)
+def _smem_bytes(c: int, k: int) -> int:
+    """Shared memory per block of the kernel's smallest tile at (c, k)."""
+    return _library().blur_per_sample_smem_bytes(c, k)
+
+
 def blur_per_sample(x: torch.Tensor, kernels: torch.Tensor) -> torch.Tensor:
     """Per-sample blur. On a CUDA tensor it launches the CUDA kernel (or
     raises); on a CPU tensor it runs ``blur_per_sample_plain``."""
@@ -94,13 +102,17 @@ def blur_per_sample(x: torch.Tensor, kernels: torch.Tensor) -> torch.Tensor:
     x = x.contiguous()
     taps = kernels.float().contiguous()
     lib = _library()
-    need = lib.blur_per_sample_smem_bytes(c, k)
+    need = _smem_bytes(c, k)
     if need > _MAX_SMEM:
         raise ValueError(f"c={c}, k={k} need {need} bytes of shared memory "
                          f"per block, over the card's {_MAX_SMEM}")
     out = torch.empty_like(x)
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    with torch.cuda.device(x.device):
+    # the C side sizes its grid and shared memory on the current device
+    here = (contextlib.nullcontext()
+            if x.device.index == torch.cuda.current_device()
+            else torch.cuda.device(x.device))
+    with here:
         err = lib.blur_per_sample(_DTYPES[x.dtype], x.data_ptr(),
                                   taps.data_ptr(), out.data_ptr(),
                                   b, h, w, c, k, stream)

@@ -28,6 +28,18 @@ x ``(b, h, w, nf)``, c1..c4 ``(b, h, w, gc)``. Packed weights are
 ``(9*cin, N)``, tap-major (HWIO reshaped), in the working type; biases are
 f32. Sums are taken in f32; c1..c4 and out, and in the backward dc5,
 da1..da4 and dx, are rounded to the working type once.
+
+Every width runs, on both devices by one route. The kernels take nf and gc
+in multiples of 32 (a channel chunk); ``rdb5c_forward`` and
+``rdb5c_backward`` bring a narrower block to the next multiples (nf', gc')
+with zeros: zero input rows after nf and after each gc slice of
+``[x|c1..c4]``, zero output columns per conv and zero biases
+(``pad_packed``), and zero channels of x and g. A padded output channel has
+zero weights and a zero bias, so lrelu(0) = 0 keeps it 0; a padded input
+channel carries 0; every padded dW and db entry is a sum of products with a
+zero factor. So the padded block computes the narrow one exactly, with
+extra zeros. The residuals c1..c4 stay at gc'; out and dx come back at nf.
+``pack_block`` packs and pads once, which is what ``models/rrdb.py`` caches.
 """
 
 from __future__ import annotations
@@ -47,9 +59,9 @@ backward_launches = 0
 _SOURCE = "rdb5c.cu"
 _BWD_SOURCE = "rdb5c_bwd.cu"
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-# The bf16 kernels keep a stage's weights for 32 columns in shared memory:
-# (nf + 4*gc) / 32 chunks of 18 KB beside the ring of halo tiles.
-_BF16_MAX_WIDTH = 256
+_CHUNK = 32  # channels per chunk of the kernels: nf and gc are multiples
+# The backward's column sums take one thread per column of [da1..da4|dc5].
+_MAX_BWD_WIDTH = 1024
 
 
 def _alloc(shape, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
@@ -76,6 +88,75 @@ def pack_rdb_weights(ws: Sequence[torch.Tensor], nf: int, gc: int,
         packs.append(cat([sl(w, a, a + gc) for w in h[s:]]))
     return tuple(p.reshape(9 * p.shape[2], p.shape[3]).to(dtype).contiguous()
                  for p in packs)
+
+
+def padded_width(n: int) -> int:
+    """The kernels' width for n channels: the next multiple of 32."""
+    return -(-n // _CHUNK) * _CHUNK
+
+
+def _pad_last(t: torch.Tensor, n: int) -> torch.Tensor:
+    """t with zeros appended to its last axis up to n (t itself if it is
+    that wide)."""
+    return t if t.shape[-1] == n else F.pad(t, (0, n - t.shape[-1]))
+
+
+def _pack_widths(packed_w: Sequence[torch.Tensor]) -> Tuple[int, int]:
+    """(nf, gc) of a packed block, from its first two weights' rows."""
+    return packed_w[0].shape[0] // 9, packed_w[1].shape[0] // 9
+
+
+def pad_packed(packed_w: Sequence[torch.Tensor],
+               biases: Sequence[torch.Tensor] = ()):
+    """A packed block (and, if given, its biases) at (nf, gc) -> the same
+    block at (nf', gc') = ``padded_width`` of each, with zeros inserted:
+    stage s's rows are one feature (x, or c_s), so its tap slabs grow zero
+    rows at their end; its columns are the later convs' outputs, each slice
+    growing zero columns at its end. Returns (packed, biases), the inputs
+    themselves where nothing is to be padded."""
+    nf, gc = _pack_widths(packed_w)
+    nfp, gcp = padded_width(nf), padded_width(gc)
+    if (nfp, gcp) != (nf, gc):
+        ws = []
+        for s, p in enumerate(packed_w):
+            cin, cinp = (nf, nfp) if s == 0 else (gc, gcp)
+            segs = p.reshape(9, cin, -1).split([gc] * (4 - s) + [nf], -1)
+            t = torch.cat([_pad_last(q, gcp if i < 4 - s else nfp)
+                           for i, q in enumerate(segs)], -1)
+            t = F.pad(t, (0, 0, 0, cinp - cin))
+            ws.append(t.reshape(9 * cinp, t.shape[-1]).contiguous())
+        packed_w = ws
+    biases = [_pad_last(b, gcp if s < 4 else nfp)
+              for s, b in enumerate(biases)]
+    return tuple(packed_w), tuple(biases)
+
+
+def unpad_grads(dws: Sequence[torch.Tensor], dbs: Sequence[torch.Tensor],
+                nf: int, gc: int):
+    """The inverse of ``pad_packed`` on packed weight gradients and bias
+    gradients at (nf', gc'): the rows and columns of the block at (nf, gc).
+    Returns (dws, dbs), the inputs themselves at the kernels' widths."""
+    nfp, gcp = padded_width(nf), padded_width(gc)
+    if (nfp, gcp) == (nf, gc):
+        return tuple(dws), tuple(dbs)
+    out = []
+    for s, d in enumerate(dws):
+        cin, cinp = (nf, nfp) if s == 0 else (gc, gcp)
+        segs = d.reshape(9, cinp, -1)[:, :cin].split(
+            [gcp] * (4 - s) + [nfp], -1)
+        t = torch.cat([q[..., :gc if i < 4 - s else nf]
+                       for i, q in enumerate(segs)], -1)
+        out.append(t.reshape(9 * cin, t.shape[-1]))
+    return tuple(out), tuple(b[:gc if s < 4 else nf]
+                             for s, b in enumerate(dbs))
+
+
+def pack_block(ws: Sequence[torch.Tensor], bs: Sequence[torch.Tensor],
+               nf: int, gc: int, dtype: torch.dtype):
+    """Five OIHW conv weights and biases of a block -> (packed weights in
+    ``dtype``, f32 biases), both at the kernels' widths (nf', gc')."""
+    packed = pack_rdb_weights(ws, nf, gc, dtype)
+    return pad_packed(packed, [b.detach().float().contiguous() for b in bs])
 
 
 def _unpack9(p: torch.Tensor) -> torch.Tensor:
@@ -131,10 +212,6 @@ def _check_packed(x, packed_w):
     if x.shape[0] * x.shape[1] * x.shape[2] >= 2 ** 31:
         raise ValueError("the kernel indexes pixels with 32 bits: "
                          f"b*h*w = {x.shape[0] * x.shape[1] * x.shape[2]}")
-    if x.dtype == torch.bfloat16 and nf + 4 * gc > _BF16_MAX_WIDTH:
-        raise ValueError(f"the bf16 kernel needs nf + 4*gc <= "
-                         f"{_BF16_MAX_WIDTH} (its weights stay in shared "
-                         f"memory), got nf={nf}, gc={gc}")
     for s, p in enumerate(packed_w):
         cin = nf if s == 0 else gc
         n = 4 * gc + nf - s * gc
@@ -190,17 +267,41 @@ def _library():
     return lib
 
 
+def _padded_x(x: torch.Tensor, packed_w: Sequence[torch.Tensor]):
+    """x with zero channels up to the padded pack's nf'."""
+    nfp = packed_w[0].shape[0] // 9
+    if padded_width(x.shape[-1]) != nfp:
+        raise ValueError(f"x has {x.shape[-1]} channels, the block "
+                         f"{_pack_widths(packed_w)[0]}")
+    return _pad_last(x, nfp)
+
+
 def rdb5c_forward(x: torch.Tensor, packed_w: Sequence[torch.Tensor],
                   biases: Sequence[torch.Tensor],
                   return_residuals: bool = False):
-    """One block forward. On a CUDA tensor it launches the CUDA kernel (or
-    raises); on a CPU tensor it runs ``rdb5c_forward_plain``. Returns out,
-    or (out, c1, c2, c3, c4) with ``return_residuals``."""
-    global launches
-    if x.device.type == "cpu":
-        return rdb5c_forward_plain(x, packed_w, biases, return_residuals)
-    if x.device.type != "cuda":
+    """One block forward at any width: a block that is not at the kernels'
+    widths is padded to them (``pad_packed``, zero channels of x). On a
+    CUDA tensor it then launches the CUDA kernel (or raises); on a CPU
+    tensor it runs ``rdb5c_forward_plain``. Returns out (x's width), or
+    (out, c1, c2, c3, c4) with ``return_residuals``, c_k at gc'."""
+    if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"rdb5c_forward runs on cuda or cpu, not {x.device}")
+    nf = x.shape[-1]
+    packed_w, biases = pad_packed(packed_w, biases)
+    xp = _padded_x(x, packed_w)
+    if x.device.type == "cpu":
+        res = rdb5c_forward_plain(xp, packed_w, biases, return_residuals)
+    else:
+        res = _forward_kernel(xp, packed_w, biases, return_residuals)
+    if xp is x:
+        return res
+    if not return_residuals:
+        return res[..., :nf].contiguous()
+    return (res[0][..., :nf].contiguous(), *res[1:])
+
+
+def _forward_kernel(x, packed_w, biases, return_residuals):
+    global launches
     nf, gc = _check(x, packed_w, biases)
     b, h, w, _ = x.shape
     lib = _library()
@@ -281,8 +382,8 @@ def _check_backward(g, x, cs, packed_w):
                              f"shape {(*x.shape[:3], c)}")
         if t.dtype != x.dtype or t.device != x.device:
             raise TypeError(f"{name} must have x's dtype and device")
-    if 4 * gc + nf > 1024:
-        raise ValueError("the kernel needs 4*gc + nf <= 1024")
+    if 4 * gc + nf > _MAX_BWD_WIDTH:
+        raise ValueError(f"the kernel needs 4*gc + nf <= {_MAX_BWD_WIDTH}")
     return nf, gc
 
 
@@ -317,15 +418,32 @@ def rdb5c_backward(g: torch.Tensor, x: torch.Tensor, c1: torch.Tensor,
                    c2: torch.Tensor, c3: torch.Tensor, c4: torch.Tensor,
                    packed_w: Sequence[torch.Tensor]):
     """One block backward from ``g = d out``, the forward's residuals and
-    the packed weights. On a CUDA tensor it launches the CUDA kernel (or
-    raises); on a CPU tensor it runs ``rdb5c_backward_plain``. Returns
+    the packed weights, at any width: g, x and c1..c4 are padded with zero
+    channels to the kernels' widths as the pack is (``pad_packed``). On a
+    CUDA tensor it then launches the CUDA kernel (or raises); on a CPU
+    tensor it runs ``rdb5c_backward_plain``. dx comes back at x's width,
+    dW and db at the widths of the pack given. Returns
     (dx, dW0..dW4 packed f32, db1..db5 f32)."""
-    global backward_launches
-    if x.device.type == "cpu":
-        return rdb5c_backward_plain(g, x, c1, c2, c3, c4, packed_w)
-    if x.device.type != "cuda":
+    if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"rdb5c_backward runs on cuda or cpu, not {x.device}")
-    cs = (c1, c2, c3, c4)
+    nf = x.shape[-1]
+    widths = _pack_widths(packed_w)
+    packed_p, _ = pad_packed(packed_w)
+    gcp = packed_p[1].shape[0] // 9
+    xp, gp = _padded_x(x, packed_p), _padded_x(g, packed_p)
+    cs = [_pad_last(c, gcp) for c in (c1, c2, c3, c4)]
+    if x.device.type == "cpu":
+        dx, *rest = rdb5c_backward_plain(gp, xp, *cs, packed_p)
+    else:
+        dx, *rest = _backward_kernel(gp, xp, cs, packed_p)
+    if xp is not x:
+        dx = dx[..., :nf].contiguous()
+    dws, dbs = unpad_grads(rest[:5], rest[5:], *widths)
+    return (dx, *dws, *dbs)
+
+
+def _backward_kernel(g, x, cs, packed_w):
+    global backward_launches
     nf, gc = _check_backward(g, x, cs, packed_w)
     b, h, w, _ = x.shape
     gw = 4 * gc + nf
@@ -367,8 +485,10 @@ class RDB5CFunction(torch.autograd.Function):
     ``apply(x, packer, w1, b1, ..., w5, b5)``: x is NHWC in the working
     type, the ten conv parameters are f32 OIHW weights and biases.
     ``packer(dtype)`` returns the (cached) packed weights and f32 biases of
-    those parameters; with ``None`` they are packed here. Returns out in
-    NHWC; the parameters' gradients are f32."""
+    those parameters, at the kernels' widths (``pack_block``); with
+    ``None`` they are packed here. Returns out in NHWC; the parameters'
+    gradients are f32, at their own widths. The residuals kept for the
+    backward are at gc'."""
 
     @staticmethod
     def forward(ctx, x, packer, *params):
@@ -376,8 +496,8 @@ class RDB5CFunction(torch.autograd.Function):
         gc = params[0].shape[0]
         with torch.no_grad():
             if packer is None:
-                ws = pack_rdb_weights(params[0::2], nf, gc, x.dtype)
-                bs = tuple(b.float().contiguous() for b in params[1::2])
+                ws, bs = pack_block(params[0::2], params[1::2], nf, gc,
+                                    x.dtype)
             else:
                 ws, bs = packer(x.dtype)
             x = x.contiguous()
@@ -394,6 +514,7 @@ class RDB5CFunction(torch.autograd.Function):
         # g arrives as a permuted view, possibly in another type
         g = g.to(x.dtype).contiguous()
         dx, *rest = rdb5c_backward(g, x, c1, c2, c3, c4, ws)
-        dws = unpack_rdb_wgrads(rest[:5], nf, gc)
-        param_grads = [t for pair in zip(dws, rest[5:]) for t in pair]
+        dws, dbs = unpad_grads(rest[:5], rest[5:], nf, gc)
+        dws = unpack_rdb_wgrads(dws, nf, gc)
+        param_grads = [t for pair in zip(dws, dbs) for t in pair]
         return (dx, None, *param_grads)
