@@ -24,7 +24,8 @@ non-zero exit code and no result line:
    48 / gc 16, which the wrappers pad to multiples of 32 and which are held
    to the unpadded plain versions; nf 64 and 128 with gc 64, whose widest
    bf16 stages stream their weights); the per-sample blur at the producer's
-   two shapes (the HR and the LR canvas, k 21), at k 3 and 7 on the HR
+   two shapes (the HR and the LR canvas, k 21) and at the shuffled
+   program's two q-slices, at k 3 and 7 on the HR
    canvas, at ragged shapes with asymmetric kernels, k/2 close to h and a k
    past the instantiated ones, and an identity kernel bit for bit;
 4. serving slice: ``python -m trainner_tpu_torch.test`` at the full width
@@ -46,8 +47,24 @@ non-zero exit code and no result line:
    ``make_otf_degradation`` (the fixed-order bsrgan pipeline on the card,
    two blur launches per batch) -> ``train_step`` in bf16; its it/s beside
    the compute-only it/s of the same call, the degrader's and the loader's
-   time per batch, and a traced end-to-end step;
-8. times: CUDA-event times of each kernel, its plain version, its bound
+   time per batch, and a traced end-to-end step; then the same path with
+   the per-sample shuffle of the stages (24 blur launches per batch);
+8. shuffle: the routed and the candidate-select programs of the
+   per-sample shuffle on stand-in stages, the card's output against the
+   CPU's bit for bit on one plan; then the bsrgan stages at b=32, 128 px in
+   the fixed order and shuffled: ms per batch, device busy and launches
+   (profiler), and the blur kernel's launches and shapes per batch (the
+   q-slices (6, 128, 128, 3) and (6, 32, 32, 3), at which phase 3 holds the
+   kernel against its plain version too);
+9. cli: ``options/sr/train_sr.yml`` at its full width through
+   ``trainner_tpu_torch.train.main`` (the corpus as its train set, a
+   validation set of 4 corpus images and their x4 LR, 12 iterations,
+   checkpoints and validation at 6 and 12): launches per step and per
+   batch, the artifacts, the JSONL scalars, the steady it/s, the save and
+   validation times; then a second ``main`` that resumes from
+   ``training_state/`` to 16, whose loaded state equals the saved one bit
+   for bit;
+10. times: CUDA-event times of each kernel, its plain version, its bound
    and a library call as a yardstick (the cuDNN five-conv chain; reflect
    padding and a grouped cuDNN convolution for the blur), the device-alone
    time of the block kernels and the blur from the profiler, the block at
@@ -56,8 +73,8 @@ non-zero exit code and no result line:
    bound is three tf32 products per f32 product at the tensor cores' tf32
    rate, printed beside the bound of the same work on the CUDA cores. With
    ``--parent DIR``, the blur kernel of the tree in DIR is timed beside
-   this one's in turns;
-9. trace: one f32 G forward at b=8 and one train step in bf16 and in f32
+   this one's in turns; the blur also at the shuffled program's q-slices;
+11. trace: one f32 G forward at b=8 and one train step in bf16 and in f32
    under ``torch.profiler``: device time by kernel and the device's idle
    share.
 
@@ -67,8 +84,8 @@ The second-to-last lines are a JSON summary of the kernels and the card's
 
 Usage: python3 chip_smoke.py [--parent DIR]
        python3 chip_smoke.py --kernels-only [--parent DIR]   (phases 1-3
-           and the kernels' part of 8: a short run while a kernel is worked
-           on; it prints no result line)
+           and the kernels' part of 10: a short run while a kernel is
+           worked on; it prints no result line)
 """
 
 from __future__ import annotations
@@ -94,6 +111,11 @@ RAGGED_B1_SHAPE = (1, 21, 45)  # one image, no multiple of the 16x16 tile
 BLUR_HR = (32, 128, 128, 3)  # the HR canvas of the producer's first blur
 BLUR_LR = (32, 32, 32, 3)    # the LR canvas of its second blur
 BLUR_K = 21
+# the q-slices of the shuffled program at b = 32: k = 6 symbols (bsrgan's
+# five shuffled stages and the resize), npad 36, q 6
+BLUR_Q_HR = (6, 128, 128, 3)
+BLUR_Q_LR = (6, 32, 32, 3)
+SHUFFLE_K = 6
 # the widths the block runs at besides (64, 32): narrow ones the wrappers
 # pad to multiples of 32, and bf16 stages over 256 channels, which stream
 # their weights
@@ -102,6 +124,9 @@ OPTIONS_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                            "options", "sr")
 DEBUG_TEST_YML = os.path.join(OPTIONS_DIR, "test_sr_debug.yml")
 DEBUG_TRAIN_YML = os.path.join(OPTIONS_DIR, "train_sr_debug.yml")
+TRAIN_YML = os.path.join(OPTIONS_DIR, "train_sr.yml")
+N_VAL = 4
+CLI_NITER, CLI_FREQ, CLI_RESUME_NITER = 12, 6, 16
 # How one tf32 mma.sync.m16n8k8 adds on the card, as phase_tf32_mma reads
 # it (mma_tf32_sum): the eight products, exact, and the running sum are
 # aligned to the largest exponent among them, a product's exponent being
@@ -507,7 +532,8 @@ def phase_blur_kernel(smi: str) -> float:
 
     gen = torch.Generator().manual_seed(5)
     main_err = None
-    for shape, k in ((BLUR_HR, BLUR_K), (BLUR_LR, BLUR_K), (BLUR_HR, 3),
+    for shape, k in ((BLUR_HR, BLUR_K), (BLUR_LR, BLUR_K),
+                     (BLUR_Q_HR, BLUR_K), (BLUR_Q_LR, BLUR_K), (BLUR_HR, 3),
                      (BLUR_HR, 7), ((5, 37, 53, 3), 7), ((5, 37, 53, 3), 21),
                      ((5, 37, 53, 1), 21), ((2, 11, 70, 3), 21),
                      ((3, 40, 9, 3), 17), ((2, 30, 30, 3), 25)):
@@ -658,46 +684,13 @@ def phase_g_compare(smi: str, root: str) -> None:
             raise AssertionError(f"full G {dt}: {err} > {rel_tol * scale}")
 
 
-def _yml_scalar(text: str):
-    text = text.strip()
-    if text.startswith("[") and text.endswith("]"):
-        return [_yml_scalar(t) for t in text[1:-1].split(",") if t.strip()]
-    lower = text.lower()
-    if lower in ("true", "false"):
-        return lower == "true"
-    if lower in ("null", "~", ""):
-        return None
-    for cast in (int, float):
-        try:
-            return cast(text)
-        except ValueError:
-            pass
-    return text.strip("\"'")
-
-
 def read_options_yml(path: str) -> dict:
-    """The YAML of the repo's options files without PyYAML (which the card's
-    machine lacks): nested maps by indentation, scalars, ``[a, b]`` lists
-    and ``#`` comments; numbers like ``1e-4`` are floats, as the port's
-    ``options.read_yaml`` reads them."""
-    root: dict = {}
-    stack = [(-1, root)]
-    with open(path) as f:
-        for raw in f:
-            line = raw.split("#")[0].rstrip()
-            if not line.strip():
-                continue
-            indent = len(line) - len(line.lstrip())
-            key, _, value = line.strip().partition(":")
-            while indent <= stack[-1][0]:
-                stack.pop()
-            parent = stack[-1][1]
-            if value.strip():
-                parent[key] = _yml_scalar(value)
-            else:
-                parent[key] = {}
-                stack.append((indent, parent[key]))
-    return root
+    """An options YAML, read by the port's own reader
+    (``options/config.py::read_yaml``), which needs no PyYAML (the card's
+    machine has none)."""
+    from trainner_tpu_torch.options.config import read_yaml
+
+    return read_yaml(path)
 
 
 def phase_debug_configs(smi: str, root: str) -> None:
@@ -987,16 +980,17 @@ def _write_corpus(root: str, n: int = N_CORPUS, px: int = CORPUS_PX,
         save_img(arr, os.path.join(root, f"{i:04d}.png"))
 
 
-def _e2e_options(root: str) -> dict:
+def _e2e_options(root: str, shuffle: bool = False) -> dict:
     """The end-to-end training configuration: the flagship GAN step fed
     by the aligned train dataset under the bsrgan blind-SR degradations in
-    their fixed order, uint8 on the wire."""
+    their fixed order (``shuffle``: in an order drawn per sample), uint8 on
+    the wire."""
     return {**_train_options(), "model": "sr", "datasets": {"train": {
         "name": "smoke", "mode": "aligned", "dataroot_HR": root,
         "crop_size": TRAIN_SHAPE[1] * 4, "batch_size": TRAIN_SHAPE[0],
         "use_flip": True, "use_rot": True, "augs_strategy": "bsrgan",
         "resize_strat": "in", "n_workers": 4, "wire_dtype": "uint8",
-        "shuffle_degradations": False}}}
+        "shuffle_degradations": shuffle}}}
 
 
 def phase_producer(smi: str, root: str) -> dict:
@@ -1085,6 +1079,44 @@ def phase_producer(smi: str, root: str) -> dict:
     if not all(math.isfinite(v) for v in vals.values()):
         raise AssertionError(f"logs {vals}")
 
+    # the same path with the stage order drawn per sample (the routed
+    # program: blur and blur2 once per slot and pass, on q-slices)
+    degrade_fixed = degrade
+    degrade = make_otf_degradation(
+        parse_dict(_e2e_options(corpus, shuffle=True), is_train=True),
+        generator=gen)
+    for _ in range(2):
+        e2e_step()
+    blur.launches = rdb5c.launches = rdb5c.backward_launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n_timed):
+        batch, logs = e2e_step()
+    torch.cuda.synchronize()
+    e2e_sh_ms = (time.perf_counter() - t0) / n_timed * 1e3
+    counts["shuffled"] = dict(blur=blur.launches, forward=rdb5c.launches,
+                              backward=rdb5c.backward_launches)
+    per_batch = 2 * 2 * SHUFFLE_K
+    print(f"producer: {n_timed} shuffled end-to-end steps: launches "
+          f"{counts['shuffled']}")
+    if counts["shuffled"] != dict(blur=per_batch * n_timed,
+                                  forward=per_g * n_timed,
+                                  backward=per_g * n_timed):
+        raise AssertionError(
+            f"shuffled launches {counts['shuffled']}: expected {per_batch} "
+            f"blur launches per batch and {per_g} + {per_g} block launches "
+            f"per G update x {n_timed}")
+    lr = batch["LR"]
+    if tuple(lr.shape) != (b, lr_px, lr_px, 3) or not all(
+            math.isfinite(float(v)) for v in logs.values()):
+        raise AssertionError(f"shuffled e2e: LR {tuple(lr.shape)}, logs "
+                             f"{logs}")
+    print(f"times: train_e2e bfloat16 b={b} {lr_px}->{lr_px * 4} px, "
+          f"per-sample shuffle {e2e_sh_ms:.3f} ms, {1e3 / e2e_sh_ms:.4f} "
+          f"it/s; fixed order {e2e_ms:.3f} ms, {1e3 / e2e_ms:.4f} it/s in "
+          f"the same call ({smi})")
+    degrade = degrade_fixed
+
     # the same call's compute-only steps, on the last degraded batch
     t0 = time.perf_counter()
     for _ in range(n_timed):
@@ -1125,6 +1157,373 @@ def phase_producer(smi: str, root: str) -> dict:
     del trainer, state, stream
     torch.cuda.empty_cache()
     return counts
+
+
+def _stand_in_degrader(ds_opt: dict):
+    """A shuffling degrader whose stages are deterministic stand-ins that
+    do not commute (exact on the 1/255 lattice on any device), with a
+    resize (stride 4) among them and no finals: k = 6 symbols, as bsrgan."""
+    from trainner_tpu_torch.data.pipeline import BatchDegrader
+
+    deg = BatchDegrader(ds_opt, "lr")
+    deg.stages = [("a", lambda g, x: x * 0.5), ("b", lambda g, x: x + 0.25),
+                  ("resize", lambda g, x: x[:, ::4, ::4]),
+                  ("c", lambda g, x: 1.0 - x), ("d", lambda g, x: x * x),
+                  ("e", lambda g, x: x.flip(2))]
+    deg._resize_finals, deg._comp_finals, deg._programs = [], [], {}
+    return deg
+
+
+def phase_shuffle(smi: str, root: str) -> dict:
+    """The per-sample shuffle of the bsrgan stages on the card. First the
+    routed and the candidate-select programs on stand-in stages, on one
+    plan: the card's output equals the CPU's bit for bit, and the samples
+    of one image repeated take both orders. Then the real bsrgan stages at
+    b = 32, 128 px: the fixed order against the routed shuffle (ms per
+    batch, device busy and launches from the profiler), and the blur
+    kernel's launches and shapes per batch. Returns the shuffled program's
+    degrade ms."""
+    import numpy as np
+    import torch
+
+    from trainner_tpu_torch.data.common import decode_image
+    from trainner_tpu_torch.data.pipeline import (BatchDegrader, _full_f32,
+                                                  plan_to_device)
+    from trainner_tpu_torch.ops import blur
+    from trainner_tpu_torch.ops import degradations as D
+    from trainner_tpu_torch.options import parse_dict
+
+    corpus = os.path.join(root, "corpus")
+    b, hr = BLUR_HR[0], BLUR_HR[1]
+    ds = parse_dict(_e2e_options(corpus, shuffle=True),
+                    is_train=True)["datasets"]["train"]
+    ds_fixed = parse_dict(_e2e_options(corpus),
+                          is_train=True)["datasets"]["train"]
+
+    # 1. stand-ins: the card against the CPU on the same plan and scores
+    gen_cpu = torch.Generator().manual_seed(3)
+    x = (torch.randint(0, 256, (b, hr, hr, 3), generator=gen_cpu)
+         / 255.0).float()
+    x[b // 2:] = x[0]  # half the batch one image: its samples take orders
+    plan = _stand_in_degrader(ds)._routing_plan(np.random.default_rng(0), b)
+    scores = torch.rand(b, SHUFFLE_K, generator=gen_cpu)
+    outs = {}
+    for dev in ("cuda", "cpu"):
+        deg = _stand_in_degrader(ds)
+        gen = torch.Generator(device=dev).manual_seed(0)
+        with _full_f32():
+            outs["routed", dev] = deg._build_routing()(
+                gen, x.to(dev), *plan_to_device(plan[:4], torch.device(dev)))
+            outs["select", dev] = deg._build_persample()(
+                gen, x.to(dev), scores=scores.to(dev))
+    torch.cuda.synchronize()
+    for prog in ("routed", "select"):
+        got, want = outs[prog, "cuda"].cpu(), outs[prog, "cpu"]
+        same = x[b // 2:].shape[0]
+        orders = len({tuple(t.flatten()[:64].tolist())
+                      for t in got[b // 2:]})
+        print(f"shuffle: stand-ins, {prog} program, b={b} {hr} px: card "
+              f"equals CPU bit for bit: {torch.equal(got, want)}; "
+              f"{orders} distinct outputs among {same} samples of one image")
+        if not torch.equal(got, want) or orders < 2 \
+                or tuple(got.shape) != (b, hr // 4, hr // 4, 3):
+            raise AssertionError(f"shuffle: {prog} stand-ins differ")
+
+    # 2. the bsrgan stages, fixed order against the routed shuffle
+    names = sorted(os.listdir(corpus))[:b]
+    x_u8 = torch.from_numpy(np.stack(
+        [decode_image(os.path.join(corpus, n))[:hr, :hr, :3] for n in names]
+    )).cuda()
+    fixed, shuffled = BatchDegrader(ds_fixed, "lr"), BatchDegrader(ds, "lr")
+    if not (shuffled.shuffle and not fixed.shuffle):
+        raise AssertionError("shuffle_degradations did not reach the degrader")
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    result = {}
+    for label, deg, per_batch, shapes_want in (
+            ("fixed order", fixed, 2, {BLUR_HR: 1, BLUR_LR: 1}),
+            ("per-sample shuffle", shuffled, 4 * SHUFFLE_K,
+             {BLUR_Q_HR: 2 * SHUFFLE_K, BLUR_Q_LR: 2 * SHUFFLE_K})):
+        deg(gen, x_u8)
+        torch.cuda.synchronize()
+        shapes = {}
+        orig = D.apply_kernels
+
+        def spy(xx, kern):
+            key = tuple(xx.shape)
+            shapes[key] = shapes.get(key, 0) + 1
+            return orig(xx, kern)
+
+        blur.launches = 0
+        D.apply_kernels = spy
+        try:
+            y = deg(gen, x_u8)
+            torch.cuda.synchronize()
+        finally:
+            D.apply_kernels = orig
+        launches = blur.launches
+        off = float((y * 255 - (y * 255).round()).abs().max())
+        print(f"shuffle: bsrgan {label}, b={b} {hr}->{hr // 4} px: blur "
+              f"launches per batch {launches}, shapes {shapes}; output "
+              f"{tuple(y.shape)} off the 1/255 lattice by {off:.1e}")
+        if launches != per_batch or shapes != shapes_want \
+                or tuple(y.shape) != (b, hr // 4, hr // 4, 3) \
+                or off > 1e-4 or not bool(torch.isfinite(y).all()):
+            raise AssertionError(f"shuffle: bsrgan {label} ran otherwise")
+        ms = _time_ms(lambda: deg(gen, x_u8), iters=10, warmup=2)
+        print(f"times: degrade bsrgan {label} b={b} {hr}->{hr // 4} px "
+              f"{ms:.3f} ms per batch (CUDA events over 10) ({smi})")
+        _traced(lambda: deg(gen, x_u8), f"degrade, {label}, b={b}", smi, ms)
+        result[label] = dict(ms=ms, blur_launches=launches)
+    print(f"shuffle: ok ({smi})")
+    return result
+
+
+def _cli_options(root: str, corpus: str) -> str:
+    """``options/sr/train_sr.yml`` as written, read by the port's reader,
+    but for its data roots (the corpus; a validation set of ``N_VAL``
+    corpus images and their x4 bicubic LR written here), ``niter``, the
+    frequencies and ``path.root``. Returns the path of the options file."""
+    import numpy as np
+
+    from trainner_tpu_torch.data.common import decode_image, save_img
+    from trainner_tpu_torch.ops.imresize import imresize_np
+
+    val_hr, val_lr = os.path.join(root, "val_HR"), os.path.join(root,
+                                                                 "val_LR")
+    os.makedirs(val_hr)
+    os.makedirs(val_lr)
+    for name in sorted(os.listdir(corpus))[:N_VAL]:
+        hr = decode_image(os.path.join(corpus, name))
+        save_img(hr, os.path.join(val_hr, name))
+        lr = imresize_np(hr.astype(np.float32) / 255.0, 0.25, kernel="cubic")
+        save_img((lr * 255.0).round().astype(np.uint8),
+                 os.path.join(val_lr, name))
+    opt = read_options_yml(TRAIN_YML)
+    opt["datasets"]["train"]["dataroot_HR"] = corpus
+    opt["datasets"]["val"].update(dataroot_HR=val_hr, dataroot_LR=val_lr)
+    opt["train"].update(niter=CLI_NITER, val_freq=CLI_FREQ)
+    opt["logger"].update(print_freq=2, save_checkpoint_freq=CLI_FREQ)
+    opt["path"] = {"root": os.path.join(root, "cli")}
+    path = os.path.join(root, "cli_train_sr.json")
+    with open(path, "w") as f:
+        json.dump(opt, f)
+    return path
+
+
+def _state_tensors(state) -> dict:
+    """Every tensor a checkpoint carries, on the host: both nets'
+    state_dicts (D's running statistics included), the moments and the
+    step counts."""
+    out = {"step": state.step}
+    for which in ("g", "d"):
+        ns = getattr(state, which)
+        for k, v in ns.net.state_dict().items():
+            out[f"{which}.{k}"] = v.detach().cpu().clone()
+        out[f"{which}.count"] = ns.opt.count
+        for key in ("mu", "nu"):
+            for i, t in enumerate(getattr(ns.opt, key)):
+                out[f"{which}.{key}.{i}"] = t.detach().cpu().clone()
+    return out
+
+
+def _save_breakdown(state, path: str) -> dict:
+    """Where a ``.state`` save spends its time: the state to numpy trees
+    (device to host) and the encoding written to ``path``."""
+    import torch
+
+    from trainner_tpu_torch.utils import checkpoint
+    from trainner_tpu_torch.utils.torch_interop import train_state_to_jax
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    train_state_to_jax(state)
+    t1 = time.perf_counter()
+    checkpoint.save_state(state, path, backup=False)
+    t2 = time.perf_counter()
+    out = dict(host_ms=(t1 - t0) * 1e3,
+               write_ms=(t2 - t1 - (t1 - t0)) * 1e3,
+               mb=os.path.getsize(path) / 1e6)
+    os.remove(path)
+    os.remove(path + ".json")
+    return out
+
+
+def phase_cli(smi: str, root: str) -> dict:
+    """The training CLI at the full width of ``options/sr/train_sr.yml``
+    (G nf 64, nb 23, gc 32, D-VGG-128, batch 32, crop 128, bsrgan with the
+    per-sample shuffle, bf16), ``trainner_tpu_torch.train.main`` on the
+    card for 12 iterations with checkpoints and validation at 6 and 12;
+    then a second ``main`` that resumes from ``training_state/`` to 16,
+    whose loaded state must equal the saved one bit for bit. Counts the
+    three kernels' launches over each run, per step and per batch. Returns
+    the first run's counts."""
+    import torch
+
+    from trainner_tpu_torch.ops import blur, rdb5c
+    from trainner_tpu_torch.train import cli
+    from trainner_tpu_torch.train.sr_trainer import SRTrainer
+    from trainner_tpu_torch.utils import checkpoint
+
+    corpus = os.path.join(root, "corpus")
+    opt_path = _cli_options(root, corpus)
+    per_g = NB * 3
+    per_batch = 2 * 2 * SHUFFLE_K
+    exp = os.path.join(root, "cli", "experiments", "001_sr_template")
+    rec = {"steps": [], "save": [], "val": [], "loaded": None}
+    orig = (SRTrainer.train_step, checkpoint.save_checkpoint, cli.validate,
+            checkpoint.load_state)
+
+    def train_step(self, state, batch):
+        step = state.step
+        start = (time.perf_counter(), rdb5c.launches,
+                 rdb5c.backward_launches, blur.launches)
+        out = orig[0](self, state, batch)
+        if step + 1 == CLI_NITER:
+            torch.cuda.synchronize()
+            rec["end"] = time.perf_counter()
+        rec["steps"].append((step + 1, start, rdb5c.launches,
+                             rdb5c.backward_launches))
+        return out
+
+    def timed(fn, key):
+        def run(*args, **kwargs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            rec[key].append(time.perf_counter() - t0)
+            return out
+        return run
+
+    def load_state(path, state):
+        state, meta = orig[3](path, state)
+        rec["loaded"] = (path, meta, _state_tensors(state))
+        return state, meta
+
+    def run(argv):
+        rec["steps"].clear()
+        blur.launches = rdb5c.launches = rdb5c.backward_launches = 0
+        t0 = time.perf_counter()
+        state = cli.main(argv)
+        torch.cuda.synchronize()
+        counts = dict(blur=blur.launches, forward=rdb5c.launches,
+                      backward=rdb5c.backward_launches)
+        return state, counts, time.perf_counter() - t0
+
+    SRTrainer.train_step = train_step
+    checkpoint.save_checkpoint = timed(orig[1], "save")
+    cli.validate = timed(orig[2], "val")
+    checkpoint.load_state = load_state
+    try:
+        state, counts, wall = run(["-opt", opt_path])
+        steps = list(rec["steps"])
+        saved = _state_tensors(state)
+        save_parts = _save_breakdown(state, os.path.join(root, "t.state"))
+        del state
+        torch.cuda.empty_cache()
+        with open(opt_path) as f:
+            opt2 = json.load(f)
+        opt2["train"]["niter"] = CLI_RESUME_NITER
+        opt2["path"]["resume_state"] = os.path.join(exp, "training_state")
+        opt2_path = os.path.join(root, "cli_resume.json")
+        with open(opt2_path, "w") as f:
+            json.dump(opt2, f)
+        state2, counts2, wall2 = run(["-opt", opt2_path])
+        steps2 = list(rec["steps"])
+    finally:
+        (SRTrainer.train_step, checkpoint.save_checkpoint, cli.validate,
+         checkpoint.load_state) = orig
+
+    # the first run: launches per step and per batch, and in all
+    n_val = 2 * N_VAL  # validation at 6 and 12
+    want = dict(blur=per_batch * CLI_NITER,
+                forward=per_g * (CLI_NITER + n_val),
+                backward=per_g * CLI_NITER)
+    print(f"cli: main() on {CLI_NITER} iterations, {wall:.2f} s: launches "
+          f"{counts} (expected {want})")
+    blur_seen = 0
+    for i, (step, (_, fwd0, bwd0, blur0), fwd1, bwd1) in enumerate(steps):
+        if step != i + 1 or (fwd1 - fwd0, bwd1 - bwd0) != (per_g, per_g) \
+                or blur0 - blur_seen != per_batch:
+            raise AssertionError(
+                f"cli step {i + 1}: state step {step}, launches forward "
+                f"{fwd1 - fwd0}, backward {bwd1 - bwd0}, blur for its batch "
+                f"{blur0 - blur_seen}")
+        blur_seen = blur0
+    if counts != want or len(steps) != CLI_NITER:
+        raise AssertionError(f"cli launches {counts}, {len(steps)} steps")
+    print(f"cli: every step {per_g} + {per_g} block launches and its batch "
+          f"{per_batch} blur launches ({CLI_NITER} steps)")
+
+    # the artifacts
+    files = {os.path.relpath(os.path.join(d, f), exp)
+             for d, _, fs in os.walk(exp) for f in fs}
+    need = {f"models/{t}_{n}.ckpt" for t in (CLI_FREQ, CLI_NITER)
+            for n in "GD"} | {f"training_state/{t}.state{e}"
+                              for t in (CLI_FREQ, CLI_NITER)
+                              for e in ("", ".json")} \
+        | {"tb/scalars.jsonl"}
+    names = [os.path.splitext(n)[0] for n in
+             sorted(os.listdir(os.path.join(root, "val_HR")))]
+    need |= {f"val_images/{n}/{n}_{t}.png" for n in names
+             for t in (CLI_FREQ, CLI_NITER)}
+    if need - files:
+        raise AssertionError(f"cli: missing {sorted(need - files)}")
+    sizes = {f: os.path.getsize(os.path.join(exp, f)) for f in sorted(files)
+             if f.startswith(("models/12", "training_state/12"))}
+    print(f"cli: artifacts present ({len(files)} files); sizes {sizes}")
+    rows = [json.loads(line) for line in
+            open(os.path.join(exp, "tb", "scalars.jsonl"))]
+    tags = {(r["tag"], r["step"]) for r in rows}
+    if not ({("train/l_g_total", s) for s in range(2, CLI_NITER + 1, 2)}
+            | {("val/psnr", CLI_FREQ), ("val/psnr", CLI_NITER)}) <= tags \
+            or not all(math.isfinite(r["value"]) for r in rows):
+        raise AssertionError("cli: the JSONL scalars are incomplete")
+    psnr = [r["value"] for r in rows if r["tag"] == "val/psnr"]
+    print(f"cli: {len(rows)} JSONL scalars, all finite; val psnr {psnr}")
+
+    # times: from the start of step 3 to the end of step 12 (synchronised
+    # there), with and without the save and validation at 6 inside it
+    span = rec["end"] - steps[2][1][0]
+    steady = span - rec["save"][0] - rec["val"][0]
+    n = CLI_NITER - 2
+    save_ms = [t * 1e3 for t in rec["save"]]
+    val_ms = [t * 1e3 for t in rec["val"]]
+    print(f"times: cli main() steps 3-{CLI_NITER} on the host clock: "
+          f"{steady * 1e3 / n:.3f} ms per iteration, {n / steady:.4f} it/s "
+          f"steady; {span * 1e3 / n:.3f} ms, {n / span:.4f} it/s with the "
+          f"save and validation at {CLI_FREQ} ({smi})")
+    print(f"times: cli save_checkpoint (G, D, state; synchronised) "
+          f"{', '.join(f'{t:.1f}' for t in save_ms)} ms; of a state file "
+          f"({save_parts['mb']:.1f} MB): to host trees "
+          f"{save_parts['host_ms']:.1f} ms, encoded and written "
+          f"{save_parts['write_ms']:.1f} ms; validation "
+          f"{', '.join(f'{t / N_VAL:.1f}' for t in val_ms)} ms per image "
+          f"({N_VAL} images of {CORPUS_PX // 4} -> {CORPUS_PX} px) ({smi})")
+
+    # the resumed run
+    path, meta, loaded = rec["loaded"]
+    diff = [k for k in saved if not (
+        torch.equal(saved[k], loaded[k]) if isinstance(saved[k],
+                                                       torch.Tensor)
+        else saved[k] == loaded[k])]
+    want2 = dict(blur=per_batch * (CLI_RESUME_NITER - CLI_NITER),
+                 forward=per_g * (CLI_RESUME_NITER - CLI_NITER),
+                 backward=per_g * (CLI_RESUME_NITER - CLI_NITER))
+    print(f"cli: resumed from {os.path.relpath(path, exp)} (iter "
+          f"{meta['iter']}, epoch {meta['epoch']}) to {state2.step} in "
+          f"{wall2:.2f} s: {len(saved)} tensors and counts of the saved "
+          f"state, {len(diff)} differ after loading; launches {counts2}")
+    if diff or meta["iter"] != CLI_NITER or state2.step != CLI_RESUME_NITER \
+            or steps2[0][0] != CLI_NITER + 1 or counts2 != want2 \
+            or not os.path.exists(os.path.join(
+                exp, "models", f"{CLI_RESUME_NITER}_G.ckpt")):
+        raise AssertionError(f"cli resume: differs {diff[:5]}, meta {meta},"
+                             f" step {state2.step}, launches {counts2}")
+    del state2
+    torch.cuda.empty_cache()
+    print(f"cli: ok ({smi})")
+    return dict(counts, resumed=counts2)
 
 
 BF16_BLOCK_KERNELS = {"rdb5c.cu": ("rdb_stage_mma",),
@@ -1502,7 +1901,7 @@ def phase_blur_times(smi: str, parent: str = "") -> dict:
     old = _parent_blur(parent) if parent else None
     gen = torch.Generator().manual_seed(6)
     rows = {}
-    for shape in (BLUR_HR, BLUR_LR):
+    for shape in (BLUR_HR, BLUR_LR, BLUR_Q_HR, BLUR_Q_LR):
         b, h, w, c = shape
         x = torch.rand(*shape, generator=gen).cuda()
         kern = _blur_kernels(gen, b, BLUR_K)
@@ -1514,7 +1913,7 @@ def phase_blur_times(smi: str, parent: str = "") -> dict:
         nbytes = 2 * x.numel() * 4 + kern.numel() * 4
         bound_ms, bound_by = _bound("float32", work, nbytes)
         fn = lambda: blur_per_sample(x, kern)  # noqa: E731
-        if old is not None:
+        if old is not None and shape in (BLUR_HR, BLUR_LR):
             # both libraries called alike, straight through their C
             # interface, into one output buffer
             out = torch.empty_like(x)
@@ -1559,12 +1958,15 @@ def phase_blur_times(smi: str, parent: str = "") -> dict:
 
 
 def _kernel_rows(rows, serving_launches, train, main_err, bwd_err,
-                 blur_rows, producer, blur_err, forms):
+                 blur_rows, producer, blur_err, forms, cli):
     """The JSON summary: each kernel at its main path's shape and type (the
     forward at the serving shape in f32, the backward at the training shape
     in bf16, the blur at the HR canvas in f32, with its times at the LR
-    canvas beside), with the launches counted over the main paths' runs,
-    and both types' times at both block shapes beside."""
+    canvas and at the shuffled program's q-slices beside), with the
+    launches counted over the main paths' runs (serving, training, the
+    producer in both orders, the training CLI and its resume), and both
+    types' times at both block shapes beside."""
+    paths = (producer, producer["shuffled"], cli, cli["resumed"])
     fwd = rows["rdb5c_forward", MAIN_SHAPE, "float32"]
     bwd = rows["rdb5c_backward", TRAIN_SHAPE, "bfloat16"]
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
@@ -1582,8 +1984,8 @@ def _kernel_rows(rows, serving_launches, train, main_err, bwd_err,
         {"name": "rdb5c_forward", "route": "cuda",
          "source": "trainner_tpu_torch/csrc/rdb5c.cu",
          "replaces": "trainner_tpu/ops/pallas_kernels.py:180",
-         "launches": serving_launches + producer["forward"] + sum(
-             r["forward"] for r in train.values()),
+         "launches": serving_launches + sum(p["forward"] for p in paths)
+         + sum(r["forward"] for r in train.values()),
          "max_abs_err": main_err, **{k: fwd[k] for k in keys},
          "bound_ms_cuda_cores": fwd["bound_ms_cuda_cores"],
          "shape": list(MAIN_SHAPE), "dtype": "float32",
@@ -1593,7 +1995,7 @@ def _kernel_rows(rows, serving_launches, train, main_err, bwd_err,
         {"name": "rdb5c_backward", "route": "cuda",
          "source": "trainner_tpu_torch/csrc/rdb5c_bwd.cu",
          "replaces": "trainner_tpu/ops/pallas_kernels.py:355",
-         "launches": producer["backward"] + sum(
+         "launches": sum(p["backward"] for p in paths) + sum(
              r["backward"] for r in train.values()),
          "max_abs_err": bwd_err, **{k: bwd[k] for k in keys},
          "shape": list(TRAIN_SHAPE), "dtype": "bfloat16",
@@ -1603,12 +2005,15 @@ def _kernel_rows(rows, serving_launches, train, main_err, bwd_err,
         {"name": "blur_per_sample", "route": "cuda",
          "source": "trainner_tpu_torch/csrc/blur_per_sample.cu",
          "replaces": "trainner_tpu/ops/pallas_kernels.py:466",
-         "launches": producer["blur"], "max_abs_err": blur_err,
+         "launches": sum(p["blur"] for p in paths),
+         "max_abs_err": blur_err,
          **{k: blur_rows[BLUR_HR][k] for k in keys + ("device_ms",)},
          "shape": list(BLUR_HR), "k": BLUR_K, "dtype": "float32",
-         "at_lr_canvas": {"shape": list(BLUR_LR),
-                          **{k: blur_rows[BLUR_LR][k]
-                             for k in keys + ("device_ms",)}}},
+         **{name: {"shape": list(shape),
+                   **{k: blur_rows[shape][k] for k in keys + ("device_ms",)}}
+            for name, shape in (("at_lr_canvas", BLUR_LR),
+                                ("at_q_slice_hr", BLUR_Q_HR),
+                                ("at_q_slice_lr", BLUR_Q_LR))}},
     ]
 
 
@@ -1708,6 +2113,7 @@ def main(argv=None) -> int:
         return 1
     from trainner_tpu_torch.ops import _build, rdb5c
 
+    t_start = time.time()
     smi = _smi()
     print(f"device: {smi}; torch {torch.__version__}, CUDA "
           f"{torch.version.cuda}, {torch.cuda.device_count()} device(s)")
@@ -1749,13 +2155,16 @@ def main(argv=None) -> int:
         train = phase_train(smi)
         phase_g_gradient(smi)
         producer = phase_producer(smi, root)
+        phase_shuffle(smi, root)
+        cli_counts = phase_cli(smi, root)
         torch.backends.cudnn.allow_tf32 = False
         torch.backends.cuda.matmul.allow_tf32 = False
         rows = phase_times(smi, root)
         blur_rows = phase_blur_times(smi, flags.parent)
         phase_trace(smi, root, {k: r["step_ms"] for k, r in train.items()})
     kernels = _kernel_rows(rows, launches, train, main_err, bwd_err,
-                           blur_rows, producer, blur_err, forms)
+                           blur_rows, producer, blur_err, forms, cli_counts)
+    print(f"chip_smoke: {time.time() - t_start:.1f} s in all")
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -482,7 +482,6 @@ def test_resize_strat_pre_keeps_the_size():
 
 
 @pytest.mark.parametrize("extra, item", [
-    ({"shuffle_degradations": True}, "Queue A 5.1"),
     ({"lr_blur_types": ["sinc"]}, "Queue A 5.2"),
     ({"lr_noise_types": ["poisson"]}, "Queue A 5.2"),
     ({"lr_unsharp_mask": True}, "Queue A 5.2"),

@@ -6,7 +6,11 @@ program of a blind-SR train dataset: ``_collect:77``,
 ``_blur_stage:159``, ``_atten_factor:264``, ``_atten_ratio:288``,
 ``_draw_att_pair:319``, ``_att_wrap:341``, ``_blur3:370``,
 ``_noise_stage:387``, ``_size_ratio:576``, ``_q8:605``,
-``_resize_stage:613`` and ``BatchDegrader:792`` with ``_build:1266``.
+``_resize_stage:613`` and ``BatchDegrader:792`` with its three programs:
+``_build:1266`` (the fixed order), ``_build_routing:1171`` with its host
+plan ``_routing_plan:1113`` (the per-sample shuffle, by default) and
+``_build_persample:989`` (the per-sample shuffle by candidate select,
+under ``TRAINNER_SHUFFLE_ROUTING=0``), dispatched as ``__call__:1312``.
 
 The dataset options are split into the stages of the LR (or HR) pipeline;
 each stage is a function ``fn(gen, x)`` (or ``fn(gen, x, att=...)`` where
@@ -28,8 +32,14 @@ The random halves are kept apart from the arithmetic where a test needs
 to feed another framework's draws: ``draw_size_ratio`` / ``_size_ratio``,
 ``draw_atten_ratio`` / ``_atten_ratio``, ``draw_att_pair`` / ``_att_pair``.
 
-Not ported yet, each raising with its ROADMAP item: the per-sample shuffle
-of the stage order (``shuffle_degradations``), kernel pools and noise
+With ``shuffle_degradations`` every sample runs the stages in an order of
+its own. The routed program draws those orders on the host, as rows of
+random Latin squares (``_routing_plan``, the JAX package's plan stream and
+code, so its plans are the JAX package's call for call), and hands them to
+the device as small int32 tensors by one pinned, non-blocking copy; the
+device program reads nothing back to the host, so the host runs ahead.
+
+Not ported yet, each raising with its ROADMAP item: kernel pools and noise
 patches, and every blur, noise and filter type outside the bsrgan preset.
 """
 
@@ -37,8 +47,10 @@ from __future__ import annotations
 
 import contextlib
 import math
+import os
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -68,7 +80,8 @@ _HR_AUG_KEYS = [
     ("noise", "hr_noise", None, "hr_noise_types"),
 ]
 
-SHUFFLE_ITEM = "ROADMAP Queue A 5.1, the per-sample shuffle of the stages"
+# the seed of the host stream of routing plans (the JAX package's)
+PLAN_SEED = 0x5EED_0A71
 
 
 def _collect(opt: dict, keys) -> Dict[str, dict]:
@@ -609,6 +622,19 @@ def _resize_stage(types: Sequence[int], out_hw_fn, prob: float = 1.0,
     return _with_prob(fn, prob)
 
 
+def plan_to_device(plan, device: torch.device):
+    """A routing plan's (idx, inv, act_a, act_b) -> int32 and bool tensors
+    on ``device``, by one copy (from pinned memory, not blocking, on the
+    card)."""
+    idx, inv, act_a, act_b = plan
+    host = torch.from_numpy(np.stack([idx, inv, act_a.astype(np.int32),
+                                      act_b.astype(np.int32)]))
+    if device.type == "cuda":
+        host = host.pin_memory()
+    dev = host.to(device, non_blocking=device.type == "cuda")
+    return dev[0], dev[1], dev[2].bool(), dev[3].bool()
+
+
 # ---------------------------------------------------------------------------
 # the batch degrader
 # ---------------------------------------------------------------------------
@@ -636,11 +662,7 @@ class BatchDegrader:
             params = lr_p if kind == "lr" else hr_p
         self.params = p = params or {}
         cfgs = dataset_opt.get("aug_configs") or {}
-        if p.get("random_shuffle"):
-            raise NotImplementedError(
-                "shuffle_degradations (a stage order drawn per sample) is "
-                f"not ported yet ({SHUFFLE_ITEM}); give "
-                "shuffle_degradations: false for the fixed order")
+        self.shuffle = bool(p.get("random_shuffle"))
         if dataset_opt.get("dataroot_kernels"):
             raise D.not_ported("the kernel pool of dataroot_kernels")
         for name in ("auto_levels", "unsharp", "fringes", "final_blur"):
@@ -738,11 +760,32 @@ class BatchDegrader:
         self.finals = resize_finals + comp_finals
         self._resize_finals = resize_finals
         self._comp_finals = comp_finals
-        self._program: Optional[Callable] = None
+        self._programs: Dict[str, Callable] = {}
+        self._plan_rng: Optional[np.random.Generator] = None
 
     @property
     def is_noop(self) -> bool:
         return not self.stages and not self.finals
+
+    def _finals(self, gen, x):
+        """The finals: both orders of [final_scale] and
+        [final_compression] are computed (each with draws of its own) and
+        a per-sample coin picks one."""
+        res_f, comp_f = self._resize_finals, self._comp_finals
+
+        def seg(fns, xx):
+            for _, fn in fns:
+                xx = _q8(fn(gen, xx))
+            return xx
+
+        if res_f and comp_f:
+            y_a = seg(res_f, seg(comp_f, x))
+            y_b = seg(comp_f, seg(res_f, x))
+            coin = D._uniform(gen, (x.shape[0],)) < 0.5
+            return torch.where(_bcast(coin), y_a, y_b)
+        if res_f or comp_f:
+            return seg(res_f or comp_f, x)
+        return x
 
     def _build(self) -> Callable:
         """The fixed-order program: the stages in ``ORDER``, those after
@@ -755,13 +798,7 @@ class BatchDegrader:
                 fn = fn["att"] if (res_idx >= 0 and i > res_idx) \
                     else fn["no"]
             stages.append((n, fn))
-        res_f, comp_f = self._resize_finals, self._comp_finals
         att_cfg = self._att_cfg
-
-        def seg(fns, gen, x):
-            for _, fn in fns:
-                x = _q8(fn(gen, x))
-            return x
 
         def run(gen, x):
             x = wire_to_f01(x)
@@ -770,16 +807,200 @@ class BatchDegrader:
             for _, fn in stages:
                 x = _q8(fn(gen, x, att=att)
                         if getattr(fn, "_wants_att", False) else fn(gen, x))
-            if res_f and comp_f:
-                # both orders are computed (each with draws of its own)
-                # and a per-sample coin picks one
-                y_a = seg(res_f, gen, seg(comp_f, gen, x))
-                y_b = seg(comp_f, gen, seg(res_f, gen, x))
-                coin = D._uniform(gen, (x.shape[0],)) < 0.5
-                x = torch.where(_bcast(coin), y_a, y_b)
-            elif res_f or comp_f:
-                x = seg(res_f or comp_f, gen, x)
-            return _q8(x)
+            return _q8(self._finals(gen, x))
+
+        return run
+
+    def _shuffled(self):
+        """(the stages to shuffle, the resize stage or None). The resize
+        splits each sample's order into the phase on the input canvas and
+        the phase after it."""
+        boundary = next((i for i, (n, _) in enumerate(self.stages)
+                         if n == "resize"), None)
+        perm = [(n, fn) for i, (n, fn) in enumerate(self.stages)
+                if i != boundary]
+        resize_fn = self.stages[boundary][1] if boundary is not None \
+            else None
+        return perm, resize_fn
+
+    def _variant(self, name: str, fn, att: bool) -> Callable:
+        """A stage's form for the phase it runs in: blur2 and the noise
+        stages carry their own {no, att} pair; stage-1 blur is wrapped
+        (linear attenuation) when a sample's order puts it after the
+        resize."""
+        if isinstance(fn, dict):
+            return fn["att" if att else "no"]
+        if att and self._att_cfg is not None and name == "blur":
+            return _att_wrap(fn, self._att_cfg, square=False)
+        return fn
+
+    def _build_persample(self) -> Callable:
+        """The per-sample shuffle by candidate select. Each sample's order
+        of [stages..., resize] is a uniform random permutation, drawn as
+        iid uniform scores: the stages that score below the resize form its
+        phase on the input canvas, the rest its phase after the resize.
+        Each phase runs as m slots; at slot j every stage computes its
+        candidate on the whole batch and each sample keeps the one of its
+        own stage for that slot (itself once its phase is over), so the
+        device runs 2 m^2 stages per batch. ``run(gen, x, scores=None)``
+        takes the (b, m + 1) scores from a caller that has them."""
+        perm, resize_fn = self._shuffled()
+        m = len(perm)
+        att_cfg = self._att_cfg
+
+        def phase_exec(gen, x, order, count, att: bool, att_pair=None):
+            # order: (b, m) stage index per slot; count: (b,) phase length
+            for j in range(m):
+                cands = []
+                for n, fn in perm:
+                    vfn = self._variant(n, fn, att)
+                    cands.append(vfn(gen, x, att=att_pair)
+                                 if getattr(vfn, "_wants_att", False)
+                                 else vfn(gen, x))
+                stack = torch.stack([x] + cands, dim=1)
+                idx = torch.where(j < count, order[:, j] + 1,
+                                  torch.zeros_like(order[:, j]))
+                x = _q8(torch.take_along_dim(
+                    stack, idx.reshape(-1, 1, 1, 1, 1), dim=1)[:, 0])
+            return x
+
+        def run(gen, x, scores: Optional[torch.Tensor] = None):
+            x = wire_to_f01(x)
+            b = x.shape[0]
+            att_pair = _draw_att_pair(gen, b, att_cfg) \
+                if att_cfg is not None else None
+            if m and resize_fn is not None:
+                if scores is None:
+                    scores = D._uniform(gen, (b, m + 1))
+                hr_mask = scores[:, :m] < scores[:, m:]
+                inf = torch.full_like(scores[:, :m], math.inf)
+                hr_order = torch.argsort(
+                    torch.where(hr_mask, scores[:, :m], inf), dim=1,
+                    stable=True)
+                lr_order = torch.argsort(
+                    torch.where(hr_mask, inf, scores[:, :m]), dim=1,
+                    stable=True)
+                hr_count = hr_mask.sum(dim=1)
+                x = phase_exec(gen, x, hr_order, hr_count, att=False)
+                x = _q8(resize_fn(gen, x))
+                x = phase_exec(gen, x, lr_order, m - hr_count, att=True,
+                               att_pair=att_pair)
+            elif m:
+                # no size boundary: one uniform permutation per sample
+                if scores is None:
+                    scores = D._uniform(gen, (b, m))
+                order = torch.argsort(scores, dim=1, stable=True)
+                x = phase_exec(gen, x, order,
+                               torch.full((b,), m, device=x.device),
+                               att=False)
+            elif resize_fn is not None:
+                x = _q8(resize_fn(gen, x))
+            return _q8(self._finals(gen, x))
+
+        return run
+
+    def _routing_plan(self, seed, b: int):
+        """The host half of the routed program: per-sample orders as rows
+        of random Latin squares, so that at every slot each symbol is held
+        by exactly npad / k samples. That is what lets the device run each
+        stage once per slot, on a static q-slice, instead of running every
+        stage on the whole batch as a candidate.
+
+        Symbols 0..m-1 are the shuffled stages, symbol m (when there is a
+        resize) the resize. A square's rows are sigma o shift_g o tau with
+        sigma and tau fresh uniform permutations, so each sample's order is
+        uniform over all k! permutations, as with a shuffle per sample; the
+        k samples of one square never share a symbol at a slot. ``seed`` is
+        a ``numpy.random.Generator`` (the stream of plans) or a seed.
+
+        Returns (idx, inv, act_a, act_b, npad):
+          idx (k, npad) int32: the gather order of each slot; positions
+              [i q, (i + 1) q) hold the samples whose symbol at slot j is i
+          inv (k, npad) int32: its inverse permutation
+          act_a, act_b (k, npad) bool: in gathered order, whether a sample
+              is still before its resize (the pass on the input canvas) or
+              already after it (the pass on the LR canvas)."""
+        m = len(self.stages) - (1 if any(n == "resize" for n, _ in
+                                         self.stages) else 0)
+        has_res = any(n == "resize" for n, _ in self.stages)
+        k = m + (1 if has_res else 0)
+        q = -(-b // k)
+        npad = q * k
+        rng = seed if isinstance(seed, np.random.Generator) \
+            else np.random.default_rng(seed)
+        perms = np.empty((npad, k), np.int64)
+        for sq in range(q):
+            sigma = rng.permutation(k)
+            tau = rng.permutation(k)
+            g = np.arange(k)
+            perms[sq * k:(sq + 1) * k] = sigma[(g[:, None] + tau[None, :])
+                                               % k]
+        perms = perms[rng.permutation(npad)]
+        if has_res:
+            resize_pos = np.argmax(perms == m, axis=1)
+        else:
+            resize_pos = np.full(npad, k, np.int64)  # all before a resize
+        idx = np.empty((k, npad), np.int32)
+        inv = np.empty((k, npad), np.int32)
+        for j in range(k):
+            order = np.argsort(perms[:, j], kind="stable")
+            idx[j] = order
+            inv[j, order] = np.arange(npad, dtype=np.int32)
+        js = np.arange(k)[:, None]
+        act_a = resize_pos[idx] > js
+        act_b = resize_pos[idx] < js
+        return idx, inv, act_a, act_b, npad
+
+    def _build_routing(self) -> Callable:
+        """The routed per-sample shuffle: the orders of ``_routing_plan``,
+        each stage run once per slot on the q samples routed to it (2 m
+        full-batch stage runs per batch, against 2 m^2 for candidate
+        select). The batch is padded to npad by repeating its samples, and
+        cut back after the passes. ``run(gen, x, idx, inv, act_a, act_b)``
+        takes the plan as device tensors."""
+        perm, resize_fn = self._shuffled()
+        m = len(perm)
+        k = m + (1 if resize_fn is not None else 0)
+        att_cfg = self._att_cfg
+
+        def run_pass(gen, x, idx, inv, act, att: bool, att_pair):
+            q = x.shape[0] // k
+            for j in range(k):
+                xg = x[idx[j]]
+                ag = None if att_pair is None else tuple(
+                    a[idx[j]] for a in att_pair)
+                parts = []
+                for i, (n, fn) in enumerate(perm):
+                    vfn = self._variant(n, fn, att)
+                    seg = xg[i * q:(i + 1) * q]
+                    if getattr(vfn, "_wants_att", False):
+                        a_seg = None if ag is None else tuple(
+                            a[i * q:(i + 1) * q] for a in ag)
+                        y = vfn(gen, seg, att=a_seg)
+                    else:
+                        y = vfn(gen, seg)
+                    keep = act[j, i * q:(i + 1) * q]
+                    parts.append(torch.where(_bcast(keep), _q8(y), seg))
+                if resize_fn is not None:
+                    parts.append(xg[m * q:])  # the resize's group idles
+                x = torch.cat(parts, dim=0)[inv[j]]
+            return x
+
+        def run(gen, x, idx, inv, act_a, act_b):
+            x = wire_to_f01(x)
+            b = x.shape[0]
+            npad = idx.shape[1]
+            if npad > b:
+                x = x.repeat(-(-npad // b), 1, 1, 1)[:npad]
+            x = _q8(x)
+            att_pair = _draw_att_pair(gen, npad, att_cfg) \
+                if att_cfg is not None else None
+            x = run_pass(gen, x, idx, inv, act_a, att=False, att_pair=None)
+            if resize_fn is not None:
+                x = _q8(resize_fn(gen, x))
+                x = run_pass(gen, x, idx, inv, act_b, att=True,
+                             att_pair=att_pair)
+            return _q8(self._finals(gen, x[:b]))
 
         return run
 
@@ -791,7 +1012,24 @@ class BatchDegrader:
         if gen.device.type != images.device.type:
             raise ValueError(f"the generator lies on {gen.device}, the "
                              f"images on {images.device}")
-        if self._program is None:
-            self._program = self._build()
         with _full_f32():
-            return self._program(gen, images)
+            if self.shuffle and len(self.stages) > 1:
+                if os.environ.get("TRAINNER_SHUFFLE_ROUTING", "1") != "0":
+                    if "routing" not in self._programs:
+                        self._programs["routing"] = self._build_routing()
+                        # the host stream of plans, apart from ``gen``: a
+                        # plan drawn on the device would have to be read
+                        # back before the program could be issued
+                        self._plan_rng = np.random.default_rng(
+                            np.random.SeedSequence(PLAN_SEED))
+                    plan = self._routing_plan(self._plan_rng,
+                                              int(images.shape[0]))
+                    return self._programs["routing"](
+                        gen, images, *plan_to_device(plan[:4],
+                                                     images.device))
+                if "persample" not in self._programs:
+                    self._programs["persample"] = self._build_persample()
+                return self._programs["persample"](gen, images)
+            if "fixed" not in self._programs:
+                self._programs["fixed"] = self._build()
+            return self._programs["fixed"](gen, images)

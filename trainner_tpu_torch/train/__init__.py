@@ -1,4 +1,6 @@
+from .cli import main
 from .producer import batches, make_otf_degradation
 from .sr_trainer import SRTrainer, create_trainer
 
-__all__ = ["SRTrainer", "create_trainer", "make_otf_degradation", "batches"]
+__all__ = ["SRTrainer", "create_trainer", "make_otf_degradation", "batches",
+           "main"]

@@ -1,0 +1,356 @@
+"""The training command line of the port: counterpart of the JAX package's
+``train.py`` (``parse_options:25``, ``dir_check:35``,
+``configure_loggers:46``, ``get_resume_state:61``, ``get_dataloaders:82``,
+``create_trainer:95``, ``validate:196``, ``fit:241``, ``main:395``) for
+``model: sr``.
+
+The options file drives the whole run: the train loader, the on-device
+degradations (``make_otf_degradation``; the bsrgan presets shuffle the
+stage order per sample), ``SRTrainer.train_step``, a log line and scalars
+every ``print_freq`` iterations, checkpoints in the JAX package's format
+every ``save_checkpoint_freq`` (``{iter}_G.ckpt``, ``{iter}_D.ckpt``,
+``{iter}.state``), PSNR/SSIM and PNGs of the validation set every
+``val_freq``, and a ``latest`` checkpoint when the run is interrupted
+(Ctrl-C or SIGTERM), after which it exits with code 0. ``path.resume_state``
+(a ``.state`` file, or a directory of them) resumes a run, a JAX one too.
+Options read here besides: ``matmul_precision`` (``highest`` or unset keeps
+TF32 off for cuDNN and matmul, any other value turns it on),
+``debug_nans`` and ``profile`` (a ``torch.profiler`` trace in
+``log/trace``).
+
+Usage: python -m trainner_tpu_torch.train -opt options/sr/train_sr.yml
+``main(argv, device="cpu")`` from Python runs on the CPU; without a card
+and without ``device`` it raises.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import logging
+import math
+import os
+import signal
+from typing import Optional, Union
+
+import numpy as np
+import torch
+
+from ..data import create_dataloader, create_dataset, device_prefetch
+from ..data.common import save_img, tensor2img
+from ..options import check_resume, dict2str, parse
+from ..utils import checkpoint
+from ..utils.debug import check_finite, enable_nan_checks
+from ..utils.device import resolve_device
+from ..utils.logging_utils import (ScalarWriter, close_logger,
+                                   get_root_logger, mkdir_and_rename, mkdirs)
+from ..utils.metrics import MetricsDict, Timer
+from .producer import make_otf_degradation
+from .sr_trainer import create_trainer as create_sr_trainer
+
+# the models of the JAX CLI that the port does not train yet -> their item
+_OTHER_MODELS = {
+    "ppon": "Queue A 10.2", "sftgan": "Queue A 10.3",
+    "sftgan_acd": "Queue A 10.3", "pix2pix": "Queue A 10.4",
+    "cyclegan": "Queue A 10.4", "vsr": "Queue A 10.5",
+    "vsrgan": "Queue A 10.5", "evsrgan": "Queue A 10.5",
+    "video": "Queue A 10.5", "dvd": "Queue A 10.6", "srflow": "Queue A 10.6",
+    "wbc": "Queue A 10.6", "pbr": "Queue A 10.6", "sr_pbr": "Queue A 10.6",
+    "pbr_sr": "Queue A 10.6",
+}
+
+
+def parse_options(argv=None):
+    parser = argparse.ArgumentParser()
+    parser.add_argument("-opt", type=str, required=True,
+                        help="Path to options YAML/JSON file.")
+    args = parser.parse_args(argv)
+    return parse(args.opt, is_train=True)
+
+
+def dir_check(opt) -> None:
+    """Makes the experiment's directories; a new run first moves an old
+    experiment of the same name aside."""
+    paths = opt["path"]
+    if not paths.get("resume_state"):
+        mkdir_and_rename(paths["experiments_root"])
+    mkdirs([paths.get(k) for k in
+            ("models", "training_state", "log", "val_images")])
+
+
+def configure_loggers(opt):
+    """The ``base`` logger (screen and ``train_*.log``), the ``val`` logger
+    (``val_*.log``) and, unless ``logger.tensorboard`` is false, a
+    ``ScalarWriter`` in ``log/tb``. A logger of an earlier run in this
+    process is closed first."""
+    log_dir = opt["path"]["log"]
+    for name in ("base", "val"):
+        close_logger(name)
+    logger = get_root_logger("base", log_dir, "train")
+    get_root_logger("val", log_dir, "val", screen=False)
+    logger.info(dict2str(opt))
+    tb = None
+    if (opt.get("logger") or {}).get("tensorboard", True):
+        tb = ScalarWriter(os.path.join(log_dir, "tb"))
+        why = f" (no TensorBoard: {tb.tb_error})" if tb.tb_error else ""
+        logger.info(f"Scalars to {os.path.join(log_dir, 'tb')}: "
+                    f"{' and '.join(tb.backends)}{why}")
+    return logger, tb
+
+
+def get_resume_state(opt):
+    """The ``.state`` file to resume from (``resume_state`` names a file,
+    or a directory whose newest state is taken), with its ``{epoch,
+    iter}``; None for a new run."""
+    rs = opt["path"].get("resume_state")
+    if not rs:
+        return None
+    path = rs if os.path.isfile(rs) else checkpoint.latest_state_path(rs)
+    if path is None:
+        return None
+    meta = {"epoch": 0, "iter": 0}
+    if os.path.exists(path + ".json"):
+        with open(path + ".json") as f:
+            meta = json.load(f)
+    check_resume(opt, meta.get("iter", 0))
+    return {"path": path, "epoch": meta.get("epoch", 0),
+            "iter": meta.get("iter", 0)}
+
+
+def get_dataloaders(opt, pin_memory: bool = False):
+    loaders = {}
+    for phase_key, dataset_opt in (opt.get("datasets") or {}).items():
+        phase = phase_key.split("_")[0]
+        loaders[phase] = create_dataloader(create_dataset(dataset_opt),
+                                           dataset_opt,
+                                           pin_memory=pin_memory)
+    if "train" not in loaders:
+        raise ValueError("no train dataset in options")
+    return loaders
+
+
+def create_trainer(opt, device: Union[str, torch.device, None] = None):
+    """The trainer of the options' ``model``: ``sr`` (and its aliases);
+    the other models of the JAX CLI raise with their ROADMAP item."""
+    model = (opt.get("model") or "sr").lower()
+    if model in _OTHER_MODELS:
+        raise NotImplementedError(
+            f"model [{model}] training is not ported yet (ROADMAP "
+            f"{_OTHER_MODELS[model]}, the rest of the zoo)")
+    return create_sr_trainer(opt, device=device)
+
+
+def validate(trainer, state, val_loader, opt, epoch: int, current_step: int,
+             logger, tb):
+    """PSNR and SSIM of G's output over the validation set, written to the
+    logs and scalars; each output saved as
+    ``{val_images}/{name}/{name}_{iter}.png``."""
+    metrics = MetricsDict((opt["train"] or {}).get("metrics") or "psnr,ssim")
+    val_dir = opt["path"].get("val_images")
+    save_imgs = bool((opt.get("logger") or {}).get("save_val_imgs", True))
+    scale = int(opt.get("scale") or 1)
+    for i, batch in enumerate(val_loader):
+        sr_img = tensor2img(trainer.eval_step(state, batch["LR"])[0])
+        gt = batch.get("HR")
+        name = os.path.splitext(os.path.basename(
+            batch.get("LR_path", [str(i)])[0]))[0]
+        if gt is not None:
+            metrics.calculate_metrics(sr_img, tensor2img(gt[0]),
+                                      crop_size=scale)
+        if save_imgs and val_dir:
+            img_dir = os.path.join(val_dir, name)
+            os.makedirs(img_dir, exist_ok=True)
+            save_img(sr_img,
+                     os.path.join(img_dir, f"{name}_{current_step}.png"))
+    avgs = metrics.get_averages()
+    msg = " ".join(f"{m['name']}: {m['average']:.6g}" for m in avgs)
+    logger.info(f"# Validation # epoch {epoch} iter {current_step} | {msg}")
+    logging.getLogger("val").info(
+        f"epoch {epoch} iter {current_step} | {msg}")
+    if tb is not None:
+        for m in avgs:
+            tb.add_scalar(f"val/{m['name']}", m["average"], current_step)
+    return {m["name"]: m["average"] for m in avgs}
+
+
+def _sigterm(_signum, _frame):
+    raise KeyboardInterrupt
+
+
+def fit(trainer, opt, loaders, state, start_epoch: int, current_step: int,
+        logger, tb):
+    """The training loop from ``current_step`` to ``niter``; returns the
+    state. An interrupt (Ctrl-C, or SIGTERM, which a preempted job gets)
+    saves a ``latest`` checkpoint and raises ``SystemExit(0)``."""
+    try:
+        previous = signal.signal(signal.SIGTERM, _sigterm)
+    except ValueError:  # not in the main thread
+        previous = None
+    try:
+        return _fit(trainer, opt, loaders, state, start_epoch, current_step,
+                    logger, tb)
+    finally:
+        if previous is not None:
+            signal.signal(signal.SIGTERM, previous)
+
+
+def _fit(trainer, opt, loaders, state, start_epoch, current_step, logger,
+         tb):
+    dev = trainer.device
+    train_opt = opt["train"] or {}
+    logger_opt = opt.get("logger") or {}
+    seed = int(train_opt.get("manual_seed") or 0)
+    degrade = make_otf_degradation(
+        opt, device=dev,
+        generator=torch.Generator(device=dev).manual_seed(seed + 7))
+    niter = int(float(train_opt.get("niter") or 5e5))
+    print_freq = int(logger_opt.get("print_freq") or 200)
+    save_freq = int(logger_opt.get("save_checkpoint_freq") or 5e3)
+    val_freq = int(float(train_opt.get("val_freq") or 5e3))
+    overwrite_chkp = bool(logger_opt.get("overwrite_chkp"))
+    debug_nans = bool(opt.get("debug_nans"))
+    train_loader = loaders["train"]
+    total_epochs = max(1, int(math.ceil(niter / max(len(train_loader), 1))))
+    timer = Timer()
+    logger.info(
+        f"Start training from epoch {start_epoch}, iter {current_step}; "
+        f"total epochs {total_epochs}, iters {niter}")
+
+    def tensors_only(it):
+        for b in it:
+            yield {k: v for k, v in b.items() if isinstance(v, torch.Tensor)}
+
+    epoch = start_epoch
+    try:
+        while current_step < niter:
+            for batch in device_prefetch(tensors_only(iter(train_loader)),
+                                         size=2, device=dev):
+                if current_step >= niter:
+                    break
+                current_step += 1
+                timer.tic()
+                if degrade is not None:
+                    batch = degrade(batch)
+                state, logs = trainer.train_step(state, batch)
+                if debug_nans:
+                    check_finite(logs, current_step)
+                t_iter = timer.toc()
+
+                if current_step % print_freq == 0:
+                    lr_now = trainer.schedG.get_lr(int(state.step))
+                    eta = (niter - current_step) * timer.get_average_time()
+                    loss_str = " ".join(
+                        f"{k}: {float(v):.4e}" for k, v in
+                        sorted(logs.items()))
+                    logger.info(
+                        f"<epoch:{epoch:3d}, iter:{current_step:8,d}, "
+                        f"lr:{lr_now:.3e}, t:{t_iter:.3f}s, "
+                        f"eta:{eta / 3600:.2f}h> {loss_str}")
+                    if tb is not None:
+                        tb.add_scalar("lr", lr_now, current_step)
+                        tb.add_scalar("time/iteration", t_iter, current_step)
+                        for k, v in logs.items():
+                            tb.add_scalar(f"train/{k}", float(v),
+                                          current_step)
+
+                if current_step % save_freq == 0:
+                    checkpoint.save_checkpoint(state, opt, epoch,
+                                               current_step,
+                                               latest_only=overwrite_chkp)
+                    logger.info("Models and training state saved at iter "
+                                f"{current_step}.")
+
+                if "val" in loaders and current_step % val_freq == 0:
+                    validate(trainer, state, loaders["val"], opt, epoch,
+                             current_step, logger, tb)
+            epoch += 1
+    except KeyboardInterrupt:
+        logger.info("Training interrupted. Saving latest models and state.")
+        checkpoint.save_checkpoint(state, opt, epoch, current_step,
+                                   latest_only=True)
+        raise SystemExit(0)
+
+    checkpoint.save_checkpoint(state, opt, epoch, current_step)
+    logger.info("Training finished. Saved final models and state.")
+    return state
+
+
+def _set_precision(opt, logger) -> None:
+    """``matmul_precision``: ``highest`` or unset keeps f32 matmuls and
+    convolutions exact (TF32 off for cuDNN and matmul, as the parity tests
+    hold them); any other value turns TF32 on. The block kernels do not
+    read it."""
+    prec = (opt["train"] or {}).get("matmul_precision") \
+        or opt.get("matmul_precision")
+    tf32 = bool(prec) and str(prec) != "highest"
+    torch.backends.cuda.matmul.allow_tf32 = tf32
+    torch.backends.cudnn.allow_tf32 = tf32
+    logger.info(f"matmul_precision = {prec or 'unset'}: TF32 "
+                f"{'on' if tf32 else 'off'} for cuDNN and matmul")
+
+
+def main(argv=None, device: Union[str, torch.device, None] = None):
+    """Runs the CLI and returns the final training state. ``device``
+    defaults to ``cuda`` (``cuda:0`` when several cards are visible)."""
+    opt = parse_options(argv)
+    if opt.get("parallel"):
+        raise NotImplementedError(
+            "parallel: (a device mesh) is not ported yet (ROADMAP Queue A 9,"
+            " multi-GPU)")
+    dev = resolve_device(device)
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", 0)
+    resume = get_resume_state(opt)
+    dir_check(opt)
+    logger, tb = configure_loggers(opt)
+    if dev.type == "cuda" and torch.cuda.device_count() > 1:
+        logger.info(f"{torch.cuda.device_count()} cards visible; training "
+                    "runs on cuda:0 (several cards: ROADMAP Queue A 9)")
+    flags = (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32)
+    debug_nans = bool(opt.get("debug_nans"))
+    prof: Optional[torch.profiler.profile] = None
+    try:
+        seed = int((opt["train"] or {}).get("manual_seed") or 0)
+        np.random.seed(seed)
+        _set_precision(opt, logger)
+        if debug_nans:
+            enable_nan_checks(True)
+            logger.info("autograd anomaly detection on; a non-finite "
+                        "training log raises")
+        loaders = get_dataloaders(opt, pin_memory=dev.type == "cuda")
+        trainer = create_trainer(opt, device=dev)
+        logger.info(f"Training on {trainer.device} in {trainer.dtype}")
+        g_path = None if resume else opt["path"].get("pretrain_model_G")
+        state = trainer.init_state(seed, g_path)
+        start_epoch, current_step = 0, 0
+        if resume:
+            state, meta = checkpoint.load_state(resume["path"], state)
+            start_epoch = int(meta.get("epoch", 0))
+            current_step = int(meta.get("iter", state.step))
+            logger.info(f"Resuming training from epoch {start_epoch}, "
+                        f"iter {current_step}.")
+        elif g_path:
+            logger.info(f"Loaded pretrained G from {g_path}")
+        if opt.get("profile"):
+            trace_dir = os.path.join(opt["path"]["log"], "trace")
+            os.makedirs(trace_dir, exist_ok=True)
+            acts = [torch.profiler.ProfilerActivity.CPU]
+            if dev.type == "cuda":
+                acts.append(torch.profiler.ProfilerActivity.CUDA)
+            prof = torch.profiler.profile(activities=acts)
+            prof.start()
+            logger.info(f"torch.profiler trace -> {trace_dir}")
+        return fit(trainer, opt, loaders, state, start_epoch, current_step,
+                   logger, tb)
+    finally:
+        if prof is not None:
+            prof.stop()
+            prof.export_chrome_trace(os.path.join(
+                opt["path"]["log"], "trace", "trace.json"))
+        if debug_nans:
+            enable_nan_checks(False)
+        torch.backends.cuda.matmul.allow_tf32, \
+            torch.backends.cudnn.allow_tf32 = flags
+        if tb is not None:
+            tb.close()

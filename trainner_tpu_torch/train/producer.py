@@ -2,9 +2,8 @@
 of a batch and the endless stream of batches on the device.
 
 Counterpart of ``train.py::make_otf_degradation:156`` and of the batch
-stream of ``bench.py::bench_train_e2e:188``. The command-line trainer
-around them (validation, logging, checkpoints, resume) is not ported yet
-(ROADMAP Queue A 8).
+stream of ``bench.py::bench_train_e2e:188``. The training CLI
+(``train/cli.py``) runs the same degradation step in its loop.
 """
 
 from __future__ import annotations

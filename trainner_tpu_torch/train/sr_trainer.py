@@ -30,6 +30,7 @@ from ..models.networks import define_D, define_G
 from ..ops.blocks import GaussianNoise, wire_to_f01
 from ..utils.checkpoint import load_params
 from ..utils.device import resolve_device
+from ..utils.torch_interop import key_to_seed, seed_to_key
 from .optimizers import build_optimizer
 from .schedulers import build_scheduler
 from .state import NetState, SRTrainState
@@ -151,7 +152,10 @@ class SRTrainer:
         """Networks with random weights drawn from ``torch.Generator``s
         seeded from ``seed`` (then ``g_path``'s weights for G when one is
         given), on the trainer's device; when training, also D, the
-        optimizers and the generator of the latent noise."""
+        optimizers and the generator of the latent noise, seeded with
+        ``seed + 2`` (the state's ``rng`` is that seed's key). A checkpoint
+        of a run resumes into this state with
+        ``utils/checkpoint.py::load_state``."""
         netG = define_G(self.opt, dtype=self.dtype)
         netG.init_weights(torch.Generator().manual_seed(seed))
         if g_path:
@@ -159,13 +163,15 @@ class SRTrainer:
         netG = netG.to(self.device).eval()
         if not self.is_train:
             return SRTrainState(step=0, g=NetState(netG))
-        noise = torch.Generator(device=self.device).manual_seed(seed + 2)
+        rng = seed_to_key(seed + 2)
+        noise = torch.Generator(device=self.device).manual_seed(
+            key_to_seed(rng))
         for m in netG.modules():
             if isinstance(m, GaussianNoise):
                 m.generator = noise
         state = SRTrainState(step=0,
                              g=NetState(netG, self._optimizer(netG, "G")),
-                             noise_generator=noise)
+                             noise_generator=noise, rng=rng)
         if self.use_gan:
             netD = define_D(self.opt, dtype=self.dtype)
             netD.init_weights(torch.Generator().manual_seed(seed + 1))

@@ -4,6 +4,10 @@ package carries an immutable pytree through a jitted step; the port
 updates parameters, optimizer moments and batch-norm statistics in place,
 and ``train_step`` returns the same state object. SWA, EMA, the AdaTarget
 net and the auto-clip history are not ported yet.
+
+``rng`` is the JAX state's key (two uint32 words) that a checkpoint
+carries; the latent noise is drawn from ``noise_generator``, which the key
+seeds (``utils/torch_interop.py::key_to_seed``).
 """
 
 from __future__ import annotations
@@ -11,6 +15,7 @@ from __future__ import annotations
 from dataclasses import dataclass
 from typing import Optional
 
+import numpy as np
 import torch
 
 from .optimizers import Optimizer
@@ -26,10 +31,11 @@ class NetState:
 
 @dataclass
 class SRTrainState:
-    """G, D (when there is a GAN loss), the step counter and the generator
-    that the latent noise is drawn from."""
+    """G, D (when there is a GAN loss), the step counter, the generator
+    that the latent noise is drawn from and the key that seeded it."""
 
     step: int
     g: NetState
     d: Optional[NetState] = None
     noise_generator: Optional[torch.Generator] = None
+    rng: Optional[np.ndarray] = None

@@ -1,26 +1,44 @@
-"""Loading the generator's weights: counterpart of
-``trainner_tpu/utils/checkpoint.py::load_params:52``.
+"""Checkpoints in the JAX package's own format: counterpart of
+``trainner_tpu/utils/checkpoint.py`` (``_backup:36``, ``save_params:43``,
+``load_params:52``, ``save_state:96``, ``load_state:112``,
+``_state_iter:124``, ``latest_state_path:140``, ``save_checkpoint:161``).
 
-Two formats load:
+* ``{tag}_G.ckpt``, ``{tag}_D.ckpt``: one network's flax param tree (for D
+  its ``params`` alone, as the JAX trainer saves it), as
+  ``flax.serialization.to_bytes`` writes it;
+* ``{tag}.state``: the whole training state as the JAX ``SRTrainState``'s
+  state dict (``utils/torch_interop.py::train_state_to_jax``), beside a
+  JSON sidecar ``{tag}.state.json`` with ``{epoch, iter}``. The port adds
+  the state of its latent-noise generator to the sidecar
+  (``noise_generator``), where the JAX reader ignores it; the msgpack tree
+  holds only what flax's ``from_bytes`` accepts on a JAX template.
 
-* the flax msgpack ``.ckpt`` that the JAX trainer writes (``save_params``,
-  ``flax.serialization.to_bytes``). msgpack is not a dependency of the port,
-  so ``msgpack_restore`` decodes the subset that flax writes: maps, arrays,
-  strings, binary, scalars, and flax's ndarray ext type (code 1, a msgpack
-  triple of shape, dtype name and C-order bytes);
-* a reference ESRGAN ``.pth`` in either key layout.
+msgpack is not a dependency of the port, so ``msgpack_serialize`` and
+``msgpack_restore`` write and read the subset that flax uses: maps,
+arrays, strings, binary, nil, booleans, numbers, and flax's ndarray ext
+type (code 1, a msgpack triple of shape, dtype name and C-order bytes; code
+3 for a numpy scalar). A reference ESRGAN ``.pth`` loads too. The orbax
+backend of the JAX package is not ported (ROADMAP Queue A 8.3).
 """
 
 from __future__ import annotations
 
+import json
 import os
+import shutil
 import struct
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
-from .torch_interop import load_esrgan_pth, params_from_jax
+from .torch_interop import (load_esrgan_pth, load_train_state,
+                            params_from_jax, train_state_from_state_dict,
+                            train_state_to_jax)
+
+CKPT_EXT = ".ckpt"
+STATE_EXT = ".state"
+_MAX_CHUNK = 2 ** 30  # flax splits larger arrays, which this writer refuses
 
 _EXT_NDARRAY = 1
 _EXT_NPSCALAR = 3
@@ -145,3 +163,244 @@ def load_params(path: str) -> Dict[str, torch.Tensor]:
         return load_esrgan_pth(path)
     with open(path, "rb") as f:
         return params_from_jax(msgpack_restore(f.read()))
+
+
+# ---------------------------------------------------------------------------
+# writing: the encoder that pairs with msgpack_restore
+# ---------------------------------------------------------------------------
+
+
+def _pack_len(n: int, fix_base: Optional[int], fix_max: int,
+              codes: Tuple[int, int, int]) -> bytes:
+    """The header of a sized msgpack object: the fix form when it fits,
+    else the 8-, 16- or 32-bit length form (``codes``; 0 where the family
+    has no 8-bit form)."""
+    if fix_base is not None and n <= fix_max:
+        return bytes([fix_base | n])
+    if codes[0] and n <= 0xFF:
+        return bytes([codes[0], n])
+    if n <= 0xFFFF:
+        return bytes([codes[1]]) + struct.pack(">H", n)
+    if n <= 0xFFFFFFFF:
+        return bytes([codes[2]]) + struct.pack(">I", n)
+    raise ValueError("msgpack object too large")
+
+
+def _pack_int(v: int) -> bytes:
+    if 0 <= v <= 0x7F:
+        return bytes([v])
+    if -32 <= v < 0:
+        return struct.pack(">b", v)
+    if v >= 0:
+        for code, fmt, top in ((0xCC, ">B", 0xFF), (0xCD, ">H", 0xFFFF),
+                               (0xCE, ">I", 0xFFFFFFFF),
+                               (0xCF, ">Q", 0xFFFFFFFFFFFFFFFF)):
+            if v <= top:
+                return bytes([code]) + struct.pack(fmt, v)
+    else:
+        for code, fmt, low in ((0xD0, ">b", -0x80), (0xD1, ">h", -0x8000),
+                               (0xD2, ">i", -0x80000000),
+                               (0xD3, ">q", -0x8000000000000000)):
+            if v >= low:
+                return bytes([code]) + struct.pack(fmt, v)
+    raise ValueError(f"integer {v} does not fit msgpack")
+
+
+def _ext_head(code: int, n: int) -> bytes:
+    fix = {1: 0xD4, 2: 0xD5, 4: 0xD6, 8: 0xD7, 16: 0xD8}.get(n)
+    head = bytes([fix]) if fix else _pack_len(n, None, -1,
+                                              (0xC7, 0xC8, 0xC9))
+    return head + bytes([code])
+
+
+def _pack_ndarray(code: int, arr: np.ndarray, out: List) -> None:
+    """An array as flax's ext type: the triple (shape, dtype name, C-order
+    bytes), its buffer appended as a view, not copied."""
+    if arr.dtype.hasobject or arr.dtype.isalignedstruct:
+        raise ValueError("object and structured dtypes do not serialize")
+    if arr.nbytes > _MAX_CHUNK:
+        raise NotImplementedError(
+            "arrays over 1 GiB are written in chunks by flax; not supported")
+    head: List = []
+    _pack([list(arr.shape), arr.dtype.name], head)
+    head[0] = b"\x93"  # a triple: the two items above and the bytes
+    head.append(_pack_len(arr.nbytes, None, -1, (0xC4, 0xC5, 0xC6)))
+    inner = b"".join(head)
+    out.append(_ext_head(code, len(inner) + arr.nbytes) + inner)
+    out.append(memoryview(np.ascontiguousarray(arr).reshape(-1)).cast("B"))
+
+
+def _pack(obj: Any, out: List) -> None:
+    """Appends the msgpack encoding of ``obj`` to ``out`` as chunks."""
+    if obj is None:
+        out.append(b"\xc0")
+    elif isinstance(obj, bool):
+        out.append(b"\xc3" if obj else b"\xc2")
+    elif isinstance(obj, np.ndarray):
+        _pack_ndarray(_EXT_NDARRAY, obj, out)
+    elif isinstance(obj, np.generic):
+        _pack_ndarray(_EXT_NPSCALAR, np.asarray(obj), out)
+    elif isinstance(obj, int):
+        out.append(_pack_int(obj))
+    elif isinstance(obj, float):
+        out.append(b"\xcb" + struct.pack(">d", obj))
+    elif isinstance(obj, str):
+        raw = obj.encode()
+        out.append(_pack_len(len(raw), 0xA0, 31, (0xD9, 0xDA, 0xDB)) + raw)
+    elif isinstance(obj, (bytes, bytearray)):
+        out.append(_pack_len(len(obj), None, -1, (0xC4, 0xC5, 0xC6)))
+        out.append(bytes(obj))
+    elif isinstance(obj, (list, tuple)):
+        out.append(_pack_len(len(obj), 0x90, 15, (0, 0xDC, 0xDD)))
+        for v in obj:
+            _pack(v, out)
+    elif isinstance(obj, dict):
+        # in key order, as flax writes a tree that JAX has flattened
+        out.append(_pack_len(len(obj), 0x80, 15, (0, 0xDE, 0xDF)))
+        for k in sorted(obj):
+            _pack(k, out)
+            _pack(obj[k], out)
+    else:
+        raise TypeError(f"{type(obj).__name__} does not serialize to msgpack")
+
+
+def _chunks(tree: Any) -> List:
+    out: List = []
+    _pack(tree, out)
+    return out
+
+
+def msgpack_serialize(tree: Any) -> bytes:
+    """Nested dicts, lists, strings, numbers, None and numpy arrays ->
+    msgpack bytes as ``flax.serialization.msgpack_serialize`` writes them
+    (``to_bytes`` of a state dict), byte for byte: maps in key order,
+    arrays and numpy scalars as flax's ext types 1 and 3."""
+    return b"".join(_chunks(tree))
+
+
+# ---------------------------------------------------------------------------
+# the checkpoint files
+# ---------------------------------------------------------------------------
+
+
+def _backup(path: str) -> None:
+    """Keeps a ``previous_*`` copy of a file that is about to be
+    overwritten."""
+    if os.path.exists(path):
+        d, b = os.path.split(path)
+        shutil.copy2(path, os.path.join(d, "previous_" + b))
+
+
+def _write(path: str, tree: Any, backup: bool) -> None:
+    """``tree`` msgpack-encoded into ``path``, chunk by chunk (the arrays'
+    buffers are written as they lie, not joined first)."""
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    if backup and os.path.exists(path):
+        _backup(path)
+    with open(path, "wb") as f:
+        f.writelines(_chunks(tree))
+
+
+def save_params(tree: Any, path: str, backup: bool = True) -> None:
+    """One network's flax param tree (numpy leaves; ``params_to_jax`` of a
+    G, ``discriminator_to_jax(...)[0]`` of a D) -> ``path``."""
+    _write(path, tree, backup)
+
+
+def _generator_meta(gen: Optional[torch.Generator]) -> Optional[dict]:
+    if gen is None:
+        return None
+    return {"device": gen.device.type,
+            "state": gen.get_state().cpu().numpy().tobytes().hex()}
+
+
+def save_state(state, path: str, epoch: int = 0,
+               backup: bool = True) -> None:
+    """The whole training state -> ``path`` (the JAX ``SRTrainState``'s
+    state dict) and ``path + ".json"`` (``{epoch, iter}``, and the port's
+    ``noise_generator``)."""
+    _write_state(train_state_to_jax(state), state, path, epoch, backup)
+
+
+def _write_state(tree: Any, state, path: str, epoch: int,
+                 backup: bool) -> None:
+    _write(path, tree, backup)
+    meta = {"epoch": int(epoch), "iter": int(state.step)}
+    noise = _generator_meta(state.noise_generator)
+    if noise is not None:
+        meta["noise_generator"] = noise
+    with open(path + ".json", "w") as f:
+        json.dump(meta, f)
+
+
+def load_state(path: str, state) -> Tuple[Any, dict]:
+    """A ``.state`` file (the JAX package's or the port's) -> into
+    ``state``, in place; returns ``(state, meta)``. The latent-noise
+    generator takes the sidecar's saved state where the port wrote one on
+    the same kind of device, else the seed of the file's ``rng``
+    (``key_to_seed``)."""
+    with open(path, "rb") as f:
+        tree = msgpack_restore(f.read())
+    load_train_state(state, train_state_from_state_dict(tree))
+    meta = {"epoch": 0, "iter": int(state.step)}
+    if os.path.exists(path + ".json"):
+        with open(path + ".json") as f:
+            meta = json.load(f)
+    noise = meta.get("noise_generator")
+    gen = state.noise_generator
+    if gen is not None and noise and noise.get("device") == gen.device.type:
+        raw = np.frombuffer(bytes.fromhex(noise["state"]), np.uint8)
+        gen.set_state(torch.from_numpy(raw.copy()))
+    return state, meta
+
+
+def _state_iter(state_dir: str, fname: str) -> int:
+    """The iteration a ``.state`` file holds: from its numeric stem, else
+    from its sidecar (``latest.state``), else -1."""
+    stem = fname[: -len(STATE_EXT)]
+    if stem.isdigit():
+        return int(stem)
+    sidecar = os.path.join(state_dir, fname + ".json")
+    if os.path.exists(sidecar):
+        try:
+            with open(sidecar) as f:
+                return int(json.load(f).get("iter", -1))
+        except (ValueError, OSError, json.JSONDecodeError):
+            return -1
+    return -1
+
+
+def latest_state_path(state_dir: str) -> Optional[str]:
+    """The newest ``.state`` file of a directory, by the iteration each
+    holds (not by name, which would rank the ``previous_*`` backups first);
+    the backups are skipped, and among equal iterations the most recently
+    modified file wins."""
+    if not os.path.isdir(state_dir):
+        return None
+    states: List[str] = [f for f in os.listdir(state_dir)
+                         if f.endswith(STATE_EXT)
+                         and not f.startswith("previous_")]
+    if not states:
+        return None
+    best = max(states, key=lambda f: (
+        _state_iter(state_dir, f),
+        os.path.getmtime(os.path.join(state_dir, f))))
+    return os.path.join(state_dir, best)
+
+
+def save_checkpoint(state, opt: dict, epoch: int, niter: int,
+                    latest_only: bool = False) -> None:
+    """``{tag}_G.ckpt``, ``{tag}_D.ckpt`` (when there is a D) under
+    ``path.models`` and ``{tag}.state`` under ``path.training_state``;
+    ``tag`` is the iteration, or ``latest``."""
+    model_dir = opt["path"]["models"]
+    state_dir = opt["path"]["training_state"]
+    tag = "latest" if latest_only else str(niter)
+    tree = train_state_to_jax(state)
+    save_params(tree["g"]["params"],
+                os.path.join(model_dir, f"{tag}_G{CKPT_EXT}"))
+    if tree["d"] is not None:
+        save_params(tree["d"]["params"],
+                    os.path.join(model_dir, f"{tag}_D{CKPT_EXT}"))
+    _write_state(tree, state, os.path.join(state_dir, f"{tag}{STATE_EXT}"),
+                 epoch, backup=True)

@@ -2,14 +2,16 @@
 
 Counterpart of ``trainner_tpu/utils/metrics.py`` (``calculate_psnr:52``,
 ``_ssim_single:63``, ``calculate_ssim:86``, ``crop_border:101``,
-``MetricsDict:114``). SSIM's 11x11 Gaussian window (sigma 1.5) is applied
-with scipy as two 1-D passes in place of ``cv2.filter2D``; the map is cut to
-the valid region ``[5:-5]``, so the border mode does not enter the result.
+``MetricsDict:114``, ``Timer:197``). SSIM's 11x11 Gaussian window (sigma
+1.5) is applied with scipy as two 1-D passes in place of ``cv2.filter2D``;
+the map is cut to the valid region ``[5:-5]``, so the border mode does not
+enter the result.
 """
 
 from __future__ import annotations
 
 import math
+import time
 from typing import Dict, List
 
 import numpy as np
@@ -142,3 +144,29 @@ class MetricsDict:
             if vals:
                 avgs.append({"name": m, "average": float(np.mean(vals))})
         return avgs
+
+
+class Timer:
+    """Per-iteration wall time on the host clock, with a running mean."""
+
+    def __init__(self):
+        self.calls = 0
+        self.start_time = 0.0
+        self.total_time = 0.0
+        self.diff = 0.0
+
+    def tic(self) -> None:
+        self.start_time = time.time()
+
+    def toc(self) -> float:
+        """Ends an iteration (its time is ``diff``); returns the mean time
+        of the iterations so far, which the log line reports."""
+        self.diff = time.time() - self.start_time
+        self.total_time += self.diff
+        self.calls += 1
+        return self.get_average_time()
+
+    def get_average_time(self) -> float:
+        """The mean time of the iterations ended so far (the JAX package's
+        ends one more iteration here, at the time of the call)."""
+        return self.total_time / max(self.calls, 1)

@@ -1,20 +1,29 @@
-"""Weights and training state for the port's networks: from the JAX
-package's flax trees (``RRDBNet``, ``DiscriminatorVGG`` with its
-``batch_stats``, ``VGGFeatures``, a whole ``SRTrainState`` with its Adam or
-SGD moments), and from reference ESRGAN ``.pth`` state_dicts in either
-layout. numpy in, torch out; nothing of the JAX package is imported.
+"""Weights and training state for the port's networks, in both directions
+between the port and the JAX package's flax trees (``RRDBNet``,
+``DiscriminatorVGG`` with its ``batch_stats``, ``VGGFeatures``, a whole
+``SRTrainState`` with its Adam or SGD moments, live or as read back from a
+serialized ``.state`` file), and from reference ESRGAN ``.pth`` state_dicts
+in either layout. numpy on the flax side, torch on the port's; nothing of
+the JAX package is imported.
 
 The port's own copy of what it needs from
 ``trainner_tpu/utils/torch_interop.py`` (``detect_esrgan_arch:40``,
 ``_esrgan_old_to_named:50``, ``load_state_dict:21``), plus
 ``params_from_jax``, the inverse of the flax-side naming of
-``esrgan_to_params:82``. Flax kernels are HWIO, torch's OIHW.
+``esrgan_to_params:82``, and ``params_to_jax``, its inverse again. Flax
+kernels are HWIO, torch's OIHW.
+
+The JAX state's ``rng`` (a legacy key, two uint32 words) and the port's
+latent-noise ``torch.Generator`` are tied by one rule (``key_to_seed``,
+``seed_to_key``): the generator is seeded with the key's 64-bit integer
+``(k0 << 32) | k1``. The two streams cannot match (ROADMAP Queue C 9); the
+rule only makes a resumed JAX state give the port a seed of its own.
 """
 
 from __future__ import annotations
 
 import re
-from typing import Any, Dict, Mapping, Optional
+from typing import Any, Dict, List, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -135,7 +144,7 @@ def discriminator_from_jax(params: Mapping[str, Any],
             hw = int(round((in_f // c_last) ** 0.5))
             w = w.reshape(out_f, hw, hw, c_last).transpose(0, 3, 1, 2) \
                  .reshape(out_f, in_f)
-        sd[f"linear{n}.weight"] = torch.from_numpy(np.ascontiguousarray(w))
+        sd[f"linear{n}.weight"] = torch.from_numpy(np.array(w, order="C"))
         sd[f"linear{n}.bias"] = _f32(params[f"linear{n}"]["bias"])
     return sd
 
@@ -153,21 +162,40 @@ def vgg_from_jax(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
     return sd
 
 
+_MOMENT_KEYS = ("count", "mu", "nu", "trace")
+
+
+def _chain_head(opt_state):
+    """The first state of an optax chain: from the live tuple (of named
+    tuples), or from its serialized form, where flax writes a tuple as a
+    dict keyed ``"0"``, ``"1"``, ..."""
+    first = opt_state
+    while True:
+        if isinstance(first, Mapping) and "0" in first and \
+                not any(k in first for k in _MOMENT_KEYS):
+            first = first["0"]
+        elif isinstance(first, (tuple, list)) and \
+                not hasattr(first, "_fields"):
+            first = first[0]
+        else:
+            break
+    if hasattr(first, "_asdict"):
+        first = first._asdict()
+    return first
+
+
 def _moments_from_jax(opt_state, convert) -> Optional[Dict[str, Any]]:
     """The moments of an optax chain's first state (``scale_by_adam``:
     count, mu, nu; ``trace``: trace) as {count, mu, nu | trace}, each tree
     brought to the port's names by ``convert``. ``opt_state`` holds numpy
-    leaves: a mapping with those keys, or the chain's state tuple (of
-    named tuples) itself. ``trace`` keeps no count: it is carried as 0."""
+    leaves: a mapping with those keys, the chain's state tuple itself, or
+    its serialized form (``{"0": {count, mu, nu}}``). ``trace`` keeps no
+    count: it is carried as 0."""
     if opt_state is None:
         return None
-    first = opt_state
-    while isinstance(first, (tuple, list)) and not hasattr(first, "_fields"):
-        first = first[0]
-    if hasattr(first, "_asdict"):
-        first = first._asdict()
-    get = first.get
-    out: Dict[str, Any] = {"count": int(get("count") or 0)}
+    get = _chain_head(opt_state).get
+    count = get("count")
+    out: Dict[str, Any] = {"count": 0 if count is None else int(count)}
     for key in ("mu", "nu", "trace"):
         tree = get(key)
         if tree is not None:
@@ -193,8 +221,10 @@ def train_state_from_jax(g_params: Mapping[str, Any],
 
 
 def load_train_state(state, carried: Mapping[str, Any]) -> None:
-    """Loads ``train_state_from_jax``'s result into a port
-    ``SRTrainState``, in place."""
+    """Loads ``train_state_from_jax``'s result (or
+    ``train_state_from_state_dict``'s) into a port ``SRTrainState``, in
+    place. A carried ``rng`` becomes the state's key and reseeds its
+    latent-noise generator by ``key_to_seed``."""
     state.step = int(carried["step"])
     for which in ("g", "d"):
         net_state = getattr(state, which)
@@ -208,6 +238,189 @@ def load_train_state(state, carried: Mapping[str, Any]) -> None:
             net_state.opt.load_state_dict({
                 k: (v if k == "count" else [v[n].to(dev) for n in names])
                 for k, v in moments.items()})
+    if carried.get("rng") is not None:
+        state.rng = np.asarray(carried["rng"], np.uint32).copy()
+        if state.noise_generator is not None:
+            state.noise_generator.manual_seed(key_to_seed(state.rng))
+
+
+def key_to_seed(key) -> int:
+    """A JAX legacy key (two uint32 words) -> the 64-bit seed of the port's
+    noise generator, ``(k0 << 32) | k1``."""
+    k = np.asarray(key, np.uint32).reshape(-1)
+    if k.shape != (2,):
+        raise ValueError(f"a key of two uint32 words, got shape {k.shape}")
+    return (int(k[0]) << 32) | int(k[1])
+
+
+def seed_to_key(seed: int) -> np.ndarray:
+    """The inverse of ``key_to_seed``: for a seed under 2**32 it is what
+    ``jax.random.PRNGKey(seed)`` holds, ``[0, seed]``."""
+    seed = int(seed) & 0xFFFFFFFFFFFFFFFF
+    return np.array([seed >> 32, seed & 0xFFFFFFFF], np.uint32)
+
+
+def oihw_to_hwio(w: torch.Tensor) -> np.ndarray:
+    """torch OIHW -> flax HWIO."""
+    return np.ascontiguousarray(
+        w.detach().float().cpu().numpy().transpose(2, 3, 1, 0))
+
+
+def _np(t: torch.Tensor) -> np.ndarray:
+    return np.ascontiguousarray(t.detach().float().cpu().numpy())
+
+
+_G_TO_JAX = {"conv_first": "fea_conv", "trunk_conv": "LR_conv",
+             "HRconv": "HR_conv0", "conv_last": "HR_conv1"}
+
+
+def params_to_jax(sd: Mapping[str, torch.Tensor]) -> Dict[str, Any]:
+    """The port's ``RRDBNet`` state_dict -> the flax param tree in the
+    unrolled ``RRDB{i}`` layout, numpy f32 leaves: the inverse of
+    ``params_from_jax``."""
+    out: Dict[str, Any] = {}
+    for key, t in sd.items():
+        name, leaf = key.rsplit(".", 1)
+        if (m := re.fullmatch(r"RRDB_trunk\.(\d+)\.(RDB\d+)\.(conv\d+)",
+                              name)):
+            node = out.setdefault(f"RRDB{m.group(1)}", {}).setdefault(
+                m.group(2), {}).setdefault(m.group(3), {}).setdefault(
+                "Conv_0", {})
+        elif (m := re.fullmatch(r"upconv(\d+)", name)):
+            node = out.setdefault(f"up{int(m.group(1)) - 1}", {}).setdefault(
+                "ConvBlock_0", {}).setdefault("Conv_0", {})
+        elif name in _G_TO_JAX:
+            node = out.setdefault(_G_TO_JAX[name], {}).setdefault(
+                "Conv_0", {})
+        else:
+            raise ValueError(f"unexpected RRDBNet tensor {key!r}")
+        if leaf == "weight":
+            node["kernel"] = oihw_to_hwio(t)
+        elif leaf == "bias":
+            node["bias"] = _np(t)
+        else:
+            raise ValueError(f"unexpected RRDBNet tensor {key!r}")
+    return out
+
+
+def discriminator_to_jax(sd: Mapping[str, torch.Tensor]
+                         ) -> Tuple[Dict[str, Any], Dict[str, Any]]:
+    """The port's ``DiscriminatorVGG`` state_dict (or a tree of its
+    parameters alone, as optimizer moments are) -> the flax ``params`` and
+    ``batch_stats`` trees: the inverse of ``discriminator_from_jax``.
+    ``linear0``'s rows go from torch's (C, H, W) flattening back to the JAX
+    module's (H, W, C)."""
+    params: Dict[str, Any] = {}
+    stats: Dict[str, Any] = {}
+    c_last = 0
+    for name in sorted({k.split(".")[0] for k in sd if k.startswith("conv")}):
+        w = sd[f"{name}.weight"]
+        params[name] = {"Conv_0": {"kernel": oihw_to_hwio(w),
+                                   "bias": _np(sd[f"{name}.bias"])}}
+        c_last = w.shape[0]
+        if f"{name}.norm.weight" in sd:
+            params[name]["BatchNorm_0"] = {
+                "scale": _np(sd[f"{name}.norm.weight"]),
+                "bias": _np(sd[f"{name}.norm.bias"])}
+        if f"{name}.norm.running_mean" in sd:
+            stats[name] = {"BatchNorm_0": {
+                "mean": _np(sd[f"{name}.norm.running_mean"]),
+                "var": _np(sd[f"{name}.norm.running_var"])}}
+    for n in (0, 1):
+        w = _np(sd[f"linear{n}.weight"])
+        if n == 0:
+            out_f, in_f = w.shape
+            hw = int(round((in_f // c_last) ** 0.5))
+            w = w.reshape(out_f, c_last, hw, hw).transpose(0, 2, 3, 1) \
+                 .reshape(out_f, in_f)
+        params[f"linear{n}"] = {"kernel": np.ascontiguousarray(w.T),
+                                "bias": _np(sd[f"linear{n}.bias"])}
+    return params, stats
+
+
+def _to_host(tensors: Sequence[torch.Tensor]) -> List[torch.Tensor]:
+    """f32 copies on the host of ``tensors``, by one device-to-host copy
+    (one per tensor would wait on the device as many times)."""
+    if not tensors:
+        return []
+    flat = torch.cat([t.detach().reshape(-1).float() for t in tensors])
+    host = flat.cpu()
+    out, i = [], 0
+    for t in tensors:
+        out.append(host[i:i + t.numel()].view(t.shape))
+        i += t.numel()
+    return out
+
+
+def _opt_to_jax(moments: Mapping[str, Any], weight_decay: float, names,
+                convert) -> Dict[str, Any]:
+    """The port's optimizer state (``Optimizer.state_dict()``) -> the
+    serialized optax chain state: ``{"0": {count, mu, nu}}`` for adam,
+    ``{"0": {trace}}`` for sgd, and ``"1": {}`` (``add_decayed_weights``,
+    which keeps no state) under weight decay."""
+    head: Dict[str, Any] = {}
+    if "mu" in moments:
+        head["count"] = np.asarray(moments["count"], np.int32)
+    for key in ("mu", "nu", "trace"):
+        if key in moments:
+            head[key] = convert(dict(zip(names, moments[key])))
+    chain = {"0": head}
+    if weight_decay:
+        chain["1"] = {}
+    return chain
+
+
+def train_state_to_jax(state) -> Dict[str, Any]:
+    """A port ``SRTrainState`` -> the state dict of the JAX package's
+    ``SRTrainState`` (``trainner_tpu/train/state.py:35``), which flax's
+    ``from_state_dict`` / ``from_bytes`` accepts on a JAX template of the
+    same configuration: exactly its fields, ``None`` for the ones the port
+    does not keep (SWA, EMA, AdaTarget, the clip history)."""
+    def net(ns, convert, extra):
+        sd = ns.net.state_dict()
+        moments = ns.opt.state_dict() if ns.opt is not None else {}
+        lists = [k for k in ("mu", "nu", "trace") if k in moments]
+        host = iter(_to_host(list(sd.values())
+                            + [t for k in lists for t in moments[k]]))
+        sd = {k: next(host) for k in sd}
+        for k in lists:
+            moments[k] = [next(host) for _ in moments[k]]
+        params, stats = convert(sd)
+        names = [n for n, _ in ns.net.named_parameters()]
+        opt = _opt_to_jax(moments, ns.opt.weight_decay, names,
+                          lambda t: convert(t)[0]) \
+            if ns.opt is not None else None
+        return {"params": params, "opt_state": opt,
+                "extra": {"batch_stats": stats} if extra else {}}
+
+    rng = state.rng if state.rng is not None else seed_to_key(0)
+    return {
+        "step": np.asarray(state.step, np.int32),
+        "rng": np.asarray(rng, np.uint32),
+        "g": net(state.g, lambda sd: (params_to_jax(sd), None), False),
+        "d": None if state.d is None else net(state.d, discriminator_to_jax,
+                                              True),
+        "swa_params": None, "swa_n": None, "ema_params": None,
+        "loc": None, "grad_hist": None,
+    }
+
+
+def train_state_from_state_dict(tree: Mapping[str, Any]) -> Dict[str, Any]:
+    """The tree that ``msgpack_restore`` reads from a ``.state`` file (the
+    JAX package's or the port's) -> what ``load_train_state`` takes:
+    the step, the key, both nets with their moments and D's running
+    statistics."""
+    d = tree.get("d")
+    out = train_state_from_jax(
+        tree["g"]["params"],
+        d["params"] if d else None,
+        ((d.get("extra") or {}).get("batch_stats") if d else None),
+        step=int(np.asarray(tree["step"])),
+        g_opt_state=tree["g"].get("opt_state"),
+        d_opt_state=d.get("opt_state") if d else None)
+    if tree.get("rng") is not None:
+        out["rng"] = np.asarray(tree["rng"], np.uint32)
+    return out
 
 
 def detect_esrgan_arch(sd: Mapping[str, Any]) -> str:
