@@ -30,8 +30,10 @@ non-zero exit code and no result line:
    past the instantiated ones, and an identity kernel bit for bit;
 4. serving slice: ``python -m trainner_tpu_torch.test`` at the full width
    of the ESRGAN generator (nf 64, nb 23, gc 32, 4x) on a synthetic test
-   set, in f32 and with ``use_amp``, counting kernel launches; then the
-   full G on the kernel against the same G on the plain version;
+   set, in f32 and with ``use_amp``, then in f32 with ``x8`` and with
+   ``chop``, counting the launches the card ran (``eval_step`` replays a
+   CUDA graph per shape); then the full G on the kernel against the same
+   G on the plain version;
 5. debug configs: ``options/sr/test_sr_debug.yml``'s G (nf 16, nb 2, gc 8)
    served through the CLI with random weights, and two train steps of
    ``options/sr/train_sr_debug.yml``'s G and D, in f32 and bf16;
@@ -74,9 +76,28 @@ non-zero exit code and no result line:
    rate, printed beside the bound of the same work on the CUDA cores. With
    ``--parent DIR``, the blur kernel of the tree in DIR is timed beside
    this one's in turns; the blur also at the shuffled program's q-slices;
-11. trace: one f32 G forward at b=8 and one train step in bf16 and in f32
-   under ``torch.profiler``: device time by kernel and the device's idle
-   share.
+11. trace: one f32 G forward at b=8 and one train step (a graph replay)
+   in bf16 and in f32 under ``torch.profiler``: device time by kernel and
+   the device's idle share;
+12. graphs (run before the times): the step, ``train_steps``, the
+   degrader and ``eval_step`` as CUDA graphs (the default on the card)
+   against the same programs run eagerly (``graphs=False``), in one
+   process: 3 graphed against 3 eager steps in bf16 and f32 within the step
+   tolerances of ``tests/test_torch_train_step.py``; the launches each graph recorded (69 + 69 block
+   launches per step, 2 and 24 blur launches per degrader replay) against
+   a profiler trace of one replay; fresh latent noise per replay (the
+   statistical gate of ``tests/test_torch_trainer.py``); a resume into a captured state, bit for bit;
+   ``train_steps`` k = 10 with a MultiStep boundary inside the window;
+   the degrader from one generator state and plan stream; ``eval_step``
+   at b = 8 in f32 and bf16, x8 and chop on a 300 x 200 image against the
+   CPU's eager composition; and eager against graphed times of each with
+   the device-busy ms and idle share, the captures' seconds and pool
+   memory, the end-to-end rate and the CLI's steady rate.
+
+Launches: the kernel wrappers count where they launch, eagerly or into a
+graph being captured (a replay runs no Python); the phases check what the
+card ran (``_ran``: eager launches plus each replay's recorded ones), and
+the JSON summary gives the wrappers' own counts over the main paths.
 
 The second-to-last lines are a JSON summary of the kernels and the card's
 ``nvidia-smi`` name and power limit; the last line is
@@ -150,6 +171,37 @@ def _smi() -> str:
          "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True)
     return out.stdout.strip().splitlines()[0]
+
+
+def _reset_launches() -> None:
+    """Every launch count to 0: the kernel wrappers' own counts (a launch
+    made eagerly or recorded into a graph at capture) and the graphs'
+    tallies of what they recorded and what their replays ran."""
+    from trainner_tpu_torch.ops import blur, rdb5c
+    from trainner_tpu_torch.utils import graphs
+
+    rdb5c.launches = rdb5c.backward_launches = blur.launches = 0
+    for tally in (graphs.recorded, graphs.replayed):
+        for k in tally:
+            tally[k] = 0
+
+
+def _ran() -> dict:
+    """The launches the card ran since ``_reset_launches``, by kernel
+    (``rdb5c``, ``rdb5c_bwd``, ``blur``): eager ones, and every replay's
+    recorded ones; a capture records and runs nothing."""
+    from trainner_tpu_torch.utils import graphs
+
+    return graphs.executed_launches()
+
+
+def _counted() -> dict:
+    """The kernel wrappers' own counts since ``_reset_launches``: each
+    adds one where it launches its kernel, eagerly or into a graph being
+    captured, and nowhere else (a replay runs no Python)."""
+    from trainner_tpu_torch.utils import graphs
+
+    return graphs.kernel_launches()
 
 
 def _time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
@@ -611,33 +663,35 @@ def _gain_weights(net, seed: int) -> None:
 
 
 def phase_slice(smi: str, root: str):
-    """The main path: the test CLI in f32 and bf16. Returns the kernel
-    launches counted over both runs."""
+    """The main path: the test CLI in f32 and bf16 (``eval_step`` replays
+    one graph per shape: the first image runs eagerly and captures), then
+    in f32 with ``x8: true`` (eight forwards per image) and with ``chop:
+    true`` (one 128 x 128 tile per image). Checks the launches the card
+    ran per run; returns the launches the wrapper counted over all runs
+    (eagerly and at capture)."""
     import torch
 
     from trainner_tpu_torch import test as test_cli
-    from trainner_tpu_torch.ops import rdb5c
 
     per_forward = NB * 3
-    paths = [_options(root, name="smoke_f32"),
-             _options(root, name="smoke_bf16", use_amp=True)]
-    rdb5c.launches = 0
-    runs = []
-    for path in paths:
+    runs = [(_options(root, name="smoke_f32"), 1),
+            (_options(root, name="smoke_bf16", use_amp=True), 1),
+            (_options(root, name="smoke_x8", x8=True), 8),
+            (_options(root, name="smoke_chop", chop=True), 1)]
+    _reset_launches()
+    before = 0
+    for path, forwards in runs:
         t0 = time.time()
         averages = test_cli.main(["-opt", path])
         torch.cuda.synchronize()
-        runs.append((path, rdb5c.launches, time.time() - t0, averages))
-    launches = rdb5c.launches
-    before = 0
-    for path, count, secs, averages in runs:
+        secs, count = time.time() - t0, _ran()["rdb5c"]
         vals = {m["name"]: m["average"] for m in averages["synth"]}
         print(f"slice: {os.path.basename(path)} {N_IMAGES} images in "
               f"{secs:.2f} s, launches {count - before}, metrics {vals}")
-        if count - before != per_forward * N_IMAGES:
+        if count - before != per_forward * forwards * N_IMAGES:
             raise AssertionError(
                 f"{count - before} kernel launches, expected "
-                f"{per_forward} per G forward x {N_IMAGES}")
+                f"{per_forward} per G forward x {forwards} x {N_IMAGES}")
         if not all(math.isfinite(v) for v in vals.values()):
             raise AssertionError(f"metrics not finite: {vals}")
         pngs = os.listdir(os.path.join(root, "results",
@@ -645,7 +699,7 @@ def phase_slice(smi: str, root: str):
         if len([p for p in pngs if p.endswith(".png")]) != N_IMAGES:
             raise AssertionError(f"PNGs written: {pngs}")
         before = count
-    return launches
+    return _counted()["rdb5c"]
 
 
 def phase_g_compare(smi: str, root: str) -> None:
@@ -702,7 +756,6 @@ def phase_debug_configs(smi: str, root: str) -> None:
     import torch
 
     from trainner_tpu_torch import test as test_cli
-    from trainner_tpu_torch.ops import rdb5c
     from trainner_tpu_torch.train.sr_trainer import create_trainer
 
     opt = read_options_yml(DEBUG_TEST_YML)
@@ -716,7 +769,7 @@ def phase_debug_configs(smi: str, root: str) -> None:
         path = os.path.join(root, opt["name"] + ".json")
         with open(path, "w") as f:
             json.dump(opt, f)
-        rdb5c.launches = 0
+        _reset_launches()
         averages = test_cli.main(["-opt", path])
         torch.cuda.synchronize()
         vals = {m["name"]: m["average"] for v in averages.values()
@@ -724,10 +777,10 @@ def phase_debug_configs(smi: str, root: str) -> None:
         print(f"debug: {os.path.basename(DEBUG_TEST_YML)} G (nf "
               f"{g_opt['nf']}, nb {g_opt['nb']}, gc {g_opt['gc']}) served, "
               f"use_amp {use_amp}: {n_img} images, launches "
-              f"{rdb5c.launches}, metrics {vals}")
-        if rdb5c.launches != per_g * n_img or not vals or not all(
+              f"{_ran()["rdb5c"]}, metrics {vals}")
+        if _ran()["rdb5c"] != per_g * n_img or not vals or not all(
                 math.isfinite(v) for v in vals.values()):
-            raise AssertionError(f"debug serving: {rdb5c.launches} launches,"
+            raise AssertionError(f"debug serving: {_ran()["rdb5c"]} launches,"
                                  f" metrics {vals}")
 
     opt = read_options_yml(DEBUG_TRAIN_YML)
@@ -744,7 +797,7 @@ def phase_debug_configs(smi: str, root: str) -> None:
         trainer = create_trainer({**train, "use_amp": use_amp})
         state = trainer.init_state(0)
         g0 = _snapshot(state.g.net)
-        rdb5c.launches = rdb5c.backward_launches = 0
+        _reset_launches()
         for _ in range(2):
             state, logs = trainer.train_step(state, batch)
         torch.cuda.synchronize()
@@ -752,10 +805,10 @@ def phase_debug_configs(smi: str, root: str) -> None:
         moved, total = _count_moved(state.g.net, g0, lambda k: True)
         print(f"debug: {os.path.basename(DEBUG_TRAIN_YML)} G and D, "
               f"{trainer.dtype}, b={b} {hr_px // 4}->{hr_px} px, 2 steps: "
-              f"forward launches {rdb5c.launches}, backward launches "
-              f"{rdb5c.backward_launches}, G tensors moved {moved} of "
+              f"forward launches {_ran()["rdb5c"]}, backward launches "
+              f"{_ran()["rdb5c_bwd"]}, G tensors moved {moved} of "
               f"{total}, logs {vals}")
-        if (rdb5c.launches, rdb5c.backward_launches) != (2 * per_g,
+        if (_ran()["rdb5c"], _ran()["rdb5c_bwd"]) != (2 * per_g,
                                                           2 * per_g) \
                 or moved != total or not all(math.isfinite(v)
                                              for v in vals.values()):
@@ -811,7 +864,6 @@ def phase_train(smi: str) -> dict:
     the bf16 run and the step times."""
     import torch
 
-    from trainner_tpu_torch.ops import rdb5c
     from trainner_tpu_torch.train.sr_trainer import create_trainer
 
     per_g = NB * 3
@@ -824,11 +876,12 @@ def phase_train(smi: str) -> dict:
         name = str(trainer.dtype).replace("torch.", "")
         state = trainer.init_state(0)
         g0, d0 = _snapshot(state.g.net), _snapshot(state.d.net)
-        rdb5c.launches = rdb5c.backward_launches = 0
+        _reset_launches()
         for _ in range(n_check):
             state, logs = trainer.train_step(state, batch)
         torch.cuda.synchronize()
-        fwd, bwd = rdb5c.launches, rdb5c.backward_launches
+        fwd, bwd = _ran()["rdb5c"], _ran()["rdb5c_bwd"]
+        counted = _counted()
         vals = {k: float(v) for k, v in logs.items()}
         print(f"train: {name} b={batch['LR'].shape[0]} "
               f"{TRAIN_SHAPE[1]}->{TRAIN_SHAPE[1] * 4} px, {n_check} steps: "
@@ -878,7 +931,9 @@ def phase_train(smi: str) -> dict:
         if not math.isfinite(float(logs["l_g_total"])):
             raise AssertionError("l_g_total is not finite after the timed "
                                  "steps")
-        result[name] = dict(step_ms=step_ms, forward=fwd, backward=bwd)
+        # the wrappers' counts (eager and at capture) for the summary
+        result[name] = dict(step_ms=step_ms, forward=counted["rdb5c"],
+                            backward=counted["rdb5c_bwd"])
         del trainer, state
         torch.cuda.empty_cache()
 
@@ -886,11 +941,11 @@ def phase_train(smi: str) -> dict:
     trainer = create_trainer(_train_options(D_update_ratio=2))
     state = trainer.init_state(1)
     for step, (want_f, want_b) in enumerate(((per_g, per_g), (per_g, 0))):
-        rdb5c.launches = rdb5c.backward_launches = 0
+        _reset_launches()
         g0 = _snapshot(state.g.net)
         state, logs = trainer.train_step(state, batch)
         torch.cuda.synchronize()
-        fwd, bwd = rdb5c.launches, rdb5c.backward_launches
+        fwd, bwd = _ran()["rdb5c"], _ran()["rdb5c_bwd"]
         moved, _ = _count_moved(state.g.net, g0, lambda k: True)
         print(f"train: D_update_ratio 2, step {step}: forward launches "
               f"{fwd}, backward launches {bwd}, G tensors moved {moved}, "
@@ -910,7 +965,6 @@ def phase_g_gradient(smi: str) -> None:
     the same on both plain versions, TF32 off."""
     import torch
 
-    from trainner_tpu_torch.ops import rdb5c
     from trainner_tpu_torch.train.sr_trainer import create_trainer
 
     opt = {**_train_options(), "use_amp": False}
@@ -928,13 +982,13 @@ def phase_g_gradient(smi: str) -> None:
         return {k: p.grad.clone()
                 for k, p in state.g.net.named_parameters()}
 
-    before = rdb5c.backward_launches
+    before = _ran()["rdb5c_bwd"]
     got = grads()
-    if rdb5c.backward_launches - before != NB * 3:
+    if _ran()["rdb5c_bwd"] - before != NB * 3:
         raise AssertionError("the G stage did not run the backward kernel")
     with _plain_blocks():
         ref = grads()
-    if rdb5c.backward_launches - before != NB * 3:
+    if _ran()["rdb5c_bwd"] - before != NB * 3:
         raise AssertionError("the plain pass launched a kernel")
     # f32 through 69 chained blocks forward and back, sums in another
     # order, and a c_k within rounding of zero may take the other slope,
@@ -1001,7 +1055,6 @@ def phase_producer(smi: str, root: str) -> dict:
     import torch
 
     from trainner_tpu_torch.data import create_dataloader, create_dataset
-    from trainner_tpu_torch.ops import blur, rdb5c
     from trainner_tpu_torch.options import parse_dict
     from trainner_tpu_torch.train import (batches, create_trainer,
                                           make_otf_degradation)
@@ -1058,15 +1111,16 @@ def phase_producer(smi: str, root: str) -> dict:
         raise AssertionError("the degraded LR batch is not as expected")
 
     n_timed = 10
-    blur.launches = rdb5c.launches = rdb5c.backward_launches = 0
+    _reset_launches()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for _ in range(n_timed):
         batch, logs = e2e_step()
     torch.cuda.synchronize()
     e2e_ms = (time.perf_counter() - t0) / n_timed * 1e3
-    counts = dict(blur=blur.launches, forward=rdb5c.launches,
-                  backward=rdb5c.backward_launches)
+    counts = dict(blur=_ran()["blur"], forward=_ran()["rdb5c"],
+                  backward=_ran()["rdb5c_bwd"])
+    wrapper = _counted()
     vals = {k: float(v) for k, v in logs.items()}
     print(f"producer: {n_timed} end-to-end steps: blur launches "
           f"{counts['blur']}, forward launches {counts['forward']}, backward "
@@ -1087,15 +1141,16 @@ def phase_producer(smi: str, root: str) -> dict:
         generator=gen)
     for _ in range(2):
         e2e_step()
-    blur.launches = rdb5c.launches = rdb5c.backward_launches = 0
+    _reset_launches()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for _ in range(n_timed):
         batch, logs = e2e_step()
     torch.cuda.synchronize()
     e2e_sh_ms = (time.perf_counter() - t0) / n_timed * 1e3
-    counts["shuffled"] = dict(blur=blur.launches, forward=rdb5c.launches,
-                              backward=rdb5c.backward_launches)
+    counts["shuffled"] = dict(blur=_ran()["blur"], forward=_ran()["rdb5c"],
+                              backward=_ran()["rdb5c_bwd"])
+    wrapper_sh = _counted()
     per_batch = 2 * 2 * SHUFFLE_K
     print(f"producer: {n_timed} shuffled end-to-end steps: launches "
           f"{counts['shuffled']}")
@@ -1156,7 +1211,10 @@ def phase_producer(smi: str, root: str) -> dict:
             smi, e2e_ms)
     del trainer, state, stream
     torch.cuda.empty_cache()
-    return counts
+    # the wrappers' counts over the timed steps, for the summary
+    summary = lambda c: dict(blur=c["blur"], forward=c["rdb5c"],  # noqa
+                             backward=c["rdb5c_bwd"])
+    return dict(summary(wrapper), shuffled=summary(wrapper_sh))
 
 
 def _stand_in_degrader(ds_opt: dict):
@@ -1189,7 +1247,6 @@ def phase_shuffle(smi: str, root: str) -> dict:
     from trainner_tpu_torch.data.common import decode_image
     from trainner_tpu_torch.data.pipeline import (BatchDegrader, _full_f32,
                                                   plan_to_device)
-    from trainner_tpu_torch.ops import blur
     from trainner_tpu_torch.ops import degradations as D
     from trainner_tpu_torch.options import parse_dict
 
@@ -1253,14 +1310,14 @@ def phase_shuffle(smi: str, root: str) -> dict:
             shapes[key] = shapes.get(key, 0) + 1
             return orig(xx, kern)
 
-        blur.launches = 0
+        _reset_launches()
         D.apply_kernels = spy
         try:
             y = deg(gen, x_u8)
             torch.cuda.synchronize()
         finally:
             D.apply_kernels = orig
-        launches = blur.launches
+        launches = _ran()["blur"]
         off = float((y * 255 - (y * 255).round()).abs().max())
         print(f"shuffle: bsrgan {label}, b={b} {hr}->{hr // 4} px: blur "
               f"launches per batch {launches}, shapes {shapes}; output "
@@ -1319,7 +1376,7 @@ def _state_tensors(state) -> dict:
         ns = getattr(state, which)
         for k, v in ns.net.state_dict().items():
             out[f"{which}.{k}"] = v.detach().cpu().clone()
-        out[f"{which}.count"] = ns.opt.count
+        out[f"{which}.count"] = int(ns.opt.count)
         for key in ("mu", "nu"):
             for i, t in enumerate(getattr(ns.opt, key)):
                 out[f"{which}.{key}.{i}"] = t.detach().cpu().clone()
@@ -1359,7 +1416,6 @@ def phase_cli(smi: str, root: str) -> dict:
     the first run's counts."""
     import torch
 
-    from trainner_tpu_torch.ops import blur, rdb5c
     from trainner_tpu_torch.train import cli
     from trainner_tpu_torch.train.sr_trainer import SRTrainer
     from trainner_tpu_torch.utils import checkpoint
@@ -1369,20 +1425,21 @@ def phase_cli(smi: str, root: str) -> dict:
     per_g = NB * 3
     per_batch = 2 * 2 * SHUFFLE_K
     exp = os.path.join(root, "cli", "experiments", "001_sr_template")
-    rec = {"steps": [], "save": [], "val": [], "loaded": None}
+    rec = {"steps": [], "save": [], "val": [], "loaded": None,
+           "counted": []}
     orig = (SRTrainer.train_step, checkpoint.save_checkpoint, cli.validate,
             checkpoint.load_state)
 
     def train_step(self, state, batch):
         step = state.step
-        start = (time.perf_counter(), rdb5c.launches,
-                 rdb5c.backward_launches, blur.launches)
+        start = (time.perf_counter(), _ran()["rdb5c"],
+                 _ran()["rdb5c_bwd"], _ran()["blur"])
         out = orig[0](self, state, batch)
         if step + 1 == CLI_NITER:
             torch.cuda.synchronize()
             rec["end"] = time.perf_counter()
-        rec["steps"].append((step + 1, start, rdb5c.launches,
-                             rdb5c.backward_launches))
+        rec["steps"].append((step + 1, start, _ran()["rdb5c"],
+                             _ran()["rdb5c_bwd"]))
         return out
 
     def timed(fn, key):
@@ -1402,12 +1459,15 @@ def phase_cli(smi: str, root: str) -> dict:
 
     def run(argv):
         rec["steps"].clear()
-        blur.launches = rdb5c.launches = rdb5c.backward_launches = 0
+        _reset_launches()
         t0 = time.perf_counter()
         state = cli.main(argv)
         torch.cuda.synchronize()
-        counts = dict(blur=blur.launches, forward=rdb5c.launches,
-                      backward=rdb5c.backward_launches)
+        counts = dict(blur=_ran()["blur"], forward=_ran()["rdb5c"],
+                      backward=_ran()["rdb5c_bwd"])
+        c = _counted()
+        rec["counted"].append(dict(blur=c["blur"], forward=c["rdb5c"],
+                                   backward=c["rdb5c_bwd"]))
         return state, counts, time.perf_counter() - t0
 
     SRTrainer.train_step = train_step
@@ -1523,7 +1583,8 @@ def phase_cli(smi: str, root: str) -> dict:
     del state2
     torch.cuda.empty_cache()
     print(f"cli: ok ({smi})")
-    return dict(counts, resumed=counts2)
+    # the wrappers' counts (eager and at capture) for the summary
+    return dict(rec["counted"][0], resumed=rec["counted"][1])
 
 
 BF16_BLOCK_KERNELS = {"rdb5c.cu": ("rdb_stage_mma",),
@@ -1837,20 +1898,26 @@ def _width_times(smi: str, gen) -> None:
 def _device_ms(fn, match: str, calls: int = 10) -> float:
     """Device time per call of ``fn``, under torch.profiler, of the kernels
     whose name holds ``match`` (all their launches in one call added up),
-    over ``calls`` calls; 0.0 when the profiler recorded none."""
+    over ``calls`` calls; 0.0 when three sessions of the profiler recorded
+    none."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    spans = [e.time_range.elapsed_us() for e in prof.events()
-             if e.device_type == DeviceType.CUDA and match in e.name]
+    # the profiler now and then loses a session's kernel records: up to
+    # three sessions
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        spans = [e.time_range.elapsed_us() for e in prof.events()
+                 if e.device_type == DeviceType.CUDA and match in e.name]
+        if spans:
+            break
     return sum(spans) / calls / 1e3
 
 
@@ -2096,6 +2163,686 @@ def phase_trace(smi: str, root: str, step_ms: dict) -> None:
         torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------------------
+# graphs: the step, train_steps, the degrader and eval_step as CUDA graphs
+# ---------------------------------------------------------------------------
+
+GRAPH_STEPS = 3     # graphed against eager steps, per type
+WINDOW_K = 10       # train_steps' window, as bench.py times it
+WINDOW_BOUNDARY = 5  # a MultiStep boundary inside the window
+X8_CHOP_LR = (1, 300, 200, 3)
+
+
+def _net_tensors(state) -> dict:
+    return {f"{w}.{k}": v.detach().clone()
+            for w in ("g", "d") for k, v in
+            getattr(state, w).net.state_dict().items()}
+
+
+def _check_steps(label: str, logs_a, logs_b, got: dict, want: dict,
+                 lr: float, n_g: int, n_d: int) -> str:
+    """The step-parity tolerances of ``tests/test_torch_train_step.py``
+    between two runs of the same steps
+    (adam): logs 1e-4 relative at the first step and 2e-3 after it (floor
+    0.3 for D's mean logits, 1e-3 for the losses); every parameter element
+    within 2 lr per update, all but 0.1 % of each tensor within 0.02 lr
+    per update (D's biases that only rounding moves excepted); D's running
+    statistics within 1e-3 of their size. Returns the worst log error."""
+    worst = 0.0
+    for i, (a, b) in enumerate(zip(logs_a, logs_b)):
+        if set(a) != set(b):
+            raise AssertionError(f"{label}: step {i} logs {sorted(a)} vs "
+                                 f"{sorted(b)}")
+        rel = 1e-4 if i == 0 else 2e-3
+        for k in b:
+            x, y = float(a[k]), float(b[k])
+            floor = 0.3 if k in ("D_real", "D_fake") else 1e-3
+            worst = max(worst, abs(x - y) / max(abs(y), floor))
+            if not (math.isfinite(x) and abs(x - y) <= rel * max(abs(y),
+                                                                 floor)):
+                raise AssertionError(f"{label}: step {i} {k} {x} vs {y}")
+    for k, w in want.items():
+        err = (got[k].float() - w.float()).abs()
+        if "running_" in k:
+            if float(err.max()) > 1e-3 * float(w.abs().max()):
+                raise AssertionError(f"{label}: {k} {float(err.max())}")
+            continue
+        n = n_g if k.startswith("g.") else n_d
+        name = k[2:]
+        noise_only = k.startswith("d.") and name.endswith("bias") and (
+            name.startswith("linear")
+            or "d." + name.replace("bias", "norm.weight") in want)
+        if float(err.max()) > 2 * lr * max(n, 1):
+            raise AssertionError(f"{label}: {k} {float(err.max())}")
+        far = float((err > 0.02 * lr * max(n, 1)).float().mean())
+        if not noise_only and far > 1e-3:
+            raise AssertionError(f"{label}: {k} {far} of it past 0.02 lr")
+    return worst
+
+
+def _kernel_calls(fn) -> tuple:
+    """One call of ``fn`` under torch.profiler: (kernel launches by
+    name, device-busy ms, wall ms)."""
+    import collections
+
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    calls, busy = collections.Counter(), 0.0
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            name = e.name.removeprefix("void ").replace(
+                "(anonymous namespace)::", "").split("(")[0].split("<")[0]
+            calls[name] += 1
+            busy += e.time_range.elapsed_us() / 1e3
+    return calls, busy, wall
+
+
+def _calls_per_wrapper(calls) -> dict:
+    """Kernel launches in a trace -> wrapper calls: five stage kernels per
+    block forward, one dW kernel per block backward, one blur kernel per
+    blur."""
+    stages = sum(n for k, n in calls.items()
+                 if k.startswith("rdb_") and "_dx_" not in k)
+    return {"rdb5c": stages / 5,
+            "rdb5c_bwd": sum(n for k, n in calls.items()
+                             if k.startswith("dw_")),
+            "blur": sum(n for k, n in calls.items() if "blur_kernel" in k)}
+
+
+def _graph_step(smi: str) -> dict:
+    """The step as a graph against the eager step, bf16 and f32: three
+    steps each from one seed on the same batches, within the step
+    tolerances of ``_check_steps``; the recorded launches of one replay against a profiler
+    trace of it; fresh latent noise per replay. Returns the graphs'
+    capture seconds and pool bytes by type."""
+    import torch
+
+    from trainner_tpu_torch.ops.blocks import GaussianNoise
+    from trainner_tpu_torch.train.sr_trainer import create_trainer
+    from trainner_tpu_torch.utils.graphs import Captured
+
+    per_g = NB * 3
+    batches = [_train_batch(seed=s) for s in range(GRAPH_STEPS)]
+    lr = _train_options()["train"]["lr_G"]
+    out = {}
+    for use_amp in (True, False):
+        runs = {}
+        # cuDNN's deterministic algorithms for the comparison: some of its
+        # f32 weight-gradient algorithms add with atomics, so two eager
+        # runs differ by themselves; so the one difference left is graph
+        # against eager
+        torch.backends.cudnn.deterministic = True
+        try:
+            for graphs in (True, False):
+                trainer = create_trainer({**_train_options(),
+                                          "use_amp": use_amp}, graphs=graphs)
+                state = trainer.init_state(0)
+                logs = [trainer.train_step(state, b)[1] for b in batches]
+                torch.cuda.synchronize()
+                runs[graphs] = (trainer, state, logs, _net_tensors(state))
+        finally:
+            torch.backends.cudnn.deterministic = False
+        name = str(runs[True][0].dtype).replace("torch.", "")
+        worst = _check_steps(f"graphs: {name} step", runs[True][2],
+                             runs[False][2], runs[True][3], runs[False][3],
+                             lr, GRAPH_STEPS, GRAPH_STEPS)
+        trainer, state = runs[True][:2]
+        caps = trainer.step_graphs()
+        if len(caps) != 1:
+            raise AssertionError(f"graphs: {len(caps)} step graphs")
+        cap = next(iter(caps.values()))
+        want = {"rdb5c": per_g, "rdb5c_bwd": per_g, "blur": 0}
+        calls, busy, wall = _kernel_calls(
+            lambda: trainer.train_step(state, batches[0]))
+        traced = _calls_per_wrapper(calls)
+        print(f"graphs: {name} step, {GRAPH_STEPS} graphed steps against "
+              f"{GRAPH_STEPS} eager ones within the step tolerances "
+              f"(worst log error {worst:.3e} relative); recorded launches "
+              f"per replay {cap.launches}, in a profiler trace of one "
+              f"replay {traced} ({sum(calls.values())} kernels, busy "
+              f"{busy:.3f} ms of {wall:.3f} ms); replays {cap.replays}; "
+              f"capture {cap.capture_s:.3f} s, pool "
+              f"{cap.pool_bytes / 2 ** 20:.1f} MiB ({smi})")
+        if cap.launches != want or traced != want:
+            raise AssertionError(f"graphs: {name} step launches "
+                                 f"{cap.launches}, traced {traced}")
+        # times: 10 steps each, in turns (eager, graphed, graphed, eager)
+        ms = {}
+        for graphs in (False, True, True, False):
+            tr, st = runs[graphs][:2]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(10):
+                tr.train_step(st, batches[1])
+            torch.cuda.synchronize()
+            ms.setdefault(graphs, []).append(
+                (time.perf_counter() - t0) * 1e2)
+        print(f"times: train_step {name} b={TRAIN_SHAPE[0]} "
+              f"{TRAIN_SHAPE[1]}->{TRAIN_SHAPE[1] * 4} px, ms per step over "
+              f"10 (eager, graphed, graphed, eager): eager {ms[False]}, "
+              f"graphed {ms[True]}; it/s eager {1e3 / min(ms[False]):.4f}, "
+              f"graphed {1e3 / min(ms[True]):.4f} ({smi})")
+        for graphs in (True, False):
+            tr, st = runs[graphs][:2]
+            _traced(lambda: tr.train_step(st, batches[1]),
+                    f"{'graphed' if graphs else 'eager'} train_step {name}",
+                    smi, min(ms[graphs]))
+        out[name] = dict(capture_s=cap.capture_s, pool=cap.pool_bytes,
+                         eager_ms=min(ms[False]), graphed_ms=min(ms[True]))
+        del runs, trainer, state, cap, caps, tr, st
+        torch.cuda.empty_cache()
+
+    # latent noise in a graph: the state's generator registered with it
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    layer = GaussianNoise(0.1).train()
+    layer.generator = gen
+    x = torch.full((64, 8, 16, 16), 3.0, device="cuda")
+    start = gen.get_state()
+    eager_rel = ((layer(x) - x) / x).clone()
+    cap = Captured(lambda: layer(x), generators=[gen])
+    gen.set_state(start)
+    first = ((cap.replay() - x) / x).clone()
+    second = ((cap.replay() - x) / x).clone()
+    torch.cuda.synchronize()
+    stats = [(float(r.mean()), float(r.std()))
+             for r in (eager_rel, first, second)]
+    print(f"graphs: latent noise, 131,072 draws a call: eager and two "
+          f"replays (mean, std of the relative noise) {stats}; the first "
+          f"replay from the eager draw's generator state equals it: "
+          f"{torch.equal(first, eager_rel)}; the two replays differ: "
+          f"{not torch.equal(first, second)}")
+    # the gate of tests/test_torch_trainer.py: |mean| < 1e-3 and
+    # |std - sigma| < 1e-3
+    if not (all(abs(m) < 1e-3 and abs(sd - 0.1) < 1e-3 for m, sd in stats)
+            and torch.equal(first, eager_rel)
+            and not torch.equal(first, second)):
+        raise AssertionError("graphs: latent noise in a graph")
+    return out
+
+
+def _graph_resume(smi: str, root: str) -> None:
+    """A resume after capture: two graphed steps, a checkpoint, two more;
+    then the checkpoint loaded into the same (captured) state, whose
+    tensors equal the saved ones bit for bit, and a replay from it within
+    the step tolerances of an eager trainer's step from the same file."""
+    import torch
+
+    from trainner_tpu_torch.train.sr_trainer import create_trainer
+    from trainner_tpu_torch.utils import checkpoint
+
+    opt = {"path": {"models": os.path.join(root, "graph_models"),
+                    "training_state": os.path.join(root, "graph_state")}}
+    batches = [_train_batch(seed=10 + s) for s in range(5)]
+    trainer = create_trainer(_train_options())
+    state = trainer.init_state(3)
+    for b in batches[:2]:
+        state, _ = trainer.train_step(state, b)
+    torch.cuda.synchronize()
+    checkpoint.save_checkpoint(state, opt, epoch=0, niter=2)
+    saved = _state_tensors(state)
+    for b in batches[2:4]:
+        state, _ = trainer.train_step(state, b)
+    path = os.path.join(root, "graph_state", "2.state")
+    state, _ = checkpoint.load_state(path, state)
+    loaded = _state_tensors(state)
+    diff = [k for k in saved if not (
+        torch.equal(saved[k], loaded[k]) if isinstance(saved[k],
+                                                       torch.Tensor)
+        else saved[k] == loaded[k])]
+    replays = trainer.step_graphs()
+    state, logs = trainer.train_step(state, batches[4])
+    eager = create_trainer(_train_options(), graphs=False)
+    estate = eager.init_state(7)
+    estate, _ = checkpoint.load_state(path, estate)
+    estate, elogs = eager.train_step(estate, batches[4])
+    torch.cuda.synchronize()
+    n_replays = sum(c.replays for c in trainer.step_graphs().values())
+    print(f"graphs: resume after capture: {len(saved)} tensors and counts "
+          f"of the saved state, {len(diff)} differ after loading into the "
+          f"captured state; the next step (a replay, {len(replays)} "
+          f"graph(s), {n_replays} replays in all) against an eager "
+          f"trainer's step from the same file")
+    if diff or not n_replays:
+        raise AssertionError(f"graphs: resume after capture {diff[:5]}")
+    _check_steps("graphs: step after the resume", [logs], [elogs],
+                 _net_tensors(state), _net_tensors(estate),
+                 _train_options()["train"]["lr_G"], 1, 1)
+    del trainer, state, eager, estate
+    torch.cuda.empty_cache()
+
+
+def _graph_window(smi: str) -> dict:
+    """``train_steps`` with k = 10 at b = 32, 32 -> 128 px, bf16, a
+    MultiStep boundary at step 5: the window (the first step of a fresh
+    trainer runs eagerly and captures, nine replays) against ten eager
+    ``train_step`` calls, the learning rates the window handed the step,
+    and both times over a second window."""
+    import torch
+
+    from trainner_tpu_torch.train.sr_trainer import create_trainer
+
+    b, px = TRAIN_SHAPE[0], TRAIN_SHAPE[1]
+    gen = torch.Generator().manual_seed(21)
+    batches = {"LR": torch.rand(WINDOW_K, b, px, px, 3, generator=gen),
+               "HR": torch.rand(WINDOW_K, b, px * 4, px * 4, 3,
+                                generator=gen)}
+    batches = {k: v.cuda() for k, v in batches.items()}
+    opt = _train_options(lr_steps=[WINDOW_BOUNDARY])
+    lr = opt["train"]["lr_G"]
+    trainer = create_trainer(opt)
+    state = trainer.init_state(0)
+    fn = trainer._get_step_fn(True, True)
+    seen = []
+
+    def recording(st, batch, lr_g, lr_d):
+        seen.append((lr_g, lr_d))
+        return fn(st, batch, lr_g, lr_d)
+
+    trainer._step_fns[(True, True)] = recording
+    state, logs = trainer.train_steps(state, batches)
+    torch.cuda.synchronize()
+    trainer._step_fns[(True, True)] = fn
+    eager = create_trainer(opt, graphs=False)
+    estate = eager.init_state(0)
+    elogs = []
+    for i in range(WINDOW_K):
+        estate, lg = eager.train_step(estate, {k: v[i] for k, v in
+                                               batches.items()})
+        elogs.append(lg)
+    want_lrs = [(trainer.schedG.get_lr(i), trainer.schedD.get_lr(i))
+                for i in range(WINDOW_K)]
+    per_step = [{k: v[i] for k, v in logs.items()} for i in range(WINDOW_K)]
+    shapes = {k: tuple(v.shape) for k, v in logs.items()}
+    worst = _check_steps("graphs: train_steps", per_step, elogs,
+                         _net_tensors(state), _net_tensors(estate), lr,
+                         WINDOW_K, WINDOW_K)
+    cap = next(iter(trainer.step_graphs().values()))
+    print(f"graphs: train_steps k={WINDOW_K} b={b} {px}->{px * 4} px bf16, "
+          f"MultiStep boundary at {WINDOW_BOUNDARY}: learning rates "
+          f"{[g for g, _ in seen]}, the schedule's {seen == want_lrs}; "
+          f"logs {shapes}, within the step tolerances of {WINDOW_K} eager "
+          f"steps (worst log error {worst:.3e}); replays {cap.replays}; "
+          f"capture {cap.capture_s:.3f} s, pool "
+          f"{cap.pool_bytes / 2 ** 20:.1f} MiB; state step {state.step}")
+    if seen != want_lrs or state.step != WINDOW_K or cap.replays != \
+            WINDOW_K - 1 or any(s != (WINDOW_K,) for s in shapes.values()):
+        raise AssertionError("graphs: train_steps")
+
+    # times: a second window each, in turns
+    times = {}
+    for label, tr, st in (("eager", eager, estate), ("graphed", trainer,
+                                                      state),
+                          ("graphed", trainer, state),
+                          ("eager", eager, estate)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        st, lg = tr.train_steps(st, batches)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3 / WINDOW_K
+        times.setdefault(label, []).append(ms)
+    print(f"times: train_steps k={WINDOW_K} b={b} {px}->{px * 4} px bf16, "
+          f"ms per step over a window (eager, graphed, graphed, eager): "
+          f"eager {times['eager']}, graphed {times['graphed']}; it/s "
+          f"eager {1e3 / min(times['eager']):.4f}, graphed "
+          f"{1e3 / min(times['graphed']):.4f} ({smi})")
+    _traced(lambda: trainer.train_steps(state, batches),
+            f"graphed train_steps k={WINDOW_K}", smi,
+            min(times["graphed"]) * WINDOW_K)
+    _traced(lambda: eager.train_steps(estate, batches),
+            f"eager train_steps k={WINDOW_K}", smi,
+            min(times["eager"]) * WINDOW_K)
+    del trainer, state, eager, estate
+    torch.cuda.empty_cache()
+    return {k: min(v) for k, v in times.items()}
+
+
+def _degrader_pair(corpus: str, shuffle: bool):
+    import torch
+
+    from trainner_tpu_torch.options import parse_dict
+    from trainner_tpu_torch.train import make_otf_degradation
+
+    opt = parse_dict(_e2e_options(corpus, shuffle=shuffle), is_train=True)
+    return (make_otf_degradation(
+                opt, generator=torch.Generator(device="cuda").manual_seed(9)),
+            make_otf_degradation(
+                opt, generator=torch.Generator(device="cuda").manual_seed(9),
+                graphs=False))
+
+
+def _graph_degrader(smi: str, root: str) -> dict:
+    """The degrader as a graph against the eager program, fixed order and
+    shuffled: from one generator state and plan stream, batch after batch
+    (the first runs eagerly and captures, then replays), bit for bit, or
+    one 1/255 level on at most 0.1 % of the values where a library call
+    (cuBLAS, cuDNN) took another algorithm under capture; the blur
+    launches each graph recorded; both times in turns."""
+    import numpy as np
+    import torch
+
+    from trainner_tpu_torch.data.common import decode_image
+
+    corpus = os.path.join(root, "corpus")
+    b, hr = BLUR_HR[0], BLUR_HR[1]
+    names = sorted(os.listdir(corpus))
+    raws = []
+    for i in range(4):
+        pick = [names[(i * b + j) % len(names)] for j in range(b)]
+        raws.append({"HR": torch.from_numpy(np.stack(
+            [decode_image(os.path.join(corpus, n))[:hr, :hr, :3]
+             for n in pick])).cuda()})
+    result = {}
+    for label, shuffle, per_batch in (("fixed order", False, 2),
+                                      ("per-sample shuffle", True,
+                                       4 * SHUFFLE_K)):
+        graphed, eager = _degrader_pair(corpus, shuffle)
+        worst, n_off = 0.0, 0
+        for raw in raws:
+            got, want = graphed(raw)["LR"], eager(raw)["LR"]
+            d = (got - want).abs()
+            worst = max(worst, float(d.max()))
+            n_off += int((d > 0).sum())
+        torch.cuda.synchronize()
+        caps = list(graphed.graphs.values())
+        cap = caps[0]
+        total = len(raws) * got.numel()
+        same = worst == 0.0
+        why = "" if same else (
+            f"; not bit for bit: {n_off} of {total} values differ, at most "
+            f"{worst * 255:.3f} of a 1/255 level (a library call, cuBLAS or "
+            f"cuDNN, takes another algorithm under capture)")
+        calls, busy, wall = _kernel_calls(lambda: graphed(raws[0]))
+        traced = _calls_per_wrapper(calls)["blur"]
+        print(f"graphs: degrader, {label}, b={b} {hr}->{hr // 4} px: "
+              f"{len(raws)} batches graphed against eager from one "
+              f"generator state and plan stream: equal bit for bit {same}"
+              f"{why}; recorded launches per replay {cap.launches}, blur "
+              f"kernels in a trace of one replay {traced}; replays "
+              f"{cap.replays}; capture {cap.capture_s:.3f} s, pool "
+              f"{cap.pool_bytes / 2 ** 20:.1f} MiB")
+        if len(caps) != 1 or cap.launches["blur"] != per_batch \
+                or traced != per_batch or not (
+                    same or (worst <= 1 / 255 + 1e-6
+                             and n_off <= 1e-3 * total)):
+            raise AssertionError(f"graphs: degrader {label}")
+        ms = {}
+        for which, fn in (("eager", eager), ("graphed", graphed),
+                          ("graphed", graphed), ("eager", eager)):
+            ms.setdefault(which, []).append(
+                _time_ms(lambda: fn(raws[1]), iters=10, warmup=2))
+        print(f"times: degrade bsrgan {label} b={b} {hr}->{hr // 4} px, ms "
+              f"per batch (CUDA events over 10; eager, graphed, graphed, "
+              f"eager): eager {ms['eager']}, graphed {ms['graphed']} "
+              f"({smi})")
+        for which, fn in (("graphed", graphed), ("eager", eager)):
+            _traced(lambda: fn(raws[1]), f"{which} degrade, {label}, b={b}",
+                    smi, min(ms[which]))
+        result[label] = dict(eager_ms=min(ms["eager"]),
+                             graphed_ms=min(ms["graphed"]),
+                             capture_s=cap.capture_s, pool=cap.pool_bytes)
+        del graphed, eager
+        torch.cuda.empty_cache()
+    return result
+
+
+def _graph_e2e(smi: str, root: str) -> dict:
+    """The end-to-end rate, loader -> degrader -> step at full width in
+    bf16, eager (``graphs=False`` for both) against graphed, fixed order
+    and shuffled, in turns."""
+    import torch
+
+    from trainner_tpu_torch.data import create_dataloader, create_dataset
+    from trainner_tpu_torch.options import parse_dict
+    from trainner_tpu_torch.train import (batches, create_trainer,
+                                          make_otf_degradation)
+
+    corpus = os.path.join(root, "corpus")
+    rates = {}
+    for shuffle in (False, True):
+        opt = parse_dict(_e2e_options(corpus, shuffle=shuffle),
+                         is_train=True)
+        ds_opt = opt["datasets"]["train"]
+        pair = {}
+        for graphs in (False, True):
+            loader = create_dataloader(create_dataset(ds_opt), ds_opt,
+                                       pin_memory=True)
+            pair[graphs] = dict(
+                degrade=make_otf_degradation(
+                    opt, generator=torch.Generator(
+                        device="cuda").manual_seed(7), graphs=graphs),
+                trainer=create_trainer(opt, graphs=graphs),
+                stream=batches(loader))
+            pair[graphs]["state"] = pair[graphs]["trainer"].init_state(0)
+
+        def run(p, n):
+            for _ in range(n):
+                batch = p["degrade"](next(p["stream"]))
+                p["state"], logs = p["trainer"].train_step(p["state"], batch)
+            torch.cuda.synchronize()
+            return logs
+
+        label = "per-sample shuffle" if shuffle else "fixed order"
+        ms = {}
+        for graphs in (False, True):
+            run(pair[graphs], 3)
+        for graphs in (False, True, True, False):
+            t0 = time.perf_counter()
+            logs = run(pair[graphs], 10)
+            ms.setdefault(graphs, []).append(
+                (time.perf_counter() - t0) * 1e2)
+            if not all(math.isfinite(float(v)) for v in logs.values()):
+                raise AssertionError(f"graphs: e2e {label} logs")
+        print(f"times: train_e2e bfloat16 b={TRAIN_SHAPE[0]} "
+              f"{TRAIN_SHAPE[1]}->{TRAIN_SHAPE[1] * 4} px, {label}, ms per "
+              f"step over 10 (eager, graphed, graphed, eager): eager "
+              f"{ms[False]}, graphed {ms[True]}; it/s eager "
+              f"{1e3 / min(ms[False]):.4f}, graphed "
+              f"{1e3 / min(ms[True]):.4f} ({smi})")
+        for graphs in (True, False):
+            _traced(lambda: run(pair[graphs], 1),
+                    f"{'graphed' if graphs else 'eager'} end-to-end step, "
+                    f"{label}", smi, min(ms[graphs]))
+        rates[label] = {"eager": min(ms[False]), "graphed": min(ms[True])}
+        del pair
+        torch.cuda.empty_cache()
+    return rates
+
+
+def _graph_serving(smi: str) -> None:
+    """``eval_step`` as a graph against the eager one at b = 8, 128 -> 512
+    px (f32 within 1e-5 and bf16 within 3e-2 of the output's size, the
+    full-G tolerances; times in turns); then x8 and chop on one 300 x 200
+    LR image in f32 on the card against the eager ``eval_step`` over the
+    same rotations and tiles on the CPU with the same weights (the plain
+    versions), within the full-G f32 tolerance."""
+    import torch
+
+    from trainner_tpu_torch.train.sr_trainer import create_trainer
+
+    opt = {"is_train": False, "scale": 4,
+           "network_G": {"type": "rrdb_net", "nf": NF, "nb": NB, "gc": GC,
+                         "upscale": 4}}
+    b, h, w = MAIN_SHAPE
+    lr = torch.rand(b, h, w, 3, generator=torch.Generator().manual_seed(31)
+                    ).cuda()
+    for use_amp, rel_tol in ((False, 1e-5), (True, 3e-2)):
+        pair = {}
+        for graphs in (True, False):
+            tr = create_trainer({**opt, "use_amp": use_amp}, graphs=graphs)
+            st = tr.init_state(0)
+            _gain_weights(st.g.net, seed=1)
+            pair[graphs] = (tr, st)
+        name = str(pair[True][0].dtype).replace("torch.", "")
+        outs = [pair[True][0].eval_step(pair[True][1], lr) for _ in range(3)]
+        want = pair[False][0].eval_step(pair[False][1], lr)
+        torch.cuda.synchronize()
+        scale = float(want.abs().max())
+        err = max(float((o - want).abs().max()) for o in outs)
+        cap = next(iter(pair[True][0].eval_graphs().values()))
+        print(f"graphs: eval_step {name} b={b} {h}->{h * 4} px, graphed "
+              f"(warm-up, then 2 replays) against eager: max_abs_err "
+              f"{err:.3e} on max|ref| {scale:.3e}, tol "
+              f"{rel_tol * scale:.3e}; recorded launches per replay "
+              f"{cap.launches}; capture {cap.capture_s:.3f} s, pool "
+              f"{cap.pool_bytes / 2 ** 20:.1f} MiB")
+        if not err <= rel_tol * scale or cap.launches["rdb5c"] != NB * 3:
+            raise AssertionError(f"graphs: eval_step {name}")
+        ms = {}
+        for graphs in (False, True, True, False):
+            tr, st = pair[graphs]
+            ms.setdefault(graphs, []).append(
+                _time_ms(lambda: tr.eval_step(st, lr), iters=10, warmup=2))
+        print(f"times: G forward {name} b={b} {h}->{h * 4} px through "
+              f"eval_step (eager, graphed, graphed, eager): eager "
+              f"{ms[False]} ms, graphed {ms[True]} ms; "
+              f"{b * h * w * 16 / min(ms[True]) / 1e3:.3f} Mpx/s graphed "
+              f"({smi})")
+        for graphs in (True, False):
+            tr, st = pair[graphs]
+            _traced(lambda: tr.eval_step(st, lr),
+                    f"{'graphed' if graphs else 'eager'} eval_step {name} "
+                    f"b={b}", smi, min(ms[graphs]))
+        del pair
+        torch.cuda.empty_cache()
+
+    # x8 and chop on one image, against the CPU's eager composition
+    tr = create_trainer(dict(opt))
+    st = tr.init_state(0)
+    _gain_weights(st.g.net, seed=2)
+    cpu = create_trainer(dict(opt), device="cpu")
+    cst = cpu.init_state(0)
+    cst.g.net.load_state_dict({k: v.cpu() for k, v in
+                               st.g.net.state_dict().items()})
+    x = torch.rand(*X8_CHOP_LR, generator=torch.Generator().manual_seed(32))
+    threads = torch.get_num_threads()
+    torch.set_num_threads(os.cpu_count() or 8)
+    try:
+        for label, run in (("x8", lambda t, s, v: t.eval_step_x8(s, v)),
+                           ("chop", lambda t, s, v: t.eval_step_chop(s, v))):
+            got = run(tr, st, x.cuda())
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            want = run(cpu, cst, x)
+            cpu_s = time.perf_counter() - t0
+            scale = float(want.abs().max())
+            err = float((got.cpu() - want).abs().max())
+            shapes = sorted(k[0] for k in tr.eval_graphs())
+            print(f"graphs: {label} on a {X8_CHOP_LR[1]}x{X8_CHOP_LR[2]} "
+                  f"LR image, f32 on the card against the CPU's eager "
+                  f"composition ({cpu_s:.1f} s there): max_abs_err "
+                  f"{err:.3e} on max|ref| {scale:.3e}, tol "
+                  f"{1e-5 * scale:.3e}; eval_step graphs by shape {shapes}")
+            if tuple(got.shape) != (1, X8_CHOP_LR[1] * 4, X8_CHOP_LR[2] * 4,
+                                    3) or not err <= 1e-5 * scale:
+                raise AssertionError(f"graphs: {label}")
+    finally:
+        torch.set_num_threads(threads)
+    del tr, st, cpu, cst
+    torch.cuda.empty_cache()
+
+
+def _graph_cli(smi: str, root: str) -> None:
+    """The training CLI's steady rate, eager (the trainer and the degrader
+    made with ``graphs=False``) against graphed (the default), on
+    ``train_sr.yml`` at full width, 8 iterations each, in turns."""
+    import torch
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from trainner_tpu_torch.train import cli
+    from trainner_tpu_torch.train.sr_trainer import SRTrainer
+
+    corpus = os.path.join(root, "corpus")
+    orig = (cli.create_sr_trainer, cli.make_otf_degradation)
+    rates = {}
+    for n, graphs in enumerate((False, True, True, False)):
+        with open(os.path.join(root, "cli_train_sr.json")) as f:
+            opt = json.load(f)
+        opt["train"].update(niter=8, val_freq=10 ** 6)
+        opt["logger"].update(print_freq=10 ** 6,
+                             save_checkpoint_freq=10 ** 6)
+        opt["path"] = {"root": os.path.join(root, f"cli_rate_{n}")}
+        opt["datasets"]["train"]["dataroot_HR"] = corpus
+        opt["datasets"].pop("val", None)
+        path = os.path.join(root, f"cli_rate_{n}.json")
+        with open(path, "w") as f:
+            json.dump(opt, f)
+        starts, ends, traced = [], [], []
+        # the device's activity only: the host side would trace the
+        # loader's threads too, and slow them
+        prof = profile(activities=[ProfilerActivity.CUDA])
+        cli.create_sr_trainer = lambda o, device=None: orig[0](
+            o, device=device, graphs=graphs)
+        cli.make_otf_degradation = lambda o, device=None, generator=None: \
+            orig[1](o, device=device, generator=generator, graphs=graphs)
+        step = SRTrainer.train_step
+
+        def timed(self, state, batch):
+            # one whole iteration (loader, degrader, step) under the
+            # profiler: from the start of step 6 to the start of step 7,
+            # the profiler's own start and stop outside the span
+            if len(starts) == 6:
+                torch.cuda.synchronize()
+                traced.append(time.perf_counter() - traced.pop())
+                prof.__exit__(None, None, None)
+            if len(starts) == 5:
+                prof.__enter__()
+                torch.cuda.synchronize()
+                traced.append(time.perf_counter())
+            starts.append(time.perf_counter())
+            out = step(self, state, batch)
+            if len(starts) == 8:
+                torch.cuda.synchronize()
+                ends.append(time.perf_counter())
+            return out
+
+        SRTrainer.train_step = timed
+        try:
+            cli.main(["-opt", path])
+        finally:
+            SRTrainer.train_step = step
+            cli.create_sr_trainer, cli.make_otf_degradation = orig
+        # from the start of step 3 to the end of step 8 (synchronised)
+        rates.setdefault(graphs, []).append(6 / (ends[0] - starts[2]))
+        busy = sum(e.time_range.elapsed_us() for e in prof.events()
+                   if e.device_type == DeviceType.CUDA) / 1e3
+        print(f"trace: cli main() {'graphed' if graphs else 'eager'}, one "
+              f"iteration (step 6: loader, degrader, step): wall "
+              f"{traced[0] * 1e3:.3f} ms (traced), device busy {busy:.3f} "
+              f"ms, idle share {1 - busy / (traced[0] * 1e3):.4f} ({smi})")
+    print(f"times: cli main() on train_sr.yml, steps 3-8 (synchronised "
+          f"at the end of step 8), it/s in turns (eager, graphed, graphed, eager): eager "
+          f"{rates[False]}, graphed {rates[True]} ({smi})")
+
+
+def phase_graphs(smi: str, root: str) -> None:
+    """The programs as CUDA graphs against the same programs run eagerly
+    (``graphs=False``), in one process: the step (bf16, f32) with its
+    recorded launches against a profiler trace of one replay and the
+    latent noise of a replay; a resume after capture; ``train_steps``; the
+    degrader; ``eval_step``, x8 and chop; then eager against graphed times
+    of the end-to-end rate and the CLI's steady rate."""
+    t0 = time.perf_counter()
+    _graph_step(smi)
+    _graph_resume(smi, root)
+    _graph_window(smi)
+    _graph_degrader(smi, root)
+    _graph_serving(smi)
+    _graph_e2e(smi, root)
+    _graph_cli(smi, root)
+    print(f"graphs: ok in {time.perf_counter() - t0:.1f} s ({smi})")
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -2157,6 +2904,7 @@ def main(argv=None) -> int:
         producer = phase_producer(smi, root)
         phase_shuffle(smi, root)
         cli_counts = phase_cli(smi, root)
+        phase_graphs(smi, root)
         torch.backends.cudnn.allow_tf32 = False
         torch.backends.cuda.matmul.allow_tf32 = False
         rows = phase_times(smi, root)

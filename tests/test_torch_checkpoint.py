@@ -24,8 +24,9 @@ from trainner_tpu_torch.models.rrdb import RRDBNet
 from trainner_tpu_torch.train.sr_trainer import SRTrainer
 from trainner_tpu_torch.utils import checkpoint as C
 from trainner_tpu_torch.utils.torch_interop import (
-    _moments_from_jax, key_to_seed, params_from_jax, params_to_jax,
-    seed_to_key, train_state_from_state_dict, train_state_to_jax)
+    _moments_from_jax, key_to_seed, load_train_state, params_from_jax,
+    params_to_jax, seed_to_key, train_state_from_jax,
+    train_state_from_state_dict, train_state_to_jax)
 
 torch.set_num_threads(2)
 
@@ -304,3 +305,64 @@ def test_key_and_seed_rule():
     a = torch.randn(3, generator=state.noise_generator)
     b = torch.randn(3, generator=torch.Generator().manual_seed(6))
     assert torch.equal(a, b)
+
+
+def _storage(state):
+    """Every tensor a captured step reads or writes, by name -> data_ptr:
+    parameters and buffers of G and D, the optimizers' count and moments."""
+    out = {}
+    for which in ("g", "d"):
+        ns = getattr(state, which)
+        for k, v in ns.net.state_dict().items():
+            out[f"{which}.{k}"] = v.data_ptr()
+        out[f"{which}.count"] = ns.opt.count.data_ptr()
+        for i, t in enumerate(ns.opt.mu + ns.opt.nu):
+            out[f"{which}.moment{i}"] = t.data_ptr()
+    return out
+
+
+def test_a_resume_writes_into_the_captured_tensors(tmp_path):
+    """``load_state`` (a port checkpoint) and ``load_train_state`` (a JAX
+    state carried across) write into the state's own tensors: every
+    parameter, buffer, moment and count keeps its storage, and the
+    latent-noise generator stays the same object, reseeded. So a CUDA
+    graph captured before a resume keeps reading and writing the resumed
+    state. The values are the saved ones, bit for bit."""
+    batches = [{k: torch.from_numpy(v) for k, v in _batch(s).items()}
+               for s in range(2)]
+    trainer = SRTrainer(_noisy_opt(), device="cpu")
+    state = trainer.init_state(0)
+    for b in batches:
+        state, _ = trainer.train_step(state, b)
+    opt = {"path": {"models": str(tmp_path / "models"),
+                    "training_state": str(tmp_path / "training_state")}}
+    C.save_checkpoint(state, opt, epoch=0, niter=2)
+
+    resumed = trainer.init_state(5)
+    ptrs, gen = _storage(resumed), resumed.noise_generator
+    resumed, _ = C.load_state(str(tmp_path / "training_state" / "2.state"),
+                              resumed)
+    assert _storage(resumed) == ptrs and resumed.noise_generator is gen
+    for which in ("g", "d"):
+        mine = getattr(resumed, which)
+        theirs = getattr(state, which)
+        for k, v in theirs.net.state_dict().items():
+            assert torch.equal(mine.net.state_dict()[k], v), k
+        assert int(mine.opt.count) == int(theirs.opt.count) == 2
+        for a, b in zip(mine.opt.mu + mine.opt.nu,
+                        theirs.opt.mu + theirs.opt.nu):
+            assert torch.equal(a, b)
+    assert torch.equal(gen.get_state(), state.noise_generator.get_state())
+
+    jt, jstate, pt, pstate = _pair(_opt("adam"), jnp.float32, torch.float32)
+    ptrs = _storage(pstate)
+    jstate, _ = jt.train_step(jstate, {k: jnp.asarray(v)
+                                       for k, v in _batch().items()})
+    load_train_state(pstate, train_state_from_jax(
+        *(jax.tree.map(np.asarray, t) for t in (
+            jstate.g.params, jstate.d.params,
+            jstate.d.extra["batch_stats"])), int(jstate.step),
+        g_opt_state=jax.tree.map(np.asarray, jstate.g.opt_state),
+        d_opt_state=jax.tree.map(np.asarray, jstate.d.opt_state)))
+    assert _storage(pstate) == ptrs
+    assert int(pstate.g.opt.count) == 1 and pstate.step == 1

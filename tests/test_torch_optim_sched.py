@@ -134,3 +134,88 @@ def test_multistep_schedule_matches_jax(train_opt):
 def test_unported_schemes_raise_and_name_their_item(scheme):
     with pytest.raises(NotImplementedError, match="ROADMAP Queue A 10.9"):
         build_scheduler({"lr_scheme": scheme})
+
+
+@pytest.mark.parametrize("count", [1, 2, 3, 1000, 12345])
+@pytest.mark.parametrize("beta1,beta2", [(0.9, 0.999), (0.5, 0.9)])
+def test_bias_corrections_are_optax_f32_scalars(count, beta1, beta2):
+    """Adam's corrections 1 - beta**count are f32 scalars on the count's
+    device, equal to optax's ``1 - decay**count`` under XLA on the CPU (an
+    int32 count; f32 binary exponentiation), not the host's f64 values:
+    at count 1000 those differ by 4.9e-6 relative."""
+    opt = build_optimizer([torch.nn.Parameter(torch.zeros(3))], "adam",
+                          beta1=beta1, beta2=beta2)
+    opt.count.fill_(count)
+    c1, c2 = opt._corrections()
+    for got, beta in ((c1, beta1), (c2, beta2)):
+        want = np.asarray(1 - beta ** jnp.asarray(count, jnp.int32))
+        assert got.dtype == torch.float32 and got.dim() == 0
+        assert got.numpy() == want, (beta, count, float(got), want)
+
+
+def test_adam_step_at_count_1000_matches_optax():
+    """One step from moments and a count of 999 carried into both: the
+    parameters within 5e-7 of the optax chain's, as in the trajectory
+    test, with the corrections at count 1000."""
+    params, grads, _ = _data(4)
+    rng = np.random.RandomState(5)
+    mu = {k: (rng.randn(*s) * 1e-3).astype(np.float32)
+          for k, s in SHAPES.items()}
+    nu = {k: (rng.rand(*s) * 1e-6).astype(np.float32)
+          for k, s in SHAPES.items()}
+    jopt = jax_opt.build_optimizer("adam")
+    p = {k: jnp.asarray(v) for k, v in params.items()}
+    state = jopt.init(p)
+    state = (state[0]._replace(
+        count=jnp.asarray(999, jnp.int32),
+        mu={k: jnp.asarray(v) for k, v in mu.items()},
+        nu={k: jnp.asarray(v) for k, v in nu.items()}),) + tuple(state[1:])
+    p, _ = jopt.apply({k: jnp.asarray(v) for k, v in grads[0].items()},
+                      state, p, 1e-3)
+    tensors = {k: torch.nn.Parameter(torch.from_numpy(v.copy()))
+               for k, v in params.items()}
+    opt = build_optimizer(list(tensors.values()), "adam")
+    opt.load_state_dict({"count": 999,
+                         "mu": [torch.from_numpy(mu[k]) for k in tensors],
+                         "nu": [torch.from_numpy(nu[k]) for k in tensors]})
+    for k, t in tensors.items():
+        t.grad = torch.from_numpy(grads[0][k].copy())
+    opt.step(torch.tensor(1e-3, dtype=torch.float32))
+    assert int(opt.count) == 1000
+    for k, t in tensors.items():
+        assert np.abs(t.detach().numpy() - np.asarray(p[k])).max() < 5e-7, k
+
+
+def test_lr_tensor_equals_float_and_state_keeps_an_int_count():
+    """``step`` takes the learning rate as a 0-d f32 tensor (what a graph
+    replays) or a float (made into one): the same update bit for bit. The
+    count lives on the parameters' device; ``state_dict`` gives it as an
+    int, the JAX format's, and ``load_state_dict`` writes it and the
+    moments in place (the same storage: a graph that captured them stays
+    valid)."""
+    params, grads, lrs = _data(6)
+    runs = []
+    for as_tensor in (False, True):
+        tensors = [torch.nn.Parameter(torch.from_numpy(v.copy()))
+                   for v in params.values()]
+        opt = build_optimizer(tensors, "adam", weight_decay=0.01)
+        for g, lr in zip(grads[:3], lrs[:3]):
+            for t, k in zip(tensors, params):
+                t.grad = torch.from_numpy(g[k].copy())
+            opt.step(torch.tensor(lr, dtype=torch.float32) if as_tensor
+                     else lr)
+        runs.append((tensors, opt))
+    for a, b in zip(runs[0][0], runs[1][0]):
+        assert torch.equal(a, b)
+    opt = runs[1][1]
+    assert isinstance(opt.count, torch.Tensor)
+    assert opt.count.dtype == torch.int32
+    saved = opt.state_dict()
+    assert type(saved["count"]) is int and saved["count"] == 3
+    other = build_optimizer(runs[0][0], "adam")
+    ptrs = [t.data_ptr() for t in [other.count] + other.mu + other.nu]
+    other.load_state_dict(saved)
+    assert ptrs == [t.data_ptr() for t in [other.count] + other.mu + other.nu]
+    assert int(other.count) == 3
+    for a, b in zip(other.mu + other.nu, opt.mu + opt.nu):
+        assert torch.equal(a, b)

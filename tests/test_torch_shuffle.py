@@ -261,3 +261,56 @@ def test_the_producer_runs_the_shuffled_program(tmp_path):
     state, logs = trainer.train_step(state, batch)
     assert state.step == 1
     assert all(np.isfinite(float(v)) for v in logs.values())
+
+
+def test_static_plan_buffers_give_the_plans_of_plan_to_device():
+    """A graphed routed program reads its plans from one static buffer,
+    filled through two host buffers in turn: plan after plan it holds the
+    int32 and bool plans that ``plan_to_device`` makes, at one storage."""
+    _, pdeg = _pair()
+    rng = np.random.default_rng(0)
+    plans = [pdeg._routing_plan(rng, 8)[:4] for _ in range(3)]
+    cpu = torch.device("cpu")
+    buf = P.PlanBuffer(plans[0][0].shape, cpu)
+    ptr = buf.dev.data_ptr()
+    for plan in plans:
+        got = buf.upload(plan)
+        want = P.plan_to_device(plan, cpu)
+        for g, w, a in zip(got, want, plan):
+            assert g.dtype == w.dtype and torch.equal(g, w)
+            np.testing.assert_array_equal(g.numpy(), a)
+        assert buf.dev.data_ptr() == ptr
+        assert got[0].data_ptr() == ptr
+    assert not np.array_equal(plans[0][0], plans[1][0])
+
+
+@pytest.mark.parametrize("routing", ["1", "0"])
+def test_the_graph_body_is_the_eager_program(routing, monkeypatch):
+    """The degradation step's device program with its plans read from
+    static buffers (what a graph captures) gives the eager step's output
+    from the same generator state bit for bit, batch after batch; and the
+    step gives what ``BatchDegrader`` gives when called on the batch."""
+    from trainner_tpu_torch.train.producer import make_otf_degradation
+
+    monkeypatch.setenv("TRAINNER_SHUFFLE_ROUTING", routing)
+    opt = parse_dict(_shuffle_opt(), is_train=True)
+    eager = make_otf_degradation(opt, "cpu", _gen(5))
+    body = make_otf_degradation(opt, "cpu", _gen(5))
+    deg = P.BatchDegrader(opt["datasets"]["train"], "lr")
+    gen = _gen(5)
+    buffers = {}
+    for seed in range(2):
+        hr = torch.from_numpy(np.stack([
+            np.round(_fractal(CROP, seed * 8 + i) * 255) for i in range(8)
+        ]).astype(np.uint8))
+        want = eager({"HR": hr})["LR"]
+        _, plan = body._plans({"HR": hr})
+        assert (plan is not None) == (routing == "1")
+        if plan is not None:
+            buf = buffers.setdefault(
+                "lr", P.PlanBuffer(plan[0].shape, torch.device("cpu")))
+            buf.upload(plan)
+            plan = P.split_plan(buf.dev)
+        _, got = body._body(hr, None, None, plan)
+        assert torch.equal(got, want)
+        assert torch.equal(deg(gen, hr), want)

@@ -21,6 +21,7 @@ import numpy as np
 import torch
 
 from ..utils.device import resolve_device
+from ..utils.graphs import host_alloc_lock
 
 
 def _collate(samples: List[Dict[str, Any]], pin: bool) -> Dict[str, Any]:
@@ -29,7 +30,12 @@ def _collate(samples: List[Dict[str, Any]], pin: bool) -> Dict[str, Any]:
         vals = [s[k] for s in samples]
         if isinstance(vals[0], np.ndarray):
             t = torch.from_numpy(np.stack(vals))
-            out[k] = t.pin_memory() if pin else t
+            if pin:
+                # a pinned allocation may synchronise the card, which would
+                # break a graph being captured on the main thread
+                with host_alloc_lock:
+                    t = t.pin_memory()
+            out[k] = t
         else:
             out[k] = vals
     return out

@@ -56,6 +56,7 @@ import torch.nn.functional as F
 
 from ..ops import degradations as D
 from ..ops.blocks import wire_to_f01
+from ..utils.graphs import device_constant
 
 # (aug_name, enable_key, prob_key, types_key)
 _AUG_KEYS = [
@@ -219,7 +220,7 @@ def _blur_stage(types: Sequence[str], cfgs: Dict[str, dict], prob: float,
             banks.append(D.gaussian_kernels(params, k))
         kmax = max(kk.shape[-1] for kk in banks)
         delta = torch.zeros((1, kmax, kmax), device=x.device)
-        delta[0, kmax // 2, kmax // 2] = 1.0
+        delta[0, kmax // 2, kmax // 2].fill_(1.0)  # no host copy
         banks = [F.pad(kk, ((kmax - kk.shape[-1]) // 2,) * 4)
                  for kk in banks]
         if any(p < 1.0 for p in probs):
@@ -391,7 +392,7 @@ def _blur3(x: torch.Tensor) -> torch.Tensor:
     """Depthwise 3x3 binomial low-pass ([1, 2, 1] / 4 each way) with zero
     padding, NHWC."""
     c = x.shape[-1]
-    k1 = torch.tensor([0.25, 0.5, 0.25], dtype=x.dtype, device=x.device)
+    k1 = device_constant((0.25, 0.5, 0.25), x.dtype, x.device)
     y = x.permute(0, 3, 1, 2)
     y = F.conv2d(y, k1.reshape(1, 1, 3, 1).repeat(c, 1, 1, 1),
                  padding=(1, 0), groups=c)
@@ -556,8 +557,8 @@ def _resize_stage(types: Sequence[int], out_hw_fn, prob: float = 1.0,
                 draw_size_ratio(gen, b, chain_cfg, sc), chain_cfg, sc)
         if in_over_out <= 1.0:
             ratio = torch.where(ratio >= 1.35, torch.ones_like(ratio), ratio)
-        facs = torch.tensor((max(in_over_out, 1.0),) + buckets,
-                            device=x.device)
+        facs = device_constant((max(in_over_out, 1.0),) + tuple(buckets),
+                               torch.float32, x.device)
         idx = (ratio.log()[:, None] - facs.log()[None, :]).abs().argmin(
             dim=1)
         if reroute:
@@ -622,17 +623,54 @@ def _resize_stage(types: Sequence[int], out_hw_fn, prob: float = 1.0,
     return _with_prob(fn, prob)
 
 
+def _stack_plan(plan) -> np.ndarray:
+    idx, inv, act_a, act_b = plan
+    return np.stack([idx, inv, act_a.astype(np.int32),
+                     act_b.astype(np.int32)])
+
+
+def split_plan(dev: torch.Tensor):
+    """A plan's (4, k, npad) int32 device tensor -> (idx, inv, act_a,
+    act_b), the last two as bool."""
+    return dev[0], dev[1], dev[2].bool(), dev[3].bool()
+
+
+class PlanBuffer:
+    """The static device buffer of a graphed routed program's plans, at one
+    (k, npad): each plan is copied in through two pinned host buffers used
+    in turn, and a host buffer is written again only once its last copy has
+    ended (its event), so the host never overwrites a plan in flight."""
+
+    def __init__(self, shape, device: torch.device):
+        self.dev = torch.empty((4, *shape), dtype=torch.int32, device=device)
+        pin = device.type == "cuda"
+        self._host = [torch.empty(self.dev.shape, dtype=torch.int32,
+                                  pin_memory=pin) for _ in range(2)]
+        self._done = [None, None]
+        self._turn = 0
+
+    def upload(self, plan):
+        """Copies ``plan`` (idx, inv, act_a, act_b) into ``dev``, without
+        blocking the host on the card; returns ``split_plan(dev)``."""
+        i, self._turn = self._turn, self._turn ^ 1
+        if self._done[i] is not None:
+            self._done[i].synchronize()
+        self._host[i].numpy()[...] = _stack_plan(plan)
+        self.dev.copy_(self._host[i], non_blocking=True)
+        if self.dev.is_cuda:
+            self._done[i] = torch.cuda.Event()
+            self._done[i].record()
+        return split_plan(self.dev)
+
+
 def plan_to_device(plan, device: torch.device):
     """A routing plan's (idx, inv, act_a, act_b) -> int32 and bool tensors
     on ``device``, by one copy (from pinned memory, not blocking, on the
     card)."""
-    idx, inv, act_a, act_b = plan
-    host = torch.from_numpy(np.stack([idx, inv, act_a.astype(np.int32),
-                                      act_b.astype(np.int32)]))
+    host = torch.from_numpy(_stack_plan(plan))
     if device.type == "cuda":
         host = host.pin_memory()
-    dev = host.to(device, non_blocking=device.type == "cuda")
-    return dev[0], dev[1], dev[2].bool(), dev[3].bool()
+    return split_plan(host.to(device, non_blocking=device.type == "cuda"))
 
 
 # ---------------------------------------------------------------------------
@@ -1004,32 +1042,55 @@ class BatchDegrader:
 
         return run
 
+    def program(self) -> Tuple[str, Callable]:
+        """(name, program) of these options: ``routing`` (the per-sample
+        shuffle, by default), ``persample`` (under
+        ``TRAINNER_SHUFFLE_ROUTING=0``) or ``fixed``; built at first use."""
+        if self.shuffle and len(self.stages) > 1:
+            if os.environ.get("TRAINNER_SHUFFLE_ROUTING", "1") != "0":
+                if "routing" not in self._programs:
+                    self._programs["routing"] = self._build_routing()
+                    # the host stream of plans, apart from ``gen``: a plan
+                    # drawn on the device would have to be read back
+                    # before the program could be issued
+                    self._plan_rng = np.random.default_rng(
+                        np.random.SeedSequence(PLAN_SEED))
+                return "routing", self._programs["routing"]
+            name, build = "persample", self._build_persample
+        else:
+            name, build = "fixed", self._build
+        if name not in self._programs:
+            self._programs[name] = build()
+        return name, self._programs[name]
+
+    def next_plan(self, b: int):
+        """The host half of the routed program: the next plan (idx, inv,
+        act_a, act_b) of the plan stream for a batch of b; None for the
+        other programs."""
+        if self.is_noop or self.program()[0] != "routing":
+            return None
+        return self._routing_plan(self._plan_rng, b)[:4]
+
     @torch.no_grad()
-    def __call__(self, gen: torch.Generator, images: torch.Tensor
-                 ) -> torch.Tensor:
+    def run(self, gen: torch.Generator, images: torch.Tensor, plan=None
+            ) -> torch.Tensor:
+        """The device half: the program on ``images``, with the routed
+        program's plan as device tensors (``plan_to_device``). Reads
+        nothing back to the host, so a graph can capture it."""
         if self.is_noop:
             return images
         if gen.device.type != images.device.type:
             raise ValueError(f"the generator lies on {gen.device}, the "
                              f"images on {images.device}")
+        name, prog = self.program()
         with _full_f32():
-            if self.shuffle and len(self.stages) > 1:
-                if os.environ.get("TRAINNER_SHUFFLE_ROUTING", "1") != "0":
-                    if "routing" not in self._programs:
-                        self._programs["routing"] = self._build_routing()
-                        # the host stream of plans, apart from ``gen``: a
-                        # plan drawn on the device would have to be read
-                        # back before the program could be issued
-                        self._plan_rng = np.random.default_rng(
-                            np.random.SeedSequence(PLAN_SEED))
-                    plan = self._routing_plan(self._plan_rng,
-                                              int(images.shape[0]))
-                    return self._programs["routing"](
-                        gen, images, *plan_to_device(plan[:4],
-                                                     images.device))
-                if "persample" not in self._programs:
-                    self._programs["persample"] = self._build_persample()
-                return self._programs["persample"](gen, images)
-            if "fixed" not in self._programs:
-                self._programs["fixed"] = self._build()
-            return self._programs["fixed"](gen, images)
+            if name == "routing":
+                return prog(gen, images, *plan)
+            return prog(gen, images)
+
+    def __call__(self, gen: torch.Generator, images: torch.Tensor
+                 ) -> torch.Tensor:
+        plan = self.next_plan(int(images.shape[0]))
+        if plan is not None:
+            plan = plan_to_device(plan, images.device)
+        return self.run(gen, images, plan)

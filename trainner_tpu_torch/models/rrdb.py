@@ -33,7 +33,10 @@ class ResidualDenseBlock5C(nn.Module):
 
     The packed stage weights are built once per (dtype, device) and again
     only after the conv weights change (a load_state_dict, an optimizer
-    step), tracked by the parameters' version counters. They are packed at
+    step), tracked by the parameters' version counters. A graph's replay
+    changes the weights without a version change, so a caller that runs
+    graphs drops the cache (``drop_packed``) before it runs the block
+    eagerly again. They are packed at
     the kernels' widths (nf and gc padded with zeros to multiples of 32,
     ``ops.rdb5c.pack_block``), so a narrow block pads only its activations
     per call."""
@@ -54,8 +57,16 @@ class ResidualDenseBlock5C(nn.Module):
 
     def packed(self, dtype: torch.dtype):
         """(packed weights in ``dtype``, f32 biases) for the kernel, at its
-        widths."""
+        widths. While a CUDA graph is being captured the block packs every
+        time, into tensors the graph owns, and leaves the cache alone: the
+        host's version check runs once, at capture, and a replay must read
+        the weights as the optimizer left them."""
         params = [p for c in self.convs() for p in (c.weight, c.bias)]
+        if params[0].is_cuda and torch.cuda.is_current_stream_capturing():
+            with torch.no_grad():
+                return pack_block([c.weight for c in self.convs()],
+                                  [c.bias for c in self.convs()],
+                                  self.nf, self.gc, dtype)
         # tensors made under inference_mode cannot be saved for backward,
         # so the two modes keep separate entries
         key = (dtype, params[0].device, torch.is_inference_mode_enabled())
@@ -91,6 +102,13 @@ class ResidualDenseBlock5C(nn.Module):
         x4 = self.conv4(torch.cat([x, x1, x2, x3], 1))
         x5 = self.conv5(torch.cat([x, x1, x2, x3, x4], 1))
         return x5 * 0.2 + x
+
+
+def drop_packed(net: nn.Module) -> None:
+    """Empties the packed-weight cache of every block of ``net``."""
+    for m in net.modules():
+        if isinstance(m, ResidualDenseBlock5C):
+            m._packed.clear()
 
 
 class RRDB(nn.Module):

@@ -25,6 +25,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..utils.graphs import device_constant
+
 
 def kaiming_init_(weight: torch.Tensor, scale: float = 1.0,
                   generator: Optional[torch.Generator] = None,
@@ -206,7 +208,8 @@ class GaussianNoise(nn.Module):
     through the scale: ``x + sigma * x.detach() * randn``. The identity in
     eval mode. The draw comes from ``generator`` (one on x's device, which
     the trainer owns and sets), or from torch's default generator when
-    none is set."""
+    none is set. The trainer registers its generator with every graph that
+    captures the step, so each replay draws fresh noise."""
 
     def __init__(self, sigma: float = 0.1):
         super().__init__()
@@ -249,7 +252,7 @@ def upconv_lr_weights(weight: torch.Tensor, bias: torch.Tensor):
     """3x3 conv after a 2x nearest upsample -> one 3x3 conv in LR space
     with 4x the output channels (channel o*4 + a*2 + b, the order that
     pixel_shuffle reads), and its repeated bias."""
-    m = torch.tensor(_PHASE_MAPS, dtype=weight.dtype, device=weight.device)
+    m = device_constant(_PHASE_MAPS, weight.dtype, weight.device)
     wp = torch.stack([torch.einsum("ru,sv,oiuv->oirs", m[a], m[b], weight)
                       for a in (0, 1) for b in (0, 1)], dim=1)
     wp = wp.reshape(4 * weight.shape[0], weight.shape[1], 3, 3)

@@ -34,6 +34,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..utils.graphs import device_constant
 from .blur import blur_per_sample
 from .imresize import imresize
 
@@ -60,7 +61,8 @@ def draw_choice(gen: torch.Generator, b: int, n: int,
                 weights: Optional[Sequence[float]] = None) -> torch.Tensor:
     """Per-sample index in [0, n): uniform, or with the given weights."""
     if weights is not None:
-        pw = torch.tensor(weights, dtype=torch.float32, device=gen.device)
+        pw = device_constant(tuple(float(w) for w in weights),
+                             torch.float32, gen.device)
         return torch.multinomial((pw / pw.sum()).expand(b, n), 1,
                                  generator=gen)[:, 0]
     return torch.randint(0, n, (b,), generator=gen, device=gen.device)

@@ -1,9 +1,12 @@
 """Inference and metrics CLI of the port: counterpart of the JAX package's
-``test.py`` for ``model: sr`` and its plain ``eval_step`` branch.
+``test.py`` for ``model: sr``, with its x8 self-ensemble
+(``self_ensemble`` / ``x8``), tiled (``chop_forward`` / ``chop``) and plain
+``eval_step`` branches, taken in that order as the JAX CLI takes them.
 
 Runs G over every configured test dataset, writes one PNG per image and
 logs PSNR and SSIM (RGB and Y) per image and per dataset, with the same
-options keys and log lines as the JAX CLI.
+options keys and log lines as the JAX CLI. On the card ``eval_step`` replays
+one CUDA graph per input shape.
 
 Usage: python -m trainner_tpu_torch.test -opt options.json
 """
@@ -19,14 +22,10 @@ import torch
 # Options that select a branch of the JAX CLI this slice does not port,
 # with the ROADMAP item that will.
 _DEFERRED = (
-    (("self_ensemble", "x8"), "x8 self-ensemble inference",
-     "Queue A, deferred inference branches: x8"),
-    (("chop_forward", "chop"), "chop/tile inference",
-     "Queue A, deferred inference branches: chop"),
     (("spatial_shards",), "band-parallel spatial inference",
-     "Queue A, multi-GPU"),
+     "Queue A 9, multi-GPU"),
     (("use_cem",), "CEM inference",
-     "Queue A, deferred inference branches: CEM"),
+     "Queue A 2.3, deferred inference branches: CEM"),
 )
 
 
@@ -86,6 +85,8 @@ def main(argv=None, device: Union[str, torch.device, None] = None
 
     state = None
     scale = int(opt.get("scale") or 1)
+    ensemble_x8 = bool(opt.get("self_ensemble") or opt.get("x8"))
+    chop = bool(opt.get("chop_forward") or opt.get("chop"))
     znorm = False
     averages: Dict[str, List[Dict]] = {}
     for name, loader in test_loaders:
@@ -104,7 +105,12 @@ def main(argv=None, device: Union[str, torch.device, None] = None
                 else:
                     logger.warning("No pretrain_model_G given — running "
                                    "random-init weights.")
-            sr = trainer.eval_step(state, batch["LR"])
+            if ensemble_x8:
+                sr = trainer.eval_step_x8(state, batch["LR"])
+            elif chop:
+                sr = trainer.eval_step_chop(state, batch["LR"])
+            else:
+                sr = trainer.eval_step(state, batch["LR"])
             sr_img = tensor2img(sr[0], znorm)
             img_name = os.path.splitext(os.path.basename(
                 batch.get("LR_path", [str(i)])[0]))[0]

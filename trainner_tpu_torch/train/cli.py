@@ -6,7 +6,10 @@
 
 The options file drives the whole run: the train loader, the on-device
 degradations (``make_otf_degradation``; the bsrgan presets shuffle the
-stage order per sample), ``SRTrainer.train_step``, a log line and scalars
+stage order per sample), ``SRTrainer.train_step`` (on the card, the
+degradations, the step and ``eval_step`` replay CUDA graphs; a resume
+loads the state before the first capture, and a save reads the state
+between replays, after a synchronise), a log line and scalars
 every ``print_freq`` iterations, checkpoints in the JAX package's format
 every ``save_checkpoint_freq`` (``{iter}_G.ckpt``, ``{iter}_D.ckpt``,
 ``{iter}.state``), PSNR/SSIM and PNGs of the validation set every
@@ -177,6 +180,14 @@ def _sigterm(_signum, _frame):
     raise KeyboardInterrupt
 
 
+def _save(state, opt, epoch: int, current_step: int, **kw) -> None:
+    """``checkpoint.save_checkpoint`` once the card has finished the
+    replays that write the state."""
+    if next(state.g.net.parameters()).is_cuda:
+        torch.cuda.synchronize()
+    checkpoint.save_checkpoint(state, opt, epoch, current_step, **kw)
+
+
 def fit(trainer, opt, loaders, state, start_epoch: int, current_step: int,
         logger, tb):
     """The training loop from ``current_step`` to ``niter``; returns the
@@ -254,9 +265,8 @@ def _fit(trainer, opt, loaders, state, start_epoch, current_step, logger,
                                           current_step)
 
                 if current_step % save_freq == 0:
-                    checkpoint.save_checkpoint(state, opt, epoch,
-                                               current_step,
-                                               latest_only=overwrite_chkp)
+                    _save(state, opt, epoch, current_step,
+                          latest_only=overwrite_chkp)
                     logger.info("Models and training state saved at iter "
                                 f"{current_step}.")
 
@@ -266,11 +276,10 @@ def _fit(trainer, opt, loaders, state, start_epoch, current_step, logger,
             epoch += 1
     except KeyboardInterrupt:
         logger.info("Training interrupted. Saving latest models and state.")
-        checkpoint.save_checkpoint(state, opt, epoch, current_step,
-                                   latest_only=True)
+        _save(state, opt, epoch, current_step, latest_only=True)
         raise SystemExit(0)
 
-    checkpoint.save_checkpoint(state, opt, epoch, current_step)
+    _save(state, opt, epoch, current_step)
     logger.info("Training finished. Saved final models and state.")
     return state
 

@@ -10,7 +10,7 @@ from __future__ import annotations
 
 import bisect
 from dataclasses import dataclass
-from typing import Callable, Optional, Sequence
+from typing import Callable, List, Optional, Sequence
 
 
 def _multistep(base_lr: float, milestones: Sequence[int], gamma: float,
@@ -32,6 +32,11 @@ class Scheduler:
         if self.warmup_iters and step < self.warmup_iters:
             lr = lr * (step + 1) / self.warmup_iters
         return max(lr, 0.0)
+
+    def get_lrs(self, step0: int, k: int) -> List[float]:
+        """The learning rates of the k steps from ``step0``: what the JAX
+        ``SRTrainer.train_steps`` hands its scanned window."""
+        return [self.get_lr(step0 + i) for i in range(k)]
 
 
 def build_scheduler(train_opt: dict, base_lr: Optional[float] = None,

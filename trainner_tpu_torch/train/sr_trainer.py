@@ -1,7 +1,9 @@
 """SR / restoration GAN trainer: counterpart of
 ``trainner_tpu/train/sr_trainer.py::SRTrainer`` (``__init__:105``,
-``init_state:222``, ``_train_step:300``, ``train_step:538``,
-``eval_step:655``) and of ``train.py::create_trainer:95`` for ``model: sr``.
+``init_state:222``, ``_train_step:300``, ``_get_step_fn:521``,
+``train_step:538``, ``can_scan_steps:565``, ``train_steps:573``,
+``eval_step:655``, ``eval_step_chop:672``, ``eval_step_x8:748``) and of
+``train.py::create_trainer:95`` for ``model: sr``.
 
 One training step is the flagship ESRGAN step: G (every residual dense
 block on the hand-written forward and backward kernels) under the pixel,
@@ -11,25 +13,36 @@ schedule. The network bodies run in the trainer's dtype (bf16 by default
 when training) with f32 parameters, gradients and losses; there is no
 autocast and no loss scaling.
 
+On the card, where the JAX package jits, the port replays CUDA graphs
+(``utils/graphs.py``): the step as one graph per ``(update_d, update_g)``
+and batch signature, all of a trainer's graphs in one memory pool, and
+``eval_step`` as one graph per input shape and type. ``train_steps`` runs a
+window of k steps as k replays. ``graphs=False`` runs the same programs
+eagerly (on the CPU they always are).
+
 Not ported yet, each raising with its ROADMAP item: batch augmentations,
 DiffAugment, frequency separation, CEM, AdaTarget, FreezeD, the
 pixel-unshuffle wrapper, ``grad_clip: auto``, a virtual batch, SWA and
-EMA; x8, chop and CEM inference.
+EMA; CEM and band-parallel inference.
 """
 
 from __future__ import annotations
 
+import collections
 import contextlib
-from typing import Dict, Optional, Tuple, Union
+import functools
+from typing import Callable, Dict, Optional, Tuple, Union
 
 import torch
 
 from ..losses.gan import build_adversarial
 from ..losses.generator_loss import GeneratorLoss
 from ..models.networks import define_D, define_G
+from ..models.rrdb import drop_packed
 from ..ops.blocks import GaussianNoise, wire_to_f01
 from ..utils.checkpoint import load_params
 from ..utils.device import resolve_device
+from ..utils.graphs import Captured, signature, warm_up
 from ..utils.torch_interop import key_to_seed, seed_to_key
 from .optimizers import build_optimizer
 from .schedulers import build_scheduler
@@ -90,10 +103,21 @@ def clip_grads(params, mode: Optional[str], value: float) -> None:
 class SRTrainer:
     """Owns the options, the dtype policy, the device, the losses and the
     schedules. The state (networks, optimizers, step) is made by
-    ``init_state`` and updated in place by ``train_step``."""
+    ``init_state`` and updated in place by ``train_step``.
+
+    ``graphs`` (default: on for ``cuda``, off for the CPU) runs the step
+    and ``eval_step`` as CUDA graphs. The graphs hold the tensors of the
+    state they were captured for; a call with another state object drops
+    them and captures anew."""
+
+    # eval_step keeps at most this many graphs (one per input shape and
+    # type), the least recently used going first: a test set of many sizes
+    # holds at most this many static buffers and captures in the pool
+    EVAL_GRAPHS = 8
 
     def __init__(self, opt: dict, dtype: torch.dtype = torch.float32,
-                 device: Union[str, torch.device, None] = None):
+                 device: Union[str, torch.device, None] = None,
+                 graphs: Optional[bool] = None):
         train_opt = opt.get("train") or {}
         for key, (what, item) in _NOT_PORTED.items():
             if opt.get(key) or train_opt.get(key):
@@ -107,6 +131,15 @@ class SRTrainer:
         self.train_opt = train_opt
         self.dtype = dtype
         self.device = resolve_device(device)
+        self.graphs = self.device.type == "cuda" if graphs is None \
+            else bool(graphs)
+        if self.graphs and self.device.type != "cuda":
+            raise ValueError(f"CUDA graphs run on cuda, not {self.device}")
+        self._step_fns: Dict[Tuple[bool, bool], Callable] = {}
+        self._eval_graphs: "collections.OrderedDict" = \
+            collections.OrderedDict()
+        self._graph_state = None
+        self._pool = None
         self.is_train = bool(opt.get("is_train", True))
         self.scale = int(opt.get("scale", 4) or 4)
         self.znorm = bool(((opt.get("datasets") or {}).get("train")
@@ -187,8 +220,12 @@ class SRTrainer:
                            self.znorm)
 
     def _train_step(self, state: SRTrainState, batch: Dict[str, torch.Tensor],
-                    lr_g: float, lr_d: float, *, update_d: bool,
+                    lr_g, lr_d, *, update_d: bool,
                     update_g: bool) -> Dict[str, torch.Tensor]:
+        """The step's program: reads the batch, the learning rates (floats
+        or 0-d f32 tensors) and the state's tensors, updates the state's
+        tensors in place and returns the logs. Nothing here reads the
+        device or moves a host counter, so a graph can capture it."""
         lr_img = self._to_device(batch["LR"])
         hr_img = self._to_device(batch["HR"])
         netG = state.g.net.train()
@@ -238,43 +275,264 @@ class SRTrainer:
             logs["l_d_total"] = l_d
         return {k: v.detach() for k, v in logs.items()}
 
+    # ------------------------------------------------------------------
+    # graphs
+    # ------------------------------------------------------------------
+    def _bind(self, state: SRTrainState) -> None:
+        """The graphs hold ``state``'s tensors: for another state object
+        they are dropped, to be captured anew."""
+        if self._graph_state is not state:
+            for fn in self._step_fns.values():
+                if isinstance(fn, _GraphedStep):
+                    fn.entries.clear()
+            self._eval_graphs.clear()
+            self._graph_state = state
+
+    def graph_pool(self):
+        """The one memory pool of this trainer's graphs."""
+        if self._pool is None:
+            self._pool = torch.cuda.graph_pool_handle()
+        return self._pool
+
+    def _get_step_fn(self, update_d: bool, update_g: bool) -> Callable:
+        """The step program of one ``(update_d, update_g)``, cached as the
+        JAX package caches its jitted steps: ``fn(state, batch, lr_g,
+        lr_d) -> logs``. With graphs it is a ``_GraphedStep``, else the
+        eager ``_train_step``. Neither moves ``state.step``."""
+        key = (update_d, update_g)
+        fn = self._step_fns.get(key)
+        if fn is None:
+            fn = functools.partial(self._train_step, update_d=update_d,
+                                   update_g=update_g)
+            if self.graphs:
+                fn = _GraphedStep(self, fn)
+            self._step_fns[key] = fn
+        return fn
+
+    def step_graphs(self) -> Dict[tuple, Captured]:
+        """Every captured step graph by ``(update_d, update_g, batch
+        signature)``."""
+        return {(*key, sig): cap for key, fn in self._step_fns.items()
+                if isinstance(fn, _GraphedStep)
+                for sig, (_, _, cap) in fn.entries.items()}
+
+    def eval_graphs(self) -> Dict[tuple, Captured]:
+        """Every cached ``eval_step`` graph by input (shape, dtype)."""
+        return {key: cap for key, (_, cap) in self._eval_graphs.items()}
+
+    # ------------------------------------------------------------------
+    # train step
+    # ------------------------------------------------------------------
     def train_step(self, state: SRTrainState, batch: Dict[str, torch.Tensor]
                    ) -> Tuple[SRTrainState, Dict[str, torch.Tensor]]:
         """One optimization step on ``batch`` ({"LR", "HR"}: NHWC, float in
         [0, 1] or uint8). The schedule is decided on the host: the learning
         rates of this step, and whether G is updated (``D_update_ratio``,
-        ``D_init_iters``). Updates ``state`` in place and returns it with
-        the logs (0-d tensors on the device: reading one synchronises)."""
+        ``D_init_iters``), which picks the program. Updates ``state`` in
+        place and returns it with the logs (0-d tensors on the device, the
+        caller's own: reading one synchronises)."""
         if not self.is_train:
             raise RuntimeError("this trainer was built with is_train: false")
+        if self.graphs:
+            self._bind(state)
         step = state.step
         lr_g = self.schedG.get_lr(step)
         lr_d = self.schedD.get_lr(step) if self.schedD else 0.0
         update_g = (not self.use_gan) or (
             step % self.d_update_ratio == 0 and step >= self.d_init_iters)
-        logs = self._train_step(state, batch, lr_g, lr_d,
-                                update_d=self.use_gan, update_g=update_g)
+        logs = self._get_step_fn(self.use_gan, update_g)(state, batch,
+                                                         lr_g, lr_d)
         state.step = step + 1
         return state, logs
+
+    def can_scan_steps(self) -> bool:
+        """True when a window of steps runs one program throughout: no
+        host-side schedule transition inside it (with a GAN, G is updated
+        at every step). SWA and AdaTarget, the JAX package's other
+        transitions, are not ported."""
+        return not (self.use_gan and (self.d_update_ratio != 1
+                                      or self.d_init_iters > 0))
+
+    def train_steps(self, state: SRTrainState,
+                    batches: Dict[str, torch.Tensor]
+                    ) -> Tuple[SRTrainState, Dict[str, torch.Tensor]]:
+        """k optimization steps, ``batches`` holding each tensor with a
+        leading (k, ...) step axis: the JAX package's scanned window.
+        When ``can_scan_steps`` holds, k calls of the ``(use_gan, True)``
+        program (k replays of its graph on the card) with the schedule's
+        per-step learning rates, so a MultiStep boundary inside the window
+        is exact; every log stacked to shape (k,). Otherwise k
+        ``train_step`` calls, the logs stacked over the union of their keys
+        with NaN where a step made no entry. ``state.step`` moves by k once
+        the window has run."""
+        if not self.is_train:
+            raise RuntimeError("this trainer was built with is_train: false")
+        k = int(batches["LR"].shape[0])
+        if not self.can_scan_steps():
+            out = []
+            for i in range(k):
+                state, logs = self.train_step(
+                    state, {kk: v[i] for kk, v in batches.items()})
+                out.append(logs)
+            keys = sorted({kk for lg in out for kk in lg})
+            nan = torch.full((), float("nan"), device=self.device)
+            return state, {kk: torch.stack([lg.get(kk, nan).float()
+                                            for lg in out]) for kk in keys}
+        if self.graphs:
+            self._bind(state)
+        step0 = state.step
+        lrs_g = self.schedG.get_lrs(step0, k)
+        lrs_d = self.schedD.get_lrs(step0, k) if self.schedD else [0.0] * k
+        fn = self._get_step_fn(self.use_gan, True)
+        out = [fn(state, {kk: v[i] for kk, v in batches.items()},
+                  lrs_g[i], lrs_d[i]) for i in range(k)]
+        state.step = step0 + k
+        return state, {kk: torch.stack([lg[kk] for lg in out])
+                       for kk in out[0]}
 
     # ------------------------------------------------------------------
     # eval
     # ------------------------------------------------------------------
+    def _eval_forward(self, state: SRTrainState, x: torch.Tensor
+                      ) -> torch.Tensor:
+        return state.g.net.eval()(x.float()).float()
+
     @torch.inference_mode()
     def eval_step(self, state: SRTrainState, lr_img: torch.Tensor
                   ) -> torch.Tensor:
         """Inference forward: NHWC LR batch -> f32 NHWC SR batch on the
-        trainer's device."""
-        lr_img = lr_img.to(self.device, non_blocking=lr_img.is_pinned())
-        return state.g.net.eval()(lr_img.float()).float()
+        trainer's device, the caller's own tensor. With graphs, one graph
+        per input shape and type, at most ``EVAL_GRAPHS`` of them (the
+        least recently used is dropped first); the first call of a shape
+        runs eagerly and captures."""
+        x = lr_img.to(self.device, non_blocking=lr_img.is_pinned())
+        if not self.graphs:
+            return self._eval_forward(state, x)
+        self._bind(state)
+        key = (tuple(x.shape), x.dtype)
+        entry = self._eval_graphs.get(key)
+        if entry is None:
+            drop_packed(state.g.net)
+            out = warm_up(lambda: self._eval_forward(state, x))
+            static = torch.empty(x.shape, dtype=x.dtype, device=x.device)
+            cap = Captured(lambda: self._eval_forward(state, static),
+                           pool=self.graph_pool())
+            self._eval_graphs[key] = (static, cap)
+            while len(self._eval_graphs) > self.EVAL_GRAPHS:
+                self._eval_graphs.popitem(last=False)
+            return out
+        self._eval_graphs.move_to_end(key)
+        static, cap = entry
+        static.copy_(x)
+        return cap.replay().clone()
+
+    def eval_step_chop(self, state: SRTrainState, lr_img: torch.Tensor,
+                       patch_size: int = 128,
+                       overlap: int = 16) -> torch.Tensor:
+        """Tiled inference for large inputs: tiles of ``min(patch_size, h,
+        w)`` at a stride of that less ``overlap``, the last row and column
+        of tiles pinned to the edge, run through ``eval_step`` 32 rows of
+        tiles at a time (so at most two input shapes), the outputs added
+        and divided by how many tiles cover each pixel."""
+        x = lr_img.to(self.device, non_blocking=lr_img.is_pinned())
+        b, h, w, _ = x.shape
+        s = self.scale
+        p = min(patch_size, h, w)
+        step = max(p - overlap, 1)
+        ys = list(range(0, max(h - p, 0) + 1, step))
+        xs = list(range(0, max(w - p, 0) + 1, step))
+        if ys[-1] != h - p:
+            ys.append(h - p)
+        if xs[-1] != w - p:
+            xs.append(w - p)
+        tiles = torch.cat([x[:, y:y + p, x0:x0 + p, :]
+                           for y in ys for x0 in xs], dim=0)
+        out_tiles = torch.cat([self.eval_step(state, tiles[i:i + 32])
+                               for i in range(0, tiles.shape[0], 32)], dim=0)
+        acc = torch.zeros((b, h * s, w * s, out_tiles.shape[-1]),
+                          dtype=torch.float32, device=self.device)
+        cnt = torch.zeros((b, h * s, w * s, 1), dtype=torch.float32,
+                          device=self.device)
+        k = 0
+        for y in ys:
+            for x0 in xs:
+                win = (slice(None), slice(y * s, (y + p) * s),
+                       slice(x0 * s, (x0 + p) * s))
+                acc[win] += out_tiles[k * b:(k + 1) * b]
+                cnt[win] += 1.0
+                k += 1
+        return acc / cnt
+
+    def eval_step_x8(self, state: SRTrainState, lr_img: torch.Tensor
+                     ) -> torch.Tensor:
+        """x8 geometric self-ensemble: ``eval_step`` on the four rotations
+        over (h, w), each with and without a flip of w, each output turned
+        back, and the mean of the eight. A non-square input meets two
+        shapes, (h, w) and (w, h)."""
+        x = lr_img.to(self.device, non_blocking=lr_img.is_pinned())
+        outs = []
+        for rot in range(4):
+            for flip in (False, True):
+                xi = torch.rot90(x, rot, (1, 2))
+                if flip:
+                    xi = xi.flip(2)
+                y = self.eval_step(state, xi)
+                if flip:
+                    y = y.flip(2)
+                outs.append(torch.rot90(y, -rot, (1, 2)))
+        return torch.stack(outs).mean(0)
 
 
-def create_trainer(opt: dict, device: Union[str, torch.device, None] = None
-                   ) -> SRTrainer:
+class _GraphedStep:
+    """The step program of one ``(update_d, update_g)`` as CUDA graphs,
+    one per batch signature. The first batch of a signature runs the eager
+    program as a real step (on a side stream) and then captures it into
+    static buffers: ``LR`` and ``HR`` at the batch's shape and type, the
+    two learning rates as 0-d f32 tensors, the logs as static outputs.
+    Every later call copies the batch in, fills the learning rates and
+    replays; the logs come back as clones."""
+
+    def __init__(self, trainer: SRTrainer, eager: Callable):
+        self.trainer = trainer
+        self.eager = eager
+        self.entries: Dict[tuple, tuple] = {}
+
+    def __call__(self, state: SRTrainState, batch: Dict[str, torch.Tensor],
+                 lr_g, lr_d) -> Dict[str, torch.Tensor]:
+        sig = signature(batch, ("LR", "HR"))
+        entry = self.entries.get(sig)
+        if entry is None:
+            drop_packed(state.g.net)
+            logs = warm_up(lambda: self.eager(state, batch, lr_g, lr_d))
+            self.entries[sig] = self._capture(state, batch)
+            return logs
+        inputs, lrs, cap = entry
+        for k, buf in inputs.items():
+            buf.copy_(batch[k], non_blocking=True)
+        lrs[0].fill_(float(lr_g))
+        lrs[1].fill_(float(lr_d))
+        return {k: v.clone() for k, v in cap.replay().items()}
+
+    def _capture(self, state: SRTrainState, batch) -> tuple:
+        dev = self.trainer.device
+        inputs = {k: torch.empty(batch[k].shape, dtype=batch[k].dtype,
+                                 device=dev) for k in ("LR", "HR")}
+        lrs = (torch.zeros((), dtype=torch.float32, device=dev),
+               torch.zeros((), dtype=torch.float32, device=dev))
+        cap = Captured(lambda: self.eager(state, inputs, *lrs),
+                       pool=self.trainer.graph_pool(),
+                       generators=[state.noise_generator])
+        return inputs, lrs, cap
+
+
+def create_trainer(opt: dict, device: Union[str, torch.device, None] = None,
+                   graphs: Optional[bool] = None) -> SRTrainer:
     """Model-strategy factory for ``model: sr``. Training runs the network
     bodies in bf16 and inference in f32, unless ``use_amp`` says otherwise,
     as in the JAX package. Runs on ``cuda`` unless ``device`` names the
-    CPU, and raises when no card is present."""
+    CPU, and raises when no card is present. ``graphs`` (default: on for
+    ``cuda``) runs the step and ``eval_step`` as CUDA graphs; ``False``
+    runs them eagerly, to compare the two."""
     model = (opt.get("model") or "sr").lower()
     if model not in ("sr", "srgan", "srragan"):
         raise NotImplementedError(
@@ -283,4 +541,4 @@ def create_trainer(opt: dict, device: Union[str, torch.device, None] = None
     amp_default = bool(opt.get("is_train", True))
     dtype = torch.bfloat16 if opt.get("use_amp", amp_default) \
         else torch.float32
-    return SRTrainer(opt, dtype=dtype, device=device)
+    return SRTrainer(opt, dtype=dtype, device=device, graphs=graphs)
