@@ -31,9 +31,9 @@ non-zero exit code and no result line:
 4. serving slice: ``python -m trainner_tpu_torch.test`` at the full width
    of the ESRGAN generator (nf 64, nb 23, gc 32, 4x) on a synthetic test
    set, in f32 and with ``use_amp``, then in f32 with ``x8`` and with
-   ``chop``, counting the launches the card ran (``eval_step`` replays a
-   CUDA graph per shape); then the full G on the kernel against the same
-   G on the plain version;
+   ``chop``, each under a launch trace (``eval_step`` replays a CUDA graph
+   of a shape after its ninth call); then the full G on the kernel against
+   the same G on the plain version;
 5. debug configs: ``options/sr/test_sr_debug.yml``'s G (nf 16, nb 2, gc 8)
    served through the CLI with random weights, and two train steps of
    ``options/sr/train_sr_debug.yml``'s G and D, in f32 and bf16;
@@ -82,22 +82,30 @@ non-zero exit code and no result line:
 12. graphs (run before the times): the step, ``train_steps``, the
    degrader and ``eval_step`` as CUDA graphs (the default on the card)
    against the same programs run eagerly (``graphs=False``), in one
-   process: 3 graphed against 3 eager steps in bf16 and f32 within the step
-   tolerances of ``tests/test_torch_train_step.py``; the launches each graph recorded (69 + 69 block
-   launches per step, 2 and 24 blur launches per degrader replay) against
-   a profiler trace of one replay; fresh latent noise per replay (the
-   statistical gate of ``tests/test_torch_trainer.py``); a resume into a captured state, bit for bit;
-   ``train_steps`` k = 10 with a MultiStep boundary inside the window;
-   the degrader from one generator state and plan stream; ``eval_step``
-   at b = 8 in f32 and bf16, x8 and chop on a 300 x 200 image against the
-   CPU's eager composition; and eager against graphed times of each with
-   the device-busy ms and idle share, the captures' seconds and pool
-   memory, the end-to-end rate and the CLI's steady rate.
+   process: 3 graphed against 3 eager steps in bf16 and f32 within the
+   step tolerances of ``tests/test_torch_train_step.py`` (and how much of
+   them is equal bit for bit, printed); the launches each graph recorded
+   (69 + 69 block launches per step, 2 and 24 blur launches per degrader
+   replay) against a profiler trace of one replay; fresh latent noise per
+   replay (the statistical gate of ``tests/test_torch_trainer.py``); a
+   resume into a captured state, bit for bit; ``train_steps`` k = 10 with
+   a MultiStep boundary inside the window; the degrader from one
+   generator state and plan stream; ``eval_step`` at b = 8 in f32 and
+   bf16, x8 and chop on a 300 x 200 image (replaying their graphs)
+   against the CPU's eager composition; and eager against graphed times
+   of each with the device-busy ms and idle share, the captures' seconds
+   and pool memory, the test CLI's seconds per image on a test set of one
+   size per image and on one of one size, the end-to-end rate and the
+   CLI's steady rate.
 
-Launches: the kernel wrappers count where they launch, eagerly or into a
-graph being captured (a replay runs no Python); the phases check what the
-card ran (``_ran``: eager launches plus each replay's recorded ones), and
-the JSON summary gives the wrappers' own counts over the main paths.
+Launches: the kernel wrappers count where they put a kernel on a stream,
+eagerly or into a graph being captured (a replay runs no Python). What the
+card ran is read from a profiler trace of each main-path run
+(``_launch_trace``: the wrappers' counts set to 0 just before it, the
+kernels counted by name in the trace, replays included, with markers on
+the stream between a CLI's steps); the phases check those launches, and
+that every wrapper of the path counted too. The JSON summary gives the
+traced launches over the main paths' runs, the wrappers' counts beside.
 
 The second-to-last lines are a JSON summary of the kernels and the card's
 ``nvidia-smi`` name and power limit; the last line is
@@ -160,7 +168,7 @@ TF32_MMA = dict(frac_bits=25, product_exponent="operands", acc_in_group=True,
 N_CORPUS, CORPUS_PX = 64, 256
 PROBE_SOURCE = "tf32_mma_probe.cu"
 NF, GC, NB = 64, 32, 23
-N_IMAGES = 3
+N_IMAGES = 10  # eval_step captures at the 9th image of one size
 BWD_NAMES = ("dx", "dW0", "dW1", "dW2", "dW3", "dW4",
              "db1", "db2", "db3", "db4", "db5")
 
@@ -174,34 +182,135 @@ def _smi() -> str:
 
 
 def _reset_launches() -> None:
-    """Every launch count to 0: the kernel wrappers' own counts (a launch
-    made eagerly or recorded into a graph at capture) and the graphs'
-    tallies of what they recorded and what their replays ran."""
+    """Every kernel wrapper's launch count to 0."""
     from trainner_tpu_torch.ops import blur, rdb5c
-    from trainner_tpu_torch.utils import graphs
 
     rdb5c.launches = rdb5c.backward_launches = blur.launches = 0
-    for tally in (graphs.recorded, graphs.replayed):
-        for k in tally:
-            tally[k] = 0
-
-
-def _ran() -> dict:
-    """The launches the card ran since ``_reset_launches``, by kernel
-    (``rdb5c``, ``rdb5c_bwd``, ``blur``): eager ones, and every replay's
-    recorded ones; a capture records and runs nothing."""
-    from trainner_tpu_torch.utils import graphs
-
-    return graphs.executed_launches()
 
 
 def _counted() -> dict:
     """The kernel wrappers' own counts since ``_reset_launches``: each
-    adds one where it launches its kernel, eagerly or into a graph being
-    captured, and nowhere else (a replay runs no Python)."""
+    adds one where it puts its kernel on a stream, eagerly or into a graph
+    being captured, and nowhere else. A replay runs no Python, so under
+    graphs these are not the launches the card ran: ``_launch_trace``
+    reads those."""
     from trainner_tpu_torch.utils import graphs
 
     return graphs.kernel_launches()
+
+
+def _short_name(name: str) -> str:
+    return name.removeprefix("void ").replace(
+        "(anonymous namespace)::", "").split("(")[0].split("<")[0]
+
+
+def _device_events(prof) -> list:
+    """The device's records in a finished ``_profiled`` session: (start
+    ns, duration ns, name) in the order the host launched them (each
+    kernel of a graph's replay at the replay's launch, found by the
+    CUDA call's correlation id), without the markers that open the
+    session; read from the profiler's raw results (parsing them into
+    ``prof.events()`` takes about 60 us per record). The device's own
+    start times do not keep that order: the kernels of a replay are
+    recorded on streams of the graph's own, and one run had a replay's
+    blur kernels start before the marker launched ahead of it."""
+    from torch.autograd import DeviceType
+
+    raw = prof.profiler.kineto_results.events()
+    launched = {e.correlation_id(): e.start_ns() for e in raw
+                if e.device_type() != DeviceType.CUDA
+                and e.name().startswith("cu")}
+    events = [(e.start_ns(), e.duration_ns(), e.name()) for e, _ in sorted(
+        ((e, launched.get(e.correlation_id(), e.start_ns())) for e in raw
+         if e.device_type() == DeviceType.CUDA),
+        key=lambda pair: (pair[1], pair[0].start_ns()))]
+    first = 0
+    while first < len(events) and MARKER in events[first][2]:
+        first += 1
+    return events[first:]
+
+
+@contextlib.contextmanager
+def _profiled(cpu: bool = False):
+    """torch.profiler over the body: the device's activity (and the
+    host's, with ``cpu``), the body starting 0.1 s after three markers.
+    The profiler drops the records of what the card runs in a session's
+    first moments (on the H100, now and then every launch of a short
+    timing session that launched at once); the markers take that place,
+    and the body runs after the pause."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CUDA] + (
+        [ProfilerActivity.CPU] if cpu else [])
+    torch.cuda.synchronize()
+    with profile(activities=activities) as prof:
+        for _ in range(3):
+            _mark()
+        torch.cuda.synchronize()
+        time.sleep(0.1)
+        yield prof
+        torch.cuda.synchronize()
+
+
+def _calls_per_wrapper(names) -> dict:
+    """Kernel names in a trace -> calls of the kernel wrappers: five stage
+    kernels per block forward (``rdb_*`` but ``rdb_dx_*``), one dW kernel
+    per block backward, one blur kernel per blur."""
+    stages = dw = blur = 0
+    for name in names:
+        short = _short_name(name)
+        if short.startswith("rdb_") and "_dx_" not in short:
+            stages += 1
+        elif short.startswith("dw_"):
+            dw += 1
+        elif short == "blur_kernel":
+            blur += 1
+    return {"rdb5c": stages // 5 if stages % 5 == 0 else stages / 5,
+            "rdb5c_bwd": dw, "blur": blur}
+
+
+MARKER = "spin_kernel"
+
+
+def _mark() -> None:
+    """A marker on the current stream that a trace shows between the work
+    before it and the work after it (``torch.cuda._sleep``'s one-block
+    ``spin_kernel``, a few cycles long)."""
+    import torch
+
+    torch.cuda._sleep(1)
+
+
+@contextlib.contextmanager
+def _launch_trace(want: dict = None, fresh: bool = True, label: str = ""):
+    """Runs the body under torch.profiler, the device's activity only (the
+    kernels of graph replays included), with every wrapper's count set to
+    0 just before it. Yields a dict that, after the body, holds ``ran``,
+    the launches of each kernel in the trace by wrapper (what the card
+    ran), ``counted``, the wrappers' own counts over the body, and
+    ``segments``, ``ran`` between the ``_mark`` markers. With ``want``
+    ({wrapper: launches}), ``ran`` must equal it and, when ``fresh`` (the
+    body captured its graphs), every wrapper with launches must have
+    counted some too."""
+    out = {}
+    with _profiled() as prof:
+        _reset_launches()
+        yield out
+    out["counted"] = _counted()
+    names = [name for _, _, name in _device_events(prof)]
+    out["ran"] = _calls_per_wrapper(names)
+    cuts = [i for i, n in enumerate(names) if MARKER in n]
+    out["segments"] = [_calls_per_wrapper(names[a + 1:b]) for a, b in
+                       zip([-1] + cuts, cuts + [len(names)])]
+    if want is not None:
+        want = {k: want.get(k, 0) for k in out["ran"]}
+        idle = [k for k, n in want.items() if n and fresh
+                and not out["counted"][k]]
+        if out["ran"] != want or idle:
+            raise AssertionError(
+                f"{label}: the card ran {out['ran']}, expected {want}; the "
+                f"wrappers counted {out['counted']}")
 
 
 def _time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
@@ -662,13 +771,11 @@ def _gain_weights(net, seed: int) -> None:
                     0.0, 0.01, generator=gen))
 
 
-def phase_slice(smi: str, root: str):
-    """The main path: the test CLI in f32 and bf16 (``eval_step`` replays
-    one graph per shape: the first image runs eagerly and captures), then
-    in f32 with ``x8: true`` (eight forwards per image) and with ``chop:
-    true`` (one 128 x 128 tile per image). Checks the launches the card
-    ran per run; returns the launches the wrapper counted over all runs
-    (eagerly and at capture)."""
+def phase_slice(smi: str, root: str) -> dict:
+    """The main path: the test CLI in f32 and bf16, then in f32 with
+    ``x8: true`` (eight forwards per image) and with ``chop: true`` (one
+    128 x 128 tile per image), each run under a launch trace. Returns the
+    launches the card ran and the wrappers counted, over all runs."""
     import torch
 
     from trainner_tpu_torch import test as test_cli
@@ -678,28 +785,28 @@ def phase_slice(smi: str, root: str):
             (_options(root, name="smoke_bf16", use_amp=True), 1),
             (_options(root, name="smoke_x8", x8=True), 8),
             (_options(root, name="smoke_chop", chop=True), 1)]
-    _reset_launches()
-    before = 0
+    total = {"ran": 0, "counted": 0}
     for path, forwards in runs:
         t0 = time.time()
-        averages = test_cli.main(["-opt", path])
-        torch.cuda.synchronize()
-        secs, count = time.time() - t0, _ran()["rdb5c"]
+        want = {"rdb5c": per_forward * forwards * N_IMAGES}
+        with _launch_trace(want, label=os.path.basename(path)) as t:
+            averages = test_cli.main(["-opt", path])
+        secs = time.time() - t0
         vals = {m["name"]: m["average"] for m in averages["synth"]}
         print(f"slice: {os.path.basename(path)} {N_IMAGES} images in "
-              f"{secs:.2f} s, launches {count - before}, metrics {vals}")
-        if count - before != per_forward * forwards * N_IMAGES:
-            raise AssertionError(
-                f"{count - before} kernel launches, expected "
-                f"{per_forward} per G forward x {forwards} x {N_IMAGES}")
+              f"{secs:.2f} s (traced), launches the card ran "
+              f"{t['ran']['rdb5c']} ({per_forward} per G forward x "
+              f"{forwards} x {N_IMAGES}), the wrapper counted "
+              f"{t['counted']['rdb5c']}, metrics {vals}")
         if not all(math.isfinite(v) for v in vals.values()):
             raise AssertionError(f"metrics not finite: {vals}")
         pngs = os.listdir(os.path.join(root, "results",
                                        os.path.basename(path)[:-5], "synth"))
         if len([p for p in pngs if p.endswith(".png")]) != N_IMAGES:
             raise AssertionError(f"PNGs written: {pngs}")
-        before = count
-    return _counted()["rdb5c"]
+        total["ran"] += t["ran"]["rdb5c"]
+        total["counted"] += t["counted"]["rdb5c"]
+    return total
 
 
 def phase_g_compare(smi: str, root: str) -> None:
@@ -769,19 +876,17 @@ def phase_debug_configs(smi: str, root: str) -> None:
         path = os.path.join(root, opt["name"] + ".json")
         with open(path, "w") as f:
             json.dump(opt, f)
-        _reset_launches()
-        averages = test_cli.main(["-opt", path])
-        torch.cuda.synchronize()
+        with _launch_trace({"rdb5c": per_g * n_img},
+                           label="debug serving") as t:
+            averages = test_cli.main(["-opt", path])
         vals = {m["name"]: m["average"] for v in averages.values()
                 for m in v}
         print(f"debug: {os.path.basename(DEBUG_TEST_YML)} G (nf "
               f"{g_opt['nf']}, nb {g_opt['nb']}, gc {g_opt['gc']}) served, "
-              f"use_amp {use_amp}: {n_img} images, launches "
-              f"{_ran()["rdb5c"]}, metrics {vals}")
-        if _ran()["rdb5c"] != per_g * n_img or not vals or not all(
-                math.isfinite(v) for v in vals.values()):
-            raise AssertionError(f"debug serving: {_ran()["rdb5c"]} launches,"
-                                 f" metrics {vals}")
+              f"use_amp {use_amp}: {n_img} images, launches the card ran "
+              f"{t['ran']['rdb5c']}, metrics {vals}")
+        if not vals or not all(math.isfinite(v) for v in vals.values()):
+            raise AssertionError(f"debug serving: metrics {vals}")
 
     opt = read_options_yml(DEBUG_TRAIN_YML)
     train = {"is_train": True, "scale": opt["scale"],
@@ -797,21 +902,18 @@ def phase_debug_configs(smi: str, root: str) -> None:
         trainer = create_trainer({**train, "use_amp": use_amp})
         state = trainer.init_state(0)
         g0 = _snapshot(state.g.net)
-        _reset_launches()
-        for _ in range(2):
-            state, logs = trainer.train_step(state, batch)
-        torch.cuda.synchronize()
+        with _launch_trace({"rdb5c": 2 * per_g, "rdb5c_bwd": 2 * per_g},
+                           label="debug training") as t:
+            for _ in range(2):
+                state, logs = trainer.train_step(state, batch)
         vals = {k: float(v) for k, v in logs.items()}
         moved, total = _count_moved(state.g.net, g0, lambda k: True)
         print(f"debug: {os.path.basename(DEBUG_TRAIN_YML)} G and D, "
               f"{trainer.dtype}, b={b} {hr_px // 4}->{hr_px} px, 2 steps: "
-              f"forward launches {_ran()["rdb5c"]}, backward launches "
-              f"{_ran()["rdb5c_bwd"]}, G tensors moved {moved} of "
-              f"{total}, logs {vals}")
-        if (_ran()["rdb5c"], _ran()["rdb5c_bwd"]) != (2 * per_g,
-                                                          2 * per_g) \
-                or moved != total or not all(math.isfinite(v)
-                                             for v in vals.values()):
+              f"launches the card ran {t['ran']}, G tensors moved {moved} "
+              f"of {total}, logs {vals}")
+        if moved != total or not all(math.isfinite(v)
+                                     for v in vals.values()):
             raise AssertionError("debug training did not run as expected")
         del trainer, state
     print(f"debug: ok ({smi})")
@@ -859,9 +961,9 @@ def _count_moved(net, before: dict, pick) -> tuple:
 
 def phase_train(smi: str) -> dict:
     """The training path: a few train steps at full width in bf16 (the
-    training default) and in f32, with the launches of both kernels counted
-    over each run, and the step's time. Returns the launches counted over
-    the bf16 run and the step times."""
+    training default) and in f32, the first steps of each under a launch
+    trace, and the step's time. Returns by type name the step's ms and the
+    traced steps' launches (``ran``, ``counted``)."""
     import torch
 
     from trainner_tpu_torch.train.sr_trainer import create_trainer
@@ -876,21 +978,17 @@ def phase_train(smi: str) -> dict:
         name = str(trainer.dtype).replace("torch.", "")
         state = trainer.init_state(0)
         g0, d0 = _snapshot(state.g.net), _snapshot(state.d.net)
-        _reset_launches()
-        for _ in range(n_check):
-            state, logs = trainer.train_step(state, batch)
-        torch.cuda.synchronize()
-        fwd, bwd = _ran()["rdb5c"], _ran()["rdb5c_bwd"]
-        counted = _counted()
+        with _launch_trace({"rdb5c": per_g * n_check,
+                            "rdb5c_bwd": per_g * n_check},
+                           label=f"train {name}") as t:
+            for _ in range(n_check):
+                state, logs = trainer.train_step(state, batch)
         vals = {k: float(v) for k, v in logs.items()}
         print(f"train: {name} b={batch['LR'].shape[0]} "
               f"{TRAIN_SHAPE[1]}->{TRAIN_SHAPE[1] * 4} px, {n_check} steps: "
-              f"forward launches {fwd}, backward launches {bwd}, "
-              f"logs {vals}")
-        if fwd != per_g * n_check or bwd != per_g * n_check:
-            raise AssertionError(
-                f"{fwd} forward and {bwd} backward launches, expected "
-                f"{per_g} per G forward and per G update x {n_check}")
+              f"launches the card ran {t['ran']} ({per_g} per G forward "
+              f"and per G update x {n_check}), the wrappers counted "
+              f"{t['counted']}, logs {vals}")
         want = {"l_g_pix", "l_g_fea", "l_g_gan", "l_g_total", "l_d_real",
                 "l_d_fake", "D_real", "D_fake", "l_d_total"}
         if set(vals) != want or not all(math.isfinite(v)
@@ -931,9 +1029,8 @@ def phase_train(smi: str) -> dict:
         if not math.isfinite(float(logs["l_g_total"])):
             raise AssertionError("l_g_total is not finite after the timed "
                                  "steps")
-        # the wrappers' counts (eager and at capture) for the summary
-        result[name] = dict(step_ms=step_ms, forward=counted["rdb5c"],
-                            backward=counted["rdb5c_bwd"])
+        result[name] = dict(step_ms=step_ms, ran=t["ran"],
+                            counted=t["counted"])
         del trainer, state
         torch.cuda.empty_cache()
 
@@ -941,16 +1038,15 @@ def phase_train(smi: str) -> dict:
     trainer = create_trainer(_train_options(D_update_ratio=2))
     state = trainer.init_state(1)
     for step, (want_f, want_b) in enumerate(((per_g, per_g), (per_g, 0))):
-        _reset_launches()
         g0 = _snapshot(state.g.net)
-        state, logs = trainer.train_step(state, batch)
-        torch.cuda.synchronize()
-        fwd, bwd = _ran()["rdb5c"], _ran()["rdb5c_bwd"]
+        with _launch_trace({"rdb5c": want_f, "rdb5c_bwd": want_b},
+                           label=f"D_update_ratio 2, step {step}") as t:
+            state, logs = trainer.train_step(state, batch)
         moved, _ = _count_moved(state.g.net, g0, lambda k: True)
-        print(f"train: D_update_ratio 2, step {step}: forward launches "
-              f"{fwd}, backward launches {bwd}, G tensors moved {moved}, "
-              f"logs {sorted(logs)}")
-        if (fwd, bwd) != (want_f, want_b) or bool(moved) != bool(want_b) \
+        print(f"train: D_update_ratio 2, step {step}: launches the card "
+              f"ran {t['ran']}, G tensors moved {moved}, logs "
+              f"{sorted(logs)}")
+        if bool(moved) != bool(want_b) \
                 or ("l_g_total" in logs) != bool(want_b) \
                 or not math.isfinite(float(logs["l_d_total"])):
             raise AssertionError(f"step {step} at D_update_ratio 2")
@@ -982,13 +1078,14 @@ def phase_g_gradient(smi: str) -> None:
         return {k: p.grad.clone()
                 for k, p in state.g.net.named_parameters()}
 
-    before = _ran()["rdb5c_bwd"]
+    # eager calls: the wrapper's count is what the card ran
+    before = _counted()["rdb5c_bwd"]
     got = grads()
-    if _ran()["rdb5c_bwd"] - before != NB * 3:
+    if _counted()["rdb5c_bwd"] - before != NB * 3:
         raise AssertionError("the G stage did not run the backward kernel")
     with _plain_blocks():
         ref = grads()
-    if _ran()["rdb5c_bwd"] - before != NB * 3:
+    if _counted()["rdb5c_bwd"] - before != NB * 3:
         raise AssertionError("the plain pass launched a kernel")
     # f32 through 69 chained blocks forward and back, sums in another
     # order, and a c_k within rounding of zero may take the other slope,
@@ -1048,10 +1145,10 @@ def _e2e_options(root: str, shuffle: bool = False) -> dict:
 
 
 def phase_producer(smi: str, root: str) -> dict:
-    """The end-to-end path at full width, bf16: 3 warm-up and 10 timed
-    steps of loader -> prefetch -> degradations -> train_step, with the
-    three kernels' launches counted over the timed steps. Returns the
-    counts."""
+    """The end-to-end path at full width, bf16: loader -> prefetch ->
+    degradations -> train_step, its first 3 steps under a launch trace,
+    then 10 timed steps; the same with the shuffled degrader. Returns the
+    launch traces of both orders."""
     import torch
 
     from trainner_tpu_torch.data import create_dataloader, create_dataset
@@ -1091,9 +1188,18 @@ def phase_producer(smi: str, root: str) -> dict:
         state, logs = trainer.train_step(state, batch)
         return batch, logs
 
-    for _ in range(3):
-        batch, logs = e2e_step()
-    torch.cuda.synchronize()
+    # the first steps (the degrader's and the step's captures, then
+    # replays) under a launch trace, then timed steps without it
+    n_traced = 3
+    with _launch_trace({"blur": 2 * n_traced, "rdb5c": per_g * n_traced,
+                        "rdb5c_bwd": per_g * n_traced},
+                       label="producer, fixed order") as traced:
+        for _ in range(n_traced):
+            batch, logs = e2e_step()
+    print(f"producer: {n_traced} end-to-end steps from the start: launches "
+          f"the card ran {traced['ran']} (2 blur launches per batch, "
+          f"{per_g} + {per_g} block launches per step), the wrappers "
+          f"counted {traced['counted']}")
     hr, lr = batch["HR"], batch["LR"]
     if hr.dtype != torch.uint8 or tuple(hr.shape) != (b, lr_px * 4,
                                                       lr_px * 4, 3):
@@ -1111,56 +1217,44 @@ def phase_producer(smi: str, root: str) -> dict:
         raise AssertionError("the degraded LR batch is not as expected")
 
     n_timed = 10
-    _reset_launches()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for _ in range(n_timed):
         batch, logs = e2e_step()
     torch.cuda.synchronize()
     e2e_ms = (time.perf_counter() - t0) / n_timed * 1e3
-    counts = dict(blur=_ran()["blur"], forward=_ran()["rdb5c"],
-                  backward=_ran()["rdb5c_bwd"])
-    wrapper = _counted()
     vals = {k: float(v) for k, v in logs.items()}
-    print(f"producer: {n_timed} end-to-end steps: blur launches "
-          f"{counts['blur']}, forward launches {counts['forward']}, backward "
-          f"launches {counts['backward']}, logs {vals}")
-    if counts != dict(blur=2 * n_timed, forward=per_g * n_timed,
-                      backward=per_g * n_timed):
-        raise AssertionError(
-            f"launches {counts}: expected 2 blur launches per batch and "
-            f"{per_g} + {per_g} block launches per G update x {n_timed}")
+    print(f"producer: {n_timed} timed end-to-end steps, logs {vals}")
     if not all(math.isfinite(v) for v in vals.values()):
         raise AssertionError(f"logs {vals}")
 
     # the same path with the stage order drawn per sample (the routed
-    # program: blur and blur2 once per slot and pass, on q-slices)
+    # program: blur and blur2 once per slot and pass, on q-slices); its
+    # degrader captures in the trace, the step's graph replays
     degrade_fixed = degrade
     degrade = make_otf_degradation(
         parse_dict(_e2e_options(corpus, shuffle=True), is_train=True),
         generator=gen)
-    for _ in range(2):
-        e2e_step()
-    _reset_launches()
+    per_batch = 2 * 2 * SHUFFLE_K
+    with _launch_trace({"blur": per_batch * n_traced,
+                        "rdb5c": per_g * n_traced,
+                        "rdb5c_bwd": per_g * n_traced}, fresh=False,
+                       label="producer, shuffled") as traced_sh:
+        for _ in range(n_traced):
+            batch, logs = e2e_step()
+    print(f"producer: {n_traced} shuffled end-to-end steps from the "
+          f"degrader's start: launches the card ran {traced_sh['ran']} "
+          f"({per_batch} blur launches per batch), the wrappers counted "
+          f"{traced_sh['counted']}")
+    if not traced_sh["counted"]["blur"]:
+        raise AssertionError("the shuffled degrader's wrapper counted no "
+                             "blur launch")
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for _ in range(n_timed):
         batch, logs = e2e_step()
     torch.cuda.synchronize()
     e2e_sh_ms = (time.perf_counter() - t0) / n_timed * 1e3
-    counts["shuffled"] = dict(blur=_ran()["blur"], forward=_ran()["rdb5c"],
-                              backward=_ran()["rdb5c_bwd"])
-    wrapper_sh = _counted()
-    per_batch = 2 * 2 * SHUFFLE_K
-    print(f"producer: {n_timed} shuffled end-to-end steps: launches "
-          f"{counts['shuffled']}")
-    if counts["shuffled"] != dict(blur=per_batch * n_timed,
-                                  forward=per_g * n_timed,
-                                  backward=per_g * n_timed):
-        raise AssertionError(
-            f"shuffled launches {counts['shuffled']}: expected {per_batch} "
-            f"blur launches per batch and {per_g} + {per_g} block launches "
-            f"per G update x {n_timed}")
     lr = batch["LR"]
     if tuple(lr.shape) != (b, lr_px, lr_px, 3) or not all(
             math.isfinite(float(v)) for v in logs.values()):
@@ -1211,10 +1305,7 @@ def phase_producer(smi: str, root: str) -> dict:
             smi, e2e_ms)
     del trainer, state, stream
     torch.cuda.empty_cache()
-    # the wrappers' counts over the timed steps, for the summary
-    summary = lambda c: dict(blur=c["blur"], forward=c["rdb5c"],  # noqa
-                             backward=c["rdb5c_bwd"])
-    return dict(summary(wrapper), shuffled=summary(wrapper_sh))
+    return {"fixed order": traced, "shuffled": traced_sh}
 
 
 def _stand_in_degrader(ds_opt: dict):
@@ -1310,14 +1401,14 @@ def phase_shuffle(smi: str, root: str) -> dict:
             shapes[key] = shapes.get(key, 0) + 1
             return orig(xx, kern)
 
-        _reset_launches()
         D.apply_kernels = spy
         try:
-            y = deg(gen, x_u8)
-            torch.cuda.synchronize()
+            with _launch_trace({"blur": per_batch},
+                               label=f"bsrgan {label}") as t:
+                y = deg(gen, x_u8)
         finally:
             D.apply_kernels = orig
-        launches = _ran()["blur"]
+        launches = t["ran"]["blur"]
         off = float((y * 255 - (y * 255).round()).abs().max())
         print(f"shuffle: bsrgan {label}, b={b} {hr}->{hr // 4} px: blur "
               f"launches per batch {launches}, shapes {shapes}; output "
@@ -1411,9 +1502,9 @@ def phase_cli(smi: str, root: str) -> dict:
     per-sample shuffle, bf16), ``trainner_tpu_torch.train.main`` on the
     card for 12 iterations with checkpoints and validation at 6 and 12;
     then a second ``main`` that resumes from ``training_state/`` to 16,
-    whose loaded state must equal the saved one bit for bit. Counts the
-    three kernels' launches over each run, per step and per batch. Returns
-    the first run's counts."""
+    whose loaded state must equal the saved one bit for bit. Each run under
+    a launch trace: the three kernels' launches per step, per batch and in
+    all. Returns both runs' traces."""
     import torch
 
     from trainner_tpu_torch.train import cli
@@ -1425,21 +1516,22 @@ def phase_cli(smi: str, root: str) -> dict:
     per_g = NB * 3
     per_batch = 2 * 2 * SHUFFLE_K
     exp = os.path.join(root, "cli", "experiments", "001_sr_template")
-    rec = {"steps": [], "save": [], "val": [], "loaded": None,
-           "counted": []}
+    rec = {"steps": [], "save": [], "val": [], "loaded": None}
     orig = (SRTrainer.train_step, checkpoint.save_checkpoint, cli.validate,
             checkpoint.load_state)
 
     def train_step(self, state, batch):
+        # a marker on the stream before and after each step: the trace's
+        # launches between them are the step's own
         step = state.step
-        start = (time.perf_counter(), _ran()["rdb5c"],
-                 _ran()["rdb5c_bwd"], _ran()["blur"])
+        start = time.perf_counter()
+        _mark()
         out = orig[0](self, state, batch)
+        _mark()
         if step + 1 == CLI_NITER:
             torch.cuda.synchronize()
             rec["end"] = time.perf_counter()
-        rec["steps"].append((step + 1, start, _ran()["rdb5c"],
-                             _ran()["rdb5c_bwd"]))
+        rec["steps"].append((step + 1, start))
         return out
 
     def timed(fn, key):
@@ -1459,16 +1551,10 @@ def phase_cli(smi: str, root: str) -> dict:
 
     def run(argv):
         rec["steps"].clear()
-        _reset_launches()
         t0 = time.perf_counter()
-        state = cli.main(argv)
-        torch.cuda.synchronize()
-        counts = dict(blur=_ran()["blur"], forward=_ran()["rdb5c"],
-                      backward=_ran()["rdb5c_bwd"])
-        c = _counted()
-        rec["counted"].append(dict(blur=c["blur"], forward=c["rdb5c"],
-                                   backward=c["rdb5c_bwd"]))
-        return state, counts, time.perf_counter() - t0
+        with _launch_trace() as t:
+            state = cli.main(argv)
+        return state, t, time.perf_counter() - t0
 
     SRTrainer.train_step = train_step
     checkpoint.save_checkpoint = timed(orig[1], "save")
@@ -1494,26 +1580,22 @@ def phase_cli(smi: str, root: str) -> dict:
         (SRTrainer.train_step, checkpoint.save_checkpoint, cli.validate,
          checkpoint.load_state) = orig
 
-    # the first run: launches per step and per batch, and in all
+    # the first run: launches per step and per batch, and in all, from
+    # its trace; between the markers: before step 1 its batch's degrader,
+    # then each step, then the next batch's degrader (after a validation
+    # at 6, its forwards too), and after step 12 the validation at 12
     n_val = 2 * N_VAL  # validation at 6 and 12
     want = dict(blur=per_batch * CLI_NITER,
-                forward=per_g * (CLI_NITER + n_val),
-                backward=per_g * CLI_NITER)
-    print(f"cli: main() on {CLI_NITER} iterations, {wall:.2f} s: launches "
-          f"{counts} (expected {want})")
-    blur_seen = 0
-    for i, (step, (_, fwd0, bwd0, blur0), fwd1, bwd1) in enumerate(steps):
-        if step != i + 1 or (fwd1 - fwd0, bwd1 - bwd0) != (per_g, per_g) \
-                or blur0 - blur_seen != per_batch:
-            raise AssertionError(
-                f"cli step {i + 1}: state step {step}, launches forward "
-                f"{fwd1 - fwd0}, backward {bwd1 - bwd0}, blur for its batch "
-                f"{blur0 - blur_seen}")
-        blur_seen = blur0
-    if counts != want or len(steps) != CLI_NITER:
-        raise AssertionError(f"cli launches {counts}, {len(steps)} steps")
+                rdb5c=per_g * (CLI_NITER + n_val),
+                rdb5c_bwd=per_g * CLI_NITER)
+    _check_cli_trace("cli", counts, want, steps, range(1, CLI_NITER + 1),
+                     per_g, per_batch)
+    print(f"cli: main() on {CLI_NITER} iterations, {wall:.2f} s (traced): "
+          f"launches the card ran {counts['ran']} (expected {want}); the "
+          f"wrappers counted {counts['counted']}")
     print(f"cli: every step {per_g} + {per_g} block launches and its batch "
-          f"{per_batch} blur launches ({CLI_NITER} steps)")
+          f"{per_batch} blur launches before it ({CLI_NITER} steps, from "
+          f"the trace)")
 
     # the artifacts
     files = {os.path.relpath(os.path.join(d, f), exp)
@@ -1544,12 +1626,13 @@ def phase_cli(smi: str, root: str) -> dict:
 
     # times: from the start of step 3 to the end of step 12 (synchronised
     # there), with and without the save and validation at 6 inside it
-    span = rec["end"] - steps[2][1][0]
+    span = rec["end"] - steps[2][1]
     steady = span - rec["save"][0] - rec["val"][0]
     n = CLI_NITER - 2
     save_ms = [t * 1e3 for t in rec["save"]]
     val_ms = [t * 1e3 for t in rec["val"]]
-    print(f"times: cli main() steps 3-{CLI_NITER} on the host clock: "
+    print(f"times: cli main() steps 3-{CLI_NITER} on the host clock, "
+          f"under the launch trace: "
           f"{steady * 1e3 / n:.3f} ms per iteration, {n / steady:.4f} it/s "
           f"steady; {span * 1e3 / n:.3f} ms, {n / span:.4f} it/s with the "
           f"save and validation at {CLI_FREQ} ({smi})")
@@ -1567,24 +1650,53 @@ def phase_cli(smi: str, root: str) -> dict:
         torch.equal(saved[k], loaded[k]) if isinstance(saved[k],
                                                        torch.Tensor)
         else saved[k] == loaded[k])]
-    want2 = dict(blur=per_batch * (CLI_RESUME_NITER - CLI_NITER),
-                 forward=per_g * (CLI_RESUME_NITER - CLI_NITER),
-                 backward=per_g * (CLI_RESUME_NITER - CLI_NITER))
+    n2 = CLI_RESUME_NITER - CLI_NITER
+    want2 = dict(blur=per_batch * n2, rdb5c=per_g * n2, rdb5c_bwd=per_g * n2)
+    _check_cli_trace("cli resume", counts2, want2, steps2,
+                     range(CLI_NITER + 1, CLI_RESUME_NITER + 1), per_g,
+                     per_batch)
     print(f"cli: resumed from {os.path.relpath(path, exp)} (iter "
           f"{meta['iter']}, epoch {meta['epoch']}) to {state2.step} in "
-          f"{wall2:.2f} s: {len(saved)} tensors and counts of the saved "
-          f"state, {len(diff)} differ after loading; launches {counts2}")
+          f"{wall2:.2f} s (traced): {len(saved)} tensors and counts of the "
+          f"saved state, {len(diff)} differ after loading; launches the "
+          f"card ran {counts2['ran']}, the wrappers counted "
+          f"{counts2['counted']}")
     if diff or meta["iter"] != CLI_NITER or state2.step != CLI_RESUME_NITER \
-            or steps2[0][0] != CLI_NITER + 1 or counts2 != want2 \
             or not os.path.exists(os.path.join(
                 exp, "models", f"{CLI_RESUME_NITER}_G.ckpt")):
         raise AssertionError(f"cli resume: differs {diff[:5]}, meta {meta},"
-                             f" step {state2.step}, launches {counts2}")
+                             f" step {state2.step}")
     del state2
     torch.cuda.empty_cache()
     print(f"cli: ok ({smi})")
-    # the wrappers' counts (eager and at capture) for the summary
-    return dict(rec["counted"][0], resumed=rec["counted"][1])
+    return {"run": counts, "resumed": counts2}
+
+
+def _check_cli_trace(label: str, trace: dict, want: dict, steps: list,
+                     numbers, per_g: int, per_batch: int) -> None:
+    """A training CLI run's launch trace: what the card ran in all equals
+    ``want``, every wrapper counted, and between the markers around the
+    steps (numbered ``numbers``) each step ran ``per_g`` forward and
+    backward block launches and no blur, and before it its batch's
+    ``per_batch`` blur launches (with a validation's forwards where one
+    ran there)."""
+    ran, segments = trace["ran"], trace["segments"]
+    numbers = list(numbers)
+    idle = [k for k, n in want.items() if n and not trace["counted"][k]]
+    if ran != want or idle or [s for s, _ in steps] != numbers \
+            or len(segments) != 2 * len(numbers) + 1:
+        raise AssertionError(
+            f"{label}: the card ran {ran}, expected {want}; the wrappers "
+            f"counted {trace['counted']}; steps {[s for s, _ in steps]}; "
+            f"{len(segments)} segments between markers")
+    for i, number in enumerate(numbers):
+        before, step = segments[2 * i], segments[2 * i + 1]
+        if step != {"rdb5c": per_g, "rdb5c_bwd": per_g, "blur": 0} \
+                or before["blur"] != per_batch or before["rdb5c_bwd"] \
+                or before["rdb5c"] % per_g:
+            raise AssertionError(
+                f"{label} step {number}: {step} in the step, {before} "
+                f"before it")
 
 
 BF16_BLOCK_KERNELS = {"rdb5c.cu": ("rdb_stage_mma",),
@@ -1813,7 +1925,7 @@ def phase_times(smi: str, root: str, kernels_only: bool = False):
                 k: dev[k] for k in (dx_k, dw_k)}
             print(f"times: {name} block kernels b={b} {h}x{w} on the "
                   f"device alone (profiler, per block): "
-                  + ", ".join(f"{k} {v:.4f} ms" for k, v in dev.items())
+                  + ", ".join(f"{k} {_ms_text(v)} ms" for k, v in dev.items())
                   + f" ({smi})")
             del blk, conv_blk, out, inputs, xin
     _width_times(smi, gen)
@@ -1888,37 +2000,38 @@ def _width_times(smi: str, gen) -> None:
             print(f"times: widths {name} b={b} {h}x{w} nf {nf} gc {gc} "
                   f"(kernels at nf {padded_width(nf)}, gc "
                   f"{padded_width(gc)}): forward {ms:.4f} ms (stages on "
-                  f"the device {dev[0]:.4f}), backward {bwd_ms:.4f} ms (dx "
-                  f"{dev[1]:.4f} + dW {dev[2]:.4f}); bound of the block's "
+                  f"the device {_ms_text(dev[0])}), backward {bwd_ms:.4f} ms "
+                  f"(dx "
+                  f"{_ms_text(dev[1])} + dW {_ms_text(dev[2])}); bound of the "
+                  f"block's "
                   f"own work: forward {fwd_bound['bound_ms']:.4f} ms, "
                   f"backward {bwd_bound['bound_ms']:.4f} ms ({smi})")
         del blk
 
 
-def _device_ms(fn, match: str, calls: int = 10) -> float:
+def _device_ms(fn, match: str, calls: int = 10):
     """Device time per call of ``fn``, under torch.profiler, of the kernels
     whose name holds ``match`` (all their launches in one call added up),
-    over ``calls`` calls; 0.0 when three sessions of the profiler recorded
-    none."""
+    over ``calls`` calls; None (not measured) when three sessions of the
+    profiler recorded none."""
     import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
     # the profiler now and then loses a session's kernel records: up to
     # three sessions
     for _ in range(3):
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
+        with _profiled() as prof:
             for _ in range(calls):
                 fn()
-            torch.cuda.synchronize()
-        spans = [e.time_range.elapsed_us() for e in prof.events()
-                 if e.device_type == DeviceType.CUDA and match in e.name]
+        spans = [d for _, d, name in _device_events(prof) if match in name]
         if spans:
-            break
-    return sum(spans) / calls / 1e3
+            return sum(spans) / calls / 1e6
+    return None
+
+
+def _ms_text(ms) -> str:
+    return "not measured" if ms is None else f"{ms:.4f}"
 
 
 def _parent_blur(parent: str):
@@ -2004,7 +2117,8 @@ def phase_blur_times(smi: str, parent: str = "") -> dict:
             print(f"times: blur_per_sample float32 {shape} k={BLUR_K}, its C "
                   f"interface called in turns (CUDA events ms per call, "
                   f"device ms): " + ", ".join(
-                      f"{who} {ms:.4f} / {dev:.4f}" for who, ms, dev in turns)
+                      f"{who} {ms:.4f} / {_ms_text(dev)}"
+                      for who, ms, dev in turns)
                   + f"; bound {bound_ms:.4f} ms ({smi})")
         ms = _time_ms(fn, iters=50)
         plain_ms = _time_ms(lambda: blur_per_sample_plain(x, kern), iters=3,
@@ -2014,26 +2128,34 @@ def phase_blur_times(smi: str, parent: str = "") -> dict:
         rows[shape] = dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
                            bound_ms=bound_ms, bound_by=bound_by,
                            device_ms=device_ms)
-        share = f"{bound_ms / device_ms:.1%}" if device_ms else "not measured"
+        share = (f"{bound_ms / device_ms:.1%}" if device_ms is not None
+                 else "share not measured")
         print(f"times: blur_per_sample float32 {shape} k={BLUR_K}: kernel "
               f"{ms:.4f} ms per call of the wrapper (CUDA events over 50 "
-              f"calls), {device_ms:.4f} ms on the device alone (profiler), "
+              f"calls), {_ms_text(device_ms)} ms on the device alone "
+              f"(profiler), "
               f"{share} of the bound {bound_ms:.4f} ms ({bound_by}), plain "
               f"{plain_ms:.4f} ms, reflect pad + grouped cuDNN conv "
               f"{library_ms:.4f} ms, {work / ms / 1e9:.2f} TFLOP/s ({smi})")
     return rows
 
 
-def _kernel_rows(rows, serving_launches, train, main_err, bwd_err,
+def _kernel_rows(rows, serving, train, main_err, bwd_err,
                  blur_rows, producer, blur_err, forms, cli):
     """The JSON summary: each kernel at its main path's shape and type (the
     forward at the serving shape in f32, the backward at the training shape
     in bf16, the blur at the HR canvas in f32, with its times at the LR
     canvas and at the shuffled program's q-slices beside), with the
-    launches counted over the main paths' runs (serving, training, the
-    producer in both orders, the training CLI and its resume), and both
-    types' times at both block shapes beside."""
-    paths = (producer, producer["shuffled"], cli, cli["resumed"])
+    launches the card ran in the launch traces of the main paths' runs
+    (serving, training in both types, the producer in both orders, the
+    training CLI and its resume), the wrappers' own counts over the same
+    runs beside them, and both types' times at both block shapes."""
+    traces = [*train.values(), *producer.values(), *cli.values()]
+
+    def summed(key, wrapper):
+        return sum(t[key][wrapper] for t in traces) + (
+            serving[key] if wrapper == "rdb5c" else 0)
+
     fwd = rows["rdb5c_forward", MAIN_SHAPE, "float32"]
     bwd = rows["rdb5c_backward", TRAIN_SHAPE, "bfloat16"]
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
@@ -2051,8 +2173,8 @@ def _kernel_rows(rows, serving_launches, train, main_err, bwd_err,
         {"name": "rdb5c_forward", "route": "cuda",
          "source": "trainner_tpu_torch/csrc/rdb5c.cu",
          "replaces": "trainner_tpu/ops/pallas_kernels.py:180",
-         "launches": serving_launches + sum(p["forward"] for p in paths)
-         + sum(r["forward"] for r in train.values()),
+         "launches": summed("ran", "rdb5c"),
+         "wrapper_counts": summed("counted", "rdb5c"),
          "max_abs_err": main_err, **{k: fwd[k] for k in keys},
          "bound_ms_cuda_cores": fwd["bound_ms_cuda_cores"],
          "shape": list(MAIN_SHAPE), "dtype": "float32",
@@ -2062,8 +2184,8 @@ def _kernel_rows(rows, serving_launches, train, main_err, bwd_err,
         {"name": "rdb5c_backward", "route": "cuda",
          "source": "trainner_tpu_torch/csrc/rdb5c_bwd.cu",
          "replaces": "trainner_tpu/ops/pallas_kernels.py:355",
-         "launches": sum(p["backward"] for p in paths) + sum(
-             r["backward"] for r in train.values()),
+         "launches": summed("ran", "rdb5c_bwd"),
+         "wrapper_counts": summed("counted", "rdb5c_bwd"),
          "max_abs_err": bwd_err, **{k: bwd[k] for k in keys},
          "shape": list(TRAIN_SHAPE), "dtype": "bfloat16",
          "float32": at("rdb5c_backward", "float32"),
@@ -2072,7 +2194,8 @@ def _kernel_rows(rows, serving_launches, train, main_err, bwd_err,
         {"name": "blur_per_sample", "route": "cuda",
          "source": "trainner_tpu_torch/csrc/blur_per_sample.cu",
          "replaces": "trainner_tpu/ops/pallas_kernels.py:466",
-         "launches": sum(p["blur"] for p in paths),
+         "launches": summed("ran", "blur"),
+         "wrapper_counts": summed("counted", "blur"),
          "max_abs_err": blur_err,
          **{k: blur_rows[BLUR_HR][k] for k in keys + ("device_ms",)},
          "shape": list(BLUR_HR), "k": BLUR_K, "dtype": "float32",
@@ -2092,25 +2215,21 @@ def _traced(fn, label: str, smi: str, untraced_ms: float = 0.0) -> None:
     import collections
 
     import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with _profiled(cpu=True) as prof:
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     by_name = collections.Counter()
     calls = collections.Counter()
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
-            name = e.name.removeprefix("void ").replace(
-                "(anonymous namespace)::", "").split("(")[0][:70]
-            by_name[name] += e.time_range.elapsed_us()
-            calls[name] += 1
+    for _, ns, name in _device_events(prof):
+        name = name.removeprefix("void ").replace(
+            "(anonymous namespace)::", "").split("(")[0][:70]
+        by_name[name] += ns / 1e3
+        calls[name] += 1
     busy_us = sum(by_name.values())
     if not busy_us:
         print(f"trace: the profiler recorded no device time; the breakdown "
@@ -2179,6 +2298,26 @@ def _net_tensors(state) -> dict:
             getattr(state, w).net.state_dict().items()}
 
 
+def _bit_equality(logs_a, logs_b, state_a, state_b) -> str:
+    """How much of two runs of the same steps is equal bit for bit (read,
+    not required: the library calls may differ between a graph and an
+    eager run): the logs, G's and D's parameters and buffers, and their
+    optimizers' moments."""
+    import torch
+
+    logs = all(torch.equal(a[k], b[k]) for a, b in zip(logs_a, logs_b)
+               for k in b)
+    nets_a, nets_b = _net_tensors(state_a), _net_tensors(state_b)
+    nets = sum(torch.equal(nets_a[k], nets_b[k]) for k in nets_b)
+    moments = [torch.equal(x, y) for w in ("g", "d")
+               for key, ts in getattr(state_a, w).opt.state_dict().items()
+               if key != "count"
+               for x, y in zip(ts, getattr(state_b, w).opt.state_dict()[key])]
+    return (f"bit for bit: logs {logs}, parameters and buffers {nets} of "
+            f"{len(nets_b)} tensors, moments {sum(moments)} of "
+            f"{len(moments)}")
+
+
 def _check_steps(label: str, logs_a, logs_b, got: dict, want: dict,
                  lr: float, n_g: int, n_d: int) -> str:
     """The step-parity tolerances of ``tests/test_torch_train_step.py``
@@ -2221,49 +2360,28 @@ def _check_steps(label: str, logs_a, logs_b, got: dict, want: dict,
 
 
 def _kernel_calls(fn) -> tuple:
-    """One call of ``fn`` under torch.profiler: (kernel launches by
-    name, device-busy ms, wall ms)."""
+    """One call of ``fn`` under torch.profiler (the device's activity):
+    (kernel launches by short name, device-busy ms, wall ms)."""
     import collections
 
     import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with _profiled() as prof:
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
-    calls, busy = collections.Counter(), 0.0
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
-            name = e.name.removeprefix("void ").replace(
-                "(anonymous namespace)::", "").split("(")[0].split("<")[0]
-            calls[name] += 1
-            busy += e.time_range.elapsed_us() / 1e3
-    return calls, busy, wall
-
-
-def _calls_per_wrapper(calls) -> dict:
-    """Kernel launches in a trace -> wrapper calls: five stage kernels per
-    block forward, one dW kernel per block backward, one blur kernel per
-    blur."""
-    stages = sum(n for k, n in calls.items()
-                 if k.startswith("rdb_") and "_dx_" not in k)
-    return {"rdb5c": stages / 5,
-            "rdb5c_bwd": sum(n for k, n in calls.items()
-                             if k.startswith("dw_")),
-            "blur": sum(n for k, n in calls.items() if "blur_kernel" in k)}
+    events = _device_events(prof)
+    calls = collections.Counter(_short_name(n) for _, _, n in events)
+    return calls, sum(d for _, d, _ in events) / 1e6, wall
 
 
 def _graph_step(smi: str) -> dict:
     """The step as a graph against the eager step, bf16 and f32: three
     steps each from one seed on the same batches, within the step
-    tolerances of ``_check_steps``; the recorded launches of one replay against a profiler
-    trace of it; fresh latent noise per replay. Returns the graphs'
-    capture seconds and pool bytes by type."""
+    tolerances of ``_check_steps``; the recorded launches of one replay
+    against a profiler trace of it; fresh latent noise per replay. Returns
+    the graphs' capture seconds and pool bytes by type."""
     import torch
 
     from trainner_tpu_torch.ops.blocks import GaussianNoise
@@ -2295,6 +2413,8 @@ def _graph_step(smi: str) -> dict:
         worst = _check_steps(f"graphs: {name} step", runs[True][2],
                              runs[False][2], runs[True][3], runs[False][3],
                              lr, GRAPH_STEPS, GRAPH_STEPS)
+        equal = _bit_equality(runs[True][2], runs[False][2], runs[True][1],
+                              runs[False][1])
         trainer, state = runs[True][:2]
         caps = trainer.step_graphs()
         if len(caps) != 1:
@@ -2303,10 +2423,11 @@ def _graph_step(smi: str) -> dict:
         want = {"rdb5c": per_g, "rdb5c_bwd": per_g, "blur": 0}
         calls, busy, wall = _kernel_calls(
             lambda: trainer.train_step(state, batches[0]))
-        traced = _calls_per_wrapper(calls)
+        traced = _calls_per_wrapper(calls.elements())
         print(f"graphs: {name} step, {GRAPH_STEPS} graphed steps against "
               f"{GRAPH_STEPS} eager ones within the step tolerances "
-              f"(worst log error {worst:.3e} relative); recorded launches "
+              f"(worst log error {worst:.3e} relative; {equal}); "
+              f"recorded launches "
               f"per replay {cap.launches}, in a profiler trace of one "
               f"replay {traced} ({sum(calls.values())} kernels, busy "
               f"{busy:.3f} ms of {wall:.3f} ms); replays {cap.replays}; "
@@ -2470,7 +2591,9 @@ def _graph_window(smi: str) -> dict:
           f"MultiStep boundary at {WINDOW_BOUNDARY}: learning rates "
           f"{[g for g, _ in seen]}, the schedule's {seen == want_lrs}; "
           f"logs {shapes}, within the step tolerances of {WINDOW_K} eager "
-          f"steps (worst log error {worst:.3e}); replays {cap.replays}; "
+          f"steps (worst log error {worst:.3e}; "
+          f"{_bit_equality(per_step, elogs, state, estate)}); replays "
+          f"{cap.replays}; "
           f"capture {cap.capture_s:.3f} s, pool "
           f"{cap.pool_bytes / 2 ** 20:.1f} MiB; state step {state.step}")
     if seen != want_lrs or state.step != WINDOW_K or cap.replays != \
@@ -2561,7 +2684,7 @@ def _graph_degrader(smi: str, root: str) -> dict:
             f"{worst * 255:.3f} of a 1/255 level (a library call, cuBLAS or "
             f"cuDNN, takes another algorithm under capture)")
         calls, busy, wall = _kernel_calls(lambda: graphed(raws[0]))
-        traced = _calls_per_wrapper(calls)["blur"]
+        traced = _calls_per_wrapper(calls.elements())["blur"]
         print(f"graphs: degrader, {label}, b={b} {hr}->{hr // 4} px: "
               f"{len(raws)} batches graphed against eager from one "
               f"generator state and plan stream: equal bit for bit {same}"
@@ -2682,19 +2805,25 @@ def _graph_serving(smi: str) -> None:
             _gain_weights(st.g.net, seed=1)
             pair[graphs] = (tr, st)
         name = str(pair[True][0].dtype).replace("torch.", "")
-        outs = [pair[True][0].eval_step(pair[True][1], lr) for _ in range(3)]
+        # eager calls, then one that captures, then two replays
+        n_eager = pair[True][0].EVAL_CAPTURE_AT - 1
+        outs = [pair[True][0].eval_step(pair[True][1], lr)
+                for _ in range(n_eager + 3)]
         want = pair[False][0].eval_step(pair[False][1], lr)
         torch.cuda.synchronize()
         scale = float(want.abs().max())
         err = max(float((o - want).abs().max()) for o in outs)
         cap = next(iter(pair[True][0].eval_graphs().values()))
         print(f"graphs: eval_step {name} b={b} {h}->{h * 4} px, graphed "
-              f"(warm-up, then 2 replays) against eager: max_abs_err "
+              f"({n_eager} eager calls, one that captures, 2 replays) "
+              f"against eager: "
+              f"max_abs_err "
               f"{err:.3e} on max|ref| {scale:.3e}, tol "
               f"{rel_tol * scale:.3e}; recorded launches per replay "
               f"{cap.launches}; capture {cap.capture_s:.3f} s, pool "
               f"{cap.pool_bytes / 2 ** 20:.1f} MiB")
-        if not err <= rel_tol * scale or cap.launches["rdb5c"] != NB * 3:
+        if not err <= rel_tol * scale or cap.launches["rdb5c"] != NB * 3 \
+                or cap.replays != 2:
             raise AssertionError(f"graphs: eval_step {name}")
         ms = {}
         for graphs in (False, True, True, False):
@@ -2726,28 +2855,135 @@ def _graph_serving(smi: str) -> None:
     threads = torch.get_num_threads()
     torch.set_num_threads(os.cpu_count() or 8)
     try:
-        for label, run in (("x8", lambda t, s, v: t.eval_step_x8(s, v)),
-                           ("chop", lambda t, s, v: t.eval_step_chop(s, v))):
-            got = run(tr, st, x.cuda())
+        # x8 meets each of its two shapes four times a call, chop its one
+        # chunk of six tiles once: the last call replays graphs of them
+        for label, run, calls in (
+                ("x8", lambda t, s, v: t.eval_step_x8(s, v),
+                 tr.EVAL_CAPTURE_AT // 4 + 1),
+                ("chop", lambda t, s, v: t.eval_step_chop(s, v),
+                 tr.EVAL_CAPTURE_AT + 1)):
+            before = {k: c.replays for k, c in tr.eval_graphs().items()}
+            for _ in range(calls):
+                got = run(tr, st, x.cuda())
             torch.cuda.synchronize()
+            replayed = sorted(k[0] for k, c in tr.eval_graphs().items()
+                              if c.replays > before.get(k, 0))
             t0 = time.perf_counter()
             want = run(cpu, cst, x)
             cpu_s = time.perf_counter() - t0
             scale = float(want.abs().max())
             err = float((got.cpu() - want).abs().max())
-            shapes = sorted(k[0] for k in tr.eval_graphs())
             print(f"graphs: {label} on a {X8_CHOP_LR[1]}x{X8_CHOP_LR[2]} "
-                  f"LR image, f32 on the card against the CPU's eager "
+                  f"LR image, f32 on the card, call {calls} (graph replays "
+                  f"of the shapes {replayed}) against the CPU's eager "
                   f"composition ({cpu_s:.1f} s there): max_abs_err "
                   f"{err:.3e} on max|ref| {scale:.3e}, tol "
-                  f"{1e-5 * scale:.3e}; eval_step graphs by shape {shapes}")
+                  f"{1e-5 * scale:.3e}")
+            want_shapes = ([(1, 200, 300, 3), (1, 300, 200, 3)] if label
+                           == "x8" else [(6, 128, 128, 3)])
             if tuple(got.shape) != (1, X8_CHOP_LR[1] * 4, X8_CHOP_LR[2] * 4,
-                                    3) or not err <= 1e-5 * scale:
+                                    3) or not err <= 1e-5 * scale \
+                    or replayed != want_shapes:
                 raise AssertionError(f"graphs: {label}")
     finally:
         torch.set_num_threads(threads)
     del tr, st, cpu, cst
     torch.cuda.empty_cache()
+
+
+MIXED_LR = ((128, 128), (96, 128), (128, 96), (120, 80), (100, 140),
+            (88, 112), (140, 100), (112, 88))  # h, w: one size per image
+
+
+def _graph_mixed_sizes(smi: str, root: str) -> None:
+    """The test CLI, f32 at full width, plain and with x8, eager
+    (``graphs=False``) against graphed (the default) in turns, on a test
+    set of one size per image (``MIXED_LR``, LR crops of the corpus,
+    ``mode: single``) and on one of one size (the synthetic set of
+    ``N_IMAGES``): seconds per image through ``main()`` (set-up included)
+    and in the inference call alone (synchronised), and the eval_step
+    graphs the run kept."""
+    import numpy as np
+    import torch
+
+    from trainner_tpu_torch import test as test_cli
+    from trainner_tpu_torch.data import save_img
+    from trainner_tpu_torch.data.common import decode_image
+    from trainner_tpu_torch.train import sr_trainer
+
+    corpus = os.path.join(root, "corpus")
+    lr_dir = os.path.join(root, "mixed_lr")
+    os.makedirs(lr_dir)
+    names = sorted(os.listdir(corpus))
+    for i, (h, w) in enumerate(MIXED_LR):
+        img = decode_image(os.path.join(corpus, names[i]))[:h, :w, :3]
+        save_img(np.ascontiguousarray(img), os.path.join(lr_dir,
+                                                         f"{i:02d}.png"))
+    sets = (("one size per image", len(MIXED_LR),
+             {"name": "mixed", "mode": "single", "dataroot_LR": lr_dir}),
+            ("one size", N_IMAGES,
+             {"name": "synth", "mode": "synthetic", "crop_size": 512,
+              "n_samples": N_IMAGES}))
+    orig = (sr_trainer.create_trainer, sr_trainer.SRTrainer.eval_step,
+            sr_trainer.SRTrainer.eval_step_x8)
+    for (kind, n_img, ds), x8 in ((d, x8) for d in sets
+                                  for x8 in (False, True)):
+        label = "x8" if x8 else "plain"
+        runs = {}
+        for n, graphs in enumerate((False, True, True, False)):
+            name = f"sizes_{ds['name']}_{label}_{n}"
+            path = _options(root, name=name, x8=x8,
+                            datasets={"test_1": ds})
+            made, spent = [], []
+
+            def create(o, device=None, graphs=graphs):
+                made.append(orig[0](o, device=device, graphs=graphs))
+                return made[-1]
+
+            def timed(fn):
+                def call(self, state, x):
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    out = fn(self, state, x)
+                    torch.cuda.synchronize()
+                    spent.append(time.perf_counter() - t0)
+                    return out
+                return call
+
+            sr_trainer.create_trainer = create
+            if x8:
+                sr_trainer.SRTrainer.eval_step_x8 = timed(orig[2])
+            else:
+                sr_trainer.SRTrainer.eval_step = timed(orig[1])
+            try:
+                t0 = time.perf_counter()
+                test_cli.main(["-opt", path])
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+            finally:
+                (sr_trainer.create_trainer, sr_trainer.SRTrainer.eval_step,
+                 sr_trainer.SRTrainer.eval_step_x8) = orig
+            pngs = os.listdir(os.path.join(root, "results", name,
+                                           ds["name"]))
+            if len(spent) != n_img or len(pngs) != n_img:
+                raise AssertionError(f"{kind} {label}: {len(spent)} calls, "
+                                     f"{len(pngs)} PNGs")
+            runs.setdefault(graphs, []).append(
+                (wall / n_img, sum(spent) / n_img,
+                 len(made[0].eval_graphs())))
+            del made
+            torch.cuda.empty_cache()
+        sizes = (f"{MIXED_LR[0]} .. {MIXED_LR[-1]}"
+                 if ds["mode"] == "single" else "(128, 128)")
+        print(f"times: test CLI {label}, f32, {n_img} images of {kind} "
+              f"(LR h, w {sizes}), in turns (eager, graphed, graphed, "
+              f"eager): s per image "
+              f"through main() (set-up included) eager "
+              f"{[r[0] for r in runs[False]]}, graphed "
+              f"{[r[0] for r in runs[True]]}; in the inference "
+              f"call eager {[r[1] for r in runs[False]]}, "
+              f"graphed {[r[1] for r in runs[True]]}; eval_step "
+              f"graphs kept {runs[True][0][2]} ({smi})")
 
 
 def _graph_cli(smi: str, root: str) -> None:
@@ -2821,8 +3057,8 @@ def _graph_cli(smi: str, root: str) -> None:
               f"{traced[0] * 1e3:.3f} ms (traced), device busy {busy:.3f} "
               f"ms, idle share {1 - busy / (traced[0] * 1e3):.4f} ({smi})")
     print(f"times: cli main() on train_sr.yml, steps 3-8 (synchronised "
-          f"at the end of step 8), it/s in turns (eager, graphed, graphed, eager): eager "
-          f"{rates[False]}, graphed {rates[True]} ({smi})")
+          f"at the end of step 8), it/s in turns (eager, graphed, graphed, "
+          f"eager): eager {rates[False]}, graphed {rates[True]} ({smi})")
 
 
 def phase_graphs(smi: str, root: str) -> None:
@@ -2838,6 +3074,7 @@ def phase_graphs(smi: str, root: str) -> None:
     _graph_window(smi)
     _graph_degrader(smi, root)
     _graph_serving(smi)
+    _graph_mixed_sizes(smi, root)
     _graph_e2e(smi, root)
     _graph_cli(smi, root)
     print(f"graphs: ok in {time.perf_counter() - t0:.1f} s ({smi})")

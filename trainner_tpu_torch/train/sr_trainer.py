@@ -112,8 +112,17 @@ class SRTrainer:
 
     # eval_step keeps at most this many graphs (one per input shape and
     # type), the least recently used going first: a test set of many sizes
-    # holds at most this many static buffers and captures in the pool
+    # holds at most this many static buffers and captures in the pool.
     EVAL_GRAPHS = 8
+    # eval_step captures a shape at its EVAL_CAPTURE_AT-th call. One
+    # image's x8 calls a shape at most eight times (a square image: all
+    # eight), and a capture costs more than the replays of one image save,
+    # so a test set of one size per image runs eagerly, plain or x8; a
+    # shape that recurs over images (a test set of one size, chop's chunks
+    # of 32 tiles) replays. The calls of at most EVAL_SEEN shapes not yet
+    # captured are counted, the least recently met going first.
+    EVAL_CAPTURE_AT = 9
+    EVAL_SEEN = 64
 
     def __init__(self, opt: dict, dtype: torch.dtype = torch.float32,
                  device: Union[str, torch.device, None] = None,
@@ -138,8 +147,13 @@ class SRTrainer:
         self._step_fns: Dict[Tuple[bool, bool], Callable] = {}
         self._eval_graphs: "collections.OrderedDict" = \
             collections.OrderedDict()
+        self._eval_seen: "collections.OrderedDict" = \
+            collections.OrderedDict()
         self._graph_state = None
         self._pool = None
+        # a step's replay changes G's weights behind the packed caches'
+        # version check: set then, cleared where the caches are dropped
+        self._packs_stale = False
         self.is_train = bool(opt.get("is_train", True))
         self.scale = int(opt.get("scale", 4) or 4)
         self.znorm = bool(((opt.get("datasets") or {}).get("train")
@@ -286,7 +300,17 @@ class SRTrainer:
                 if isinstance(fn, _GraphedStep):
                     fn.entries.clear()
             self._eval_graphs.clear()
+            self._fresh_packs()
             self._graph_state = state
+
+    def _fresh_packs(self) -> None:
+        """Drops the packed-weight caches of the bound state's G when a
+        step's replay has changed its weights since they were packed (a
+        replay runs no Python, so no version counter moves); an eager run
+        of the blocks packs anew."""
+        if self._packs_stale and self._graph_state is not None:
+            drop_packed(self._graph_state.g.net)
+        self._packs_stale = False
 
     def graph_pool(self):
         """The one memory pool of this trainer's graphs."""
@@ -403,28 +427,36 @@ class SRTrainer:
         """Inference forward: NHWC LR batch -> f32 NHWC SR batch on the
         trainer's device, the caller's own tensor. With graphs, one graph
         per input shape and type, at most ``EVAL_GRAPHS`` of them (the
-        least recently used is dropped first); the first call of a shape
-        runs eagerly and captures."""
+        least recently used is dropped first). The first calls of a shape
+        run eagerly; the ``EVAL_CAPTURE_AT``-th runs eagerly and captures,
+        and later ones replay: the shapes of a test set of one size per
+        image cost no capture and no pool memory, plain or x8."""
         x = lr_img.to(self.device, non_blocking=lr_img.is_pinned())
         if not self.graphs:
             return self._eval_forward(state, x)
         self._bind(state)
         key = (tuple(x.shape), x.dtype)
         entry = self._eval_graphs.get(key)
-        if entry is None:
-            drop_packed(state.g.net)
-            out = warm_up(lambda: self._eval_forward(state, x))
-            static = torch.empty(x.shape, dtype=x.dtype, device=x.device)
-            cap = Captured(lambda: self._eval_forward(state, static),
-                           pool=self.graph_pool())
-            self._eval_graphs[key] = (static, cap)
-            while len(self._eval_graphs) > self.EVAL_GRAPHS:
-                self._eval_graphs.popitem(last=False)
-            return out
-        self._eval_graphs.move_to_end(key)
-        static, cap = entry
-        static.copy_(x)
-        return cap.replay().clone()
+        if entry is not None:
+            self._eval_graphs.move_to_end(key)
+            static, cap = entry
+            static.copy_(x)
+            return cap.replay().clone()
+        self._fresh_packs()
+        calls = self._eval_seen.pop(key, 0) + 1
+        if calls < self.EVAL_CAPTURE_AT:
+            self._eval_seen[key] = calls
+            while len(self._eval_seen) > self.EVAL_SEEN:
+                self._eval_seen.popitem(last=False)
+            return self._eval_forward(state, x)
+        out = warm_up(lambda: self._eval_forward(state, x))
+        static = torch.empty(x.shape, dtype=x.dtype, device=x.device)
+        cap = Captured(lambda: self._eval_forward(state, static),
+                       pool=self.graph_pool())
+        self._eval_graphs[key] = (static, cap)
+        while len(self._eval_graphs) > self.EVAL_GRAPHS:
+            self._eval_graphs.popitem(last=False)
+        return out
 
     def eval_step_chop(self, state: SRTrainState, lr_img: torch.Tensor,
                        patch_size: int = 128,
@@ -502,7 +534,7 @@ class _GraphedStep:
         sig = signature(batch, ("LR", "HR"))
         entry = self.entries.get(sig)
         if entry is None:
-            drop_packed(state.g.net)
+            self.trainer._fresh_packs()
             logs = warm_up(lambda: self.eager(state, batch, lr_g, lr_d))
             self.entries[sig] = self._capture(state, batch)
             return logs
@@ -511,6 +543,7 @@ class _GraphedStep:
             buf.copy_(batch[k], non_blocking=True)
         lrs[0].fill_(float(lr_g))
         lrs[1].fill_(float(lr_d))
+        self.trainer._packs_stale = True
         return {k: v.clone() for k, v in cap.replay().items()}
 
     def _capture(self, state: SRTrainState, batch) -> tuple:

@@ -43,18 +43,6 @@ def kernel_launches() -> Dict[str, int]:
 # breaks a capture under way in another thread.
 host_alloc_lock = threading.Lock()
 
-# the launches recorded into graphs at capture, and those their replays ran
-recorded: Dict[str, int] = {"rdb5c": 0, "rdb5c_bwd": 0, "blur": 0}
-replayed: Dict[str, int] = {"rdb5c": 0, "rdb5c_bwd": 0, "blur": 0}
-
-
-def executed_launches() -> Dict[str, int]:
-    """The launches the card ran, by kernel wrapper: its count less what
-    it recorded into graphs, plus what their replays ran."""
-    counted = kernel_launches()
-    return {k: counted[k] - recorded[k] + replayed[k] for k in counted}
-
-
 _constants: Dict[tuple, torch.Tensor] = {}
 
 
@@ -123,16 +111,12 @@ class Captured:
         self.capture_s = time.perf_counter() - t0
         after = kernel_launches()
         self.launches = {k: after[k] - before[k] for k in after}
-        for k, n in self.launches.items():
-            recorded[k] += n
         self.replays = 0
 
     def replay(self):
         """Replays the graph on the current stream; returns ``outputs``."""
         self.graph.replay()
         self.replays += 1
-        for k, n in self.launches.items():
-            replayed[k] += n
         return self.outputs
 
 
