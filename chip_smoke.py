@@ -96,7 +96,22 @@ non-zero exit code and no result line:
    of each with the device-busy ms and idle share, the captures' seconds
    and pool memory, the test CLI's seconds per image on a test set of one
    size per image and on one of one size, the end-to-end rate and the
-   CLI's steady rate.
+   CLI's steady rate;
+13. realesrgan (after the graphs): ``options/sr/train_realesrgan.yml`` at
+   its full width (G nf 64, nb 23, gc 32; the U-Net D nf 64 with spectral
+   norm; EMA; bf16; b=32, 32 -> 128 px): the ops it adds on the card
+   against the CPU (sinc kernels, Poisson noise, the blur kernel against
+   its plain version with sinc banks at the HR and LR canvases, the
+   cv2-style resize codes 0-6, the EMA update bit for bit, the U-Net D in
+   f32 with its spectral norms' state and gradients); the resrgan degrader
+   on stand-in stages, card against CPU bit for bit, and the real one's 4
+   blur launches per batch (HR once, LR three times) from a trace; the
+   degrader as a graph against eager; 3 graphed bf16 steps against 3
+   eager ones (69 + 69 block launches per replay, from a trace), their
+   times; the end-to-end rate; then the training CLI on a copy of the
+   options (the corpus, 12 iterations, checkpoints with ``_emaG`` and
+   validation at 6 and 12, a resume to 16 whose EMA and spectral-norm
+   state load bit for bit), each step's launches read between markers.
 
 Launches: the kernel wrappers count where they put a kernel on a stream,
 eagerly or into a graph being captured (a replay runs no Python). What the
@@ -670,6 +685,15 @@ def phase_kernels(smi: str):
                            [b.cuda() for b in bs2], f"nf {nf} gc {gc}: ")
     print(f"kernels: ok ({smi})")
     return main_err, bwd_err
+
+
+def _sinc_banks(gen, b: int, k: int = BLUR_K):
+    """resrgan's sinc kernels (b, k, k) on the card: random odd supports
+    7 to k and cutoffs as its blur stages draw them, from a CPU
+    generator."""
+    from trainner_tpu_torch.ops import degradations as D
+
+    return D.sinc_kernels(D.draw_sinc_kernels(gen, b, k, None, 7), k).cuda()
 
 
 def _blur_kernels(gen, b: int, k: int):
@@ -1426,11 +1450,13 @@ def phase_shuffle(smi: str, root: str) -> dict:
     return result
 
 
-def _cli_options(root: str, corpus: str) -> str:
-    """``options/sr/train_sr.yml`` as written, read by the port's reader,
-    but for its data roots (the corpus; a validation set of ``N_VAL``
-    corpus images and their x4 bicubic LR written here), ``niter``, the
-    frequencies and ``path.root``. Returns the path of the options file."""
+def _cli_options(root: str, corpus: str, yml: str = None,
+                 name: str = "cli") -> str:
+    """An options file of the repo (``options/sr/train_sr.yml`` unless
+    ``yml``) as written, read by the port's reader, but for its data roots
+    (the corpus; a validation set of ``N_VAL`` corpus images and their x4
+    bicubic LR written here), ``niter``, the frequencies and ``path.root``
+    (``root/name``). Returns the path of the options file."""
     import numpy as np
 
     from trainner_tpu_torch.data.common import decode_image, save_img
@@ -1438,21 +1464,23 @@ def _cli_options(root: str, corpus: str) -> str:
 
     val_hr, val_lr = os.path.join(root, "val_HR"), os.path.join(root,
                                                                  "val_LR")
-    os.makedirs(val_hr)
-    os.makedirs(val_lr)
-    for name in sorted(os.listdir(corpus))[:N_VAL]:
-        hr = decode_image(os.path.join(corpus, name))
-        save_img(hr, os.path.join(val_hr, name))
-        lr = imresize_np(hr.astype(np.float32) / 255.0, 0.25, kernel="cubic")
-        save_img((lr * 255.0).round().astype(np.uint8),
-                 os.path.join(val_lr, name))
-    opt = read_options_yml(TRAIN_YML)
+    if not os.path.isdir(val_hr):
+        os.makedirs(val_hr)
+        os.makedirs(val_lr)
+        for img in sorted(os.listdir(corpus))[:N_VAL]:
+            hr = decode_image(os.path.join(corpus, img))
+            save_img(hr, os.path.join(val_hr, img))
+            lr = imresize_np(hr.astype(np.float32) / 255.0, 0.25,
+                             kernel="cubic")
+            save_img((lr * 255.0).round().astype(np.uint8),
+                     os.path.join(val_lr, img))
+    opt = read_options_yml(yml or TRAIN_YML)
     opt["datasets"]["train"]["dataroot_HR"] = corpus
     opt["datasets"]["val"].update(dataroot_HR=val_hr, dataroot_LR=val_lr)
     opt["train"].update(niter=CLI_NITER, val_freq=CLI_FREQ)
     opt["logger"].update(print_freq=2, save_checkpoint_freq=CLI_FREQ)
-    opt["path"] = {"root": os.path.join(root, "cli")}
-    path = os.path.join(root, "cli_train_sr.json")
+    opt["path"] = {"root": os.path.join(root, name)}
+    path = os.path.join(root, f"{name}_options.json")
     with open(path, "w") as f:
         json.dump(opt, f)
     return path
@@ -1460,8 +1488,8 @@ def _cli_options(root: str, corpus: str) -> str:
 
 def _state_tensors(state) -> dict:
     """Every tensor a checkpoint carries, on the host: both nets'
-    state_dicts (D's running statistics included), the moments and the
-    step counts."""
+    state_dicts (D's running statistics or spectral norms' state
+    included), the moments, the step counts and the EMA weights."""
     out = {"step": state.step}
     for which in ("g", "d"):
         ns = getattr(state, which)
@@ -1471,6 +1499,8 @@ def _state_tensors(state) -> dict:
         for key in ("mu", "nu"):
             for i, t in enumerate(getattr(ns.opt, key)):
                 out[f"{which}.{key}.{i}"] = t.detach().cpu().clone()
+    for k, v in (state.ema_params or {}).items():
+        out[f"ema.{k}"] = v.detach().cpu().clone()
     return out
 
 
@@ -1496,15 +1526,19 @@ def _save_breakdown(state, path: str) -> dict:
     return out
 
 
-def phase_cli(smi: str, root: str) -> dict:
-    """The training CLI at the full width of ``options/sr/train_sr.yml``
-    (G nf 64, nb 23, gc 32, D-VGG-128, batch 32, crop 128, bsrgan with the
-    per-sample shuffle, bf16), ``trainner_tpu_torch.train.main`` on the
-    card for 12 iterations with checkpoints and validation at 6 and 12;
-    then a second ``main`` that resumes from ``training_state/`` to 16,
-    whose loaded state must equal the saved one bit for bit. Each run under
-    a launch trace: the three kernels' launches per step, per batch and in
-    all. Returns both runs' traces."""
+def phase_cli(smi: str, root: str, yml: str = None, label: str = "cli",
+              per_batch: int = 2 * 2 * SHUFFLE_K,
+              nets: tuple = ("G", "D")) -> dict:
+    """The training CLI at the full width of an options file of the repo
+    (``yml``; by default ``options/sr/train_sr.yml``: G nf 64, nb 23, gc
+    32, D-VGG-128, batch 32, crop 128, bsrgan with the per-sample shuffle,
+    bf16), ``trainner_tpu_torch.train.main`` on the card for 12 iterations
+    with checkpoints (one file per net of ``nets``) and validation at 6
+    and 12; then a second ``main`` that resumes from ``training_state/`` to
+    16, whose loaded state must equal the saved one bit for bit. Each run
+    under a launch trace: the three kernels' launches per step, per batch
+    (``per_batch`` blur launches) and in all. Returns both runs'
+    traces."""
     import torch
 
     from trainner_tpu_torch.train import cli
@@ -1512,10 +1546,10 @@ def phase_cli(smi: str, root: str) -> dict:
     from trainner_tpu_torch.utils import checkpoint
 
     corpus = os.path.join(root, "corpus")
-    opt_path = _cli_options(root, corpus)
+    opt_path = _cli_options(root, corpus, yml, label)
     per_g = NB * 3
-    per_batch = 2 * 2 * SHUFFLE_K
-    exp = os.path.join(root, "cli", "experiments", "001_sr_template")
+    with open(opt_path) as f:
+        exp = os.path.join(root, label, "experiments", json.load(f)["name"])
     rec = {"steps": [], "save": [], "val": [], "loaded": None}
     orig = (SRTrainer.train_step, checkpoint.save_checkpoint, cli.validate,
             checkpoint.load_state)
@@ -1571,7 +1605,7 @@ def phase_cli(smi: str, root: str) -> dict:
             opt2 = json.load(f)
         opt2["train"]["niter"] = CLI_RESUME_NITER
         opt2["path"]["resume_state"] = os.path.join(exp, "training_state")
-        opt2_path = os.path.join(root, "cli_resume.json")
+        opt2_path = os.path.join(root, f"{label}_resume.json")
         with open(opt2_path, "w") as f:
             json.dump(opt2, f)
         state2, counts2, wall2 = run(["-opt", opt2_path])
@@ -1588,12 +1622,12 @@ def phase_cli(smi: str, root: str) -> dict:
     want = dict(blur=per_batch * CLI_NITER,
                 rdb5c=per_g * (CLI_NITER + n_val),
                 rdb5c_bwd=per_g * CLI_NITER)
-    _check_cli_trace("cli", counts, want, steps, range(1, CLI_NITER + 1),
+    _check_cli_trace(label, counts, want, steps, range(1, CLI_NITER + 1),
                      per_g, per_batch)
-    print(f"cli: main() on {CLI_NITER} iterations, {wall:.2f} s (traced): "
+    print(f"{label}: main() on {CLI_NITER} iterations, {wall:.2f} s (traced): "
           f"launches the card ran {counts['ran']} (expected {want}); the "
           f"wrappers counted {counts['counted']}")
-    print(f"cli: every step {per_g} + {per_g} block launches and its batch "
+    print(f"{label}: every step {per_g} + {per_g} block launches and its batch "
           f"{per_batch} blur launches before it ({CLI_NITER} steps, from "
           f"the trace)")
 
@@ -1601,7 +1635,7 @@ def phase_cli(smi: str, root: str) -> dict:
     files = {os.path.relpath(os.path.join(d, f), exp)
              for d, _, fs in os.walk(exp) for f in fs}
     need = {f"models/{t}_{n}.ckpt" for t in (CLI_FREQ, CLI_NITER)
-            for n in "GD"} | {f"training_state/{t}.state{e}"
+            for n in nets} | {f"training_state/{t}.state{e}"
                               for t in (CLI_FREQ, CLI_NITER)
                               for e in ("", ".json")} \
         | {"tb/scalars.jsonl"}
@@ -1610,19 +1644,19 @@ def phase_cli(smi: str, root: str) -> dict:
     need |= {f"val_images/{n}/{n}_{t}.png" for n in names
              for t in (CLI_FREQ, CLI_NITER)}
     if need - files:
-        raise AssertionError(f"cli: missing {sorted(need - files)}")
+        raise AssertionError(f"{label}: missing {sorted(need - files)}")
     sizes = {f: os.path.getsize(os.path.join(exp, f)) for f in sorted(files)
              if f.startswith(("models/12", "training_state/12"))}
-    print(f"cli: artifacts present ({len(files)} files); sizes {sizes}")
+    print(f"{label}: artifacts present ({len(files)} files); sizes {sizes}")
     rows = [json.loads(line) for line in
             open(os.path.join(exp, "tb", "scalars.jsonl"))]
     tags = {(r["tag"], r["step"]) for r in rows}
     if not ({("train/l_g_total", s) for s in range(2, CLI_NITER + 1, 2)}
             | {("val/psnr", CLI_FREQ), ("val/psnr", CLI_NITER)}) <= tags \
             or not all(math.isfinite(r["value"]) for r in rows):
-        raise AssertionError("cli: the JSONL scalars are incomplete")
+        raise AssertionError(f"{label}: the JSONL scalars are incomplete")
     psnr = [r["value"] for r in rows if r["tag"] == "val/psnr"]
-    print(f"cli: {len(rows)} JSONL scalars, all finite; val psnr {psnr}")
+    print(f"{label}: {len(rows)} JSONL scalars, all finite; val psnr {psnr}")
 
     # times: from the start of step 3 to the end of step 12 (synchronised
     # there), with and without the save and validation at 6 inside it
@@ -1631,12 +1665,13 @@ def phase_cli(smi: str, root: str) -> dict:
     n = CLI_NITER - 2
     save_ms = [t * 1e3 for t in rec["save"]]
     val_ms = [t * 1e3 for t in rec["val"]]
-    print(f"times: cli main() steps 3-{CLI_NITER} on the host clock, "
+    print(f"times: {label} main() steps 3-{CLI_NITER} on the host clock, "
           f"under the launch trace: "
           f"{steady * 1e3 / n:.3f} ms per iteration, {n / steady:.4f} it/s "
           f"steady; {span * 1e3 / n:.3f} ms, {n / span:.4f} it/s with the "
           f"save and validation at {CLI_FREQ} ({smi})")
-    print(f"times: cli save_checkpoint (G, D, state; synchronised) "
+    print(f"times: {label} save_checkpoint ({', '.join(nets)}, state; "
+          f"synchronised) "
           f"{', '.join(f'{t:.1f}' for t in save_ms)} ms; of a state file "
           f"({save_parts['mb']:.1f} MB): to host trees "
           f"{save_parts['host_ms']:.1f} ms, encoded and written "
@@ -1652,10 +1687,10 @@ def phase_cli(smi: str, root: str) -> dict:
         else saved[k] == loaded[k])]
     n2 = CLI_RESUME_NITER - CLI_NITER
     want2 = dict(blur=per_batch * n2, rdb5c=per_g * n2, rdb5c_bwd=per_g * n2)
-    _check_cli_trace("cli resume", counts2, want2, steps2,
+    _check_cli_trace(f"{label} resume", counts2, want2, steps2,
                      range(CLI_NITER + 1, CLI_RESUME_NITER + 1), per_g,
                      per_batch)
-    print(f"cli: resumed from {os.path.relpath(path, exp)} (iter "
+    print(f"{label}: resumed from {os.path.relpath(path, exp)} (iter "
           f"{meta['iter']}, epoch {meta['epoch']}) to {state2.step} in "
           f"{wall2:.2f} s (traced): {len(saved)} tensors and counts of the "
           f"saved state, {len(diff)} differ after loading; launches the "
@@ -1664,11 +1699,11 @@ def phase_cli(smi: str, root: str) -> dict:
     if diff or meta["iter"] != CLI_NITER or state2.step != CLI_RESUME_NITER \
             or not os.path.exists(os.path.join(
                 exp, "models", f"{CLI_RESUME_NITER}_G.ckpt")):
-        raise AssertionError(f"cli resume: differs {diff[:5]}, meta {meta},"
+        raise AssertionError(f"{label} resume: differs {diff[:5]}, meta {meta},"
                              f" step {state2.step}")
     del state2
     torch.cuda.empty_cache()
-    print(f"cli: ok ({smi})")
+    print(f"{label}: ok ({smi})")
     return {"run": counts, "resumed": counts2}
 
 
@@ -2058,11 +2093,13 @@ def _parent_blur(parent: str):
 
 def phase_blur_times(smi: str, parent: str = "") -> dict:
     """CUDA-event times of the blur kernel in f32 at the producer's two
-    shapes, its time on the device alone (profiler) and its share of the
-    bound, beside its plain version and the library call (reflect
-    ``F.pad`` and one grouped cuDNN convolution over b*c groups). With
-    ``parent``, the same of that tree's blur kernel in the same call, in
-    turns (parent, this, this, parent). Returns {shape: row}."""
+    shapes, at the shuffled program's q-slices, and with resrgan's sinc
+    banks at its two canvases, its time on the device alone (profiler)
+    and its share of the bound, beside its plain version and the library
+    call (reflect ``F.pad`` and one grouped cuDNN convolution over b*c
+    groups). With ``parent``, the same of that tree's blur kernel in the
+    same call, in turns (parent, this, this, parent). Returns {shape:
+    row}, the sinc rows under ("sinc", shape)."""
     import torch
     import torch.nn.functional as F
 
@@ -2081,10 +2118,13 @@ def phase_blur_times(smi: str, parent: str = "") -> dict:
     old = _parent_blur(parent) if parent else None
     gen = torch.Generator().manual_seed(6)
     rows = {}
-    for shape in (BLUR_HR, BLUR_LR, BLUR_Q_HR, BLUR_Q_LR):
+    for key in (BLUR_HR, BLUR_LR, BLUR_Q_HR, BLUR_Q_LR, ("sinc", BLUR_HR),
+                ("sinc", BLUR_LR)):
+        sinc = key[0] == "sinc"
+        shape = key[1] if sinc else key
         b, h, w, c = shape
         x = torch.rand(*shape, generator=gen).cuda()
-        kern = _blur_kernels(gen, b, BLUR_K)
+        kern = _sinc_banks(gen, b) if sinc else _blur_kernels(gen, b, BLUR_K)
         lib_err = float((library(x, kern) - blur_per_sample(x, kern)
                          ).abs().max())
         if not lib_err <= 1e-5:
@@ -2093,7 +2133,7 @@ def phase_blur_times(smi: str, parent: str = "") -> dict:
         nbytes = 2 * x.numel() * 4 + kern.numel() * 4
         bound_ms, bound_by = _bound("float32", work, nbytes)
         fn = lambda: blur_per_sample(x, kern)  # noqa: E731
-        if old is not None and shape in (BLUR_HR, BLUR_LR):
+        if old is not None and key in (BLUR_HR, BLUR_LR):
             # both libraries called alike, straight through their C
             # interface, into one output buffer
             out = torch.empty_like(x)
@@ -2125,12 +2165,13 @@ def phase_blur_times(smi: str, parent: str = "") -> dict:
                             warmup=1)
         library_ms = _time_ms(lambda: library(x, kern))
         device_ms = _device_ms(fn, "blur_kernel")
-        rows[shape] = dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
-                           bound_ms=bound_ms, bound_by=bound_by,
-                           device_ms=device_ms)
+        rows[key] = dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                         bound_ms=bound_ms, bound_by=bound_by,
+                         device_ms=device_ms)
         share = (f"{bound_ms / device_ms:.1%}" if device_ms is not None
                  else "share not measured")
-        print(f"times: blur_per_sample float32 {shape} k={BLUR_K}: kernel "
+        print(f"times: blur_per_sample float32 {shape} k={BLUR_K}"
+              f"{', sinc banks' if sinc else ''}: kernel "
               f"{ms:.4f} ms per call of the wrapper (CUDA events over 50 "
               f"calls), {_ms_text(device_ms)} ms on the device alone "
               f"(profiler), "
@@ -2145,11 +2186,13 @@ def _kernel_rows(rows, serving, train, main_err, bwd_err,
     """The JSON summary: each kernel at its main path's shape and type (the
     forward at the serving shape in f32, the backward at the training shape
     in bf16, the blur at the HR canvas in f32, with its times at the LR
-    canvas and at the shuffled program's q-slices beside), with the
-    launches the card ran in the launch traces of the main paths' runs
-    (serving, training in both types, the producer in both orders, the
-    training CLI and its resume), the wrappers' own counts over the same
-    runs beside them, and both types' times at both block shapes."""
+    canvas, at the shuffled program's q-slices and with resrgan's sinc
+    banks beside), with the launches the card ran in the launch traces of
+    the main paths' runs (serving, training in both types, the producer in
+    both orders, the training CLI on train_sr.yml and on
+    train_realesrgan.yml and their resumes), the wrappers' own counts over
+    the same runs beside them, and both types' times at both block
+    shapes."""
     traces = [*train.values(), *producer.values(), *cli.values()]
 
     def summed(key, wrapper):
@@ -2199,11 +2242,15 @@ def _kernel_rows(rows, serving, train, main_err, bwd_err,
          "max_abs_err": blur_err,
          **{k: blur_rows[BLUR_HR][k] for k in keys + ("device_ms",)},
          "shape": list(BLUR_HR), "k": BLUR_K, "dtype": "float32",
-         **{name: {"shape": list(shape),
-                   **{k: blur_rows[shape][k] for k in keys + ("device_ms",)}}
-            for name, shape in (("at_lr_canvas", BLUR_LR),
-                                ("at_q_slice_hr", BLUR_Q_HR),
-                                ("at_q_slice_lr", BLUR_Q_LR))}},
+         **{name: {"shape": list(key[1] if key[0] == "sinc" else key),
+                   **{k: blur_rows[key][k] for k in keys + ("device_ms",)}}
+            for name, key in (("at_lr_canvas", BLUR_LR),
+                              ("at_q_slice_hr", BLUR_Q_HR),
+                              ("at_q_slice_lr", BLUR_Q_LR),
+                              ("resrgan_sinc_at_hr_canvas",
+                               ("sinc", BLUR_HR)),
+                              ("resrgan_sinc_at_lr_canvas",
+                               ("sinc", BLUR_LR)))}},
     ]
 
 
@@ -2289,13 +2336,19 @@ def phase_trace(smi: str, root: str, step_ms: dict) -> None:
 GRAPH_STEPS = 3     # graphed against eager steps, per type
 WINDOW_K = 10       # train_steps' window, as bench.py times it
 WINDOW_BOUNDARY = 5  # a MultiStep boundary inside the window
+EMA_MOVE_TOL = 1e-2  # bf16 graph against eager: the EMA weights' moves
 X8_CHOP_LR = (1, 300, 200, 3)
 
 
 def _net_tensors(state) -> dict:
-    return {f"{w}.{k}": v.detach().clone()
-            for w in ("g", "d") for k, v in
-            getattr(state, w).net.state_dict().items()}
+    """G's and D's state_dicts (``g.``, ``d.``) and the EMA weights
+    (``e.``), cloned."""
+    out = {f"{w}.{k}": v.detach().clone()
+           for w in ("g", "d") for k, v in
+           getattr(state, w).net.state_dict().items()}
+    out.update({f"e.{k}": v.detach().clone()
+                for k, v in (state.ema_params or {}).items()})
+    return out
 
 
 def _bit_equality(logs_a, logs_b, state_a, state_b) -> str:
@@ -2319,14 +2372,19 @@ def _bit_equality(logs_a, logs_b, state_a, state_b) -> str:
 
 
 def _check_steps(label: str, logs_a, logs_b, got: dict, want: dict,
-                 lr: float, n_g: int, n_d: int) -> str:
+                 lr: float, n_g: int, n_d: int, start: dict = None) -> str:
     """The step-parity tolerances of ``tests/test_torch_train_step.py``
     between two runs of the same steps
     (adam): logs 1e-4 relative at the first step and 2e-3 after it (floor
     0.3 for D's mean logits, 1e-3 for the losses); every parameter element
     within 2 lr per update, all but 0.1 % of each tensor within 0.02 lr
-    per update (D's biases that only rounding moves excepted); D's running
-    statistics within 1e-3 of their size. Returns the worst log error."""
+    per update (D's biases that only rounding moves excepted: those before
+    a batch norm, the head's, the U-Net's output bias); D's running
+    statistics and spectral norms' u and sigma within 1e-3 of their size;
+    the EMA weights' moves from ``start`` (the weights before the steps)
+    within ``EMA_MOVE_TOL`` of their norm, per tensor: they move by 1 -
+    decay of G's moves, below G's bounds, and a skipped or misordered
+    update misses by half or more. Returns the worst log error."""
     worst = 0.0
     for i, (a, b) in enumerate(zip(logs_a, logs_b)):
         if set(a) != set(b):
@@ -2340,22 +2398,35 @@ def _check_steps(label: str, logs_a, logs_b, got: dict, want: dict,
             if not (math.isfinite(x) and abs(x - y) <= rel * max(abs(y),
                                                                  floor)):
                 raise AssertionError(f"{label}: step {i} {k} {x} vs {y}")
+    worst_e = None
     for k, w in want.items():
+        if k.startswith("e."):
+            moved = w.float() - start[k].float()
+            off = float((got[k].float() - w.float()).norm())
+            norm = float(moved.norm())
+            rel = off / norm if norm else (float("inf") if off else 0.0)
+            worst_e = max(worst_e or 0.0, rel)
+            if not rel <= EMA_MOVE_TOL:
+                raise AssertionError(f"{label}: {k} moved {rel} off")
+            continue
         err = (got[k].float() - w.float()).abs()
-        if "running_" in k:
+        if "running_" in k or ".sn." in k:
             if float(err.max()) > 1e-3 * float(w.abs().max()):
                 raise AssertionError(f"{label}: {k} {float(err.max())}")
             continue
-        n = n_g if k.startswith("g.") else n_d
+        n = n_d if k.startswith("d.") else n_g
         name = k[2:]
         noise_only = k.startswith("d.") and name.endswith("bias") and (
-            name.startswith("linear")
+            name.startswith("linear") or name == "conv9.bias"
             or "d." + name.replace("bias", "norm.weight") in want)
         if float(err.max()) > 2 * lr * max(n, 1):
             raise AssertionError(f"{label}: {k} {float(err.max())}")
         far = float((err > 0.02 * lr * max(n, 1)).float().mean())
         if not noise_only and far > 1e-3:
             raise AssertionError(f"{label}: {k} {far} of it past 0.02 lr")
+    if worst_e is not None:
+        print(f"{label}: EMA weights' moves from the start, worst relative "
+              f"difference {worst_e:.3e} (tol {EMA_MOVE_TOL:.0e})")
     return worst
 
 
@@ -2376,23 +2447,27 @@ def _kernel_calls(fn) -> tuple:
     return calls, sum(d for _, d, _ in events) / 1e6, wall
 
 
-def _graph_step(smi: str) -> dict:
-    """The step as a graph against the eager step, bf16 and f32: three
-    steps each from one seed on the same batches, within the step
-    tolerances of ``_check_steps``; the recorded launches of one replay
-    against a profiler trace of it; fresh latent noise per replay. Returns
-    the graphs' capture seconds and pool bytes by type."""
+def _graph_step(smi: str, options=None, types=(True, False),
+                label: str = "", noise: bool = True) -> dict:
+    """The step of ``options()`` (the flagship configuration by default) as
+    a graph against the eager step, in bf16 and f32 (``types``: the values
+    of ``use_amp``): three steps each from one seed on the same batches,
+    within the step tolerances of ``_check_steps``; the recorded launches
+    of one replay against a profiler trace of it; with ``noise``, fresh
+    latent noise per replay. Returns the graphs' capture seconds, pool
+    bytes and step times by type."""
     import torch
 
     from trainner_tpu_torch.ops.blocks import GaussianNoise
     from trainner_tpu_torch.train.sr_trainer import create_trainer
     from trainner_tpu_torch.utils.graphs import Captured
 
+    options = options or _train_options
     per_g = NB * 3
     batches = [_train_batch(seed=s) for s in range(GRAPH_STEPS)]
-    lr = _train_options()["train"]["lr_G"]
+    lr = options()["train"]["lr_G"]
     out = {}
-    for use_amp in (True, False):
+    for use_amp in types:
         runs = {}
         # cuDNN's deterministic algorithms for the comparison: some of its
         # f32 weight-gradient algorithms add with atomics, so two eager
@@ -2401,18 +2476,19 @@ def _graph_step(smi: str) -> dict:
         torch.backends.cudnn.deterministic = True
         try:
             for graphs in (True, False):
-                trainer = create_trainer({**_train_options(),
-                                          "use_amp": use_amp}, graphs=graphs)
+                trainer = create_trainer({**options(), "use_amp": use_amp},
+                                         graphs=graphs)
                 state = trainer.init_state(0)
+                start = _net_tensors(state)
                 logs = [trainer.train_step(state, b)[1] for b in batches]
                 torch.cuda.synchronize()
                 runs[graphs] = (trainer, state, logs, _net_tensors(state))
         finally:
             torch.backends.cudnn.deterministic = False
-        name = str(runs[True][0].dtype).replace("torch.", "")
+        name = label + str(runs[True][0].dtype).replace("torch.", "")
         worst = _check_steps(f"graphs: {name} step", runs[True][2],
                              runs[False][2], runs[True][3], runs[False][3],
-                             lr, GRAPH_STEPS, GRAPH_STEPS)
+                             lr, GRAPH_STEPS, GRAPH_STEPS, start)
         equal = _bit_equality(runs[True][2], runs[False][2], runs[True][1],
                               runs[False][1])
         trainer, state = runs[True][:2]
@@ -2461,6 +2537,8 @@ def _graph_step(smi: str) -> dict:
                          eager_ms=min(ms[False]), graphed_ms=min(ms[True]))
         del runs, trainer, state, cap, caps, tr, st
         torch.cuda.empty_cache()
+    if not noise:
+        return out
 
     # latent noise in a graph: the state's generator registered with it
     gen = torch.Generator(device="cuda").manual_seed(5)
@@ -2628,13 +2706,17 @@ def _graph_window(smi: str) -> dict:
     return {k: min(v) for k, v in times.items()}
 
 
-def _degrader_pair(corpus: str, shuffle: bool):
+def _degrader_pair(corpus: str, shuffle: bool, options=None):
+    """The degradation step of ``options(corpus, shuffle)`` (the bsrgan
+    end-to-end configuration by default), graphed and eager, from one
+    generator seed."""
     import torch
 
     from trainner_tpu_torch.options import parse_dict
     from trainner_tpu_torch.train import make_otf_degradation
 
-    opt = parse_dict(_e2e_options(corpus, shuffle=shuffle), is_train=True)
+    opt = parse_dict((options or _e2e_options)(corpus, shuffle=shuffle),
+                     is_train=True)
     return (make_otf_degradation(
                 opt, generator=torch.Generator(device="cuda").manual_seed(9)),
             make_otf_degradation(
@@ -2642,13 +2724,16 @@ def _degrader_pair(corpus: str, shuffle: bool):
                 graphs=False))
 
 
-def _graph_degrader(smi: str, root: str) -> dict:
-    """The degrader as a graph against the eager program, fixed order and
-    shuffled: from one generator state and plan stream, batch after batch
-    (the first runs eagerly and captures, then replays), bit for bit, or
-    one 1/255 level on at most 0.1 % of the values where a library call
-    (cuBLAS, cuDNN) took another algorithm under capture; the blur
-    launches each graph recorded; both times in turns."""
+def _graph_degrader(smi: str, root: str, programs=None,
+                    preset: str = "bsrgan") -> dict:
+    """The degrader as a graph against the eager program, for each of
+    ``programs`` ((label, shuffle, blur launches per batch, options); by
+    default bsrgan's fixed order and its shuffle): from one generator
+    state and plan stream, batch after batch (the first runs eagerly and
+    captures, then replays), bit for bit, or one 1/255 level on at most
+    0.1 % of the values where a library call (cuBLAS, cuDNN) took another
+    algorithm under capture; the blur launches each graph recorded and
+    the kernels of a replay; both times in turns."""
     import numpy as np
     import torch
 
@@ -2664,10 +2749,10 @@ def _graph_degrader(smi: str, root: str) -> dict:
             [decode_image(os.path.join(corpus, n))[:hr, :hr, :3]
              for n in pick])).cuda()})
     result = {}
-    for label, shuffle, per_batch in (("fixed order", False, 2),
-                                      ("per-sample shuffle", True,
-                                       4 * SHUFFLE_K)):
-        graphed, eager = _degrader_pair(corpus, shuffle)
+    for label, shuffle, per_batch, options in programs or (
+            ("fixed order", False, 2, None),
+            ("per-sample shuffle", True, 4 * SHUFFLE_K, None)):
+        graphed, eager = _degrader_pair(corpus, shuffle, options)
         worst, n_off = 0.0, 0
         for raw in raws:
             got, want = graphed(raw)["LR"], eager(raw)["LR"]
@@ -2685,30 +2770,32 @@ def _graph_degrader(smi: str, root: str) -> dict:
             f"cuDNN, takes another algorithm under capture)")
         calls, busy, wall = _kernel_calls(lambda: graphed(raws[0]))
         traced = _calls_per_wrapper(calls.elements())["blur"]
-        print(f"graphs: degrader, {label}, b={b} {hr}->{hr // 4} px: "
-              f"{len(raws)} batches graphed against eager from one "
+        print(f"graphs: degrader, {preset} {label}, b={b} {hr}->{hr // 4} "
+              f"px: {len(raws)} batches graphed against eager from one "
               f"generator state and plan stream: equal bit for bit {same}"
               f"{why}; recorded launches per replay {cap.launches}, blur "
-              f"kernels in a trace of one replay {traced}; replays "
+              f"kernels in a trace of one replay {traced} of "
+              f"{sum(calls.values())} kernels, busy {busy:.3f} ms; replays "
               f"{cap.replays}; capture {cap.capture_s:.3f} s, pool "
               f"{cap.pool_bytes / 2 ** 20:.1f} MiB")
         if len(caps) != 1 or cap.launches["blur"] != per_batch \
                 or traced != per_batch or not (
                     same or (worst <= 1 / 255 + 1e-6
                              and n_off <= 1e-3 * total)):
-            raise AssertionError(f"graphs: degrader {label}")
+            raise AssertionError(f"graphs: degrader {preset} {label}")
         ms = {}
         for which, fn in (("eager", eager), ("graphed", graphed),
                           ("graphed", graphed), ("eager", eager)):
             ms.setdefault(which, []).append(
                 _time_ms(lambda: fn(raws[1]), iters=10, warmup=2))
-        print(f"times: degrade bsrgan {label} b={b} {hr}->{hr // 4} px, ms "
-              f"per batch (CUDA events over 10; eager, graphed, graphed, "
+        print(f"times: degrade {preset} {label} b={b} {hr}->{hr // 4} px, "
+              f"ms per batch (CUDA events over 10; eager, graphed, graphed, "
               f"eager): eager {ms['eager']}, graphed {ms['graphed']} "
               f"({smi})")
         for which, fn in (("graphed", graphed), ("eager", eager)):
-            _traced(lambda: fn(raws[1]), f"{which} degrade, {label}, b={b}",
-                    smi, min(ms[which]))
+            _traced(lambda: fn(raws[1]),
+                    f"{which} degrade, {preset} {label}, b={b}", smi,
+                    min(ms[which]))
         result[label] = dict(eager_ms=min(ms["eager"]),
                              graphed_ms=min(ms["graphed"]),
                              capture_s=cap.capture_s, pool=cap.pool_bytes)
@@ -2717,10 +2804,11 @@ def _graph_degrader(smi: str, root: str) -> dict:
     return result
 
 
-def _graph_e2e(smi: str, root: str) -> dict:
+def _graph_e2e(smi: str, root: str, programs=None) -> dict:
     """The end-to-end rate, loader -> degrader -> step at full width in
-    bf16, eager (``graphs=False`` for both) against graphed, fixed order
-    and shuffled, in turns."""
+    bf16, eager (``graphs=False`` for both) against graphed, in turns, for
+    each of ``programs`` ((label, options of the corpus); by default the
+    bsrgan configuration in the fixed order and shuffled)."""
     import torch
 
     from trainner_tpu_torch.data import create_dataloader, create_dataset
@@ -2730,9 +2818,10 @@ def _graph_e2e(smi: str, root: str) -> dict:
 
     corpus = os.path.join(root, "corpus")
     rates = {}
-    for shuffle in (False, True):
-        opt = parse_dict(_e2e_options(corpus, shuffle=shuffle),
-                         is_train=True)
+    for label, options in programs or (
+            ("fixed order", lambda c: _e2e_options(c)),
+            ("per-sample shuffle", lambda c: _e2e_options(c, True))):
+        opt = parse_dict(options(corpus), is_train=True)
         ds_opt = opt["datasets"]["train"]
         pair = {}
         for graphs in (False, True):
@@ -2753,7 +2842,6 @@ def _graph_e2e(smi: str, root: str) -> dict:
             torch.cuda.synchronize()
             return logs
 
-        label = "per-sample shuffle" if shuffle else "fixed order"
         ms = {}
         for graphs in (False, True):
             run(pair[graphs], 3)
@@ -3002,7 +3090,7 @@ def _graph_cli(smi: str, root: str) -> None:
     orig = (cli.create_sr_trainer, cli.make_otf_degradation)
     rates = {}
     for n, graphs in enumerate((False, True, True, False)):
-        with open(os.path.join(root, "cli_train_sr.json")) as f:
+        with open(os.path.join(root, "cli_options.json")) as f:
             opt = json.load(f)
         opt["train"].update(niter=8, val_freq=10 ** 6)
         opt["logger"].update(print_freq=10 ** 6,
@@ -3059,6 +3147,289 @@ def _graph_cli(smi: str, root: str) -> None:
     print(f"times: cli main() on train_sr.yml, steps 3-8 (synchronised "
           f"at the end of step 8), it/s in turns (eager, graphed, graphed, "
           f"eager): eager {rates[False]}, graphed {rates[True]} ({smi})")
+
+
+# ---------------------------------------------------------------------------
+# realesrgan: options/sr/train_realesrgan.yml on the card
+# ---------------------------------------------------------------------------
+
+RESRGAN_YML = os.path.join(OPTIONS_DIR, "train_realesrgan.yml")
+# blur launches per resrgan degrader replay: blur on the HR canvas, blur2
+# on the LR canvas (the port resizes straight to it), and final_blur on the
+# LR canvas once in each order of the finals
+RESRGAN_BLUR = 4
+RESRGAN_BLUR_SHAPES = {BLUR_HR: 1, BLUR_LR: 3}
+
+
+def _resrgan_options(**train) -> dict:
+    """``options/sr/train_realesrgan.yml`` as written, read by the port's
+    reader: G nf 64, nb 23, gc 32, upconv, latent noise; the U-Net D nf 64
+    with spectral norm; VGG19 conv5_4 L1 x 1, pixel L1 x 1, vanilla GAN x
+    0.1; Adam 1e-4 for both, MultiStepLR; EMA 0.999; bf16; batch 32, crop
+    128, the resrgan degradations; with ``train`` edits."""
+    opt = read_options_yml(RESRGAN_YML)
+    opt["is_train"] = True
+    opt["train"].update(train)
+    return opt
+
+
+def _resrgan_e2e_options(corpus: str, shuffle: bool = False) -> dict:
+    """The same, its train set the corpus, uint8 on the wire, no
+    validation set."""
+    opt = _resrgan_options()
+    opt["datasets"].pop("val", None)
+    opt["datasets"]["train"].update(dataroot_HR=corpus, wire_dtype="uint8",
+                                    shuffle_degradations=shuffle)
+    return opt
+
+
+def _resrgan_ops(smi: str) -> None:
+    """The ops this configuration adds, on the card against the CPU on the
+    same inputs and draws: sinc kernels (random supports, and a fixed
+    cutoff) and Poisson noise within 1e-6; the blur kernel against its
+    plain version with sinc banks at resrgan's canvases (HR for blur; the
+    LR canvas for blur2, which the port runs on the LR canvas, and for
+    final_blur), f32 within 1e-5 as phase 3 holds it; the cv2-style resize
+    codes 0-6 down (HR -> LR canvas) and up within 1e-5; the EMA update
+    bit for bit (one fused multiply-add, as the CPU's); the U-Net D with
+    spectral norm at nf 64, b=4, 128 px, f32: output within 1e-4 of its
+    size, the committed u and sigma within 1e-5 of theirs, each
+    parameter's gradient within 1e-3 of its largest."""
+    import copy
+
+    import torch
+
+    from trainner_tpu_torch.data.pipeline import _full_f32
+    from trainner_tpu_torch.models.discriminators import UNetDiscriminator
+    from trainner_tpu_torch.ops import degradations as D
+    from trainner_tpu_torch.ops.blur import (blur_per_sample,
+                                             blur_per_sample_plain)
+    from trainner_tpu_torch.ops.imresize import jax_resize
+    from trainner_tpu_torch.train.state import (NetState, SRTrainState,
+                                                ema_update, init_ema)
+
+    def cuda(params):
+        return {k: None if v is None else v.cuda() for k, v in
+                params.items()}
+
+    def check(what, got, want, tol):
+        err = float((got.cpu().float() - want.float()).abs().max())
+        print(f"realesrgan: {what} card vs CPU max_abs_err {err:.3e} tol "
+              f"{tol:.1e}")
+        if not err <= tol:
+            raise AssertionError(f"realesrgan: {what}: {err} > {tol}")
+
+    gen = torch.Generator().manual_seed(21)
+    b = BLUR_HR[0]
+    with _full_f32():
+        for cut in (None, (1.3, 1.3)):
+            params = D.draw_sinc_kernels(gen, b, BLUR_K, cut, 7)
+            check(f"sinc kernels, cutoff {cut or 'drawn'}",
+                  D.sinc_kernels(cuda(params), BLUR_K),
+                  D.sinc_kernels(params, BLUR_K), 1e-6)
+        for shape in (BLUR_HR, BLUR_LR):
+            xb = torch.rand(*shape, generator=gen).cuda()
+            kern = _sinc_banks(gen, shape[0])
+            check(f"blur kernel vs plain, sinc banks, {shape}",
+                  blur_per_sample(xb, kern),
+                  blur_per_sample_plain(xb, kern).cpu(), 1e-5)
+        x = torch.rand(*BLUR_LR, generator=gen)
+        params = D.draw_poisson_noise(gen, x.shape, (0.05, 3.0))
+        check("poisson noise", D.poisson_noise(x.cuda(), cuda(params)),
+              D.poisson_noise(x, params), 1e-6)
+        hr = torch.rand(*BLUR_HR, generator=gen)
+        for code in range(7):
+            for src, out in ((hr, BLUR_LR[1:3]), (x, (48, 40))):
+                check(f"resize code {code} {tuple(src.shape[1:3])}->{out}",
+                      D.resize_batch(src.cuda(), out, code),
+                      D.resize_batch(src, out, code), 1e-5)
+        if not torch.equal(jax_resize(hr.cuda(), BLUR_LR[1:3], "linear",
+                                      True).cpu(),
+                           D.resize_batch(hr.cuda(), BLUR_LR[1:3], 3).cpu()):
+            raise AssertionError("realesrgan: area is not antialiased "
+                                 "linear")
+
+        # the EMA update: one rounding of decay e + (1 - decay) p
+        states = []
+        conv = torch.nn.Conv2d(64, 64, 3)
+        for dev in ("cpu", "cuda"):
+            net = copy.deepcopy(conv).to(dev)
+            st = SRTrainState(step=0, g=NetState(net))
+            init_ema(st)
+            with torch.no_grad():
+                for p in net.parameters():
+                    p.add_(torch.randn(p.shape, generator=torch.Generator(
+                        ).manual_seed(p.numel())).to(dev))
+            ema_update(st, 0.999)
+            states.append(st)
+        same = all(torch.equal(a.cpu(), bb) for a, bb in zip(
+            states[1].ema.parameters(), states[0].ema.parameters()))
+        print(f"realesrgan: ema_update card vs CPU bit for bit: {same}")
+        if not same:
+            raise AssertionError("realesrgan: ema_update rounds otherwise "
+                                 "on the card")
+
+        # the U-Net D with spectral norm, f32, under cuDNN's deterministic
+        # algorithms and its heuristics (benchmark off), as the step
+        # comparisons run: its choice of algorithm moves the gradients'
+        # error against the CPU; an f64 pass on the CPU says whose error
+        # it is
+        net = UNetDiscriminator(nf=NF, dtype=torch.float32)
+        net.init_weights(torch.Generator().manual_seed(4))
+        nets = {"cpu": net, "cuda": copy.deepcopy(net).cuda(),
+                "f64": copy.deepcopy(net).double()}
+        x = torch.rand(4, 128, 128, 3, generator=gen)
+        outs = {}
+        cudnn = torch.backends.cudnn
+        saved = cudnn.deterministic, cudnn.benchmark
+        cudnn.deterministic, cudnn.benchmark = True, False
+        try:
+            for dev, d in nets.items():
+                def run(d=d, dev=dev):
+                    out = d(x.double() if dev == "f64" else x.to(dev),
+                            train=True)
+                    (out.square().mean()).backward()
+                    d.commit_stats()
+                    outs[dev] = out.detach()
+
+                if dev == "cuda":
+                    kernels = _kernel_calls(run)[0]
+                else:
+                    run()
+        finally:
+            cudnn.deterministic, cudnn.benchmark = saved
+        scale = float(outs["cpu"].abs().max())
+        check("U-Net D (spectral norm) forward, nf 64, b=4 128 px",
+              outs["cuda"], outs["cpu"], 1e-4 * scale)
+        cpu_sd, card_sd = nets["cpu"].state_dict(), nets["cuda"].state_dict()
+        worst_sn = max(float((card_sd[k].cpu() - v).abs().max()
+                             / v.abs().max()) for k, v in cpu_sd.items()
+                       if ".sn." in k)
+
+        def worst(dev, ref):
+            want = dict(nets[ref].named_parameters())
+            return max((float((p.grad.cpu().double() - want[k].grad.double()
+                               ).abs().max() / want[k].grad.abs().max()), k)
+                       for k, p in nets[dev].named_parameters())
+
+        worst_g, name = worst("cuda", "cpu")
+        card64, cpu64 = worst("cuda", "f64"), worst("cpu", "f64")
+        convs = sorted(k for k in kernels if any(
+            s in k.lower() for s in ("fft", "winograd", "gemm", "grad",
+                                     "conv")))
+        print(f"realesrgan: U-Net D u and sigma after a pass, card vs CPU, "
+              f"worst relative error {worst_sn:.3e} (tol 1e-5); gradients "
+              f"{worst_g:.3e} of each tensor's largest ({name}; tol 1e-3); "
+              f"against an f64 pass on the CPU: card {card64[0]:.3e} "
+              f"({card64[1]}), CPU f32 {cpu64[0]:.3e} ({cpu64[1]}); cuDNN "
+              f"ran {convs}")
+        if not (worst_sn <= 1e-5 and worst_g <= 1e-3):
+            raise AssertionError("realesrgan: the U-Net D on the card")
+    print(f"realesrgan: ops ok ({smi})")
+
+
+def _resrgan_degrader(smi: str, root: str) -> None:
+    """The resrgan degrader on the card: its program on stand-in stages and
+    finals (deterministic, exact on the 1/255 lattice) equals the CPU's bit
+    for bit; the real program at b=32, 128 -> 32 px: its stages and finals
+    as JAX names them, the blur launches and shapes per batch from a trace
+    (``RESRGAN_BLUR``: the HR canvas once, the LR canvas three times), the
+    output's shape, lattice and range."""
+    import numpy as np
+    import torch
+
+    from trainner_tpu_torch.data.common import decode_image
+    from trainner_tpu_torch.data.pipeline import BatchDegrader
+    from trainner_tpu_torch.ops import degradations as D
+    from trainner_tpu_torch.options import parse_dict
+
+    corpus = os.path.join(root, "corpus")
+    b, hr = BLUR_HR[0], BLUR_HR[1]
+    ds = parse_dict(_resrgan_e2e_options(corpus),
+                    is_train=True)["datasets"]["train"]
+    stand = {"blur": lambda g, x: x * 0.5, "resize": lambda g, x:
+             x[:, ::4, ::4], "noise": lambda g, x: x + 0.25,
+             "compression": lambda g, x: 1.0 - x, "blur2": lambda g, x:
+             x * x, "resize2": lambda g, x: x.flip(2), "noise2":
+             lambda g, x: x * 0.75, "final_scale": lambda g, x: x.flip(1),
+             "final_blur": lambda g, x: x * 0.5 + 0.125}
+    x = (torch.randint(0, 256, (b, hr, hr, 3), generator=torch.Generator(
+        ).manual_seed(2)) / 255.0).float()
+    outs = {}
+    for dev in ("cuda", "cpu"):
+        deg = BatchDegrader(ds, "lr")
+        deg.stages = [(n, stand[n]) for n, _ in deg.stages]
+        deg._resize_finals = [(n, stand[n]) for n, _ in deg._resize_finals]
+        deg._comp_finals = []
+        outs[dev] = deg(torch.Generator(device=dev).manual_seed(0),
+                        x.to(dev))
+    same = torch.equal(outs["cuda"].cpu(), outs["cpu"])
+    print(f"realesrgan: degrader on stand-ins, b={b} {hr} px: card equals "
+          f"CPU bit for bit: {same}")
+    if not same:
+        raise AssertionError("realesrgan: the degrader's program differs")
+
+    deg = BatchDegrader(ds, "lr")
+    names = ([n for n, _ in deg.stages], [n for n, _ in deg.finals])
+    if names != (["blur", "resize", "noise", "compression", "blur2",
+                  "resize2", "noise2"],
+                 ["final_scale", "final_blur", "final_compression"]):
+        raise AssertionError(f"realesrgan: stages {names}")
+    paths = sorted(os.listdir(corpus))[:b]
+    x_u8 = torch.from_numpy(np.stack(
+        [decode_image(os.path.join(corpus, n))[:hr, :hr, :3]
+         for n in paths])).cuda()
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    deg(gen, x_u8)
+    shapes = {}
+    orig = D.apply_kernels
+
+    def spy(xx, kern):
+        shapes[tuple(xx.shape)] = shapes.get(tuple(xx.shape), 0) + 1
+        return orig(xx, kern)
+
+    D.apply_kernels = spy
+    try:
+        with _launch_trace({"blur": RESRGAN_BLUR},
+                           label="resrgan degrader") as t:
+            y = deg(gen, x_u8)
+    finally:
+        D.apply_kernels = orig
+    off = float((y * 255 - (y * 255).round()).abs().max())
+    print(f"realesrgan: degrader b={b} {hr}->{hr // 4} px, stages "
+          f"{names[0]}, finals {names[1]}: blur launches per batch "
+          f"{t['ran']['blur']}, shapes {shapes}; output {tuple(y.shape)} "
+          f"off the 1/255 lattice by {off:.1e}, in [{float(y.min()):.3f}, "
+          f"{float(y.max()):.3f}]")
+    if shapes != RESRGAN_BLUR_SHAPES or off > 1e-4 \
+            or tuple(y.shape) != (b, hr // 4, hr // 4, 3) \
+            or not (0.0 <= float(y.min()) and float(y.max()) <= 1.0):
+        raise AssertionError("realesrgan: the degrader ran otherwise")
+
+
+def phase_realesrgan(smi: str, root: str) -> dict:
+    """``options/sr/train_realesrgan.yml`` on the card at its full width:
+    the new ops against the CPU; the degrader on stand-ins against the CPU
+    and the real one's blur launches; the degrader as a graph against
+    eager; three graphed bf16 steps against eager within the step
+    tolerances, 69 + 69 block launches per step from a trace, the step's
+    times; the end-to-end rate; then ``main`` on a copy of the options for
+    12 iterations and a resume to 16 whose EMA and spectral-norm state
+    load bit for bit. Returns the CLI runs' launch traces."""
+    t0 = time.perf_counter()
+    _resrgan_ops(smi)
+    _resrgan_degrader(smi, root)
+    _graph_degrader(smi, root, programs=(
+        ("fixed order", False, RESRGAN_BLUR, _resrgan_e2e_options),),
+        preset="resrgan")
+    _graph_step(smi, _resrgan_options, types=(True,), label="resrgan ",
+                noise=False)
+    _graph_e2e(smi, root, programs=(("resrgan fixed order",
+                                     _resrgan_e2e_options),))
+    traces = phase_cli(smi, root, RESRGAN_YML, "cli_realesrgan",
+                       RESRGAN_BLUR, ("G", "D", "emaG"))
+    print(f"realesrgan: ok in {time.perf_counter() - t0:.1f} s ({smi})")
+    return {f"realesrgan {k}": v for k, v in traces.items()}
 
 
 def phase_graphs(smi: str, root: str) -> None:
@@ -3142,6 +3513,7 @@ def main(argv=None) -> int:
         phase_shuffle(smi, root)
         cli_counts = phase_cli(smi, root)
         phase_graphs(smi, root)
+        cli_counts.update(phase_realesrgan(smi, root))
         torch.backends.cudnn.allow_tf32 = False
         torch.backends.cuda.matmul.allow_tf32 = False
         rows = phase_times(smi, root)

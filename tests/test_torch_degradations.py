@@ -252,8 +252,14 @@ def test_random_resize_down_up_and_aligned_match_jax():
 
 
 def test_resize_codes_outside_the_slice_raise():
+    """The cv2-style codes 0-6 are served (``jax_resize``); the realistic
+    kernels of code 999 are not."""
+    from trainner_tpu_torch.data.pipeline import _resize_stage
+
+    assert D.resize_batch(torch.rand(1, 8, 8, 3), (4, 4), 2).shape \
+        == (1, 4, 4, 3)
     with pytest.raises(NotImplementedError, match="ROADMAP Queue A 5.2"):
-        D.resize_batch(torch.rand(1, 8, 8, 3), (4, 4), 2)
+        _resize_stage([999], lambda shape: (4, 4))
 
 
 # ---------------------------------------------------------------------------

@@ -162,8 +162,8 @@ def test_conv_block_4x4_stride2_pads_like_explicit_pad():
     assert blk(torch.zeros(2, 3, 16, 16)).shape == (2, 5, 8, 8)
 
 
-@pytest.mark.parametrize("cfg", [{"type": "patchgan"}, {"type": "unet"},
-                                 {"type": "discriminator_vgg_128_sn"},
+@pytest.mark.parametrize("cfg", [{"type": "patchgan"}, {"type": "multiscale"},
+                                 {"type": "pixelgan"},
                                  {"type": "discriminator_vgg", "size": 32,
                                   "mode": "NAC"}])
 def test_define_d_refuses_what_is_not_ported(cfg):

@@ -482,12 +482,12 @@ def test_resize_strat_pre_keeps_the_size():
 
 
 @pytest.mark.parametrize("extra, item", [
-    ({"lr_blur_types": ["sinc"]}, "Queue A 5.2"),
-    ({"lr_noise_types": ["poisson"]}, "Queue A 5.2"),
+    ({"lr_blur_types": ["motion"]}, "Queue A 5.2"),
+    ({"lr_noise_types": ["speckle"]}, "Queue A 5.2"),
     ({"lr_unsharp_mask": True}, "Queue A 5.2"),
     ({"dataroot_kernels": "/nonexistent"}, "Queue A 5.2"),
     ({"lr_downscale_types": [999]}, "Queue A 5.2"),
-    ({"final_blur": ["sinc"]}, "Queue A 5.2"),
+    ({"lr_auto_levels": True}, "Queue A 5.2"),
 ])
 def test_options_outside_the_slice_raise(extra, item):
     opt = _bsrgan_opt()

@@ -63,7 +63,12 @@ def test_port_has_modules_to_scan():
             "trainner_tpu_torch.data.common",
             "trainner_tpu_torch.data.datasets",
             "trainner_tpu_torch.data.loader",
-            "trainner_tpu_torch.train.producer"} <= names
+            "trainner_tpu_torch.train.producer",
+            "trainner_tpu_torch.ops.blocks",
+            "trainner_tpu_torch.models.networks",
+            "trainner_tpu_torch.utils.torch_interop",
+            "trainner_tpu_torch.utils.checkpoint",
+            "trainner_tpu_torch.train.cli"} <= names
 
 
 _GUARD = """

@@ -21,7 +21,8 @@ from trainner_tpu_torch.options.config import (INTERP_CODES, _algo2int,
                                                parse_dict)
 
 PRESETS = ("base_blur", "base_noise", "base_resize", "bsrgan_blur",
-           "bsrgan_noise", "bsrgan_resize")
+           "bsrgan_noise", "bsrgan_resize", "resrgan_blur", "resrgan_noise",
+           "resrgan_resize")
 JAX_DIR = os.path.dirname(jax_presets.__file__)
 PORT_DIR = os.path.dirname(presets.__file__)
 
@@ -157,10 +158,26 @@ def test_interp_codes_equal_jax():
         == [777, 997, 5, "unknown"]
 
 
-@pytest.mark.parametrize("strategy", ["resrgan", "realsr", "combo"])
+@pytest.mark.parametrize("strategy", ["realsr", "combo"])
 def test_another_strategy_raises_and_names_its_item(strategy):
     with pytest.raises(NotImplementedError, match="ROADMAP Queue A 5.2"):
         parse_dict(_e2e_options(augs_strategy=strategy), is_train=True)
+
+
+def test_resrgan_resolves_like_jax():
+    """``augs_strategy: resrgan``: the resolved train dataset equals the
+    JAX package's key for key: the weighted blur types with sinc in both
+    cycles, the sinc final blur, poisson beside gaussian noise, and the
+    cv2 area code 3 among the resize types."""
+    got, want = _both(augs_strategy="resrgan")
+    ds_g, ds_w = got["datasets"]["train"], want["datasets"]["train"]
+    assert ds_g == ds_w
+    assert ds_g["lr_blur_types"] == ds_g["lr_blur_types2"] == {
+        "aniso": 0.32, "iso": 0.58, "sinc": 0.1}
+    assert ds_g["final_blur"] == ["sinc"] and ds_g["final_blur_prob"] == 0.8
+    assert ds_g["lr_noise_types"] == ["gaussian", "poisson"]
+    assert ds_g["lr_downscale_types"] == [3, 773, 777]
+    assert ds_g["aug_configs"]["sinc2"]["min_kernel_size"] == 7
 
 
 def test_a_missing_preset_file_raises():

@@ -484,7 +484,7 @@ def test_the_slice_end_to_end_on_the_cpu(corpus):
 
 
 @pytest.mark.parametrize("extra, item", [
-    ({"augs_strategy": "resrgan"}, "Queue A 5.2"),
+    ({"augs_strategy": "realsr"}, "Queue A 5.2"),
     ({"dataroot_HR": "/nonexistent/train.lmdb"}, "Queue A 5.3"),
     ({"aug_downscale": 0.2}, "Queue A 5.4"),
     ({"color": "y"}, "Queue A 5.4"),

@@ -126,7 +126,7 @@ def test_create_trainer_trains_in_bf16_on_the_card_by_default(monkeypatch):
     ("train", "mixup", True), ("train", "diffaug", True),
     ("train", "fs", True), ("opt", "use_cem", True),
     ("opt", "use_atg", True), ("train", "freeze_loc", 2),
-    ("opt", "use_swa", True), ("train", "use_ema", True),
+    ("opt", "use_swa", True), ("train", "freeze_d", True),
     ("train", "grad_clip", "auto"), ("train", "virtual_batch_size", 8),
     ("train", "optim_G", "ranger"), ("train", "lr_scheme", "StepLR"),
     ("train", "gan_type", "wgan-gp"), ("train", "ssim_weight", 1.0),

@@ -40,7 +40,8 @@ the device as small int32 tensors by one pinned, non-blocking copy; the
 device program reads nothing back to the host, so the host runs ahead.
 
 Not ported yet, each raising with its ROADMAP item: kernel pools and noise
-patches, and every blur, noise and filter type outside the bsrgan preset.
+patches, the auto-levels, unsharp and fringes stages, and every blur, noise
+and filter type outside the bsrgan and resrgan presets.
 """
 
 from __future__ import annotations
@@ -133,7 +134,7 @@ def get_unpaired_params(opt: dict) -> Tuple[dict, dict]:
 # the stages
 # ---------------------------------------------------------------------------
 
-_OTHER_BLURS = ("sinc", "motion", "complexmotion", "complex_motion",
+_OTHER_BLURS = ("motion", "complexmotion", "complex_motion",
                 "average", "box", "median", "bilateral")
 _DEVICE_NOISE = ("gaussian", "jpeg", "webp", "poisson", "speckle", "s&p",
                  "sp", "quantize", "dither", "maxrgb", "camera",
@@ -201,6 +202,13 @@ def _blur_stage(types: Sequence[str], cfgs: Dict[str, dict], prob: float,
             k = int(cfg.get("kernel_size", 21))
             mk = int(cfg.get("min_kernel_size", 1) or 1)
             probs.append(float(cfg.get("p", 0.5)))
+            if t == "sinc":
+                # a min_cutoff fixes the cutoff (and the full support)
+                mc = cfg.get("min_cutoff")
+                banks.append(D.sinc_kernels(D.draw_sinc_kernels(
+                    gen, b, k, (float(mc), float(mc)) if mc else None,
+                    max(mk, 7)), k))
+                continue
             if t in ("iso", "gaussian"):
                 sx = cfg.get("sigmaX") or [0.1, 2.8]
                 params = D.draw_gaussian_kernels(
@@ -420,6 +428,10 @@ def _noise_op(t: str, cfg: dict) -> Callable:
               float(cfg.get("max_quality", 95)))
         return lambda gen, x: D.jpeg_compress(
             x, D.draw_jpeg_quality(gen, x.shape[0], qr))
+    if t == "poisson":
+        sr = tuple(map(float, cfg.get("scale_range") or (0.5, 3.0)))
+        return lambda gen, x: D.poisson_noise(x, D.draw_poisson_noise(
+            gen, x.shape, sr))
     if t == "camera":
         gain = tuple(map(float, cfg.get("rg_range") or (1.2, 2.4)))
         bg = tuple(map(float, cfg.get("bg_range") or (1.2, 2.4)))
@@ -703,7 +715,7 @@ class BatchDegrader:
         self.shuffle = bool(p.get("random_shuffle"))
         if dataset_opt.get("dataroot_kernels"):
             raise D.not_ported("the kernel pool of dataroot_kernels")
-        for name in ("auto_levels", "unsharp", "fringes", "final_blur"):
+        for name in ("auto_levels", "unsharp", "fringes"):
             if name in p:
                 raise D.not_ported(f"the {name} stage")
 
@@ -781,8 +793,8 @@ class BatchDegrader:
                               else None))))
         self.stages = stages
 
-        # the finals: [final_scale] and [final_compression], in an order
-        # drawn per sample
+        # the finals: [final_scale + final_blur] and [final_compression],
+        # in an order drawn per sample
         resize_finals: List[Tuple[str, Callable]] = []
         comp_finals: List[Tuple[str, Callable]] = []
         if "final_scale" in p and kind == "lr":
@@ -790,6 +802,12 @@ class BatchDegrader:
                 p["final_scale"]["types"],
                 lambda shape: (shape[1], shape[2]),
                 weights=p["final_scale"].get("weights"))))
+            if "final_blur" in p:
+                fb = p["final_blur"]
+                types = [t for t in fb["types"] if isinstance(t, str)] \
+                    or ["sinc"]
+                resize_finals.append(("final_blur", _blur_stage(
+                    types, cfgs, fb["prob"])))
         if "final_compression" in p:
             fc_types = [t for t in p["final_compression"]["types"]
                         if isinstance(t, str)] or ["jpeg"]
@@ -806,7 +824,7 @@ class BatchDegrader:
         return not self.stages and not self.finals
 
     def _finals(self, gen, x):
-        """The finals: both orders of [final_scale] and
+        """The finals: both orders of [final_scale + final_blur] and
         [final_compression] are computed (each with draws of its own) and
         a per-sample coin picks one."""
         res_f, comp_f = self._resize_finals, self._comp_finals

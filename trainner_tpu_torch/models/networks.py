@@ -1,13 +1,13 @@
 """Network factory: counterpart of ``trainner_tpu/models/networks.py``
 (``define_G:277``, ``_build_rrdb:29``, ``define_D:291``) for the generator
-and the discriminator that the port runs. Other types raise and name
+and the discriminators that the port runs. Other types raise and name
 their ROADMAP item."""
 
 from __future__ import annotations
 
 import torch
 
-from .discriminators import DiscriminatorVGG
+from .discriminators import DiscriminatorVGG, UNetDiscriminator
 from .rrdb import RRDBNet
 
 
@@ -55,11 +55,17 @@ def define_G(opt: dict, dtype: torch.dtype = torch.float32) -> RRDBNet:
     return _G_REGISTRY[kind](cfg, dtype)
 
 
-def define_D(opt: dict, dtype: torch.dtype = torch.bfloat16
-             ) -> DiscriminatorVGG:
-    """Build the discriminator module from parsed options."""
+def define_D(opt: dict, dtype: torch.dtype = torch.bfloat16):
+    """Build the discriminator module from parsed options: D-VGG (with
+    spectral norm and no batch norm for a ``*_sn`` type or
+    ``spectral_norm``) or the U-Net."""
     cfg = dict(opt["network_D"])
     kind = (cfg.get("type") or "").lower()
+    if kind == "unet":
+        return UNetDiscriminator(
+            nf=cfg.get("nf", 64),
+            skip_connection=bool(cfg.get("skip_connection", True)),
+            spectral_norm=bool(cfg.get("spectral_norm", True)), dtype=dtype)
     if not kind.startswith("discriminator_vgg"):
         raise NotImplementedError(
             f"Discriminator model [{kind}] is not ported yet (ROADMAP Queue "
@@ -68,17 +74,14 @@ def define_D(opt: dict, dtype: torch.dtype = torch.bfloat16
     for tok in ("96", "128", "192", "256"):  # fixed-size variants
         if tok in kind:
             size = int(tok)
-    if kind.endswith("_sn") or cfg.get("spectral_norm"):
-        raise NotImplementedError(
-            "spectral norm in the discriminator is not ported yet (ROADMAP "
-            "Queue A 2.5, norms and other block options)")
     if (cfg.get("mode") or "CNA") != "CNA":
         raise NotImplementedError(
             f"discriminator mode [{cfg['mode']}] is not ported yet (ROADMAP "
             "Queue A 2.5, norms and other block options)")
+    sn = kind.endswith("_sn") or bool(cfg.get("spectral_norm"))
     return DiscriminatorVGG(
         size=int(size), in_nc=cfg.get("in_nc", 3),
         base_nf=cfg.get("base_nf", 64),
-        norm_type=cfg.get("norm_type", "batch"),
+        norm_type=None if sn else cfg.get("norm_type", "batch"),
         act_type=cfg.get("act_type", "leakyrelu"),
-        arch=cfg.get("arch", "ESRGAN"), dtype=dtype)
+        arch=cfg.get("arch", "ESRGAN"), spectral_norm=sn, dtype=dtype)

@@ -3,7 +3,8 @@
 Counterpart of ``trainner_tpu/ops/blocks.py``: ``kaiming_init:27``,
 ``act:44``, ``finalact:73``, ``depth_to_space:112``, ``wire_to_f01:169``,
 ``nearest_up:180``, ``ConvBlock:192`` (CNA, zero padding, no norm or a
-batch norm that reproduces flax's), ``GaussianNoise:282`` (relative noise
+batch norm that reproduces flax's, and flax's ``nn.SpectralNorm`` of its
+conv), ``bilinear_torch:589``, ``GaussianNoise:282`` (relative noise
 in train mode, the identity at eval), ``PixelShuffleBlock:315`` and
 ``UpconvBlock:369``.
 
@@ -104,16 +105,77 @@ def nearest_up(x: torch.Tensor, r: int) -> torch.Tensor:
     return x.reshape(b, h * r, w * r, c)
 
 
+def bilinear_torch(x: torch.Tensor, scale: int = 2) -> torch.Tensor:
+    """Bilinear upsample of an NCHW tensor by ``scale`` with half-pixel
+    centres, edge clamping and no antialiasing: what the JAX package's
+    ``bilinear_torch`` computes with its weight matrices."""
+    return F.interpolate(x, scale_factor=scale, mode="bilinear",
+                         align_corners=False)
+
+
+def _l2_normalize(x: torch.Tensor, eps: float) -> torch.Tensor:
+    return x * torch.rsqrt((x * x).sum() + eps)
+
+
+class SpectralNorm(nn.Module):
+    """flax's ``nn.SpectralNorm`` of one conv kernel, with one power step.
+
+    The OIHW weight is read in flax's (kh, kw, in, out) order as a matrix
+    W of shape (kh kw in, out); from the stored ``u`` (1, out) one power
+    step gives v = l2n(u W^T) and u' = l2n(v W), with no gradient through
+    either, and sigma = v W u'^T, which the gradient does flow through; the
+    conv runs with W / sigma (unless sigma is 0). Every pass runs the power
+    step from the stored ``u``, as flax's does with ``update_stats`` off;
+    a train-mode pass leaves (u', sigma) in ``pending`` instead of writing
+    them, and ``commit`` writes the last pass's, as ``BatchNorm`` does.
+    ``u`` and ``sigma`` are buffers: D's state, not its parameters."""
+
+    def __init__(self, out_nc: int, eps: float = 1e-12):
+        super().__init__()
+        self.eps = eps
+        self.register_buffer("u", torch.zeros(1, out_nc))
+        self.register_buffer("sigma", torch.ones(()))
+        self.pending = None
+
+    def init_state(self, generator: torch.Generator) -> None:
+        """u from a standard normal, sigma 1 (flax's initialisers)."""
+        with torch.no_grad():
+            self.u.normal_(0.0, 1.0, generator=generator)
+            self.sigma.fill_(1.0)
+
+    def forward(self, weight: torch.Tensor) -> torch.Tensor:
+        value = weight.permute(2, 3, 1, 0).reshape(-1, weight.shape[0])
+        with torch.no_grad():
+            w = value.detach()
+            v0 = _l2_normalize(self.u @ w.T, self.eps)
+            u0 = _l2_normalize(v0 @ w, self.eps)
+        sigma = (v0 @ value @ u0.T)[0, 0]
+        if self.training:
+            self.pending = (u0, sigma.detach())
+        return weight / torch.where(sigma != 0, sigma,
+                                    torch.ones_like(sigma))
+
+    def commit(self) -> None:
+        """Writes ``u`` and ``sigma`` of the last train-mode pass."""
+        if self.pending is not None:
+            self.u.copy_(self.pending[0])
+            self.sigma.copy_(self.pending[1])
+            self.pending = None
+
+
 class _Conv(nn.Module):
-    """Holds one conv's f32 ``weight`` (OIHW) and ``bias``."""
+    """Holds one conv's f32 ``weight`` (OIHW) and ``bias``, and with
+    ``spectral_norm`` the ``SpectralNorm`` of its weight (``sn``)."""
 
     def __init__(self, in_nc: int, out_nc: int, kernel_size: int,
-                 use_bias: bool = True, stride: int = 1):
+                 use_bias: bool = True, stride: int = 1,
+                 spectral_norm: bool = False):
         super().__init__()
         self.weight = nn.Parameter(
             torch.zeros(out_nc, in_nc, kernel_size, kernel_size))
         self.bias = nn.Parameter(torch.zeros(out_nc)) if use_bias else None
         self.stride = stride
+        self.sn = SpectralNorm(out_nc) if spectral_norm else None
 
     def init_weights(self, scale: float, generator: torch.Generator):
         kaiming_init_(self.weight, scale, generator)
@@ -125,6 +187,8 @@ class _Conv(nn.Module):
         """Zero padding of (k - 1) // 2 on each side, as ``explicit_pad``
         before a VALID conv gives (1 for the 4x4 stride-2 kernel)."""
         weight = self.weight if weight is None else weight
+        if self.sn is not None:
+            weight = self.sn(weight)
         bias = self.bias if bias is None else bias
         return F.conv2d(x, weight.to(x.dtype),
                         None if bias is None else bias.to(x.dtype),
@@ -179,12 +243,14 @@ class BatchNorm(nn.Module):
 
 
 class ConvBlock(_Conv):
-    """conv (+ batch norm) + act in the CNA order, zero padding."""
+    """conv (+ batch norm) + act in the CNA order, zero padding; with
+    ``spectral_norm`` the conv's weight is spectrally normalised."""
 
     def __init__(self, in_nc: int, out_nc: int, kernel_size: int = 3,
                  act_type: Optional[str] = "relu", norm_type=None,
                  mode: str = "CNA", pad_type: str = "zero",
-                 use_bias: bool = True, stride: int = 1):
+                 use_bias: bool = True, stride: int = 1,
+                 spectral_norm: bool = False):
         norm_type = (norm_type or "").lower() or None
         if norm_type not in (None, "batch") or mode != "CNA" \
                 or pad_type != "zero":
@@ -192,7 +258,8 @@ class ConvBlock(_Conv):
                 "ConvBlock supports CNA, zero padding and no norm or batch "
                 "norm; the rest is not ported yet (ROADMAP Queue A 2.5, "
                 "norms and other block options)")
-        super().__init__(in_nc, out_nc, kernel_size, use_bias, stride)
+        super().__init__(in_nc, out_nc, kernel_size, use_bias, stride,
+                         spectral_norm)
         self.norm = BatchNorm(out_nc) if norm_type == "batch" else None
         self.act = act(act_type)
 

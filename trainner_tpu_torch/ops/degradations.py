@@ -1,7 +1,7 @@
 """Batched on-device degradation ops on NHWC tensors in [0, 1].
 
 Counterpart of ``trainner_tpu/ops/degradations.py`` for what the bsrgan
-blind-SR configuration reaches: ``_grid:33``, ``_random_support_mask:39``,
+and resrgan blind-SR configurations reach: ``_grid:33``, ``_random_support_mask:39``,
 ``gaussian_kernels:57``, ``apply_kernels:192``, ``gaussian_noise:236``, the
 DCT tables and ``jpeg_compress:451``, ``resize_batch:676``,
 ``random_resize:695``, ``down_up:711``, ``nearest_aligned_downscale:726``,
@@ -18,8 +18,10 @@ producer runs under ``torch.no_grad()``.
 reflect padding. On a CUDA tensor it launches the hand-written kernel
 ``csrc/blur_per_sample.cu``; on a CPU tensor it runs the plain version.
 
-The other ops of the JAX module (sinc, motion and box kernels, poisson,
-speckle and salt-and-pepper noise, the codec callback, unsharp, auto
+Also ``sinc_kernels:90``, ``poisson_noise:271`` and, for the cv2-style
+resize codes 0-6, ``jax.image.resize`` (``ops/imresize.py::jax_resize``).
+The other ops of the JAX module (motion and box kernels, speckle and
+salt-and-pepper noise, the codec callback, unsharp, auto
 levels, fringes, quantisation, dithering, median, bilateral, CLAHE, SOM)
 are not ported yet: ``not_ported`` raises for them and names ROADMAP
 Queue A 5.2.
@@ -36,7 +38,7 @@ import torch.nn.functional as F
 
 from ..utils.graphs import device_constant
 from .blur import blur_per_sample
-from .imresize import imresize
+from .imresize import imresize, jax_resize
 
 Params = Dict[str, Optional[torch.Tensor]]
 
@@ -145,6 +147,71 @@ def gaussian_kernels(params: Params, k: int = 21) -> torch.Tensor:
     return kern / kern.sum(dim=(1, 2), keepdim=True)
 
 
+def draw_sinc_kernels(gen: torch.Generator, b: int, k: int = 21,
+                      cutoff_range: Optional[Tuple[float, float]] = None,
+                      min_size: Optional[int] = None) -> Params:
+    """With ``cutoff_range`` the cutoff ``wc`` (b, 1, 1) within it and the
+    full k x k support; without, a per-sample support size in [min_size
+    (default 7), k] and ``u`` (b,) in [0, 1), which ``sinc_kernels`` turns
+    into a cutoff in [pi / 3 or pi / 5, pi) by the support's size."""
+    if cutoff_range is not None:
+        return {"wc": _uniform(gen, (b, 1, 1), *cutoff_range)}
+    return {"u": _uniform(gen, (b,)),
+            "support": draw_support_sizes(gen, b, k, min_size or 7)}
+
+
+def _j1(x: torch.Tensor) -> torch.Tensor:
+    """Bessel J1 by the Abramowitz-Stegun 9.4.4 / 9.4.6 approximations."""
+    small = x < 3.0
+    xs = torch.where(small, x, torch.full_like(x, 3.0)) / 3.0
+    x2 = xs * xs
+    p_small = (0.5 - 0.56249985 * x2 + 0.21093573 * x2 ** 2
+               - 0.03954289 * x2 ** 3 + 0.00443319 * x2 ** 4
+               - 0.00031761 * x2 ** 5 + 0.00001109 * x2 ** 6) * x
+    xl = torch.where(small, torch.full_like(x, 3.0), x)
+    inv = 3.0 / xl
+    f1 = (0.79788456 + 0.00000156 * inv + 0.01659667 * inv ** 2
+          + 0.00017105 * inv ** 3 - 0.00249511 * inv ** 4
+          + 0.00113653 * inv ** 5 - 0.00020033 * inv ** 6)
+    th = xl - 2.35619449 + 0.12499612 * inv + 0.0000565 * inv ** 2 \
+        - 0.00637879 * inv ** 3 + 0.00074348 * inv ** 4
+    p_large = f1 * torch.cos(th) / torch.sqrt(xl)
+    return torch.where(small, p_small, p_large)
+
+
+def sinc_kernels(params: Params, k: int = 21) -> torch.Tensor:
+    """Circular low-pass (sinc) kernels wc J1(wc r) / (2 pi r), wc^2 / 4 pi
+    at r = 0, truncated to each sample's support and normalised to sum 1.
+    Without a drawn ``wc`` the cutoff is min + u (pi - min), min = pi / 3
+    for a support under 13 and pi / 5 from 13 on."""
+    mask = None
+    if "wc" in params:
+        wc = params["wc"]
+        device = wc.device
+    else:
+        u = params["u"]
+        device = u.device
+        if params["support"] is None:
+            # a full support (min_size >= k): the JAX package reads the
+            # size off its (b, 1, 1) mask of ones, which gives 1, so pi / 3
+            min_cut = torch.full_like(u, math.pi / 3)
+        else:
+            mask = _random_support_mask(params["support"], k, device)
+            sizes = mask[:, k // 2, :].sum(dim=-1)
+            min_cut = torch.where(sizes < 13,
+                                  torch.full_like(sizes, math.pi / 3),
+                                  torch.full_like(sizes, math.pi / 5))
+        wc = (min_cut + u * (math.pi - min_cut))[:, None, None]
+    gx, gy = _grid(k, device)
+    rr = torch.sqrt(gx * gx + gy * gy)[None].expand(wc.shape[0], k, k)
+    center = wc * wc / (4 * math.pi)
+    kern = torch.where(rr < 1e-6, center.expand_as(rr),
+                       wc * _j1(wc * rr) / (2 * math.pi * rr))
+    if mask is not None:
+        kern = kern * mask
+    return kern / kern.sum(dim=(1, 2), keepdim=True)
+
+
 def apply_kernels(x: torch.Tensor, kernels: torch.Tensor) -> torch.Tensor:
     """Per-sample spatially-invariant blur with reflect padding:
     x (b, h, w, c), kernels (b, k, k), cross-correlation for every k."""
@@ -184,6 +251,23 @@ def gaussian_noise(x: torch.Tensor, params: Params,
     noise = torch.where(params["gray"], normal[..., :1].expand_as(normal),
                         normal)
     return x + sig.to(x.dtype) * noise.to(x.dtype)
+
+
+def draw_poisson_noise(gen: torch.Generator, shape,
+                       scale_range: Tuple[float, float] = (0.5, 3.0)
+                       ) -> Params:
+    """Per sample the photon scale (b, 1, 1, 1) within ``scale_range``, and
+    the standard normal field."""
+    return {"scale": _uniform(gen, (shape[0], 1, 1, 1), *scale_range),
+            "normal": _normal(gen, tuple(shape))}
+
+
+def poisson_noise(x: torch.Tensor, params: Params) -> torch.Tensor:
+    """Shot noise by the Gaussian approximation of Poisson: x + sqrt(clip(x,
+    0, 1) / 10^(4 / scale)) n; a larger scale means fewer photons."""
+    vals = torch.pow(10.0, 4.0 / params["scale"])
+    return x + torch.sqrt(x.clamp(0.0, 1.0) / vals).to(x.dtype) \
+        * params["normal"].to(x.dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -322,14 +406,27 @@ _MATLAB_CODES = {
 }
 
 
+# the cv2-style codes -> the methods of ``jax.image.resize``
+_JAX_METHODS = {0: "nearest", 1: "linear", 2: "cubic", 3: "linear",
+                4: "lanczos3", 5: "linear", 6: "nearest"}
+
+
 def resize_batch(x: torch.Tensor, out_hw: Tuple[int, int],
                  algo: int = 777) -> torch.Tensor:
     """Resize of the whole batch with one algorithm code
-    (``options/config.py::INTERP_CODES``)."""
-    if algo not in _MATLAB_CODES:
-        raise not_ported(f"resize algorithm code [{algo}] (the cv2-style "
-                         "codes 0-6)")
-    return imresize(x, out_shape=tuple(out_hw), kernel=_MATLAB_CODES[algo])
+    (``options/config.py::INTERP_CODES``): the MATLAB kernels of
+    ``ops/imresize``, or for the cv2-style codes 0-6 the weights of
+    ``jax.image.resize`` (``ops/imresize.py::jax_resize``). Code 3 (area)
+    is an antialiased linear resize down and a plain linear one up; the
+    others antialias when the height shrinks. Any other code is cubic."""
+    if algo in _MATLAB_CODES:
+        return imresize(x, out_shape=tuple(out_hw),
+                        kernel=_MATLAB_CODES[algo])
+    h = x.shape[1]
+    if algo == 3 and out_hw[0] <= h:
+        return jax_resize(x, out_hw, "linear", antialias=True)
+    return jax_resize(x, out_hw, _JAX_METHODS.get(algo, "cubic"),
+                      antialias=out_hw[0] < h)
 
 
 def _int_algos(algos: Sequence) -> list:

@@ -9,6 +9,13 @@ numpy, once per (sizes, kernel); ``imresize`` keeps a copy of each on the
 tensor's device and contracts in f32 with ``torch.matmul`` (which runs in
 full f32 on the card while ``torch.backends.cuda.matmul.allow_tf32`` is
 off, its default). ``imresize_np`` is the numpy path the datasets use.
+
+``jax_resize`` is the same machinery with the weights of ``jax.image.resize``
+(``jax/_src/image/scale.py``: ``compute_weight_mat``, ``_resize_nearest``),
+which the cv2-style resize codes of the degradations use: half-pixel
+centres, the kernel widened by 1 / scale where it antialiases a downscale,
+each output's taps renormalised to sum 1, an axis of unchanged size left
+as it is, and no clipping.
 """
 
 from __future__ import annotations
@@ -248,3 +255,93 @@ def imresize_np(img: np.ndarray, scale: float = None,
     if np.issubdtype(img.dtype, np.integer):
         return np.clip(np.round(x), 0, 255).astype(img.dtype)
     return np.clip(x, 0.0, 1.0)
+
+
+# ---------------------------------------------------------------------------
+# the weights of jax.image.resize
+# ---------------------------------------------------------------------------
+
+
+def _triangle(x):
+    return np.maximum(np.float32(0), 1 - np.abs(x))
+
+
+def _keys_cubic(x):
+    """Keys' cubic convolution kernel, a = -0.5."""
+    out = ((1.5 * x - 2.5) * x) * x + 1.
+    out = np.where(x >= 1., ((-0.5 * x + 2.5) * x - 4.) * x + 2., out)
+    return np.where(x >= 2., 0., out)
+
+
+def _lanczos3(x):
+    y = 3. * np.sin(np.pi * x) * np.sin(np.pi * x / 3.)
+    out = np.where(x > 1e-3, y / np.where(x != 0, np.pi ** 2 * x ** 2, 1), 1)
+    return np.where(x > 3., 0., out)
+
+
+_JAX_KERNELS = {"linear": _triangle, "cubic": _keys_cubic,
+                "lanczos3": _lanczos3}
+
+
+@functools.lru_cache(maxsize=256)
+def jax_resize_matrix(in_len: int, out_len: int, method: str,
+                      antialias: bool) -> np.ndarray:
+    """The (out_len, in_len) f32 weights of ``jax.image.resize`` along one
+    axis (``compute_weight_mat`` with no translation), computed in f32 as
+    there."""
+    f32 = np.float32
+    inv_scale = f32(1.0 / (out_len / in_len))
+    kernel_scale = max(inv_scale, f32(1.0)) if antialias else f32(1.0)
+    sample_f = (np.arange(out_len, dtype=f32) + f32(0.5)) * inv_scale \
+        - f32(0.5)
+    x = np.abs(sample_f[None, :] - np.arange(in_len, dtype=f32)[:, None]) \
+        / kernel_scale
+    with np.errstate(divide="ignore", invalid="ignore"):
+        w = _JAX_KERNELS[method](x).astype(f32)
+    total = w.sum(axis=0, keepdims=True, dtype=f32)
+    w = np.where(np.abs(total) > 1000. * float(np.finfo(f32).eps),
+                 w / np.where(total != 0, total, 1), 0).astype(f32)
+    inside = (sample_f >= -0.5) & (sample_f <= in_len - 0.5)
+    return np.ascontiguousarray(np.where(inside[None, :], w, 0).T
+                                .astype(f32))
+
+
+def _nearest_index(in_len: int, out_len: int) -> np.ndarray:
+    """``_resize_nearest``'s source row of each output row."""
+    pos = (np.arange(out_len, dtype=np.float32) + 0.5) * np.float32(
+        in_len / out_len)
+    return np.floor(pos.astype(np.float32)).astype(np.int64)
+
+
+# (in, out, method, antialias, device) -> its matrix or index on the device
+_jax_tables: Dict[tuple, torch.Tensor] = {}
+
+
+def _jax_table(in_len: int, out_len: int, method: str, antialias: bool,
+               device: torch.device) -> torch.Tensor:
+    key = (in_len, out_len, method, antialias, str(device))
+    t = _jax_tables.get(key)
+    if t is None:
+        t = torch.from_numpy(
+            _nearest_index(in_len, out_len) if method == "nearest" else
+            jax_resize_matrix(in_len, out_len, method, antialias)).to(device)
+        _jax_tables[key] = t
+    return t
+
+
+def jax_resize(x: torch.Tensor, out_hw: Tuple[int, int], method: str,
+               antialias: bool) -> torch.Tensor:
+    """``jax.image.resize(x, (b, oh, ow, c), method, antialias)`` of an
+    NHWC tensor, in f32: each axis whose size changes is contracted with
+    its weight matrix (or, for ``nearest``, gathered), H first."""
+    (h, w), (oh, ow) = x.shape[1:3], out_hw
+    y = x.float()
+    if oh != h:
+        t = _jax_table(h, oh, method, antialias, x.device)
+        y = y.index_select(1, t) if method == "nearest" else \
+            torch.matmul(t, y.flatten(2)).unflatten(2, y.shape[2:])
+    if ow != w:
+        t = _jax_table(w, ow, method, antialias, x.device)
+        y = y.index_select(2, t) if method == "nearest" else \
+            torch.matmul(t, y)
+    return y

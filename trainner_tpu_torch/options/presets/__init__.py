@@ -9,7 +9,7 @@ the dataset.
 
 The presets live beside this file as JSON (the same content as the JAX
 package's YAML files), so that reading one needs no PyYAML. Ported: the
-``base_*`` and ``bsrgan_*`` files. Another strategy raises.
+``base_*``, ``bsrgan_*`` and ``resrgan_*`` files. Another strategy raises.
 """
 
 from __future__ import annotations
@@ -19,7 +19,7 @@ import os
 
 _AXES = ("blur", "resize", "noise")
 _PRESET_DIR = os.path.dirname(os.path.abspath(__file__))
-PORTED_STRATEGIES = ("bsrgan",)
+PORTED_STRATEGIES = ("bsrgan", "resrgan")
 
 
 def find_preset_file(name: str, opt_path: str = "") -> str | None:

@@ -2,7 +2,7 @@
 ``trainner_tpu/train/sr_trainer.py::SRTrainer`` (``__init__:105``,
 ``init_state:222``, ``_train_step:300``, ``_get_step_fn:521``,
 ``train_step:538``, ``can_scan_steps:565``, ``train_steps:573``,
-``eval_step:655``, ``eval_step_chop:672``, ``eval_step_x8:748``) and of
+``eval_step:657``, ``eval_step_chop:672``, ``eval_step_x8:748``) and of
 ``train.py::create_trainer:95`` for ``model: sr``.
 
 One training step is the flagship ESRGAN step: G (every residual dense
@@ -22,8 +22,10 @@ eagerly (on the CPU they always are).
 
 Not ported yet, each raising with its ROADMAP item: batch augmentations,
 DiffAugment, frequency separation, CEM, AdaTarget, FreezeD, the
-pixel-unshuffle wrapper, ``grad_clip: auto``, a virtual batch, SWA and
-EMA; CEM and band-parallel inference.
+pixel-unshuffle wrapper, ``grad_clip: auto``, a virtual batch and SWA;
+CEM and band-parallel inference. With ``use_ema`` the EMA copy of G
+(``train/state.py``) is updated at the end of every step, inside its
+graph, and ``eval_step`` runs it by default, as the JAX package does.
 """
 
 from __future__ import annotations
@@ -46,7 +48,7 @@ from ..utils.graphs import Captured, signature, warm_up
 from ..utils.torch_interop import key_to_seed, seed_to_key
 from .optimizers import build_optimizer
 from .schedulers import build_scheduler
-from .state import NetState, SRTrainState
+from .state import NetState, SRTrainState, ema_update, init_ema
 
 # option (in opt or opt["train"]) -> (what it is, its ROADMAP item)
 _NOT_PORTED = {
@@ -55,7 +57,6 @@ _NOT_PORTED = {
                         "Queue A 10.11, the other trainer options"),
     "use_unshuffle": ("the pixel-unshuffle wrapper",
                       "Queue A 10.11, the other trainer options"),
-    "use_ema": ("EMA weights", "Queue A 10.10, SWA and EMA"),
     "use_swa": ("SWA weights", "Queue A 10.10, SWA and EMA"),
     "use_atg": ("AdaTarget", "Queue A 10.8, the other ops"),
     "mixup": ("batch augmentations", "Queue A 10.8, the other ops"),
@@ -154,6 +155,7 @@ class SRTrainer:
         # a step's replay changes G's weights behind the packed caches'
         # version check: set then, cleared where the caches are dropped
         self._packs_stale = False
+        self.use_ema = False
         self.is_train = bool(opt.get("is_train", True))
         self.scale = int(opt.get("scale", 4) or 4)
         self.znorm = bool(((opt.get("datasets") or {}).get("train")
@@ -180,6 +182,8 @@ class SRTrainer:
         self.grad_clip = train_opt.get("grad_clip")
         self.grad_clip_value = float(train_opt.get("grad_clip_value", 0.1)
                                      or 0.1)
+        self.use_ema = bool(opt.get("use_ema") or train_opt.get("use_ema"))
+        self.ema_decay = float(train_opt.get("ema_decay", 0.999) or 0.999)
         if self.grad_clip == "auto":
             clip_grads([], "auto", 0.0)
 
@@ -200,7 +204,8 @@ class SRTrainer:
         seeded from ``seed`` (then ``g_path``'s weights for G when one is
         given), on the trainer's device; when training, also D, the
         optimizers and the generator of the latent noise, seeded with
-        ``seed + 2`` (the state's ``rng`` is that seed's key). A checkpoint
+        ``seed + 2`` (the state's ``rng`` is that seed's key), and with
+        ``use_ema`` the EMA copy of G. A checkpoint
         of a run resumes into this state with
         ``utils/checkpoint.py::load_state``."""
         netG = define_G(self.opt, dtype=self.dtype)
@@ -224,6 +229,8 @@ class SRTrainer:
             netD.init_weights(torch.Generator().manual_seed(seed + 1))
             netD = netD.to(self.device)
             state.d = NetState(netD, self._optimizer(netD, "D"))
+        if self.use_ema:
+            init_ema(state)
         return state
 
     # ------------------------------------------------------------------
@@ -281,12 +288,16 @@ class SRTrainer:
             l_d.backward()
             clip_grads(state.d.opt.params, self.grad_clip,
                        self.grad_clip_value)
-            state.d.opt.step(lr_d)
-            # fake went first, real second: the real batch's statistics
-            # are the step's one update of the running statistics
+            # fake went first, real second: the real batch's pass, from the
+            # weights before this update, gives the step's one update of
+            # D's state (running statistics; spectral norms' u and sigma,
+            # which both passes give alike); the G stage's passes left none
             netD.commit_stats()
+            state.d.opt.step(lr_d)
             logs.update(dlogs)
             logs["l_d_total"] = l_d
+        if self.use_ema:
+            ema_update(state, self.ema_decay)
         return {k: v.detach() for k, v in logs.items()}
 
     # ------------------------------------------------------------------
@@ -310,6 +321,8 @@ class SRTrainer:
         of the blocks packs anew."""
         if self._packs_stale and self._graph_state is not None:
             drop_packed(self._graph_state.g.net)
+            if self._graph_state.ema is not None:
+                drop_packed(self._graph_state.ema)
         self._packs_stale = False
 
     def graph_pool(self):
@@ -417,25 +430,39 @@ class SRTrainer:
     # ------------------------------------------------------------------
     # eval
     # ------------------------------------------------------------------
-    def _eval_forward(self, state: SRTrainState, x: torch.Tensor
-                      ) -> torch.Tensor:
-        return state.g.net.eval()(x.float()).float()
+    @staticmethod
+    def _eval_net(state: SRTrainState, which: str) -> str:
+        """'ema' for ``which`` 'ema' or 'auto' when the state has EMA
+        weights, else 'g' (SWA is not ported, so 'swa' gives G, as in the
+        JAX package when a state has no SWA weights)."""
+        if which not in ("g", "ema", "swa", "auto"):
+            raise ValueError(f"which [{which}]: 'g', 'ema', 'swa' or 'auto'")
+        return "ema" if which in ("ema", "auto") and state.ema is not None \
+            else "g"
+
+    def _eval_forward(self, state: SRTrainState, x: torch.Tensor,
+                      net: str = "g") -> torch.Tensor:
+        module = state.ema if net == "ema" else state.g.net
+        return module.eval()(x.float()).float()
 
     @torch.inference_mode()
-    def eval_step(self, state: SRTrainState, lr_img: torch.Tensor
-                  ) -> torch.Tensor:
+    def eval_step(self, state: SRTrainState, lr_img: torch.Tensor,
+                  which: str = "auto") -> torch.Tensor:
         """Inference forward: NHWC LR batch -> f32 NHWC SR batch on the
-        trainer's device, the caller's own tensor. With graphs, one graph
-        per input shape and type, at most ``EVAL_GRAPHS`` of them (the
-        least recently used is dropped first). The first calls of a shape
-        run eagerly; the ``EVAL_CAPTURE_AT``-th runs eagerly and captures,
-        and later ones replay: the shapes of a test set of one size per
-        image cost no capture and no pool memory, plain or x8."""
+        trainer's device, the caller's own tensor. ``which``: 'g', 'ema',
+        'swa' or 'auto' (the EMA weights when the state has them, else G).
+        With graphs, one graph per input shape and type and net, at most
+        ``EVAL_GRAPHS`` of them (the least recently used is dropped first).
+        The first calls of a shape run eagerly; the ``EVAL_CAPTURE_AT``-th
+        runs eagerly and captures, and later ones replay: the shapes of a
+        test set of one size per image cost no capture and no pool memory,
+        plain or x8."""
         x = lr_img.to(self.device, non_blocking=lr_img.is_pinned())
+        net = self._eval_net(state, which)
         if not self.graphs:
-            return self._eval_forward(state, x)
+            return self._eval_forward(state, x, net)
         self._bind(state)
-        key = (tuple(x.shape), x.dtype)
+        key = (tuple(x.shape), x.dtype, net)
         entry = self._eval_graphs.get(key)
         if entry is not None:
             self._eval_graphs.move_to_end(key)
@@ -448,10 +475,10 @@ class SRTrainer:
             self._eval_seen[key] = calls
             while len(self._eval_seen) > self.EVAL_SEEN:
                 self._eval_seen.popitem(last=False)
-            return self._eval_forward(state, x)
-        out = warm_up(lambda: self._eval_forward(state, x))
+            return self._eval_forward(state, x, net)
+        out = warm_up(lambda: self._eval_forward(state, x, net))
         static = torch.empty(x.shape, dtype=x.dtype, device=x.device)
-        cap = Captured(lambda: self._eval_forward(state, static),
+        cap = Captured(lambda: self._eval_forward(state, static, net),
                        pool=self.graph_pool())
         self._eval_graphs[key] = (static, cap)
         while len(self._eval_graphs) > self.EVAL_GRAPHS:

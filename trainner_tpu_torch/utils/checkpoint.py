@@ -3,8 +3,9 @@
 ``load_params:52``, ``save_state:96``, ``load_state:112``,
 ``_state_iter:124``, ``latest_state_path:140``, ``save_checkpoint:161``).
 
-* ``{tag}_G.ckpt``, ``{tag}_D.ckpt``: one network's flax param tree (for D
-  its ``params`` alone, as the JAX trainer saves it), as
+* ``{tag}_G.ckpt``, ``{tag}_D.ckpt``, ``{tag}_emaG.ckpt``: one network's
+  flax param tree (for D its ``params`` alone, as the JAX trainer saves it;
+  the EMA weights in G's tree), as
   ``flax.serialization.to_bytes`` writes it;
 * ``{tag}.state``: the whole training state as the JAX ``SRTrainState``'s
   state dict (``utils/torch_interop.py::train_state_to_jax``), beside a
@@ -390,9 +391,10 @@ def latest_state_path(state_dir: str) -> Optional[str]:
 
 def save_checkpoint(state, opt: dict, epoch: int, niter: int,
                     latest_only: bool = False) -> None:
-    """``{tag}_G.ckpt``, ``{tag}_D.ckpt`` (when there is a D) under
-    ``path.models`` and ``{tag}.state`` under ``path.training_state``;
-    ``tag`` is the iteration, or ``latest``."""
+    """``{tag}_G.ckpt``, ``{tag}_D.ckpt`` (when there is a D) and
+    ``{tag}_emaG.ckpt`` (when there are EMA weights) under ``path.models``
+    and ``{tag}.state`` under ``path.training_state``; ``tag`` is the
+    iteration, or ``latest``."""
     model_dir = opt["path"]["models"]
     state_dir = opt["path"]["training_state"]
     tag = "latest" if latest_only else str(niter)
@@ -402,5 +404,8 @@ def save_checkpoint(state, opt: dict, epoch: int, niter: int,
     if tree["d"] is not None:
         save_params(tree["d"]["params"],
                     os.path.join(model_dir, f"{tag}_D{CKPT_EXT}"))
+    if tree["ema_params"] is not None:
+        save_params(tree["ema_params"],
+                    os.path.join(model_dir, f"{tag}_emaG{CKPT_EXT}"))
     _write_state(tree, state, os.path.join(state_dir, f"{tag}{STATE_EXT}"),
                  epoch, backup=True)

@@ -1,7 +1,8 @@
 """Weights and training state for the port's networks, in both directions
 between the port and the JAX package's flax trees (``RRDBNet``,
-``DiscriminatorVGG`` with its ``batch_stats``, ``VGGFeatures``, a whole
-``SRTrainState`` with its Adam or SGD moments, live or as read back from a
+``DiscriminatorVGG`` with its ``batch_stats``, spectral norms included,
+``UNetDiscriminator``, ``VGGFeatures``, a whole ``SRTrainState`` with its
+Adam or SGD moments and its EMA weights, live or as read back from a
 serialized ``.state`` file), and from reference ESRGAN ``.pth`` state_dicts
 in either layout. numpy on the flax side, torch on the port's; nothing of
 the JAX package is imported.
@@ -106,23 +107,63 @@ def _f32(a) -> torch.Tensor:
     return torch.from_numpy(np.array(a, np.float32))
 
 
+def _is_unet(names) -> bool:
+    """A U-Net discriminator's tree or state_dict (``conv9``, no head)."""
+    return any(n.split(".")[0] == "conv9" for n in names) and \
+        not any(n.startswith("linear") for n in names)
+
+
+def _sn_names(key: str) -> Tuple[str, str]:
+    """flax ``SpectralNorm`` variable name ``{layer}/kernel/{u|sigma}`` ->
+    (layer, leaf)."""
+    layer, _, leaf = key.split("/")
+    return layer, leaf
+
+
+def unet_from_jax(params: Mapping[str, Any],
+                  batch_stats: Optional[Mapping[str, Any]] = None
+                  ) -> Dict[str, torch.Tensor]:
+    """The flax ``UNetDiscriminator`` trees -> the port's state_dict:
+
+      conv{i}/{kernel,bias}              -> conv{i}.{weight,bias}
+      batch_stats SpectralNorm_{j}/conv{i}/kernel/{u,sigma}
+                                         -> conv{i}.sn.{u,sigma}"""
+    sd: Dict[str, torch.Tensor] = {}
+    for name, node in params.items():
+        sd[f"{name}.weight"] = torch.from_numpy(
+            hwio_to_oihw(np.asarray(node["kernel"], np.float32)))
+        if "bias" in node:
+            sd[f"{name}.bias"] = _f32(node["bias"])
+    for node in (batch_stats or {}).values():
+        for key, leaf in node.items():
+            layer, which = _sn_names(key)
+            sd[f"{layer}.sn.{which}"] = _f32(leaf)
+    return sd
+
+
 def discriminator_from_jax(params: Mapping[str, Any],
                            batch_stats: Optional[Mapping[str, Any]] = None
                            ) -> Dict[str, torch.Tensor]:
-    """The flax ``DiscriminatorVGG`` trees -> the port's state_dict:
+    """The flax ``DiscriminatorVGG`` (or ``UNetDiscriminator``,
+    ``unet_from_jax``) trees -> the port's state_dict:
 
       conv{i}_{j}/Conv_0/{kernel,bias}      -> conv{i}_{j}.{weight,bias}
       conv{i}_{j}/BatchNorm_0/{scale,bias}  -> conv{i}_{j}.norm.{weight,bias}
       batch_stats conv{i}_{j}/BatchNorm_0/{mean,var}
                                   -> conv{i}_{j}.norm.running_{mean,var}
+      batch_stats conv{i}_{j}/SpectralNorm_0/Conv_0/kernel/{u,sigma}
+                                  -> conv{i}_{j}.sn.{u,sigma}
       linear{n}/{kernel,bias}               -> linear{n}.{weight,bias}
 
     ``linear0``'s rows go from the JAX module's (H, W, C) flattening to
     torch's (C, H, W). Without ``batch_stats`` (a tree of optimizer
     moments, say) only the parameters are returned."""
-    if "params" in params and "linear0" not in params:
+    if "params" in params and not any(k.startswith("conv")
+                                      for k in params):
         batch_stats = params.get("batch_stats", batch_stats)
         params = params["params"]
+    if _is_unet(params):
+        return unet_from_jax(params, batch_stats)
     sd: Dict[str, torch.Tensor] = {}
     c_last = 0
     for name in sorted(k for k in params if k.startswith("conv")):
@@ -135,8 +176,12 @@ def discriminator_from_jax(params: Mapping[str, Any],
             sd[f"{name}.norm.weight"] = _f32(node["BatchNorm_0"]["scale"])
             sd[f"{name}.norm.bias"] = _f32(node["BatchNorm_0"]["bias"])
     for name, node in (batch_stats or {}).items():
-        sd[f"{name}.norm.running_mean"] = _f32(node["BatchNorm_0"]["mean"])
-        sd[f"{name}.norm.running_var"] = _f32(node["BatchNorm_0"]["var"])
+        if "BatchNorm_0" in node:
+            sd[f"{name}.norm.running_mean"] = _f32(
+                node["BatchNorm_0"]["mean"])
+            sd[f"{name}.norm.running_var"] = _f32(node["BatchNorm_0"]["var"])
+        for key, leaf in (node.get("SpectralNorm_0") or {}).items():
+            sd[f"{name}.sn.{_sn_names(key)[1]}"] = _f32(leaf)
     for n in (0, 1):
         w = np.asarray(params[f"linear{n}"]["kernel"], np.float32).T
         if n == 0:
@@ -206,14 +251,18 @@ def _moments_from_jax(opt_state, convert) -> Optional[Dict[str, Any]]:
 def train_state_from_jax(g_params: Mapping[str, Any],
                          d_params: Optional[Mapping[str, Any]] = None,
                          d_batch_stats: Optional[Mapping[str, Any]] = None,
-                         step: int = 0, g_opt_state=None, d_opt_state=None
+                         step: int = 0, g_opt_state=None, d_opt_state=None,
+                         ema_params: Optional[Mapping[str, Any]] = None
                          ) -> Dict[str, Any]:
     """The numpy leaves of a JAX ``SRTrainState`` -> what
     ``load_train_state`` takes: the step, G's and D's state_dicts and, where
-    given, the optimizers' moments under the port's parameter names."""
+    given, the optimizers' moments under the port's parameter names and the
+    EMA weights (``ema``, in G's state_dict layout)."""
     out: Dict[str, Any] = {"step": int(step), "g": params_from_jax(g_params),
                            "g_opt": _moments_from_jax(g_opt_state,
                                                       params_from_jax)}
+    if ema_params is not None:
+        out["ema"] = params_from_jax(ema_params)
     if d_params is not None:
         out["d"] = discriminator_from_jax(d_params, d_batch_stats)
         out["d_opt"] = _moments_from_jax(d_opt_state, discriminator_from_jax)
@@ -224,8 +273,16 @@ def load_train_state(state, carried: Mapping[str, Any]) -> None:
     """Loads ``train_state_from_jax``'s result (or
     ``train_state_from_state_dict``'s) into a port ``SRTrainState``, in
     place. A carried ``rng`` becomes the state's key and reseeds its
-    latent-noise generator by ``key_to_seed``."""
+    latent-noise generator by ``key_to_seed``. Carried EMA weights go into
+    the state's EMA copy of G; a state with one needs them."""
     state.step = int(carried["step"])
+    if state.ema is not None:
+        if carried.get("ema") is None:
+            raise ValueError("the state keeps EMA weights; the checkpoint "
+                             "carries none")
+        with torch.no_grad():
+            for name, p in state.ema.named_parameters():
+                p.copy_(carried["ema"][name])
     for which in ("g", "d"):
         net_state = getattr(state, which)
         if net_state is None or which not in carried:
@@ -267,7 +324,9 @@ def oihw_to_hwio(w: torch.Tensor) -> np.ndarray:
 
 
 def _np(t: torch.Tensor) -> np.ndarray:
-    return np.ascontiguousarray(t.detach().float().cpu().numpy())
+    """f32 C-order copy; a 0-d tensor stays 0-d (``np.ascontiguousarray``
+    would make it 1-d)."""
+    return np.array(t.detach().float().cpu().numpy(), order="C")
 
 
 _G_TO_JAX = {"conv_first": "fea_conv", "trunk_conv": "LR_conv",
@@ -303,13 +362,35 @@ def params_to_jax(sd: Mapping[str, torch.Tensor]) -> Dict[str, Any]:
     return out
 
 
+def unet_to_jax(sd: Mapping[str, torch.Tensor]
+                ) -> Tuple[Dict[str, Any], Dict[str, Any]]:
+    """The port's ``UNetDiscriminator`` state_dict -> the flax ``params``
+    and ``batch_stats`` trees: the inverse of ``unet_from_jax``. The
+    spectral norms are numbered as flax creates them, in conv order."""
+    params: Dict[str, Any] = {}
+    stats: Dict[str, Any] = {}
+    layers = sorted({k.split(".")[0] for k in sd}, key=lambda n: int(n[4:]))
+    for name in layers:
+        params[name] = {"kernel": oihw_to_hwio(sd[f"{name}.weight"])}
+        if f"{name}.bias" in sd:
+            params[name]["bias"] = _np(sd[f"{name}.bias"])
+    sn_layers = [n for n in layers if f"{n}.sn.u" in sd]
+    for j, name in enumerate(sn_layers):
+        stats[f"SpectralNorm_{j}"] = {
+            f"{name}/kernel/{leaf}": _np(sd[f"{name}.sn.{leaf}"])
+            for leaf in ("sigma", "u")}
+    return params, stats
+
+
 def discriminator_to_jax(sd: Mapping[str, torch.Tensor]
                          ) -> Tuple[Dict[str, Any], Dict[str, Any]]:
-    """The port's ``DiscriminatorVGG`` state_dict (or a tree of its
-    parameters alone, as optimizer moments are) -> the flax ``params`` and
-    ``batch_stats`` trees: the inverse of ``discriminator_from_jax``.
-    ``linear0``'s rows go from torch's (C, H, W) flattening back to the JAX
-    module's (H, W, C)."""
+    """The port's ``DiscriminatorVGG`` (or ``UNetDiscriminator``,
+    ``unet_to_jax``) state_dict, or a tree of its parameters alone, as
+    optimizer moments are -> the flax ``params`` and ``batch_stats`` trees:
+    the inverse of ``discriminator_from_jax``. ``linear0``'s rows go from
+    torch's (C, H, W) flattening back to the JAX module's (H, W, C)."""
+    if _is_unet(sd):
+        return unet_to_jax(sd)
     params: Dict[str, Any] = {}
     stats: Dict[str, Any] = {}
     c_last = 0
@@ -326,6 +407,10 @@ def discriminator_to_jax(sd: Mapping[str, torch.Tensor]
             stats[name] = {"BatchNorm_0": {
                 "mean": _np(sd[f"{name}.norm.running_mean"]),
                 "var": _np(sd[f"{name}.norm.running_var"])}}
+        if f"{name}.sn.u" in sd:
+            stats[name] = {"SpectralNorm_0": {
+                f"Conv_0/kernel/{leaf}": _np(sd[f"{name}.sn.{leaf}"])
+                for leaf in ("sigma", "u")}}
     for n in (0, 1):
         w = _np(sd[f"linear{n}.weight"])
         if n == 0:
@@ -375,7 +460,8 @@ def train_state_to_jax(state) -> Dict[str, Any]:
     ``SRTrainState`` (``trainner_tpu/train/state.py:35``), which flax's
     ``from_state_dict`` / ``from_bytes`` accepts on a JAX template of the
     same configuration: exactly its fields, ``None`` for the ones the port
-    does not keep (SWA, EMA, AdaTarget, the clip history)."""
+    does not keep (SWA, AdaTarget, the clip history), and the EMA weights
+    when the state keeps them."""
     def net(ns, convert, extra):
         sd = ns.net.state_dict()
         moments = ns.opt.state_dict() if ns.opt is not None else {}
@@ -400,7 +486,10 @@ def train_state_to_jax(state) -> Dict[str, Any]:
         "g": net(state.g, lambda sd: (params_to_jax(sd), None), False),
         "d": None if state.d is None else net(state.d, discriminator_to_jax,
                                               True),
-        "swa_params": None, "swa_n": None, "ema_params": None,
+        "swa_params": None, "swa_n": None,
+        "ema_params": None if state.ema is None else params_to_jax(
+            dict(zip(state.ema_params, _to_host(
+                list(state.ema_params.values()))))),
         "loc": None, "grad_hist": None,
     }
 
@@ -417,7 +506,8 @@ def train_state_from_state_dict(tree: Mapping[str, Any]) -> Dict[str, Any]:
         ((d.get("extra") or {}).get("batch_stats") if d else None),
         step=int(np.asarray(tree["step"])),
         g_opt_state=tree["g"].get("opt_state"),
-        d_opt_state=d.get("opt_state") if d else None)
+        d_opt_state=d.get("opt_state") if d else None,
+        ema_params=tree.get("ema_params"))
     if tree.get("rng") is not None:
         out["rng"] = np.asarray(tree["rng"], np.uint32)
     return out
