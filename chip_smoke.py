@@ -19,12 +19,15 @@ non-zero exit code and no result line:
    card, TF32 off, f32 and bf16: the block's forward at the serving shape,
    the training shape and two ragged ones (the second at b=1), its backward
    at the training shape and the ragged ones, bit-equal from run to run;
+   and the forward at phase 14's serving shape (b=8, 64x64: the trunk of
+   128 px LRs unshuffled by 2);
    both again with every output and scratch buffer filled with NaN before
    the launch, and at other widths (``OTHER_WIDTHS``: nf 16 / gc 8 and nf
    48 / gc 16, which the wrappers pad to multiples of 32 and which are held
    to the unpadded plain versions; nf 64 and 128 with gc 64, whose widest
    bf16 stages stream their weights); the per-sample blur at the producer's
-   two shapes (the HR and the LR canvas, k 21) and at the shuffled
+   two shapes (the HR and the LR canvas, k 21), at the LR canvas of the
+   2x producer (32, 64, 64, 3) and at the shuffled
    program's two q-slices, at k 3 and 7 on the HR
    canvas, at ragged shapes with asymmetric kernels, k/2 close to h and a k
    past the instantiated ones, and an identity kernel bit for bit;
@@ -69,7 +72,8 @@ non-zero exit code and no result line:
 10. times: CUDA-event times of each kernel, its plain version, its bound
    and a library call as a yardstick (the cuDNN five-conv chain; reflect
    padding and a grouped cuDNN convolution for the blur), the device-alone
-   time of the block kernels and the blur from the profiler, the block at
+   time of the block kernels and the blur from the profiler (the forward
+   also at phase 14's serving shape, the blur at its LR canvas), the block at
    the padded and the streamed widths at the training shape, and the G
    forward at b=8, 128->512 px. The f32 block kernels run 3xTF32: their
    bound is three tf32 products per f32 product at the tensor cores' tf32
@@ -111,7 +115,22 @@ non-zero exit code and no result line:
    times; the end-to-end rate; then the training CLI on a copy of the
    options (the corpus, 12 iterations, checkpoints with ``_emaG`` and
    validation at 6 and 12, a resume to 16 whose EMA and spectral-norm
-   state load bit for bit), each step's launches read between markers.
+   state load bit for bit), each step's launches read between markers;
+14. zoo (after realesrgan): the SR generator options at full width.
+   Real-ESRGAN's x2 generator (``scale: 2``, ``use_unshuffle``,
+   ``mrrdb_net`` at its own 4x: nf 64, nb 23, gc 32, in_nc 12) served by
+   the test CLI on 128 px LRs in f32, with ``use_amp``, with CEM (box and
+   cubic, ``out_orig`` and ``out_keepY``), x8 and chop, each under a
+   launch trace (69 block launches per G forward); the full G on the
+   kernels against the plain versions; ``eval_step`` at b=8 graphed; its
+   training step with ``network_D_preset: disc_esrgan`` (bf16, b=32, 64 ->
+   128 px) as a graph against eager within the step tolerances, 69 + 69
+   block launches per replay from a trace, its times; ``train_sr.yml``
+   with the x2 layout and the D preset through the training CLI (12
+   iterations, a resume to 16 that loads bit for bit); full-width
+   ``sr_resnet`` card against CPU (f32 and bf16 forwards, 3 f32 steps
+   with D-VGG-128 at b=4) and ESRGAN+ (``plus``: no block kernel) card
+   against CPU.
 
 Launches: the kernel wrappers count where they put a kernel on a stream,
 eagerly or into a graph being captured (a replay runs no Python). What the
@@ -157,6 +176,11 @@ BLUR_LR = (32, 32, 32, 3)    # the LR canvas of its second blur
 BLUR_K = 21
 # the q-slices of the shuffled program at b = 32: k = 6 symbols (bsrgan's
 # five shuffled stages and the resize), npad 36, q 6
+# phase 14 (zoo): the unshuffled mrrdb_net's trunk when serving b=8 128 px
+# LRs (64x64 after the unshuffle by 2), and the LR canvas of the bsrgan
+# producer at scale 2 (HR 128 -> LR 64)
+ZOO_SERVE_SHAPE = (8, 64, 64)
+ZOO_LR_CANVAS = (32, 64, 64, 3)
 BLUR_Q_HR = (6, 128, 128, 3)
 BLUR_Q_LR = (6, 32, 32, 3)
 SHUFFLE_K = 6
@@ -248,11 +272,15 @@ def _device_events(prof) -> list:
 @contextlib.contextmanager
 def _profiled(cpu: bool = False):
     """torch.profiler over the body: the device's activity (and the
-    host's, with ``cpu``), the body starting 0.1 s after three markers.
-    The profiler drops the records of what the card runs in a session's
-    first moments (on the H100, now and then every launch of a short
-    timing session that launched at once); the markers take that place,
-    and the body runs after the pause."""
+    host's, with ``cpu``), the body starting 0.3 s after
+    ``OPENING_MARKERS`` markers. The profiler drops the first records of
+    a session (on the H100, now and then every launch of a short timing
+    session that launched at once; with a pause of 0.1 s, once the eager
+    first step of a debug-width training session; with three markers and
+    0.3 s, late in a whole run of this script, the first 21-23 records of
+    a step's replay, two of them block stages, while a fresh process lost
+    none); the markers take their place, and the body runs after the
+    pause."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -260,10 +288,10 @@ def _profiled(cpu: bool = False):
         [ProfilerActivity.CPU] if cpu else [])
     torch.cuda.synchronize()
     with profile(activities=activities) as prof:
-        for _ in range(3):
+        for _ in range(OPENING_MARKERS):
             _mark()
         torch.cuda.synchronize()
-        time.sleep(0.1)
+        time.sleep(0.3)
         yield prof
         torch.cuda.synchronize()
 
@@ -286,6 +314,7 @@ def _calls_per_wrapper(names) -> dict:
 
 
 MARKER = "spin_kernel"
+OPENING_MARKERS = 128  # per profiler session, ahead of the body
 
 
 def _mark() -> None:
@@ -380,15 +409,23 @@ def _backward_tolerance(dtype, name, ref) -> float:
     tests/test_torch_rdb5c_tf32.py predicts); dW and db
     sum over every pixel in another order than cuDNN's weight gradient
     (1e-4 of theirs). bf16: a da_k that rounds the other way feeds
-    the later stages: two bf16 ulps at dx's largest magnitude; dW and db
-    are f32 sums over thousands of pixels of which a few differ by such a
-    rounding: 2^-11 of their largest magnitude."""
+    the later stages: two bf16 ulps at dx's largest magnitude; dW is an
+    f32 sum over thousands of pixels of which a few differ by such a
+    rounding: 2^-11 of its largest magnitude. db_k sums da_k alone, so one
+    da_k that rounds the other way on either side moves it by a whole ulp
+    of that da_k, up to 2^-7 of max|da_k|; over one 21 x 45 image max|db_k|
+    is only 10-15 times max|da_k|, and one such rounding at the top on
+    each side reads 1.06-1.17 ulps of max|da_1| (2^-11.2 to 2^-10.8 of
+    max|db_1|; H100, scripts/rdb5c_bwd_repeat.py): 2^-10 of its largest
+    magnitude."""
     import torch
 
     top = float(ref.abs().max())
     if dtype == torch.float32:
         return (2e-6 if name == "dx" else 1e-4) * top
-    return 2 * _bf16_ulp(ref) if name == "dx" else top * 2.0 ** -11
+    if name == "dx":
+        return 2 * _bf16_ulp(ref)
+    return top * 2.0 ** (-10 if name.startswith("db") else -11)
 
 
 def _compare_block(shape, dt, x, g_out, ws, bs, label: str):
@@ -437,7 +474,14 @@ def _compare_block(shape, dt, x, g_out, ws, bs, label: str):
     gd = g_out.to(dt).contiguous()
     got_b = rdb5c_backward(gd, xd, *got[1:], packed)
     torch.cuda.synchronize()
-    ref_b = rdb5c_backward_plain(gd, xd, *cut[1:], packed)
+    # cuDNN's default transposed and weight-gradient convs differ from run
+    # to run (scripts/rdb5c_bwd_repeat.py); its deterministic ones repeat
+    cudnn = torch.backends.cudnn
+    saved, cudnn.deterministic = cudnn.deterministic, True
+    try:
+        ref_b = rdb5c_backward_plain(gd, xd, *cut[1:], packed)
+    finally:
+        cudnn.deterministic = saved
     errs_b = []
     for name, a, r in zip(BWD_NAMES, got_b, ref_b):
         if a.shape != r.shape or a.dtype != r.dtype:
@@ -667,6 +711,12 @@ def phase_kernels(smi: str):
                 main_err = fwd
             if shape == TRAIN_SHAPE and dt == torch.bfloat16:
                 bwd_err = bwd
+    # phase 14's serving shape, from a generator of its own: the draws
+    # above and below stay those the earlier slices were held on
+    x = (torch.randn(*ZOO_SERVE_SHAPE, NF,
+                     generator=torch.Generator().manual_seed(14)) * 0.5)
+    for dt in (torch.float32, torch.bfloat16):
+        _compare_block(ZOO_SERVE_SHAPE, dt, x.cuda(), None, ws, bs, "")
     # the same with NaN in every buffer the wrappers allocate
     with _poisoned_buffers():
         for shape in (TRAIN_SHAPE, RAGGED_B1_SHAPE):
@@ -721,7 +771,8 @@ def phase_blur_kernel(smi: str) -> float:
                      (BLUR_Q_HR, BLUR_K), (BLUR_Q_LR, BLUR_K), (BLUR_HR, 3),
                      (BLUR_HR, 7), ((5, 37, 53, 3), 7), ((5, 37, 53, 3), 21),
                      ((5, 37, 53, 1), 21), ((2, 11, 70, 3), 21),
-                     ((3, 40, 9, 3), 17), ((2, 30, 30, 3), 25)):
+                     ((3, 40, 9, 3), 17), ((2, 30, 30, 3), 25),
+                     (ZOO_LR_CANVAS, BLUR_K)):
         x = torch.rand(*shape, generator=gen).cuda()
         kern = _blur_kernels(gen, shape[0], k)
         ident = torch.zeros(shape[0], k, k, device="cuda")
@@ -791,8 +842,9 @@ def _gain_weights(net, seed: int) -> None:
             with torch.no_grad():  # drawn on the CPU, wherever net lies
                 m.weight.copy_(kaiming_init_(torch.empty(m.weight.shape),
                                              0.7, gen))
-                m.bias.copy_(torch.empty(m.bias.shape).normal_(
-                    0.0, 0.01, generator=gen))
+                if m.bias is not None:
+                    m.bias.copy_(torch.empty(m.bias.shape).normal_(
+                        0.0, 0.01, generator=gen))
 
 
 def phase_slice(smi: str, root: str) -> dict:
@@ -1451,30 +1503,36 @@ def phase_shuffle(smi: str, root: str) -> dict:
 
 
 def _cli_options(root: str, corpus: str, yml: str = None,
-                 name: str = "cli") -> str:
+                 name: str = "cli", edit=None) -> str:
     """An options file of the repo (``options/sr/train_sr.yml`` unless
-    ``yml``) as written, read by the port's reader, but for its data roots
-    (the corpus; a validation set of ``N_VAL`` corpus images and their x4
-    bicubic LR written here), ``niter``, the frequencies and ``path.root``
-    (``root/name``). Returns the path of the options file."""
+    ``yml``) as written, read by the port's reader, but for ``edit``
+    (applied to the options dict), its data roots (the corpus; a
+    validation set of ``N_VAL`` corpus images and their bicubic LR at the
+    options' scale, written here), ``niter``, the frequencies and
+    ``path.root`` (``root/name``). Returns the path of the options
+    file."""
     import numpy as np
 
     from trainner_tpu_torch.data.common import decode_image, save_img
     from trainner_tpu_torch.ops.imresize import imresize_np
 
-    val_hr, val_lr = os.path.join(root, "val_HR"), os.path.join(root,
-                                                                 "val_LR")
-    if not os.path.isdir(val_hr):
-        os.makedirs(val_hr)
+    opt = read_options_yml(yml or TRAIN_YML)
+    if edit is not None:
+        edit(opt)
+    scale = int(opt.get("scale") or 4)
+    val_hr = os.path.join(root, "val_HR")
+    val_lr = os.path.join(root, "val_LR" if scale == 4
+                          else f"val_LR_x{scale}")
+    os.makedirs(val_hr, exist_ok=True)
+    if not os.path.isdir(val_lr):
         os.makedirs(val_lr)
         for img in sorted(os.listdir(corpus))[:N_VAL]:
             hr = decode_image(os.path.join(corpus, img))
             save_img(hr, os.path.join(val_hr, img))
-            lr = imresize_np(hr.astype(np.float32) / 255.0, 0.25,
+            lr = imresize_np(hr.astype(np.float32) / 255.0, 1.0 / scale,
                              kernel="cubic")
             save_img((lr * 255.0).round().astype(np.uint8),
                      os.path.join(val_lr, img))
-    opt = read_options_yml(yml or TRAIN_YML)
     opt["datasets"]["train"]["dataroot_HR"] = corpus
     opt["datasets"]["val"].update(dataroot_HR=val_hr, dataroot_LR=val_lr)
     opt["train"].update(niter=CLI_NITER, val_freq=CLI_FREQ)
@@ -1528,7 +1586,7 @@ def _save_breakdown(state, path: str) -> dict:
 
 def phase_cli(smi: str, root: str, yml: str = None, label: str = "cli",
               per_batch: int = 2 * 2 * SHUFFLE_K,
-              nets: tuple = ("G", "D")) -> dict:
+              nets: tuple = ("G", "D"), edit=None) -> dict:
     """The training CLI at the full width of an options file of the repo
     (``yml``; by default ``options/sr/train_sr.yml``: G nf 64, nb 23, gc
     32, D-VGG-128, batch 32, crop 128, bsrgan with the per-sample shuffle,
@@ -1546,7 +1604,7 @@ def phase_cli(smi: str, root: str, yml: str = None, label: str = "cli",
     from trainner_tpu_torch.utils import checkpoint
 
     corpus = os.path.join(root, "corpus")
-    opt_path = _cli_options(root, corpus, yml, label)
+    opt_path = _cli_options(root, corpus, yml, label, edit)
     per_g = NB * 3
     with open(opt_path) as f:
         exp = os.path.join(root, label, "experiments", json.load(f)["name"])
@@ -1677,7 +1735,7 @@ def phase_cli(smi: str, root: str, yml: str = None, label: str = "cli",
           f"{save_parts['host_ms']:.1f} ms, encoded and written "
           f"{save_parts['write_ms']:.1f} ms; validation "
           f"{', '.join(f'{t / N_VAL:.1f}' for t in val_ms)} ms per image "
-          f"({N_VAL} images of {CORPUS_PX // 4} -> {CORPUS_PX} px) ({smi})")
+          f"({N_VAL} images to {CORPUS_PX} px) ({smi})")
 
     # the resumed run
     path, meta, loaded = rec["loaded"]
@@ -1881,21 +1939,25 @@ def phase_times(smi: str, root: str, kernels_only: bool = False):
     n_q = (NF * (4 * GC + NF) + GC * (3 * GC + NF) + GC * (2 * GC + NF)
            + GC * (GC + NF) + GC * NF)
     gen = torch.Generator().manual_seed(2)
+    # phase 14's serving shape draws from a generator of its own
+    zoo_gen = torch.Generator().manual_seed(14)
     rows = {}
-    for shape in (MAIN_SHAPE, TRAIN_SHAPE):
+    for shape in (MAIN_SHAPE, TRAIN_SHAPE, ZOO_SERVE_SHAPE):
         b, h, w = shape
         npix = b * h * w
         for dt in (torch.float32, torch.bfloat16):
             name = str(dt).replace("torch.", "")
+            g_draw = zoo_gen if shape == ZOO_SERVE_SHAPE else gen
             blk = ResidualDenseBlock5C(NF, GC)
-            ws, bs = _block_weights(gen)
+            ws, bs = _block_weights(g_draw)
             with torch.no_grad():
                 for conv, wt, bt in zip(blk.convs(), ws, bs):
                     conv.weight.copy_(wt)
                     conv.bias.copy_(bt)
             blk = blk.cuda()
             packed, biases = blk.packed(dt)
-            x = (torch.randn(b, h, w, NF, generator=gen) * 0.5).cuda().to(dt)
+            x = (torch.randn(b, h, w, NF, generator=g_draw) * 0.5
+                 ).cuda().to(dt)
             x_nchw = x.permute(0, 3, 1, 2)
             conv_blk = blk.to(dt)
             with torch.inference_mode():
@@ -1916,6 +1978,18 @@ def phase_times(smi: str, root: str, kernels_only: bool = False):
                   f"{library_ms:.4f} ms ({library_ms / ms:.2f}x the kernel), "
                   f"{_bound_text(row)}, {work / ms / 1e9:.2f} TFLOP/s "
                   f"({smi})")
+            if shape == ZOO_SERVE_SHAPE:
+                # a serving shape: the forward alone, on the device too
+                fwd_k = (BF16_BLOCK_KERNELS if dt == torch.bfloat16
+                         else F32_BLOCK_KERNELS)["rdb5c.cu"][0]
+                with torch.no_grad():
+                    row["device_ms"] = _device_ms(
+                        lambda: rdb5c_forward(x, packed, biases), fwd_k)
+                print(f"times: {name} forward kernel b={b} {h}x{w} on the "
+                      f"device alone (profiler, per block): {fwd_k} "
+                      f"{_ms_text(row['device_ms'])} ms ({smi})")
+                del blk, conv_blk
+                continue
 
             # the backward, from the forward's residuals; the yardstick is
             # autograd's backward through the cuDNN chain on a kept graph
@@ -2119,7 +2193,7 @@ def phase_blur_times(smi: str, parent: str = "") -> dict:
     gen = torch.Generator().manual_seed(6)
     rows = {}
     for key in (BLUR_HR, BLUR_LR, BLUR_Q_HR, BLUR_Q_LR, ("sinc", BLUR_HR),
-                ("sinc", BLUR_LR)):
+                ("sinc", BLUR_LR), ZOO_LR_CANVAS):
         sinc = key[0] == "sinc"
         shape = key[1] if sinc else key
         b, h, w, c = shape
@@ -2204,9 +2278,11 @@ def _kernel_rows(rows, serving, train, main_err, bwd_err,
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
 
     def at(kernel, dtype):
+        shapes = (MAIN_SHAPE, TRAIN_SHAPE) + (
+            (ZOO_SERVE_SHAPE,) if kernel == "rdb5c_forward" else ())
         return {f"b={sh[0]} {sh[1]}x{sh[2]}": {
             k: v for k, v in rows[kernel, sh, dtype].items()}
-            for sh in (MAIN_SHAPE, TRAIN_SHAPE)}
+            for sh in shapes}
 
     def forms_of(source):
         return {k: forms[k] for k in BF16_BLOCK_KERNELS[source]
@@ -2245,6 +2321,7 @@ def _kernel_rows(rows, serving, train, main_err, bwd_err,
          **{name: {"shape": list(key[1] if key[0] == "sinc" else key),
                    **{k: blur_rows[key][k] for k in keys + ("device_ms",)}}
             for name, key in (("at_lr_canvas", BLUR_LR),
+                              ("at_zoo_lr_canvas", ZOO_LR_CANVAS),
                               ("at_q_slice_hr", BLUR_Q_HR),
                               ("at_q_slice_lr", BLUR_Q_LR),
                               ("resrgan_sinc_at_hr_canvas",
@@ -2448,7 +2525,8 @@ def _kernel_calls(fn) -> tuple:
 
 
 def _graph_step(smi: str, options=None, types=(True, False),
-                label: str = "", noise: bool = True) -> dict:
+                label: str = "", noise: bool = True,
+                batch_fn=None) -> dict:
     """The step of ``options()`` (the flagship configuration by default) as
     a graph against the eager step, in bf16 and f32 (``types``: the values
     of ``use_amp``): three steps each from one seed on the same batches,
@@ -2464,7 +2542,8 @@ def _graph_step(smi: str, options=None, types=(True, False),
 
     options = options or _train_options
     per_g = NB * 3
-    batches = [_train_batch(seed=s) for s in range(GRAPH_STEPS)]
+    batches = [(batch_fn or _train_batch)(seed=s)
+               for s in range(GRAPH_STEPS)]
     lr = options()["train"]["lr_G"]
     out = {}
     for use_amp in types:
@@ -2523,8 +2602,9 @@ def _graph_step(smi: str, options=None, types=(True, False),
             torch.cuda.synchronize()
             ms.setdefault(graphs, []).append(
                 (time.perf_counter() - t0) * 1e2)
-        print(f"times: train_step {name} b={TRAIN_SHAPE[0]} "
-              f"{TRAIN_SHAPE[1]}->{TRAIN_SHAPE[1] * 4} px, ms per step over "
+        lr_px, hr_px = batches[1]["LR"].shape[1], batches[1]["HR"].shape[1]
+        print(f"times: train_step {name} b={batches[1]['LR'].shape[0]} "
+              f"{lr_px}->{hr_px} px, ms per step over "
               f"10 (eager, graphed, graphed, eager): eager {ms[False]}, "
               f"graphed {ms[True]}; it/s eager {1e3 / min(ms[False]):.4f}, "
               f"graphed {1e3 / min(ms[True]):.4f} ({smi})")
@@ -3432,6 +3512,442 @@ def phase_realesrgan(smi: str, root: str) -> dict:
     return {f"realesrgan {k}": v for k, v in traces.items()}
 
 
+N_ZOO_IMAGES = 4  # serving runs of phase 14 (x8: 32 calls of one shape)
+# full-width sr_resnet's steps with train_sr.yml's D-VGG (batch norms):
+# each tensor's error as a share of its move, card against CPU, by net (G,
+# D), set from the H100's readings (G 1.07e-2, D 1.14e-1); and each
+# tensor's distance of the card to the f64 witness at most this many times
+# the CPU f32's largest distance to it in the same net (read: G 0.40, D
+# 0.78)
+SRRESNET_STEP_TOL = {"g": 3e-2, "d": 3e-1}
+SRRESNET_F64_TOL = 2.0
+ZOO_CPU_LR = (1, 32, 32, 3)  # card against CPU, full width
+
+
+def _zoo_g() -> dict:
+    """Real-ESRGAN's x2 generator: ``mrrdb_net`` at its own 4x behind a
+    pixel-unshuffle by 2 of the 2x task (in_nc 12), nf 64 / nb 23 /
+    gc 32."""
+    return {"scale": 2, "use_unshuffle": True,
+            "network_G": {"type": "mrrdb_net", "scale": 4, "nf": NF,
+                          "nb": NB, "gc": GC}}
+
+
+def _zoo_serve_options(root: str, name: str, hr_px: int = 256,
+                       **extra) -> str:
+    opt = {"name": name, "model": "sr", **_zoo_g(),
+           "datasets": {"test_1": {"name": "synth", "mode": "synthetic",
+                                   "crop_size": hr_px,
+                                   "n_samples": N_ZOO_IMAGES}},
+           "path": {"root": root}, "metrics": "psnr,ssim", **extra}
+    path = os.path.join(root, name + ".json")
+    with open(path, "w") as f:
+        json.dump(opt, f)
+    return path
+
+
+def _zoo_serving(smi: str, root: str) -> dict:
+    """The test CLI on the x2 layout (128 px LRs, random weights): f32,
+    ``use_amp``, CEM (box and cubic, with ``out_orig`` and ``out_keepY``:
+    two G forwards per image), x8, and chop on 249 px LRs (3 x 3 tiles of
+    128 at rows and columns 0, 112 and 121, unshuffled tile by tile, in
+    one forward per image), each under a launch trace with 69 block
+    launches per G forward; then the full G on the kernels
+    against the same G on the plain versions, and ``eval_step``'s ms per
+    forward at b=8 (graphed) in f32 and bf16. Returns the traces."""
+    import torch
+
+    from trainner_tpu_torch import test as test_cli
+    from trainner_tpu_torch.models import define_G
+    from trainner_tpu_torch.ops.blocks import space_to_depth
+    from trainner_tpu_torch.options import parse
+    from trainner_tpu_torch.train.sr_trainer import SRTrainer, create_trainer
+
+    per_forward = NB * 3
+    cem = {"out_orig": True, "out_keepY": True}
+    runs = [("zoo_f32", {}, 1), ("zoo_bf16", {"use_amp": True}, 1),
+            ("zoo_cem_box", {"use_cem": True, "cem_config": cem}, 2),
+            ("zoo_cem_cubic", {"use_cem": True, "cem": {"kernel": "cubic"},
+                               "cem_config": cem}, 2),
+            ("zoo_x8", {"x8": True}, 8),
+            ("zoo_chop", {"chop": True, "hr_px": 498}, 1)]
+    traces = {}
+    eval_step = SRTrainer.eval_step
+    for name, extra, forwards in runs:
+        path = _zoo_serve_options(root, name, **extra)
+        hr_px = extra.get("hr_px", 256)
+        want = {"rdb5c": per_forward * forwards * N_ZOO_IMAGES}
+        seen = []
+
+        def spy(self, state, lr, *args, **kw):
+            seen.append(tuple(lr.shape))
+            return eval_step(self, state, lr, *args, **kw)
+
+        t0 = time.time()
+        SRTrainer.eval_step = spy
+        try:
+            with _launch_trace(want, label=name) as t:
+                averages = test_cli.main(["-opt", path])
+        finally:
+            SRTrainer.eval_step = eval_step
+        vals = {m["name"]: m["average"] for m in averages["synth"]}
+        pngs = [p for p in os.listdir(os.path.join(root, "results", name,
+                                                   "synth"))
+                if p.endswith(".png")]
+        print(f"zoo: serving {name}: {N_ZOO_IMAGES} images of {hr_px // 2} "
+              f"-> {hr_px} px in {time.time() - t0:.2f} s (traced), G's "
+              f"inputs {sorted(set(seen))}, launches the card "
+              f"ran {t['ran']['rdb5c']} ({per_forward} per G forward x "
+              f"{forwards} x {N_ZOO_IMAGES}), the wrapper counted "
+              f"{t['counted']['rdb5c']}, metrics {vals}")
+        if len(pngs) != N_ZOO_IMAGES or not all(
+                math.isfinite(v) for v in vals.values()):
+            raise AssertionError(f"zoo {name}: {pngs}, {vals}")
+        if name == "zoo_chop" and seen != [(9, 128, 128, 3)] * N_ZOO_IMAGES:
+            raise AssertionError(f"zoo chop: G's inputs {seen}, not 3 x 3 "
+                                 "tiles of 128 per image")
+        traces[f"zoo {name}"] = t
+
+    opt = parse(_zoo_serve_options(root, "zoo_compare"), is_train=False)
+    lr = torch.rand(1, 128, 128, 3,
+                    generator=torch.Generator().manual_seed(3)).cuda()
+    x = space_to_depth(lr, 2)
+    for dt, rel_tol in ((torch.float32, 1e-5), (torch.bfloat16, 3e-2)):
+        net = define_G(opt, dtype=dt)
+        _gain_weights(net, seed=1)
+        net = net.cuda().eval()
+        with torch.inference_mode():
+            got = net(x)
+            with _plain_blocks():
+                ref = net(x)
+        torch.cuda.synchronize()
+        scale = float(ref.abs().max())
+        err = float((got - ref).abs().max())
+        print(f"zoo: full x2 G {dt} kernel vs plain max_abs_err {err:.3e} "
+              f"on max|ref| {scale:.3e}, tol {rel_tol * scale:.3e}")
+        if got.shape != (1, 256, 256, 3) or not err <= rel_tol * scale:
+            raise AssertionError(f"zoo G {dt}: {got.shape}, {err}")
+        del net
+
+    lr8 = torch.rand(ZOO_SERVE_SHAPE[0], 128, 128, 3,
+                     generator=torch.Generator().manual_seed(4)).cuda()
+    for use_amp in (False, True):
+        trainer = create_trainer({**opt, "use_amp": use_amp})
+        state = trainer.init_state(0)
+        for _ in range(trainer.EVAL_CAPTURE_AT + 1):
+            trainer.eval_step(state, lr8)
+        ms = _time_ms(lambda: trainer.eval_step(state, lr8), iters=10,
+                      warmup=1)
+        calls, busy, wall = _kernel_calls(
+            lambda: trainer.eval_step(state, lr8))
+        mpx = lr8.shape[0] * 256 * 256 / 1e6 / (ms / 1e3)
+        print(f"times: zoo eval_step {trainer.dtype} b={lr8.shape[0]} 128 "
+              f"-> 256 px (graphed): {ms:.3f} ms per forward, {mpx:.3f} "
+              f"Mpx/s; device busy {busy:.3f} ms of {wall:.3f} ms in "
+              f"{sum(calls.values())} kernels ({smi})")
+        if len(trainer.eval_graphs()) != 1:
+            raise AssertionError("zoo: eval_step did not replay a graph")
+        del trainer, state
+        torch.cuda.empty_cache()
+    return traces
+
+
+def _zoo_train_options() -> dict:
+    """The x2 layout trained with ``network_D_preset: disc_esrgan`` (D-VGG
+    at the crop size, 128) and the flagship losses, parsed by the port."""
+    from trainner_tpu_torch.options.config import parse_dict
+
+    opt = {"name": "zoo_step", "model": "sr", **_zoo_g(),
+           "network_D_preset": "disc_esrgan",
+           "datasets": {"train": {"name": "t", "mode": "aligned",
+                                  "dataroot_HR": "/nonexistent",
+                                  "crop_size": 128,
+                                  "batch_size": TRAIN_SHAPE[0]}},
+           "path": {"root": "/nonexistent"},
+           "train": _train_options()["train"]}
+    return dict(parse_dict(opt, is_train=True))
+
+
+def _zoo_batch(seed: int = 0) -> dict:
+    """b=32, LR 64 -> HR 128 (2x)."""
+    import torch
+
+    gen = torch.Generator().manual_seed(seed)
+    return {"LR": torch.rand(TRAIN_SHAPE[0], 64, 64, 3, generator=gen).cuda(),
+            "HR": torch.rand(TRAIN_SHAPE[0], 128, 128, 3,
+                             generator=gen).cuda()}
+
+
+def _zoo_cli_edit(opt: dict) -> None:
+    """``train_sr.yml`` -> the x2 layout with the D preset."""
+    opt.update(_zoo_g())
+    opt.pop("network_D", None)
+    opt["network_D_preset"] = "disc_esrgan"
+
+
+def _card_vs_cpu_forward(label: str, opt: dict, lr_shape, dtypes) -> None:
+    """A G of ``opt`` at full width with gain-0.7 weights, its forward on
+    the card against the CPU's on one LR: f32 within 1e-5 of the output's
+    size (TF32 off), bf16 within 3e-2. No block kernel may run."""
+    import torch
+
+    from trainner_tpu_torch.models import define_G
+
+    lr = torch.rand(*lr_shape, generator=torch.Generator().manual_seed(5))
+    for dt in dtypes:
+        rel_tol = 1e-5 if dt == torch.float32 else 3e-2
+        net = define_G(opt, dtype=dt)
+        _gain_weights(net, seed=2)
+        net = net.eval()
+        with torch.inference_mode():
+            ref = net(lr)
+            net = net.cuda()
+            with _launch_trace({"rdb5c": 0}, label=label):
+                got = net(lr.cuda()).cpu()
+        scale = float(ref.abs().max())
+        err = float((got - ref).abs().max())
+        print(f"zoo: {label} {dt} forward, card vs CPU: max_abs_err "
+              f"{err:.3e} on max|ref| {scale:.3e}, tol {rel_tol * scale:.3e}"
+              f", output {tuple(got.shape)}, no block kernel launched")
+        if not (err <= rel_tol * scale and bool(got.isfinite().all())):
+            raise AssertionError(f"zoo {label} {dt}: {err}")
+        del net
+
+
+@contextlib.contextmanager
+def _in_f64():
+    """Runs the port's code in f64 for a witness: ``.float()`` keeps an
+    f64 tensor f64 (the models cast their outputs, the batch norms and the
+    losses their inputs, to f32), new tensors default to f64, and the name
+    of every op that still yields an f32 tensor is collected in the list
+    this yields; 0-d ones are left out (the optimizers' learning rate, the
+    same f32 value on every side)."""
+    import torch
+    from torch.overrides import TorchFunctionMode
+
+    plain_float = torch.Tensor.float
+    f32 = []
+
+    def keep(self, *args, **kwargs):
+        if self.dtype == torch.float64:
+            return self
+        return plain_float(self, *args, **kwargs)
+
+    class Watch(TorchFunctionMode):
+        def __torch_function__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            for t in out if isinstance(out, (tuple, list)) else (out,):
+                if isinstance(t, torch.Tensor) and \
+                        t.dtype == torch.float32 and t.dim():
+                    f32.append(getattr(func, "__name__", str(func)))
+            return out
+
+    default = torch.get_default_dtype()
+    torch.Tensor.float = keep
+    torch.set_default_dtype(torch.float64)
+    try:
+        with Watch():
+            yield f32
+    finally:
+        torch.Tensor.float = plain_float
+        torch.set_default_dtype(default)
+
+
+def _f64_trainer(opt: dict):
+    """The eager CPU trainer of ``opt`` with its nets, the feature net and
+    the optimizers' moments in f64 (the witness of ``_in_f64``)."""
+    import torch
+
+    from trainner_tpu_torch.train.sr_trainer import create_trainer
+
+    trainer = create_trainer({**opt, "use_amp": False}, device="cpu")
+    state = trainer.init_state(0)
+    trainer.dtype = torch.float64
+    for net in (state.g.net, state.d.net, trainer.generator_loss):
+        net.double()
+        for m in net.modules():
+            if isinstance(getattr(m, "dtype", None), torch.dtype):
+                m.dtype = torch.float64
+    state.g.opt = trainer._optimizer(state.g.net, "G")
+    state.d.opt = trainer._optimizer(state.d.net, "D")
+    return trainer, state
+
+
+def _steps_card_cpu_f64(label: str, opt: dict, batches) -> dict:
+    """Steps of ``opt`` (f32) on the card (graphed), on the CPU and, as the
+    witness, on the CPU in f64, each step from the CPU's state, under
+    deterministic cuDNN with TF32 off. Returns per tensor (``g.``/``d.``)
+    the largest, over the steps, of each side's error as a share of the
+    tensor's move in the f64 step (moves under 1e-6 are skipped):
+    ``card_cpu``, ``card_f64``, ``cpu_f64``; and ``logs``, the logs'
+    largest relative error, card against CPU."""
+    import torch
+
+    from trainner_tpu_torch.train.sr_trainer import create_trainer
+
+    trainers = {dev: create_trainer({**opt, "use_amp": False}, device=dev)
+                for dev in ("cuda", "cpu")}
+    states = {dev: tr.init_state(0) for dev, tr in trainers.items()}
+    witness, wstate = _f64_trainer(opt)
+    trainers["f64"], states["f64"] = witness, wstate
+    cpu = states["cpu"]
+    out = {"card_cpu": {}, "card_f64": {}, "cpu_f64": {}, "logs": 0.0}
+    cudnn = torch.backends.cudnn
+    saved = cudnn.deterministic, cudnn.benchmark
+    cudnn.deterministic, cudnn.benchmark = True, False
+    try:
+        for i, batch in enumerate(batches):
+            for dev in ("cuda", "f64") if i else ("f64",):
+                for w in ("g", "d"):
+                    ns = getattr(states[dev], w)
+                    ns.net.load_state_dict(getattr(cpu, w).net.state_dict())
+                    ns.opt.load_state_dict(getattr(cpu, w).opt.state_dict())
+            start = {k: v.double() for k, v in _net_tensors(cpu).items()}
+            logs = {}
+            for dev in ("cuda", "cpu", "f64"):
+                if dev == "f64":
+                    with _in_f64() as f32:
+                        logs[dev] = witness.train_step(wstate, {
+                            k: v.double() for k, v in batch.items()})[1]
+                    if f32:
+                        raise AssertionError(f"{label}: the f64 witness "
+                                             f"ran f32 ops {sorted(set(f32))}")
+                else:
+                    logs[dev] = trainers[dev].train_step(states[dev], {
+                        k: v.to(dev) for k, v in batch.items()})[1]
+            for k, want in logs["cpu"].items():
+                got = float(logs["cuda"][k])
+                out["logs"] = max(out["logs"], abs(got - float(want))
+                                  / max(abs(float(want)), 1e-3))
+            t = {dev: {k: v.cpu().double() for k, v in
+                       _net_tensors(states[dev]).items()}
+                 for dev in ("cuda", "cpu", "f64")}
+            for k, exact in t["f64"].items():
+                if exact.dtype != torch.float64:
+                    raise AssertionError(f"{label}: witness tensor {k} "
+                                         f"is {exact.dtype}")
+                moved = float((exact - start[k]).abs().max())
+                if moved <= 1e-6:
+                    continue
+                for key, a, b in (("card_cpu", "cuda", "cpu"),
+                                  ("card_f64", "cuda", "f64"),
+                                  ("cpu_f64", "cpu", "f64")):
+                    err = float((t[a][k] - t[b][k]).abs().max()) / moved
+                    out[key][k] = max(out[key].get(k, 0.0), err)
+    finally:
+        cudnn.deterministic, cudnn.benchmark = saved
+    if len(trainers["cuda"].step_graphs()) != 1:
+        raise AssertionError(f"{label}: the step did not replay a graph")
+    return out
+
+
+def _worst(readings: dict, prefix: str) -> tuple:
+    """The largest reading of the tensors under ``prefix``, and its
+    name."""
+    return max(((v, k) for k, v in readings.items()
+                if k.startswith(prefix)), default=(0.0, "none"))
+
+
+def _zoo_srresnet_and_plus(smi: str) -> None:
+    """Full-width ``sr_resnet`` (nf 64, nb 16, relu, pixel shuffle, 4x):
+    its forward card against CPU in f32 and bf16, and 3 steps with
+    ``train_sr.yml``'s D-VGG-128 (batch norms) in f32 (b=4, 32 -> 128 px,
+    SGD at lr 1e-2, whose updates are linear in the gradients), each from
+    the CPU's state on the card (graphed), the CPU and an f64 witness on
+    the CPU (``_steps_card_cpu_f64``): logs within 1e-4 relative; every
+    tensor of G and D within ``SRRESNET_STEP_TOL`` of its move, card
+    against CPU; and no tensor of the card further from the witness than
+    ``SRRESNET_F64_TOL`` times the CPU f32's largest distance in the same
+    net. f32 rounding moves D's weight gradients by up to 11 % of a move
+    on the CPU as on the card (sums over every pixel of a real and a fake
+    batch that nearly cancel, through batch statistics of 4 x 8 x 8
+    samples), G's by up to 2 %; a fault of the card's program would move
+    them further from the witness than the CPU's own rounding does. Then
+    ESRGAN+ (``rrdb_net`` with ``plus``, nf 64, nb 23, gc
+    32), whose blocks run the composite chain on cuDNN: its f32 forward
+    card against CPU."""
+    import torch
+
+    from trainner_tpu_torch.options.config import parse_dict
+
+    # the CLI runs before this one may have turned TF32 on
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+
+    def options(network_G, **train):
+        return dict(parse_dict({
+            "name": "zoo_srresnet", "model": "sr", "scale": 4,
+            "network_G": network_G,
+            "network_D": {"type": "discriminator_vgg", "size": 128,
+                          "base_nf": 64},
+            "path": {"root": "/nonexistent"},
+            "train": {**_train_options()["train"], **train}},
+            is_train=True))
+
+    srresnet = options({"type": "sr_resnet"}, optim_G="sgd", optim_D="sgd",
+                       lr_G=1e-2, lr_D=1e-2)
+    g = srresnet["network_G"]
+    if (g["nf"], g["nb"], g["act_type"], g["upsample_mode"]) != (
+            64, 16, "relu", "pixelshuffle") or \
+            srresnet["network_D"]["norm_type"] != "batch":
+        raise AssertionError(f"zoo: sr_resnet config {g}, "
+                             f"{srresnet['network_D']}")
+    _card_vs_cpu_forward("sr_resnet", srresnet, ZOO_CPU_LR,
+                         (torch.float32, torch.bfloat16))
+
+    gen = torch.Generator().manual_seed(6)
+    batches = [{"LR": torch.rand(4, 32, 32, 3, generator=gen),
+                "HR": torch.rand(4, 128, 128, 3, generator=gen)}
+               for _ in range(3)]
+    r = _steps_card_cpu_f64("zoo: sr_resnet", srresnet, batches)
+    bad = []
+    for net in ("g", "d"):
+        cc, f64, cpu = (_worst(r[key], net + ".") for key in
+                        ("card_cpu", "card_f64", "cpu_f64"))
+        step_tol, f64_tol = SRRESNET_STEP_TOL[net], SRRESNET_F64_TOL * cpu[0]
+        print(f"zoo: sr_resnet with D-VGG-128 (batch norms), 3 f32 SGD "
+              f"steps (lr 1e-2) b=4 32 -> 128 px, {net.upper()}'s tensors "
+              f"as a share of their move: card vs CPU up to {cc[0]:.3e} "
+              f"({cc[1]}; tol {step_tol}); against the f64 witness: card "
+              f"{f64[0]:.3e} ({f64[1]}; tol {f64_tol:.3e}), CPU f32 "
+              f"{cpu[0]:.3e} ({cpu[1]}) ({smi})")
+        bad += [(k, v, step_tol) for k, v in r["card_cpu"].items()
+                if k.startswith(net + ".") and not v <= step_tol]
+        bad += [(k, v, f64_tol) for k, v in r["card_f64"].items()
+                if k.startswith(net + ".") and not v <= f64_tol]
+    print(f"zoo: sr_resnet logs card vs CPU within {r['logs']:.3e} "
+          f"relative (tol 1e-4)")
+    if bad or not r["logs"] <= 1e-4:
+        raise AssertionError(f"zoo: sr_resnet step: {bad}, logs "
+                             f"{r['logs']}")
+    torch.cuda.empty_cache()
+
+    plus = options({"type": "rrdb_net", "nf": NF, "nb": NB, "gc": GC,
+                    "plus": True})
+    _card_vs_cpu_forward("ESRGAN+ rrdb_net plus", plus, ZOO_CPU_LR,
+                         (torch.float32,))
+
+
+def phase_zoo(smi: str, root: str) -> dict:
+    """Phase 14: the SR generator options at full width. Serving the x2
+    layout (``_zoo_serving``); its step with ``disc_esrgan`` as a graph
+    against eager (bf16, b=32, 64 -> 128 px; 69 + 69 block launches per
+    replay, from a trace; step ms and device busy); ``train_sr.yml`` with
+    the x2 layout through the CLI for 12 iterations and a resume to 16
+    that loads bit for bit; then ``sr_resnet`` and ESRGAN+ card against
+    CPU. Returns the main paths' launch traces."""
+    t0 = time.perf_counter()
+    traces = _zoo_serving(smi, root)
+    _graph_step(smi, _zoo_train_options, types=(True,), label="zoo x2 ",
+                noise=False, batch_fn=_zoo_batch)
+    cli_traces = phase_cli(smi, root, TRAIN_YML, "cli_zoo",
+                           edit=_zoo_cli_edit)
+    traces.update({f"zoo cli {k}": v for k, v in cli_traces.items()})
+    _zoo_srresnet_and_plus(smi)
+    print(f"zoo: ok in {time.perf_counter() - t0:.1f} s ({smi})")
+    return traces
+
+
 def phase_graphs(smi: str, root: str) -> None:
     """The programs as CUDA graphs against the same programs run eagerly
     (``graphs=False``), in one process: the step (bf16, f32) with its
@@ -3514,6 +4030,9 @@ def main(argv=None) -> int:
         cli_counts = phase_cli(smi, root)
         phase_graphs(smi, root)
         cli_counts.update(phase_realesrgan(smi, root))
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
+        cli_counts.update(phase_zoo(smi, root))
         torch.backends.cudnn.allow_tf32 = False
         torch.backends.cuda.matmul.allow_tf32 = False
         rows = phase_times(smi, root)

@@ -164,8 +164,7 @@ def test_conv_block_4x4_stride2_pads_like_explicit_pad():
 
 @pytest.mark.parametrize("cfg", [{"type": "patchgan"}, {"type": "multiscale"},
                                  {"type": "pixelgan"},
-                                 {"type": "discriminator_vgg", "size": 32,
-                                  "mode": "NAC"}])
+                                 {"type": "adiscriminator"}])
 def test_define_d_refuses_what_is_not_ported(cfg):
     with pytest.raises(NotImplementedError, match="ROADMAP Queue A"):
         define_D({"network_D": cfg})

@@ -176,11 +176,19 @@ def test_dict2str_matches_jax():
     assert "network_G:[" in dict2str(opt)
 
 
-@pytest.mark.parametrize("key, item", [
-    ("network_G_preset", "Queue A 8.1"), ("network_D_preset", "Queue A 8.1"),
-    ("use_unshuffle", "Queue A 8.2")])
-def test_options_outside_the_port_raise_with_their_item(key, item):
+@pytest.mark.parametrize("key, value, item", [
+    ("network_G", {"type": "ppon"}, "Queue A 10.2"),
+    ("network_G", {"type": "edvr"}, "Queue A 10.5"),
+    ("augs_strategy", "realsr", "Queue A 5.2")])
+def test_options_outside_the_port_raise_with_their_item(key, value, item):
+    """The network presets and ``use_unshuffle`` are parsed now
+    (``test_torch_network_options.py``); other generators and the other
+    preset strategies still raise and name their ROADMAP item."""
     opt = _train_opt()
-    opt[key] = "gen_esrgan" if key.endswith("preset") else True
+    if key == "augs_strategy":
+        opt["datasets"] = {"train": {"name": "t", "mode": "aligned",
+                                     "dataroot_HR": "/x", key: value}}
+    else:
+        opt[key] = value
     with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
         parse_dict(opt)

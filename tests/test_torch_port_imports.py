@@ -68,7 +68,13 @@ def test_port_has_modules_to_scan():
             "trainner_tpu_torch.models.networks",
             "trainner_tpu_torch.utils.torch_interop",
             "trainner_tpu_torch.utils.checkpoint",
-            "trainner_tpu_torch.train.cli"} <= names
+            "trainner_tpu_torch.train.cli",
+            "trainner_tpu_torch.options.defaults",
+            "trainner_tpu_torch.models.srresnet",
+            "trainner_tpu_torch.ops.partial_conv",
+            "trainner_tpu_torch.ops.cem",
+            "trainner_tpu_torch.ops.filters",
+            "trainner_tpu_torch.ops.colors"} <= names
 
 
 _GUARD = """

@@ -22,7 +22,7 @@ from trainner_tpu_torch.options.config import (INTERP_CODES, _algo2int,
 
 PRESETS = ("base_blur", "base_noise", "base_resize", "bsrgan_blur",
            "bsrgan_noise", "bsrgan_resize", "resrgan_blur", "resrgan_noise",
-           "resrgan_resize")
+           "resrgan_resize", "gen_esrgan", "disc_esrgan")
 JAX_DIR = os.path.dirname(jax_presets.__file__)
 PORT_DIR = os.path.dirname(presets.__file__)
 

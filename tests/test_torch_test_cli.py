@@ -125,13 +125,14 @@ def test_port_cli_matches_jax_cli(tmp_path, use_amp, psnr_tol, ssim_tol,
         assert np.abs(a.astype(int) - b.astype(int)).max() <= png_tol
 
 
-@pytest.mark.parametrize("key,item", [("use_cem", "Queue A 2.3"),
-                                      ("spatial_shards", "Queue A 9")])
-def test_port_cli_deferred_branches_raise(tmp_path, key, item):
-    """x8 and chop are served (test_torch_inference_modes); CEM and the
-    band-parallel branch still raise and name their ROADMAP item."""
+@pytest.mark.parametrize("key,value,item", [
+    ("model", "ppon", "Queue A 10.2"), ("spatial_shards", 2, "Queue A 9")])
+def test_port_cli_deferred_branches_raise(tmp_path, key, value, item):
+    """x8 and chop are served (test_torch_inference_modes), CEM too
+    (test_torch_cem); other models and the band-parallel branch still
+    raise and name their ROADMAP item."""
     path = _options(tmp_path, "deferred", tmp_path / "none.ckpt",
-                    **{key: 2})
+                    **{key: value})
     with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
         port_test_cli.main(["-opt", path], device="cpu")
 

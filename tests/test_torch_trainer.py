@@ -124,7 +124,7 @@ def test_create_trainer_trains_in_bf16_on_the_card_by_default(monkeypatch):
 
 @pytest.mark.parametrize("where,key,value", [
     ("train", "mixup", True), ("train", "diffaug", True),
-    ("train", "fs", True), ("opt", "use_cem", True),
+    ("train", "fs", True), ("train", "hfen_weight", 1.0),
     ("opt", "use_atg", True), ("train", "freeze_loc", 2),
     ("opt", "use_swa", True), ("train", "freeze_d", True),
     ("train", "grad_clip", "auto"), ("train", "virtual_batch_size", 8),

@@ -17,7 +17,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.blocks import (BatchNorm, ConvBlock, SpectralNorm, _Conv,
-                          bilinear_torch)
+                          bilinear_torch, commit_stats)
 
 
 class _Discriminator(nn.Module):
@@ -45,8 +45,7 @@ class _Discriminator(nn.Module):
 
     def commit_stats(self) -> None:
         """Writes the state of the last train-mode pass."""
-        for m in self.norms():
-            m.commit()
+        commit_stats(self)
 
 
 class DiscriminatorVGG(_Discriminator):
@@ -68,14 +67,14 @@ class DiscriminatorVGG(_Discriminator):
     def __init__(self, size: int = 128, in_nc: int = 3, base_nf: int = 64,
                  norm_type: Optional[str] = "batch",
                  act_type: str = "leakyrelu", arch: str = "ESRGAN",
-                 spectral_norm: bool = False,
+                 spectral_norm: bool = False, mode: str = "CNA",
                  dtype: torch.dtype = torch.float32):
         super().__init__()
         self.dtype = dtype
-        cb = dict(norm_type=norm_type, act_type=act_type,
+        cb = dict(norm_type=norm_type, act_type=act_type, mode=mode,
                   spectral_norm=spectral_norm)
         self.conv0_0 = ConvBlock(in_nc, base_nf, 3, act_type=act_type,
-                                 spectral_norm=spectral_norm)
+                                 mode=mode, spectral_norm=spectral_norm)
         self.conv0_1 = ConvBlock(base_nf, base_nf, 4, stride=2, **cb)
         cur_size, cur_nc, i = size // 2, base_nf, 1
         while cur_size > 4:

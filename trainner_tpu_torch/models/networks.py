@@ -1,57 +1,78 @@
 """Network factory: counterpart of ``trainner_tpu/models/networks.py``
-(``define_G:277``, ``_build_rrdb:29``, ``define_D:291``) for the generator
-and the discriminators that the port runs. Other types raise and name
-their ROADMAP item."""
+(``define_G:277``, ``_build_rrdb:29``, ``_build_mrrdb:48``,
+``_build_srresnet:56``, ``define_D:291``) for the generators and the
+discriminators that the port runs. Other types raise and name their
+ROADMAP item."""
 
 from __future__ import annotations
 
 import torch
 
 from .discriminators import DiscriminatorVGG, UNetDiscriminator
-from .rrdb import RRDBNet
-
-
-def _not_ported(what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported yet (ROADMAP Queue A, other generator "
-        "types and block options)")
+from .rrdb import MRRDBNet, RRDBNet
+from .srresnet import SRResNet
 
 
 def _build_rrdb(cfg: dict, dtype: torch.dtype) -> RRDBNet:
-    if cfg.get("norm_type"):
-        raise _not_ported(f"rrdb_net norm [{cfg['norm_type']}]")
-    if (cfg.get("mode") or "CNA") != "CNA":
-        raise _not_ported(f"rrdb_net mode [{cfg['mode']}]")
-    if str(cfg.get("act_type") or "leakyrelu").lower() not in ("leakyrelu",
-                                                                "lrelu"):
-        raise _not_ported(f"rrdb_net act_type [{cfg['act_type']}]")
-    if cfg.get("plus"):
-        raise _not_ported("rrdb_net plus (ESRGAN+)")
-    convtype = str(cfg.get("convtype") or "Conv2D")
-    if convtype.lower() != "conv2d":
-        raise _not_ported(f"rrdb_net convtype [{convtype}]")
+    convtype = str(cfg.get("convtype") or "Conv2D").lower()
+    if convtype == "conv3d":
+        raise NotImplementedError(
+            "rrdb_net convtype [Conv3D] (EVSRGAN, video input) is not ported "
+            "yet (ROADMAP Queue A 10.5, the video models)")
     if cfg.get("scan_blocks"):
-        raise _not_ported("scan_blocks (an XLA compile-time device)")
+        raise NotImplementedError(
+            "scan_blocks (an XLA compile-time device) is not ported")
     return RRDBNet(
         in_nc=cfg.get("in_nc", 3), out_nc=cfg.get("out_nc", 3),
         nf=cfg.get("nf", 64), nb=cfg.get("nb", 23), nr=cfg.get("nr", 3),
         gc=cfg.get("gc", 32), upscale=cfg.get("upscale", 4),
+        norm_type=cfg.get("norm_type"),
         act_type=cfg.get("act_type", "leakyrelu"),
+        mode=cfg.get("mode", "CNA"),
         upsample_mode=cfg.get("upsample_mode", "upconv"),
         final_act=cfg.get("finalact"),
         gaussian_noise=bool(cfg.get("gaussian_noise", True)),
+        plus=bool(cfg.get("plus", False)),
+        convtype="PartialConv2D" if convtype == "partialconv2d"
+        else "Conv2D",
         dtype=dtype)
 
 
-_G_REGISTRY = {"rrdb_net": _build_rrdb}
+def _build_mrrdb(cfg: dict, dtype: torch.dtype) -> MRRDBNet:
+    if cfg.get("scan_blocks"):
+        raise NotImplementedError(
+            "scan_blocks (an XLA compile-time device) is not ported")
+    return MRRDBNet(in_nc=cfg.get("in_nc", 3), out_nc=cfg.get("out_nc", 3),
+                    nf=cfg.get("nf", 64), nb=cfg.get("nb", 23),
+                    gc=cfg.get("gc", 32), upscale=cfg.get("upscale", 4),
+                    dtype=dtype)
 
 
-def define_G(opt: dict, dtype: torch.dtype = torch.float32) -> RRDBNet:
-    """Build the generator module from parsed options."""
+def _build_srresnet(cfg: dict, dtype: torch.dtype) -> SRResNet:
+    return SRResNet(
+        in_nc=cfg.get("in_nc", 3), out_nc=cfg.get("out_nc", 3),
+        nf=cfg.get("nf", 64), nb=cfg.get("nb", 16),
+        upscale=cfg.get("upscale", 4), norm_type=cfg.get("norm_type"),
+        act_type=cfg.get("act_type", "relu"), mode=cfg.get("mode", "CNA"),
+        res_scale=cfg.get("res_scale", 1),
+        upsample_mode=cfg.get("upsample_mode", "pixelshuffle"),
+        final_act=cfg.get("finalact"), dtype=dtype)
+
+
+_G_REGISTRY = {"rrdb_net": _build_rrdb, "mrrdb_net": _build_mrrdb,
+               "sr_resnet": _build_srresnet}
+
+
+def define_G(opt: dict, dtype: torch.dtype = torch.float32):
+    """Build the generator module from parsed options; the keys a builder
+    does not read (``group``, ``strict``) are ignored, as in the JAX
+    package."""
     cfg = dict(opt["network_G"])
     kind = cfg.get("type")
     if kind not in _G_REGISTRY:
-        raise _not_ported(f"Generator model [{kind}]")
+        raise NotImplementedError(
+            f"Generator model [{kind}] is not ported yet (ROADMAP Queue A "
+            "10, the rest of the zoo)")
     return _G_REGISTRY[kind](cfg, dtype)
 
 
@@ -74,14 +95,11 @@ def define_D(opt: dict, dtype: torch.dtype = torch.bfloat16):
     for tok in ("96", "128", "192", "256"):  # fixed-size variants
         if tok in kind:
             size = int(tok)
-    if (cfg.get("mode") or "CNA") != "CNA":
-        raise NotImplementedError(
-            f"discriminator mode [{cfg['mode']}] is not ported yet (ROADMAP "
-            "Queue A 2.5, norms and other block options)")
     sn = kind.endswith("_sn") or bool(cfg.get("spectral_norm"))
     return DiscriminatorVGG(
         size=int(size), in_nc=cfg.get("in_nc", 3),
         base_nf=cfg.get("base_nf", 64),
         norm_type=None if sn else cfg.get("norm_type", "batch"),
         act_type=cfg.get("act_type", "leakyrelu"),
-        arch=cfg.get("arch", "ESRGAN"), spectral_norm=sn, dtype=dtype)
+        mode=cfg.get("mode") or "CNA", arch=cfg.get("arch", "ESRGAN"),
+        spectral_norm=sn, dtype=dtype)

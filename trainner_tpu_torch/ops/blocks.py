@@ -1,20 +1,31 @@
-"""Building blocks of the generator and the discriminator.
+"""Building blocks of the generators and the discriminators.
 
 Counterpart of ``trainner_tpu/ops/blocks.py``: ``kaiming_init:27``,
-``act:44``, ``finalact:73``, ``depth_to_space:112``, ``wire_to_f01:169``,
-``nearest_up:180``, ``ConvBlock:192`` (CNA, zero padding, no norm or a
-batch norm that reproduces flax's, and flax's ``nn.SpectralNorm`` of its
-conv), ``bilinear_torch:589``, ``GaussianNoise:282`` (relative noise
-in train mode, the identity at eval), ``PixelShuffleBlock:315`` and
-``UpconvBlock:369``.
+``act:44`` (``prelu`` as flax's ``nn.PReLU``), ``finalact:73``,
+``explicit_pad:93``, ``depth_to_space:112``, ``space_to_depth:123``,
+``interpolate:137``, ``wire_to_f01:169``, ``nearest_up:180``,
+``ConvBlock:192`` (CNA, NAC and CNAC; zero, reflect and replicate padding;
+no norm, flax's ``BatchNorm``, ``GroupNorm`` as an instance norm or
+``LayerNorm`` over the channels; a ``PartialConv2D`` conv; flax's
+``nn.SpectralNorm`` of its conv), ``bilinear_torch:589``,
+``GaussianNoise:282`` (relative noise in train mode, the identity at
+eval), ``PixelShuffleBlock:315`` and ``UpconvBlock:369`` (nearest, or
+bilinear / bicubic through ``interpolate``).
 
 Modules take and return NCHW tensors (the network keeps them in
 ``channels_last`` memory, so NHWC views of them are contiguous); the free
-functions ``depth_to_space`` and ``nearest_up`` take NHWC, as in the JAX
-package. Parameters stay f32; a conv runs in the dtype of its input, as the
-JAX modules' ``dtype`` policy does. Each block holds its conv's ``weight``
-and ``bias`` itself, so that state-dict keys follow the reference ``.pth``
-layout (``upconv1.weight``, ``HRconv.bias``, ...).
+functions ``depth_to_space``, ``space_to_depth``, ``interpolate`` and
+``nearest_up`` take NHWC, as in the JAX package, and ``explicit_pad``
+takes the modules' NCHW. Parameters stay f32; a conv runs in the dtype of
+its input, as the JAX modules' ``dtype`` policy does, and a norm takes its
+statistics in f32 whatever its input's type, as flax's do. Each block
+holds its conv's ``weight`` and ``bias`` itself, so that state-dict keys
+follow the reference ``.pth`` layout (``upconv1.weight``, ``HRconv.bias``,
+...).
+
+A train-mode pass of a norm with state (``BatchNorm``, ``SpectralNorm``)
+writes none: it leaves the new state pending, and ``commit_stats`` writes
+the last pass's, so the caller decides which pass of a step counts.
 """
 
 from __future__ import annotations
@@ -40,11 +51,26 @@ def kaiming_init_(weight: torch.Tensor, scale: float = 1.0,
         return weight.normal_(0.0, std, generator=generator)
 
 
+class PReLU(nn.Module):
+    """flax's ``nn.PReLU``: one learned slope for every channel,
+    ``negative_slope`` (a 0-d f32 parameter, 0.25 at init)."""
+
+    def __init__(self, init: float = 0.25):
+        super().__init__()
+        self.negative_slope = nn.Parameter(torch.tensor(float(init)))
+
+    def forward(self, x):
+        return torch.where(x >= 0, x, self.negative_slope.to(x.dtype) * x)
+
+
 def act(act_type: Optional[str], neg_slope: float = 0.2) -> Callable:
-    """String -> activation function."""
+    """String -> activation function; ``prelu`` -> a ``PReLU`` module
+    (whose slope is a parameter of the block that holds it)."""
     if not act_type:
         return lambda x: x
     act_type = act_type.lower()
+    if act_type == "prelu":
+        return PReLU(0.25)
     table = {
         "relu": F.relu,
         "leakyrelu": lambda x: F.leaky_relu(x, neg_slope),
@@ -58,9 +84,7 @@ def act(act_type: Optional[str], neg_slope: float = 0.2) -> Callable:
         "elu": F.elu,
     }
     if act_type not in table:
-        raise NotImplementedError(
-            f"activation [{act_type}] is not ported yet (ROADMAP Queue A, "
-            "norms and other block options)")
+        raise NotImplementedError(f"activation [{act_type}] not found")
     return table[act_type]
 
 
@@ -80,6 +104,22 @@ def finalact(mode: Optional[str]) -> Callable:
     raise NotImplementedError(f"final activation [{mode}] not found")
 
 
+_PAD_MODES = {"reflect": "reflect", "replicate": "replicate",
+              "edge": "replicate"}
+
+
+def explicit_pad(x: torch.Tensor, pad: int,
+                 pad_type: str = "zero") -> torch.Tensor:
+    """Spatial padding of an NCHW tensor by ``pad`` on each side: reflect,
+    replicate (``edge``) or, for any other type, zeros."""
+    if pad == 0:
+        return x
+    mode = _PAD_MODES.get(pad_type)
+    if mode is None:
+        return F.pad(x, (pad,) * 4)
+    return F.pad(x, (pad,) * 4, mode=mode)
+
+
 def depth_to_space(x: torch.Tensor, r: int) -> torch.Tensor:
     """NHWC depth_to_space with torch.pixel_shuffle's (c_out, r, r)
     channel order."""
@@ -87,6 +127,42 @@ def depth_to_space(x: torch.Tensor, r: int) -> torch.Tensor:
     c_out = c // (r * r)
     x = x.reshape(b, h, w, c_out, r, r).permute(0, 1, 4, 2, 5, 3)
     return x.reshape(b, h * r, w * r, c_out)
+
+
+def space_to_depth(x: torch.Tensor, r: int) -> torch.Tensor:
+    """The inverse of ``depth_to_space``: NHWC, torch.pixel_unshuffle's
+    (c, r, r) channel order."""
+    b, h, w, c = x.shape
+    x = x.reshape(b, h // r, r, w // r, r, c).permute(0, 1, 3, 5, 2, 4)
+    return x.reshape(b, h // r, w // r, c * r * r)
+
+
+def interpolate(x: torch.Tensor, scale=None, size=None,
+                mode: str = "nearest") -> torch.Tensor:
+    """``torch.nn.functional.interpolate``'s semantics on NHWC, as the JAX
+    package's ``interpolate`` computes them: nearest reads source
+    floor(i * in / out); bilinear and bicubic are ``jax.image.resize``'s
+    (half-pixel centres, Keys' cubic, no antialiasing), in f32 and cast
+    back to x's type."""
+    from .imresize import jax_resize
+
+    b, h, w, c = x.shape
+    if size is None:
+        size = (int(round(h * scale)), int(round(w * scale)))
+    if mode == "nearest":
+        if size[0] % h == 0 and size[1] % w == 0 and \
+                size[0] // h == size[1] // w and size[0] > h:
+            return nearest_up(x, size[0] // h)
+        if h % size[0] == 0 and w % size[1] == 0 and size[0] <= h:
+            return x[:, :: h // size[0], :: w // size[1]]
+        iy = (torch.arange(size[0], device=x.device) * (h / size[0])).floor()
+        ix = (torch.arange(size[1], device=x.device) * (w / size[1])).floor()
+        return x[:, iy.long()][:, :, ix.long()]
+    method = {"bilinear": "linear", "linear": "linear", "bicubic": "cubic",
+              "cubic": "cubic"}.get(mode)
+    if method is None:
+        raise NotImplementedError(f"interpolate mode {mode}")
+    return jax_resize(x, tuple(size), method, antialias=False).to(x.dtype)
 
 
 def wire_to_f01(x: torch.Tensor, znorm: bool = False) -> torch.Tensor:
@@ -242,29 +318,110 @@ class BatchNorm(nn.Module):
             self.pending = None
 
 
+class InstanceNorm(nn.Module):
+    """flax's ``GroupNorm(num_groups=C, epsilon=1e-5)`` with no scale and
+    no bias, as the JAX ``ConvBlock`` builds its instance norm: each
+    sample's channel normalised over H and W, statistics in f32, variance
+    as E[x^2] - E[x]^2 clipped at 0."""
+
+    def __init__(self, eps: float = 1e-5):
+        super().__init__()
+        self.eps = eps
+
+    def forward(self, x):
+        x32 = x.float()
+        mean = x32.mean((2, 3), keepdim=True)
+        var = ((x32 * x32).mean((2, 3), keepdim=True)
+               - mean * mean).clamp_min(0.0)
+        return ((x32 - mean) * torch.rsqrt(var + self.eps)).to(x.dtype)
+
+
+class LayerNorm(nn.Module):
+    """flax's ``nn.LayerNorm`` as the JAX ``ConvBlock`` runs it on NHWC:
+    over the channel axis alone, eps 1e-6, with a scale and a bias per
+    channel, statistics in f32."""
+
+    def __init__(self, num_features: int, eps: float = 1e-6):
+        super().__init__()
+        self.eps = eps
+        self.weight = nn.Parameter(torch.ones(num_features))
+        self.bias = nn.Parameter(torch.zeros(num_features))
+
+    def forward(self, x):
+        x32 = x.float()
+        mean = x32.mean(1, keepdim=True)
+        var = ((x32 * x32).mean(1, keepdim=True) - mean * mean).clamp_min(0.0)
+        mul = torch.rsqrt(var + self.eps) * self.weight[None, :, None, None]
+        y = (x32 - mean) * mul + self.bias[None, :, None, None]
+        return y.to(x.dtype)
+
+
+def norm_layer(norm_type: Optional[str], num_features: int):
+    """``batch`` | ``instance`` | ``layer`` | None -> the norm module."""
+    if not norm_type:
+        return None
+    nt = norm_type.lower()
+    if nt == "batch":
+        return BatchNorm(num_features)
+    if nt == "instance":
+        return InstanceNorm()
+    if nt == "layer":
+        return LayerNorm(num_features)
+    raise NotImplementedError(f"norm [{norm_type}] not found")
+
+
+def commit_stats(net: nn.Module) -> None:
+    """Writes the pending state of every batch norm and spectral norm of
+    ``net`` (that of its last train-mode pass)."""
+    for m in net.modules():
+        if isinstance(m, (BatchNorm, SpectralNorm)):
+            m.commit()
+
+
 class ConvBlock(_Conv):
-    """conv (+ batch norm) + act in the CNA order, zero padding; with
+    """conv (+ norm) + act in the CNA or CNAC order (pad, conv, norm, act)
+    or the NAC order (norm, act, pad, conv; the norm then over the input's
+    channels). ``pad_type`` zero, reflect or replicate; ``convtype``
+    ``PartialConv2D`` runs the conv as a partial convolution
+    (``ops/partial_conv.py``), which owns its zero padding; with
     ``spectral_norm`` the conv's weight is spectrally normalised."""
 
     def __init__(self, in_nc: int, out_nc: int, kernel_size: int = 3,
                  act_type: Optional[str] = "relu", norm_type=None,
                  mode: str = "CNA", pad_type: str = "zero",
                  use_bias: bool = True, stride: int = 1,
-                 spectral_norm: bool = False):
-        norm_type = (norm_type or "").lower() or None
-        if norm_type not in (None, "batch") or mode != "CNA" \
-                or pad_type != "zero":
-            raise NotImplementedError(
-                "ConvBlock supports CNA, zero padding and no norm or batch "
-                "norm; the rest is not ported yet (ROADMAP Queue A 2.5, "
-                "norms and other block options)")
+                 spectral_norm: bool = False, convtype: str = "Conv2D"):
+        if mode not in ("CNA", "NAC", "CNAC"):
+            raise ValueError(f"ConvBlock mode [{mode}]: CNA, NAC or CNAC")
+        if convtype.lower() not in ("conv2d", "partialconv2d"):
+            raise NotImplementedError(f"convtype [{convtype}] not found")
         super().__init__(in_nc, out_nc, kernel_size, use_bias, stride,
                          spectral_norm)
-        self.norm = BatchNorm(out_nc) if norm_type == "batch" else None
+        self.mode, self.pad_type = mode, pad_type
+        self.partial = convtype.lower() == "partialconv2d"
+        self.norm = norm_layer(norm_type, in_nc if mode == "NAC" else out_nc)
         self.act = act(act_type)
 
+    def _block_conv(self, x):
+        pad = (self.weight.shape[-1] - 1) // 2
+        if self.partial:
+            from .partial_conv import partial_conv
+
+            return partial_conv(x, self.weight, self.bias, self.stride, pad)
+        if self.pad_type in _PAD_MODES:
+            weight = self.weight if self.sn is None else self.sn(self.weight)
+            return F.conv2d(explicit_pad(x, pad, self.pad_type),
+                            weight.to(x.dtype),
+                            None if self.bias is None
+                            else self.bias.to(x.dtype), stride=self.stride)
+        return self._conv(x)
+
     def forward(self, x):
-        x = self._conv(x)
+        if self.mode == "NAC":
+            if self.norm is not None:
+                x = self.norm(x)
+            return self._block_conv(self.act(x))
+        x = self._block_conv(x)
         if self.norm is not None:
             x = self.norm(x)
         return self.act(x)
@@ -299,8 +456,9 @@ class PixelShuffleBlock(_Conv):
                  norm_type=None):
         if norm_type:
             raise NotImplementedError(
-                "PixelShuffleBlock norms are not ported yet (ROADMAP "
-                "Queue A, norms and other block options)")
+                "PixelShuffleBlock with a norm (the JAX block's 1x1 "
+                "ConvBlock after the shuffle) serves no ported generator "
+                "yet (ROADMAP Queue A 10, the rest of the zoo)")
         super().__init__(in_nc, out_nc * upscale * upscale, kernel_size)
         self.upscale = upscale
         self.act = act(act_type)
@@ -327,28 +485,30 @@ def upconv_lr_weights(weight: torch.Tensor, bias: torch.Tensor):
 
 
 class UpconvBlock(_Conv):
-    """Nearest upsample + conv + act.
+    """Upsample (nearest, or bilinear / bicubic through ``interpolate``) +
+    conv + act.
 
-    At 2x with a 3x3 kernel it runs the exact LR-space form that the JAX
-    package runs at eval: one LR conv with 4x the output channels, then a
-    pixel shuffle, with no HR-size intermediate before the conv. Other
-    factors upsample first."""
+    Nearest at 2x with a 3x3 kernel runs the exact LR-space form that the
+    JAX package runs at eval: one LR conv with 4x the output channels,
+    then a pixel shuffle, with no HR-size intermediate before the conv.
+    Other nearest factors upsample first."""
 
-    def __init__(self, in_nc: int, out_nc: int, upscale: int = 2,
+    def __init__(self, in_nc: int, out_nc: int, upscale=2,
                  kernel_size: int = 3, act_type: Optional[str] = "relu",
                  mode: str = "nearest"):
-        if mode != "nearest" or not float(upscale).is_integer():
-            raise NotImplementedError(
-                f"upconv mode [{mode}] x{upscale} is not ported yet "
-                "(ROADMAP Queue A, norms and other block options)")
         super().__init__(in_nc, out_nc, kernel_size)
-        self.upscale = int(upscale)
+        self.upscale, self.mode = upscale, mode
         self.act = act(act_type)
 
     def forward(self, x):
-        if self.upscale == 2 and self.weight.shape[-1] == 3:
-            wp, bp = upconv_lr_weights(self.weight, self.bias)
-            return self.act(F.pixel_shuffle(self._conv(x, wp, bp), 2))
-        x = x.repeat_interleave(self.upscale, dim=2) \
-             .repeat_interleave(self.upscale, dim=3)
+        if self.mode == "nearest" and float(self.upscale).is_integer():
+            r = int(self.upscale)
+            if r == 2 and self.weight.shape[-1] == 3:
+                wp, bp = upconv_lr_weights(self.weight, self.bias)
+                return self.act(F.pixel_shuffle(self._conv(x, wp, bp), 2))
+            x = x.repeat_interleave(r, dim=2).repeat_interleave(r, dim=3)
+        else:
+            x = interpolate(x.permute(0, 2, 3, 1), scale=self.upscale,
+                            mode=self.mode).permute(0, 3, 1, 2).contiguous(
+                memory_format=torch.channels_last)
         return self.act(self._conv(x))

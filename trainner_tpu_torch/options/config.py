@@ -10,9 +10,8 @@ gets its degradation preset overlay (``options/presets``) before its resize
 algorithm names are mapped to the reference's integer codes; ``*_rel``
 training keys become iterations (a fraction of ``niter``), and an
 experiment whose name starts with ``debug`` gets the short frequencies.
-
-Not ported yet, each raising with its ROADMAP item: the network presets
-(``network_G_preset``, ``network_D_preset``) and ``use_unshuffle``.
+The network presets (``network_G_preset``, ``network_D_preset``) are laid
+over the networks before their per-architecture defaults.
 """
 
 from __future__ import annotations
@@ -405,14 +404,6 @@ def _resolve_rel(train_opt: dict) -> None:
             del train_opt[key]
 
 
-# option -> the ROADMAP item that ports it
-_NOT_PORTED = {
-    "network_G_preset": "Queue A 8.1, the network presets",
-    "network_D_preset": "Queue A 8.1, the network presets",
-    "use_unshuffle": "Queue A 8.2, the pixel-unshuffle wrapper",
-}
-
-
 def parse(opt_path: str, is_train: bool = True) -> NoneDict:
     """Parse an options file into a NoneDict config tree."""
     return parse_dict(load_file(opt_path), opt_path=opt_path,
@@ -421,10 +412,6 @@ def parse(opt_path: str, is_train: bool = True) -> NoneDict:
 
 def parse_dict(opt: dict, opt_path: str = "",
                is_train: bool = True) -> NoneDict:
-    for key, item in _NOT_PORTED.items():
-        if opt.get(key):
-            raise NotImplementedError(
-                f"option {key!r} is not ported yet (ROADMAP {item})")
     opt["is_train"] = is_train
     opt.setdefault("model", "sr")
     opt.setdefault("scale", 1)
@@ -439,7 +426,8 @@ def parse_dict(opt: dict, opt_path: str = "",
         logger["save_checkpoint_freq"] = 10**8 if "nochkp" in name else 8
         opt["train"], opt["logger"] = train, logger
     parse_datasets(opt, opt_path=opt_path)
-    get_network_defaults(opt)
+    _presets.apply_network_presets(opt, opt_path=opt_path)
+    get_network_defaults(opt, is_train)
     if opt.get("train"):
         _resolve_rel(opt["train"])
 

@@ -10,6 +10,10 @@ the dataset.
 The presets live beside this file as JSON (the same content as the JAX
 package's YAML files), so that reading one needs no PyYAML. Ported: the
 ``base_*``, ``bsrgan_*`` and ``resrgan_*`` files. Another strategy raises.
+
+``apply_network_presets`` (``apply_network_presets:59``) overlays the
+network presets ``gen_esrgan`` and ``disc_esrgan`` (or a preset file) on
+``network_G`` / ``network_D``.
 """
 
 from __future__ import annotations
@@ -49,6 +53,25 @@ def load_preset(name: str, opt_path: str = "") -> dict:
         cfg.update(data.get("augs") or {})
         return cfg
     return data.get("config", {}) or {}
+
+
+def apply_network_presets(opt: dict, opt_path: str = "") -> None:
+    """``network_G_preset`` / ``network_D_preset`` (a preset name or a
+    file) at the top level of the options: the preset's ``network_G`` /
+    ``network_D`` values fill in, the inline keys win."""
+    for net_key in ("network_G", "network_D"):
+        name = opt.get(f"{net_key}_preset")
+        if not name:
+            continue
+        preset_net = load_preset(str(name), opt_path).get(net_key)
+        if not isinstance(preset_net, dict):
+            raise ValueError(f"preset {name!r} has no {net_key} section")
+        merged = dict(preset_net)
+        inline = opt.get(net_key)
+        if isinstance(inline, str):
+            inline = {"type": inline}
+        merged.update(inline or {})
+        opt[net_key] = merged
 
 
 def apply_presets(dataset: dict, opt_path: str = "") -> None:

@@ -1,7 +1,12 @@
 """Inference and metrics CLI of the port: counterpart of the JAX package's
 ``test.py`` for ``model: sr``, with its x8 self-ensemble
 (``self_ensemble`` / ``x8``), tiled (``chop_forward`` / ``chop``) and plain
-``eval_step`` branches, taken in that order as the JAX CLI takes them.
+``eval_step`` branches, taken in that order as the JAX CLI takes them, and
+its CEM post-processing (``test.py:129-150``): with ``use_cem`` and
+``cem_config.out_orig`` the output without CEM is computed too, and
+``out_filter`` (a guided filter of the CEM correction, ``out_filter_ks``)
+and ``out_keepY`` (the luma without CEM, the chroma with it) combine the
+two.
 
 Runs G over every configured test dataset, writes one PNG per image and
 logs PSNR and SSIM (RGB and Y) per image and per dataset, with the same
@@ -24,8 +29,6 @@ import torch
 _DEFERRED = (
     (("spatial_shards",), "band-parallel spatial inference",
      "Queue A 9, multi-GPU"),
-    (("use_cem",), "CEM inference",
-     "Queue A 2.3, deferred inference branches: CEM"),
 )
 
 
@@ -39,15 +42,38 @@ def parse_options(argv=None):
 
 
 def _check_ported(opt) -> None:
+    from .train.cli import _OTHER_MODELS
+
     model = (opt.get("model") or "sr").lower()
     if model not in ("sr", "srgan", "srragan"):
+        item = _OTHER_MODELS.get(model, "Queue A 10")
         raise NotImplementedError(
-            f"model [{model}] inference is not ported yet (ROADMAP Queue A, "
-            "other generator types)")
+            f"model [{model}] inference is not ported yet (ROADMAP {item}, "
+            "the rest of the zoo)")
     for keys, what, item in _DEFERRED:
         if any(opt.get(k) for k in keys):
             raise NotImplementedError(
                 f"{what} is not ported yet (ROADMAP {item})")
+
+
+def _cem_post(sr_orig: torch.Tensor, sr: torch.Tensor,
+              cem_cfg: dict) -> torch.Tensor:
+    """The CEM output ``sr`` combined with the output without CEM
+    ``sr_orig`` as ``cem_config`` says: ``out_filter`` adds a guided
+    filter of the CEM correction (window ``out_filter_ks``) to
+    ``sr_orig``; ``out_keepY`` keeps ``sr_orig``'s luma with the chroma of
+    what it has so far."""
+    from .ops.colors import rgb_to_ycbcr, ycbcr_to_rgb
+    from .ops.filters import guided_filter
+
+    if cem_cfg.get("out_filter"):
+        ks = int(cem_cfg.get("out_filter_ks", 7))
+        sr = sr_orig + guided_filter(sr, sr - sr_orig, radius=(ks - 1) // 2)
+    if cem_cfg.get("out_keepY"):
+        y_orig, y_cem = rgb_to_ycbcr(sr_orig), rgb_to_ycbcr(sr)
+        sr = ycbcr_to_rgb(torch.cat([y_orig[..., :1], y_cem[..., 1:]],
+                                    dim=-1))
+    return sr
 
 
 def main(argv=None, device: Union[str, torch.device, None] = None
@@ -111,6 +137,11 @@ def main(argv=None, device: Union[str, torch.device, None] = None
                 sr = trainer.eval_step_chop(state, batch["LR"])
             else:
                 sr = trainer.eval_step(state, batch["LR"])
+            cem_cfg = opt.get("cem_config") or {}
+            if opt.get("use_cem") and cem_cfg.get("out_orig"):
+                sr = _cem_post(trainer.eval_step(state, batch["LR"],
+                                                 apply_cem=False),
+                               sr, cem_cfg)
             sr_img = tensor2img(sr[0], znorm)
             img_name = os.path.splitext(os.path.basename(
                 batch.get("LR_path", [str(i)])[0]))[0]

@@ -1,17 +1,24 @@
 """SR / restoration GAN trainer: counterpart of
 ``trainner_tpu/train/sr_trainer.py::SRTrainer`` (``__init__:105``,
-``init_state:222``, ``_train_step:300``, ``_get_step_fn:521``,
-``train_step:538``, ``can_scan_steps:565``, ``train_steps:573``,
-``eval_step:657``, ``eval_step_chop:672``, ``eval_step_x8:748``) and of
+``init_state:222``, ``_g_apply:270``, ``_train_step:300``,
+``_get_step_fn:521``, ``train_step:538``, ``can_scan_steps:565``,
+``train_steps:573``, ``_eval_step:643``, ``eval_step:657``,
+``eval_step_chop:672``, ``eval_step_x8:748``) and of
 ``train.py::create_trainer:95`` for ``model: sr``.
 
-One training step is the flagship ESRGAN step: G (every residual dense
-block on the hand-written forward and backward kernels) under the pixel,
-VGG-feature and relativistic GAN losses, then D on the detached output of
-that same G forward; Adam or SGD with the learning rate of a host-side
-schedule. The network bodies run in the trainer's dtype (bf16 by default
-when training) with f32 parameters, gradients and losses; there is no
-autocast and no loss scaling.
+One training step is the ESRGAN step: G (``rrdb_net``, ``mrrdb_net`` or
+``sr_resnet``; every residual dense block of the flagship form on the
+hand-written forward and backward kernels) under the pixel, VGG-feature
+and relativistic GAN losses, then D on the detached output of that same G
+forward; Adam or SGD with the learning rate of a host-side schedule. With
+``use_unshuffle`` G reads its input pixel-unshuffled by
+``unshuffle_scale`` (``space_to_depth``); with ``use_cem`` the G stage's
+output and ``eval_step``'s are projected by CEM (``ops/cem.py``; the
+kernel from ``cem.kernel``, ``box`` by default). A G with batch norms
+takes its running statistics from the step's one G pass, committed once
+per step, as D's are. The network bodies run in the trainer's dtype (bf16
+by default when training) with f32 parameters, gradients and losses; there
+is no autocast and no loss scaling.
 
 On the card, where the JAX package jits, the port replays CUDA graphs
 (``utils/graphs.py``): the step as one graph per ``(update_d, update_g)``
@@ -21,9 +28,8 @@ window of k steps as k replays. ``graphs=False`` runs the same programs
 eagerly (on the CPU they always are).
 
 Not ported yet, each raising with its ROADMAP item: batch augmentations,
-DiffAugment, frequency separation, CEM, AdaTarget, FreezeD, the
-pixel-unshuffle wrapper, ``grad_clip: auto``, a virtual batch and SWA;
-CEM and band-parallel inference. With ``use_ema`` the EMA copy of G
+DiffAugment, frequency separation, AdaTarget, FreezeD, ``grad_clip:
+auto``, a virtual batch and SWA; band-parallel inference. With ``use_ema`` the EMA copy of G
 (``train/state.py``) is updated at the end of every step, inside its
 graph, and ``eval_step`` runs it by default, as the JAX package does.
 """
@@ -41,7 +47,9 @@ from ..losses.gan import build_adversarial
 from ..losses.generator_loss import GeneratorLoss
 from ..models.networks import define_D, define_G
 from ..models.rrdb import drop_packed
-from ..ops.blocks import GaussianNoise, wire_to_f01
+from ..ops.blocks import (GaussianNoise, commit_stats, space_to_depth,
+                          wire_to_f01)
+from ..ops.cem import cem_project
 from ..utils.checkpoint import load_params
 from ..utils.device import resolve_device
 from ..utils.graphs import Captured, signature, warm_up
@@ -52,11 +60,6 @@ from .state import NetState, SRTrainState, ema_update, init_ema
 
 # option (in opt or opt["train"]) -> (what it is, its ROADMAP item)
 _NOT_PORTED = {
-    "use_cem": ("CEM", "Queue A 2.3, deferred inference branches"),
-    "unshuffle_scale": ("the pixel-unshuffle wrapper",
-                        "Queue A 10.11, the other trainer options"),
-    "use_unshuffle": ("the pixel-unshuffle wrapper",
-                      "Queue A 10.11, the other trainer options"),
     "use_swa": ("SWA weights", "Queue A 10.10, SWA and EMA"),
     "use_atg": ("AdaTarget", "Queue A 10.8, the other ops"),
     "mixup": ("batch augmentations", "Queue A 10.8, the other ops"),
@@ -160,6 +163,11 @@ class SRTrainer:
         self.scale = int(opt.get("scale", 4) or 4)
         self.znorm = bool(((opt.get("datasets") or {}).get("train")
                            or {}).get("znorm"))
+        self.unshuffle_scale = int(opt.get("unshuffle_scale") or 0) \
+            if opt.get("use_unshuffle") else 0
+        self.use_cem = bool(opt.get("use_cem"))
+        self.cem_kernel = (opt.get("cem") or {}).get("kernel", "box") \
+            if isinstance(opt.get("cem"), dict) else "box"
         self.gan_weight = float(train_opt.get("gan_weight") or 0.0)
         self.use_gan = bool(self.gan_weight) and self.is_train
         self.generator_loss = self.adversarial = None
@@ -211,7 +219,13 @@ class SRTrainer:
         netG = define_G(self.opt, dtype=self.dtype)
         netG.init_weights(torch.Generator().manual_seed(seed))
         if g_path:
-            netG.load_state_dict(load_params(g_path), strict=True)
+            # a G checkpoint holds parameters; running statistics stay
+            missing, unexpected = netG.load_state_dict(
+                load_params(g_path, netG), strict=False)
+            buffers = {n for n, _ in netG.named_buffers()}
+            if unexpected or set(missing) - buffers:
+                raise KeyError(f"{g_path}: missing {missing}, unexpected "
+                               f"{unexpected}")
         netG = netG.to(self.device).eval()
         if not self.is_train:
             return SRTrainState(step=0, g=NetState(netG))
@@ -240,6 +254,14 @@ class SRTrainer:
         return wire_to_f01(x.to(self.device, non_blocking=x.is_pinned()),
                            self.znorm)
 
+    def _g(self, net: torch.nn.Module, lr_img: torch.Tensor
+           ) -> torch.Tensor:
+        """G on an NHWC LR batch, unshuffled first with ``use_unshuffle``;
+        the output in f32."""
+        if self.unshuffle_scale:
+            lr_img = space_to_depth(lr_img, self.unshuffle_scale)
+        return net(lr_img).float()
+
     def _train_step(self, state: SRTrainState, batch: Dict[str, torch.Tensor],
                     lr_g, lr_d, *, update_d: bool,
                     update_g: bool) -> Dict[str, torch.Tensor]:
@@ -255,7 +277,11 @@ class SRTrainer:
 
         if update_g:
             state.g.opt.zero_grad()
-            fake = netG(lr_img).float()
+            fake = self._g(netG, lr_img)
+            commit_stats(netG)
+            if self.use_cem:
+                fake = cem_project(fake, lr_img, self.scale,
+                                   kernel=self.cem_kernel)
             total, glogs = self.generator_loss(fake, hr_img)
             if self.use_gan:
                 # D runs in train mode here too (batch statistics, which
@@ -279,7 +305,8 @@ class SRTrainer:
             fake_for_d = fake.detach()
         else:
             with torch.no_grad():
-                fake_for_d = netG(lr_img).float()
+                fake_for_d = self._g(netG, lr_img)
+            commit_stats(netG)
 
         if self.use_gan and update_d:
             state.d.opt.zero_grad()
@@ -441,17 +468,24 @@ class SRTrainer:
             else "g"
 
     def _eval_forward(self, state: SRTrainState, x: torch.Tensor,
-                      net: str = "g") -> torch.Tensor:
+                      net: str = "g", cem: bool = False) -> torch.Tensor:
         module = state.ema if net == "ema" else state.g.net
-        return module.eval()(x.float()).float()
+        x = x.float()
+        y = self._g(module.eval(), x)
+        if cem:
+            y = cem_project(y, x, self.scale, kernel=self.cem_kernel)
+        return y
 
     @torch.inference_mode()
     def eval_step(self, state: SRTrainState, lr_img: torch.Tensor,
-                  which: str = "auto") -> torch.Tensor:
+                  which: str = "auto",
+                  apply_cem: Optional[bool] = None) -> torch.Tensor:
         """Inference forward: NHWC LR batch -> f32 NHWC SR batch on the
         trainer's device, the caller's own tensor. ``which``: 'g', 'ema',
         'swa' or 'auto' (the EMA weights when the state has them, else G).
-        With graphs, one graph per input shape and type and net, at most
+        ``apply_cem`` overrides ``use_cem`` (the test CLI's ``out_orig``).
+        With graphs, one graph per input shape and type, net and CEM, at
+        most
         ``EVAL_GRAPHS`` of them (the least recently used is dropped first).
         The first calls of a shape run eagerly; the ``EVAL_CAPTURE_AT``-th
         runs eagerly and captures, and later ones replay: the shapes of a
@@ -459,10 +493,11 @@ class SRTrainer:
         plain or x8."""
         x = lr_img.to(self.device, non_blocking=lr_img.is_pinned())
         net = self._eval_net(state, which)
+        cem = self.use_cem if apply_cem is None else bool(apply_cem)
         if not self.graphs:
-            return self._eval_forward(state, x, net)
+            return self._eval_forward(state, x, net, cem)
         self._bind(state)
-        key = (tuple(x.shape), x.dtype, net)
+        key = (tuple(x.shape), x.dtype, net, cem)
         entry = self._eval_graphs.get(key)
         if entry is not None:
             self._eval_graphs.move_to_end(key)
@@ -475,10 +510,10 @@ class SRTrainer:
             self._eval_seen[key] = calls
             while len(self._eval_seen) > self.EVAL_SEEN:
                 self._eval_seen.popitem(last=False)
-            return self._eval_forward(state, x, net)
-        out = warm_up(lambda: self._eval_forward(state, x, net))
+            return self._eval_forward(state, x, net, cem)
+        out = warm_up(lambda: self._eval_forward(state, x, net, cem))
         static = torch.empty(x.shape, dtype=x.dtype, device=x.device)
-        cap = Captured(lambda: self._eval_forward(state, static, net),
+        cap = Captured(lambda: self._eval_forward(state, static, net, cem),
                        pool=self.graph_pool())
         self._eval_graphs[key] = (static, cap)
         while len(self._eval_graphs) > self.EVAL_GRAPHS:

@@ -75,7 +75,10 @@ def ema_update(state: SRTrainState, decay: float) -> None:
     two roundings or ``lerp`` would differ in the last place). The sums run
     over G's and the EMA's parameters flattened into one buffer each, and
     are copied back in place: the copies move the EMA parameters' version
-    counters, which the blocks' packed weights are checked against."""
+    counters, which the blocks' packed weights are checked against. G's
+    buffers (a batch norm's running statistics) are copied into the EMA
+    copy, which evaluates with G's statistics as the JAX package's EMA
+    weights do."""
     ema = list(state.ema.parameters())
     e = torch.cat([p.reshape(-1) for p in ema])
     g = torch.cat([p.detach().reshape(-1)
@@ -84,3 +87,6 @@ def ema_update(state: SRTrainState, decay: float) -> None:
     new = torch.addcmul(g.mul_(1.0 - decay), e, d)
     torch._foreach_copy_(ema, [v.view_as(p) for v, p in zip(
         new.split([p.numel() for p in ema]), ema)])
+    buffers = list(state.ema.buffers())
+    if buffers:
+        torch._foreach_copy_(buffers, list(state.g.net.buffers()))

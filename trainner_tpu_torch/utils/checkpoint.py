@@ -8,7 +8,9 @@
   the EMA weights in G's tree), as
   ``flax.serialization.to_bytes`` writes it;
 * ``{tag}.state``: the whole training state as the JAX ``SRTrainState``'s
-  state dict (``utils/torch_interop.py::train_state_to_jax``), beside a
+  state dict (``utils/torch_interop.py::train_state_to_jax``; a net's
+  ``batch_stats``, G's running statistics among them, in its ``extra``),
+  beside a
   JSON sidecar ``{tag}.state.json`` with ``{epoch, iter}``. The port adds
   the state of its latent-noise generator to the sidecar
   (``noise_generator``), where the JAX reader ignores it; the msgpack tree
@@ -33,9 +35,9 @@ from typing import Any, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from .torch_interop import (load_esrgan_pth, load_train_state,
-                            params_from_jax, train_state_from_state_dict,
-                            train_state_to_jax)
+from .torch_interop import (g_from_jax, load_esrgan_pth, load_train_state,
+                            rrdbnet_like, srresnet_to_params,
+                            train_state_from_state_dict, train_state_to_jax)
 
 CKPT_EXT = ".ckpt"
 STATE_EXT = ".state"
@@ -156,14 +158,29 @@ def _has_chunks(node: Any) -> bool:
     return False
 
 
-def load_params(path: str) -> Dict[str, torch.Tensor]:
-    """One generator's weights -> the port's ``RRDBNet`` state_dict, from a
-    flax ``.ckpt`` or a reference ``.pth``/``.pt``."""
+def load_params(path: str, net: Optional[torch.nn.Module] = None
+                ) -> Dict[str, torch.Tensor]:
+    """One generator's weights -> the state_dict of the port's ``net``
+    (its parameters; a ``.ckpt`` holds no running statistics), from a flax
+    ``.ckpt`` or a reference ``.pth``/``.pt`` (an ESRGAN layout, or for an
+    ``SRResNet`` its Sequential layout). Without ``net``, a plain
+    ``RRDBNet``'s."""
     ext = os.path.splitext(path)[1].lower()
     if ext in (".pth", ".pt"):
+        if type(net).__name__ == "SRResNet":
+            sd = torch.load(path, map_location="cpu", weights_only=True)
+            for wrapper in ("state_dict", "params"):
+                if isinstance(sd, dict) and isinstance(sd.get(wrapper),
+                                                       dict):
+                    sd = sd[wrapper]
+            return g_from_jax(srresnet_to_params(
+                {k: v for k, v in sd.items()
+                 if isinstance(v, torch.Tensor)}), None, net)
         return load_esrgan_pth(path)
     with open(path, "rb") as f:
-        return params_from_jax(msgpack_restore(f.read()))
+        tree = msgpack_restore(f.read())
+    return g_from_jax(tree, None, rrdbnet_like(tree) if net is None
+                      else net)
 
 
 # ---------------------------------------------------------------------------
@@ -342,7 +359,7 @@ def load_state(path: str, state) -> Tuple[Any, dict]:
     (``key_to_seed``)."""
     with open(path, "rb") as f:
         tree = msgpack_restore(f.read())
-    load_train_state(state, train_state_from_state_dict(tree))
+    load_train_state(state, train_state_from_state_dict(tree, state.g.net))
     meta = {"epoch": 0, "iter": int(state.step)}
     if os.path.exists(path + ".json"):
         with open(path + ".json") as f:

@@ -1,18 +1,22 @@
 """Weights and training state for the port's networks, in both directions
-between the port and the JAX package's flax trees (``RRDBNet``,
-``DiscriminatorVGG`` with its ``batch_stats``, spectral norms included,
+between the port and the JAX package's flax trees (the generators
+``RRDBNet``, ``MRRDBNet`` and ``SRResNet`` with their norms, PReLU slopes,
+partial convs, ESRGAN+ ``conv1x1`` and a batch norm's ``batch_stats``, by
+``g_to_jax`` / ``g_from_jax``; ``DiscriminatorVGG`` with its
+``batch_stats``, spectral norms included,
 ``UNetDiscriminator``, ``VGGFeatures``, a whole ``SRTrainState`` with its
 Adam or SGD moments and its EMA weights, live or as read back from a
 serialized ``.state`` file), and from reference ESRGAN ``.pth`` state_dicts
-in either layout. numpy on the flax side, torch on the port's; nothing of
-the JAX package is imported.
+in either layout, and from a norm-free SRResNet ``.pth``
+(``srresnet_to_params``). numpy on the flax side, torch on the port's;
+nothing of the JAX package is imported.
 
 The port's own copy of what it needs from
 ``trainner_tpu/utils/torch_interop.py`` (``detect_esrgan_arch:40``,
-``_esrgan_old_to_named:50``, ``load_state_dict:21``), plus
-``params_from_jax``, the inverse of the flax-side naming of
-``esrgan_to_params:82``, and ``params_to_jax``, its inverse again. Flax
-kernels are HWIO, torch's OIHW.
+``_esrgan_old_to_named:50``, ``load_state_dict:21``). ``params_from_jax`` (the inverse of the
+flax-side naming of ``esrgan_to_params:82``) and ``params_to_jax`` are
+``g_from_jax`` / ``g_to_jax`` on a plain ``RRDBNet`` of the tree's widths,
+for callers without a module. Flax kernels are HWIO, torch's OIHW.
 
 The JAX state's ``rng`` (a legacy key, two uint32 words) and the port's
 latent-noise ``torch.Generator`` are tied by one rule (``key_to_seed``,
@@ -59,48 +63,178 @@ def _unstack_trunk(params: Mapping[str, Any]) -> Dict[str, Any]:
 def params_from_jax(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
     """The flax ``RRDBNet`` param tree (numpy leaves, unrolled or scan
     layout, with or without a top-level ``params`` key) -> the port's
-    state_dict in the reference "new" ``.pth`` layout:
+    state_dict in the reference "new" ``.pth`` layout: ``g_from_jax`` on a
+    plain ``RRDBNet`` of the tree's widths (``rrdbnet_like``)."""
+    return g_from_jax(params, None, rrdbnet_like(params))
 
-      fea_conv/Conv_0                     -> conv_first
-      RRDB{i}/RDB{j}/conv{k}/Conv_0       -> RRDB_trunk.{i}.RDB{j}.conv{k}
-      LR_conv/Conv_0                      -> trunk_conv
-      up{n}/ConvBlock_0/Conv_0            -> upconv{n+1}
-      HR_conv0/Conv_0, HR_conv1/Conv_0    -> HRconv, conv_last
-    """
-    if "params" in params and "fea_conv" not in params:
+
+def rrdbnet_like(tree: Mapping[str, Any]) -> torch.nn.Module:
+    """A plain ``RRDBNet`` (on the meta device, for its names) with the
+    widths, depth, upsamplers and ``plus`` of a flax ``RRDBNet`` param tree
+    or of the port's ``RRDBNet`` state_dict."""
+    from ..models.rrdb import RRDBNet
+
+    if "params" in tree and "fea_conv" not in tree:
+        tree = tree["params"]
+    if "fea_conv" in tree:
+        tree = _unstack_trunk(tree)
+        first = np.shape(tree["fea_conv"]["Conv_0"]["kernel"])
+        in_nc, nf = first[2], first[3]
+        out_nc = np.shape(tree["HR_conv1"]["Conv_0"]["kernel"])[3]
+        gc = np.shape(tree["RRDB0"]["RDB1"]["conv1"]["Conv_0"]["kernel"])[3]
+        nb = sum(re.fullmatch(r"RRDB\d+", k) is not None for k in tree)
+        n_up = sum(re.fullmatch(r"up\d+", k) is not None for k in tree)
+        plus = "conv1x1" in tree["RRDB0"]["RDB1"]
+    else:
+        nf, in_nc = tree["conv_first.weight"].shape[:2]
+        out_nc = tree["conv_last.weight"].shape[0]
+        gc = tree["RRDB_trunk.0.RDB1.conv1.weight"].shape[0]
+        nb = len({k.split(".")[1] for k in tree
+                  if k.startswith("RRDB_trunk.")})
+        n_up = sum(re.fullmatch(r"upconv\d+\.weight", k) is not None
+                   for k in tree)
+        plus = any(".conv1x1." in k for k in tree)
+    with torch.device("meta"):
+        return RRDBNet(in_nc=int(in_nc), out_nc=int(out_nc), nf=int(nf),
+                       nb=nb, gc=int(gc), upscale=2 ** n_up, plus=plus)
+
+# the port's top-level module names -> the flax module's, by class
+_RRDBNET_TOP = {"conv_first": "fea_conv", "trunk_conv": "LR_conv",
+                "HRconv": "HR_conv0", "conv_last": "HR_conv1"}
+
+
+def _flax_module_path(arch: str, name: str) -> Tuple[str, ...]:
+    """A module's name in the port's G -> its path in the flax G's tree:
+    ``RRDB_trunk.{i}`` is ``RRDB{i}``; RRDBNet's top-level convs are
+    renamed (``_RRDBNET_TOP``, ``upconv{n}`` -> ``up{n-1}``); MRRDBNet's
+    and SRResNet's other names are the flax ones."""
+    parts = name.split(".") if name else []
+    if parts[:1] == ["RRDB_trunk"]:
+        parts = [f"RRDB{parts[1]}"] + parts[2:]
+    elif arch == "RRDBNet" and parts:
+        m = re.fullmatch(r"upconv(\d+)", parts[0])
+        if m:
+            parts[0] = f"up{int(m.group(1)) - 1}"
+        else:
+            parts[0] = _RRDBNET_TOP.get(parts[0], parts[0])
+    return tuple(parts)
+
+
+def g_flax_paths(net: torch.nn.Module) -> Dict[str, Tuple[str, tuple]]:
+    """Every state_dict key of the port's generator ``net`` -> (flax
+    collection, path in it):
+
+      ConvBlock weight/bias        -> Conv_0/{kernel,bias}
+        (PartialConv2D)            -> PartialConv_0/conv/kernel,
+                                      PartialConv_0/bias
+        norm (batch)               -> BatchNorm_0/{scale,bias}, and in
+                                      batch_stats BatchNorm_0/{mean,var}
+        norm (layer)               -> LayerNorm_0/{scale,bias}
+        act (prelu)                -> PReLU_0/negative_slope
+      UpconvBlock, PixelShuffleBlock -> ConvBlock_0/Conv_0/{kernel,bias},
+                                      a PReLU at PReLU_0
+      a bare conv (``conv1x1``)    -> kernel
+
+    (flax's GroupNorm, the instance norm, holds nothing.)"""
+    from ..ops.blocks import (BatchNorm, ConvBlock, LayerNorm, PReLU,
+                              PixelShuffleBlock, UpconvBlock, _Conv)
+
+    arch = type(net).__name__
+    out: Dict[str, Tuple[str, tuple]] = {}
+    for name, m in net.named_modules():
+        if not isinstance(m, _Conv):
+            continue
+        base = _flax_module_path(arch, name)
+        pre = f"{name}." if name else ""
+        if isinstance(m, ConvBlock):
+            conv = ("PartialConv_0", "conv") if m.partial else ("Conv_0",)
+            out[pre + "weight"] = ("params", base + conv + ("kernel",))
+            if m.bias is not None:
+                out[pre + "bias"] = ("params", base + conv[:1] + ("bias",))
+            if isinstance(m.norm, BatchNorm):
+                for leaf, flax_leaf in (("weight", "scale"), ("bias", "bias")):
+                    out[f"{pre}norm.{leaf}"] = (
+                        "params", base + ("BatchNorm_0", flax_leaf))
+                for leaf, flax_leaf in (("running_mean", "mean"),
+                                        ("running_var", "var")):
+                    out[f"{pre}norm.{leaf}"] = (
+                        "batch_stats", base + ("BatchNorm_0", flax_leaf))
+            elif isinstance(m.norm, LayerNorm):
+                for leaf, flax_leaf in (("weight", "scale"), ("bias", "bias")):
+                    out[f"{pre}norm.{leaf}"] = (
+                        "params", base + ("LayerNorm_0", flax_leaf))
+        elif isinstance(m, (UpconvBlock, PixelShuffleBlock)):
+            out[pre + "weight"] = ("params",
+                                   base + ("ConvBlock_0", "Conv_0", "kernel"))
+            out[pre + "bias"] = ("params",
+                                 base + ("ConvBlock_0", "Conv_0", "bias"))
+        else:
+            out[pre + "weight"] = ("params", base + ("kernel",))
+            if m.bias is not None:
+                out[pre + "bias"] = ("params", base + ("bias",))
+        if isinstance(getattr(m, "act", None), PReLU):
+            out[pre + "act.negative_slope"] = (
+                "params", base + ("PReLU_0", "negative_slope"))
+    return out
+
+
+def g_to_jax(sd: Mapping[str, torch.Tensor], net: torch.nn.Module
+             ) -> Tuple[Dict[str, Any], Dict[str, Any]]:
+    """A state_dict of the port's generator ``net`` (or a tree of its
+    parameters alone, as optimizer moments are) -> the flax ``params`` and
+    ``batch_stats`` trees, numpy f32 leaves, kernels HWIO."""
+    paths = g_flax_paths(net)
+    trees: Dict[str, Dict[str, Any]] = {"params": {}, "batch_stats": {}}
+    for key, t in sd.items():
+        if key not in paths:
+            raise ValueError(f"unexpected {type(net).__name__} tensor "
+                             f"{key!r}")
+        coll, path = paths[key]
+        node = trees[coll]
+        for p in path[:-1]:
+            node = node.setdefault(p, {})
+        node[path[-1]] = oihw_to_hwio(t) if path[-1] == "kernel" \
+            else _np(t)
+    return trees["params"], trees["batch_stats"]
+
+
+def g_from_jax(params: Mapping[str, Any],
+               batch_stats: Optional[Mapping[str, Any]],
+               net: torch.nn.Module) -> Dict[str, torch.Tensor]:
+    """The flax trees of a generator (numpy leaves, unrolled or scan
+    layout; ``params`` with or without its top-level key) -> the
+    state_dict of the port's ``net``: every parameter, and the running
+    statistics where ``batch_stats`` is given."""
+    if "params" in params and len(params) <= 2:
+        batch_stats = params.get("batch_stats", batch_stats)
         params = params["params"]
     params = _unstack_trunk(params)
+    trees = {"params": params, "batch_stats": batch_stats}
+    paths = g_flax_paths(net)
+    wanted = {path for coll, path in paths.values() if coll == "params"}
+    for path in _leaf_paths(params):
+        if path not in wanted:
+            raise ValueError(f"unexpected {type(net).__name__} param "
+                             f"{'/'.join(path)}")
     sd: Dict[str, torch.Tensor] = {}
-
-    def emit(name: str, node: Mapping[str, Any]) -> None:
-        sd[f"{name}.weight"] = torch.from_numpy(
-            hwio_to_oihw(np.asarray(node["kernel"], np.float32)))
-        sd[f"{name}.bias"] = torch.from_numpy(
-            np.array(node["bias"], np.float32))
-
-    for key, node in params.items():
-        if key == "fea_conv":
-            emit("conv_first", node["Conv_0"])
-        elif key == "LR_conv":
-            emit("trunk_conv", node["Conv_0"])
-        elif key == "HR_conv0":
-            emit("HRconv", node["Conv_0"])
-        elif key == "HR_conv1":
-            emit("conv_last", node["Conv_0"])
-        elif (m := re.fullmatch(r"up(\d+)", key)):
-            emit(f"upconv{int(m.group(1)) + 1}",
-                 node["ConvBlock_0"]["Conv_0"])
-        elif (m := re.fullmatch(r"RRDB(\d+)", key)):
-            for rdb, convs in node.items():
-                for conv, leaf in convs.items():
-                    if not conv.startswith("conv") or conv == "conv1x1":
-                        raise ValueError(
-                            f"unexpected RRDBNet param {key}/{rdb}/{conv}")
-                    emit(f"RRDB_trunk.{m.group(1)}.{rdb}.{conv}",
-                         leaf["Conv_0"])
-        else:
-            raise ValueError(f"unexpected RRDBNet param subtree {key!r}")
+    for key, (coll, path) in paths.items():
+        node = trees[coll]
+        if node is None:
+            continue
+        for p in path:
+            node = node[p]
+        sd[key] = torch.from_numpy(hwio_to_oihw(np.asarray(
+            node, np.float32))) if path[-1] == "kernel" else _f32(node)
     return sd
+
+
+def _leaf_paths(tree: Mapping[str, Any], pre: tuple = ()):
+    """The paths of a nested mapping's leaves."""
+    for k, v in tree.items():
+        if isinstance(v, Mapping):
+            yield from _leaf_paths(v, pre + (k,))
+        else:
+            yield pre + (k,)
 
 
 def _f32(a) -> torch.Tensor:
@@ -252,17 +386,29 @@ def train_state_from_jax(g_params: Mapping[str, Any],
                          d_params: Optional[Mapping[str, Any]] = None,
                          d_batch_stats: Optional[Mapping[str, Any]] = None,
                          step: int = 0, g_opt_state=None, d_opt_state=None,
-                         ema_params: Optional[Mapping[str, Any]] = None
+                         ema_params: Optional[Mapping[str, Any]] = None,
+                         g_net: Optional[torch.nn.Module] = None,
+                         g_batch_stats: Optional[Mapping[str, Any]] = None
                          ) -> Dict[str, Any]:
     """The numpy leaves of a JAX ``SRTrainState`` -> what
     ``load_train_state`` takes: the step, G's and D's state_dicts and, where
     given, the optimizers' moments under the port's parameter names and the
-    EMA weights (``ema``, in G's state_dict layout)."""
-    out: Dict[str, Any] = {"step": int(step), "g": params_from_jax(g_params),
+    EMA weights (``ema``, in G's state_dict layout). With ``g_net`` (the
+    port's G) G's trees are read by ``g_from_jax``, G's running statistics
+    from ``g_batch_stats``; without, as a plain ``RRDBNet``'s
+    (``rrdbnet_like``)."""
+    if g_net is None:
+        g_net = rrdbnet_like(g_params)
+
+    def convert_g(tree):
+        return g_from_jax(tree, None, g_net)
+    out: Dict[str, Any] = {"step": int(step), "g": convert_g(g_params),
                            "g_opt": _moments_from_jax(g_opt_state,
-                                                      params_from_jax)}
+                                                      convert_g)}
+    if g_batch_stats:
+        out["g"] = g_from_jax(g_params, g_batch_stats, g_net)
     if ema_params is not None:
-        out["ema"] = params_from_jax(ema_params)
+        out["ema"] = convert_g(ema_params)
     if d_params is not None:
         out["d"] = discriminator_from_jax(d_params, d_batch_stats)
         out["d_opt"] = _moments_from_jax(d_opt_state, discriminator_from_jax)
@@ -329,37 +475,11 @@ def _np(t: torch.Tensor) -> np.ndarray:
     return np.array(t.detach().float().cpu().numpy(), order="C")
 
 
-_G_TO_JAX = {"conv_first": "fea_conv", "trunk_conv": "LR_conv",
-             "HRconv": "HR_conv0", "conv_last": "HR_conv1"}
-
-
 def params_to_jax(sd: Mapping[str, torch.Tensor]) -> Dict[str, Any]:
     """The port's ``RRDBNet`` state_dict -> the flax param tree in the
-    unrolled ``RRDB{i}`` layout, numpy f32 leaves: the inverse of
-    ``params_from_jax``."""
-    out: Dict[str, Any] = {}
-    for key, t in sd.items():
-        name, leaf = key.rsplit(".", 1)
-        if (m := re.fullmatch(r"RRDB_trunk\.(\d+)\.(RDB\d+)\.(conv\d+)",
-                              name)):
-            node = out.setdefault(f"RRDB{m.group(1)}", {}).setdefault(
-                m.group(2), {}).setdefault(m.group(3), {}).setdefault(
-                "Conv_0", {})
-        elif (m := re.fullmatch(r"upconv(\d+)", name)):
-            node = out.setdefault(f"up{int(m.group(1)) - 1}", {}).setdefault(
-                "ConvBlock_0", {}).setdefault("Conv_0", {})
-        elif name in _G_TO_JAX:
-            node = out.setdefault(_G_TO_JAX[name], {}).setdefault(
-                "Conv_0", {})
-        else:
-            raise ValueError(f"unexpected RRDBNet tensor {key!r}")
-        if leaf == "weight":
-            node["kernel"] = oihw_to_hwio(t)
-        elif leaf == "bias":
-            node["bias"] = _np(t)
-        else:
-            raise ValueError(f"unexpected RRDBNet tensor {key!r}")
-    return out
+    unrolled ``RRDB{i}`` layout, numpy f32 leaves: ``g_to_jax`` on a plain
+    ``RRDBNet`` of its widths, the inverse of ``params_from_jax``."""
+    return g_to_jax(sd, rrdbnet_like(sd))[0]
 
 
 def unet_to_jax(sd: Mapping[str, torch.Tensor]
@@ -460,9 +580,11 @@ def train_state_to_jax(state) -> Dict[str, Any]:
     ``SRTrainState`` (``trainner_tpu/train/state.py:35``), which flax's
     ``from_state_dict`` / ``from_bytes`` accepts on a JAX template of the
     same configuration: exactly its fields, ``None`` for the ones the port
-    does not keep (SWA, AdaTarget, the clip history), and the EMA weights
-    when the state keeps them."""
-    def net(ns, convert, extra):
+    does not keep (SWA, AdaTarget, the clip history), the EMA weights when
+    the state keeps them, and a net's ``batch_stats`` (G's running
+    statistics, D's, its spectral norms' state) in its ``extra`` when it
+    keeps any."""
+    def net(ns, convert):
         sd = ns.net.state_dict()
         moments = ns.opt.state_dict() if ns.opt is not None else {}
         lists = [k for k in ("mu", "nu", "trace") if k in moments]
@@ -477,28 +599,33 @@ def train_state_to_jax(state) -> Dict[str, Any]:
                           lambda t: convert(t)[0]) \
             if ns.opt is not None else None
         return {"params": params, "opt_state": opt,
-                "extra": {"batch_stats": stats} if extra else {}}
+                "extra": {"batch_stats": stats} if stats else {}}
+
+    def convert_g(sd):
+        return g_to_jax(sd, state.g.net)
 
     rng = state.rng if state.rng is not None else seed_to_key(0)
     return {
         "step": np.asarray(state.step, np.int32),
         "rng": np.asarray(rng, np.uint32),
-        "g": net(state.g, lambda sd: (params_to_jax(sd), None), False),
-        "d": None if state.d is None else net(state.d, discriminator_to_jax,
-                                              True),
+        "g": net(state.g, convert_g),
+        "d": None if state.d is None else net(state.d, discriminator_to_jax),
         "swa_params": None, "swa_n": None,
-        "ema_params": None if state.ema is None else params_to_jax(
+        "ema_params": None if state.ema is None else convert_g(
             dict(zip(state.ema_params, _to_host(
-                list(state.ema_params.values()))))),
+                list(state.ema_params.values())))))[0],
         "loc": None, "grad_hist": None,
     }
 
 
-def train_state_from_state_dict(tree: Mapping[str, Any]) -> Dict[str, Any]:
+def train_state_from_state_dict(tree: Mapping[str, Any],
+                                g_net: Optional[torch.nn.Module] = None
+                                ) -> Dict[str, Any]:
     """The tree that ``msgpack_restore`` reads from a ``.state`` file (the
     JAX package's or the port's) -> what ``load_train_state`` takes:
-    the step, the key, both nets with their moments and D's running
-    statistics."""
+    the step, the key, both nets with their moments and running
+    statistics (G's by ``g_net``, as ``train_state_from_jax`` reads
+    them)."""
     d = tree.get("d")
     out = train_state_from_jax(
         tree["g"]["params"],
@@ -507,7 +634,8 @@ def train_state_from_state_dict(tree: Mapping[str, Any]) -> Dict[str, Any]:
         step=int(np.asarray(tree["step"])),
         g_opt_state=tree["g"].get("opt_state"),
         d_opt_state=d.get("opt_state") if d else None,
-        ema_params=tree.get("ema_params"))
+        ema_params=tree.get("ema_params"), g_net=g_net,
+        g_batch_stats=(tree["g"].get("extra") or {}).get("batch_stats"))
     if tree.get("rng") is not None:
         out["rng"] = np.asarray(tree["rng"], np.uint32)
     return out
@@ -547,6 +675,55 @@ def _esrgan_old_to_named(sd: Mapping[str, Any]) -> Dict[str, Any]:
             if k.startswith(f"model.{idx}."):
                 out[f"{name}." + k.split(".", 2)[2]] = v
     return out
+
+
+def srresnet_to_params(sd: Mapping[str, Any]) -> Dict[str, Any]:
+    """A norm-free SRResNet / SRGAN ``.pth`` state_dict (the reference's
+    Sequential ``model.N`` layout, that of the published models) -> the
+    flax SRResNet param tree (numpy): ``model.0`` -> fea_conv,
+    ``model.1.sub.{i}.res.{0,2}`` -> res{i}/conv{0,1}, ``model.1.sub.{nb}``
+    -> LR_conv, the convs after the trunk by order -> up{k}/ConvBlock_0,
+    HR_conv0, HR_conv1 (the JAX ``srresnet_to_params:188``). A checkpoint
+    with batch norms raises."""
+    sd = {k: np.asarray(v.detach().float().numpy()
+                        if isinstance(v, torch.Tensor) else v)
+          for k, v in sd.items()}
+    if any("running_mean" in k for k in sd):
+        raise ValueError("BN-ful SRResNet checkpoints are not supported "
+                         "by this converter (expected the published "
+                         "noBN layout)")
+    tree: Dict[str, Any] = {}
+
+    def put(path, leaf, value):
+        node = tree
+        for p in path:
+            node = node.setdefault(p, {})
+        node["kernel" if leaf == "weight" else "bias"] = \
+            np.ascontiguousarray(value.transpose(2, 3, 1, 0)) \
+            if leaf == "weight" and value.ndim == 4 else value
+
+    for k, v in sd.items():
+        if k.startswith("model.0."):
+            put(("fea_conv", "Conv_0"), k.rsplit(".", 1)[-1], v)
+        elif (m := re.match(r"model\.1\.sub\.(\d+)\.res\.(\d+)\."
+                            r"(weight|bias)", k)):
+            i, j = int(m.group(1)), int(m.group(2))
+            put((f"res{i}", "conv0" if j == 0 else "conv1", "Conv_0"),
+                m.group(3), v)
+        elif (m := re.match(r"model\.1\.sub\.(\d+)\.(weight|bias)", k)):
+            put(("LR_conv", "Conv_0"), m.group(2), v)
+    tail_idx = sorted({int(m.group(1)) for k in sd
+                       if (m := re.match(r"model\.(\d+)\.", k))
+                       and int(m.group(1)) >= 2})
+    names = [f"up{i}" for i in range(len(tail_idx) - 2)] \
+        + ["HR_conv0", "HR_conv1"]
+    for idx, name in zip(tail_idx, names):
+        sub = ("ConvBlock_0", "Conv_0") if name.startswith("up") \
+            else ("Conv_0",)
+        for k, v in sd.items():
+            if k.startswith(f"model.{idx}."):
+                put((name,) + sub, k.rsplit(".", 1)[-1], v)
+    return tree
 
 
 def load_esrgan_pth(path: str) -> Dict[str, torch.Tensor]:
