@@ -2118,24 +2118,51 @@ def _width_times(smi: str, gen) -> None:
         del blk
 
 
-def _device_ms(fn, match: str, calls: int = 10):
+def _session_events(fn, calls: int) -> list:
+    """The device's records of ``calls`` calls of ``fn`` in one
+    ``_profiled`` session."""
+    with _profiled() as prof:
+        for _ in range(calls):
+            fn()
+    return _device_events(prof)
+
+
+def _matched(events, match: str) -> tuple:
+    """(records, summed ns) of the records whose name holds ``match``."""
+    spans = [d for _, d, name in events if match in name]
+    return len(spans), sum(spans)
+
+
+def _device_ms(fn, match: str, calls: int = 10, session=None):
     """Device time per call of ``fn``, under torch.profiler, of the kernels
     whose name holds ``match`` (all their launches in one call added up),
-    over ``calls`` calls; None (not measured) when three sessions of the
-    profiler recorded none."""
-    import torch
+    over ``calls`` calls. The launches of one call are read from a first
+    traced call; a session of ``calls`` calls must hold ``calls`` times as
+    many records, or it lost some and another session runs. A session that
+    holds more (the first traced call lost records) sets the count per
+    call, which the next session must meet. After three sessions short of
+    the count, None (not measured), never a short sum. ``session(fn, n)``
+    gives the records of n calls (``_session_events`` unless a test hands
+    in a stub)."""
+    if session is None:
+        import torch
 
-    fn()
-    torch.cuda.synchronize()
-    # the profiler now and then loses a session's kernel records: up to
-    # three sessions
+        fn()
+        torch.cuda.synchronize()
+        session = _session_events
+    per_call = 0
     for _ in range(3):
-        with _profiled() as prof:
-            for _ in range(calls):
-                fn()
-        spans = [d for _, d, name in _device_events(prof) if match in name]
-        if spans:
-            return sum(spans) / calls / 1e6
+        per_call = _matched(session(fn, 1), match)[0]
+        if per_call:
+            break
+    if not per_call:
+        return None
+    for _ in range(3):
+        n, ns = _matched(session(fn, calls), match)
+        if n == calls * per_call:
+            return ns / calls / 1e6
+        if n > calls * per_call and n % calls == 0:
+            per_call = n // calls
     return None
 
 
@@ -3405,7 +3432,93 @@ def _resrgan_ops(smi: str) -> None:
               f"ran {convs}")
         if not (worst_sn <= 1e-5 and worst_g <= 1e-3):
             raise AssertionError("realesrgan: the U-Net D on the card")
+    _conv3_wgrad_algorithms(smi)
     print(f"realesrgan: ops ok ({smi})")
+
+
+CONV3_IN = (4, 256, 32, 32)    # the U-Net D's conv3 input at nf 64, b=4, 128 px
+CONV3_W = (512, 256, 4, 4)     # its 4x4 stride-2 weight
+
+
+def _conv3_wgrad_algorithms(smi: str) -> dict:
+    """Which algorithm gives the U-Net D's ``conv3`` weight gradient its
+    error on the card (ROADMAP Queue C 15): the weight gradient of that
+    conv (4x4, stride 2, padding 1, 256 -> 512 channels at 32 -> 16 px,
+    b=4, channels-last as the D runs it) from the same f32 input and output
+    gradient, by cuDNN under the check's flags (deterministic, benchmark
+    off), by its default and its benchmarked algorithms, in NCHW, by
+    PyTorch's own CUDA convolution (cuDNN off), and as a plain product
+    (im2col and one f32 matmul, TF32 off); each against the same gradient
+    in f64 on the CPU, beside the CPU's f32 one, with the kernels each
+    ran. Returns {way: relative error}."""
+    import torch
+    import torch.nn.functional as F
+
+    gen = torch.Generator().manual_seed(15)
+    x = torch.rand(*CONV3_IN, generator=gen) * 0.5
+    g = torch.randn(CONV3_IN[0], CONV3_W[0], CONV3_IN[2] // 2,
+                    CONV3_IN[3] // 2, generator=gen) * 1e-3
+
+    def wgrad(xx, gg):
+        return torch.ops.aten.convolution_backward(
+            gg, xx, torch.empty(CONV3_W, dtype=xx.dtype, device=xx.device),
+            None, (2, 2), (1, 1), (1, 1), False, (0, 0), 1,
+            (False, True, False))[1]
+
+    def plain(xx, gg):
+        cols = F.unfold(xx, 4, padding=1, stride=2)  # (b, 256*16, 256)
+        gm = gg.reshape(gg.shape[0], gg.shape[1], -1)  # (b, 512, 256)
+        return torch.einsum("bop,bkp->ok", gm, cols).reshape(CONV3_W)
+
+    ref = wgrad(x.double(), g.double())
+    scale = float(ref.abs().max())
+
+    def rel(w):
+        return float((w.cpu().double() - ref).abs().max()) / scale
+
+    out = {"cpu f32": rel(wgrad(x, g))}
+    cudnn = torch.backends.cudnn
+    saved = (cudnn.enabled, cudnn.deterministic, cudnn.benchmark,
+             cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+    xc = x.cuda().contiguous(memory_format=torch.channels_last)
+    gc = g.cuda().contiguous(memory_format=torch.channels_last)
+    ways = (("cuDNN deterministic, benchmark off (the check's)", True, True,
+             False, True),
+            ("cuDNN default, benchmark off", True, False, False, True),
+            ("cuDNN benchmark on", True, False, True, True),
+            ("cuDNN deterministic, NCHW", True, True, False, False),
+            ("PyTorch's CUDA convolution (cuDNN off)", False, False, False,
+             True))
+    try:
+        cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+        for way, enabled, det, bench, cl in ways:
+            cudnn.enabled, cudnn.deterministic, cudnn.benchmark = \
+                enabled, det, bench
+            xi, gi = (xc, gc) if cl else (xc.contiguous(), gc.contiguous())
+            wgrad(xi, gi)
+            res = {}
+            calls = _kernel_calls(lambda: res.setdefault("w",
+                                                         wgrad(xi, gi)))[0]
+            out[way] = rel(res["w"])
+            print(f"realesrgan: C 15 conv3 weight gradient, {way}: "
+                  f"{out[way]:.3e} of its largest against f64 (CPU f32 "
+                  f"{out['cpu f32']:.3e}); kernels {dict(calls)}")
+        cudnn.enabled = True
+        res = {}
+        calls = _kernel_calls(lambda: res.setdefault("w", plain(xc, gc)))[0]
+        out["plain product"] = rel(res["w"])
+        print(f"realesrgan: C 15 conv3 weight gradient, plain product "
+              f"(im2col + one f32 matmul, TF32 off): "
+              f"{out['plain product']:.3e}; kernels {dict(calls)}")
+    finally:
+        (cudnn.enabled, cudnn.deterministic, cudnn.benchmark,
+         cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32) = saved
+    best = min((v, k) for k, v in out.items() if k != "cpu f32")
+    print(f"realesrgan: C 15 conv3 weight gradient: the check's cuDNN "
+          f"algorithm {out[ways[0][0]]:.3e}, the best way on the card "
+          f"{best[0]:.3e} ({best[1]}), the CPU {out['cpu f32']:.3e}; TF32 "
+          f"flags at the check cuDNN {saved[3]}, matmul {saved[4]} ({smi})")
+    return out
 
 
 def _resrgan_degrader(smi: str, root: str) -> None:

@@ -203,7 +203,7 @@ class SyntheticDataset:
         if self.kind != "sr":
             raise NotImplementedError(
                 f"synthetic kind [{self.kind}] is not ported yet (ROADMAP "
-                "Queue A, other generator types)")
+                "Queue A 10.2-10.6, the other models)")
 
     def __len__(self):
         return self.n

@@ -631,8 +631,8 @@ def create_trainer(opt: dict, device: Union[str, torch.device, None] = None,
     model = (opt.get("model") or "sr").lower()
     if model not in ("sr", "srgan", "srragan"):
         raise NotImplementedError(
-            f"model [{model}] is not ported yet (ROADMAP Queue A, other "
-            "generator types)")
+            f"model [{model}] is not ported yet (ROADMAP Queue A 10.2-10.6, "
+            "the other models)")
     amp_default = bool(opt.get("is_train", True))
     dtype = torch.bfloat16 if opt.get("use_amp", amp_default) \
         else torch.float32

@@ -109,8 +109,8 @@ class MetricsDict:
                       if m.strip()]
         if "lpips" in self.names:
             raise NotImplementedError(
-                "the lpips metric is not ported yet (ROADMAP Queue A, "
-                "the rest of the zoo: losses)")
+                "the lpips metric is not ported yet (ROADMAP Queue A "
+                "10.7, the other losses)")
         self.results: List[Dict[str, float]] = []
 
     def calculate_metrics(self, sr: np.ndarray, gt: np.ndarray,
