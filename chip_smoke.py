@@ -107,7 +107,11 @@ non-zero exit code and no result line:
    against the CPU (sinc kernels, Poisson noise, the blur kernel against
    its plain version with sinc banks at the HR and LR canvases, the
    cv2-style resize codes 0-6, the EMA update bit for bit, the U-Net D in
-   f32 with its spectral norms' state and gradients); the resrgan degrader
+   f32 with its spectral norms' state and gradients, also with cuDNN off,
+   and where its conv3 weight gradient takes its error against f64: each
+   conv's output and input gradient, conv3's weight gradient by each
+   cuDNN setting and a plain product, with the kernels each ran); the
+   resrgan degrader
    on stand-in stages, card against CPU bit for bit, and the real one's 4
    blur launches per batch (HR once, LR three times) from a trace; the
    degrader as a graph against eager; 3 graphed bf16 steps against 3
@@ -130,7 +134,20 @@ non-zero exit code and no result line:
    iterations, a resume to 16 that loads bit for bit); full-width
    ``sr_resnet`` card against CPU (f32 and bf16 forwards, 3 f32 steps
    with D-VGG-128 at b=4) and ESRGAN+ (``plus``: no block kernel) card
-   against CPU.
+   against CPU;
+15. degradations (after the zoo): the realsr and combo strategies and
+   every on-device degradation op. A seeded KernelGAN-style kernel pool
+   (``.npy`` 21 x 21, one 25 x 25, one ``.mat``) and noise PNGs; each op
+   of the slice card against CPU (1e-5 or 1e-6 for the linear ones, bit
+   for bit for median, quantize, dither, maxrgb, s&p and fringes, the
+   share of differing pixels for k-means, SOM, SLIC and CLAHE); a
+   degrader with every op no preset reaches, combo's (shuffled, with its
+   pool and patches) and realsr's, each as a CUDA graph against its eager
+   program, with its blur launches by shape and its times; the training
+   CLI on ``train_sr.yml`` with combo (12 iterations and a resume to 16,
+   31 blur launches per batch from the trace) and with realsr (6, no
+   blur); the blur kernel's times for this slice's callers (the pool and
+   motion banks, combo's routing slices, unsharp's k 11).
 
 Launches: the kernel wrappers count where they put a kernel on a stream,
 eagerly or into a graph being captured (a replay runs no Python). What the
@@ -140,6 +157,8 @@ kernels counted by name in the trace, replays included, with markers on
 the stream between a CLI's steps); the phases check those launches, and
 that every wrapper of the path counted too. The JSON summary gives the
 traced launches over the main paths' runs, the wrappers' counts beside.
+``_device_ms`` gives "not measured" rather than a sum with fewer
+launches than the calls made.
 
 The second-to-last lines are a JSON summary of the kernels and the card's
 ``nvidia-smi`` name and power limit; the last line is
@@ -1503,7 +1522,7 @@ def phase_shuffle(smi: str, root: str) -> dict:
 
 
 def _cli_options(root: str, corpus: str, yml: str = None,
-                 name: str = "cli", edit=None) -> str:
+                 name: str = "cli", edit=None, niter: int = CLI_NITER) -> str:
     """An options file of the repo (``options/sr/train_sr.yml`` unless
     ``yml``) as written, read by the port's reader, but for ``edit``
     (applied to the options dict), its data roots (the corpus; a
@@ -1535,7 +1554,7 @@ def _cli_options(root: str, corpus: str, yml: str = None,
                      os.path.join(val_lr, img))
     opt["datasets"]["train"]["dataroot_HR"] = corpus
     opt["datasets"]["val"].update(dataroot_HR=val_hr, dataroot_LR=val_lr)
-    opt["train"].update(niter=CLI_NITER, val_freq=CLI_FREQ)
+    opt["train"].update(niter=niter, val_freq=CLI_FREQ)
     opt["logger"].update(print_freq=2, save_checkpoint_freq=CLI_FREQ)
     opt["path"] = {"root": os.path.join(root, name)}
     path = os.path.join(root, f"{name}_options.json")
@@ -1586,7 +1605,8 @@ def _save_breakdown(state, path: str) -> dict:
 
 def phase_cli(smi: str, root: str, yml: str = None, label: str = "cli",
               per_batch: int = 2 * 2 * SHUFFLE_K,
-              nets: tuple = ("G", "D"), edit=None) -> dict:
+              nets: tuple = ("G", "D"), edit=None, niter: int = CLI_NITER,
+              resume: bool = True) -> dict:
     """The training CLI at the full width of an options file of the repo
     (``yml``; by default ``options/sr/train_sr.yml``: G nf 64, nb 23, gc
     32, D-VGG-128, batch 32, crop 128, bsrgan with the per-sample shuffle,
@@ -1595,8 +1615,8 @@ def phase_cli(smi: str, root: str, yml: str = None, label: str = "cli",
     and 12; then a second ``main`` that resumes from ``training_state/`` to
     16, whose loaded state must equal the saved one bit for bit. Each run
     under a launch trace: the three kernels' launches per step, per batch
-    (``per_batch`` blur launches) and in all. Returns both runs'
-    traces."""
+    (``per_batch`` blur launches) and in all. ``niter`` (a multiple of 6)
+    and ``resume`` shorten it. Returns the runs' traces."""
     import torch
 
     from trainner_tpu_torch.train import cli
@@ -1604,7 +1624,7 @@ def phase_cli(smi: str, root: str, yml: str = None, label: str = "cli",
     from trainner_tpu_torch.utils import checkpoint
 
     corpus = os.path.join(root, "corpus")
-    opt_path = _cli_options(root, corpus, yml, label, edit)
+    opt_path = _cli_options(root, corpus, yml, label, edit, niter)
     per_g = NB * 3
     with open(opt_path) as f:
         exp = os.path.join(root, label, "experiments", json.load(f)["name"])
@@ -1620,7 +1640,7 @@ def phase_cli(smi: str, root: str, yml: str = None, label: str = "cli",
         _mark()
         out = orig[0](self, state, batch)
         _mark()
-        if step + 1 == CLI_NITER:
+        if step + 1 == niter:
             torch.cuda.synchronize()
             rec["end"] = time.perf_counter()
         rec["steps"].append((step + 1, start))
@@ -1632,7 +1652,7 @@ def phase_cli(smi: str, root: str, yml: str = None, label: str = "cli",
             t0 = time.perf_counter()
             out = fn(*args, **kwargs)
             torch.cuda.synchronize()
-            rec[key].append(time.perf_counter() - t0)
+            rec[key].append((t0, time.perf_counter() - t0))
             return out
         return run
 
@@ -1659,15 +1679,17 @@ def phase_cli(smi: str, root: str, yml: str = None, label: str = "cli",
         save_parts = _save_breakdown(state, os.path.join(root, "t.state"))
         del state
         torch.cuda.empty_cache()
-        with open(opt_path) as f:
-            opt2 = json.load(f)
-        opt2["train"]["niter"] = CLI_RESUME_NITER
-        opt2["path"]["resume_state"] = os.path.join(exp, "training_state")
-        opt2_path = os.path.join(root, f"{label}_resume.json")
-        with open(opt2_path, "w") as f:
-            json.dump(opt2, f)
-        state2, counts2, wall2 = run(["-opt", opt2_path])
-        steps2 = list(rec["steps"])
+        if resume:
+            with open(opt_path) as f:
+                opt2 = json.load(f)
+            opt2["train"]["niter"] = CLI_RESUME_NITER
+            opt2["path"]["resume_state"] = os.path.join(exp,
+                                                        "training_state")
+            opt2_path = os.path.join(root, f"{label}_resume.json")
+            with open(opt2_path, "w") as f:
+                json.dump(opt2, f)
+            state2, counts2, wall2 = run(["-opt", opt2_path])
+            steps2 = list(rec["steps"])
     finally:
         (SRTrainer.train_step, checkpoint.save_checkpoint, cli.validate,
          checkpoint.load_state) = orig
@@ -1676,54 +1698,57 @@ def phase_cli(smi: str, root: str, yml: str = None, label: str = "cli",
     # its trace; between the markers: before step 1 its batch's degrader,
     # then each step, then the next batch's degrader (after a validation
     # at 6, its forwards too), and after step 12 the validation at 12
-    n_val = 2 * N_VAL  # validation at 6 and 12
-    want = dict(blur=per_batch * CLI_NITER,
-                rdb5c=per_g * (CLI_NITER + n_val),
-                rdb5c_bwd=per_g * CLI_NITER)
-    _check_cli_trace(label, counts, want, steps, range(1, CLI_NITER + 1),
+    n_val = niter // CLI_FREQ * N_VAL  # validation every CLI_FREQ
+    want = dict(blur=per_batch * niter,
+                rdb5c=per_g * (niter + n_val),
+                rdb5c_bwd=per_g * niter)
+    _check_cli_trace(label, counts, want, steps, range(1, niter + 1),
                      per_g, per_batch)
-    print(f"{label}: main() on {CLI_NITER} iterations, {wall:.2f} s (traced): "
+    print(f"{label}: main() on {niter} iterations, {wall:.2f} s (traced): "
           f"launches the card ran {counts['ran']} (expected {want}); the "
           f"wrappers counted {counts['counted']}")
     print(f"{label}: every step {per_g} + {per_g} block launches and its batch "
-          f"{per_batch} blur launches before it ({CLI_NITER} steps, from "
+          f"{per_batch} blur launches before it ({niter} steps, from "
           f"the trace)")
 
     # the artifacts
     files = {os.path.relpath(os.path.join(d, f), exp)
              for d, _, fs in os.walk(exp) for f in fs}
-    need = {f"models/{t}_{n}.ckpt" for t in (CLI_FREQ, CLI_NITER)
+    need = {f"models/{t}_{n}.ckpt" for t in (CLI_FREQ, niter)
             for n in nets} | {f"training_state/{t}.state{e}"
-                              for t in (CLI_FREQ, CLI_NITER)
+                              for t in (CLI_FREQ, niter)
                               for e in ("", ".json")} \
         | {"tb/scalars.jsonl"}
     names = [os.path.splitext(n)[0] for n in
              sorted(os.listdir(os.path.join(root, "val_HR")))]
     need |= {f"val_images/{n}/{n}_{t}.png" for n in names
-             for t in (CLI_FREQ, CLI_NITER)}
+             for t in (CLI_FREQ, niter)}
     if need - files:
         raise AssertionError(f"{label}: missing {sorted(need - files)}")
     sizes = {f: os.path.getsize(os.path.join(exp, f)) for f in sorted(files)
-             if f.startswith(("models/12", "training_state/12"))}
+             if f.startswith((f"models/{niter}_",
+                              f"training_state/{niter}."))}
     print(f"{label}: artifacts present ({len(files)} files); sizes {sizes}")
     rows = [json.loads(line) for line in
             open(os.path.join(exp, "tb", "scalars.jsonl"))]
     tags = {(r["tag"], r["step"]) for r in rows}
-    if not ({("train/l_g_total", s) for s in range(2, CLI_NITER + 1, 2)}
-            | {("val/psnr", CLI_FREQ), ("val/psnr", CLI_NITER)}) <= tags \
+    if not ({("train/l_g_total", s) for s in range(2, niter + 1, 2)}
+            | {("val/psnr", CLI_FREQ), ("val/psnr", niter)}) <= tags \
             or not all(math.isfinite(r["value"]) for r in rows):
         raise AssertionError(f"{label}: the JSONL scalars are incomplete")
     psnr = [r["value"] for r in rows if r["tag"] == "val/psnr"]
     print(f"{label}: {len(rows)} JSONL scalars, all finite; val psnr {psnr}")
 
-    # times: from the start of step 3 to the end of step 12 (synchronised
-    # there), with and without the save and validation at 6 inside it
+    # times: from the start of step 3 to the end of the last step
+    # (synchronised there), with and without the saves and validations
+    # inside that span
     span = rec["end"] - steps[2][1]
-    steady = span - rec["save"][0] - rec["val"][0]
-    n = CLI_NITER - 2
-    save_ms = [t * 1e3 for t in rec["save"]]
-    val_ms = [t * 1e3 for t in rec["val"]]
-    print(f"times: {label} main() steps 3-{CLI_NITER} on the host clock, "
+    steady = span - sum(d for t0, d in rec["save"] + rec["val"]
+                        if steps[2][1] <= t0 < rec["end"])
+    n = niter - 2
+    save_ms = [d * 1e3 for _, d in rec["save"]]
+    val_ms = [d * 1e3 for _, d in rec["val"]]
+    print(f"times: {label} main() steps 3-{niter} on the host clock, "
           f"under the launch trace: "
           f"{steady * 1e3 / n:.3f} ms per iteration, {n / steady:.4f} it/s "
           f"steady; {span * 1e3 / n:.3f} ms, {n / span:.4f} it/s with the "
@@ -1737,16 +1762,20 @@ def phase_cli(smi: str, root: str, yml: str = None, label: str = "cli",
           f"{', '.join(f'{t / N_VAL:.1f}' for t in val_ms)} ms per image "
           f"({N_VAL} images to {CORPUS_PX} px) ({smi})")
 
+    if not resume:
+        print(f"{label}: ok ({smi})")
+        return {"run": counts}
+
     # the resumed run
     path, meta, loaded = rec["loaded"]
     diff = [k for k in saved if not (
         torch.equal(saved[k], loaded[k]) if isinstance(saved[k],
                                                        torch.Tensor)
         else saved[k] == loaded[k])]
-    n2 = CLI_RESUME_NITER - CLI_NITER
+    n2 = CLI_RESUME_NITER - niter
     want2 = dict(blur=per_batch * n2, rdb5c=per_g * n2, rdb5c_bwd=per_g * n2)
     _check_cli_trace(f"{label} resume", counts2, want2, steps2,
-                     range(CLI_NITER + 1, CLI_RESUME_NITER + 1), per_g,
+                     range(niter + 1, CLI_RESUME_NITER + 1), per_g,
                      per_batch)
     print(f"{label}: resumed from {os.path.relpath(path, exp)} (iter "
           f"{meta['iter']}, epoch {meta['epoch']}) to {state2.step} in "
@@ -1754,7 +1783,7 @@ def phase_cli(smi: str, root: str, yml: str = None, label: str = "cli",
           f"saved state, {len(diff)} differ after loading; launches the "
           f"card ran {counts2['ran']}, the wrappers counted "
           f"{counts2['counted']}")
-    if diff or meta["iter"] != CLI_NITER or state2.step != CLI_RESUME_NITER \
+    if diff or meta["iter"] != niter or state2.step != CLI_RESUME_NITER \
             or not os.path.exists(os.path.join(
                 exp, "models", f"{CLI_RESUME_NITER}_G.ckpt")):
         raise AssertionError(f"{label} resume: differs {diff[:5]}, meta {meta},"
@@ -2192,29 +2221,67 @@ def _parent_blur(parent: str):
     return lib
 
 
-def phase_blur_times(smi: str, parent: str = "") -> dict:
-    """CUDA-event times of the blur kernel in f32 at the producer's two
-    shapes, at the shuffled program's q-slices, and with resrgan's sinc
-    banks at its two canvases, its time on the device alone (profiler)
-    and its share of the bound, beside its plain version and the library
-    call (reflect ``F.pad`` and one grouped cuDNN convolution over b*c
-    groups). With ``parent``, the same of that tree's blur kernel in the
-    same call, in turns (parent, this, this, parent). Returns {shape:
-    row}, the sinc rows under ("sinc", shape)."""
-    import torch
+def _library_blur(x, kern):
+    """The library call that computes the blur: reflect ``F.pad`` and one
+    grouped cuDNN convolution over b*c groups."""
     import torch.nn.functional as F
 
-    from trainner_tpu_torch.ops import blur as port_blur
+    b, h, w, c = x.shape
+    k = kern.shape[-1]
+    xg = F.pad(x.permute(0, 3, 1, 2).reshape(1, b * c, h, w),
+               (k // 2,) * 4, mode="reflect")
+    y = F.conv2d(xg, kern.repeat_interleave(c, 0)[:, None], groups=b * c)
+    return y.reshape(b, c, h, w).permute(0, 2, 3, 1).contiguous()
+
+
+def _blur_time_row(smi: str, x, kern, label: str = "") -> dict:
+    """One row of the blur kernel's times in f32 on ``x`` (b, h, w, c) and
+    ``kern`` (b, k, k), both on the card: CUDA-event ms per call of the
+    wrapper (50 calls), the device-alone ms (``_device_ms``), the bound,
+    the plain version's and the library call's ms, printed."""
     from trainner_tpu_torch.ops.blur import (blur_per_sample,
                                              blur_per_sample_plain)
 
-    def library(x, kern):
-        b, h, w, c = x.shape
-        k = kern.shape[-1]
-        xg = F.pad(x.permute(0, 3, 1, 2).reshape(1, b * c, h, w),
-                   (k // 2,) * 4, mode="reflect")
-        y = F.conv2d(xg, kern.repeat_interleave(c, 0)[:, None], groups=b * c)
-        return y.reshape(b, c, h, w).permute(0, 2, 3, 1).contiguous()
+    k = kern.shape[-1]
+    shape = tuple(x.shape)
+    lib_err = float((_library_blur(x, kern) - blur_per_sample(x, kern)
+                     ).abs().max())
+    if not lib_err <= 1e-5:
+        raise AssertionError(f"the library call disagrees: {lib_err}")
+    work = 2 * k * k * x.numel()
+    nbytes = 2 * x.numel() * 4 + kern.numel() * 4
+    bound_ms, bound_by = _bound("float32", work, nbytes)
+    fn = lambda: blur_per_sample(x, kern)  # noqa: E731
+    ms = _time_ms(fn, iters=50)
+    plain_ms = _time_ms(lambda: blur_per_sample_plain(x, kern), iters=3,
+                        warmup=1)
+    library_ms = _time_ms(lambda: _library_blur(x, kern))
+    device_ms = _device_ms(fn, "blur_kernel")
+    share = (f"{bound_ms / device_ms:.1%}" if device_ms is not None
+             else "share not measured")
+    print(f"times: blur_per_sample float32 {shape} k={k}{label}: kernel "
+          f"{ms:.4f} ms per call of the wrapper (CUDA events over 50 "
+          f"calls), {_ms_text(device_ms)} ms on the device alone "
+          f"(profiler), "
+          f"{share} of the bound {bound_ms:.4f} ms ({bound_by}), plain "
+          f"{plain_ms:.4f} ms, reflect pad + grouped cuDNN conv "
+          f"{library_ms:.4f} ms, {work / ms / 1e9:.2f} TFLOP/s ({smi})")
+    return dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                bound_ms=bound_ms, bound_by=bound_by, device_ms=device_ms,
+                shape=list(shape), k=k)
+
+
+def phase_blur_times(smi: str, parent: str = "") -> dict:
+    """CUDA-event times of the blur kernel in f32 at the producer's two
+    shapes, at the shuffled program's q-slices, and with resrgan's sinc
+    banks at its two canvases (``_blur_time_row``). With ``parent``, the
+    same of that tree's blur kernel in the same call, in turns (parent,
+    this, this, parent). Returns {shape: row}, the sinc rows under
+    ("sinc", shape)."""
+    import torch
+
+    from trainner_tpu_torch.ops import blur as port_blur
+    from trainner_tpu_torch.ops.blur import blur_per_sample
 
     old = _parent_blur(parent) if parent else None
     gen = torch.Generator().manual_seed(6)
@@ -2226,15 +2293,9 @@ def phase_blur_times(smi: str, parent: str = "") -> dict:
         b, h, w, c = shape
         x = torch.rand(*shape, generator=gen).cuda()
         kern = _sinc_banks(gen, b) if sinc else _blur_kernels(gen, b, BLUR_K)
-        lib_err = float((library(x, kern) - blur_per_sample(x, kern)
-                         ).abs().max())
-        if not lib_err <= 1e-5:
-            raise AssertionError(f"the library call disagrees: {lib_err}")
-        work = 2 * BLUR_K * BLUR_K * x.numel()
-        nbytes = 2 * x.numel() * 4 + kern.numel() * 4
-        bound_ms, bound_by = _bound("float32", work, nbytes)
-        fn = lambda: blur_per_sample(x, kern)  # noqa: E731
         if old is not None and key in (BLUR_HR, BLUR_LR):
+            bound_ms = _bound("float32", 2 * BLUR_K * BLUR_K * x.numel(),
+                              2 * x.numel() * 4 + kern.numel() * 4)[0]
             # both libraries called alike, straight through their C
             # interface, into one output buffer
             out = torch.empty_like(x)
@@ -2248,7 +2309,7 @@ def phase_blur_times(smi: str, parent: str = "") -> dict:
             old_fn, new_fn = direct(old), direct(port_blur._library())
             old_fn()
             torch.cuda.synchronize()
-            if not torch.equal(out, fn()):
+            if not torch.equal(out, blur_per_sample(x, kern)):
                 raise AssertionError("the parent's blur gives other sums")
             turns = []
             for f, who in ((old_fn, "parent"), (new_fn, "this"),
@@ -2261,29 +2322,13 @@ def phase_blur_times(smi: str, parent: str = "") -> dict:
                       f"{who} {ms:.4f} / {_ms_text(dev)}"
                       for who, ms, dev in turns)
                   + f"; bound {bound_ms:.4f} ms ({smi})")
-        ms = _time_ms(fn, iters=50)
-        plain_ms = _time_ms(lambda: blur_per_sample_plain(x, kern), iters=3,
-                            warmup=1)
-        library_ms = _time_ms(lambda: library(x, kern))
-        device_ms = _device_ms(fn, "blur_kernel")
-        rows[key] = dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
-                         bound_ms=bound_ms, bound_by=bound_by,
-                         device_ms=device_ms)
-        share = (f"{bound_ms / device_ms:.1%}" if device_ms is not None
-                 else "share not measured")
-        print(f"times: blur_per_sample float32 {shape} k={BLUR_K}"
-              f"{', sinc banks' if sinc else ''}: kernel "
-              f"{ms:.4f} ms per call of the wrapper (CUDA events over 50 "
-              f"calls), {_ms_text(device_ms)} ms on the device alone "
-              f"(profiler), "
-              f"{share} of the bound {bound_ms:.4f} ms ({bound_by}), plain "
-              f"{plain_ms:.4f} ms, reflect pad + grouped cuDNN conv "
-              f"{library_ms:.4f} ms, {work / ms / 1e9:.2f} TFLOP/s ({smi})")
+        rows[key] = _blur_time_row(smi, x, kern,
+                                   ", sinc banks" if sinc else "")
     return rows
 
 
 def _kernel_rows(rows, serving, train, main_err, bwd_err,
-                 blur_rows, producer, blur_err, forms, cli):
+                 blur_rows, producer, blur_err, forms, cli, caller_rows):
     """The JSON summary: each kernel at its main path's shape and type (the
     forward at the serving shape in f32, the backward at the training shape
     in bf16, the blur at the HR canvas in f32, with its times at the LR
@@ -2291,9 +2336,10 @@ def _kernel_rows(rows, serving, train, main_err, bwd_err,
     banks beside), with the launches the card ran in the launch traces of
     the main paths' runs (serving, training in both types, the producer in
     both orders, the training CLI on train_sr.yml and on
-    train_realesrgan.yml and their resumes), the wrappers' own counts over
-    the same runs beside them, and both types' times at both block
-    shapes."""
+    train_realesrgan.yml and their resumes, phase 15's combo and realsr
+    runs), the wrappers' own counts over the same runs beside them, both
+    types' times at both block shapes, and the blur's rows for phase 15's
+    callers (``caller_rows``)."""
     traces = [*train.values(), *producer.values(), *cli.values()]
 
     def summed(key, wrapper):
@@ -2354,7 +2400,10 @@ def _kernel_rows(rows, serving, train, main_err, bwd_err,
                               ("resrgan_sinc_at_hr_canvas",
                                ("sinc", BLUR_HR)),
                               ("resrgan_sinc_at_lr_canvas",
-                               ("sinc", BLUR_LR)))}},
+                               ("sinc", BLUR_LR)))},
+         "callers": {f"{label} {tuple(shape)}": {
+             k: row[k] for k in keys + ("device_ms",)}
+             for (label, shape), row in caller_rows.items()}},
     ]
 
 
@@ -2860,6 +2909,9 @@ def _graph_degrader(smi: str, root: str, programs=None,
             ("fixed order", False, 2, None),
             ("per-sample shuffle", True, 4 * SHUFFLE_K, None)):
         graphed, eager = _degrader_pair(corpus, shuffle, options)
+        if not eager.lr_from_hr:  # the LR degrader works on the batch's LR
+            for raw in raws:
+                raw.setdefault("LR", raw["HR"][:, ::4, ::4].contiguous())
         worst, n_off = 0.0, 0
         for raw in raws:
             got, want = graphed(raw)["LR"], eager(raw)["LR"]
@@ -3384,27 +3436,31 @@ def _resrgan_ops(smi: str) -> None:
         net = UNetDiscriminator(nf=NF, dtype=torch.float32)
         net.init_weights(torch.Generator().manual_seed(4))
         nets = {"cpu": net, "cuda": copy.deepcopy(net).cuda(),
-                "f64": copy.deepcopy(net).double()}
+                "f64": copy.deepcopy(net).double(),
+                "cuda, cuDNN off": copy.deepcopy(net).cuda()}
         x = torch.rand(4, 128, 128, 3, generator=gen)
         outs = {}
+        caps = {dev: _capture_convs(d) for dev, d in nets.items()}
         cudnn = torch.backends.cudnn
         saved = cudnn.deterministic, cudnn.benchmark
         cudnn.deterministic, cudnn.benchmark = True, False
         try:
             for dev, d in nets.items():
                 def run(d=d, dev=dev):
-                    out = d(x.double() if dev == "f64" else x.to(dev),
-                            train=True)
+                    out = d(x.double() if dev == "f64" else
+                            x.to(dev.split(",")[0]), train=True)
                     (out.square().mean()).backward()
                     d.commit_stats()
                     outs[dev] = out.detach()
 
+                cudnn.enabled = dev != "cuda, cuDNN off"
                 if dev == "cuda":
                     kernels = _kernel_calls(run)[0]
                 else:
                     run()
         finally:
             cudnn.deterministic, cudnn.benchmark = saved
+            cudnn.enabled = True
         scale = float(outs["cpu"].abs().max())
         check("U-Net D (spectral norm) forward, nf 64, b=4 128 px",
               outs["cuda"], outs["cpu"], 1e-4 * scale)
@@ -3421,6 +3477,7 @@ def _resrgan_ops(smi: str) -> None:
 
         worst_g, name = worst("cuda", "cpu")
         card64, cpu64 = worst("cuda", "f64"), worst("cpu", "f64")
+        native64 = worst("cuda, cuDNN off", "f64")
         convs = sorted(k for k in kernels if any(
             s in k.lower() for s in ("fft", "winograd", "gemm", "grad",
                                      "conv")))
@@ -3428,36 +3485,64 @@ def _resrgan_ops(smi: str) -> None:
               f"worst relative error {worst_sn:.3e} (tol 1e-5); gradients "
               f"{worst_g:.3e} of each tensor's largest ({name}; tol 1e-3); "
               f"against an f64 pass on the CPU: card {card64[0]:.3e} "
-              f"({card64[1]}), CPU f32 {cpu64[0]:.3e} ({cpu64[1]}); cuDNN "
-              f"ran {convs}")
+              f"({card64[1]}), CPU f32 {cpu64[0]:.3e} ({cpu64[1]}), the card "
+              f"with cuDNN off (PyTorch's own convolutions) {native64[0]:.3e} "
+              f"({native64[1]}); cuDNN ran {convs}")
         if not (worst_sn <= 1e-5 and worst_g <= 1e-3):
             raise AssertionError("realesrgan: the U-Net D on the card")
-    _conv3_wgrad_algorithms(smi)
+        _conv3_wgrad_algorithms(smi, caps, nets)
     print(f"realesrgan: ops ok ({smi})")
 
 
-CONV3_IN = (4, 256, 32, 32)    # the U-Net D's conv3 input at nf 64, b=4, 128 px
-CONV3_W = (512, 256, 4, 4)     # its 4x4 stride-2 weight
+CONV3_W = (512, 256, 4, 4)  # the U-Net D's conv3 at nf 64: 4x4, stride 2
 
 
-def _conv3_wgrad_algorithms(smi: str) -> dict:
-    """Which algorithm gives the U-Net D's ``conv3`` weight gradient its
-    error on the card (ROADMAP Queue C 15): the weight gradient of that
-    conv (4x4, stride 2, padding 1, 256 -> 512 channels at 32 -> 16 px,
-    b=4, channels-last as the D runs it) from the same f32 input and output
-    gradient, by cuDNN under the check's flags (deterministic, benchmark
-    off), by its default and its benchmarked algorithms, in NCHW, by
-    PyTorch's own CUDA convolution (cuDNN off), and as a plain product
-    (im2col and one f32 matmul, TF32 off); each against the same gradient
-    in f64 on the CPU, beside the CPU's f32 one, with the kernels each
-    ran. Returns {way: relative error}."""
+def _capture_convs(net) -> dict:
+    """Wraps each conv of the U-Net D ``net`` so that a pass leaves, by
+    conv number, its input (``x``) and the gradient of its output (``g``)
+    in the returned dict."""
+    caps = {}
+    for i in range(10):
+        conv = getattr(net, f"conv{i}")
+        cap = caps[i] = {}
+
+        def spy(xx, weight=None, bias=None, cap=cap, orig=conv._conv):
+            out = orig(xx, weight, bias)
+            cap["x"] = xx.detach()
+            out.register_hook(lambda grad: cap.__setitem__("g",
+                                                           grad.detach()))
+            return out
+
+        conv._conv = spy
+    return caps
+
+
+def _conv_weight(conv) -> "torch.Tensor":
+    """The weight a conv of the U-Net D ran with: divided by the sigma its
+    spectral norm committed after the pass."""
+    w = conv.weight.detach()
+    return w / conv.sn.sigma if conv.sn is not None else w
+
+
+def _conv3_wgrad_algorithms(smi: str, caps: dict, nets: dict) -> dict:
+    """Where the U-Net D's ``conv3`` weight gradient takes its error on the
+    card (ROADMAP Queue C 15), from the check's passes (``caps``: each
+    conv's input and output gradient on the card, the CPU and in f64;
+    ``nets``: the nets after them). First each conv's output gradient, card
+    and CPU, against the f64 pass's, and each conv's input gradient (its
+    dgrad) by the check's cuDNN algorithm from the card's own inputs
+    against the same in f64, with the kernels it ran; then the weight
+    gradient of
+    the card's own inputs (4x4, stride 2, padding 1, 256 -> 512 channels
+    at 32 -> 16 px, b=4) by cuDNN under the check's flags (deterministic,
+    benchmark off), by its default and its benchmarked algorithms, in
+    NCHW, by PyTorch's own CUDA convolution (cuDNN off) and as a plain
+    product (im2col and one f32 matmul, TF32 off), each against the same
+    gradient of the same inputs in f64, with the kernels each ran; beside
+    it the CPU's f32 gradient of its own inputs. Returns {way: relative
+    error}."""
     import torch
     import torch.nn.functional as F
-
-    gen = torch.Generator().manual_seed(15)
-    x = torch.rand(*CONV3_IN, generator=gen) * 0.5
-    g = torch.randn(CONV3_IN[0], CONV3_W[0], CONV3_IN[2] // 2,
-                    CONV3_IN[3] // 2, generator=gen) * 1e-3
 
     def wgrad(xx, gg):
         return torch.ops.aten.convolution_backward(
@@ -3470,18 +3555,61 @@ def _conv3_wgrad_algorithms(smi: str) -> dict:
         gm = gg.reshape(gg.shape[0], gg.shape[1], -1)  # (b, 512, 256)
         return torch.einsum("bop,bkp->ok", gm, cols).reshape(CONV3_W)
 
-    ref = wgrad(x.double(), g.double())
-    scale = float(ref.abs().max())
+    def rel(a, b):
+        a, b = a.cpu().double(), b.cpu().double()
+        return float((a - b).abs().max() / b.abs().max())
 
-    def rel(w):
-        return float((w.cpu().double() - ref).abs().max()) / scale
-
-    out = {"cpu f32": rel(wgrad(x, g))}
+    print("realesrgan: C 15 each conv's output gradient against the f64 "
+          "pass, card / CPU: " + ", ".join(
+              f"conv{i} {rel(caps['cuda'][i]['g'], caps['f64'][i]['g']):.2e}"
+              f" / {rel(caps['cpu'][i]['g'], caps['f64'][i]['g']):.2e}"
+              for i in range(9, -1, -1)))
     cudnn = torch.backends.cudnn
     saved = (cudnn.enabled, cudnn.deterministic, cudnn.benchmark,
              cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
-    xc = x.cuda().contiguous(memory_format=torch.channels_last)
-    gc = g.cuda().contiguous(memory_format=torch.channels_last)
+    try:
+        cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+        cudnn.deterministic, cudnn.benchmark = True, False
+        for i in range(9, 0, -1):
+            conv = getattr(nets["cuda"], f"conv{i}")
+            w, cap = _conv_weight(conv), caps["cuda"][i]
+            args = ((conv.stride,) * 2, ((w.shape[-1] - 1) // 2,) * 2,
+                    (1, 1), False, (0, 0), 1, (True, False, False))
+
+            def dgrad(gg, ww, xx=cap["x"], args=args):
+                return torch.ops.aten.convolution_backward(
+                    gg, torch.empty_like(xx), ww, None, *args)[0]
+
+            res = {}
+            calls = _kernel_calls(lambda: res.setdefault(
+                "d", dgrad(cap["g"], w)))[0]
+            ref = dgrad(cap["g"].cpu().double(), w.cpu().double(),
+                        cap["x"].cpu().double())
+            print(f"realesrgan: C 15 conv{i} input gradient from the card's "
+                  f"inputs, the check's cuDNN algorithm: "
+                  f"{rel(res['d'], ref):.3e} of its largest against f64; "
+                  f"kernels {dict(calls)}")
+    finally:
+        (cudnn.enabled, cudnn.deterministic, cudnn.benchmark,
+         cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32) = saved
+    caps = {dev: c[3] for dev, c in caps.items()}
+    f64 = caps["f64"]
+    xc, gc = caps["cuda"]["x"], caps["cuda"]["g"]
+    ref_pass = wgrad(f64["x"], f64["g"])
+    ref_card = wgrad(xc.cpu().double(), gc.cpu().double())
+    out = {"cpu f32, own inputs": rel(wgrad(caps["cpu"]["x"],
+                                            caps["cpu"]["g"]),
+                                      wgrad(caps["cpu"]["x"].double(),
+                                            caps["cpu"]["g"].double()))}
+    print(f"realesrgan: C 15 conv3's inputs against the f64 pass: card x "
+          f"{rel(xc, f64['x']):.3e}, g {rel(gc, f64['g']):.3e}; CPU x "
+          f"{rel(caps['cpu']['x'], f64['x']):.3e}, g "
+          f"{rel(caps['cpu']['g'], f64['g']):.3e}; the weight gradient of "
+          f"the card's inputs in f64 against the f64 pass's "
+          f"{rel(ref_card, ref_pass):.3e} (layout {tuple(xc.stride())})")
+    cudnn = torch.backends.cudnn
+    saved = (cudnn.enabled, cudnn.deterministic, cudnn.benchmark,
+             cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
     ways = (("cuDNN deterministic, benchmark off (the check's)", True, True,
              False, True),
             ("cuDNN default, benchmark off", True, False, False, True),
@@ -3491,33 +3619,36 @@ def _conv3_wgrad_algorithms(smi: str) -> dict:
              True))
     try:
         cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
-        for way, enabled, det, bench, cl in ways:
+        for way, enabled, det, bench, keep in ways:
             cudnn.enabled, cudnn.deterministic, cudnn.benchmark = \
                 enabled, det, bench
-            xi, gi = (xc, gc) if cl else (xc.contiguous(), gc.contiguous())
+            xi, gi = (xc, gc) if keep else (xc.contiguous(), gc.contiguous())
             wgrad(xi, gi)
             res = {}
             calls = _kernel_calls(lambda: res.setdefault("w",
                                                          wgrad(xi, gi)))[0]
-            out[way] = rel(res["w"])
-            print(f"realesrgan: C 15 conv3 weight gradient, {way}: "
-                  f"{out[way]:.3e} of its largest against f64 (CPU f32 "
-                  f"{out['cpu f32']:.3e}); kernels {dict(calls)}")
+            out[way] = rel(res["w"], ref_card)
+            print(f"realesrgan: C 15 conv3 weight gradient of the card's "
+                  f"inputs, {way}: {out[way]:.3e} of its largest against "
+                  f"f64, against the f64 pass {rel(res['w'], ref_pass):.3e};"
+                  f" kernels {dict(calls)}")
         cudnn.enabled = True
         res = {}
-        calls = _kernel_calls(lambda: res.setdefault("w", plain(xc, gc)))[0]
-        out["plain product"] = rel(res["w"])
-        print(f"realesrgan: C 15 conv3 weight gradient, plain product "
-              f"(im2col + one f32 matmul, TF32 off): "
+        calls = _kernel_calls(lambda: res.setdefault(
+            "w", plain(xc.contiguous(), gc.contiguous())))[0]
+        out["plain product"] = rel(res["w"], ref_card)
+        print(f"realesrgan: C 15 conv3 weight gradient of the card's inputs, "
+              f"plain product (im2col + one f32 matmul, TF32 off): "
               f"{out['plain product']:.3e}; kernels {dict(calls)}")
     finally:
         (cudnn.enabled, cudnn.deterministic, cudnn.benchmark,
          cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32) = saved
-    best = min((v, k) for k, v in out.items() if k != "cpu f32")
+    best = min((v, k) for k, v in out.items() if "cpu" not in k)
     print(f"realesrgan: C 15 conv3 weight gradient: the check's cuDNN "
           f"algorithm {out[ways[0][0]]:.3e}, the best way on the card "
-          f"{best[0]:.3e} ({best[1]}), the CPU {out['cpu f32']:.3e}; TF32 "
-          f"flags at the check cuDNN {saved[3]}, matmul {saved[4]} ({smi})")
+          f"{best[0]:.3e} ({best[1]}), the CPU's f32 on its inputs "
+          f"{out['cpu f32, own inputs']:.3e}; TF32 flags at the check cuDNN "
+          f"{saved[3]}, matmul {saved[4]} ({smi})")
     return out
 
 
@@ -4061,6 +4192,354 @@ def phase_zoo(smi: str, root: str) -> dict:
     return traces
 
 
+# ---------------------------------------------------------------------------
+# 15. degradations: the realsr and combo strategies and every on-device op
+# ---------------------------------------------------------------------------
+
+N_POOL = 16          # seeded KernelGAN-style kernels of 21 x 21 (.npy)
+N_NOISE_IMAGES = 8   # seeded 1/f noise PNGs for the patches
+NOISE_PX = 96
+COMBO_Q = (5, 128, 128, 3), (5, 32, 32, 3)  # combo's routing q-slices
+# combo's blur launches per batch (shuffled, with its pool): 2 passes x 7
+# slots x (blur, blur2) on q-slices, the pool on the HR canvas of the batch
+# padded to 7 q = 35, and final_blur in both orders of the finals
+COMBO_BLUR = {COMBO_Q[0]: 14, COMBO_Q[1]: 14, (35, 128, 128, 3): 1,
+              BLUR_LR: 2}
+# the degrader with every op of the slice: its blur stage at the HR canvas
+# and unsharp_mask at the LR one
+ALL_OPS_BLUR = {BLUR_HR: 1, BLUR_LR: 1}
+REALSR_NITER = 6
+CPU_SHAPE = (8, 64, 64, 3)  # card against CPU of each op
+SHARE_TOL = 1e-2  # k-means, SOM, SLIC, CLAHE: pixels that may differ
+
+
+def _write_assets(root: str) -> tuple:
+    """The user directories of the two strategies, from seeds: a
+    KernelGAN-style pool (``N_POOL`` anisotropic gaussians of 21 x 21 as
+    ``.npy``, one of 25 x 25 that the loader crops, one ``.mat`` written
+    with ``scipy.io.savemat``) and ``N_NOISE_IMAGES`` 1/f noise PNGs by
+    the corpus writer. Returns (kernels dir, noise dir)."""
+    import numpy as np
+    from scipy.io import savemat
+
+    kdir, ndir = os.path.join(root, "kernels"), os.path.join(root, "noise")
+    os.makedirs(kdir)
+    rng = np.random.default_rng(2024)
+
+    def kernel(size):
+        ax = np.arange(size) - (size - 1) / 2
+        xx, yy = np.meshgrid(ax, ax)
+        t = rng.uniform(0, np.pi)
+        sx, sy = rng.uniform(0.5, 3.5, 2)
+        xr = np.cos(t) * xx + np.sin(t) * yy
+        yr = -np.sin(t) * xx + np.cos(t) * yy
+        return np.exp(-0.5 * ((xr / sx) ** 2 + (yr / sy) ** 2)) \
+            * rng.uniform(0.5, 2.0)
+
+    for i in range(N_POOL):
+        np.save(os.path.join(kdir, f"kernel_{i:02d}.npy"),
+                kernel(21).astype(np.float32))
+    np.save(os.path.join(kdir, "kernel_25x25.npy"), kernel(25))
+    savemat(os.path.join(kdir, "kernel_mat.mat"), {"Kernel": kernel(21)})
+    _write_corpus(ndir, n=N_NOISE_IMAGES, px=NOISE_PX, seed=77)
+    return kdir, ndir
+
+
+def _strategy_edit(strategy: str, assets: tuple):
+    """``train_sr.yml`` -> ``augs_strategy`` with its assets; the inline
+    resize types are dropped so that the strategy's own (combo's list with
+    ``realistic``, code 999) apply."""
+    def edit(opt: dict) -> None:
+        ds = opt["datasets"]["train"]
+        for key in ("lr_downscale", "lr_downscale_types"):
+            ds.pop(key, None)
+        ds.update(augs_strategy=strategy, dataroot_kernels=assets[0],
+                  noise_data=assets[1])
+    return edit
+
+
+def _strategy_options(strategy: str, assets: tuple):
+    """The end-to-end configuration with ``strategy``'s own presets and its
+    assets, for ``_graph_degrader``."""
+    def options(corpus: str, shuffle: bool = False) -> dict:
+        opt = _e2e_options(corpus)
+        ds = opt["datasets"]["train"]
+        del ds["shuffle_degradations"], ds["resize_strat"]
+        ds.update(augs_strategy=strategy, dataroot_kernels=assets[0],
+                  noise_data=assets[1])
+        return opt
+    return options
+
+
+def _all_ops_options(corpus: str, shuffle: bool = False) -> dict:
+    """Every op of the slice that no preset reaches, in one fixed-order
+    degrader: box, motion, median and bilateral blur at the HR canvas; the
+    cubic resize; speckle, s&p, every quantize and dither kind, CLAHE,
+    superpixels and maxrgb as noise candidates; webp by the DCT
+    approximation; auto levels, unsharp and fringes."""
+    opt = _e2e_options(corpus)
+    ds = opt["datasets"]["train"]
+    del ds["augs_strategy"]
+    noise = ["speckle", "s&p", "quantize", "km_quantize", "simple_quantize",
+             "dither", "bayer_dither", "avg_dither", "bin_dither",
+             "rnd_dither", "fs_dither", "bw_dither", "clahe", "superpixels",
+             "maxrgb"]
+    ds.update(lr_blur=True, lr_blur_types=["box", "motion", "median",
+                                           "bilateral"],
+              lr_downscale=True, lr_downscale_types=["cubic"],
+              lr_noise=True, lr_noise_types=noise, compression=["webp"],
+              lr_auto_levels=True, lr_rand_auto_levels=0.5,
+              lr_unsharp_mask=True, lr_rand_unsharp=0.7, lr_fringes=True,
+              lr_fringes_chance=0.6,
+              aug_configs={t: {"p": 1.0} for t in noise + [
+                  "box", "motion", "median", "bilateral", "webp"]})
+    return opt
+
+
+def _crops(root: str, shape) -> "torch.Tensor":
+    """Corpus crops (b, h, w, 3) in [0, 1] on the 1/255 lattice, CPU."""
+    import numpy as np
+    import torch
+
+    from trainner_tpu_torch.data.common import decode_image
+
+    corpus = os.path.join(root, "corpus")
+    b, h, w, _ = shape
+    names = sorted(os.listdir(corpus))[:b]
+    return torch.from_numpy(np.stack(
+        [decode_image(os.path.join(corpus, n))[:h, :w, :3] for n in names]
+    )).float() / 255.0
+
+
+def _ops_card_vs_cpu(smi: str, root: str, assets: tuple) -> dict:
+    """Each op of the slice on the card against the CPU, on the same inputs
+    (corpus crops, ``CPU_SHAPE``) and the same draws (made on the CPU):
+    the linear and smooth ones within 1e-5 (filters, colours, kernel
+    banks, speckle, unsharp, auto levels, bilateral, the pool, the
+    patches), the exact ones bit for bit (median, quantize, every dither
+    kind, maxrgb, s&p, fringes); k-means, SOM, SLIC and CLAHE by the share
+    of pixels whose colour differs by more than 1e-5 (argmin ties and bin
+    edges over sums added in another order), printed and held to
+    ``SHARE_TOL``. Returns {op: error or share}."""
+    import torch
+
+    from trainner_tpu_torch.data import kernels as K
+    from trainner_tpu_torch.data.pipeline import _full_f32
+    from trainner_tpu_torch.ops import colors as C
+    from trainner_tpu_torch.ops import degradations as D
+    from trainner_tpu_torch.ops import filters as F
+    from trainner_tpu_torch.ops import superpixel as S
+
+    gen = torch.Generator().manual_seed(15)
+    x = _crops(root, CPU_SHAPE)
+    b, h, w, _ = x.shape
+    xc = x.cuda()
+    out = {}
+
+    def on_card(v):
+        if isinstance(v, dict):
+            return {k: on_card(t) for k, t in v.items()}
+        return v.cuda() if isinstance(v, torch.Tensor) else v
+
+    def check(name, fn, args, tol=None, share=False):
+        got = fn(*on_card(args)).cpu()
+        want = fn(*args)
+        if share:
+            diff = (got - want).abs().reshape(-1, got.shape[-1]).amax(-1)
+            val = float((diff > 1e-5).float().mean())
+            ok = val <= SHARE_TOL
+            what = f"share of pixels off by more than 1e-5 {val:.4%} " \
+                   f"(tol {SHARE_TOL:.0%})"
+        elif tol is None:
+            val = float((got - want).abs().max())
+            ok = torch.equal(got, want)
+            what = f"bit for bit {ok}"
+        else:
+            val = float((got - want).abs().max())
+            ok = val <= tol
+            what = f"max_abs_err {val:.3e} (tol {tol:.0e})"
+        out[name] = val
+        print(f"degradations: {name} card vs CPU: {what}")
+        if not ok:
+            raise AssertionError(f"degradations: {name} on the card")
+
+    with _full_f32():
+        k21 = D.draw_motion_kernels(gen, b)
+        check("motion_kernels k 21", D.motion_kernels, (k21, 21), 1e-6)
+        check("box_kernels k 21", D.box_kernels,
+              (D.draw_box_kernels(gen, b), 21), 1e-6)
+        check("speckle_noise", D.speckle_noise,
+              (x, D.draw_speckle_noise(gen, x.shape)), 1e-6)
+        check("salt_pepper_noise", D.salt_pepper_noise,
+              (x, D.draw_salt_pepper_noise(gen, x.shape, (0.01, 0.1))))
+        check("unsharp_mask (blur kernel, k 11)", D.unsharp_mask,
+              (x, D.draw_unsharp_mask(gen, b)), 1e-5)
+        check("auto_levels", D.auto_levels, (x, 1.0), 1e-5)
+        check("fringes", D.fringes, (x, D.draw_fringes(gen, b)))
+        check("max_rgb", D.max_rgb, (x,))
+        check("quantize_colors", D.quantize_colors, (x, 32))
+        check("ordered_dither", D.ordered_dither, (x, 1))
+        for kind in ("bayer", "fs", "rnd", "avg", "bin"):
+            for bw in (False, True):
+                check(f"dither_batch {kind}{' bw' if bw else ''}",
+                      D.dither_batch, (x, kind, 1, bw,
+                                       D.draw_dither(gen, x.shape, kind)))
+        check("median_blur k 3", D.median_blur, (x, 3))
+        check("median_blur k 11", D.median_blur, (x, 11))
+        check("bilateral_blur k 9", D.bilateral_blur, (x, 9, 75.0, 75.0),
+              1e-5)
+        check("kmeans_quantize 32", D.kmeans_quantize,
+              (x, D.draw_kmeans_quantize(gen, x.shape), 32), share=True)
+        check("som_quantize 32", D.som_quantize,
+              (x, D.draw_som_quantize(gen, x.shape, 32), 32), share=True)
+        check("clahe_batch", D.clahe_batch,
+              (x, D.draw_clahe(gen, 4.0)), share=True)
+        check("superpixel_structure 200", S.superpixel_structure,
+              (x, S.draw_superpixel_structure(gen, b), 200), share=True)
+        pool = torch.from_numpy(K.load_kernel_pool(assets[0]))
+        patches = K.to_device(K.load_noise_patches(assets[1], 16), "cpu")
+        check("apply_kernel_pool (blur kernel, k 21)", K.apply_kernel_pool,
+              (x, pool, K.draw_kernel_pool(gen, b, pool.shape[0]), 4), 1e-5)
+        check("apply_noise_patches", K.apply_noise_patches,
+              (x, patches, K.draw_noise_patches(gen, b, patches.shape[0])),
+              1e-6)
+        check("filter2d_per_sample", F.filter2d_per_sample,
+              (x, D.motion_kernels(k21, 21)[:, 5:16, 5:16]), 1e-5)
+        check("filter_low / filter_high", lambda v: torch.cat(
+            [F.filter_low(v, 9), F.filter_high(v, 9, filter_type="average"),
+             F.filter2d(v, F.log_kernel(5, 0.8))], -1), (x,), 1e-5)
+        check("colours", lambda v: torch.cat(
+            [C.rgb_to_yuv(v), C.yuv_to_rgb(v, "ycbcr"), C.srgb_to_linear(v),
+             C.linear_to_srgb(v), C.rgb_to_grayscale(v)], -1), (x,), 1e-6)
+    n_pool = pool.shape[0]
+    print(f"degradations: pool of {n_pool} kernels (the 25 x 25 cropped, "
+          f"the .mat read), {patches.shape[0]} noise patches; every op "
+          f"holds card against CPU ({smi})")
+    if n_pool != N_POOL + 2:
+        raise AssertionError(f"degradations: a pool of {n_pool} kernels")
+    return out
+
+
+def _blur_shapes(deg, gen, x) -> dict:
+    """The shapes of the blur kernel's launches in one call of the
+    degrader ``deg`` (an eager program), by shape."""
+    from trainner_tpu_torch.ops import degradations as D
+
+    shapes = {}
+    orig = D.apply_kernels
+
+    def spy(xx, kern):
+        key = tuple(xx.shape)
+        shapes[key] = shapes.get(key, 0) + 1
+        return orig(xx, kern)
+
+    D.apply_kernels = spy
+    try:
+        deg(gen, x)
+    finally:
+        D.apply_kernels = orig
+    return shapes
+
+
+def _caller_blur_rows(smi: str, assets: tuple) -> dict:
+    """The blur kernel as this slice's callers give it work: the pool's
+    kernels and the motion banks (k 21) at the HR and LR canvases, combo's
+    routing q-slices (k 21), and unsharp_mask's gaussians (k 11) at both
+    canvases; each row's kernel ms, device ms (through the record-counting
+    ``_device_ms``), bound, plain ms and the library call's ms."""
+    import torch
+
+    from trainner_tpu_torch.data import kernels as K
+    from trainner_tpu_torch.ops import degradations as D
+
+    gen = torch.Generator().manual_seed(16)
+    pool = K.load_kernel_pool(assets[0])
+    rows = {}
+    for label, shape in (("pool", BLUR_HR), ("pool", BLUR_LR),
+                         ("motion", BLUR_HR), ("motion", BLUR_LR),
+                         ("combo q-slice", COMBO_Q[0]),
+                         ("combo q-slice", COMBO_Q[1]),
+                         ("unsharp k 11", BLUR_HR),
+                         ("unsharp k 11", BLUR_LR)):
+        b = shape[0]
+        if label == "pool":
+            kern = torch.from_numpy(pool)[torch.randint(
+                0, pool.shape[0], (b,), generator=gen)]
+        elif label == "unsharp k 11":
+            kern = D.gaussian_kernels(D.draw_unsharp_mask(gen, b)["kernel"],
+                                      D.UNSHARP_K)
+        else:
+            kern = D.motion_kernels(D.draw_motion_kernels(gen, b), BLUR_K)
+        x = torch.rand(*shape, generator=gen).cuda()
+        rows[label, shape] = _blur_time_row(smi, x, kern.cuda(),
+                                            f", {label}")
+    return rows
+
+
+def phase_degradations(smi: str, root: str) -> tuple:
+    """Phase 15: the realsr and combo strategies and every on-device
+    degradation op. Writes the assets (``_write_assets``); holds each op
+    card against CPU (``_ops_card_vs_cpu``); the degrader with every op of
+    the slice, combo's (shuffled, with its pool and patches) and realsr's
+    (the patches on the dataset's LR) as CUDA graphs against their eager
+    programs from one generator state, at b=32, crop 128, with their blur
+    launches per batch by shape and their times graphed and eager (device
+    busy, idle share); then ``train_sr.yml`` through the training CLI with
+    ``augs_strategy: combo`` and its assets at full width (12 iterations
+    and a resume to 16, ``COMBO_BLUR`` blur launches per batch and 69 + 69
+    block launches per step from the trace) and with ``realsr`` (6
+    iterations, no blur); last the blur kernel's rows for this slice's
+    callers. Returns (the CLI runs' traces, the blur rows)."""
+    import torch
+
+    from trainner_tpu_torch.data.pipeline import BatchDegrader
+    from trainner_tpu_torch.options import parse_dict
+
+    t0 = time.perf_counter()
+    assets = _write_assets(os.path.join(root, "assets"))
+    _ops_card_vs_cpu(smi, root, assets)
+    corpus = os.path.join(root, "corpus")
+    cases = (("every op of the slice", ALL_OPS_BLUR, _all_ops_options),
+             ("combo, shuffled, with its assets", COMBO_BLUR,
+              _strategy_options("combo", assets)),
+             ("realsr, with its patches", {},
+              _strategy_options("realsr", assets)))
+    os.environ["TRAINNER_DEVICE_WEBP"] = "approx"
+    try:
+        for label, want, options in cases:
+            ds = parse_dict(options(corpus), is_train=True)["datasets"][
+                "train"]
+            deg = BatchDegrader(ds, "lr")
+            x = _crops(root, BLUR_HR if deg.stages[0][0] != "noise"
+                       else BLUR_LR).cuda()
+            shapes = _blur_shapes(deg, torch.Generator(
+                device="cuda").manual_seed(1), x)
+            print(f"degradations: {label}: stages "
+                  f"{[n for n, _ in deg.stages]}, finals "
+                  f"{[n for n, _ in deg.finals]}, program "
+                  f"{deg.program()[0]}; blur launches per batch by shape "
+                  f"{shapes} (expected {want})")
+            if shapes != want:
+                raise AssertionError(f"degradations: {label} blur shapes")
+        _graph_degrader(smi, root, [
+            (label, None, sum(want.values()), options)
+            for label, want, options in cases], preset="phase 15")
+    finally:
+        del os.environ["TRAINNER_DEVICE_WEBP"]
+    traces = {}
+    runs = phase_cli(smi, root, TRAIN_YML, "cli_combo",
+                     per_batch=sum(COMBO_BLUR.values()),
+                     edit=_strategy_edit("combo", assets))
+    traces.update({f"combo cli {k}": v for k, v in runs.items()})
+    runs = phase_cli(smi, root, TRAIN_YML, "cli_realsr", per_batch=0,
+                     edit=_strategy_edit("realsr", assets),
+                     niter=REALSR_NITER, resume=False)
+    traces.update({f"realsr cli {k}": v for k, v in runs.items()})
+    rows = _caller_blur_rows(smi, assets)
+    print(f"degradations: ok in {time.perf_counter() - t0:.1f} s ({smi})")
+    return traces, rows
+
+
 def phase_graphs(smi: str, root: str) -> None:
     """The programs as CUDA graphs against the same programs run eagerly
     (``graphs=False``), in one process: the step (bf16, f32) with its
@@ -4148,11 +4627,16 @@ def main(argv=None) -> int:
         cli_counts.update(phase_zoo(smi, root))
         torch.backends.cudnn.allow_tf32 = False
         torch.backends.cuda.matmul.allow_tf32 = False
+        deg_traces, caller_rows = phase_degradations(smi, root)
+        cli_counts.update(deg_traces)
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
         rows = phase_times(smi, root)
         blur_rows = phase_blur_times(smi, flags.parent)
         phase_trace(smi, root, {k: r["step_ms"] for k, r in train.items()})
     kernels = _kernel_rows(rows, launches, train, main_err, bwd_err,
-                           blur_rows, producer, blur_err, forms, cli_counts)
+                           blur_rows, producer, blur_err, forms, cli_counts,
+                           caller_rows)
     print(f"chip_smoke: {time.time() - t_start:.1f} s in all")
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -252,14 +252,22 @@ def test_random_resize_down_up_and_aligned_match_jax():
 
 
 def test_resize_codes_outside_the_slice_raise():
-    """The cv2-style codes 0-6 are served (``jax_resize``); the realistic
-    kernels of code 999 are not."""
+    """The cv2-style codes 0-6 are served (``jax_resize``). Code 999 (the
+    realistic kernels) raised before the realsr and combo slice; now, as in
+    the JAX package, a resize stage without a kernel pool drops it, and a
+    stage of 999 alone is the plain cubic resize: 1e-5 against JAX."""
+    from trainner_tpu.data.pipeline import _resize_stage as jax_stage
     from trainner_tpu_torch.data.pipeline import _resize_stage
 
     assert D.resize_batch(torch.rand(1, 8, 8, 3), (4, 4), 2).shape \
         == (1, 4, 4, 3)
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue A 5.2"):
-        _resize_stage([999], lambda shape: (4, 4))
+    x = _smooth((B, 16, 16, 3), seed=3)
+    want = np.asarray(jax_stage([999], lambda shape: (4, 4))(
+        jax.random.PRNGKey(0), jnp.asarray(x)))
+    got = _resize_stage([999], lambda shape: (4, 4))(
+        torch.Generator().manual_seed(0), _t(x)).numpy()
+    assert got.shape == (B, 4, 4, 3)
+    assert np.abs(got - want).max() <= 1e-5
 
 
 # ---------------------------------------------------------------------------
@@ -346,8 +354,11 @@ def test_the_same_seed_gives_the_same_draws():
     assert all(torch.equal(a[k], b[k]) for k in a)
 
 
-@pytest.mark.parametrize("what", ["sinc kernels", "poisson noise"])
+@pytest.mark.parametrize("what", ["the exact webp codec",
+                                  "a codec host callback"])
 def test_not_ported_names_its_roadmap_item(what):
+    """Every op of the JAX module runs now; what is left (the exact codec,
+    a host callback) names ROADMAP Queue A 5.5."""
     err = D.not_ported(what)
     assert isinstance(err, NotImplementedError)
-    assert what in str(err) and "ROADMAP Queue A 5.2" in str(err)
+    assert what in str(err) and "ROADMAP Queue A 5.5" in str(err)

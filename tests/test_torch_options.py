@@ -179,16 +179,27 @@ def test_dict2str_matches_jax():
 @pytest.mark.parametrize("key, value, item", [
     ("network_G", {"type": "ppon"}, "Queue A 10.2"),
     ("network_G", {"type": "edvr"}, "Queue A 10.5"),
-    ("augs_strategy", "realsr", "Queue A 5.2")])
+    ("network_G", {"type": "wbcunet"}, "Queue A 10.6")])
 def test_options_outside_the_port_raise_with_their_item(key, value, item):
     """The network presets and ``use_unshuffle`` are parsed now
-    (``test_torch_network_options.py``); other generators and the other
-    preset strategies still raise and name their ROADMAP item."""
+    (``test_torch_network_options.py``), and so are the realsr and combo
+    strategies (``test_realsr_parses_like_jax``); other generators still
+    raise and name their ROADMAP item."""
     opt = _train_opt()
-    if key == "augs_strategy":
-        opt["datasets"] = {"train": {"name": "t", "mode": "aligned",
-                                     "dataroot_HR": "/x", key: value}}
-    else:
-        opt[key] = value
+    opt[key] = value
     with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
         parse_dict(opt)
+
+
+@pytest.mark.parametrize("strategy", ["realsr", "combo"])
+def test_realsr_parses_like_jax(strategy):
+    """``augs_strategy: realsr`` (and combo), which raised before their
+    slice: the parsed options equal the JAX package's."""
+    opt = _train_opt()
+    opt["datasets"] = {"train": {"name": "t", "mode": "aligned",
+                                 "dataroot_HR": "/x",
+                                 "augs_strategy": strategy}}
+    got = parse_dict(copy.deepcopy(opt))
+    want = jax_parse_dict(copy.deepcopy(opt))
+    assert got["datasets"] == want["datasets"]
+    assert got["datasets"]["train"]["lr_noise"] is True

@@ -481,17 +481,32 @@ def test_resize_strat_pre_keeps_the_size():
     assert y.shape == (3, 32, 32, 3)
 
 
-@pytest.mark.parametrize("extra, item", [
-    ({"lr_blur_types": ["motion"]}, "Queue A 5.2"),
-    ({"lr_noise_types": ["speckle"]}, "Queue A 5.2"),
-    ({"lr_unsharp_mask": True}, "Queue A 5.2"),
-    ({"dataroot_kernels": "/nonexistent"}, "Queue A 5.2"),
-    ({"lr_downscale_types": [999]}, "Queue A 5.2"),
-    ({"lr_auto_levels": True}, "Queue A 5.2"),
+@pytest.mark.parametrize("extra, stage", [
+    ({"lr_blur_types": ["motion"]}, "blur"),
+    ({"lr_noise_types": ["speckle"]}, "noise"),
+    ({"lr_unsharp_mask": True}, "unsharp"),
+    ({"dataroot_kernels": "/nonexistent"}, "resize"),
+    ({"lr_downscale_types": [999]}, "resize"),
+    ({"lr_auto_levels": True}, "auto_levels"),
 ])
-def test_options_outside_the_slice_raise(extra, item):
+def test_options_outside_the_slice_raise(extra, stage):
+    """Options that the port refused before the realsr and combo slice
+    (ROADMAP Queue A 5.2): each now builds the JAX package's stage list,
+    the stage it touches with the same plain or attenuated variants (a
+    kernel root that is no directory gives no pool, 999 without a pool is
+    dropped, as in JAX), and degrades a batch to the LR size on the 1/255
+    lattice."""
     opt = _bsrgan_opt()
     opt["datasets"]["train"].update(extra)
     ds = parse_dict(opt, is_train=True)["datasets"]["train"]
-    with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
-        P.BatchDegrader(ds, "lr")
+    ds_j = jax_parse_dict(opt, is_train=True)["datasets"]["train"]
+    assert ds == ds_j
+    deg, ref = P.BatchDegrader(ds, "lr"), JP.BatchDegrader(ds_j, "lr")
+    assert [n for n, _ in deg.stages] == [n for n, _ in ref.stages]
+    assert stage in [n for n, _ in deg.stages]
+    assert [n for n, f in deg.stages if isinstance(f, dict)] \
+        == [n for n, f in ref.stages if isinstance(f, dict)]
+    assert deg.kernel_bank is None and ref.kernel_bank is None
+    y = deg(_gen(), _t(_smooth(3, CROP, CROP, seed=2)))
+    assert y.shape == (3, CROP // SCALE, CROP // SCALE, 3)
+    assert np.abs(y.numpy() * 255 - np.round(y.numpy() * 255)).max() <= 1e-4

@@ -22,7 +22,8 @@ from trainner_tpu_torch.options.config import (INTERP_CODES, _algo2int,
 
 PRESETS = ("base_blur", "base_noise", "base_resize", "bsrgan_blur",
            "bsrgan_noise", "bsrgan_resize", "resrgan_blur", "resrgan_noise",
-           "resrgan_resize", "gen_esrgan", "disc_esrgan")
+           "resrgan_resize", "realsr_noise", "realsr_resize", "combo_blur",
+           "combo_noise", "combo_resize", "gen_esrgan", "disc_esrgan")
 JAX_DIR = os.path.dirname(jax_presets.__file__)
 PORT_DIR = os.path.dirname(presets.__file__)
 
@@ -160,8 +161,14 @@ def test_interp_codes_equal_jax():
 
 @pytest.mark.parametrize("strategy", ["realsr", "combo"])
 def test_another_strategy_raises_and_names_its_item(strategy):
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue A 5.2"):
-        parse_dict(_e2e_options(augs_strategy=strategy), is_train=True)
+    """The strategies that raised before their slice (ROADMAP Queue A 5.2)
+    resolve as the JAX package's now, key for key, and split into the same
+    stage parameters (realsr has no blur preset: both skip it)."""
+    got, want = _both(augs_strategy=strategy)
+    ds_g, ds_w = got["datasets"]["train"], want["datasets"]["train"]
+    assert ds_g == ds_w
+    assert P.get_unpaired_params(ds_g) == JP.get_unpaired_params(ds_w)
+    assert ("lr_blur" in ds_g) == (strategy == "combo")
 
 
 def test_resrgan_resolves_like_jax():

@@ -32,6 +32,14 @@ The random halves are kept apart from the arithmetic where a test needs
 to feed another framework's draws: ``draw_size_ratio`` / ``_size_ratio``,
 ``draw_atten_ratio`` / ``_atten_ratio``, ``draw_att_pair`` / ``_att_pair``.
 
+The realistic assets load once per degrader (``data/kernels.py``): a
+KernelGAN pool from ``dataroot_kernels`` replaces the whole first resize
+stage when resize code 999 is among its types (``apply_kernel_pool``: the
+blur kernel on the input canvas, then the aligned subsample), and noise
+patches from ``noise_data`` replace a noise stage that lists ``patches``.
+Without a pool 999 is dropped; without patches, ``patches`` is gaussian
+noise. Both as in the JAX package, and silently, as there.
+
 With ``shuffle_degradations`` every sample runs the stages in an order of
 its own. The routed program draws those orders on the host, as rows of
 random Latin squares (``_routing_plan``, the JAX package's plan stream and
@@ -39,9 +47,9 @@ code, so its plans are the JAX package's call for call), and hands them to
 the device as small int32 tensors by one pinned, non-blocking copy; the
 device program reads nothing back to the host, so the host runs ahead.
 
-Not ported yet, each raising with its ROADMAP item: kernel pools and noise
-patches, the auto-levels, unsharp and fringes stages, and every blur, noise
-and filter type outside the bsrgan and resrgan presets.
+Every stage and type of the JAX module runs here. ``compression: webp``
+runs the DCT approximation under ``TRAINNER_DEVICE_WEBP=approx`` and raises
+without it (the exact codec is a host callback, ROADMAP Queue A 5.5).
 """
 
 from __future__ import annotations
@@ -57,7 +65,12 @@ import torch.nn.functional as F
 
 from ..ops import degradations as D
 from ..ops.blocks import wire_to_f01
+from ..ops.superpixel import (draw_superpixel_structure,
+                              superpixel_structure)
 from ..utils.graphs import device_constant
+from .kernels import (apply_kernel_pool, apply_noise_patches,
+                      draw_kernel_pool, draw_noise_patches,
+                      load_kernel_pool, load_noise_patches)
 
 # (aug_name, enable_key, prob_key, types_key)
 _AUG_KEYS = [
@@ -134,8 +147,8 @@ def get_unpaired_params(opt: dict) -> Tuple[dict, dict]:
 # the stages
 # ---------------------------------------------------------------------------
 
-_OTHER_BLURS = ("motion", "complexmotion", "complex_motion",
-                "average", "box", "median", "bilateral")
+_MOTION_BLURS = ("motion", "complexmotion", "complex_motion")
+_NONLINEAR_BLURS = ("median", "bilateral")
 _DEVICE_NOISE = ("gaussian", "jpeg", "webp", "poisson", "speckle", "s&p",
                  "sp", "quantize", "dither", "maxrgb", "camera",
                  "superpixels", "clahe")
@@ -183,16 +196,28 @@ def _cfg_for(cfgs: Dict[str, dict], t: str, cycle: int = 1) -> dict:
     return cfgs.get(t) or cfgs.get(t + "2") or {}
 
 
+def _nonlinear_blur(t: str, cfg: dict, x: torch.Tensor) -> torch.Tensor:
+    """The exact median or bilateral filter of a blur type, at its
+    config's odd kernel size (at most 11)."""
+    if t == "median":
+        ksz = int(cfg.get("kernel_size", 3))
+        return D.median_blur(x, min(ksz if ksz % 2 else ksz + 1, 11))
+    ksz = int(cfg.get("kernel_size", 9))
+    return D.bilateral_blur(x, min(ksz if ksz % 2 else ksz + 1, 11),
+                            float(cfg.get("sigmaColor", 75.0) or 75.0),
+                            float(cfg.get("sigmaSpace", 75.0) or 75.0))
+
+
 def _blur_stage(types: Sequence[str], cfgs: Dict[str, dict], prob: float,
                 weights=None, cycle: int = 1) -> Callable:
-    """Per-sample choice of a blur type, each with its own kernel bank
-    padded to one size; a type applies with its config's ``p`` (a miss
-    puts the delta kernel in its place); one ``apply_kernels`` call blurs
-    the batch."""
+    """Per-sample choice of a blur type, each linear type with its own
+    kernel bank padded to one size; a type applies with its config's
+    ``p`` (a miss puts the delta kernel in its place); one
+    ``apply_kernels`` call blurs the batch. Median and bilateral are exact
+    nonlinear candidates beside it (a delta kernel in their slot of the
+    bank), computed on the whole batch and kept where a sample chose
+    them."""
     types = [str(t).lower() for t in types] or ["gaussian"]
-    for t in types:
-        if t in _OTHER_BLURS:
-            raise D.not_ported(f"blur type [{t}]")
 
     def fn(gen, x):
         b = x.shape[0]
@@ -208,28 +233,36 @@ def _blur_stage(types: Sequence[str], cfgs: Dict[str, dict], prob: float,
                 banks.append(D.sinc_kernels(D.draw_sinc_kernels(
                     gen, b, k, (float(mc), float(mc)) if mc else None,
                     max(mk, 7)), k))
-                continue
-            if t in ("iso", "gaussian"):
+            elif t in ("iso", "gaussian"):
                 sx = cfg.get("sigmaX") or [0.1, 2.8]
-                params = D.draw_gaussian_kernels(
+                banks.append(D.gaussian_kernels(D.draw_gaussian_kernels(
                     gen, b, k, tuple(map(float, sx)), iso_prob=1.0,
-                    min_size=mk)
+                    min_size=mk), k))
             elif t == "aniso":
                 sx = cfg.get("sigmaX") or [0.5, 8.0]
                 sy = cfg.get("sigmaY") or sx
                 ang = cfg.get("angle")
-                params = D.draw_gaussian_kernels(
+                banks.append(D.gaussian_kernels(D.draw_gaussian_kernels(
                     gen, b, k, tuple(map(float, sx)), iso_prob=0.0,
                     sigma_y_range=tuple(map(float, sy)), min_size=mk,
                     angle_range=tuple(math.radians(float(a)) for a in ang)
-                    if ang else None)
+                    if ang else None), k))
+            elif t in _MOTION_BLURS:
+                banks.append(D.motion_kernels(D.draw_motion_kernels(gen, b),
+                                              k))
+            elif t in ("average", "box"):
+                banks.append(D.box_kernels(D.draw_box_kernels(gen, b), k))
+            elif t in _NONLINEAR_BLURS:
+                banks.append(None)
             else:
-                params = D.draw_gaussian_kernels(gen, b, k, (0.2, 3.0))
-            banks.append(D.gaussian_kernels(params, k))
-        kmax = max(kk.shape[-1] for kk in banks)
+                banks.append(D.gaussian_kernels(D.draw_gaussian_kernels(
+                    gen, b, k, (0.2, 3.0)), k))
+        kmax = max((kk.shape[-1] for kk in banks if kk is not None),
+                   default=21)
         delta = torch.zeros((1, kmax, kmax), device=x.device)
         delta[0, kmax // 2, kmax // 2].fill_(1.0)  # no host copy
-        banks = [F.pad(kk, ((kmax - kk.shape[-1]) // 2,) * 4)
+        banks = [delta.expand(b, kmax, kmax) if kk is None else
+                 F.pad(kk, ((kmax - kk.shape[-1]) // 2,) * 4)
                  for kk in banks]
         if any(p < 1.0 for p in probs):
             u = D._uniform(gen, (b, len(banks), 1, 1))
@@ -237,7 +270,17 @@ def _blur_stage(types: Sequence[str], cfgs: Dict[str, dict], prob: float,
                      for i, (kk, p) in enumerate(zip(banks, probs))]
         choice = D.draw_choice(gen, b, len(banks), weights) \
             if len(banks) > 1 else None
-        return D.apply_kernels(x, D.select(banks, choice))
+        out = D.apply_kernels(x, D.select(banks, choice))
+        for i, t in enumerate(types):
+            if t not in _NONLINEAR_BLURS:
+                continue
+            y = _nonlinear_blur(t, _cfg_for(cfgs, t, cycle), x)
+            if probs[i] < 1.0:
+                miss = D._uniform(gen, (b,)) >= probs[i]
+                y = torch.where(_bcast(miss), x, y)
+            out = y if choice is None else torch.where(
+                _bcast(choice == i), y, out)
+        return out
 
     return _with_prob(fn, prob)
 
@@ -409,6 +452,44 @@ def _blur3(x: torch.Tensor) -> torch.Tensor:
     return y.permute(0, 2, 3, 1)
 
 
+def _dither_op(t: str, cfg: dict) -> Callable:
+    """A dither type by its name's parts, as the reference dispatches:
+    'bw' dithers the luma; 'bayer', 'avg', 'bin', 'rnd', and 'fs' (or
+    plain 'dither') pick the kind, any other name is bayer."""
+    bw = "bw" in t
+    if "bayer" in t:
+        kind = "bayer"
+    elif "avg" in t:
+        kind = "avg"
+    elif "bin" in t:
+        kind = "bin"
+    elif "rnd" in t:
+        kind = "rnd"
+    elif "fs" in t or t == "dither":
+        kind = "fs"
+    else:
+        kind = "bayer"
+    bits = int(cfg.get("bits", 1))
+    return lambda gen, x: D.dither_batch(
+        x, kind, bits, bw, D.draw_dither(gen, x.shape, kind))
+
+
+def _clahe_op(cfg: dict) -> Callable:
+    """CLAHE with one clip limit per batch drawn in [1, clip_limit's
+    upper end]; an image the tile grid does not divide passes through."""
+    cl = cfg.get("clip_limit", 4.0)
+    cl_hi = float(cl[1] if isinstance(cl, (list, tuple)) else cl)
+    gs = tuple(cfg.get("tile_grid_size") or (8, 8))
+
+    def op(gen, x):
+        clip = D.draw_clahe(gen, cl_hi)
+        if x.shape[1] % gs[0] or x.shape[2] % gs[1]:
+            return x
+        return D.clahe_batch(x, clip, grid=gs)
+
+    return op
+
+
 def _noise_op(t: str, cfg: dict) -> Callable:
     """``op(gen, x)`` of one noise type with its config."""
     if t == "gaussian":
@@ -423,7 +504,13 @@ def _noise_op(t: str, cfg: dict) -> Callable:
         mc_prob = 0.34 if cfg.get("multi", True) else 0.0
         return lambda gen, x: D.gaussian_noise(x, D.draw_gaussian_noise(
             gen, x.shape, sig, gray_prob, mc_prob))
-    if t == "jpeg":
+    if t in ("jpeg", "webp"):
+        if t == "webp" and os.environ.get("TRAINNER_DEVICE_WEBP",
+                                          "exact") != "approx":
+            raise D.not_ported(
+                "compression [webp] by the exact codec (a host callback "
+                "through OpenCV; TRAINNER_DEVICE_WEBP=approx runs the DCT "
+                "approximation on the device)")
         qr = (float(cfg.get("min_quality", 30)),
               float(cfg.get("max_quality", 95)))
         return lambda gen, x: D.jpeg_compress(
@@ -432,13 +519,45 @@ def _noise_op(t: str, cfg: dict) -> Callable:
         sr = tuple(map(float, cfg.get("scale_range") or (0.5, 3.0)))
         return lambda gen, x: D.poisson_noise(x, D.draw_poisson_noise(
             gen, x.shape, sr))
+    if t == "speckle":
+        var = cfg.get("var_limit") or [0.001, 0.01]
+        sig = (math.sqrt(float(var[0])), math.sqrt(float(var[1])))
+        return lambda gen, x: D.speckle_noise(x, D.draw_speckle_noise(
+            gen, x.shape, sig))
+    if t in ("s&p", "sp"):
+        amt = float(cfg.get("amount", 0.01))
+        return lambda gen, x: D.salt_pepper_noise(
+            x, D.draw_salt_pepper_noise(gen, x.shape, (amt / 10, amt)))
+    if t in ("simplequantize", "simple_quantize"):
+        n = int(cfg.get("num_colors", cfg.get("rgb_range", 32)))
+        return lambda gen, x: D.quantize_colors(x, n)
+    if t in ("quantize", "som_quantize"):
+        n = int(cfg.get("num_colors", 32))
+        return lambda gen, x: D.som_quantize(
+            x, D.draw_som_quantize(gen, x.shape, n), n)
+    if "quantize" in t:  # km_quantize
+        n = int(cfg.get("num_colors", 32))
+        return lambda gen, x: D.kmeans_quantize(
+            x, D.draw_kmeans_quantize(gen, x.shape), n)
+    if t == "clahe":
+        return _clahe_op(cfg)
+    if "dither" in t:
+        return _dither_op(t, cfg)
+    if t == "maxrgb":
+        return lambda gen, x: D.max_rgb(x)
     if t == "camera":
         gain = tuple(map(float, cfg.get("rg_range") or (1.2, 2.4)))
         bg = tuple(map(float, cfg.get("bg_range") or (1.2, 2.4)))
         xyz = str(cfg.get("xyz_arr", "D50"))
         return lambda gen, x: D.camera_noise(x, D.draw_camera_noise(
             gen, x.shape, gain_range=gain, bg_range=bg), xyz_arr=xyz)
-    raise D.not_ported(f"noise type [{t}]")
+    if t == "superpixels":
+        n_seg = int(cfg.get("n_segments", 200))
+        return lambda gen, x: superpixel_structure(
+            x, draw_superpixel_structure(gen, x.shape[0]), n_segments=n_seg)
+    # the JAX package's last resort: gaussian noise at its defaults
+    return lambda gen, x: D.gaussian_noise(x, D.draw_gaussian_noise(
+        gen, x.shape))
 
 
 def _noise_stage(types: Sequence[str], cfgs: Dict[str, dict], prob: float,
@@ -535,8 +654,8 @@ def _resize_stage(types: Sequence[int], out_hw_fn, prob: float = 1.0,
     algos = _int_types(types)
     down_up_mode = any(t == 998 for t in algos)
     aligned = any(t in (995, 997) for t in algos)
-    if any(t in (996, 999) for t in algos):
-        raise D.not_ported("resize code 999 (realistic kernels)")
+    # 996 and 999 (the kernel pool, which BatchDegrader puts in place of
+    # the whole stage when it has one) are left out of the plain list
     plain = [t for t in algos if t not in (995, 996, 997, 998, 999)]
     if not plain and not (down_up_mode or aligned):
         plain = [777]
@@ -713,11 +832,20 @@ class BatchDegrader:
         self.params = p = params or {}
         cfgs = dataset_opt.get("aug_configs") or {}
         self.shuffle = bool(p.get("random_shuffle"))
-        if dataset_opt.get("dataroot_kernels"):
-            raise D.not_ported("the kernel pool of dataroot_kernels")
-        for name in ("auto_levels", "unsharp", "fringes"):
-            if name in p:
-                raise D.not_ported(f"the {name} stage")
+
+        # the realistic assets, read once on the host (numpy banks, the
+        # JAX package's bit for bit) and put on a device at first use
+        self.kernel_bank = load_kernel_pool(
+            dataset_opt.get("dataroot_kernels") or "")
+        noise_types = (p.get("noise") or {}).get("types") or []
+        self.patch_bank = None
+        if any(str(t).lower() == "patches" for t in noise_types) and \
+                dataset_opt.get("noise_data"):
+            lr_size = int(dataset_opt.get("crop_size", 128) or 128) // \
+                max(self.scale, 1)
+            self.patch_bank = load_noise_patches(
+                dataset_opt["noise_data"], patch_size=max(lr_size, 16))
+        self._banks: Dict[tuple, torch.Tensor] = {}
 
         # one attenuation config for every stage after the resize
         self._att_cfg = {"res_cfg": cfgs.get("resize") or {},
@@ -747,8 +875,12 @@ class BatchDegrader:
             elif name in ("noise", "noise2", "compression"):
                 types = conf["types"] or (["jpeg"] if name == "compression"
                                           else [])
-                if any(str(t).lower() == "patches" for t in types):
-                    raise D.not_ported("noise patches")
+                if any(str(t).lower() == "patches" for t in types) and \
+                        self.patch_bank is not None:
+                    # the whole stage: a real-noise patch per sample
+                    stages.append((name, _with_prob(self._patches_stage,
+                                                    conf["prob"])))
+                    continue
                 plain_fn = _noise_stage(types, cfgs, conf["prob"],
                                         weights=conf.get("weights"),
                                         cycle=cyc)
@@ -776,6 +908,12 @@ class BatchDegrader:
                               (shape[1] // s, shape[2] // s))
                 else:
                     out_fn = lambda shape: (shape[1], shape[2])  # noqa: E731
+                if name == "resize" and self.kernel_bank is not None and \
+                        any(t == 999 for t in conf["types"]):
+                    # the pool replaces the whole stage, the other types
+                    # of the list too
+                    stages.append((name, self._pool_stage))
+                    continue
                 stages.append((name, _resize_stage(
                     conf["types"], out_fn, conf["prob"],
                     down_up_types=dataset_opt.get("down_up_types"),
@@ -791,6 +929,15 @@ class BatchDegrader:
                     post_cfg=(cfgs.get("resize2")
                               if name == "resize" and "resize2" in p
                               else None))))
+            elif name == "auto_levels":
+                stages.append((name, _with_prob(
+                    lambda gen, x: D.auto_levels(x), conf["prob"])))
+            elif name in ("unsharp", "fringes"):
+                fn = _with_prob(self._unsharp if name == "unsharp"
+                                else self._fringes, conf["prob"])
+                stages.append((name, fn if self._att_cfg is None else {
+                    "no": fn,
+                    "att": _att_wrap(fn, self._att_cfg, square=True)}))
         self.stages = stages
 
         # the finals: [final_scale + final_blur] and [final_compression],
@@ -822,6 +969,37 @@ class BatchDegrader:
     @property
     def is_noop(self) -> bool:
         return not self.stages and not self.finals
+
+    def _bank(self, name: str, device) -> torch.Tensor:
+        """``kernel_bank`` or ``patch_bank`` on ``device``, copied there
+        once (at the first, eager call; a capture then finds it)."""
+        key = (name, str(device))
+        if key not in self._banks:
+            self._banks[key] = torch.from_numpy(getattr(self, name)).to(
+                device)
+        return self._banks[key]
+
+    def _pool_stage(self, gen, x):
+        """The first resize by the kernel pool: each sample blurred by a
+        pool kernel of its own on the input canvas, then subsampled to the
+        LR size."""
+        bank = self._bank("kernel_bank", x.device)
+        return apply_kernel_pool(
+            x, bank, draw_kernel_pool(gen, x.shape[0], bank.shape[0]),
+            self.scale)
+
+    def _patches_stage(self, gen, x):
+        bank = self._bank("patch_bank", x.device)
+        return apply_noise_patches(
+            x, bank, draw_noise_patches(gen, x.shape[0], bank.shape[0]))
+
+    @staticmethod
+    def _unsharp(gen, x):
+        return D.unsharp_mask(x, D.draw_unsharp_mask(gen, x.shape[0]))
+
+    @staticmethod
+    def _fringes(gen, x):
+        return D.fringes(x, D.draw_fringes(gen, x.shape[0]))
 
     def _finals(self, gen, x):
         """The finals: both orders of [final_scale + final_blur] and

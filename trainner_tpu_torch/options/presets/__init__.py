@@ -8,8 +8,12 @@ configs land in ``dataset["aug_configs"]``; pipeline flags merge flat into
 the dataset.
 
 The presets live beside this file as JSON (the same content as the JAX
-package's YAML files), so that reading one needs no PyYAML. Ported: the
-``base_*``, ``bsrgan_*`` and ``resrgan_*`` files. Another strategy raises.
+package's YAML files), so that reading one needs no PyYAML: the
+``base_*``, ``bsrgan_*``, ``resrgan_*``, ``realsr_*`` and ``combo_*``
+files. A strategy's axis without a file (realsr has no blur preset) is
+skipped, as in the JAX package; a preset named in the options
+(``base_*_preset``, ``add_*_preset``) that does not exist raises, where
+the JAX package skips it too.
 
 ``apply_network_presets`` (``apply_network_presets:59``) overlays the
 network presets ``gen_esrgan`` and ``disc_esrgan`` (or a preset file) on
@@ -23,7 +27,6 @@ import os
 
 _AXES = ("blur", "resize", "noise")
 _PRESET_DIR = os.path.dirname(os.path.abspath(__file__))
-PORTED_STRATEGIES = ("bsrgan", "resrgan")
 
 
 def find_preset_file(name: str, opt_path: str = "") -> str | None:
@@ -79,11 +82,6 @@ def apply_presets(dataset: dict, opt_path: str = "") -> None:
     strategy = dataset.get("augs_strategy")
     if not (strategy or any(dataset.get(f"add_{ax}_preset") for ax in _AXES)):
         return
-    if strategy and strategy not in PORTED_STRATEGIES:
-        raise NotImplementedError(
-            f"augs_strategy [{strategy}] is not ported yet (ROADMAP Queue A "
-            "5.2, the other preset strategies)")
-
     inline_cfgs = {k: dict(v)
                    for k, v in (dataset.get("aug_configs") or {}).items()
                    if isinstance(v, dict)}
@@ -91,11 +89,14 @@ def apply_presets(dataset: dict, opt_path: str = "") -> None:
     merged_pipeline: dict = {}
     for ax in _AXES:
         base_name = dataset.get(f"base_{ax}_preset") or f"base_{ax}"
-        strat_name = dataset.get(f"add_{ax}_preset") or (
-            f"{strategy}_{ax}" if strategy else None)
+        named = dataset.get(f"add_{ax}_preset")
+        strat_name = named or (f"{strategy}_{ax}" if strategy else None)
         for name in (base_name, strat_name):  # base first, strategy over it
             if not name:
                 continue
+            if name == strat_name and not named and \
+                    find_preset_file(name, opt_path) is None:
+                continue  # a strategy without a preset on this axis
             cfg = load_preset(name, opt_path)
             merged_pipeline.update(cfg.get("pipeline") or {})
             for aug_name, aug_cfg in cfg.items():
