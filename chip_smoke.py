@@ -4397,7 +4397,7 @@ def _ops_card_vs_cpu(smi: str, root: str, assets: tuple) -> dict:
         check("superpixel_structure 200", S.superpixel_structure,
               (x, S.draw_superpixel_structure(gen, b), 200), share=True)
         pool = torch.from_numpy(K.load_kernel_pool(assets[0]))
-        patches = K.to_device(K.load_noise_patches(assets[1], 16), "cpu")
+        patches = torch.from_numpy(K.load_noise_patches(assets[1], 16))
         check("apply_kernel_pool (blur kernel, k 21)", K.apply_kernel_pool,
               (x, pool, K.draw_kernel_pool(gen, b, pool.shape[0]), 4), 1e-5)
         check("apply_noise_patches", K.apply_noise_patches,
