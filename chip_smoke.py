@@ -147,7 +147,24 @@ non-zero exit code and no result line:
    CLI on ``train_sr.yml`` with combo (12 iterations and a resume to 16,
    31 blur launches per batch from the trace) and with realsr (6, no
    blur); the blur kernel's times for this slice's callers (the pool and
-   motion banks, combo's routing slices, unsharp's k 11).
+   motion banks, combo's routing slices, unsharp's k 11);
+16. losses (after the degradations): the rest of the loss stack of
+   ``train_sr.yml`` (its commented loss block switched on, with
+   ``cx_type`` and ``hfen_criterion``: contextual, HFEN, tv, MS-SSIM,
+   LPIPS on a seeded VGG19 file, wgan-gp with its gradient penalty on
+   ``discriminator_vgg_128_sn``; validation with ``psnr,ssim,lpips`` on a
+   seeded squeeze file). Each loss of the stack, the penalty and the LPIPS
+   metric, card against the port's CPU result in f32 with TF32 off (the
+   contextual loss also against an f64 run of the port's code, each side's
+   distance from it read); the ResNet-101 and MINC feature losses card
+   against CPU at b=4; the refusal of wgan-gp with a batch-norm D; the
+   step at b=32, 32 -> 128 px, bf16, as a graph against eager (69 + 69
+   block launches per replay from a trace), its times beside the flagship
+   step's in turns, its peak memory and the device time of each added loss
+   and of the penalty's pass; the training CLI on the yml (12 iterations
+   and a resume to 16, 69 + 69 block and 24 blur launches per step from
+   the trace, LPIPS in the validation) and its rate eager and graphed in
+   turns.
 
 Launches: the kernel wrappers count where they put a kernel on a stream,
 eagerly or into a graph being captured (a replay runs no Python). What the
@@ -1528,8 +1545,8 @@ def _cli_options(root: str, corpus: str, yml: str = None,
     (applied to the options dict), its data roots (the corpus; a
     validation set of ``N_VAL`` corpus images and their bicubic LR at the
     options' scale, written here), ``niter``, the frequencies and
-    ``path.root`` (``root/name``). Returns the path of the options
-    file."""
+    ``path.root`` (``root/name``; the other ``path`` keys as the file and
+    ``edit`` left them). Returns the path of the options file."""
     import numpy as np
 
     from trainner_tpu_torch.data.common import decode_image, save_img
@@ -1556,7 +1573,8 @@ def _cli_options(root: str, corpus: str, yml: str = None,
     opt["datasets"]["val"].update(dataroot_HR=val_hr, dataroot_LR=val_lr)
     opt["train"].update(niter=niter, val_freq=CLI_FREQ)
     opt["logger"].update(print_freq=2, save_checkpoint_freq=CLI_FREQ)
-    opt["path"] = {"root": os.path.join(root, name)}
+    opt["path"] = {**(opt.get("path") or {}),
+                   "root": os.path.join(root, name)}
     path = os.path.join(root, f"{name}_options.json")
     with open(path, "w") as f:
         json.dump(opt, f)
@@ -3233,10 +3251,12 @@ def _graph_mixed_sizes(smi: str, root: str) -> None:
               f"graphs kept {runs[True][0][2]} ({smi})")
 
 
-def _graph_cli(smi: str, root: str) -> None:
+def _graph_cli(smi: str, root: str, options: str = "cli_options.json",
+               label: str = "train_sr.yml") -> None:
     """The training CLI's steady rate, eager (the trainer and the degrader
-    made with ``graphs=False``) against graphed (the default), on
-    ``train_sr.yml`` at full width, 8 iterations each, in turns."""
+    made with ``graphs=False``) against graphed (the default), on the
+    options ``phase_cli`` wrote (``train_sr.yml`` at full width by
+    default), 8 iterations each, in turns."""
     import torch
 
     from torch.autograd import DeviceType
@@ -3249,15 +3269,16 @@ def _graph_cli(smi: str, root: str) -> None:
     orig = (cli.create_sr_trainer, cli.make_otf_degradation)
     rates = {}
     for n, graphs in enumerate((False, True, True, False)):
-        with open(os.path.join(root, "cli_options.json")) as f:
+        with open(os.path.join(root, options)) as f:
             opt = json.load(f)
         opt["train"].update(niter=8, val_freq=10 ** 6)
         opt["logger"].update(print_freq=10 ** 6,
                              save_checkpoint_freq=10 ** 6)
-        opt["path"] = {"root": os.path.join(root, f"cli_rate_{n}")}
+        stem = options.removesuffix(".json").removesuffix("_options")
+        opt["path"]["root"] = os.path.join(root, f"{stem}_rate_{n}")
         opt["datasets"]["train"]["dataroot_HR"] = corpus
         opt["datasets"].pop("val", None)
-        path = os.path.join(root, f"cli_rate_{n}.json")
+        path = os.path.join(root, f"{stem}_rate_{n}.json")
         with open(path, "w") as f:
             json.dump(opt, f)
         starts, ends, traced = [], [], []
@@ -3299,11 +3320,12 @@ def _graph_cli(smi: str, root: str) -> None:
         rates.setdefault(graphs, []).append(6 / (ends[0] - starts[2]))
         busy = sum(e.time_range.elapsed_us() for e in prof.events()
                    if e.device_type == DeviceType.CUDA) / 1e3
-        print(f"trace: cli main() {'graphed' if graphs else 'eager'}, one "
+        print(f"trace: cli main() on {label} "
+              f"{'graphed' if graphs else 'eager'}, one "
               f"iteration (step 6: loader, degrader, step): wall "
               f"{traced[0] * 1e3:.3f} ms (traced), device busy {busy:.3f} "
               f"ms, idle share {1 - busy / (traced[0] * 1e3):.4f} ({smi})")
-    print(f"times: cli main() on train_sr.yml, steps 3-8 (synchronised "
+    print(f"times: cli main() on {label}, steps 3-8 (synchronised "
           f"at the end of step 8), it/s in turns (eager, graphed, graphed, "
           f"eager): eager {rates[False]}, graphed {rates[True]} ({smi})")
 
@@ -4540,6 +4562,494 @@ def phase_degradations(smi: str, root: str) -> tuple:
     return traces, rows
 
 
+# ---------------------------------------------------------------------------
+# losses: the rest of the loss stack on train_sr.yml
+# ---------------------------------------------------------------------------
+
+# train_sr.yml's commented loss block (lines 82-88) switched on, with the
+# type and the criterion that cx and hfen need to make an entry, and
+# wgan-gp with its penalty in place of the vanilla GAN
+LOSS_STACK = {"cx_weight": 0.5, "cx_type": "contextual",
+              "hfen_weight": 1e-6, "hfen_criterion": "l1",
+              "tv_type": "tv", "tv_weight": 1e-5,
+              "ssim_type": "ms-ssim", "ssim_weight": 0.2,
+              "lpips_weight": 0.5, "gan_type": "wgan-gp", "gp_weight": 10}
+LOSS_NAMES = ["l_g_pix", "l_g_fea", "l_g_cx", "l_g_lpips", "l_g_HFEN",
+              "l_g_tv", "l_g_ssim"]
+LOSS_D = {"type": "discriminator_vgg_128_sn", "base_nf": 64}
+LOSS_CPU = (2, 128, 128, 3)   # each loss and the penalty, card against CPU
+FEATNET_CPU = (4, 64, 64, 3)  # the ResNet-101 and MINC feature losses
+# card against CPU, f32, TF32 off: a value within LOSS_VALUE_TOL of the
+# CPU's. A gradient through ReLUs (VGG), LeakyReLUs (D), an L1 or a max
+# jumps where an input lies within rounding of a kink, and the card and the
+# CPU round differently (ROADMAP C 15): so each side's gradient is held to
+# an f64 run of the port's code that takes the branches that side took
+# (``_Branches``), within LOSS_GRAD_TOL of the largest element
+LOSS_VALUE_TOL = 1e-4
+LOSS_GRAD_TOL = 1e-3
+CARD = "cuda"  # the card's side of those comparisons
+
+
+def _write_loss_assets(root: str) -> tuple:
+    """A converted-VGG19 file (``path.vgg_weights``) and an LPIPS squeeze
+    file holding the backbone only (``path.lpips_weights``; the bundled
+    lin vectors complete it), drawn from a numpy seed: He-scaled kernels,
+    small biases. Returns their paths."""
+    import numpy as np
+
+    from trainner_tpu_torch.losses.lpips import SqueezeFeatures
+    from trainner_tpu_torch.models.perceptual import VGG_CFGS
+
+    os.makedirs(root, exist_ok=True)
+    rng = np.random.RandomState(16)
+
+    def conv(k, cin, cout):
+        return ((rng.randn(k, k, cin, cout) * np.sqrt(2.0 / (k * k * cin))
+                 ).astype(np.float32),
+                (rng.randn(cout) * 0.01).astype(np.float32))
+
+    vgg, cin = {}, 3
+    for b, n in enumerate(VGG_CFGS["vgg19"], start=1):
+        cout = 64 * min(2 ** (b - 1), 8)
+        for c in range(1, n + 1):
+            vgg[f"conv{b}_{c}/kernel"], vgg[f"conv{b}_{c}/bias"] = conv(
+                3, cin, cout)
+            cin = cout
+    squeeze = {}
+    for name, m in SqueezeFeatures().named_children():
+        squeeze[f"net/{name}/kernel"], squeeze[f"net/{name}/bias"] = conv(
+            m.kernel_size[0], m.in_channels, m.out_channels)
+    paths = (os.path.join(root, "vgg19.npz"),
+             os.path.join(root, "lpips_squeeze.npz"))
+    np.savez(paths[0], **vgg)
+    np.savez(paths[1], **squeeze)
+    return paths
+
+
+def _loss_stack_options(vgg: str):
+    """The step's options: the flagship at full width with the loss stack,
+    D-VGG-128 with spectral norm, ``path.vgg_weights`` the seeded file."""
+    def options(**train) -> dict:
+        opt = _train_options(**{**LOSS_STACK, **train})
+        opt["network_D"] = dict(LOSS_D)
+        opt["path"] = {"vgg_weights": vgg}
+        return opt
+    return options
+
+
+def _loss_stack_edit(vgg: str, squeeze: str):
+    """``train_sr.yml`` with the loss stack, its D and the seeded files;
+    validation with ``psnr,ssim,lpips``."""
+    def edit(opt: dict) -> None:
+        opt["network_D"] = dict(LOSS_D)
+        opt["train"].update(LOSS_STACK, metrics="psnr,ssim,lpips")
+        opt["path"] = {**(opt.get("path") or {}), "vgg_weights": vgg,
+                       "lpips_weights": squeeze}
+    return edit
+
+
+def _f64_copy(module):
+    """A copy of ``module`` in f64, its ``dtype`` attributes too (the
+    witness of ``_in_f64``)."""
+    import copy
+
+    import torch
+
+    m = copy.deepcopy(module).double()
+    for sub in m.modules():
+        if isinstance(getattr(sub, "dtype", None), torch.dtype):
+            sub.dtype = torch.float64
+    return m
+
+
+def _rel(a, b) -> float:
+    """|a - b| over |b| for floats; for tensors, or dicts of them, the
+    largest element's distance over b's largest, the worst tensor's."""
+    if isinstance(b, dict):
+        return max(_rel(a[k], v) for k, v in b.items())
+    if isinstance(b, float):
+        return abs(a - b) / max(abs(b), 1e-12)
+    return float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
+
+
+class _Branches:
+    """Records the branch every piecewise op of a run takes (the masks of
+    ``relu`` and ``leaky_relu``, the signs of ``abs``, the picks of
+    ``max_pool2d``, ``amax`` and ``amin``), on the host, in call order;
+    given the records of another run, makes each op take that run's
+    branch instead (a mask, a sign or a gather, so gradients follow it
+    too). An f64 run that replays the card's branches differs from the
+    card's by rounding alone, where a branch that rounding flips would
+    move a gradient by its whole share."""
+
+    OPS = ("relu", "leaky_relu", "abs", "max_pool2d", "amax", "amin")
+
+    def __init__(self, replay=None):
+        self.replay = None if replay is None else list(replay)
+        self.records = []
+
+    def __enter__(self):
+        from torch.overrides import TorchFunctionMode
+
+        branches = self
+
+        class Mode(TorchFunctionMode):
+            def __torch_function__(self, func, types, args=(), kwargs=None):
+                kwargs = kwargs or {}
+                name = getattr(func, "__name__", "")
+                if name not in _Branches.OPS:
+                    return func(*args, **kwargs)
+                return branches._op(name, func, args, kwargs)
+
+        self._mode = Mode()
+        self._mode.__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        self._mode.__exit__(*exc)
+
+    def _op(self, name, func, args, kwargs):
+        import torch
+        import torch.nn.functional as F
+
+        x = args[0]
+        if self.replay is None:
+            out = func(*args, **kwargs)
+            if name == "relu":
+                rec = x > 0
+            elif name == "leaky_relu":
+                rec = x > 0
+            elif name == "abs":
+                rec = x.sign().to(torch.int8)
+            elif name == "max_pool2d":
+                rec = F.max_pool2d(*args, **{**kwargs,
+                                             "return_indices": True})[1]
+            else:
+                dim = args[1] if len(args) > 1 else kwargs["dim"]
+                pick = x.argmax if name == "amax" else x.argmin
+                rec = pick(dim, keepdim=True)
+            self.records.append(rec.cpu())
+            return out
+        rec = self.replay.pop(0).to(x.device)
+        if name == "relu":
+            return torch.where(rec, x, torch.zeros_like(x))
+        if name == "leaky_relu":
+            slope = kwargs.get("negative_slope",
+                               args[1] if len(args) > 1 else 0.01)
+            return torch.where(rec, x, x * slope)
+        if name == "abs":
+            return x * rec.to(x.dtype)
+        if name == "max_pool2d":
+            return x.flatten(2).gather(2, rec.flatten(2)).view(rec.shape)
+        dim = args[1] if len(args) > 1 else kwargs["dim"]
+        keep = kwargs.get("keepdim", args[2] if len(args) > 2 else False)
+        out = x.gather(dim, rec)
+        return out if keep else out.squeeze(dim)
+
+    @staticmethod
+    def flips(a, b) -> int:
+        """How many elements' branches differ between two records."""
+        return sum(int((x != y).sum()) for x, y in zip(a, b))
+
+
+def _three_ways(label: str, run, smi: str) -> dict:
+    """``run(side)`` for side 'cpu', 'cuda' and 'f64' -> (value, gradient:
+    a tensor or a dict of them). Runs the CPU and the card, recording
+    their branches (``_Branches``), then the port's code in f64 on the
+    CPU (``_in_f64``) three times: free, with the card's branches and with
+    the CPU's. Prints and returns the readings; fails unless the card's
+    value is within ``LOSS_VALUE_TOL`` of the CPU's and its gradient within
+    ``LOSS_GRAD_TOL`` of the f64 gradient on its own branches."""
+    def host(g):
+        return {k: v.detach().double().cpu().clone() for k, v in g.items()} \
+            if isinstance(g, dict) else g.detach().double().cpu().clone()
+
+    got, records = {}, {}
+    for side, replay in (("cpu", None), ("cuda", None), ("f64", None),
+                         ("f64 card", "cuda"), ("f64 cpu", "cpu")):
+        with _Branches(records.get(replay)) as branches:
+            if side.startswith("f64"):
+                with _in_f64() as f32:
+                    value, grad = run("f64")
+                if f32:
+                    raise AssertionError(f"losses: the f64 run of {label} "
+                                         f"ran f32 ops {sorted(set(f32))}")
+            else:
+                value, grad = run(side)
+        if replay is None:
+            records[side] = branches.records
+        elif branches.replay:
+            raise AssertionError(f"losses: {label}: {len(branches.replay)}"
+                                 f" branch records left over")
+        got[side] = (float(value), host(grad))
+    r = {"value": _rel(got["cuda"][0], got["cpu"][0]),
+         "grad": _rel(got["cuda"][1], got["cpu"][1]),
+         "card_f64": _rel(got["cuda"][1], got["f64"][1]),
+         "cpu_f64": _rel(got["cpu"][1], got["f64"][1]),
+         "card_own_f64": _rel(got["cuda"][1], got["f64 card"][1]),
+         "cpu_own_f64": _rel(got["cpu"][1], got["f64 cpu"][1])}
+    flips = {side: _Branches.flips(records[side], records["f64"])
+             for side in ("cuda", "cpu")}
+    print(f"losses: {label}, card against CPU (f32, TF32 off) and each "
+          f"against f64: value {got['cuda'][0]:.6g} (CPU "
+          f"{got['cpu'][0]:.6g}, f64 {got['f64'][0]:.6g}); "
+          + ", ".join(f"{k} {v:.3e}" for k, v in r.items())
+          + f"; branches off f64's: card {flips['cuda']}, CPU "
+          f"{flips['cpu']} of {sum(t.numel() for t in records['f64'])} "
+          f"({smi})")
+    if not (math.isfinite(got["cuda"][0]) and r["value"] <= LOSS_VALUE_TOL
+            and r["card_own_f64"] <= LOSS_GRAD_TOL):
+        raise AssertionError(f"losses: {label}: {r}")
+    return r
+
+
+def _losses_card_vs_cpu(smi: str, vgg: str, squeeze: str) -> None:
+    """Each loss of the stack, the penalty and the ResNet-101 and MINC
+    feature losses, card against CPU in f32 with TF32 off and each against
+    an f64 run (``_three_ways``); the LPIPS metric card against CPU; the
+    refusal of wgan-gp with a batch-norm D."""
+    import copy
+
+    import numpy as np
+    import torch
+
+    from trainner_tpu_torch.losses.gan import AdversarialLoss
+    from trainner_tpu_torch.losses.generator_loss import GeneratorLoss
+    from trainner_tpu_torch.losses.lpips import LPIPSMetric
+    from trainner_tpu_torch.losses.perceptual import PerceptualLoss
+    from trainner_tpu_torch.models.networks import define_D
+    from trainner_tpu_torch.train.sr_trainer import create_trainer
+
+    opt = {"train": {**_train_options()["train"], **LOSS_STACK},
+           "path": {"vgg_weights": vgg}}
+    cpu = GeneratorLoss(opt, device_dtype=torch.float32)
+    names = [e.name for e in cpu.entries]
+    if names != LOSS_NAMES:
+        raise AssertionError(f"losses: the stack's entries {names}")
+    fns = {"cpu": cpu, "cuda": copy.deepcopy(cpu).to(CARD),
+           "f64": _f64_copy(cpu)}
+    gen = torch.Generator().manual_seed(16)
+    hr = torch.rand(LOSS_CPU, generator=gen)
+    sr = (hr + 0.1 * torch.randn(LOSS_CPU, generator=gen)).clamp(0, 1)
+
+    def tensors(side, *ts):
+        """Fresh leaves of ``ts`` for one side."""
+        return [t.double().detach().clone() if side == "f64"
+                else t.detach().to(side).clone() for t in ts]
+
+    for i, name in enumerate(names):
+        def run(side, i=i):
+            e = fns[side].entries[i]
+            x, y = tensors(CARD if side == "cuda" else side, sr, hr)
+            x.requires_grad_(True)
+            val = e.fn(x, y) if e.needs_target else e.fn(x)
+            val.backward()
+            return val.detach(), x.grad
+        _three_ways(f"{name} at {LOSS_CPU}", run, smi)
+
+    # the penalty: wgan-gp's D stage on D-VGG-128 with spectral norm
+    d_cpu = define_D({"network_D": dict(LOSS_D)}, dtype=torch.float32)
+    d_cpu.init_weights(torch.Generator().manual_seed(1))
+    nets = {"cpu": d_cpu, "cuda": copy.deepcopy(d_cpu).to(CARD),
+            "f64": _f64_copy(d_cpu)}
+    fake, real = torch.rand(LOSS_CPU, generator=gen), \
+        torch.rand(LOSS_CPU, generator=gen)
+    alpha = torch.rand((LOSS_CPU[0], 1, 1, 1), generator=gen)
+    adv = AdversarialLoss(gan_type="wgan-gp", gp_weight=10.0)
+    gps = {}
+
+    def d_stage(side):
+        d = nets[side]
+        d.zero_grad(set_to_none=True)
+        f, r, a = tensors(CARD if side == "cuda" else side, fake, real,
+                          alpha)
+        total, logs = adv.discriminator_loss(
+            lambda x: d(x, train=True), f, r, alpha=a)
+        total.backward()
+        gps[side] = float(logs["l_d_gp"].detach())
+        return total.detach(), {k: p.grad for k, p in d.named_parameters()}
+    _three_ways(f"wgan-gp D stage at {LOSS_CPU} (gp_weight 10, D-VGG-128 "
+                f"with spectral norm; the gradient is D's, through the "
+                f"penalty's double backward)", d_stage, smi)
+    print(f"losses: l_d_gp card {gps['cuda']:.6g}, CPU {gps['cpu']:.6g}, "
+          f"f64 {gps['f64']:.6g}")
+    if _rel(gps["cuda"], gps["cpu"]) > LOSS_VALUE_TOL:
+        raise AssertionError("losses: l_d_gp card against CPU")
+
+    # the LPIPS metric on the seeded squeeze file
+    rng = np.random.RandomState(17)
+    a = (rng.rand(128, 128, 3) * 255).astype(np.uint8)
+    b = np.clip(a.astype(np.int32) + rng.randint(-30, 30, a.shape), 0,
+                255).astype(np.uint8)
+    vals = {side: LPIPSMetric(net="squeeze", weights_path=squeeze,
+                              device=dev)(a, b)
+            for side, dev in (("cpu", "cpu"), ("cuda", CARD))}
+    print(f"losses: LPIPS metric (squeeze, seeded backbone, bundled lin) "
+          f"on a 128 px pair: card {vals['cuda']:.6g}, CPU "
+          f"{vals['cpu']:.6g}, {_rel(vals['cuda'], vals['cpu']):.3e} "
+          f"({smi})")
+    if _rel(vals["cuda"], vals["cpu"]) > LOSS_VALUE_TOL:
+        raise AssertionError("losses: the LPIPS metric card against CPU")
+
+    # the single-tap feature losses
+    x = torch.rand(FEATNET_CPU, generator=gen)
+    y = torch.rand(FEATNET_CPU, generator=gen)
+    for arch in ("resnet101", "minc"):
+        ploss = PerceptualLoss(arch=arch, dtype=torch.float32)
+        feats = {"cpu": ploss, "cuda": copy.deepcopy(ploss).to(CARD),
+                 "f64": _f64_copy(ploss)}
+
+        def run(side):
+            xs, ys = tensors(CARD if side == "cuda" else side, x, y)
+            xs.requires_grad_(True)
+            val = feats[side](xs, ys)
+            val.backward()
+            return val.detach(), xs.grad
+        _three_ways(f"{arch} feature loss at {FEATNET_CPU}", run, smi)
+
+    # wgan-gp with a batch-norm D is refused, as the JAX step fails there
+    bad = _loss_stack_options(vgg)()
+    bad["network_D"] = {"type": "discriminator_vgg", "size": 128,
+                        "base_nf": 64}
+    try:
+        create_trainer(bad, device=CARD).init_state(0)
+    except NotImplementedError as e:
+        if "ROADMAP C 18" not in str(e):
+            raise
+        print(f"losses: wgan-gp with a batch-norm D refused: {e}")
+    else:
+        raise AssertionError("losses: wgan-gp with a batch-norm D ran")
+    del fns, nets, feats
+    torch.cuda.empty_cache()
+
+
+def _loss_stack_step_times(smi: str, vgg: str) -> None:
+    """The graphed bf16 step at b=32, 32 -> 128 px, with the loss stack
+    beside the flagship's, 10 steps each in turns (flagship, stack, stack,
+    flagship); each one's replay traced (device busy, kernels), its peak
+    memory over the warm-up and capture, its graph pool; then the device
+    time of each added loss (forward and backward, eager, at the step's
+    shapes and dtypes) and of the penalty (the D stage with it less
+    without it)."""
+    import dataclasses
+
+    import torch
+
+    from trainner_tpu_torch.train.sr_trainer import create_trainer
+
+    batch = _train_batch(seed=1)
+    runs = {}
+    for name, options in (("loss stack", _loss_stack_options(vgg)),
+                          ("flagship", _train_options)):
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        tr = create_trainer(options())
+        st = tr.init_state(0)
+        for _ in range(3):
+            tr.train_step(st, batch)
+        torch.cuda.synchronize()
+        runs[name] = (tr, st, torch.cuda.max_memory_allocated() - base,
+                      next(iter(tr.step_graphs().values())))
+    ms = {}
+    for name in ("flagship", "loss stack", "loss stack", "flagship"):
+        tr, st = runs[name][:2]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(10):
+            tr.train_step(st, batch)
+        torch.cuda.synchronize()
+        ms.setdefault(name, []).append((time.perf_counter() - t0) * 1e2)
+    busy = {}
+    for name, (tr, st, peak, cap) in runs.items():
+        calls, busy[name], wall = _kernel_calls(
+            lambda: tr.train_step(st, batch))
+        print(f"times: {name} step graphed, bf16, b=32 32->128 px: ms per "
+              f"step over 10 in turns (flagship, stack, stack, flagship) "
+              f"{ms[name]}, it/s {1e3 / min(ms[name]):.4f}; one replay "
+              f"traced: device busy {busy[name]:.3f} ms in "
+              f"{sum(calls.values())} kernels, wall {wall:.3f} ms; peak "
+              f"memory {peak / 2 ** 30:.2f} GiB (max_memory_allocated over "
+              f"its warm-up and capture); graph pool "
+              f"{cap.pool_bytes / 2 ** 20:.1f} MiB ({smi})")
+    tr, st = runs["loss stack"][:2]
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    fake = torch.rand(batch["HR"].shape, device="cuda", generator=gen)
+    hr = batch["HR"]
+    parts = {}
+    for e in tr.generator_loss.entries:
+        if e.name in ("l_g_cx", "l_g_lpips", "l_g_ssim", "l_g_HFEN",
+                      "l_g_tv"):
+            def loss(e=e):
+                x = fake.clone().requires_grad_(True)
+                (e.fn(x, hr) if e.needs_target else e.fn(x)).backward()
+            loss()
+            parts[e.name] = _kernel_calls(loss)[1]
+    net_d = st.d.net
+    for gp in (tr.adversarial.gp_weight, None):
+        adv = dataclasses.replace(tr.adversarial, gp_weight=gp)
+
+        def d_stage(adv=adv):
+            l_d, _ = adv.discriminator_loss(
+                lambda x: net_d(x, train=True), fake, hr,
+                generator=st.noise_generator)
+            l_d.backward()
+        d_stage()
+        parts["D stage" if gp is None else "D stage with the penalty"] = \
+            _kernel_calls(d_stage)[1]
+    parts["the penalty's pass"] = parts.pop("D stage with the penalty") \
+        - parts["D stage"]
+    print(f"times: device ms of each added part (eager, one call under "
+          f"the profiler, forward and backward, b=32 at 128 px): "
+          + ", ".join(f"{k} {v:.3f}" for k, v in parts.items())
+          + f"; the replays' busy times differ by "
+          f"{busy['loss stack'] - busy['flagship']:.3f} ms (the stack's D "
+          f"has spectral norm, the flagship's batch norm) ({smi})")
+    del runs, tr, st
+    torch.cuda.empty_cache()
+
+
+def phase_losses(smi: str, root: str) -> dict:
+    """Phase 16: the rest of the loss stack. Writes the seeded weight
+    files (``_write_loss_assets``); holds each loss, the penalty, the
+    LPIPS metric and the ResNet-101 and MINC losses card against CPU
+    (``_losses_card_vs_cpu``); the step with the stack as a graph against
+    eager (``_graph_step``: within the step tolerances, 69 + 69 block
+    launches per replay from a trace, times in turns); its time beside the
+    flagship's, its memory and the device time of each added part
+    (``_loss_stack_step_times``); then ``train_sr.yml`` with the stack
+    through the training CLI (12 iterations and a resume to 16, 69 + 69
+    block and 24 blur launches per step from the trace, LPIPS in each
+    validation) and its rate eager and graphed in turns. Returns the CLI
+    runs' traces."""
+    t0 = time.perf_counter()
+    vgg, squeeze = _write_loss_assets(os.path.join(root, "loss_assets"))
+    _losses_card_vs_cpu(smi, vgg, squeeze)
+    _graph_step(smi, _loss_stack_options(vgg), types=(True,),
+                label="loss stack ", noise=False)
+    _loss_stack_step_times(smi, vgg)
+    runs = phase_cli(smi, root, TRAIN_YML, "cli_losses",
+                     edit=_loss_stack_edit(vgg, squeeze))
+    with open(os.path.join(root, "cli_losses_options.json")) as f:
+        name = json.load(f)["name"]
+    rows = [json.loads(line) for line in open(os.path.join(
+        root, "cli_losses", "experiments", name, "tb", "scalars.jsonl"))]
+    lpips = {r["step"]: r["value"] for r in rows if r["tag"] == "val/lpips"}
+    losses = {r["tag"] for r in rows if r["tag"].startswith("train/l_")}
+    want = {f"train/{k}" for k in LOSS_NAMES + ["l_d_gp"]}
+    print(f"losses: cli_losses validation LPIPS {lpips}; losses logged "
+          f"{sorted(losses)}")
+    if sorted(lpips) != [CLI_FREQ, CLI_NITER] or not all(
+            math.isfinite(v) and v >= 0 for v in lpips.values()) \
+            or not want <= losses:
+        raise AssertionError(f"losses: the CLI's scalars: lpips {lpips}, "
+                             f"missing {sorted(want - losses)}")
+    _graph_cli(smi, root, "cli_losses_options.json",
+               "train_sr.yml with the loss stack")
+    print(f"losses: ok in {time.perf_counter() - t0:.1f} s ({smi})")
+    return {f"loss stack cli {k}": v for k, v in runs.items()}
+
+
 def phase_graphs(smi: str, root: str) -> None:
     """The programs as CUDA graphs against the same programs run eagerly
     (``graphs=False``), in one process: the step (bf16, f32) with its
@@ -4629,6 +5139,9 @@ def main(argv=None) -> int:
         torch.backends.cuda.matmul.allow_tf32 = False
         deg_traces, caller_rows = phase_degradations(smi, root)
         cli_counts.update(deg_traces)
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
+        cli_counts.update(phase_losses(smi, root))
         torch.backends.cudnn.allow_tf32 = False
         torch.backends.cuda.matmul.allow_tf32 = False
         rows = phase_times(smi, root)

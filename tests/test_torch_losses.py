@@ -14,8 +14,7 @@ from trainner_tpu.losses.perceptual import PerceptualLoss as JaxPerceptual
 from trainner_tpu_torch.losses.basic import get_pixel_criterion
 from trainner_tpu_torch.losses.gan import (AdversarialLoss,
                                            build_adversarial, gan_loss)
-from trainner_tpu_torch.losses.generator_loss import (GeneratorLoss,
-                                                      build_loss_list)
+from trainner_tpu_torch.losses.generator_loss import GeneratorLoss
 from trainner_tpu_torch.losses.perceptual import PerceptualLoss
 from trainner_tpu_torch.utils.torch_interop import vgg_from_jax
 
@@ -97,8 +96,14 @@ def test_build_adversarial_defaults_to_relativistic_vanilla():
     ref = jax_gan.build_adversarial({"gan_weight": 5e-3})
     assert (adv.gan_type, adv.form, adv.gan_weight, adv.use_featmaps) == \
         (ref.gan_type, ref.form, ref.gan_weight, ref.use_featmaps)
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue A"):
-        build_adversarial({"gan_type": "wgan-gp"})
+    # wgan-gp is ported (ROADMAP Queue A 10.7): its fields as JAX's; a
+    # type neither package knows raises
+    adv = build_adversarial({"gan_type": "wgan-gp", "gp_weight": 10})
+    ref = jax_gan.build_adversarial({"gan_type": "wgan-gp", "gp_weight": 10})
+    assert (adv.gan_type, adv.gp_weight, adv.conditional) == \
+        (ref.gan_type, ref.gp_weight, ref.conditional)
+    with pytest.raises(NotImplementedError, match="not implemented"):
+        build_adversarial({"gan_type": "ragan"})
 
 
 def _carry_vgg(jax_ploss, port_ploss):
@@ -164,5 +169,34 @@ def test_pixel_criteria_match_jax(name):
      "feature_network": "resnet101"},
 ])
 def test_unported_losses_raise_and_name_their_item(train_opt):
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue A 10.7"):
-        build_loss_list(train_opt)
+    """These options raised before the loss stack was ported (ROADMAP
+    Queue A 10.7, done). Each now builds the JAX package's entries, in its
+    order, and the stack's logs and total agree with the JAX package's
+    within 1e-5 relative, the feature networks' random weights carried
+    across (the two packages draw them differently)."""
+    from trainner_tpu.models.perceptual import VGGFeatures as JaxVGG
+    from trainner_tpu_torch.utils.torch_interop import resnet_from_jax
+
+    opt = {"train": dict(train_opt)}
+    want = JaxGenLoss(opt, device_dtype=jnp.float32)
+    got = GeneratorLoss(opt, device_dtype=torch.float32)
+    assert [e.name for e in got.entries] == [e.name for e in want.entries]
+    assert len(got.entries) == 1
+    for g, w in zip(got.entries, want.entries):
+        variables = getattr(w.fn, "variables", None)
+        if variables is None:
+            continue
+        if isinstance(w.fn.model, JaxVGG):
+            g.fn.model.load_state_dict(vgg_from_jax(
+                jax.tree.map(np.asarray, variables)), strict=False)
+        else:
+            g.fn.model.load_state_dict(resnet_from_jax(
+                jax.tree.map(np.asarray, variables)), strict=False)
+    sr = RNG.rand(2, 32, 32, 3).astype(np.float32)
+    hr = RNG.rand(2, 32, 32, 3).astype(np.float32)
+    w_total, w_logs = want(jnp.asarray(sr), jnp.asarray(hr))
+    total, logs = got(torch.from_numpy(sr), torch.from_numpy(hr))
+    assert list(logs) == list(w_logs)
+    for k in logs:
+        _close(logs[k], w_logs[k], 1e-5)
+    _close(total, w_total, 1e-5)

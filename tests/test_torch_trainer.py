@@ -122,14 +122,19 @@ def test_create_trainer_trains_in_bf16_on_the_card_by_default(monkeypatch):
         create_trainer(_opt())
 
 
+# hfen_weight, ssim_weight and gan_type wgan-gp left this list when the
+# loss stack was ported (ROADMAP Queue A 10.7; held against the JAX
+# package in test_torch_loss_stack.py and test_torch_wgan_gp.py); three
+# options of A 10.9 that still raise took their places
 @pytest.mark.parametrize("where,key,value", [
     ("train", "mixup", True), ("train", "diffaug", True),
-    ("train", "fs", True), ("train", "hfen_weight", 1.0),
+    ("train", "fs", True), ("train", "lr_scheme", "CosineAnnealingLR"),
     ("opt", "use_atg", True), ("train", "freeze_loc", 2),
     ("opt", "use_swa", True), ("train", "freeze_d", True),
     ("train", "grad_clip", "auto"), ("train", "virtual_batch_size", 8),
     ("train", "optim_G", "ranger"), ("train", "lr_scheme", "StepLR"),
-    ("train", "gan_type", "wgan-gp"), ("train", "ssim_weight", 1.0),
+    ("train", "optim_D", "madgrad"), ("train", "lr_scheme",
+                                      "ReduceLROnPlateau"),
 ])
 def test_options_outside_the_slice_raise_and_name_their_item(where, key,
                                                              value):

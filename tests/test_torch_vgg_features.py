@@ -63,8 +63,16 @@ def test_relu_taps_early_exit_and_z_norm():
 
 
 def test_vgg16_without_input_norm():
-    _check(*_pair(["relu:conv4_3"], arch="vgg16", use_input_norm=False),
-           _images(2), 1e-5)
+    """VGG16 without the input normalisation, at conv4_3's ReLU tap. The
+    JAX package's ``canonical_layer`` turns the spelling 'relu:conv4_3'
+    into a name no tap has, so its module returned nothing for it and this
+    test compared two empty outputs (ROADMAP C 18); the JAX side now
+    listens at 'relu4_3', and the port's at either spelling."""
+    mod, variables, net = _pair(["relu4_3"], arch="vgg16",
+                                use_input_norm=False)
+    assert net.wanted == {"relu:conv4_3"} == {
+        canonical_layer("relu:conv4_3")}
+    _check(mod, variables, net, _images(2), 1e-5)
 
 
 def test_bf16_body_normalises_the_input_in_f32():

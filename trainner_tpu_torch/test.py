@@ -119,8 +119,11 @@ def main(argv=None, device: Union[str, torch.device, None] = None
         logger.info(f"Testing [{name}]...")
         res_dir = os.path.join(opt["path"]["results_root"], name)
         os.makedirs(res_dir, exist_ok=True)
-        metrics = MetricsDict(opt.get("metrics") or "psnr,ssim")
-        metrics_y = MetricsDict(opt.get("metrics") or "psnr,ssim")
+        lpips_w = (opt.get("path") or {}).get("lpips_weights")
+        metrics = MetricsDict(opt.get("metrics") or "psnr,ssim",
+                              lpips_weights=lpips_w, device=trainer.device)
+        metrics_y = MetricsDict(opt.get("metrics") or "psnr,ssim",
+                                lpips_weights=lpips_w, device=trainer.device)
         n_img = 0
         for i, batch in enumerate(loader):
             if state is None:

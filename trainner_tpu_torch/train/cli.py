@@ -145,10 +145,12 @@ def create_trainer(opt, device: Union[str, torch.device, None] = None):
 
 def validate(trainer, state, val_loader, opt, epoch: int, current_step: int,
              logger, tb):
-    """PSNR and SSIM of G's output over the validation set, written to the
-    logs and scalars; each output saved as
-    ``{val_images}/{name}/{name}_{iter}.png``."""
-    metrics = MetricsDict((opt["train"] or {}).get("metrics") or "psnr,ssim")
+    """PSNR, SSIM (and LPIPS, on the trainer's device) of G's output over
+    the validation set, written to the logs and scalars; each output saved
+    as ``{val_images}/{name}/{name}_{iter}.png``."""
+    metrics = MetricsDict((opt["train"] or {}).get("metrics") or "psnr,ssim",
+                          lpips_weights=opt["path"].get("lpips_weights"),
+                          device=trainer.device)
     val_dir = opt["path"].get("val_images")
     save_imgs = bool((opt.get("logger") or {}).get("save_val_imgs", True))
     scale = int(opt.get("scale") or 1)

@@ -8,9 +8,11 @@
 
 One training step is the ESRGAN step: G (``rrdb_net``, ``mrrdb_net`` or
 ``sr_resnet``; every residual dense block of the flagship form on the
-hand-written forward and backward kernels) under the pixel, VGG-feature
-and relativistic GAN losses, then D on the detached output of that same G
-forward; Adam or SGD with the learning rate of a host-side schedule. With
+hand-written forward and backward kernels) under the loss stack of
+``losses/generator_loss.py`` and the adversarial loss, then D on the
+detached output of that same G forward (with wgan-gp's gradient penalty,
+a third D pass at interpolates whose weights come from the state's
+generator); Adam or SGD with the learning rate of a host-side schedule. With
 ``use_unshuffle`` G reads its input pixel-unshuffled by
 ``unshuffle_scale`` (``space_to_depth``); with ``use_cem`` the G stage's
 output and ``eval_step``'s are projected by CEM (``ops/cem.py``; the
@@ -47,8 +49,8 @@ from ..losses.gan import build_adversarial
 from ..losses.generator_loss import GeneratorLoss
 from ..models.networks import define_D, define_G
 from ..models.rrdb import drop_packed
-from ..ops.blocks import (GaussianNoise, commit_stats, space_to_depth,
-                          wire_to_f01)
+from ..ops.blocks import (BatchNorm, GaussianNoise, commit_stats,
+                          space_to_depth, wire_to_f01)
 from ..ops.cem import cem_project
 from ..utils.checkpoint import load_params
 from ..utils.device import resolve_device
@@ -240,6 +242,16 @@ class SRTrainer:
                              noise_generator=noise, rng=rng)
         if self.use_gan:
             netD = define_D(self.opt, dtype=self.dtype)
+            if self.adversarial.uses_penalty and any(
+                    isinstance(m, BatchNorm) for m in netD.modules()):
+                raise NotImplementedError(
+                    "wgan-gp's gradient penalty with a D that has batch "
+                    "norm: the JAX step raises there (UnexpectedTracerError:"
+                    " the penalty's D pass inside jax.grad writes D's batch"
+                    " statistics, trainner_tpu/train/sr_trainer.py:470-481),"
+                    " so the port refuses it too; take a D without batch "
+                    "statistics (discriminator_vgg_128_sn, the U-Net, or "
+                    "norm_type: none) (ROADMAP C 18)")
             netD.init_weights(torch.Generator().manual_seed(seed + 1))
             netD = netD.to(self.device)
             state.d = NetState(netD, self._optimizer(netD, "D"))
@@ -311,14 +323,16 @@ class SRTrainer:
         if self.use_gan and update_d:
             state.d.opt.zero_grad()
             l_d, dlogs = self.adversarial.discriminator_loss(
-                lambda x: netD(x, train=True), fake_for_d, hr_img)
+                lambda x: netD(x, train=True), fake_for_d, hr_img,
+                generator=state.noise_generator)
             l_d.backward()
             clip_grads(state.d.opt.params, self.grad_clip,
                        self.grad_clip_value)
             # fake went first, real second: the real batch's pass, from the
             # weights before this update, gives the step's one update of
             # D's state (running statistics; spectral norms' u and sigma,
-            # which both passes give alike); the G stage's passes left none
+            # which every pass gives alike, the penalty's too); the G
+            # stage's passes left none
             netD.commit_stats()
             state.d.opt.step(lr_d)
             logs.update(dlogs)

@@ -8,8 +8,9 @@ parameters after every step (``train/state.py:74``). SWA, the AdaTarget
 net and the auto-clip history are not ported yet.
 
 ``rng`` is the JAX state's key (two uint32 words) that a checkpoint
-carries; the latent noise is drawn from ``noise_generator``, which the key
-seeds (``utils/torch_interop.py::key_to_seed``).
+carries; the latent noise and wgan-gp's interpolation weights are drawn
+from ``noise_generator``, which the key seeds
+(``utils/torch_interop.py::key_to_seed``).
 """
 
 from __future__ import annotations

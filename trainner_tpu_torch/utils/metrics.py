@@ -1,4 +1,5 @@
-"""Evaluation metrics on the host: MATLAB-style PSNR and SSIM.
+"""Evaluation metrics: MATLAB-style PSNR and SSIM on the host, LPIPS on
+the device.
 
 Counterpart of ``trainner_tpu/utils/metrics.py`` (``calculate_psnr:52``,
 ``_ssim_single:63``, ``calculate_ssim:86``, ``crop_border:101``,
@@ -12,7 +13,7 @@ from __future__ import annotations
 
 import math
 import time
-from typing import Dict, List
+from typing import Dict, List, Optional
 
 import numpy as np
 from scipy.ndimage import correlate1d
@@ -101,17 +102,24 @@ def crop_border(img: np.ndarray, border: int) -> np.ndarray:
 
 
 class MetricsDict:
-    """Accumulates 'psnr' and 'ssim' over an evaluation run. Images are
-    HWC RGB float [0, 1] or uint8 [0, 255]."""
+    """Accumulates 'psnr', 'ssim' and 'lpips' over an evaluation run.
+    Images are HWC RGB float [0, 1] or uint8 [0, 255]. 'lpips' builds
+    ``losses/lpips.py::LPIPSMetric(net="squeeze")`` on ``device`` (the card
+    unless the caller names the CPU) from ``lpips_weights`` unless
+    ``lpips_model`` is given; without weights it raises here, at setup."""
 
-    def __init__(self, metrics: str = "psnr"):
+    def __init__(self, metrics: str = "psnr", lpips_model=None,
+                 lpips_weights: Optional[str] = None, device=None):
         self.names = [m.strip().lower() for m in metrics.split(",")
                       if m.strip()]
-        if "lpips" in self.names:
-            raise NotImplementedError(
-                "the lpips metric is not ported yet (ROADMAP Queue A "
-                "10.7, the other losses)")
         self.results: List[Dict[str, float]] = []
+        if lpips_model is None and "lpips" in self.names:
+            from ..losses.lpips import LPIPSMetric
+
+            lpips_model = LPIPSMetric(net="squeeze",
+                                      weights_path=lpips_weights,
+                                      device=device)
+        self._lpips = lpips_model
 
     def calculate_metrics(self, sr: np.ndarray, gt: np.ndarray,
                           crop_size: int = 0, only_y: bool = False) -> Dict:
@@ -132,6 +140,8 @@ class MetricsDict:
                 entry["psnr"] = calculate_psnr(sr_c, gt_c)
             elif m == "ssim":
                 entry["ssim"] = calculate_ssim(sr_c, gt_c)
+            elif m == "lpips" and self._lpips is not None:
+                entry["lpips"] = float(self._lpips(sr, gt))
         self.results.append(entry)
         return entry
 

@@ -4,7 +4,9 @@ between the port and the JAX package's flax trees (the generators
 partial convs, ESRGAN+ ``conv1x1`` and a batch norm's ``batch_stats``, by
 ``g_to_jax`` / ``g_from_jax``; ``DiscriminatorVGG`` with its
 ``batch_stats``, spectral norms included,
-``UNetDiscriminator``, ``VGGFeatures``, a whole ``SRTrainState`` with its
+``UNetDiscriminator``, ``VGGFeatures`` (and ``MINCFeatures``, whose tree
+has the same form), ``ResNet101Features`` with its ``batch_stats``, the
+LPIPS nets (``lpips_from_jax``), a whole ``SRTrainState`` with its
 Adam or SGD moments and its EMA weights, live or as read back from a
 serialized ``.state`` file), and from reference ESRGAN ``.pth`` state_dicts
 in either layout, and from a norm-free SRResNet ``.pth``
@@ -339,6 +341,41 @@ def vgg_from_jax(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
             hwio_to_oihw(np.asarray(node["kernel"], np.float32)))
         sd[f"{name}.bias"] = _f32(node["bias"])
     return sd
+
+
+def resnet_from_jax(variables: Mapping[str, Any]
+                    ) -> Dict[str, torch.Tensor]:
+    """The flax ``ResNet101Features`` variables (``params`` and
+    ``batch_stats``) -> the port's state_dict: conv kernels as weights, a
+    norm's scale and bias as ``weight`` and ``bias``, its mean and var as
+    ``running_mean`` and ``running_var``."""
+    sd: Dict[str, torch.Tensor] = {}
+    leaves = {"kernel": "weight", "scale": "weight", "bias": "bias",
+              "mean": "running_mean", "var": "running_var"}
+    for coll in ("params", "batch_stats"):
+        for name, node in variables[coll].items():
+            for leaf, value in node.items():
+                arr = np.asarray(value, np.float32)
+                sd[f"{name}.{leaves[leaf]}"] = torch.from_numpy(
+                    hwio_to_oihw(arr) if leaf == "kernel" else arr.copy())
+    return sd
+
+
+def lpips_from_jax(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """The flax ``LPIPS`` params (``net/<conv>/{kernel,bias}``,
+    ``lin{i}``) -> the state_dict of ``losses/lpips.py::LPIPS``."""
+    from ..losses.lpips import lpips_state_dict
+
+    if "params" in params:
+        params = params["params"]
+    return lpips_state_dict({"/".join(path): _leaf(params, path)
+                             for path in _leaf_paths(params)})
+
+
+def _leaf(tree: Mapping[str, Any], path: tuple):
+    for k in path:
+        tree = tree[k]
+    return np.asarray(tree)
 
 
 _MOMENT_KEYS = ("count", "mu", "nu", "trace")
