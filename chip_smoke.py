@@ -164,6 +164,27 @@ non-zero exit code and no result line:
    and of the penalty's pass; the training CLI on the yml (12 iterations
    and a resume to 16, 69 + 69 block and 24 blur launches per step from
    the trace, LPIPS in the validation) and its rate eager and graphed in
+   turns;
+17. trainer options (after the losses): every option of the JAX
+   ``SRTrainer`` the port added in PR 13. Each at small widths (G nf 32,
+   nb 1, gc 32; D-VGG 16 at 32 px; pixel and GAN losses; f32, TF32 off),
+   steps on the card
+   (graphed), the CPU and an f64 witness on the CPU's random draws
+   (``_SharedDraws``): every optimizer, the auto clip, a virtual batch of
+   2, FreezeD, fs, each DiffAugment policy, each batch augmentation,
+   AdaTarget and SWA across their starts; then ``train_sr.yml`` at full
+   width with its commented trainer options on (AdaTarget from 4, SWA from
+   6, FreezeD, mixup, DiffAugment, fs, norm clip, a virtual batch of 2;
+   bf16, b=32, crop 112: AdaTarget with D-VGG needs a multiple of 7 x
+   scale), graphed against eager bit for bit over 8 steps across both
+   starts, a replay of each program traced (69 x 2 + 69 x 2 block
+   launches under the virtual batch, 69 + 69 under AdaTarget); the
+   training CLI on it at crop 224 (the bsrgan jpeg needs an LR of a
+   multiple of 8; 12 iterations and a resume to 16 that restores SWA, the
+   LocNet, the clip history and every optimizer state, the launches per
+   step from the trace), its ``16_swaG`` file served by the test CLI with
+   ``which: swa``; and the graphed step with each optimizer, the auto
+   clip, the virtual batch and the options cell against the flagship's, in
    turns.
 
 Launches: the kernel wrappers count where they put a kernel on a stream,
@@ -1584,18 +1605,30 @@ def _cli_options(root: str, corpus: str, yml: str = None,
 def _state_tensors(state) -> dict:
     """Every tensor a checkpoint carries, on the host: both nets'
     state_dicts (D's running statistics or spectral norms' state
-    included), the moments, the step counts and the EMA weights."""
+    included), every optimizer's state lists and counts, the EMA and SWA
+    weights, the LocNet and the clip history."""
     out = {"step": state.step}
-    for which in ("g", "d"):
+    for which in ("g", "d", "loc"):
         ns = getattr(state, which)
+        if ns is None:
+            continue
         for k, v in ns.net.state_dict().items():
             out[f"{which}.{k}"] = v.detach().cpu().clone()
-        out[f"{which}.count"] = int(ns.opt.count)
-        for key in ("mu", "nu"):
-            for i, t in enumerate(getattr(ns.opt, key)):
-                out[f"{which}.{key}.{i}"] = t.detach().cpu().clone()
+        opt = ns.opt.state_dict()
+        for key, v in opt.items():
+            if isinstance(v, int):
+                out[f"{which}.{key}"] = v
+            else:
+                for i, t in enumerate(v):
+                    out[f"{which}.{key}.{i}"] = t.detach().cpu().clone()
     for k, v in (state.ema_params or {}).items():
         out[f"ema.{k}"] = v.detach().cpu().clone()
+    if state.swa is not None:
+        for k, v in state.swa.named_parameters():
+            out[f"swa.{k}"] = v.detach().cpu().clone()
+        out["swa_n"] = int(state.swa_n)
+    for k, v in (state.grad_hist or {}).items():
+        out[f"grad_hist.{k}"] = v.detach().cpu().clone()
     return out
 
 
@@ -1624,7 +1657,7 @@ def _save_breakdown(state, path: str) -> dict:
 def phase_cli(smi: str, root: str, yml: str = None, label: str = "cli",
               per_batch: int = 2 * 2 * SHUFFLE_K,
               nets: tuple = ("G", "D"), edit=None, niter: int = CLI_NITER,
-              resume: bool = True) -> dict:
+              resume: bool = True, g_launches=None) -> dict:
     """The training CLI at the full width of an options file of the repo
     (``yml``; by default ``options/sr/train_sr.yml``: G nf 64, nb 23, gc
     32, D-VGG-128, batch 32, crop 128, bsrgan with the per-sample shuffle,
@@ -1634,7 +1667,9 @@ def phase_cli(smi: str, root: str, yml: str = None, label: str = "cli",
     16, whose loaded state must equal the saved one bit for bit. Each run
     under a launch trace: the three kernels' launches per step, per batch
     (``per_batch`` blur launches) and in all. ``niter`` (a multiple of 6)
-    and ``resume`` shorten it. Returns the runs' traces."""
+    and ``resume`` shorten it. ``g_launches(n)``: the forward (and
+    backward) block launches of step n where they are not 69 (a virtual
+    batch runs G once per microbatch). Returns the runs' traces."""
     import torch
 
     from trainner_tpu_torch.train import cli
@@ -1717,17 +1752,20 @@ def phase_cli(smi: str, root: str, yml: str = None, label: str = "cli",
     # then each step, then the next batch's degrader (after a validation
     # at 6, its forwards too), and after step 12 the validation at 12
     n_val = niter // CLI_FREQ * N_VAL  # validation every CLI_FREQ
+    per_step = g_launches or (lambda n: per_g)
+    g_run = sum(per_step(n) for n in range(1, niter + 1))
     want = dict(blur=per_batch * niter,
-                rdb5c=per_g * (niter + n_val),
-                rdb5c_bwd=per_g * niter)
+                rdb5c=g_run + per_g * n_val,
+                rdb5c_bwd=g_run)
     _check_cli_trace(label, counts, want, steps, range(1, niter + 1),
-                     per_g, per_batch)
+                     per_g, per_batch, per_step)
     print(f"{label}: main() on {niter} iterations, {wall:.2f} s (traced): "
           f"launches the card ran {counts['ran']} (expected {want}); the "
           f"wrappers counted {counts['counted']}")
-    print(f"{label}: every step {per_g} + {per_g} block launches and its batch "
-          f"{per_batch} blur launches before it ({niter} steps, from "
-          f"the trace)")
+    print(f"{label}: every step's block launches (forward, backward) "
+          f"{sorted({(per_step(n), per_step(n)) for n in range(1, niter + 1)})}"
+          f" and its batch's {per_batch} blur launches before it ({niter} "
+          f"steps, from the trace)")
 
     # the artifacts
     files = {os.path.relpath(os.path.join(d, f), exp)
@@ -1791,10 +1829,12 @@ def phase_cli(smi: str, root: str, yml: str = None, label: str = "cli",
                                                        torch.Tensor)
         else saved[k] == loaded[k])]
     n2 = CLI_RESUME_NITER - niter
-    want2 = dict(blur=per_batch * n2, rdb5c=per_g * n2, rdb5c_bwd=per_g * n2)
+    g_run2 = sum(per_step(n) for n in range(niter + 1,
+                                            CLI_RESUME_NITER + 1))
+    want2 = dict(blur=per_batch * n2, rdb5c=g_run2, rdb5c_bwd=g_run2)
     _check_cli_trace(f"{label} resume", counts2, want2, steps2,
                      range(niter + 1, CLI_RESUME_NITER + 1), per_g,
-                     per_batch)
+                     per_batch, per_step)
     print(f"{label}: resumed from {os.path.relpath(path, exp)} (iter "
           f"{meta['iter']}, epoch {meta['epoch']}) to {state2.step} in "
           f"{wall2:.2f} s (traced): {len(saved)} tensors and counts of the "
@@ -1813,15 +1853,18 @@ def phase_cli(smi: str, root: str, yml: str = None, label: str = "cli",
 
 
 def _check_cli_trace(label: str, trace: dict, want: dict, steps: list,
-                     numbers, per_g: int, per_batch: int) -> None:
+                     numbers, per_g: int, per_batch: int,
+                     per_step=None) -> None:
     """A training CLI run's launch trace: what the card ran in all equals
     ``want``, every wrapper counted, and between the markers around the
     steps (numbered ``numbers``) each step ran ``per_g`` forward and
     backward block launches and no blur, and before it its batch's
     ``per_batch`` blur launches (with a validation's forwards where one
-    ran there)."""
+    ran there); ``per_step(n)`` gives step n's block launches where they
+    are not ``per_g``."""
     ran, segments = trace["ran"], trace["segments"]
     numbers = list(numbers)
+    per_step = per_step or (lambda n: per_g)
     idle = [k for k, n in want.items() if n and not trace["counted"][k]]
     if ran != want or idle or [s for s, _ in steps] != numbers \
             or len(segments) != 2 * len(numbers) + 1:
@@ -1831,7 +1874,8 @@ def _check_cli_trace(label: str, trace: dict, want: dict, steps: list,
             f"{len(segments)} segments between markers")
     for i, number in enumerate(numbers):
         before, step = segments[2 * i], segments[2 * i + 1]
-        if step != {"rdb5c": per_g, "rdb5c_bwd": per_g, "blur": 0} \
+        g = per_step(number)
+        if step != {"rdb5c": g, "rdb5c_bwd": g, "blur": 0} \
                 or before["blur"] != per_batch or before["rdb5c_bwd"] \
                 or before["rdb5c"] % per_g:
             raise AssertionError(
@@ -2820,10 +2864,10 @@ def _graph_window(smi: str) -> dict:
         seen.append((lr_g, lr_d))
         return fn(st, batch, lr_g, lr_d)
 
-    trainer._step_fns[(True, True)] = recording
+    trainer._step_fns[(True, True, False)] = recording
     state, logs = trainer.train_steps(state, batches)
     torch.cuda.synchronize()
-    trainer._step_fns[(True, True)] = fn
+    trainer._step_fns[(True, True, False)] = fn
     eager = create_trainer(opt, graphs=False)
     estate = eager.init_state(0)
     elogs = []
@@ -3206,10 +3250,10 @@ def _graph_mixed_sizes(smi: str, root: str) -> None:
                 return made[-1]
 
             def timed(fn):
-                def call(self, state, x):
+                def call(self, state, x, *which):
                     torch.cuda.synchronize()
                     t0 = time.perf_counter()
-                    out = fn(self, state, x)
+                    out = fn(self, state, x, *which)
                     torch.cuda.synchronize()
                     spent.append(time.perf_counter() - t0)
                     return out
@@ -4029,48 +4073,161 @@ def _f64_trainer(opt: dict):
     trainer = create_trainer({**opt, "use_amp": False}, device="cpu")
     state = trainer.init_state(0)
     trainer.dtype = torch.float64
-    for net in (state.g.net, state.d.net, trainer.generator_loss):
+    loc = state.loc.net if state.loc is not None else None
+    for net in (state.g.net, state.d.net, trainer.generator_loss, loc,
+                state.swa):
+        if net is None:
+            continue
         net.double()
         for m in net.modules():
             if isinstance(getattr(m, "dtype", None), torch.dtype):
                 m.dtype = torch.float64
     state.g.opt = trainer._optimizer(state.g.net, "G")
     state.d.opt = trainer._optimizer(state.d.net, "D")
+    if loc is not None:
+        state.loc.opt = trainer._optimizer(loc, "G")
+    if state.grad_hist is not None:
+        state.grad_hist["vals"] = state.grad_hist["vals"].double()
     return trainer, state
 
 
-def _steps_card_cpu_f64(label: str, opt: dict, batches) -> dict:
+def _map_tree(fn, tree):
+    """``fn`` on every tensor of nested dicts and lists."""
+    if isinstance(tree, dict):
+        return {k: _map_tree(fn, v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_map_tree(fn, v) for v in tree]
+    return fn(tree)
+
+
+class _SharedDraws:
+    """The step's random draws made on the CPU trainer (its own generator,
+    recorded by wrapping its ``_draws``; ``choices`` overrides the batch
+    augmentation's choice step by step) and handed to the card's trainer
+    and the f64 witness as their ``draw_hook``. On the card the hook
+    returns clones of staging buffers that ``stage`` fills before each
+    step: a graph captures the clones, and each replay reads what was
+    staged for it."""
+
+    def __init__(self, cpu_trainer, choices=None, card: str = "cuda"):
+        self.card_device = card
+        self.choices = list(choices) if choices else None
+        self.pending = None
+        self.buffers = None
+        orig = cpu_trainer._draws
+
+        def recording(state, shapes):
+            import torch
+
+            d = orig(state, shapes)
+            if self.choices:
+                d["aug"]["choice"]["idx"] = torch.tensor(
+                    self.choices.pop(0))
+            self.pending = d
+            return d
+        cpu_trainer._draws = recording
+
+    def stage(self) -> None:
+        if self.buffers is not None:
+            flat_b, flat_p = [], []
+            _map_tree(flat_b.append, self.buffers)
+            _map_tree(flat_p.append, self.pending)
+            for b, p in zip(flat_b, flat_p):
+                b.copy_(p)
+
+    def card(self, shapes):
+        if self.buffers is None:
+            self.buffers = _map_tree(
+                lambda t: t.to(self.card_device).clone(), self.pending)
+        return _map_tree(lambda t: t.clone(), self.buffers)
+
+    def f64(self, shapes):
+        return _map_tree(lambda t: t.double() if t.is_floating_point()
+                         else t.clone(), self.pending)
+
+
+def _load_from(dst, src) -> None:
+    """Copies every training tensor of state ``src`` into ``dst`` in place
+    (nets, optimizer states, the LocNet, SWA, the clip history): a graph
+    captured on ``dst`` stays valid."""
+    import torch
+
+    for w in ("g", "d", "loc"):
+        a, b = getattr(dst, w), getattr(src, w)
+        if a is None:
+            continue
+        a.net.load_state_dict(b.net.state_dict())
+        a.opt.load_state_dict(b.opt.state_dict())
+    with torch.no_grad():
+        if dst.swa is not None:
+            for x, y in zip(dst.swa.parameters(), src.swa.parameters()):
+                x.copy_(y)
+            dst.swa_n.copy_(src.swa_n)
+        if dst.grad_hist is not None:
+            for k in ("vals", "n"):
+                dst.grad_hist[k].copy_(src.grad_hist[k])
+
+
+def _train_tensors(state) -> dict:
+    """``_net_tensors`` and the LocNet's (``l.``) and SWA weights
+    (``s.``)."""
+    out = _net_tensors(state)
+    if state.loc is not None:
+        out.update({f"l.{k}": v.detach().clone()
+                    for k, v in state.loc.net.state_dict().items()})
+    if state.swa is not None:
+        out.update({f"s.{k}": v.detach().clone()
+                    for k, v in state.swa.named_parameters()})
+    return out
+
+
+def _steps_card_cpu_f64(label: str, opt: dict, batches,
+                        share_draws: bool = False, choices=None,
+                        card: str = "cuda", lr: float = None) -> dict:
     """Steps of ``opt`` (f32) on the card (graphed), on the CPU and, as the
-    witness, on the CPU in f64, each step from the CPU's state, under
-    deterministic cuDNN with TF32 off. Returns per tensor (``g.``/``d.``)
-    the largest, over the steps, of each side's error as a share of the
-    tensor's move in the f64 step (moves under 1e-6 are skipped):
-    ``card_cpu``, ``card_f64``, ``cpu_f64``; and ``logs``, the logs'
-    largest relative error, card against CPU."""
+    witness, on the CPU in f64, each step from the CPU's state (every
+    training tensor: nets, optimizer states, LocNet, SWA, clip history),
+    under deterministic cuDNN with TF32 off; with ``share_draws`` the card
+    and the witness take the CPU's random draws (``_SharedDraws``).
+    Returns per tensor (``g.``/``d.``/``l.``/``s.``) the largest, over the
+    steps, of each side's error as a share of the tensor's move in the f64
+    step (moves under 1e-6 are skipped): ``card_cpu``, ``card_f64``,
+    ``cpu_f64``; and ``logs``, the logs' largest relative error, card
+    against CPU, per step (``logs_by_step``) and overall. ``card`` names
+    the card's device ("cpu" rehearses the run on the host, eagerly).
+    With ``lr`` (an adaptive rule's, whose elements of a rounding-level
+    gradient move by about lr either way), also ``far_card`` and
+    ``far_cpu``: per tensor the largest share of its elements further than
+    0.02 lr from the witness, and ``abs_card``, the largest distance."""
     import torch
 
     from trainner_tpu_torch.train.sr_trainer import create_trainer
 
-    trainers = {dev: create_trainer({**opt, "use_amp": False}, device=dev)
-                for dev in ("cuda", "cpu")}
+    devices = {"cuda": card, "cpu": "cpu"}
+    trainers = {side: create_trainer({**opt, "use_amp": False}, device=dev)
+                for side, dev in devices.items()}
     states = {dev: tr.init_state(0) for dev, tr in trainers.items()}
     witness, wstate = _f64_trainer(opt)
     trainers["f64"], states["f64"] = witness, wstate
     cpu = states["cpu"]
-    out = {"card_cpu": {}, "card_f64": {}, "cpu_f64": {}, "logs": 0.0}
+    shared = None
+    if share_draws:
+        shared = _SharedDraws(trainers["cpu"], choices, card)
+        trainers["cuda"].draw_hook = shared.card
+        witness.draw_hook = shared.f64
+    out = {"card_cpu": {}, "card_f64": {}, "cpu_f64": {}, "logs": 0.0,
+           "logs_by_step": [], "far_card": {}, "far_cpu": {},
+           "abs_card": {}}
     cudnn = torch.backends.cudnn
     saved = cudnn.deterministic, cudnn.benchmark
     cudnn.deterministic, cudnn.benchmark = True, False
     try:
         for i, batch in enumerate(batches):
             for dev in ("cuda", "f64") if i else ("f64",):
-                for w in ("g", "d"):
-                    ns = getattr(states[dev], w)
-                    ns.net.load_state_dict(getattr(cpu, w).net.state_dict())
-                    ns.opt.load_state_dict(getattr(cpu, w).opt.state_dict())
-            start = {k: v.double() for k, v in _net_tensors(cpu).items()}
+                _load_from(states[dev], cpu)
+            start = {k: v.double() for k, v in _train_tensors(cpu).items()}
             logs = {}
-            for dev in ("cuda", "cpu", "f64"):
+            for dev in ("cpu", "cuda", "f64"):
                 if dev == "f64":
                     with _in_f64() as f32:
                         logs[dev] = witness.train_step(wstate, {
@@ -4079,19 +4236,35 @@ def _steps_card_cpu_f64(label: str, opt: dict, batches) -> dict:
                         raise AssertionError(f"{label}: the f64 witness "
                                              f"ran f32 ops {sorted(set(f32))}")
                 else:
+                    if dev == "cuda" and shared is not None:
+                        shared.stage()
                     logs[dev] = trainers[dev].train_step(states[dev], {
-                        k: v.to(dev) for k, v in batch.items()})[1]
+                        k: v.to(devices[dev]) for k, v in batch.items()})[1]
+            step_worst = 0.0
             for k, want in logs["cpu"].items():
                 got = float(logs["cuda"][k])
-                out["logs"] = max(out["logs"], abs(got - float(want))
-                                  / max(abs(float(want)), 1e-3))
+                step_worst = max(step_worst, abs(got - float(want))
+                                 / max(abs(float(want)), 1e-3))
+            out["logs_by_step"].append(step_worst)
+            out["logs"] = max(out["logs"], step_worst)
             t = {dev: {k: v.cpu().double() for k, v in
-                       _net_tensors(states[dev]).items()}
+                       _train_tensors(states[dev]).items()}
                  for dev in ("cuda", "cpu", "f64")}
             for k, exact in t["f64"].items():
                 if exact.dtype != torch.float64:
                     raise AssertionError(f"{label}: witness tensor {k} "
                                          f"is {exact.dtype}")
+                if lr is not None and not k.endswith(("running_mean",
+                                                      "running_var")):
+                    for key, side in (("far_card", "cuda"),
+                                      ("far_cpu", "cpu")):
+                        err = (t[side][k] - exact).abs()
+                        share = float((err > 0.02 * lr).double().mean())
+                        out[key][k] = max(out[key].get(k, 0.0), share)
+                        if side == "cuda":
+                            out["abs_card"][k] = max(
+                                out["abs_card"].get(k, 0.0),
+                                float(err.max()))
                 moved = float((exact - start[k]).abs().max())
                 if moved <= 1e-6:
                     continue
@@ -4102,7 +4275,7 @@ def _steps_card_cpu_f64(label: str, opt: dict, batches) -> dict:
                     out[key][k] = max(out[key].get(k, 0.0), err)
     finally:
         cudnn.deterministic, cudnn.benchmark = saved
-    if len(trainers["cuda"].step_graphs()) != 1:
+    if card == "cuda" and not trainers["cuda"].step_graphs():
         raise AssertionError(f"{label}: the step did not replay a graph")
     return out
 
@@ -5050,6 +5223,402 @@ def phase_losses(smi: str, root: str) -> dict:
     return {f"loss stack cli {k}": v for k, v in runs.items()}
 
 
+OPT_CROP = 112  # AdaTarget with D-VGG: a crop of a multiple of 7 x scale
+# the CLI's crop: its bsrgan pipeline compresses the LR in 8 x 8 blocks
+# (jpeg), so the LR must be a multiple of 8 too: 224 = lcm(28, 32)
+OPT_CLI_CROP = 224
+OPT_ATG_START, OPT_SWA_START = 4, 6
+OPT_GRAPH_STEPS = 8   # graphed against eager, across both starts
+OPT_TIME_STEPS = 5    # steps per turn in the option times
+OPT_F64_TOL = 4.0     # card's distance from f64 over the CPU's, per net
+# ... or this share of a tensor's move: a LeakyReLU of D that rounding
+# flips on one side only moves D's gradients by up to 1.4e-2 of a move
+# (the batch augmentations' run on the H100); a fault of the card's
+# program moves a tensor by a large share of its move
+OPT_MOVE_FLOOR = 5e-2
+OPT_FAR_FLOOR = 1e-3  # adaptive rules: share of elements past 0.02 lr
+OPT_FLIP = 2.05       # ... and an element moved the other way: twice the
+#                       largest move of its tensor, at most
+ADAPTIVE = ("rmsprop", "adamp", "ranger", "madgrad")
+# cutout first, so that mixalpha can give it a drop rate alone (an alpha
+# for rgb or cutmixup raises a TypeError in both packages)
+OPT_AUGS = ["cutout", "blend", "rgb", "mixup", "cutmix", "cutmixup",
+            "cutblur"]
+OPT_POLICIES = ("color,translation,cutout", "flip,rotate",
+                "zoom_in,zoom_out", "offset,offset_h,offset_v")
+
+
+def _options_cell(crop: int = OPT_CROP, **train) -> dict:
+    """``train_sr.yml``'s flagship at full width with its commented
+    trainer options on (AdaTarget from 4, SWA from 6 at 5e-5, FreezeD 4,
+    the yml's mixup, DiffAugment color,translation,cutout, fs, norm clip
+    at 1.0, a virtual batch of 2), at ``crop``."""
+    opt = _train_options(**{
+        "atg_start_iter": OPT_ATG_START, "swa_start_iter": OPT_SWA_START,
+        "swa_lr": 5e-5, "freeze_loc": 4, "mixup": True,
+        "mixopts": ["blend", "rgb", "mixup", "cutmix", "cutmixup"],
+        "diffaug": True, "dapolicy": "color,translation,cutout", "fs": True,
+        "grad_clip": "norm", "grad_clip_value": 1.0,
+        "virtual_batch_size": 2, **train})
+    opt["network_D"]["size"] = crop
+    opt["use_atg"] = opt["use_swa"] = True
+    return opt
+
+
+def _options_batch(seed: int, crop: int = OPT_CROP,
+                   batch: int = TRAIN_SHAPE[0]) -> dict:
+    import torch
+
+    gen = torch.Generator().manual_seed(seed)
+    return {"LR": torch.rand(batch, crop // 4, crop // 4, 3,
+                             generator=gen).cuda(),
+            "HR": torch.rand(batch, crop, crop, 3, generator=gen).cuda()}
+
+
+def _small_options(**train) -> dict:
+    """The small configuration of the card-against-CPU runs: G nf 32, nb
+    1, gc 32 (the block kernels at their narrowest unpadded width) without
+    the latent noise (whose draws the sides cannot share), D-VGG base_nf
+    16 at 32 px with batch norms, pixel and GAN losses (no VGG19, whose
+    three copies per option would take most of the time), SGD at 1e-2
+    unless ``train`` says otherwise."""
+    opt = _train_options(**{"optim_G": "sgd", "optim_D": "sgd",
+                            "lr_G": 1e-2, "lr_D": 1e-2, **train})
+    opt["network_G"].update(nf=32, nb=1, gc=32, gaussian_noise=False)
+    opt["network_D"].update(size=32, base_nf=16)
+    for key in ("feature_criterion", "feature_weight"):
+        opt["train"].pop(key)
+    return opt
+
+
+def _options_card_cpu(smi: str, card: str = "cuda") -> None:
+    """(a) Each option at small widths: steps on the card (graphed, f32,
+    TF32 off), on the CPU and on an f64 witness of the port's code, the
+    card and the witness taking the CPU's random draws
+    (``_steps_card_cpu_f64`` with ``share_draws``). Every optimizer,
+    ``grad_clip: auto``, a virtual batch of 2, FreezeD, fs, each DiffAugment
+    policy (four configurations), each batch augmentation (one
+    configuration of seven steps, one choice each), AdaTarget (across its
+    start, at a 28-px crop) and SWA (across its start). Passes where the
+    first step's logs agree within 1e-4 and no tensor of the card is
+    further from the witness than ``OPT_F64_TOL`` times the CPU f32's
+    largest distance in the same net (or ``OPT_MOVE_FLOOR`` of its move):
+    a fault of the card's program would move it further than rounding
+    does. Under an adaptive rule (lr 1e-4), where a rounding-level
+    gradient moves its element by about lr either way, each tensor's
+    share of elements further than 0.02 lr from the witness is held to
+    ``OPT_F64_TOL`` times the CPU's (or ``OPT_FAR_FLOOR``; not D's biases
+    whose gradient is rounding alone), and every
+    element to twice its tensor's largest move (``OPT_FLIP``: a step
+    taken the other way)."""
+    import torch
+
+    gen = torch.Generator().manual_seed(17)
+
+    def batches(n, px=32):
+        return [{"LR": torch.rand(4, px // 4, px // 4, 3, generator=gen),
+                 "HR": torch.rand(4, px, px, 3, generator=gen)}
+                for _ in range(n)]
+
+    atg = _small_options(atg_start_iter=1)
+    atg["use_atg"] = True
+    atg["network_D"]["size"] = 28
+    swa = _small_options(swa_start_iter=1, swa_lr=2e-3)
+    swa["use_swa"] = True
+    configs = [(f"optimizer {o}", _small_options(
+        optim_G=o, optim_D=o, lr_G=1e-4 if o in ADAPTIVE else 1e-2,
+        lr_D=1e-4 if o in ADAPTIVE else 1e-2), 3, 32, None)
+        for o in ("rmsprop", "adamp", "sgdp", "ranger", "madgrad")]
+    configs += [
+        ("grad_clip auto", _small_options(grad_clip="auto",
+                                          D_update_ratio=2), 3, 32, None),
+        ("virtual_batch_size 2", _small_options(virtual_batch_size=2), 3,
+         32, None),
+        ("freeze_loc 4", _small_options(freeze_loc=4), 3, 32, None),
+        ("fs", _small_options(fs=True), 3, 32, None)]
+    configs += [(f"diffaug {p}", _small_options(diffaug=True, dapolicy=p),
+                 3, 32, None) for p in OPT_POLICIES]
+    configs += [
+        ("batch augmentations", _small_options(
+            mixup=True, mixopts=OPT_AUGS, mixalpha=[0.2]),
+         len(OPT_AUGS), 32, list(range(len(OPT_AUGS)))),
+        ("AdaTarget", atg, 3, 28, None), ("SWA", swa, 3, 32, None)]
+    t0 = time.perf_counter()
+    bad = []
+    for label, opt, n, px, choices in configs:
+        adaptive = opt["train"]["optim_G"] in ADAPTIVE
+        lr = opt["train"]["lr_G"]
+        r = _steps_card_cpu_f64(f"options: {label}", opt, batches(n, px),
+                                share_draws=True, choices=choices,
+                                card=card, lr=lr if adaptive else None)
+        parts = []
+        if adaptive:
+            # an element whose gradient is rounding moves by about lr
+            # either way, on each side: held as _check_steps holds adam
+            for k, share in r["far_card"].items():
+                # D's biases whose gradient is rounding alone (a conv's
+                # before a batch norm, the head's) move either way on
+                # each side, as _check_steps reads them
+                name = k[2:]
+                noise_only = k.startswith("d.") and name.endswith(
+                    "bias") and (name.startswith("linear") or "d." + (
+                        name.replace("bias", "norm.weight")) in r[
+                            "far_card"])
+                tol = 1.0 if noise_only else max(
+                    OPT_F64_TOL * r["far_cpu"][k], OPT_FAR_FLOOR)
+                flip = r["card_f64"].get(k, 0.0)
+                if not (share <= tol and flip <= OPT_FLIP):
+                    bad.append((label, k, share, tol, flip))
+            worst = max(r["far_card"].items(), key=lambda kv: kv[1])
+            flip = _worst(r["card_f64"], "")
+            parts.append(f"elements past 0.02 lr of the witness: card up "
+                         f"to {worst[1]:.2e} of {worst[0]} (CPU "
+                         f"{r['far_cpu'][worst[0]]:.2e}); largest distance "
+                         f"{flip[0]:.3f} of its tensor's move ({flip[1]}; "
+                         f"tol {OPT_FLIP})")
+        for net in ("g", "d", "l", "s") if not adaptive else ():
+            if not any(k.startswith(net + ".") for k in r["cpu_f64"]):
+                continue
+            f64, cpu = (_worst(r[key], net + ".")
+                        for key in ("card_f64", "cpu_f64"))
+            tol = max(OPT_F64_TOL * cpu[0], OPT_MOVE_FLOOR)
+            parts.append(f"{net}: card {f64[0]:.2e} ({f64[1]}), CPU "
+                         f"{cpu[0]:.2e}, tol {tol:.2e}")
+            bad += [(label, k, v, tol) for k, v in r["card_f64"].items()
+                    if k.startswith(net + ".") and not v <= tol]
+        if not r["logs_by_step"][0] <= 1e-4:
+            bad.append((label, "logs", r["logs_by_step"], 1e-4))
+        print(f"options: {label}, {n} f32 steps card (graphed) / CPU / "
+              f"f64 on shared draws, each tensor's distance from the f64 "
+              f"witness as a share of its move: {'; '.join(parts)}; logs "
+              f"card vs CPU by step {[f'{v:.1e}' for v in r['logs_by_step']]}"
+              f" ({smi})")
+        if card == "cuda":
+            torch.cuda.empty_cache()
+    print(f"options: card against CPU and f64, {len(configs)} "
+          f"configurations in {time.perf_counter() - t0:.1f} s")
+    if bad:
+        raise AssertionError(f"options: card against the f64 witness: "
+                             f"{bad}")
+
+
+def _options_graphed_vs_eager(smi: str) -> None:
+    """(b) The full-width options cell (bf16, b=32, 28 -> 112 px), the
+    graphed trainer against the eager one from one seed over
+    ``OPT_GRAPH_STEPS`` steps across AdaTarget's start and SWA's, under
+    deterministic cuDNN: every log, parameter, buffer, optimizer state,
+    LocNet and SWA weight equal bit for bit; the programs captured ((True,
+    True, False) and (True, True, True)); a replay of each traced: 69 x 2
+    + 69 x 2 block launches before AdaTarget (two microbatches), 69 + 69
+    with it."""
+    import torch
+
+    from trainner_tpu_torch.train.sr_trainer import create_trainer
+
+    batches = [_options_batch(seed=20 + i) for i in range(OPT_GRAPH_STEPS)]
+    runs = {}
+    cudnn = torch.backends.cudnn
+    cudnn.deterministic = True
+    try:
+        for graphs in (True, False):
+            tr = create_trainer(_options_cell(), graphs=graphs)
+            st = tr.init_state(0)
+            logs = [tr.train_step(st, b)[1] for b in batches]
+            torch.cuda.synchronize()
+            runs[graphs] = (tr, st, logs)
+    finally:
+        cudnn.deterministic = False
+    (tg, sg, lg), (te, se, le) = runs[True], runs[False]
+    differ = [f"step {i} {k}" for i, (a, b) in enumerate(zip(lg, le))
+              for k in b if not torch.equal(a[k], b[k])]
+    ta, tb = _state_tensors(sg), _state_tensors(se)
+    differ += [k for k in tb if not (
+        torch.equal(ta[k], tb[k]) if isinstance(tb[k], torch.Tensor)
+        else ta[k] == tb[k])]
+    keys = sorted(tg.step_graphs())
+    print(f"options: full-width cell (bf16, b=32, {OPT_CROP // 4} -> "
+          f"{OPT_CROP} px; AdaTarget from {OPT_ATG_START}, SWA from "
+          f"{OPT_SWA_START}), {OPT_GRAPH_STEPS} graphed steps against "
+          f"{OPT_GRAPH_STEPS} eager ones: {len(ta)} state tensors and "
+          f"counts and {sum(len(x) for x in le)} logs, {len(differ)} not "
+          f"equal bit for bit {differ[:8]}; swa_n {int(sg.swa_n)}; step "
+          f"graphs {[k[:3] for k in keys]} ({smi})")
+    if differ or int(sg.swa_n) != OPT_GRAPH_STEPS - OPT_SWA_START or \
+            sorted(k[:3] for k in keys) != [(True, True, False),
+                                            (True, True, True)]:
+        raise AssertionError(f"options: graphed against eager: {differ}")
+    per_g = NB * 3
+    for label, step, want_g in (("virtual batch", 1, 2 * per_g),
+                                ("AdaTarget", OPT_ATG_START, per_g)):
+        sg.step = step
+        _reset_launches()
+        calls, busy, wall = _kernel_calls(
+            lambda: tg.train_step(sg, batches[0]))
+        traced = _calls_per_wrapper(calls.elements())
+        want = {"rdb5c": want_g, "rdb5c_bwd": want_g, "blur": 0}
+        print(f"options: one replay of the {label} program traced: "
+              f"{traced} block launches (want {want}), "
+              f"{sum(calls.values())} kernels, device busy {busy:.3f} ms "
+              f"of {wall:.3f} ms ({smi})")
+        if traced != want:
+            raise AssertionError(f"options: {label} replay {traced}")
+    del runs, tg, sg, te, se
+    torch.cuda.empty_cache()
+
+
+def _options_cli_edit(opt: dict) -> None:
+    """``train_sr.yml`` with the options cell's trainer options (the clip
+    ``auto``, so that the checkpoint carries its history) at
+    ``OPT_CLI_CROP``."""
+    cell = _options_cell(grad_clip="auto")
+    opt["use_atg"] = opt["use_swa"] = True
+    opt["datasets"]["train"]["crop_size"] = OPT_CLI_CROP
+    opt["network_D"]["size"] = OPT_CLI_CROP
+    keys = ("atg_start_iter", "swa_start_iter", "swa_lr", "freeze_loc",
+            "mixup", "mixopts", "diffaug", "dapolicy", "fs", "grad_clip",
+            "virtual_batch_size")
+    opt["train"].update({k: cell["train"][k] for k in keys})
+
+
+def _options_cli(smi: str, root: str) -> dict:
+    """(c) The training CLI on the cell at ``OPT_CLI_CROP`` (b=32, 56 ->
+    224 px; 12 iterations and a resume to 16
+    that restores SWA, the LocNet, the clip history and every optimizer
+    state bit for bit; 69 x 2 + 69 x 2 block launches per step before
+    AdaTarget, 69 + 69 after, 24 blur launches per shuffled batch, from
+    the trace); the ``16_swaG`` file equal to the state's SWA weights and
+    served by the port's test CLI with ``which: swa``."""
+    import numpy as np
+
+    from trainner_tpu_torch import test as test_cli
+    from trainner_tpu_torch.utils import checkpoint
+
+    per_g = NB * 3
+    runs = phase_cli(smi, root, TRAIN_YML, "cli_options",
+                     edit=_options_cli_edit,
+                     g_launches=lambda n: per_g * (
+                         1 if n > OPT_ATG_START else 2))
+    with open(os.path.join(root, "cli_options_options.json")) as f:
+        opt = json.load(f)
+    exp = os.path.join(root, "cli_options", "experiments", opt["name"])
+    swa_file = os.path.join(exp, "models", f"{CLI_RESUME_NITER}_swaG.ckpt")
+    with open(os.path.join(exp, "training_state",
+                           f"{CLI_RESUME_NITER}.state"), "rb") as f:
+        tree = checkpoint.msgpack_restore(f.read())
+    with open(swa_file, "rb") as f:
+        swa = checkpoint.msgpack_restore(f.read())
+    flat_a, flat_b = [], []
+    _map_tree(flat_a.append, tree["swa_params"])
+    _map_tree(flat_b.append, swa)
+    same = len(flat_a) == len(flat_b) and all(
+        np.array_equal(a, b) for a, b in zip(flat_a, flat_b))
+    serve = {"name": "serve_swa", "model": "sr", "scale": 4,
+             "which": "swa",
+             "datasets": {"test_1": {
+                 "name": "val", "mode": "aligned",
+                 "dataroot_HR": opt["datasets"]["val"]["dataroot_HR"],
+                 "dataroot_LR": opt["datasets"]["val"]["dataroot_LR"]}},
+             "network_G": opt["network_G"],
+             "path": {"root": os.path.join(root, "serve_swa"),
+                      "pretrain_model_G": swa_file},
+             "metrics": "psnr,ssim"}
+    path = os.path.join(root, "serve_swa.json")
+    with open(path, "w") as f:
+        json.dump(serve, f)
+    averages = test_cli.main(["-opt", path])
+    psnr = [m["average"] for m in averages["val"] if m["name"] == "psnr"]
+    print(f"options: {CLI_RESUME_NITER}_swaG.ckpt equals the state's SWA "
+          f"weights bit for bit: {same} (swa_n {int(tree['swa_n'])}); "
+          f"served by the test CLI with which: swa, PSNR {psnr} ({smi})")
+    if not same or not psnr or not all(math.isfinite(v) for v in psnr) \
+            or int(tree["swa_n"]) != CLI_RESUME_NITER - OPT_SWA_START:
+        raise AssertionError("options: the SWA checkpoint or its serving")
+    return {f"options cli {k}": v for k, v in runs.items()}
+
+
+def _options_times(smi: str) -> None:
+    """(d) The graphed bf16 step at full width (b=32, 32 -> 128 px) with
+    each optimizer (G and D), ``grad_clip: auto`` and a virtual batch of 2
+    against the flagship (Adam), and the options cell (at its 112 px
+    crop, in AdaTarget's program with SWA's update) against it:
+    ``OPT_TIME_STEPS`` steps each in turns (flagship, other, other,
+    flagship) after three warm-up steps, by CUDA events on the card's
+    clock."""
+    import torch
+
+    from trainner_tpu_torch.train.sr_trainer import create_trainer
+
+    def warm(options, batch):
+        tr = create_trainer(options)
+        st = tr.init_state(0)
+        for _ in range(3):
+            tr.train_step(st, batch)
+        torch.cuda.synchronize()
+        return tr, st
+
+    def timed(tr, st, batch):
+        start, end = (torch.cuda.Event(enable_timing=True)
+                      for _ in range(2))
+        torch.cuda.synchronize()
+        start.record()
+        for _ in range(OPT_TIME_STEPS):
+            tr.train_step(st, batch)
+        end.record()
+        torch.cuda.synchronize()
+        return start.elapsed_time(end) / OPT_TIME_STEPS
+
+    batch = _train_batch(seed=1)
+    flag = warm(_train_options(), batch)
+    others = [(f"optimizer {o}", _train_options(optim_G=o, optim_D=o),
+               batch) for o in ("rmsprop", "adamp", "sgdp", "ranger",
+                                "madgrad")]
+    others += [("grad_clip auto", _train_options(grad_clip="auto"), batch),
+               ("virtual_batch_size 2",
+                _train_options(virtual_batch_size=2), batch),
+               (f"options cell at {OPT_CROP} px",
+                _options_cell(atg_start_iter=0, swa_start_iter=0),
+                _options_batch(seed=2))]
+    for label, options, b in others:
+        other = warm(options, b)
+        ms = {"flagship": [], label: []}
+        for which in ("flagship", label, label, "flagship"):
+            tr, st = flag if which == "flagship" else other
+            ms[which].append(timed(tr, st, batch if which == "flagship"
+                                   else b))
+        print(f"times: graphed bf16 step, {label} against the flagship "
+              f"(Adam, b=32 32->128 px), ms per step (CUDA events) over "
+              f"{OPT_TIME_STEPS} in turns: flagship {ms['flagship']}, "
+              f"{label} {ms[label]}; ratio "
+              f"{min(ms[label]) / min(ms['flagship']):.3f} ({smi})")
+        del other, tr, st
+        torch.cuda.empty_cache()
+    del flag
+    torch.cuda.empty_cache()
+
+
+def phase_trainer_options(smi: str, root: str) -> dict:
+    """Phase 17: the rest of the sr trainer's options. (a) each option card
+    against CPU and an f64 witness at small widths; (b) the full-width
+    options cell graphed against eager bit for bit across AdaTarget's and
+    SWA's starts, each program's replay traced; (c) the training CLI on
+    the cell with a resume and the SWA file served; (d) each optimizer's,
+    the auto clip's, the virtual batch's and the cell's step times against
+    the flagship's. Returns the launch traces of its main-path runs."""
+    import torch
+
+    t0 = time.perf_counter()
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    _options_card_cpu(smi)
+    _options_graphed_vs_eager(smi)
+    traces = _options_cli(smi, root)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    _options_times(smi)
+    print(f"options: ok in {time.perf_counter() - t0:.1f} s ({smi})")
+    return traces
+
+
 def phase_graphs(smi: str, root: str) -> None:
     """The programs as CUDA graphs against the same programs run eagerly
     (``graphs=False``), in one process: the step (bf16, f32) with its
@@ -5142,6 +5711,7 @@ def main(argv=None) -> int:
         torch.backends.cudnn.allow_tf32 = False
         torch.backends.cuda.matmul.allow_tf32 = False
         cli_counts.update(phase_losses(smi, root))
+        cli_counts.update(phase_trainer_options(smi, root))
         torch.backends.cudnn.allow_tf32 = False
         torch.backends.cuda.matmul.allow_tf32 = False
         rows = phase_times(smi, root)

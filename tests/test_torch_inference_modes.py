@@ -95,9 +95,9 @@ def test_chop_matches_jax(trainers, shape, patch, overlap, tiles):
     seen = []
     eval_step = pt.eval_step
 
-    def spy(state, t):
+    def spy(state, t, *which):
         seen.append(tuple(t.shape))
-        return eval_step(state, t)
+        return eval_step(state, t, *which)
 
     pt.eval_step = spy
     try:

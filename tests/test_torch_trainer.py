@@ -1,9 +1,10 @@
 """The port's trainer on its own (``trainner_tpu_torch/train/
 sr_trainer.py``): wire batches, the train-mode latent noise and its
-generator, what the G stage leaves on D, the factory's defaults, and the
-options outside the slice. The parity with the JAX trainer is in
-``test_torch_train_step.py``; this file imports no JAX, so its steps run
-at the CPU's full speed.
+generator, what the G stage leaves on D, the factory's defaults. The
+parity with the JAX trainer is in ``test_torch_train_step.py`` (the other
+trainer options in ``test_torch_trainer_options.py`` and
+``test_torch_options_steps.py``); this file imports no JAX, so its steps
+run at the CPU's full speed.
 """
 
 import numpy as np
@@ -120,28 +121,6 @@ def test_create_trainer_trains_in_bf16_on_the_card_by_default(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
         create_trainer(_opt())
-
-
-# hfen_weight, ssim_weight and gan_type wgan-gp left this list when the
-# loss stack was ported (ROADMAP Queue A 10.7; held against the JAX
-# package in test_torch_loss_stack.py and test_torch_wgan_gp.py); three
-# options of A 10.9 that still raise took their places
-@pytest.mark.parametrize("where,key,value", [
-    ("train", "mixup", True), ("train", "diffaug", True),
-    ("train", "fs", True), ("train", "lr_scheme", "CosineAnnealingLR"),
-    ("opt", "use_atg", True), ("train", "freeze_loc", 2),
-    ("opt", "use_swa", True), ("train", "freeze_d", True),
-    ("train", "grad_clip", "auto"), ("train", "virtual_batch_size", 8),
-    ("train", "optim_G", "ranger"), ("train", "lr_scheme", "StepLR"),
-    ("train", "optim_D", "madgrad"), ("train", "lr_scheme",
-                                      "ReduceLROnPlateau"),
-])
-def test_options_outside_the_slice_raise_and_name_their_item(where, key,
-                                                             value):
-    opt = _opt()
-    (opt if where == "opt" else opt["train"])[key] = value
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue A"):
-        SRTrainer(opt, device="cpu").init_state(0)
 
 
 def test_inference_trainer_refuses_to_train():

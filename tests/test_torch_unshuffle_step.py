@@ -197,9 +197,9 @@ def test_chop_unshuffles_each_tile_as_jax(shape, tiles):
     seen = []
     eval_step = pt.eval_step
 
-    def spy(state, t):
+    def spy(state, t, *which):
         seen.append(tuple(t.shape))
-        return eval_step(state, t)
+        return eval_step(state, t, *which)
 
     pt.eval_step = spy
     got = pt.eval_step_chop(pstate, torch.from_numpy(lr), 16, 4).numpy()

@@ -18,6 +18,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..utils.graphs import device_constant
+
 # the padding modes of ``jnp.pad`` -> those of ``F.pad``
 _PAD_MODES = {"reflect": "reflect", "constant": "constant",
               "edge": "replicate", "wrap": "circular",
@@ -179,6 +181,13 @@ def separable_filter2d(x: torch.Tensor, k1d,
     return y.permute(0, 2, 3, 1)
 
 
+def _on(x: torch.Tensor, kernel: np.ndarray) -> torch.Tensor:
+    """A fixed kernel as a constant on x's device, made once (a copy from
+    the host inside a CUDA graph's capture would wait for the card)."""
+    return device_constant(kernel.astype(np.float32).tolist(),
+                           torch.float32, x.device)
+
+
 def filter_low(x: torch.Tensor, kernel_size: int = 9,
                sigma: Optional[float] = None,
                filter_type: str = "gaussian") -> torch.Tensor:
@@ -186,9 +195,11 @@ def filter_low(x: torch.Tensor, kernel_size: int = 9,
     counted in; 'gaussian' a zero-padded separable gaussian of sigma
     kernel_size / 6 unless given."""
     if filter_type in ("average", "box"):
-        return filter2d(x, box_kernel(kernel_size), pad_mode="constant")
+        return filter2d(x, _on(x, box_kernel(kernel_size)),
+                        pad_mode="constant")
     sigma = sigma or kernel_size / 6.0
-    return separable_filter2d(x, gaussian_kernel_1d(kernel_size, sigma),
+    return separable_filter2d(x, _on(x, gaussian_kernel_1d(kernel_size,
+                                                           sigma)),
                               pad_mode="constant")
 
 

@@ -339,9 +339,10 @@ def jax_resize(x: torch.Tensor, out_hw: Tuple[int, int], method: str,
     if oh != h:
         t = _jax_table(h, oh, method, antialias, x.device)
         y = y.index_select(1, t) if method == "nearest" else \
-            torch.matmul(t, y.flatten(2)).unflatten(2, y.shape[2:])
+            torch.matmul(t.to(y.dtype), y.flatten(2)).unflatten(
+                2, y.shape[2:])
     if ow != w:
         t = _jax_table(w, ow, method, antialias, x.device)
         y = y.index_select(2, t) if method == "nearest" else \
-            torch.matmul(t, y)
+            torch.matmul(t.to(y.dtype), y)
     return y

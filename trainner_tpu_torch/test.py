@@ -8,6 +8,12 @@ its CEM post-processing (``test.py:129-150``): with ``use_cem`` and
 and ``out_keepY`` (the luma without CEM, the chroma with it) combine the
 two.
 
+``which`` (``g``, ``ema``, ``swa`` or ``auto``, the default) is the copy
+of the weights ``eval_step`` serves: the loaded ``pretrain_model_G`` (a
+``{tag}_swaG.ckpt`` with its batch-norm statistics too) goes into that
+copy of the state; ``auto`` serves EMA weights where the state keeps them,
+else G, as the JAX package's ``eval_step`` does.
+
 Runs G over every configured test dataset, writes one PNG per image and
 logs PSNR and SSIM (RGB and Y) per image and per dataset, with the same
 options keys and log lines as the JAX CLI. On the card ``eval_step`` replays
@@ -86,6 +92,7 @@ def main(argv=None, device: Union[str, torch.device, None] = None
     from .data import create_dataloader, create_dataset
     from .data.common import save_img, tensor2img
     from .train.sr_trainer import create_trainer
+    from .train.state import init_ema, init_swa
     from .utils.logging_utils import get_root_logger, mkdirs
     from .utils.metrics import MetricsDict
 
@@ -113,6 +120,9 @@ def main(argv=None, device: Union[str, torch.device, None] = None
     scale = int(opt.get("scale") or 1)
     ensemble_x8 = bool(opt.get("self_ensemble") or opt.get("x8"))
     chop = bool(opt.get("chop_forward") or opt.get("chop"))
+    which = str(opt.get("which") or "auto")
+    if which not in ("g", "ema", "swa", "auto"):
+        raise ValueError(f"which [{which}]: 'g', 'ema', 'swa' or 'auto'")
     znorm = False
     averages: Dict[str, List[Dict]] = {}
     for name, loader in test_loaders:
@@ -134,12 +144,18 @@ def main(argv=None, device: Union[str, torch.device, None] = None
                 else:
                     logger.warning("No pretrain_model_G given — running "
                                    "random-init weights.")
+                if which == "swa":
+                    # the loaded weights (a {tag}_swaG.ckpt) as the
+                    # state's SWA copy, which eval_step's "swa" serves
+                    init_swa(state)
+                elif which == "ema":
+                    init_ema(state)
             if ensemble_x8:
-                sr = trainer.eval_step_x8(state, batch["LR"])
+                sr = trainer.eval_step_x8(state, batch["LR"], which)
             elif chop:
-                sr = trainer.eval_step_chop(state, batch["LR"])
+                sr = trainer.eval_step_chop(state, batch["LR"], which=which)
             else:
-                sr = trainer.eval_step(state, batch["LR"])
+                sr = trainer.eval_step(state, batch["LR"], which)
             cem_cfg = opt.get("cem_config") or {}
             if opt.get("use_cem") and cem_cfg.get("out_orig"):
                 sr = _cem_post(trainer.eval_step(state, batch["LR"],

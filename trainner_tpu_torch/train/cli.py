@@ -12,7 +12,9 @@ loads the state before the first capture, and a save reads the state
 between replays, after a synchronise), a log line and scalars
 every ``print_freq`` iterations, checkpoints in the JAX package's format
 every ``save_checkpoint_freq`` (``{iter}_G.ckpt``, ``{iter}_D.ckpt``,
-``{iter}.state``), PSNR/SSIM and PNGs of the validation set every
+``{iter}_swaG.ckpt`` with SWA, its batch norms' statistics recomputed over
+the last ``swa_update_bn_batches`` LR batches (4 by default) when G has
+batch norms, ``{iter}.state``), PSNR/SSIM and PNGs of the validation set every
 ``val_freq``, and a ``latest`` checkpoint when the run is interrupted
 (Ctrl-C or SIGTERM), after which it exits with code 0. ``path.resume_state``
 (a ``.state`` file, or a directory of them) resumes a run, a JAX one too.
@@ -29,6 +31,7 @@ and without ``device`` it raises.
 from __future__ import annotations
 
 import argparse
+import collections
 import json
 import logging
 import math
@@ -41,6 +44,7 @@ import torch
 
 from ..data import create_dataloader, create_dataset, device_prefetch
 from ..data.common import save_img, tensor2img
+from ..ops.blocks import BatchNorm
 from ..options import check_resume, dict2str, parse
 from ..utils import checkpoint
 from ..utils.debug import check_finite, enable_nan_checks
@@ -182,12 +186,16 @@ def _sigterm(_signum, _frame):
     raise KeyboardInterrupt
 
 
-def _save(state, opt, epoch: int, current_step: int, **kw) -> None:
+def _save(state, opt, epoch: int, current_step: int, swa_extra=None,
+          **kw) -> None:
     """``checkpoint.save_checkpoint`` once the card has finished the
-    replays that write the state."""
+    replays that write the state; ``swa_extra()`` gives the SWA weights'
+    refreshed batch-norm statistics (or None)."""
     if next(state.g.net.parameters()).is_cuda:
         torch.cuda.synchronize()
-    checkpoint.save_checkpoint(state, opt, epoch, current_step, **kw)
+    checkpoint.save_checkpoint(
+        state, opt, epoch, current_step,
+        swa_extra=swa_extra() if swa_extra is not None else None, **kw)
 
 
 def fit(trainer, opt, loaders, state, start_epoch: int, current_step: int,
@@ -229,6 +237,18 @@ def _fit(trainer, opt, loaders, state, start_epoch, current_step, logger,
         f"Start training from epoch {start_epoch}, iter {current_step}; "
         f"total epochs {total_epochs}, iters {niter}")
 
+    # the most recent LR batches, over which a save recomputes the batch
+    # norms' statistics of the SWA weights (a G with batch norms)
+    bn_batches = collections.deque(
+        maxlen=int(train_opt.get("swa_update_bn_batches", 4) or 4))
+    keep_bn = state.swa is not None and any(
+        isinstance(m, BatchNorm) for m in state.g.net.modules())
+
+    def swa_extra():
+        if not (keep_bn and bn_batches):
+            return None
+        return trainer.refresh_swa_bn(state, list(bn_batches))
+
     def tensors_only(it):
         for b in it:
             yield {k: v for k, v in b.items() if isinstance(v, torch.Tensor)}
@@ -244,6 +264,8 @@ def _fit(trainer, opt, loaders, state, start_epoch, current_step, logger,
                 timer.tic()
                 if degrade is not None:
                     batch = degrade(batch)
+                if keep_bn and "LR" in batch:
+                    bn_batches.append(batch["LR"].clone())
                 state, logs = trainer.train_step(state, batch)
                 if debug_nans:
                     check_finite(logs, current_step)
@@ -267,7 +289,7 @@ def _fit(trainer, opt, loaders, state, start_epoch, current_step, logger,
                                           current_step)
 
                 if current_step % save_freq == 0:
-                    _save(state, opt, epoch, current_step,
+                    _save(state, opt, epoch, current_step, swa_extra,
                           latest_only=overwrite_chkp)
                     logger.info("Models and training state saved at iter "
                                 f"{current_step}.")
@@ -278,10 +300,10 @@ def _fit(trainer, opt, loaders, state, start_epoch, current_step, logger,
             epoch += 1
     except KeyboardInterrupt:
         logger.info("Training interrupted. Saving latest models and state.")
-        _save(state, opt, epoch, current_step, latest_only=True)
+        _save(state, opt, epoch, current_step, swa_extra, latest_only=True)
         raise SystemExit(0)
 
-    _save(state, opt, epoch, current_step)
+    _save(state, opt, epoch, current_step, swa_extra)
     logger.info("Training finished. Saved final models and state.")
     return state
 

@@ -3,7 +3,9 @@
 ``init_state:222``, ``_g_apply:270``, ``_train_step:300``,
 ``_get_step_fn:521``, ``train_step:538``, ``can_scan_steps:565``,
 ``train_steps:573``, ``_eval_step:643``, ``eval_step:657``,
-``eval_step_chop:672``, ``eval_step_x8:748``) and of
+``eval_step_chop:672``, ``eval_step_x8:748``, ``refresh_swa_bn:766``;
+``clip_grads:50``, ``agc_hist_percentile:73``,
+``agc_percentile_clip:83``) and of
 ``train.py::create_trainer:95`` for ``model: sr``.
 
 One training step is the ESRGAN step: G (``rrdb_net``, ``mrrdb_net`` or
@@ -12,7 +14,8 @@ hand-written forward and backward kernels) under the loss stack of
 ``losses/generator_loss.py`` and the adversarial loss, then D on the
 detached output of that same G forward (with wgan-gp's gradient penalty,
 a third D pass at interpolates whose weights come from the state's
-generator); Adam or SGD with the learning rate of a host-side schedule. With
+generator); each net's optimizer with the learning rate of a host-side
+schedule. With
 ``use_unshuffle`` G reads its input pixel-unshuffled by
 ``unshuffle_scale`` (``space_to_depth``); with ``use_cem`` the G stage's
 output and ``eval_step``'s are projected by CEM (``ops/cem.py``; the
@@ -22,18 +25,43 @@ per step, as D's are. The network bodies run in the trainer's dtype (bf16
 by default when training) with f32 parameters, gradients and losses; there
 is no autocast and no loss scaling.
 
-On the card, where the JAX package jits, the port replays CUDA graphs
-(``utils/graphs.py``): the step as one graph per ``(update_d, update_g)``
-and batch signature, all of a trainer's graphs in one memory pool, and
-``eval_step`` as one graph per input shape and type. ``train_steps`` runs a
-window of k steps as k replays. ``graphs=False`` runs the same programs
-eagerly (on the CPU they always are).
+The trainer options of the JAX ``SRTrainer`` all run: the optimizers and
+schedules of ``optimizers.py`` / ``schedulers.py``; batch augmentations
+(``mixup``, ``mixopts``, ``mixprob``, ``mixalpha``: ``ops/batchaug.py``, on
+the pair brought to one size by a nearest up-scale of LR and down again;
+cutout's mask multiplies the loss's inputs and the G stage's D inputs);
+DiffAugment on D's inputs in both stages, one draw for the fake and the
+real batch (``diffaug``, ``dapolicy``: ``ops/diffaug.py``); frequency
+separation (``fs``, ``lpf_type``, ``hpf_type``: the low pass to the loss
+stack, the high pass on D's inputs); AdaTarget (``use_atg``,
+``atg_start_iter``: ``ops/adatarget.py``, the LocNet trained jointly with G
+through the pixel loss under ``optim_G``'s rule and clipped by norm to
+``grad_clip_value``); FreezeD (``freeze_loc``: the first names of D's flax
+parameter tree, sorted, get zero gradients); ``grad_clip`` value, norm or
+auto (G's gradient norm recorded in a 256-entry ring buffer on the
+device, G clipped to the 10th percentile of it, D to that of G's history
+after G's update); a virtual batch (``virtual_batch_size`` A: A
+microbatches in one step, gradients summed and divided by A, the logs
+averaged, batch statistics from the last one; AdaTarget's G stage ignores
+it, as in the JAX package); SWA (``use_swa``, ``swa_start_iter``,
+``swa_lr``: ``train/state.py``) and EMA. The augmentations' random draws,
+like the latent noise and wgan-gp's alpha, come from the state's
+``noise_generator`` (or from ``draw_hook``, which the tests and the card's
+smoke run use to share draws). The JAX behaviours the port keeps are
+listed in ROADMAP C 19.
 
-Not ported yet, each raising with its ROADMAP item: batch augmentations,
-DiffAugment, frequency separation, AdaTarget, FreezeD, ``grad_clip:
-auto``, a virtual batch and SWA; band-parallel inference. With ``use_ema`` the EMA copy of G
+On the card, where the JAX package jits, the port replays CUDA graphs
+(``utils/graphs.py``): the step as one graph per ``(update_d, update_g,
+atg_on)`` and batch signature, all of a trainer's graphs in one memory
+pool, and ``eval_step`` as one graph per input shape and type.
+``train_steps`` runs a window of k steps as k replays, or as k
+``train_step`` calls where a host transition (SWA, AdaTarget, the D ratio)
+may fall inside it. ``graphs=False`` runs the same programs eagerly (on
+the CPU they always are). With ``use_ema`` the EMA copy of G
 (``train/state.py``) is updated at the end of every step, inside its
-graph, and ``eval_step`` runs it by default, as the JAX package does.
+graph, and ``eval_step`` runs it by default, as the JAX package does; the
+SWA average is one pass of foreach ops launched after the step. Band-
+parallel inference is not ported (ROADMAP Queue A 9).
 """
 
 from __future__ import annotations
@@ -43,33 +71,31 @@ import contextlib
 import functools
 from typing import Callable, Dict, Optional, Tuple, Union
 
+import numpy as np
 import torch
 
 from ..losses.gan import build_adversarial
 from ..losses.generator_loss import GeneratorLoss
+from ..models.discriminators import DiscriminatorVGG
 from ..models.networks import define_D, define_G
 from ..models.rrdb import drop_packed
+from ..ops.adatarget import LocNet, ada_target
+from ..ops.batchaug import BatchAugment
 from ..ops.blocks import (BatchNorm, GaussianNoise, commit_stats,
-                          space_to_depth, wire_to_f01)
+                          interpolate, space_to_depth, wire_to_f01)
 from ..ops.cem import cem_project
+from ..ops.diffaug import apply_diff_augment, draw_diff_augment
+from ..ops.filters import filter_high, filter_low
 from ..utils.checkpoint import load_params
 from ..utils.device import resolve_device
 from ..utils.graphs import Captured, signature, warm_up
-from ..utils.torch_interop import key_to_seed, seed_to_key
-from .optimizers import build_optimizer
+from ..utils.torch_interop import g_to_jax, key_to_seed, seed_to_key
+from .optimizers import build_optimizer, jax_view
 from .schedulers import build_scheduler
-from .state import NetState, SRTrainState, ema_update, init_ema
+from .state import (NetState, SRTrainState, ema_update, init_ema, init_swa,
+                    refresh_bn_stats, swa_update)
 
-# option (in opt or opt["train"]) -> (what it is, its ROADMAP item)
-_NOT_PORTED = {
-    "use_swa": ("SWA weights", "Queue A 10.10, SWA and EMA"),
-    "use_atg": ("AdaTarget", "Queue A 10.8, the other ops"),
-    "mixup": ("batch augmentations", "Queue A 10.8, the other ops"),
-    "diffaug": ("DiffAugment", "Queue A 10.8, the other ops"),
-    "fs": ("frequency separation", "Queue A 10.8, the other ops"),
-    "freeze_d": ("FreezeD", "Queue A 10.11, the other trainer options"),
-    "freeze_loc": ("FreezeD", "Queue A 10.11, the other trainer options"),
-}
+AGC_HISTORY = 256  # the auto clip's ring buffer of G's gradient norms
 
 
 @contextlib.contextmanager
@@ -86,24 +112,80 @@ def _no_param_grad(net: torch.nn.Module):
             p.requires_grad_(True)
 
 
-def clip_grads(params, mode: Optional[str], value: float) -> None:
-    """value / norm gradient clipping, in place on ``.grad``."""
+def global_norm(grads) -> torch.Tensor:
+    """sqrt of the sum of every gradient's squares, in f32."""
+    return torch.sqrt(sum(g.float().square().sum() for g in grads))
+
+
+def clip_grads(params, mode: Optional[str], value) -> None:
+    """value / norm gradient clipping, in place on ``.grad``; ``auto``
+    clips by norm to ``value`` here (the LocNet's, and D's to G's
+    percentile). ``value`` may be a 0-d device tensor."""
     if not mode:
         return
     grads = [p.grad for p in params if p.grad is not None]
     if mode == "value":
         for g in grads:
             g.clamp_(-value, value)
-    elif mode == "norm":
-        gnorm = torch.sqrt(sum(g.float().square().sum() for g in grads))
-        scale = torch.clamp(value / (gnorm + 1e-6), max=1.0)
+    elif mode in ("norm", "auto"):
+        scale = torch.clamp(value / (global_norm(grads) + 1e-6), max=1.0)
         torch._foreach_mul_(grads, scale)
-    elif mode == "auto":
-        raise NotImplementedError(
-            "grad_clip [auto] is not ported yet (ROADMAP Queue A 10.11, "
-            "the other trainer options)")
     else:
         raise NotImplementedError(f"grad_clip [{mode}]")
+
+
+def init_grad_hist(device) -> Dict[str, torch.Tensor]:
+    """The auto clip's history: ``vals`` (256 f32) and ``n`` (int32), the
+    norms recorded so far."""
+    return {"vals": torch.zeros(AGC_HISTORY, dtype=torch.float32,
+                                device=device),
+            "n": torch.zeros((), dtype=torch.int32, device=device)}
+
+
+def agc_hist_percentile(hist: Dict[str, torch.Tensor],
+                        percentile: float = 10.0) -> torch.Tensor:
+    """The ``percentile``-th percentile of the recorded norms as
+    ``jnp.nanpercentile`` computes it (linear between the two nearest
+    ranks, q = percentile / 100 in f32 times count - 1); inf while the
+    history is empty. On the device, reading nothing back."""
+    vals, n = hist["vals"], hist["n"]
+    k = vals.shape[0]
+    idx = torch.arange(k, device=vals.device)
+    valid = torch.where(idx < torch.clamp(n, max=k), vals,
+                        torch.full_like(vals, float("nan")))
+    ranked = torch.sort(valid).values  # NaN last
+    counts = (~torch.isnan(ranked)).sum().float()
+    q = (counts - 1) * float(np.float32(percentile) / np.float32(100.0))
+    low, high = torch.floor(q), torch.ceil(q)
+    high_w = q - low
+    low_w = 1 - high_w
+    low = torch.clamp(torch.minimum(low, counts - 1), min=0).long()
+    high = torch.clamp(torch.minimum(high, counts - 1), min=0).long()
+    value = ranked.index_select(0, low.reshape(1))[0] * low_w + \
+        ranked.index_select(0, high.reshape(1))[0] * high_w
+    return torch.where(n > 0, value, torch.full_like(value, float("inf")))
+
+
+def agc_percentile_clip(params, hist: Dict[str, torch.Tensor],
+                        percentile: float = 10.0) -> None:
+    """Auto clip: records the gradients' global norm in the ring buffer
+    (in place), then clips them by norm to the percentile of the history
+    that includes it."""
+    grads = [p.grad for p in params if p.grad is not None]
+    gnorm = global_norm(grads)
+    vals, n = hist["vals"], hist["n"]
+    slot = torch.remainder(n, vals.shape[0]).long().reshape(1)
+    vals.index_copy_(0, slot, gnorm.reshape(1))
+    n.add_(1)
+    clip = agc_hist_percentile(hist, percentile)
+    torch._foreach_mul_(grads, torch.clamp(clip / (gnorm + 1e-6), max=1.0))
+
+
+def d_flax_names(net: torch.nn.Module) -> Dict[str, str]:
+    """Each D parameter's top-level name in the JAX package's flax tree
+    (``conv0_0``, ..., ``linear1`` for D-VGG; ``conv0`` ... for the U-Net),
+    which ``utils/torch_interop.py::discriminator_to_jax`` writes."""
+    return {name: name.split(".")[0] for name, _ in net.named_parameters()}
 
 
 class SRTrainer:
@@ -134,14 +216,6 @@ class SRTrainer:
                  device: Union[str, torch.device, None] = None,
                  graphs: Optional[bool] = None):
         train_opt = opt.get("train") or {}
-        for key, (what, item) in _NOT_PORTED.items():
-            if opt.get(key) or train_opt.get(key):
-                raise NotImplementedError(
-                    f"{what} is not ported yet (ROADMAP {item})")
-        if int(train_opt.get("virtual_batch_size") or 0) > 1:
-            raise NotImplementedError(
-                "a virtual batch (gradient accumulation) is not ported yet "
-                "(ROADMAP Queue A 10.11, the other trainer options)")
         self.opt = opt
         self.train_opt = train_opt
         self.dtype = dtype
@@ -150,7 +224,10 @@ class SRTrainer:
             else bool(graphs)
         if self.graphs and self.device.type != "cuda":
             raise ValueError(f"CUDA graphs run on cuda, not {self.device}")
-        self._step_fns: Dict[Tuple[bool, bool], Callable] = {}
+        self._step_fns: Dict[Tuple[bool, bool, bool], Callable] = {}
+        # () -> the step's draws in place of the generator's (the tests
+        # give JAX's; the smoke run shares the CPU's with the card)
+        self.draw_hook: Optional[Callable[[dict], dict]] = None
         self._eval_graphs: "collections.OrderedDict" = \
             collections.OrderedDict()
         self._eval_seen: "collections.OrderedDict" = \
@@ -160,7 +237,10 @@ class SRTrainer:
         # a step's replay changes G's weights behind the packed caches'
         # version check: set then, cleared where the caches are dropped
         self._packs_stale = False
-        self.use_ema = False
+        self.use_ema = self.use_swa = self.use_atg = False
+        self.batchaug = None
+        self.dapolicy = ""
+        self.f_low = self.f_high = None
         self.is_train = bool(opt.get("is_train", True))
         self.scale = int(opt.get("scale", 4) or 4)
         self.znorm = bool(((opt.get("datasets") or {}).get("train")
@@ -192,18 +272,51 @@ class SRTrainer:
         self.grad_clip = train_opt.get("grad_clip")
         self.grad_clip_value = float(train_opt.get("grad_clip_value", 0.1)
                                      or 0.1)
+        if self.grad_clip not in (None, "", False, "value", "norm", "auto"):
+            raise NotImplementedError(f"grad_clip [{self.grad_clip}]")
         self.use_ema = bool(opt.get("use_ema") or train_opt.get("use_ema"))
         self.ema_decay = float(train_opt.get("ema_decay", 0.999) or 0.999)
-        if self.grad_clip == "auto":
-            clip_grads([], "auto", 0.0)
+        self.accumulations = max(1, int(
+            (train_opt.get("virtual_batch_size") or 0) or 1))
+        self.use_swa = bool(opt.get("use_swa"))
+        self.swa_start_iter = int(float(train_opt.get(
+            "swa_start_iter", 0) or 0))
+        self.use_atg = bool(opt.get("use_atg"))
+        self.atg_start_iter = int(float(train_opt.get("atg_start_iter", 0)
+                                        or 0))
+        self.freeze_loc = int(train_opt.get("freeze_loc", 0) or 0) \
+            if train_opt.get("freeze_d") or train_opt.get("freeze_loc") \
+            else 0
+        if train_opt.get("mixup"):
+            mixopts = train_opt.get("mixopts",
+                                    ["blend", "rgb", "mixup", "cutmix",
+                                     "cutmixup"])
+            alphas = dict(zip(mixopts, train_opt.get("mixalpha", []) or []))
+            self.batchaug = BatchAugment(
+                list(mixopts) + ["none"],
+                (list(train_opt.get("mixprob", []) or
+                      [1.0] * len(mixopts)) + [1.0]), alphas)
+        self.dapolicy = (train_opt.get("dapolicy", "") or "") \
+            if train_opt.get("diffaug") else ""
+        if bool(train_opt.get("fs")):
+            lpf = train_opt.get("lpf_type", "average")
+            hpf = train_opt.get("hpf_type", "average")
+            self.f_low = functools.partial(filter_low, kernel_size=9,
+                                           filter_type=lpf)
+            self.f_high = functools.partial(filter_high, kernel_size=9,
+                                            filter_type=hpf)
 
     def _optimizer(self, net: torch.nn.Module, which: str):
+        """``optim_{which}`` over ``net``'s parameters, with each weight's
+        JAX layout for the rules that read it (AdamP's projection)."""
         t = self.train_opt
+        params = list(net.parameters())
         return build_optimizer(
-            list(net.parameters()), t.get(f"optim_{which}", "adam"),
+            params, t.get(f"optim_{which}", "adam"),
             beta1=float(t.get(f"beta1_{which}", 0.9) or 0.9),
             beta2=float(t.get(f"beta2_{which}", 0.999) or 0.999),
-            weight_decay=float(t.get(f"weight_decay_{which}", 0) or 0))
+            weight_decay=float(t.get(f"weight_decay_{which}", 0) or 0),
+            views=[jax_view(p) for p in params])
 
     # ------------------------------------------------------------------
     # init
@@ -214,8 +327,10 @@ class SRTrainer:
         seeded from ``seed`` (then ``g_path``'s weights for G when one is
         given), on the trainer's device; when training, also D, the
         optimizers and the generator of the latent noise, seeded with
-        ``seed + 2`` (the state's ``rng`` is that seed's key), and with
-        ``use_ema`` the EMA copy of G. A checkpoint
+        ``seed + 2`` (the state's ``rng`` is that seed's key); with
+        ``use_ema`` the EMA copy of G, with ``use_swa`` the SWA copy, with
+        ``use_atg`` the LocNet (weights from ``seed + 3``) and its
+        optimizer, with ``grad_clip: auto`` the norm history. A checkpoint
         of a run resumes into this state with
         ``utils/checkpoint.py::load_state``."""
         netG = define_G(self.opt, dtype=self.dtype)
@@ -255,6 +370,15 @@ class SRTrainer:
             netD.init_weights(torch.Generator().manual_seed(seed + 1))
             netD = netD.to(self.device)
             state.d = NetState(netD, self._optimizer(netD, "D"))
+        if self.use_atg:
+            loc = LocNet()
+            loc.init_weights(torch.Generator().manual_seed(seed + 3))
+            loc = loc.to(self.device)
+            state.loc = NetState(loc, self._optimizer(loc, "G"))
+        if self.grad_clip == "auto":
+            state.grad_hist = init_grad_hist(self.device)
+        if self.use_swa:
+            init_swa(state)
         if self.use_ema:
             init_ema(state)
         return state
@@ -274,9 +398,134 @@ class SRTrainer:
             lr_img = space_to_depth(lr_img, self.unshuffle_scale)
         return net(lr_img).float()
 
+    def _frozen(self, netD: torch.nn.Module) -> list:
+        """FreezeD's parameters: those under the first ``freeze_loc``
+        top-level names of D's flax tree, in sorted order."""
+        if not self.freeze_loc:
+            return []
+        names = d_flax_names(netD)
+        frozen = set(sorted(set(names.values()))[:self.freeze_loc])
+        return [p for n, p in netD.named_parameters() if names[n] in frozen]
+
+    def _draw_shapes(self, hr_shape, update_d: bool, update_g: bool,
+                     atg_on: bool) -> dict:
+        """The shapes the step's draws are made for: ``aug`` (the batch
+        augmentation's pair), ``da_g`` (D's inputs in the G stage: one
+        microbatch, AdaTarget's region) and ``da_d`` (in the D stage)."""
+        b, h, w, c = hr_shape
+        shapes = {}
+        if self.batchaug is not None:
+            shapes["aug"] = (b, h, w, c)
+        if self.use_gan and self.dapolicy:
+            if update_g:
+                a = 1 if atg_on else self.accumulations
+                if atg_on:
+                    h, w = h // 7 * 7, w // 7 * 7
+                shapes["da_g"] = (b // a, h, w, c)
+            if update_d:
+                shapes["da_d"] = tuple(hr_shape)
+        return shapes
+
+    def _draws(self, state: SRTrainState, shapes: dict) -> dict:
+        """The step's random draws, from ``state.noise_generator`` (or
+        ``draw_hook``): the batch augmentation's choice and quantities,
+        and DiffAugment's for each stage. The D stage reuses the G stage's
+        draws when the shapes agree, and takes over its batch-wide ones
+        when only the batch size differs, as one JAX key gives them."""
+        if self.draw_hook is not None:
+            return self.draw_hook(shapes)
+        gen, dev = state.noise_generator, self.device
+        out = {}
+        if "aug" in shapes:
+            out["aug"] = self.batchaug.draw(gen, shapes["aug"], dev)
+        if "da_g" in shapes:
+            out["da_g"] = draw_diff_augment(gen, self.dapolicy,
+                                            shapes["da_g"], dev)
+        if "da_d" in shapes:
+            g_shape = shapes.get("da_g")
+            if g_shape == shapes["da_d"]:
+                out["da_d"] = out["da_g"]
+            else:
+                shared = out["da_g"] if g_shape is not None and \
+                    g_shape[1:] == shapes["da_d"][1:] else None
+                out["da_d"] = draw_diff_augment(gen, self.dapolicy,
+                                                shapes["da_d"], dev, shared)
+        return out
+
+    def _d_inputs(self, fa: torch.Tensor, ra: torch.Tensor, draws):
+        """D's inputs as the options shape them: the high pass (``fs``),
+        then DiffAugment with one draw for both."""
+        if self.f_high is not None:
+            fa, ra = self.f_high(fa), self.f_high(ra)
+        if self.dapolicy:
+            fa = apply_diff_augment(fa, self.dapolicy, draws)
+            ra = apply_diff_augment(ra, self.dapolicy, draws)
+        return fa, ra
+
+    def _forward_g(self, state: SRTrainState, lr_c, hr_c, msk, draws,
+                   atg_on: bool):
+        """G's loss on one (micro)batch: (total, logs, G's output). With
+        AdaTarget the target is aligned first and the loss reads the region
+        its grid covers; a cutout mask multiplies the loss's and D's
+        inputs."""
+        netG = state.g.net
+        fake = self._g(netG, lr_c)
+        if self.use_cem:
+            fake = cem_project(fake, lr_c, self.scale, kernel=self.cem_kernel)
+        if atg_on:
+            hr_c = ada_target(fake, hr_c, state.loc.net)
+        ha, wa = hr_c.shape[1:3]
+        fake_l = fake[:, :ha, :wa] if fake.shape[1:3] != (ha, wa) else fake
+        if msk is not None:
+            msk = msk[:, :ha, :wa]
+            fake_l, hr_c = fake_l * msk, hr_c * msk
+        total, glogs = self.generator_loss(fake_l, hr_c, f_low=self.f_low)
+        if self.use_gan:
+            netD = state.d.net
+            if (ha, wa) != tuple(fake.shape[1:3]) and \
+                    isinstance(netD, DiscriminatorVGG):
+                raise NotImplementedError(
+                    f"AdaTarget's {ha}x{wa} region of a {fake.shape[1]}x"
+                    f"{fake.shape[2]} crop goes to a D of fixed input size "
+                    "(D-VGG's network_D size): the JAX step raises "
+                    "there (flax ScopeParamShapeError), so the port does; "
+                    "take a crop that is a multiple of 7 and of the scale, "
+                    "or a D of any size (ROADMAP C 19)")
+            fa, ra = self._d_inputs(fake_l, hr_c, draws.get("da_g"))
+
+            # D runs in train mode here too (batch statistics, which G's
+            # gradient flows through); its running statistics are not
+            # written, the D stage owns their one update per step
+            def d_fn(x, want_maps=False):
+                return netD(x, train=True, return_feats=want_maps)
+
+            with _no_param_grad(netD):
+                l_g_gan = self.adversarial.generator_loss(d_fn, fa, ra)
+            glogs["l_g_gan"] = l_g_gan
+            total = total + l_g_gan
+        return total, glogs, fake
+
+    def _accumulated(self, runs, params, a: int):
+        """Sums what ``runs`` (a loss, logs and output per microbatch,
+        each loss already backpropagated) give over ``a`` microbatches:
+        the gradients on ``params`` divided by ``a``, the mean loss and
+        logs, the outputs joined."""
+        totals, logs, outs = zip(*runs)
+        if a == 1:
+            return totals[0], logs[0], outs[0]
+        grads = [p.grad for p in params if p.grad is not None]
+        torch._foreach_div_(grads, float(a))
+        total = totals[0]
+        for t in totals[1:]:
+            total = total + t
+        mean = {k: torch.stack([lg[k] for lg in logs]).mean()
+                for k in logs[0]}
+        return total / a, mean, torch.cat(outs) if outs[0] is not None \
+            else None
+
     def _train_step(self, state: SRTrainState, batch: Dict[str, torch.Tensor],
-                    lr_g, lr_d, *, update_d: bool,
-                    update_g: bool) -> Dict[str, torch.Tensor]:
+                    lr_g, lr_d, *, update_d: bool, update_g: bool,
+                    atg_on: bool = False) -> Dict[str, torch.Tensor]:
         """The step's program: reads the batch, the learning rates (floats
         or 0-d f32 tensors) and the state's tensors, updates the state's
         tensors in place and returns the logs. Nothing here reads the
@@ -286,35 +535,62 @@ class SRTrainer:
         netG = state.g.net.train()
         netD = state.d.net if self.use_gan else None
         logs: Dict[str, torch.Tensor] = {}
+        b = hr_img.shape[0]
+        a = self.accumulations
+        if b % a:
+            raise ValueError(
+                f"virtual_batch_size {a} does not divide the batch of {b}: "
+                "the JAX package takes it as the number of microbatches "
+                "(ROADMAP C 19)")
+        draws = self._draws(state, self._draw_shapes(
+            hr_img.shape, update_d, update_g, atg_on))
+
+        mask = None
+        if self.batchaug is not None:
+            # the pair at one size: a nearest up-scale is exact for an
+            # integer scale, so the regions no augmentation touches come
+            # back bit for bit from the nearest down-scale
+            up = self.scale > 1
+            if up:
+                lr_img = interpolate(lr_img, scale=self.scale,
+                                     mode="nearest")
+            hr_img, lr_img, mask = self.batchaug.apply(draws["aug"], hr_img,
+                                                       lr_img)
+            if up:
+                lr_img = interpolate(lr_img, scale=1.0 / self.scale,
+                                     mode="nearest")
 
         if update_g:
             state.g.opt.zero_grad()
-            fake = self._g(netG, lr_img)
+            ag = 1 if atg_on else a
+            if atg_on:
+                state.loc.opt.zero_grad()
+            runs = []
+            for i in range(ag):
+                part = slice(i * b // ag, (i + 1) * b // ag)
+                total, glogs, fake = self._forward_g(
+                    state, lr_img[part], hr_img[part],
+                    None if mask is None else mask[part], draws, atg_on)
+                total.backward()
+                runs.append((total.detach(), glogs, fake.detach()))
             commit_stats(netG)
-            if self.use_cem:
-                fake = cem_project(fake, lr_img, self.scale,
-                                   kernel=self.cem_kernel)
-            total, glogs = self.generator_loss(fake, hr_img)
-            if self.use_gan:
-                # D runs in train mode here too (batch statistics, which
-                # G's gradient flows through); its running statistics are
-                # not written, the D stage owns their one update per step
-                def d_fn(x, want_maps=False):
-                    return netD(x, train=True, return_feats=want_maps)
-
-                with _no_param_grad(netD):
-                    l_g_gan = self.adversarial.generator_loss(d_fn, fake,
-                                                              hr_img)
-                glogs["l_g_gan"] = l_g_gan
-                total = total + l_g_gan
-            total.backward()
-            clip_grads(state.g.opt.params, self.grad_clip,
-                       self.grad_clip_value)
+            total, glogs, fake_for_d = self._accumulated(
+                runs, state.g.opt.params, ag)
+            if atg_on:
+                # the LocNet's gradients clipped as the JAX step clips
+                # them, by its grad_clip with grad_clip_value
+                clip_grads(state.loc.opt.params, self.grad_clip,
+                           self.grad_clip_value)
+                state.loc.opt.step(lr_g)
+            if self.grad_clip == "auto":
+                agc_percentile_clip(state.g.opt.params, state.grad_hist)
+            else:
+                clip_grads(state.g.opt.params, self.grad_clip,
+                           self.grad_clip_value)
             # D sees the output of G's forward before this update
             state.g.opt.step(lr_g)
             logs.update(glogs)
             logs["l_g_total"] = total
-            fake_for_d = fake.detach()
         else:
             with torch.no_grad():
                 fake_for_d = self._g(netG, lr_img)
@@ -322,17 +598,34 @@ class SRTrainer:
 
         if self.use_gan and update_d:
             state.d.opt.zero_grad()
-            l_d, dlogs = self.adversarial.discriminator_loss(
-                lambda x: netD(x, train=True), fake_for_d, hr_img,
-                generator=state.noise_generator)
-            l_d.backward()
-            clip_grads(state.d.opt.params, self.grad_clip,
-                       self.grad_clip_value)
-            # fake went first, real second: the real batch's pass, from the
-            # weights before this update, gives the step's one update of
-            # D's state (running statistics; spectral norms' u and sigma,
-            # which every pass gives alike, the penalty's too); the G
-            # stage's passes left none
+            fa, ra = self._d_inputs(fake_for_d, hr_img, draws.get("da_d"))
+            runs = []
+            for i in range(a):
+                part = slice(i * b // a, (i + 1) * b // a)
+                l_d, dlogs = self.adversarial.discriminator_loss(
+                    lambda x: netD(x, train=True), fa[part], ra[part],
+                    generator=state.noise_generator)
+                l_d.backward()
+                runs.append((l_d.detach(), dlogs, None))
+            l_d, dlogs, _ = self._accumulated(runs, state.d.opt.params, a)
+            if self.grad_clip == "auto":
+                # D by norm to the percentile of G's history (after G's
+                # update, or as it was on a step without one)
+                clip_grads(state.d.opt.params, "norm",
+                           agc_hist_percentile(state.grad_hist))
+            else:
+                clip_grads(state.d.opt.params, self.grad_clip,
+                           self.grad_clip_value)
+            for p in self._frozen(netD):
+                # FreezeD: zero gradients; the optimizer still moves the
+                # parameter on its moments, as optax does
+                if p.grad is not None:
+                    p.grad.zero_()
+            # fake went first, real second: the last microbatch's real
+            # pass, from the weights before this update, gives the step's
+            # one update of D's state (running statistics; spectral norms'
+            # u and sigma, which every pass gives alike, the penalty's
+            # too); the G stage's passes left none
             netD.commit_stats()
             state.d.opt.step(lr_d)
             logs.update(dlogs)
@@ -361,9 +654,10 @@ class SRTrainer:
         replay runs no Python, so no version counter moves); an eager run
         of the blocks packs anew."""
         if self._packs_stale and self._graph_state is not None:
-            drop_packed(self._graph_state.g.net)
-            if self._graph_state.ema is not None:
-                drop_packed(self._graph_state.ema)
+            for net in (self._graph_state.g.net, self._graph_state.ema,
+                        self._graph_state.swa):
+                if net is not None:
+                    drop_packed(net)
         self._packs_stale = False
 
     def graph_pool(self):
@@ -372,24 +666,25 @@ class SRTrainer:
             self._pool = torch.cuda.graph_pool_handle()
         return self._pool
 
-    def _get_step_fn(self, update_d: bool, update_g: bool) -> Callable:
-        """The step program of one ``(update_d, update_g)``, cached as the
-        JAX package caches its jitted steps: ``fn(state, batch, lr_g,
-        lr_d) -> logs``. With graphs it is a ``_GraphedStep``, else the
-        eager ``_train_step``. Neither moves ``state.step``."""
-        key = (update_d, update_g)
+    def _get_step_fn(self, update_d: bool, update_g: bool,
+                     atg_on: bool = False) -> Callable:
+        """The step program of one ``(update_d, update_g, atg_on)``, cached
+        as the JAX package caches its jitted steps: ``fn(state, batch,
+        lr_g, lr_d) -> logs``. With graphs it is a ``_GraphedStep``, else
+        the eager ``_train_step``. Neither moves ``state.step``."""
+        key = (update_d, update_g, atg_on)
         fn = self._step_fns.get(key)
         if fn is None:
             fn = functools.partial(self._train_step, update_d=update_d,
-                                   update_g=update_g)
+                                   update_g=update_g, atg_on=atg_on)
             if self.graphs:
                 fn = _GraphedStep(self, fn)
             self._step_fns[key] = fn
         return fn
 
     def step_graphs(self) -> Dict[tuple, Captured]:
-        """Every captured step graph by ``(update_d, update_g, batch
-        signature)``."""
+        """Every captured step graph by ``(update_d, update_g, atg_on,
+        batch signature)``."""
         return {(*key, sig): cap for key, fn in self._step_fns.items()
                 if isinstance(fn, _GraphedStep)
                 for sig, (_, _, cap) in fn.entries.items()}
@@ -405,10 +700,12 @@ class SRTrainer:
                    ) -> Tuple[SRTrainState, Dict[str, torch.Tensor]]:
         """One optimization step on ``batch`` ({"LR", "HR"}: NHWC, float in
         [0, 1] or uint8). The schedule is decided on the host: the learning
-        rates of this step, and whether G is updated (``D_update_ratio``,
-        ``D_init_iters``), which picks the program. Updates ``state`` in
-        place and returns it with the logs (0-d tensors on the device, the
-        caller's own: reading one synchronises)."""
+        rates of this step, whether G is updated (``D_update_ratio``,
+        ``D_init_iters``) and whether AdaTarget is on (``atg_start_iter``),
+        which pick the program; then, with ``use_swa``, the SWA update from
+        ``swa_start_iter`` on. Updates ``state`` in place and returns it
+        with the logs (0-d tensors on the device, the caller's own: reading
+        one synchronises)."""
         if not self.is_train:
             raise RuntimeError("this trainer was built with is_train: false")
         if self.graphs:
@@ -418,18 +715,25 @@ class SRTrainer:
         lr_d = self.schedD.get_lr(step) if self.schedD else 0.0
         update_g = (not self.use_gan) or (
             step % self.d_update_ratio == 0 and step >= self.d_init_iters)
-        logs = self._get_step_fn(self.use_gan, update_g)(state, batch,
-                                                         lr_g, lr_d)
+        atg_on = self.use_atg and step >= self.atg_start_iter
+        logs = self._get_step_fn(self.use_gan, update_g, atg_on)(
+            state, batch, lr_g, lr_d)
         state.step = step + 1
+        # from swa_start_iter itself, where the rate's switch-over waits
+        # for the step after it (ROADMAP C 19)
+        if self.use_swa and step >= self.swa_start_iter:
+            if state.swa is None:
+                init_swa(state)
+            swa_update(state)
         return state, logs
 
     def can_scan_steps(self) -> bool:
         """True when a window of steps runs one program throughout: no
-        host-side schedule transition inside it (with a GAN, G is updated
-        at every step). SWA and AdaTarget, the JAX package's other
-        transitions, are not ported."""
-        return not (self.use_gan and (self.d_update_ratio != 1
-                                      or self.d_init_iters > 0))
+        host-side schedule transition inside it (SWA averaging, AdaTarget's
+        start, and with a GAN a G that is not updated at every step)."""
+        return not (self.use_swa or self.use_atg
+                    or (self.use_gan and (self.d_update_ratio != 1
+                                          or self.d_init_iters > 0)))
 
     def train_steps(self, state: SRTrainState,
                     batches: Dict[str, torch.Tensor]
@@ -474,16 +778,19 @@ class SRTrainer:
     @staticmethod
     def _eval_net(state: SRTrainState, which: str) -> str:
         """'ema' for ``which`` 'ema' or 'auto' when the state has EMA
-        weights, else 'g' (SWA is not ported, so 'swa' gives G, as in the
-        JAX package when a state has no SWA weights)."""
+        weights, 'swa' for 'swa' when it has SWA weights, else 'g', as the
+        JAX package's ``eval_step`` picks."""
         if which not in ("g", "ema", "swa", "auto"):
             raise ValueError(f"which [{which}]: 'g', 'ema', 'swa' or 'auto'")
-        return "ema" if which in ("ema", "auto") and state.ema is not None \
-            else "g"
+        if which in ("ema", "auto") and state.ema is not None:
+            return "ema"
+        if which == "swa" and state.swa is not None:
+            return "swa"
+        return "g"
 
     def _eval_forward(self, state: SRTrainState, x: torch.Tensor,
                       net: str = "g", cem: bool = False) -> torch.Tensor:
-        module = state.ema if net == "ema" else state.g.net
+        module = {"ema": state.ema, "swa": state.swa}.get(net, state.g.net)
         x = x.float()
         y = self._g(module.eval(), x)
         if cem:
@@ -534,9 +841,26 @@ class SRTrainer:
             self._eval_graphs.popitem(last=False)
         return out
 
+    def refresh_swa_bn(self, state: SRTrainState, batches
+                       ) -> Optional[dict]:
+        """The ``extra`` of the SWA weights: G's batch-norm statistics
+        recomputed for them over ``batches`` of LR images
+        (``train/state.py::refresh_bn_stats``), as the flax collections
+        ``{"batch_stats": ...}``; None without SWA or without batch norms.
+        The batches are normalised as the step normalises them; G reads
+        them as the JAX package's refresh passes them (no unshuffle)."""
+        if state.swa is None:
+            return None
+        stats = refresh_bn_stats(state.swa, list(batches),
+                                 prepare=self._to_device)
+        if stats is None:
+            return None
+        sd = {**{n: p for n, p in state.swa.named_parameters()}, **stats}
+        return {"batch_stats": g_to_jax(sd, state.swa)[1]}
+
     def eval_step_chop(self, state: SRTrainState, lr_img: torch.Tensor,
-                       patch_size: int = 128,
-                       overlap: int = 16) -> torch.Tensor:
+                       patch_size: int = 128, overlap: int = 16,
+                       which: str = "auto") -> torch.Tensor:
         """Tiled inference for large inputs: tiles of ``min(patch_size, h,
         w)`` at a stride of that less ``overlap``, the last row and column
         of tiles pinned to the edge, run through ``eval_step`` 32 rows of
@@ -555,7 +879,8 @@ class SRTrainer:
             xs.append(w - p)
         tiles = torch.cat([x[:, y:y + p, x0:x0 + p, :]
                            for y in ys for x0 in xs], dim=0)
-        out_tiles = torch.cat([self.eval_step(state, tiles[i:i + 32])
+        out_tiles = torch.cat([self.eval_step(state, tiles[i:i + 32],
+                                              which)
                                for i in range(0, tiles.shape[0], 32)], dim=0)
         acc = torch.zeros((b, h * s, w * s, out_tiles.shape[-1]),
                           dtype=torch.float32, device=self.device)
@@ -571,8 +896,8 @@ class SRTrainer:
                 k += 1
         return acc / cnt
 
-    def eval_step_x8(self, state: SRTrainState, lr_img: torch.Tensor
-                     ) -> torch.Tensor:
+    def eval_step_x8(self, state: SRTrainState, lr_img: torch.Tensor,
+                     which: str = "auto") -> torch.Tensor:
         """x8 geometric self-ensemble: ``eval_step`` on the four rotations
         over (h, w), each with and without a flip of w, each output turned
         back, and the mean of the eight. A non-square input meets two
@@ -584,7 +909,7 @@ class SRTrainer:
                 xi = torch.rot90(x, rot, (1, 2))
                 if flip:
                     xi = xi.flip(2)
-                y = self.eval_step(state, xi)
+                y = self.eval_step(state, xi, which)
                 if flip:
                     y = y.flip(2)
                 outs.append(torch.rot90(y, -rot, (1, 2)))

@@ -3,9 +3,11 @@
 ``load_params:52``, ``save_state:96``, ``load_state:112``,
 ``_state_iter:124``, ``latest_state_path:140``, ``save_checkpoint:161``).
 
-* ``{tag}_G.ckpt``, ``{tag}_D.ckpt``, ``{tag}_emaG.ckpt``: one network's
-  flax param tree (for D its ``params`` alone, as the JAX trainer saves it;
-  the EMA weights in G's tree), as
+* ``{tag}_G.ckpt``, ``{tag}_D.ckpt``, ``{tag}_emaG.ckpt``,
+  ``{tag}_swaG.ckpt``: one network's flax param tree (for D its ``params``
+  alone, as the JAX trainer saves it; the EMA and SWA weights in G's tree,
+  the SWA one wrapped with its refreshed ``batch_stats`` when G has batch
+  norms), as
   ``flax.serialization.to_bytes`` writes it;
 * ``{tag}.state``: the whole training state as the JAX ``SRTrainState``'s
   state dict (``utils/torch_interop.py::train_state_to_jax``; a net's
@@ -407,11 +409,14 @@ def latest_state_path(state_dir: str) -> Optional[str]:
 
 
 def save_checkpoint(state, opt: dict, epoch: int, niter: int,
-                    latest_only: bool = False) -> None:
-    """``{tag}_G.ckpt``, ``{tag}_D.ckpt`` (when there is a D) and
-    ``{tag}_emaG.ckpt`` (when there are EMA weights) under ``path.models``
-    and ``{tag}.state`` under ``path.training_state``; ``tag`` is the
-    iteration, or ``latest``."""
+                    latest_only: bool = False,
+                    swa_extra: Optional[dict] = None) -> None:
+    """``{tag}_G.ckpt``, ``{tag}_D.ckpt`` (when there is a D),
+    ``{tag}_swaG.ckpt`` (when there are SWA weights: their param tree, or
+    ``{"params": ..., **swa_extra}`` with the batch-norm statistics
+    refreshed for them) and ``{tag}_emaG.ckpt`` (when there are EMA
+    weights) under ``path.models`` and ``{tag}.state`` under
+    ``path.training_state``; ``tag`` is the iteration, or ``latest``."""
     model_dir = opt["path"]["models"]
     state_dir = opt["path"]["training_state"]
     tag = "latest" if latest_only else str(niter)
@@ -421,6 +426,12 @@ def save_checkpoint(state, opt: dict, epoch: int, niter: int,
     if tree["d"] is not None:
         save_params(tree["d"]["params"],
                     os.path.join(model_dir, f"{tag}_D{CKPT_EXT}"))
+    if tree["swa_params"] is not None:
+        swa_tree = tree["swa_params"]
+        if swa_extra:
+            swa_tree = {"params": swa_tree, **swa_extra}
+        save_params(swa_tree,
+                    os.path.join(model_dir, f"{tag}_swaG{CKPT_EXT}"))
     if tree["ema_params"] is not None:
         save_params(tree["ema_params"],
                     os.path.join(model_dir, f"{tag}_emaG{CKPT_EXT}"))

@@ -6,9 +6,11 @@ partial convs, ESRGAN+ ``conv1x1`` and a batch norm's ``batch_stats``, by
 ``batch_stats``, spectral norms included,
 ``UNetDiscriminator``, ``VGGFeatures`` (and ``MINCFeatures``, whose tree
 has the same form), ``ResNet101Features`` with its ``batch_stats``, the
-LPIPS nets (``lpips_from_jax``), a whole ``SRTrainState`` with its
-Adam or SGD moments and its EMA weights, live or as read back from a
-serialized ``.state`` file), and from reference ESRGAN ``.pth`` state_dicts
+LPIPS nets (``lpips_from_jax``), AdaTarget's ``LocNet``, a whole
+``SRTrainState`` with the state of each optimizer (adam, sgd, rmsprop,
+adamp, sgdp, ranger, madgrad, in the optax trees the JAX package builds),
+its EMA and SWA weights, its LocNet and its auto-clip history, live or as
+read back from a serialized ``.state`` file), and from reference ESRGAN ``.pth`` state_dicts
 in either layout, and from a norm-free SRResNet ``.pth``
 (``srresnet_to_params``). numpy on the flax side, torch on the port's;
 nothing of the JAX package is imported.
@@ -378,44 +380,51 @@ def _leaf(tree: Mapping[str, Any], path: tuple):
     return np.asarray(tree)
 
 
-_MOMENT_KEYS = ("count", "mu", "nu", "trace")
+# the keys of the optax states the JAX package's optimizers keep
+_STATE_KEYS = ("count", "mu", "nu", "trace", "momentum", "slow",
+               "grad_sum_sq", "s", "x0")
+_LIST_KEYS = _STATE_KEYS[1:]
 
 
-def _chain_head(opt_state):
-    """The first state of an optax chain: from the live tuple (of named
-    tuples), or from its serialized form, where flax writes a tuple as a
-    dict keyed ``"0"``, ``"1"``, ..."""
-    first = opt_state
-    while True:
-        if isinstance(first, Mapping) and "0" in first and \
-                not any(k in first for k in _MOMENT_KEYS):
-            first = first["0"]
-        elif isinstance(first, (tuple, list)) and \
-                not hasattr(first, "_fields"):
-            first = first[0]
-        else:
-            break
-    if hasattr(first, "_asdict"):
-        first = first._asdict()
-    return first
+def _plain(tree):
+    """A live optax state (tuples of named tuples) in its serialized
+    form: a named tuple as a dict of its fields, a tuple as a dict keyed
+    ``"0"``, ``"1"``, ...; dicts and leaves as they are."""
+    if hasattr(tree, "_asdict"):
+        return {k: _plain(v) for k, v in tree._asdict().items()}
+    if isinstance(tree, (tuple, list)):
+        return {str(i): _plain(v) for i, v in enumerate(tree)}
+    if isinstance(tree, Mapping):
+        return {k: _plain(v) for k, v in tree.items()}
+    return tree
 
 
 def _moments_from_jax(opt_state, convert) -> Optional[Dict[str, Any]]:
-    """The moments of an optax chain's first state (``scale_by_adam``:
-    count, mu, nu; ``trace``: trace) as {count, mu, nu | trace}, each tree
-    brought to the port's names by ``convert``. ``opt_state`` holds numpy
-    leaves: a mapping with those keys, the chain's state tuple itself, or
-    its serialized form (``{"0": {count, mu, nu}}``). ``trace`` keeps no
-    count: it is carried as 0."""
+    """An optimizer's optax state (live, or serialized as a ``.state``
+    file holds it; numpy leaves) -> {count, [la_count], and each list by
+    its optax name}, the trees brought to the port's names by
+    ``convert``. The states are found by their keys in the chain (for
+    ranger, Lookahead's ``{slow, count}`` gives ``la_count``); a rule that
+    keeps no count (sgd, sgdp, rmsprop) is carried with 0."""
     if opt_state is None:
         return None
-    get = _chain_head(opt_state).get
-    count = get("count")
-    out: Dict[str, Any] = {"count": 0 if count is None else int(count)}
-    for key in ("mu", "nu", "trace"):
-        tree = get(key)
-        if tree is not None:
-            out[key] = convert(tree)
+    out: Dict[str, Any] = {"count": 0}
+
+    def walk(node):
+        if not isinstance(node, Mapping):
+            return
+        if any(k in node for k in _STATE_KEYS):
+            if "count" in node:
+                out["la_count" if "slow" in node else "count"] = \
+                    int(np.asarray(node["count"]))
+            for key in _LIST_KEYS:
+                if node.get(key) is not None:
+                    out[key] = convert(node[key])
+            return
+        for k in sorted(node, key=lambda k: (len(k), k)):
+            walk(node[k])
+
+    walk(_plain(opt_state))
     return out
 
 
@@ -425,12 +434,16 @@ def train_state_from_jax(g_params: Mapping[str, Any],
                          step: int = 0, g_opt_state=None, d_opt_state=None,
                          ema_params: Optional[Mapping[str, Any]] = None,
                          g_net: Optional[torch.nn.Module] = None,
-                         g_batch_stats: Optional[Mapping[str, Any]] = None
+                         g_batch_stats: Optional[Mapping[str, Any]] = None,
+                         swa_params: Optional[Mapping[str, Any]] = None,
+                         swa_n=None, loc=None, grad_hist=None
                          ) -> Dict[str, Any]:
     """The numpy leaves of a JAX ``SRTrainState`` -> what
     ``load_train_state`` takes: the step, G's and D's state_dicts and, where
-    given, the optimizers' moments under the port's parameter names and the
-    EMA weights (``ema``, in G's state_dict layout). With ``g_net`` (the
+    given, the optimizers' states under the port's parameter names, the
+    EMA and SWA weights (``ema``, ``swa``, in G's state_dict layout) with
+    ``swa_n``, the LocNet (``loc``, ``loc_opt``; a ``NetState`` or its
+    serialized dict) and the auto clip's history (``grad_hist``). With ``g_net`` (the
     port's G) G's trees are read by ``g_from_jax``, G's running statistics
     from ``g_batch_stats``; without, as a plain ``RRDBNet``'s
     (``rrdbnet_like``)."""
@@ -446,38 +459,71 @@ def train_state_from_jax(g_params: Mapping[str, Any],
         out["g"] = g_from_jax(g_params, g_batch_stats, g_net)
     if ema_params is not None:
         out["ema"] = convert_g(ema_params)
+    if swa_params is not None:
+        out["swa"] = convert_g(swa_params)
+        out["swa_n"] = int(np.asarray(swa_n))
+    if loc is not None:
+        loc = _plain(loc)
+        out["loc"] = loc_from_jax(loc["params"])
+        out["loc_opt"] = _moments_from_jax(loc.get("opt_state"),
+                                           loc_from_jax)
+    if grad_hist is not None:
+        out["grad_hist"] = {"vals": _f32(grad_hist["vals"]),
+                            "n": int(np.asarray(grad_hist["n"]))}
     if d_params is not None:
         out["d"] = discriminator_from_jax(d_params, d_batch_stats)
         out["d_opt"] = _moments_from_jax(d_opt_state, discriminator_from_jax)
     return out
 
 
+def _load_opt(opt, names, moments, dev) -> None:
+    opt.load_state_dict({
+        k: (v if k in ("count", "la_count") else [v[n].to(dev)
+                                                  for n in names])
+        for k, v in moments.items()})
+
+
 def load_train_state(state, carried: Mapping[str, Any]) -> None:
     """Loads ``train_state_from_jax``'s result (or
     ``train_state_from_state_dict``'s) into a port ``SRTrainState``, in
     place. A carried ``rng`` becomes the state's key and reseeds its
-    latent-noise generator by ``key_to_seed``. Carried EMA weights go into
-    the state's EMA copy of G; a state with one needs them."""
+    latent-noise generator by ``key_to_seed``. Carried EMA and SWA weights
+    go into the state's copies of G, the LocNet and the clip history into
+    its own; what the state keeps, the checkpoint must carry."""
     state.step = int(carried["step"])
-    if state.ema is not None:
-        if carried.get("ema") is None:
-            raise ValueError("the state keeps EMA weights; the checkpoint "
-                             "carries none")
+    for copy_name in ("ema", "swa"):
+        module = getattr(state, copy_name)
+        if module is None:
+            continue
+        if carried.get(copy_name) is None:
+            raise ValueError(f"the state keeps {copy_name.upper()} "
+                             "weights; the checkpoint carries none")
         with torch.no_grad():
-            for name, p in state.ema.named_parameters():
-                p.copy_(carried["ema"][name])
-    for which in ("g", "d"):
+            for name, p in module.named_parameters():
+                p.copy_(carried[copy_name][name])
+    if state.swa_n is not None:
+        state.swa_n.fill_(int(carried["swa_n"]))
+    if state.grad_hist is not None:
+        if carried.get("grad_hist") is None:
+            raise ValueError("the state keeps the auto clip's history; the "
+                             "checkpoint carries none")
+        state.grad_hist["vals"].copy_(carried["grad_hist"]["vals"])
+        state.grad_hist["n"].fill_(int(carried["grad_hist"]["n"]))
+    for which in ("g", "d", "loc"):
         net_state = getattr(state, which)
-        if net_state is None or which not in carried:
+        if net_state is None:
+            continue
+        if which not in carried:
+            if which == "loc":
+                raise ValueError("the state keeps AdaTarget's LocNet; the "
+                                 "checkpoint carries none")
             continue
         net_state.net.load_state_dict(carried[which], strict=True)
         moments = carried.get(f"{which}_opt")
         if moments is not None and net_state.opt is not None:
             names = [n for n, _ in net_state.net.named_parameters()]
-            dev = net_state.opt.params[0].device
-            net_state.opt.load_state_dict({
-                k: (v if k == "count" else [v[n].to(dev) for n in names])
-                for k, v in moments.items()})
+            _load_opt(net_state.opt, names, moments,
+                      net_state.opt.params[0].device)
     if carried.get("rng") is not None:
         state.rng = np.asarray(carried["rng"], np.uint32).copy()
         if state.noise_generator is not None:
@@ -594,37 +640,89 @@ def _to_host(tensors: Sequence[torch.Tensor]) -> List[torch.Tensor]:
     return out
 
 
-def _opt_to_jax(moments: Mapping[str, Any], weight_decay: float, names,
+def _opt_to_jax(opt, moments: Mapping[str, Any], names,
                 convert) -> Dict[str, Any]:
-    """The port's optimizer state (``Optimizer.state_dict()``) -> the
-    serialized optax chain state: ``{"0": {count, mu, nu}}`` for adam,
-    ``{"0": {trace}}`` for sgd, and ``"1": {}`` (``add_decayed_weights``,
-    which keeps no state) under weight decay."""
-    head: Dict[str, Any] = {}
-    if "mu" in moments:
-        head["count"] = np.asarray(moments["count"], np.int32)
-    for key in ("mu", "nu", "trace"):
-        if key in moments:
-            head[key] = convert(dict(zip(names, moments[key])))
-    chain = {"0": head}
-    if weight_decay:
-        chain["1"] = {}
-    return chain
+    """The port's optimizer ``opt`` with its state (``opt.state_dict()``)
+    -> the serialized optax state the JAX package's ``build_optimizer``
+    keeps for it: a chain ``{"0": ..., "1": ...}`` of the rule's state and
+    ``add_decayed_weights``' empty one under weight decay (adam:
+    ``{count, mu, nu}``, sgd: ``{trace}``, rmsprop: ``{nu}``, adamp
+    ``{count, mu, nu}`` and sgdp ``{momentum}`` with the decay inside);
+    ranger's ``(chain, {slow, count})`` with gradient centralisation's
+    empty state first under ``use_gc``; madgrad's ``{count, grad_sum_sq,
+    s, x0}``."""
+    wd = opt.weight_decay
+    count = np.asarray(moments["count"], np.int32)
+
+    def tree(key):
+        return convert(dict(zip(names, moments[key])))
+
+    def with_decay(head, decayed=True):
+        chain = {"0": head}
+        if wd and decayed:
+            chain["1"] = {}
+        return chain
+
+    kind = opt.name
+    if kind == "adam":
+        return with_decay({"count": count, "mu": tree("mu"),
+                           "nu": tree("nu")})
+    if kind == "sgd":
+        return with_decay({"trace": tree("trace")})
+    if kind == "rmsprop":
+        return with_decay({"nu": tree("nu")})
+    if kind == "adamp":
+        return {"0": {"count": count, "mu": tree("mu"), "nu": tree("nu")}}
+    if kind == "sgdp":
+        return {"0": {"momentum": tree("momentum")}}
+    if kind == "madgrad":
+        return {"count": count, "grad_sum_sq": tree("grad_sum_sq"),
+                "s": tree("s"), "x0": tree("x0")}
+    if kind == "ranger":
+        parts = ([{}] if opt.use_gc else []) + \
+            [{"count": count, "mu": tree("mu"), "nu": tree("nu")}] + \
+            ([{}] if wd else [])
+        return {"0": {str(i): v for i, v in enumerate(parts)},
+                "1": {"slow": tree("slow"),
+                      "count": np.asarray(moments["la_count"], np.int32)}}
+    raise NotImplementedError(f"optimizer [{kind}]")
+
+
+def loc_to_jax(sd: Mapping[str, torch.Tensor]) -> Dict[str, Any]:
+    """The port's ``LocNet`` state_dict (or a tree of its parameters, as
+    optimizer moments are) -> the flax ``fc1``..``fc3`` Dense tree (kernel
+    (in, out))."""
+    out: Dict[str, Any] = {}
+    for key, t in sd.items():
+        name, leaf = key.split(".")
+        out.setdefault(name, {})["kernel" if leaf == "weight" else "bias"] = \
+            np.ascontiguousarray(_np(t).T) if leaf == "weight" else _np(t)
+    return out
+
+
+def loc_from_jax(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """The inverse of ``loc_to_jax``."""
+    sd: Dict[str, torch.Tensor] = {}
+    for name, leaves in params.items():
+        sd[f"{name}.weight"] = torch.from_numpy(np.ascontiguousarray(
+            np.asarray(leaves["kernel"], np.float32).T))
+        sd[f"{name}.bias"] = _f32(leaves["bias"])
+    return sd
 
 
 def train_state_to_jax(state) -> Dict[str, Any]:
     """A port ``SRTrainState`` -> the state dict of the JAX package's
     ``SRTrainState`` (``trainner_tpu/train/state.py:35``), which flax's
     ``from_state_dict`` / ``from_bytes`` accepts on a JAX template of the
-    same configuration: exactly its fields, ``None`` for the ones the port
-    does not keep (SWA, AdaTarget, the clip history), the EMA weights when
-    the state keeps them, and a net's ``batch_stats`` (G's running
-    statistics, D's, its spectral norms' state) in its ``extra`` when it
-    keeps any."""
+    same configuration: exactly its fields, ``None`` for what the state
+    does not keep; the EMA and SWA weights (and ``swa_n``), the LocNet
+    with its optimizer, the auto clip's history; a net's ``batch_stats``
+    (G's running statistics, D's, its spectral norms' state) in its
+    ``extra`` when it keeps any."""
     def net(ns, convert):
         sd = ns.net.state_dict()
         moments = ns.opt.state_dict() if ns.opt is not None else {}
-        lists = [k for k in ("mu", "nu", "trace") if k in moments]
+        lists = [k for k in _LIST_KEYS if k in moments]
         host = iter(_to_host(list(sd.values())
                             + [t for k in lists for t in moments[k]]))
         sd = {k: next(host) for k in sd}
@@ -632,7 +730,7 @@ def train_state_to_jax(state) -> Dict[str, Any]:
             moments[k] = [next(host) for _ in moments[k]]
         params, stats = convert(sd)
         names = [n for n, _ in ns.net.named_parameters()]
-        opt = _opt_to_jax(moments, ns.opt.weight_decay, names,
+        opt = _opt_to_jax(ns.opt, moments, names,
                           lambda t: convert(t)[0]) \
             if ns.opt is not None else None
         return {"params": params, "opt_state": opt,
@@ -641,17 +739,26 @@ def train_state_to_jax(state) -> Dict[str, Any]:
     def convert_g(sd):
         return g_to_jax(sd, state.g.net)
 
+    def copy_of_g(module):
+        named = dict(module.named_parameters())
+        return convert_g(dict(zip(named, _to_host(list(named.values())))))[0]
+
     rng = state.rng if state.rng is not None else seed_to_key(0)
+    hist = state.grad_hist
     return {
         "step": np.asarray(state.step, np.int32),
         "rng": np.asarray(rng, np.uint32),
         "g": net(state.g, convert_g),
         "d": None if state.d is None else net(state.d, discriminator_to_jax),
-        "swa_params": None, "swa_n": None,
-        "ema_params": None if state.ema is None else convert_g(
-            dict(zip(state.ema_params, _to_host(
-                list(state.ema_params.values())))))[0],
-        "loc": None, "grad_hist": None,
+        "swa_params": None if state.swa is None else copy_of_g(state.swa),
+        "swa_n": None if state.swa_n is None else np.asarray(
+            int(state.swa_n), np.int32),
+        "ema_params": None if state.ema is None else copy_of_g(state.ema),
+        "loc": None if state.loc is None else net(
+            state.loc, lambda sd: (loc_to_jax(sd), {})),
+        "grad_hist": None if hist is None else {
+            "vals": _np(hist["vals"]),
+            "n": np.asarray(int(hist["n"]), np.int32)},
     }
 
 
@@ -662,7 +769,8 @@ def train_state_from_state_dict(tree: Mapping[str, Any],
     JAX package's or the port's) -> what ``load_train_state`` takes:
     the step, the key, both nets with their moments and running
     statistics (G's by ``g_net``, as ``train_state_from_jax`` reads
-    them)."""
+    them), and what the state keeps of SWA, the LocNet and the auto
+    clip."""
     d = tree.get("d")
     out = train_state_from_jax(
         tree["g"]["params"],
@@ -672,7 +780,9 @@ def train_state_from_state_dict(tree: Mapping[str, Any],
         g_opt_state=tree["g"].get("opt_state"),
         d_opt_state=d.get("opt_state") if d else None,
         ema_params=tree.get("ema_params"), g_net=g_net,
-        g_batch_stats=(tree["g"].get("extra") or {}).get("batch_stats"))
+        g_batch_stats=(tree["g"].get("extra") or {}).get("batch_stats"),
+        swa_params=tree.get("swa_params"), swa_n=tree.get("swa_n"),
+        loc=tree.get("loc"), grad_hist=tree.get("grad_hist"))
     if tree.get("rng") is not None:
         out["rng"] = np.asarray(tree["rng"], np.uint32)
     return out
