@@ -66,6 +66,11 @@ _LISTS = {"adam": ("mu", "nu"), "sgd": ("trace",), "rmsprop": ("nu",),
           "adamp": ("mu", "nu"), "sgdp": ("momentum",),
           "ranger": ("mu", "nu", "slow"),
           "madgrad": ("grad_sum_sq", "s", "x0")}
+# the JAX rules' defaults, which its trainer never overrides: AdamP's
+# projection threshold and decay factor, Lookahead's period and step
+ADAMP_DELTA = 0.1
+WD_RATIO = {"adamp": 0.1, "sgdp": 1.0}
+LOOKAHEAD_K, LOOKAHEAD_ALPHA = 6, 0.5
 
 
 
@@ -106,19 +111,13 @@ class Optimizer:
     def __init__(self, params: Sequence[torch.nn.Parameter], name: str,
                  beta1: float, beta2: float, eps: float, weight_decay: float,
                  momentum: float, views: Optional[Sequence[tuple]] = None,
-                 use_gc: bool = False, lookahead_k: int = 6,
-                 lookahead_alpha: float = 0.5, delta: float = 0.1,
-                 wd_ratio: Optional[float] = None):
+                 use_gc: bool = False):
         self.params: List[torch.nn.Parameter] = list(params)
         self.name = name
         self.beta1, self.beta2, self.eps = beta1, beta2, eps
         self.weight_decay = weight_decay
         self.momentum = momentum
         self.use_gc = use_gc
-        self.lookahead_k, self.lookahead_alpha = lookahead_k, lookahead_alpha
-        self.delta = delta
-        self.wd_ratio = (0.1 if name == "adamp" else 1.0) \
-            if wd_ratio is None else wd_ratio
         self.views = [tuple(v) for v in views] if views is not None \
             else [tuple(range(p.dim())) for p in self.params]
         device = self.params[0].device if self.params else None
@@ -275,7 +274,7 @@ class Optimizer:
                 return torch.stack([ts[i].permute(view).reshape(rows, -1)
                                     for i in members])
             p, g, d = stacked(params), stacked(grads), stacked(step)
-            out, scale = _adamp_project(p, g, d, self.delta, self.wd_ratio,
+            out, scale = _adamp_project(p, g, d, WD_RATIO[self.name],
                                         self.eps)
             jshape = tuple(shape[j] for j in view)
             for k, i in enumerate(members):
@@ -325,11 +324,11 @@ class Optimizer:
         """u' = -lr u; every k-th call the parameter goes to the slow
         weights' interpolation, p + (slow_new - p)."""
         self.la_count.add_(1)
-        sync = torch.remainder(self.la_count, self.lookahead_k) == 0
+        sync = torch.remainder(self.la_count, LOOKAHEAD_K) == 0
         neg = -lr
         delta = [neg * u for u in update]
         fast = torch._foreach_add(params, delta)
-        slow_new = [s + self.lookahead_alpha * (f - s)
+        slow_new = [s + LOOKAHEAD_ALPHA * (f - s)
                     for s, f in zip(slow, fast)]
         final = [torch.where(sync, sn - p, d)
                  for sn, p, d in zip(slow_new, params, delta)]
@@ -384,7 +383,7 @@ def _centralize(g: torch.Tensor, view: tuple) -> torch.Tensor:
     return g - g.mean(axes, keepdim=True)
 
 
-def _adamp_project(p, g, d, delta: float, wd_ratio: float, eps: float):
+def _adamp_project(p, g, d, wd_ratio: float, eps: float):
     """``_adamp_project`` on N weights at once, each (R, C) in the channel
     view of its JAX layout: the projected directions and each weight's
     decay scale (wd_ratio where the projection fired, else 1)."""
@@ -395,7 +394,7 @@ def _adamp_project(p, g, d, delta: float, wd_ratio: float, eps: float):
         cos = (gv * pv).sum(-1).abs() / ((norm(gv) + eps)
                                          * (norm(pv) + eps))
         # delta / sqrt(C) in f32, as the JAX rule computes it
-        thresh = float(np.float32(delta) / np.sqrt(np.float32(
+        thresh = float(np.float32(ADAMP_DELTA) / np.sqrt(np.float32(
             pv.shape[-1])))
         cond = cos.amax(-1) < thresh
         expand = pv / (norm(pv)[..., None] + eps)
@@ -425,8 +424,7 @@ def build_optimizer(params: Sequence[torch.nn.Parameter],
                     beta2: float = 0.999, eps: float = 1e-8,
                     weight_decay: float = 0.0, momentum: float = 0.9,
                     views: Optional[Sequence[tuple]] = None,
-                    use_gc: bool = False, lookahead_k: int = 6,
-                    lookahead_alpha: float = 0.5) -> Optimizer:
+                    use_gc: bool = False) -> Optimizer:
     """String -> Optimizer over ``params``, with the JAX package's
     ``build_optimizer`` defaults (madgrad too takes its eps, 1e-8 by
     default, from here). ``views``: per parameter, the permutation to its
@@ -438,6 +436,4 @@ def build_optimizer(params: Sequence[torch.nn.Parameter],
     if name not in _LISTS:
         raise NotImplementedError(f"optimizer [{name}] not recognized")
     return Optimizer(params, name, beta1, beta2, eps, weight_decay,
-                     momentum, views=views, use_gc=use_gc,
-                     lookahead_k=lookahead_k,
-                     lookahead_alpha=lookahead_alpha)
+                     momentum, views=views, use_gc=use_gc)
