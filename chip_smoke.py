@@ -187,6 +187,32 @@ non-zero exit code and no result line:
    clip, the virtual batch and the options cell against the flagship's, in
    turns.
 
+18. the rest of the producer (after the options): the corpus written
+   into an LMDB by the port's ``create_lmdb`` (every value decodes to its
+   PNG bit for bit, a Paeth-filtered one too; the host's decode ms per
+   sample of a PNG file, an LMDB value and a Paeth-filtered value); the
+   training CLI on ``train_sr.yml`` with the LMDB as its train set (12
+   iterations and a resume to 16, launches from the trace); the CLI with
+   ``aug_downscale: 0.5`` and a ``subset_file`` of half the corpus (every
+   sample from the subset); the graphed step fed by the folder and the
+   LMDB in turns (it/s); a ``WeightedMultiLoader`` over [folder, LMDB]
+   with weights [3, 1] through the graphed step, the batches from each;
+   ``otf_mode: host`` with gaussian ``lr_noise``: the host ms per sample,
+   the device degrader still after it (its LR made anew from HR, so the
+   host's LR is thrown away, bit for bit: ROADMAP C 20), its steps under
+   a trace, and without OpenCV each OpenCV op's named error;
+19. models (after phase 18): PPON (nf 64, nb 24), PAN (nf 40, unf 24, nb
+   16, with self-attention) and A2N at full width, each forward card
+   against CPU in f32 and bf16 (every PPON output); the training CLI on
+   ``train_sr.yml`` with ``model: ppon``, ``ppon_stages`` [4, 8] and the
+   losses its phases select (contextual and the GAN on D-VGG-128 in phase
+   3), 12 iterations through the three phases and a resume to 16, its G
+   served by the test CLI at ``ppon_phase`` 3 and 1; six PPON steps
+   graphed against eager bit for bit, the frozen branches bit-equal across
+   each; one f32 step per phase at cut depth (nb 1) on the card, the CPU
+   and an f64 witness; PAN through the ``sr`` training CLI (12 and a
+   resume to 16); the three models' serving Mpx/s at b=8, 128 -> 512 px.
+
 Launches: the kernel wrappers count where they put a kernel on a stream,
 eagerly or into a graph being captured (a replay runs no Python). What the
 card ran is read from a profiler trace of each main-path run
@@ -203,6 +229,8 @@ The second-to-last lines are a JSON summary of the kernels and the card's
 ``{"ok": true, "device": {...}}``.
 
 Usage: python3 chip_smoke.py [--parent DIR]
+       python3 chip_smoke.py --only 18,19   (phase 18 and/or 19 alone,
+           after the build and the corpus; no result line)
        python3 chip_smoke.py --kernels-only [--parent DIR]   (phases 1-3
            and the kernels' part of 10: a short run while a kernel is
            worked on; it prints no result line)
@@ -888,13 +916,23 @@ def _options(root: str, **extra) -> str:
 
 def _gain_weights(net, seed: int) -> None:
     """Kaiming weights at gain 0.7 (the init's 0.1 leaves G's output near
-    1e-4, which would hide the trunk from the comparison)."""
+    1e-4, which would hide the trunk from the comparison), dense layers'
+    too, and a self-attention's ``gamma`` at 0.5 (0 at init, which would
+    hide the attention)."""
     import torch
 
-    from trainner_tpu_torch.ops.blocks import _Conv, kaiming_init_
+    from trainner_tpu_torch.ops.blocks import (Dense, SelfAttentionBlock,
+                                               _Conv, kaiming_init_)
 
     gen = torch.Generator().manual_seed(seed)
     for m in net.modules():
+        if isinstance(m, SelfAttentionBlock):
+            with torch.no_grad():
+                m.gamma.fill_(0.5)
+        if isinstance(m, Dense):
+            with torch.no_grad():
+                m.weight.copy_(kaiming_init_(torch.empty(m.weight.shape),
+                                             0.7, gen))
         if isinstance(m, _Conv):
             with torch.no_grad():  # drawn on the CPU, wherever net lies
                 m.weight.copy_(kaiming_init_(torch.empty(m.weight.shape),
@@ -1567,7 +1605,9 @@ def _cli_options(root: str, corpus: str, yml: str = None,
     validation set of ``N_VAL`` corpus images and their bicubic LR at the
     options' scale, written here), ``niter``, the frequencies and
     ``path.root`` (``root/name``; the other ``path`` keys as the file and
-    ``edit`` left them). Returns the path of the options file."""
+    ``edit`` left them). ``corpus`` may be another form of the corpus (its
+    LMDB); the validation set comes from the PNGs of ``root/corpus``.
+    Returns the path of the options file."""
     import numpy as np
 
     from trainner_tpu_torch.data.common import decode_image, save_img
@@ -1583,8 +1623,9 @@ def _cli_options(root: str, corpus: str, yml: str = None,
     os.makedirs(val_hr, exist_ok=True)
     if not os.path.isdir(val_lr):
         os.makedirs(val_lr)
-        for img in sorted(os.listdir(corpus))[:N_VAL]:
-            hr = decode_image(os.path.join(corpus, img))
+        pngs = os.path.join(root, "corpus")  # the PNGs, whatever the train set
+        for img in sorted(os.listdir(pngs))[:N_VAL]:
+            hr = decode_image(os.path.join(pngs, img))
             save_img(hr, os.path.join(val_hr, img))
             lr = imresize_np(hr.astype(np.float32) / 255.0, 1.0 / scale,
                              kernel="cubic")
@@ -1657,7 +1698,8 @@ def _save_breakdown(state, path: str) -> dict:
 def phase_cli(smi: str, root: str, yml: str = None, label: str = "cli",
               per_batch: int = 2 * 2 * SHUFFLE_K,
               nets: tuple = ("G", "D"), edit=None, niter: int = CLI_NITER,
-              resume: bool = True, g_launches=None) -> dict:
+              resume: bool = True, g_launches=None, corpus: str = None,
+              trainer_cls=None, val_launches: int = None) -> dict:
     """The training CLI at the full width of an options file of the repo
     (``yml``; by default ``options/sr/train_sr.yml``: G nf 64, nb 23, gc
     32, D-VGG-128, batch 32, crop 128, bsrgan with the per-sample shuffle,
@@ -1669,20 +1711,25 @@ def phase_cli(smi: str, root: str, yml: str = None, label: str = "cli",
     (``per_batch`` blur launches) and in all. ``niter`` (a multiple of 6)
     and ``resume`` shorten it. ``g_launches(n)``: the forward (and
     backward) block launches of step n where they are not 69 (a virtual
-    batch runs G once per microbatch). Returns the runs' traces."""
+    batch runs G once per microbatch). ``corpus`` replaces the train set
+    (``root/corpus``); ``trainer_cls`` is the trainer whose ``train_step``
+    the markers wrap (``SRTrainer``); ``val_launches`` the block launches
+    of one validation forward (69). Returns the runs' traces."""
     import torch
 
     from trainner_tpu_torch.train import cli
     from trainner_tpu_torch.train.sr_trainer import SRTrainer
     from trainner_tpu_torch.utils import checkpoint
 
-    corpus = os.path.join(root, "corpus")
+    corpus = corpus or os.path.join(root, "corpus")
     opt_path = _cli_options(root, corpus, yml, label, edit, niter)
     per_g = NB * 3
+    per_val = per_g if val_launches is None else val_launches
+    cls = trainer_cls or SRTrainer
     with open(opt_path) as f:
         exp = os.path.join(root, label, "experiments", json.load(f)["name"])
     rec = {"steps": [], "save": [], "val": [], "loaded": None}
-    orig = (SRTrainer.train_step, checkpoint.save_checkpoint, cli.validate,
+    orig = (cls.train_step, checkpoint.save_checkpoint, cli.validate,
             checkpoint.load_state)
 
     def train_step(self, state, batch):
@@ -1721,7 +1768,7 @@ def phase_cli(smi: str, root: str, yml: str = None, label: str = "cli",
             state = cli.main(argv)
         return state, t, time.perf_counter() - t0
 
-    SRTrainer.train_step = train_step
+    cls.train_step = train_step
     checkpoint.save_checkpoint = timed(orig[1], "save")
     cli.validate = timed(orig[2], "val")
     checkpoint.load_state = load_state
@@ -1744,7 +1791,7 @@ def phase_cli(smi: str, root: str, yml: str = None, label: str = "cli",
             state2, counts2, wall2 = run(["-opt", opt2_path])
             steps2 = list(rec["steps"])
     finally:
-        (SRTrainer.train_step, checkpoint.save_checkpoint, cli.validate,
+        (cls.train_step, checkpoint.save_checkpoint, cli.validate,
          checkpoint.load_state) = orig
 
     # the first run: launches per step and per batch, and in all, from
@@ -1755,10 +1802,10 @@ def phase_cli(smi: str, root: str, yml: str = None, label: str = "cli",
     per_step = g_launches or (lambda n: per_g)
     g_run = sum(per_step(n) for n in range(1, niter + 1))
     want = dict(blur=per_batch * niter,
-                rdb5c=g_run + per_g * n_val,
+                rdb5c=g_run + per_val * n_val,
                 rdb5c_bwd=g_run)
     _check_cli_trace(label, counts, want, steps, range(1, niter + 1),
-                     per_g, per_batch, per_step)
+                     per_val, per_batch, per_step)
     print(f"{label}: main() on {niter} iterations, {wall:.2f} s (traced): "
           f"launches the card ran {counts['ran']} (expected {want}); the "
           f"wrappers counted {counts['counted']}")
@@ -1833,7 +1880,7 @@ def phase_cli(smi: str, root: str, yml: str = None, label: str = "cli",
                                             CLI_RESUME_NITER + 1))
     want2 = dict(blur=per_batch * n2, rdb5c=g_run2, rdb5c_bwd=g_run2)
     _check_cli_trace(f"{label} resume", counts2, want2, steps2,
-                     range(niter + 1, CLI_RESUME_NITER + 1), per_g,
+                     range(niter + 1, CLI_RESUME_NITER + 1), per_val,
                      per_batch, per_step)
     print(f"{label}: resumed from {os.path.relpath(path, exp)} (iter "
           f"{meta['iter']}, epoch {meta['epoch']}) to {state2.step} in "
@@ -1877,7 +1924,7 @@ def _check_cli_trace(label: str, trace: dict, want: dict, steps: list,
         g = per_step(number)
         if step != {"rdb5c": g, "rdb5c_bwd": g, "blur": 0} \
                 or before["blur"] != per_batch or before["rdb5c_bwd"] \
-                or before["rdb5c"] % per_g:
+                or (before["rdb5c"] % per_g if per_g else before["rdb5c"]):
             raise AssertionError(
                 f"{label} step {number}: {step} in the step, {before} "
                 f"before it")
@@ -3300,7 +3347,8 @@ def _graph_cli(smi: str, root: str, options: str = "cli_options.json",
     """The training CLI's steady rate, eager (the trainer and the degrader
     made with ``graphs=False``) against graphed (the default), on the
     options ``phase_cli`` wrote (``train_sr.yml`` at full width by
-    default), 8 iterations each, in turns."""
+    default), 8 iterations each, one run of each (four in turns, eager,
+    graphed, graphed, eager, until phases 18 and 19 needed the time)."""
     import torch
 
     from torch.autograd import DeviceType
@@ -3312,7 +3360,7 @@ def _graph_cli(smi: str, root: str, options: str = "cli_options.json",
     corpus = os.path.join(root, "corpus")
     orig = (cli.create_sr_trainer, cli.make_otf_degradation)
     rates = {}
-    for n, graphs in enumerate((False, True, True, False)):
+    for n, graphs in enumerate((False, True)):
         with open(os.path.join(root, options)) as f:
             opt = json.load(f)
         opt["train"].update(niter=8, val_freq=10 ** 6)
@@ -3370,8 +3418,8 @@ def _graph_cli(smi: str, root: str, options: str = "cli_options.json",
               f"{traced[0] * 1e3:.3f} ms (traced), device busy {busy:.3f} "
               f"ms, idle share {1 - busy / (traced[0] * 1e3):.4f} ({smi})")
     print(f"times: cli main() on {label}, steps 3-8 (synchronised "
-          f"at the end of step 8), it/s in turns (eager, graphed, graphed, "
-          f"eager): eager {rates[False]}, graphed {rates[True]} ({smi})")
+          f"at the end of step 8), it/s (eager, then graphed): eager "
+          f"{rates[False]}, graphed {rates[True]} ({smi})")
 
 
 # ---------------------------------------------------------------------------
@@ -3995,33 +4043,46 @@ def _zoo_cli_edit(opt: dict) -> None:
     opt["network_D_preset"] = "disc_esrgan"
 
 
-def _card_vs_cpu_forward(label: str, opt: dict, lr_shape, dtypes) -> None:
+def _card_vs_cpu_forward(label: str, opt: dict, lr_shape, dtypes,
+                         tag: str = "zoo") -> dict:
     """A G of ``opt`` at full width with gain-0.7 weights, its forward on
     the card against the CPU's on one LR: f32 within 1e-5 of the output's
-    size (TF32 off), bf16 within 3e-2. No block kernel may run."""
+    size (TF32 off), bf16 within 3e-2; a G of several outputs (PPON) is
+    held on all of them. No block kernel may run. Returns the error and
+    the output's size by type."""
     import torch
 
     from trainner_tpu_torch.models import define_G
 
+    def joined(y):
+        return torch.cat([t.flatten() for t in y]) if isinstance(
+            y, tuple) else y
+
     lr = torch.rand(*lr_shape, generator=torch.Generator().manual_seed(5))
+    readings = {}
     for dt in dtypes:
         rel_tol = 1e-5 if dt == torch.float32 else 3e-2
         net = define_G(opt, dtype=dt)
         _gain_weights(net, seed=2)
         net = net.eval()
         with torch.inference_mode():
-            ref = net(lr)
+            out = net(lr)
+            ref = joined(out)
             net = net.cuda()
             with _launch_trace({"rdb5c": 0}, label=label):
-                got = net(lr.cuda()).cpu()
+                got = joined(net(lr.cuda())).cpu()
+        if isinstance(out, tuple):
+            out = out[-1]
         scale = float(ref.abs().max())
         err = float((got - ref).abs().max())
-        print(f"zoo: {label} {dt} forward, card vs CPU: max_abs_err "
+        readings[str(dt)] = (err, scale)
+        print(f"{tag}: {label} {dt} forward, card vs CPU: max_abs_err "
               f"{err:.3e} on max|ref| {scale:.3e}, tol {rel_tol * scale:.3e}"
-              f", output {tuple(got.shape)}, no block kernel launched")
+              f", output {tuple(out.shape)}, no block kernel launched")
         if not (err <= rel_tol * scale and bool(got.isfinite().all())):
-            raise AssertionError(f"zoo {label} {dt}: {err}")
+            raise AssertionError(f"{tag} {label} {dt}: {err}")
         del net
+    return readings
 
 
 @contextlib.contextmanager
@@ -5719,6 +5780,623 @@ def phase_trainer_options(smi: str, root: str) -> dict:
     return traces
 
 
+# ---------------------------------------------------------------------------
+# 18. the rest of the producer: LMDB, the dataset options, host-side OTF
+# ---------------------------------------------------------------------------
+DECODE_SAMPLES = 16  # host decode ms per sample, folder and LMDB
+PAETH_SAMPLES = 2    # ... and of a value filtered with Paeth on every row
+RATE_TURNS = 2       # the folder's and the LMDB's graphed rates, in turns
+RATE_STEPS = 4       # timed steps per turn, after the streams' first step
+MIXED_WEIGHTS = (3, 1)  # the weighted loader over [folder, LMDB]
+MIXED_BATCHES = 8
+HOST_SAMPLES = 8     # otf_mode: host, host ms per sample
+HOST_STEPS = 3
+DATAOPTS_NITER = 6
+
+
+def _lmdb_corpus(smi: str, root: str) -> str:
+    """The corpus written into an LMDB by the port's ``create_lmdb``; every
+    key's value decodes to its PNG's pixels bit for bit, and so does a
+    value filtered with Paeth on every row; the host's decode ms per
+    sample of each (``read_img``). Returns the LMDB's path."""
+    import numpy as np
+
+    from trainner_tpu_torch.data import common, lmdb_io
+    from trainner_tpu_torch.scripts.create_lmdb import create_lmdb
+
+    corpus = os.path.join(root, "corpus")
+    t0 = time.perf_counter()
+    db = create_lmdb(corpus, os.path.join(root, "corpus.lmdb"), 1)
+    t_make = time.perf_counter() - t0
+    names = sorted(os.listdir(corpus))
+    paths = common.scan_images(db)
+    keys = [p.split("::", 1)[1] for p in paths]
+    if keys != [os.path.splitext(n)[0] for n in names]:
+        raise AssertionError(f"lmdb: keys {keys[:4]} for files {names[:4]}")
+    differ = [k for k, n in zip(keys, names) if not np.array_equal(
+        common.read_lmdb_value(f"{db}::{k}"),
+        common.decode_image(os.path.join(corpus, n)))]
+    img = common.decode_image(os.path.join(corpus, names[0]))
+    paeth = os.path.join(root, "paeth.lmdb")
+    lmdb_io.write_lmdb(paeth, {b"p": common.encode_png(img, 1, row_filter=4)})
+    if differ or not np.array_equal(common.read_lmdb_value(paeth + "::p"),
+                                    img):
+        raise AssertionError(f"lmdb: values that decode otherwise {differ}")
+
+    def per_sample(paths) -> float:
+        t0 = time.perf_counter()
+        for p in paths:
+            common.read_img(p)
+        return (time.perf_counter() - t0) * 1e3 / len(paths)
+
+    folder_ms = per_sample([os.path.join(corpus, n)
+                            for n in names[:DECODE_SAMPLES]])
+    lmdb_ms = per_sample(paths[:DECODE_SAMPLES])
+    paeth_ms = per_sample([paeth + "::p"] * PAETH_SAMPLES)
+    # the standard-library reader alone (what decodes where OpenCV is
+    # missing) on a value with rows unfiltered, one filtered with Paeth,
+    # and create_lmdb's own value
+    values = {"unfiltered": common.encode_png(img, 1),
+              "Paeth": common.encode_png(img, 1, row_filter=4),
+              "create_lmdb's": bytes(lmdb_io.LmdbReader(db).get(
+                  keys[0].encode()))}
+    png_ms = {}
+    for k, v in values.items():
+        t0 = time.perf_counter()
+        for _ in range(PAETH_SAMPLES):
+            got = common.decode_png(v)
+        png_ms[k] = (time.perf_counter() - t0) * 1e3 / PAETH_SAMPLES
+        if not np.array_equal(got, img):
+            raise AssertionError(f"lmdb: decode_png of the {k} value")
+    try:
+        import cv2  # noqa: F401
+        decoder = "OpenCV"
+    except ImportError:
+        decoder = "the standard-library PNG reader"
+    size = os.path.getsize(os.path.join(db, "data.mdb")) / 1e6
+    print(f"lmdb: {len(keys)} keys written by create_lmdb in {t_make:.2f} s "
+          f"({size:.1f} MB); every value decodes to its PNG bit for bit, and "
+          f"a Paeth-filtered one too")
+    print(f"times: host read_img per {CORPUS_PX} px sample, decoded by "
+          f"{decoder}: PNG file {folder_ms:.3f} ms, LMDB value (rows "
+          f"unfiltered) {lmdb_ms:.3f} ms, LMDB value filtered with Paeth "
+          f"{paeth_ms:.3f} ms ({smi})")
+    print(f"times: decode_png (the standard-library reader) per {CORPUS_PX} "
+          f"px value: " + ", ".join(f"{k} {v:.3f} ms"
+                                    for k, v in png_ms.items())
+          + f" ({smi})")
+    return db
+
+
+def _batches_of(loader):
+    """The loader's batches on the card, epoch after epoch, with what is
+    not a tensor (paths, ``dataset_index``) passed through."""
+    from trainner_tpu_torch.data.loader import device_prefetch
+
+    while True:
+        yield from device_prefetch(iter(loader), size=2, device="cuda")
+
+
+def _producer_rates(smi: str, root: str, db: str) -> dict:
+    """``train_sr.yml``'s graphed step (bf16, b=32, crop 128, shuffled
+    bsrgan on the card) fed by the folder and by the LMDB in turns; then
+    a ``WeightedMultiLoader`` over [folder, LMDB] with ``MIXED_WEIGHTS``
+    for ``MIXED_BATCHES`` batches under a launch trace; then ``otf_mode:
+    host`` with gaussian ``lr_noise`` (no OpenCV needed): its host ms per
+    sample, the device degrader after it (C 20: its resize makes LR anew
+    from HR, so the host's LR does not reach the step), and steps under a
+    trace; where OpenCV is missing, each op of it raises its named error.
+    Returns the traces."""
+    import numpy as np
+    import torch
+
+    from trainner_tpu_torch.data import (create_dataloader, create_dataset,
+                                         host_degradations, host_superpixels)
+    from trainner_tpu_torch.data.loader import WeightedMultiLoader
+    from trainner_tpu_torch.data.pipeline import plan_to_device
+    from trainner_tpu_torch.options import parse
+    from trainner_tpu_torch.train import create_trainer, make_otf_degradation
+
+    corpus = os.path.join(root, "corpus")
+    opt = parse(_cli_options(root, corpus, TRAIN_YML, "rates"),
+                is_train=True)
+    ds_opt = opt["datasets"]["train"]
+    trainer = create_trainer(opt)
+    state = trainer.init_state(0)
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    degrade = make_otf_degradation(opt, generator=gen)
+    sets = {"folder": create_dataset(ds_opt),
+            "LMDB": create_dataset({**ds_opt, "dataroot_HR": db})}
+    streams = {k: _batches_of(create_dataloader(ds, ds_opt, pin_memory=True))
+               for k, ds in sets.items()}
+    traces = {}
+
+    def steps(it, n):
+        for _ in range(n):
+            trainer.train_step(state, degrade(next(it)))
+
+    try:
+        for it in streams.values():
+            steps(it, 1)  # captures the degrader's and the step's graphs
+        torch.cuda.synchronize()
+        rates = {k: [] for k in sets}
+        for _ in range(RATE_TURNS):
+            for k, it in streams.items():
+                t0 = time.perf_counter()
+                steps(it, RATE_STEPS)
+                torch.cuda.synchronize()
+                rates[k].append(RATE_STEPS / (time.perf_counter() - t0))
+        print("times: train_sr.yml graphed step fed by the loader, "
+              f"{RATE_STEPS} steps per turn: " + "; ".join(
+                  f"{k} {', '.join(f'{r:.3f}' for r in v)} it/s"
+                  for k, v in rates.items()) + f" ({smi})")
+    finally:
+        for it in streams.values():
+            it.close()
+    cached = {k: len(ds._cache) for k, ds in sets.items()}
+    print(f"lmdb: decoded images kept in the tile cache: {cached} (LMDB "
+          f"values are decoded at every read, as in the JAX package)")
+    if cached["LMDB"] or not cached["folder"]:
+        raise AssertionError(f"lmdb: the caches {cached}")
+
+    mixed = WeightedMultiLoader([sets["folder"], sets["LMDB"]],
+                                MIXED_WEIGHTS, batch_size=ds_opt["batch_size"],
+                                seed=0, num_workers=ds_opt["n_workers"],
+                                pin_memory=True)
+    per_g = NB * 3
+    came = [0, 0]
+    order = []
+    it = _batches_of(mixed)
+    try:
+        with _launch_trace({"rdb5c": per_g * MIXED_BATCHES,
+                            "rdb5c_bwd": per_g * MIXED_BATCHES,
+                            "blur": 2 * 2 * SHUFFLE_K * MIXED_BATCHES},
+                           fresh=False, label="weighted loader") as t:
+            for _ in range(MIXED_BATCHES):
+                batch = next(it)
+                came[batch["dataset_index"]] += 1
+                order.append(batch["dataset_index"])
+                trainer.train_step(state, degrade(batch))
+    finally:
+        it.close()
+    traces["weighted loader"] = t
+    print(f"lmdb: WeightedMultiLoader over [folder, LMDB] with weights "
+          f"{list(MIXED_WEIGHTS)}: {MIXED_BATCHES} batches through the "
+          f"graphed step, {came[0]} from the folder and {came[1]} from the "
+          f"LMDB (seed 0; two batches of each per epoch, in the order "
+          f"{order}); the card ran {t['ran']}")
+
+    host_opt = {**ds_opt, "otf_mode": "host", "lr_blur": False,
+                "compression": None}
+    host = create_dataset(host_opt)
+    if host.skip_host_lr or host._fast_u8:
+        raise AssertionError("otf host: the dataset took the device's path")
+    timed = {}
+    for k, ds in (("without", sets["folder"]), ("with", host)):
+        t0 = time.perf_counter()
+        for i in range(HOST_SAMPLES):
+            ds[i]
+        timed[k] = (time.perf_counter() - t0) * 1e3 / HOST_SAMPLES
+    host_full = {**opt, "datasets": {**opt["datasets"], "train": host_opt}}
+    eager = make_otf_degradation(host_full, graphs=False,
+                                 generator=torch.Generator(device="cuda"))
+    it = _batches_of(create_dataloader(host, host_opt, pin_memory=True))
+    try:
+        batch = next(it)
+        # one host plan and one generator state, the host's LR and zeros
+        plans = eager._plans(batch)
+        seed_state = eager.gen.get_state()
+        out = eager._run(batch, plans, lambda p: plan_to_device(p, eager.dev))
+        eager.gen.set_state(seed_state)
+        zeroed = eager._run({**batch, "LR": torch.zeros_like(batch["LR"])},
+                            plans, lambda p: plan_to_device(p, eager.dev))
+        thrown = eager.lr_from_hr and torch.equal(out["LR"], zeroed["LR"])
+        graphed = make_otf_degradation(host_full, generator=gen)
+        with _launch_trace(label="otf host") as t:
+            for _ in range(HOST_STEPS):
+                _mark()
+                trainer.train_step(state, graphed(next(it)))
+    finally:
+        it.close()
+    traces["otf host"] = t
+    per_batch = t["ran"]["blur"] / HOST_STEPS
+    print(f"times: otf_mode host (gaussian lr_noise on the host) "
+          f"{timed['with']:.3f} ms per sample in the loader against "
+          f"{timed['without']:.3f} ms without it ({smi})")
+    print(f"otf host: the device degrader still runs after the host's "
+          f"work: {per_batch:g} blur launches per batch over {HOST_STEPS} "
+          f"graphed steps ({t['ran']}); it makes LR anew from HR "
+          f"(lr_from_hr {eager.lr_from_hr}), so a zeroed host LR gives the "
+          f"same LR bit for bit: {thrown} (ROADMAP C 20)")
+    if not thrown or per_batch < 1 or t["ran"]["blur"] % HOST_STEPS \
+            or t["ran"]["rdb5c"] != per_g * HOST_STEPS:
+        raise AssertionError(f"otf host: {t['ran']}, thrown {thrown}")
+
+    x = np.random.default_rng(0).random((32, 32, 3)).astype(np.float32)
+    ops = {"jpeg_compress_exact":
+           lambda: host_degradations.jpeg_compress_exact(x, 50),
+           "webp_compress_exact":
+           lambda: host_degradations.webp_compress_exact(x, 50),
+           "gaussian_blur_exact":
+           lambda: host_degradations.gaussian_blur_exact(x, 11, 1.0),
+           "motion_blur_exact":
+           lambda: host_degradations.motion_blur_exact(x, 7, 30.0),
+           "clahe_exact": lambda: host_degradations.clahe_exact(x),
+           "superpixels": lambda: host_superpixels.superpixels(x)}
+    try:
+        import cv2  # noqa: F401
+        have_cv2 = True
+    except ImportError:
+        have_cv2 = False
+    for name, call in ops.items():
+        try:
+            call()
+            raised = None
+        except host_degradations.HostOpUnavailable as e:
+            raised = str(e)
+        if have_cv2 == (raised is not None) or \
+                (raised and (name not in raised or "C 20" not in raised)):
+            raise AssertionError(f"otf host: {name} with OpenCV "
+                                 f"{have_cv2}: {raised}")
+    print(f"otf host: OpenCV {'present: the' if have_cv2 else 'missing: '
+                               'each of the'} {len(ops)} OpenCV ops "
+          f"{'ran' if have_cv2 else 'raised the error that names it'} "
+          f"({', '.join(ops)})")
+    del state, trainer
+    torch.cuda.empty_cache()
+    return traces
+
+
+def phase_producer_rest(smi: str, root: str) -> dict:
+    """Phase 18: the rest of the producer at full width. (a) The corpus as
+    an LMDB (``_lmdb_corpus``); the training CLI on ``train_sr.yml`` with
+    the LMDB as its train set, 12 iterations and a resume to 16; (b) the
+    same CLI with ``aug_downscale: 0.5`` and a ``subset_file`` of half the
+    corpus (every sample from the subset); (c) the rates, the weighted
+    loader and ``otf_mode: host`` (``_producer_rates``). Returns the
+    traces of its main-path runs."""
+    from trainner_tpu_torch.data import datasets
+
+    t0 = time.perf_counter()
+    db = _lmdb_corpus(smi, root)
+    traces = {f"lmdb cli {k}": v for k, v in phase_cli(
+        smi, root, TRAIN_YML, "cli_lmdb", corpus=db).items()}
+    t_lmdb = time.perf_counter() - t0
+
+    subset = sorted(os.listdir(os.path.join(root, "corpus")))[::2]
+    subset_path = os.path.join(root, "subset.txt")
+    with open(subset_path, "w") as f:
+        f.write("\n".join(subset) + "\n")
+
+    def edit(opt):
+        opt["datasets"]["train"].update(aug_downscale=0.5,
+                                        subset_file=subset_path)
+
+    seen = []
+    orig = datasets.AlignedDataset.__getitem__
+
+    def getitem(self, index):
+        out = orig(self, index)
+        if self.phase == "train":
+            seen.append(os.path.basename(out["HR_path"]))
+        return out
+
+    datasets.AlignedDataset.__getitem__ = getitem
+    try:
+        runs = phase_cli(smi, root, TRAIN_YML, "cli_dataopts", edit=edit,
+                         niter=DATAOPTS_NITER, resume=False)
+    finally:
+        datasets.AlignedDataset.__getitem__ = orig
+    traces.update({f"dataopts cli {k}": v for k, v in runs.items()})
+    outside = sorted(set(seen) - set(subset))
+    print(f"dataopts: aug_downscale 0.5 and a subset_file of {len(subset)} "
+          f"of the {N_CORPUS} images: {len(seen)} samples read, "
+          f"{len(set(seen))} images, {len(outside)} outside the subset")
+    if outside or not seen:
+        raise AssertionError(f"dataopts: samples outside the subset "
+                             f"{outside[:4]}")
+    t_opts = time.perf_counter() - t0 - t_lmdb
+    traces.update(_producer_rates(smi, root, db))
+    print(f"producer rest: ok in {time.perf_counter() - t0:.1f} s (LMDB and "
+          f"its CLI {t_lmdb:.1f}, dataset options' CLI {t_opts:.1f}, rates, "
+          f"weighted loader and otf host "
+          f"{time.perf_counter() - t0 - t_lmdb - t_opts:.1f}) ({smi})")
+    return traces
+
+
+# ---------------------------------------------------------------------------
+# 19. PPON (its three phases), PAN and A2N at full width
+# ---------------------------------------------------------------------------
+PPON_STAGES = [4, 8]      # the CLI: phase 1 to step 4, 2 to 8, then 3
+PPON_GRAPH_STAGES = [2, 4]  # graphed against eager: two steps per phase
+PPON_GRAPH_B = 16
+PPON_LOSSES = {"ms_criterion": "multiscale-l1", "ms_weight": 1e-2,
+               "ssim_type": "ms-ssim", "ssim_weight": 0.2,
+               "cx_type": "contextual", "cx_weight": 0.5}
+# one f32 step per phase (_ppon_f64): each tensor of the card within this
+# share of its move of the CPU's, and no further from the f64 witness than
+# PPON_F64_TOL times the CPU f32's largest distance in the same net; set
+# from the CPU f32's own distance from the witness on this configuration
+# (G 1.5e-2 at hr1_p, D 6.5e-2 at conv4_0) as phase 14's sr_resnet limits
+# were
+PPON_STEP_TOL = {"g": 6e-2, "d": 3e-1}
+PPON_F64_TOL = 2.0
+SERVE_ITERS = 5
+
+
+def _ppon_cli_edit(opt: dict) -> None:
+    """``train_sr.yml`` with ``model: ppon`` at its defaults (nf 64, nb
+    24), ``ppon_stages`` ``PPON_STAGES`` and the losses its phases select:
+    pix (phase 1), pix-multiscale and ms-ssim (2), contextual (3, with the
+    GAN on D-VGG-128)."""
+    opt["model"] = "ppon"
+    opt["network_G"] = {"type": "ppon"}
+    opt["train"].update(ppon_stages=list(PPON_STAGES), **PPON_LOSSES)
+
+
+def _ppon_phases_of(exp: str) -> dict:
+    """Step -> ``ppon_phase`` from a run's JSONL scalars."""
+    rows = [json.loads(line) for line in
+            open(os.path.join(exp, "tb", "scalars.jsonl"))]
+    return {r["step"]: r["value"] for r in rows
+            if r["tag"] == "train/ppon_phase"}
+
+
+def _ppon_graphed_vs_eager(smi: str, root: str) -> None:
+    """The CLI's PPON configuration at full width (bf16, b=``PPON_GRAPH_B``,
+    32 -> 128 px) with ``ppon_stages`` ``PPON_GRAPH_STAGES``: six steps
+    graphed (each
+    phase's program captured at its first step, replayed at its second)
+    against the same steps eager from the same state, bit for bit under
+    deterministic cuDNN; the branches outside each step's phase (and D
+    outside phase 3) bit-equal across the step; each step's ms."""
+    import torch
+
+    from trainner_tpu_torch.options import parse
+    from trainner_tpu_torch.train import create_trainer
+    from trainner_tpu_torch.train.ppon_trainer import (PHASE_PREFIXES,
+                                                       phase_params)
+
+    def edit(opt):
+        _ppon_cli_edit(opt)
+        opt["train"]["ppon_stages"] = list(PPON_GRAPH_STAGES)
+
+    opt = parse(_cli_options(root, os.path.join(root, "corpus"), TRAIN_YML,
+                             "ppon_graphs", edit), is_train=True)
+    trainers = {"graphed": create_trainer(opt),
+                "eager": create_trainer(opt, graphs=False)}
+    states = {k: t.init_state(0) for k, t in trainers.items()}
+    cudnn = torch.backends.cudnn
+    saved = (cudnn.deterministic, cudnn.benchmark)
+    cudnn.deterministic, cudnn.benchmark = True, False
+    n_steps = 2 * (len(PPON_GRAPH_STAGES) + 1)
+    lines, unequal, moved = [], [], []
+    try:
+        for i in range(n_steps):
+            batch = _train_batch(PPON_GRAPH_B, seed=40 + i)
+            _load_from(states["eager"], states["graphed"])
+            before = _net_tensors(states["graphed"])
+            logs, ms = {}, {}
+            for k in ("graphed", "eager"):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                logs[k] = trainers[k].train_step(states[k], batch)[1]
+                torch.cuda.synchronize()
+                ms[k] = (time.perf_counter() - t0) * 1e3
+            phase = int(logs["graphed"]["ppon_phase"])
+            after = {k: _net_tensors(states[k]) for k in states}
+            unequal += [(i, k) for k, v in after["graphed"].items()
+                        if not torch.equal(v, after["eager"][k])]
+            unequal += [(i, k) for k, v in logs["graphed"].items()
+                        if not torch.equal(v, logs["eager"][k])]
+            prefixes = tuple(f"g.{p}" for p in PHASE_PREFIXES[phase])
+            for k, v in after["graphed"].items():
+                frozen = (k.startswith("g.") and not k.startswith(prefixes)) \
+                    or (k.startswith("d.") and phase != 3)
+                if frozen and not torch.equal(v, before[k]):
+                    moved.append((i, k))
+            lines.append(f"step {i} phase {phase}: graphed {ms['graphed']:.1f}"
+                         f" ms, eager {ms['eager']:.1f} ms")
+    finally:
+        cudnn.deterministic, cudnn.benchmark = saved
+    graphs = trainers["graphed"].step_graphs()
+    live = [len(phase_params(states["graphed"].g.net, p)[0])
+            for p in (1, 2, 3)]
+    print(f"ppon: {n_steps} steps at full width (nf 64, nb 24; bf16, "
+          f"b={PPON_GRAPH_B}, 32 -> 128 px), graphed ({len(graphs)} programs captured: "
+          f"{sorted(k[:2] for k in graphs)}) against eager: "
+          f"{len(unequal)} tensors or logs differ; {len(moved)} frozen "
+          f"tensors moved; live parameters per phase {live}; "
+          + "; ".join(lines) + f" ({smi})")
+    if unequal or moved or len(graphs) != 3:
+        raise AssertionError(f"ppon graphs: unequal {unequal[:6]}, moved "
+                             f"{moved[:6]}, graphs {list(graphs)}")
+    del trainers, states
+    torch.cuda.empty_cache()
+
+
+def _ppon_f64(smi: str) -> None:
+    """One step per phase (``ppon_stages`` [1, 2]) of PPON at full width
+    and cut depth (nf 64, nb 1) with D-VGG-128 (batch norms) in f32 (b=2,
+    32 -> 128 px, SGD at lr 1e-2; pix, pix-multiscale with ms-ssim, pix
+    with the GAN), on the card (graphed, three programs), the CPU and an
+    f64 witness on the CPU, each side's D branches replayed by its own
+    witness (``_steps_card_cpu_f64``): logs within 1e-4 relative; every
+    tensor of G and D within ``PPON_STEP_TOL`` of its move, card against
+    CPU; the card no further from its witness than ``PPON_F64_TOL`` times
+    the CPU f32's largest distance in the same net."""
+    import torch
+
+    from trainner_tpu_torch.options.config import parse_dict
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    opt = dict(parse_dict({
+        "name": "ppon_f64", "model": "ppon", "scale": 4,
+        "network_G": {"type": "ppon", "nb": 1},
+        "network_D": {"type": "discriminator_vgg", "size": 128,
+                      "base_nf": 64},
+        "path": {"root": "/nonexistent"},
+        "train": {"lr_G": 1e-2, "lr_D": 1e-2, "optim_G": "sgd",
+                  "optim_D": "sgd", "pixel_criterion": "l1",
+                  "pixel_weight": 1.0, "ms_criterion": "multiscale-l1",
+                  "ms_weight": 1.0, "ssim_type": "ms-ssim",
+                  "ssim_weight": 1.0, "gan_type": "vanilla",
+                  "gan_weight": 5e-3, "p3_losses": ["pix"],
+                  "ppon_stages": [1, 2], "lr_scheme": "MultiStepLR",
+                  "lr_steps": [50]}}, is_train=True))
+    gen = torch.Generator().manual_seed(8)
+    batches = [{"LR": torch.rand(2, 32, 32, 3, generator=gen),
+                "HR": torch.rand(2, 128, 128, 3, generator=gen)}
+               for _ in range(3)]
+    r = _steps_card_cpu_f64("ppon", opt, batches, graphs=3, branches=True)
+    bad = []
+    for net in ("g", "d"):
+        cc, f64, cpu = (_worst(r[key], net + ".") for key in
+                        ("card_cpu", "card_f64", "cpu_f64"))
+        step_tol, f64_tol = PPON_STEP_TOL[net], PPON_F64_TOL * cpu[0]
+        print(f"ppon: one f32 SGD step per phase (nf 64, nb 1; D-VGG-128), "
+              f"{net.upper()}'s tensors as a share of their move: card vs "
+              f"CPU up to {cc[0]:.3e} ({cc[1]}; tol {step_tol}); against "
+              f"the f64 witness: card {f64[0]:.3e} ({f64[1]}; tol "
+              f"{f64_tol:.3e}), CPU f32 {cpu[0]:.3e} ({cpu[1]}) ({smi})")
+        bad += [(k, v, step_tol) for k, v in r["card_cpu"].items()
+                if k.startswith(net + ".") and not v <= step_tol]
+        bad += [(k, v, f64_tol) for k, v in r["card_f64"].items()
+                if k.startswith(net + ".") and not v <= f64_tol]
+    print(f"ppon: logs card vs CPU within {r['logs']:.3e} relative (tol "
+          f"1e-4) by step {['%.2e' % v for v in r['logs_by_step']]}; D's "
+          f"branches that differ, card against CPU, by step {r['flips']} "
+          f"of {r['records']} records")
+    if bad or not r["logs"] <= 1e-4:
+        raise AssertionError(f"ppon f64: {bad[:6]}, logs {r['logs']}")
+    torch.cuda.empty_cache()
+
+
+def _serve_rates(smi: str) -> None:
+    """PPON (nf 64, nb 24), PAN (nf 40, unf 24, nb 16, self-attention) and
+    A2N (its defaults) at b=8, 128 -> 512 px: Mpx/s of the forward in f32
+    (TF32 off) and bf16, CUDA events; no block kernel launched."""
+    import torch
+
+    from trainner_tpu_torch.models import define_G
+    from trainner_tpu_torch.options.defaults import get_network_G_config
+
+    b, h, w = MAIN_SHAPE
+    x = torch.rand(b, h, w, 3, device="cuda",
+                   generator=torch.Generator(device="cuda").manual_seed(3))
+    mpx = b * h * w * 16 / 1e6
+    for name, cfg in (("ppon", {"type": "ppon"}),
+                      ("pan", {"type": "pan_net", "self_attention": True}),
+                      ("a2n", {"type": "a2n_net"})):
+        g = get_network_G_config(cfg, 4)
+        row = []
+        for dt in (torch.float32, torch.bfloat16):
+            net = define_G({"network_G": g}, dtype=dt)
+            _gain_weights(net, seed=2)
+            net = net.cuda().eval()
+            with torch.inference_mode():
+                with _launch_trace({"rdb5c": 0}, label=f"serve {name}"):
+                    net(x)
+                ms = _time_ms(lambda: net(x), iters=SERVE_ITERS, warmup=1)
+            row.append(f"{str(dt)[6:]} {ms:.2f} ms, {mpx / ms * 1e3:.2f} "
+                       f"Mpx/s")
+            del net
+        print(f"times: {name} forward b={b} {h}->{4 * h} px: "
+              f"{'; '.join(row)} ({smi})")
+    torch.cuda.empty_cache()
+
+
+def _pan_cli_edit(opt: dict) -> None:
+    """``train_sr.yml`` with ``network_G: pan_net`` at its defaults (nf 40,
+    unf 24, nb 16), trained by the ``sr`` trainer."""
+    opt["network_G"] = {"type": "pan_net"}
+
+
+def phase_models(smi: str, root: str) -> dict:
+    """Phase 19: PPON, PAN and A2N at full width. PPON: its forward card
+    against CPU (f32, bf16) on every output; the training CLI on
+    ``train_sr.yml`` with ``model: ppon`` (12 iterations through its three
+    phases and a resume to 16 in phase 3; no block kernel, 24 blur launches
+    per batch); its saved G served by the test CLI at ``ppon_phase`` 3 and
+    1; graphed against eager (``_ppon_graphed_vs_eager``); the f64 witness
+    of one step per phase (``_ppon_f64``). PAN (with self-attention) and
+    A2N card against CPU; PAN through the ``sr`` training CLI with a
+    resume; the three models' serving rates. Returns the CLI traces."""
+    import torch
+
+    from trainner_tpu_torch import test as test_cli
+    from trainner_tpu_torch.options.defaults import get_network_G_config
+    from trainner_tpu_torch.train.ppon_trainer import PPONTrainer
+
+    t0 = time.perf_counter()
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    for name, cfg in (("ppon", {"type": "ppon"}),
+                      ("pan", {"type": "pan_net", "self_attention": True}),
+                      ("a2n", {"type": "a2n_net"})):
+        _card_vs_cpu_forward(name, {"network_G": get_network_G_config(
+            cfg, 4)}, ZOO_CPU_LR, (torch.float32, torch.bfloat16),
+            tag="models")
+
+    runs = phase_cli(smi, root, TRAIN_YML, "cli_ppon", edit=_ppon_cli_edit,
+                     trainer_cls=PPONTrainer, g_launches=lambda n: 0,
+                     val_launches=0)
+    traces = {f"ppon cli {k}": v for k, v in runs.items()}
+    with open(os.path.join(root, "cli_ppon_options.json")) as f:
+        opt = json.load(f)
+    exp = os.path.join(root, "cli_ppon", "experiments", opt["name"])
+    phases = _ppon_phases_of(exp)
+    want = {s: 1 + (s - 1 >= PPON_STAGES[0]) + (s - 1 >= PPON_STAGES[1])
+            for s in phases}
+    print(f"ppon: the CLI's ppon_phase by iteration {phases} (expected "
+          f"{want}); the resume to {CLI_RESUME_NITER} continued in phase 3")
+    if phases != want or set(phases.values()) != {1, 2, 3} or \
+            max(phases) != CLI_RESUME_NITER:
+        raise AssertionError(f"ppon cli phases {phases}")
+    g_file = os.path.join(exp, "models", f"{CLI_RESUME_NITER}_G.ckpt")
+    psnr = {}
+    for phase in (3, 1):
+        serve = {"name": f"serve_ppon_{phase}", "model": "ppon", "scale": 4,
+                 "ppon_phase": phase,
+                 "datasets": {"test_1": {
+                     "name": "val", "mode": "aligned",
+                     "dataroot_HR": opt["datasets"]["val"]["dataroot_HR"],
+                     "dataroot_LR": opt["datasets"]["val"]["dataroot_LR"]}},
+                 "network_G": {"type": "ppon"},
+                 "path": {"root": os.path.join(root, f"serve_ppon_{phase}"),
+                          "pretrain_model_G": g_file},
+                 "metrics": "psnr,ssim"}
+        path = os.path.join(root, f"serve_ppon_{phase}.json")
+        with open(path, "w") as f:
+            json.dump(serve, f)
+        with _launch_trace({"rdb5c": 0}, label="serve ppon"):
+            averages = test_cli.main(["-opt", path])
+        psnr[phase] = [m["average"] for m in averages["val"]
+                       if m["name"] == "psnr"]
+    print(f"ppon: {CLI_RESUME_NITER}_G.ckpt served by the test CLI at b=1 on "
+          f"{N_VAL} LRs of {CORPUS_PX // 4} px: PSNR with ppon_phase 3 "
+          f"{psnr[3]}, with ppon_phase 1 {psnr[1]} ({smi})")
+    if not all(v and math.isfinite(v[0]) for v in psnr.values()):
+        raise AssertionError(f"ppon serving {psnr}")
+    parts = [f"{time.perf_counter() - t0:.1f}"]
+    for part in (lambda: _ppon_graphed_vs_eager(smi, root),
+                 lambda: _ppon_f64(smi),
+                 lambda: traces.update(
+                     {f"pan cli {k}": v for k, v in phase_cli(
+                         smi, root, TRAIN_YML, "cli_pan",
+                         edit=_pan_cli_edit, g_launches=lambda n: 0,
+                         val_launches=0).items()}),
+                 lambda: _serve_rates(smi)):
+        t1 = time.perf_counter()
+        part()
+        parts.append(f"{time.perf_counter() - t1:.1f}")
+    print(f"models: ok in {time.perf_counter() - t0:.1f} s (forwards, PPON "
+          f"CLI and serving; graphs; f64; PAN CLI; rates: "
+          f"{', '.join(parts)} s) ({smi})")
+    return traces
+
+
 def phase_graphs(smi: str, root: str) -> None:
     """The programs as CUDA graphs against the same programs run eagerly
     (``graphs=False``), in one process: the step (bf16, f32) with its
@@ -5727,15 +6405,34 @@ def phase_graphs(smi: str, root: str) -> None:
     degrader; ``eval_step``, x8 and chop; then eager against graphed times
     of the end-to-end rate and the CLI's steady rate."""
     t0 = time.perf_counter()
-    _graph_step(smi)
-    _graph_resume(smi, root)
-    _graph_window(smi)
-    _graph_degrader(smi, root)
-    _graph_serving(smi)
-    _graph_mixed_sizes(smi, root)
-    _graph_e2e(smi, root)
-    _graph_cli(smi, root)
-    print(f"graphs: ok in {time.perf_counter() - t0:.1f} s ({smi})")
+    parts = []
+    for part in (lambda: _graph_step(smi), lambda: _graph_resume(smi, root),
+                 lambda: _graph_window(smi),
+                 lambda: _graph_degrader(smi, root),
+                 lambda: _graph_serving(smi),
+                 lambda: _graph_mixed_sizes(smi, root),
+                 lambda: _graph_e2e(smi, root),
+                 lambda: _graph_cli(smi, root)):
+        t1 = time.perf_counter()
+        part()
+        parts.append(f"{time.perf_counter() - t1:.1f}")
+    print(f"graphs: ok in {time.perf_counter() - t0:.1f} s (step, resume, "
+          f"window, degrader, serving, mixed sizes, e2e, cli: "
+          f"{', '.join(parts)} s) ({smi})")
+
+
+def _later_phases(smi: str, root: str, which: tuple) -> dict:
+    """Phases 18 (``phase_producer_rest``) and 19 (``phase_models``) of
+    ``which``, TF32 off before each; returns their traces."""
+    import torch
+
+    phases = {18: phase_producer_rest, 19: phase_models}
+    traces = {}
+    for n in which:
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
+        traces.update(phases[n](smi, root))
+    return traces
 
 
 def main(argv=None) -> int:
@@ -5749,6 +6446,10 @@ def main(argv=None) -> int:
                         help="another tree (e.g. the parent commit from "
                         "git archive) whose blur kernel is timed beside "
                         "this one's")
+    parser.add_argument("--only", default="",
+                        help="comma-separated phases among 18 and 19: build "
+                        "the kernels, write the corpus and run those alone "
+                        "(no result line)")
     flags = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -5785,6 +6486,16 @@ def main(argv=None) -> int:
     phase_tf32_mma(smi)
     main_err, bwd_err = phase_kernels(smi)
     blur_err = phase_blur_kernel(smi)
+    if flags.only:
+        with tempfile.TemporaryDirectory() as root:
+            os.makedirs(os.path.join(root, "corpus"))
+            _write_corpus(os.path.join(root, "corpus"))
+            _later_phases(smi, root, tuple(
+                int(p) for p in flags.only.split(",")))
+        print(f"chip_smoke: phases {flags.only} alone, "
+              f"{time.time() - t_start:.1f} s")
+        print(smi)
+        return 0
     if flags.kernels_only:
         phase_times(smi, "", kernels_only=True)
         phase_blur_times(smi, flags.parent)
@@ -5812,8 +6523,7 @@ def main(argv=None) -> int:
         torch.backends.cuda.matmul.allow_tf32 = False
         cli_counts.update(phase_losses(smi, root))
         cli_counts.update(phase_trainer_options(smi, root))
-        torch.backends.cudnn.allow_tf32 = False
-        torch.backends.cuda.matmul.allow_tf32 = False
+        cli_counts.update(_later_phases(smi, root, (18, 19)))
         rows = phase_times(smi, root)
         blur_rows = phase_blur_times(smi, flags.parent)
         phase_trace(smi, root, {k: r["step_ms"] for k, r in train.items()})

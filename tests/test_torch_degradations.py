@@ -357,8 +357,10 @@ def test_the_same_seed_gives_the_same_draws():
 @pytest.mark.parametrize("what", ["the exact webp codec",
                                   "a codec host callback"])
 def test_not_ported_names_its_roadmap_item(what):
-    """Every op of the JAX module runs now; what is left (the exact codec,
-    a host callback) names ROADMAP Queue A 5.5."""
+    """Every op of the JAX module runs now; what stays off the device (the
+    exact codec, a host callback) names ROADMAP C 20 and points at
+    ``otf_mode: host``, which runs it on the host."""
     err = D.not_ported(what)
     assert isinstance(err, NotImplementedError)
-    assert what in str(err) and "ROADMAP Queue A 5.5" in str(err)
+    assert what in str(err) and "ROADMAP C 20" in str(err)
+    assert "otf_mode: host" in str(err)

@@ -86,3 +86,22 @@ def test_imresize_np_matches_the_tensor_path():
     assert np.abs(got - want).max() <= 1e-5
     with pytest.raises(ValueError, match="unknown resize kernel"):
         port_imresize.imresize_np(x, 0.5, kernel="nope")
+
+
+def test_cached_matrices_made_in_inference_mode_serve_autograd():
+    """A resize first met under ``torch.inference_mode`` (an ``eval_step``)
+    caches its weights; a later call that records gradients (CEM's
+    downscale in a train step, PAN's and A2N's bilinear skips) reads the
+    same cache entry and must still backpropagate."""
+    import torch
+
+    from trainner_tpu_torch.ops.imresize import imresize, jax_resize
+
+    shape = (1, 28, 20, 3)
+    with torch.inference_mode():
+        imresize(torch.rand(shape), scale=0.25, clip=False)
+        jax_resize(torch.rand(shape), (7, 5), "linear", False)
+    x = torch.rand(shape, requires_grad=True)
+    (imresize(x, scale=0.25, clip=False).sum()
+     + jax_resize(x, (7, 5), "linear", False).sum()).backward()
+    assert x.grad is not None and bool(torch.isfinite(x.grad).all())

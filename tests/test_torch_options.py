@@ -177,16 +177,22 @@ def test_dict2str_matches_jax():
 
 
 @pytest.mark.parametrize("key, value, item", [
-    ("network_G", {"type": "ppon"}, "Queue A 10.2"),
+    ("network_G", {"type": "ppon"}, None),
     ("network_G", {"type": "edvr"}, "Queue A 10.5"),
     ("network_G", {"type": "wbcunet"}, "Queue A 10.6")])
 def test_options_outside_the_port_raise_with_their_item(key, value, item):
     """The network presets and ``use_unshuffle`` are parsed now
     (``test_torch_network_options.py``), and so are the realsr and combo
-    strategies (``test_realsr_parses_like_jax``); other generators still
-    raise and name their ROADMAP item."""
+    strategies (``test_realsr_parses_like_jax``) and ``ppon`` (ROADMAP Queue
+    A 10.2, its G config the JAX one); other generators still raise and
+    name their ROADMAP item."""
     opt = _train_opt()
     opt[key] = value
+    if item is None:
+        got = parse_dict(copy.deepcopy(opt))
+        assert got["network_G"] == jax_parse_dict(opt)["network_G"]
+        assert got["network_D"] == jax_parse_dict(opt)["network_D"]
+        return
     with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
         parse_dict(opt)
 

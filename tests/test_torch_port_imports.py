@@ -74,7 +74,14 @@ def test_port_has_modules_to_scan():
             "trainner_tpu_torch.ops.partial_conv",
             "trainner_tpu_torch.ops.cem",
             "trainner_tpu_torch.ops.filters",
-            "trainner_tpu_torch.ops.colors"} <= names
+            "trainner_tpu_torch.ops.colors",
+            "trainner_tpu_torch.data.lmdb_io",
+            "trainner_tpu_torch.data.host_degradations",
+            "trainner_tpu_torch.data.host_superpixels",
+            "trainner_tpu_torch.models.ppon",
+            "trainner_tpu_torch.models.pan",
+            "trainner_tpu_torch.train.ppon_trainer",
+            "trainner_tpu_torch.scripts.create_lmdb"} <= names
 
 
 _GUARD = """

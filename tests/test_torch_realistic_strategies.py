@@ -296,11 +296,13 @@ def test_every_option_of_the_slice_builds_and_runs(assets, monkeypatch, case):
 def test_webp_without_the_approximation_names_its_item(monkeypatch):
     """The exact codec is a host callback through OpenCV, which a CUDA
     graph cannot hold: without ``TRAINNER_DEVICE_WEBP=approx`` the port
-    refuses and names ROADMAP Queue A 5.5 (no quiet fallback)."""
+    refuses on the device, names ROADMAP C 20 and points at ``otf_mode:
+    host``, which runs the codec on the host (no quiet fallback)."""
     monkeypatch.delenv("TRAINNER_DEVICE_WEBP", raising=False)
     ds = parse_dict(_opt("bsrgan", compression=["webp"]),
                     is_train=True)["datasets"]["train"]
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue A 5.5"):
+    with pytest.raises(NotImplementedError,
+                       match="ROADMAP C 20.*otf_mode: host"):
         P.BatchDegrader(ds, "lr")
 
 

@@ -126,13 +126,17 @@ def test_port_cli_matches_jax_cli(tmp_path, use_amp, psnr_tol, ssim_tol,
 
 
 @pytest.mark.parametrize("key,value,item", [
-    ("model", "ppon", "Queue A 10.2"), ("spatial_shards", 2, "Queue A 9")])
+    ("model", "ppon", "C 20"), ("spatial_shards", 2, "Queue A 9")])
 def test_port_cli_deferred_branches_raise(tmp_path, key, value, item):
     """x8 and chop are served (test_torch_inference_modes), CEM too
-    (test_torch_cem); other models and the band-parallel branch still
-    raise and name their ROADMAP item."""
-    path = _options(tmp_path, "deferred", tmp_path / "none.ckpt",
-                    **{key: value})
+    (test_torch_cem), and ``model: ppon`` (test_torch_ppon_trainer); what
+    the JAX CLI cannot run with PPON (CEM's ``out_orig``: its
+    ``eval_step`` takes no ``apply_cem``) and the band-parallel branch
+    still raise and name their ROADMAP item."""
+    extra = {key: value}
+    if key == "model":
+        extra.update(use_cem=True, cem_config={"out_orig": True})
+    path = _options(tmp_path, "deferred", tmp_path / "none.ckpt", **extra)
     with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
         port_test_cli.main(["-opt", path], device="cpu")
 

@@ -1,12 +1,15 @@
 """Host-side image IO, tensor conversion and the paired crop and flip.
 
-Counterpart of ``trainner_tpu/data/common.py`` (``scan_images:44``,
-``read_img:60``, ``augment_pair:155``, ``paired_random_crop:178``,
+Counterpart of ``trainner_tpu/data/common.py`` (``_lmdb_reader:36``,
+``scan_images:44``, ``read_img:60``, ``rgb2ycbcr:116``, ``ycbcr2rgb:128``,
+``channel_convert:137``, ``augment_pair:155``, ``paired_random_crop:178``,
 ``img2tensor:202``, ``tensor2img:218``, ``save_img:232``). Host images are
-numpy HWC float32 RGB in [0, 1]. ``save_img`` writes and ``read_png`` reads
-8-bit PNG with the standard library (``zlib``, ``struct``); ``read_img``
-decodes with ``cv2`` where it is installed (imported only when called) and
-with ``read_png`` where it is not.
+numpy HWC float32 RGB in [0, 1]. ``encode_png`` and ``save_img`` write and
+``decode_png`` / ``read_png`` read 8-bit PNG with the standard library
+(``zlib``, ``struct``); ``read_img`` decodes with ``cv2`` where it is
+installed (imported only when called) and with ``decode_png`` where it is
+not. A ``*.lmdb`` dataroot lists virtual paths ``<root>::<key>``, whose
+values ``read_img`` reads through ``data/lmdb_io.py``.
 """
 
 from __future__ import annotations
@@ -26,12 +29,30 @@ def is_image_file(path: str) -> bool:
     return path.lower().endswith(IMG_EXTENSIONS)
 
 
+_LMDB_READERS: dict = {}
+
+
+def _lmdb_reader(root: str):
+    """One ``LmdbReader`` per root, kept for the process."""
+    if root not in _LMDB_READERS:
+        from .lmdb_io import LmdbReader
+
+        _LMDB_READERS[root] = LmdbReader(root)
+    return _LMDB_READERS[root]
+
+
+def is_lmdb_path(path: str) -> bool:
+    """A virtual path ``<root>.lmdb::<key>`` of an LMDB dataroot."""
+    return "::" in path and ".lmdb" in path
+
+
 def scan_images(root: str) -> List[str]:
-    """Sorted recursive image listing."""
+    """Sorted recursive image listing; a ``*.lmdb`` root lists
+    ``<root>::<key>`` for each key of ``lmdb_io.lmdb_paths``."""
     if str(root).endswith(".lmdb"):
-        raise NotImplementedError(
-            "LMDB datasets are not ported yet (ROADMAP Queue A 5.3, LMDB "
-            "datasets)")
+        from .lmdb_io import lmdb_paths
+
+        return [f"{root}::{k}" for k in lmdb_paths(root)]
     out = []
     for dirpath, _, files in os.walk(root):
         for f in files:
@@ -63,11 +84,18 @@ def _average_row(cur: bytearray, prev: bytes, bpp: int) -> None:
 
 
 def read_png(path: str) -> np.ndarray:
-    """8-bit PNG file -> uint8 array, HW for gray, HWC in RGB(A) order
-    otherwise. Reads gray, RGB and RGBA, non-interlaced, with all five
-    row filters; anything else raises."""
+    """8-bit PNG file -> uint8 array (``decode_png``)."""
     with open(path, "rb") as f:
-        data = f.read()
+        return decode_png(f.read(), path)
+
+
+def decode_png(data: bytes, path: str = "<bytes>") -> np.ndarray:
+    """8-bit PNG bytes -> uint8 array, HW for gray, HWC in RGB(A) order
+    otherwise. Reads gray, RGB and RGBA, non-interlaced, with all five
+    row filters; anything else raises. Rows filtered with Average or Paeth
+    (as OpenCV's encoder writes them) are undone a byte at a time in
+    Python, so such a file decodes far more slowly than one written by
+    ``encode_png``'s default."""
     if data[:8] != _PNG_SIGNATURE:
         raise IOError(f"not a PNG file [{path}]")
     pos, idat, header = 8, [], None
@@ -142,9 +170,47 @@ def decode_image(path: str) -> np.ndarray:
     return img
 
 
+def decode_image_bytes(data: bytes, name: str = "<bytes>") -> np.ndarray:
+    """An encoded image -> array as stored, HW or HWC in RGB(A) order:
+    ``cv2.imdecode`` where OpenCV is installed, else ``decode_png`` (8-bit
+    PNG only)."""
+    try:
+        import cv2
+    except ImportError:
+        cv2 = None
+    if cv2 is None:
+        if data[:8] == _PNG_SIGNATURE:
+            return decode_png(data, name)
+        raise ImportError(f"decoding [{name}] needs OpenCV: without it only "
+                          "8-bit PNG is read")
+    img = cv2.imdecode(np.frombuffer(data, np.uint8), cv2.IMREAD_UNCHANGED)
+    if img is None:
+        raise IOError(f"cannot decode image [{name}]")
+    if img.ndim == 3 and img.shape[2] == 4:
+        img = img[:, :, [2, 1, 0, 3]]
+    elif img.ndim == 3 and img.shape[2] == 3:
+        img = img[:, :, ::-1]
+    return img
+
+
+def read_lmdb_value(path: str) -> np.ndarray:
+    """The decoded value of a virtual path ``<root>.lmdb::<key>``."""
+    root, key = path.split("::", 1)
+    buf = _lmdb_reader(root).get(key.encode("ascii"))
+    if buf is None:
+        raise IOError(f"lmdb key not found [{path}]")
+    return decode_image_bytes(bytes(buf), path)
+
+
 def read_img(path: str, out_nc: int = 3) -> np.ndarray:
-    """Image file -> float32 RGB HWC in [0, 1]; an alpha channel is
-    dropped."""
+    """Image file (or LMDB value) -> float32 RGB HWC in [0, 1]; an alpha
+    channel is dropped. An LMDB value is divided by 255 whatever its depth,
+    as the JAX package divides it."""
+    if is_lmdb_path(path):
+        img = (read_lmdb_value(path) / 255.0).astype(np.float32)
+        if img.ndim == 2:
+            img = img[:, :, None]
+        return fix_img_channels(np.ascontiguousarray(img), out_nc)
     img = decode_image(path)
     img = (img / (65535.0 if img.dtype == np.uint16 else 255.0)
            ).astype(np.float32)
@@ -168,14 +234,22 @@ def fix_img_channels(img: np.ndarray, out_nc: int = 3) -> np.ndarray:
     return img
 
 
+_YCBCR = np.array([[65.481, -37.797, 112.0],
+                   [128.553, -74.203, -93.786],
+                   [24.966, 112.0, -18.214]], np.float32) / 255.0
+
+
 def rgb2ycbcr(img: np.ndarray, only_y: bool = True) -> np.ndarray:
     """ITU-R BT.601 studio swing, RGB input in [0, 1]."""
-    w = np.array([[65.481, -37.797, 112.0],
-                  [128.553, -74.203, -93.786],
-                  [24.966, 112.0, -18.214]], np.float32) / 255.0
     if only_y:
-        return img @ w[:, 0] + 16.0 / 255.0
-    return img @ w + np.array([16, 128, 128], np.float32) / 255.0
+        return img @ _YCBCR[:, 0] + 16.0 / 255.0
+    return img @ _YCBCR + np.array([16, 128, 128], np.float32) / 255.0
+
+
+def ycbcr2rgb(img: np.ndarray) -> np.ndarray:
+    """The inverse of ``rgb2ycbcr(only_y=False)``."""
+    inv = np.linalg.inv(_YCBCR.T).astype(np.float32)
+    return (img - np.array([16, 128, 128], np.float32) / 255.0) @ inv.T
 
 
 def channel_convert(img: np.ndarray, color: Optional[str]) -> np.ndarray:
@@ -276,11 +350,30 @@ def _png_chunk(kind: bytes, data: bytes) -> bytes:
             + struct.pack(">I", zlib.crc32(kind + data) & 0xFFFFFFFF))
 
 
-def save_img(img: np.ndarray, path: str) -> None:
-    """uint8 HWC (RGB, RGBA or gray) or HW image -> 8-bit PNG file."""
+def _paeth_filter(rows: np.ndarray, bpp: int) -> np.ndarray:
+    """The Paeth filter of every row of an (h, stride) uint8 image at once:
+    its predictor reads only unfiltered neighbours."""
+    x = rows.astype(np.int16)
+    a = np.zeros_like(x)
+    a[:, bpp:] = x[:, :-bpp]
+    b = np.zeros_like(x)
+    b[1:] = x[:-1]
+    c = np.zeros_like(x)
+    c[1:, bpp:] = x[:-1, :-bpp]
+    p = a + b - c
+    pa, pb, pc = np.abs(p - a), np.abs(p - b), np.abs(p - c)
+    pred = np.where((pa <= pb) & (pa <= pc), a, np.where(pb <= pc, b, c))
+    return ((x - pred) & 0xFF).astype(np.uint8)
+
+
+def encode_png(img: np.ndarray, level: int = 6,
+               row_filter: int = 0) -> bytes:
+    """uint8 HWC (RGB, RGBA or gray) or HW image -> 8-bit PNG bytes, every
+    row filtered with ``row_filter`` (0, none, or 4, Paeth), the data
+    deflated at zlib ``level``."""
     img = np.asarray(img)
     if img.dtype != np.uint8:
-        raise TypeError(f"save_img writes uint8 images, got {img.dtype}")
+        raise TypeError(f"encode_png writes uint8 images, got {img.dtype}")
     if img.ndim == 3 and img.shape[2] == 1:
         img = img[:, :, 0]
     if img.ndim == 2:
@@ -291,13 +384,23 @@ def save_img(img: np.ndarray, path: str) -> None:
         color = 6
     else:
         raise ValueError(f"cannot write an image of shape {img.shape}")
+    if row_filter not in (0, 4):
+        raise ValueError(f"row filter {row_filter}: 0 (none) or 4 (Paeth)")
     h, w = img.shape[:2]
     rows = np.ascontiguousarray(img).reshape(h, -1)
-    raw = np.concatenate([np.zeros((h, 1), np.uint8), rows], axis=1)
+    if row_filter == 4:
+        rows = _paeth_filter(rows, 1 if img.ndim == 2 else img.shape[2])
+    raw = np.concatenate([np.full((h, 1), row_filter, np.uint8), rows],
+                         axis=1)
     ihdr = struct.pack(">IIBBBBB", w, h, 8, color, 0, 0, 0)
-    png = (_PNG_SIGNATURE + _png_chunk(b"IHDR", ihdr)
-           + _png_chunk(b"IDAT", zlib.compress(raw.tobytes(), 6))
-           + _png_chunk(b"IEND", b""))
+    return (_PNG_SIGNATURE + _png_chunk(b"IHDR", ihdr)
+            + _png_chunk(b"IDAT", zlib.compress(raw.tobytes(), level))
+            + _png_chunk(b"IEND", b""))
+
+
+def save_img(img: np.ndarray, path: str) -> None:
+    """uint8 HWC (RGB, RGBA or gray) or HW image -> 8-bit PNG file."""
+    png = encode_png(img)
     os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
     with open(path, "wb") as f:
         f.write(png)

@@ -2,7 +2,8 @@
 prefetch that keeps batches on the card ahead of the step.
 
 Counterpart of ``trainner_tpu/data/loader.py`` (``DataLoader:36``,
-``device_prefetch:136``, ``create_dataloader:159``). A coordinator thread
+``WeightedMultiLoader:100``, ``device_prefetch:136``,
+``create_dataloader:159``, ``ConcatDataset:188``). A coordinator thread
 builds the batches in order, reading the samples of a batch with a pool of
 ``num_workers`` threads, so that image IO overlaps the card's work. With
 ``pin_memory`` each batch is collated into pinned memory, so that
@@ -12,10 +13,11 @@ stream of its own.
 
 from __future__ import annotations
 
+import itertools
 import queue
 import threading
 from concurrent.futures import ThreadPoolExecutor
-from typing import Any, Dict, Iterator, List, Union
+from typing import Any, Dict, Iterator, List, Sequence, Union
 
 import numpy as np
 import torch
@@ -124,6 +126,72 @@ class DataLoader:
                     t.join(0.01)
 
 
+class WeightedMultiLoader:
+    """Batches from several datasets: each batch comes whole from one
+    dataset, drawn with probabilities proportional to ``weights`` from
+    ``default_rng(seed + epoch)``, and carries that dataset's index as the
+    integer ``dataset_index``. Each dataset has its own shuffled loader
+    that drops its last short batch; an epoch ends when every loader is
+    spent (a draw of a spent one is skipped)."""
+
+    def __init__(self, datasets: Sequence, weights: Sequence[float],
+                 batch_size: int = 1, seed: int = 0, num_workers: int = 2,
+                 pin_memory: bool = False):
+        if len(datasets) != len(weights):
+            raise ValueError(f"{len(datasets)} datasets and {len(weights)} "
+                             "weights")
+        self.loaders = [DataLoader(d, batch_size, shuffle=True, seed=seed,
+                                   drop_last=True, num_workers=num_workers,
+                                   pin_memory=pin_memory) for d in datasets]
+        w = np.asarray(weights, np.float64)
+        self.probs = w / w.sum()
+        self.seed = seed
+        self._epoch = 0
+
+    def __len__(self) -> int:
+        return sum(len(ld) for ld in self.loaders)
+
+    def __iter__(self) -> Iterator[Dict[str, Any]]:
+        iters = [iter(ld) for ld in self.loaders]
+        rng = np.random.default_rng(self.seed + self._epoch)
+        self._epoch += 1
+        alive = [True] * len(iters)
+        try:
+            while any(alive):
+                k = int(rng.choice(len(iters), p=self.probs))
+                if not alive[k]:
+                    continue
+                try:
+                    batch = next(iters[k])
+                except StopIteration:
+                    alive[k] = False
+                    continue
+                batch["dataset_index"] = k
+                yield batch
+        finally:
+            for it in iters:
+                it.close()
+
+
+class ConcatDataset:
+    """The datasets one after another, indexed as one."""
+
+    def __init__(self, datasets: Sequence):
+        self.datasets = list(datasets)
+        self.cumulative_sizes = list(itertools.accumulate(
+            len(d) for d in self.datasets))
+
+    def __len__(self) -> int:
+        return self.cumulative_sizes[-1] if self.cumulative_sizes else 0
+
+    def __getitem__(self, idx: int):
+        for k, cum in enumerate(self.cumulative_sizes):
+            if idx < cum:
+                prev = self.cumulative_sizes[k - 1] if k else 0
+                return self.datasets[k][idx - prev]
+        raise IndexError(idx)
+
+
 def device_prefetch(iterator: Iterator[Dict[str, Any]], size: int = 2,
                     device: Union[str, torch.device, None] = None
                     ) -> Iterator[Dict[str, Any]]:
@@ -169,17 +237,26 @@ def device_prefetch(iterator: Iterator[Dict[str, Any]], size: int = 2,
         yield take(buf.pop(0))
 
 
-def create_dataloader(dataset, dataset_opt: dict,
-                      pin_memory: bool = False) -> DataLoader:
+def create_dataloader(dataset, dataset_opt: dict, pin_memory: bool = False):
     """Train loaders shuffle (unless ``use_shuffle`` is off) and drop the
     last short batch; evaluation loaders are sequential, batch 1, one
-    thread."""
-    if dataset_opt.get("phase", "train") == "train":
-        if isinstance(dataset, (list, tuple)):
-            raise NotImplementedError(
-                "a list of train datasets (weighted sampling) is not "
-                "ported yet (ROADMAP Queue A 5.4, the other train-dataset "
-                "options)")
+    thread. A list of datasets trains through a ``WeightedMultiLoader``
+    with ``sampler_weights`` (equal weights without them) and evaluates as
+    one ``ConcatDataset``. The training CLI builds one dataset per phase,
+    as the JAX one does: a list comes only from Python."""
+    train = dataset_opt.get("phase", "train") == "train"
+    if isinstance(dataset, (list, tuple)):
+        if train:
+            weights = dataset_opt.get("sampler_weights") or \
+                [1.0] * len(dataset)
+            return WeightedMultiLoader(
+                dataset, weights,
+                batch_size=int(dataset_opt.get("batch_size", 16) or 16),
+                seed=int(dataset_opt.get("seed", 0) or 0),
+                num_workers=int(dataset_opt.get("n_workers", 2) or 2),
+                pin_memory=pin_memory)
+        dataset = ConcatDataset(dataset)
+    if train:
         return DataLoader(
             dataset,
             batch_size=int(dataset_opt.get("batch_size", 16) or 16),

@@ -49,7 +49,8 @@ device program reads nothing back to the host, so the host runs ahead.
 
 Every stage and type of the JAX module runs here. ``compression: webp``
 runs the DCT approximation under ``TRAINNER_DEVICE_WEBP=approx`` and raises
-without it (the exact codec is a host callback, ROADMAP Queue A 5.5).
+without it (the exact codec is a host callback, which ``otf_mode: host``
+runs on the host; ROADMAP C 20).
 """
 
 from __future__ import annotations

@@ -1,6 +1,7 @@
 """Network factory: counterpart of ``trainner_tpu/models/networks.py``
 (``define_G:277``, ``_build_rrdb:29``, ``_build_mrrdb:48``,
-``_build_srresnet:56``, ``define_D:291``) for the generators and the
+``_build_srresnet:56``, ``_build_ppon:67``, ``_build_pan:75``,
+``_build_a2n:244``, ``define_D:291``) for the generators and the
 discriminators that the port runs. Other types raise and name their
 ROADMAP item."""
 
@@ -59,8 +60,37 @@ def _build_srresnet(cfg: dict, dtype: torch.dtype) -> SRResNet:
         final_act=cfg.get("finalact"), dtype=dtype)
 
 
+def _build_ppon(cfg: dict, dtype: torch.dtype):
+    from .ppon import PPON
+
+    return PPON(in_nc=cfg.get("in_nc", 3), out_nc=cfg.get("out_nc", 3),
+                nf=cfg.get("nf", 64), nb=cfg.get("nb", 24),
+                upscale=cfg.get("upscale", 4), dtype=dtype)
+
+
+def _build_pan(cfg: dict, dtype: torch.dtype):
+    from .pan import PAN
+
+    return PAN(in_nc=cfg.get("in_nc", 3), out_nc=cfg.get("out_nc", 3),
+               nf=cfg.get("nf", 40), unf=cfg.get("unf", 24),
+               nb=cfg.get("nb", 16), scale=cfg.get("scale", 4),
+               self_attention=bool(cfg.get("self_attention", False)),
+               double_scpa=bool(cfg.get("double_scpa", False)),
+               ups_inter_mode=cfg.get("ups_inter_mode", "nearest"),
+               dtype=dtype)
+
+
+def _build_a2n(cfg: dict, dtype: torch.dtype):
+    from .pan import AAN
+
+    return AAN(in_nc=cfg.get("in_nc", 3), out_nc=cfg.get("out_nc", 3),
+               nf=cfg.get("nf", 40), unf=cfg.get("unf", 24),
+               nb=cfg.get("nb", 16), scale=cfg.get("scale", 4), dtype=dtype)
+
+
 _G_REGISTRY = {"rrdb_net": _build_rrdb, "mrrdb_net": _build_mrrdb,
-               "sr_resnet": _build_srresnet}
+               "sr_resnet": _build_srresnet, "ppon": _build_ppon,
+               "pan_net": _build_pan, "a2n_net": _build_a2n}
 
 
 def define_G(opt: dict, dtype: torch.dtype = torch.float32):

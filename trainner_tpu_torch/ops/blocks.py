@@ -7,10 +7,13 @@ Counterpart of ``trainner_tpu/ops/blocks.py``: ``kaiming_init:27``,
 ``ConvBlock:192`` (CNA, NAC and CNAC; zero, reflect and replicate padding;
 no norm, flax's ``BatchNorm``, ``GroupNorm`` as an instance norm or
 ``LayerNorm`` over the channels; a ``PartialConv2D`` conv; flax's
-``nn.SpectralNorm`` of its conv), ``bilinear_torch:589``,
-``GaussianNoise:282`` (relative noise in train mode, the identity at
-eval), ``PixelShuffleBlock:315`` and ``UpconvBlock:369`` (nearest, or
-bilinear / bicubic through ``interpolate``).
+``nn.SpectralNorm`` of its conv), ``bilinear_align_corners:571``,
+``bilinear_torch:589``, ``GaussianNoise:282`` (relative noise in train
+mode, the identity at eval), ``PixelShuffleBlock:315``,
+``UpconvBlock:369`` (nearest, or bilinear / bicubic through
+``interpolate``) and ``SelfAttentionBlock:441`` (without spectral norm);
+``Conv`` (a bare conv, dilated or not) and ``Dense`` are flax's ``nn.Conv``
+and ``nn.Dense`` as the PPON, PAN and A2N generators use them.
 
 Modules take and return NCHW tensors (the network keeps them in
 ``channels_last`` memory, so NHWC views of them are contiguous); the free
@@ -187,6 +190,36 @@ def bilinear_torch(x: torch.Tensor, scale: int = 2) -> torch.Tensor:
     ``bilinear_torch`` computes with its weight matrices."""
     return F.interpolate(x, scale_factor=scale, mode="bilinear",
                          align_corners=False)
+
+
+def bilinear_align_corners(x: torch.Tensor, scale: float = None,
+                           size=None) -> torch.Tensor:
+    """Bilinear resize of an NHWC tensor with torch's ``align_corners=True``
+    convention (corner pixels map to corner pixels), as the JAX package
+    computes it: a 2-tap weight matrix per axis, built on the device in
+    f32 and contracted in x's type, H first."""
+    b, h, w, c = x.shape
+    if size is None:
+        size = (int(round(h * scale)), int(round(w * scale)))
+
+    def weights(n_out: int, n_in: int) -> torch.Tensor:
+        dev = x.device
+        if n_out == 1 or n_in == 1:
+            return torch.full((n_out, n_in), 1.0 / n_in, device=dev)
+        pos = torch.arange(n_out, dtype=torch.float32, device=dev) \
+            * (n_in - 1) / (n_out - 1)
+        pos = pos.clamp(0.0, n_in - 1.0)
+        lo = pos.floor().long().clamp(0, n_in - 1)
+        hi = (lo + 1).clamp(0, n_in - 1)
+        frac = pos - lo.float()
+        rows = torch.arange(n_out, device=dev)
+        wm = torch.zeros((n_out, n_in), dtype=torch.float32, device=dev)
+        wm.index_put_((rows, lo), 1.0 - frac, accumulate=True)
+        wm.index_put_((rows, hi), frac, accumulate=True)
+        return wm
+
+    y = torch.einsum("oh,bhwc->bowc", weights(size[0], h).to(x.dtype), x)
+    return torch.einsum("pw,bhwc->bhpc", weights(size[1], w).to(x.dtype), y)
 
 
 def _l2_normalize(x: torch.Tensor, eps: float) -> torch.Tensor:
@@ -512,3 +545,76 @@ class UpconvBlock(_Conv):
                             mode=self.mode).permute(0, 3, 1, 2).contiguous(
                 memory_format=torch.channels_last)
         return self.act(self._conv(x))
+
+
+class Conv(_Conv):
+    """flax's ``nn.Conv`` with a k x k kernel, stride 1, zero padding of
+    ``dilation * (k - 1) // 2`` and kernel dilation ``dilation``; its
+    parameters sit at ``kernel`` and ``bias`` of its own flax module."""
+
+    def __init__(self, in_nc: int, out_nc: int, kernel_size: int = 3,
+                 use_bias: bool = True, dilation: int = 1):
+        super().__init__(in_nc, out_nc, kernel_size, use_bias)
+        self.dilation = dilation
+
+    def forward(self, x):
+        return F.conv2d(x, self.weight.to(x.dtype),
+                        None if self.bias is None else self.bias.to(x.dtype),
+                        padding=self.dilation * (self.weight.shape[-1] - 1)
+                        // 2, dilation=self.dilation)
+
+
+class Dense(nn.Module):
+    """flax's ``nn.Dense`` without a bias: ``weight`` (out, in), torch's
+    layout (flax's ``kernel`` is its transpose); runs in x's type."""
+
+    def __init__(self, in_f: int, out_f: int):
+        super().__init__()
+        self.weight = nn.Parameter(torch.zeros(out_f, in_f))
+
+    def forward(self, x):
+        return F.linear(x, self.weight.to(x.dtype))
+
+
+class SelfAttentionBlock(nn.Module):
+    """SAGAN-style self-attention over the positions of an NCHW map,
+    optionally after a ``poolsize`` max pool: query and key by 1x1 convs
+    to C/8, value by a 1x1 conv to C (``f``, ``g``, ``h``, with biases),
+    softmax of the query-key products in f32, the attended values resized
+    back bilinearly (``interpolate``), added times the learned 0-d
+    ``gamma`` (0 at init). flax's spectral norm of the three convs (the
+    ASRResNet / ASRCNN form, ROADMAP Queue A 10.6) is not ported."""
+
+    def __init__(self, nc: int, max_pool: bool = False, poolsize: int = 4,
+                 spectral_norm: bool = False):
+        super().__init__()
+        if spectral_norm:
+            raise NotImplementedError(
+                "SelfAttentionBlock with spectral norm serves the ASRResNet "
+                "and ASRCNN generators, not ported yet (ROADMAP Queue A "
+                "10.6)")
+        self.max_pool, self.poolsize = max_pool, poolsize
+        self.f = _Conv(nc, nc // 8, 1)
+        self.g = _Conv(nc, nc // 8, 1)
+        self.h = _Conv(nc, nc, 1)
+        self.gamma = nn.Parameter(torch.zeros(()))
+
+    def forward(self, x):
+        inp = x
+        if self.max_pool:
+            x = F.max_pool2d(x, self.poolsize, self.poolsize)
+        b, c, h, w = x.shape
+
+        def flat(t):
+            return t.permute(0, 2, 3, 1).reshape(b, h * w, -1)
+
+        f, g, v = flat(self.f._conv(x)), flat(self.g._conv(x)), \
+            flat(self.h._conv(x))
+        attn = torch.softmax(torch.bmm(f.float(), g.float().transpose(1, 2)),
+                             dim=-1)
+        o = torch.bmm(attn.to(x.dtype), v).reshape(b, h, w, c)
+        if self.max_pool:
+            o = interpolate(o, size=(inp.shape[2], inp.shape[3]),
+                            mode="bilinear")
+        o = o.permute(0, 3, 1, 2)
+        return inp + self.gamma.to(x.dtype) * o

@@ -35,7 +35,8 @@ The JAX package's exact codec (``codec_compress_host:409``) is a host
 callback through OpenCV: a CUDA graph cannot hold it and the card's
 machine has no OpenCV. ``compression: webp`` runs the DCT approximation
 under ``TRAINNER_DEVICE_WEBP=approx`` and raises without it
-(``not_ported``, ROADMAP Queue A 5.5).
+(``not_ported``, ROADMAP C 20); ``otf_mode: host`` runs the real codec per
+sample on the host (``data/host_degradations.py``).
 """
 
 from __future__ import annotations
@@ -53,11 +54,14 @@ from .imresize import imresize, jax_resize
 
 Params = Dict[str, Optional[torch.Tensor]]
 
-NOT_PORTED_ITEM = "ROADMAP Queue A 5.5, host-side OTF degradations"
+NOT_PORTED_ITEM = ("ROADMAP C 20: a host callback, which a CUDA graph "
+                   "cannot hold; otf_mode: host runs the real codec on the "
+                   "host")
 
 
 def not_ported(what: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported yet ({NOT_PORTED_ITEM})")
+    return NotImplementedError(
+        f"{what} does not run on the device ({NOT_PORTED_ITEM})")
 
 
 def _uniform(gen: torch.Generator, shape, lo: float = 0.0, hi: float = 1.0

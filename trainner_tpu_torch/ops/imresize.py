@@ -207,8 +207,10 @@ def _device_matrix(in_len: int, out_len: int, kernel: str, antialiasing: bool,
     key = (in_len, out_len, kernel, antialiasing, scale, str(device))
     mat = _device_matrices.get(key)
     if mat is None:
-        mat = torch.from_numpy(resize_matrix(
-            in_len, out_len, kernel, antialiasing, scale)).to(device)
+        # made outside inference mode, so that autograd may use it later
+        with torch.inference_mode(False):
+            mat = torch.from_numpy(resize_matrix(
+                in_len, out_len, kernel, antialiasing, scale)).to(device)
         _device_matrices[key] = mat
     return mat
 
@@ -322,9 +324,11 @@ def _jax_table(in_len: int, out_len: int, method: str, antialias: bool,
     key = (in_len, out_len, method, antialias, str(device))
     t = _jax_tables.get(key)
     if t is None:
-        t = torch.from_numpy(
-            _nearest_index(in_len, out_len) if method == "nearest" else
-            jax_resize_matrix(in_len, out_len, method, antialias)).to(device)
+        with torch.inference_mode(False):  # as in _device_matrix
+            t = torch.from_numpy(
+                _nearest_index(in_len, out_len) if method == "nearest" else
+                jax_resize_matrix(in_len, out_len, method, antialias)
+            ).to(device)
         _jax_tables[key] = t
     return t
 

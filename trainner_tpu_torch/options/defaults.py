@@ -5,8 +5,8 @@ Counterpart of ``trainner_tpu/options/defaults.py``: ``get_network_G_config``
 pixel-unshuffle wrapper's config of ``:169-180``), ``get_network_D_config``
 (``:219-280``) and ``get_network_defaults`` (``:283-309``). The generator
 types that the port builds are the SR generators ``rrdb_net``,
-``mrrdb_net`` and ``sr_resnet``; the JAX package's other types raise here
-and name their ROADMAP item. Every discriminator spec is parsed as the JAX
+``mrrdb_net``, ``sr_resnet``, ``ppon``, ``pan_net`` and ``a2n_net``; the
+JAX package's other types raise here and name their ROADMAP item. Every discriminator spec is parsed as the JAX
 package parses it; ``models/networks.py::define_D`` refuses the types the
 port does not build.
 """
@@ -25,12 +25,13 @@ _G_ALIASES = {
     "esrgan-mid": "rrdb_net",
     "mrrdb_net": "mrrdb_net", "mesrgan": "mrrdb_net",
     "sr_resnet": "sr_resnet", "srresnet": "sr_resnet", "srgan": "sr_resnet",
+    "ppon": "ppon", "pan_net": "pan_net", "pan": "pan_net",
+    "a2n_net": "a2n_net", "a2n": "a2n_net", "aan": "a2n_net",
 }
 
 # the JAX package's other generator aliases -> the ROADMAP item that ports
 # each (Queue A 10)
 _G_NOT_PORTED = {
-    "ppon": "10.2", "pan_net": "10.2", "pan": "10.2",
     "sft_arch": "10.3", "sft_net": "10.3",
     "unet_net": "10.4", "unet_128": "10.4", "unet_256": "10.4",
     "resnet_net": "10.4", "resnet_6blocks": "10.4", "resnet_9blocks": "10.4",
@@ -40,8 +41,7 @@ _G_NOT_PORTED = {
     "dvd_net": "10.6", "srflow_net": "10.6", "srflow": "10.6",
     "wbcunet": "10.6", "wbcunet_tf": "10.6", "wbcunet_net": "10.6",
     "seg_arch": "10.6", "seg": "10.6", "abpn_net": "10.6", "abpn": "10.6",
-    "asr_resnet": "10.6", "asr_cnn": "10.6", "a2n_net": "10.6",
-    "a2n": "10.6", "aan": "10.6",
+    "asr_resnet": "10.6", "asr_cnn": "10.6",
 }
 
 _SCALE = "__scale__"
@@ -57,6 +57,13 @@ _G_DEFAULTS: dict[str, dict[str, Any]] = {
                       norm_type=None, act_type="relu", mode="CNA",
                       upsample_mode="pixelshuffle", convtype="Conv2D",
                       finalact=None, res_scale=1),
+    "ppon": dict(in_nc=3, out_nc=3, nf=64, nb=24, upscale=_SCALE,
+                 act_type="leakyrelu"),
+    "pan_net": dict(in_nc=3, out_nc=3, nf=40, unf=24, nb=16, scale=_SCALE,
+                    self_attention=False, double_scpa=False,
+                    ups_inter_mode="nearest"),
+    "a2n_net": dict(in_nc=3, out_nc=3, nf=40, unf=24, nb=16, scale=_SCALE,
+                    mode="n"),
 }
 
 _G_ALIAS_OVERRIDES: dict[str, dict[str, Any]] = {
@@ -69,7 +76,7 @@ _G_ALIAS_OVERRIDES: dict[str, dict[str, Any]] = {
 # user key -> canonical key, or {canonical type: canonical key}
 _G_KEY_ALIASES = {
     "scale": {"rrdb_net": "upscale", "mrrdb_net": "upscale",
-              "sr_resnet": "upscale"},
+              "ppon": "upscale", "sr_resnet": "upscale"},
     "net_act": "act_type",
     "gaussian": "gaussian_noise",
 }

@@ -1,5 +1,6 @@
 """Inference and metrics CLI of the port: counterpart of the JAX package's
-``test.py`` for ``model: sr``, with its x8 self-ensemble
+``test.py`` for ``model: sr`` and ``model: ppon`` (the output of
+``ppon_phase``, 3 by default), with its x8 self-ensemble
 (``self_ensemble`` / ``x8``), tiled (``chop_forward`` / ``chop``) and plain
 ``eval_step`` branches, taken in that order as the JAX CLI takes them, and
 its CEM post-processing (``test.py:129-150``): with ``use_cem`` and
@@ -51,7 +52,13 @@ def _check_ported(opt) -> None:
     from .train.cli import _OTHER_MODELS
 
     model = (opt.get("model") or "sr").lower()
-    if model not in ("sr", "srgan", "srragan"):
+    if model == "ppon" and opt.get("use_cem") and \
+            (opt.get("cem_config") or {}).get("out_orig"):
+        raise NotImplementedError(
+            "CEM's out_orig with model [ppon]: PPON's eval_step takes no "
+            "apply_cem, so the JAX CLI raises a TypeError there "
+            "(ROADMAP C 20)")
+    if model not in ("sr", "srgan", "srragan", "ppon"):
         item = _OTHER_MODELS.get(model, "Queue A 10")
         raise NotImplementedError(
             f"model [{model}] inference is not ported yet (ROADMAP {item}, "

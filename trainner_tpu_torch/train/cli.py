@@ -2,7 +2,9 @@
 ``train.py`` (``parse_options:25``, ``dir_check:35``,
 ``configure_loggers:46``, ``get_resume_state:61``, ``get_dataloaders:82``,
 ``create_trainer:95``, ``validate:196``, ``fit:241``, ``main:395``) for
-``model: sr``.
+``model: sr`` (and its aliases) and ``model: ppon``
+(``ppon_trainer.PPONTrainer``; its validation reads the output of
+``ppon_phase``).
 
 The options file drives the whole run: the train loader, the on-device
 degradations (``make_otf_degradation``; the bsrgan presets shuffle the
@@ -57,7 +59,7 @@ from .sr_trainer import create_trainer as create_sr_trainer
 
 # the models of the JAX CLI that the port does not train yet -> their item
 _OTHER_MODELS = {
-    "ppon": "Queue A 10.2", "sftgan": "Queue A 10.3",
+    "sftgan": "Queue A 10.3",
     "sftgan_acd": "Queue A 10.3", "pix2pix": "Queue A 10.4",
     "cyclegan": "Queue A 10.4", "vsr": "Queue A 10.5",
     "vsrgan": "Queue A 10.5", "evsrgan": "Queue A 10.5",
@@ -137,8 +139,9 @@ def get_dataloaders(opt, pin_memory: bool = False):
 
 
 def create_trainer(opt, device: Union[str, torch.device, None] = None):
-    """The trainer of the options' ``model``: ``sr`` (and its aliases);
-    the other models of the JAX CLI raise with their ROADMAP item."""
+    """The trainer of the options' ``model``: ``sr`` (and its aliases) or
+    ``ppon``; the other models of the JAX CLI raise with their ROADMAP
+    item."""
     model = (opt.get("model") or "sr").lower()
     if model in _OTHER_MODELS:
         raise NotImplementedError(

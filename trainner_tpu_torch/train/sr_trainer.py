@@ -961,18 +961,23 @@ class _GraphedStep:
 
 def create_trainer(opt: dict, device: Union[str, torch.device, None] = None,
                    graphs: Optional[bool] = None) -> SRTrainer:
-    """Model-strategy factory for ``model: sr``. Training runs the network
+    """Model-strategy factory for ``model: sr`` (and its aliases) and
+    ``model: ppon`` (``ppon_trainer.PPONTrainer``). Training runs the network
     bodies in bf16 and inference in f32, unless ``use_amp`` says otherwise,
     as in the JAX package. Runs on ``cuda`` unless ``device`` names the
     CPU, and raises when no card is present. ``graphs`` (default: on for
     ``cuda``) runs the step and ``eval_step`` as CUDA graphs; ``False``
     runs them eagerly, to compare the two."""
     model = (opt.get("model") or "sr").lower()
-    if model not in ("sr", "srgan", "srragan"):
+    if model not in ("sr", "srgan", "srragan", "ppon"):
         raise NotImplementedError(
-            f"model [{model}] is not ported yet (ROADMAP Queue A 10.2-10.6, "
+            f"model [{model}] is not ported yet (ROADMAP Queue A 10.3-10.6, "
             "the other models)")
     amp_default = bool(opt.get("is_train", True))
     dtype = torch.bfloat16 if opt.get("use_amp", amp_default) \
         else torch.float32
+    if model == "ppon":
+        from .ppon_trainer import PPONTrainer
+
+        return PPONTrainer(opt, dtype=dtype, device=device, graphs=graphs)
     return SRTrainer(opt, dtype=dtype, device=device, graphs=graphs)

@@ -1,6 +1,7 @@
 """Weights and training state for the port's networks, in both directions
 between the port and the JAX package's flax trees (the generators
-``RRDBNet``, ``MRRDBNet`` and ``SRResNet`` with their norms, PReLU slopes,
+``RRDBNet``, ``MRRDBNet``, ``SRResNet``, ``PPON``, ``PAN`` (its
+self-attention's ``gamma`` too) and ``AAN``, with their norms, PReLU slopes,
 partial convs, ESRGAN+ ``conv1x1`` and a batch norm's ``batch_stats``, by
 ``g_to_jax`` / ``g_from_jax``; ``DiscriminatorVGG`` with its
 ``batch_stats``, spectral norms included,
@@ -137,19 +138,29 @@ def g_flax_paths(net: torch.nn.Module) -> Dict[str, Tuple[str, tuple]]:
         act (prelu)                -> PReLU_0/negative_slope
       UpconvBlock, PixelShuffleBlock -> ConvBlock_0/Conv_0/{kernel,bias},
                                       a PReLU at PReLU_0
-      a bare conv (``conv1x1``)    -> kernel
+      a bare conv (``conv1x1``,
+        ``blocks.Conv``)           -> kernel, bias
+      ``blocks.Dense``             -> kernel (transposed)
+      ``SelfAttentionBlock.gamma`` -> gamma
 
     (flax's GroupNorm, the instance norm, holds nothing.)"""
-    from ..ops.blocks import (BatchNorm, ConvBlock, LayerNorm, PReLU,
-                              PixelShuffleBlock, UpconvBlock, _Conv)
+    from ..ops.blocks import (BatchNorm, ConvBlock, Dense, LayerNorm, PReLU,
+                              PixelShuffleBlock, SelfAttentionBlock,
+                              UpconvBlock, _Conv)
 
     arch = type(net).__name__
     out: Dict[str, Tuple[str, tuple]] = {}
     for name, m in net.named_modules():
-        if not isinstance(m, _Conv):
+        if not isinstance(m, (_Conv, Dense, SelfAttentionBlock)):
             continue
         base = _flax_module_path(arch, name)
         pre = f"{name}." if name else ""
+        if isinstance(m, Dense):
+            out[pre + "weight"] = ("params", base + ("kernel",))
+            continue
+        if isinstance(m, SelfAttentionBlock):
+            out[pre + "gamma"] = ("params", base + ("gamma",))
+            continue
         if isinstance(m, ConvBlock):
             conv = ("PartialConv_0", "conv") if m.partial else ("Conv_0",)
             out[pre + "weight"] = ("params", base + conv + ("kernel",))
@@ -197,9 +208,25 @@ def g_to_jax(sd: Mapping[str, torch.Tensor], net: torch.nn.Module
         node = trees[coll]
         for p in path[:-1]:
             node = node.setdefault(p, {})
-        node[path[-1]] = oihw_to_hwio(t) if path[-1] == "kernel" \
+        node[path[-1]] = _kernel_to_jax(t) if path[-1] == "kernel" \
             else _np(t)
     return trees["params"], trees["batch_stats"]
+
+
+def _kernel_to_jax(t: torch.Tensor) -> np.ndarray:
+    """A conv's OIHW weight -> HWIO, a dense layer's (out, in) -> (in,
+    out)."""
+    if t.dim() == 2:
+        return np.ascontiguousarray(t.detach().float().cpu().numpy().T)
+    return oihw_to_hwio(t)
+
+
+def _kernel_from_jax(a) -> torch.Tensor:
+    """The inverse of ``_kernel_to_jax``."""
+    a = np.asarray(a, np.float32)
+    if a.ndim == 2:
+        return torch.from_numpy(np.ascontiguousarray(a.T))
+    return torch.from_numpy(hwio_to_oihw(a))
 
 
 def g_from_jax(params: Mapping[str, Any],
@@ -227,8 +254,8 @@ def g_from_jax(params: Mapping[str, Any],
             continue
         for p in path:
             node = node[p]
-        sd[key] = torch.from_numpy(hwio_to_oihw(np.asarray(
-            node, np.float32))) if path[-1] == "kernel" else _f32(node)
+        sd[key] = _kernel_from_jax(node) if path[-1] == "kernel" \
+            else _f32(node)
     return sd
 
 
