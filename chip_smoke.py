@@ -95,7 +95,7 @@ non-zero exit code and no result line:
    resume into a captured state, bit for bit; ``train_steps`` k = 10 with
    a MultiStep boundary inside the window; the degrader from one
    generator state and plan stream; ``eval_step`` at b = 8 in f32 and
-   bf16, x8 and chop on a 300 x 200 image (replaying their graphs)
+   bf16, x8 and chop on a 136 x 128 image (replaying their graphs)
    against the CPU's eager composition; and eager against graphed times
    of each with the device-busy ms and idle share, the captures' seconds
    and pool memory, the test CLI's seconds per image on a test set of one
@@ -212,6 +212,19 @@ non-zero exit code and no result line:
    each; one f32 step per phase at cut depth (nb 1) on the card, the CPU
    and an f64 witness; PAN through the ``sr`` training CLI (12 and a
    resume to 16); the three models' serving Mpx/s at b=8, 128 -> 512 px.
+20. i2i and sft (after phase 19): SFTGAN (``options/sr/train_sftgan.json``),
+   pix2pix (``options/i2i/train_pix2pix.yml``, ``serial_batches``) and
+   CycleGAN (``options/i2i/train_cyclegan.yml``) at full width on seeded
+   data (A: 16 corpus images; B: a second 1/f corpus; SFTGAN's seeded
+   probability maps as ``.npy``): each training CLI for 12 iterations
+   (sample grids at 6 and 12 for the i2i cells) and a resume to 16 whose
+   loaded state equals the saved one, its G served by the test CLI,
+   three steps graphed against eager bit for bit (dropout masks and pool
+   swaps included), one f32 SGD step at cut depth on the card, the CPU
+   and an f64 witness replaying each side's branches of every net; the
+   Gs' forward Mpx/s (SFTNet at b=8, 128 -> 512 px; the U-Net and ResNet
+   G at b=1, 256 px); the multiscale and pixel Ds' forward and backward
+   card against CPU. No kernel of the repo runs in these nets.
 
 Launches: the kernel wrappers count where they put a kernel on a stream,
 eagerly or into a graph being captured (a replay runs no Python). What the
@@ -229,7 +242,7 @@ The second-to-last lines are a JSON summary of the kernels and the card's
 ``{"ok": true, "device": {...}}``.
 
 Usage: python3 chip_smoke.py [--parent DIR]
-       python3 chip_smoke.py --only 18,19   (phase 18 and/or 19 alone,
+       python3 chip_smoke.py --only 18,19,20   (any of phases 18-20 alone,
            after the build and the corpus; no result line)
        python3 chip_smoke.py --kernels-only [--parent DIR]   (phases 1-3
            and the kernels' part of 10: a short run while a kernel is
@@ -2596,18 +2609,32 @@ def phase_trace(smi: str, root: str, step_ms: dict) -> None:
 # ---------------------------------------------------------------------------
 
 GRAPH_STEPS = 3     # graphed against eager steps, per type
+# the order of eager (False) and graphed (True) runs that a phase times:
+# one turn each (eager, graphed), where four turns ran before (eager,
+# graphed, graphed, eager)
+TURNS = (False, True)
 WINDOW_K = 10       # train_steps' window, as bench.py times it
 WINDOW_BOUNDARY = 5  # a MultiStep boundary inside the window
 EMA_MOVE_TOL = 1e-2  # bf16 graph against eager: the EMA weights' moves
-X8_CHOP_LR = (1, 300, 200, 3)
+X8_CHOP_LR = (1, 136, 128, 3)
+
+
+NET_STATES = ("g", "d", "d_a", "d_b")  # CycleGAN's state has two Ds
+
+
+def _net_states(state) -> list:
+    """(name, NetState) of each trained net a state holds: G and D, or
+    CycleGAN's G (both Gs) and its two Ds."""
+    return [(w, getattr(state, w)) for w in NET_STATES
+            if getattr(state, w, None) is not None]
 
 
 def _net_tensors(state) -> dict:
-    """G's and D's state_dicts (``g.``, ``d.``) and the EMA weights
-    (``e.``), cloned."""
+    """Each net's state_dict (``g.``, ``d.``, ``d_a.``, ``d_b.``) and the
+    EMA weights (``e.``), cloned."""
     out = {f"{w}.{k}": v.detach().clone()
-           for w in ("g", "d") for k, v in
-           getattr(state, w).net.state_dict().items()}
+           for w, ns in _net_states(state) for k, v in
+           ns.net.state_dict().items()}
     out.update({f"e.{k}": v.detach().clone()
                 for k, v in (state.ema_params or {}).items()})
     return out
@@ -2624,7 +2651,7 @@ def _bit_equality(logs_a, logs_b, state_a, state_b) -> str:
                for k in b)
     nets_a, nets_b = _net_tensors(state_a), _net_tensors(state_b)
     nets = sum(torch.equal(nets_a[k], nets_b[k]) for k in nets_b)
-    moments = [torch.equal(x, y) for w in ("g", "d")
+    moments = [torch.equal(x, y) for w, _ in _net_states(state_a)
                for key, ts in getattr(state_a, w).opt.state_dict().items()
                if key != "count"
                for x, y in zip(ts, getattr(state_b, w).opt.state_dict()[key])]
@@ -2776,9 +2803,9 @@ def _graph_step(smi: str, options=None, types=(True, False),
         if cap.launches != want or traced != want:
             raise AssertionError(f"graphs: {name} step launches "
                                  f"{cap.launches}, traced {traced}")
-        # times: 10 steps each, in turns (eager, graphed, graphed, eager)
+        # times: 10 steps each, in turns (eager, graphed)
         ms = {}
-        for graphs in (False, True, True, False):
+        for graphs in TURNS:
             tr, st = runs[graphs][:2]
             torch.cuda.synchronize()
             t0 = time.perf_counter()
@@ -2790,7 +2817,7 @@ def _graph_step(smi: str, options=None, types=(True, False),
         lr_px, hr_px = batches[1]["LR"].shape[1], batches[1]["HR"].shape[1]
         print(f"times: train_step {name} b={batches[1]['LR'].shape[0]} "
               f"{lr_px}->{hr_px} px, ms per step over "
-              f"10 (eager, graphed, graphed, eager): eager {ms[False]}, "
+              f"10 (eager, graphed): eager {ms[False]}, "
               f"graphed {ms[True]}; it/s eager {1e3 / min(ms[False]):.4f}, "
               f"graphed {1e3 / min(ms[True]):.4f} ({smi})")
         for graphs in (True, False):
@@ -2946,9 +2973,7 @@ def _graph_window(smi: str) -> dict:
     # times: a second window each, in turns
     times = {}
     for label, tr, st in (("eager", eager, estate), ("graphed", trainer,
-                                                      state),
-                          ("graphed", trainer, state),
-                          ("eager", eager, estate)):
+                                                      state)):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         st, lg = tr.train_steps(st, batches)
@@ -2956,7 +2981,7 @@ def _graph_window(smi: str) -> dict:
         ms = (time.perf_counter() - t0) * 1e3 / WINDOW_K
         times.setdefault(label, []).append(ms)
     print(f"times: train_steps k={WINDOW_K} b={b} {px}->{px * 4} px bf16, "
-          f"ms per step over a window (eager, graphed, graphed, eager): "
+          f"ms per step over a window (eager, graphed): "
           f"eager {times['eager']}, graphed {times['graphed']}; it/s "
           f"eager {1e3 / min(times['eager']):.4f}, graphed "
           f"{1e3 / min(times['graphed']):.4f} ({smi})")
@@ -3113,7 +3138,7 @@ def _graph_e2e(smi: str, root: str, programs=None) -> dict:
         ms = {}
         for graphs in (False, True):
             run(pair[graphs], 3)
-        for graphs in (False, True, True, False):
+        for graphs in TURNS:
             t0 = time.perf_counter()
             logs = run(pair[graphs], 10)
             ms.setdefault(graphs, []).append(
@@ -3122,7 +3147,7 @@ def _graph_e2e(smi: str, root: str, programs=None) -> dict:
                 raise AssertionError(f"graphs: e2e {label} logs")
         print(f"times: train_e2e bfloat16 b={TRAIN_SHAPE[0]} "
               f"{TRAIN_SHAPE[1]}->{TRAIN_SHAPE[1] * 4} px, {label}, ms per "
-              f"step over 10 (eager, graphed, graphed, eager): eager "
+              f"step over 10 (eager, graphed): eager "
               f"{ms[False]}, graphed {ms[True]}; it/s eager "
               f"{1e3 / min(ms[False]):.4f}, graphed "
               f"{1e3 / min(ms[True]):.4f} ({smi})")
@@ -3139,7 +3164,7 @@ def _graph_e2e(smi: str, root: str, programs=None) -> dict:
 def _graph_serving(smi: str) -> None:
     """``eval_step`` as a graph against the eager one at b = 8, 128 -> 512
     px (f32 within 1e-5 and bf16 within 3e-2 of the output's size, the
-    full-G tolerances; times in turns); then x8 and chop on one 300 x 200
+    full-G tolerances; times in turns); then x8 and chop on one 136 x 128
     LR image in f32 on the card against the eager ``eval_step`` over the
     same rotations and tiles on the CPU with the same weights (the plain
     versions), within the full-G f32 tolerance."""
@@ -3182,12 +3207,12 @@ def _graph_serving(smi: str) -> None:
                 or cap.replays != 2:
             raise AssertionError(f"graphs: eval_step {name}")
         ms = {}
-        for graphs in (False, True, True, False):
+        for graphs in TURNS:
             tr, st = pair[graphs]
             ms.setdefault(graphs, []).append(
                 _time_ms(lambda: tr.eval_step(st, lr), iters=10, warmup=2))
         print(f"times: G forward {name} b={b} {h}->{h * 4} px through "
-              f"eval_step (eager, graphed, graphed, eager): eager "
+              f"eval_step (eager, graphed): eager "
               f"{ms[False]} ms, graphed {ms[True]} ms; "
               f"{b * h * w * 16 / min(ms[True]) / 1e3:.3f} Mpx/s graphed "
               f"({smi})")
@@ -3212,7 +3237,7 @@ def _graph_serving(smi: str) -> None:
     torch.set_num_threads(os.cpu_count() or 8)
     try:
         # x8 meets each of its two shapes four times a call, chop its one
-        # chunk of six tiles once: the last call replays graphs of them
+        # chunk of two tiles once: the last call replays graphs of them
         for label, run, calls in (
                 ("x8", lambda t, s, v: t.eval_step_x8(s, v),
                  tr.EVAL_CAPTURE_AT // 4 + 1),
@@ -3235,8 +3260,9 @@ def _graph_serving(smi: str) -> None:
                   f"composition ({cpu_s:.1f} s there): max_abs_err "
                   f"{err:.3e} on max|ref| {scale:.3e}, tol "
                   f"{1e-5 * scale:.3e}")
-            want_shapes = ([(1, 200, 300, 3), (1, 300, 200, 3)] if label
-                           == "x8" else [(6, 128, 128, 3)])
+            _, lh, lw, _ = X8_CHOP_LR
+            want_shapes = (sorted([(1, lh, lw, 3), (1, lw, lh, 3)])
+                           if label == "x8" else [(2, 128, 128, 3)])
             if tuple(got.shape) != (1, X8_CHOP_LR[1] * 4, X8_CHOP_LR[2] * 4,
                                     3) or not err <= 1e-5 * scale \
                     or replayed != want_shapes:
@@ -3286,7 +3312,7 @@ def _graph_mixed_sizes(smi: str, root: str) -> None:
                                   for x8 in (False, True)):
         label = "x8" if x8 else "plain"
         runs = {}
-        for n, graphs in enumerate((False, True, True, False)):
+        for n, graphs in enumerate(TURNS):
             name = f"sizes_{ds['name']}_{label}_{n}"
             path = _options(root, name=name, x8=x8,
                             datasets={"test_1": ds})
@@ -4135,16 +4161,16 @@ def _f64_trainer(opt: dict):
     state = trainer.init_state(0)
     trainer.dtype = torch.float64
     loc = state.loc.net if state.loc is not None else None
-    for net in (state.g.net, state.d.net, trainer.generator_loss, loc,
-                state.swa):
+    for net in [ns.net for _, ns in _net_states(state)] + [
+            trainer.generator_loss, loc, state.swa]:
         if net is None:
             continue
         net.double()
         for m in net.modules():
             if isinstance(getattr(m, "dtype", None), torch.dtype):
                 m.dtype = torch.float64
-    state.g.opt = trainer._optimizer(state.g.net, "G")
-    state.d.opt = trainer._optimizer(state.d.net, "D")
+    for w, ns in _net_states(state):
+        ns.opt = trainer._optimizer(ns.net, "G" if w == "g" else "D")
     if loc is not None:
         state.loc.opt = trainer._optimizer(loc, "G")
     if state.grad_hist is not None:
@@ -4212,8 +4238,8 @@ def _load_from(dst, src) -> None:
     captured on ``dst`` stays valid."""
     import torch
 
-    for w in ("g", "d", "loc"):
-        a, b = getattr(dst, w), getattr(src, w)
+    for w in NET_STATES + ("loc",):
+        a, b = getattr(dst, w, None), getattr(src, w, None)
         if a is None:
             continue
         a.net.load_state_dict(b.net.state_dict())
@@ -4241,12 +4267,14 @@ def _train_tensors(state) -> dict:
     return out
 
 
-def _d_branches(net, replay=None):
-    """``_Branches`` over the forward passes of D (``net``) alone, entered
-    by a forward pre-hook and left by a forward hook: D runs the same
-    Python on every side, where G's blocks take their LeakyReLU inside
-    the kernels on the card. Returns the ``_Branches`` and a function that
-    removes the hooks."""
+def _d_branches(nets, replay=None):
+    """``_Branches`` over the forward passes of D alone (``nets``: one
+    module or several, each D of CycleGAN's, or also G and the loss stack
+    where no kernel hides G's LeakyReLUs: ``branches="all"`` of
+    ``_steps_card_cpu_f64``), entered by a forward pre-hook and left by a
+    forward hook: D runs the same Python on every side, where G's blocks
+    take their LeakyReLU inside the kernels on the card. Returns the
+    ``_Branches`` and a function that removes the hooks."""
     branches = _Branches(replay)
 
     def enter(module, args):
@@ -4255,8 +4283,10 @@ def _d_branches(net, replay=None):
     def leave(module, args, out):
         branches.__exit__(None, None, None)
 
-    hooks = [net.register_forward_pre_hook(enter),
-             net.register_forward_hook(leave)]
+    hooks = []
+    for net in nets if isinstance(nets, (list, tuple)) else [nets]:
+        hooks += [net.register_forward_pre_hook(enter),
+                  net.register_forward_hook(leave)]
     return branches, lambda: [h.remove() for h in hooks]
 
 
@@ -4273,7 +4303,9 @@ def _steps_card_cpu_f64(label: str, opt: dict, batches, graphs: int = 1,
     CPU run record D's branches (``_d_branches``), and each side has its
     own witness, which replays them: the card's distance from it is
     rounding alone, where a LeakyReLU that rounding flips on one side would
-    move D's gradients by that element's whole share. Returns per tensor
+    move D's gradients by that element's whole share. ``branches="all"``
+    records G's (each of CycleGAN's two) and the loss stack's branches
+    too, for nets whose ReLUs no kernel hides. Returns per tensor
     (``g.``/``d.``/``l.``/``s.``) the largest, over the steps, of each
     side's distance from its witness rounded to f32 (card against CPU:
     their own distance) as a share of the tensor's move in its witness's
@@ -4328,10 +4360,15 @@ def _steps_card_cpu_f64(label: str, opt: dict, batches, graphs: int = 1,
             start = {k: v.double() for k, v in _train_tensors(cpu).items()}
             logs, records = {}, {}
             for side in order:
-                d_net = states[side].d.net if states[side].d else None
+                d_nets = [m for w, ns in _net_states(states[side])
+                          if w != "g" or branches == "all"
+                          for m in (ns.net.values() if hasattr(
+                              ns.net, "values") else [ns.net])]
+                if branches == "all":
+                    d_nets.append(trainers[side].generator_loss)
                 rec = None
-                if branches and d_net is not None and side != "cuda":
-                    rec, remove = _d_branches(d_net, records.get(
+                if branches and d_nets and side != "cuda":
+                    rec, remove = _d_branches(d_nets, records.get(
                         replays.get(side)))
                 try:
                     if side.startswith("f64"):
@@ -5273,7 +5310,7 @@ def _loss_stack_step_times(smi: str, vgg: str) -> None:
         runs[name] = (tr, st, torch.cuda.max_memory_allocated() - base,
                       next(iter(tr.step_graphs().values())))
     ms = {}
-    for name in ("flagship", "loss stack", "loss stack", "flagship"):
+    for name in ("flagship", "loss stack"):
         tr, st = runs[name][:2]
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -5286,7 +5323,7 @@ def _loss_stack_step_times(smi: str, vgg: str) -> None:
         calls, busy[name], wall = _kernel_calls(
             lambda: tr.train_step(st, batch))
         print(f"times: {name} step graphed, bf16, b=32 32->128 px: ms per "
-              f"step over 10 in turns (flagship, stack, stack, flagship) "
+              f"step over 10 in turns (flagship, stack) "
               f"{ms[name]}, it/s {1e3 / min(ms[name]):.4f}; one replay "
               f"traced: device busy {busy[name]:.3f} ms in "
               f"{sum(calls.values())} kernels, wall {wall:.3f} ms; peak "
@@ -5377,7 +5414,7 @@ OPT_CROP = 112  # AdaTarget with D-VGG: a crop of a multiple of 7 x scale
 OPT_CLI_CROP = 224
 OPT_ATG_START, OPT_SWA_START = 4, 6
 OPT_GRAPH_STEPS = 8   # graphed against eager, across both starts
-OPT_TIME_STEPS = 5    # steps per turn in the option times
+OPT_TIME_STEPS = 3    # steps per turn in the option times
 OPT_F64_TOL = 4.0     # card's distance from its witness over the CPU's
 # ... or this share of a tensor's move: each side's witness takes that
 # side's branches of D, so what is left between them is rounding
@@ -5483,7 +5520,7 @@ def _options_card_cpu(smi: str) -> None:
     # (label, options, steps, crop, batch augmentation choices, graphs)
     configs = [(f"optimizer {o}", _small_options(
         optim_G=o, optim_D=o, lr_G=1e-4 if o in ADAPTIVE else 1e-2,
-        lr_D=1e-4 if o in ADAPTIVE else 1e-2), 3, 32, None, 1)
+        lr_D=1e-4 if o in ADAPTIVE else 1e-2), 2, 32, None, 1)
         for o in ("rmsprop", "adamp", "sgdp", "ranger", "madgrad")]
     configs += [
         # steps 0 and 2 update G, step 1 does not: two programs
@@ -5702,9 +5739,8 @@ def _options_times(smi: str) -> None:
     each optimizer (G and D), ``grad_clip: auto`` and a virtual batch of 2
     against the flagship (Adam), and the options cell (at its 112 px
     crop, in AdaTarget's program with SWA's update) against it:
-    ``OPT_TIME_STEPS`` steps each in turns (flagship, other, other,
-    flagship) after three warm-up steps, by CUDA events on the card's
-    clock."""
+    ``OPT_TIME_STEPS`` steps each in turns (flagship, other) after three
+    warm-up steps, by CUDA events on the card's clock."""
     import torch
 
     from trainner_tpu_torch.train.sr_trainer import create_trainer
@@ -5742,7 +5778,7 @@ def _options_times(smi: str) -> None:
     for label, options, b in others:
         other = warm(options, b)
         ms = {"flagship": [], label: []}
-        for which in ("flagship", label, label, "flagship"):
+        for which in ("flagship", label):
             tr, st = flag if which == "flagship" else other
             ms[which].append(timed(tr, st, batch if which == "flagship"
                                    else b))
@@ -6397,6 +6433,593 @@ def phase_models(smi: str, root: str) -> dict:
     return traces
 
 
+# ---------------------------------------------------------------------------
+# phase 20: SFTGAN, pix2pix and CycleGAN at full width
+# ---------------------------------------------------------------------------
+
+SFT_JSON = os.path.join(OPTIONS_DIR, "train_sftgan.json")
+I2I_DIR = os.path.join(os.path.dirname(OPTIONS_DIR), "i2i")
+I2I_CELLS = ("sftgan", "pix2pix", "cyclegan")
+I2I_N = 16            # images of each cell's train set (with seg maps)
+I2I_GRAPH_STEPS = 3   # graphed against eager: a capture and two replays
+I2I_FILES = {"sftgan": ("G", "D"), "pix2pix": ("G", "D"),
+             "cyclegan": ("G_A", "G_B", "D_A", "D_B")}
+I2I_SERVED = {"sftgan": "G", "pix2pix": "G", "cyclegan": "G_A"}
+# one f32 SGD step against an f64 witness that replays each side's
+# branches of every net and of the loss stack (_steps_card_cpu_f64 with
+# branches="all"): each tensor of the card no further from its witness
+# than I2I_F64_TOL times the CPU f32's largest distance in the same net,
+# or I2I_F64_FLOOR of its move, or I2I_F64_ABS outright: two f32 ulps at
+# 1, the size of a batch norm's scale, whose SGD move can be a few
+# hundred ulps (the witness is read rounded once to f32, the card's
+# update rounds once more)
+I2I_F64_TOL = 2.0
+I2I_F64_FLOOR = 1e-4
+I2I_F64_ABS = 2.5e-7
+
+
+def _i2i_data(root: str) -> dict:
+    """The cells' data from seeds: A, the first ``I2I_N`` images of the
+    corpus; B, a second 1/f corpus (seed 1); SFTGAN's (h, w, 8)
+    probability maps of A's images as ``.npy`` files (seed 2); a
+    validation set of ``N_VAL`` of A's images with their maps."""
+    import shutil
+
+    import numpy as np
+
+    corpus = os.path.join(root, "corpus")
+    names = sorted(os.listdir(corpus))[:I2I_N]
+    out = {k: os.path.join(root, f"i2i_{k}")
+           for k in ("A", "B", "seg", "val", "val_seg")}
+    for d in out.values():
+        os.makedirs(d, exist_ok=True)
+    _write_corpus(out["B"], n=I2I_N, seed=1)
+    rng = np.random.default_rng(2)
+    for i, name in enumerate(names):
+        shutil.copy(os.path.join(corpus, name), out["A"])
+        p = rng.random((CORPUS_PX, CORPUS_PX, 8), dtype=np.float32)
+        p /= p.sum(-1, keepdims=True)
+        stem = os.path.splitext(name)[0]
+        np.save(os.path.join(out["seg"], stem + ".npy"), p)
+        if i < N_VAL:
+            shutil.copy(os.path.join(corpus, name), out["val"])
+            np.save(os.path.join(out["val_seg"], stem + ".npy"), p)
+    return out
+
+
+def _i2i_options(root: str, data: dict, cell: str,
+                 niter: int = CLI_NITER) -> dict:
+    """The cell's template as written (``options/sr/train_sftgan.json``,
+    ``options/i2i/train_{cell}.yml``) with its data roots on ``data``
+    (pix2pix's ``unaligned`` with ``serial_batches``), ``niter``, prints
+    every 2, saves at ``CLI_NITER`` (and the end), the i2i sample grids
+    and SFTGAN's validation every ``CLI_FREQ``, and ``path.root`` under
+    ``root``; the name without the template's ``debug`` prefix."""
+    from trainner_tpu_torch.options.config import load_file
+
+    if cell == "sftgan":
+        opt = load_file(SFT_JSON)
+        opt["datasets"]["train"].update(dataroot_HR=data["A"],
+                                        dataroot_seg=data["seg"],
+                                        n_workers=4)
+        opt["datasets"]["val"].update(dataroot_HR=data["val"],
+                                      dataroot_seg=data["val_seg"])
+        opt["train"]["val_freq"] = CLI_FREQ
+        logger = {}
+    else:
+        opt = read_options_yml(os.path.join(I2I_DIR, f"train_{cell}.yml"))
+        opt["datasets"]["train"].update(dataroot_A=data["A"],
+                                        dataroot_B=data["B"], n_workers=2)
+        if cell == "pix2pix":
+            opt["datasets"]["train"]["serial_batches"] = True
+        logger = {"display_freq": CLI_FREQ}
+    opt["name"] = f"{cell}_cell"
+    opt["train"]["niter"] = niter
+    opt["logger"] = {"print_freq": 2, "save_checkpoint_freq": CLI_NITER,
+                     **logger}
+    opt["path"] = {"root": os.path.join(root, f"cli_{cell}")}
+    return opt
+
+
+def _cell_tensors(state) -> dict:
+    """The step and every net's state_dict and optimizer state, on the
+    host."""
+    out = {"step": state.step}
+    for w, ns in _net_states(state):
+        for k, v in ns.net.state_dict().items():
+            out[f"{w}.{k}"] = v.detach().cpu().clone()
+        for key, v in ns.opt.state_dict().items():
+            if isinstance(v, int):
+                out[f"{w}.{key}"] = v
+            else:
+                for i, t in enumerate(v):
+                    out[f"{w}.{key}.{i}"] = t.detach().cpu().clone()
+    return out
+
+
+def _i2i_cli(smi: str, root: str, data: dict, cell: str) -> dict:
+    """The training CLI on the cell's template at full width for
+    ``CLI_NITER`` iterations under a launch trace (no kernel of the repo
+    may run), checkpoints at 12 (the cell's net files and ``.state``),
+    SFTGAN's validation at 6 and 12, the i2i sample grids at 6 and 12
+    (A | G(A) | B, 256 x 768); then a resume to ``CLI_RESUME_NITER`` whose
+    loaded state equals the saved one bit for bit. Prints the steady it/s
+    (steps 3-12, the saves, validations and grids taken out) and returns
+    the trace."""
+    import torch
+
+    from trainner_tpu_torch.data.common import read_png
+    from trainner_tpu_torch.train import cli
+    from trainner_tpu_torch.train.cyclegan_trainer import CycleGANTrainer
+    from trainner_tpu_torch.train.pix2pix_trainer import Pix2PixTrainer
+    from trainner_tpu_torch.train.sftgan_trainer import SFTGANTrainer
+    from trainner_tpu_torch.utils import checkpoint
+
+    opt = _i2i_options(root, data, cell)
+    path = os.path.join(root, f"{cell}_cli.json")
+    with open(path, "w") as f:
+        json.dump(opt, f)
+    exp = os.path.join(opt["path"]["root"], "experiments", opt["name"])
+    cls = {"sftgan": SFTGANTrainer, "pix2pix": Pix2PixTrainer,
+           "cyclegan": CycleGANTrainer}[cell]
+    rec = {"steps": [], "other": []}
+    orig = (cls.train_step, checkpoint.save_checkpoint, cli.validate,
+            cli.save_sample_grid, checkpoint.load_state)
+
+    def train_step(self, state, batch):
+        out = orig[0](self, state, batch)
+        rec["steps"].append(time.perf_counter())
+        return out
+
+    def timed(fn):
+        def run(*args, **kwargs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            rec["other"].append((t0, time.perf_counter() - t0))
+            return out
+        return run
+
+    def load_state(p, state):
+        state, meta = orig[4](p, state)
+        rec["loaded"] = (meta, _cell_tensors(state))
+        return state, meta
+
+    cls.train_step = train_step
+    checkpoint.save_checkpoint = timed(orig[1])
+    cli.validate = timed(orig[2])
+    cli.save_sample_grid = timed(orig[3])
+    checkpoint.load_state = load_state
+    try:
+        t0 = time.perf_counter()
+        with _launch_trace({}, label=f"{cell} cli") as trace:
+            state = cli.main(["-opt", path])
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        steps = list(rec["steps"])
+        saved = _cell_tensors(state)
+        del state
+        torch.cuda.empty_cache()
+        opt["train"]["niter"] = CLI_RESUME_NITER
+        opt["path"]["resume_state"] = os.path.join(exp, "training_state")
+        with open(path, "w") as f:
+            json.dump(opt, f)
+        t1 = time.perf_counter()
+        state2 = cli.main(["-opt", path])
+        wall2 = time.perf_counter() - t1
+    finally:
+        (cls.train_step, checkpoint.save_checkpoint, cli.validate,
+         cli.save_sample_grid, checkpoint.load_state) = orig
+    span = steps[-1] - steps[2]
+    inside = sum(d for t, d in rec["other"] if steps[2] <= t < steps[-1])
+    n = len(steps) - 3
+    meta, loaded = rec["loaded"]
+    diff = [k for k in saved if not (
+        torch.equal(saved[k], loaded[k]) if isinstance(saved[k],
+                                                       torch.Tensor)
+        else saved[k] == loaded[k])]
+    files = {os.path.relpath(os.path.join(d, f), exp)
+             for d, _, fs in os.walk(exp) for f in fs}
+    need = {f"models/{t}_{n_}.ckpt" for t in (CLI_NITER, CLI_RESUME_NITER)
+            for n_ in I2I_FILES[cell]} | {
+        f"training_state/{t}.state" for t in (CLI_NITER,
+                                              CLI_RESUME_NITER)}
+    grids = []
+    if cell != "sftgan":
+        need |= {f"samples/{t:08d}.png" for t in (CLI_FREQ, CLI_NITER)}
+        grids = [read_png(os.path.join(exp, "samples", f"{t:08d}.png")
+                         ).shape for t in (CLI_FREQ, CLI_NITER)]
+    else:
+        need |= {f"val_images/{os.path.splitext(v)[0]}/"
+                 f"{os.path.splitext(v)[0]}_{CLI_NITER}.png"
+                 for v in os.listdir(data["val"])}
+    rows = [json.loads(line) for line in
+            open(os.path.join(exp, "tb", "scalars.jsonl"))]
+    print(f"i2i: {cell} CLI ({opt['network_G']}, D {opt['network_D']}; "
+          f"batch {opt['datasets']['train']['batch_size']}, crop "
+          f"{opt['datasets']['train']['crop_size']}) {CLI_NITER} iterations "
+          f"in {wall:.1f} s (traced; the card ran {trace['ran']}), the "
+          f"resume to {state2.step} in {wall2:.1f} s: {len(saved)} tensors "
+          f"and counts of the saved state, {len(diff)} differ after "
+          f"loading; {len(rows)} JSONL scalars; sample grids {grids}")
+    print(f"times: {cell} CLI steps 3-{CLI_NITER} on the host clock: "
+          f"{n / (span - inside):.4f} it/s steady, {n / span:.4f} it/s "
+          f"with the saves, validations and grids ({smi})")
+    if diff or meta["iter"] != CLI_NITER or state2.step != \
+            CLI_RESUME_NITER or need - files or any(
+                g != (256, 768, 3) for g in grids) or not all(
+                    math.isfinite(r["value"]) for r in rows):
+        raise AssertionError(f"i2i {cell} cli: differs {diff[:4]}, missing "
+                             f"{sorted(need - files)[:4]}, grids {grids}")
+    del state2
+    torch.cuda.empty_cache()
+    return trace
+
+
+def _i2i_serve(smi: str, root: str, data: dict, cell: str) -> None:
+    """The test CLI on the cell's G of ``CLI_RESUME_NITER``: SFTGAN with a
+    ``seg`` dataset's maps (PSNR against the HR), pix2pix's G and
+    CycleGAN's G_A from a ``single`` dataset; one PNG per image."""
+    from trainner_tpu_torch import test as test_cli
+
+    opt = _i2i_options(root, data, cell)
+    exp = os.path.join(opt["path"]["root"], "experiments", opt["name"])
+    ds = {"name": "val", "mode": "LRHRseg_bg", "dataroot_HR": data["val"],
+          "dataroot_seg": data["val_seg"]} if cell == "sftgan" else {
+        "name": "val", "mode": "single", "dataroot_LR": data["val"]}
+    serve = {"name": f"serve_{cell}", "model": cell,
+             "scale": opt.get("scale", 1), "datasets": {"test_1": ds},
+             "network_G": opt["network_G"],
+             "path": {"root": os.path.join(root, f"serve_{cell}"),
+                      "pretrain_model_G": os.path.join(
+                          exp, "models", f"{CLI_RESUME_NITER}_"
+                          f"{I2I_SERVED[cell]}.ckpt")}}
+    path = os.path.join(root, f"serve_{cell}.json")
+    with open(path, "w") as f:
+        json.dump(serve, f)
+    t0 = time.perf_counter()
+    with _launch_trace({}, label=f"{cell} serve"):
+        averages = test_cli.main(["-opt", path])
+    wall = time.perf_counter() - t0
+    pngs = [f for _, _, fs in os.walk(os.path.join(root, f"serve_{cell}"))
+            for f in fs if f.endswith(".png")]
+    psnr = [m["average"] for m in averages.get("val", [])
+            if m["name"] == "psnr"]
+    print(f"i2i: {cell} served by the test CLI from {CLI_RESUME_NITER}_"
+          f"{I2I_SERVED[cell]}.ckpt: {len(pngs)} images of {CORPUS_PX} px "
+          f"in {wall:.2f} s (set-up included); PSNR {psnr} ({smi})")
+    if len(pngs) != N_VAL or (cell == "sftgan" and not (
+            psnr and math.isfinite(psnr[0]))):
+        raise AssertionError(f"i2i {cell} serving: {pngs}, {psnr}")
+
+
+def _i2i_batch(cell: str, seed: int) -> dict:
+    """One batch of the cell's shape on the card, from a seed: SFTGAN's
+    b=16 (LR 24, HR and maps 96 px), the i2i b=1 A and B of 256 px in
+    [-1, 1]."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    if cell == "sftgan":
+        seg = torch.rand(16, 96, 96, 8, generator=gen, device="cuda")
+        return {"LR": torch.rand(16, 24, 24, 3, generator=gen,
+                                 device="cuda"),
+                "HR": torch.rand(16, 96, 96, 3, generator=gen,
+                                 device="cuda"),
+                "seg": seg / seg.sum(-1, keepdim=True)}
+    return {k: torch.rand(1, 256, 256, 3, generator=gen, device="cuda")
+            * 2 - 1 for k in ("A", "B")}
+
+
+def _i2i_graphed_vs_eager(smi: str, root: str, data: dict,
+                          cell: str) -> None:
+    """The cell's step at full width (its template, bf16): graphed (the
+    default) against eager from the same state and the same dropout
+    generator state, step by step, bit for bit under deterministic
+    cuDNN, ``I2I_GRAPH_STEPS`` steps (pix2pix's dropout masks and
+    CycleGAN's pool swaps included: its pools must hold the same images);
+    the step's ms each way."""
+    import torch
+
+    from trainner_tpu_torch.options.config import parse_dict
+    from trainner_tpu_torch.train.sr_trainer import create_trainer
+
+    opt = parse_dict(_i2i_options(root, data, cell), is_train=True)
+    trainers = {"graphed": create_trainer(opt),
+                "eager": create_trainer(opt, graphs=False)}
+    states = {k: t.init_state(0) for k, t in trainers.items()}
+    cudnn = torch.backends.cudnn
+    saved = (cudnn.deterministic, cudnn.benchmark)
+    cudnn.deterministic, cudnn.benchmark = True, False
+    unequal, ms = [], {"graphed": [], "eager": []}
+    try:
+        for i in range(I2I_GRAPH_STEPS):
+            batch = _i2i_batch(cell, 60 + i)
+            _load_from(states["eager"], states["graphed"])
+            states["eager"].noise_generator.set_state(
+                states["graphed"].noise_generator.get_state())
+            logs = {}
+            for k in ("graphed", "eager"):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                logs[k] = trainers[k].train_step(states[k], batch)[1]
+                torch.cuda.synchronize()
+                ms[k].append((time.perf_counter() - t0) * 1e3)
+            after = {k: _net_tensors(states[k]) for k in states}
+            unequal += [(i, k) for k, v in after["graphed"].items()
+                        if not torch.equal(v, after["eager"][k])]
+            unequal += [(i, k) for k, v in logs["graphed"].items()
+                        if not torch.equal(v, logs["eager"][k])]
+            if cell == "cyclegan":
+                for pool in ("fake_a_pool", "fake_b_pool"):
+                    a, b = (getattr(trainers[k], pool) for k in trainers)
+                    if a.count != b.count or not torch.equal(
+                            a.images[:a.count], b.images[:b.count]):
+                        unequal.append((i, pool))
+    finally:
+        cudnn.deterministic, cudnn.benchmark = saved
+    graphs = trainers["graphed"].step_graphs()
+    want = 2 if cell == "cyclegan" else 1
+    rep = sorted(ms["graphed"][1:])[len(ms["graphed"][1:]) // 2]
+    eag = sorted(ms["eager"][1:])[len(ms["eager"][1:]) // 2]
+    print(f"i2i: {cell} {I2I_GRAPH_STEPS} steps at full width (bf16), "
+          f"graphed ({len(graphs)} programs) against eager: {len(unequal)}"
+          f" tensors or logs differ")
+    print(f"times: {cell} train_step bf16, ms per step (first: eager + "
+          f"capture; then replays), graphed "
+          f"{[round(v, 3) for v in ms['graphed']]}, eager "
+          f"{[round(v, 3) for v in ms['eager']]}; median after the first "
+          f"graphed {rep:.3f}, eager {eag:.3f} ({smi})")
+    if unequal or len(graphs) != want:
+        raise AssertionError(f"i2i {cell} graphs: {unequal[:6]}, "
+                             f"{list(graphs)}")
+    del trainers, states
+    torch.cuda.empty_cache()
+
+
+def _i2i_f64_options(cell: str) -> dict:
+    """The cell's step at full width and cut depth for the f64 witness on
+    the CPU, f32, SGD at lr 1e-2: SFTGAN with 2 SFT blocks (of 16), b=2,
+    96 px, the template's losses (VGG19 feature L1, vanilla GAN 5e-3);
+    pix2pix's U-Net with 6 levels (of 8) without dropout, b=2, 64 px
+    (of 256); CycleGAN's ResNet G with 2 blocks (of 9), b=1, 64 px."""
+    from trainner_tpu_torch.options.config import parse_dict
+
+    train = {"lr_G": 1e-2, "lr_D": 1e-2, "optim_G": "sgd",
+             "optim_D": "sgd", "lr_scheme": "MultiStepLR", "lr_steps": [50]}
+    if cell == "sftgan":
+        opt = {"model": "sftgan", "scale": 4,
+               "network_G": {"type": "sft_arch", "n_blocks": 2},
+               "network_D": {"type": "dis_acd"},
+               "train": {**train, "pixel_weight": 0,
+                         "pixel_criterion": "l1", "feature_weight": 1,
+                         "feature_criterion": "l1", "gan_type": "vanilla",
+                         "gan_weight": 5e-3}}
+    elif cell == "pix2pix":
+        opt = {"model": "pix2pix", "scale": 1,
+               "network_G": {"type": "unet_net", "num_downs": 6},
+               "network_D": {"type": "patchgan", "ndf": 64,
+                             "n_layers": 3},
+               "train": {**train, "pixel_criterion": "l1",
+                         "pixel_weight": 100.0, "gan_type": "vanilla",
+                         "gan_weight": 1.0}}
+    else:
+        opt = {"model": "cyclegan", "scale": 1,
+               "network_G": {"type": "resnet_net", "n_blocks": 2},
+               "network_D": {"type": "patchgan", "ndf": 64, "n_layers": 3,
+                             "norm_type": "instance"},
+               "train": {**train, "gan_type": "lsgan", "gan_weight": 1.0,
+                         "lambda_A": 10.0, "lambda_B": 10.0,
+                         "lambda_identity": 0.5}}
+    opt.update(name=f"{cell}_f64", path={"root": "/nonexistent"})
+    return dict(parse_dict(opt, is_train=True))
+
+
+def _i2i_f64(smi: str, cell: str) -> None:
+    """One f32 SGD step of the cut cell (``_i2i_f64_options``) on the card
+    (graphed), the CPU and an f64 witness of each side that replays that
+    side's branches of every net and of the loss stack
+    (``_steps_card_cpu_f64``, ``branches="all"``; no kernel hides a ReLU
+    in these nets): logs within 1e-4 relative, card against CPU; each
+    tensor of the card no further from its witness than ``I2I_F64_TOL``
+    times the CPU f32's largest distance in the same net, or
+    ``I2I_F64_FLOOR`` of its move, or ``I2I_F64_ABS`` outright."""
+    import torch
+
+    opt = _i2i_f64_options(cell)
+    gen = torch.Generator().manual_seed(9)
+    if cell == "sftgan":
+        def batch():
+            seg = torch.rand(2, 96, 96, 8, generator=gen)
+            return {"LR": torch.rand(2, 24, 24, 3, generator=gen),
+                    "HR": torch.rand(2, 96, 96, 3, generator=gen),
+                    "seg": seg / seg.sum(-1, keepdim=True)}
+    else:
+        b = 2 if cell == "pix2pix" else 1
+
+        def batch():
+            return {k: torch.rand(b, 64, 64, 3, generator=gen) * 2 - 1
+                    for k in ("A", "B")}
+    r = _steps_card_cpu_f64(cell, opt, [batch()],
+                            graphs=2 if cell == "cyclegan" else 1,
+                            branches="all", lr=1e-2)
+    bad = []
+    for net in sorted({k.split(".")[0] for k in r["card_f64"]}):
+        cc, f64, cpu = (_worst(r[key], net + ".") for key in
+                        ("card_cpu", "card_f64", "cpu_f64"))
+        tol = max(I2I_F64_TOL * cpu[0], I2I_F64_FLOOR)
+        print(f"i2i: {cell} one f32 SGD step (cut: {opt['network_G']}), "
+              f"{net}'s tensors as a share of their move: card vs CPU up "
+              f"to {cc[0]:.3e} ({cc[1]}); against each side's f64 witness:"
+              f" card {f64[0]:.3e} ({f64[1]}, "
+              f"{r['abs_card'].get(f64[1], 0):.2e} absolute; tol "
+              f"{tol:.3e}), CPU f32 "
+              f"{cpu[0]:.3e} ({cpu[1]}) ({smi})")
+        bad += [(k, v, tol, r["abs_card"].get(k))
+                for k, v in r["card_f64"].items()
+                if k.startswith(net + ".") and not v <= tol
+                and not r["abs_card"].get(k, 1.0) <= I2I_F64_ABS]
+    print(f"i2i: {cell} logs card vs CPU within {r['logs']:.3e} relative "
+          f"(tol 1e-4) by step {['%.2e' % v for v in r['logs_by_step']]}; "
+          f"branches that differ, card against CPU, by step {r['flips']} "
+          f"of {r['records']} records")
+    if bad or not r["logs"] <= 1e-4:
+        raise AssertionError(f"i2i {cell} f64: {bad[:6]}, logs {r['logs']}")
+    torch.cuda.empty_cache()
+
+
+def _i2i_rates(smi: str) -> None:
+    """G forward throughput by CUDA events, f32 (TF32 off) and bf16:
+    SFTNet (nf 64, 16 blocks) at b=8, 128 -> 512 px with its seg maps;
+    the U-Net (8 levels, ngf 64, batch norm, dropout) and the ResNet G
+    (9 blocks, ngf 64, instance norm) at b=1, 256 px; each with its
+    FLOPs (``torch.utils.flop_counter``) and TFLOP/s."""
+    import torch
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from trainner_tpu_torch.models.networks import define_G
+    from trainner_tpu_torch.models.sft import SFTNet
+    from trainner_tpu_torch.options.defaults import get_network_G_config
+
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    b, h, w = MAIN_SHAPE
+    seg = torch.rand(b, 4 * h, 4 * w, 8, generator=gen, device="cuda")
+    cells = (("sftnet", lambda dt: SFTNet(dtype=dt),
+              (torch.rand(b, h, w, 3, generator=gen, device="cuda"),
+               seg / seg.sum(-1, keepdim=True)), b * 16 * h * w / 1e6),
+             ("unet_net", lambda dt: define_G({"network_G":
+                 get_network_G_config({"type": "unet_net",
+                                       "use_dropout": True}, 1)}, dt),
+              (torch.rand(1, 256, 256, 3, generator=gen, device="cuda"),),
+              256 * 256 / 1e6),
+             ("resnet_net", lambda dt: define_G({"network_G":
+                 get_network_G_config({"type": "resnet_net"}, 1)}, dt),
+              (torch.rand(1, 256, 256, 3, generator=gen, device="cuda"),),
+              256 * 256 / 1e6))
+    for name, make, args, mpx in cells:
+        row = []
+        for dt in (torch.float32, torch.bfloat16):
+            net = make(dt)
+            net.init_weights(torch.Generator().manual_seed(2))
+            net = net.cuda().eval()
+            with torch.inference_mode():
+                with FlopCounterMode(display=False) as fc:
+                    net(*args)
+                flops = fc.get_total_flops()
+                ms = _time_ms(lambda: net(*args), iters=SERVE_ITERS,
+                              warmup=1)
+            row.append(f"{str(dt)[6:]} {ms:.3f} ms, {mpx / ms * 1e3:.3f} "
+                       f"Mpx/s, {flops / ms / 1e9:.2f} TFLOP/s")
+            del net
+        print(f"times: {name} forward ({flops / 1e9:.1f} GFLOP; "
+              f"{'b=8 128->512 px' if name == 'sftnet' else 'b=1 256 px'})"
+              f": {'; '.join(row)} ({smi})")
+    torch.cuda.empty_cache()
+
+
+def _i2i_discriminators(smi: str) -> None:
+    """The multiscale (3 PatchGANs, ndf 64, batch norm) and pixel (ndf 64)
+    discriminators' forward and backward, f32, card against CPU on one
+    batch (b=2, 256 px; TF32 off, deterministic cuDNN), the card replaying
+    the CPU's branches (``_Branches``): outputs within 1e-5 and input and
+    parameter gradients within 1e-4 of their sizes."""
+    import torch
+
+    from trainner_tpu_torch.models.discriminators import (
+        MultiscaleDiscriminator, PixelDiscriminator)
+
+    cudnn = torch.backends.cudnn
+    saved = (cudnn.deterministic, cudnn.benchmark)
+    cudnn.deterministic, cudnn.benchmark = True, False
+    try:
+        for name, make in (("multiscale", lambda: MultiscaleDiscriminator(
+                ndf=64, n_layers=3, num_D=3)),
+                           ("pixelgan", lambda: PixelDiscriminator(ndf=64))):
+            net = make()
+            net.init_weights(torch.Generator().manual_seed(3))
+            card = make().cuda()
+            card.load_state_dict(net.state_dict())
+            x = torch.rand(2, 256, 256, 3, generator=torch.Generator(
+            ).manual_seed(5)) * 2 - 1
+            got = {}
+            for side, model, rec in (("cpu", net, _Branches()),
+                                     ("card", card, None)):
+                rec = rec if rec is not None else _Branches(
+                    got["cpu"]["records"])
+                xs = x.detach().to(next(model.parameters()).device
+                                   ).requires_grad_()
+                with rec:
+                    outs = model(xs, train=True)
+                outs = outs if isinstance(outs, list) else [outs]
+                gen = torch.Generator().manual_seed(6)
+                loss = sum((o * torch.randn(o.shape, generator=gen).to(
+                    o.device)).sum() for o in outs)
+                loss.backward()
+                got[side] = {"outs": [o.detach().cpu() for o in outs],
+                             "dx": xs.grad.cpu(), "records": rec.records,
+                             "grads": {k: p.grad.cpu() for k, p in
+                                       model.named_parameters()}}
+            def rel(a, b):
+                return float((a - b).abs().max() / b.abs().max())
+            out_err = max(rel(a, b) for a, b in zip(got["card"]["outs"],
+                                                     got["cpu"]["outs"]))
+            dx_err = rel(got["card"]["dx"], got["cpu"]["dx"])
+            g_err = max((rel(got["card"]["grads"][k], v), k)
+                        for k, v in got["cpu"]["grads"].items()
+                        if v.abs().max() > 0)
+            print(f"i2i: {name} D forward and backward, f32, card against "
+                  f"CPU (b=2, 256 px, {len(got['cpu']['outs'])} outputs, "
+                  f"the CPU's {len(got['cpu']['records'])} branch records "
+                  f"replayed): outputs {out_err:.3e} (tol 1e-5), input "
+                  f"gradient {dx_err:.3e}, parameter gradients up to "
+                  f"{g_err[0]:.3e} ({g_err[1]}; tol 1e-4) of their sizes "
+                  f"({smi})")
+            if not (out_err <= 1e-5 and dx_err <= 1e-4 and
+                    g_err[0] <= 1e-4):
+                raise AssertionError(f"i2i {name} D card vs CPU")
+    finally:
+        cudnn.deterministic, cudnn.benchmark = saved
+    torch.cuda.empty_cache()
+
+
+def phase_i2i(smi: str, root: str) -> dict:
+    """Phase 20: SFTGAN (``options/sr/train_sftgan.json``: SFTNet nf 64, 16
+    blocks; the ACD D; b=16, crop 96; VGG19 feature L1 and GAN 5e-3; Adam,
+    MultiStepLR; bf16), pix2pix (``options/i2i/train_pix2pix.yml`` with
+    ``serial_batches``: the U-Net, 8 levels, ngf 64, batch norm, dropout;
+    PatchGAN ndf 64; b=1, crop 256; L1 x 100 and the conditional GAN) and
+    CycleGAN (``options/i2i/train_cyclegan.yml``: the ResNet G, 9 blocks,
+    ngf 64, instance norm; PatchGAN with instance norm; b=1, crop 256;
+    lsgan; pools of 50) on seeded data (``_i2i_data``). For each: the
+    training CLI (12 and a resume to 16, the sample grids), the test CLI,
+    graphed against eager bit for bit, the f64 witness at cut depth; then
+    the Gs' serving rates and the multiscale and pixel Ds card against
+    CPU. No kernel of the repo runs here. Returns the CLI traces."""
+    import torch
+
+    t0 = time.perf_counter()
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    data = _i2i_data(root)
+    traces, parts = {}, []
+    for cell in I2I_CELLS:
+        t1 = time.perf_counter()
+        traces[f"{cell} cli"] = _i2i_cli(smi, root, data, cell)
+        _i2i_serve(smi, root, data, cell)
+        _i2i_graphed_vs_eager(smi, root, data, cell)
+        _i2i_f64(smi, cell)
+        parts.append(f"{time.perf_counter() - t1:.1f}")
+    for part in (lambda: _i2i_rates(smi), lambda: _i2i_discriminators(smi)):
+        t1 = time.perf_counter()
+        part()
+        parts.append(f"{time.perf_counter() - t1:.1f}")
+    print(f"i2i: ok in {time.perf_counter() - t0:.1f} s (sftgan, pix2pix, "
+          f"cyclegan: CLI, serving, graphs, f64 each; rates; Ds: "
+          f"{', '.join(parts)} s) ({smi})")
+    return traces
+
+
 def phase_graphs(smi: str, root: str) -> None:
     """The programs as CUDA graphs against the same programs run eagerly
     (``graphs=False``), in one process: the step (bf16, f32) with its
@@ -6422,11 +7045,12 @@ def phase_graphs(smi: str, root: str) -> None:
 
 
 def _later_phases(smi: str, root: str, which: tuple) -> dict:
-    """Phases 18 (``phase_producer_rest``) and 19 (``phase_models``) of
-    ``which``, TF32 off before each; returns their traces."""
+    """Phases 18 (``phase_producer_rest``), 19 (``phase_models``) and 20
+    (``phase_i2i``) of ``which``, TF32 off before each; returns their
+    traces."""
     import torch
 
-    phases = {18: phase_producer_rest, 19: phase_models}
+    phases = {18: phase_producer_rest, 19: phase_models, 20: phase_i2i}
     traces = {}
     for n in which:
         torch.backends.cudnn.allow_tf32 = False
@@ -6447,9 +7071,9 @@ def main(argv=None) -> int:
                         "git archive) whose blur kernel is timed beside "
                         "this one's")
     parser.add_argument("--only", default="",
-                        help="comma-separated phases among 18 and 19: build "
-                        "the kernels, write the corpus and run those alone "
-                        "(no result line)")
+                        help="comma-separated phases among 18, 19 and 20: "
+                        "build the kernels, write the corpus and run those "
+                        "alone (no result line)")
     flags = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -6523,7 +7147,7 @@ def main(argv=None) -> int:
         torch.backends.cuda.matmul.allow_tf32 = False
         cli_counts.update(phase_losses(smi, root))
         cli_counts.update(phase_trainer_options(smi, root))
-        cli_counts.update(_later_phases(smi, root, (18, 19)))
+        cli_counts.update(_later_phases(smi, root, (18, 19, 20)))
         rows = phase_times(smi, root)
         blur_rows = phase_blur_times(smi, flags.parent)
         phase_trace(smi, root, {k: r["step_ms"] for k, r in train.items()})

@@ -3,7 +3,8 @@
 Counterpart of ``trainner_tpu/data/common.py`` (``_lmdb_reader:36``,
 ``scan_images:44``, ``read_img:60``, ``rgb2ycbcr:116``, ``ycbcr2rgb:128``,
 ``channel_convert:137``, ``augment_pair:155``, ``paired_random_crop:178``,
-``img2tensor:202``, ``tensor2img:218``, ``save_img:232``). Host images are
+``img2tensor:202``, ``tensor2img:218``, ``save_img:232``, ``merge_imgs:244``,
+``save_img_comp:260``). Host images are
 numpy HWC float32 RGB in [0, 1]. ``encode_png`` and ``save_img`` write and
 ``decode_png`` / ``read_png`` read 8-bit PNG with the standard library
 (``zlib``, ``struct``); ``read_img`` decodes with ``cv2`` where it is
@@ -404,3 +405,25 @@ def save_img(img: np.ndarray, path: str) -> None:
     os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
     with open(path, "wb") as f:
         f.write(png)
+
+
+def merge_imgs(imgs, axis: int = 1) -> np.ndarray:
+    """Images joined along ``axis`` (1: side by side), each zero-padded
+    at its end to the largest height (``axis`` 1) or width (else)."""
+    imgs = [np.asarray(i) for i in imgs]
+    hmax = max(i.shape[0] for i in imgs)
+    wmax = max(i.shape[1] for i in imgs)
+    padded = []
+    for i in imgs:
+        ph, pw = hmax - i.shape[0], wmax - i.shape[1]
+        if axis == 1:
+            pad = ((0, ph), (0, 0), (0, 0))[:i.ndim]
+        else:
+            pad = ((0, 0), (0, pw), (0, 0))[:i.ndim]
+        padded.append(np.pad(i, pad))
+    return np.concatenate(padded, axis=axis)
+
+
+def save_img_comp(imgs, path: str) -> None:
+    """A side-by-side comparison of uint8 images to ``path``."""
+    save_img(merge_imgs(imgs, axis=1), path)

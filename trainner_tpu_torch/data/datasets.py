@@ -3,10 +3,12 @@
 Counterpart of ``trainner_tpu/data/datasets.py``: ``AlignedDataset:44`` in
 both phases with every option (LMDB roots, ``aug_downscale``, ``color``,
 ``subset_file``, ``otf_mode: host`` and its ``_host_degrade:229``),
-``SingleDataset:277``, ``SyntheticDataset:349`` (kind ``sr``) and
-``create_dataset:431`` for these modes. The datasets read, crop and flip;
-the degradations run batched on the device (``data/pipeline.py``), after
-the host's with ``otf_mode: host`` (ROADMAP C 20). The other dataset modes
+``SingleDataset:277``, ``UnalignedDataset:300`` (CycleGAN's and
+pix2pix's A/B), ``SyntheticDataset:349`` (kinds ``sr`` and ``ab``) and
+``create_dataset:431`` for these modes and SFTGAN's ``seg``
+(``data/seg_dataset.py``). The datasets read, crop and flip; the
+degradations run batched on the device (``data/pipeline.py``), after the
+host's with ``otf_mode: host`` (ROADMAP C 20). The other dataset modes
 raise with their ROADMAP item.
 """
 
@@ -259,34 +261,102 @@ class SingleDataset:
                 "LR_path": self.paths[index]}
 
 
+class UnalignedDataset:
+    """Unpaired A/B images (CycleGAN's, and pix2pix's ``unaligned``): A
+    by index, B by index with ``serial_batches``, else a random one. In
+    the train phase each image is reflect-padded at its bottom and right
+    up to ``crop_size`` where smaller, randomly cropped to it and, with
+    ``use_flip`` (on by default), flipped left-right with probability
+    0.5; A's draws, then B's, from one unseeded generator. ``znorm`` (on
+    by default) maps to [-1, 1]; ``wire_dtype: uint8`` keeps the wire
+    uint8."""
+
+    def __init__(self, dataset_opt: dict):
+        self.opt = dataset_opt
+        a_root = _dataroot(dataset_opt, "dataroot_A", "dataroot_LR")
+        b_root = _dataroot(dataset_opt, "dataroot_B", "dataroot_HR")
+        if not a_root or not b_root:
+            raise ValueError("UnalignedDataset needs dataroot_A and _B")
+        self.a_paths = scan_images(a_root)
+        self.b_paths = scan_images(b_root)
+        self.serial = bool(dataset_opt.get("serial_batches"))
+        self.crop = int(dataset_opt.get("crop_size", 256) or 256)
+        self.phase = dataset_opt.get("phase", "train")
+        self.znorm = bool(dataset_opt.get("znorm", True))
+        self.wire_u8 = str(dataset_opt.get("wire_dtype", "")
+                           ).lower() in ("u8", "uint8")
+        self.use_flip = bool(dataset_opt.get("use_flip", True))
+
+    def __len__(self) -> int:
+        return max(len(self.a_paths), len(self.b_paths))
+
+    def _load(self, path: str, rng) -> np.ndarray:
+        img = read_img(path)
+        if self.phase == "train":
+            h, w = img.shape[:2]
+            if h < self.crop or w < self.crop:
+                img = np.pad(img, ((0, max(0, self.crop - h)),
+                                   (0, max(0, self.crop - w)), (0, 0)),
+                             "reflect")
+                h, w = img.shape[:2]
+            y = int(rng.integers(0, h - self.crop + 1))
+            x = int(rng.integers(0, w - self.crop + 1))
+            img = img[y: y + self.crop, x: x + self.crop]
+            if self.use_flip and rng.random() < 0.5:
+                img = np.ascontiguousarray(img[:, ::-1])
+        return img2tensor(img, self.znorm, self.wire_u8)
+
+    def __getitem__(self, index: int) -> Dict[str, np.ndarray]:
+        rng = np.random.default_rng()
+        a = self.a_paths[index % len(self.a_paths)]
+        if self.serial:
+            b = self.b_paths[index % len(self.b_paths)]
+        else:
+            b = self.b_paths[int(rng.integers(0, len(self.b_paths)))]
+        return {"A": self._load(a, rng), "B": self._load(b, rng),
+                "A_path": a, "B_path": b}
+
+
 class SyntheticDataset:
-    """Random HR images (seeded by index) and their bicubic LR: kind 'sr'."""
+    """Random images seeded by index: kind ``sr``, HR and its bicubic LR;
+    kind ``ab``, an A and a B of ``crop_size``."""
 
     def __init__(self, dataset_opt: dict):
         self.scale = int(dataset_opt.get("scale", 4) or 4)
         self.hr = int(dataset_opt.get("crop_size", 128) or 128)
         self.n = int(dataset_opt.get("n_samples", 64) or 64)
         self.kind = dataset_opt.get("kind", "sr")
-        if self.kind != "sr":
+        if self.kind not in ("sr", "ab"):
             raise NotImplementedError(
                 f"synthetic kind [{self.kind}] is not ported yet (ROADMAP "
-                "Queue A 10.4-10.6, the other models)")
+                "Queue A 10.5-10.6, the other models)")
 
     def __len__(self):
         return self.n
 
     def __getitem__(self, index: int):
         rng = np.random.default_rng(index)
+        if self.kind == "ab":
+            return {"A": rng.random((self.hr, self.hr, 3), np.float32),
+                    "B": rng.random((self.hr, self.hr, 3), np.float32),
+                    "A_path": str(index), "B_path": str(index)}
         hr = rng.random((self.hr, self.hr, 3), np.float32)
         lr = imresize_np(hr, 1.0 / self.scale)
         return {"LR": lr, "HR": hr, "LR_path": str(index),
                 "HR_path": str(index)}
 
 
+def _seg_dataset(dataset_opt: dict):
+    from .seg_dataset import SegDataset
+
+    return SegDataset(dataset_opt)
+
+
 _DATASETS = {"aligned": AlignedDataset, "single": SingleDataset,
-             "synthetic": SyntheticDataset}
+             "unaligned": UnalignedDataset, "synthetic": SyntheticDataset,
+             "seg": _seg_dataset}
 _ALIASES = {"lrhr": "aligned", "lrhroft": "aligned", "lrhrc": "aligned",
-            "lr": "single"}
+            "lr": "single", "lrhrseg_bg": "seg"}
 
 
 def create_dataset(dataset_opt: dict):

@@ -1,7 +1,8 @@
 """Network factory: counterpart of ``trainner_tpu/models/networks.py``
 (``define_G:277``, ``_build_rrdb:29``, ``_build_mrrdb:48``,
 ``_build_srresnet:56``, ``_build_ppon:67``, ``_build_pan:75``,
-``_build_a2n:244``, ``define_D:291``) for the generators and the
+``_build_a2n:244``, ``_build_unet:87``, ``_build_resnet_g:98``,
+``_build_sft:195``, ``define_D:291``) for the generators and the
 discriminators that the port runs. Other types raise and name their
 ROADMAP item."""
 
@@ -9,7 +10,11 @@ from __future__ import annotations
 
 import torch
 
-from .discriminators import DiscriminatorVGG, UNetDiscriminator
+from typing import Optional
+
+from .discriminators import (DiscriminatorVGG, MultiscaleDiscriminator,
+                             NLayerDiscriminator, PixelDiscriminator,
+                             UNetDiscriminator)
 from .rrdb import MRRDBNet, RRDBNet
 from .srresnet import SRResNet
 
@@ -88,9 +93,43 @@ def _build_a2n(cfg: dict, dtype: torch.dtype):
                nb=cfg.get("nb", 16), scale=cfg.get("scale", 4), dtype=dtype)
 
 
+def _build_unet(cfg: dict, dtype: torch.dtype):
+    from .unet import UnetGenerator
+
+    return UnetGenerator(
+        input_nc=cfg.get("input_nc", 3), output_nc=cfg.get("output_nc", 3),
+        num_downs=cfg.get("num_downs", 8), ngf=cfg.get("ngf", 64),
+        norm_type=cfg.get("norm_type", "batch"),
+        use_dropout=bool(cfg.get("use_dropout", False)),
+        upsample_mode=cfg.get("upsample_mode", "deconv"), dtype=dtype)
+
+
+def _build_resnet_g(cfg: dict, dtype: torch.dtype):
+    from .resnet_g import ResnetGenerator
+
+    return ResnetGenerator(
+        input_nc=cfg.get("input_nc", 3), output_nc=cfg.get("output_nc", 3),
+        n_blocks=cfg.get("n_blocks", 9), ngf=cfg.get("ngf", 64),
+        norm_type=cfg.get("norm_type", "instance"),
+        use_dropout=bool(cfg.get("use_dropout", False)),
+        upsample_mode=cfg.get("upsample_mode", "deconv"),
+        padding_type=cfg.get("padding_type", "reflect"), dtype=dtype)
+
+
+def _build_sft(cfg: dict, dtype: torch.dtype):
+    """SFTNet at its defaults: the JAX ``_build_sft`` reads none of ``cfg``
+    (the SFTGAN trainer builds its own from ``nf``, ``cond_nf`` and
+    ``n_blocks``; ROADMAP C 22)."""
+    from .sft import SFTNet
+
+    return SFTNet(dtype=dtype)
+
+
 _G_REGISTRY = {"rrdb_net": _build_rrdb, "mrrdb_net": _build_mrrdb,
                "sr_resnet": _build_srresnet, "ppon": _build_ppon,
-               "pan_net": _build_pan, "a2n_net": _build_a2n}
+               "pan_net": _build_pan, "a2n_net": _build_a2n,
+               "unet_net": _build_unet, "resnet_net": _build_resnet_g,
+               "sft_arch": _build_sft}
 
 
 def define_G(opt: dict, dtype: torch.dtype = torch.float32):
@@ -106,12 +145,34 @@ def define_G(opt: dict, dtype: torch.dtype = torch.float32):
     return _G_REGISTRY[kind](cfg, dtype)
 
 
-def define_D(opt: dict, dtype: torch.dtype = torch.bfloat16):
+def define_D(opt: dict, dtype: torch.dtype = torch.bfloat16,
+             in_nc: Optional[int] = None):
     """Build the discriminator module from parsed options: D-VGG (with
     spectral norm and no batch norm for a ``*_sn`` type or
-    ``spectral_norm``) or the U-Net."""
+    ``spectral_norm``), PatchGAN, the multiscale PatchGAN, PixelGAN or the
+    U-Net. ``in_nc`` gives the input's channels where the trainer knows
+    them (pix2pix's conditional D sees A and B, 6), in place of the
+    options' ``input_nc``: flax infers them from the input, torch needs
+    them up front."""
     cfg = dict(opt["network_D"])
     kind = (cfg.get("type") or "").lower()
+    nc = in_nc or cfg.get("input_nc", 3)
+    if kind in ("patchgan", "nlayerdiscriminator"):
+        return NLayerDiscriminator(
+            in_nc=nc, ndf=cfg.get("ndf", 64), n_layers=cfg.get("n_layers", 3),
+            norm_type=cfg.get("norm_type", "batch"),
+            patch=bool(cfg.get("patch", True)),
+            use_spectral_norm=bool(cfg.get("use_spectral_norm", False)),
+            dtype=dtype)
+    if kind == "multiscale":
+        return MultiscaleDiscriminator(
+            in_nc=nc, ndf=cfg.get("ndf", 64), n_layers=cfg.get("n_layers", 3),
+            norm_type=cfg.get("norm_type", "batch"),
+            num_D=cfg.get("num_D", 3), dtype=dtype)
+    if kind in ("pixelgan", "pixeldiscriminator"):
+        return PixelDiscriminator(in_nc=nc, ndf=cfg.get("ndf", 64),
+                                  norm_type=cfg.get("norm_type", "batch"),
+                                  dtype=dtype)
     if kind == "unet":
         return UNetDiscriminator(
             nf=cfg.get("nf", 64),
@@ -119,8 +180,7 @@ def define_D(opt: dict, dtype: torch.dtype = torch.bfloat16):
             spectral_norm=bool(cfg.get("spectral_norm", True)), dtype=dtype)
     if not kind.startswith("discriminator_vgg"):
         raise NotImplementedError(
-            f"Discriminator model [{kind}] is not ported yet (ROADMAP Queue "
-            "A 10.4, the other discriminators)")
+            f"Discriminator model [{kind}] not recognized")
     size = cfg.get("size")
     for tok in ("96", "128", "192", "256"):  # fixed-size variants
         if tok in kind:

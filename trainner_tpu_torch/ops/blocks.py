@@ -13,7 +13,11 @@ mode, the identity at eval), ``PixelShuffleBlock:315``,
 ``UpconvBlock:369`` (nearest, or bilinear / bicubic through
 ``interpolate``) and ``SelfAttentionBlock:441`` (without spectral norm);
 ``Conv`` (a bare conv, dilated or not) and ``Dense`` are flax's ``nn.Conv``
-and ``nn.Dense`` as the PPON, PAN and A2N generators use them.
+and ``nn.Dense`` as the PPON, PAN and A2N generators use them;
+``TorchDeconv:500`` (torch's ``ConvTranspose2d``) and flax's ``nn.Dropout``
+(``Dropout``) for the image-to-image generators. ``conv_paths`` and
+``norm_paths`` give the flax names of a net's tensors, ``lecun_init``
+flax's default init.
 
 Modules take and return NCHW tensors (the network keeps them in
 ``channels_last`` memory, so NHWC views of them are contiguous); the free
@@ -574,6 +578,136 @@ class Dense(nn.Module):
 
     def forward(self, x):
         return F.linear(x, self.weight.to(x.dtype))
+
+
+class TorchDeconv(nn.Module):
+    """The JAX package's ``TorchDeconv``: torch's ``ConvTranspose2d`` with
+    stride ``stride``, padding ``padding`` and output padding
+    ``output_padding``. ``weight`` is held in torch's (in, out, kh, kw)
+    layout; the flax ``kernel`` (kh, kw, in, out) is the same array
+    permuted, with no spatial flip: the JAX module correlates the dilated
+    input with the flipped kernel, which is what ``conv_transpose2d``
+    computes from the unflipped one (``utils/torch_interop.py`` maps it,
+    kind ``deconv``)."""
+
+    def __init__(self, in_nc: int, out_nc: int, kernel_size: int = 3,
+                 stride: int = 2, padding: int = 1, output_padding: int = 1,
+                 use_bias: bool = True):
+        super().__init__()
+        self.weight = nn.Parameter(
+            torch.zeros(in_nc, out_nc, kernel_size, kernel_size))
+        self.bias = nn.Parameter(torch.zeros(out_nc)) if use_bias else None
+        self.stride, self.padding = stride, padding
+        self.output_padding = output_padding
+
+    def init_weights(self, generator: torch.Generator) -> None:
+        """LeCun normal over flax's fan-in (kh kw in), a zero bias."""
+        fan_in = self.weight.shape[0] * self.weight[0, 0].numel()
+        with torch.no_grad():
+            self.weight.normal_(0.0, fan_in ** -0.5, generator=generator)
+            if self.bias is not None:
+                self.bias.zero_()
+
+    def forward(self, x):
+        return F.conv_transpose2d(
+            x, self.weight.to(x.dtype),
+            None if self.bias is None else self.bias.to(x.dtype),
+            stride=self.stride, padding=self.padding,
+            output_padding=self.output_padding)
+
+
+class Dropout(nn.Module):
+    """flax's ``nn.Dropout(rate)``: in train mode each element is kept
+    with probability 1 - rate (a uniform draw below it) and scaled by
+    1 / (1 - rate), else zeroed; the identity in eval mode. The draw comes
+    from ``generator`` (the trainer's, which it registers with the step's
+    graph, so each replay draws a new mask) or from torch's default one."""
+
+    def __init__(self, rate: float = 0.5):
+        super().__init__()
+        self.rate = rate
+        self.generator: Optional[torch.Generator] = None
+
+    def forward(self, x):
+        if not self.training or not self.rate:
+            return x
+        keep = torch.rand(x.shape, dtype=torch.float32, device=x.device,
+                          generator=self.generator) < 1.0 - self.rate
+        return torch.where(keep, x / (1.0 - self.rate), torch.zeros_like(x))
+
+
+def discard_stats(net: nn.Module) -> None:
+    """Drops the pending state of every batch norm and spectral norm of
+    ``net``: the passes since the last commit leave nothing."""
+    for m in net.modules():
+        if isinstance(m, (BatchNorm, SpectralNorm)):
+            m.pending = None
+
+
+def conv_paths(key: str, m: nn.Module, path: tuple) -> dict:
+    """The flax names of one conv-like module's tensors, for a net's
+    ``flax_paths``: state-dict key -> (collection, flax path, kind), where
+    kind says how the tensor maps (``conv`` OIHW <-> HWIO, ``deconv``
+    (in, out, kh, kw) <-> (kh, kw, in, out), ``dense`` (out, in) <-> (in,
+    out), ``vec`` as it is). ``m`` is a ``_Conv`` or ``Conv`` (``kernel``,
+    ``bias`` at ``path``), a ``TorchDeconv``, an ``nn.Linear`` or a
+    ``ConvBlock`` (``Conv_0`` with ``BatchNorm_0`` or ``LayerNorm_0``
+    beside it, or with ``SpectralNorm_0``'s ``u`` and ``sigma`` in
+    ``batch_stats``)."""
+    pre = f"{key}." if key else ""
+    out = {}
+    if isinstance(m, ConvBlock):
+        out[pre + "weight"] = ("params", path + ("Conv_0", "kernel"), "conv")
+        if m.bias is not None:
+            out[pre + "bias"] = ("params", path + ("Conv_0", "bias"), "vec")
+        if m.sn is not None:
+            for leaf in ("u", "sigma"):
+                out[f"{pre}sn.{leaf}"] = (
+                    "batch_stats", path + ("SpectralNorm_0",
+                                           f"Conv_0/kernel/{leaf}"), "vec")
+        if isinstance(m.norm, (BatchNorm, LayerNorm)):
+            out.update(norm_paths(f"{pre}norm", m.norm, path + (
+                "BatchNorm_0" if isinstance(m.norm, BatchNorm)
+                else "LayerNorm_0",)))
+        return out
+    kind = {TorchDeconv: "deconv", nn.Linear: "dense"}.get(type(m), "conv")
+    out[pre + "weight"] = ("params", path + ("kernel",), kind)
+    if m.bias is not None:
+        out[pre + "bias"] = ("params", path + ("bias",), "vec")
+    return out
+
+
+def norm_paths(key: str, m: nn.Module, path: tuple) -> dict:
+    """The flax names of a norm's tensors (``conv_paths``' form): a
+    ``BatchNorm``'s scale and bias, and its running statistics in
+    ``batch_stats``; a ``LayerNorm``'s scale and bias; an instance norm
+    (flax's ``GroupNorm`` with neither) holds none."""
+    if not isinstance(m, (BatchNorm, LayerNorm)):
+        return {}
+    out = {f"{key}.weight": ("params", path + ("scale",), "vec"),
+           f"{key}.bias": ("params", path + ("bias",), "vec")}
+    if isinstance(m, BatchNorm):
+        out[f"{key}.running_mean"] = ("batch_stats", path + ("mean",), "vec")
+        out[f"{key}.running_var"] = ("batch_stats", path + ("var",), "vec")
+    return out
+
+
+def lecun_init(net: nn.Module, generator: torch.Generator) -> None:
+    """flax's default init of every conv, deconv and dense layer of
+    ``net``: LeCun normal (std 1/sqrt(fan_in)), zero biases; norms keep a
+    scale of 1 and a bias of 0, a spectral norm's ``u`` is drawn from a
+    standard normal."""
+    with torch.no_grad():
+        for m in net.modules():
+            if isinstance(m, TorchDeconv):
+                m.init_weights(generator)
+            elif isinstance(m, (_Conv, nn.Linear)):
+                fan_in = m.weight[0].numel()
+                m.weight.normal_(0.0, fan_in ** -0.5, generator=generator)
+                if m.bias is not None:
+                    m.bias.zero_()
+            elif isinstance(m, SpectralNorm):
+                m.init_state(generator)
 
 
 class SelfAttentionBlock(nn.Module):

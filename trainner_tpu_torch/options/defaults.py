@@ -5,8 +5,10 @@ Counterpart of ``trainner_tpu/options/defaults.py``: ``get_network_G_config``
 pixel-unshuffle wrapper's config of ``:169-180``), ``get_network_D_config``
 (``:219-280``) and ``get_network_defaults`` (``:283-309``). The generator
 types that the port builds are the SR generators ``rrdb_net``,
-``mrrdb_net``, ``sr_resnet``, ``ppon``, ``pan_net`` and ``a2n_net``; the
-JAX package's other types raise here and name their ROADMAP item. Every discriminator spec is parsed as the JAX
+``mrrdb_net``, ``sr_resnet``, ``ppon``, ``pan_net`` and ``a2n_net``, and
+the image-to-image and SFTGAN generators ``unet_net``, ``resnet_net`` and
+``sft_arch``; the JAX package's other types raise here and name their
+ROADMAP item. Every discriminator spec is parsed as the JAX
 package parses it; ``models/networks.py::define_D`` refuses the types the
 port does not build.
 """
@@ -27,14 +29,15 @@ _G_ALIASES = {
     "sr_resnet": "sr_resnet", "srresnet": "sr_resnet", "srgan": "sr_resnet",
     "ppon": "ppon", "pan_net": "pan_net", "pan": "pan_net",
     "a2n_net": "a2n_net", "a2n": "a2n_net", "aan": "a2n_net",
+    "sft_arch": "sft_arch", "sft_net": "sft_arch",
+    "unet_net": "unet_net", "unet_128": "unet_net", "unet_256": "unet_net",
+    "resnet_net": "resnet_net", "resnet_6blocks": "resnet_net",
+    "resnet_9blocks": "resnet_net",
 }
 
 # the JAX package's other generator aliases -> the ROADMAP item that ports
 # each (Queue A 10)
 _G_NOT_PORTED = {
-    "sft_arch": "10.3", "sft_net": "10.3",
-    "unet_net": "10.4", "unet_128": "10.4", "unet_256": "10.4",
-    "resnet_net": "10.4", "resnet_6blocks": "10.4", "resnet_9blocks": "10.4",
     "sofvsr_net": "10.5", "sofvsr": "10.5", "sr3d_net": "10.5",
     "sr3d": "10.5", "edvr_net": "10.5", "edvr": "10.5", "rife_net": "10.5",
     "rife": "10.5",
@@ -64,6 +67,13 @@ _G_DEFAULTS: dict[str, dict[str, Any]] = {
                     ups_inter_mode="nearest"),
     "a2n_net": dict(in_nc=3, out_nc=3, nf=40, unf=24, nb=16, scale=_SCALE,
                     mode="n"),
+    "sft_arch": dict(),
+    "unet_net": dict(input_nc=3, output_nc=3, num_downs=8, ngf=64,
+                     norm_type="batch", use_dropout=False,
+                     upsample_mode="deconv"),
+    "resnet_net": dict(input_nc=3, output_nc=3, n_blocks=9, ngf=64,
+                       norm_type="instance", use_dropout=False,
+                       upsample_mode="deconv", padding_type="reflect"),
 }
 
 _G_ALIAS_OVERRIDES: dict[str, dict[str, Any]] = {
@@ -71,6 +81,10 @@ _G_ALIAS_OVERRIDES: dict[str, dict[str, Any]] = {
     "esrgan-anime-lite": dict(nf=64, nb=6),
     "esrgan-mid": dict(nf=64, nb=6),
     "evsrgan": dict(convtype="Conv3D"),
+    "unet_128": dict(num_downs=7),
+    "unet_256": dict(num_downs=8),
+    "resnet_6blocks": dict(n_blocks=6),
+    "resnet_9blocks": dict(n_blocks=9),
 }
 
 # user key -> canonical key, or {canonical type: canonical key}
@@ -79,6 +93,8 @@ _G_KEY_ALIASES = {
               "ppon": "upscale", "sr_resnet": "upscale"},
     "net_act": "act_type",
     "gaussian": "gaussian_noise",
+    "in_nc": {"unet_net": "input_nc", "resnet_net": "input_nc"},
+    "out_nc": {"unet_net": "output_nc", "resnet_net": "output_nc"},
 }
 
 

@@ -1,6 +1,10 @@
 """Inference and metrics CLI of the port: counterpart of the JAX package's
-``test.py`` for ``model: sr`` and ``model: ppon`` (the output of
-``ppon_phase``, 3 by default), with its x8 self-ensemble
+``test.py`` for ``model: sr``, ``model: ppon`` (the output of
+``ppon_phase``, 3 by default), ``sftgan`` (with the batch's ``seg`` maps
+where a ``seg`` dataset gives them, ``test.py:116-118``; ``sftgan_acd``
+with uniform maps, as the JAX CLI serves it), ``pix2pix`` (G) and
+``cyclegan`` (G_A; ``pretrain_model_G`` a ``{tag}_G_A.ckpt``, or a tree of
+both Gs) from a ``single`` dataset's ``LR``, with its x8 self-ensemble
 (``self_ensemble`` / ``x8``), tiled (``chop_forward`` / ``chop``) and plain
 ``eval_step`` branches, taken in that order as the JAX CLI takes them, and
 its CEM post-processing (``test.py:129-150``): with ``use_cem`` and
@@ -58,7 +62,8 @@ def _check_ported(opt) -> None:
             "CEM's out_orig with model [ppon]: PPON's eval_step takes no "
             "apply_cem, so the JAX CLI raises a TypeError there "
             "(ROADMAP C 20)")
-    if model not in ("sr", "srgan", "srragan", "ppon"):
+    if model not in ("sr", "srgan", "srragan", "ppon", "sftgan",
+                     "sftgan_acd", "pix2pix", "cyclegan"):
         item = _OTHER_MODELS.get(model, "Queue A 10")
         raise NotImplementedError(
             f"model [{model}] inference is not ported yet (ROADMAP {item}, "
@@ -127,6 +132,7 @@ def main(argv=None, device: Union[str, torch.device, None] = None
     scale = int(opt.get("scale") or 1)
     ensemble_x8 = bool(opt.get("self_ensemble") or opt.get("x8"))
     chop = bool(opt.get("chop_forward") or opt.get("chop"))
+    model = (opt.get("model") or "sr").lower()
     which = str(opt.get("which") or "auto")
     if which not in ("g", "ema", "swa", "auto"):
         raise ValueError(f"which [{which}]: 'g', 'ema', 'swa' or 'auto'")
@@ -157,7 +163,12 @@ def main(argv=None, device: Union[str, torch.device, None] = None
                     init_swa(state)
                 elif which == "ema":
                     init_ema(state)
-            if ensemble_x8:
+            if model == "sftgan" and "seg" in batch:
+                sr = trainer.eval_step(state, batch["LR"], batch["seg"])
+            elif model in ("sftgan", "sftgan_acd") and not (
+                    ensemble_x8 or chop):
+                sr = trainer.eval_step(state, batch["LR"], which=which)
+            elif ensemble_x8:
                 sr = trainer.eval_step_x8(state, batch["LR"], which)
             elif chop:
                 sr = trainer.eval_step_chop(state, batch["LR"], which=which)

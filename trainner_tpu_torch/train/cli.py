@@ -2,9 +2,12 @@
 ``train.py`` (``parse_options:25``, ``dir_check:35``,
 ``configure_loggers:46``, ``get_resume_state:61``, ``get_dataloaders:82``,
 ``create_trainer:95``, ``validate:196``, ``fit:241``, ``main:395``) for
-``model: sr`` (and its aliases) and ``model: ppon``
+``model: sr`` (and its aliases), ``model: ppon``
 (``ppon_trainer.PPONTrainer``; its validation reads the output of
-``ppon_phase``).
+``ppon_phase``), ``sftgan`` / ``sftgan_acd``, ``pix2pix`` and
+``cyclegan``. Every ``logger.display_freq`` iterations, when the batch
+has ``A``, the sample grid A | G(A) | B goes to
+``experiments_root/samples/{iter:08d}.png`` (``train.py:353-369``).
 
 The options file drives the whole run: the train loader, the on-device
 degradations (``make_otf_degradation``; the bsrgan presets shuffle the
@@ -45,7 +48,7 @@ import numpy as np
 import torch
 
 from ..data import create_dataloader, create_dataset, device_prefetch
-from ..data.common import save_img, tensor2img
+from ..data.common import save_img, save_img_comp, tensor2img
 from ..ops.blocks import BatchNorm
 from ..options import check_resume, dict2str, parse
 from ..utils import checkpoint
@@ -59,9 +62,7 @@ from .sr_trainer import create_trainer as create_sr_trainer
 
 # the models of the JAX CLI that the port does not train yet -> their item
 _OTHER_MODELS = {
-    "sftgan": "Queue A 10.3",
-    "sftgan_acd": "Queue A 10.3", "pix2pix": "Queue A 10.4",
-    "cyclegan": "Queue A 10.4", "vsr": "Queue A 10.5",
+    "vsr": "Queue A 10.5",
     "vsrgan": "Queue A 10.5", "evsrgan": "Queue A 10.5",
     "video": "Queue A 10.5", "dvd": "Queue A 10.6", "srflow": "Queue A 10.6",
     "wbc": "Queue A 10.6", "pbr": "Queue A 10.6", "sr_pbr": "Queue A 10.6",
@@ -139,9 +140,9 @@ def get_dataloaders(opt, pin_memory: bool = False):
 
 
 def create_trainer(opt, device: Union[str, torch.device, None] = None):
-    """The trainer of the options' ``model``: ``sr`` (and its aliases) or
-    ``ppon``; the other models of the JAX CLI raise with their ROADMAP
-    item."""
+    """The trainer of the options' ``model``: ``sr`` (and its aliases),
+    ``ppon``, ``sftgan`` / ``sftgan_acd``, ``pix2pix`` or ``cyclegan``;
+    the other models of the JAX CLI raise with their ROADMAP item."""
     model = (opt.get("model") or "sr").lower()
     if model in _OTHER_MODELS:
         raise NotImplementedError(
@@ -154,7 +155,9 @@ def validate(trainer, state, val_loader, opt, epoch: int, current_step: int,
              logger, tb):
     """PSNR, SSIM (and LPIPS, on the trainer's device) of G's output over
     the validation set, written to the logs and scalars; each output saved
-    as ``{val_images}/{name}/{name}_{iter}.png``."""
+    as ``{val_images}/{name}/{name}_{iter}.png``. G reads ``LR``, or ``A``
+    where the batch has no ``LR`` (against ``B``), as the JAX CLI reads
+    them."""
     metrics = MetricsDict((opt["train"] or {}).get("metrics") or "psnr,ssim",
                           lpips_weights=opt["path"].get("lpips_weights"),
                           device=trainer.device)
@@ -162,10 +165,12 @@ def validate(trainer, state, val_loader, opt, epoch: int, current_step: int,
     save_imgs = bool((opt.get("logger") or {}).get("save_val_imgs", True))
     scale = int(opt.get("scale") or 1)
     for i, batch in enumerate(val_loader):
-        sr_img = tensor2img(trainer.eval_step(state, batch["LR"])[0])
-        gt = batch.get("HR")
+        in_key = "LR" if "LR" in batch else "A"
+        gt_key = "HR" if "HR" in batch or in_key == "LR" else "B"
+        sr_img = tensor2img(trainer.eval_step(state, batch[in_key])[0])
+        gt = batch.get(gt_key)
         name = os.path.splitext(os.path.basename(
-            batch.get("LR_path", [str(i)])[0]))[0]
+            batch.get(f"{in_key}_path", [str(i)])[0]))[0]
         if gt is not None:
             metrics.calculate_metrics(sr_img, tensor2img(gt[0]),
                                       crop_size=scale)
@@ -183,6 +188,16 @@ def validate(trainer, state, val_loader, opt, epoch: int, current_step: int,
         for m in avgs:
             tb.add_scalar(f"val/{m['name']}", m["average"], current_step)
     return {m["name"]: m["average"] for m in avgs}
+
+
+def save_sample_grid(trainer, state, batch, path: str) -> None:
+    """The image-to-image sample grid A | G(A) | B of the batch's first
+    pair, side by side, to ``path``. Each image goes through
+    ``tensor2img`` without ``znorm``, as the JAX CLI's grid does, so a
+    [-1, 1] image loses its negative half (ROADMAP C 22)."""
+    fake = trainer.eval_step(state, batch["A"][:1])[0]
+    save_img_comp([tensor2img(batch["A"][0]), tensor2img(fake),
+                   tensor2img(batch["B"][0])], path)
 
 
 def _sigterm(_signum, _frame):
@@ -232,6 +247,7 @@ def _fit(trainer, opt, loaders, state, start_epoch, current_step, logger,
     save_freq = int(logger_opt.get("save_checkpoint_freq") or 5e3)
     val_freq = int(float(train_opt.get("val_freq") or 5e3))
     overwrite_chkp = bool(logger_opt.get("overwrite_chkp"))
+    display_freq = int(logger_opt.get("display_freq") or 0)
     debug_nans = bool(opt.get("debug_nans"))
     train_loader = loaders["train"]
     total_epochs = max(1, int(math.ceil(niter / max(len(train_loader), 1))))
@@ -290,6 +306,12 @@ def _fit(trainer, opt, loaders, state, start_epoch, current_step, logger,
                         for k, v in logs.items():
                             tb.add_scalar(f"train/{k}", float(v),
                                           current_step)
+
+                if display_freq and current_step % display_freq == 0 \
+                        and "A" in batch:
+                    save_sample_grid(trainer, state, batch, os.path.join(
+                        opt["path"]["experiments_root"], "samples",
+                        f"{current_step:08d}.png"))
 
                 if current_step % save_freq == 0:
                     _save(state, opt, epoch, current_step, swa_extra,

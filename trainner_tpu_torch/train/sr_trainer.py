@@ -81,7 +81,7 @@ from ..models.networks import define_D, define_G
 from ..models.rrdb import drop_packed
 from ..ops.adatarget import LocNet, ada_target
 from ..ops.batchaug import BatchAugment
-from ..ops.blocks import (BatchNorm, GaussianNoise, commit_stats,
+from ..ops.blocks import (BatchNorm, Dropout, GaussianNoise, commit_stats,
                           interpolate, space_to_depth, wire_to_f01)
 from ..ops.cem import cem_project
 from ..ops.diffaug import apply_diff_augment, draw_diff_augment
@@ -318,6 +318,16 @@ class SRTrainer:
             weight_decay=float(t.get(f"weight_decay_{which}", 0) or 0),
             views=[jax_view(p) for p in params])
 
+    def _make_g(self) -> torch.nn.Module:
+        """G as the options build it (``define_G``), in the trainer's
+        dtype."""
+        return define_G(self.opt, dtype=self.dtype)
+
+    def _make_d(self) -> torch.nn.Module:
+        """D as the options build it (``define_D``), in the trainer's
+        dtype."""
+        return define_D(self.opt, dtype=self.dtype)
+
     # ------------------------------------------------------------------
     # init
     # ------------------------------------------------------------------
@@ -333,7 +343,7 @@ class SRTrainer:
         optimizer, with ``grad_clip: auto`` the norm history. A checkpoint
         of a run resumes into this state with
         ``utils/checkpoint.py::load_state``."""
-        netG = define_G(self.opt, dtype=self.dtype)
+        netG = self._make_g()
         netG.init_weights(torch.Generator().manual_seed(seed))
         if g_path:
             # a G checkpoint holds parameters; running statistics stay
@@ -350,13 +360,13 @@ class SRTrainer:
         noise = torch.Generator(device=self.device).manual_seed(
             key_to_seed(rng))
         for m in netG.modules():
-            if isinstance(m, GaussianNoise):
+            if isinstance(m, (GaussianNoise, Dropout)):
                 m.generator = noise
         state = SRTrainState(step=0,
                              g=NetState(netG, self._optimizer(netG, "G")),
                              noise_generator=noise, rng=rng)
         if self.use_gan:
-            netD = define_D(self.opt, dtype=self.dtype)
+            netD = self._make_d()
             if self.adversarial.uses_penalty and any(
                     isinstance(m, BatchNorm) for m in netD.modules()):
                 raise NotImplementedError(
@@ -920,19 +930,23 @@ class _GraphedStep:
     """The step program of one ``(update_d, update_g)`` as CUDA graphs,
     one per batch signature. The first batch of a signature runs the eager
     program as a real step (on a side stream) and then captures it into
-    static buffers: ``LR`` and ``HR`` at the batch's shape and type, the
-    two learning rates as 0-d f32 tensors, the logs as static outputs.
-    Every later call copies the batch in, fills the learning rates and
-    replays; the logs come back as clones."""
+    static buffers: the batch's ``keys`` (``LR`` and ``HR`` by default)
+    that it holds, at their shapes and types, the two learning rates as
+    0-d f32 tensors, the logs (and whatever else the program returns in
+    its dict) as static outputs. Every later call copies the batch in,
+    fills the learning rates and replays; the outputs come back as
+    clones."""
 
-    def __init__(self, trainer: SRTrainer, eager: Callable):
+    def __init__(self, trainer: SRTrainer, eager: Callable,
+                 keys: tuple = ("LR", "HR")):
         self.trainer = trainer
         self.eager = eager
+        self.keys = keys
         self.entries: Dict[tuple, tuple] = {}
 
     def __call__(self, state: SRTrainState, batch: Dict[str, torch.Tensor],
                  lr_g, lr_d) -> Dict[str, torch.Tensor]:
-        sig = signature(batch, ("LR", "HR"))
+        sig = signature(batch, self.keys)
         entry = self.entries.get(sig)
         if entry is None:
             self.trainer._fresh_packs()
@@ -950,7 +964,8 @@ class _GraphedStep:
     def _capture(self, state: SRTrainState, batch) -> tuple:
         dev = self.trainer.device
         inputs = {k: torch.empty(batch[k].shape, dtype=batch[k].dtype,
-                                 device=dev) for k in ("LR", "HR")}
+                                 device=dev) for k in self.keys
+                  if k in batch}
         lrs = (torch.zeros((), dtype=torch.float32, device=dev),
                torch.zeros((), dtype=torch.float32, device=dev))
         cap = Captured(lambda: self.eager(state, inputs, *lrs),
@@ -961,23 +976,33 @@ class _GraphedStep:
 
 def create_trainer(opt: dict, device: Union[str, torch.device, None] = None,
                    graphs: Optional[bool] = None) -> SRTrainer:
-    """Model-strategy factory for ``model: sr`` (and its aliases) and
-    ``model: ppon`` (``ppon_trainer.PPONTrainer``). Training runs the network
+    """Model-strategy factory for ``model: sr`` (and its aliases),
+    ``model: ppon`` (``ppon_trainer.PPONTrainer``), ``sftgan`` /
+    ``sftgan_acd`` (``sftgan_trainer.SFTGANTrainer``), ``pix2pix``
+    (``pix2pix_trainer.Pix2PixTrainer``) and ``cyclegan``
+    (``cyclegan_trainer.CycleGANTrainer``). Training runs the network
     bodies in bf16 and inference in f32, unless ``use_amp`` says otherwise,
     as in the JAX package. Runs on ``cuda`` unless ``device`` names the
     CPU, and raises when no card is present. ``graphs`` (default: on for
     ``cuda``) runs the step and ``eval_step`` as CUDA graphs; ``False``
     runs them eagerly, to compare the two."""
     model = (opt.get("model") or "sr").lower()
-    if model not in ("sr", "srgan", "srragan", "ppon"):
+    if model not in ("sr", "srgan", "srragan", "ppon", "sftgan",
+                     "sftgan_acd", "pix2pix", "cyclegan"):
         raise NotImplementedError(
-            f"model [{model}] is not ported yet (ROADMAP Queue A 10.3-10.6, "
+            f"model [{model}] is not ported yet (ROADMAP Queue A 10.5-10.6, "
             "the other models)")
     amp_default = bool(opt.get("is_train", True))
     dtype = torch.bfloat16 if opt.get("use_amp", amp_default) \
         else torch.float32
     if model == "ppon":
-        from .ppon_trainer import PPONTrainer
-
-        return PPONTrainer(opt, dtype=dtype, device=device, graphs=graphs)
-    return SRTrainer(opt, dtype=dtype, device=device, graphs=graphs)
+        from .ppon_trainer import PPONTrainer as cls
+    elif model in ("sftgan", "sftgan_acd"):
+        from .sftgan_trainer import SFTGANTrainer as cls
+    elif model == "pix2pix":
+        from .pix2pix_trainer import Pix2PixTrainer as cls
+    elif model == "cyclegan":
+        from .cyclegan_trainer import CycleGANTrainer as cls
+    else:
+        cls = SRTrainer
+    return cls(opt, dtype=dtype, device=device, graphs=graphs)

@@ -9,6 +9,8 @@
   the SWA one wrapped with its refreshed ``batch_stats`` when G has batch
   norms), as
   ``flax.serialization.to_bytes`` writes it;
+* ``{tag}_G_A.ckpt``, ``{tag}_G_B.ckpt``, ``{tag}_D_A.ckpt``,
+  ``{tag}_D_B.ckpt`` in place of those for a CycleGAN state;
 * ``{tag}.state``: the whole training state as the JAX ``SRTrainState``'s
   state dict (``utils/torch_interop.py::train_state_to_jax``; a net's
   ``batch_stats``, G's running statistics among them, in its ``extra``),
@@ -37,7 +39,8 @@ from typing import Any, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from .torch_interop import (g_from_jax, load_esrgan_pth, load_train_state,
+from .torch_interop import (cyclegan_state_from_jax, g_from_jax,
+                            load_esrgan_pth, load_train_state,
                             rrdbnet_like, srresnet_to_params,
                             train_state_from_state_dict, train_state_to_jax)
 
@@ -361,7 +364,12 @@ def load_state(path: str, state) -> Tuple[Any, dict]:
     (``key_to_seed``)."""
     with open(path, "rb") as f:
         tree = msgpack_restore(f.read())
-    load_train_state(state, train_state_from_state_dict(tree, state.g.net))
+    if hasattr(state, "named_params"):
+        carried = cyclegan_state_from_jax(tree, state)
+    else:
+        carried = train_state_from_state_dict(
+            tree, state.g.net, state.d.net if state.d is not None else None)
+    load_train_state(state, carried)
     meta = {"epoch": 0, "iter": int(state.step)}
     if os.path.exists(path + ".json"):
         with open(path + ".json") as f:
@@ -416,11 +424,26 @@ def save_checkpoint(state, opt: dict, epoch: int, niter: int,
     ``{"params": ..., **swa_extra}`` with the batch-norm statistics
     refreshed for them) and ``{tag}_emaG.ckpt`` (when there are EMA
     weights) under ``path.models`` and ``{tag}.state`` under
-    ``path.training_state``; ``tag`` is the iteration, or ``latest``."""
+    ``path.training_state``; ``tag`` is the iteration, or ``latest``.
+    A CycleGAN state (``named_params``) writes ``{tag}_G_A.ckpt``,
+    ``{tag}_G_B.ckpt``, ``{tag}_D_A.ckpt`` and ``{tag}_D_B.ckpt`` instead
+    of G's and D's files (JAX ``utils/checkpoint.py:175-181``)."""
     model_dir = opt["path"]["models"]
     state_dir = opt["path"]["training_state"]
     tag = "latest" if latest_only else str(niter)
     tree = train_state_to_jax(state)
+    if hasattr(state, "named_params"):
+        # CycleGAN: one file per net, as the JAX package writes them
+        for name, params in (("G_A", tree["g"]["params"]["G_A"]),
+                             ("G_B", tree["g"]["params"]["G_B"]),
+                             ("D_A", (tree["d_a"] or {}).get("params")),
+                             ("D_B", (tree["d_b"] or {}).get("params"))):
+            if params is not None:
+                save_params(params, os.path.join(
+                    model_dir, f"{tag}_{name}{CKPT_EXT}"))
+        _write_state(tree, state, os.path.join(
+            state_dir, f"{tag}{STATE_EXT}"), epoch, backup=True)
+        return
     save_params(tree["g"]["params"],
                 os.path.join(model_dir, f"{tag}_G{CKPT_EXT}"))
     if tree["d"] is not None:

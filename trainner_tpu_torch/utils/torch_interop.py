@@ -3,7 +3,13 @@ between the port and the JAX package's flax trees (the generators
 ``RRDBNet``, ``MRRDBNet``, ``SRResNet``, ``PPON``, ``PAN`` (its
 self-attention's ``gamma`` too) and ``AAN``, with their norms, PReLU slopes,
 partial convs, ESRGAN+ ``conv1x1`` and a batch norm's ``batch_stats``, by
-``g_to_jax`` / ``g_from_jax``; ``DiscriminatorVGG`` with its
+``g_to_jax`` / ``g_from_jax``; the nets that name their own tensors' flax
+paths (``flax_paths``: ``ResnetGenerator``, ``UnetGenerator``,
+``SFTNet``, ``ACDVGGBN96`` and the PatchGAN, multiscale and pixel
+discriminators) by ``net_to_jax`` / ``net_from_jax``, CycleGAN's two Gs
+by ``nets_to_jax`` / ``nets_from_jax`` and its whole state by
+``train_state_to_jax`` / ``cyclegan_state_from_jax``;
+``DiscriminatorVGG`` with its
 ``batch_stats``, spectral norms included,
 ``UNetDiscriminator``, ``VGGFeatures`` (and ``MINCFeatures``, whose tree
 has the same form), ``ResNet101Features`` with its ``batch_stats``, the
@@ -197,7 +203,10 @@ def g_to_jax(sd: Mapping[str, torch.Tensor], net: torch.nn.Module
              ) -> Tuple[Dict[str, Any], Dict[str, Any]]:
     """A state_dict of the port's generator ``net`` (or a tree of its
     parameters alone, as optimizer moments are) -> the flax ``params`` and
-    ``batch_stats`` trees, numpy f32 leaves, kernels HWIO."""
+    ``batch_stats`` trees, numpy f32 leaves, kernels HWIO. A net that
+    names its own tensors (``flax_paths``) goes through ``net_to_jax``."""
+    if hasattr(net, "flax_paths"):
+        return net_to_jax(sd, net)
     paths = g_flax_paths(net)
     trees: Dict[str, Dict[str, Any]] = {"params": {}, "batch_stats": {}}
     for key, t in sd.items():
@@ -235,7 +244,10 @@ def g_from_jax(params: Mapping[str, Any],
     """The flax trees of a generator (numpy leaves, unrolled or scan
     layout; ``params`` with or without its top-level key) -> the
     state_dict of the port's ``net``: every parameter, and the running
-    statistics where ``batch_stats`` is given."""
+    statistics where ``batch_stats`` is given. A net that names its own
+    tensors (``flax_paths``) goes through ``net_from_jax``."""
+    if hasattr(net, "flax_paths"):
+        return net_from_jax(params, batch_stats, net)
     if "params" in params and len(params) <= 2:
         batch_stats = params.get("batch_stats", batch_stats)
         params = params["params"]
@@ -256,6 +268,113 @@ def g_from_jax(params: Mapping[str, Any],
             node = node[p]
         sd[key] = _kernel_from_jax(node) if path[-1] == "kernel" \
             else _f32(node)
+    return sd
+
+
+# how each kind of tensor that a ``flax_paths`` names maps to flax
+_TO_FLAX = {"conv": (2, 3, 1, 0), "deconv": (2, 3, 0, 1), "dense": (1, 0),
+            "vec": None}
+_FROM_FLAX = {"conv": (3, 2, 0, 1), "deconv": (2, 3, 0, 1), "dense": (1, 0),
+              "vec": None}
+
+
+def net_to_jax(sd: Mapping[str, torch.Tensor], net: torch.nn.Module
+               ) -> Tuple[Dict[str, Any], Dict[str, Any]]:
+    """A state_dict of a net that names its tensors' flax paths
+    (``net.flax_paths()``: key -> (collection, path, kind); the
+    image-to-image and SFTGAN nets, ``ops/blocks.py::conv_paths``), or a
+    tree of its parameters alone, as optimizer moments are -> the flax
+    ``params`` and ``batch_stats`` trees, numpy f32 leaves."""
+    paths = net.flax_paths()
+    trees: Dict[str, Dict[str, Any]] = {"params": {}, "batch_stats": {}}
+    for key, t in sd.items():
+        if key not in paths:
+            raise ValueError(f"unexpected {type(net).__name__} tensor "
+                             f"{key!r}")
+        coll, path, kind = paths[key]
+        node = trees[coll]
+        for p in path[:-1]:
+            node = node.setdefault(p, {})
+        a = _np(t)
+        node[path[-1]] = a if _TO_FLAX[kind] is None else \
+            np.ascontiguousarray(a.transpose(_TO_FLAX[kind]))
+    return trees["params"], trees["batch_stats"]
+
+
+def net_from_jax(params: Mapping[str, Any],
+                 batch_stats: Optional[Mapping[str, Any]],
+                 net: torch.nn.Module) -> Dict[str, torch.Tensor]:
+    """The inverse of ``net_to_jax``: the flax trees (``params`` with or
+    without its top-level key) -> ``net``'s state_dict, its running
+    statistics and spectral norms' state where ``batch_stats`` is given.
+    A parameter of the tree that ``net`` does not name raises."""
+    if "params" in params and len(params) <= 2:
+        batch_stats = params.get("batch_stats", batch_stats)
+        params = params["params"]
+    paths = net.flax_paths()
+    wanted = {path for coll, path, _ in paths.values() if coll == "params"}
+    for path in _leaf_paths(params):
+        if path not in wanted:
+            raise ValueError(f"unexpected {type(net).__name__} param "
+                             f"{'/'.join(path)}")
+    trees = {"params": params, "batch_stats": batch_stats}
+    sd: Dict[str, torch.Tensor] = {}
+    for key, (coll, path, kind) in paths.items():
+        node = trees[coll]
+        if node is None:
+            continue
+        for p in path:
+            node = node[p]
+        a = np.asarray(node, np.float32)
+        if _FROM_FLAX[kind] is not None:
+            a = a.transpose(_FROM_FLAX[kind])
+        sd[key] = torch.from_numpy(np.array(a, order="C"))
+    return sd
+
+
+def d_to_jax(sd: Mapping[str, torch.Tensor], net: torch.nn.Module
+             ) -> Tuple[Dict[str, Any], Dict[str, Any]]:
+    """A discriminator's state_dict -> its flax trees: ``net_to_jax`` for
+    a net that names its tensors, else ``discriminator_to_jax``."""
+    if hasattr(net, "flax_paths"):
+        return net_to_jax(sd, net)
+    return discriminator_to_jax(sd)
+
+
+def d_from_jax(params: Mapping[str, Any],
+               batch_stats: Optional[Mapping[str, Any]],
+               net: Optional[torch.nn.Module]) -> Dict[str, torch.Tensor]:
+    """The inverse of ``d_to_jax``."""
+    if net is not None and hasattr(net, "flax_paths"):
+        return net_from_jax(params, batch_stats, net)
+    return discriminator_from_jax(params, batch_stats)
+
+
+def nets_to_jax(sd: Mapping[str, torch.Tensor],
+                nets: Mapping[str, torch.nn.Module]
+                ) -> Tuple[Dict[str, Any], Dict[str, Any]]:
+    """A state_dict of several nets under their names (``G_A.*``,
+    ``G_B.*``: CycleGAN's G, a ``ModuleDict``) -> ``{name: params}`` and
+    ``{name: batch_stats}``, each net by ``g_to_jax``."""
+    params, stats = {}, {}
+    for name, net in nets.items():
+        pre = name + "."
+        params[name], stats[name] = g_to_jax(
+            {k[len(pre):]: v for k, v in sd.items() if k.startswith(pre)},
+            net)
+    return params, stats
+
+
+def nets_from_jax(params: Mapping[str, Any],
+                  batch_stats: Optional[Mapping[str, Any]],
+                  nets: Mapping[str, torch.nn.Module]
+                  ) -> Dict[str, torch.Tensor]:
+    """The inverse of ``nets_to_jax``."""
+    sd: Dict[str, torch.Tensor] = {}
+    for name, net in nets.items():
+        stats = None if batch_stats is None else batch_stats.get(name)
+        for k, v in g_from_jax(params[name], stats or None, net).items():
+            sd[f"{name}.{k}"] = v
     return sd
 
 
@@ -463,7 +582,8 @@ def train_state_from_jax(g_params: Mapping[str, Any],
                          g_net: Optional[torch.nn.Module] = None,
                          g_batch_stats: Optional[Mapping[str, Any]] = None,
                          swa_params: Optional[Mapping[str, Any]] = None,
-                         swa_n=None, loc=None, grad_hist=None
+                         swa_n=None, loc=None, grad_hist=None,
+                         d_net: Optional[torch.nn.Module] = None
                          ) -> Dict[str, Any]:
     """The numpy leaves of a JAX ``SRTrainState`` -> what
     ``load_train_state`` takes: the step, G's and D's state_dicts and, where
@@ -473,7 +593,8 @@ def train_state_from_jax(g_params: Mapping[str, Any],
     serialized dict) and the auto clip's history (``grad_hist``). With ``g_net`` (the
     port's G) G's trees are read by ``g_from_jax``, G's running statistics
     from ``g_batch_stats``; without, as a plain ``RRDBNet``'s
-    (``rrdbnet_like``)."""
+    (``rrdbnet_like``). D's trees are read by ``d_from_jax`` on ``d_net``
+    (D-VGG's or the U-Net's layout without it)."""
     if g_net is None:
         g_net = rrdbnet_like(g_params)
 
@@ -498,8 +619,40 @@ def train_state_from_jax(g_params: Mapping[str, Any],
         out["grad_hist"] = {"vals": _f32(grad_hist["vals"]),
                             "n": int(np.asarray(grad_hist["n"]))}
     if d_params is not None:
-        out["d"] = discriminator_from_jax(d_params, d_batch_stats)
-        out["d_opt"] = _moments_from_jax(d_opt_state, discriminator_from_jax)
+        out["d"] = d_from_jax(d_params, d_batch_stats, d_net)
+        out["d_opt"] = _moments_from_jax(
+            d_opt_state, lambda t: d_from_jax(t, None, d_net))
+    return out
+
+
+def cyclegan_state_from_jax(tree: Mapping[str, Any], state
+                            ) -> Dict[str, Any]:
+    """A JAX ``CycleGANState`` (``trainner_tpu/train/cyclegan_trainer.py:
+    40``; live as numpy leaves, or as a ``.state`` file holds it) -> what
+    ``load_train_state`` takes for the port's CycleGAN ``state``: G's
+    params ``{"G_A", "G_B"}`` with their ``batch_stats`` from ``extra`` and
+    the one optimizer's moments over both, ``d_a`` and ``d_b`` with
+    theirs."""
+    tree = _plain(tree)
+    gnets = dict(state.g.net.items())
+    g = tree["g"]
+    g_extra = g.get("extra") or {}
+    stats = {n: (g_extra.get(n) or {}).get("batch_stats") for n in gnets}
+    out: Dict[str, Any] = {
+        "step": int(np.asarray(tree["step"])),
+        "g": nets_from_jax(g["params"], stats, gnets),
+        "g_opt": _moments_from_jax(
+            g.get("opt_state"), lambda t: nets_from_jax(t, None, gnets))}
+    for which in ("d_a", "d_b"):
+        d, ns = tree.get(which), getattr(state, which)
+        if d is None or ns is None:
+            continue
+        out[which] = d_from_jax(d["params"], (d.get("extra") or {}).get(
+            "batch_stats"), ns.net)
+        out[f"{which}_opt"] = _moments_from_jax(
+            d.get("opt_state"), lambda t, n=ns.net: d_from_jax(t, None, n))
+    if tree.get("rng") is not None:
+        out["rng"] = np.asarray(tree["rng"], np.uint32)
     return out
 
 
@@ -536,8 +689,8 @@ def load_train_state(state, carried: Mapping[str, Any]) -> None:
                              "checkpoint carries none")
         state.grad_hist["vals"].copy_(carried["grad_hist"]["vals"])
         state.grad_hist["n"].fill_(int(carried["grad_hist"]["n"]))
-    for which in ("g", "d", "loc"):
-        net_state = getattr(state, which)
+    for which in ("g", "d", "d_a", "d_b", "loc"):
+        net_state = getattr(state, which, None)
         if net_state is None:
             continue
         if which not in carried:
@@ -771,12 +924,25 @@ def train_state_to_jax(state) -> Dict[str, Any]:
         return convert_g(dict(zip(named, _to_host(list(named.values())))))[0]
 
     rng = state.rng if state.rng is not None else seed_to_key(0)
+    if hasattr(state, "named_params"):
+        gnets = dict(state.g.net.items())
+        g = net(state.g, lambda sd: nets_to_jax(sd, gnets))
+        stats = g.pop("extra").get("batch_stats", {})
+        g["extra"] = {n: {"batch_stats": stats[n]} if stats.get(n) else {}
+                      for n in gnets}
+        return {"step": np.asarray(state.step, np.int32),
+                "rng": np.asarray(rng, np.uint32), "g": g,
+                **{w: None if getattr(state, w) is None else net(
+                    getattr(state, w),
+                    lambda sd, n=getattr(state, w).net: d_to_jax(sd, n))
+                   for w in ("d_a", "d_b")}}
     hist = state.grad_hist
     return {
         "step": np.asarray(state.step, np.int32),
         "rng": np.asarray(rng, np.uint32),
         "g": net(state.g, convert_g),
-        "d": None if state.d is None else net(state.d, discriminator_to_jax),
+        "d": None if state.d is None else net(
+            state.d, lambda sd: d_to_jax(sd, state.d.net)),
         "swa_params": None if state.swa is None else copy_of_g(state.swa),
         "swa_n": None if state.swa_n is None else np.asarray(
             int(state.swa_n), np.int32),
@@ -790,7 +956,8 @@ def train_state_to_jax(state) -> Dict[str, Any]:
 
 
 def train_state_from_state_dict(tree: Mapping[str, Any],
-                                g_net: Optional[torch.nn.Module] = None
+                                g_net: Optional[torch.nn.Module] = None,
+                                d_net: Optional[torch.nn.Module] = None
                                 ) -> Dict[str, Any]:
     """The tree that ``msgpack_restore`` reads from a ``.state`` file (the
     JAX package's or the port's) -> what ``load_train_state`` takes:
@@ -809,7 +976,8 @@ def train_state_from_state_dict(tree: Mapping[str, Any],
         ema_params=tree.get("ema_params"), g_net=g_net,
         g_batch_stats=(tree["g"].get("extra") or {}).get("batch_stats"),
         swa_params=tree.get("swa_params"), swa_n=tree.get("swa_n"),
-        loc=tree.get("loc"), grad_hist=tree.get("grad_hist"))
+        loc=tree.get("loc"), grad_hist=tree.get("grad_hist"),
+        d_net=d_net)
     if tree.get("rng") is not None:
         out["rng"] = np.asarray(tree["rng"], np.uint32)
     return out
