@@ -63,11 +63,11 @@ non-zero exit code and no result line:
    kernel against its plain version too);
 9. cli: ``options/sr/train_sr.yml`` at its full width through
    ``trainner_tpu_torch.train.main`` (the corpus as its train set, a
-   validation set of 4 corpus images and their x4 LR, 12 iterations,
-   checkpoints and validation at 6 and 12): launches per step and per
+   validation set of 2 corpus images and their x4 LR, 12 iterations,
+   validation at 6 and 12, checkpoints at 12): launches per step and per
    batch, the artifacts, the JSONL scalars, the steady it/s, the save and
    validation times; then a second ``main`` that resumes from
-   ``training_state/`` to 16, whose loaded state equals the saved one bit
+   ``training_state/`` to 14, whose loaded state equals the saved one bit
    for bit;
 10. times: CUDA-event times of each kernel, its plain version, its bound
    and a library call as a yardstick (the cuDNN five-conv chain; reflect
@@ -95,7 +95,8 @@ non-zero exit code and no result line:
    resume into a captured state, bit for bit; ``train_steps`` k = 10 with
    a MultiStep boundary inside the window; the degrader from one
    generator state and plan stream; ``eval_step`` at b = 8 in f32 and
-   bf16, x8 and chop on a 136 x 128 image (replaying their graphs)
+   bf16, x8 on a 72 x 64 and chop on a 136 x 128 image (replaying their
+   graphs)
    against the CPU's eager composition; and eager against graphed times
    of each with the device-busy ms and idle share, the captures' seconds
    and pool memory, the test CLI's seconds per image on a test set of one
@@ -118,7 +119,7 @@ non-zero exit code and no result line:
    eager ones (69 + 69 block launches per replay, from a trace), their
    times; the end-to-end rate; then the training CLI on a copy of the
    options (the corpus, 12 iterations, checkpoints with ``_emaG`` and
-   validation at 6 and 12, a resume to 16 whose EMA and spectral-norm
+   validation at 6 and 12, a resume to 14 whose EMA and spectral-norm
    state load bit for bit), each step's launches read between markers;
 14. zoo (after realesrgan): the SR generator options at full width.
    Real-ESRGAN's x2 generator (``scale: 2``, ``use_unshuffle``,
@@ -131,7 +132,7 @@ non-zero exit code and no result line:
    128 px) as a graph against eager within the step tolerances, 69 + 69
    block launches per replay from a trace, its times; ``train_sr.yml``
    with the x2 layout and the D preset through the training CLI (12
-   iterations, a resume to 16 that loads bit for bit); full-width
+   iterations, a resume to 14 that loads bit for bit); full-width
    ``sr_resnet`` card against CPU (f32 and bf16 forwards, 3 f32 steps
    with D-VGG-128 at b=4) and ESRGAN+ (``plus``: no block kernel) card
    against CPU;
@@ -144,9 +145,9 @@ non-zero exit code and no result line:
    degrader with every op no preset reaches, combo's (shuffled, with its
    pool and patches) and realsr's, each as a CUDA graph against its eager
    program, with its blur launches by shape and its times; the training
-   CLI on ``train_sr.yml`` with combo (12 iterations and a resume to 16,
-   31 blur launches per batch from the trace) and with realsr (6, no
-   blur); the blur kernel's times for this slice's callers (the pool and
+   CLI on ``train_sr.yml`` with combo (12 iterations, 31 blur launches
+   per batch from the trace; the flagship's state, whose resume phase 9
+   holds) and with realsr (6, no blur); the blur kernel's times for this slice's callers (the pool and
    motion banks, combo's routing slices, unsharp's k 11);
 16. losses (after the degradations): the rest of the loss stack of
    ``train_sr.yml`` (its commented loss block switched on, with
@@ -162,7 +163,7 @@ non-zero exit code and no result line:
    block launches per replay from a trace), its times beside the flagship
    step's in turns, its peak memory and the device time of each added loss
    and of the penalty's pass; the training CLI on the yml (12 iterations
-   and a resume to 16, 69 + 69 block and 24 blur launches per step from
+   and a resume to 14, 69 + 69 block and 24 blur launches per step from
    the trace, LPIPS in the validation) and its rate eager and graphed in
    turns;
 17. trainer options (after the losses): every option of the JAX
@@ -180,9 +181,9 @@ non-zero exit code and no result line:
    starts, a replay of each program traced (69 x 2 + 69 x 2 block
    launches under the virtual batch, 69 + 69 under AdaTarget); the
    training CLI on it at crop 224 (the bsrgan jpeg needs an LR of a
-   multiple of 8; 12 iterations and a resume to 16 that restores SWA, the
+   multiple of 8; 12 iterations and a resume to 14 that restores SWA, the
    LocNet, the clip history and every optimizer state, the launches per
-   step from the trace), its ``16_swaG`` file served by the test CLI with
+   step from the trace), its ``14_swaG`` file served by the test CLI with
    ``which: swa``; and the graphed step with each optimizer, the auto
    clip, the virtual batch and the options cell against the flagship's, in
    turns.
@@ -192,7 +193,8 @@ non-zero exit code and no result line:
    PNG bit for bit, a Paeth-filtered one too; the host's decode ms per
    sample of a PNG file, an LMDB value and a Paeth-filtered value); the
    training CLI on ``train_sr.yml`` with the LMDB as its train set (12
-   iterations and a resume to 16, launches from the trace); the CLI with
+   iterations, launches from the trace; the flagship's state, whose resume
+   phase 9 holds); the CLI with
    ``aug_downscale: 0.5`` and a ``subset_file`` of half the corpus (every
    sample from the subset); the graphed step fed by the folder and the
    LMDB in turns (it/s); a ``WeightedMultiLoader`` over [folder, LMDB]
@@ -206,18 +208,18 @@ non-zero exit code and no result line:
    against CPU in f32 and bf16 (every PPON output); the training CLI on
    ``train_sr.yml`` with ``model: ppon``, ``ppon_stages`` [4, 8] and the
    losses its phases select (contextual and the GAN on D-VGG-128 in phase
-   3), 12 iterations through the three phases and a resume to 16, its G
+   3), 12 iterations through the three phases and a resume to 14, its G
    served by the test CLI at ``ppon_phase`` 3 and 1; six PPON steps
    graphed against eager bit for bit, the frozen branches bit-equal across
    each; one f32 step per phase at cut depth (nb 1) on the card, the CPU
    and an f64 witness; PAN through the ``sr`` training CLI (12 and a
-   resume to 16); the three models' serving Mpx/s at b=8, 128 -> 512 px.
+   resume to 14); the three models' serving Mpx/s at b=8, 128 -> 512 px.
 20. i2i and sft (after phase 19): SFTGAN (``options/sr/train_sftgan.json``),
    pix2pix (``options/i2i/train_pix2pix.yml``, ``serial_batches``) and
    CycleGAN (``options/i2i/train_cyclegan.yml``) at full width on seeded
    data (A: 16 corpus images; B: a second 1/f corpus; SFTGAN's seeded
    probability maps as ``.npy``): each training CLI for 12 iterations
-   (sample grids at 6 and 12 for the i2i cells) and a resume to 16 whose
+   (sample grids at 6 and 12 for the i2i cells) and a resume to 14 whose
    loaded state equals the saved one, its G served by the test CLI,
    three steps graphed against eager bit for bit (dropout masks and pool
    swaps included), one f32 SGD step at cut depth on the card, the CPU
@@ -225,6 +227,29 @@ non-zero exit code and no result line:
    Gs' forward Mpx/s (SFTNet at b=8, 128 -> 512 px; the U-Net and ResNet
    G at b=1, 256 px); the multiscale and pixel Ds' forward and backward
    card against CPU. No kernel of the repo runs in these nets.
+21. video (after phase 20): SOF-VSR with its RRDB tail at the full width
+   of ``options/video/train_video.yml`` (channels 320, 3 frames, x4; nf
+   64, nb 23, gc 32; bf16) on seeded folders of 1/f frames moving a pixel
+   or two per frame: the training CLI for 12 iterations (validation at 6
+   and 12) and a resume to 14 whose loaded state equals the saved one, 69
+   block forwards and 69 backwards per step and 69 forwards per
+   validation window from the traces; the block kernels against their
+   plain versions at SOF-VSR's shapes (each block at b=8, 32 x 32,
+   forward and backward, and at 144 x 180 and 80 x 98; the whole G
+   forward at the last two; the f32 G gradient of a b=8 step); three
+   steps graphed against eager
+   bit for bit; one f32 SGD step at cut depth (channels 32, nb 2, b=2) on
+   the card, the CPU and an f64 witness replaying each side's branches of
+   the flow net and the losses; the test CLI on ``test_video.yml`` at LR
+   144 x 180 in f32 and bf16, plain and with ``chop`` (four quadrants per
+   window), 69 block forwards per window or quadrant from the traces;
+   SR3D, EDVR (DCNv2), EVSRGAN (Conv3D) and RIFE at full width card
+   against CPU; every video net's forward Mpx/s.
+
+The launch traces of the serving slice, of phase 14's serving, of every
+training CLI and of phase 21 run their body again when the profiler lost
+records (``_retried_trace``, at most three times; a count over the wanted
+one fails at once; ROADMAP C 24).
 
 Launches: the kernel wrappers count where they put a kernel on a stream,
 eagerly or into a graph being captured (a replay runs no Python). What the
@@ -242,7 +267,7 @@ The second-to-last lines are a JSON summary of the kernels and the card's
 ``{"ok": true, "device": {...}}``.
 
 Usage: python3 chip_smoke.py [--parent DIR]
-       python3 chip_smoke.py --only 18,19,20   (any of phases 18-20 alone,
+       python3 chip_smoke.py --only 18,19,20,21   (any of phases 18-21 alone,
            after the build and the corpus; no result line)
        python3 chip_smoke.py --kernels-only [--parent DIR]   (phases 1-3
            and the kernels' part of 10: a short run while a kernel is
@@ -291,8 +316,8 @@ OPTIONS_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
 DEBUG_TEST_YML = os.path.join(OPTIONS_DIR, "test_sr_debug.yml")
 DEBUG_TRAIN_YML = os.path.join(OPTIONS_DIR, "train_sr_debug.yml")
 TRAIN_YML = os.path.join(OPTIONS_DIR, "train_sr.yml")
-N_VAL = 4
-CLI_NITER, CLI_FREQ, CLI_RESUME_NITER = 12, 6, 16
+N_VAL = 2
+CLI_NITER, CLI_FREQ, CLI_RESUME_NITER = 12, 6, 14
 # How one tf32 mma.sync.m16n8k8 adds on the card, as phase_tf32_mma reads
 # it (mma_tf32_sum): the eight products, exact, and the running sum are
 # aligned to the largest exponent among them, a product's exponent being
@@ -424,35 +449,85 @@ def _mark() -> None:
     torch.cuda._sleep(1)
 
 
+class ShortTrace(AssertionError):
+    """A launch trace that holds fewer launches than the body made, of
+    every kernel, and none more: the profiler lost records."""
+
+
+def _check_launches(out: dict, want: dict, fresh: bool, label: str) -> None:
+    """``ran`` must equal ``want`` and, when ``fresh``, every wrapper with
+    launches must have counted some. A trace short of ``want`` on some
+    kernel and over it on none raises ``ShortTrace``; any other mismatch
+    an ``AssertionError``."""
+    want = {k: want.get(k, 0) for k in out["ran"]}
+    idle = [k for k, n in want.items() if n and fresh
+            and not out["counted"][k]]
+    if out["ran"] == want and not idle:
+        return
+    msg = (f"{label}: the card ran {out['ran']}, expected {want}; the "
+           f"wrappers counted {out['counted']}; {out['records']} device "
+           f"records in the profiler session")
+    short = not idle and all(out["ran"][k] <= want[k] for k in want)
+    raise (ShortTrace if short else AssertionError)(msg)
+
+
 @contextlib.contextmanager
 def _launch_trace(want: dict = None, fresh: bool = True, label: str = ""):
     """Runs the body under torch.profiler, the device's activity only (the
     kernels of graph replays included), with every wrapper's count set to
     0 just before it. Yields a dict that, after the body, holds ``ran``,
     the launches of each kernel in the trace by wrapper (what the card
-    ran), ``counted``, the wrappers' own counts over the body, and
-    ``segments``, ``ran`` between the ``_mark`` markers. With ``want``
-    ({wrapper: launches}), ``ran`` must equal it and, when ``fresh`` (the
-    body captured its graphs), every wrapper with launches must have
-    counted some too."""
+    ran), ``counted``, the wrappers' own counts over the body,
+    ``segments``, ``ran`` between the ``_mark`` markers, and ``records``,
+    the session's device records. With ``want`` ({wrapper: launches})
+    ``_check_launches`` holds ``ran`` to it (a short trace raises
+    ``ShortTrace``, which ``_retried_trace`` answers)."""
     out = {}
     with _profiled() as prof:
         _reset_launches()
         yield out
     out["counted"] = _counted()
     names = [name for _, _, name in _device_events(prof)]
+    out["records"] = len(names)
     out["ran"] = _calls_per_wrapper(names)
     cuts = [i for i, n in enumerate(names) if MARKER in n]
     out["segments"] = [_calls_per_wrapper(names[a + 1:b]) for a, b in
                        zip([-1] + cuts, cuts + [len(names)])]
     if want is not None:
-        want = {k: want.get(k, 0) for k in out["ran"]}
-        idle = [k for k, n in want.items() if n and fresh
-                and not out["counted"][k]]
-        if out["ran"] != want or idle:
-            raise AssertionError(
-                f"{label}: the card ran {out['ran']}, expected {want}; the "
-                f"wrappers counted {out['counted']}")
+        _check_launches(out, want, fresh, label)
+
+
+TRACE_ATTEMPTS = 3
+
+
+def _retried_trace(body, want: dict, fresh: bool = True, label: str = "",
+                   trace=None):
+    """``body()`` under ``_launch_trace(want, fresh, label)``; when the
+    trace comes up short (``ShortTrace``: the profiler lost records), the
+    body runs again in a fresh session, up to ``TRACE_ATTEMPTS`` times in
+    all, and then the run fails. Every attempt's wrappers must count what
+    the first one's did, or it fails at once; so must a trace over
+    ``want``. ``trace`` (a stub in the tests) stands for
+    ``_launch_trace``. Returns (the trace, what the body returned)."""
+    trace = trace or _launch_trace
+    first = None
+    for attempt in range(1, TRACE_ATTEMPTS + 1):
+        t = {}
+        try:
+            with trace(want, fresh, label) as t:
+                result = body()
+            return t, result
+        except ShortTrace as e:
+            if first is None:
+                first = t["counted"]
+            elif t["counted"] != first:
+                raise AssertionError(
+                    f"{label}: the wrappers counted {t['counted']} in "
+                    f"attempt {attempt}, {first} in the first") from e
+            if attempt == TRACE_ATTEMPTS:
+                raise
+            print(f"trace: {label}: attempt {attempt} short ({e}); "
+                  "tracing the body again")
 
 
 def _time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
@@ -937,8 +1012,14 @@ def _gain_weights(net, seed: int) -> None:
     from trainner_tpu_torch.ops.blocks import (Dense, SelfAttentionBlock,
                                                _Conv, kaiming_init_)
 
+    from trainner_tpu_torch.ops.deform_conv import DCNv2Pack
+
     gen = torch.Generator().manual_seed(seed)
     for m in net.modules():
+        if isinstance(m, DCNv2Pack):  # its own kernel (flax's ``kernel``)
+            with torch.no_grad():
+                m.weight.copy_(kaiming_init_(torch.empty(m.weight.shape),
+                                             0.7, gen))
         if isinstance(m, SelfAttentionBlock):
             with torch.no_grad():
                 m.gamma.fill_(0.5)
@@ -958,10 +1039,9 @@ def _gain_weights(net, seed: int) -> None:
 def phase_slice(smi: str, root: str) -> dict:
     """The main path: the test CLI in f32 and bf16, then in f32 with
     ``x8: true`` (eight forwards per image) and with ``chop: true`` (one
-    128 x 128 tile per image), each run under a launch trace. Returns the
-    launches the card ran and the wrappers counted, over all runs."""
-    import torch
-
+    128 x 128 tile per image), each run under a launch trace
+    (``_retried_trace``). Returns the launches the card ran and the
+    wrappers counted, over all runs."""
     from trainner_tpu_torch import test as test_cli
 
     per_forward = NB * 3
@@ -973,12 +1053,13 @@ def phase_slice(smi: str, root: str) -> dict:
     for path, forwards in runs:
         t0 = time.time()
         want = {"rdb5c": per_forward * forwards * N_IMAGES}
-        with _launch_trace(want, label=os.path.basename(path)) as t:
-            averages = test_cli.main(["-opt", path])
+        t, averages = _retried_trace(lambda: test_cli.main(["-opt", path]),
+                                     want, label=os.path.basename(path))
         secs = time.time() - t0
         vals = {m["name"]: m["average"] for m in averages["synth"]}
         print(f"slice: {os.path.basename(path)} {N_IMAGES} images in "
-              f"{secs:.2f} s (traced), launches the card ran "
+              f"{secs:.2f} s (traced, {t['records']} device records), "
+              f"launches the card ran "
               f"{t['ran']['rdb5c']} ({per_forward} per G forward x "
               f"{forwards} x {N_IMAGES}), the wrapper counted "
               f"{t['counted']['rdb5c']}, metrics {vals}")
@@ -1647,7 +1728,7 @@ def _cli_options(root: str, corpus: str, yml: str = None,
     opt["datasets"]["train"]["dataroot_HR"] = corpus
     opt["datasets"]["val"].update(dataroot_HR=val_hr, dataroot_LR=val_lr)
     opt["train"].update(niter=niter, val_freq=CLI_FREQ)
-    opt["logger"].update(print_freq=2, save_checkpoint_freq=CLI_FREQ)
+    opt["logger"].update(print_freq=2, save_checkpoint_freq=niter)
     opt["path"] = {**(opt.get("path") or {}),
                    "root": os.path.join(root, name)}
     path = os.path.join(root, f"{name}_options.json")
@@ -1708,6 +1789,14 @@ def _save_breakdown(state, path: str) -> dict:
     return out
 
 
+def _resume_state(exp: str, niter: int) -> str:
+    """The state file a resume starts from: ``training_state/{niter}.state``
+    itself, not the directory, whose newest state a resume would take, so
+    that a traced resume that runs again (``_retried_trace``) starts where
+    the first attempt did and not from the state that attempt saved."""
+    return os.path.join(exp, "training_state", f"{niter}.state")
+
+
 def phase_cli(smi: str, root: str, yml: str = None, label: str = "cli",
               per_batch: int = 2 * 2 * SHUFFLE_K,
               nets: tuple = ("G", "D"), edit=None, niter: int = CLI_NITER,
@@ -1717,10 +1806,11 @@ def phase_cli(smi: str, root: str, yml: str = None, label: str = "cli",
     (``yml``; by default ``options/sr/train_sr.yml``: G nf 64, nb 23, gc
     32, D-VGG-128, batch 32, crop 128, bsrgan with the per-sample shuffle,
     bf16), ``trainner_tpu_torch.train.main`` on the card for 12 iterations
-    with checkpoints (one file per net of ``nets``) and validation at 6
-    and 12; then a second ``main`` that resumes from ``training_state/`` to
-    16, whose loaded state must equal the saved one bit for bit. Each run
-    under a launch trace: the three kernels' launches per step, per batch
+    with checkpoints at 12 (one file per net of ``nets``) and validation
+    at 6 and 12; then a second ``main`` that resumes from
+    ``training_state/12.state`` to 14, whose loaded state must equal the
+    saved one bit for bit. Each run under a launch trace
+    (``_retried_trace``): the three kernels' launches per step, per batch
     (``per_batch`` blur launches) and in all. ``niter`` (a multiple of 6)
     and ``resume`` shorten it. ``g_launches(n)``: the forward (and
     backward) block launches of step n where they are not 69 (a virtual
@@ -1774,20 +1864,40 @@ def phase_cli(smi: str, root: str, yml: str = None, label: str = "cli",
         rec["loaded"] = (path, meta, _state_tensors(state))
         return state, meta
 
-    def run(argv):
-        rec["steps"].clear()
+    def run(argv, want, what):
+        def body():
+            for key in ("steps", "save", "val"):
+                rec[key].clear()
+            return cli.main(argv)
+
         t0 = time.perf_counter()
-        with _launch_trace() as t:
-            state = cli.main(argv)
+        t, state = _retried_trace(body, want, label=what)
         return state, t, time.perf_counter() - t0
 
+    # launches per step, per batch and in all: before step 1 its batch's
+    # degrader, then each step, then the next batch's degrader (after a
+    # validation at 6, its forwards too), and after step 12 the validation
+    # at 12
+    n_val = niter // CLI_FREQ * N_VAL  # validation every CLI_FREQ
+    per_step = g_launches or (lambda n: per_g)
+    g_run = sum(per_step(n) for n in range(1, niter + 1))
+    want = dict(blur=per_batch * niter,
+                rdb5c=g_run + per_val * n_val,
+                rdb5c_bwd=g_run)
+    n2 = CLI_RESUME_NITER - niter
+    g_run2 = sum(per_step(n) for n in range(niter + 1,
+                                            CLI_RESUME_NITER + 1))
+    want2 = dict(blur=per_batch * n2, rdb5c=g_run2, rdb5c_bwd=g_run2)
     cls.train_step = train_step
     checkpoint.save_checkpoint = timed(orig[1], "save")
     cli.validate = timed(orig[2], "val")
     checkpoint.load_state = load_state
     try:
-        state, counts, wall = run(["-opt", opt_path])
+        state, counts, wall = run(["-opt", opt_path], want, label)
         steps = list(rec["steps"])
+        timed_parts = rec["save"] + rec["val"]
+        save_ms = [d * 1e3 for _, d in rec["save"]]
+        val_ms = [d * 1e3 for _, d in rec["val"]]
         saved = _state_tensors(state)
         save_parts = _save_breakdown(state, os.path.join(root, "t.state"))
         del state
@@ -1796,27 +1906,18 @@ def phase_cli(smi: str, root: str, yml: str = None, label: str = "cli",
             with open(opt_path) as f:
                 opt2 = json.load(f)
             opt2["train"]["niter"] = CLI_RESUME_NITER
-            opt2["path"]["resume_state"] = os.path.join(exp,
-                                                        "training_state")
+            opt2["path"]["resume_state"] = _resume_state(exp, niter)
             opt2_path = os.path.join(root, f"{label}_resume.json")
             with open(opt2_path, "w") as f:
                 json.dump(opt2, f)
-            state2, counts2, wall2 = run(["-opt", opt2_path])
+            state2, counts2, wall2 = run(["-opt", opt2_path], want2,
+                                         f"{label} resume")
             steps2 = list(rec["steps"])
     finally:
         (cls.train_step, checkpoint.save_checkpoint, cli.validate,
          checkpoint.load_state) = orig
 
-    # the first run: launches per step and per batch, and in all, from
-    # its trace; between the markers: before step 1 its batch's degrader,
-    # then each step, then the next batch's degrader (after a validation
-    # at 6, its forwards too), and after step 12 the validation at 12
-    n_val = niter // CLI_FREQ * N_VAL  # validation every CLI_FREQ
-    per_step = g_launches or (lambda n: per_g)
-    g_run = sum(per_step(n) for n in range(1, niter + 1))
-    want = dict(blur=per_batch * niter,
-                rdb5c=g_run + per_val * n_val,
-                rdb5c_bwd=g_run)
+    # the first run's launches per step and per batch, from its trace
     _check_cli_trace(label, counts, want, steps, range(1, niter + 1),
                      per_val, per_batch, per_step)
     print(f"{label}: main() on {niter} iterations, {wall:.2f} s (traced): "
@@ -1830,10 +1931,8 @@ def phase_cli(smi: str, root: str, yml: str = None, label: str = "cli",
     # the artifacts
     files = {os.path.relpath(os.path.join(d, f), exp)
              for d, _, fs in os.walk(exp) for f in fs}
-    need = {f"models/{t}_{n}.ckpt" for t in (CLI_FREQ, niter)
-            for n in nets} | {f"training_state/{t}.state{e}"
-                              for t in (CLI_FREQ, niter)
-                              for e in ("", ".json")} \
+    need = {f"models/{niter}_{n}.ckpt" for n in nets} | {
+        f"training_state/{niter}.state{e}" for e in ("", ".json")} \
         | {"tb/scalars.jsonl"}
     names = [os.path.splitext(n)[0] for n in
              sorted(os.listdir(os.path.join(root, "val_HR")))]
@@ -1859,11 +1958,9 @@ def phase_cli(smi: str, root: str, yml: str = None, label: str = "cli",
     # (synchronised there), with and without the saves and validations
     # inside that span
     span = rec["end"] - steps[2][1]
-    steady = span - sum(d for t0, d in rec["save"] + rec["val"]
+    steady = span - sum(d for t0, d in timed_parts
                         if steps[2][1] <= t0 < rec["end"])
     n = niter - 2
-    save_ms = [d * 1e3 for _, d in rec["save"]]
-    val_ms = [d * 1e3 for _, d in rec["val"]]
     print(f"times: {label} main() steps 3-{niter} on the host clock, "
           f"under the launch trace: "
           f"{steady * 1e3 / n:.3f} ms per iteration, {n / steady:.4f} it/s "
@@ -1888,10 +1985,6 @@ def phase_cli(smi: str, root: str, yml: str = None, label: str = "cli",
         torch.equal(saved[k], loaded[k]) if isinstance(saved[k],
                                                        torch.Tensor)
         else saved[k] == loaded[k])]
-    n2 = CLI_RESUME_NITER - niter
-    g_run2 = sum(per_step(n) for n in range(niter + 1,
-                                            CLI_RESUME_NITER + 1))
-    want2 = dict(blur=per_batch * n2, rdb5c=g_run2, rdb5c_bwd=g_run2)
     _check_cli_trace(f"{label} resume", counts2, want2, steps2,
                      range(niter + 1, CLI_RESUME_NITER + 1), per_val,
                      per_batch, per_step)
@@ -2608,7 +2701,7 @@ def phase_trace(smi: str, root: str, step_ms: dict) -> None:
 # graphs: the step, train_steps, the degrader and eval_step as CUDA graphs
 # ---------------------------------------------------------------------------
 
-GRAPH_STEPS = 3     # graphed against eager steps, per type
+GRAPH_STEPS = 2     # graphed against eager steps, per type
 # the order of eager (False) and graphed (True) runs that a phase times:
 # one turn each (eager, graphed), where four turns ran before (eager,
 # graphed, graphed, eager)
@@ -2616,7 +2709,8 @@ TURNS = (False, True)
 WINDOW_K = 10       # train_steps' window, as bench.py times it
 WINDOW_BOUNDARY = 5  # a MultiStep boundary inside the window
 EMA_MOVE_TOL = 1e-2  # bf16 graph against eager: the EMA weights' moves
-X8_CHOP_LR = (1, 136, 128, 3)
+X8_LR = (1, 72, 64, 3)      # x8 on the card against the CPU
+CHOP_LR = (1, 136, 128, 3)  # chop: two 128 x 128 tiles
 
 
 NET_STATES = ("g", "d", "d_a", "d_b")  # CycleGAN's state has two Ds
@@ -3164,8 +3258,9 @@ def _graph_e2e(smi: str, root: str, programs=None) -> dict:
 def _graph_serving(smi: str) -> None:
     """``eval_step`` as a graph against the eager one at b = 8, 128 -> 512
     px (f32 within 1e-5 and bf16 within 3e-2 of the output's size, the
-    full-G tolerances; times in turns); then x8 and chop on one 136 x 128
-    LR image in f32 on the card against the eager ``eval_step`` over the
+    full-G tolerances; times in turns); then x8 on one 72 x 64 and chop on
+    one 136 x 128 LR image in f32 on the card against the eager
+    ``eval_step`` over the
     same rotations and tiles on the CPU with the same weights (the plain
     versions), within the full-G f32 tolerance."""
     import torch
@@ -3232,17 +3327,18 @@ def _graph_serving(smi: str) -> None:
     cst = cpu.init_state(0)
     cst.g.net.load_state_dict({k: v.cpu() for k, v in
                                st.g.net.state_dict().items()})
-    x = torch.rand(*X8_CHOP_LR, generator=torch.Generator().manual_seed(32))
     threads = torch.get_num_threads()
     torch.set_num_threads(os.cpu_count() or 8)
     try:
         # x8 meets each of its two shapes four times a call, chop its one
         # chunk of two tiles once: the last call replays graphs of them
-        for label, run, calls in (
+        for label, run, calls, shape in (
                 ("x8", lambda t, s, v: t.eval_step_x8(s, v),
-                 tr.EVAL_CAPTURE_AT // 4 + 1),
+                 tr.EVAL_CAPTURE_AT // 4 + 1, X8_LR),
                 ("chop", lambda t, s, v: t.eval_step_chop(s, v),
-                 tr.EVAL_CAPTURE_AT + 1)):
+                 tr.EVAL_CAPTURE_AT + 1, CHOP_LR)):
+            x = torch.rand(*shape,
+                           generator=torch.Generator().manual_seed(32))
             before = {k: c.replays for k, c in tr.eval_graphs().items()}
             for _ in range(calls):
                 got = run(tr, st, x.cuda())
@@ -3254,17 +3350,17 @@ def _graph_serving(smi: str) -> None:
             cpu_s = time.perf_counter() - t0
             scale = float(want.abs().max())
             err = float((got.cpu() - want).abs().max())
-            print(f"graphs: {label} on a {X8_CHOP_LR[1]}x{X8_CHOP_LR[2]} "
+            print(f"graphs: {label} on a {shape[1]}x{shape[2]} "
                   f"LR image, f32 on the card, call {calls} (graph replays "
                   f"of the shapes {replayed}) against the CPU's eager "
                   f"composition ({cpu_s:.1f} s there): max_abs_err "
                   f"{err:.3e} on max|ref| {scale:.3e}, tol "
                   f"{1e-5 * scale:.3e}")
-            _, lh, lw, _ = X8_CHOP_LR
+            _, lh, lw, _ = shape
             want_shapes = (sorted([(1, lh, lw, 3), (1, lw, lh, 3)])
                            if label == "x8" else [(2, 128, 128, 3)])
-            if tuple(got.shape) != (1, X8_CHOP_LR[1] * 4, X8_CHOP_LR[2] * 4,
-                                    3) or not err <= 1e-5 * scale \
+            if tuple(got.shape) != (1, lh * 4, lw * 4, 3) \
+                    or not err <= 1e-5 * scale \
                     or replayed != want_shapes:
                 raise AssertionError(f"graphs: {label}")
     finally:
@@ -3878,7 +3974,7 @@ def phase_realesrgan(smi: str, root: str) -> dict:
     eager; three graphed bf16 steps against eager within the step
     tolerances, 69 + 69 block launches per step from a trace, the step's
     times; the end-to-end rate; then ``main`` on a copy of the options for
-    12 iterations and a resume to 16 whose EMA and spectral-norm state
+    12 iterations and a resume to 14 whose EMA and spectral-norm state
     load bit for bit. Returns the CLI runs' launch traces."""
     t0 = time.perf_counter()
     _resrgan_ops(smi)
@@ -3896,7 +3992,7 @@ def phase_realesrgan(smi: str, root: str) -> dict:
     return {f"realesrgan {k}": v for k, v in traces.items()}
 
 
-N_ZOO_IMAGES = 4  # serving runs of phase 14 (x8: 32 calls of one shape)
+N_ZOO_IMAGES = 3  # serving runs of phase 14 (x8: 24 calls of one shape)
 # full-width sr_resnet's steps with train_sr.yml's D-VGG (batch norms):
 # each tensor's error as a share of its move, card against CPU, by net (G,
 # D), set from the H100's readings (G 1.07e-2, D 1.14e-1); and each
@@ -3904,6 +4000,7 @@ N_ZOO_IMAGES = 4  # serving runs of phase 14 (x8: 32 calls of one shape)
 # the CPU f32's largest distance to it in the same net (read: G 0.40, D
 # 0.78)
 SRRESNET_STEP_TOL = {"g": 3e-2, "d": 3e-1}
+SRRESNET_STEPS = 2
 SRRESNET_F64_TOL = 2.0
 ZOO_CPU_LR = (1, 32, 32, 3)  # card against CPU, full width
 
@@ -3935,8 +4032,8 @@ def _zoo_serving(smi: str, root: str) -> dict:
     ``use_amp``, CEM (box and cubic, with ``out_orig`` and ``out_keepY``:
     two G forwards per image), x8, and chop on 249 px LRs (3 x 3 tiles of
     128 at rows and columns 0, 112 and 121, unshuffled tile by tile, in
-    one forward per image), each under a launch trace with 69 block
-    launches per G forward; then the full G on the kernels
+    one forward per image), each under a launch trace (``_retried_trace``)
+    with 69 block launches per G forward; then the full G on the kernels
     against the same G on the plain versions, and ``eval_step``'s ms per
     forward at b=8 (graphed) in f32 and bf16. Returns the traces."""
     import torch
@@ -3967,11 +4064,14 @@ def _zoo_serving(smi: str, root: str) -> dict:
             seen.append(tuple(lr.shape))
             return eval_step(self, state, lr, *args, **kw)
 
+        def body():
+            seen.clear()
+            return test_cli.main(["-opt", path])
+
         t0 = time.time()
         SRTrainer.eval_step = spy
         try:
-            with _launch_trace(want, label=name) as t:
-                averages = test_cli.main(["-opt", path])
+            t, averages = _retried_trace(body, want, label=name)
         finally:
             SRTrainer.eval_step = eval_step
         vals = {m["name"]: m["average"] for m in averages["synth"]}
@@ -4305,7 +4405,9 @@ def _steps_card_cpu_f64(label: str, opt: dict, batches, graphs: int = 1,
     rounding alone, where a LeakyReLU that rounding flips on one side would
     move D's gradients by that element's whole share. ``branches="all"``
     records G's (each of CycleGAN's two) and the loss stack's branches
-    too, for nets whose ReLUs no kernel hides. Returns per tensor
+    too, for nets whose ReLUs no kernel hides; a callable ``branches(state,
+    trainer)`` names the modules whose branches are recorded. Returns per
+    tensor
     (``g.``/``d.``/``l.``/``s.``) the largest, over the steps, of each
     side's distance from its witness rounded to f32 (card against CPU:
     their own distance) as a share of the tensor's move in its witness's
@@ -4360,10 +4462,13 @@ def _steps_card_cpu_f64(label: str, opt: dict, batches, graphs: int = 1,
             start = {k: v.double() for k, v in _train_tensors(cpu).items()}
             logs, records = {}, {}
             for side in order:
-                d_nets = [m for w, ns in _net_states(states[side])
-                          if w != "g" or branches == "all"
-                          for m in (ns.net.values() if hasattr(
-                              ns.net, "values") else [ns.net])]
+                if callable(branches):
+                    d_nets = branches(states[side], trainers[side])
+                else:
+                    d_nets = [m for w, ns in _net_states(states[side])
+                              if w != "g" or branches == "all"
+                              for m in (ns.net.values() if hasattr(
+                                  ns.net, "values") else [ns.net])]
                 if branches == "all":
                     d_nets.append(trainers[side].generator_loss)
                 rec = None
@@ -4522,15 +4627,15 @@ def _zoo_srresnet_and_plus(smi: str) -> None:
     gen = torch.Generator().manual_seed(6)
     batches = [{"LR": torch.rand(4, 32, 32, 3, generator=gen),
                 "HR": torch.rand(4, 128, 128, 3, generator=gen)}
-               for _ in range(3)]
+               for _ in range(SRRESNET_STEPS)]
     r = _steps_card_cpu_f64("zoo: sr_resnet", srresnet, batches)
     bad = []
     for net in ("g", "d"):
         cc, f64, cpu = (_worst(r[key], net + ".") for key in
                         ("card_cpu", "card_f64", "cpu_f64"))
         step_tol, f64_tol = SRRESNET_STEP_TOL[net], SRRESNET_F64_TOL * cpu[0]
-        print(f"zoo: sr_resnet with D-VGG-128 (batch norms), 3 f32 SGD "
-              f"steps (lr 1e-2) b=4 32 -> 128 px, {net.upper()}'s tensors "
+        print(f"zoo: sr_resnet with D-VGG-128 (batch norms), "
+              f"{SRRESNET_STEPS} f32 SGD steps (lr 1e-2) b=4 32 -> 128 px, {net.upper()}'s tensors "
               f"as a share of their move: card vs CPU up to {cc[0]:.3e} "
               f"({cc[1]}; tol {step_tol}); against the f64 witness: card "
               f"{f64[0]:.3e} ({f64[1]}; tol {f64_tol:.3e}), CPU f32 "
@@ -4557,7 +4662,7 @@ def phase_zoo(smi: str, root: str) -> dict:
     layout (``_zoo_serving``); its step with ``disc_esrgan`` as a graph
     against eager (bf16, b=32, 64 -> 128 px; 69 + 69 block launches per
     replay, from a trace; step ms and device busy); ``train_sr.yml`` with
-    the x2 layout through the CLI for 12 iterations and a resume to 16
+    the x2 layout through the CLI for 12 iterations and a resume to 14
     that loads bit for bit; then ``sr_resnet`` and ESRGAN+ card against
     CPU. Returns the main paths' launch traces."""
     t0 = time.perf_counter()
@@ -4865,9 +4970,10 @@ def phase_degradations(smi: str, root: str) -> tuple:
     programs from one generator state, at b=32, crop 128, with their blur
     launches per batch by shape and their times graphed and eager (device
     busy, idle share); then ``train_sr.yml`` through the training CLI with
-    ``augs_strategy: combo`` and its assets at full width (12 iterations
-    and a resume to 16, ``COMBO_BLUR`` blur launches per batch and 69 + 69
-    block launches per step from the trace) and with ``realsr`` (6
+    ``augs_strategy: combo`` and its assets at full width (12 iterations,
+    ``COMBO_BLUR`` blur launches per batch and 69 + 69 block launches per
+    step from the trace; no resume: the state is the flagship's, whose
+    resume phase 9 holds) and with ``realsr`` (6
     iterations, no blur); last the blur kernel's rows for this slice's
     callers. Returns (the CLI runs' traces, the blur rows)."""
     import torch
@@ -4909,7 +5015,7 @@ def phase_degradations(smi: str, root: str) -> tuple:
     traces = {}
     runs = phase_cli(smi, root, TRAIN_YML, "cli_combo",
                      per_batch=sum(COMBO_BLUR.values()),
-                     edit=_strategy_edit("combo", assets))
+                     edit=_strategy_edit("combo", assets), resume=False)
     traces.update({f"combo cli {k}": v for k, v in runs.items()})
     runs = phase_cli(smi, root, TRAIN_YML, "cli_realsr", per_batch=0,
                      edit=_strategy_edit("realsr", assets),
@@ -5376,7 +5482,7 @@ def phase_losses(smi: str, root: str) -> dict:
     launches per replay from a trace, times in turns); its time beside the
     flagship's, its memory and the device time of each added part
     (``_loss_stack_step_times``); then ``train_sr.yml`` with the stack
-    through the training CLI (12 iterations and a resume to 16, 69 + 69
+    through the training CLI (12 iterations and a resume to 14, 69 + 69
     block and 24 blur launches per step from the trace, LPIPS in each
     validation) and its rate eager and graphed in turns. Returns the CLI
     runs' traces."""
@@ -5523,21 +5629,21 @@ def _options_card_cpu(smi: str) -> None:
         lr_D=1e-4 if o in ADAPTIVE else 1e-2), 2, 32, None, 1)
         for o in ("rmsprop", "adamp", "sgdp", "ranger", "madgrad")]
     configs += [
-        # steps 0 and 2 update G, step 1 does not: two programs
+        # step 0 updates G, step 1 does not: two programs
         ("grad_clip auto", _small_options(grad_clip="auto",
-                                          D_update_ratio=2), 3, 32, None, 2),
-        ("virtual_batch_size 2", _small_options(virtual_batch_size=2), 3,
+                                          D_update_ratio=2), 2, 32, None, 2),
+        ("virtual_batch_size 2", _small_options(virtual_batch_size=2), 2,
          32, None, 1),
-        ("freeze_loc 4", _small_options(freeze_loc=4), 3, 32, None, 1),
-        ("fs", _small_options(fs=True), 3, 32, None, 1)]
+        ("freeze_loc 4", _small_options(freeze_loc=4), 2, 32, None, 1),
+        ("fs", _small_options(fs=True), 2, 32, None, 1)]
     configs += [(f"diffaug {p}", _small_options(diffaug=True, dapolicy=p),
-                 3, 32, None, 1) for p in OPT_POLICIES]
+                 2, 32, None, 1) for p in OPT_POLICIES]
     configs += [
         ("batch augmentations", _small_options(
             mixup=True, mixopts=OPT_AUGS, mixalpha=[0.2]),
          len(OPT_AUGS), 32, list(range(len(OPT_AUGS))), 1),
         # AdaTarget's program from step 1 on: two programs
-        ("AdaTarget", atg, 3, 28, None, 2), ("SWA", swa, 3, 32, None, 1)]
+        ("AdaTarget", atg, 2, 28, None, 2), ("SWA", swa, 2, 32, None, 1)]
     t0 = time.perf_counter()
     bad = []
     for label, opt, n, px, choices, graphs in configs:
@@ -5680,11 +5786,11 @@ def _options_cli_edit(opt: dict) -> None:
 
 def _options_cli(smi: str, root: str) -> dict:
     """(c) The training CLI on the cell at ``OPT_CLI_CROP`` (b=32, 56 ->
-    224 px; 12 iterations and a resume to 16
+    224 px; 12 iterations and a resume to 14
     that restores SWA, the LocNet, the clip history and every optimizer
     state bit for bit; 69 x 2 + 69 x 2 block launches per step before
     AdaTarget, 69 + 69 after, 24 blur launches per shuffled batch, from
-    the trace); the ``16_swaG`` file equal to the state's SWA weights and
+    the trace); the ``14_swaG`` file equal to the state's SWA weights and
     served by the port's test CLI with ``which: swa``."""
     import numpy as np
 
@@ -5821,7 +5927,7 @@ def phase_trainer_options(smi: str, root: str) -> dict:
 # ---------------------------------------------------------------------------
 DECODE_SAMPLES = 16  # host decode ms per sample, folder and LMDB
 PAETH_SAMPLES = 2    # ... and of a value filtered with Paeth on every row
-RATE_TURNS = 2       # the folder's and the LMDB's graphed rates, in turns
+RATE_TURNS = 1       # the folder's and the LMDB's graphed rates, in turns
 RATE_STEPS = 4       # timed steps per turn, after the streams' first step
 MIXED_WEIGHTS = (3, 1)  # the weighted loader over [folder, LMDB]
 MIXED_BATCHES = 8
@@ -6086,7 +6192,8 @@ def _producer_rates(smi: str, root: str, db: str) -> dict:
 def phase_producer_rest(smi: str, root: str) -> dict:
     """Phase 18: the rest of the producer at full width. (a) The corpus as
     an LMDB (``_lmdb_corpus``); the training CLI on ``train_sr.yml`` with
-    the LMDB as its train set, 12 iterations and a resume to 16; (b) the
+    the LMDB as its train set, 12 iterations (no resume: the state is the
+    flagship's, whose resume phase 9 holds); (b) the
     same CLI with ``aug_downscale: 0.5`` and a ``subset_file`` of half the
     corpus (every sample from the subset); (c) the rates, the weighted
     loader and ``otf_mode: host`` (``_producer_rates``). Returns the
@@ -6096,7 +6203,7 @@ def phase_producer_rest(smi: str, root: str) -> dict:
     t0 = time.perf_counter()
     db = _lmdb_corpus(smi, root)
     traces = {f"lmdb cli {k}": v for k, v in phase_cli(
-        smi, root, TRAIN_YML, "cli_lmdb", corpus=db).items()}
+        smi, root, TRAIN_YML, "cli_lmdb", corpus=db, resume=False).items()}
     t_lmdb = time.perf_counter() - t0
 
     subset = sorted(os.listdir(os.path.join(root, "corpus")))[::2]
@@ -6353,7 +6460,7 @@ def phase_models(smi: str, root: str) -> dict:
     """Phase 19: PPON, PAN and A2N at full width. PPON: its forward card
     against CPU (f32, bf16) on every output; the training CLI on
     ``train_sr.yml`` with ``model: ppon`` (12 iterations through its three
-    phases and a resume to 16 in phase 3; no block kernel, 24 blur launches
+    phases and a resume to 14 in phase 3; no block kernel, 24 blur launches
     per batch); its saved G served by the test CLI at ``ppon_phase`` 3 and
     1; graphed against eager (``_ppon_graphed_vs_eager``); the f64 witness
     of one step per phase (``_ppon_f64``). PAN (with self-attention) and
@@ -6992,7 +7099,7 @@ def phase_i2i(smi: str, root: str) -> dict:
     CycleGAN (``options/i2i/train_cyclegan.yml``: the ResNet G, 9 blocks,
     ngf 64, instance norm; PatchGAN with instance norm; b=1, crop 256;
     lsgan; pools of 50) on seeded data (``_i2i_data``). For each: the
-    training CLI (12 and a resume to 16, the sample grids), the test CLI,
+    training CLI (12 and a resume to 14, the sample grids), the test CLI,
     graphed against eager bit for bit, the f64 witness at cut depth; then
     the Gs' serving rates and the multiscale and pixel Ds card against
     CPU. No kernel of the repo runs here. Returns the CLI traces."""
@@ -7017,6 +7124,611 @@ def phase_i2i(smi: str, root: str) -> dict:
     print(f"i2i: ok in {time.perf_counter() - t0:.1f} s (sftgan, pix2pix, "
           f"cyclegan: CLI, serving, graphs, f64 each; rates; Ds: "
           f"{', '.join(parts)} s) ({smi})")
+    return traces
+
+
+VIDEO_DIR = os.path.join(os.path.dirname(OPTIONS_DIR), "video")
+VSR_TRAIN_YML = os.path.join(VIDEO_DIR, "train_video.yml")
+VSR_TEST_YML = os.path.join(VIDEO_DIR, "test_video.yml")
+VSR_VIDEOS, VSR_FRAMES, VSR_PX = 4, 8, 256  # training folders of frames
+VSR_VAL_FRAMES = 4        # the validation clip: 2 windows of 3
+VSR_SERVE_FRAMES = 4      # the served clip: 2 windows of 3
+VSR_SERVE_HW = (576, 720)  # its frames; the test CLI serves them at 1/4,
+#                            144 x 180 (Vid4 calendar's LR)
+VSR_GRAPH_STEPS = 3
+VSR_PER_G = NB * 3        # the RRDB tail's block launches per G pass
+# the f64 witness's cut: SOF-VSR channels 32 with its RRDB tail at its
+# real block widths (nf 64, gc 32) and nb 2; b=2, 16 -> 64 px; SGD
+VSR_F64_G = {"channels": 32, "sr_nb": 2}
+VSR_F64_SHAPE = (2, 3, 16, 16, 3)
+# the RRDB tail's LR shapes: a served window (144 x 180) and one of its chop
+# quadrants (each half plus 8 px: 80 x 98)
+VSR_SERVE_LR = (VSR_SERVE_HW[0] // 4, VSR_SERVE_HW[1] // 4)
+VSR_QUAD_LR = (VSR_SERVE_LR[0] // 2 + 8, VSR_SERVE_LR[1] // 2 + 8)
+
+
+def _vsr_frames(out: str, n: int, hw: tuple, seed: int) -> None:
+    """``n`` frames of ``hw``: one 1/f^1.2 RGB field from a seed, each
+    frame a window of it 2 px right and 1 px down of the last, written as
+    PNGs by the port's own writer."""
+    import numpy as np
+
+    from trainner_tpu_torch.data import save_img
+
+    h, w = hw
+    rng = np.random.default_rng(seed)
+    H, W = h + 2 * n, w + 2 * n
+    fy, fx = np.fft.fftfreq(H)[:, None], np.fft.fftfreq(W)[None, :]
+    radius = np.hypot(fy, fx)
+    radius[0, 0] = 1.0
+    field = np.real(np.fft.ifft2(np.fft.fft2(rng.standard_normal(
+        (3, H, W))) / radius ** 1.2))
+    field = field + 0.6 * field.mean(0, keepdims=True)
+    field = (field - field.mean()) / field.std() * 0.18 + 0.5
+    u8 = (np.clip(field, 0, 1) * 255).round().astype(np.uint8)
+    os.makedirs(out, exist_ok=True)
+    for i in range(n):
+        save_img(np.ascontiguousarray(
+            u8[:, i:i + h, 2 * i:2 * i + w].transpose(1, 2, 0)),
+                 os.path.join(out, f"{i:03d}.png"))
+
+
+def _vsr_data(root: str) -> dict:
+    """The training folders (``VSR_VIDEOS`` x ``VSR_FRAMES`` frames of
+    ``VSR_PX``²), the validation clip and the clip to serve."""
+    out = {k: os.path.join(root, "vsr", k) for k in ("train", "val",
+                                                     "serve")}
+    for v in range(VSR_VIDEOS):
+        _vsr_frames(os.path.join(out["train"], f"video{v}"), VSR_FRAMES,
+                    (VSR_PX, VSR_PX), seed=10 + v)
+    _vsr_frames(out["val"], VSR_VAL_FRAMES, (VSR_PX, VSR_PX), seed=20)
+    _vsr_frames(out["serve"], VSR_SERVE_FRAMES, VSR_SERVE_HW, seed=21)
+    return out
+
+
+def _vsr_options(root: str, data: dict, niter: int = CLI_NITER) -> dict:
+    """``train_video.yml`` as written (SOF-VSR channels 320, the RRDB tail
+    nf 64 / nb 23, b 8, crop 128, 3 frames, frame skips and reversal, cb
+    pixel loss, the OFR term, Adam, cosine restarts) with its data roots
+    on ``data``, ``niter``, prints every 2, saves at ``CLI_NITER`` (and the
+    end), validation every ``CLI_FREQ``, ``path.root`` under ``root``."""
+    opt = read_options_yml(VSR_TRAIN_YML)
+    opt["datasets"]["train"].update(dataroot_HR=data["train"], n_workers=4)
+    opt["datasets"]["val"]["dataroot_HR"] = data["val"]
+    opt["train"].update(niter=niter, val_freq=CLI_FREQ)
+    opt["logger"] = {"print_freq": 2, "save_checkpoint_freq": CLI_NITER}
+    opt["path"] = {"root": os.path.join(root, "cli_vsr")}
+    return opt
+
+
+def _vsr_cli(smi: str, root: str, data: dict) -> dict:
+    """The training CLI on ``train_video.yml`` at full width for
+    ``CLI_NITER`` iterations under a launch trace (``_retried_trace``):
+    the card must run 69 block forwards and 69 backwards per step and 69
+    forwards per validation window (at ``CLI_FREQ`` and ``CLI_NITER``);
+    checkpoints at ``CLI_NITER``; then a resume to ``CLI_RESUME_NITER``
+    (69 + 69 per step, traced too) whose loaded state equals the saved one
+    bit for bit. Prints the steady it/s and returns both traces."""
+    import torch
+
+    from trainner_tpu_torch.train import cli
+    from trainner_tpu_torch.train.vsr_trainer import VSRTrainer
+    from trainner_tpu_torch.utils import checkpoint
+
+    opt = _vsr_options(root, data)
+    path = os.path.join(root, "vsr_cli.json")
+    with open(path, "w") as f:
+        json.dump(opt, f)
+    exp = os.path.join(opt["path"]["root"], "experiments", opt["name"])
+    windows = VSR_VAL_FRAMES - 2
+    rec = {"steps": [], "other": []}
+    orig = (VSRTrainer.train_step, checkpoint.save_checkpoint, cli.validate,
+            checkpoint.load_state)
+
+    def train_step(self, state, batch):
+        out = orig[0](self, state, batch)
+        rec["steps"].append(time.perf_counter())
+        return out
+
+    def timed(fn):
+        def run(*args, **kwargs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            rec["other"].append((t0, time.perf_counter() - t0))
+            return out
+        return run
+
+    def load_state(p, state):
+        state, meta = orig[3](p, state)
+        rec["loaded"] = (meta, _cell_tensors(state))
+        return state, meta
+
+    def main():
+        rec["steps"].clear()
+        rec["other"].clear()
+        return cli.main(["-opt", path])
+
+    n_val = 2 * windows
+    want = {"rdb5c": VSR_PER_G * (CLI_NITER + n_val),
+            "rdb5c_bwd": VSR_PER_G * CLI_NITER}
+    resumed = CLI_RESUME_NITER - CLI_NITER
+    want2 = {"rdb5c": VSR_PER_G * resumed, "rdb5c_bwd": VSR_PER_G * resumed}
+    VSRTrainer.train_step = train_step
+    checkpoint.save_checkpoint = timed(orig[1])
+    cli.validate = timed(orig[2])
+    checkpoint.load_state = load_state
+    try:
+        t0 = time.perf_counter()
+        trace, state = _retried_trace(main, want, label="vsr cli")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        steps = list(rec["steps"])
+        other = list(rec["other"])
+        saved = _cell_tensors(state)
+        del state
+        torch.cuda.empty_cache()
+        opt["train"]["niter"] = CLI_RESUME_NITER
+        opt["path"]["resume_state"] = _resume_state(exp, CLI_NITER)
+        with open(path, "w") as f:
+            json.dump(opt, f)
+        t1 = time.perf_counter()
+        trace2, state2 = _retried_trace(main, want2, label="vsr resume")
+        wall2 = time.perf_counter() - t1
+    finally:
+        (VSRTrainer.train_step, checkpoint.save_checkpoint, cli.validate,
+         checkpoint.load_state) = orig
+    span = steps[-1] - steps[2]
+    inside = sum(d for t, d in other if steps[2] <= t < steps[-1])
+    n = len(steps) - 3
+    meta, loaded = rec["loaded"]
+    diff = [k for k in saved if not (
+        torch.equal(saved[k], loaded[k]) if isinstance(saved[k],
+                                                       torch.Tensor)
+        else saved[k] == loaded[k])]
+    files = {os.path.relpath(os.path.join(d, f), exp)
+             for d, _, fs in os.walk(exp) for f in fs}
+    need = {f"models/{t}_G.ckpt" for t in (CLI_NITER, CLI_RESUME_NITER)} | {
+        f"training_state/{t}.state" for t in (CLI_NITER, CLI_RESUME_NITER)}
+    need |= {f"val_images/001/001_{t}.png" for t in (CLI_FREQ, CLI_NITER)}
+    rows = [json.loads(line) for line in
+            open(os.path.join(exp, "tb", "scalars.jsonl"))]
+    ofr = [r["value"] for r in rows if r.get("tag") == "train/ofr"]
+    print(f"vsr: training CLI on train_video.yml ({opt['network_G']}; batch "
+          f"{opt['datasets']['train']['batch_size']}, crop "
+          f"{opt['datasets']['train']['crop_size']}, 3 frames) {CLI_NITER} "
+          f"iterations in {wall:.1f} s (traced, {trace['records']} "
+          f"device records; the card ran {trace['ran']}: "
+          f"{VSR_PER_G} + {VSR_PER_G} per step, {VSR_PER_G} per validation "
+          f"window x {n_val}); the resume to {state2.step} in {wall2:.1f} s "
+          f"(the card ran {trace2['ran']}): {len(saved)} tensors and counts "
+          f"of the saved state, {len(diff)} differ after loading; "
+          f"{len(rows)} JSONL scalars, ofr logged {len(ofr)} times")
+    print(f"times: vsr CLI steps 3-{CLI_NITER} on the host clock: "
+          f"{n / (span - inside):.4f} it/s steady, {n / span:.4f} it/s "
+          f"with the saves and validations ({smi})")
+    if diff or meta["iter"] != CLI_NITER or state2.step != \
+            CLI_RESUME_NITER or need - files or not ofr or not all(
+                math.isfinite(r["value"]) for r in rows):
+        raise AssertionError(f"vsr cli: differs {diff[:4]}, missing "
+                             f"{sorted(need - files)[:4]}, ofr {ofr}")
+    del state2
+    torch.cuda.empty_cache()
+    return {"vsr cli": trace, "vsr resume": trace2}
+
+
+def _vsr_batch(seed: int, shape=(8, 3, 32, 32, 3), scale: int = 4) -> dict:
+    """A clip batch from a seed: HR frames of a 1/f-like field moved by a
+    pixel per frame, LR their 4x box averages."""
+    import torch
+
+    gen = torch.Generator().manual_seed(seed)
+    b, t, h, w, c = shape
+    H, W = h * scale, w * scale
+    base = torch.rand(b, c, H // 8 + 2, W // 8 + 2, generator=gen)
+    base = torch.nn.functional.interpolate(base, size=(H + 2 * t, W + 2 * t),
+                                           mode="bicubic",
+                                           align_corners=False)
+    base = base + 0.1 * torch.rand(base.shape, generator=gen)
+    hr = torch.stack([base[:, :, i:i + H, 2 * i:2 * i + W]
+                      for i in range(t)], 1).permute(0, 1, 3, 4, 2)
+    hr = hr.clamp(0, 1).contiguous()
+    lr = hr.reshape(b, t, h, scale, w, scale, c).mean((3, 5))
+    return {"LR": lr, "HR": hr}
+
+
+def _vsr_graphed_vs_eager(smi: str, root: str, data: dict) -> dict:
+    """The template's step at full width (bf16, b=8, 32 -> 128 px, the
+    latent noise on): graphed against eager from the same state and noise
+    generator state, ``VSR_GRAPH_STEPS`` steps, bit for bit under
+    deterministic cuDNN; the step's ms each way."""
+    import torch
+
+    from trainner_tpu_torch.options.config import parse_dict
+    from trainner_tpu_torch.train.sr_trainer import create_trainer
+
+    opt = parse_dict(_vsr_options(root, data), is_train=True)
+    trainers = {"graphed": create_trainer(opt),
+                "eager": create_trainer(opt, graphs=False)}
+    states = {k: t.init_state(0) for k, t in trainers.items()}
+    cudnn = torch.backends.cudnn
+    saved = (cudnn.deterministic, cudnn.benchmark)
+    cudnn.deterministic, cudnn.benchmark = True, False
+    unequal, ms = [], {"graphed": [], "eager": []}
+    try:
+        for i in range(VSR_GRAPH_STEPS):
+            batch = {k: v.cuda() for k, v in _vsr_batch(70 + i).items()}
+            _load_from(states["eager"], states["graphed"])
+            states["eager"].noise_generator.set_state(
+                states["graphed"].noise_generator.get_state())
+            logs = {}
+            for k in ("graphed", "eager"):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                logs[k] = trainers[k].train_step(states[k], batch)[1]
+                torch.cuda.synchronize()
+                ms[k].append((time.perf_counter() - t0) * 1e3)
+            after = {k: _net_tensors(states[k]) for k in states}
+            unequal += [(i, k) for k, v in after["graphed"].items()
+                        if not torch.equal(v, after["eager"][k])]
+            unequal += [(i, k) for k, v in logs["graphed"].items()
+                        if not torch.equal(v, logs["eager"][k])]
+    finally:
+        cudnn.deterministic, cudnn.benchmark = saved
+    graphs = trainers["graphed"].step_graphs()
+    rep = sorted(ms["graphed"][1:])[len(ms["graphed"][1:]) // 2]
+    eag = sorted(ms["eager"][1:])[len(ms["eager"][1:]) // 2]
+    print(f"vsr: {VSR_GRAPH_STEPS} SOF-VSR steps at full width (bf16, b=8, "
+          f"32 -> 128 px), graphed ({len(graphs)} program, "
+          f"{list(graphs.values())[0].launches} kernel launches recorded) "
+          f"against eager: {len(unequal)} tensors or logs differ")
+    print(f"times: vsr train_step bf16, ms per step (first: eager + "
+          f"capture; then replays), graphed "
+          f"{[round(v, 3) for v in ms['graphed']]}, eager "
+          f"{[round(v, 3) for v in ms['eager']]}; median after the first "
+          f"graphed {rep:.3f}, eager {eag:.3f} ({smi})")
+    if unequal or len(graphs) != 1:
+        raise AssertionError(f"vsr graphs: {unequal[:6]}, {list(graphs)}")
+    del trainers, states
+    torch.cuda.empty_cache()
+    return {"graphed": rep, "eager": eag}
+
+
+@contextlib.contextmanager
+def _quiet_sofvsr():
+    """``sofvsr_net`` built with the RRDB tail's latent noise off (its
+    streams cannot match between two runs, C 9) inside the body."""
+    from trainner_tpu_torch.models import networks
+    from trainner_tpu_torch.models.sofvsr import SOFVSR
+
+    build = networks._G_REGISTRY["sofvsr_net"]
+
+    def quiet(cfg, dtype):
+        net = build(cfg, dtype)
+        return SOFVSR(scale=net.scale, n_frames=net.n_frames,
+                      channels=cfg["channels"], img_ch=cfg["img_ch"],
+                      sr_net="rrdb", sr_nf=cfg["sr_nf"],
+                      sr_nb=cfg["sr_nb"], sr_gaussian_noise=False,
+                      dtype=dtype)
+
+    networks._G_REGISTRY["sofvsr_net"] = quiet
+    try:
+        yield
+    finally:
+        networks._G_REGISTRY["sofvsr_net"] = build
+
+
+def _vsr_kernels_vs_plain(smi: str, root: str, data: dict) -> None:
+    """The block kernels against their plain versions at the shapes that
+    SOF-VSR gives them, TF32 off: each block alone (``_compare_block``, the
+    kernel phase's tolerances) at the training shape (b=8, LR 32 x 32;
+    forward and backward) and at a served window and a chop quadrant (b=1,
+    ``VSR_SERVE_LR`` and ``VSR_QUAD_LR``; forward), f32 and bf16; the
+    template's whole G forward at those two shapes on the kernels against
+    the same G on the plain versions, within phase 12's full-G tolerances
+    (1e-5 of the output's size in f32, 3e-2 in bf16); and the f32 G
+    gradient of one template step (b=8, 32 -> 128 px, the pixel and OFR
+    terms, latent noise off), each tensor within 3e-3 of its own largest
+    gradient, as phase 12's. Eager calls: the wrappers' counts are the
+    launches (69 per pass on the kernels, none on the plain versions)."""
+    import torch
+
+    from trainner_tpu_torch.models import define_G
+    from trainner_tpu_torch.options.config import parse_dict
+    from trainner_tpu_torch.options.defaults import get_network_G_config
+    from trainner_tpu_torch.train.sr_trainer import create_trainer
+
+    gen = torch.Generator().manual_seed(21)
+    ws, bs = _block_weights(gen)
+    bs = [b.cuda() for b in bs]
+    for shape, backward in (((8, 32, 32), True), ((1,) + VSR_SERVE_LR, False),
+                            ((1,) + VSR_QUAD_LR, False)):
+        x = (torch.randn(*shape, NF, generator=gen) * 0.5).cuda()
+        g_out = (torch.randn(*shape, NF, generator=gen).cuda() if backward
+                 else None)
+        for dt in (torch.float32, torch.bfloat16):
+            _compare_block(shape, dt, x, g_out, ws, bs, "vsr: ")
+
+    opt = _vsr_options(root, data)
+    spec = get_network_G_config(dict(opt["network_G"]), 4)
+    clips = {hw: torch.rand(1, 3, *hw, 3, generator=gen).cuda()
+             for hw in (VSR_SERVE_LR, VSR_QUAD_LR)}
+    for dt, rel_tol in ((torch.float32, 1e-5), (torch.bfloat16, 3e-2)):
+        net = define_G({"network_G": spec}, dt)
+        net.init_weights(torch.Generator().manual_seed(2))
+        _gain_weights(net, seed=1)
+        net = net.cuda().eval()
+        for hw, x in clips.items():
+            before = _counted()["rdb5c"]
+            with torch.inference_mode():
+                got = net(x)[3]
+                ran = _counted()["rdb5c"] - before
+                with _plain_blocks():
+                    ref = net(x)[3]
+            torch.cuda.synchronize()
+            scale = float(ref.abs().max())
+            err = float((got - ref).abs().max())
+            print(f"vsr: full SOF-VSR {dt} at b=1, LR {hw[0]} x {hw[1]}: "
+                  f"kernel vs plain max_abs_err {err:.3e} on max|ref| "
+                  f"{scale:.3e}, tol {rel_tol * scale:.3e}; block launches "
+                  f"{ran} on the kernels, "
+                  f"{_counted()['rdb5c'] - before - ran} on the plain "
+                  "versions")
+            if got.shape != (1, 4 * hw[0], 4 * hw[1], 3) or not (
+                    err <= rel_tol * scale) or ran != VSR_PER_G or \
+                    _counted()["rdb5c"] - before != ran:
+                raise AssertionError(f"vsr G {dt} {hw}: {got.shape}, {err}"
+                                     f", {ran} launches")
+        del net
+        torch.cuda.empty_cache()
+
+    opt["use_amp"] = False
+    with _quiet_sofvsr():
+        trainer = create_trainer(parse_dict(opt, is_train=True),
+                                 graphs=False)
+        state = trainer.init_state(2)
+    _gain_weights(state.g.net, seed=3)
+    batch = {k: v.cuda() for k, v in _vsr_batch(90).items()}
+
+    def grads():
+        # a G update at learning rate 0: the gradients stay on .grad
+        trainer._vsr_step(state, batch, 0.0, 0.0)
+        torch.cuda.synchronize()
+        return {k: p.grad.clone() for k, p in
+                state.g.net.named_parameters() if p.grad is not None}
+
+    before = _counted()["rdb5c_bwd"]
+    got = grads()
+    ran = _counted()["rdb5c_bwd"] - before
+    with _plain_blocks():
+        ref = grads()
+    worst, worst_name, top = 0.0, "", 0.0
+    for k, r in ref.items():
+        scale = float(r.abs().max())
+        top = max(top, scale)
+        ratio = float((got[k] - r).abs().max()) / max(scale, 1e-30)
+        if ratio > worst:
+            worst, worst_name = ratio, k
+    print(f"vsr: full SOF-VSR f32 G gradient (b=8, 32 -> 128 px, pixel and "
+          f"OFR terms), kernels vs plain: worst relative error {worst:.3e} "
+          f"({worst_name}), tol 3.000e-03, largest gradient {top:.3e} over "
+          f"{len(ref)} tensors; backward block launches {ran} on the "
+          f"kernels, {_counted()['rdb5c_bwd'] - before - ran} on the plain "
+          f"versions ({smi})")
+    if not (worst <= 3e-3 and top > 0 and math.isfinite(top)) or \
+            set(got) != set(ref) or ran != VSR_PER_G or \
+            _counted()["rdb5c_bwd"] - before != ran:
+        raise AssertionError(f"vsr G gradient: {worst} at {worst_name}, "
+                             f"{ran} launches")
+    del trainer, state
+    torch.cuda.empty_cache()
+
+
+def _vsr_f64(smi: str, root: str, data: dict) -> None:
+    """One f32 SGD step of the cut template (``VSR_F64_G``; the latent
+    noise off, C 9) on the card (graphed), the CPU and an f64 witness of
+    each side that replays that side's branches of the flow net and the
+    loss stack (the RRDB tail's LeakyReLUs run inside the block kernels on
+    the card): logs within 1e-4 relative, card against CPU; each G tensor
+    of the card no further from its witness than ``I2I_F64_TOL`` times the
+    CPU f32's largest distance, or ``I2I_F64_FLOOR`` of its move, or
+    ``I2I_F64_ABS`` outright."""
+    import torch
+
+    from trainner_tpu_torch.options.config import parse_dict
+
+    opt = _vsr_options(root, data)
+    opt["network_G"].update(VSR_F64_G)
+    opt["datasets"]["train"].update(batch_size=VSR_F64_SHAPE[0],
+                                    crop_size=VSR_F64_SHAPE[2] * 4)
+    opt["train"].update(optim_G="sgd", lr_G=1e-2)
+    opt = parse_dict(opt, is_train=True)
+
+    def hooked(state, trainer):
+        return [state.g.net.OFR, trainer.generator_loss]
+
+    with _quiet_sofvsr():
+        r = _steps_card_cpu_f64("vsr", opt, [_vsr_batch(
+            80, VSR_F64_SHAPE)], graphs=1, branches=hooked, lr=1e-2)
+    cc, f64, cpu = (_worst(r[key], "g.") for key in
+                    ("card_cpu", "card_f64", "cpu_f64"))
+    tol = max(I2I_F64_TOL * cpu[0], I2I_F64_FLOOR)
+    bad = [(k, v, tol, r["abs_card"].get(k)) for k, v in
+           r["card_f64"].items() if not v <= tol
+           and not r["abs_card"].get(k, 1.0) <= I2I_F64_ABS]
+    print(f"vsr: one f32 SGD step (cut: {opt['network_G']['channels']} "
+          f"channels, the tail nb {opt['network_G']['sr_nb']}, b "
+          f"{VSR_F64_SHAPE[0]}), G's tensors as a share of their move: card "
+          f"vs CPU up to {cc[0]:.3e} ({cc[1]}); against each side's f64 "
+          f"witness: card {f64[0]:.3e} ({f64[1]}, "
+          f"{r['abs_card'].get(f64[1], 0):.2e} absolute; tol {tol:.3e}), "
+          f"CPU f32 {cpu[0]:.3e} ({cpu[1]}); logs card vs CPU within "
+          f"{r['logs']:.3e} relative (tol 1e-4); branches that differ, card "
+          f"against CPU, {r['flips']} of {r['records']} records ({smi})")
+    if bad or not r["logs"] <= 1e-4:
+        raise AssertionError(f"vsr f64: {bad[:6]}, logs {r['logs']}")
+    torch.cuda.empty_cache()
+
+
+def _vsr_serve(smi: str, root: str, data: dict) -> dict:
+    """The test CLI on ``test_video.yml`` (its first dataset; the second
+    names a folder that is not there) with the CLI's G of
+    ``CLI_RESUME_NITER``, on the served clip (2 windows; the dataset makes
+    the LR 144 x 180 from the frames, as the JAX one does when only
+    ``dataroot_LR`` is given): f32 and bf16, plain and with ``chop`` (four
+    quadrants of 80 x 98 per window), each under a launch trace (69 block
+    forwards per quadrant or window), PSNR against the frames' centre.
+    Returns the traces."""
+    from trainner_tpu_torch import test as test_cli
+
+    trained = _vsr_options(root, data)
+    exp = os.path.join(trained["path"]["root"], "experiments",
+                       trained["name"])
+    windows = VSR_SERVE_FRAMES - 2
+    traces = {}
+    for amp, chop in ((False, False), (True, False), (False, True),
+                      (True, True)):
+        opt = read_options_yml(VSR_TEST_YML)
+        name = f"serve_vsr_{'bf16' if amp else 'f32'}" + (
+            "_chop" if chop else "")
+        opt["name"] = name
+        opt["datasets"] = {"test_1": dict(opt["datasets"]["test_1"],
+                                          dataroot_LR=data["serve"])}
+        opt["path"] = {"root": os.path.join(root, name),
+                       "pretrain_model_G": os.path.join(
+                           exp, "models", f"{CLI_RESUME_NITER}_G.ckpt")}
+        opt["use_amp"] = amp
+        opt["chop"] = chop
+        path = os.path.join(root, name + ".json")
+        with open(path, "w") as f:
+            json.dump(opt, f)
+        want = {"rdb5c": VSR_PER_G * windows * (4 if chop else 1)}
+        t0 = time.perf_counter()
+        t, averages = _retried_trace(lambda: test_cli.main(["-opt", path]),
+                                     want, label=name)
+        wall = time.perf_counter() - t0
+        vals = {m["name"]: m["average"] for m in averages["calendar"]}
+        pngs = [f for _, _, fs in os.walk(os.path.join(root, name))
+                for f in fs if f.endswith(".png")]
+        hr_px = VSR_SERVE_HW[0] * VSR_SERVE_HW[1]
+        print(f"vsr: {name}: {windows} windows of 144 x 180 -> 576 x 720 in "
+              f"{wall:.2f} s ({wall / windows:.3f} s per window, "
+              f"{hr_px * windows / wall / 1e6:.3f} Mpx/s with the CLI's "
+              f"host work; traced), the card ran {t['ran']['rdb5c']} block "
+              f"forwards, the wrapper counted {t['counted']['rdb5c']}; "
+              f"metrics {vals} ({smi})")
+        if len(pngs) != windows or not all(math.isfinite(v)
+                                           for v in vals.values()):
+            raise AssertionError(f"vsr serving {name}: {pngs}, {vals}")
+        traces[name] = t
+    return traces
+
+
+def _vsr_nets_card_vs_cpu(smi: str) -> None:
+    """SR3D, EDVR (DCNv2, TSA), EVSRGAN's Conv3D RRDBNet and RIFE at their
+    full widths (the JAX package's defaults), each forward on the card
+    against the CPU's on one small seeded clip, f32, TF32 off, within 1e-5
+    of the output's size; no block kernel runs in these nets."""
+    import torch
+
+    from trainner_tpu_torch.options.defaults import get_network_G_config
+
+    for kind, shape in (("sr3d", (1, 5, 16, 16, 3)),
+                        ("edvr", (1, 5, 32, 32, 3)),
+                        ("evsrgan", (1, 3, 8, 8, 3)),
+                        ("rife", (1, 64, 64, 6))):
+        opt = {"network_G": get_network_G_config({"type": kind}, 4)}
+        _card_vs_cpu_forward(kind, opt, shape, (torch.float32,), tag="vsr")
+
+
+def _vsr_rates(smi: str) -> None:
+    """Forward throughput by CUDA events, f32 (TF32 off) and bf16, of each
+    video net at its full width: SOF-VSR (the template) at b=1 on a clip
+    of 3 frames at 144 x 180 (the served clip), SR3D, EDVR and EVSRGAN on
+    5, 5 and 3 frames at 144 x 180, RIFE on a 576 x 720 pair; Mpx/s of
+    output."""
+    import torch
+
+    from trainner_tpu_torch.models.networks import define_G
+    from trainner_tpu_torch.options.defaults import get_network_G_config
+
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    h, w = VSR_SERVE_HW[0] // 4, VSR_SERVE_HW[1] // 4
+    cells = (("sofvsr", {"type": "sofvsr_net", "channels": 320,
+                         "SR_net": "rrdb"}, (1, 3, h, w, 3)),
+             ("sr3d", {"type": "sr3d"}, (1, 5, h, w, 3)),
+             ("edvr", {"type": "edvr"}, (1, 5, h, w, 3)),
+             ("evsrgan", {"type": "evsrgan"}, (1, 3, h, w, 3)),
+             ("rife", {"type": "rife"}, (1, 4 * h, 4 * w, 6)))
+    for name, spec, shape in cells:
+        x = torch.rand(*shape, generator=gen, device="cuda")
+        mpx = 16 * h * w / 1e6
+        row = []
+        for dt in (torch.float32, torch.bfloat16):
+            net = define_G({"network_G": get_network_G_config(spec, 4)}, dt)
+            net.init_weights(torch.Generator().manual_seed(2))
+            net = net.cuda().eval()
+            with torch.inference_mode():
+                ms = _time_ms(lambda: net(x), iters=SERVE_ITERS, warmup=1)
+                y = net(x)
+                finite = bool((y[3] if isinstance(y, tuple) else y
+                               ).isfinite().all())
+                if name == "sofvsr":
+                    with _profiled() as prof:
+                        net(x)
+                    by = {}
+                    for _, dur, kname in _device_events(prof):
+                        k = _short_name(kname)[:48]
+                        by[k] = by.get(k, 0) + dur / 1e6
+                    top = sorted(by.items(), key=lambda kv: -kv[1])[:5]
+                    print(f"trace: sofvsr forward {str(dt)[6:]}, device ms "
+                          f"{sum(by.values()):.3f}, top kernels "
+                          f"{[(k, round(v, 3)) for k, v in top]} ({smi})")
+            row.append(f"{str(dt)[6:]} {ms:.3f} ms, {mpx / ms * 1e3:.3f} "
+                       f"Mpx/s (output finite: {finite})")
+            del net
+        print(f"times: {name} forward, random weights ({tuple(shape)} -> "
+              f"{4 * h} x {4 * w}): {'; '.join(row)} ({smi})")
+    torch.cuda.empty_cache()
+
+
+def phase_video(smi: str, root: str) -> dict:
+    """Phase 21: the video models. SOF-VSR with its RRDB tail at the
+    template's full width (``options/video/train_video.yml``: channels
+    320, 3 frames, x4; nf 64, nb 23, gc 32; b 8, crop 128; cb pixel loss,
+    the OFR term at 0.01 with ``ofr_wl1`` 0.1 and ``ofr_wl2`` 0.2; Adam;
+    cosine restarts; bf16) on seeded folders of frames (``_vsr_data``):
+    the training CLI (``CLI_NITER`` and a resume to ``CLI_RESUME_NITER``,
+    69 + 69 block launches per step and 69 per validation window from the
+    traces), the block kernels against their plain versions at the
+    shapes SOF-VSR gives them (``_vsr_kernels_vs_plain``), three steps
+    graphed against eager bit for bit, one f32 step at cut depth against
+    an f64 witness, the test CLI on
+    ``test_video.yml`` (f32 and bf16, plain and chop, 69 block launches
+    per window or quadrant); then SR3D, EDVR, EVSRGAN and RIFE card
+    against CPU and every net's serving rate. Returns the traces."""
+    import torch
+
+    t0 = time.perf_counter()
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    data = _vsr_data(root)
+    traces, parts = {}, [f"{time.perf_counter() - t0:.1f}"]
+    for part in (lambda: traces.update(_vsr_cli(smi, root, data)),
+                 lambda: _vsr_kernels_vs_plain(smi, root, data),
+                 lambda: _vsr_graphed_vs_eager(smi, root, data),
+                 lambda: _vsr_f64(smi, root, data),
+                 lambda: traces.update(_vsr_serve(smi, root, data)),
+                 lambda: _vsr_nets_card_vs_cpu(smi),
+                 lambda: _vsr_rates(smi)):
+        t1 = time.perf_counter()
+        part()
+        parts.append(f"{time.perf_counter() - t1:.1f}")
+    print(f"vsr: ok in {time.perf_counter() - t0:.1f} s (data, CLI, kernels "
+          f"vs plain, graphs, f64, serving, nets card vs CPU, rates: "
+          f"{', '.join(parts)} s) "
+          f"({smi})")
     return traces
 
 
@@ -7045,12 +7757,13 @@ def phase_graphs(smi: str, root: str) -> None:
 
 
 def _later_phases(smi: str, root: str, which: tuple) -> dict:
-    """Phases 18 (``phase_producer_rest``), 19 (``phase_models``) and 20
-    (``phase_i2i``) of ``which``, TF32 off before each; returns their
-    traces."""
+    """Phases 18 (``phase_producer_rest``), 19 (``phase_models``), 20
+    (``phase_i2i``) and 21 (``phase_video``) of ``which``, TF32 off before
+    each; returns their traces."""
     import torch
 
-    phases = {18: phase_producer_rest, 19: phase_models, 20: phase_i2i}
+    phases = {18: phase_producer_rest, 19: phase_models, 20: phase_i2i,
+              21: phase_video}
     traces = {}
     for n in which:
         torch.backends.cudnn.allow_tf32 = False
@@ -7071,7 +7784,7 @@ def main(argv=None) -> int:
                         "git archive) whose blur kernel is timed beside "
                         "this one's")
     parser.add_argument("--only", default="",
-                        help="comma-separated phases among 18, 19 and 20: "
+                        help="comma-separated phases among 18 to 21: "
                         "build the kernels, write the corpus and run those "
                         "alone (no result line)")
     flags = parser.parse_args(argv)
@@ -7147,7 +7860,7 @@ def main(argv=None) -> int:
         torch.backends.cuda.matmul.allow_tf32 = False
         cli_counts.update(phase_losses(smi, root))
         cli_counts.update(phase_trainer_options(smi, root))
-        cli_counts.update(_later_phases(smi, root, (18, 19, 20)))
+        cli_counts.update(_later_phases(smi, root, (18, 19, 20, 21)))
         rows = phase_times(smi, root)
         blur_rows = phase_blur_times(smi, flags.parent)
         phase_trace(smi, root, {k: r["step_ms"] for k, r in train.items()})

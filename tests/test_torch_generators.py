@@ -242,9 +242,15 @@ def test_define_g_builds_the_zoo_and_ignores_pass_through_keys():
                                               **base}}), MRRDBNet)
     assert isinstance(define_G({"network_G": {"type": "sr_resnet",
                                               **base}}), SRResNet)
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue A 10.5"):
-        define_G({"network_G": {"type": "rrdb_net", "convtype": "Conv3D",
-                                **base}})
+    # EVSRGAN's Conv3D trunk (ROADMAP Queue A 10.5): built, and it serves
+    # the centre frame of a clip (against JAX: test_torch_video_nets.py)
+    net = define_G({"network_G": {"type": "rrdb_net", "convtype": "Conv3D",
+                                  **base}})
+    assert net.conv3d and net.conv_first.weight.dim() == 5
+    net.init_weights(torch.Generator().manual_seed(0))
+    with torch.no_grad():
+        out = net.eval()(torch.rand(1, 3, 8, 8, 3))
+    assert out.shape == (1, 32, 32, 3)
 
 
 def _srresnet_pth(params, nb):

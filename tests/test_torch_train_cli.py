@@ -187,7 +187,7 @@ def test_without_a_card_main_raises(tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("edit, item", [
-    (("model: sr", "model: vsr"), "Queue A 10.5"),
+    (("model: sr", "model: dvd"), "Queue A 10.6"),
     (("model: sr", "model: srflow"), "Queue A 10.6"),
     (("scale: 4", "scale: 4\nparallel: {data: 2}"), "Queue A 9"),
 ])

@@ -4,9 +4,11 @@ Counterpart of ``trainner_tpu/data/datasets.py``: ``AlignedDataset:44`` in
 both phases with every option (LMDB roots, ``aug_downscale``, ``color``,
 ``subset_file``, ``otf_mode: host`` and its ``_host_degrade:229``),
 ``SingleDataset:277``, ``UnalignedDataset:300`` (CycleGAN's and
-pix2pix's A/B), ``SyntheticDataset:349`` (kinds ``sr`` and ``ab``) and
-``create_dataset:431`` for these modes and SFTGAN's ``seg``
-(``data/seg_dataset.py``). The datasets read, crop and flip; the
+pix2pix's A/B), ``SyntheticDataset:349`` (kinds ``sr``, ``ab`` and
+``video``) and ``create_dataset:431`` for these modes, SFTGAN's ``seg``
+(``data/seg_dataset.py``) and the video modes ``video`` / ``vlrhr``
+(``data/video_datasets.py``: training clips in the train phase, sliding
+windows otherwise). The datasets read, crop and flip; the
 degradations run batched on the device (``data/pipeline.py``), after the
 host's with ``otf_mode: host`` (ROADMAP C 20). The other dataset modes
 raise with their ROADMAP item.
@@ -319,17 +321,19 @@ class UnalignedDataset:
 
 class SyntheticDataset:
     """Random images seeded by index: kind ``sr``, HR and its bicubic LR;
-    kind ``ab``, an A and a B of ``crop_size``."""
+    kind ``ab``, an A and a B of ``crop_size``; kind ``video``, a clip of
+    ``num_frames`` HR frames and their bicubic LRs."""
 
     def __init__(self, dataset_opt: dict):
         self.scale = int(dataset_opt.get("scale", 4) or 4)
         self.hr = int(dataset_opt.get("crop_size", 128) or 128)
         self.n = int(dataset_opt.get("n_samples", 64) or 64)
         self.kind = dataset_opt.get("kind", "sr")
-        if self.kind not in ("sr", "ab"):
+        self.num_frames = int(dataset_opt.get("num_frames", 3) or 3)
+        if self.kind not in ("sr", "ab", "video"):
             raise NotImplementedError(
                 f"synthetic kind [{self.kind}] is not ported yet (ROADMAP "
-                "Queue A 10.5-10.6, the other models)")
+                "Queue A 10.6, the rest of the zoo)")
 
     def __len__(self):
         return self.n
@@ -340,6 +344,12 @@ class SyntheticDataset:
             return {"A": rng.random((self.hr, self.hr, 3), np.float32),
                     "B": rng.random((self.hr, self.hr, 3), np.float32),
                     "A_path": str(index), "B_path": str(index)}
+        if self.kind == "video":
+            hr = rng.random((self.num_frames, self.hr, self.hr, 3),
+                            np.float32)
+            lr = np.stack([imresize_np(f, 1.0 / self.scale) for f in hr])
+            return {"LR": lr.astype(np.float32), "HR": hr,
+                    "LR_path": str(index)}
         hr = rng.random((self.hr, self.hr, 3), np.float32)
         lr = imresize_np(hr, 1.0 / self.scale)
         return {"LR": lr, "HR": hr, "LR_path": str(index),
@@ -352,11 +362,19 @@ def _seg_dataset(dataset_opt: dict):
     return SegDataset(dataset_opt)
 
 
+def _video_dataset(dataset_opt: dict):
+    from .video_datasets import VidTestDataset, VidTrainDataset
+
+    if dataset_opt.get("phase", "train") == "train":
+        return VidTrainDataset(dataset_opt)
+    return VidTestDataset(dataset_opt)
+
+
 _DATASETS = {"aligned": AlignedDataset, "single": SingleDataset,
              "unaligned": UnalignedDataset, "synthetic": SyntheticDataset,
-             "seg": _seg_dataset}
+             "seg": _seg_dataset, "video": _video_dataset}
 _ALIASES = {"lrhr": "aligned", "lrhroft": "aligned", "lrhrc": "aligned",
-            "lr": "single", "lrhrseg_bg": "seg"}
+            "lr": "single", "lrhrseg_bg": "seg", "vlrhr": "video"}
 
 
 def create_dataset(dataset_opt: dict):

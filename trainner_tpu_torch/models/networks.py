@@ -2,9 +2,10 @@
 (``define_G:277``, ``_build_rrdb:29``, ``_build_mrrdb:48``,
 ``_build_srresnet:56``, ``_build_ppon:67``, ``_build_pan:75``,
 ``_build_a2n:244``, ``_build_unet:87``, ``_build_resnet_g:98``,
-``_build_sft:195``, ``define_D:291``) for the generators and the
-discriminators that the port runs. Other types raise and name their
-ROADMAP item."""
+``_build_sft:195``, ``_build_sofvsr:117``, ``_build_sr3d:128``,
+``_build_edvr:179``, ``_build_rife:231``, ``define_D:291``) for the
+generators and the discriminators that the port runs. Other types raise
+and name their ROADMAP item."""
 
 from __future__ import annotations
 
@@ -21,10 +22,6 @@ from .srresnet import SRResNet
 
 def _build_rrdb(cfg: dict, dtype: torch.dtype) -> RRDBNet:
     convtype = str(cfg.get("convtype") or "Conv2D").lower()
-    if convtype == "conv3d":
-        raise NotImplementedError(
-            "rrdb_net convtype [Conv3D] (EVSRGAN, video input) is not ported "
-            "yet (ROADMAP Queue A 10.5, the video models)")
     if cfg.get("scan_blocks"):
         raise NotImplementedError(
             "scan_blocks (an XLA compile-time device) is not ported")
@@ -40,7 +37,7 @@ def _build_rrdb(cfg: dict, dtype: torch.dtype) -> RRDBNet:
         gaussian_noise=bool(cfg.get("gaussian_noise", True)),
         plus=bool(cfg.get("plus", False)),
         convtype="PartialConv2D" if convtype == "partialconv2d"
-        else "Conv2D",
+        else "Conv2D", conv3d=convtype == "conv3d",
         dtype=dtype)
 
 
@@ -125,11 +122,60 @@ def _build_sft(cfg: dict, dtype: torch.dtype):
     return SFTNet(dtype=dtype)
 
 
+def _build_sofvsr(cfg: dict, dtype: torch.dtype):
+    """SOF-VSR as the JAX ``_build_sofvsr`` makes it: the RRDB tail's gc, latent
+    noise and ``plus`` at their defaults (32, on, off), whatever
+    ``sr_gc``, ``sr_gaussian_noise`` and ``sr_plus`` say."""
+    from .sofvsr import SOFVSR
+
+    return SOFVSR(n_frames=cfg.get("n_frames", 3),
+                  channels=cfg.get("channels", 320),
+                  scale=cfg.get("scale", 4), img_ch=cfg.get("img_ch", 3),
+                  sr_net=cfg.get("SR_net", "rrdb"),
+                  sr_nf=cfg.get("sr_nf", 64), sr_nb=cfg.get("sr_nb", 23),
+                  dtype=dtype)
+
+
+def _build_sr3d(cfg: dict, dtype: torch.dtype):
+    from .sr3d import SR3DNet
+
+    return SR3DNet(in_nc=cfg.get("in_nc", 3), out_nc=cfg.get("out_nc", 3),
+                   nf=cfg.get("nf", 64), nb=cfg.get("nb", 23),
+                   scale=cfg.get("scale", 4),
+                   n_frames=cfg.get("n_frames", 5), dtype=dtype)
+
+
+def _build_edvr(cfg: dict, dtype: torch.dtype):
+    """EDVR as the JAX ``_build_edvr`` makes it: ``upsample_mode`` at its default
+    (pixelshuffle) whatever the options say."""
+    from .edvr import EDVR
+
+    return EDVR(num_in_ch=cfg.get("num_in_ch", 3),
+                num_out_ch=cfg.get("num_out_ch", 3),
+                num_feat=cfg.get("num_feat", 64),
+                num_frame=cfg.get("num_frame", 5),
+                upscale=cfg.get("upscale", 4),
+                deformable_groups=cfg.get("deformable_groups", 8),
+                num_extract_block=cfg.get("num_extract_block", 5),
+                num_reconstruct_block=cfg.get("num_reconstruct_block", 10),
+                center_frame_idx=cfg.get("center_frame_idx"),
+                with_predeblur=bool(cfg.get("with_predeblur", False)),
+                with_tsa=bool(cfg.get("with_tsa", True)), dtype=dtype)
+
+
+def _build_rife(cfg: dict, dtype: torch.dtype):
+    from .rife import RIFE
+
+    return RIFE(c=cfg.get("c", 16), dtype=dtype)
+
+
 _G_REGISTRY = {"rrdb_net": _build_rrdb, "mrrdb_net": _build_mrrdb,
                "sr_resnet": _build_srresnet, "ppon": _build_ppon,
                "pan_net": _build_pan, "a2n_net": _build_a2n,
                "unet_net": _build_unet, "resnet_net": _build_resnet_g,
-               "sft_arch": _build_sft}
+               "sft_arch": _build_sft, "sofvsr_net": _build_sofvsr,
+               "sr3d_net": _build_sr3d, "edvr_net": _build_edvr,
+               "rife_net": _build_rife}
 
 
 def define_G(opt: dict, dtype: torch.dtype = torch.float32):

@@ -51,21 +51,23 @@ class ResidualDenseBlock5C(nn.Module):
     def __init__(self, nf: int = 64, gc: int = 32,
                  gaussian_noise: bool = False, act_type: str = "leakyrelu",
                  norm_type: Optional[str] = None, mode: str = "CNA",
-                 plus: bool = False, convtype: str = "Conv2D"):
+                 plus: bool = False, convtype: str = "Conv2D",
+                 dims: int = 2):
         super().__init__()
         self.nf, self.gc, self.plus = nf, gc, plus
         # the JAX block's predicate, as it reads its fields
         self.fast = (mode == "CNA" and act_type in _FAST_ACTS
                      and not norm_type and not plus
-                     and convtype == "Conv2D")
-        cb = dict(norm_type=norm_type, mode=mode, convtype=convtype)
+                     and convtype == "Conv2D" and dims == 2)
+        cb = dict(norm_type=norm_type, mode=mode, convtype=convtype,
+                  dims=dims)
         for k in range(1, 5):
             setattr(self, f"conv{k}", ConvBlock(nf + (k - 1) * gc, gc, 3,
                                                 act_type=act_type, **cb))
         self.conv5 = ConvBlock(nf + 4 * gc, nf, 3, act_type=None
                                if mode == "CNA" else act_type, **cb)
         if plus:
-            self.conv1x1 = _Conv(nf, gc, 1, use_bias=False)
+            self.conv1x1 = _Conv(nf, gc, 1, use_bias=False, dims=dims)
         self.noise = GaussianNoise(0.1) if gaussian_noise else None
         self._packed = {}
 
@@ -161,7 +163,10 @@ class RRDBNet(nn.Module):
     the norm and mode of the blocks), + skip -> 2x upsamplers -> HRconv ->
     conv_last -> finalact. ``norm_type``, ``mode``, ``act_type``,
     ``plus`` (ESRGAN+) and ``convtype`` (``PartialConv2D``) are the
-    residual dense blocks' options.
+    residual dense blocks' options. With ``conv3d`` (EVSRGAN)
+    ``conv_first``, the trunk and ``trunk_conv`` are Conv3D over a (b, t,
+    h, w, c) clip and the centre frame goes on to the upsamplers; those
+    blocks take the composite route, as the JAX package's do.
 
     ``forward`` takes and returns NHWC, like the JAX module, and runs in
     ``dtype`` (parameters stay f32); the output is f32."""
@@ -174,19 +179,23 @@ class RRDBNet(nn.Module):
                  gaussian_noise: bool = True,
                  norm_type: Optional[str] = None, mode: str = "CNA",
                  plus: bool = False, convtype: str = "Conv2D",
+                 conv3d: bool = False,
                  dtype: torch.dtype = torch.float32):
         super().__init__()
         if upsample_mode not in ("upconv", "pixelshuffle"):
             raise NotImplementedError(
                 f"upsample mode [{upsample_mode}] not found")
         self.dtype = dtype
-        self.conv_first = ConvBlock(in_nc, nf, 3, act_type=None)
+        self.conv3d = conv3d
+        dims = 3 if conv3d else 2
+        self.conv_first = ConvBlock(in_nc, nf, 3, act_type=None, dims=dims)
         self.RRDB_trunk = nn.ModuleList(
             [RRDB(nf, gc, nr, gaussian_noise, act_type=act_type,
                   norm_type=norm_type, mode=mode, plus=plus,
-                  convtype=convtype) for _ in range(nb)])
+                  convtype=convtype, dims=dims) for _ in range(nb)])
         self.trunk_conv = ConvBlock(nf, nf, 3, act_type=None,
-                                    norm_type=norm_type, mode=mode)
+                                    norm_type=norm_type, mode=mode,
+                                    dims=dims)
         up = UpconvBlock if upsample_mode == "upconv" else PixelShuffleBlock
         factors = [3] if upscale == 3 else [2] * int(math.log2(upscale))
         self.n_up = len(factors)
@@ -205,13 +214,20 @@ class RRDBNet(nn.Module):
                 m.init_weights(0.1, generator)
 
     def forward(self, x):
-        x = x.to(self.dtype).permute(0, 3, 1, 2).contiguous(
-            memory_format=torch.channels_last)
+        if self.conv3d:  # (b, t, h, w, c) -> NCDHW
+            x = x.to(self.dtype).permute(0, 4, 1, 2, 3).contiguous(
+                memory_format=torch.channels_last_3d)
+        else:
+            x = x.to(self.dtype).permute(0, 3, 1, 2).contiguous(
+                memory_format=torch.channels_last)
         fea = self.conv_first(x)
         trunk = fea
         for block in self.RRDB_trunk:
             trunk = block(trunk)
         fea = fea + self.trunk_conv(trunk)
+        if self.conv3d:  # the centre frame goes on to the 2-D upsampling
+            fea = fea[:, :, fea.shape[2] // 2].contiguous(
+                memory_format=torch.channels_last)
         for i in range(self.n_up):
             fea = getattr(self, f"upconv{i + 1}")(fea)
         out = self.conv_last(self.HRconv(fea))

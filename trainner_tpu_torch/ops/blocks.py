@@ -16,8 +16,10 @@ mode, the identity at eval), ``PixelShuffleBlock:315``,
 and ``nn.Dense`` as the PPON, PAN and A2N generators use them;
 ``TorchDeconv:500`` (torch's ``ConvTranspose2d``) and flax's ``nn.Dropout``
 (``Dropout``) for the image-to-image generators. ``conv_paths`` and
-``norm_paths`` give the flax names of a net's tensors, ``lecun_init``
-flax's default init.
+``norm_paths`` give the flax names of a net's tensors (``named_flax_paths``
+of a whole net whose module names are flax's), ``conv_nhwc`` runs an NCHW
+conv on an NHWC tensor, ``resize_torch`` is torch's bilinear or bicubic
+resize as weight matrices, ``lecun_init`` flax's default init.
 
 Modules take and return NCHW tensors (the network keeps them in
 ``channels_last`` memory, so NHWC views of them are contiguous); the free
@@ -226,6 +228,56 @@ def bilinear_align_corners(x: torch.Tensor, scale: float = None,
     return torch.einsum("pw,bhwc->bhpc", weights(size[1], w).to(x.dtype), y)
 
 
+def _torch_resize_weights(n_out: int, n_in: int, mode: str, device,
+                          dtype: torch.dtype = torch.float32
+                          ) -> torch.Tensor:
+    """The JAX package's (n_out, n_in) weight matrix of torch's
+    half-pixel ``bilinear`` (2 taps) or ``bicubic`` (4 taps, a = -0.75)
+    resize, source indices clamped to the edge, built in f32 (in f64 for
+    an f64 witness)."""
+    pos = (torch.arange(n_out, dtype=dtype, device=device) + 0.5) \
+        * (n_in / n_out) - 0.5
+    rows = torch.arange(n_out, device=device)
+    wm = torch.zeros((n_out, n_in), dtype=dtype, device=device)
+    if mode == "bilinear":
+        pos = pos.clamp(0.0, n_in - 1.0)
+        lo = pos.floor().long().clamp(0, n_in - 1)
+        hi = (lo + 1).clamp(0, n_in - 1)
+        frac = pos - lo.to(dtype)
+        wm.index_put_((rows, lo), 1.0 - frac, accumulate=True)
+        wm.index_put_((rows, hi), frac, accumulate=True)
+        return wm
+    a = -0.75
+    base = pos.floor()
+    for k in range(-1, 3):
+        t = (pos - (base + k)).abs()
+        w1 = ((a + 2.0) * t - (a + 3.0)) * t * t + 1.0
+        w2 = (((t - 5.0) * t + 8.0) * t - 4.0) * a
+        wk = torch.where(t <= 1.0, w1, torch.where(t < 2.0, w2,
+                                                   torch.zeros_like(t)))
+        idx = (base.long() + k).clamp(0, n_in - 1)
+        wm.index_put_((rows, idx), wk, accumulate=True)
+    return wm
+
+
+def resize_torch(x: torch.Tensor, scale: float = None, size=None,
+                 mode: str = "bilinear") -> torch.Tensor:
+    """torch's ``F.interpolate`` (``bilinear`` or ``bicubic``,
+    ``align_corners=False``) of an NHWC tensor as the JAX package's
+    ``bilinear_torch`` / ``bicubic_torch`` compute it: one weight matrix
+    per axis, contracted in x's type, H first. Its backward is two more
+    contractions, so it adds in a fixed order on the card, where
+    ``F.interpolate``'s backward adds with atomics."""
+    b, h, w, c = x.shape
+    if size is None:
+        size = (int(round(h * scale)), int(round(w * scale)))
+    wdt = torch.float64 if x.dtype == torch.float64 else torch.float32
+    wh = _torch_resize_weights(size[0], h, mode, x.device, wdt).to(x.dtype)
+    ww = _torch_resize_weights(size[1], w, mode, x.device, wdt).to(x.dtype)
+    y = torch.einsum("oh,bhwc->bowc", wh, x)
+    return torch.einsum("pw,bhwc->bhpc", ww, y)
+
+
 def _l2_normalize(x: torch.Tensor, eps: float) -> torch.Tensor:
     return x * torch.rsqrt((x * x).sum() + eps)
 
@@ -282,12 +334,14 @@ class _Conv(nn.Module):
 
     def __init__(self, in_nc: int, out_nc: int, kernel_size: int,
                  use_bias: bool = True, stride: int = 1,
-                 spectral_norm: bool = False):
+                 spectral_norm: bool = False, dims: int = 2,
+                 groups: int = 1):
         super().__init__()
         self.weight = nn.Parameter(
-            torch.zeros(out_nc, in_nc, kernel_size, kernel_size))
+            torch.zeros(out_nc, in_nc // groups, *(kernel_size,) * dims))
         self.bias = nn.Parameter(torch.zeros(out_nc)) if use_bias else None
         self.stride = stride
+        self.groups = groups
         self.sn = SpectralNorm(out_nc) if spectral_norm else None
 
     def init_weights(self, scale: float, generator: torch.Generator):
@@ -303,10 +357,11 @@ class _Conv(nn.Module):
         if self.sn is not None:
             weight = self.sn(weight)
         bias = self.bias if bias is None else bias
-        return F.conv2d(x, weight.to(x.dtype),
-                        None if bias is None else bias.to(x.dtype),
-                        stride=self.stride,
-                        padding=(weight.shape[-1] - 1) // 2)
+        conv = F.conv3d if weight.dim() == 5 else F.conv2d
+        return conv(x, weight.to(x.dtype),
+                    None if bias is None else bias.to(x.dtype),
+                    stride=self.stride, padding=(weight.shape[-1] - 1) // 2,
+                    groups=self.groups)
 
 
 class BatchNorm(nn.Module):
@@ -421,19 +476,28 @@ class ConvBlock(_Conv):
     channels). ``pad_type`` zero, reflect or replicate; ``convtype``
     ``PartialConv2D`` runs the conv as a partial convolution
     (``ops/partial_conv.py``), which owns its zero padding; with
-    ``spectral_norm`` the conv's weight is spectrally normalised."""
+    ``spectral_norm`` the conv's weight is spectrally normalised. ``dims``
+    3 makes it a Conv3D block over NCDHW (EVSRGAN's trunk: zero padding,
+    no norm)."""
 
     def __init__(self, in_nc: int, out_nc: int, kernel_size: int = 3,
                  act_type: Optional[str] = "relu", norm_type=None,
                  mode: str = "CNA", pad_type: str = "zero",
                  use_bias: bool = True, stride: int = 1,
-                 spectral_norm: bool = False, convtype: str = "Conv2D"):
+                 spectral_norm: bool = False, convtype: str = "Conv2D",
+                 dims: int = 2):
         if mode not in ("CNA", "NAC", "CNAC"):
             raise ValueError(f"ConvBlock mode [{mode}]: CNA, NAC or CNAC")
         if convtype.lower() not in ("conv2d", "partialconv2d"):
             raise NotImplementedError(f"convtype [{convtype}] not found")
+        if dims == 3 and (norm_type or pad_type in _PAD_MODES
+                          or convtype.lower() != "conv2d" or spectral_norm):
+            raise NotImplementedError(
+                "a Conv3D block with a norm, a padding other than zeros, a "
+                "partial conv or spectral norm is not ported (EVSRGAN at "
+                "its defaults builds none; ROADMAP C 25)")
         super().__init__(in_nc, out_nc, kernel_size, use_bias, stride,
-                         spectral_norm)
+                         spectral_norm, dims)
         self.mode, self.pad_type = mode, pad_type
         self.partial = convtype.lower() == "partialconv2d"
         self.norm = norm_layer(norm_type, in_nc if mode == "NAC" else out_nc)
@@ -557,15 +621,18 @@ class Conv(_Conv):
     parameters sit at ``kernel`` and ``bias`` of its own flax module."""
 
     def __init__(self, in_nc: int, out_nc: int, kernel_size: int = 3,
-                 use_bias: bool = True, dilation: int = 1):
-        super().__init__(in_nc, out_nc, kernel_size, use_bias)
+                 use_bias: bool = True, dilation: int = 1, stride: int = 1,
+                 groups: int = 1):
+        super().__init__(in_nc, out_nc, kernel_size, use_bias, stride,
+                         groups=groups)
         self.dilation = dilation
 
     def forward(self, x):
         return F.conv2d(x, self.weight.to(x.dtype),
                         None if self.bias is None else self.bias.to(x.dtype),
+                        stride=self.stride,
                         padding=self.dilation * (self.weight.shape[-1] - 1)
-                        // 2, dilation=self.dilation)
+                        // 2, dilation=self.dilation, groups=self.groups)
 
 
 class Dense(nn.Module):
@@ -647,7 +714,8 @@ def discard_stats(net: nn.Module) -> None:
 def conv_paths(key: str, m: nn.Module, path: tuple) -> dict:
     """The flax names of one conv-like module's tensors, for a net's
     ``flax_paths``: state-dict key -> (collection, flax path, kind), where
-    kind says how the tensor maps (``conv`` OIHW <-> HWIO, ``deconv``
+    kind says how the tensor maps (``conv`` OIHW <-> HWIO, ``conv3d``
+    OIDHW <-> DHWIO, ``deconv``
     (in, out, kh, kw) <-> (kh, kw, in, out), ``dense`` (out, in) <-> (in,
     out), ``vec`` as it is). ``m`` is a ``_Conv`` or ``Conv`` (``kernel``,
     ``bias`` at ``path``), a ``TorchDeconv``, an ``nn.Linear`` or a
@@ -670,7 +738,8 @@ def conv_paths(key: str, m: nn.Module, path: tuple) -> dict:
                 "BatchNorm_0" if isinstance(m.norm, BatchNorm)
                 else "LayerNorm_0",)))
         return out
-    kind = {TorchDeconv: "deconv", nn.Linear: "dense"}.get(type(m), "conv")
+    kind = {TorchDeconv: "deconv", nn.Linear: "dense"}.get(
+        type(m), "conv3d" if m.weight.dim() == 5 else "conv")
     out[pre + "weight"] = ("params", path + ("kernel",), kind)
     if m.bias is not None:
         out[pre + "bias"] = ("params", path + ("bias",), "vec")
@@ -690,6 +759,36 @@ def norm_paths(key: str, m: nn.Module, path: tuple) -> dict:
         out[f"{key}.running_mean"] = ("batch_stats", path + ("mean",), "vec")
         out[f"{key}.running_var"] = ("batch_stats", path + ("var",), "vec")
     return out
+
+
+def named_flax_paths(net: nn.Module, prefix: str = "",
+                     path: tuple = ()) -> dict:
+    """``flax_paths`` of a net whose module names are the flax ones (the
+    video nets): every conv (``conv_paths``) and norm (``norm_paths``)
+    under its dotted name, and the tensors a module names itself
+    (``flax_leaves()``: attribute -> (flax leaf, kind))."""
+    out = {}
+    for name, m in net.named_modules():
+        key = f"{prefix}{name}"
+        where = path + tuple(name.split(".")) if name else path
+        if isinstance(m, _Conv):
+            out.update(conv_paths(key, m, where))
+        elif isinstance(m, (BatchNorm, LayerNorm)):
+            out.update(norm_paths(key, m, where))
+        elif hasattr(m, "flax_leaves"):
+            for attr, (leaf, kind) in m.flax_leaves().items():
+                out[f"{key}.{attr}"] = ("params", where + (leaf,), kind)
+    return out
+
+
+def conv_nhwc(conv: nn.Module, x: torch.Tensor,
+              dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """An NCHW conv module on an NHWC tensor (cast to ``dtype`` first):
+    the NCHW view of a contiguous NHWC tensor is ``channels_last``, so
+    neither way copies."""
+    if dtype is not None:
+        x = x.to(dtype)
+    return conv(x.contiguous().permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
 
 
 def lecun_init(net: nn.Module, generator: torch.Generator) -> None:

@@ -7,7 +7,9 @@ pixel-unshuffle wrapper's config of ``:169-180``), ``get_network_D_config``
 types that the port builds are the SR generators ``rrdb_net``,
 ``mrrdb_net``, ``sr_resnet``, ``ppon``, ``pan_net`` and ``a2n_net``, and
 the image-to-image and SFTGAN generators ``unet_net``, ``resnet_net`` and
-``sft_arch``; the JAX package's other types raise here and name their
+``sft_arch``, and the video generators ``sofvsr_net``, ``sr3d_net``,
+``edvr_net``, ``rife_net`` and ``evsrgan`` (``rrdb_net`` with a Conv3D
+trunk); the JAX package's other types raise here and name their
 ROADMAP item. Every discriminator spec is parsed as the JAX
 package parses it; ``models/networks.py::define_D`` refuses the types the
 port does not build.
@@ -33,14 +35,15 @@ _G_ALIASES = {
     "unet_net": "unet_net", "unet_128": "unet_net", "unet_256": "unet_net",
     "resnet_net": "resnet_net", "resnet_6blocks": "resnet_net",
     "resnet_9blocks": "resnet_net",
+    "sofvsr_net": "sofvsr_net", "sofvsr": "sofvsr_net",
+    "sr3d_net": "sr3d_net", "sr3d": "sr3d_net",
+    "edvr_net": "edvr_net", "edvr": "edvr_net",
+    "rife_net": "rife_net", "rife": "rife_net",
 }
 
 # the JAX package's other generator aliases -> the ROADMAP item that ports
 # each (Queue A 10)
 _G_NOT_PORTED = {
-    "sofvsr_net": "10.5", "sofvsr": "10.5", "sr3d_net": "10.5",
-    "sr3d": "10.5", "edvr_net": "10.5", "edvr": "10.5", "rife_net": "10.5",
-    "rife": "10.5",
     "dvd_net": "10.6", "srflow_net": "10.6", "srflow": "10.6",
     "wbcunet": "10.6", "wbcunet_tf": "10.6", "wbcunet_net": "10.6",
     "seg_arch": "10.6", "seg": "10.6", "abpn_net": "10.6", "abpn": "10.6",
@@ -74,6 +77,17 @@ _G_DEFAULTS: dict[str, dict[str, Any]] = {
     "resnet_net": dict(input_nc=3, output_nc=3, n_blocks=9, ngf=64,
                        norm_type="instance", use_dropout=False,
                        upsample_mode="deconv", padding_type="reflect"),
+    "sofvsr_net": dict(n_frames=3, channels=320, scale=_SCALE, img_ch=3,
+                       SR_net="rrdb", sr_nf=64, sr_nb=23, sr_gc=32, sr_unf=24,
+                       sr_gaussian_noise=True, sr_plus=False, sr_sa=True,
+                       sr_upinter_mode="nearest"),
+    "sr3d_net": dict(in_nc=3, out_nc=3, nf=64, nb=23, scale=_SCALE, n_frames=5),
+    "edvr_net": dict(num_in_ch=3, num_out_ch=3, num_feat=64, num_frame=5,
+                     upscale=_SCALE, deformable_groups=8, num_extract_block=5,
+                     num_reconstruct_block=10, center_frame_idx=None,
+                     with_predeblur=False, with_tsa=True,
+                     upsample_mode="pixelshuffle", add_rrdb=False, nb=23),
+    "rife_net": dict(),
 }
 
 _G_ALIAS_OVERRIDES: dict[str, dict[str, Any]] = {
@@ -89,12 +103,19 @@ _G_ALIAS_OVERRIDES: dict[str, dict[str, Any]] = {
 
 # user key -> canonical key, or {canonical type: canonical key}
 _G_KEY_ALIASES = {
-    "scale": {"rrdb_net": "upscale", "mrrdb_net": "upscale",
-              "ppon": "upscale", "sr_resnet": "upscale"},
     "net_act": "act_type",
     "gaussian": "gaussian_noise",
-    "in_nc": {"unet_net": "input_nc", "resnet_net": "input_nc"},
-    "out_nc": {"unet_net": "output_nc", "resnet_net": "output_nc"},
+    "scale": {"rrdb_net": "upscale", "mrrdb_net": "upscale",
+              "ppon": "upscale", "sr_resnet": "upscale",
+              "edvr_net": "upscale"},
+    "in_nc": {"unet_net": "input_nc", "resnet_net": "input_nc",
+              "sofvsr_net": "img_ch", "edvr_net": "num_in_ch"},
+    "out_nc": {"unet_net": "output_nc", "resnet_net": "output_nc",
+               "edvr_net": "num_out_ch"},
+    "nf": {"edvr_net": "num_feat"},
+    "n_frames": {"edvr_net": "num_frame"},
+    "predeblur": "with_predeblur",
+    "tsa": "with_tsa",
 }
 
 

@@ -4,7 +4,10 @@
 where a ``seg`` dataset gives them, ``test.py:116-118``; ``sftgan_acd``
 with uniform maps, as the JAX CLI serves it), ``pix2pix`` (G) and
 ``cyclegan`` (G_A; ``pretrain_model_G`` a ``{tag}_G_A.ckpt``, or a tree of
-both Gs) from a ``single`` dataset's ``LR``, with its x8 self-ensemble
+both Gs) from a ``single`` dataset's ``LR``, and the video models (``vsr``,
+``vsrgan``, ``evsrgan``, ``video``: the sliding windows of a ``video``
+dataset, the centre frame served and scored against the centre of the HR
+clip, ``test.py:157-161``), with its x8 self-ensemble
 (``self_ensemble`` / ``x8``), tiled (``chop_forward`` / ``chop``) and plain
 ``eval_step`` branches, taken in that order as the JAX CLI takes them, and
 its CEM post-processing (``test.py:129-150``): with ``use_cem`` and
@@ -63,7 +66,8 @@ def _check_ported(opt) -> None:
             "apply_cem, so the JAX CLI raises a TypeError there "
             "(ROADMAP C 20)")
     if model not in ("sr", "srgan", "srragan", "ppon", "sftgan",
-                     "sftgan_acd", "pix2pix", "cyclegan"):
+                     "sftgan_acd", "pix2pix", "cyclegan", "vsr", "vsrgan",
+                     "evsrgan", "video"):
         item = _OTHER_MODELS.get(model, "Queue A 10")
         raise NotImplementedError(
             f"model [{model}] inference is not ported yet (ROADMAP {item}, "
@@ -185,7 +189,10 @@ def main(argv=None, device: Union[str, torch.device, None] = None
             save_img(sr_img, os.path.join(res_dir, img_name + ".png"))
             n_img += 1
             if batch.get("HR") is not None:
-                gt_img = tensor2img(batch["HR"][0], znorm)
+                gt = batch["HR"]
+                if gt.dim() == 5:  # a clip: score its centre frame
+                    gt = gt[:, gt.shape[1] // 2]
+                gt_img = tensor2img(gt[0], znorm)
                 r = metrics.calculate_metrics(sr_img, gt_img,
                                               crop_size=scale)
                 ry = metrics_y.calculate_metrics(sr_img, gt_img,

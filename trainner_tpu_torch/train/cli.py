@@ -4,10 +4,13 @@
 ``create_trainer:95``, ``validate:196``, ``fit:241``, ``main:395``) for
 ``model: sr`` (and its aliases), ``model: ppon``
 (``ppon_trainer.PPONTrainer``; its validation reads the output of
-``ppon_phase``), ``sftgan`` / ``sftgan_acd``, ``pix2pix`` and
-``cyclegan``. Every ``logger.display_freq`` iterations, when the batch
-has ``A``, the sample grid A | G(A) | B goes to
-``experiments_root/samples/{iter:08d}.png`` (``train.py:353-369``).
+``ppon_phase``), ``sftgan`` / ``sftgan_acd``, ``pix2pix``, ``cyclegan``
+and the video models ``vsr``, ``vsrgan``, ``evsrgan`` and ``video``
+(``vsr_trainer.VSRTrainer``; the validation scores the first frame of a
+clip's HR, as the JAX CLI's does, ROADMAP C 25). Every
+``logger.display_freq`` iterations, when the batch has ``A``, the sample
+grid A | G(A) | B goes to ``experiments_root/samples/{iter:08d}.png``
+(``train.py:353-369``).
 
 The options file drives the whole run: the train loader, the on-device
 degradations (``make_otf_degradation``; the bsrgan presets shuffle the
@@ -62,9 +65,7 @@ from .sr_trainer import create_trainer as create_sr_trainer
 
 # the models of the JAX CLI that the port does not train yet -> their item
 _OTHER_MODELS = {
-    "vsr": "Queue A 10.5",
-    "vsrgan": "Queue A 10.5", "evsrgan": "Queue A 10.5",
-    "video": "Queue A 10.5", "dvd": "Queue A 10.6", "srflow": "Queue A 10.6",
+    "dvd": "Queue A 10.6", "srflow": "Queue A 10.6",
     "wbc": "Queue A 10.6", "pbr": "Queue A 10.6", "sr_pbr": "Queue A 10.6",
     "pbr_sr": "Queue A 10.6",
 }
@@ -141,8 +142,9 @@ def get_dataloaders(opt, pin_memory: bool = False):
 
 def create_trainer(opt, device: Union[str, torch.device, None] = None):
     """The trainer of the options' ``model``: ``sr`` (and its aliases),
-    ``ppon``, ``sftgan`` / ``sftgan_acd``, ``pix2pix`` or ``cyclegan``;
-    the other models of the JAX CLI raise with their ROADMAP item."""
+    ``ppon``, ``sftgan`` / ``sftgan_acd``, ``pix2pix``, ``cyclegan`` or a
+    video model; the other models of the JAX CLI raise with their ROADMAP
+    item."""
     model = (opt.get("model") or "sr").lower()
     if model in _OTHER_MODELS:
         raise NotImplementedError(

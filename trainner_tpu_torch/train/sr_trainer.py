@@ -96,6 +96,7 @@ from .state import (NetState, SRTrainState, ema_update, init_ema, init_swa,
                     refresh_bn_stats, swa_update)
 
 AGC_HISTORY = 256  # the auto clip's ring buffer of G's gradient norms
+VIDEO_MODELS = ("vsr", "vsrgan", "evsrgan", "video")
 
 
 @contextlib.contextmanager
@@ -979,19 +980,21 @@ def create_trainer(opt: dict, device: Union[str, torch.device, None] = None,
     """Model-strategy factory for ``model: sr`` (and its aliases),
     ``model: ppon`` (``ppon_trainer.PPONTrainer``), ``sftgan`` /
     ``sftgan_acd`` (``sftgan_trainer.SFTGANTrainer``), ``pix2pix``
-    (``pix2pix_trainer.Pix2PixTrainer``) and ``cyclegan``
-    (``cyclegan_trainer.CycleGANTrainer``). Training runs the network
-    bodies in bf16 and inference in f32, unless ``use_amp`` says otherwise,
+    (``pix2pix_trainer.Pix2PixTrainer``), ``cyclegan``
+    (``cyclegan_trainer.CycleGANTrainer``) and ``vsr`` / ``vsrgan`` /
+    ``evsrgan`` / ``video`` (``vsr_trainer.VSRTrainer``). Training runs the
+    network bodies in bf16 and inference in f32, unless ``use_amp`` says
+    otherwise,
     as in the JAX package. Runs on ``cuda`` unless ``device`` names the
     CPU, and raises when no card is present. ``graphs`` (default: on for
     ``cuda``) runs the step and ``eval_step`` as CUDA graphs; ``False``
     runs them eagerly, to compare the two."""
     model = (opt.get("model") or "sr").lower()
     if model not in ("sr", "srgan", "srragan", "ppon", "sftgan",
-                     "sftgan_acd", "pix2pix", "cyclegan"):
+                     "sftgan_acd", "pix2pix", "cyclegan") + VIDEO_MODELS:
         raise NotImplementedError(
-            f"model [{model}] is not ported yet (ROADMAP Queue A 10.5-10.6, "
-            "the other models)")
+            f"model [{model}] is not ported yet (ROADMAP Queue A 10.6, "
+            "the rest of the zoo)")
     amp_default = bool(opt.get("is_train", True))
     dtype = torch.bfloat16 if opt.get("use_amp", amp_default) \
         else torch.float32
@@ -1003,6 +1006,8 @@ def create_trainer(opt: dict, device: Union[str, torch.device, None] = None,
         from .pix2pix_trainer import Pix2PixTrainer as cls
     elif model == "cyclegan":
         from .cyclegan_trainer import CycleGANTrainer as cls
+    elif model in VIDEO_MODELS:
+        from .vsr_trainer import VSRTrainer as cls
     else:
         cls = SRTrainer
     return cls(opt, dtype=dtype, device=device, graphs=graphs)

@@ -5,8 +5,11 @@ self-attention's ``gamma`` too) and ``AAN``, with their norms, PReLU slopes,
 partial convs, ESRGAN+ ``conv1x1`` and a batch norm's ``batch_stats``, by
 ``g_to_jax`` / ``g_from_jax``; the nets that name their own tensors' flax
 paths (``flax_paths``: ``ResnetGenerator``, ``UnetGenerator``,
-``SFTNet``, ``ACDVGGBN96`` and the PatchGAN, multiscale and pixel
-discriminators) by ``net_to_jax`` / ``net_from_jax``, CycleGAN's two Gs
+``SFTNet``, ``ACDVGGBN96``, the PatchGAN, multiscale and pixel
+discriminators, and the video nets ``SOFVSR`` (its RRDB tail in
+``RRDBNet``'s layout under ``SR``), ``SR3DNet``, ``EDVR`` and ``RIFE``)
+by ``net_to_jax`` / ``net_from_jax``, EVSRGAN's Conv3D ``RRDBNet`` (DHWIO
+kernels) by ``g_to_jax`` / ``g_from_jax``, CycleGAN's two Gs
 by ``nets_to_jax`` / ``nets_from_jax`` and its whole state by
 ``train_state_to_jax`` / ``cyclegan_state_from_jax``;
 ``DiscriminatorVGG`` with its
@@ -46,8 +49,11 @@ import torch
 
 
 def hwio_to_oihw(w: np.ndarray) -> np.ndarray:
-    """flax HWIO -> torch OIHW (the inverse of ``conv_to_hwio``)."""
-    return np.ascontiguousarray(np.asarray(w).transpose(3, 2, 0, 1))
+    """flax HWIO -> torch OIHW (the inverse of ``oihw_to_hwio``); a Conv3D
+    kernel DHWIO -> OIDHW."""
+    w = np.asarray(w)
+    n = w.ndim
+    return np.ascontiguousarray(w.transpose(n - 1, n - 2, *range(n - 2)))
 
 
 def _unstack_trunk(params: Mapping[str, Any]) -> Dict[str, Any]:
@@ -273,9 +279,9 @@ def g_from_jax(params: Mapping[str, Any],
 
 # how each kind of tensor that a ``flax_paths`` names maps to flax
 _TO_FLAX = {"conv": (2, 3, 1, 0), "deconv": (2, 3, 0, 1), "dense": (1, 0),
-            "vec": None}
+            "conv3d": (2, 3, 4, 1, 0), "vec": None}
 _FROM_FLAX = {"conv": (3, 2, 0, 1), "deconv": (2, 3, 0, 1), "dense": (1, 0),
-              "vec": None}
+              "conv3d": (4, 3, 0, 1, 2), "vec": None}
 
 
 def net_to_jax(sd: Mapping[str, torch.Tensor], net: torch.nn.Module
@@ -727,9 +733,10 @@ def seed_to_key(seed: int) -> np.ndarray:
 
 
 def oihw_to_hwio(w: torch.Tensor) -> np.ndarray:
-    """torch OIHW -> flax HWIO."""
+    """torch OIHW -> flax HWIO; a Conv3D weight OIDHW -> DHWIO."""
+    n = w.dim()
     return np.ascontiguousarray(
-        w.detach().float().cpu().numpy().transpose(2, 3, 1, 0))
+        w.detach().float().cpu().numpy().transpose(*range(2, n), 1, 0))
 
 
 def _np(t: torch.Tensor) -> np.ndarray:
