@@ -73,8 +73,8 @@ non-zero exit code and no result line:
    and a library call as a yardstick (the cuDNN five-conv chain; reflect
    padding and a grouped cuDNN convolution for the blur), the device-alone
    time of the block kernels and the blur from the profiler (the forward
-   also at phase 14's serving shape, the blur at its LR canvas), the block at
-   the padded and the streamed widths at the training shape, and the G
+   also at phase 14's serving shape, both f32 block kernels at SRFlow's
+   encoder step F = b 16, 40 x 40, the blur at its LR canvas), and the G
    forward at b=8, 128->512 px. The f32 block kernels run 3xTF32: their
    bound is three tf32 products per f32 product at the tensor cores' tf32
    rate, printed beside the bound of the same work on the CUDA cores. With
@@ -92,16 +92,15 @@ non-zero exit code and no result line:
    (69 + 69 block launches per step, 2 and 24 blur launches per degrader
    replay) against a profiler trace of one replay; fresh latent noise per
    replay (the statistical gate of ``tests/test_torch_trainer.py``); a
-   resume into a captured state, bit for bit; ``train_steps`` k = 10 with
+   resume into a captured state, bit for bit; ``train_steps`` k = 6 with
    a MultiStep boundary inside the window; the degrader from one
    generator state and plan stream; ``eval_step`` at b = 8 in f32 and
    bf16, x8 on a 72 x 64 and chop on a 136 x 128 image (replaying their
    graphs)
    against the CPU's eager composition; and eager against graphed times
-   of each with the device-busy ms and idle share, the captures' seconds
-   and pool memory, the test CLI's seconds per image on a test set of one
-   size per image and on one of one size, the end-to-end rate and the
-   CLI's steady rate;
+   of each with the graphed program's device-busy ms and idle share, the
+   captures' seconds and pool memory, and the test CLI's seconds per
+   image on a test set of one size per image;
 13. realesrgan (after the graphs): ``options/sr/train_realesrgan.yml`` at
    its full width (G nf 64, nb 23, gc 32; the U-Net D nf 64 with spectral
    norm; EMA; bf16; b=32, 32 -> 128 px): the ops it adds on the card
@@ -117,7 +116,7 @@ non-zero exit code and no result line:
    blur launches per batch (HR once, LR three times) from a trace; the
    degrader as a graph against eager; 3 graphed bf16 steps against 3
    eager ones (69 + 69 block launches per replay, from a trace), their
-   times; the end-to-end rate; then the training CLI on a copy of the
+   times; then the training CLI on a copy of the
    options (the corpus, 12 iterations, checkpoints with ``_emaG`` and
    validation at 6 and 12, a resume to 14 whose EMA and spectral-norm
    state load bit for bit), each step's launches read between markers;
@@ -160,12 +159,10 @@ non-zero exit code and no result line:
    distance from it read); the ResNet-101 and MINC feature losses card
    against CPU at b=4; the refusal of wgan-gp with a batch-norm D; the
    step at b=32, 32 -> 128 px, bf16, as a graph against eager (69 + 69
-   block launches per replay from a trace), its times beside the flagship
-   step's in turns, its peak memory and the device time of each added loss
-   and of the penalty's pass; the training CLI on the yml (12 iterations
-   and a resume to 14, 69 + 69 block and 24 blur launches per step from
-   the trace, LPIPS in the validation) and its rate eager and graphed in
-   turns;
+   block launches per replay from a trace), its times; the training CLI
+   on the yml (12 iterations and a resume to 14, 69 + 69 block and 24
+   blur launches per step from the trace, LPIPS in the validation, its
+   steady rate graphed);
 17. trainer options (after the losses): every option of the JAX
    ``SRTrainer`` the port added in PR 13. Each at small widths (G nf 32,
    nb 1, gc 32; D-VGG 16 at 32 px; pixel and GAN losses; f32, TF32 off),
@@ -184,9 +181,7 @@ non-zero exit code and no result line:
    multiple of 8; 12 iterations and a resume to 14 that restores SWA, the
    LocNet, the clip history and every optimizer state, the launches per
    step from the trace), its ``14_swaG`` file served by the test CLI with
-   ``which: swa``; and the graphed step with each optimizer, the auto
-   clip, the virtual batch and the options cell against the flagship's, in
-   turns.
+   ``which: swa``.
 
 18. the rest of the producer (after the options): the corpus written
    into an LMDB by the port's ``create_lmdb`` (every value decodes to its
@@ -211,9 +206,9 @@ non-zero exit code and no result line:
    3), 12 iterations through the three phases and a resume to 14, its G
    served by the test CLI at ``ppon_phase`` 3 and 1; six PPON steps
    graphed against eager bit for bit, the frozen branches bit-equal across
-   each; one f32 step per phase at cut depth (nb 1) on the card, the CPU
-   and an f64 witness; PAN through the ``sr`` training CLI (12 and a
-   resume to 14); the three models' serving Mpx/s at b=8, 128 -> 512 px.
+   each; one f32 step of phases 1 and 3 at cut depth (nb 1) on the card,
+   the CPU and an f64 witness; PAN through the ``sr`` training CLI (12 and
+   a resume to 14); the three models' serving Mpx/s at b=8, 128 -> 512 px.
 20. i2i and sft (after phase 19): SFTGAN (``options/sr/train_sftgan.json``),
    pix2pix (``options/i2i/train_pix2pix.yml``, ``serial_batches``) and
    CycleGAN (``options/i2i/train_cyclegan.yml``) at full width on seeded
@@ -245,11 +240,29 @@ non-zero exit code and no result line:
    window), 69 block forwards per window or quadrant from the traces;
    SR3D, EDVR (DCNv2), EVSRGAN (Conv3D) and RIFE at full width card
    against CPU; every video net's forward Mpx/s.
+22. srflow (after phase 21): SRFlow at the full width of
+   ``options/srflow/train_srflow.yml`` (SRFlowNet nf 64, nb 23, K 16, L 3,
+   hidden 64; b 16, crop 160; f32), its encoder's 23 blocks on the f32
+   block kernels: the training CLI for 12 iterations, the encoder frozen
+   for the first 6 (23 block forwards and no backward per step, then 23
+   and 23; 23 forwards per validation image at heat 0) and a resume to
+   14; the block kernels against their plain versions at F (b=16, 40 x
+   40: one block forward and backward, the whole encoder forward, the
+   encoder's gradient of one step); four steps graphed against eager bit
+   for bit across the unfreeze (one graph per freeze state); one f32 SGD
+   step at cut depth (nb 2, K 2) on the card, the CPU and an f64 witness
+   replaying each side's branches of the flow; two ``srflow_interop``
+   steps (69 blocks) graphed against eager; the test CLI on
+   ``test_srflow.yml`` (4 heats x 3 samples on 2 images) with both nets,
+   23 or 69 block forwards per sample, the heat-0 sample card against
+   CPU; then ABPN, ASRResNet, ASRCNN and the segmenter at their JAX
+   defaults card against CPU, an ``sr`` step with each graphed against
+   eager, and their forward Mpx/s.
 
 The launch traces of the serving slice, of phase 14's serving, of every
-training CLI and of phase 21 run their body again when the profiler lost
-records (``_retried_trace``, at most three times; a count over the wanted
-one fails at once; ROADMAP C 24).
+training CLI and of phases 21 and 22 run their body again when the
+profiler lost records (``_retried_trace``, at most three times; a count
+over the wanted one fails at once; ROADMAP C 24).
 
 Launches: the kernel wrappers count where they put a kernel on a stream,
 eagerly or into a graph being captured (a replay runs no Python). What the
@@ -267,7 +280,7 @@ The second-to-last lines are a JSON summary of the kernels and the card's
 ``{"ok": true, "device": {...}}``.
 
 Usage: python3 chip_smoke.py [--parent DIR]
-       python3 chip_smoke.py --only 18,19,20,21   (any of phases 18-21 alone,
+       python3 chip_smoke.py --only 18,19,22   (any of phases 18-22 alone,
            after the build and the corpus; no result line)
        python3 chip_smoke.py --kernels-only [--parent DIR]   (phases 1-3
            and the kernels' part of 10: a short run while a kernel is
@@ -276,6 +289,7 @@ Usage: python3 chip_smoke.py [--parent DIR]
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import json
 import math
@@ -378,14 +392,18 @@ def _device_events(prof) -> list:
     blur kernels start before the marker launched ahead of it."""
     from torch.autograd import DeviceType
 
-    raw = prof.profiler.kineto_results.events()
-    launched = {e.correlation_id(): e.start_ns() for e in raw
-                if e.device_type() != DeviceType.CUDA
-                and e.name().startswith("cu")}
-    events = [(e.start_ns(), e.duration_ns(), e.name()) for e, _ in sorted(
-        ((e, launched.get(e.correlation_id(), e.start_ns())) for e in raw
-         if e.device_type() == DeviceType.CUDA),
-        key=lambda pair: (pair[1], pair[0].start_ns()))]
+    # one pass, each record's fields read once (a whole run reads
+    # millions of records on the host's clock)
+    cuda = DeviceType.CUDA
+    launched, device = {}, []
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == cuda:
+            device.append((e.correlation_id(), e.start_ns(),
+                           e.duration_ns(), e.name()))
+        elif e.name().startswith("cu"):
+            launched[e.correlation_id()] = e.start_ns()
+    device.sort(key=lambda r: (launched.get(r[0], r[1]), r[1]))
+    events = [(start, dur, name) for _, start, dur, name in device]
     first = 0
     while first < len(events) and MARKER in events[first][2]:
         first += 1
@@ -395,28 +413,89 @@ def _device_events(prof) -> list:
 @contextlib.contextmanager
 def _profiled(cpu: bool = False):
     """torch.profiler over the body: the device's activity (and the
-    host's, with ``cpu``), the body starting 0.3 s after
+    host's, with ``cpu``), the body starting ``OPENING_PAUSE`` s after
     ``OPENING_MARKERS`` markers. The profiler drops the first records of
     a session (on the H100, now and then every launch of a short timing
     session that launched at once; with a pause of 0.1 s, once the eager
     first step of a debug-width training session; with three markers and
     0.3 s, late in a whole run of this script, the first 21-23 records of
     a step's replay, two of them block stages, while a fresh process lost
-    none); the markers take their place, and the body runs after the
-    pause."""
+    none: a count of records, which a longer pause did not prevent); the
+    markers take their place, and the body runs after the pause."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     activities = [ProfilerActivity.CUDA] + (
         [ProfilerActivity.CPU] if cpu else [])
     torch.cuda.synchronize()
+    t0 = time.perf_counter()
     with profile(activities=activities) as prof:
         for _ in range(OPENING_MARKERS):
             _mark()
         torch.cuda.synchronize()
-        time.sleep(0.3)
+        time.sleep(OPENING_PAUSE)
+        t1 = time.perf_counter()
         yield prof
         torch.cuda.synchronize()
+        t2 = time.perf_counter()
+    SESSIONS.append((t1 - t0, time.perf_counter() - t2))
+
+
+# (seconds to open, seconds to close) of each ``_profiled`` session
+SESSIONS = []
+# wall seconds and calls of each phase and helper of this script, by the
+# phase that called it (``_time_parts``)
+PARTS = collections.defaultdict(lambda: [0.0, 0])
+TIMED_HELPERS = ("_retried_trace", "_device_events", "_steps_card_cpu_f64",
+                 "_card_vs_cpu_forward", "_graphed_vs_eager", "_time_ms",
+                 "_save_breakdown", "_state_tensors", "_compare_block")
+
+
+def _time_parts() -> None:
+    """Wraps each phase and helper of this script that takes the card's
+    name (``smi``), and those of ``TIMED_HELPERS``, so that ``PARTS``
+    adds up the wall seconds and calls of each by the phase it ran
+    under; ``_print_parts`` prints them."""
+    import functools
+    import inspect
+
+    stack = []
+    module = sys.modules[__name__]
+    for name, fn in list(vars(module).items()):
+        if not inspect.isfunction(fn) or fn.__module__ != __name__:
+            continue
+        params = list(inspect.signature(fn).parameters)
+        if not ((params[:1] == ["smi"] and name != "main")
+                or name in TIMED_HELPERS):
+            continue
+
+        def timed(*args, _fn=fn, _name=name, **kwargs):
+            phase = next((p for p in reversed(stack)
+                          if p.startswith("phase_")), "")
+            key = f"{phase}/{_name}" if phase and phase != _name else _name
+            stack.append(_name)
+            t0 = time.perf_counter()
+            try:
+                return _fn(*args, **kwargs)
+            finally:
+                stack.pop()
+                PARTS[key][0] += time.perf_counter() - t0
+                PARTS[key][1] += 1
+
+        setattr(module, name, functools.wraps(fn)(timed))
+
+
+def _print_parts(smi: str, top: int = 60) -> None:
+    """The ``top`` parts of ``PARTS`` by their wall seconds, and the
+    profiler sessions' own seconds to open and to close."""
+    opened = sum(a for a, _ in SESSIONS)
+    closed = sum(b for _, b in SESSIONS)
+    print(f"parts: {len(SESSIONS)} profiler sessions, {opened:.1f} s to "
+          f"open (with the markers and the pause), {closed:.1f} s to close "
+          f"({smi})")
+    for key, (secs, calls) in sorted(PARTS.items(),
+                                     key=lambda kv: -kv[1][0])[:top]:
+        print(f"parts: {secs:8.1f} s  x{calls:<4d} {key}")
 
 
 def _calls_per_wrapper(names) -> dict:
@@ -424,20 +503,23 @@ def _calls_per_wrapper(names) -> dict:
     kernels per block forward (``rdb_*`` but ``rdb_dx_*``), one dW kernel
     per block backward, one blur kernel per blur."""
     stages = dw = blur = 0
-    for name in names:
+    for name, n in collections.Counter(names).items():
         short = _short_name(name)
         if short.startswith("rdb_") and "_dx_" not in short:
-            stages += 1
+            stages += n
         elif short.startswith("dw_"):
-            dw += 1
+            dw += n
         elif short == "blur_kernel":
-            blur += 1
+            blur += n
     return {"rdb5c": stages // 5 if stages % 5 == 0 else stages / 5,
             "rdb5c_bwd": dw, "blur": blur}
 
 
 MARKER = "spin_kernel"
 OPENING_MARKERS = 128  # per profiler session, ahead of the body
+# seconds between the markers and the body; 0.3 s cost a whole run of this
+# script 87 s over its 291 sessions
+OPENING_PAUSE = 0.05
 
 
 def _mark() -> None:
@@ -1801,7 +1883,8 @@ def phase_cli(smi: str, root: str, yml: str = None, label: str = "cli",
               per_batch: int = 2 * 2 * SHUFFLE_K,
               nets: tuple = ("G", "D"), edit=None, niter: int = CLI_NITER,
               resume: bool = True, g_launches=None, corpus: str = None,
-              trainer_cls=None, val_launches: int = None) -> dict:
+              trainer_cls=None, val_launches: int = None,
+              save_breakdown: bool = False) -> dict:
     """The training CLI at the full width of an options file of the repo
     (``yml``; by default ``options/sr/train_sr.yml``: G nf 64, nb 23, gc
     32, D-VGG-128, batch 32, crop 128, bsrgan with the per-sample shuffle,
@@ -1814,10 +1897,15 @@ def phase_cli(smi: str, root: str, yml: str = None, label: str = "cli",
     (``per_batch`` blur launches) and in all. ``niter`` (a multiple of 6)
     and ``resume`` shorten it. ``g_launches(n)``: the forward (and
     backward) block launches of step n where they are not 69 (a virtual
-    batch runs G once per microbatch). ``corpus`` replaces the train set
+    batch runs G once per microbatch), or a pair (forward, backward) where
+    they differ (SRFlow's frozen encoder). ``corpus`` replaces the train
+    set
     (``root/corpus``); ``trainer_cls`` is the trainer whose ``train_step``
     the markers wrap (``SRTrainer``); ``val_launches`` the block launches
-    of one validation forward (69). Returns the runs' traces."""
+    of one validation forward (69); ``save_breakdown`` times a state
+    file's save by its parts (``_save_breakdown``; the flagship's run
+    alone, the other CLIs' saves are timed whole). Returns the runs'
+    traces."""
     import torch
 
     from trainner_tpu_torch.train import cli
@@ -1880,14 +1968,18 @@ def phase_cli(smi: str, root: str, yml: str = None, label: str = "cli",
     # at 12
     n_val = niter // CLI_FREQ * N_VAL  # validation every CLI_FREQ
     per_step = g_launches or (lambda n: per_g)
-    g_run = sum(per_step(n) for n in range(1, niter + 1))
+
+    def g_run(steps, i):
+        return sum(_fwd_bwd(per_step(n))[i] for n in steps)
+
+    first = range(1, niter + 1)
     want = dict(blur=per_batch * niter,
-                rdb5c=g_run + per_val * n_val,
-                rdb5c_bwd=g_run)
+                rdb5c=g_run(first, 0) + per_val * n_val,
+                rdb5c_bwd=g_run(first, 1))
     n2 = CLI_RESUME_NITER - niter
-    g_run2 = sum(per_step(n) for n in range(niter + 1,
-                                            CLI_RESUME_NITER + 1))
-    want2 = dict(blur=per_batch * n2, rdb5c=g_run2, rdb5c_bwd=g_run2)
+    second = range(niter + 1, CLI_RESUME_NITER + 1)
+    want2 = dict(blur=per_batch * n2, rdb5c=g_run(second, 0),
+                 rdb5c_bwd=g_run(second, 1))
     cls.train_step = train_step
     checkpoint.save_checkpoint = timed(orig[1], "save")
     cli.validate = timed(orig[2], "val")
@@ -1899,7 +1991,8 @@ def phase_cli(smi: str, root: str, yml: str = None, label: str = "cli",
         save_ms = [d * 1e3 for _, d in rec["save"]]
         val_ms = [d * 1e3 for _, d in rec["val"]]
         saved = _state_tensors(state)
-        save_parts = _save_breakdown(state, os.path.join(root, "t.state"))
+        save_parts = _save_breakdown(state, os.path.join(
+            root, "t.state")) if save_breakdown else None
         del state
         torch.cuda.empty_cache()
         if resume:
@@ -1924,7 +2017,7 @@ def phase_cli(smi: str, root: str, yml: str = None, label: str = "cli",
           f"launches the card ran {counts['ran']} (expected {want}); the "
           f"wrappers counted {counts['counted']}")
     print(f"{label}: every step's block launches (forward, backward) "
-          f"{sorted({(per_step(n), per_step(n)) for n in range(1, niter + 1)})}"
+          f"{sorted({_fwd_bwd(per_step(n)) for n in range(1, niter + 1)})}"
           f" and its batch's {per_batch} blur launches before it ({niter} "
           f"steps, from the trace)")
 
@@ -1966,12 +2059,13 @@ def phase_cli(smi: str, root: str, yml: str = None, label: str = "cli",
           f"{steady * 1e3 / n:.3f} ms per iteration, {n / steady:.4f} it/s "
           f"steady; {span * 1e3 / n:.3f} ms, {n / span:.4f} it/s with the "
           f"save and validation at {CLI_FREQ} ({smi})")
+    parts = "" if save_parts is None else (
+        f"; of a state file ({save_parts['mb']:.1f} MB): to host trees "
+        f"{save_parts['host_ms']:.1f} ms, encoded and written "
+        f"{save_parts['write_ms']:.1f} ms")
     print(f"times: {label} save_checkpoint ({', '.join(nets)}, state; "
-          f"synchronised) "
-          f"{', '.join(f'{t:.1f}' for t in save_ms)} ms; of a state file "
-          f"({save_parts['mb']:.1f} MB): to host trees "
-          f"{save_parts['host_ms']:.1f} ms, encoded and written "
-          f"{save_parts['write_ms']:.1f} ms; validation "
+          f"synchronised) {', '.join(f'{t:.1f}' for t in save_ms)} ms"
+          f"{parts}; validation "
           f"{', '.join(f'{t / N_VAL:.1f}' for t in val_ms)} ms per image "
           f"({N_VAL} images to {CORPUS_PX} px) ({smi})")
 
@@ -2014,7 +2108,7 @@ def _check_cli_trace(label: str, trace: dict, want: dict, steps: list,
     backward block launches and no blur, and before it its batch's
     ``per_batch`` blur launches (with a validation's forwards where one
     ran there); ``per_step(n)`` gives step n's block launches where they
-    are not ``per_g``."""
+    are not ``per_g``: one count for both, or (forward, backward)."""
     ran, segments = trace["ran"], trace["segments"]
     numbers = list(numbers)
     per_step = per_step or (lambda n: per_g)
@@ -2027,13 +2121,20 @@ def _check_cli_trace(label: str, trace: dict, want: dict, steps: list,
             f"{len(segments)} segments between markers")
     for i, number in enumerate(numbers):
         before, step = segments[2 * i], segments[2 * i + 1]
-        g = per_step(number)
-        if step != {"rdb5c": g, "rdb5c_bwd": g, "blur": 0} \
+        gf, gb = _fwd_bwd(per_step(number))
+        if step != {"rdb5c": gf, "rdb5c_bwd": gb, "blur": 0} \
                 or before["blur"] != per_batch or before["rdb5c_bwd"] \
                 or (before["rdb5c"] % per_g if per_g else before["rdb5c"]):
             raise AssertionError(
                 f"{label} step {number}: {step} in the step, {before} "
                 f"before it")
+
+
+def _fwd_bwd(launches) -> tuple:
+    """A step's block launches as (forward, backward): a pair as it is,
+    one count for both."""
+    return tuple(launches) if isinstance(launches, tuple) else (
+        launches, launches)
 
 
 BF16_BLOCK_KERNELS = {"rdb5c.cu": ("rdb_stage_mma",),
@@ -2164,9 +2265,10 @@ def _bound_text(row: dict) -> str:
 
 def phase_times(smi: str, root: str, kernels_only: bool = False):
     """CUDA-event times of both block kernels at the main paths' shapes in
-    both types, beside the plain version, the bound and the cuDNN five-conv
-    chain (its forward, and autograd's backward through it), and the
-    kernels' time on the device alone; then (unless ``kernels_only``) the G
+    both types (at SRFlow's F in f32 alone), beside the plain version, the
+    bound and the cuDNN five-conv chain (its forward, and autograd's
+    backward through it), and the kernels' time on the device alone; then
+    (unless ``kernels_only``) the G
     forward at b=8. f32 rows carry two bounds: 3xTF32 on the tensor cores
     (``bound_ms``, what the kernels run) and the same work on the CUDA cores
     (``bound_ms_cuda_cores``). Returns {(kernel, shape, dtype name): row}."""
@@ -2185,13 +2287,19 @@ def phase_times(smi: str, root: str, kernels_only: bool = False):
     gen = torch.Generator().manual_seed(2)
     # phase 14's serving shape draws from a generator of its own
     zoo_gen = torch.Generator().manual_seed(14)
+    # and SRFlow's encoder step (F, f32 alone) from one of its own
+    srflow_gen = torch.Generator().manual_seed(22)
     rows = {}
-    for shape in (MAIN_SHAPE, TRAIN_SHAPE, ZOO_SERVE_SHAPE):
+    both = (torch.float32, torch.bfloat16)
+    for shape, dtypes in ((MAIN_SHAPE, both), (TRAIN_SHAPE, both),
+                          (ZOO_SERVE_SHAPE, both),
+                          (SRFLOW_F, (torch.float32,))):
         b, h, w = shape
         npix = b * h * w
-        for dt in (torch.float32, torch.bfloat16):
+        for dt in dtypes:
             name = str(dt).replace("torch.", "")
-            g_draw = zoo_gen if shape == ZOO_SERVE_SHAPE else gen
+            g_draw = {ZOO_SERVE_SHAPE: zoo_gen,
+                      SRFLOW_F: srflow_gen}.get(shape, gen)
             blk = ResidualDenseBlock5C(NF, GC)
             ws, bs = _block_weights(g_draw)
             with torch.no_grad():
@@ -2237,7 +2345,8 @@ def phase_times(smi: str, root: str, kernels_only: bool = False):
 
             # the backward, from the forward's residuals; the yardstick is
             # autograd's backward through the cuDNN chain on a kept graph
-            g = torch.randn(b, h, w, NF, generator=gen).cuda().to(dt)
+            g = torch.randn(b, h, w, NF, generator=srflow_gen
+                            if shape == SRFLOW_F else gen).cuda().to(dt)
             with torch.no_grad():
                 _, *cs = rdb5c_forward(x, packed, biases,
                                        return_residuals=True)
@@ -2281,7 +2390,6 @@ def phase_times(smi: str, root: str, kernels_only: bool = False):
                   + ", ".join(f"{k} {_ms_text(v)} ms" for k, v in dev.items())
                   + f" ({smi})")
             del blk, conv_blk, out, inputs, xin
-    _width_times(smi, gen)
     if kernels_only:
         return rows
 
@@ -2300,66 +2408,6 @@ def phase_times(smi: str, root: str, kernels_only: bool = False):
         del net
         torch.cuda.empty_cache()
     return rows
-
-
-def _width_times(smi: str, gen) -> None:
-    """The block at the other widths of OTHER_WIDTHS that the main paths do
-    not run (narrow ones padded, bf16 stages over 256 channels streamed), at
-    the training shape in both types: CUDA-event times of the wrappers
-    (padding included) and the stage, dx and dW kernels' device time, beside
-    the bound of the block's own (unpadded) work."""
-    import torch
-
-    from trainner_tpu_torch.models.rrdb import ResidualDenseBlock5C
-    from trainner_tpu_torch.ops.rdb5c import (padded_width, rdb5c_backward,
-                                              rdb5c_forward)
-
-    b, h, w = TRAIN_SHAPE
-    for nf, gc in OTHER_WIDTHS:
-        if (nf, gc) in ((32, 32), (128, 32)):
-            continue
-        n_q = (nf * (4 * gc + nf) + gc * (3 * gc + nf) + gc * (2 * gc + nf)
-               + gc * (gc + nf) + gc * nf)
-        ws, bs = _block_weights(gen, nf, gc)
-        blk = ResidualDenseBlock5C(nf, gc)
-        with torch.no_grad():
-            for conv, wt, bt in zip(blk.convs(), ws, bs):
-                conv.weight.copy_(wt)
-                conv.bias.copy_(bt)
-        blk = blk.cuda()
-        x32 = (torch.randn(b, h, w, nf, generator=gen) * 0.5).cuda()
-        g32 = torch.randn(b, h, w, nf, generator=gen).cuda()
-        for dt in (torch.float32, torch.bfloat16):
-            name = str(dt).replace("torch.", "")
-            packed, biases = blk.packed(dt)
-            x, g = x32.to(dt), g32.to(dt)
-            with torch.no_grad():
-                _, *cs = rdb5c_forward(x, packed, biases,
-                                       return_residuals=True)
-                fwd = lambda: rdb5c_forward(x, packed, biases)  # noqa: E731
-                bwd = lambda: rdb5c_backward(  # noqa: E731
-                    g, x, *cs, packed)
-                ms, bwd_ms = _time_ms(fwd), _time_ms(bwd)
-                dev = (_device_ms(fwd, "stage"), _device_ms(bwd, "dx_"),
-                       _device_ms(bwd, "dw_"))
-            npix, size = b * h * w, x.element_size()
-            n_w = sum(wt.numel() for wt in ws)
-            fwd_bound = _bounds(name, 2 * 9 * n_q * npix,
-                                (2 * nf + 4 * gc) * npix * size + n_w * size
-                                + (nf + 4 * gc) * 4)
-            bwd_bound = _bounds(name, 4 * 9 * n_q * npix,
-                                (3 * nf + 4 * gc) * npix * size
-                                + n_w * (size + 4) + (nf + 4 * gc) * 4)
-            print(f"times: widths {name} b={b} {h}x{w} nf {nf} gc {gc} "
-                  f"(kernels at nf {padded_width(nf)}, gc "
-                  f"{padded_width(gc)}): forward {ms:.4f} ms (stages on "
-                  f"the device {_ms_text(dev[0])}), backward {bwd_ms:.4f} ms "
-                  f"(dx "
-                  f"{_ms_text(dev[1])} + dW {_ms_text(dev[2])}); bound of the "
-                  f"block's "
-                  f"own work: forward {fwd_bound['bound_ms']:.4f} ms, "
-                  f"backward {bwd_bound['bound_ms']:.4f} ms ({smi})")
-        del blk
 
 
 def _session_events(fn, calls: int) -> list:
@@ -2567,7 +2615,8 @@ def _kernel_rows(rows, serving, train, main_err, bwd_err,
 
     def at(kernel, dtype):
         shapes = (MAIN_SHAPE, TRAIN_SHAPE) + (
-            (ZOO_SERVE_SHAPE,) if kernel == "rdb5c_forward" else ())
+            (ZOO_SERVE_SHAPE,) if kernel == "rdb5c_forward" else ()) + (
+            (SRFLOW_F,) if (kernel, SRFLOW_F, dtype) in rows else ())
         return {f"b={sh[0]} {sh[1]}x{sh[2]}": {
             k: v for k, v in rows[kernel, sh, dtype].items()}
             for sh in shapes}
@@ -2706,8 +2755,8 @@ GRAPH_STEPS = 2     # graphed against eager steps, per type
 # one turn each (eager, graphed), where four turns ran before (eager,
 # graphed, graphed, eager)
 TURNS = (False, True)
-WINDOW_K = 10       # train_steps' window, as bench.py times it
-WINDOW_BOUNDARY = 5  # a MultiStep boundary inside the window
+WINDOW_K = 6        # train_steps' window (bench.py's is 10)
+WINDOW_BOUNDARY = 3  # a MultiStep boundary inside the window
 EMA_MOVE_TOL = 1e-2  # bf16 graph against eager: the EMA weights' moves
 X8_LR = (1, 72, 64, 3)      # x8 on the card against the CPU
 CHOP_LR = (1, 136, 128, 3)  # chop: two 128 x 128 tiles
@@ -2914,11 +2963,9 @@ def _graph_step(smi: str, options=None, types=(True, False),
               f"10 (eager, graphed): eager {ms[False]}, "
               f"graphed {ms[True]}; it/s eager {1e3 / min(ms[False]):.4f}, "
               f"graphed {1e3 / min(ms[True]):.4f} ({smi})")
-        for graphs in (True, False):
-            tr, st = runs[graphs][:2]
-            _traced(lambda: tr.train_step(st, batches[1]),
-                    f"{'graphed' if graphs else 'eager'} train_step {name}",
-                    smi, min(ms[graphs]))
+        tr, st = runs[True][:2]
+        _traced(lambda: tr.train_step(st, batches[1]),
+                f"graphed train_step {name}", smi, min(ms[True]))
         out[name] = dict(capture_s=cap.capture_s, pool=cap.pool_bytes,
                          eager_ms=min(ms[False]), graphed_ms=min(ms[True]))
         del runs, trainer, state, cap, caps, tr, st
@@ -3006,11 +3053,12 @@ def _graph_resume(smi: str, root: str) -> None:
 
 
 def _graph_window(smi: str) -> dict:
-    """``train_steps`` with k = 10 at b = 32, 32 -> 128 px, bf16, a
-    MultiStep boundary at step 5: the window (the first step of a fresh
-    trainer runs eagerly and captures, nine replays) against ten eager
-    ``train_step`` calls, the learning rates the window handed the step,
-    and both times over a second window."""
+    """``train_steps`` with k = ``WINDOW_K`` at b = 32, 32 -> 128 px, bf16,
+    a MultiStep boundary at step ``WINDOW_BOUNDARY``: the window (the
+    first step of a fresh trainer runs eagerly and captures, the rest
+    replay) against as many eager ``train_step`` calls, the learning
+    rates the window handed the step, and both times over a second
+    window."""
     import torch
 
     from trainner_tpu_torch.train.sr_trainer import create_trainer
@@ -3082,9 +3130,6 @@ def _graph_window(smi: str) -> dict:
     _traced(lambda: trainer.train_steps(state, batches),
             f"graphed train_steps k={WINDOW_K}", smi,
             min(times["graphed"]) * WINDOW_K)
-    _traced(lambda: eager.train_steps(estate, batches),
-            f"eager train_steps k={WINDOW_K}", smi,
-            min(times["eager"]) * WINDOW_K)
     del trainer, state, eager, estate
     torch.cuda.empty_cache()
     return {k: min(v) for k, v in times.items()}
@@ -3117,7 +3162,8 @@ def _graph_degrader(smi: str, root: str, programs=None,
     captures, then replays), bit for bit, or one 1/255 level on at most
     0.1 % of the values where a library call (cuBLAS, cuDNN) took another
     algorithm under capture; the blur launches each graph recorded and
-    the kernels of a replay; both times in turns."""
+    the kernels of a replay; both times, one turn each, and a trace of a
+    replay."""
     import numpy as np
     import torch
 
@@ -3171,88 +3217,21 @@ def _graph_degrader(smi: str, root: str, programs=None,
                              and n_off <= 1e-3 * total)):
             raise AssertionError(f"graphs: degrader {preset} {label}")
         ms = {}
-        for which, fn in (("eager", eager), ("graphed", graphed),
-                          ("graphed", graphed), ("eager", eager)):
+        for which, fn in (("eager", eager), ("graphed", graphed)):
             ms.setdefault(which, []).append(
                 _time_ms(lambda: fn(raws[1]), iters=10, warmup=2))
         print(f"times: degrade {preset} {label} b={b} {hr}->{hr // 4} px, "
-              f"ms per batch (CUDA events over 10; eager, graphed, graphed, "
-              f"eager): eager {ms['eager']}, graphed {ms['graphed']} "
-              f"({smi})")
-        for which, fn in (("graphed", graphed), ("eager", eager)):
-            _traced(lambda: fn(raws[1]),
-                    f"{which} degrade, {preset} {label}, b={b}", smi,
-                    min(ms[which]))
+              f"ms per batch (CUDA events over 10; eager, graphed): eager "
+              f"{ms['eager']}, graphed {ms['graphed']} ({smi})")
+        _traced(lambda: graphed(raws[1]),
+                f"graphed degrade, {preset} {label}, b={b}", smi,
+                min(ms["graphed"]))
         result[label] = dict(eager_ms=min(ms["eager"]),
                              graphed_ms=min(ms["graphed"]),
                              capture_s=cap.capture_s, pool=cap.pool_bytes)
         del graphed, eager
         torch.cuda.empty_cache()
     return result
-
-
-def _graph_e2e(smi: str, root: str, programs=None) -> dict:
-    """The end-to-end rate, loader -> degrader -> step at full width in
-    bf16, eager (``graphs=False`` for both) against graphed, in turns, for
-    each of ``programs`` ((label, options of the corpus); by default the
-    bsrgan configuration in the fixed order and shuffled)."""
-    import torch
-
-    from trainner_tpu_torch.data import create_dataloader, create_dataset
-    from trainner_tpu_torch.options import parse_dict
-    from trainner_tpu_torch.train import (batches, create_trainer,
-                                          make_otf_degradation)
-
-    corpus = os.path.join(root, "corpus")
-    rates = {}
-    for label, options in programs or (
-            ("fixed order", lambda c: _e2e_options(c)),
-            ("per-sample shuffle", lambda c: _e2e_options(c, True))):
-        opt = parse_dict(options(corpus), is_train=True)
-        ds_opt = opt["datasets"]["train"]
-        pair = {}
-        for graphs in (False, True):
-            loader = create_dataloader(create_dataset(ds_opt), ds_opt,
-                                       pin_memory=True)
-            pair[graphs] = dict(
-                degrade=make_otf_degradation(
-                    opt, generator=torch.Generator(
-                        device="cuda").manual_seed(7), graphs=graphs),
-                trainer=create_trainer(opt, graphs=graphs),
-                stream=batches(loader))
-            pair[graphs]["state"] = pair[graphs]["trainer"].init_state(0)
-
-        def run(p, n):
-            for _ in range(n):
-                batch = p["degrade"](next(p["stream"]))
-                p["state"], logs = p["trainer"].train_step(p["state"], batch)
-            torch.cuda.synchronize()
-            return logs
-
-        ms = {}
-        for graphs in (False, True):
-            run(pair[graphs], 3)
-        for graphs in TURNS:
-            t0 = time.perf_counter()
-            logs = run(pair[graphs], 10)
-            ms.setdefault(graphs, []).append(
-                (time.perf_counter() - t0) * 1e2)
-            if not all(math.isfinite(float(v)) for v in logs.values()):
-                raise AssertionError(f"graphs: e2e {label} logs")
-        print(f"times: train_e2e bfloat16 b={TRAIN_SHAPE[0]} "
-              f"{TRAIN_SHAPE[1]}->{TRAIN_SHAPE[1] * 4} px, {label}, ms per "
-              f"step over 10 (eager, graphed): eager "
-              f"{ms[False]}, graphed {ms[True]}; it/s eager "
-              f"{1e3 / min(ms[False]):.4f}, graphed "
-              f"{1e3 / min(ms[True]):.4f} ({smi})")
-        for graphs in (True, False):
-            _traced(lambda: run(pair[graphs], 1),
-                    f"{'graphed' if graphs else 'eager'} end-to-end step, "
-                    f"{label}", smi, min(ms[graphs]))
-        rates[label] = {"eager": min(ms[False]), "graphed": min(ms[True])}
-        del pair
-        torch.cuda.empty_cache()
-    return rates
 
 
 def _graph_serving(smi: str) -> None:
@@ -3311,11 +3290,9 @@ def _graph_serving(smi: str) -> None:
               f"{ms[False]} ms, graphed {ms[True]} ms; "
               f"{b * h * w * 16 / min(ms[True]) / 1e3:.3f} Mpx/s graphed "
               f"({smi})")
-        for graphs in (True, False):
-            tr, st = pair[graphs]
-            _traced(lambda: tr.eval_step(st, lr),
-                    f"{'graphed' if graphs else 'eager'} eval_step {name} "
-                    f"b={b}", smi, min(ms[graphs]))
+        tr, st = pair[True]
+        _traced(lambda: tr.eval_step(st, lr),
+                f"graphed eval_step {name} b={b}", smi, min(ms[True]))
         del pair
         torch.cuda.empty_cache()
 
@@ -3377,8 +3354,7 @@ def _graph_mixed_sizes(smi: str, root: str) -> None:
     """The test CLI, f32 at full width, plain and with x8, eager
     (``graphs=False``) against graphed (the default) in turns, on a test
     set of one size per image (``MIXED_LR``, LR crops of the corpus,
-    ``mode: single``) and on one of one size (the synthetic set of
-    ``N_IMAGES``): seconds per image through ``main()`` (set-up included)
+    ``mode: single``): seconds per image through ``main()`` (set-up included)
     and in the inference call alone (synchronised), and the eval_step
     graphs the run kept."""
     import numpy as np
@@ -3397,11 +3373,9 @@ def _graph_mixed_sizes(smi: str, root: str) -> None:
         img = decode_image(os.path.join(corpus, names[i]))[:h, :w, :3]
         save_img(np.ascontiguousarray(img), os.path.join(lr_dir,
                                                          f"{i:02d}.png"))
+    # the synthetic set of one size is phase 4's, which times it alone
     sets = (("one size per image", len(MIXED_LR),
-             {"name": "mixed", "mode": "single", "dataroot_LR": lr_dir}),
-            ("one size", N_IMAGES,
-             {"name": "synth", "mode": "synthetic", "crop_size": 512,
-              "n_samples": N_IMAGES}))
+             {"name": "mixed", "mode": "single", "dataroot_LR": lr_dir}),)
     orig = (sr_trainer.create_trainer, sr_trainer.SRTrainer.eval_step,
             sr_trainer.SRTrainer.eval_step_x8)
     for (kind, n_img, ds), x8 in ((d, x8) for d in sets
@@ -3462,86 +3436,6 @@ def _graph_mixed_sizes(smi: str, root: str) -> None:
               f"call eager {[r[1] for r in runs[False]]}, "
               f"graphed {[r[1] for r in runs[True]]}; eval_step "
               f"graphs kept {runs[True][0][2]} ({smi})")
-
-
-def _graph_cli(smi: str, root: str, options: str = "cli_options.json",
-               label: str = "train_sr.yml") -> None:
-    """The training CLI's steady rate, eager (the trainer and the degrader
-    made with ``graphs=False``) against graphed (the default), on the
-    options ``phase_cli`` wrote (``train_sr.yml`` at full width by
-    default), 8 iterations each, one run of each (four in turns, eager,
-    graphed, graphed, eager, until phases 18 and 19 needed the time)."""
-    import torch
-
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    from trainner_tpu_torch.train import cli
-    from trainner_tpu_torch.train.sr_trainer import SRTrainer
-
-    corpus = os.path.join(root, "corpus")
-    orig = (cli.create_sr_trainer, cli.make_otf_degradation)
-    rates = {}
-    for n, graphs in enumerate((False, True)):
-        with open(os.path.join(root, options)) as f:
-            opt = json.load(f)
-        opt["train"].update(niter=8, val_freq=10 ** 6)
-        opt["logger"].update(print_freq=10 ** 6,
-                             save_checkpoint_freq=10 ** 6)
-        stem = options.removesuffix(".json").removesuffix("_options")
-        opt["path"]["root"] = os.path.join(root, f"{stem}_rate_{n}")
-        opt["datasets"]["train"]["dataroot_HR"] = corpus
-        opt["datasets"].pop("val", None)
-        path = os.path.join(root, f"{stem}_rate_{n}.json")
-        with open(path, "w") as f:
-            json.dump(opt, f)
-        starts, ends, traced = [], [], []
-        # the device's activity only: the host side would trace the
-        # loader's threads too, and slow them
-        prof = profile(activities=[ProfilerActivity.CUDA])
-        cli.create_sr_trainer = lambda o, device=None: orig[0](
-            o, device=device, graphs=graphs)
-        cli.make_otf_degradation = lambda o, device=None, generator=None: \
-            orig[1](o, device=device, generator=generator, graphs=graphs)
-        step = SRTrainer.train_step
-
-        def timed(self, state, batch):
-            # one whole iteration (loader, degrader, step) under the
-            # profiler: from the start of step 6 to the start of step 7,
-            # the profiler's own start and stop outside the span
-            if len(starts) == 6:
-                torch.cuda.synchronize()
-                traced.append(time.perf_counter() - traced.pop())
-                prof.__exit__(None, None, None)
-            if len(starts) == 5:
-                prof.__enter__()
-                torch.cuda.synchronize()
-                traced.append(time.perf_counter())
-            starts.append(time.perf_counter())
-            out = step(self, state, batch)
-            if len(starts) == 8:
-                torch.cuda.synchronize()
-                ends.append(time.perf_counter())
-            return out
-
-        SRTrainer.train_step = timed
-        try:
-            cli.main(["-opt", path])
-        finally:
-            SRTrainer.train_step = step
-            cli.create_sr_trainer, cli.make_otf_degradation = orig
-        # from the start of step 3 to the end of step 8 (synchronised)
-        rates.setdefault(graphs, []).append(6 / (ends[0] - starts[2]))
-        busy = sum(e.time_range.elapsed_us() for e in prof.events()
-                   if e.device_type == DeviceType.CUDA) / 1e3
-        print(f"trace: cli main() on {label} "
-              f"{'graphed' if graphs else 'eager'}, one "
-              f"iteration (step 6: loader, degrader, step): wall "
-              f"{traced[0] * 1e3:.3f} ms (traced), device busy {busy:.3f} "
-              f"ms, idle share {1 - busy / (traced[0] * 1e3):.4f} ({smi})")
-    print(f"times: cli main() on {label}, steps 3-8 (synchronised "
-          f"at the end of step 8), it/s (eager, then graphed): eager "
-          f"{rates[False]}, graphed {rates[True]} ({smi})")
 
 
 # ---------------------------------------------------------------------------
@@ -3973,7 +3867,7 @@ def phase_realesrgan(smi: str, root: str) -> dict:
     and the real one's blur launches; the degrader as a graph against
     eager; three graphed bf16 steps against eager within the step
     tolerances, 69 + 69 block launches per step from a trace, the step's
-    times; the end-to-end rate; then ``main`` on a copy of the options for
+    times; then ``main`` on a copy of the options for
     12 iterations and a resume to 14 whose EMA and spectral-norm state
     load bit for bit. Returns the CLI runs' launch traces."""
     t0 = time.perf_counter()
@@ -3984,8 +3878,6 @@ def phase_realesrgan(smi: str, root: str) -> dict:
         preset="resrgan")
     _graph_step(smi, _resrgan_options, types=(True,), label="resrgan ",
                 noise=False)
-    _graph_e2e(smi, root, programs=(("resrgan fixed order",
-                                     _resrgan_e2e_options),))
     traces = phase_cli(smi, root, RESRGAN_YML, "cli_realesrgan",
                        RESRGAN_BLUR, ("G", "D", "emaG"))
     print(f"realesrgan: ok in {time.perf_counter() - t0:.1f} s ({smi})")
@@ -4367,6 +4259,15 @@ def _train_tensors(state) -> dict:
     return out
 
 
+def _same_records(a, b) -> bool:
+    """Whether two ``_Branches`` records took every branch alike (a run
+    that replays one is then the run that replays the other)."""
+    import torch
+
+    return a is not None and b is not None and len(a) == len(b) and all(
+        torch.equal(x, y) for x, y in zip(a, b))
+
+
 def _d_branches(nets, replay=None):
     """``_Branches`` over the forward passes of D alone (``nets``: one
     module or several, each D of CycleGAN's, or also G and the loss stack
@@ -4460,7 +4361,7 @@ def _steps_card_cpu_f64(label: str, opt: dict, batches, graphs: int = 1,
                 if i or side != "cuda":
                     _load_from(states[side], cpu)
             start = {k: v.double() for k, v in _train_tensors(cpu).items()}
-            logs, records = {}, {}
+            logs, records, skipped = {}, {}, set()
             for side in order:
                 if callable(branches):
                     d_nets = branches(states[side], trainers[side])
@@ -4472,6 +4373,15 @@ def _steps_card_cpu_f64(label: str, opt: dict, batches, graphs: int = 1,
                 if branches == "all":
                     d_nets.append(trainers[side].generator_loss)
                 rec = None
+                if side == "f64 cpu" and i == len(batches) - 1 and \
+                        _same_records(records.get("cpu"),
+                                      records.get("eager")):
+                    # the card's witness replayed the same branches from
+                    # the same state: the same f64 step. The last step
+                    # only: a skipped step would leave this witness's step
+                    # count and generator behind the other's
+                    skipped.add(side)
+                    continue
                 if branches and d_nets and side != "cuda":
                     rec, remove = _d_branches(d_nets, records.get(
                         replays.get(side)))
@@ -4522,7 +4432,8 @@ def _steps_card_cpu_f64(label: str, opt: dict, batches, graphs: int = 1,
             out["logs"] = max(out["logs"], step_worst)
             t = {side: {k: v.cpu().double() for k, v in
                         _train_tensors(states[side]).items()}
-                 for side in order}
+                 for side in order if side not in skipped}
+            t.update({side: t["f64"] for side in skipped})
             if branches:
                 unequal += [(i, k) for k, v in t["cuda"].items()
                             if not torch.equal(v, t["eager"][k])]
@@ -5041,8 +4952,8 @@ LOSS_STACK = {"cx_weight": 0.5, "cx_type": "contextual",
 LOSS_NAMES = ["l_g_pix", "l_g_fea", "l_g_cx", "l_g_lpips", "l_g_HFEN",
               "l_g_tv", "l_g_ssim"]
 LOSS_D = {"type": "discriminator_vgg_128_sn", "base_nf": 64}
-LOSS_CPU = (2, 128, 128, 3)   # each loss and the penalty, card against CPU
-FEATNET_CPU = (4, 64, 64, 3)  # the ResNet-101 and MINC feature losses
+LOSS_CPU = (1, 128, 128, 3)   # each loss and the penalty, card against CPU
+FEATNET_CPU = (2, 64, 64, 3)  # the ResNet-101 and MINC feature losses
 # card against CPU, f32, TF32 off: a value within LOSS_VALUE_TOL of the
 # CPU's. A gradient through ReLUs (VGG), LeakyReLUs (D), an L1 or a max
 # jumps where an input lies within rounding of a kink, and the card and the
@@ -5221,9 +5132,11 @@ def _three_ways(label: str, run, smi: str) -> dict:
     a tensor or a dict of them). Runs the CPU and the card, recording
     their branches (``_Branches``), then the port's code in f64 on the
     CPU (``_in_f64``) three times: free, with the card's branches and with
-    the CPU's. Prints and returns the readings; fails unless the card's
-    value is within ``LOSS_VALUE_TOL`` of the CPU's and its gradient within
-    ``LOSS_GRAD_TOL`` of the f64 gradient on its own branches."""
+    the CPU's (where the CPU took the card's branches, that is the card's
+    run, which is not made twice). Prints and returns the readings; fails
+    unless the card's value is within ``LOSS_VALUE_TOL`` of the CPU's and
+    its gradient within ``LOSS_GRAD_TOL`` of the f64 gradient on its own
+    branches."""
     def host(g):
         return {k: v.detach().double().cpu().clone() for k, v in g.items()} \
             if isinstance(g, dict) else g.detach().double().cpu().clone()
@@ -5231,6 +5144,11 @@ def _three_ways(label: str, run, smi: str) -> dict:
     got, records = {}, {}
     for side, replay in (("cpu", None), ("cuda", None), ("f64", None),
                          ("f64 card", "cuda"), ("f64 cpu", "cpu")):
+        if side == "f64 cpu" and _same_records(records["cpu"],
+                                               records["cuda"]):
+            # the same replay as the card's: the same f64 run
+            got[side] = got["f64 card"]
+            continue
         with _Branches(records.get(replay)) as branches:
             if side.startswith("f64"):
                 with _in_f64() as f32:
@@ -5387,111 +5305,23 @@ def _losses_card_vs_cpu(smi: str, vgg: str, squeeze: str) -> None:
     torch.cuda.empty_cache()
 
 
-def _loss_stack_step_times(smi: str, vgg: str) -> None:
-    """The graphed bf16 step at b=32, 32 -> 128 px, with the loss stack
-    beside the flagship's, 10 steps each in turns (flagship, stack, stack,
-    flagship); each one's replay traced (device busy, kernels), its peak
-    memory over the warm-up and capture, its graph pool; then the device
-    time of each added loss (forward and backward, eager, at the step's
-    shapes and dtypes) and of the penalty (the D stage with it less
-    without it)."""
-    import dataclasses
-
-    import torch
-
-    from trainner_tpu_torch.train.sr_trainer import create_trainer
-
-    batch = _train_batch(seed=1)
-    runs = {}
-    for name, options in (("loss stack", _loss_stack_options(vgg)),
-                          ("flagship", _train_options)):
-        torch.cuda.synchronize()
-        base = torch.cuda.memory_allocated()
-        torch.cuda.reset_peak_memory_stats()
-        tr = create_trainer(options())
-        st = tr.init_state(0)
-        for _ in range(3):
-            tr.train_step(st, batch)
-        torch.cuda.synchronize()
-        runs[name] = (tr, st, torch.cuda.max_memory_allocated() - base,
-                      next(iter(tr.step_graphs().values())))
-    ms = {}
-    for name in ("flagship", "loss stack"):
-        tr, st = runs[name][:2]
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for _ in range(10):
-            tr.train_step(st, batch)
-        torch.cuda.synchronize()
-        ms.setdefault(name, []).append((time.perf_counter() - t0) * 1e2)
-    busy = {}
-    for name, (tr, st, peak, cap) in runs.items():
-        calls, busy[name], wall = _kernel_calls(
-            lambda: tr.train_step(st, batch))
-        print(f"times: {name} step graphed, bf16, b=32 32->128 px: ms per "
-              f"step over 10 in turns (flagship, stack) "
-              f"{ms[name]}, it/s {1e3 / min(ms[name]):.4f}; one replay "
-              f"traced: device busy {busy[name]:.3f} ms in "
-              f"{sum(calls.values())} kernels, wall {wall:.3f} ms; peak "
-              f"memory {peak / 2 ** 30:.2f} GiB (max_memory_allocated over "
-              f"its warm-up and capture); graph pool "
-              f"{cap.pool_bytes / 2 ** 20:.1f} MiB ({smi})")
-    tr, st = runs["loss stack"][:2]
-    gen = torch.Generator(device="cuda").manual_seed(2)
-    fake = torch.rand(batch["HR"].shape, device="cuda", generator=gen)
-    hr = batch["HR"]
-    parts = {}
-    for e in tr.generator_loss.entries:
-        if e.name in ("l_g_cx", "l_g_lpips", "l_g_ssim", "l_g_HFEN",
-                      "l_g_tv"):
-            def loss(e=e):
-                x = fake.clone().requires_grad_(True)
-                (e.fn(x, hr) if e.needs_target else e.fn(x)).backward()
-            loss()
-            parts[e.name] = _kernel_calls(loss)[1]
-    net_d = st.d.net
-    for gp in (tr.adversarial.gp_weight, None):
-        adv = dataclasses.replace(tr.adversarial, gp_weight=gp)
-
-        def d_stage(adv=adv):
-            l_d, _ = adv.discriminator_loss(
-                lambda x: net_d(x, train=True), fake, hr,
-                generator=st.noise_generator)
-            l_d.backward()
-        d_stage()
-        parts["D stage" if gp is None else "D stage with the penalty"] = \
-            _kernel_calls(d_stage)[1]
-    parts["the penalty's pass"] = parts.pop("D stage with the penalty") \
-        - parts["D stage"]
-    print(f"times: device ms of each added part (eager, one call under "
-          f"the profiler, forward and backward, b=32 at 128 px): "
-          + ", ".join(f"{k} {v:.3f}" for k, v in parts.items())
-          + f"; the replays' busy times differ by "
-          f"{busy['loss stack'] - busy['flagship']:.3f} ms (the stack's D "
-          f"has spectral norm, the flagship's batch norm) ({smi})")
-    del runs, tr, st
-    torch.cuda.empty_cache()
-
-
 def phase_losses(smi: str, root: str) -> dict:
     """Phase 16: the rest of the loss stack. Writes the seeded weight
     files (``_write_loss_assets``); holds each loss, the penalty, the
     LPIPS metric and the ResNet-101 and MINC losses card against CPU
     (``_losses_card_vs_cpu``); the step with the stack as a graph against
     eager (``_graph_step``: within the step tolerances, 69 + 69 block
-    launches per replay from a trace, times in turns); its time beside the
-    flagship's, its memory and the device time of each added part
-    (``_loss_stack_step_times``); then ``train_sr.yml`` with the stack
+    launches per replay from a trace, times in turns); then
+    ``train_sr.yml`` with the stack
     through the training CLI (12 iterations and a resume to 14, 69 + 69
     block and 24 blur launches per step from the trace, LPIPS in each
-    validation) and its rate eager and graphed in turns. Returns the CLI
-    runs' traces."""
+    validation, its steady rate graphed). Returns the CLI runs'
+    traces."""
     t0 = time.perf_counter()
     vgg, squeeze = _write_loss_assets(os.path.join(root, "loss_assets"))
     _losses_card_vs_cpu(smi, vgg, squeeze)
     _graph_step(smi, _loss_stack_options(vgg), types=(True,),
                 label="loss stack ", noise=False)
-    _loss_stack_step_times(smi, vgg)
     runs = phase_cli(smi, root, TRAIN_YML, "cli_losses",
                      edit=_loss_stack_edit(vgg, squeeze))
     with open(os.path.join(root, "cli_losses_options.json")) as f:
@@ -5508,8 +5338,6 @@ def phase_losses(smi: str, root: str) -> dict:
             or not want <= losses:
         raise AssertionError(f"losses: the CLI's scalars: lpips {lpips}, "
                              f"missing {sorted(want - losses)}")
-    _graph_cli(smi, root, "cli_losses_options.json",
-               "train_sr.yml with the loss stack")
     print(f"losses: ok in {time.perf_counter() - t0:.1f} s ({smi})")
     return {f"loss stack cli {k}": v for k, v in runs.items()}
 
@@ -5520,7 +5348,6 @@ OPT_CROP = 112  # AdaTarget with D-VGG: a crop of a multiple of 7 x scale
 OPT_CLI_CROP = 224
 OPT_ATG_START, OPT_SWA_START = 4, 6
 OPT_GRAPH_STEPS = 8   # graphed against eager, across both starts
-OPT_TIME_STEPS = 3    # steps per turn in the option times
 OPT_F64_TOL = 4.0     # card's distance from its witness over the CPU's
 # ... or this share of a tensor's move: each side's witness takes that
 # side's branches of D, so what is left between them is rounding
@@ -5632,12 +5459,13 @@ def _options_card_cpu(smi: str) -> None:
         # step 0 updates G, step 1 does not: two programs
         ("grad_clip auto", _small_options(grad_clip="auto",
                                           D_update_ratio=2), 2, 32, None, 2),
-        ("virtual_batch_size 2", _small_options(virtual_batch_size=2), 2,
+        # one step each: nothing of these options carries over a step
+        ("virtual_batch_size 2", _small_options(virtual_batch_size=2), 1,
          32, None, 1),
-        ("freeze_loc 4", _small_options(freeze_loc=4), 2, 32, None, 1),
-        ("fs", _small_options(fs=True), 2, 32, None, 1)]
+        ("freeze_loc 4", _small_options(freeze_loc=4), 1, 32, None, 1),
+        ("fs", _small_options(fs=True), 1, 32, None, 1)]
     configs += [(f"diffaug {p}", _small_options(diffaug=True, dapolicy=p),
-                 2, 32, None, 1) for p in OPT_POLICIES]
+                 1, 32, None, 1) for p in OPT_POLICIES]
     configs += [
         ("batch augmentations", _small_options(
             mixup=True, mixopts=OPT_AUGS, mixalpha=[0.2]),
@@ -5840,73 +5668,13 @@ def _options_cli(smi: str, root: str) -> dict:
     return {f"options cli {k}": v for k, v in runs.items()}
 
 
-def _options_times(smi: str) -> None:
-    """(d) The graphed bf16 step at full width (b=32, 32 -> 128 px) with
-    each optimizer (G and D), ``grad_clip: auto`` and a virtual batch of 2
-    against the flagship (Adam), and the options cell (at its 112 px
-    crop, in AdaTarget's program with SWA's update) against it:
-    ``OPT_TIME_STEPS`` steps each in turns (flagship, other) after three
-    warm-up steps, by CUDA events on the card's clock."""
-    import torch
-
-    from trainner_tpu_torch.train.sr_trainer import create_trainer
-
-    def warm(options, batch):
-        tr = create_trainer(options)
-        st = tr.init_state(0)
-        for _ in range(3):
-            tr.train_step(st, batch)
-        torch.cuda.synchronize()
-        return tr, st
-
-    def timed(tr, st, batch):
-        start, end = (torch.cuda.Event(enable_timing=True)
-                      for _ in range(2))
-        torch.cuda.synchronize()
-        start.record()
-        for _ in range(OPT_TIME_STEPS):
-            tr.train_step(st, batch)
-        end.record()
-        torch.cuda.synchronize()
-        return start.elapsed_time(end) / OPT_TIME_STEPS
-
-    batch = _train_batch(seed=1)
-    flag = warm(_train_options(), batch)
-    others = [(f"optimizer {o}", _train_options(optim_G=o, optim_D=o),
-               batch) for o in ("rmsprop", "adamp", "sgdp", "ranger",
-                                "madgrad")]
-    others += [("grad_clip auto", _train_options(grad_clip="auto"), batch),
-               ("virtual_batch_size 2",
-                _train_options(virtual_batch_size=2), batch),
-               (f"options cell at {OPT_CROP} px",
-                _options_cell(atg_start_iter=0, swa_start_iter=0),
-                _options_batch(seed=2))]
-    for label, options, b in others:
-        other = warm(options, b)
-        ms = {"flagship": [], label: []}
-        for which in ("flagship", label):
-            tr, st = flag if which == "flagship" else other
-            ms[which].append(timed(tr, st, batch if which == "flagship"
-                                   else b))
-        print(f"times: graphed bf16 step, {label} against the flagship "
-              f"(Adam, b=32 32->128 px), ms per step (CUDA events) over "
-              f"{OPT_TIME_STEPS} in turns: flagship {ms['flagship']}, "
-              f"{label} {ms[label]}; ratio "
-              f"{min(ms[label]) / min(ms['flagship']):.3f} ({smi})")
-        del other, tr, st
-        torch.cuda.empty_cache()
-    del flag
-    torch.cuda.empty_cache()
-
-
 def phase_trainer_options(smi: str, root: str) -> dict:
     """Phase 17: the rest of the sr trainer's options. (a) each option card
     against CPU and an f64 witness at small widths; (b) the full-width
     options cell graphed against eager bit for bit across AdaTarget's and
     SWA's starts, each program's replay traced; (c) the training CLI on
-    the cell with a resume and the SWA file served; (d) each optimizer's,
-    the auto clip's, the virtual batch's and the cell's step times against
-    the flagship's. Returns the launch traces of its main-path runs."""
+    the cell with a resume and the SWA file served. Returns the launch
+    traces of its main-path runs."""
     import torch
 
     t0 = time.perf_counter()
@@ -5915,9 +5683,6 @@ def phase_trainer_options(smi: str, root: str) -> dict:
     _options_card_cpu(smi)
     _options_graphed_vs_eager(smi)
     traces = _options_cli(smi, root)
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
-    _options_times(smi)
     print(f"options: ok in {time.perf_counter() - t0:.1f} s ({smi})")
     return traces
 
@@ -6256,13 +6021,15 @@ PPON_GRAPH_B = 16
 PPON_LOSSES = {"ms_criterion": "multiscale-l1", "ms_weight": 1e-2,
                "ssim_type": "ms-ssim", "ssim_weight": 0.2,
                "cx_type": "contextual", "cx_weight": 0.5}
-# one f32 step per phase (_ppon_f64): each tensor of the card within this
-# share of its move of the CPU's, and no further from the f64 witness than
-# PPON_F64_TOL times the CPU f32's largest distance in the same net; set
-# from the CPU f32's own distance from the witness on this configuration
-# (G 1.5e-2 at hr1_p, D 6.5e-2 at conv4_0) as phase 14's sr_resnet limits
-# were
+# one f32 step of phases 1 and 3 (_ppon_f64): each tensor of the card
+# within this share of its move of the CPU's, and no further from the f64
+# witness than PPON_F64_TOL times the CPU f32's largest distance in the same
+# net; set from the CPU f32's own distance from the witness on this
+# configuration (G 1.5e-2 at hr1_p, D 6.5e-2 at conv4_0) as phase 14's
+# sr_resnet limits were
 PPON_STEP_TOL = {"g": 6e-2, "d": 3e-1}
+# phase 19's card-against-CPU forwards (their bf16 runs on the CPU are slow)
+MODELS_CPU_LR = (1, 16, 16, 3)
 PPON_F64_TOL = 2.0
 SERVE_ITERS = 5
 
@@ -6359,10 +6126,12 @@ def _ppon_graphed_vs_eager(smi: str, root: str) -> None:
 
 
 def _ppon_f64(smi: str) -> None:
-    """One step per phase (``ppon_stages`` [1, 2]) of PPON at full width
-    and cut depth (nf 64, nb 1) with D-VGG-128 (batch norms) in f32 (b=2,
-    32 -> 128 px, SGD at lr 1e-2; pix, pix-multiscale with ms-ssim, pix
-    with the GAN), on the card (graphed, three programs), the CPU and an
+    """One step of phase 1 and one of phase 3 (``ppon_stages`` [1, 1];
+    phase 2's losses, pix-multiscale and ms-ssim, each have phase 16's
+    witness) of PPON at full width and cut depth (nf 64, nb 1) with
+    D-VGG-128 (batch norms) in f32 (b=2, 32 -> 128 px, SGD at lr 1e-2;
+    pix, then pix with the GAN), on the card (graphed, two programs), the
+    CPU and an
     f64 witness on the CPU, each side's D branches replayed by its own
     witness (``_steps_card_cpu_f64``): logs within 1e-4 relative; every
     tensor of G and D within ``PPON_STEP_TOL`` of its move, card against
@@ -6386,19 +6155,20 @@ def _ppon_f64(smi: str) -> None:
                   "ms_weight": 1.0, "ssim_type": "ms-ssim",
                   "ssim_weight": 1.0, "gan_type": "vanilla",
                   "gan_weight": 5e-3, "p3_losses": ["pix"],
-                  "ppon_stages": [1, 2], "lr_scheme": "MultiStepLR",
+                  "ppon_stages": [1, 1], "lr_scheme": "MultiStepLR",
                   "lr_steps": [50]}}, is_train=True))
     gen = torch.Generator().manual_seed(8)
     batches = [{"LR": torch.rand(2, 32, 32, 3, generator=gen),
                 "HR": torch.rand(2, 128, 128, 3, generator=gen)}
-               for _ in range(3)]
-    r = _steps_card_cpu_f64("ppon", opt, batches, graphs=3, branches=True)
+               for _ in range(2)]
+    r = _steps_card_cpu_f64("ppon", opt, batches, graphs=2, branches=True)
     bad = []
     for net in ("g", "d"):
         cc, f64, cpu = (_worst(r[key], net + ".") for key in
                         ("card_cpu", "card_f64", "cpu_f64"))
         step_tol, f64_tol = PPON_STEP_TOL[net], PPON_F64_TOL * cpu[0]
-        print(f"ppon: one f32 SGD step per phase (nf 64, nb 1; D-VGG-128), "
+        print(f"ppon: one f32 SGD step of phases 1 and 3 (nf 64, nb 1; "
+              f"D-VGG-128), "
               f"{net.upper()}'s tensors as a share of their move: card vs "
               f"CPU up to {cc[0]:.3e} ({cc[1]}; tol {step_tol}); against "
               f"the f64 witness: card {f64[0]:.3e} ({f64[1]}; tol "
@@ -6479,7 +6249,7 @@ def phase_models(smi: str, root: str) -> dict:
                       ("pan", {"type": "pan_net", "self_attention": True}),
                       ("a2n", {"type": "a2n_net"})):
         _card_vs_cpu_forward(name, {"network_G": get_network_G_config(
-            cfg, 4)}, ZOO_CPU_LR, (torch.float32, torch.bfloat16),
+            cfg, 4)}, MODELS_CPU_LR, (torch.float32, torch.bfloat16),
             tag="models")
 
     runs = phase_cli(smi, root, TRAIN_YML, "cli_ppon", edit=_ppon_cli_edit,
@@ -7338,17 +7108,15 @@ def _vsr_batch(seed: int, shape=(8, 3, 32, 32, 3), scale: int = 4) -> dict:
     return {"LR": lr, "HR": hr}
 
 
-def _vsr_graphed_vs_eager(smi: str, root: str, data: dict) -> dict:
-    """The template's step at full width (bf16, b=8, 32 -> 128 px, the
-    latent noise on): graphed against eager from the same state and noise
-    generator state, ``VSR_GRAPH_STEPS`` steps, bit for bit under
-    deterministic cuDNN; the step's ms each way."""
+def _graphed_vs_eager(opt: dict, batches) -> tuple:
+    """``opt``'s step graphed against eager from one state (seed 0) and
+    one noise generator state, a step per batch (on the card), under
+    deterministic cuDNN. Returns the (step, tensor or log) pairs that
+    differ, the ms of each step each way, and the trainers and states."""
     import torch
 
-    from trainner_tpu_torch.options.config import parse_dict
     from trainner_tpu_torch.train.sr_trainer import create_trainer
 
-    opt = parse_dict(_vsr_options(root, data), is_train=True)
     trainers = {"graphed": create_trainer(opt),
                 "eager": create_trainer(opt, graphs=False)}
     states = {k: t.init_state(0) for k, t in trainers.items()}
@@ -7357,8 +7125,7 @@ def _vsr_graphed_vs_eager(smi: str, root: str, data: dict) -> dict:
     cudnn.deterministic, cudnn.benchmark = True, False
     unequal, ms = [], {"graphed": [], "eager": []}
     try:
-        for i in range(VSR_GRAPH_STEPS):
-            batch = {k: v.cuda() for k, v in _vsr_batch(70 + i).items()}
+        for i, batch in enumerate(batches):
             _load_from(states["eager"], states["graphed"])
             states["eager"].noise_generator.set_state(
                 states["graphed"].noise_generator.get_state())
@@ -7376,6 +7143,22 @@ def _vsr_graphed_vs_eager(smi: str, root: str, data: dict) -> dict:
                         if not torch.equal(v, logs["eager"][k])]
     finally:
         cudnn.deterministic, cudnn.benchmark = saved
+    return unequal, ms, trainers, states
+
+
+def _vsr_graphed_vs_eager(smi: str, root: str, data: dict) -> dict:
+    """The template's step at full width (bf16, b=8, 32 -> 128 px, the
+    latent noise on): graphed against eager from the same state and noise
+    generator state, ``VSR_GRAPH_STEPS`` steps, bit for bit under
+    deterministic cuDNN; the step's ms each way."""
+    import torch
+
+    from trainner_tpu_torch.options.config import parse_dict
+
+    opt = parse_dict(_vsr_options(root, data), is_train=True)
+    unequal, ms, trainers, states = _graphed_vs_eager(opt, [
+        {k: v.cuda() for k, v in _vsr_batch(70 + i).items()}
+        for i in range(VSR_GRAPH_STEPS)])
     graphs = trainers["graphed"].step_graphs()
     rep = sorted(ms["graphed"][1:])[len(ms["graphed"][1:]) // 2]
     eag = sorted(ms["eager"][1:])[len(ms["eager"][1:]) // 2]
@@ -7732,38 +7515,615 @@ def phase_video(smi: str, root: str) -> dict:
     return traces
 
 
+# ---------------------------------------------------------------------------
+# phase 22: SRFlow (both nets) and the sr trainer's other generators
+# ---------------------------------------------------------------------------
+
+SRFLOW_DIR = os.path.join(os.path.dirname(OPTIONS_DIR), "srflow")
+SRFLOW_TRAIN_YML = os.path.join(SRFLOW_DIR, "train_srflow.yml")
+SRFLOW_TEST_YML = os.path.join(SRFLOW_DIR, "test_srflow.yml")
+SRFLOW_PER = NB        # srflow_net's encoder: block launches per pass
+SRFLOW_I_PER = NB * 3  # the interop net's 23 RRDBs
+SRFLOW_F = (16, 40, 40)  # the encoder's blocks in a template step (F)
+SRFLOW_UNFREEZE = CLI_NITER // 2  # train_RRDB_delay 0.5 of niter 12
+SRFLOW_GRAPH_STEPS = 4   # graphed against eager, the unfreeze at 2
+# the f64 witness's cut: the encoder at its real block widths (nf 64, gc
+# 32) and nb 2, K 2, L 3, hidden 64; b=2, 16 -> 64 px; unfrozen; SGD
+SRFLOW_F64_G = {"nb": 2, "K": 2}
+SRFLOW_F64_SHAPE = (2, 16, 16)
+SRFLOW_SERVE_PX = 160    # the served images (HR; LR 40 x 40), 2 of them
+SRFLOW_SERVE_SHAPE = (1, SRFLOW_SERVE_PX // 4, SRFLOW_SERVE_PX // 4)
+# a served heat-0 sample's distance from the f64 witness, as a multiple of
+# the CPU f32's: the card (cuDNN's f32 flow, the 3xTF32 encoder) read
+# 1.19-2.33x it with srflow_net's 14-step G and 0.86x with the interop
+# net's, in four runs, the card with the encoder on the plain versions
+# 0.64x and 0.92x (PERF.md section 6); 4x leaves 1.7x over the largest
+SRFLOW_SERVE_TOL = 4.0
+# the sr trainer's other Gs: card against CPU (LR), the graphed step's
+# batch (b, LR px; the attention of ABPN is (h w)^2 per image and block),
+# the serving rate's LR
+ZOO_A = {"abpn": ({"type": "abpn_net"}, 4, (1, 32, 32, 3), (16, 32), 128),
+         "asr_resnet": ({"type": "asr_resnet"}, 4, (1, 32, 32, 3), (16, 32),
+                        128),
+         "asr_cnn": ({"type": "asr_cnn"}, 4, (1, 32, 32, 3), (16, 32), 128),
+         "seg_arch": ({"type": "seg_arch", "n_classes": 3}, 1,
+                      (2, 64, 64, 3), (8, 64), 256)}
+
+
+def _srflow_options(interop: bool = False, **train) -> dict:
+    """``train_srflow.yml`` as written (SRFlowNet nf 64, nb 23, K 16, L 3,
+    hidden 64; b 16, crop 160; Adam, MultiStepLR, the norm clip;
+    ``train_RRDB_delay`` 0.5), the flow's ``interop`` as asked, ``train``
+    keys over the file's, parsed by the port."""
+    from trainner_tpu_torch.options.config import parse_dict
+
+    opt = read_options_yml(SRFLOW_TRAIN_YML)
+    opt["datasets"] = {"train": opt["datasets"]["train"]}
+    if interop:
+        opt["network_G"].setdefault("flow", {})["interop"] = True
+    opt["train"].update(train)
+    opt["path"] = {"root": "/nonexistent"}
+    return dict(parse_dict(opt, is_train=True))
+
+
+def _srflow_batch(seed: int, b: int = SRFLOW_F[0], px: int = SRFLOW_F[1]):
+    """An HR batch of a smooth random field plus texture, its LR the 4x
+    box mean (on the card)."""
+    import torch
+
+    gen = torch.Generator().manual_seed(seed)
+    hr = torch.nn.functional.interpolate(
+        torch.rand(b, 3, px // 2, px // 2, generator=gen), scale_factor=8,
+        mode="bicubic", align_corners=False)
+    hr = (hr + 0.1 * torch.rand(hr.shape, generator=gen)).clamp(0, 1)
+    hr = hr.permute(0, 2, 3, 1).contiguous()
+    lr = hr.reshape(b, px, 4, px, 4, 3).mean((2, 4))
+    return {"LR": lr.cuda(), "HR": hr.cuda()}
+
+
+def _srflow_cli(smi: str, root: str) -> dict:
+    """The training CLI on ``train_srflow.yml`` at full width through
+    ``phase_cli``: 12 iterations, the encoder unfrozen at step 7 (6 frozen
+    steps: 23 block forwards and no backward each; then 23 and 23), 23
+    forwards per validation image (heat 0), no blur; a resume to 14 from
+    the saved state, bit for bit."""
+    from trainner_tpu_torch.train.srflow_trainer import SRFlowTrainer
+
+    def edit(opt):
+        opt["datasets"]["train"]["n_workers"] = 4
+
+    return {f"srflow cli {k}": v for k, v in phase_cli(
+        smi, root, SRFLOW_TRAIN_YML, "cli_srflow", per_batch=0, nets=("G",),
+        edit=edit, trainer_cls=SRFlowTrainer, val_launches=SRFLOW_PER,
+        g_launches=lambda n: (SRFLOW_PER, SRFLOW_PER
+                              if n > SRFLOW_UNFREEZE else 0)).items()}
+
+
+def _srflow_kernels_vs_plain(smi: str) -> None:
+    """The block kernels against their plain versions at F (b=16, LR 40 x
+    40, f32, TF32 off): one block forward and backward
+    (``_compare_block``, the kernel phase's f32 tolerances), and its
+    forward at the serving shape (b=1, 40 x 40); the
+    template's whole encoder forward at its init within 1e-5 of its size,
+    and at Kaiming gain 0.7 within the per-block 1e-4; the encoder's
+    gradient of one unfrozen template step with the whole net at gain 0.7
+    (at init the couplings' zero convs pass the encoder none; the same
+    quantisation noise both ways) within 3e-3 of each tensor's largest.
+    Eager calls: the wrappers' counts are the launches (23 per pass on
+    the kernels, none on the plain versions)."""
+    import torch
+
+    from trainner_tpu_torch.train.sr_trainer import create_trainer
+
+    gen = torch.Generator().manual_seed(22)
+    ws, bs = _block_weights(gen)
+    bs = [b.cuda() for b in bs]
+    x = (torch.randn(*SRFLOW_F, NF, generator=gen) * 0.5).cuda()
+    g_out = torch.randn(*SRFLOW_F, NF, generator=gen).cuda()
+    _compare_block(SRFLOW_F, torch.float32, x, g_out, ws, bs, "srflow: ")
+    # the serving shape (one LR image of 40 x 40), forward alone
+    _compare_block(SRFLOW_SERVE_SHAPE, torch.float32, x[:1].contiguous(),
+                   None, ws, bs, "srflow serve: ")
+
+    trainer = create_trainer(_srflow_options(train_RRDB_delay=0),
+                             graphs=False)
+    state = trainer.init_state(2)
+    net = state.g.net
+    batch = _srflow_batch(90)
+    # the encoder at its own init (Kaiming x 0.1 in the blocks: what the
+    # path trains from), held to 1e-5 of its size; then at gain 0.7,
+    # where each bare block adds 0.2 c5 of the trunk's size and the
+    # chain of 23 grows 3xTF32's rounding against f32's: held to the
+    # per-block f32 tolerance, 1e-4
+    for gain, rel_tol in ((None, 1e-5), (0.7, 1e-4)):
+        if gain is not None:
+            _gain_weights(net.RRDB, seed=3)
+        with torch.inference_mode():
+            before = _counted()["rdb5c"]
+            got = net.RRDB(batch["LR"])
+            ran = _counted()["rdb5c"] - before
+            with _plain_blocks():
+                ref = net.RRDB(batch["LR"])
+        torch.cuda.synchronize()
+        scale = float(ref.abs().max())
+        err = float((got - ref).abs().max())
+        print(f"srflow: the encoder's forward at F (b=16, 40 x 40, f32; "
+              f"{'its init' if gain is None else 'Kaiming gain 0.7'}): "
+              f"kernels vs plain max_abs_err {err:.3e} on max|ref| "
+              f"{scale:.3e} ({err / scale:.3e} of it), tol "
+              f"{rel_tol * scale:.3e}; {ran} block launches on the kernels, "
+              f"{_counted()['rdb5c'] - before - ran} on the plain versions")
+        if not err <= rel_tol * scale or ran != SRFLOW_PER or \
+                _counted()["rdb5c"] - before != ran:
+            raise AssertionError(f"srflow encoder: {err}, {ran} launches")
+
+    # the flow at gain 0.7 too: its couplings' zero-initialised last
+    # convs would pass the encoder no gradient at all
+    _gain_weights(net, seed=4)
+    noise = torch.rand(batch["HR"].shape,
+                       generator=torch.Generator().manual_seed(4)).cuda()
+    trainer.draw_hook = lambda shapes: {"noise": noise}
+    names = [f"RRDB.{k}" for k, _ in net.RRDB.named_parameters()]
+
+    def grads():
+        # an update at learning rate 0: the gradients stay on .grad
+        trainer._flow_step(state, batch, 0.0, 0.0, train_rrdb=True)
+        torch.cuda.synchronize()
+        params = dict(net.named_parameters())
+        return {k: params[k].grad.clone() for k in names}
+
+    before = _counted()["rdb5c_bwd"]
+    got = grads()
+    ran = _counted()["rdb5c_bwd"] - before
+    with _plain_blocks():
+        ref = grads()
+    worst, worst_name, top = 0.0, "", 0.0
+    for k, r in ref.items():
+        s = float(r.abs().max())
+        top = max(top, s)
+        ratio = float((got[k] - r).abs().max()) / max(s, 1e-30)
+        if ratio > worst:
+            worst, worst_name = ratio, k
+    print(f"srflow: the encoder's gradient of one unfrozen template step at "
+          f"F (f32), kernels vs plain: worst relative error {worst:.3e} "
+          f"({worst_name}), tol 3.000e-03, largest gradient {top:.3e} over "
+          f"{len(ref)} tensors; backward block launches {ran} on the "
+          f"kernels, {_counted()['rdb5c_bwd'] - before - ran} on the plain "
+          f"versions ({smi})")
+    if not (worst <= 3e-3 and top > 0 and math.isfinite(top)) or \
+            ran != SRFLOW_PER or _counted()["rdb5c_bwd"] - before != ran:
+        raise AssertionError(f"srflow encoder gradient: {worst} at "
+                             f"{worst_name}, {ran} launches")
+    del trainer, state, net
+    torch.cuda.empty_cache()
+
+
+def _srflow_graphed_vs_eager(smi: str, root: str, interop: bool) -> dict:
+    """The template's step at full width (f32, b=16, 40 -> 160 px),
+    graphed against eager from the same state and noise generator state,
+    across the unfreeze: ``SRFLOW_GRAPH_STEPS`` steps with the unfreeze
+    at 2 (srflow_net), or 2 steps with it at 1 (the interop net), bit for
+    bit under deterministic cuDNN; one graph per freeze state, each with
+    the block launches it recorded (23 or 69 forwards; backwards only
+    unfrozen). The interop net's G is saved for the test CLI. Returns the
+    step's ms each way by freeze state."""
+    import torch
+
+    from trainner_tpu_torch.utils import checkpoint
+    from trainner_tpu_torch.utils.torch_interop import g_to_jax
+
+    steps = 2 if interop else SRFLOW_GRAPH_STEPS
+    per = SRFLOW_I_PER if interop else SRFLOW_PER
+    opt = _srflow_options(interop, niter=steps)
+    unequal, ms, trainers, states = _graphed_vs_eager(
+        opt, [_srflow_batch(70 + i) for i in range(steps)])
+    graphs = trainers["graphed"].step_graphs()
+    recorded = {key[1]: {k: cap.launches[k] for k in ("rdb5c", "rdb5c_bwd")}
+                for key, cap in graphs.items()}
+    want = {False: {"rdb5c": per, "rdb5c_bwd": 0},
+            True: {"rdb5c": per, "rdb5c_bwd": per}}
+    name = "interop" if interop else "srflow_net"
+    print(f"srflow: {steps} {name} steps at full width (f32, b=16, 40 -> "
+          f"160 px), the unfreeze at {steps // 2}, graphed ({len(graphs)} "
+          f"programs; block launches recorded by freeze state {recorded}) "
+          f"against eager: {len(unequal)} tensors or logs differ")
+    print(f"times: srflow {name} train_step f32, ms per step (a freeze "
+          f"state's first: eager + capture; then replays), graphed "
+          f"{[round(v, 3) for v in ms['graphed']]}, eager "
+          f"{[round(v, 3) for v in ms['eager']]} ({smi})")
+    if unequal or recorded != want:
+        raise AssertionError(f"srflow graphs {name}: {unequal[:6]}, "
+                             f"{recorded}")
+    if interop:
+        st = states["graphed"]
+        torch.cuda.synchronize()
+        checkpoint.save_params(g_to_jax(st.g.net.state_dict(), st.g.net)[0],
+                               os.path.join(root, "srflow_interop_G.ckpt"))
+    out = {"graphed": ms["graphed"][-1], "eager": ms["eager"][-1]}
+    del trainers, states
+    torch.cuda.empty_cache()
+    return out
+
+
+def _srflow_f64(smi: str) -> None:
+    """One f32 SGD step of the cut template (``SRFLOW_F64_G``, unfrozen)
+    on the card (graphed), the CPU and an f64 witness of each side that
+    replays that side's branches of the flow (the encoder's LeakyReLUs run
+    inside the block kernels on the card), the quantisation noise the
+    CPU's: logs within 1e-4 relative, card against CPU; each G tensor of
+    the card no further from its witness than ``I2I_F64_TOL`` times the
+    CPU f32's largest distance, or ``I2I_F64_FLOOR`` of its move, or
+    ``I2I_F64_ABS`` outright."""
+    import torch
+
+    from trainner_tpu_torch.options.config import parse_dict
+
+    opt = read_options_yml(SRFLOW_TRAIN_YML)
+    opt["datasets"] = {"train": dict(opt["datasets"]["train"],
+                                     batch_size=SRFLOW_F64_SHAPE[0],
+                                     crop_size=SRFLOW_F64_SHAPE[1] * 4)}
+    opt["network_G"].update(SRFLOW_F64_G)
+    opt["train"].update(optim_G="sgd", lr_G=1e-2, train_RRDB_delay=0)
+    opt["path"] = {"root": "/nonexistent"}
+    opt = dict(parse_dict(opt, is_train=True))
+
+    def flow(state, trainer):
+        return [m for n, m in state.g.net.named_children() if n != "RRDB"]
+
+    gen = torch.Generator().manual_seed(80)
+    b, h, w = SRFLOW_F64_SHAPE
+    hr = torch.rand(b, 4 * h, 4 * w, 3, generator=gen)
+    batch = {"LR": hr.reshape(b, h, 4, w, 4, 3).mean((2, 4)), "HR": hr}
+    r = _steps_card_cpu_f64("srflow", opt, [batch], graphs=1,
+                            share_draws=True, branches=flow, lr=1e-2)
+    cc, f64, cpu = (_worst(r[key], "g.") for key in
+                    ("card_cpu", "card_f64", "cpu_f64"))
+    tol = max(I2I_F64_TOL * cpu[0], I2I_F64_FLOOR)
+    bad = [(k, v, tol, r["abs_card"].get(k)) for k, v in
+           r["card_f64"].items() if not v <= tol
+           and not r["abs_card"].get(k, 1.0) <= I2I_F64_ABS]
+    print(f"srflow: one f32 SGD step (cut: nb {SRFLOW_F64_G['nb']}, K "
+          f"{SRFLOW_F64_G['K']}, b {b}, {h} -> {4 * h} px, unfrozen), G's "
+          f"tensors as a share of their move: card vs CPU up to {cc[0]:.3e} "
+          f"({cc[1]}); against each side's f64 witness: card {f64[0]:.3e} "
+          f"({f64[1]}, {r['abs_card'].get(f64[1], 0):.2e} absolute; tol "
+          f"{tol:.3e}), CPU f32 {cpu[0]:.3e} ({cpu[1]}); logs card vs CPU "
+          f"within {r['logs']:.3e} relative (tol 1e-4); branches that "
+          f"differ, card against CPU, {r['flips']} of {r['records']} "
+          f"records ({smi})")
+    if bad or not r["logs"] <= 1e-4:
+        raise AssertionError(f"srflow f64: {bad[:6]}, logs {r['logs']}")
+    torch.cuda.empty_cache()
+
+
+def _srflow_serve_data(root: str) -> dict:
+    """Two corpus images cropped to ``SRFLOW_SERVE_PX`` and their bicubic
+    LR (40 x 40)."""
+    import numpy as np
+
+    from trainner_tpu_torch.data.common import decode_image, save_img
+    from trainner_tpu_torch.ops.imresize import imresize_np
+
+    out = {k: os.path.join(root, "srflow_serve", k) for k in ("HR", "LR")}
+    for d in out.values():
+        os.makedirs(d, exist_ok=True)
+    pngs = sorted(os.listdir(os.path.join(root, "corpus")))[:2]
+    p = SRFLOW_SERVE_PX
+    for img in pngs:
+        hr = decode_image(os.path.join(root, "corpus", img))[:p, :p]
+        save_img(np.ascontiguousarray(hr), os.path.join(out["HR"], img))
+        lr = imresize_np(hr.astype(np.float32) / 255.0, 0.25, kernel="cubic")
+        save_img((lr * 255.0).round().astype(np.uint8),
+                 os.path.join(out["LR"], img))
+    return out
+
+
+def _srflow_serve(smi: str, root: str) -> dict:
+    """The test CLI on ``test_srflow.yml`` (heats 0, 0.5, 0.75, 1.0 x
+    ``n_sample`` 3, the first heat's first sample also saved under the
+    image's name and scored) on 2 images, with the training CLI's G
+    (srflow_net) and the interop net's graphed steps' G, each under a
+    launch trace: 23 or 69 block forwards per sample. The heat-0 sample
+    of each (``eval_step``) on the card, on the card with the encoder on
+    the plain versions (``_plain_blocks``) and on the CPU (f32), against
+    an f64 witness of the CPU's net: both card samples no further from it
+    than ``SRFLOW_SERVE_TOL`` times the CPU's distance, or 1e-5 of the
+    size (a G of 14 steps inverts couplings whose scales lie near their
+    floor of 1e-4, so the rounding of either device grows in the reverse;
+    the card against the CPU is printed beside). Returns the traces."""
+    import torch
+
+    from trainner_tpu_torch import test as test_cli
+    from trainner_tpu_torch.options.config import parse_dict
+    from trainner_tpu_torch.train.srflow_trainer import SRFlowTrainer
+
+    data = _srflow_serve_data(root)
+    cli_opt = read_options_yml(SRFLOW_TRAIN_YML)
+    g_files = {"srflow_net": os.path.join(
+        root, "cli_srflow", "experiments", cli_opt["name"], "models",
+        f"{CLI_RESUME_NITER}_G.ckpt"),
+        "interop": os.path.join(root, "srflow_interop_G.ckpt")}
+    traces = {}
+    for name, per in (("srflow_net", SRFLOW_PER),
+                      ("interop", SRFLOW_I_PER)):
+        opt = read_options_yml(SRFLOW_TEST_YML)
+        heats, n_sample = opt["val"]["heats"], opt["val"]["n_sample"]
+        opt["name"] = f"serve_srflow_{name}"
+        opt["datasets"]["test_1"].update(dataroot_HR=data["HR"],
+                                         dataroot_LR=data["LR"])
+        opt["network_G"]["flow"]["interop"] = name == "interop"
+        opt["path"] = {"root": os.path.join(root, opt["name"]),
+                       "pretrain_model_G": g_files[name]}
+        path = os.path.join(root, opt["name"] + ".json")
+        with open(path, "w") as f:
+            json.dump(opt, f)
+        passes = 2 * len(heats) * n_sample
+        t0 = time.perf_counter()
+        t, averages = _retried_trace(lambda: test_cli.main(["-opt", path]),
+                                     {"rdb5c": per * passes},
+                                     label=opt["name"])
+        wall = time.perf_counter() - t0
+        pngs = sorted(f for _, _, fs in os.walk(os.path.join(
+            root, opt["name"])) for f in fs if f.endswith(".png"))
+        vals = {m["name"]: m["average"] for m in averages["seta"]}
+        # the heat-0 sample through each trainer's eval_step, card and CPU
+        parsed = dict(parse_dict(opt, is_train=False))
+        lr = torch.from_numpy(_read_lr(data["LR"]))
+        outs = {}
+        for side, dev in (("cuda", "cuda"), ("plain", "cuda"),
+                          ("cpu", "cpu")):
+            tr = SRFlowTrainer(parsed, device=dev, graphs=False)
+            st = tr.init_state(0, g_files[name])
+            with _plain_blocks() if side == "plain" else \
+                    contextlib.nullcontext():
+                outs[side] = tr.eval_step(st, lr, 0.0).cpu()
+            del tr, st
+        # held with an f64 witness of the CPU's net beside it
+        net64 = _f64_net(SRFlowTrainer(parsed, device="cpu").init_state(
+            0, g_files[name]).g.net)
+        lr64 = lr.double()
+        cold64 = [torch.zeros(sh, dtype=torch.float64)
+                  for sh in net64.sample_shapes(lr.shape)]
+        with _in_f64() as f32_ops, torch.inference_mode():
+            exact = net64.sample_from(lr64, cold64)
+        if f32_ops:
+            raise AssertionError(f"srflow witness f32 ops {set(f32_ops)}")
+        del net64
+        r = _witness_reading(outs, exact)
+        px = passes * SRFLOW_SERVE_PX ** 2
+        print(f"srflow: {opt['name']}: 2 images of 40 x 40 -> 160 x 160, "
+              f"heats {heats} x {n_sample} samples (the first scored), in "
+              f"{wall:.2f} s ({wall / 2:.3f} s per image, "
+              f"{px / wall / 1e6:.4f} Mpx/s of samples with the CLI's host "
+              f"work; traced), "
+              f"the card ran {t['ran']['rdb5c']} block forwards ({per} per "
+              f"sample), the wrapper counted {t['counted']['rdb5c']}; "
+              f"{len(pngs)} PNGs; metrics {vals} ({smi})")
+        print(f"srflow: {opt['name']} heat 0 sample (eval_step), max |ref| "
+              f"{r['size']:.3e}: card vs CPU {r['card_cpu']:.3e} "
+              f"({r['card_cpu'] / r['size']:.3e} of it); against the f64 "
+              f"witness card {r['card']:.3e} ({r['card'] / r['cpu']:.2f}x "
+              f"the CPU's), card with the encoder on the plain versions "
+              f"{r['plain']:.3e} ({r['plain'] / r['cpu']:.2f}x), CPU f32 "
+              f"{r['cpu']:.3e}, tol {r['tol']:.3e} (the larger of "
+              f"{SRFLOW_SERVE_TOL} x the CPU's and 1e-5 of the size)")
+        if len(pngs) != 2 * (len(heats) * n_sample + 1) or not all(
+                math.isfinite(v) for v in vals.values()) or \
+                not max(r["card"], r["plain"]) <= r["tol"]:
+            raise AssertionError(f"srflow serving {name}: {len(pngs)} PNGs, "
+                                 f"{vals}, {r}")
+        traces[opt["name"]] = t
+    torch.cuda.empty_cache()
+    return traces
+
+
+def _f64_net(net):
+    """A CPU copy of an SRFlow net in f64 (its modules' ``dtype`` too), for
+    ``_in_f64``."""
+    import copy
+
+    import torch
+
+    out = copy.deepcopy(net).double()
+    for m in out.modules():
+        if isinstance(getattr(m, "dtype", None), torch.dtype):
+            m.dtype = torch.float64
+    return out
+
+
+def _witness_reading(sides: dict, exact) -> dict:
+    """Card (kernels and plain blocks) and CPU f32 outputs against an f64
+    witness: each one's largest distance from it, the card's from the
+    CPU's, the size, and the tolerance of the card's distances
+    (``SRFLOW_SERVE_TOL`` times the CPU's, at least 1e-5 of the size)."""
+    exact = exact.double()
+    size = float(exact.abs().max())
+    cpu = float((sides["cpu"].double() - exact).abs().max())
+    return {"size": size, "cpu": cpu,
+            "card": float((sides["cuda"].double() - exact).abs().max()),
+            "plain": float((sides["plain"].double() - exact).abs().max()),
+            "card_cpu": float((sides["cuda"] - sides["cpu"]).abs().max()),
+            "tol": max(SRFLOW_SERVE_TOL * cpu, 1e-5 * size)}
+
+
+def _read_lr(folder: str):
+    """The first LR image of ``folder`` as a (1, h, w, 3) f32 array in
+    [0, 1]."""
+    import numpy as np
+
+    from trainner_tpu_torch.data.common import decode_image
+
+    img = decode_image(os.path.join(folder, sorted(os.listdir(folder))[0]))
+    return (img[None].astype(np.float32) / 255.0)
+
+
+def _zoo_a_net(name: str, dt, calibrate: bool = False):
+    """One of the sr trainer's other Gs at its JAX defaults (``ZOO_A``),
+    init from a seed; with ``calibrate`` the segmenter's running
+    statistics set to one train-mode pass's batch statistics, its
+    variance plus 1, on a seeded image (its 37 batch norms, at init, would
+    leave eval-mode logits in the thousands, where f32's softmax
+    saturates on either side)."""
+    import torch
+
+    from trainner_tpu_torch.models import define_G
+    from trainner_tpu_torch.ops.blocks import BatchNorm, commit_stats
+    from trainner_tpu_torch.options.defaults import get_network_G_config
+
+    spec, scale = ZOO_A[name][:2]
+    net = define_G({"network_G": get_network_G_config(dict(spec), scale)},
+                   dtype=dt)
+    net.init_weights(torch.Generator().manual_seed(2))
+    if calibrate and name == "seg_arch":
+        norms = [m for m in net.modules() if isinstance(m, BatchNorm)]
+        for m in norms:
+            m.momentum = 0.0
+        net.train()
+        with torch.no_grad():
+            net(torch.rand(2, 64, 64, 3,
+                           generator=torch.Generator().manual_seed(3)))
+        commit_stats(net)
+        with torch.no_grad():
+            for m in norms:
+                m.momentum = 0.99
+                m.running_var.add_(1.0)
+    return net.eval()
+
+
+def _zoo_a(smi: str) -> None:
+    """ABPN, ASRResNet, ASRCNN and the segmenter (``seg_arch``, 3 classes
+    at scale 1) at their JAX defaults: each forward card against CPU (f32,
+    TF32 off) within 1e-5 of the output's size, no block kernel launched;
+    one ``sr`` step of ``train_sr.yml`` with the G swapped (bf16, D-VGG at
+    the crop, the flagship losses; the batch of ``ZOO_A``, which the
+    attention fits) graphed against eager bit for bit; each forward's
+    Mpx/s by CUDA events at b=1 (f32)."""
+    import torch
+
+    from trainner_tpu_torch.options.config import parse_dict
+
+    for name, (spec, scale, cpu_lr, (b, px), serve_px) in ZOO_A.items():
+        x = torch.rand(*cpu_lr, generator=torch.Generator().manual_seed(5))
+        net = _zoo_a_net(name, torch.float32, calibrate=True)
+        with torch.inference_mode():
+            ref = net(x)
+            net = net.cuda()
+            with _launch_trace({"rdb5c": 0}, label=name):
+                got = net(x.cuda()).cpu()
+        size = float(ref.abs().max())
+        err = float((got - ref).abs().max())
+        print(f"zoo_a: {name} f32 forward {tuple(x.shape)} -> "
+              f"{tuple(ref.shape)}, card vs CPU: max_abs_err {err:.3e} on "
+              f"max|ref| {size:.3e}, tol {1e-5 * size:.3e}, no block kernel "
+              f"launched")
+        if not (err <= 1e-5 * size and bool(got.isfinite().all())):
+            raise AssertionError(f"zoo_a {name}: {err}")
+
+        opt = read_options_yml(TRAIN_YML)
+        opt["network_G"] = dict(spec)
+        opt["scale"] = scale
+        opt["datasets"] = {"train": dict(opt["datasets"]["train"],
+                                         batch_size=b,
+                                         crop_size=px * scale)}
+        opt["network_D"] = {"type": "discriminator_vgg",
+                            "size": px * scale, "nf": 64}
+        opt["path"] = {"root": "/nonexistent"}
+        opt = dict(parse_dict(opt, is_train=True))
+        gens = [torch.Generator().manual_seed(60 + i) for i in range(2)]
+        unequal, ms, trainers, states = _graphed_vs_eager(opt, [
+            {"LR": torch.rand(b, px, px, 3, generator=g).cuda(),
+             "HR": torch.rand(b, px * scale, px * scale, 3,
+                              generator=g).cuda()} for g in gens])
+        n_graphs = len(trainers["graphed"].step_graphs())
+        print(f"zoo_a: {name} sr step (train_sr.yml with the G; bf16, b={b},"
+              f" {px} -> {px * scale} px) graphed ({n_graphs} program) "
+              f"against eager, 2 steps: {len(unequal)} tensors or logs "
+              f"differ; ms graphed {[round(v, 3) for v in ms['graphed']]}, "
+              f"eager {[round(v, 3) for v in ms['eager']]} ({smi})")
+        if unequal or n_graphs != 1:
+            raise AssertionError(f"zoo_a {name} graphs: {unequal[:6]}")
+        del trainers, states
+
+        row = []
+        lr = torch.rand(1, serve_px, serve_px, 3, device="cuda",
+                        generator=torch.Generator(device="cuda").manual_seed(
+                            6))
+        for dt in (torch.float32,):
+            net = _zoo_a_net(name, dt).cuda()
+            with torch.inference_mode():
+                t_ms = _time_ms(lambda: net(lr), iters=SERVE_ITERS, warmup=1)
+            mpx = (serve_px * scale) ** 2 / 1e6
+            row.append(f"{str(dt)[6:]} {t_ms:.3f} ms, {mpx / t_ms * 1e3:.3f} "
+                       "Mpx/s")
+            del net
+        print(f"times: {name} forward, b=1, {serve_px} -> {serve_px * scale} "
+              f"px: {'; '.join(row)} ({smi})")
+        torch.cuda.empty_cache()
+
+
+def phase_srflow(smi: str, root: str) -> dict:
+    """Phase 22: SRFlow at the template's full width
+    (``options/srflow/train_srflow.yml``: SRFlowNet nf 64, nb 23, K 16, L
+    3, hidden 64; b 16, crop 160; f32), its encoder's 23 blocks on the
+    block kernels: the training CLI (12 iterations, the encoder unfrozen
+    at step 7, and a resume to 14), the kernels against their plain
+    versions at F, steps graphed against eager across the unfreeze, one
+    f32 step at cut depth against an f64 witness, the interop net's
+    steps graphed against eager (69 blocks per pass), the test CLI on
+    ``test_srflow.yml`` with both nets; then ABPN, ASRResNet, ASRCNN and
+    the segmenter (``_zoo_a``). Returns the traces."""
+    import torch
+
+    t0 = time.perf_counter()
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    traces, parts = {}, []
+    for part in (lambda: traces.update(_srflow_cli(smi, root)),
+                 lambda: _srflow_kernels_vs_plain(smi),
+                 lambda: _srflow_graphed_vs_eager(smi, root, False),
+                 lambda: _srflow_graphed_vs_eager(smi, root, True),
+                 lambda: _srflow_f64(smi),
+                 lambda: traces.update(_srflow_serve(smi, root)),
+                 lambda: _zoo_a(smi)):
+        t1 = time.perf_counter()
+        part()
+        parts.append(f"{time.perf_counter() - t1:.1f}")
+    print(f"srflow: ok in {time.perf_counter() - t0:.1f} s (CLI, kernels vs "
+          f"plain, graphs, interop graphs, f64, serving, the other sr Gs: "
+          f"{', '.join(parts)} s) ({smi})")
+    return traces
+
+
 def phase_graphs(smi: str, root: str) -> None:
     """The programs as CUDA graphs against the same programs run eagerly
     (``graphs=False``), in one process: the step (bf16, f32) with its
     recorded launches against a profiler trace of one replay and the
     latent noise of a replay; a resume after capture; ``train_steps``; the
-    degrader; ``eval_step``, x8 and chop; then eager against graphed times
-    of the end-to-end rate and the CLI's steady rate."""
+    degrader; ``eval_step``, x8 and chop; the test CLI on images of mixed
+    sizes."""
     t0 = time.perf_counter()
     parts = []
     for part in (lambda: _graph_step(smi), lambda: _graph_resume(smi, root),
                  lambda: _graph_window(smi),
                  lambda: _graph_degrader(smi, root),
                  lambda: _graph_serving(smi),
-                 lambda: _graph_mixed_sizes(smi, root),
-                 lambda: _graph_e2e(smi, root),
-                 lambda: _graph_cli(smi, root)):
+                 lambda: _graph_mixed_sizes(smi, root)):
         t1 = time.perf_counter()
         part()
         parts.append(f"{time.perf_counter() - t1:.1f}")
     print(f"graphs: ok in {time.perf_counter() - t0:.1f} s (step, resume, "
-          f"window, degrader, serving, mixed sizes, e2e, cli: "
+          f"window, degrader, serving, mixed sizes: "
           f"{', '.join(parts)} s) ({smi})")
 
 
 def _later_phases(smi: str, root: str, which: tuple) -> dict:
     """Phases 18 (``phase_producer_rest``), 19 (``phase_models``), 20
-    (``phase_i2i``) and 21 (``phase_video``) of ``which``, TF32 off before
-    each; returns their traces."""
+    (``phase_i2i``), 21 (``phase_video``) and 22 (``phase_srflow``) of
+    ``which``, TF32 off before each; returns their traces."""
     import torch
 
     phases = {18: phase_producer_rest, 19: phase_models, 20: phase_i2i,
-              21: phase_video}
+              21: phase_video, 22: phase_srflow}
     traces = {}
     for n in which:
         torch.backends.cudnn.allow_tf32 = False
@@ -7784,7 +8144,7 @@ def main(argv=None) -> int:
                         "git archive) whose blur kernel is timed beside "
                         "this one's")
     parser.add_argument("--only", default="",
-                        help="comma-separated phases among 18 to 21: "
+                        help="comma-separated phases among 18 to 22: "
                         "build the kernels, write the corpus and run those "
                         "alone (no result line)")
     flags = parser.parse_args(argv)
@@ -7793,6 +8153,7 @@ def main(argv=None) -> int:
         return 1
     from trainner_tpu_torch.ops import _build, rdb5c
 
+    _time_parts()
     t_start = time.time()
     smi = _smi()
     print(f"device: {smi}; torch {torch.__version__}, CUDA "
@@ -7829,6 +8190,7 @@ def main(argv=None) -> int:
             _write_corpus(os.path.join(root, "corpus"))
             _later_phases(smi, root, tuple(
                 int(p) for p in flags.only.split(",")))
+        _print_parts(smi)
         print(f"chip_smoke: phases {flags.only} alone, "
               f"{time.time() - t_start:.1f} s")
         print(smi)
@@ -7846,7 +8208,7 @@ def main(argv=None) -> int:
         phase_g_gradient(smi)
         producer = phase_producer(smi, root)
         phase_shuffle(smi, root)
-        cli_counts = phase_cli(smi, root)
+        cli_counts = phase_cli(smi, root, save_breakdown=True)
         phase_graphs(smi, root)
         cli_counts.update(phase_realesrgan(smi, root))
         torch.backends.cudnn.allow_tf32 = False
@@ -7860,10 +8222,11 @@ def main(argv=None) -> int:
         torch.backends.cuda.matmul.allow_tf32 = False
         cli_counts.update(phase_losses(smi, root))
         cli_counts.update(phase_trainer_options(smi, root))
-        cli_counts.update(_later_phases(smi, root, (18, 19, 20, 21)))
+        cli_counts.update(_later_phases(smi, root, (18, 19, 20, 21, 22)))
         rows = phase_times(smi, root)
         blur_rows = phase_blur_times(smi, flags.parent)
         phase_trace(smi, root, {k: r["step_ms"] for k, r in train.items()})
+    _print_parts(smi)
     kernels = _kernel_rows(rows, launches, train, main_err, bwd_err,
                            blur_rows, producer, blur_err, forms, cli_counts,
                            caller_rows)

@@ -179,12 +179,14 @@ def test_dict2str_matches_jax():
 @pytest.mark.parametrize("key, value, item", [
     ("network_G", {"type": "ppon"}, None),
     ("network_G", {"type": "edvr"}, None),
+    ("network_G", {"type": "seg_arch"}, None),
     ("network_G", {"type": "wbcunet"}, "Queue A 10.6")])
 def test_options_outside_the_port_raise_with_their_item(key, value, item):
     """The network presets and ``use_unshuffle`` are parsed now
     (``test_torch_network_options.py``), and so are the realsr and combo
     strategies (``test_realsr_parses_like_jax``), ``ppon`` (ROADMAP Queue
-    A 10.2) and ``edvr`` (A 10.5), their G configs the JAX ones; other
+    A 10.2), ``edvr`` (A 10.5) and ``seg_arch`` (A 10.6 a), their G
+    configs the JAX ones; other
     generators still raise and name their ROADMAP item."""
     opt = _train_opt()
     opt[key] = value

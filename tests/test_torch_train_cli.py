@@ -188,7 +188,7 @@ def test_without_a_card_main_raises(tmp_path, monkeypatch):
 
 @pytest.mark.parametrize("edit, item", [
     (("model: sr", "model: dvd"), "Queue A 10.6"),
-    (("model: sr", "model: srflow"), "Queue A 10.6"),
+    (("model: sr", "model: pbr"), "Queue A 10.6"),
     (("scale: 4", "scale: 4\nparallel: {data: 2}"), "Queue A 9"),
 ])
 def test_what_the_cli_does_not_port_raises(edit, item, tmp_path):

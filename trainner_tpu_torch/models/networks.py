@@ -3,9 +3,11 @@
 ``_build_srresnet:56``, ``_build_ppon:67``, ``_build_pan:75``,
 ``_build_a2n:244``, ``_build_unet:87``, ``_build_resnet_g:98``,
 ``_build_sft:195``, ``_build_sofvsr:117``, ``_build_sr3d:128``,
-``_build_edvr:179``, ``_build_rife:231``, ``define_D:291``) for the
-generators and the discriminators that the port runs. Other types raise
-and name their ROADMAP item."""
+``_build_edvr:179``, ``_build_rife:231``, ``_build_srflow:144``,
+``_build_srflow_interop:158``, ``_build_abpn:200``,
+``_build_asr_resnet:207``, ``_build_asr_cnn:218``, ``_build_seg:237``,
+``define_D:291``) for the generators and the discriminators that the port
+runs. Other types raise and name their ROADMAP item."""
 
 from __future__ import annotations
 
@@ -169,13 +171,89 @@ def _build_rife(cfg: dict, dtype: torch.dtype):
     return RIFE(c=cfg.get("c", 16), dtype=dtype)
 
 
+def _build_srflow(cfg: dict, dtype: torch.dtype):
+    """SRFlowNet, or the reference-exact net with ``flow.interop`` or
+    ``type: srflow_interop``; ``flow.L`` and ``flow.hidden_channels`` (and
+    ``K`` beside the type) as the JAX ``_build_srflow`` reads them."""
+    flow = cfg.get("flow") or {}
+    if flow.get("interop") or cfg.get("type") == "srflow_interop":
+        return _build_srflow_interop(cfg, dtype)
+    from .srflow import SRFlowNet
+
+    return SRFlowNet(in_nc=cfg.get("in_nc", 3), out_nc=cfg.get("out_nc", 3),
+                     nf=cfg.get("nf", 64), nb=cfg.get("nb", 23),
+                     gc=cfg.get("gc", 32), scale=cfg.get("scale", 4),
+                     K=cfg.get("K", 16), L=flow.get("L", 3),
+                     hidden_channels=flow.get("hidden_channels", 64),
+                     dtype=dtype)
+
+
+def _build_srflow_interop(cfg: dict, dtype: torch.dtype):
+    """The reference-exact SRFlowNet: ``additionalFlowNoAffine``,
+    ``CondAffineSeparatedAndCond.hidden_channels`` (else
+    ``hidden_channels``), ``stackRRDB.blocks`` of ``flow``, ``quant``."""
+    from .srflow_interop import SRFlowNetI
+
+    flow = cfg.get("flow") or {}
+    stack = flow.get("stackRRDB") or {}
+    coupling = flow.get("CondAffineSeparatedAndCond") or {}
+    return SRFlowNetI(
+        in_nc=cfg.get("in_nc", 3), out_nc=cfg.get("out_nc", 3),
+        nf=cfg.get("nf", 64), nb=cfg.get("nb", 23), gc=cfg.get("gc", 32),
+        scale=cfg.get("scale", 4), K=cfg.get("K", 16), L=flow.get("L", 3),
+        n_noaffine=int(flow.get("additionalFlowNoAffine", 2)),
+        hidden=int(coupling.get("hidden_channels",
+                                flow.get("hidden_channels", 64)) or 64),
+        quant=float(cfg.get("quant", 255.0) or 255.0),
+        blocks=tuple(stack.get("blocks", (1, 8, 15, 22))), dtype=dtype)
+
+
+def _build_abpn(cfg: dict, dtype: torch.dtype):
+    from .abpn import ABPN
+
+    return ABPN(input_dim=cfg.get("input_dim", cfg.get("in_nc", 3)),
+                dim=cfg.get("dim", cfg.get("nf", 32)), dtype=dtype)
+
+
+def _build_asr_resnet(cfg: dict, dtype: torch.dtype):
+    from .asrresnet import ASRResNet
+
+    return ASRResNet(
+        scale_factor=cfg.get("scale_factor", cfg.get("scale", 4)),
+        spectral_norm=bool(cfg.get("spectral_norm", True)),
+        self_attention=bool(cfg.get("self_attention", True)),
+        max_pool=bool(cfg.get("max_pool", False)),
+        poolsize=cfg.get("poolsize", 4), dtype=dtype)
+
+
+def _build_asr_cnn(cfg: dict, dtype: torch.dtype):
+    from .asrresnet import ASRCNN
+
+    return ASRCNN(
+        upscale_factor=cfg.get("upscale_factor", cfg.get("scale", 4)),
+        spectral_norm=bool(cfg.get("spectral_norm", True)),
+        self_attention=bool(cfg.get("self_attention", True)),
+        max_pool=bool(cfg.get("max_pool", True)),
+        poolsize=cfg.get("poolsize", 4), finalact=cfg.get("finalact"),
+        dtype=dtype)
+
+
+def _build_seg(cfg: dict, dtype: torch.dtype):
+    from .seg import OutdoorSceneSeg
+
+    return OutdoorSceneSeg(n_classes=cfg.get("n_classes", 8), dtype=dtype)
+
+
 _G_REGISTRY = {"rrdb_net": _build_rrdb, "mrrdb_net": _build_mrrdb,
                "sr_resnet": _build_srresnet, "ppon": _build_ppon,
                "pan_net": _build_pan, "a2n_net": _build_a2n,
                "unet_net": _build_unet, "resnet_net": _build_resnet_g,
                "sft_arch": _build_sft, "sofvsr_net": _build_sofvsr,
                "sr3d_net": _build_sr3d, "edvr_net": _build_edvr,
-               "rife_net": _build_rife}
+               "rife_net": _build_rife, "srflow_net": _build_srflow,
+               "srflow_interop": _build_srflow_interop,
+               "abpn_net": _build_abpn, "asr_resnet": _build_asr_resnet,
+               "asr_cnn": _build_asr_cnn, "seg_arch": _build_seg}
 
 
 def define_G(opt: dict, dtype: torch.dtype = torch.float32):

@@ -11,7 +11,8 @@ no norm, flax's ``BatchNorm``, ``GroupNorm`` as an instance norm or
 ``bilinear_torch:589``, ``GaussianNoise:282`` (relative noise in train
 mode, the identity at eval), ``PixelShuffleBlock:315``,
 ``UpconvBlock:369`` (nearest, or bilinear / bicubic through
-``interpolate``) and ``SelfAttentionBlock:441`` (without spectral norm);
+``interpolate``) and ``SelfAttentionBlock:441`` (with flax's spectral
+norm of its convs or without); ``bicubic_torch:621`` (``resize_torch``);
 ``Conv`` (a bare conv, dilated or not) and ``Dense`` are flax's ``nn.Conv``
 and ``nn.Dense`` as the PPON, PAN and A2N generators use them;
 ``TorchDeconv:500`` (torch's ``ConvTranspose2d``) and flax's ``nn.Dropout``
@@ -278,6 +279,14 @@ def resize_torch(x: torch.Tensor, scale: float = None, size=None,
     return torch.einsum("pw,bhwc->bhpc", ww, y)
 
 
+def bicubic_torch(x: torch.Tensor, scale: float = None,
+                  size=None) -> torch.Tensor:
+    """The JAX package's ``bicubic_torch``: torch's ``bicubic``
+    (``align_corners=False``, a = -0.75, edges clamped) of an NHWC tensor,
+    by ``resize_torch``'s contractions."""
+    return resize_torch(x, scale, size, mode="bicubic")
+
+
 def _l2_normalize(x: torch.Tensor, eps: float) -> torch.Tensor:
     return x * torch.rsqrt((x * x).sum() + eps)
 
@@ -343,6 +352,8 @@ class _Conv(nn.Module):
         self.stride = stride
         self.groups = groups
         self.sn = SpectralNorm(out_nc) if spectral_norm else None
+        # flax numbers a scope's SpectralNorm wrappers in creation order
+        self.sn_index = 0
 
     def init_weights(self, scale: float, generator: torch.Generator):
         kaiming_init_(self.weight, scale, generator)
@@ -721,7 +732,8 @@ def conv_paths(key: str, m: nn.Module, path: tuple) -> dict:
     ``bias`` at ``path``), a ``TorchDeconv``, an ``nn.Linear`` or a
     ``ConvBlock`` (``Conv_0`` with ``BatchNorm_0`` or ``LayerNorm_0``
     beside it, or with ``SpectralNorm_0``'s ``u`` and ``sigma`` in
-    ``batch_stats``)."""
+    ``batch_stats``; a bare conv's spectral norm, ``SpectralNorm_{k}``
+    beside the conv at ``path``, k its ``sn_index``)."""
     pre = f"{key}." if key else ""
     out = {}
     if isinstance(m, ConvBlock):
@@ -743,6 +755,13 @@ def conv_paths(key: str, m: nn.Module, path: tuple) -> dict:
     out[pre + "weight"] = ("params", path + ("kernel",), kind)
     if m.bias is not None:
         out[pre + "bias"] = ("params", path + ("bias",), "vec")
+    if getattr(m, "sn", None) is not None:
+        # flax's nn.SpectralNorm(conv) beside the conv, in batch_stats
+        for leaf in ("u", "sigma"):
+            out[f"{pre}sn.{leaf}"] = (
+                "batch_stats", path[:-1] + (f"SpectralNorm_{m.sn_index}",
+                                            f"{path[-1]}/kernel/{leaf}"),
+                "vec")
     return out
 
 
@@ -764,20 +783,22 @@ def norm_paths(key: str, m: nn.Module, path: tuple) -> dict:
 def named_flax_paths(net: nn.Module, prefix: str = "",
                      path: tuple = ()) -> dict:
     """``flax_paths`` of a net whose module names are the flax ones (the
-    video nets): every conv (``conv_paths``) and norm (``norm_paths``)
+    video nets): every conv and deconv (``conv_paths``) and norm
+    (``norm_paths``)
     under its dotted name, and the tensors a module names itself
     (``flax_leaves()``: attribute -> (flax leaf, kind))."""
     out = {}
     for name, m in net.named_modules():
         key = f"{prefix}{name}"
         where = path + tuple(name.split(".")) if name else path
-        if isinstance(m, _Conv):
+        if isinstance(m, (_Conv, TorchDeconv)):
             out.update(conv_paths(key, m, where))
         elif isinstance(m, (BatchNorm, LayerNorm)):
             out.update(norm_paths(key, m, where))
         elif hasattr(m, "flax_leaves"):
             for attr, (leaf, kind) in m.flax_leaves().items():
-                out[f"{key}.{attr}"] = ("params", where + (leaf,), kind)
+                out[f"{key}.{attr}" if key else attr] = (
+                    "params", where + (leaf,), kind)
     return out
 
 
@@ -815,21 +836,19 @@ class SelfAttentionBlock(nn.Module):
     to C/8, value by a 1x1 conv to C (``f``, ``g``, ``h``, with biases),
     softmax of the query-key products in f32, the attended values resized
     back bilinearly (``interpolate``), added times the learned 0-d
-    ``gamma`` (0 at init). flax's spectral norm of the three convs (the
-    ASRResNet / ASRCNN form, ROADMAP Queue A 10.6) is not ported."""
+    ``gamma`` (0 at init). With ``spectral_norm`` (ASRResNet, ASRCNN and
+    ADiscriminator) each of the three convs is spectrally normalised, its
+    state under flax's names (``SpectralNorm_0`` to ``_2`` beside ``f``,
+    ``g``, ``h``), written once per step by ``commit_stats``."""
 
     def __init__(self, nc: int, max_pool: bool = False, poolsize: int = 4,
                  spectral_norm: bool = False):
         super().__init__()
-        if spectral_norm:
-            raise NotImplementedError(
-                "SelfAttentionBlock with spectral norm serves the ASRResNet "
-                "and ASRCNN generators, not ported yet (ROADMAP Queue A "
-                "10.6)")
         self.max_pool, self.poolsize = max_pool, poolsize
-        self.f = _Conv(nc, nc // 8, 1)
-        self.g = _Conv(nc, nc // 8, 1)
-        self.h = _Conv(nc, nc, 1)
+        self.f = _Conv(nc, nc // 8, 1, spectral_norm=spectral_norm)
+        self.g = _Conv(nc, nc // 8, 1, spectral_norm=spectral_norm)
+        self.h = _Conv(nc, nc, 1, spectral_norm=spectral_norm)
+        self.g.sn_index, self.h.sn_index = 1, 2
         self.gamma = nn.Parameter(torch.zeros(()))
 
     def forward(self, x):
@@ -851,3 +870,6 @@ class SelfAttentionBlock(nn.Module):
                             mode="bilinear")
         o = o.permute(0, 3, 1, 2)
         return inp + self.gamma.to(x.dtype) * o
+
+    def flax_leaves(self):
+        return {"gamma": ("gamma", "vec")}

@@ -5,8 +5,12 @@ Counterpart of ``trainner_tpu/options/defaults.py``: ``get_network_G_config``
 pixel-unshuffle wrapper's config of ``:169-180``), ``get_network_D_config``
 (``:219-280``) and ``get_network_defaults`` (``:283-309``). The generator
 types that the port builds are the SR generators ``rrdb_net``,
-``mrrdb_net``, ``sr_resnet``, ``ppon``, ``pan_net`` and ``a2n_net``, and
-the image-to-image and SFTGAN generators ``unet_net``, ``resnet_net`` and
+``mrrdb_net``, ``sr_resnet``, ``ppon``, ``pan_net``, ``a2n_net``,
+``abpn_net``, ``asr_resnet``, ``asr_cnn`` and ``seg_arch``, SRFlow's
+``srflow_net`` (with its nested ``flow`` config merged into the defaults
+of ``:182-205``; ``flow.interop`` or the type ``srflow_interop`` selects
+the reference-exact net, an alias the JAX table lacks, ROADMAP C 26), the
+image-to-image and SFTGAN generators ``unet_net``, ``resnet_net`` and
 ``sft_arch``, and the video generators ``sofvsr_net``, ``sr3d_net``,
 ``edvr_net``, ``rife_net`` and ``evsrgan`` (``rrdb_net`` with a Conv3D
 trunk); the JAX package's other types raise here and name their
@@ -39,15 +43,18 @@ _G_ALIASES = {
     "sr3d_net": "sr3d_net", "sr3d": "sr3d_net",
     "edvr_net": "edvr_net", "edvr": "edvr_net",
     "rife_net": "rife_net", "rife": "rife_net",
+    "srflow_net": "srflow_net", "srflow": "srflow_net",
+    "srflow_interop": "srflow_net",
+    "abpn_net": "abpn_net", "abpn": "abpn_net",
+    "asr_cnn": "asr_cnn", "asr_resnet": "asr_resnet",
+    "seg_arch": "seg_arch", "seg": "seg_arch",
 }
 
 # the JAX package's other generator aliases -> the ROADMAP item that ports
 # each (Queue A 10)
 _G_NOT_PORTED = {
-    "dvd_net": "10.6", "srflow_net": "10.6", "srflow": "10.6",
-    "wbcunet": "10.6", "wbcunet_tf": "10.6", "wbcunet_net": "10.6",
-    "seg_arch": "10.6", "seg": "10.6", "abpn_net": "10.6", "abpn": "10.6",
-    "asr_resnet": "10.6", "asr_cnn": "10.6",
+    "dvd_net": "10.6", "wbcunet": "10.6", "wbcunet_tf": "10.6",
+    "wbcunet_net": "10.6",
 }
 
 _SCALE = "__scale__"
@@ -88,13 +95,31 @@ _G_DEFAULTS: dict[str, dict[str, Any]] = {
                      with_predeblur=False, with_tsa=True,
                      upsample_mode="pixelshuffle", add_rrdb=False, nb=23),
     "rife_net": dict(),
+    "srflow_net": dict(in_nc=3, out_nc=3, nf=64, nb=23, gc=32, scale=_SCALE,
+                       train_RRDB=False, train_RRDB_delay=0.5),
+    "abpn_net": dict(input_dim=3, dim=32),
+    "asr_cnn": dict(upscale_factor=_SCALE, spectral_norm=True,
+                    self_attention=True, max_pool=True, poolsize=4,
+                    finalact="tanh"),
+    "asr_resnet": dict(scale_factor=_SCALE, spectral_norm=True,
+                       self_attention=True, max_pool=True, poolsize=4),
+    "seg_arch": dict(n_classes=8),
 }
+
+_SRFLOW_FLOW_DEFAULTS = dict(
+    K=16, L=3, noInitialInj=True, coupling="CondAffineSeparatedAndCond",
+    additionalFlowNoAffine=2, fea_up0=True,
+    split={"enable": True}, augmentation={"noiseQuant": True},
+    stackRRDB={"blocks": [1, 8, 15, 22], "concat": True},
+)
 
 _G_ALIAS_OVERRIDES: dict[str, dict[str, Any]] = {
     "esrgan-lite": dict(nf=32, nb=12),
     "esrgan-anime-lite": dict(nf=64, nb=6),
     "esrgan-mid": dict(nf=64, nb=6),
     "evsrgan": dict(convtype="Conv3D"),
+    # the JAX alias table lacks it (its parse refuses the type, C 26)
+    "srflow_interop": dict(flow={"interop": True}),
     "unet_128": dict(num_downs=7),
     "unet_256": dict(num_downs=8),
     "resnet_6blocks": dict(n_blocks=6),
@@ -107,9 +132,11 @@ _G_KEY_ALIASES = {
     "gaussian": "gaussian_noise",
     "scale": {"rrdb_net": "upscale", "mrrdb_net": "upscale",
               "ppon": "upscale", "sr_resnet": "upscale",
+              "asr_cnn": "upscale_factor", "asr_resnet": "scale_factor",
               "edvr_net": "upscale"},
     "in_nc": {"unet_net": "input_nc", "resnet_net": "input_nc",
-              "sofvsr_net": "img_ch", "edvr_net": "num_in_ch"},
+              "abpn_net": "input_dim", "sofvsr_net": "img_ch",
+              "edvr_net": "num_in_ch"},
     "out_nc": {"unet_net": "output_nc", "resnet_net": "output_nc",
                "edvr_net": "num_out_ch"},
     "nf": {"edvr_net": "num_feat"},
@@ -170,11 +197,26 @@ def get_network_G_config(network_G, scale: int, crop_size=None) -> dict:
         if unshuffle_scale and in_nc in (1, 3):
             user["in_nc"] = in_nc * unshuffle_scale ** 2
 
+    # SRFlow's nested flow config: each dict merged into its default
+    if canon == "srflow_net":
+        flow = copy.deepcopy(_SRFLOW_FLOW_DEFAULTS)
+        for k, v in list((cfg.pop("flow", None) or {}).items()) + list(
+                (user.pop("flow", None) or {}).items()):
+            if isinstance(v, dict) and isinstance(flow.get(k), dict):
+                flow[k].update(v)
+            else:
+                flow[k] = v
+        cfg["flow"] = flow
+        cfg["K"] = flow["K"]
+        cfg["upscale"] = None
+
     for k, v in user.items():
         cfg[_canon_key(k, canon)] = v
     for k, v in list(cfg.items()):
         if v == _SCALE:
             cfg[k] = scale
+    if canon == "srflow_net":
+        cfg["upscale"] = cfg["scale"]
     return cfg
 
 

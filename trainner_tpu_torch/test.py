@@ -7,7 +7,10 @@ with uniform maps, as the JAX CLI serves it), ``pix2pix`` (G) and
 both Gs) from a ``single`` dataset's ``LR``, and the video models (``vsr``,
 ``vsrgan``, ``evsrgan``, ``video``: the sliding windows of a ``video``
 dataset, the centre frame served and scored against the centre of the HR
-clip, ``test.py:157-161``), with its x8 self-ensemble
+clip, ``test.py:157-161``) and ``srflow`` (for each heat of
+``val.heats``, ``val.n_sample`` samples saved as
+``{name}_h{heat:.2f}_{k}.png``, and the sample at the first heat saved
+and scored, ``test.py:99-110``), with its x8 self-ensemble
 (``self_ensemble`` / ``x8``), tiled (``chop_forward`` / ``chop``) and plain
 ``eval_step`` branches, taken in that order as the JAX CLI takes them, and
 its CEM post-processing (``test.py:129-150``): with ``use_cem`` and
@@ -67,7 +70,7 @@ def _check_ported(opt) -> None:
             "(ROADMAP C 20)")
     if model not in ("sr", "srgan", "srragan", "ppon", "sftgan",
                      "sftgan_acd", "pix2pix", "cyclegan", "vsr", "vsrgan",
-                     "evsrgan", "video"):
+                     "evsrgan", "video", "srflow"):
         item = _OTHER_MODELS.get(model, "Queue A 10")
         raise NotImplementedError(
             f"model [{model}] inference is not ported yet (ROADMAP {item}, "
@@ -138,6 +141,9 @@ def main(argv=None, device: Union[str, torch.device, None] = None
     chop = bool(opt.get("chop_forward") or opt.get("chop"))
     model = (opt.get("model") or "sr").lower()
     which = str(opt.get("which") or "auto")
+    # SRFlow's heats x n_sample draws per image (test.py:73-75)
+    heats = (opt.get("val") or {}).get("heats") or [0.0]
+    n_sample = int((opt.get("val") or {}).get("n_sample", 1) or 1)
     if which not in ("g", "ema", "swa", "auto"):
         raise ValueError(f"which [{which}]: 'g', 'ema', 'swa' or 'auto'")
     znorm = False
@@ -167,7 +173,19 @@ def main(argv=None, device: Union[str, torch.device, None] = None
                     init_swa(state)
                 elif which == "ema":
                     init_ema(state)
-            if model == "sftgan" and "seg" in batch:
+            if model == "srflow":
+                stem = os.path.splitext(os.path.basename(
+                    batch.get("LR_path", [str(i)])[0]))[0]
+                # eval_step draws from seed 0 on every call, so the first
+                # sample at heats[0] is the one the JAX CLI scores
+                sr = None
+                for heat in heats:
+                    for k in range(n_sample):
+                        s = trainer.eval_step(state, batch["LR"], heat=heat)
+                        save_img(tensor2img(s[0], znorm), os.path.join(
+                            res_dir, f"{stem}_h{heat:.2f}_{k}.png"))
+                        sr = s if sr is None else sr
+            elif model == "sftgan" and "seg" in batch:
                 sr = trainer.eval_step(state, batch["LR"], batch["seg"])
             elif model in ("sftgan", "sftgan_acd") and not (
                     ensemble_x8 or chop):

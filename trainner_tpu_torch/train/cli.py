@@ -7,7 +7,9 @@
 ``ppon_phase``), ``sftgan`` / ``sftgan_acd``, ``pix2pix``, ``cyclegan``
 and the video models ``vsr``, ``vsrgan``, ``evsrgan`` and ``video``
 (``vsr_trainer.VSRTrainer``; the validation scores the first frame of a
-clip's HR, as the JAX CLI's does, ROADMAP C 25). Every
+clip's HR, as the JAX CLI's does, ROADMAP C 25) and ``srflow``
+(``srflow_trainer.SRFlowTrainer``; the validation samples at heat 0, as
+``eval_step``'s default). Every
 ``logger.display_freq`` iterations, when the batch has ``A``, the sample
 grid A | G(A) | B goes to ``experiments_root/samples/{iter:08d}.png``
 (``train.py:353-369``).
@@ -65,9 +67,8 @@ from .sr_trainer import create_trainer as create_sr_trainer
 
 # the models of the JAX CLI that the port does not train yet -> their item
 _OTHER_MODELS = {
-    "dvd": "Queue A 10.6", "srflow": "Queue A 10.6",
-    "wbc": "Queue A 10.6", "pbr": "Queue A 10.6", "sr_pbr": "Queue A 10.6",
-    "pbr_sr": "Queue A 10.6",
+    "dvd": "Queue A 10.6", "wbc": "Queue A 10.6", "pbr": "Queue A 10.6",
+    "sr_pbr": "Queue A 10.6", "pbr_sr": "Queue A 10.6",
 }
 
 
@@ -142,9 +143,9 @@ def get_dataloaders(opt, pin_memory: bool = False):
 
 def create_trainer(opt, device: Union[str, torch.device, None] = None):
     """The trainer of the options' ``model``: ``sr`` (and its aliases),
-    ``ppon``, ``sftgan`` / ``sftgan_acd``, ``pix2pix``, ``cyclegan`` or a
-    video model; the other models of the JAX CLI raise with their ROADMAP
-    item."""
+    ``ppon``, ``sftgan`` / ``sftgan_acd``, ``pix2pix``, ``cyclegan``, a
+    video model or ``srflow``; the other models of the JAX CLI raise with
+    their ROADMAP item."""
     model = (opt.get("model") or "sr").lower()
     if model in _OTHER_MODELS:
         raise NotImplementedError(

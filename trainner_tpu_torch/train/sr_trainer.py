@@ -828,13 +828,24 @@ class SRTrainer:
         cem = self.use_cem if apply_cem is None else bool(apply_cem)
         if not self.graphs:
             return self._eval_forward(state, x, net, cem)
+        return self._eval_graphed(
+            state, (tuple(x.shape), x.dtype, net, cem), [x],
+            lambda t: self._eval_forward(state, t, net, cem))
+
+    def _eval_graphed(self, state: SRTrainState, key: tuple, inputs: list,
+                      fn: Callable) -> torch.Tensor:
+        """``fn(*inputs)`` as ``eval_step`` runs it with graphs: eagerly
+        until the ``EVAL_CAPTURE_AT``-th call of ``key``, which also
+        captures it over static copies of ``inputs``; later calls copy
+        their inputs in and replay (at most ``EVAL_GRAPHS`` graphs kept,
+        the least recently used going first)."""
         self._bind(state)
-        key = (tuple(x.shape), x.dtype, net, cem)
         entry = self._eval_graphs.get(key)
         if entry is not None:
             self._eval_graphs.move_to_end(key)
-            static, cap = entry
-            static.copy_(x)
+            statics, cap = entry
+            for buf, t in zip(statics, inputs):
+                buf.copy_(t)
             return cap.replay().clone()
         self._fresh_packs()
         calls = self._eval_seen.pop(key, 0) + 1
@@ -842,12 +853,11 @@ class SRTrainer:
             self._eval_seen[key] = calls
             while len(self._eval_seen) > self.EVAL_SEEN:
                 self._eval_seen.popitem(last=False)
-            return self._eval_forward(state, x, net, cem)
-        out = warm_up(lambda: self._eval_forward(state, x, net, cem))
-        static = torch.empty(x.shape, dtype=x.dtype, device=x.device)
-        cap = Captured(lambda: self._eval_forward(state, static, net, cem),
-                       pool=self.graph_pool())
-        self._eval_graphs[key] = (static, cap)
+            return fn(*inputs)
+        out = warm_up(lambda: fn(*inputs))
+        statics = [torch.empty_like(t) for t in inputs]
+        cap = Captured(lambda: fn(*statics), pool=self.graph_pool())
+        self._eval_graphs[key] = (statics, cap)
         while len(self._eval_graphs) > self.EVAL_GRAPHS:
             self._eval_graphs.popitem(last=False)
         return out
@@ -981,17 +991,18 @@ def create_trainer(opt: dict, device: Union[str, torch.device, None] = None,
     ``model: ppon`` (``ppon_trainer.PPONTrainer``), ``sftgan`` /
     ``sftgan_acd`` (``sftgan_trainer.SFTGANTrainer``), ``pix2pix``
     (``pix2pix_trainer.Pix2PixTrainer``), ``cyclegan``
-    (``cyclegan_trainer.CycleGANTrainer``) and ``vsr`` / ``vsrgan`` /
-    ``evsrgan`` / ``video`` (``vsr_trainer.VSRTrainer``). Training runs the
+    (``cyclegan_trainer.CycleGANTrainer``), ``vsr`` / ``vsrgan`` /
+    ``evsrgan`` / ``video`` (``vsr_trainer.VSRTrainer``) and ``srflow``
+    (``srflow_trainer.SRFlowTrainer``, always f32). Training runs the
     network bodies in bf16 and inference in f32, unless ``use_amp`` says
-    otherwise,
-    as in the JAX package. Runs on ``cuda`` unless ``device`` names the
-    CPU, and raises when no card is present. ``graphs`` (default: on for
-    ``cuda``) runs the step and ``eval_step`` as CUDA graphs; ``False``
-    runs them eagerly, to compare the two."""
+    otherwise, as in the JAX package. Runs on ``cuda`` unless ``device``
+    names the CPU, and raises when no card is present. ``graphs``
+    (default: on for ``cuda``) runs the step and ``eval_step`` as CUDA
+    graphs; ``False`` runs them eagerly, to compare the two."""
     model = (opt.get("model") or "sr").lower()
     if model not in ("sr", "srgan", "srragan", "ppon", "sftgan",
-                     "sftgan_acd", "pix2pix", "cyclegan") + VIDEO_MODELS:
+                     "sftgan_acd", "pix2pix", "cyclegan",
+                     "srflow") + VIDEO_MODELS:
         raise NotImplementedError(
             f"model [{model}] is not ported yet (ROADMAP Queue A 10.6, "
             "the rest of the zoo)")
@@ -1008,6 +1019,8 @@ def create_trainer(opt: dict, device: Union[str, torch.device, None] = None,
         from .cyclegan_trainer import CycleGANTrainer as cls
     elif model in VIDEO_MODELS:
         from .vsr_trainer import VSRTrainer as cls
+    elif model == "srflow":
+        from .srflow_trainer import SRFlowTrainer as cls
     else:
         cls = SRTrainer
     return cls(opt, dtype=dtype, device=device, graphs=graphs)

@@ -6,8 +6,13 @@ partial convs, ESRGAN+ ``conv1x1`` and a batch norm's ``batch_stats``, by
 ``g_to_jax`` / ``g_from_jax``; the nets that name their own tensors' flax
 paths (``flax_paths``: ``ResnetGenerator``, ``UnetGenerator``,
 ``SFTNet``, ``ACDVGGBN96``, the PatchGAN, multiscale and pixel
-discriminators, and the video nets ``SOFVSR`` (its RRDB tail in
-``RRDBNet``'s layout under ``SR``), ``SR3DNet``, ``EDVR`` and ``RIFE``)
+discriminators, the video nets ``SOFVSR`` (its RRDB tail in
+``RRDBNet``'s layout under ``SR``), ``SR3DNet``, ``EDVR`` and ``RIFE``,
+SRFlow's two nets (``SRFlowNet``: the encoder under ``RRDB``, the
+invertible convs' ``w``; ``SRFlowNetI``: the encoder under ``encoder``,
+``weight``, its modules in the reference ``.pth`` layout), ``ABPN``,
+``ASRResNet``, ``ASRCNN``, ``ADiscriminator`` and ``OutdoorSceneSeg``,
+their spectral norms' and batch norms' state in ``batch_stats``)
 by ``net_to_jax`` / ``net_from_jax``, EVSRGAN's Conv3D ``RRDBNet`` (DHWIO
 kernels) by ``g_to_jax`` / ``g_from_jax``, CycleGAN's two Gs
 by ``nets_to_jax`` / ``nets_from_jax`` and its whole state by
