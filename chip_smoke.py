@@ -253,14 +253,30 @@ non-zero exit code and no result line:
    step at cut depth (nb 2, K 2) on the card, the CPU and an f64 witness
    replaying each side's branches of the flow; two ``srflow_interop``
    steps (69 blocks) graphed against eager; the test CLI on
-   ``test_srflow.yml`` (4 heats x 3 samples on 2 images) with both nets,
+   ``test_srflow.yml`` (4 heats x 1 sample on 1 image) with both nets,
    23 or 69 block forwards per sample, the heat-0 sample card against
    CPU; then ABPN, ASRResNet, ASRCNN and the segmenter at their JAX
    defaults card against CPU, an ``sr`` step with each graphed against
    eager, and their forward Mpx/s.
+23. zoo rest (after phase 22): PBR at full width on the block kernels
+   (``train_sr.yml``'s G, nf 64, nb 23, gc 32, as ``model: pbr``: b 8,
+   crop 128, bf16, pixel L1 and VGG19 feature L1) on 16 seeded material
+   folders of four 256 px maps: the training CLI for 12 iterations (276
+   block forwards and 276 backwards per step: one G pass per map; 69
+   forwards per validation material) and a resume to 14; one block
+   forward and backward at P (b 8, 32 x 32, bf16) and the f32 G gradient
+   of a step against the plain versions; three steps graphed against
+   eager bit for bit; one f32 SGD step at cut depth against an f64
+   witness; the test CLI (69 forwards per material) and its output card
+   against CPU. DVD on ``train_deinterlace.yml`` and WBC on
+   ``train_wbc.yml`` (no kernel of the repo runs there): each CLI for 6
+   iterations and a resume to 8, three steps graphed against eager bit
+   for bit, an f64 witness, its G card against CPU (WBC's ``mode: tf``),
+   WBC's SLIC card against CPU and one ``sp_exact`` step, the test CLI
+   (DVD's ``{i}_bottom.png``); each G's forward Mpx/s.
 
 The launch traces of the serving slice, of phase 14's serving, of every
-training CLI and of phases 21 and 22 run their body again when the
+training CLI and of phases 21 to 23 run their body again when the
 profiler lost records (``_retried_trace``, at most three times; a count
 over the wanted one fails at once; ROADMAP C 24).
 
@@ -280,7 +296,7 @@ The second-to-last lines are a JSON summary of the kernels and the card's
 ``{"ok": true, "device": {...}}``.
 
 Usage: python3 chip_smoke.py [--parent DIR]
-       python3 chip_smoke.py --only 18,19,22   (any of phases 18-22 alone,
+       python3 chip_smoke.py --only 18,19,22   (any of phases 18-23 alone,
            after the build and the corpus; no result line)
        python3 chip_smoke.py --kernels-only [--parent DIR]   (phases 1-3
            and the kernels' part of 10: a short run while a kernel is
@@ -577,6 +593,18 @@ def _launch_trace(want: dict = None, fresh: bool = True, label: str = ""):
                        zip([-1] + cuts, cuts + [len(names)])]
     if want is not None:
         _check_launches(out, want, fresh, label)
+
+
+@contextlib.contextmanager
+def _no_block_launch(label: str):
+    """Fails unless the body, eager calls alone, launched no block kernel:
+    the wrappers count every eager launch (a profiler session for these
+    checks cost about 0.5 s each, in phase 23's time cut)."""
+    before = _counted()
+    yield
+    ran = {k: _counted()[k] - before[k] for k in ("rdb5c", "rdb5c_bwd")}
+    if any(ran.values()):
+        raise AssertionError(f"{label}: block kernels launched {ran}")
 
 
 TRACE_ATTEMPTS = 3
@@ -1774,7 +1802,8 @@ def phase_shuffle(smi: str, root: str) -> dict:
 
 
 def _cli_options(root: str, corpus: str, yml: str = None,
-                 name: str = "cli", edit=None, niter: int = CLI_NITER) -> str:
+                 name: str = "cli", edit=None, niter: int = CLI_NITER,
+                 val_root: str = None) -> str:
     """An options file of the repo (``options/sr/train_sr.yml`` unless
     ``yml``) as written, read by the port's reader, but for ``edit``
     (applied to the options dict), its data roots (the corpus; a
@@ -1782,8 +1811,9 @@ def _cli_options(root: str, corpus: str, yml: str = None,
     options' scale, written here), ``niter``, the frequencies and
     ``path.root`` (``root/name``; the other ``path`` keys as the file and
     ``edit`` left them). ``corpus`` may be another form of the corpus (its
-    LMDB); the validation set comes from the PNGs of ``root/corpus``.
-    Returns the path of the options file."""
+    LMDB); the validation set comes from the PNGs of ``root/corpus``, or
+    is ``val_root`` (its ``dataroot_HR``) where given. Returns the path of
+    the options file."""
     import numpy as np
 
     from trainner_tpu_torch.data.common import decode_image, save_img
@@ -1808,7 +1838,11 @@ def _cli_options(root: str, corpus: str, yml: str = None,
             save_img((lr * 255.0).round().astype(np.uint8),
                      os.path.join(val_lr, img))
     opt["datasets"]["train"]["dataroot_HR"] = corpus
-    opt["datasets"]["val"].update(dataroot_HR=val_hr, dataroot_LR=val_lr)
+    if val_root:
+        opt["datasets"]["val"]["dataroot_HR"] = val_root
+    else:
+        opt["datasets"]["val"].update(dataroot_HR=val_hr,
+                                      dataroot_LR=val_lr)
     opt["train"].update(niter=niter, val_freq=CLI_FREQ)
     opt["logger"].update(print_freq=2, save_checkpoint_freq=niter)
     opt["path"] = {**(opt.get("path") or {}),
@@ -1884,7 +1918,7 @@ def phase_cli(smi: str, root: str, yml: str = None, label: str = "cli",
               nets: tuple = ("G", "D"), edit=None, niter: int = CLI_NITER,
               resume: bool = True, g_launches=None, corpus: str = None,
               trainer_cls=None, val_launches: int = None,
-              save_breakdown: bool = False) -> dict:
+              save_breakdown: bool = False, val_root: str = None) -> dict:
     """The training CLI at the full width of an options file of the repo
     (``yml``; by default ``options/sr/train_sr.yml``: G nf 64, nb 23, gc
     32, D-VGG-128, batch 32, crop 128, bsrgan with the per-sample shuffle,
@@ -1904,8 +1938,9 @@ def phase_cli(smi: str, root: str, yml: str = None, label: str = "cli",
     the markers wrap (``SRTrainer``); ``val_launches`` the block launches
     of one validation forward (69); ``save_breakdown`` times a state
     file's save by its parts (``_save_breakdown``; the flagship's run
-    alone, the other CLIs' saves are timed whole). Returns the runs'
-    traces."""
+    alone, the other CLIs' saves are timed whole); ``val_root`` the
+    validation set's root (its ``N_VAL`` entries name the validation's
+    images). Returns the runs' traces."""
     import torch
 
     from trainner_tpu_torch.train import cli
@@ -1913,7 +1948,7 @@ def phase_cli(smi: str, root: str, yml: str = None, label: str = "cli",
     from trainner_tpu_torch.utils import checkpoint
 
     corpus = corpus or os.path.join(root, "corpus")
-    opt_path = _cli_options(root, corpus, yml, label, edit, niter)
+    opt_path = _cli_options(root, corpus, yml, label, edit, niter, val_root)
     per_g = NB * 3
     per_val = per_g if val_launches is None else val_launches
     cls = trainer_cls or SRTrainer
@@ -2028,7 +2063,7 @@ def phase_cli(smi: str, root: str, yml: str = None, label: str = "cli",
         f"training_state/{niter}.state{e}" for e in ("", ".json")} \
         | {"tb/scalars.jsonl"}
     names = [os.path.splitext(n)[0] for n in
-             sorted(os.listdir(os.path.join(root, "val_HR")))]
+             sorted(os.listdir(val_root or os.path.join(root, "val_HR")))]
     need |= {f"val_images/{n}/{n}_{t}.png" for n in names
              for t in (CLI_FREQ, niter)}
     if need - files:
@@ -2265,7 +2300,8 @@ def _bound_text(row: dict) -> str:
 
 def phase_times(smi: str, root: str, kernels_only: bool = False):
     """CUDA-event times of both block kernels at the main paths' shapes in
-    both types (at SRFlow's F in f32 alone), beside the plain version, the
+    both types (at SRFlow's F in f32 alone, at PBR's P in bf16 alone),
+    beside the plain version, the
     bound and the cuDNN five-conv chain (its forward, and autograd's
     backward through it), and the kernels' time on the device alone; then
     (unless ``kernels_only``) the G
@@ -2287,19 +2323,22 @@ def phase_times(smi: str, root: str, kernels_only: bool = False):
     gen = torch.Generator().manual_seed(2)
     # phase 14's serving shape draws from a generator of its own
     zoo_gen = torch.Generator().manual_seed(14)
-    # and SRFlow's encoder step (F, f32 alone) from one of its own
+    # and SRFlow's encoder step (F, f32 alone) from one of its own, PBR's
+    # step (P, bf16 alone) too
     srflow_gen = torch.Generator().manual_seed(22)
+    pbr_gen = torch.Generator().manual_seed(23)
     rows = {}
     both = (torch.float32, torch.bfloat16)
     for shape, dtypes in ((MAIN_SHAPE, both), (TRAIN_SHAPE, both),
                           (ZOO_SERVE_SHAPE, both),
-                          (SRFLOW_F, (torch.float32,))):
+                          (SRFLOW_F, (torch.float32,)),
+                          (PBR_P, (torch.bfloat16,))):
         b, h, w = shape
         npix = b * h * w
         for dt in dtypes:
             name = str(dt).replace("torch.", "")
-            g_draw = {ZOO_SERVE_SHAPE: zoo_gen,
-                      SRFLOW_F: srflow_gen}.get(shape, gen)
+            g_draw = {ZOO_SERVE_SHAPE: zoo_gen, SRFLOW_F: srflow_gen,
+                      PBR_P: pbr_gen}.get(shape, gen)
             blk = ResidualDenseBlock5C(NF, GC)
             ws, bs = _block_weights(g_draw)
             with torch.no_grad():
@@ -2345,8 +2384,8 @@ def phase_times(smi: str, root: str, kernels_only: bool = False):
 
             # the backward, from the forward's residuals; the yardstick is
             # autograd's backward through the cuDNN chain on a kept graph
-            g = torch.randn(b, h, w, NF, generator=srflow_gen
-                            if shape == SRFLOW_F else gen).cuda().to(dt)
+            g = torch.randn(b, h, w, NF, generator=g_draw if shape in (
+                SRFLOW_F, PBR_P) else gen).cuda().to(dt)
             with torch.no_grad():
                 _, *cs = rdb5c_forward(x, packed, biases,
                                        return_residuals=True)
@@ -2615,8 +2654,8 @@ def _kernel_rows(rows, serving, train, main_err, bwd_err,
 
     def at(kernel, dtype):
         shapes = (MAIN_SHAPE, TRAIN_SHAPE) + (
-            (ZOO_SERVE_SHAPE,) if kernel == "rdb5c_forward" else ()) + (
-            (SRFLOW_F,) if (kernel, SRFLOW_F, dtype) in rows else ())
+            (ZOO_SERVE_SHAPE,) if kernel == "rdb5c_forward" else ()) + tuple(
+            sh for sh in (SRFLOW_F, PBR_P) if (kernel, sh, dtype) in rows)
         return {f"b={sh[0]} {sh[1]}x{sh[2]}": {
             k: v for k, v in rows[kernel, sh, dtype].items()}
             for sh in shapes}
@@ -2712,9 +2751,9 @@ def _traced(fn, label: str, smi: str, untraced_ms: float = 0.0) -> None:
 
 def phase_trace(smi: str, root: str, step_ms: dict) -> None:
     """Where the time goes, from profiler traces: one f32 G forward at b=8,
-    128->512 px, and one train step at b=32, 32->128 px in bf16 and in f32
-    (``step_ms``: their times without the profiler by type name, from the
-    training phase)."""
+    128->512 px, and one train step at b=32, 32->128 px in bf16 (``step_ms``:
+    its time without the profiler by type name, from the training phase;
+    the f32 step's trace went in phase 23's time cut)."""
     import torch
 
     from trainner_tpu_torch.models import define_G
@@ -2734,7 +2773,7 @@ def phase_trace(smi: str, root: str, step_ms: dict) -> None:
     torch.cuda.empty_cache()
 
     batch = _train_batch()
-    for use_amp, name in ((True, "bfloat16"), (False, "float32")):
+    for use_amp, name in ((True, "bfloat16"),):
         trainer = create_trainer({**_train_options(), "use_amp": use_amp})
         state = trainer.init_state(0)
         trainer.train_step(state, batch)
@@ -2762,7 +2801,8 @@ X8_LR = (1, 72, 64, 3)      # x8 on the card against the CPU
 CHOP_LR = (1, 136, 128, 3)  # chop: two 128 x 128 tiles
 
 
-NET_STATES = ("g", "d", "d_a", "d_b")  # CycleGAN's state has two Ds
+# CycleGAN's state has two Ds, WBC's two (D_S and D_T)
+NET_STATES = ("g", "d", "d_a", "d_b", "d_s", "d_t")
 
 
 def _net_states(state) -> list:
@@ -2881,14 +2921,16 @@ def _kernel_calls(fn) -> tuple:
 
 def _graph_step(smi: str, options=None, types=(True, False),
                 label: str = "", noise: bool = True,
-                batch_fn=None) -> dict:
+                batch_fn=None, timed: bool = True) -> dict:
     """The step of ``options()`` (the flagship configuration by default) as
     a graph against the eager step, in bf16 and f32 (``types``: the values
     of ``use_amp``): three steps each from one seed on the same batches,
     within the step tolerances of ``_check_steps``; the recorded launches
     of one replay against a profiler trace of it; with ``noise``, fresh
-    latent noise per replay. Returns the graphs' capture seconds, pool
-    bytes and step times by type."""
+    latent noise per replay; with ``timed``, 10 steps each way in turns
+    and a traced replay (measurement alone: the flagship's; the other
+    cells' went in phase 23's time cut). Returns the graphs' capture
+    seconds, pool bytes and step times by type."""
     import torch
 
     from trainner_tpu_torch.ops.blocks import GaussianNoise
@@ -2946,6 +2988,11 @@ def _graph_step(smi: str, options=None, types=(True, False),
         if cap.launches != want or traced != want:
             raise AssertionError(f"graphs: {name} step launches "
                                  f"{cap.launches}, traced {traced}")
+        out[name] = dict(capture_s=cap.capture_s, pool=cap.pool_bytes)
+        if not timed:
+            del runs, trainer, state, cap, caps
+            torch.cuda.empty_cache()
+            continue
         # times: 10 steps each, in turns (eager, graphed)
         ms = {}
         for graphs in TURNS:
@@ -2966,8 +3013,7 @@ def _graph_step(smi: str, options=None, types=(True, False),
         tr, st = runs[True][:2]
         _traced(lambda: tr.train_step(st, batches[1]),
                 f"graphed train_step {name}", smi, min(ms[True]))
-        out[name] = dict(capture_s=cap.capture_s, pool=cap.pool_bytes,
-                         eager_ms=min(ms[False]), graphed_ms=min(ms[True]))
+        out[name].update(eager_ms=min(ms[False]), graphed_ms=min(ms[True]))
         del runs, trainer, state, cap, caps, tr, st
         torch.cuda.empty_cache()
     if not noise:
@@ -3237,7 +3283,8 @@ def _graph_degrader(smi: str, root: str, programs=None,
 def _graph_serving(smi: str) -> None:
     """``eval_step`` as a graph against the eager one at b = 8, 128 -> 512
     px (f32 within 1e-5 and bf16 within 3e-2 of the output's size, the
-    full-G tolerances; times in turns); then x8 on one 72 x 64 and chop on
+    full-G tolerances; its times in turns and trace went in phase 23's
+    time cut, measurement alone); then x8 on one 72 x 64 and chop on
     one 136 x 128 LR image in f32 on the card against the eager
     ``eval_step`` over the
     same rotations and tiles on the CPU with the same weights (the plain
@@ -3280,19 +3327,6 @@ def _graph_serving(smi: str) -> None:
         if not err <= rel_tol * scale or cap.launches["rdb5c"] != NB * 3 \
                 or cap.replays != 2:
             raise AssertionError(f"graphs: eval_step {name}")
-        ms = {}
-        for graphs in TURNS:
-            tr, st = pair[graphs]
-            ms.setdefault(graphs, []).append(
-                _time_ms(lambda: tr.eval_step(st, lr), iters=10, warmup=2))
-        print(f"times: G forward {name} b={b} {h}->{h * 4} px through "
-              f"eval_step (eager, graphed): eager "
-              f"{ms[False]} ms, graphed {ms[True]} ms; "
-              f"{b * h * w * 16 / min(ms[True]) / 1e3:.3f} Mpx/s graphed "
-              f"({smi})")
-        tr, st = pair[True]
-        _traced(lambda: tr.eval_step(st, lr),
-                f"graphed eval_step {name} b={b}", smi, min(ms[True]))
         del pair
         torch.cuda.empty_cache()
 
@@ -3877,7 +3911,7 @@ def phase_realesrgan(smi: str, root: str) -> dict:
         ("fixed order", False, RESRGAN_BLUR, _resrgan_e2e_options),),
         preset="resrgan")
     _graph_step(smi, _resrgan_options, types=(True,), label="resrgan ",
-                noise=False)
+                noise=False, timed=False)
     traces = phase_cli(smi, root, RESRGAN_YML, "cli_realesrgan",
                        RESRGAN_BLUR, ("G", "D", "emaG"))
     print(f"realesrgan: ok in {time.perf_counter() - t0:.1f} s ({smi})")
@@ -3892,7 +3926,7 @@ N_ZOO_IMAGES = 3  # serving runs of phase 14 (x8: 24 calls of one shape)
 # the CPU f32's largest distance to it in the same net (read: G 0.40, D
 # 0.78)
 SRRESNET_STEP_TOL = {"g": 3e-2, "d": 3e-1}
-SRRESNET_STEPS = 2
+SRRESNET_STEPS = 1  # 2 until phase 23's time cut
 SRRESNET_F64_TOL = 2.0
 ZOO_CPU_LR = (1, 32, 32, 3)  # card against CPU, full width
 
@@ -4087,7 +4121,7 @@ def _card_vs_cpu_forward(label: str, opt: dict, lr_shape, dtypes,
             out = net(lr)
             ref = joined(out)
             net = net.cuda()
-            with _launch_trace({"rdb5c": 0}, label=label):
+            with _no_block_launch(label):
                 got = joined(net(lr.cuda())).cpu()
         if isinstance(out, tuple):
             out = out[-1]
@@ -4154,7 +4188,8 @@ def _f64_trainer(opt: dict):
     trainer.dtype = torch.float64
     loc = state.loc.net if state.loc is not None else None
     for net in [ns.net for _, ns in _net_states(state)] + [
-            trainer.generator_loss, loc, state.swa]:
+            trainer.generator_loss, getattr(trainer, "loss_1ch", None), loc,
+            state.swa]:
         if net is None:
             continue
         net.double()
@@ -4490,7 +4525,8 @@ def _worst(readings: dict, prefix: str) -> tuple:
 
 def _zoo_srresnet_and_plus(smi: str) -> None:
     """Full-width ``sr_resnet`` (nf 64, nb 16, relu, pixel shuffle, 4x):
-    its forward card against CPU in f32 and bf16, and 3 steps with
+    its forward card against CPU in f32 and bf16, and ``SRRESNET_STEPS``
+    steps with
     ``train_sr.yml``'s D-VGG-128 (batch norms) in f32 (b=4, 32 -> 128 px,
     SGD at lr 1e-2, whose updates are linear in the gradients), each from
     the CPU's state on the card (graphed), the CPU and an f64 witness on
@@ -4579,7 +4615,7 @@ def phase_zoo(smi: str, root: str) -> dict:
     t0 = time.perf_counter()
     traces = _zoo_serving(smi, root)
     _graph_step(smi, _zoo_train_options, types=(True,), label="zoo x2 ",
-                noise=False, batch_fn=_zoo_batch)
+                noise=False, batch_fn=_zoo_batch, timed=False)
     cli_traces = phase_cli(smi, root, TRAIN_YML, "cli_zoo",
                            edit=_zoo_cli_edit)
     traces.update({f"zoo cli {k}": v for k, v in cli_traces.items()})
@@ -5320,7 +5356,7 @@ def phase_losses(smi: str, root: str) -> dict:
     t0 = time.perf_counter()
     vgg, squeeze = _write_loss_assets(os.path.join(root, "loss_assets"))
     _losses_card_vs_cpu(smi, vgg, squeeze)
-    _graph_step(smi, _loss_stack_options(vgg), types=(True,),
+    _graph_step(smi, _loss_stack_options(vgg), types=(True,), timed=False,
                 label="loss stack ", noise=False)
     runs = phase_cli(smi, root, TRAIN_YML, "cli_losses",
                      edit=_loss_stack_edit(vgg, squeeze))
@@ -5851,21 +5887,26 @@ def _producer_rates(smi: str, root: str, db: str) -> dict:
                                 seed=0, num_workers=ds_opt["n_workers"],
                                 pin_memory=True)
     per_g = NB * 3
-    came = [0, 0]
-    order = []
-    it = _batches_of(mixed)
-    try:
-        with _launch_trace({"rdb5c": per_g * MIXED_BATCHES,
-                            "rdb5c_bwd": per_g * MIXED_BATCHES,
-                            "blur": 2 * 2 * SHUFFLE_K * MIXED_BATCHES},
-                           fresh=False, label="weighted loader") as t:
+
+    def weighted():
+        came, order = [0, 0], []
+        it = _batches_of(mixed)
+        try:
             for _ in range(MIXED_BATCHES):
                 batch = next(it)
                 came[batch["dataset_index"]] += 1
                 order.append(batch["dataset_index"])
                 trainer.train_step(state, degrade(batch))
-    finally:
-        it.close()
+        finally:
+            it.close()
+        return came, order
+
+    # retried where the profiler lost records (C 24), as the CLIs' traces
+    t, (came, order) = _retried_trace(
+        weighted, {"rdb5c": per_g * MIXED_BATCHES,
+                   "rdb5c_bwd": per_g * MIXED_BATCHES,
+                   "blur": 2 * 2 * SHUFFLE_K * MIXED_BATCHES},
+        fresh=False, label="weighted loader")
     traces["weighted loader"] = t
     print(f"lmdb: WeightedMultiLoader over [folder, LMDB] with weights "
           f"{list(MIXED_WEIGHTS)}: {MIXED_BATCHES} batches through the "
@@ -6186,40 +6227,6 @@ def _ppon_f64(smi: str) -> None:
     torch.cuda.empty_cache()
 
 
-def _serve_rates(smi: str) -> None:
-    """PPON (nf 64, nb 24), PAN (nf 40, unf 24, nb 16, self-attention) and
-    A2N (its defaults) at b=8, 128 -> 512 px: Mpx/s of the forward in f32
-    (TF32 off) and bf16, CUDA events; no block kernel launched."""
-    import torch
-
-    from trainner_tpu_torch.models import define_G
-    from trainner_tpu_torch.options.defaults import get_network_G_config
-
-    b, h, w = MAIN_SHAPE
-    x = torch.rand(b, h, w, 3, device="cuda",
-                   generator=torch.Generator(device="cuda").manual_seed(3))
-    mpx = b * h * w * 16 / 1e6
-    for name, cfg in (("ppon", {"type": "ppon"}),
-                      ("pan", {"type": "pan_net", "self_attention": True}),
-                      ("a2n", {"type": "a2n_net"})):
-        g = get_network_G_config(cfg, 4)
-        row = []
-        for dt in (torch.float32, torch.bfloat16):
-            net = define_G({"network_G": g}, dtype=dt)
-            _gain_weights(net, seed=2)
-            net = net.cuda().eval()
-            with torch.inference_mode():
-                with _launch_trace({"rdb5c": 0}, label=f"serve {name}"):
-                    net(x)
-                ms = _time_ms(lambda: net(x), iters=SERVE_ITERS, warmup=1)
-            row.append(f"{str(dt)[6:]} {ms:.2f} ms, {mpx / ms * 1e3:.2f} "
-                       f"Mpx/s")
-            del net
-        print(f"times: {name} forward b={b} {h}->{4 * h} px: "
-              f"{'; '.join(row)} ({smi})")
-    torch.cuda.empty_cache()
-
-
 def _pan_cli_edit(opt: dict) -> None:
     """``train_sr.yml`` with ``network_G: pan_net`` at its defaults (nf 40,
     unf 24, nb 16), trained by the ``sr`` trainer."""
@@ -6235,7 +6242,8 @@ def phase_models(smi: str, root: str) -> dict:
     1; graphed against eager (``_ppon_graphed_vs_eager``); the f64 witness
     of one step per phase (``_ppon_f64``). PAN (with self-attention) and
     A2N card against CPU; PAN through the ``sr`` training CLI with a
-    resume; the three models' serving rates. Returns the CLI traces."""
+    resume (the three models' serving rates, measurement alone, went in
+    the time cut of phase 23's slice). Returns the CLI traces."""
     import torch
 
     from trainner_tpu_torch import test as test_cli
@@ -6299,13 +6307,12 @@ def phase_models(smi: str, root: str) -> dict:
                      {f"pan cli {k}": v for k, v in phase_cli(
                          smi, root, TRAIN_YML, "cli_pan",
                          edit=_pan_cli_edit, g_launches=lambda n: 0,
-                         val_launches=0).items()}),
-                 lambda: _serve_rates(smi)):
+                         val_launches=0).items()})):
         t1 = time.perf_counter()
         part()
         parts.append(f"{time.perf_counter() - t1:.1f}")
     print(f"models: ok in {time.perf_counter() - t0:.1f} s (forwards, PPON "
-          f"CLI and serving; graphs; f64; PAN CLI; rates: "
+          f"CLI and serving; graphs; f64; PAN CLI: "
           f"{', '.join(parts)} s) ({smi})")
     return traces
 
@@ -6746,55 +6753,6 @@ def _i2i_f64(smi: str, cell: str) -> None:
     torch.cuda.empty_cache()
 
 
-def _i2i_rates(smi: str) -> None:
-    """G forward throughput by CUDA events, f32 (TF32 off) and bf16:
-    SFTNet (nf 64, 16 blocks) at b=8, 128 -> 512 px with its seg maps;
-    the U-Net (8 levels, ngf 64, batch norm, dropout) and the ResNet G
-    (9 blocks, ngf 64, instance norm) at b=1, 256 px; each with its
-    FLOPs (``torch.utils.flop_counter``) and TFLOP/s."""
-    import torch
-    from torch.utils.flop_counter import FlopCounterMode
-
-    from trainner_tpu_torch.models.networks import define_G
-    from trainner_tpu_torch.models.sft import SFTNet
-    from trainner_tpu_torch.options.defaults import get_network_G_config
-
-    gen = torch.Generator(device="cuda").manual_seed(4)
-    b, h, w = MAIN_SHAPE
-    seg = torch.rand(b, 4 * h, 4 * w, 8, generator=gen, device="cuda")
-    cells = (("sftnet", lambda dt: SFTNet(dtype=dt),
-              (torch.rand(b, h, w, 3, generator=gen, device="cuda"),
-               seg / seg.sum(-1, keepdim=True)), b * 16 * h * w / 1e6),
-             ("unet_net", lambda dt: define_G({"network_G":
-                 get_network_G_config({"type": "unet_net",
-                                       "use_dropout": True}, 1)}, dt),
-              (torch.rand(1, 256, 256, 3, generator=gen, device="cuda"),),
-              256 * 256 / 1e6),
-             ("resnet_net", lambda dt: define_G({"network_G":
-                 get_network_G_config({"type": "resnet_net"}, 1)}, dt),
-              (torch.rand(1, 256, 256, 3, generator=gen, device="cuda"),),
-              256 * 256 / 1e6))
-    for name, make, args, mpx in cells:
-        row = []
-        for dt in (torch.float32, torch.bfloat16):
-            net = make(dt)
-            net.init_weights(torch.Generator().manual_seed(2))
-            net = net.cuda().eval()
-            with torch.inference_mode():
-                with FlopCounterMode(display=False) as fc:
-                    net(*args)
-                flops = fc.get_total_flops()
-                ms = _time_ms(lambda: net(*args), iters=SERVE_ITERS,
-                              warmup=1)
-            row.append(f"{str(dt)[6:]} {ms:.3f} ms, {mpx / ms * 1e3:.3f} "
-                       f"Mpx/s, {flops / ms / 1e9:.2f} TFLOP/s")
-            del net
-        print(f"times: {name} forward ({flops / 1e9:.1f} GFLOP; "
-              f"{'b=8 128->512 px' if name == 'sftnet' else 'b=1 256 px'})"
-              f": {'; '.join(row)} ({smi})")
-    torch.cuda.empty_cache()
-
-
 def _i2i_discriminators(smi: str) -> None:
     """The multiscale (3 PatchGANs, ndf 64, batch norm) and pixel (ndf 64)
     discriminators' forward and backward, f32, card against CPU on one
@@ -6871,8 +6829,9 @@ def phase_i2i(smi: str, root: str) -> dict:
     lsgan; pools of 50) on seeded data (``_i2i_data``). For each: the
     training CLI (12 and a resume to 14, the sample grids), the test CLI,
     graphed against eager bit for bit, the f64 witness at cut depth; then
-    the Gs' serving rates and the multiscale and pixel Ds card against
-    CPU. No kernel of the repo runs here. Returns the CLI traces."""
+    the multiscale and pixel Ds card against CPU (the Gs' serving rates,
+    measurement alone, went in the time cut of phase 23's slice). No
+    kernel of the repo runs here. Returns the CLI traces."""
     import torch
 
     t0 = time.perf_counter()
@@ -6887,12 +6846,12 @@ def phase_i2i(smi: str, root: str) -> dict:
         _i2i_graphed_vs_eager(smi, root, data, cell)
         _i2i_f64(smi, cell)
         parts.append(f"{time.perf_counter() - t1:.1f}")
-    for part in (lambda: _i2i_rates(smi), lambda: _i2i_discriminators(smi)):
+    for part in (lambda: _i2i_discriminators(smi),):
         t1 = time.perf_counter()
         part()
         parts.append(f"{time.perf_counter() - t1:.1f}")
     print(f"i2i: ok in {time.perf_counter() - t0:.1f} s (sftgan, pix2pix, "
-          f"cyclegan: CLI, serving, graphs, f64 each; rates; Ds: "
+          f"cyclegan: CLI, serving, graphs, f64 each; Ds: "
           f"{', '.join(parts)} s) ({smi})")
     return traces
 
@@ -7425,57 +7384,6 @@ def _vsr_nets_card_vs_cpu(smi: str) -> None:
         _card_vs_cpu_forward(kind, opt, shape, (torch.float32,), tag="vsr")
 
 
-def _vsr_rates(smi: str) -> None:
-    """Forward throughput by CUDA events, f32 (TF32 off) and bf16, of each
-    video net at its full width: SOF-VSR (the template) at b=1 on a clip
-    of 3 frames at 144 x 180 (the served clip), SR3D, EDVR and EVSRGAN on
-    5, 5 and 3 frames at 144 x 180, RIFE on a 576 x 720 pair; Mpx/s of
-    output."""
-    import torch
-
-    from trainner_tpu_torch.models.networks import define_G
-    from trainner_tpu_torch.options.defaults import get_network_G_config
-
-    gen = torch.Generator(device="cuda").manual_seed(6)
-    h, w = VSR_SERVE_HW[0] // 4, VSR_SERVE_HW[1] // 4
-    cells = (("sofvsr", {"type": "sofvsr_net", "channels": 320,
-                         "SR_net": "rrdb"}, (1, 3, h, w, 3)),
-             ("sr3d", {"type": "sr3d"}, (1, 5, h, w, 3)),
-             ("edvr", {"type": "edvr"}, (1, 5, h, w, 3)),
-             ("evsrgan", {"type": "evsrgan"}, (1, 3, h, w, 3)),
-             ("rife", {"type": "rife"}, (1, 4 * h, 4 * w, 6)))
-    for name, spec, shape in cells:
-        x = torch.rand(*shape, generator=gen, device="cuda")
-        mpx = 16 * h * w / 1e6
-        row = []
-        for dt in (torch.float32, torch.bfloat16):
-            net = define_G({"network_G": get_network_G_config(spec, 4)}, dt)
-            net.init_weights(torch.Generator().manual_seed(2))
-            net = net.cuda().eval()
-            with torch.inference_mode():
-                ms = _time_ms(lambda: net(x), iters=SERVE_ITERS, warmup=1)
-                y = net(x)
-                finite = bool((y[3] if isinstance(y, tuple) else y
-                               ).isfinite().all())
-                if name == "sofvsr":
-                    with _profiled() as prof:
-                        net(x)
-                    by = {}
-                    for _, dur, kname in _device_events(prof):
-                        k = _short_name(kname)[:48]
-                        by[k] = by.get(k, 0) + dur / 1e6
-                    top = sorted(by.items(), key=lambda kv: -kv[1])[:5]
-                    print(f"trace: sofvsr forward {str(dt)[6:]}, device ms "
-                          f"{sum(by.values()):.3f}, top kernels "
-                          f"{[(k, round(v, 3)) for k, v in top]} ({smi})")
-            row.append(f"{str(dt)[6:]} {ms:.3f} ms, {mpx / ms * 1e3:.3f} "
-                       f"Mpx/s (output finite: {finite})")
-            del net
-        print(f"times: {name} forward, random weights ({tuple(shape)} -> "
-              f"{4 * h} x {4 * w}): {'; '.join(row)} ({smi})")
-    torch.cuda.empty_cache()
-
-
 def phase_video(smi: str, root: str) -> dict:
     """Phase 21: the video models. SOF-VSR with its RRDB tail at the
     template's full width (``options/video/train_video.yml``: channels
@@ -7490,7 +7398,9 @@ def phase_video(smi: str, root: str) -> dict:
     an f64 witness, the test CLI on
     ``test_video.yml`` (f32 and bf16, plain and chop, 69 block launches
     per window or quadrant); then SR3D, EDVR, EVSRGAN and RIFE card
-    against CPU and every net's serving rate. Returns the traces."""
+    against CPU (their serving rates, measurement alone, were cut for
+    phase 23's time; PERF.md keeps the last ones read). Returns the
+    traces."""
     import torch
 
     t0 = time.perf_counter()
@@ -7503,13 +7413,12 @@ def phase_video(smi: str, root: str) -> dict:
                  lambda: _vsr_graphed_vs_eager(smi, root, data),
                  lambda: _vsr_f64(smi, root, data),
                  lambda: traces.update(_vsr_serve(smi, root, data)),
-                 lambda: _vsr_nets_card_vs_cpu(smi),
-                 lambda: _vsr_rates(smi)):
+                 lambda: _vsr_nets_card_vs_cpu(smi)):
         t1 = time.perf_counter()
         part()
         parts.append(f"{time.perf_counter() - t1:.1f}")
     print(f"vsr: ok in {time.perf_counter() - t0:.1f} s (data, CLI, kernels "
-          f"vs plain, graphs, f64, serving, nets card vs CPU, rates: "
+          f"vs plain, graphs, f64, serving, nets card vs CPU: "
           f"{', '.join(parts)} s) "
           f"({smi})")
     return traces
@@ -7531,7 +7440,9 @@ SRFLOW_GRAPH_STEPS = 4   # graphed against eager, the unfreeze at 2
 # 32) and nb 2, K 2, L 3, hidden 64; b=2, 16 -> 64 px; unfrozen; SGD
 SRFLOW_F64_G = {"nb": 2, "K": 2}
 SRFLOW_F64_SHAPE = (2, 16, 16)
-SRFLOW_SERVE_PX = 160    # the served images (HR; LR 40 x 40), 2 of them
+SRFLOW_SERVE_PX = 160    # the served images (HR; LR 40 x 40)
+SRFLOW_SERVE_N = 1       # of them (2 until phase 23's time cut)
+SRFLOW_SERVE_SAMPLES = 1  # draws per heat (the template's 3, until then)
 SRFLOW_SERVE_SHAPE = (1, SRFLOW_SERVE_PX // 4, SRFLOW_SERVE_PX // 4)
 # a served heat-0 sample's distance from the f64 witness, as a multiple of
 # the CPU f32's: the card (cuDNN's f32 flow, the 3xTF32 encoder) read
@@ -7797,8 +7708,8 @@ def _srflow_f64(smi: str) -> None:
 
 
 def _srflow_serve_data(root: str) -> dict:
-    """Two corpus images cropped to ``SRFLOW_SERVE_PX`` and their bicubic
-    LR (40 x 40)."""
+    """``SRFLOW_SERVE_N`` corpus images cropped to ``SRFLOW_SERVE_PX`` and
+    their bicubic LR (40 x 40)."""
     import numpy as np
 
     from trainner_tpu_torch.data.common import decode_image, save_img
@@ -7807,7 +7718,7 @@ def _srflow_serve_data(root: str) -> dict:
     out = {k: os.path.join(root, "srflow_serve", k) for k in ("HR", "LR")}
     for d in out.values():
         os.makedirs(d, exist_ok=True)
-    pngs = sorted(os.listdir(os.path.join(root, "corpus")))[:2]
+    pngs = sorted(os.listdir(os.path.join(root, "corpus")))[:SRFLOW_SERVE_N]
     p = SRFLOW_SERVE_PX
     for img in pngs:
         hr = decode_image(os.path.join(root, "corpus", img))[:p, :p]
@@ -7820,9 +7731,10 @@ def _srflow_serve_data(root: str) -> dict:
 
 def _srflow_serve(smi: str, root: str) -> dict:
     """The test CLI on ``test_srflow.yml`` (heats 0, 0.5, 0.75, 1.0 x
-    ``n_sample`` 3, the first heat's first sample also saved under the
-    image's name and scored) on 2 images, with the training CLI's G
-    (srflow_net) and the interop net's graphed steps' G, each under a
+    ``SRFLOW_SERVE_SAMPLES`` draws, the first heat's first sample also
+    saved under the image's name and scored) on ``SRFLOW_SERVE_N``
+    images, with the training CLI's G (srflow_net) and the interop net's
+    graphed steps' G, each under a
     launch trace: 23 or 69 block forwards per sample. The heat-0 sample
     of each (``eval_step``) on the card, on the card with the encoder on
     the plain versions (``_plain_blocks``) and on the CPU (f32), against
@@ -7847,6 +7759,8 @@ def _srflow_serve(smi: str, root: str) -> dict:
     for name, per in (("srflow_net", SRFLOW_PER),
                       ("interop", SRFLOW_I_PER)):
         opt = read_options_yml(SRFLOW_TEST_YML)
+        # every draw at one heat is the same image (C 26): one a heat
+        opt["val"]["n_sample"] = SRFLOW_SERVE_SAMPLES
         heats, n_sample = opt["val"]["heats"], opt["val"]["n_sample"]
         opt["name"] = f"serve_srflow_{name}"
         opt["datasets"]["test_1"].update(dataroot_HR=data["HR"],
@@ -7857,7 +7771,7 @@ def _srflow_serve(smi: str, root: str) -> dict:
         path = os.path.join(root, opt["name"] + ".json")
         with open(path, "w") as f:
             json.dump(opt, f)
-        passes = 2 * len(heats) * n_sample
+        passes = SRFLOW_SERVE_N * len(heats) * n_sample
         t0 = time.perf_counter()
         t, averages = _retried_trace(lambda: test_cli.main(["-opt", path]),
                                      {"rdb5c": per * passes},
@@ -7891,9 +7805,10 @@ def _srflow_serve(smi: str, root: str) -> dict:
         del net64
         r = _witness_reading(outs, exact)
         px = passes * SRFLOW_SERVE_PX ** 2
-        print(f"srflow: {opt['name']}: 2 images of 40 x 40 -> 160 x 160, "
-              f"heats {heats} x {n_sample} samples (the first scored), in "
-              f"{wall:.2f} s ({wall / 2:.3f} s per image, "
+        print(f"srflow: {opt['name']}: {SRFLOW_SERVE_N} image(s) of 40 x 40 "
+              f"-> 160 x 160, heats {heats} x {n_sample} samples (the first "
+              f"scored), in {wall:.2f} s ({wall / SRFLOW_SERVE_N:.3f} s per "
+              f"image, "
               f"{px / wall / 1e6:.4f} Mpx/s of samples with the CLI's host "
               f"work; traced), "
               f"the card ran {t['ran']['rdb5c']} block forwards ({per} per "
@@ -7907,8 +7822,8 @@ def _srflow_serve(smi: str, root: str) -> dict:
               f"{r['plain']:.3e} ({r['plain'] / r['cpu']:.2f}x), CPU f32 "
               f"{r['cpu']:.3e}, tol {r['tol']:.3e} (the larger of "
               f"{SRFLOW_SERVE_TOL} x the CPU's and 1e-5 of the size)")
-        if len(pngs) != 2 * (len(heats) * n_sample + 1) or not all(
-                math.isfinite(v) for v in vals.values()) or \
+        if len(pngs) != SRFLOW_SERVE_N * (len(heats) * n_sample + 1) or \
+                not all(math.isfinite(v) for v in vals.values()) or \
                 not max(r["card"], r["plain"]) <= r["tol"]:
             raise AssertionError(f"srflow serving {name}: {len(pngs)} PNGs, "
                                  f"{vals}, {r}")
@@ -7918,7 +7833,7 @@ def _srflow_serve(smi: str, root: str) -> dict:
 
 
 def _f64_net(net):
-    """A CPU copy of an SRFlow net in f64 (its modules' ``dtype`` too), for
+    """A CPU copy of a net in f64 (its modules' ``dtype`` too), for
     ``_in_f64``."""
     import copy
 
@@ -8008,7 +7923,7 @@ def _zoo_a(smi: str) -> None:
         with torch.inference_mode():
             ref = net(x)
             net = net.cuda()
-            with _launch_trace({"rdb5c": 0}, label=name):
+            with _no_block_launch(name):
                 got = net(x.cuda()).cpu()
         size = float(ref.abs().max())
         err = float((got - ref).abs().max())
@@ -8094,6 +8009,823 @@ def phase_srflow(smi: str, root: str) -> dict:
     return traces
 
 
+# ---------------------------------------------------------------------------
+# phase 23: PBR on the block kernels, DVD and WBC (the rest of the zoo)
+# ---------------------------------------------------------------------------
+
+DVD_TRAIN_YML = os.path.join(VIDEO_DIR, "train_deinterlace.yml")
+DVD_TEST_YML = os.path.join(VIDEO_DIR, "test_deinterlace.yml")
+WBC_TRAIN_YML = os.path.join(I2I_DIR, "train_wbc.yml")
+PBR_MAPS = ("diffuse", "normal", "roughness", "height")
+PBR_3CH = ("diffuse", "normal")
+PBR_N = 16               # seeded material folders for training
+PBR_PX = 256             # their maps (and the N_VAL validation ones)
+PBR_P = (8, 32, 32)      # the blocks of a PBR step: b 8, LR 32 x 32 (P)
+PBR_PER_PASS = NB * 3    # block launches per G pass
+PBR_PER_STEP = PBR_PER_PASS * len(PBR_MAPS)  # one G pass per map: 276
+PBR_SERVE_CROP = 128     # the served materials' crop (LR 32 x 32)
+# the served f32 output on the kernels, from an f64 witness, as a share of
+# its size: the 3xTF32 blocks' rounding through 69 trained blocks
+PBR_SERVE_TOL = 5e-5
+DVD_FRAMES = 33          # the DVD set: 32 pairs of consecutive frames
+ZOO_REST_NITER, ZOO_REST_RESUME = 6, 8  # the DVD and WBC CLIs
+ZOO_REST_GRAPH_STEPS = 3
+# the f64 witnesses' cuts: PBR's G at nb 2 (of 23), b 2, 8 -> 32 px; DVD
+# at nf 64, b 2, 32 px; WBC at nf 32 (D ndf 32), b 2, 64 px
+PBR_F64_NB, ZOO_F64_B = 2, 2
+WBC_SP_EXACT_PX = 32     # the sp_exact step: b 2 at 32 px
+
+
+def _zoo_rest_data(root: str) -> dict:
+    """The phase's data from seeds: ``PBR_N`` material folders for
+    training and ``N_VAL`` for validation and serving, each with the four
+    maps of ``PBR_MAPS`` as ``PBR_PX``² PNGs (one 1/f field of
+    ``_write_corpus`` a map; a one-channel map reads the first channel);
+    DVD's frames, the first ``DVD_FRAMES`` corpus images, and the 3 it
+    serves; WBC's B, a second corpus (seed 4; A is the corpus)."""
+    import shutil
+
+    base = os.path.join(root, "zoo_rest")
+    out = {k: os.path.join(base, k) for k in ("pbr_train", "pbr_val",
+                                              "fields", "dvd", "dvd_serve",
+                                              "wbc_b", "wbc_serve")}
+    for d in out.values():
+        os.makedirs(d, exist_ok=True)
+    n_mat = PBR_N + N_VAL
+    _write_corpus(out["fields"], n=n_mat * len(PBR_MAPS), px=PBR_PX, seed=3)
+    fields = sorted(os.listdir(out["fields"]))
+    for i in range(n_mat):
+        mat = os.path.join(out["pbr_train"] if i < PBR_N else
+                           out["pbr_val"], f"mat{i:02d}")
+        os.makedirs(mat)
+        for j, m in enumerate(PBR_MAPS):
+            shutil.move(os.path.join(out["fields"],
+                                     fields[i * len(PBR_MAPS) + j]),
+                        os.path.join(mat, f"mat{i:02d}_{m}.png"))
+    corpus = os.path.join(root, "corpus")
+    names = sorted(os.listdir(corpus))
+    for i, name in enumerate(names[:DVD_FRAMES]):
+        shutil.copy(os.path.join(corpus, name), out["dvd"])
+        if i < 3:
+            shutil.copy(os.path.join(corpus, name), out["dvd_serve"])
+        if i < N_VAL:
+            shutil.copy(os.path.join(corpus, name), out["wbc_serve"])
+    _write_corpus(out["wbc_b"], n=I2I_N, seed=4)
+    out["wbc_a"] = corpus
+    return out
+
+
+def _pbr_edit(opt: dict) -> None:
+    """``train_sr.yml`` as a PBR run: ``model: pbr``, its G (``rrdb_net``
+    nf 64, nb 23, gc 32) and losses (pixel L1 1e-2, VGG19 feature L1; its
+    GAN keys, which the PBR trainer does not read), bf16; the material
+    set (b 8, crop 128: LR 32) for training and validation."""
+    opt["model"] = "pbr"
+    opt.pop("network_D", None)
+    opt["datasets"]["train"] = {"name": "materials", "mode": "pbr",
+                                "crop_size": 128, "batch_size": 8,
+                                "n_workers": 4, "use_shuffle": True}
+    opt["datasets"]["val"] = {"name": "materials_val", "mode": "pbr",
+                              "crop_size": 128}
+
+
+def _pbr_options(noise: bool = True, **train) -> dict:
+    """The PBR cell's options (``_pbr_edit``), parsed, with the latent
+    noise on or off and ``train`` over the template's keys."""
+    from trainner_tpu_torch.options.config import parse_dict
+
+    opt = read_options_yml(TRAIN_YML)
+    _pbr_edit(opt)
+    opt["network_G"]["gaussian_noise"] = noise
+    opt["train"].update(train)
+    opt["path"] = {"root": "/nonexistent"}
+    return dict(parse_dict(opt, is_train=True))
+
+
+def _pbr_batch(seed: int, b: int = PBR_P[0], lr_px: int = PBR_P[1],
+               device: str = "cuda") -> dict:
+    """A material batch from a seed: each map a smooth field (its HR at 4x
+    the LR, the LR its 4 x 4 box means), two of three channels and two of
+    one."""
+    import torch
+
+    gen = torch.Generator().manual_seed(seed)
+    hr_px = lr_px * 4
+    out = {}
+    for m in PBR_MAPS:
+        nc = 3 if m in PBR_3CH else 1
+        base = torch.rand(b, nc, hr_px // 8 + 2, hr_px // 8 + 2,
+                          generator=gen)
+        hr = torch.nn.functional.interpolate(
+            base, size=(hr_px, hr_px), mode="bicubic", align_corners=False)
+        hr = (hr + 0.05 * torch.rand(hr.shape, generator=gen)).clamp(0, 1)
+        hr = hr.permute(0, 2, 3, 1).contiguous()
+        lr = hr.reshape(b, lr_px, 4, lr_px, 4, nc).mean((2, 4))
+        out[f"HR_{m}"], out[f"LR_{m}"] = hr.to(device), lr.to(device)
+    out["LR"], out["HR"] = out["LR_diffuse"], out["HR_diffuse"]
+    return out
+
+
+def _pbr_cli(smi: str, root: str, data: dict) -> dict:
+    """The training CLI on the PBR cell through ``phase_cli``: 12
+    iterations, each step 4 G passes (276 block forwards and 276
+    backwards), 69 forwards per validation material, no blur; a resume to
+    14 from the saved state, bit for bit."""
+    from trainner_tpu_torch.train.pbr_trainer import PBRTrainer
+
+    return {f"pbr cli {k}": v for k, v in phase_cli(
+        smi, root, TRAIN_YML, "cli_pbr", per_batch=0, nets=("G",),
+        edit=_pbr_edit, corpus=data["pbr_train"], trainer_cls=PBRTrainer,
+        val_launches=PBR_PER_PASS, g_launches=lambda n: PBR_PER_STEP,
+        val_root=data["pbr_val"]).items()}
+
+
+def _pbr_kernels_vs_plain(smi: str) -> None:
+    """The block kernels against their plain versions at P, TF32 off: one
+    block forward and backward in bf16 (``_compare_block``, the kernel
+    phase's tolerances); the f32 G gradient of one PBR step (b 8, 32 ->
+    128 px, the four maps, latent noise off) on the kernels against the
+    same step on the plain versions, each tensor within 3e-3 of its own
+    largest gradient, as phase 12's; 276 backward launches on the
+    kernels, none on the plain versions. Eager calls."""
+    import torch
+
+    from trainner_tpu_torch.train.sr_trainer import create_trainer
+
+    gen = torch.Generator().manual_seed(23)
+    ws, bs = _block_weights(gen)
+    bs = [b.cuda() for b in bs]
+    x = (torch.randn(*PBR_P, NF, generator=gen) * 0.5).cuda()
+    g_out = torch.randn(*PBR_P, NF, generator=gen).cuda()
+    _compare_block(PBR_P, torch.bfloat16, x, g_out, ws, bs, "pbr: ")
+
+    trainer = create_trainer({**_pbr_options(noise=False), "use_amp": False},
+                             graphs=False)
+    state = trainer.init_state(2)
+    _gain_weights(state.g.net, seed=3)
+    batch = _pbr_batch(90)
+    keys = tuple(trainer.map_keys(batch))
+
+    def grads():
+        # an update at learning rate 0: the gradients stay on .grad
+        trainer._pbr_step(state, batch, 0.0, 0.0, map_keys=keys)
+        torch.cuda.synchronize()
+        return {k: p.grad.clone() for k, p in
+                state.g.net.named_parameters() if p.grad is not None}
+
+    before = _counted()["rdb5c_bwd"]
+    got = grads()
+    ran = _counted()["rdb5c_bwd"] - before
+    with _plain_blocks():
+        ref = grads()
+    worst, worst_name, top = 0.0, "", 0.0
+    for k, r in ref.items():
+        scale = float(r.abs().max())
+        top = max(top, scale)
+        ratio = float((got[k] - r).abs().max()) / max(scale, 1e-30)
+        if ratio > worst:
+            worst, worst_name = ratio, k
+    print(f"pbr: full G f32 gradient of one PBR step (b=8, 32 -> 128 px, "
+          f"maps {keys}), kernels vs plain: worst relative error "
+          f"{worst:.3e} ({worst_name}), tol 3.000e-03, largest gradient "
+          f"{top:.3e} over {len(ref)} tensors; backward block launches "
+          f"{ran} on the kernels, {_counted()['rdb5c_bwd'] - before - ran} "
+          f"on the plain versions ({smi})")
+    if not (worst <= 3e-3 and top > 0 and math.isfinite(top)) or \
+            set(got) != set(ref) or ran != PBR_PER_STEP or \
+            _counted()["rdb5c_bwd"] - before != ran:
+        raise AssertionError(f"pbr G gradient: {worst} at {worst_name}, "
+                             f"{ran} launches")
+    del trainer, state
+    torch.cuda.empty_cache()
+
+
+def _steps_report(label: str, unequal, ms, graphs: dict, want: int,
+                  smi: str) -> None:
+    """Prints a graphed-against-eager run (``_graphed_vs_eager``) and its
+    step times; raises where a tensor or log differs or the graphs are
+    not ``want``."""
+    rep = sorted(ms["graphed"][1:])[len(ms["graphed"][1:]) // 2]
+    eag = sorted(ms["eager"][1:])[len(ms["eager"][1:]) // 2]
+    print(f"zoo rest: {label}: {len(ms['graphed'])} steps graphed "
+          f"({len(graphs)} programs, launches recorded "
+          f"{[c.launches for c in graphs.values()]}) against eager: "
+          f"{len(unequal)} tensors or logs differ")
+    print(f"times: {label} train_step, ms per step (first: eager + "
+          f"capture; then replays), graphed "
+          f"{[round(v, 3) for v in ms['graphed']]}, eager "
+          f"{[round(v, 3) for v in ms['eager']]}; median after the first "
+          f"graphed {rep:.3f}, eager {eag:.3f} ({smi})")
+    if unequal or len(graphs) != want:
+        raise AssertionError(f"{label} graphs: {unequal[:6]}, "
+                             f"{list(graphs)}")
+
+
+def _pbr_graphed_vs_eager(smi: str) -> None:
+    """The PBR cell's step at full width (bf16, b 8, 32 -> 128 px, the
+    latent noise on): graphed against eager from one state, bit for bit
+    under deterministic cuDNN, ``ZOO_REST_GRAPH_STEPS`` steps; the graph
+    records 276 block forwards and 276 backwards."""
+    import torch
+
+    unequal, ms, trainers, states = _graphed_vs_eager(
+        _pbr_options(), [_pbr_batch(70 + i)
+                         for i in range(ZOO_REST_GRAPH_STEPS)])
+    graphs = trainers["graphed"].step_graphs()
+    _steps_report("pbr bf16 b=8 32 -> 128 px, 4 maps", unequal, ms, graphs,
+                  1, smi)
+    cap = next(iter(graphs.values()))
+    if (cap.launches["rdb5c"], cap.launches["rdb5c_bwd"]) != (
+            PBR_PER_STEP, PBR_PER_STEP):
+        raise AssertionError(f"pbr graph launches {cap.launches}")
+    del trainers, states
+    torch.cuda.empty_cache()
+
+
+def _witness_report(label: str, r: dict, smi: str) -> None:
+    """``_steps_card_cpu_f64``'s reading by net, held as ``_i2i_f64``
+    holds it: each tensor of the card no further from its witness than
+    ``I2I_F64_TOL`` times the CPU f32's largest distance in the same net,
+    or ``I2I_F64_FLOOR`` of its move, or ``I2I_F64_ABS`` outright; logs
+    within 1e-4 relative, card against CPU."""
+    bad = []
+    for net in sorted({k.split(".")[0] for k in r["card_f64"]}):
+        cc, f64, cpu = (_worst(r[key], net + ".") for key in
+                        ("card_cpu", "card_f64", "cpu_f64"))
+        tol = max(I2I_F64_TOL * cpu[0], I2I_F64_FLOOR)
+        print(f"zoo rest: {label}, {net}'s tensors as a share of their "
+              f"move: card vs CPU up to {cc[0]:.3e} ({cc[1]}); against each "
+              f"side's f64 witness: card {f64[0]:.3e} ({f64[1]}, "
+              f"{r['abs_card'].get(f64[1], 0):.2e} absolute; tol "
+              f"{tol:.3e}), CPU f32 {cpu[0]:.3e} ({cpu[1]}) ({smi})")
+        bad += [(k, v, tol, r["abs_card"].get(k))
+                for k, v in r["card_f64"].items()
+                if k.startswith(net + ".") and not v <= tol
+                and not r["abs_card"].get(k, 1.0) <= I2I_F64_ABS]
+    print(f"zoo rest: {label}, logs card vs CPU within {r['logs']:.3e} "
+          f"relative (tol 1e-4); branches that differ, card against CPU, "
+          f"{r['flips']} of {r['records']} records")
+    if bad or not r["logs"] <= 1e-4:
+        raise AssertionError(f"{label} f64: {bad[:6]}, logs {r['logs']}")
+
+
+def _pbr_f64(smi: str) -> None:
+    """One f32 SGD step of the cut PBR cell (nb ``PBR_F64_NB``, nf 64, gc
+    32; b 2, 8 -> 32 px; the latent noise off, C 9) on the card
+    (graphed), the CPU and an f64 witness of each side that replays that
+    side's branches of both loss stacks (the blocks' LeakyReLUs run in the
+    kernels on the card): ``_witness_report``."""
+    import torch
+
+    opt = _pbr_options(noise=False, optim_G="sgd", lr_G=1e-2)
+    opt["network_G"]["nb"] = PBR_F64_NB
+    r = _steps_card_cpu_f64(
+        "pbr", opt, [_pbr_batch(80, ZOO_F64_B, 8, "cpu")], graphs=1,
+        branches=lambda st, tr: [tr.loss_3ch, tr.loss_1ch], lr=1e-2)
+    _witness_report(f"pbr one f32 SGD step (cut: nb {PBR_F64_NB}, b "
+                    f"{ZOO_F64_B})", r, smi)
+    torch.cuda.empty_cache()
+
+
+def _pbr_serve(smi: str, root: str, data: dict) -> dict:
+    """The test CLI on the validation materials (a ``pbr`` set, crop
+    ``PBR_SERVE_CROP``) with the CLI's G of ``CLI_RESUME_NITER``: 69 block
+    forwards per material at b=1 from the trace, PSNR on the primary map;
+    G's f32 output on the first material's LR on the card (the kernels),
+    on the card with the plain blocks and on the CPU, against an f64
+    witness of the CPU's net: the plain blocks' card output within 1e-5
+    of the output's size, the kernels' within ``PBR_SERVE_TOL`` of it (the
+    3xTF32 blocks' rounding through 69 blocks of a trained G: 2.8e-5 of
+    the size where the plain path lies 1.5e-6 from the witness, as
+    SRFlow's encoder read 2.5e-5, PERF.md §6)."""
+    import torch
+
+    from trainner_tpu_torch import test as test_cli
+    from trainner_tpu_torch.data import create_dataset
+    from trainner_tpu_torch.options.config import parse_dict
+    from trainner_tpu_torch.train.sr_trainer import create_trainer
+
+    with open(os.path.join(root, "cli_pbr_options.json")) as f:
+        cli_opt = json.load(f)
+    g_file = os.path.join(root, "cli_pbr", "experiments", cli_opt["name"],
+                          "models", f"{CLI_RESUME_NITER}_G.ckpt")
+    ds = {"name": "materials", "mode": "pbr", "dataroot_HR": data["pbr_val"],
+          "crop_size": PBR_SERVE_CROP}
+    opt = {"name": "serve_pbr", "model": "pbr", "scale": 4,
+           "datasets": {"test_1": ds}, "network_G": cli_opt["network_G"],
+           "path": {"root": os.path.join(root, "serve_pbr"),
+                    "pretrain_model_G": g_file}}
+    path = os.path.join(root, "serve_pbr.json")
+    with open(path, "w") as f:
+        json.dump(opt, f)
+    t0 = time.perf_counter()
+    t, averages = _retried_trace(
+        lambda: test_cli.main(["-opt", path]),
+        {"rdb5c": PBR_PER_PASS * N_VAL, "rdb5c_bwd": 0, "blur": 0},
+        label="serve pbr")
+    wall = time.perf_counter() - t0
+    psnr = [m["average"] for m in averages["materials"]
+            if m["name"] == "psnr"]
+    parsed = dict(parse_dict(opt, is_train=False))
+    lr = torch.from_numpy(create_dataset(
+        {**ds, "phase": "test", "scale": 4})[0]["LR"][None])
+    outs = {}
+    for side, dev in (("cuda", "cuda"), ("plain", "cuda"), ("cpu", "cpu")):
+        tr = create_trainer(parsed, device=dev, graphs=False)
+        st = tr.init_state(0, g_file)
+        with _plain_blocks() if side == "plain" else \
+                contextlib.nullcontext():
+            outs[side] = tr.eval_step(st, lr).cpu()
+    net64 = _f64_net(st.g.net)
+    with _in_f64() as f32_ops, torch.inference_mode():
+        exact = net64(lr.double())
+    if f32_ops:
+        raise AssertionError(f"pbr witness f32 ops {set(f32_ops)}")
+    r = _witness_reading(outs, exact)
+    print(f"zoo rest: pbr served by the test CLI from {CLI_RESUME_NITER}_"
+          f"G.ckpt: {N_VAL} materials at b=1 (LR {PBR_SERVE_CROP // 4} px) "
+          f"in {wall:.2f} s (set-up included; traced, the card ran "
+          f"{t['ran']}); PSNR {psnr}; G's f32 output, max|ref| "
+          f"{r['size']:.3e}: card vs CPU {r['card_cpu']:.3e} "
+          f"({r['card_cpu'] / r['size']:.3e} of it); against the f64 "
+          f"witness card {r['card']:.3e} ({r['card'] / r['cpu']:.2f}x the "
+          f"CPU's), card with the plain blocks {r['plain']:.3e} "
+          f"({r['plain'] / r['cpu']:.2f}x), CPU f32 {r['cpu']:.3e} "
+          f"({smi})")
+    print(f"zoo rest: pbr serving tolerances: plain blocks 1e-5 of the "
+          f"size ({r['plain'] / r['size']:.3e} read), kernels "
+          f"{PBR_SERVE_TOL:.0e} ({r['card'] / r['size']:.3e} read)")
+    if not (psnr and math.isfinite(psnr[0])) or \
+            not r["plain"] <= 1e-5 * r["size"] or \
+            not r["card"] <= PBR_SERVE_TOL * r["size"]:
+        raise AssertionError(f"pbr serving: {psnr}, {r}")
+    torch.cuda.empty_cache()
+    return {"serve pbr": t}
+
+
+def _zoo_rest_cli(smi: str, root: str, label: str, opt: dict, files: tuple,
+                  cls) -> dict:
+    """The training CLI on ``opt`` at full width for ``ZOO_REST_NITER``
+    iterations under a launch trace (no kernel of the repo may run),
+    checkpoints (``files`` and ``.state``) at the end; then a resume to
+    ``ZOO_REST_RESUME`` whose loaded state equals the saved one bit for
+    bit, traced too. Prints the steady it/s (steps 3 on, the saves taken
+    out) and returns both traces."""
+    import torch
+
+    from trainner_tpu_torch.train import cli
+    from trainner_tpu_torch.utils import checkpoint
+
+    opt["train"]["niter"] = ZOO_REST_NITER
+    opt["logger"] = {"print_freq": 2, "save_checkpoint_freq": ZOO_REST_NITER}
+    opt["path"] = {**(opt.get("path") or {}),
+                   "root": os.path.join(root, f"cli_{label}")}
+    path = os.path.join(root, f"{label}_cli.json")
+    with open(path, "w") as f:
+        json.dump(opt, f)
+    exp = os.path.join(opt["path"]["root"], "experiments", opt["name"])
+    rec = {"steps": [], "other": []}
+    orig = (cls.train_step, checkpoint.save_checkpoint,
+            checkpoint.load_state)
+
+    def train_step(self, state, batch):
+        out = orig[0](self, state, batch)
+        rec["steps"].append(time.perf_counter())
+        return out
+
+    def save(*args, **kwargs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        orig[1](*args, **kwargs)
+        rec["other"].append((t0, time.perf_counter() - t0))
+
+    def load_state(p, state):
+        state, meta = orig[2](p, state)
+        rec["loaded"] = (meta, _cell_tensors(state))
+        return state, meta
+
+    def main():
+        rec["steps"].clear()
+        rec["other"].clear()
+        return cli.main(["-opt", path])
+
+    cls.train_step = train_step
+    checkpoint.save_checkpoint = save
+    checkpoint.load_state = load_state
+    try:
+        t0 = time.perf_counter()
+        trace, state = _retried_trace(main, {}, label=f"{label} cli")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        steps, other = list(rec["steps"]), list(rec["other"])
+        saved = _cell_tensors(state)
+        del state
+        torch.cuda.empty_cache()
+        opt["train"]["niter"] = ZOO_REST_RESUME
+        opt["path"]["resume_state"] = _resume_state(exp, ZOO_REST_NITER)
+        with open(path, "w") as f:
+            json.dump(opt, f)
+        t1 = time.perf_counter()
+        trace2, state2 = _retried_trace(main, {}, label=f"{label} resume")
+        wall2 = time.perf_counter() - t1
+    finally:
+        (cls.train_step, checkpoint.save_checkpoint,
+         checkpoint.load_state) = orig
+    span = steps[-1] - steps[2]
+    inside = sum(d for t, d in other if steps[2] <= t < steps[-1])
+    n = len(steps) - 3
+    meta, loaded = rec["loaded"]
+    diff = [k for k in saved if not (
+        torch.equal(saved[k], loaded[k]) if isinstance(saved[k],
+                                                       torch.Tensor)
+        else saved[k] == loaded[k])]
+    have = {os.path.relpath(os.path.join(d, f), exp)
+            for d, _, fs in os.walk(exp) for f in fs}
+    need = {f"models/{t}_{n_}.ckpt" for t in (ZOO_REST_NITER,
+                                              ZOO_REST_RESUME)
+            for n_ in files} | {f"training_state/{t}.state" for t in
+                                (ZOO_REST_NITER, ZOO_REST_RESUME)}
+    rows = [json.loads(line) for line in
+            open(os.path.join(exp, "tb", "scalars.jsonl"))]
+    ds = opt["datasets"]["train"]
+    print(f"zoo rest: {label} CLI ({opt['network_G']}; batch "
+          f"{ds['batch_size']}, crop {ds['crop_size']}) {ZOO_REST_NITER} "
+          f"iterations in {wall:.1f} s (traced; the card ran "
+          f"{trace['ran']}), the resume to {state2.step} in {wall2:.1f} s "
+          f"(the card ran {trace2['ran']}): {len(saved)} tensors and counts "
+          f"of the saved state, {len(diff)} differ after loading; "
+          f"{len(rows)} JSONL scalars")
+    print(f"times: {label} CLI steps 3-{ZOO_REST_NITER} on the host clock: "
+          f"{n / (span - inside):.4f} it/s steady, {n / span:.4f} it/s "
+          f"with the save ({smi})")
+    if diff or meta["iter"] != ZOO_REST_NITER or \
+            state2.step != ZOO_REST_RESUME or need - have or not all(
+                math.isfinite(r["value"]) for r in rows):
+        raise AssertionError(f"zoo rest {label} cli: differs {diff[:4]}, "
+                             f"missing {sorted(need - have)[:4]}")
+    del state2
+    torch.cuda.empty_cache()
+    return {f"{label} cli": trace, f"{label} resume": trace2}
+
+
+def _dvd_options(root: str, data: dict) -> dict:
+    """``train_deinterlace.yml`` as written (nf 64, b 16, crop 128, cb
+    pixel loss, bf16) with its frames on ``data``."""
+    opt = read_options_yml(DVD_TRAIN_YML)
+    opt["datasets"]["train"].update(dataroot_HR=data["dvd"], n_workers=4)
+    return opt
+
+
+def _dvd_batch(seed: int, b: int = 16, px: int = 128,
+               device: str = "cuda") -> dict:
+    import torch
+
+    gen = torch.Generator().manual_seed(seed)
+    top, bottom = (torch.rand(b, px, px, 3, generator=gen)
+                   for _ in range(2))
+    x = top.clone()
+    x[:, 1::2] = bottom[:, 1::2]
+    return {k: v.to(device) for k, v in (("in", x), ("top", top),
+                                         ("bottom", bottom))}
+
+
+def _dvd(smi: str, root: str, data: dict) -> dict:
+    """DVD on ``train_deinterlace.yml``: the CLI (``ZOO_REST_NITER`` and a
+    resume to ``ZOO_REST_RESUME``; no kernel of the repo); three steps
+    graphed against eager bit for bit (bf16, b 16, 128 px); G's f32
+    forward card against CPU within 1e-5 (b 1, 128 px, both frames); one
+    f32 SGD step at b ``ZOO_F64_B``, 32 px, against an f64 witness that
+    replays each side's ReLUs (cuDNN's convs: ``branches="all"``); the
+    test CLI on a copy of ``test_deinterlace.yml`` whose set names
+    ``dataroot_HR`` (the shipped one raises here, as the JAX dataset
+    does): each result with its ``{i}_bottom.png``."""
+    import torch
+
+    from trainner_tpu_torch import test as test_cli
+    from trainner_tpu_torch.data import create_dataset
+    from trainner_tpu_torch.options.config import parse_dict
+    from trainner_tpu_torch.options.defaults import get_network_G_config
+    from trainner_tpu_torch.train.dvd_trainer import DVDTrainer
+
+    traces = _zoo_rest_cli(smi, root, "dvd", _dvd_options(root, data),
+                           ("G",), DVDTrainer)
+    opt = parse_dict(_dvd_options(root, data), is_train=True)
+    unequal, ms, trainers, states = _graphed_vs_eager(
+        opt, [_dvd_batch(60 + i) for i in range(ZOO_REST_GRAPH_STEPS)])
+    _steps_report("dvd bf16 b=16 128 px", unequal, ms,
+                  trainers["graphed"].step_graphs(), 1, smi)
+    del trainers, states
+    cfg = get_network_G_config(dict(opt["network_G"]), 1)
+    _card_vs_cpu_forward("dvd_net", {"network_G": cfg}, (1, 128, 128, 3),
+                         (torch.float32,), tag="zoo rest")
+    f64 = dict(parse_dict({
+        "name": "dvd_f64", "model": "dvd", "scale": 1,
+        "network_G": dict(read_options_yml(DVD_TRAIN_YML)["network_G"]),
+        "path": {"root": "/nonexistent"},
+        "train": {**opt["train"], "optim_G": "sgd", "lr_G": 1e-2}},
+        is_train=True))
+    r = _steps_card_cpu_f64("dvd", f64, [_dvd_batch(80, ZOO_F64_B, 32,
+                                                    "cpu")],
+                            graphs=1, branches="all", lr=1e-2)
+    _witness_report(f"dvd one f32 SGD step (b {ZOO_F64_B}, 32 px)", r, smi)
+
+    shipped = read_options_yml(DVD_TEST_YML)
+    try:
+        create_dataset({**shipped["datasets"]["test_1"], "phase": "test"})
+        raise AssertionError("the shipped test_deinterlace.yml served")
+    except ValueError as e:
+        print(f"zoo rest: the shipped test_deinterlace.yml (dataroot_LR "
+              f"alone) raises as the JAX dataset does: {e}")
+    serve = dict(shipped)
+    serve["datasets"] = {"test_1": {**shipped["datasets"]["test_1"],
+                                    "dataroot_HR": data["dvd_serve"]}}
+    serve["datasets"]["test_1"].pop("dataroot_LR")
+    exp = os.path.join(root, "cli_dvd", "experiments",
+                       read_options_yml(DVD_TRAIN_YML)["name"])
+    serve["path"] = {"root": os.path.join(root, "serve_dvd"),
+                     "pretrain_model_G": os.path.join(
+                         exp, "models", f"{ZOO_REST_RESUME}_G.ckpt")}
+    path = os.path.join(root, "serve_dvd.json")
+    with open(path, "w") as f:
+        json.dump(serve, f)
+    t0 = time.perf_counter()
+    t, _ = _retried_trace(lambda: test_cli.main(["-opt", path]), {},
+                          label="serve dvd")
+    wall = time.perf_counter() - t0
+    pngs = sorted(f for _, _, fs in os.walk(os.path.join(root, "serve_dvd"))
+                  for f in fs if f.endswith(".png"))
+    bottoms = [f for f in pngs if f.endswith("_bottom.png")]
+    print(f"zoo rest: dvd served by the test CLI (2 frame pairs of "
+          f"{CORPUS_PX} px) in {wall:.2f} s (set-up included; the card ran "
+          f"{t['ran']}): {pngs} ({smi})")
+    if bottoms != ["0_bottom.png", "1_bottom.png"] or len(pngs) != 4:
+        raise AssertionError(f"dvd serving: {pngs}")
+    traces["serve dvd"] = t
+    torch.cuda.empty_cache()
+    return traces
+
+
+def _wbc_options(root: str, data: dict) -> dict:
+    """``train_wbc.yml`` as written (nf 32; PatchGAN ndf 32, 2 layers,
+    spectral norm; b 16, crop 256; lsgan; VGG19 ``fea`` on structure and
+    content; ``tv``; 200 segments; bf16) with A the corpus and B the
+    second corpus."""
+    opt = read_options_yml(WBC_TRAIN_YML)
+    opt["datasets"]["train"].update(dataroot_A=data["wbc_a"],
+                                    dataroot_B=data["wbc_b"], n_workers=4)
+    return opt
+
+
+def _wbc_batch(seed: int, b: int = 16, px: int = 256,
+               device: str = "cuda") -> dict:
+    """Photos and cartoons in [0, 1] from a seed: smooth fields."""
+    import torch
+
+    gen = torch.Generator().manual_seed(seed)
+    out = {}
+    for k in ("A", "B"):
+        base = torch.rand(b, 3, px // 16 + 2, px // 16 + 2, generator=gen)
+        img = torch.nn.functional.interpolate(
+            base, size=(px, px), mode="bicubic", align_corners=False)
+        out[k] = (img + 0.05 * torch.rand(img.shape, generator=gen)).clamp(
+            0, 1).permute(0, 2, 3, 1).contiguous().to(device)
+    return out
+
+
+@contextlib.contextmanager
+def _wbc_shared_structure():
+    """The f64 witnesses of WBC steps take the structure representation
+    that their side computed (it is a target, of a detached input, from an
+    argmin over distances that rounding may tip): the CPU f32 step's and
+    the eager card step's results are kept, and the f64 steps of that
+    step take them in the order ``_steps_card_cpu_f64`` runs them (the
+    card's witness, then the CPU's)."""
+    import torch
+
+    from trainner_tpu_torch.train.wbc_trainer import WBCTrainer
+
+    orig = WBCTrainer._structure
+    kept = {}
+
+    def structure(self, fake_b, gamma):
+        if self.dtype == torch.float64:
+            side = "card" if "card" in kept else "cpu"
+            return kept.pop(side).to(torch.float64)
+        out = orig(self, fake_b, gamma)
+        if self.device.type == "cpu":
+            kept.clear()
+            kept["cpu"] = out.detach().clone()
+        elif not self.graphs:
+            kept["card"] = out.detach().cpu()
+        return out
+
+    WBCTrainer._structure = structure
+    try:
+        yield
+    finally:
+        WBCTrainer._structure = orig
+
+
+def _wbc(smi: str, root: str, data: dict) -> dict:
+    """WBC on ``train_wbc.yml``: the CLI (``ZOO_REST_NITER`` and a resume
+    to ``ZOO_REST_RESUME``; no kernel of the repo);
+    three steps graphed against eager bit for bit (bf16, b 16, 256 px: the
+    G and the D stage's graphs, the pools alike); one f32 SGD step at b
+    ``ZOO_F64_B``, 64 px against an f64 witness that replays each side's
+    branches of every net and of the loss stack, with the card's draws
+    and each side's own structure representation; SLIC at b 2, 256 px,
+    200 segments card against CPU by the share of pixels that differ
+    (``SHARE_TOL``, as C 17); ``mode: tf``'s G card against CPU within
+    1e-5; one ``sp_exact`` step (b 2, ``WBC_SP_EXACT_PX`` px) on the card
+    (its G stage eager) against the CPU; the test CLI at 256 px."""
+    import torch
+
+    from trainner_tpu_torch import test as test_cli
+    from trainner_tpu_torch.options.config import parse_dict
+    from trainner_tpu_torch.options.defaults import get_network_G_config
+    from trainner_tpu_torch.ops.superpixel import slic_segment_mean
+    from trainner_tpu_torch.train.sr_trainer import create_trainer
+    from trainner_tpu_torch.train.wbc_trainer import WBCTrainer
+
+    traces = _zoo_rest_cli(smi, root, "wbc", _wbc_options(root, data),
+                           ("G", "D_S", "D_T"), WBCTrainer)
+    opt = parse_dict(_wbc_options(root, data), is_train=True)
+    unequal, ms, trainers, states = _graphed_vs_eager(
+        opt, [_wbc_batch(60 + i) for i in range(ZOO_REST_GRAPH_STEPS)])
+    for pool in ("fake_s_pool", "fake_t_pool"):
+        a, b = (getattr(trainers[k], pool) for k in ("graphed", "eager"))
+        if a.count != b.count or not torch.equal(a.images[:a.count],
+                                                 b.images[:b.count]):
+            unequal.append(pool)
+    _steps_report("wbc bf16 b=16 256 px", unequal, ms,
+                  trainers["graphed"].step_graphs(), 2, smi)
+    del trainers, states
+
+    small = dict(parse_dict({
+        "name": "wbc_f64", "model": "wbc", "scale": 1, "pool_size": 50,
+        "network_G": dict(read_options_yml(WBC_TRAIN_YML)["network_G"]),
+        "network_D": dict(read_options_yml(WBC_TRAIN_YML)["network_D"]),
+        "path": {"root": "/nonexistent"},
+        "train": {**read_options_yml(WBC_TRAIN_YML)["train"],
+                  "optim_G": "sgd", "optim_D": "sgd", "lr_G": 1e-2,
+                  "lr_D": 1e-2}}, is_train=True))
+    with _wbc_shared_structure():
+        r = _steps_card_cpu_f64("wbc", small, [_wbc_batch(
+            80, ZOO_F64_B, 64, "cpu")], graphs=2, share_draws=True,
+            branches="all", lr=1e-2)
+    _witness_report(f"wbc one f32 SGD step (b {ZOO_F64_B}, 64 px)", r, smi)
+
+    x = _wbc_batch(81, 2, 256, "cpu")["A"]
+    got = slic_segment_mean(x.cuda(), 200, 5).cpu()
+    want = slic_segment_mean(x, 200, 5)
+    share = float(((got - want).abs().amax(-1) > 1e-5).float().mean())
+    print(f"zoo rest: SLIC (200 segments, 5 iterations) b=2 256 px card vs "
+          f"CPU: share of pixels off by more than 1e-5 {share:.4%} (tol "
+          f"{SHARE_TOL:.0%})")
+    if not share <= SHARE_TOL:
+        raise AssertionError(f"wbc slic: {share}")
+    cfg = get_network_G_config({"type": "wbcunet_tf", "nf": 32}, 1)
+    _card_vs_cpu_forward("wbcunet mode tf", {"network_G": cfg},
+                         (1, 256, 256, 3), (torch.float32,), tag="zoo rest")
+
+    # sp_exact: the host's superpixels inside the step, card against CPU
+    exact = {**small, "use_amp": False,
+             "train": {**small["train"], "sp_exact": True}}
+    sides, sps, draws = {}, {}, {}
+    for dev in ("cpu", "cuda"):
+        tr = create_trainer(exact, device=dev)
+        st = tr.init_state(0)
+        orig = tr._host_superpixels
+        tr._host_superpixels = (lambda imgs, d=dev, o=orig:
+                                sps.setdefault(d, o(imgs)))
+        if dev == "cuda":
+            tr.draw_hook = lambda shapes: {k: (
+                {c: t.cuda() for c, t in v.items()} if isinstance(v, dict)
+                else v.cuda()) for k, v in draws.items()}
+        else:
+            base = tr._draws
+
+            def record(state, shapes, base=base):
+                out = base(state, shapes)
+                draws.update(out)
+                return out
+            tr._draws = record
+        batch = _wbc_batch(82, ZOO_F64_B, WBC_SP_EXACT_PX, dev)
+        logs = tr.train_step(st, batch)[1]
+        sides[dev] = ({k: float(v) for k, v in logs.items()}, tr)
+    diff = (sps["cuda"].cpu() - sps["cpu"]).abs().amax(-1)
+    sp_share = float((diff > 1e-5).float().mean())
+    worst = max(abs(v - sides["cpu"][0][k]) / max(abs(sides["cpu"][0][k]),
+                                                  1e-3)
+                for k, v in sides["cuda"][0].items())
+    stage = sides["cuda"][1]._step_fns
+    eager_g = not hasattr(stage[("g",)], "entries")
+    graphed_d = hasattr(stage[("d",)], "entries")
+    print(f"zoo rest: wbc sp_exact step (b {ZOO_F64_B}, {WBC_SP_EXACT_PX} "
+          f"px, f32) card vs CPU: the host superpixels differ on "
+          f"{sp_share:.4%} of the pixels (tol {SHARE_TOL:.0%}), logs within "
+          f"{worst:.3e} relative (tol 1e-3); the card's G stage eager "
+          f"{eager_g}, its D stage a graph {graphed_d}")
+    if not (sp_share <= SHARE_TOL and worst <= 1e-3 and eager_g
+            and graphed_d):
+        raise AssertionError(f"wbc sp_exact: {sp_share}, {worst}")
+    del sides
+
+    exp = os.path.join(root, "cli_wbc", "experiments",
+                       read_options_yml(WBC_TRAIN_YML)["name"])
+    serve = {"name": "serve_wbc", "model": "wbc", "scale": 1,
+             "datasets": {"test_1": {"name": "photos", "mode": "single",
+                                     "dataroot_LR": data["wbc_serve"]}},
+             "network_G": opt["network_G"],
+             "path": {"root": os.path.join(root, "serve_wbc"),
+                      "pretrain_model_G": os.path.join(
+                          exp, "models", f"{ZOO_REST_RESUME}_G.ckpt")}}
+    path = os.path.join(root, "serve_wbc.json")
+    with open(path, "w") as f:
+        json.dump(serve, f)
+    t0 = time.perf_counter()
+    t, _ = _retried_trace(lambda: test_cli.main(["-opt", path]), {},
+                          label="serve wbc")
+    wall = time.perf_counter() - t0
+    pngs = [f for _, _, fs in os.walk(os.path.join(root, "serve_wbc"))
+            for f in fs if f.endswith(".png")]
+    print(f"zoo rest: wbc served by the test CLI ({N_VAL} photos of "
+          f"{CORPUS_PX} px) in {wall:.2f} s (set-up included; the card ran "
+          f"{t['ran']}) ({smi})")
+    if len(pngs) != N_VAL:
+        raise AssertionError(f"wbc serving: {pngs}")
+    traces["serve wbc"] = t
+    torch.cuda.empty_cache()
+    return traces
+
+
+def _zoo_rest_rates(smi: str) -> None:
+    """Each G's forward at b=1 on the card by CUDA events, f32 (TF32 off)
+    and bf16, in Mpx/s of output: PBR's ``rrdb_net`` at 64 -> 256 px (69
+    blocks on the kernels), ``dvd_net`` at 256 px (both frames), the WBC
+    U-Net at 256 px."""
+    import torch
+
+    from trainner_tpu_torch.models import define_G
+    from trainner_tpu_torch.options.defaults import get_network_G_config
+
+    gen = torch.Generator().manual_seed(84)
+    for name, cfg, scale, px in (
+            ("pbr rrdb_net", {"type": "rrdb_net"}, 4, 64),
+            ("dvd_net", {"type": "dvd_net"}, 1, 256),
+            ("wbcunet_net", {"type": "wbcunet_net"}, 1, 256)):
+        x = torch.rand(1, px, px, 3, generator=gen).cuda()
+        spec = {"network_G": get_network_G_config(cfg, scale)}
+        line = []
+        for dt in (torch.float32, torch.bfloat16):
+            net = define_G(spec, dt)
+            net.init_weights(torch.Generator().manual_seed(0))
+            net = net.cuda().eval()
+            with torch.inference_mode():
+                ms = _time_ms(lambda: net(x), iters=10, warmup=3)
+            mpx = (px * scale) ** 2 / 1e6 / (ms / 1e3)
+            line.append(f"{str(dt).replace('torch.', '')} {ms:.3f} ms "
+                        f"({mpx:.3f} Mpx/s)")
+            del net
+        print(f"times: {name} forward b=1 {px} -> {px * scale} px: "
+              f"{', '.join(line)} ({smi})")
+    torch.cuda.empty_cache()
+
+
+def phase_zoo_rest(smi: str, root: str) -> dict:
+    """Phase 23: the rest of the zoo. PBR on the block kernels at full
+    width (``train_sr.yml``'s G, nf 64, nb 23, gc 32, as ``model: pbr``:
+    b 8, crop 128, bf16, pixel L1 and VGG19 feature L1, four maps):
+    the training CLI (12 iterations and a resume to 14: 276 block
+    forwards and 276 backwards per step, 69 forwards per validation
+    material), the kernels against their plain versions at P, three
+    steps graphed against eager, the f64 witness, the test CLI; DVD
+    (``_dvd``) and WBC (``_wbc``) on their templates, where no kernel of
+    the repo runs; each G's forward rate. Returns the traces."""
+    import torch
+
+    t0 = time.perf_counter()
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    data = _zoo_rest_data(root)
+    traces, parts = {}, [f"{time.perf_counter() - t0:.1f}"]
+    for part in (lambda: traces.update(_pbr_cli(smi, root, data)),
+                 lambda: _pbr_kernels_vs_plain(smi),
+                 lambda: _pbr_graphed_vs_eager(smi),
+                 lambda: _pbr_f64(smi),
+                 lambda: traces.update(_pbr_serve(smi, root, data)),
+                 lambda: traces.update(_dvd(smi, root, data)),
+                 lambda: traces.update(_wbc(smi, root, data)),
+                 lambda: _zoo_rest_rates(smi)):
+        t1 = time.perf_counter()
+        part()
+        parts.append(f"{time.perf_counter() - t1:.1f}")
+    print(f"zoo rest: ok in {time.perf_counter() - t0:.1f} s (data, PBR CLI, "
+          f"kernels vs plain, graphs, f64, serving; DVD; WBC; rates: "
+          f"{', '.join(parts)} s) ({smi})")
+    return traces
+
+
 def phase_graphs(smi: str, root: str) -> None:
     """The programs as CUDA graphs against the same programs run eagerly
     (``graphs=False``), in one process: the step (bf16, f32) with its
@@ -8118,12 +8850,13 @@ def phase_graphs(smi: str, root: str) -> None:
 
 def _later_phases(smi: str, root: str, which: tuple) -> dict:
     """Phases 18 (``phase_producer_rest``), 19 (``phase_models``), 20
-    (``phase_i2i``), 21 (``phase_video``) and 22 (``phase_srflow``) of
-    ``which``, TF32 off before each; returns their traces."""
+    (``phase_i2i``), 21 (``phase_video``), 22 (``phase_srflow``) and 23
+    (``phase_zoo_rest``) of ``which``, TF32 off before each; returns their
+    traces."""
     import torch
 
     phases = {18: phase_producer_rest, 19: phase_models, 20: phase_i2i,
-              21: phase_video, 22: phase_srflow}
+              21: phase_video, 22: phase_srflow, 23: phase_zoo_rest}
     traces = {}
     for n in which:
         torch.backends.cudnn.allow_tf32 = False
@@ -8144,7 +8877,7 @@ def main(argv=None) -> int:
                         "git archive) whose blur kernel is timed beside "
                         "this one's")
     parser.add_argument("--only", default="",
-                        help="comma-separated phases among 18 to 22: "
+                        help="comma-separated phases among 18 to 23: "
                         "build the kernels, write the corpus and run those "
                         "alone (no result line)")
     flags = parser.parse_args(argv)
@@ -8222,7 +8955,8 @@ def main(argv=None) -> int:
         torch.backends.cuda.matmul.allow_tf32 = False
         cli_counts.update(phase_losses(smi, root))
         cli_counts.update(phase_trainer_options(smi, root))
-        cli_counts.update(_later_phases(smi, root, (18, 19, 20, 21, 22)))
+        cli_counts.update(_later_phases(smi, root,
+                                        (18, 19, 20, 21, 22, 23)))
         rows = phase_times(smi, root)
         blur_rows = phase_blur_times(smi, flags.parent)
         phase_trace(smi, root, {k: r["step_ms"] for k, r in train.items()})

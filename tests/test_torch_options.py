@@ -180,14 +180,15 @@ def test_dict2str_matches_jax():
     ("network_G", {"type": "ppon"}, None),
     ("network_G", {"type": "edvr"}, None),
     ("network_G", {"type": "seg_arch"}, None),
-    ("network_G", {"type": "wbcunet"}, "Queue A 10.6")])
+    ("network_G", {"type": "wbcunet"}, None),
+    ("network_G", {"type": "no_such_net"}, "not recognized")])
 def test_options_outside_the_port_raise_with_their_item(key, value, item):
     """The network presets and ``use_unshuffle`` are parsed now
     (``test_torch_network_options.py``), and so are the realsr and combo
     strategies (``test_realsr_parses_like_jax``), ``ppon`` (ROADMAP Queue
-    A 10.2), ``edvr`` (A 10.5) and ``seg_arch`` (A 10.6 a), their G
-    configs the JAX ones; other
-    generators still raise and name their ROADMAP item."""
+    A 10.2), ``edvr`` (A 10.5), ``seg_arch`` (A 10.6 a) and ``wbcunet``
+    (A 10.6 d, once refused here), their G configs the JAX ones; a
+    generator the JAX table lacks raises."""
     opt = _train_opt()
     opt[key] = value
     if item is None:
@@ -195,7 +196,7 @@ def test_options_outside_the_port_raise_with_their_item(key, value, item):
         assert got["network_G"] == jax_parse_dict(opt)["network_G"]
         assert got["network_D"] == jax_parse_dict(opt)["network_D"]
         return
-    with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
+    with pytest.raises(NotImplementedError, match=item):
         parse_dict(opt)
 
 

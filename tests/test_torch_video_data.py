@@ -94,8 +94,10 @@ def test_factory_modes_synthetic_video_and_loader(videos):
                                "scale": 4})
         assert type(train).__name__ == "VidTrainDataset"
         assert type(test).__name__ == "VidTestDataset"
-    with pytest.raises(NotImplementedError, match="Queue A 10"):
-        create_dataset({"mode": "dvd", "dataroot_HR": hr})
+    # the deinterlacing mode, once refused here (ROADMAP Queue A 10.6):
+    # its frames' pairs (test_torch_dvd.py holds it against JAX's)
+    assert type(create_dataset({"mode": "dvd", "dataroot_HR": hr})
+                ).__name__ == "DVDDataset"
     opt = {"mode": "synthetic", "kind": "video", "crop_size": 32,
            "n_samples": 3, "num_frames": 5, "scale": 4}
     _equal(PD.SyntheticDataset(dict(opt))[2],

@@ -4,14 +4,15 @@ Counterpart of ``trainner_tpu/data/datasets.py``: ``AlignedDataset:44`` in
 both phases with every option (LMDB roots, ``aug_downscale``, ``color``,
 ``subset_file``, ``otf_mode: host`` and its ``_host_degrade:229``),
 ``SingleDataset:277``, ``UnalignedDataset:300`` (CycleGAN's and
-pix2pix's A/B), ``SyntheticDataset:349`` (kinds ``sr``, ``ab`` and
-``video``) and ``create_dataset:431`` for these modes, SFTGAN's ``seg``
-(``data/seg_dataset.py``) and the video modes ``video`` / ``vlrhr``
-(``data/video_datasets.py``: training clips in the train phase, sliding
-windows otherwise). The datasets read, crop and flip; the
+pix2pix's A/B), ``SyntheticDataset:349`` (kinds ``sr``, ``ab``,
+``video`` and ``dvd``) and ``create_dataset:431`` for these modes,
+SFTGAN's ``seg`` (``data/seg_dataset.py``), the video modes ``video`` /
+``vlrhr`` (``data/video_datasets.py``: training clips in the train phase,
+sliding windows otherwise), the deinterlacing modes ``dvd`` / ``dvdi``
+(``DVDDataset``) and the material modes ``pbr`` / ``lrhrpbr``
+(``data/pbr_dataset.py``). The datasets read, crop and flip; the
 degradations run batched on the device (``data/pipeline.py``), after the
-host's with ``otf_mode: host`` (ROADMAP C 20). The other dataset modes
-raise with their ROADMAP item.
+host's with ``otf_mode: host`` (ROADMAP C 20).
 """
 
 from __future__ import annotations
@@ -26,6 +27,7 @@ from ..ops.imresize import imresize_np
 from .common import augment_pair, channel_convert, decode_image, \
     img2tensor, is_lmdb_path, modcrop, paired_random_crop, read_img, \
     scan_images
+from .video_datasets import interlace
 
 
 def _dataroot(dataset_opt: dict, *keys: str) -> Optional[str]:
@@ -322,7 +324,8 @@ class UnalignedDataset:
 class SyntheticDataset:
     """Random images seeded by index: kind ``sr``, HR and its bicubic LR;
     kind ``ab``, an A and a B of ``crop_size``; kind ``video``, a clip of
-    ``num_frames`` HR frames and their bicubic LRs."""
+    ``num_frames`` HR frames and their bicubic LRs; kind ``dvd``, two
+    frames (``top``, ``bottom``) and their interlace (``in``)."""
 
     def __init__(self, dataset_opt: dict):
         self.scale = int(dataset_opt.get("scale", 4) or 4)
@@ -330,10 +333,6 @@ class SyntheticDataset:
         self.n = int(dataset_opt.get("n_samples", 64) or 64)
         self.kind = dataset_opt.get("kind", "sr")
         self.num_frames = int(dataset_opt.get("num_frames", 3) or 3)
-        if self.kind not in ("sr", "ab", "video"):
-            raise NotImplementedError(
-                f"synthetic kind [{self.kind}] is not ported yet (ROADMAP "
-                "Queue A 10.6, the rest of the zoo)")
 
     def __len__(self):
         return self.n
@@ -349,6 +348,11 @@ class SyntheticDataset:
                             np.float32)
             lr = np.stack([imresize_np(f, 1.0 / self.scale) for f in hr])
             return {"LR": lr.astype(np.float32), "HR": hr,
+                    "LR_path": str(index)}
+        if self.kind == "dvd":
+            a = rng.random((self.hr, self.hr, 3), np.float32)
+            b = rng.random((self.hr, self.hr, 3), np.float32)
+            return {"in": interlace(a, b), "top": a, "bottom": b,
                     "LR_path": str(index)}
         hr = rng.random((self.hr, self.hr, 3), np.float32)
         lr = imresize_np(hr, 1.0 / self.scale)
@@ -370,19 +374,32 @@ def _video_dataset(dataset_opt: dict):
     return VidTestDataset(dataset_opt)
 
 
+def _dvd_dataset(dataset_opt: dict):
+    from .video_datasets import DVDDataset
+
+    return DVDDataset(dataset_opt)
+
+
+def _pbr_dataset(dataset_opt: dict):
+    from .pbr_dataset import PBRDataset
+
+    return PBRDataset(dataset_opt)
+
+
 _DATASETS = {"aligned": AlignedDataset, "single": SingleDataset,
              "unaligned": UnalignedDataset, "synthetic": SyntheticDataset,
-             "seg": _seg_dataset, "video": _video_dataset}
+             "seg": _seg_dataset, "video": _video_dataset,
+             "dvd": _dvd_dataset, "pbr": _pbr_dataset}
 _ALIASES = {"lrhr": "aligned", "lrhroft": "aligned", "lrhrc": "aligned",
-            "lr": "single", "lrhrseg_bg": "seg", "vlrhr": "video"}
+            "lr": "single", "lrhrseg_bg": "seg", "vlrhr": "video",
+            "dvdi": "dvd", "lrhrpbr": "pbr"}
 
 
 def create_dataset(dataset_opt: dict):
-    """Dataset factory for the ported modes."""
+    """Dataset factory: every mode of the JAX package's
+    (``trainner_tpu/data/datasets.py::create_dataset``)."""
     mode = (dataset_opt.get("mode") or "aligned").lower()
     key = _ALIASES.get(mode, mode)
     if key not in _DATASETS:
-        raise NotImplementedError(
-            f"dataset mode [{mode}] is not ported yet (ROADMAP Queue A 10, "
-            "the rest of the zoo)")
+        raise NotImplementedError(f"dataset mode [{mode}] not recognized")
     return _DATASETS[key](dataset_opt)

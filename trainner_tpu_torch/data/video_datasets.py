@@ -21,8 +21,17 @@ their bicubic downscale, so ``test_video.yml``, which names only
 ``dataroot_LR``, serves those frames at 1/scale (ROADMAP C 25).
 ``srcolors`` is read by the train dataset alone.
 
-The deinterlacing dataset (``DVDDataset``) belongs to ROADMAP Queue A
-10.6.
+``DVDDataset`` (counterpart of ``interlace:166``, ``DVDDataset:174``):
+the pairs of consecutive frames of ``dataroot_HR`` (else
+``dataroot_B``), ``__len__`` one less than the frames; both cut to the
+smaller height (made even) and width; in training a crop of
+``min(crop_size, h, w)`` made even, at an even row and any column, from
+one unseeded generator per sample (the test phase keeps the whole
+frames). ``in`` is the interlaced frame (the first frame's even rows, the
+second's odd rows), ``top`` and ``bottom`` the two frames. A dataset that
+names only ``dataroot_LR`` raises, as the JAX one does: so
+``options/video/test_deinterlace.yml`` as shipped cannot be served
+(ROADMAP C 27).
 """
 
 from __future__ import annotations
@@ -150,3 +159,49 @@ class VidTestDataset:
         return {"LR": np.stack(lrs).astype(np.float32),
                 "HR": np.stack(hrs).astype(np.float32),
                 "LR_path": self.paths[index + (n - 1) // 2]}
+
+
+def interlace(top_frame: np.ndarray, bottom_frame: np.ndarray
+              ) -> np.ndarray:
+    """The even rows of ``top_frame`` with the odd rows of
+    ``bottom_frame``."""
+    out = top_frame.copy()
+    out[1::2] = bottom_frame[1::2]
+    return out
+
+
+class DVDDataset:
+    """Deinterlacing pairs: the interlaced input of two consecutive frames
+    and both frames as the field targets."""
+
+    def __init__(self, dataset_opt: dict):
+        self.opt = dataset_opt
+        root = dataset_opt.get("dataroot_HR") or \
+            dataset_opt.get("dataroot_B")
+        if not root:
+            raise ValueError("DVDDataset needs dataroot_HR")
+        self.paths = scan_images(root if isinstance(root, str) else root[0])
+        self.crop = int(dataset_opt.get("crop_size", 128) or 128)
+        self.phase = dataset_opt.get("phase", "train")
+
+    def __len__(self) -> int:
+        return max(0, len(self.paths) - 1)
+
+    def __getitem__(self, index: int) -> Dict[str, np.ndarray]:
+        rng = np.random.default_rng(
+            None if self.phase == "train" else index)
+        a = read_img(self.paths[index])
+        b = read_img(self.paths[index + 1])
+        h = min(a.shape[0], b.shape[0]) // 2 * 2
+        w = min(a.shape[1], b.shape[1])
+        a, b = a[:h, :w], b[:h, :w]
+        if self.phase == "train":
+            cs = min(self.crop, h, w) // 2 * 2
+            y0 = int(rng.integers(0, h - cs + 1)) // 2 * 2
+            x0 = int(rng.integers(0, w - cs + 1))
+            a = a[y0:y0 + cs, x0:x0 + cs]
+            b = b[y0:y0 + cs, x0:x0 + cs]
+        return {"in": interlace(a, b).astype(np.float32),
+                "top": a.astype(np.float32),
+                "bottom": b.astype(np.float32),
+                "LR_path": self.paths[index]}

@@ -6,8 +6,8 @@
 ``_build_edvr:179``, ``_build_rife:231``, ``_build_srflow:144``,
 ``_build_srflow_interop:158``, ``_build_abpn:200``,
 ``_build_asr_resnet:207``, ``_build_asr_cnn:218``, ``_build_seg:237``,
-``define_D:291``) for the generators and the discriminators that the port
-runs. Other types raise and name their ROADMAP item."""
+``_build_wbcunet:110``, ``_build_dvd:137``, ``define_D:291``): every
+generator type of the JAX package, and the discriminators it builds."""
 
 from __future__ import annotations
 
@@ -238,6 +238,20 @@ def _build_asr_cnn(cfg: dict, dtype: torch.dtype):
         dtype=dtype)
 
 
+def _build_wbcunet(cfg: dict, dtype: torch.dtype):
+    from .wbcunet import UnetGeneratorWBC
+
+    return UnetGeneratorWBC(nf=cfg.get("nf", 32), mode=cfg.get("mode", "pt"),
+                            dtype=dtype)
+
+
+def _build_dvd(cfg: dict, dtype: torch.dtype):
+    from .dvd import DVDNet
+
+    return DVDNet(in_nc=cfg.get("in_nc", 3), out_nc=cfg.get("out_nc", 3),
+                  nf=cfg.get("nf", 64), dtype=dtype)
+
+
 def _build_seg(cfg: dict, dtype: torch.dtype):
     from .seg import OutdoorSceneSeg
 
@@ -253,7 +267,8 @@ _G_REGISTRY = {"rrdb_net": _build_rrdb, "mrrdb_net": _build_mrrdb,
                "rife_net": _build_rife, "srflow_net": _build_srflow,
                "srflow_interop": _build_srflow_interop,
                "abpn_net": _build_abpn, "asr_resnet": _build_asr_resnet,
-               "asr_cnn": _build_asr_cnn, "seg_arch": _build_seg}
+               "asr_cnn": _build_asr_cnn, "seg_arch": _build_seg,
+               "wbcunet_net": _build_wbcunet, "dvd_net": _build_dvd}
 
 
 def define_G(opt: dict, dtype: torch.dtype = torch.float32):
@@ -263,9 +278,8 @@ def define_G(opt: dict, dtype: torch.dtype = torch.float32):
     cfg = dict(opt["network_G"])
     kind = cfg.get("type")
     if kind not in _G_REGISTRY:
-        raise NotImplementedError(
-            f"Generator model [{kind}] is not ported yet (ROADMAP Queue A "
-            "10, the rest of the zoo)")
+        raise NotImplementedError(f"Generator model [{kind}] not "
+                                  "recognized")
     return _G_REGISTRY[kind](cfg, dtype)
 
 
@@ -275,9 +289,9 @@ def define_D(opt: dict, dtype: torch.dtype = torch.bfloat16,
     spectral norm and no batch norm for a ``*_sn`` type or
     ``spectral_norm``), PatchGAN, the multiscale PatchGAN, PixelGAN or the
     U-Net. ``in_nc`` gives the input's channels where the trainer knows
-    them (pix2pix's conditional D sees A and B, 6), in place of the
-    options' ``input_nc``: flax infers them from the input, torch needs
-    them up front."""
+    them (pix2pix's conditional D sees A and B, 6; WBC's texture D one
+    grey channel, 1), in place of the options' ``input_nc`` (``in_nc`` for
+    D-VGG): flax infers them from the input, torch needs them up front."""
     cfg = dict(opt["network_D"])
     kind = (cfg.get("type") or "").lower()
     nc = in_nc or cfg.get("input_nc", 3)
@@ -299,7 +313,7 @@ def define_D(opt: dict, dtype: torch.dtype = torch.bfloat16,
                                   dtype=dtype)
     if kind == "unet":
         return UNetDiscriminator(
-            nf=cfg.get("nf", 64),
+            nf=cfg.get("nf", 64), in_nc=in_nc or 3,
             skip_connection=bool(cfg.get("skip_connection", True)),
             spectral_norm=bool(cfg.get("spectral_norm", True)), dtype=dtype)
     if not kind.startswith("discriminator_vgg"):
@@ -311,7 +325,7 @@ def define_D(opt: dict, dtype: torch.dtype = torch.bfloat16,
             size = int(tok)
     sn = kind.endswith("_sn") or bool(cfg.get("spectral_norm"))
     return DiscriminatorVGG(
-        size=int(size), in_nc=cfg.get("in_nc", 3),
+        size=int(size), in_nc=in_nc or cfg.get("in_nc", 3),
         base_nf=cfg.get("base_nf", 64),
         norm_type=None if sn else cfg.get("norm_type", "batch"),
         act_type=cfg.get("act_type", "leakyrelu"),

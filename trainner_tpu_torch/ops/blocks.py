@@ -545,18 +545,29 @@ class GaussianNoise(nn.Module):
     eval mode. The draw comes from ``generator`` (one on x's device, which
     the trainer owns and sets), or from torch's default generator when
     none is set. The trainer registers its generator with every graph that
-    captures the step, so each replay draws fresh noise."""
+    captures the step, so each replay draws fresh noise. With ``hold`` set
+    the first draw is kept (``held``) and every later pass at its shape
+    reuses it: the PBR trainer's passes over a step's maps share one draw,
+    as the JAX ones share one key."""
 
     def __init__(self, sigma: float = 0.1):
         super().__init__()
         self.sigma = sigma
         self.generator: Optional[torch.Generator] = None
+        self.hold = False
+        self.held: Optional[torch.Tensor] = None
 
     def forward(self, x):
         if not self.training or not self.sigma:
             return x
-        noise = torch.randn(x.shape, dtype=x.dtype, device=x.device,
-                            generator=self.generator)
+        noise = self.held if self.hold and self.held is not None and \
+            self.held.shape == x.shape and self.held.dtype == x.dtype \
+            else None
+        if noise is None:
+            noise = torch.randn(x.shape, dtype=x.dtype, device=x.device,
+                                generator=self.generator)
+            if self.hold:
+                self.held = noise
         return x + self.sigma * x.detach() * noise
 
 

@@ -165,18 +165,42 @@ def filter2d_per_sample(x: torch.Tensor, kernels: torch.Tensor,
     return y.reshape(b, c, h, w).permute(0, 2, 3, 1)
 
 
+def reflect_pad(x: torch.Tensor, dim: int, before: int,
+                after: int) -> torch.Tensor:
+    """``F.pad``'s reflect padding of one axis written as slices, flips
+    and a concatenation: the same values bit for bit, and a backward that
+    adds in a fixed order (``F.pad``'s reflect backward adds with atomics
+    on the card, so two runs of a step would differ in the last bits)."""
+    n = x.shape[dim]
+    parts = [x]
+    if before:
+        parts.insert(0, x.narrow(dim, 1, before).flip(dim))
+    if after:
+        parts.append(x.narrow(dim, n - 1 - after, after).flip(dim))
+    return torch.cat(parts, dim) if len(parts) > 1 else x
+
+
+def _pad_axis(y: torch.Tensor, dim: int, before: int, after: int,
+              mode: str) -> torch.Tensor:
+    if mode == "reflect":
+        return reflect_pad(y, dim, before, after)
+    pads = (0, 0, before, after) if dim == 2 else (before, after, 0, 0)
+    return F.pad(y, pads, mode=mode)
+
+
 def separable_filter2d(x: torch.Tensor, k1d,
                        pad_mode: str = "reflect") -> torch.Tensor:
     """A 1-D kernel along H, then along W, per channel, each after a
-    ``pad_mode`` padding of (n-1)//2 before and the rest after."""
+    ``pad_mode`` padding of (n-1)//2 before and the rest after (reflect by
+    ``reflect_pad``)."""
     k = torch.as_tensor(k1d, dtype=x.dtype, device=x.device)
     n, c = k.shape[0], x.shape[-1]
     pad = (n - 1) // 2
     mode = _PAD_MODES[pad_mode]
     y = x.permute(0, 3, 1, 2)
-    y = F.pad(y, (0, 0, pad, n - 1 - pad), mode=mode)
+    y = _pad_axis(y, 2, pad, n - 1 - pad, mode)
     y = F.conv2d(y, k.reshape(1, 1, n, 1).expand(c, 1, n, 1), groups=c)
-    y = F.pad(y, (pad, n - 1 - pad, 0, 0), mode=mode)
+    y = _pad_axis(y, 3, pad, n - 1 - pad, mode)
     y = F.conv2d(y, k.reshape(1, 1, 1, n).expand(c, 1, 1, n), groups=c)
     return y.permute(0, 2, 3, 1)
 
@@ -217,7 +241,9 @@ def filter_high(x: torch.Tensor, kernel_size: int = 9,
 def _box_filter(x: torch.Tensor, r: int) -> torch.Tensor:
     """The mean over a (2r+1)^2 window, reflect-padded."""
     size = 2 * r + 1
-    return separable_filter2d(x, [1.0 / size] * size, pad_mode="reflect")
+    return separable_filter2d(
+        x, device_constant([1.0 / size] * size, x.dtype, x.device),
+        pad_mode="reflect")
 
 
 def guided_filter(guide: torch.Tensor, src: torch.Tensor, radius: int = 1,

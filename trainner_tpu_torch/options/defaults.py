@@ -11,10 +11,11 @@ types that the port builds are the SR generators ``rrdb_net``,
 of ``:182-205``; ``flow.interop`` or the type ``srflow_interop`` selects
 the reference-exact net, an alias the JAX table lacks, ROADMAP C 26), the
 image-to-image and SFTGAN generators ``unet_net``, ``resnet_net`` and
-``sft_arch``, and the video generators ``sofvsr_net``, ``sr3d_net``,
-``edvr_net``, ``rife_net`` and ``evsrgan`` (``rrdb_net`` with a Conv3D
-trunk); the JAX package's other types raise here and name their
-ROADMAP item. Every discriminator spec is parsed as the JAX
+``sft_arch``, white-box cartoonization's ``wbcunet_net`` (``wbcunet``;
+``wbcunet_tf`` sets ``mode: tf``), the deinterlacer ``dvd_net``, and the
+video generators ``sofvsr_net``, ``sr3d_net``, ``edvr_net``, ``rife_net``
+and ``evsrgan`` (``rrdb_net`` with a Conv3D trunk): every type of the JAX
+table. Every discriminator spec is parsed as the JAX
 package parses it; ``models/networks.py::define_D`` refuses the types the
 port does not build.
 """
@@ -48,13 +49,9 @@ _G_ALIASES = {
     "abpn_net": "abpn_net", "abpn": "abpn_net",
     "asr_cnn": "asr_cnn", "asr_resnet": "asr_resnet",
     "seg_arch": "seg_arch", "seg": "seg_arch",
-}
-
-# the JAX package's other generator aliases -> the ROADMAP item that ports
-# each (Queue A 10)
-_G_NOT_PORTED = {
-    "dvd_net": "10.6", "wbcunet": "10.6", "wbcunet_tf": "10.6",
-    "wbcunet_net": "10.6",
+    "wbcunet": "wbcunet_net", "wbcunet_tf": "wbcunet_net",
+    "wbcunet_net": "wbcunet_net",
+    "dvd_net": "dvd_net",
 }
 
 _SCALE = "__scale__"
@@ -104,6 +101,8 @@ _G_DEFAULTS: dict[str, dict[str, Any]] = {
     "asr_resnet": dict(scale_factor=_SCALE, spectral_norm=True,
                        self_attention=True, max_pool=True, poolsize=4),
     "seg_arch": dict(n_classes=8),
+    "wbcunet_net": dict(nf=32, mode="pt"),
+    "dvd_net": dict(in_nc=3, out_nc=3, nf=64),
 }
 
 _SRFLOW_FLOW_DEFAULTS = dict(
@@ -124,6 +123,7 @@ _G_ALIAS_OVERRIDES: dict[str, dict[str, Any]] = {
     "unet_256": dict(num_downs=8),
     "resnet_6blocks": dict(n_blocks=6),
     "resnet_9blocks": dict(n_blocks=9),
+    "wbcunet_tf": dict(mode="tf"),
 }
 
 # user key -> canonical key, or {canonical type: canonical key}
@@ -172,13 +172,8 @@ def get_network_G_config(network_G, scale: int, crop_size=None) -> dict:
     strict = user.pop("strict", False)
     canon = _G_ALIASES.get(kind)
     if canon is None:
-        item = _G_NOT_PORTED.get(kind)
-        if item is None:
-            raise NotImplementedError(f"Generator model [{kind}] not "
-                                      "recognized")
-        raise NotImplementedError(
-            f"Generator model [{kind}] is not ported yet (ROADMAP Queue A "
-            f"{item}, the rest of the zoo)")
+        raise NotImplementedError(f"Generator model [{kind}] not "
+                                  "recognized")
     cfg = copy.deepcopy(_G_DEFAULTS[canon])
     cfg.update(_G_ALIAS_OVERRIDES.get(kind, {}))
     cfg["type"] = canon

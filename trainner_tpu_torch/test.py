@@ -10,7 +10,11 @@ dataset, the centre frame served and scored against the centre of the HR
 clip, ``test.py:157-161``) and ``srflow`` (for each heat of
 ``val.heats``, ``val.n_sample`` samples saved as
 ``{name}_h{heat:.2f}_{k}.png``, and the sample at the first heat saved
-and scored, ``test.py:99-110``), with its x8 self-ensemble
+and scored, ``test.py:99-110``), ``dvd`` (a ``dvd`` dataset's interlaced
+``in``: the top frame saved as the result and the bottom one as
+``{i}_bottom.png``, ``test.py:111-115``), ``wbc`` (G and its guided
+filter, from a ``single`` dataset) and ``pbr`` (G on the primary map of
+a ``pbr`` dataset, scored against its HR), with its x8 self-ensemble
 (``self_ensemble`` / ``x8``), tiled (``chop_forward`` / ``chop``) and plain
 ``eval_step`` branches, taken in that order as the JAX CLI takes them, and
 its CEM post-processing (``test.py:129-150``): with ``use_cem`` and
@@ -59,8 +63,6 @@ def parse_options(argv=None):
 
 
 def _check_ported(opt) -> None:
-    from .train.cli import _OTHER_MODELS
-
     model = (opt.get("model") or "sr").lower()
     if model == "ppon" and opt.get("use_cem") and \
             (opt.get("cem_config") or {}).get("out_orig"):
@@ -68,13 +70,6 @@ def _check_ported(opt) -> None:
             "CEM's out_orig with model [ppon]: PPON's eval_step takes no "
             "apply_cem, so the JAX CLI raises a TypeError there "
             "(ROADMAP C 20)")
-    if model not in ("sr", "srgan", "srragan", "ppon", "sftgan",
-                     "sftgan_acd", "pix2pix", "cyclegan", "vsr", "vsrgan",
-                     "evsrgan", "video", "srflow"):
-        item = _OTHER_MODELS.get(model, "Queue A 10")
-        raise NotImplementedError(
-            f"model [{model}] inference is not ported yet (ROADMAP {item}, "
-            "the rest of the zoo)")
     for keys, what, item in _DEFERRED:
         if any(opt.get(k) for k in keys):
             raise NotImplementedError(
@@ -185,6 +180,12 @@ def main(argv=None, device: Union[str, torch.device, None] = None
                         save_img(tensor2img(s[0], znorm), os.path.join(
                             res_dir, f"{stem}_h{heat:.2f}_{k}.png"))
                         sr = s if sr is None else sr
+            elif model == "dvd":
+                # the top frame is the result; the bottom one is saved
+                # beside it by the batch's index (test.py:111-115)
+                sr, bottom = trainer.eval_step_both(state, batch["in"])
+                save_img(tensor2img(bottom[0], znorm),
+                         os.path.join(res_dir, f"{i}_bottom.png"))
             elif model == "sftgan" and "seg" in batch:
                 sr = trainer.eval_step(state, batch["LR"], batch["seg"])
             elif model in ("sftgan", "sftgan_acd") and not (

@@ -9,7 +9,11 @@ and the video models ``vsr``, ``vsrgan``, ``evsrgan`` and ``video``
 (``vsr_trainer.VSRTrainer``; the validation scores the first frame of a
 clip's HR, as the JAX CLI's does, ROADMAP C 25) and ``srflow``
 (``srflow_trainer.SRFlowTrainer``; the validation samples at heat 0, as
-``eval_step``'s default). Every
+``eval_step``'s default), ``dvd`` (``dvd_trainer.DVDTrainer``; a
+validation set fails, as the JAX CLI's does, ROADMAP C 27), ``wbc``
+(``wbc_trainer.WBCTrainer``; its unaligned validation set is served from
+A) and ``pbr`` / ``sr_pbr`` / ``pbr_sr`` (``pbr_trainer.PBRTrainer``; the
+validation serves and scores the primary map). Every
 ``logger.display_freq`` iterations, when the batch has ``A``, the sample
 grid A | G(A) | B goes to ``experiments_root/samples/{iter:08d}.png``
 (``train.py:353-369``).
@@ -64,12 +68,6 @@ from ..utils.logging_utils import (ScalarWriter, close_logger,
 from ..utils.metrics import MetricsDict, Timer
 from .producer import make_otf_degradation
 from .sr_trainer import create_trainer as create_sr_trainer
-
-# the models of the JAX CLI that the port does not train yet -> their item
-_OTHER_MODELS = {
-    "dvd": "Queue A 10.6", "wbc": "Queue A 10.6", "pbr": "Queue A 10.6",
-    "sr_pbr": "Queue A 10.6", "pbr_sr": "Queue A 10.6",
-}
 
 
 def parse_options(argv=None):
@@ -142,15 +140,8 @@ def get_dataloaders(opt, pin_memory: bool = False):
 
 
 def create_trainer(opt, device: Union[str, torch.device, None] = None):
-    """The trainer of the options' ``model``: ``sr`` (and its aliases),
-    ``ppon``, ``sftgan`` / ``sftgan_acd``, ``pix2pix``, ``cyclegan``, a
-    video model or ``srflow``; the other models of the JAX CLI raise with
-    their ROADMAP item."""
-    model = (opt.get("model") or "sr").lower()
-    if model in _OTHER_MODELS:
-        raise NotImplementedError(
-            f"model [{model}] training is not ported yet (ROADMAP "
-            f"{_OTHER_MODELS[model]}, the rest of the zoo)")
+    """The trainer of the options' ``model``: every model of the JAX CLI
+    (``sr_trainer.create_trainer``)."""
     return create_sr_trainer(opt, device=device)
 
 
@@ -168,6 +159,13 @@ def validate(trainer, state, val_loader, opt, epoch: int, current_step: int,
     save_imgs = bool((opt.get("logger") or {}).get("save_val_imgs", True))
     scale = int(opt.get("scale") or 1)
     for i, batch in enumerate(val_loader):
+        if "LR" not in batch and "A" not in batch:
+            raise KeyError(
+                f"a validation batch of [{opt.get('model')}] holds neither "
+                f"LR nor A (its keys: {sorted(batch)}): the JAX CLI's "
+                "validate fails there with a KeyError, and the port does "
+                "not make up a validation (ROADMAP C 27); leave the "
+                "validation set out")
         in_key = "LR" if "LR" in batch else "A"
         gt_key = "HR" if "HR" in batch or in_key == "LR" else "B"
         sr_img = tensor2img(trainer.eval_step(state, batch[in_key])[0])

@@ -53,6 +53,8 @@ class CycleGANState:
     from and the key that seeded it. The ``sr`` state's other fields are
     None: the code that serves and saves a state reads them."""
 
+    D_FIELDS = ("d_a", "d_b")
+
     step: int
     g: NetState
     d_a: Optional[NetState] = None

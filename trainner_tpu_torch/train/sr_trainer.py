@@ -97,6 +97,7 @@ from .state import (NetState, SRTrainState, ema_update, init_ema, init_swa,
 
 AGC_HISTORY = 256  # the auto clip's ring buffer of G's gradient norms
 VIDEO_MODELS = ("vsr", "vsrgan", "evsrgan", "video")
+PBR_MODELS = ("pbr", "sr_pbr", "pbr_sr")
 
 
 @contextlib.contextmanager
@@ -306,6 +307,26 @@ class SRTrainer:
                                            filter_type=lpf)
             self.f_high = functools.partial(filter_high, kernel_size=9,
                                             filter_type=hpf)
+
+    def _drop_sr_options(self) -> None:
+        """Sets aside the options of the ``sr`` step that a trainer of
+        another model does not read (its JAX counterpart reads none of
+        them): EMA, SWA, AdaTarget, batch and Diff augmentations, the
+        frequency split, a virtual batch, unshuffle and CEM."""
+        self.use_ema = self.use_swa = self.use_atg = False
+        self.batchaug, self.dapolicy = None, ""
+        self.f_low = self.f_high = None
+        self.accumulations = 1
+        self.unshuffle_scale, self.use_cem = 0, False
+
+    def _default_optimizer(self, net: torch.nn.Module, which: str):
+        """``optim_{which}`` at the JAX ``build_optimizer``'s defaults (no
+        beta or weight decay read), as the DVD and PBR trainers build
+        theirs."""
+        params = list(net.parameters())
+        return build_optimizer(params, self.train_opt.get(f"optim_{which}",
+                                                          "adam"),
+                               views=[jax_view(p) for p in params])
 
     def _optimizer(self, net: torch.nn.Module, which: str):
         """``optim_{which}`` over ``net``'s parameters, with each weight's
@@ -992,8 +1013,11 @@ def create_trainer(opt: dict, device: Union[str, torch.device, None] = None,
     ``sftgan_acd`` (``sftgan_trainer.SFTGANTrainer``), ``pix2pix``
     (``pix2pix_trainer.Pix2PixTrainer``), ``cyclegan``
     (``cyclegan_trainer.CycleGANTrainer``), ``vsr`` / ``vsrgan`` /
-    ``evsrgan`` / ``video`` (``vsr_trainer.VSRTrainer``) and ``srflow``
-    (``srflow_trainer.SRFlowTrainer``, always f32). Training runs the
+    ``evsrgan`` / ``video`` (``vsr_trainer.VSRTrainer``), ``srflow``
+    (``srflow_trainer.SRFlowTrainer``, always f32), ``dvd``
+    (``dvd_trainer.DVDTrainer``), ``wbc`` (``wbc_trainer.WBCTrainer``) and
+    ``pbr`` / ``sr_pbr`` / ``pbr_sr`` (``pbr_trainer.PBRTrainer``): every
+    model of the JAX ``train.py::create_trainer``. Training runs the
     network bodies in bf16 and inference in f32, unless ``use_amp`` says
     otherwise, as in the JAX package. Runs on ``cuda`` unless ``device``
     names the CPU, and raises when no card is present. ``graphs``
@@ -1001,11 +1025,9 @@ def create_trainer(opt: dict, device: Union[str, torch.device, None] = None,
     graphs; ``False`` runs them eagerly, to compare the two."""
     model = (opt.get("model") or "sr").lower()
     if model not in ("sr", "srgan", "srragan", "ppon", "sftgan",
-                     "sftgan_acd", "pix2pix", "cyclegan",
-                     "srflow") + VIDEO_MODELS:
-        raise NotImplementedError(
-            f"model [{model}] is not ported yet (ROADMAP Queue A 10.6, "
-            "the rest of the zoo)")
+                     "sftgan_acd", "pix2pix", "cyclegan", "srflow", "dvd",
+                     "wbc") + PBR_MODELS + VIDEO_MODELS:
+        raise NotImplementedError(f"model [{model}] not recognized")
     amp_default = bool(opt.get("is_train", True))
     dtype = torch.bfloat16 if opt.get("use_amp", amp_default) \
         else torch.float32
@@ -1021,6 +1043,12 @@ def create_trainer(opt: dict, device: Union[str, torch.device, None] = None,
         from .vsr_trainer import VSRTrainer as cls
     elif model == "srflow":
         from .srflow_trainer import SRFlowTrainer as cls
+    elif model == "dvd":
+        from .dvd_trainer import DVDTrainer as cls
+    elif model == "wbc":
+        from .wbc_trainer import WBCTrainer as cls
+    elif model in PBR_MODELS:
+        from .pbr_trainer import PBRTrainer as cls
     else:
         cls = SRTrainer
     return cls(opt, dtype=dtype, device=device, graphs=graphs)

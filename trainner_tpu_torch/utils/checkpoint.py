@@ -10,7 +10,9 @@
   norms), as
   ``flax.serialization.to_bytes`` writes it;
 * ``{tag}_G_A.ckpt``, ``{tag}_G_B.ckpt``, ``{tag}_D_A.ckpt``,
-  ``{tag}_D_B.ckpt`` in place of those for a CycleGAN state;
+  ``{tag}_D_B.ckpt`` in place of those for a CycleGAN state, and
+  ``{tag}_G.ckpt``, ``{tag}_D_S.ckpt``, ``{tag}_D_T.ckpt`` for a WBC
+  state;
 * ``{tag}.state``: the whole training state as the JAX ``SRTrainState``'s
   state dict (``utils/torch_interop.py::train_state_to_jax``; a net's
   ``batch_stats``, G's running statistics among them, in its ``extra``),
@@ -364,7 +366,7 @@ def load_state(path: str, state) -> Tuple[Any, dict]:
     (``key_to_seed``)."""
     with open(path, "rb") as f:
         tree = msgpack_restore(f.read())
-    if hasattr(state, "named_params"):
+    if hasattr(state, "D_FIELDS"):
         carried = cyclegan_state_from_jax(tree, state)
     else:
         carried = train_state_from_state_dict(
@@ -425,19 +427,23 @@ def save_checkpoint(state, opt: dict, epoch: int, niter: int,
     refreshed for them) and ``{tag}_emaG.ckpt`` (when there are EMA
     weights) under ``path.models`` and ``{tag}.state`` under
     ``path.training_state``; ``tag`` is the iteration, or ``latest``.
-    A CycleGAN state (``named_params``) writes ``{tag}_G_A.ckpt``,
-    ``{tag}_G_B.ckpt``, ``{tag}_D_A.ckpt`` and ``{tag}_D_B.ckpt`` instead
-    of G's and D's files (JAX ``utils/checkpoint.py:175-181``)."""
+    A CycleGAN state writes ``{tag}_G_A.ckpt``, ``{tag}_G_B.ckpt``,
+    ``{tag}_D_A.ckpt`` and ``{tag}_D_B.ckpt`` instead of G's and D's
+    files, a WBC state ``{tag}_G.ckpt``, ``{tag}_D_S.ckpt`` and
+    ``{tag}_D_T.ckpt`` (the names of each state's ``named_params``; JAX
+    ``utils/checkpoint.py:175-181``)."""
     model_dir = opt["path"]["models"]
     state_dir = opt["path"]["training_state"]
     tag = "latest" if latest_only else str(niter)
     tree = train_state_to_jax(state)
-    if hasattr(state, "named_params"):
-        # CycleGAN: one file per net, as the JAX package writes them
-        for name, params in (("G_A", tree["g"]["params"]["G_A"]),
-                             ("G_B", tree["g"]["params"]["G_B"]),
-                             ("D_A", (tree["d_a"] or {}).get("params")),
-                             ("D_B", (tree["d_b"] or {}).get("params"))):
+    if hasattr(state, "D_FIELDS"):
+        # one file per net, as the JAX package writes them
+        g = tree["g"]["params"]
+        nets = [(n, g[n]) for n in ("G_A", "G_B")] \
+            if isinstance(state.g.net, torch.nn.ModuleDict) else [("G", g)]
+        nets += [("D_" + w[2:].upper(), (tree[w] or {}).get("params"))
+                 for w in state.D_FIELDS]
+        for name, params in nets:
             if params is not None:
                 save_params(params, os.path.join(
                     model_dir, f"{tag}_{name}{CKPT_EXT}"))

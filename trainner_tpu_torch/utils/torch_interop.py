@@ -639,22 +639,32 @@ def train_state_from_jax(g_params: Mapping[str, Any],
 def cyclegan_state_from_jax(tree: Mapping[str, Any], state
                             ) -> Dict[str, Any]:
     """A JAX ``CycleGANState`` (``trainner_tpu/train/cyclegan_trainer.py:
-    40``; live as numpy leaves, or as a ``.state`` file holds it) -> what
-    ``load_train_state`` takes for the port's CycleGAN ``state``: G's
-    params ``{"G_A", "G_B"}`` with their ``batch_stats`` from ``extra`` and
-    the one optimizer's moments over both, ``d_a`` and ``d_b`` with
-    theirs."""
+    40``) or ``WBCState`` (``trainner_tpu/train/wbc_trainer.py:50``; live
+    as numpy leaves, or as a ``.state`` file holds it) -> what
+    ``load_train_state`` takes for the port's state of the same kind: G's
+    params (CycleGAN's ``{"G_A", "G_B"}``) with their ``batch_stats`` from
+    ``extra`` and the optimizer's moments, and each D of ``state.D_FIELDS``
+    (``d_a`` and ``d_b``; ``d_s`` and ``d_t``) with theirs."""
     tree = _plain(tree)
-    gnets = dict(state.g.net.items())
     g = tree["g"]
     g_extra = g.get("extra") or {}
-    stats = {n: (g_extra.get(n) or {}).get("batch_stats") for n in gnets}
+    if isinstance(state.g.net, torch.nn.ModuleDict):
+        gnets = dict(state.g.net.items())
+        stats = {n: (g_extra.get(n) or {}).get("batch_stats")
+                 for n in gnets}
+
+        def convert_g(t, s=None):
+            return nets_from_jax(t, s, gnets)
+    else:
+        stats = g_extra.get("batch_stats")
+
+        def convert_g(t, s=None):
+            return g_from_jax(t, s, state.g.net)
     out: Dict[str, Any] = {
         "step": int(np.asarray(tree["step"])),
-        "g": nets_from_jax(g["params"], stats, gnets),
-        "g_opt": _moments_from_jax(
-            g.get("opt_state"), lambda t: nets_from_jax(t, None, gnets))}
-    for which in ("d_a", "d_b"):
+        "g": convert_g(g["params"], stats),
+        "g_opt": _moments_from_jax(g.get("opt_state"), convert_g)}
+    for which in state.D_FIELDS:
         d, ns = tree.get(which), getattr(state, which)
         if d is None or ns is None:
             continue
@@ -700,7 +710,7 @@ def load_train_state(state, carried: Mapping[str, Any]) -> None:
                              "checkpoint carries none")
         state.grad_hist["vals"].copy_(carried["grad_hist"]["vals"])
         state.grad_hist["n"].fill_(int(carried["grad_hist"]["n"]))
-    for which in ("g", "d", "d_a", "d_b", "loc"):
+    for which in ("g", "d", "loc") + getattr(state, "D_FIELDS", ()):
         net_state = getattr(state, which, None)
         if net_state is None:
             continue
@@ -936,18 +946,22 @@ def train_state_to_jax(state) -> Dict[str, Any]:
         return convert_g(dict(zip(named, _to_host(list(named.values())))))[0]
 
     rng = state.rng if state.rng is not None else seed_to_key(0)
-    if hasattr(state, "named_params"):
-        gnets = dict(state.g.net.items())
-        g = net(state.g, lambda sd: nets_to_jax(sd, gnets))
-        stats = g.pop("extra").get("batch_stats", {})
-        g["extra"] = {n: {"batch_stats": stats[n]} if stats.get(n) else {}
-                      for n in gnets}
+    if hasattr(state, "D_FIELDS"):
+        # CycleGAN's and WBC's states: G (CycleGAN's two) and their Ds
+        if isinstance(state.g.net, torch.nn.ModuleDict):
+            gnets = dict(state.g.net.items())
+            g = net(state.g, lambda sd: nets_to_jax(sd, gnets))
+            stats = g.pop("extra").get("batch_stats", {})
+            g["extra"] = {n: {"batch_stats": stats[n]} if stats.get(n)
+                          else {} for n in gnets}
+        else:
+            g = net(state.g, convert_g)
         return {"step": np.asarray(state.step, np.int32),
                 "rng": np.asarray(rng, np.uint32), "g": g,
                 **{w: None if getattr(state, w) is None else net(
                     getattr(state, w),
                     lambda sd, n=getattr(state, w).net: d_to_jax(sd, n))
-                   for w in ("d_a", "d_b")}}
+                   for w in state.D_FIELDS}}
     hist = state.grad_hist
     return {
         "step": np.asarray(state.step, np.int32),
