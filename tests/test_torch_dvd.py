@@ -207,3 +207,21 @@ def test_three_steps_match_jax(gan):
     assert np.abs(gt.numpy() - np.asarray(wt)).max() < 1e-5
     assert np.abs(gb.numpy() - np.asarray(wb)).max() < 1e-5
     assert torch.equal(pt.eval_step(pstate, torch.from_numpy(x)), gt)
+
+
+@pytest.mark.parametrize("sr_option", [
+    {"use_ema": True}, {"use_swa": True}, {"use_atg": True},
+    {"use_unshuffle": True, "unshuffle_scale": 2}, {"use_cem": True}])
+def test_the_sr_step_options_stay_with_the_sr_trainer(sr_option):
+    """The DVD trainer extends the shared ``Trainer``, not the ``sr`` one:
+    the ``sr`` step's own options (EMA, SWA, AdaTarget, unshuffle, CEM),
+    which the JAX DVD trainer never reads, are not read here either. The
+    state holds no EMA, SWA or LocNet, G reads its input as given, and a
+    step runs."""
+    tr = DVDTrainer({**options(), **sr_option}, device="cpu")
+    st = tr.init_state(0)
+    assert st.ema is None and st.swa is None and st.loc is None
+    assert tr.unshuffle_scale == 0 and not tr.use_cem
+    st, logs = tr.train_step(st, {k: torch.from_numpy(v)
+                                  for k, v in dvd_batch(2).items()})
+    assert st.step == 1 and np.isfinite(float(logs["l_g_total"]))

@@ -200,3 +200,22 @@ def test_one_noise_draw_for_every_map(vgg):
     assert not torch.equal(seen[0], seen[4])
     assert all(m.held is None for m in st.g.net.modules()
                if hasattr(m, "held"))
+
+
+def test_a_held_noise_draw_serves_one_shape_and_type():
+    """A held draw is reused by passes of its shape and type and refuses
+    any other, so a pass that would need a fresh draw fails instead of
+    breaking the one draw of a step."""
+    from trainner_tpu_torch.ops.blocks import GaussianNoise
+
+    noise = GaussianNoise(0.1).train()
+    noise.generator = torch.Generator().manual_seed(0)
+    noise.hold = True
+    x = torch.ones(1, 4, 4, 8)
+    first = noise(x)
+    assert torch.equal(noise(x), first)
+    for other in (torch.ones(1, 4, 4, 4), x.double()):
+        with pytest.raises(ValueError, match="held latent-noise draw"):
+            noise(other)
+    noise.hold, noise.held = False, None
+    assert not torch.equal(noise(x), first)

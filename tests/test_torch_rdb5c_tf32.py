@@ -259,6 +259,85 @@ def test_three_tf32_products_leave_dx_far_inside_its_tolerance():
     assert CARD_DX_MARGIN / 2 <= margin <= CARD_DX_MARGIN * 2, margin
 
 
+def test_the_stage_emulation_adds_as_the_tile_does():
+    """chip_smoke.stage_sums_emulated, which the card's PBR serving check
+    holds the f32 kernels to bit for bit, gives the sums of ``_tile_sums``
+    (each mma through chip_smoke.mma_tf32_sum under TF32_MMA) bit for bit,
+    and its split is this file's."""
+    gen = torch.Generator().manual_seed(3)
+    inp = torch.randn(2, 3, 5, 64, generator=gen)
+    B = torch.randn(9, 64, 32, generator=gen) * 0.05
+    assert torch.equal(chip_smoke.stage_sums_emulated(inp, B),
+                       _tile_sums(inp, B, chip_smoke.TF32_MMA))
+    for got, want in zip(chip_smoke.tf32_split(inp), split(inp)):
+        assert torch.equal(got, want)
+
+
+def test_blocks_side_by_side_emulate_as_each_alone():
+    """chip_smoke.rdb_forward_emulated over a leading axis of independent
+    blocks (the card's PBR trace emulates all 69 at once) gives each
+    block's own emulation bit for bit."""
+    gen = torch.Generator().manual_seed(5)
+    nf = gc = 32
+    xs, packs, biases = [], [], []
+    for _ in range(2):
+        ws, bs = chip_smoke._block_weights(gen, nf, gc)
+        xs.append(torch.randn(1, 3, 4, nf, generator=gen) * 0.5)
+        packs.append(pack_rdb_weights(ws, nf, gc, torch.float32))
+        biases.append(bs)
+    together = chip_smoke.rdb_forward_emulated(
+        torch.stack(xs), [torch.stack([p[k] for p in packs])
+                          for k in range(5)],
+        [torch.stack([b[k] for b in biases]) for k in range(5)])
+    for i in range(2):
+        assert torch.equal(together[i], chip_smoke.rdb_forward_emulated(
+            xs[i], packs[i], biases[i]))
+
+
+def _block_f64(x, ws, bs):
+    """One block forward in f64 from OIHW weights, NHWC in and out."""
+    xc = x.double().permute(0, 3, 1, 2)
+    feats = [xc]
+    for k in range(5):
+        v = F.conv2d(torch.cat(feats, 1), ws[k].double(), bs[k].double(),
+                     padding=1)
+        if k == 4:
+            return (v * 0.2 + xc).permute(0, 2, 3, 1)
+        feats.append(torch.where(v >= 0, v, 0.2 * v))
+
+
+def test_the_emulated_block_leans_towards_zero():
+    """chip_smoke.rdb_forward_emulated, the f32 block forward as the card
+    computes it: within the f32 tolerance of the plain version, but
+    against an f64 forward its error is many times the plain f32's and
+    shrinks the last conv's sum (0.2 conv5 = out - x) nearly everywhere,
+    where the plain f32's leans neither way: the mma cuts every sum
+    towards zero. Through 69 blocks such errors add up rather than
+    cancel, as the card's PBR serving trace reads."""
+    gen = torch.Generator().manual_seed(4)
+    ws, bs = chip_smoke._block_weights(gen)
+    x = torch.randn(1, 4, 5, chip_smoke.NF, generator=gen) * 0.5
+    packed = pack_rdb_weights(ws, chip_smoke.NF, chip_smoke.GC,
+                              torch.float32)
+    got = chip_smoke.rdb_forward_emulated(x, packed, bs,
+                                          return_residuals=True)
+    plain = rdb5c_forward_plain(x, packed, bs, return_residuals=True)
+    for g, r in zip(got, plain):
+        assert float((g - r).abs().max()) <= chip_smoke._tolerance(
+            torch.float32, r)
+    exact = _block_f64(x, ws, bs)
+    sign = (exact - x.double()).sign()
+
+    def reading(out):
+        err = out.double() - exact
+        return float(err.abs().max()), float((err * sign).sum()
+                                             / err.abs().sum())
+
+    (emu, emu_bias), (pl, pl_bias) = reading(got[0]), reading(plain[0])
+    assert emu > 5 * pl, (emu, pl)
+    assert emu_bias < -0.8 and abs(pl_bias) < 0.3, (emu_bias, pl_bias)
+
+
 def test_one_tf32_product_fails_the_card_tolerances():
     """The tolerances can tell 3xTF32 from plain TF32: one product keeps
     about 11 bits of each operand (out, scaled by 0.2, may pass)."""

@@ -546,9 +546,9 @@ class GaussianNoise(nn.Module):
     the trainer owns and sets), or from torch's default generator when
     none is set. The trainer registers its generator with every graph that
     captures the step, so each replay draws fresh noise. With ``hold`` set
-    the first draw is kept (``held``) and every later pass at its shape
-    reuses it: the PBR trainer's passes over a step's maps share one draw,
-    as the JAX ones share one key."""
+    the first draw is kept (``held``) and every later pass reuses it (a
+    pass of another shape or type raises): the PBR trainer's passes over a
+    step's maps share one draw, as the JAX ones share one key."""
 
     def __init__(self, sigma: float = 0.1):
         super().__init__()
@@ -560,9 +560,13 @@ class GaussianNoise(nn.Module):
     def forward(self, x):
         if not self.training or not self.sigma:
             return x
-        noise = self.held if self.hold and self.held is not None and \
-            self.held.shape == x.shape and self.held.dtype == x.dtype \
-            else None
+        noise = self.held if self.hold else None
+        if noise is not None and (noise.shape != x.shape
+                                  or noise.dtype != x.dtype):
+            raise ValueError(
+                f"a held latent-noise draw of {tuple(noise.shape)} "
+                f"{noise.dtype} cannot serve a pass of {tuple(x.shape)} "
+                f"{x.dtype}")
         if noise is None:
             noise = torch.randn(x.shape, dtype=x.dtype, device=x.device,
                                 generator=self.generator)

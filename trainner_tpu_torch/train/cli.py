@@ -67,7 +67,7 @@ from ..utils.logging_utils import (ScalarWriter, close_logger,
                                    get_root_logger, mkdir_and_rename, mkdirs)
 from ..utils.metrics import MetricsDict, Timer
 from .producer import make_otf_degradation
-from .sr_trainer import create_trainer as create_sr_trainer
+from .sr_trainer import create_trainer
 
 
 def parse_options(argv=None):
@@ -137,12 +137,6 @@ def get_dataloaders(opt, pin_memory: bool = False):
     if "train" not in loaders:
         raise ValueError("no train dataset in options")
     return loaders
-
-
-def create_trainer(opt, device: Union[str, torch.device, None] = None):
-    """The trainer of the options' ``model``: every model of the JAX CLI
-    (``sr_trainer.create_trainer``)."""
-    return create_sr_trainer(opt, device=device)
 
 
 def validate(trainer, state, val_loader, opt, epoch: int, current_step: int,

@@ -26,20 +26,17 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from ..ops.blocks import commit_stats, discard_stats
-from .sr_trainer import SRTrainer, _GraphedStep, _no_param_grad, clip_grads
+from .sr_trainer import Trainer, _GraphedStep, _no_param_grad, clip_grads
 from .state import SRTrainState
 
 
-class DVDTrainer(SRTrainer):
+class DVDTrainer(Trainer):
     """``model: dvd``."""
 
     def __init__(self, opt: dict, dtype: torch.dtype = torch.float32,
                  device=None, graphs: Optional[bool] = None):
         super().__init__(opt, dtype=dtype, device=device, graphs=graphs)
         self.scale = 1
-        self._drop_sr_options()
-
-    _optimizer = SRTrainer._default_optimizer
 
     def _dvd_step(self, state: SRTrainState, batch: Dict[str, torch.Tensor],
                   lr_g, lr_d) -> Dict[str, torch.Tensor]:
@@ -118,9 +115,6 @@ class DVDTrainer(SRTrainer):
         state.step = step + 1
         return state, logs
 
-    def can_scan_steps(self) -> bool:
-        return False
-
     def _both(self, state: SRTrainState, x: torch.Tensor) -> torch.Tensor:
         """Both frames of G in eval mode, in f32, stacked on a leading
         axis."""
@@ -132,7 +126,7 @@ class DVDTrainer(SRTrainer):
                        ) -> Tuple[torch.Tensor, torch.Tensor]:
         """(top frame, bottom frame) of an interlaced NHWC batch, f32 on
         the trainer's device (with graphs, one graph per input shape and
-        type, as ``SRTrainer.eval_step``)."""
+        type, as ``Trainer.eval_step``)."""
         x = interlaced.to(self.device, non_blocking=interlaced.is_pinned())
         if not self.graphs:
             out = self._both(state, x)

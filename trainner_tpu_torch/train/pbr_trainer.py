@@ -33,17 +33,16 @@ import torch
 
 from ..losses.generator_loss import GeneratorLoss
 from ..ops.blocks import GaussianNoise, commit_stats
-from .sr_trainer import SRTrainer, _GraphedStep, clip_grads
+from .sr_trainer import Trainer, _GraphedStep, clip_grads
 from .state import SRTrainState
 
 
-class PBRTrainer(SRTrainer):
+class PBRTrainer(Trainer):
     """``model: pbr`` / ``sr_pbr`` / ``pbr_sr``."""
 
     def __init__(self, opt: dict, dtype: torch.dtype = torch.float32,
                  device=None, graphs: Optional[bool] = None):
         super().__init__(opt, dtype=dtype, device=device, graphs=graphs)
-        self._drop_sr_options()
         self.use_gan = False
         self.adversarial = self.schedD = None
         if self.is_train:
@@ -51,8 +50,6 @@ class PBRTrainer(SRTrainer):
             self.loss_1ch = GeneratorLoss(opt, allow_featnets=False,
                                           device_dtype=dtype
                                           ).to(self.device)
-
-    _optimizer = SRTrainer._default_optimizer
 
     @staticmethod
     def map_keys(batch) -> List[str]:
@@ -115,6 +112,3 @@ class PBRTrainer(SRTrainer):
         logs = fn(state, batch, self.schedG.get_lr(step), 0.0)
         state.step = step + 1
         return state, logs
-
-    def can_scan_steps(self) -> bool:
-        return False

@@ -190,10 +190,14 @@ def d_flax_names(net: torch.nn.Module) -> Dict[str, str]:
     return {name: name.split(".")[0] for name, _ in net.named_parameters()}
 
 
-class SRTrainer:
-    """Owns the options, the dtype policy, the device, the losses and the
-    schedules. The state (networks, optimizers, step) is made by
-    ``init_state`` and updated in place by ``train_step``.
+class Trainer:
+    """What every model's trainer shares: the options, the dtype policy,
+    the device, the loss stack, the schedules (with a GAN the adversarial
+    loss and D's), the state's init (G, and D with a GAN), the CUDA graphs
+    and G's inference. A model's trainer adds its step (``train_step``).
+    The state (networks, optimizers, step) is made by ``init_state`` and
+    updated in place by ``train_step``. The ``sr`` step's own options are
+    read by ``SRTrainer`` alone; the code here sees them off.
 
     ``graphs`` (default: on for ``cuda``, off for the CPU) runs the step
     and ``eval_step`` as CUDA graphs. The graphs hold the tensors of the
@@ -213,6 +217,10 @@ class SRTrainer:
     # captured are counted, the least recently met going first.
     EVAL_CAPTURE_AT = 9
     EVAL_SEEN = 64
+    # the sr step's options that the shared code reads (SRTrainer's own)
+    use_ema = use_swa = use_atg = use_cem = False
+    unshuffle_scale = 0
+    cem_kernel = "box"
 
     def __init__(self, opt: dict, dtype: torch.dtype = torch.float32,
                  device: Union[str, torch.device, None] = None,
@@ -239,19 +247,10 @@ class SRTrainer:
         # a step's replay changes G's weights behind the packed caches'
         # version check: set then, cleared where the caches are dropped
         self._packs_stale = False
-        self.use_ema = self.use_swa = self.use_atg = False
-        self.batchaug = None
-        self.dapolicy = ""
-        self.f_low = self.f_high = None
         self.is_train = bool(opt.get("is_train", True))
         self.scale = int(opt.get("scale", 4) or 4)
         self.znorm = bool(((opt.get("datasets") or {}).get("train")
                            or {}).get("znorm"))
-        self.unshuffle_scale = int(opt.get("unshuffle_scale") or 0) \
-            if opt.get("use_unshuffle") else 0
-        self.use_cem = bool(opt.get("use_cem"))
-        self.cem_kernel = (opt.get("cem") or {}).get("kernel", "box") \
-            if isinstance(opt.get("cem"), dict) else "box"
         self.gan_weight = float(train_opt.get("gan_weight") or 0.0)
         self.use_gan = bool(self.gan_weight) and self.is_train
         self.generator_loss = self.adversarial = None
@@ -269,76 +268,25 @@ class SRTrainer:
             self.schedD = build_scheduler(
                 train_opt, niter=niter,
                 base_lr=train_opt.get("lr_D", train_opt.get("lr_G", 1e-4)))
-        self.d_update_ratio = int(train_opt.get("D_update_ratio", 1) or 1)
-        self.d_init_iters = int(train_opt.get("D_init_iters", 0) or 0)
         self.grad_clip = train_opt.get("grad_clip")
         self.grad_clip_value = float(train_opt.get("grad_clip_value", 0.1)
                                      or 0.1)
         if self.grad_clip not in (None, "", False, "value", "norm", "auto"):
             raise NotImplementedError(f"grad_clip [{self.grad_clip}]")
-        self.use_ema = bool(opt.get("use_ema") or train_opt.get("use_ema"))
-        self.ema_decay = float(train_opt.get("ema_decay", 0.999) or 0.999)
-        self.accumulations = max(1, int(
-            (train_opt.get("virtual_batch_size") or 0) or 1))
-        self.use_swa = bool(opt.get("use_swa"))
-        self.swa_start_iter = int(float(train_opt.get(
-            "swa_start_iter", 0) or 0))
-        self.use_atg = bool(opt.get("use_atg"))
-        self.atg_start_iter = int(float(train_opt.get("atg_start_iter", 0)
-                                        or 0))
-        self.freeze_loc = int(train_opt.get("freeze_loc", 0) or 0) \
-            if train_opt.get("freeze_d") or train_opt.get("freeze_loc") \
-            else 0
-        if train_opt.get("mixup"):
-            mixopts = train_opt.get("mixopts",
-                                    ["blend", "rgb", "mixup", "cutmix",
-                                     "cutmixup"])
-            alphas = dict(zip(mixopts, train_opt.get("mixalpha", []) or []))
-            self.batchaug = BatchAugment(
-                list(mixopts) + ["none"],
-                (list(train_opt.get("mixprob", []) or
-                      [1.0] * len(mixopts)) + [1.0]), alphas)
-        self.dapolicy = (train_opt.get("dapolicy", "") or "") \
-            if train_opt.get("diffaug") else ""
-        if bool(train_opt.get("fs")):
-            lpf = train_opt.get("lpf_type", "average")
-            hpf = train_opt.get("hpf_type", "average")
-            self.f_low = functools.partial(filter_low, kernel_size=9,
-                                           filter_type=lpf)
-            self.f_high = functools.partial(filter_high, kernel_size=9,
-                                            filter_type=hpf)
 
-    def _drop_sr_options(self) -> None:
-        """Sets aside the options of the ``sr`` step that a trainer of
-        another model does not read (its JAX counterpart reads none of
-        them): EMA, SWA, AdaTarget, batch and Diff augmentations, the
-        frequency split, a virtual batch, unshuffle and CEM."""
-        self.use_ema = self.use_swa = self.use_atg = False
-        self.batchaug, self.dapolicy = None, ""
-        self.f_low = self.f_high = None
-        self.accumulations = 1
-        self.unshuffle_scale, self.use_cem = 0, False
-
-    def _default_optimizer(self, net: torch.nn.Module, which: str):
-        """``optim_{which}`` at the JAX ``build_optimizer``'s defaults (no
-        beta or weight decay read), as the DVD and PBR trainers build
-        theirs."""
+    def _optimizer(self, net: torch.nn.Module, which: str):
+        """``optim_{which}`` over ``net``'s parameters at the JAX
+        ``build_optimizer``'s defaults (no beta or weight decay read), as
+        the DVD and PBR trainers build theirs."""
         params = list(net.parameters())
         return build_optimizer(params, self.train_opt.get(f"optim_{which}",
                                                           "adam"),
                                views=[jax_view(p) for p in params])
 
-    def _optimizer(self, net: torch.nn.Module, which: str):
-        """``optim_{which}`` over ``net``'s parameters, with each weight's
-        JAX layout for the rules that read it (AdamP's projection)."""
-        t = self.train_opt
-        params = list(net.parameters())
-        return build_optimizer(
-            params, t.get(f"optim_{which}", "adam"),
-            beta1=float(t.get(f"beta1_{which}", 0.9) or 0.9),
-            beta2=float(t.get(f"beta2_{which}", 0.999) or 0.999),
-            weight_decay=float(t.get(f"weight_decay_{which}", 0) or 0),
-            views=[jax_view(p) for p in params])
+    def can_scan_steps(self) -> bool:
+        """True when a window of steps may run as replays of one program
+        (``SRTrainer.train_steps``); a model's own step does not."""
+        return False
 
     def _make_g(self) -> torch.nn.Module:
         """G as the options build it (``define_G``), in the trainer's
@@ -350,9 +298,6 @@ class SRTrainer:
         dtype."""
         return define_D(self.opt, dtype=self.dtype)
 
-    # ------------------------------------------------------------------
-    # init
-    # ------------------------------------------------------------------
     def init_state(self, seed: int = 0,
                    g_path: Optional[str] = None) -> SRTrainState:
         """Networks with random weights drawn from ``torch.Generator``s
@@ -415,9 +360,6 @@ class SRTrainer:
             init_ema(state)
         return state
 
-    # ------------------------------------------------------------------
-    # train step
-    # ------------------------------------------------------------------
     def _to_device(self, x: torch.Tensor) -> torch.Tensor:
         return wire_to_f01(x.to(self.device, non_blocking=x.is_pinned()),
                            self.znorm)
@@ -429,6 +371,247 @@ class SRTrainer:
         if self.unshuffle_scale:
             lr_img = space_to_depth(lr_img, self.unshuffle_scale)
         return net(lr_img).float()
+
+    def _bind(self, state: SRTrainState) -> None:
+        """The graphs hold ``state``'s tensors: for another state object
+        they are dropped, to be captured anew."""
+        if self._graph_state is not state:
+            for fn in self._step_fns.values():
+                if isinstance(fn, _GraphedStep):
+                    fn.entries.clear()
+            self._eval_graphs.clear()
+            self._fresh_packs()
+            self._graph_state = state
+
+    def _fresh_packs(self) -> None:
+        """Drops the packed-weight caches of the bound state's G when a
+        step's replay has changed its weights since they were packed (a
+        replay runs no Python, so no version counter moves); an eager run
+        of the blocks packs anew."""
+        if self._packs_stale and self._graph_state is not None:
+            for net in (self._graph_state.g.net, self._graph_state.ema,
+                        self._graph_state.swa):
+                if net is not None:
+                    drop_packed(net)
+        self._packs_stale = False
+
+    def graph_pool(self):
+        """The one memory pool of this trainer's graphs."""
+        if self._pool is None:
+            self._pool = torch.cuda.graph_pool_handle()
+        return self._pool
+
+    def step_graphs(self) -> Dict[tuple, Captured]:
+        """Every captured step graph by ``(update_d, update_g, atg_on,
+        batch signature)``."""
+        return {(*key, sig): cap for key, fn in self._step_fns.items()
+                if isinstance(fn, _GraphedStep)
+                for sig, (_, _, cap) in fn.entries.items()}
+
+    def eval_graphs(self) -> Dict[tuple, Captured]:
+        """Every cached ``eval_step`` graph by input (shape, dtype)."""
+        return {key: cap for key, (_, cap) in self._eval_graphs.items()}
+
+    @staticmethod
+    def _eval_net(state: SRTrainState, which: str) -> str:
+        """'ema' for ``which`` 'ema' or 'auto' when the state has EMA
+        weights, 'swa' for 'swa' when it has SWA weights, else 'g', as the
+        JAX package's ``eval_step`` picks."""
+        if which not in ("g", "ema", "swa", "auto"):
+            raise ValueError(f"which [{which}]: 'g', 'ema', 'swa' or 'auto'")
+        if which in ("ema", "auto") and state.ema is not None:
+            return "ema"
+        if which == "swa" and state.swa is not None:
+            return "swa"
+        return "g"
+
+    def _eval_forward(self, state: SRTrainState, x: torch.Tensor,
+                      net: str = "g", cem: bool = False) -> torch.Tensor:
+        module = {"ema": state.ema, "swa": state.swa}.get(net, state.g.net)
+        x = x.float()
+        y = self._g(module.eval(), x)
+        if cem:
+            y = cem_project(y, x, self.scale, kernel=self.cem_kernel)
+        return y
+
+    @torch.inference_mode()
+    def eval_step(self, state: SRTrainState, lr_img: torch.Tensor,
+                  which: str = "auto",
+                  apply_cem: Optional[bool] = None) -> torch.Tensor:
+        """Inference forward: NHWC LR batch -> f32 NHWC SR batch on the
+        trainer's device, the caller's own tensor. ``which``: 'g', 'ema',
+        'swa' or 'auto' (the EMA weights when the state has them, else G).
+        ``apply_cem`` overrides ``use_cem`` (the test CLI's ``out_orig``).
+        With graphs, one graph per input shape and type, net and CEM, at
+        most
+        ``EVAL_GRAPHS`` of them (the least recently used is dropped first).
+        The first calls of a shape run eagerly; the ``EVAL_CAPTURE_AT``-th
+        runs eagerly and captures, and later ones replay: the shapes of a
+        test set of one size per image cost no capture and no pool memory,
+        plain or x8."""
+        x = lr_img.to(self.device, non_blocking=lr_img.is_pinned())
+        net = self._eval_net(state, which)
+        cem = self.use_cem if apply_cem is None else bool(apply_cem)
+        if not self.graphs:
+            return self._eval_forward(state, x, net, cem)
+        return self._eval_graphed(
+            state, (tuple(x.shape), x.dtype, net, cem), [x],
+            lambda t: self._eval_forward(state, t, net, cem))
+
+    def _eval_graphed(self, state: SRTrainState, key: tuple, inputs: list,
+                      fn: Callable) -> torch.Tensor:
+        """``fn(*inputs)`` as ``eval_step`` runs it with graphs: eagerly
+        until the ``EVAL_CAPTURE_AT``-th call of ``key``, which also
+        captures it over static copies of ``inputs``; later calls copy
+        their inputs in and replay (at most ``EVAL_GRAPHS`` graphs kept,
+        the least recently used going first)."""
+        self._bind(state)
+        entry = self._eval_graphs.get(key)
+        if entry is not None:
+            self._eval_graphs.move_to_end(key)
+            statics, cap = entry
+            for buf, t in zip(statics, inputs):
+                buf.copy_(t)
+            return cap.replay().clone()
+        self._fresh_packs()
+        calls = self._eval_seen.pop(key, 0) + 1
+        if calls < self.EVAL_CAPTURE_AT:
+            self._eval_seen[key] = calls
+            while len(self._eval_seen) > self.EVAL_SEEN:
+                self._eval_seen.popitem(last=False)
+            return fn(*inputs)
+        out = warm_up(lambda: fn(*inputs))
+        statics = [torch.empty_like(t) for t in inputs]
+        cap = Captured(lambda: fn(*statics), pool=self.graph_pool())
+        self._eval_graphs[key] = (statics, cap)
+        while len(self._eval_graphs) > self.EVAL_GRAPHS:
+            self._eval_graphs.popitem(last=False)
+        return out
+
+    def eval_step_chop(self, state: SRTrainState, lr_img: torch.Tensor,
+                       patch_size: int = 128, overlap: int = 16,
+                       which: str = "auto") -> torch.Tensor:
+        """Tiled inference for large inputs: tiles of ``min(patch_size, h,
+        w)`` at a stride of that less ``overlap``, the last row and column
+        of tiles pinned to the edge, run through ``eval_step`` 32 rows of
+        tiles at a time (so at most two input shapes), the outputs added
+        and divided by how many tiles cover each pixel."""
+        x = lr_img.to(self.device, non_blocking=lr_img.is_pinned())
+        b, h, w, _ = x.shape
+        s = self.scale
+        p = min(patch_size, h, w)
+        step = max(p - overlap, 1)
+        ys = list(range(0, max(h - p, 0) + 1, step))
+        xs = list(range(0, max(w - p, 0) + 1, step))
+        if ys[-1] != h - p:
+            ys.append(h - p)
+        if xs[-1] != w - p:
+            xs.append(w - p)
+        tiles = torch.cat([x[:, y:y + p, x0:x0 + p, :]
+                           for y in ys for x0 in xs], dim=0)
+        out_tiles = torch.cat([self.eval_step(state, tiles[i:i + 32],
+                                              which)
+                               for i in range(0, tiles.shape[0], 32)], dim=0)
+        acc = torch.zeros((b, h * s, w * s, out_tiles.shape[-1]),
+                          dtype=torch.float32, device=self.device)
+        cnt = torch.zeros((b, h * s, w * s, 1), dtype=torch.float32,
+                          device=self.device)
+        k = 0
+        for y in ys:
+            for x0 in xs:
+                win = (slice(None), slice(y * s, (y + p) * s),
+                       slice(x0 * s, (x0 + p) * s))
+                acc[win] += out_tiles[k * b:(k + 1) * b]
+                cnt[win] += 1.0
+                k += 1
+        return acc / cnt
+
+    def eval_step_x8(self, state: SRTrainState, lr_img: torch.Tensor,
+                     which: str = "auto") -> torch.Tensor:
+        """x8 geometric self-ensemble: ``eval_step`` on the four rotations
+        over (h, w), each with and without a flip of w, each output turned
+        back, and the mean of the eight. A non-square input meets two
+        shapes, (h, w) and (w, h)."""
+        x = lr_img.to(self.device, non_blocking=lr_img.is_pinned())
+        outs = []
+        for rot in range(4):
+            for flip in (False, True):
+                xi = torch.rot90(x, rot, (1, 2))
+                if flip:
+                    xi = xi.flip(2)
+                y = self.eval_step(state, xi, which)
+                if flip:
+                    y = y.flip(2)
+                outs.append(torch.rot90(y, -rot, (1, 2)))
+        return torch.stack(outs).mean(0)
+
+
+class SRTrainer(Trainer):
+    """``model: sr`` and its aliases: the ESRGAN step and the ``sr`` step's
+    own options, which this trainer alone reads (the other models' trainers
+    extend ``Trainer``, or this class where their JAX trainers read them)."""
+
+    batchaug = None
+    dapolicy = ""
+    f_low = f_high = None
+
+    def __init__(self, opt: dict, dtype: torch.dtype = torch.float32,
+                 device: Union[str, torch.device, None] = None,
+                 graphs: Optional[bool] = None):
+        super().__init__(opt, dtype=dtype, device=device, graphs=graphs)
+        self.unshuffle_scale = int(opt.get("unshuffle_scale") or 0) \
+            if opt.get("use_unshuffle") else 0
+        self.use_cem = bool(opt.get("use_cem"))
+        self.cem_kernel = (opt.get("cem") or {}).get("kernel", "box") \
+            if isinstance(opt.get("cem"), dict) else "box"
+        if not self.is_train:
+            return
+        train_opt = self.train_opt
+        self.d_update_ratio = int(train_opt.get("D_update_ratio", 1) or 1)
+        self.d_init_iters = int(train_opt.get("D_init_iters", 0) or 0)
+        self.use_ema = bool(opt.get("use_ema") or train_opt.get("use_ema"))
+        self.ema_decay = float(train_opt.get("ema_decay", 0.999) or 0.999)
+        self.accumulations = max(1, int(
+            (train_opt.get("virtual_batch_size") or 0) or 1))
+        self.use_swa = bool(opt.get("use_swa"))
+        self.swa_start_iter = int(float(train_opt.get(
+            "swa_start_iter", 0) or 0))
+        self.use_atg = bool(opt.get("use_atg"))
+        self.atg_start_iter = int(float(train_opt.get("atg_start_iter", 0)
+                                        or 0))
+        self.freeze_loc = int(train_opt.get("freeze_loc", 0) or 0) \
+            if train_opt.get("freeze_d") or train_opt.get("freeze_loc") \
+            else 0
+        if train_opt.get("mixup"):
+            mixopts = train_opt.get("mixopts",
+                                    ["blend", "rgb", "mixup", "cutmix",
+                                     "cutmixup"])
+            alphas = dict(zip(mixopts, train_opt.get("mixalpha", []) or []))
+            self.batchaug = BatchAugment(
+                list(mixopts) + ["none"],
+                (list(train_opt.get("mixprob", []) or
+                      [1.0] * len(mixopts)) + [1.0]), alphas)
+        self.dapolicy = (train_opt.get("dapolicy", "") or "") \
+            if train_opt.get("diffaug") else ""
+        if bool(train_opt.get("fs")):
+            lpf = train_opt.get("lpf_type", "average")
+            hpf = train_opt.get("hpf_type", "average")
+            self.f_low = functools.partial(filter_low, kernel_size=9,
+                                           filter_type=lpf)
+            self.f_high = functools.partial(filter_high, kernel_size=9,
+                                            filter_type=hpf)
+
+    def _optimizer(self, net: torch.nn.Module, which: str):
+        """``optim_{which}`` over ``net``'s parameters, with each weight's
+        JAX layout for the rules that read it (AdamP's projection)."""
+        t = self.train_opt
+        params = list(net.parameters())
+        return build_optimizer(
+            params, t.get(f"optim_{which}", "adam"),
+            beta1=float(t.get(f"beta1_{which}", 0.9) or 0.9),
+            beta2=float(t.get(f"beta2_{which}", 0.999) or 0.999),
+            weight_decay=float(t.get(f"weight_decay_{which}", 0) or 0),
+            views=[jax_view(p) for p in params])
 
     def _frozen(self, netD: torch.nn.Module) -> list:
         """FreezeD's parameters: those under the first ``freeze_loc``
@@ -666,38 +849,6 @@ class SRTrainer:
             ema_update(state, self.ema_decay)
         return {k: v.detach() for k, v in logs.items()}
 
-    # ------------------------------------------------------------------
-    # graphs
-    # ------------------------------------------------------------------
-    def _bind(self, state: SRTrainState) -> None:
-        """The graphs hold ``state``'s tensors: for another state object
-        they are dropped, to be captured anew."""
-        if self._graph_state is not state:
-            for fn in self._step_fns.values():
-                if isinstance(fn, _GraphedStep):
-                    fn.entries.clear()
-            self._eval_graphs.clear()
-            self._fresh_packs()
-            self._graph_state = state
-
-    def _fresh_packs(self) -> None:
-        """Drops the packed-weight caches of the bound state's G when a
-        step's replay has changed its weights since they were packed (a
-        replay runs no Python, so no version counter moves); an eager run
-        of the blocks packs anew."""
-        if self._packs_stale and self._graph_state is not None:
-            for net in (self._graph_state.g.net, self._graph_state.ema,
-                        self._graph_state.swa):
-                if net is not None:
-                    drop_packed(net)
-        self._packs_stale = False
-
-    def graph_pool(self):
-        """The one memory pool of this trainer's graphs."""
-        if self._pool is None:
-            self._pool = torch.cuda.graph_pool_handle()
-        return self._pool
-
     def _get_step_fn(self, update_d: bool, update_g: bool,
                      atg_on: bool = False) -> Callable:
         """The step program of one ``(update_d, update_g, atg_on)``, cached
@@ -714,20 +865,6 @@ class SRTrainer:
             self._step_fns[key] = fn
         return fn
 
-    def step_graphs(self) -> Dict[tuple, Captured]:
-        """Every captured step graph by ``(update_d, update_g, atg_on,
-        batch signature)``."""
-        return {(*key, sig): cap for key, fn in self._step_fns.items()
-                if isinstance(fn, _GraphedStep)
-                for sig, (_, _, cap) in fn.entries.items()}
-
-    def eval_graphs(self) -> Dict[tuple, Captured]:
-        """Every cached ``eval_step`` graph by input (shape, dtype)."""
-        return {key: cap for key, (_, cap) in self._eval_graphs.items()}
-
-    # ------------------------------------------------------------------
-    # train step
-    # ------------------------------------------------------------------
     def train_step(self, state: SRTrainState, batch: Dict[str, torch.Tensor]
                    ) -> Tuple[SRTrainState, Dict[str, torch.Tensor]]:
         """One optimization step on ``batch`` ({"LR", "HR"}: NHWC, float in
@@ -804,85 +941,6 @@ class SRTrainer:
         return state, {kk: torch.stack([lg[kk] for lg in out])
                        for kk in out[0]}
 
-    # ------------------------------------------------------------------
-    # eval
-    # ------------------------------------------------------------------
-    @staticmethod
-    def _eval_net(state: SRTrainState, which: str) -> str:
-        """'ema' for ``which`` 'ema' or 'auto' when the state has EMA
-        weights, 'swa' for 'swa' when it has SWA weights, else 'g', as the
-        JAX package's ``eval_step`` picks."""
-        if which not in ("g", "ema", "swa", "auto"):
-            raise ValueError(f"which [{which}]: 'g', 'ema', 'swa' or 'auto'")
-        if which in ("ema", "auto") and state.ema is not None:
-            return "ema"
-        if which == "swa" and state.swa is not None:
-            return "swa"
-        return "g"
-
-    def _eval_forward(self, state: SRTrainState, x: torch.Tensor,
-                      net: str = "g", cem: bool = False) -> torch.Tensor:
-        module = {"ema": state.ema, "swa": state.swa}.get(net, state.g.net)
-        x = x.float()
-        y = self._g(module.eval(), x)
-        if cem:
-            y = cem_project(y, x, self.scale, kernel=self.cem_kernel)
-        return y
-
-    @torch.inference_mode()
-    def eval_step(self, state: SRTrainState, lr_img: torch.Tensor,
-                  which: str = "auto",
-                  apply_cem: Optional[bool] = None) -> torch.Tensor:
-        """Inference forward: NHWC LR batch -> f32 NHWC SR batch on the
-        trainer's device, the caller's own tensor. ``which``: 'g', 'ema',
-        'swa' or 'auto' (the EMA weights when the state has them, else G).
-        ``apply_cem`` overrides ``use_cem`` (the test CLI's ``out_orig``).
-        With graphs, one graph per input shape and type, net and CEM, at
-        most
-        ``EVAL_GRAPHS`` of them (the least recently used is dropped first).
-        The first calls of a shape run eagerly; the ``EVAL_CAPTURE_AT``-th
-        runs eagerly and captures, and later ones replay: the shapes of a
-        test set of one size per image cost no capture and no pool memory,
-        plain or x8."""
-        x = lr_img.to(self.device, non_blocking=lr_img.is_pinned())
-        net = self._eval_net(state, which)
-        cem = self.use_cem if apply_cem is None else bool(apply_cem)
-        if not self.graphs:
-            return self._eval_forward(state, x, net, cem)
-        return self._eval_graphed(
-            state, (tuple(x.shape), x.dtype, net, cem), [x],
-            lambda t: self._eval_forward(state, t, net, cem))
-
-    def _eval_graphed(self, state: SRTrainState, key: tuple, inputs: list,
-                      fn: Callable) -> torch.Tensor:
-        """``fn(*inputs)`` as ``eval_step`` runs it with graphs: eagerly
-        until the ``EVAL_CAPTURE_AT``-th call of ``key``, which also
-        captures it over static copies of ``inputs``; later calls copy
-        their inputs in and replay (at most ``EVAL_GRAPHS`` graphs kept,
-        the least recently used going first)."""
-        self._bind(state)
-        entry = self._eval_graphs.get(key)
-        if entry is not None:
-            self._eval_graphs.move_to_end(key)
-            statics, cap = entry
-            for buf, t in zip(statics, inputs):
-                buf.copy_(t)
-            return cap.replay().clone()
-        self._fresh_packs()
-        calls = self._eval_seen.pop(key, 0) + 1
-        if calls < self.EVAL_CAPTURE_AT:
-            self._eval_seen[key] = calls
-            while len(self._eval_seen) > self.EVAL_SEEN:
-                self._eval_seen.popitem(last=False)
-            return fn(*inputs)
-        out = warm_up(lambda: fn(*inputs))
-        statics = [torch.empty_like(t) for t in inputs]
-        cap = Captured(lambda: fn(*statics), pool=self.graph_pool())
-        self._eval_graphs[key] = (statics, cap)
-        while len(self._eval_graphs) > self.EVAL_GRAPHS:
-            self._eval_graphs.popitem(last=False)
-        return out
-
     def refresh_swa_bn(self, state: SRTrainState, batches
                        ) -> Optional[dict]:
         """The ``extra`` of the SWA weights: G's batch-norm statistics
@@ -900,63 +958,6 @@ class SRTrainer:
         sd = {**{n: p for n, p in state.swa.named_parameters()}, **stats}
         return {"batch_stats": g_to_jax(sd, state.swa)[1]}
 
-    def eval_step_chop(self, state: SRTrainState, lr_img: torch.Tensor,
-                       patch_size: int = 128, overlap: int = 16,
-                       which: str = "auto") -> torch.Tensor:
-        """Tiled inference for large inputs: tiles of ``min(patch_size, h,
-        w)`` at a stride of that less ``overlap``, the last row and column
-        of tiles pinned to the edge, run through ``eval_step`` 32 rows of
-        tiles at a time (so at most two input shapes), the outputs added
-        and divided by how many tiles cover each pixel."""
-        x = lr_img.to(self.device, non_blocking=lr_img.is_pinned())
-        b, h, w, _ = x.shape
-        s = self.scale
-        p = min(patch_size, h, w)
-        step = max(p - overlap, 1)
-        ys = list(range(0, max(h - p, 0) + 1, step))
-        xs = list(range(0, max(w - p, 0) + 1, step))
-        if ys[-1] != h - p:
-            ys.append(h - p)
-        if xs[-1] != w - p:
-            xs.append(w - p)
-        tiles = torch.cat([x[:, y:y + p, x0:x0 + p, :]
-                           for y in ys for x0 in xs], dim=0)
-        out_tiles = torch.cat([self.eval_step(state, tiles[i:i + 32],
-                                              which)
-                               for i in range(0, tiles.shape[0], 32)], dim=0)
-        acc = torch.zeros((b, h * s, w * s, out_tiles.shape[-1]),
-                          dtype=torch.float32, device=self.device)
-        cnt = torch.zeros((b, h * s, w * s, 1), dtype=torch.float32,
-                          device=self.device)
-        k = 0
-        for y in ys:
-            for x0 in xs:
-                win = (slice(None), slice(y * s, (y + p) * s),
-                       slice(x0 * s, (x0 + p) * s))
-                acc[win] += out_tiles[k * b:(k + 1) * b]
-                cnt[win] += 1.0
-                k += 1
-        return acc / cnt
-
-    def eval_step_x8(self, state: SRTrainState, lr_img: torch.Tensor,
-                     which: str = "auto") -> torch.Tensor:
-        """x8 geometric self-ensemble: ``eval_step`` on the four rotations
-        over (h, w), each with and without a flip of w, each output turned
-        back, and the mean of the eight. A non-square input meets two
-        shapes, (h, w) and (w, h)."""
-        x = lr_img.to(self.device, non_blocking=lr_img.is_pinned())
-        outs = []
-        for rot in range(4):
-            for flip in (False, True):
-                xi = torch.rot90(x, rot, (1, 2))
-                if flip:
-                    xi = xi.flip(2)
-                y = self.eval_step(state, xi, which)
-                if flip:
-                    y = y.flip(2)
-                outs.append(torch.rot90(y, -rot, (1, 2)))
-        return torch.stack(outs).mean(0)
-
 
 class _GraphedStep:
     """The step program of one ``(update_d, update_g)`` as CUDA graphs,
@@ -969,7 +970,7 @@ class _GraphedStep:
     fills the learning rates and replays; the outputs come back as
     clones."""
 
-    def __init__(self, trainer: SRTrainer, eager: Callable,
+    def __init__(self, trainer: Trainer, eager: Callable,
                  keys: tuple = ("LR", "HR")):
         self.trainer = trainer
         self.eager = eager

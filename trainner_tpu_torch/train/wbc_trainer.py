@@ -64,7 +64,7 @@ from ..utils.image_pool import ImagePool
 from ..utils.torch_interop import key_to_seed, seed_to_key
 from .pix2pix_trainer import Pix2PixTrainer
 from .schedulers import build_scheduler
-from .sr_trainer import SRTrainer, _GraphedStep, _no_param_grad, clip_grads
+from .sr_trainer import Trainer, _GraphedStep, _no_param_grad, clip_grads
 from .state import NetState
 
 
@@ -108,14 +108,13 @@ def _sel(train_opt: dict, key: str, default: list) -> list:
     return list(v) if isinstance(v, (list, tuple)) else [v]
 
 
-class WBCTrainer(SRTrainer):
+class WBCTrainer(Trainer):
     """``model: wbc``."""
 
     def __init__(self, opt: dict, dtype: torch.dtype = torch.float32,
                  device=None, graphs: Optional[bool] = None):
         super().__init__(opt, dtype=dtype, device=device, graphs=graphs)
         self.scale = 1
-        self._drop_sr_options()
         self.znorm = bool(((opt.get("datasets") or {}).get("train")
                            or {}).get("znorm", True))
         t = self.train_opt
@@ -362,9 +361,6 @@ class WBCTrainer(SRTrainer):
                                          self.schedD.get_lr(step)))
         state.step = step + 1
         return state, logs
-
-    def can_scan_steps(self) -> bool:
-        return False
 
     def _eval_forward(self, state: WBCState, x: torch.Tensor,
                       net: str = "g", cem: bool = False) -> torch.Tensor:
