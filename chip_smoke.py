@@ -117,8 +117,8 @@ non-zero exit code and no result line:
    degrader as a graph against eager; 3 graphed bf16 steps against 3
    eager ones (69 + 69 block launches per replay, from a trace), their
    times; then the training CLI on a copy of the
-   options (the corpus, 12 iterations, checkpoints with ``_emaG`` and
-   validation at 6 and 12, a resume to 14 whose EMA and spectral-norm
+   options (the corpus, 6 iterations, checkpoints with ``_emaG`` and
+   validation at 6, a resume to 8 whose EMA and spectral-norm
    state load bit for bit), each step's launches read between markers;
 14. zoo (after realesrgan): the SR generator options at full width.
    Real-ESRGAN's x2 generator (``scale: 2``, ``use_unshuffle``,
@@ -130,8 +130,8 @@ non-zero exit code and no result line:
    training step with ``network_D_preset: disc_esrgan`` (bf16, b=32, 64 ->
    128 px) as a graph against eager within the step tolerances, 69 + 69
    block launches per replay from a trace, its times; ``train_sr.yml``
-   with the x2 layout and the D preset through the training CLI (12
-   iterations, a resume to 14 that loads bit for bit); full-width
+   with the x2 layout and the D preset through the training CLI (6
+   iterations, a resume to 8 that loads bit for bit); full-width
    ``sr_resnet`` card against CPU (f32 and bf16 forwards, 3 f32 steps
    with D-VGG-128 at b=4) and ESRGAN+ (``plus``: no block kernel) card
    against CPU;
@@ -144,7 +144,7 @@ non-zero exit code and no result line:
    degrader with every op no preset reaches, combo's (shuffled, with its
    pool and patches) and realsr's, each as a CUDA graph against its eager
    program, with its blur launches by shape and its times; the training
-   CLI on ``train_sr.yml`` with combo (12 iterations, 31 blur launches
+   CLI on ``train_sr.yml`` with combo (6 iterations, 31 blur launches
    per batch from the trace; the flagship's state, whose resume phase 9
    holds) and with realsr (6, no blur); the blur kernel's times for this slice's callers (the pool and
    motion banks, combo's routing slices, unsharp's k 11);
@@ -160,7 +160,7 @@ non-zero exit code and no result line:
    against CPU at b=4; the refusal of wgan-gp with a batch-norm D; the
    step at b=32, 32 -> 128 px, bf16, as a graph against eager (69 + 69
    block launches per replay from a trace), its times; the training CLI
-   on the yml (12 iterations and a resume to 14, 69 + 69 block and 24
+   on the yml (6 iterations and a resume to 8, 69 + 69 block and 24
    blur launches per step from the trace, LPIPS in the validation, its
    steady rate graphed);
 17. trainer options (after the losses): every option of the JAX
@@ -178,7 +178,7 @@ non-zero exit code and no result line:
    starts, a replay of each program traced (69 x 2 + 69 x 2 block
    launches under the virtual batch, 69 + 69 under AdaTarget); the
    training CLI on it at crop 224 (the bsrgan jpeg needs an LR of a
-   multiple of 8; 12 iterations and a resume to 14 that restores SWA, the
+   multiple of 8; 6 iterations and a resume to 8 that restores SWA, the
    LocNet, the clip history and every optimizer state, the launches per
    step from the trace), its ``14_swaG`` file served by the test CLI with
    ``which: swa``.
@@ -203,18 +203,18 @@ non-zero exit code and no result line:
    against CPU in f32 and bf16 (every PPON output); the training CLI on
    ``train_sr.yml`` with ``model: ppon``, ``ppon_stages`` [4, 8] and the
    losses its phases select (contextual and the GAN on D-VGG-128 in phase
-   3), 12 iterations through the three phases and a resume to 14, its G
+   3), 6 iterations through the three phases and a resume to 8, its G
    served by the test CLI at ``ppon_phase`` 3 and 1; six PPON steps
    graphed against eager bit for bit, the frozen branches bit-equal across
    each; one f32 step of phases 1 and 3 at cut depth (nb 1) on the card,
-   the CPU and an f64 witness; PAN through the ``sr`` training CLI (12 and
-   a resume to 14); the three models' serving Mpx/s at b=8, 128 -> 512 px.
+   the CPU and an f64 witness; PAN through the ``sr`` training CLI (6 and
+   a resume to 8); the three models' serving Mpx/s at b=8, 128 -> 512 px.
 20. i2i and sft (after phase 19): SFTGAN (``options/sr/train_sftgan.json``),
    pix2pix (``options/i2i/train_pix2pix.yml``, ``serial_batches``) and
    CycleGAN (``options/i2i/train_cyclegan.yml``) at full width on seeded
    data (A: 16 corpus images; B: a second 1/f corpus; SFTGAN's seeded
-   probability maps as ``.npy``): each training CLI for 12 iterations
-   (sample grids at 6 and 12 for the i2i cells) and a resume to 14 whose
+   probability maps as ``.npy``): each training CLI for 6 iterations
+   (sample grids at 6 for the i2i cells) and a resume to 8 whose
    loaded state equals the saved one, its G served by the test CLI,
    three steps graphed against eager bit for bit (dropout masks and pool
    swaps included), one f32 SGD step at cut depth on the card, the CPU
@@ -225,8 +225,8 @@ non-zero exit code and no result line:
 21. video (after phase 20): SOF-VSR with its RRDB tail at the full width
    of ``options/video/train_video.yml`` (channels 320, 3 frames, x4; nf
    64, nb 23, gc 32; bf16) on seeded folders of 1/f frames moving a pixel
-   or two per frame: the training CLI for 12 iterations (validation at 6
-   and 12) and a resume to 14 whose loaded state equals the saved one, 69
+   or two per frame: the training CLI for 6 iterations (validation at 6)
+   and a resume to 8 whose loaded state equals the saved one, 69
    block forwards and 69 backwards per step and 69 forwards per
    validation window from the traces; the block kernels against their
    plain versions at SOF-VSR's shapes (each block at b=8, 32 x 32,
@@ -243,10 +243,10 @@ non-zero exit code and no result line:
 22. srflow (after phase 21): SRFlow at the full width of
    ``options/srflow/train_srflow.yml`` (SRFlowNet nf 64, nb 23, K 16, L 3,
    hidden 64; b 16, crop 160; f32), its encoder's 23 blocks on the f32
-   block kernels: the training CLI for 12 iterations, the encoder frozen
-   for the first 6 (23 block forwards and no backward per step, then 23
+   block kernels: the training CLI for 6 iterations, the encoder frozen
+   for the first 3 (23 block forwards and no backward per step, then 23
    and 23; 23 forwards per validation image at heat 0) and a resume to
-   14; the block kernels against their plain versions at F (b=16, 40 x
+   8; the block kernels against their plain versions at F (b=16, 40 x
    40: one block forward and backward, the whole encoder forward, the
    encoder's gradient of one step); four steps graphed against eager bit
    for bit across the unfreeze (one graph per freeze state); one f32 SGD
@@ -261,9 +261,9 @@ non-zero exit code and no result line:
 23. zoo rest (after phase 22): PBR at full width on the block kernels
    (``train_sr.yml``'s G, nf 64, nb 23, gc 32, as ``model: pbr``: b 8,
    crop 128, bf16, pixel L1 and VGG19 feature L1) on 16 seeded material
-   folders of four 256 px maps: the training CLI for 12 iterations (276
+   folders of four 256 px maps: the training CLI for 6 iterations (276
    block forwards and 276 backwards per step: one G pass per map; 69
-   forwards per validation material) and a resume to 14; one block
+   forwards per validation material) and a resume to 8; one block
    forward and backward at P (b 8, 32 x 32, bf16) and the f32 G gradient
    of a step against the plain versions; three steps graphed against
    eager bit for bit; one f32 SGD step at cut depth against an f64
@@ -274,6 +274,14 @@ non-zero exit code and no result line:
    for bit, an f64 witness, its G card against CPU (WBC's ``mode: tf``),
    WBC's SLIC card against CPU and one ``sp_exact`` step, the test CLI
    (DVD's ``{i}_bottom.png``); each G's forward Mpx/s.
+24. parallel (after phase 23): several GPUs' paths on the one card at
+   full width: the flagship's graphed bf16 step (b 32) on a one-rank NCCL
+   group bit for bit against the same step with no group, its
+   all-reduces captured; two gloo processes on the card, 16 + 16 of the
+   batch, their averaged f32 gradients against one process's; the
+   training CLI on ``train_sr.yml`` with ``parallel: {data: 1}`` (6
+   iterations) resumed to 8 without it; the flagship G in f32 on a 512 x
+   512 LR image in 4 bands (69 blocks a band) against the whole image.
 
 The launch traces of the serving slice, of phase 14's serving, of every
 training CLI and of phases 21 to 23 run their body again when the
@@ -296,7 +304,7 @@ The second-to-last lines are a JSON summary of the kernels and the card's
 ``{"ok": true, "device": {...}}``.
 
 Usage: python3 chip_smoke.py [--parent DIR]
-       python3 chip_smoke.py --only 18,19,22   (any of phases 18-23 alone,
+       python3 chip_smoke.py --only 18,19,22   (any of phases 18-24 alone,
            after the build and the corpus; no result line)
        python3 chip_smoke.py --kernels-only [--parent DIR]   (phases 1-3
            and the kernels' part of 10: a short run while a kernel is
@@ -348,6 +356,12 @@ DEBUG_TRAIN_YML = os.path.join(OPTIONS_DIR, "train_sr_debug.yml")
 TRAIN_YML = os.path.join(OPTIONS_DIR, "train_sr.yml")
 N_VAL = 2
 CLI_NITER, CLI_FREQ, CLI_RESUME_NITER = 12, 6, 14
+# the CLIs that repeat on other options what the flagship CLI's 12 steps
+# check (realesrgan, the x2 layout, combo, the loss stack, LMDB, PPON,
+# PAN, the i2i cells, the video CLI, SRFlow, PBR, the trainer options)
+# run 6 steps, one validation and a resume to 8, which pays for phase
+# 24's time
+SHORT_NITER, SHORT_RESUME = 6, 8
 # the CLIs' save_checkpoint_freq: a step no run reaches, so the end's save
 # alone writes the checkpoints (a periodic save at the last step would
 # write the same files once more, 1.1-2.8 s a run on the H100)
@@ -358,7 +372,9 @@ CLI_SAVE_FREQ = 10 ** 6
 # the sum of its operands' (its significand not renormalised); every term
 # is cut towards zero below 2^(E - 25), the cut terms are added exactly and
 # the sum is cut towards zero to f32. The CPU emulation of 3xTF32 in
-# tests/test_torch_rdb5c_tf32.py adds the same way.
+# tests/test_torch_rdb5c_tf32.py adds the same way. The f32 tile runs each
+# k-step's three mmas on a zeroed sum and adds that to its running sum in
+# f32, rounded to nearest (stage_sums_emulated).
 TF32_MMA = dict(frac_bits=25, product_exponent="operands", acc_in_group=True,
                 group=8, cut="trunc", rounding="rz")
 N_CORPUS, CORPUS_PX = 64, 256
@@ -592,6 +608,7 @@ def _launch_trace(want: dict = None, fresh: bool = True, label: str = ""):
     names = [name for _, _, name in _device_events(prof)]
     out["records"] = len(names)
     out["ran"] = _calls_per_wrapper(names)
+    out["nccl"] = sum(1 for n in names if "nccl" in n.lower())
     cuts = [i for i, n in enumerate(names) if MARKER in n]
     out["segments"] = [_calls_per_wrapper(names[a + 1:b]) for a, b in
                        zip([-1] + cuts, cuts + [len(names)])]
@@ -691,8 +708,8 @@ def _tolerance(dtype, ref) -> float:
 
 def _backward_tolerance(dtype, name, ref) -> float:
     """f32: dx sums up to 1,728 products (2e-6 of its largest magnitude;
-    3xTF32 on the card, whose mma cuts its sums towards zero (TF32_MMA),
-    reads about 0.3 of that, as the CPU emulation of
+    3xTF32 on the card, each k-step's mma sum added rounded to nearest,
+    reads about 0.04 of that, as the CPU emulation of
     tests/test_torch_rdb5c_tf32.py predicts); dW and db
     sum over every pixel in another order than cuDNN's weight gradient
     (1e-4 of theirs). bf16: a da_k that rounds the other way feeds
@@ -972,14 +989,17 @@ def _mma_step(acc, a, ea, b, eb):
     return _round_f32(s, TF32_MMA["rounding"])
 
 
-def stage_sums_emulated(inp, B):
+def stage_sums_emulated(inp, B, one_way: bool = False):
     """One f32 stage of the block kernels' tile (``rdb_stage_tf32``) as the
     card computes it: ``inp`` (..., b, h, w, K) f32 against ``B`` (..., 9,
     K, N) f32 (tap t = 3 ky + kx, zero padding; leading axes, if any, are
     independent stages run side by side), for each 32-channel chunk, tap
     and eight channels the three tf32 products lo*hi', hi*lo', hi*hi', each
-    one mma (``_mma_step``) on the running sum. Returns the f32 sums (...,
-    b, h, w, N) as f64, on ``inp``'s device."""
+    one mma (``_mma_step``) on a zeroed sum of that k-step, which is then
+    added to the running sum in f32, rounded to nearest (``mma_3xtf32``).
+    ``one_way`` emulates the tile before that repair (ROADMAP C 27): the
+    three mmas straight onto the running sum, which each cut towards zero.
+    Returns the f32 sums (..., b, h, w, N) as f64, on ``inp``'s device."""
     import torch
     import torch.nn.functional as F
 
@@ -1000,13 +1020,16 @@ def stage_sums_emulated(inp, B):
                 ops = [v[..., t, cs, :].transpose(-1, -2).contiguous()
                        for v in bw + eb]
                 # (lo, hi'), (hi, lo'), (hi, hi'): a index 0 is hi, 1 lo
+                part = acc if one_way else torch.zeros_like(acc)
                 for ia, ib in ((1, 0), (0, 1), (0, 0)):
-                    acc = _mma_step(acc, win[ia], win[2 + ia], ops[ib],
-                                    ops[2 + ib])
+                    part = _mma_step(part, win[ia], win[2 + ia], ops[ib],
+                                     ops[2 + ib])
+                acc = part if one_way else _round_f32(acc + part, "rn")
     return acc.reshape(*lead, b, h, w, n_out)
 
 
-def rdb_forward_emulated(x, packed_w, biases, return_residuals=False):
+def rdb_forward_emulated(x, packed_w, biases, return_residuals=False,
+                         one_way: bool = False):
     """The f32 block forward of ``csrc/rdb5c.cu`` as the card computes it,
     on x's device: stage k sums the chunks of [x|c1..ck] against conv k's
     rows of the packed weights (``stage_sums_emulated``), then its
@@ -1015,7 +1038,8 @@ def rdb_forward_emulated(x, packed_w, biases, return_residuals=False):
     widths that are multiples of 32 (``pack_block``'s); with leading axes
     on x, the weights and the biases (x (..., b, h, w, nf), each packed
     weight (..., 9 cin, N), each bias (..., N)), independent blocks side
-    by side."""
+    by side. ``one_way``: the tile before the repair of ROADMAP C 27
+    (``stage_sums_emulated``)."""
     import numpy as np
     import torch
 
@@ -1029,7 +1053,8 @@ def rdb_forward_emulated(x, packed_w, biases, return_residuals=False):
             ..., (k - s) * gc:(k - s) * gc + cout]
             for s, p in enumerate(packed_w[:k + 1])], -2)
         bias = biases[k].float()[..., None, None, None, :]
-        v = stage_sums_emulated(torch.cat(feats, -1), B).float() + bias
+        v = stage_sums_emulated(torch.cat(feats, -1), B,
+                                one_way).float() + bias
         if k == 4:
             out = (v.double() * float(np.float32(0.2)) + x.double()).float()
         else:
@@ -2038,7 +2063,9 @@ def phase_cli(smi: str, root: str, yml: str = None, label: str = "cli",
               nets: tuple = ("G", "D"), edit=None, niter: int = CLI_NITER,
               resume: bool = True, g_launches=None, corpus: str = None,
               trainer_cls=None, val_launches: int = None,
-              save_breakdown: bool = False, val_root: str = None) -> dict:
+              save_breakdown: bool = False, val_root: str = None,
+              resume_edit=None, resume_niter: int = CLI_RESUME_NITER
+              ) -> dict:
     """The training CLI at the full width of an options file of the repo
     (``yml``; by default ``options/sr/train_sr.yml``: G nf 64, nb 23, gc
     32, D-VGG-128, batch 32, crop 128, bsrgan with the per-sample shuffle,
@@ -2060,7 +2087,9 @@ def phase_cli(smi: str, root: str, yml: str = None, label: str = "cli",
     file's save by its parts (``_save_breakdown``; the flagship's run
     alone, the other CLIs' saves are timed whole); ``val_root`` the
     validation set's root (its ``N_VAL`` entries name the validation's
-    images). Returns the runs' traces."""
+    images); ``resume_edit`` edits the resume's options (phase 24 drops
+    ``parallel:`` there) and ``resume_niter`` is where it ends
+    (``CLI_RESUME_NITER``). Returns the runs' traces."""
     import torch
 
     from trainner_tpu_torch.train import cli
@@ -2131,8 +2160,8 @@ def phase_cli(smi: str, root: str, yml: str = None, label: str = "cli",
     want = dict(blur=per_batch * niter,
                 rdb5c=g_run(first, 0) + per_val * n_val,
                 rdb5c_bwd=g_run(first, 1))
-    n2 = CLI_RESUME_NITER - niter
-    second = range(niter + 1, CLI_RESUME_NITER + 1)
+    n2 = resume_niter - niter
+    second = range(niter + 1, resume_niter + 1)
     want2 = dict(blur=per_batch * n2, rdb5c=g_run(second, 0),
                  rdb5c_bwd=g_run(second, 1))
     cls.train_step = train_step
@@ -2153,8 +2182,10 @@ def phase_cli(smi: str, root: str, yml: str = None, label: str = "cli",
         if resume:
             with open(opt_path) as f:
                 opt2 = json.load(f)
-            opt2["train"]["niter"] = CLI_RESUME_NITER
+            opt2["train"]["niter"] = resume_niter
             opt2["path"]["resume_state"] = _resume_state(exp, niter)
+            if resume_edit is not None:
+                resume_edit(opt2)
             opt2_path = os.path.join(root, f"{label}_resume.json")
             with open(opt2_path, "w") as f:
                 json.dump(opt2, f)
@@ -2235,7 +2266,7 @@ def phase_cli(smi: str, root: str, yml: str = None, label: str = "cli",
                                                        torch.Tensor)
         else saved[k] == loaded[k])]
     _check_cli_trace(f"{label} resume", counts2, want2, steps2,
-                     range(niter + 1, CLI_RESUME_NITER + 1), per_val,
+                     range(niter + 1, resume_niter + 1), per_val,
                      per_batch, per_step)
     print(f"{label}: resumed from {os.path.relpath(path, exp)} (iter "
           f"{meta['iter']}, epoch {meta['epoch']}) to {state2.step} in "
@@ -2243,9 +2274,9 @@ def phase_cli(smi: str, root: str, yml: str = None, label: str = "cli",
           f"saved state, {len(diff)} differ after loading; launches the "
           f"card ran {counts2['ran']}, the wrappers counted "
           f"{counts2['counted']}")
-    if diff or meta["iter"] != niter or state2.step != CLI_RESUME_NITER \
+    if diff or meta["iter"] != niter or state2.step != resume_niter \
             or not os.path.exists(os.path.join(
-                exp, "models", f"{CLI_RESUME_NITER}_G.ckpt")):
+                exp, "models", f"{resume_niter}_G.ckpt")):
         raise AssertionError(f"{label} resume: differs {diff[:5]}, meta {meta},"
                              f" step {state2.step}")
     del state2
@@ -2420,7 +2451,7 @@ def _bound_text(row: dict) -> str:
 
 def phase_times(smi: str, root: str, kernels_only: bool = False):
     """CUDA-event times of both block kernels at the main paths' shapes in
-    both types (at SRFlow's F in f32 alone, at PBR's P in bf16 alone),
+    both types (at SRFlow's F in f32 alone),
     beside the plain version, the
     bound and the cuDNN five-conv chain (its forward, and autograd's
     backward through it), and the kernels' time on the device alone; then
@@ -2444,7 +2475,7 @@ def phase_times(smi: str, root: str, kernels_only: bool = False):
     # phase 14's serving shape draws from a generator of its own
     zoo_gen = torch.Generator().manual_seed(14)
     # and SRFlow's encoder step (F, f32 alone) from one of its own, PBR's
-    # step (P, bf16 alone) too
+    # step (P) too
     srflow_gen = torch.Generator().manual_seed(22)
     pbr_gen = torch.Generator().manual_seed(23)
     rows = {}
@@ -2452,7 +2483,7 @@ def phase_times(smi: str, root: str, kernels_only: bool = False):
     for shape, dtypes in ((MAIN_SHAPE, both), (TRAIN_SHAPE, both),
                           (ZOO_SERVE_SHAPE, both),
                           (SRFLOW_F, (torch.float32,)),
-                          (PBR_P, (torch.bfloat16,))):
+                          (PBR_P, both)):
         b, h, w = shape
         npix = b * h * w
         for dt in dtypes:
@@ -4017,7 +4048,7 @@ def phase_realesrgan(smi: str, root: str) -> dict:
     eager; three graphed bf16 steps against eager within the step
     tolerances, 69 + 69 block launches per step from a trace, the step's
     times; then ``main`` on a copy of the options for
-    12 iterations and a resume to 14 whose EMA and spectral-norm state
+    6 iterations and a resume to 8 whose EMA and spectral-norm state
     load bit for bit. Returns the CLI runs' launch traces."""
     t0 = time.perf_counter()
     _resrgan_ops(smi)
@@ -4028,7 +4059,8 @@ def phase_realesrgan(smi: str, root: str) -> dict:
     _graph_step(smi, _resrgan_options, types=(True,), label="resrgan ",
                 noise=False, timed=False)
     traces = phase_cli(smi, root, RESRGAN_YML, "cli_realesrgan",
-                       RESRGAN_BLUR, ("G", "D", "emaG"))
+                       RESRGAN_BLUR, ("G", "D", "emaG"), niter=SHORT_NITER,
+                       resume_niter=SHORT_RESUME)
     print(f"realesrgan: ok in {time.perf_counter() - t0:.1f} s ({smi})")
     return {f"realesrgan {k}": v for k, v in traces.items()}
 
@@ -4724,7 +4756,7 @@ def phase_zoo(smi: str, root: str) -> dict:
     layout (``_zoo_serving``); its step with ``disc_esrgan`` as a graph
     against eager (bf16, b=32, 64 -> 128 px; 69 + 69 block launches per
     replay, from a trace; step ms and device busy); ``train_sr.yml`` with
-    the x2 layout through the CLI for 12 iterations and a resume to 14
+    the x2 layout through the CLI for 6 iterations and a resume to 8
     that loads bit for bit; then ``sr_resnet`` and ESRGAN+ card against
     CPU. Returns the main paths' launch traces."""
     t0 = time.perf_counter()
@@ -4732,7 +4764,8 @@ def phase_zoo(smi: str, root: str) -> dict:
     _graph_step(smi, _zoo_train_options, types=(True,), label="zoo x2 ",
                 noise=False, batch_fn=_zoo_batch, timed=False)
     cli_traces = phase_cli(smi, root, TRAIN_YML, "cli_zoo",
-                           edit=_zoo_cli_edit)
+                           edit=_zoo_cli_edit, niter=SHORT_NITER,
+                           resume_niter=SHORT_RESUME)
     traces.update({f"zoo cli {k}": v for k, v in cli_traces.items()})
     _zoo_srresnet_and_plus(smi)
     print(f"zoo: ok in {time.perf_counter() - t0:.1f} s ({smi})")
@@ -5032,7 +5065,7 @@ def phase_degradations(smi: str, root: str) -> tuple:
     programs from one generator state, at b=32, crop 128, with their blur
     launches per batch by shape and their times graphed and eager (device
     busy, idle share); then ``train_sr.yml`` through the training CLI with
-    ``augs_strategy: combo`` and its assets at full width (12 iterations,
+    ``augs_strategy: combo`` and its assets at full width (6 iterations,
     ``COMBO_BLUR`` blur launches per batch and 69 + 69 block launches per
     step from the trace; no resume: the state is the flagship's, whose
     resume phase 9 holds) and with ``realsr`` (6
@@ -5077,7 +5110,8 @@ def phase_degradations(smi: str, root: str) -> tuple:
     traces = {}
     runs = phase_cli(smi, root, TRAIN_YML, "cli_combo",
                      per_batch=sum(COMBO_BLUR.values()),
-                     edit=_strategy_edit("combo", assets), resume=False)
+                     edit=_strategy_edit("combo", assets), resume=False,
+                     niter=SHORT_NITER)
     traces.update({f"combo cli {k}": v for k, v in runs.items()})
     runs = phase_cli(smi, root, TRAIN_YML, "cli_realsr", per_batch=0,
                      edit=_strategy_edit("realsr", assets),
@@ -5464,7 +5498,7 @@ def phase_losses(smi: str, root: str) -> dict:
     eager (``_graph_step``: within the step tolerances, 69 + 69 block
     launches per replay from a trace, times in turns); then
     ``train_sr.yml`` with the stack
-    through the training CLI (12 iterations and a resume to 14, 69 + 69
+    through the training CLI (6 iterations and a resume to 8, 69 + 69
     block and 24 blur launches per step from the trace, LPIPS in each
     validation, its steady rate graphed). Returns the CLI runs'
     traces."""
@@ -5474,7 +5508,8 @@ def phase_losses(smi: str, root: str) -> dict:
     _graph_step(smi, _loss_stack_options(vgg), types=(True,), timed=False,
                 label="loss stack ", noise=False)
     runs = phase_cli(smi, root, TRAIN_YML, "cli_losses",
-                     edit=_loss_stack_edit(vgg, squeeze))
+                     edit=_loss_stack_edit(vgg, squeeze), niter=SHORT_NITER,
+                     resume_niter=SHORT_RESUME)
     with open(os.path.join(root, "cli_losses_options.json")) as f:
         name = json.load(f)["name"]
     rows = [json.loads(line) for line in open(os.path.join(
@@ -5484,7 +5519,7 @@ def phase_losses(smi: str, root: str) -> dict:
     want = {f"train/{k}" for k in LOSS_NAMES + ["l_d_gp"]}
     print(f"losses: cli_losses validation LPIPS {lpips}; losses logged "
           f"{sorted(losses)}")
-    if sorted(lpips) != [CLI_FREQ, CLI_NITER] or not all(
+    if sorted(lpips) != [CLI_FREQ] or not all(
             math.isfinite(v) and v >= 0 for v in lpips.values()) \
             or not want <= losses:
         raise AssertionError(f"losses: the CLI's scalars: lpips {lpips}, "
@@ -5765,11 +5800,11 @@ def _options_cli_edit(opt: dict) -> None:
 
 def _options_cli(smi: str, root: str) -> dict:
     """(c) The training CLI on the cell at ``OPT_CLI_CROP`` (b=32, 56 ->
-    224 px; 12 iterations and a resume to 14
+    224 px; ``SHORT_NITER`` iterations and a resume to ``SHORT_RESUME``
     that restores SWA, the LocNet, the clip history and every optimizer
     state bit for bit; 69 x 2 + 69 x 2 block launches per step before
     AdaTarget, 69 + 69 after, 24 blur launches per shuffled batch, from
-    the trace); the ``14_swaG`` file equal to the state's SWA weights and
+    the trace); the ``8_swaG`` file equal to the state's SWA weights and
     served by the port's test CLI with ``which: swa``."""
     import numpy as np
 
@@ -5780,13 +5815,14 @@ def _options_cli(smi: str, root: str) -> dict:
     runs = phase_cli(smi, root, TRAIN_YML, "cli_options",
                      edit=_options_cli_edit,
                      g_launches=lambda n: per_g * (
-                         1 if n > OPT_ATG_START else 2))
+                         1 if n > OPT_ATG_START else 2),
+                     niter=SHORT_NITER, resume_niter=SHORT_RESUME)
     with open(os.path.join(root, "cli_options_options.json")) as f:
         opt = json.load(f)
     exp = os.path.join(root, "cli_options", "experiments", opt["name"])
-    swa_file = os.path.join(exp, "models", f"{CLI_RESUME_NITER}_swaG.ckpt")
+    swa_file = os.path.join(exp, "models", f"{SHORT_RESUME}_swaG.ckpt")
     with open(os.path.join(exp, "training_state",
-                           f"{CLI_RESUME_NITER}.state"), "rb") as f:
+                           f"{SHORT_RESUME}.state"), "rb") as f:
         tree = checkpoint.msgpack_restore(f.read())
     with open(swa_file, "rb") as f:
         swa = checkpoint.msgpack_restore(f.read())
@@ -5810,11 +5846,11 @@ def _options_cli(smi: str, root: str) -> dict:
         json.dump(serve, f)
     averages = test_cli.main(["-opt", path])
     psnr = [m["average"] for m in averages["val"] if m["name"] == "psnr"]
-    print(f"options: {CLI_RESUME_NITER}_swaG.ckpt equals the state's SWA "
+    print(f"options: {SHORT_RESUME}_swaG.ckpt equals the state's SWA "
           f"weights bit for bit: {same} (swa_n {int(tree['swa_n'])}); "
           f"served by the test CLI with which: swa, PSNR {psnr} ({smi})")
     if not same or not psnr or not all(math.isfinite(v) for v in psnr) \
-            or int(tree["swa_n"]) != CLI_RESUME_NITER - OPT_SWA_START:
+            or int(tree["swa_n"]) != SHORT_RESUME - OPT_SWA_START:
         raise AssertionError("options: the SWA checkpoint or its serving")
     return {f"options cli {k}": v for k, v in runs.items()}
 
@@ -6113,7 +6149,7 @@ def _producer_rates(smi: str, root: str, db: str) -> dict:
 def phase_producer_rest(smi: str, root: str) -> dict:
     """Phase 18: the rest of the producer at full width. (a) The corpus as
     an LMDB (``_lmdb_corpus``); the training CLI on ``train_sr.yml`` with
-    the LMDB as its train set, 12 iterations (no resume: the state is the
+    the LMDB as its train set, 6 iterations (no resume: the state is the
     flagship's, whose resume phase 9 holds); (b) the
     same CLI with ``aug_downscale: 0.5`` and a ``subset_file`` of half the
     corpus (every sample from the subset); (c) the rates, the weighted
@@ -6124,7 +6160,8 @@ def phase_producer_rest(smi: str, root: str) -> dict:
     t0 = time.perf_counter()
     db = _lmdb_corpus(smi, root)
     traces = {f"lmdb cli {k}": v for k, v in phase_cli(
-        smi, root, TRAIN_YML, "cli_lmdb", corpus=db, resume=False).items()}
+        smi, root, TRAIN_YML, "cli_lmdb", corpus=db, resume=False,
+        niter=SHORT_NITER).items()}
     t_lmdb = time.perf_counter() - t0
 
     subset = sorted(os.listdir(os.path.join(root, "corpus")))[::2]
@@ -6171,7 +6208,7 @@ def phase_producer_rest(smi: str, root: str) -> dict:
 # ---------------------------------------------------------------------------
 # 19. PPON (its three phases), PAN and A2N at full width
 # ---------------------------------------------------------------------------
-PPON_STAGES = [4, 8]      # the CLI: phase 1 to step 4, 2 to 8, then 3
+PPON_STAGES = [2, 4]      # the CLI: phase 1 to step 2, 2 to 4, then 3
 PPON_GRAPH_STAGES = [2, 4]  # graphed against eager: two steps per phase
 PPON_GRAPH_B = 16
 PPON_LOSSES = {"ms_criterion": "multiscale-l1", "ms_weight": 1e-2,
@@ -6351,8 +6388,8 @@ def _pan_cli_edit(opt: dict) -> None:
 def phase_models(smi: str, root: str) -> dict:
     """Phase 19: PPON, PAN and A2N at full width. PPON: its forward card
     against CPU (f32, bf16) on every output; the training CLI on
-    ``train_sr.yml`` with ``model: ppon`` (12 iterations through its three
-    phases and a resume to 14 in phase 3; no block kernel, 24 blur launches
+    ``train_sr.yml`` with ``model: ppon`` (6 iterations through its three
+    phases and a resume to 8 in phase 3; no block kernel, 24 blur launches
     per batch); its saved G served by the test CLI at ``ppon_phase`` 3 and
     1; graphed against eager (``_ppon_graphed_vs_eager``); the f64 witness
     of one step per phase (``_ppon_f64``). PAN (with self-attention) and
@@ -6377,7 +6414,8 @@ def phase_models(smi: str, root: str) -> dict:
 
     runs = phase_cli(smi, root, TRAIN_YML, "cli_ppon", edit=_ppon_cli_edit,
                      trainer_cls=PPONTrainer, g_launches=lambda n: 0,
-                     val_launches=0)
+                     val_launches=0, niter=SHORT_NITER,
+                     resume_niter=SHORT_RESUME)
     traces = {f"ppon cli {k}": v for k, v in runs.items()}
     with open(os.path.join(root, "cli_ppon_options.json")) as f:
         opt = json.load(f)
@@ -6386,11 +6424,11 @@ def phase_models(smi: str, root: str) -> dict:
     want = {s: 1 + (s - 1 >= PPON_STAGES[0]) + (s - 1 >= PPON_STAGES[1])
             for s in phases}
     print(f"ppon: the CLI's ppon_phase by iteration {phases} (expected "
-          f"{want}); the resume to {CLI_RESUME_NITER} continued in phase 3")
+          f"{want}); the resume to {SHORT_RESUME} continued in phase 3")
     if phases != want or set(phases.values()) != {1, 2, 3} or \
-            max(phases) != CLI_RESUME_NITER:
+            max(phases) != SHORT_RESUME:
         raise AssertionError(f"ppon cli phases {phases}")
-    g_file = os.path.join(exp, "models", f"{CLI_RESUME_NITER}_G.ckpt")
+    g_file = os.path.join(exp, "models", f"{SHORT_RESUME}_G.ckpt")
     psnr = {}
     for phase in (3, 1):
         serve = {"name": f"serve_ppon_{phase}", "model": "ppon", "scale": 4,
@@ -6410,7 +6448,7 @@ def phase_models(smi: str, root: str) -> dict:
             averages = test_cli.main(["-opt", path])
         psnr[phase] = [m["average"] for m in averages["val"]
                        if m["name"] == "psnr"]
-    print(f"ppon: {CLI_RESUME_NITER}_G.ckpt served by the test CLI at b=1 on "
+    print(f"ppon: {SHORT_RESUME}_G.ckpt served by the test CLI at b=1 on "
           f"{N_VAL} LRs of {CORPUS_PX // 4} px: PSNR with ppon_phase 3 "
           f"{psnr[3]}, with ppon_phase 1 {psnr[1]} ({smi})")
     if not all(v and math.isfinite(v[0]) for v in psnr.values()):
@@ -6422,7 +6460,8 @@ def phase_models(smi: str, root: str) -> dict:
                      {f"pan cli {k}": v for k, v in phase_cli(
                          smi, root, TRAIN_YML, "cli_pan",
                          edit=_pan_cli_edit, g_launches=lambda n: 0,
-                         val_launches=0).items()})):
+                         val_launches=0, niter=SHORT_NITER,
+                         resume_niter=SHORT_RESUME).items()})):
         t1 = time.perf_counter()
         part()
         parts.append(f"{time.perf_counter() - t1:.1f}")
@@ -6538,12 +6577,12 @@ def _cell_tensors(state) -> dict:
 
 def _i2i_cli(smi: str, root: str, data: dict, cell: str) -> dict:
     """The training CLI on the cell's template at full width for
-    ``CLI_NITER`` iterations under a launch trace (no kernel of the repo
-    may run), checkpoints at 12 (the cell's net files and ``.state``),
-    SFTGAN's validation at 6 and 12, the i2i sample grids at 6 and 12
-    (A | G(A) | B, 256 x 768); then a resume to ``CLI_RESUME_NITER`` whose
+    ``SHORT_NITER`` iterations under a launch trace (no kernel of the repo
+    may run), checkpoints at 6 (the cell's net files and ``.state``),
+    SFTGAN's validation at 6, the i2i sample grids at 6
+    (A | G(A) | B, 256 x 768); then a resume to ``SHORT_RESUME`` whose
     loaded state equals the saved one bit for bit. Prints the steady it/s
-    (steps 3-12, the saves, validations and grids taken out) and returns
+    (steps 3-6, the saves, validations and grids taken out) and returns
     the trace."""
     import torch
 
@@ -6554,7 +6593,7 @@ def _i2i_cli(smi: str, root: str, data: dict, cell: str) -> dict:
     from trainner_tpu_torch.train.sftgan_trainer import SFTGANTrainer
     from trainner_tpu_torch.utils import checkpoint
 
-    opt = _i2i_options(root, data, cell)
+    opt = _i2i_options(root, data, cell, niter=SHORT_NITER)
     path = os.path.join(root, f"{cell}_cli.json")
     with open(path, "w") as f:
         json.dump(opt, f)
@@ -6600,7 +6639,7 @@ def _i2i_cli(smi: str, root: str, data: dict, cell: str) -> dict:
         saved = _cell_tensors(state)
         del state
         torch.cuda.empty_cache()
-        opt["train"]["niter"] = CLI_RESUME_NITER
+        opt["train"]["niter"] = SHORT_RESUME
         opt["path"]["resume_state"] = os.path.join(exp, "training_state")
         with open(path, "w") as f:
             json.dump(opt, f)
@@ -6620,33 +6659,33 @@ def _i2i_cli(smi: str, root: str, data: dict, cell: str) -> dict:
         else saved[k] == loaded[k])]
     files = {os.path.relpath(os.path.join(d, f), exp)
              for d, _, fs in os.walk(exp) for f in fs}
-    need = {f"models/{t}_{n_}.ckpt" for t in (CLI_NITER, CLI_RESUME_NITER)
+    need = {f"models/{t}_{n_}.ckpt" for t in (SHORT_NITER, SHORT_RESUME)
             for n_ in I2I_FILES[cell]} | {
-        f"training_state/{t}.state" for t in (CLI_NITER,
-                                              CLI_RESUME_NITER)}
+        f"training_state/{t}.state" for t in (SHORT_NITER,
+                                              SHORT_RESUME)}
     grids = []
     if cell != "sftgan":
-        need |= {f"samples/{t:08d}.png" for t in (CLI_FREQ, CLI_NITER)}
+        need |= {f"samples/{t:08d}.png" for t in (CLI_FREQ, SHORT_NITER)}
         grids = [read_png(os.path.join(exp, "samples", f"{t:08d}.png")
-                         ).shape for t in (CLI_FREQ, CLI_NITER)]
+                         ).shape for t in (CLI_FREQ, SHORT_NITER)]
     else:
         need |= {f"val_images/{os.path.splitext(v)[0]}/"
-                 f"{os.path.splitext(v)[0]}_{CLI_NITER}.png"
+                 f"{os.path.splitext(v)[0]}_{SHORT_NITER}.png"
                  for v in os.listdir(data["val"])}
     rows = [json.loads(line) for line in
             open(os.path.join(exp, "tb", "scalars.jsonl"))]
     print(f"i2i: {cell} CLI ({opt['network_G']}, D {opt['network_D']}; "
           f"batch {opt['datasets']['train']['batch_size']}, crop "
-          f"{opt['datasets']['train']['crop_size']}) {CLI_NITER} iterations "
+          f"{opt['datasets']['train']['crop_size']}) {SHORT_NITER} iterations "
           f"in {wall:.1f} s (traced; the card ran {trace['ran']}), the "
           f"resume to {state2.step} in {wall2:.1f} s: {len(saved)} tensors "
           f"and counts of the saved state, {len(diff)} differ after "
           f"loading; {len(rows)} JSONL scalars; sample grids {grids}")
-    print(f"times: {cell} CLI steps 3-{CLI_NITER} on the host clock: "
+    print(f"times: {cell} CLI steps 3-{SHORT_NITER} on the host clock: "
           f"{n / (span - inside):.4f} it/s steady, {n / span:.4f} it/s "
           f"with the saves, validations and grids ({smi})")
-    if diff or meta["iter"] != CLI_NITER or state2.step != \
-            CLI_RESUME_NITER or need - files or any(
+    if diff or meta["iter"] != SHORT_NITER or state2.step != \
+            SHORT_RESUME or need - files or any(
                 g != (256, 768, 3) for g in grids) or not all(
                     math.isfinite(r["value"]) for r in rows):
         raise AssertionError(f"i2i {cell} cli: differs {diff[:4]}, missing "
@@ -6657,7 +6696,7 @@ def _i2i_cli(smi: str, root: str, data: dict, cell: str) -> dict:
 
 
 def _i2i_serve(smi: str, root: str, data: dict, cell: str) -> None:
-    """The test CLI on the cell's G of ``CLI_RESUME_NITER``: SFTGAN with a
+    """The test CLI on the cell's G of ``SHORT_RESUME``: SFTGAN with a
     ``seg`` dataset's maps (PSNR against the HR), pix2pix's G and
     CycleGAN's G_A from a ``single`` dataset; one PNG per image."""
     from trainner_tpu_torch import test as test_cli
@@ -6672,7 +6711,7 @@ def _i2i_serve(smi: str, root: str, data: dict, cell: str) -> None:
              "network_G": opt["network_G"],
              "path": {"root": os.path.join(root, f"serve_{cell}"),
                       "pretrain_model_G": os.path.join(
-                          exp, "models", f"{CLI_RESUME_NITER}_"
+                          exp, "models", f"{SHORT_RESUME}_"
                           f"{I2I_SERVED[cell]}.ckpt")}}
     path = os.path.join(root, f"serve_{cell}.json")
     with open(path, "w") as f:
@@ -6685,7 +6724,7 @@ def _i2i_serve(smi: str, root: str, data: dict, cell: str) -> None:
             for f in fs if f.endswith(".png")]
     psnr = [m["average"] for m in averages.get("val", [])
             if m["name"] == "psnr"]
-    print(f"i2i: {cell} served by the test CLI from {CLI_RESUME_NITER}_"
+    print(f"i2i: {cell} served by the test CLI from {SHORT_RESUME}_"
           f"{I2I_SERVED[cell]}.ckpt: {len(pngs)} images of {CORPUS_PX} px "
           f"in {wall:.2f} s (set-up included); PSNR {psnr} ({smi})")
     if len(pngs) != N_VAL or (cell == "sftgan" and not (
@@ -6942,7 +6981,7 @@ def phase_i2i(smi: str, root: str) -> dict:
     CycleGAN (``options/i2i/train_cyclegan.yml``: the ResNet G, 9 blocks,
     ngf 64, instance norm; PatchGAN with instance norm; b=1, crop 256;
     lsgan; pools of 50) on seeded data (``_i2i_data``). For each: the
-    training CLI (12 and a resume to 14, the sample grids), the test CLI,
+    training CLI (6 and a resume to 8, the sample grids), the test CLI,
     graphed against eager bit for bit, the f64 witness at cut depth; then
     the multiscale and pixel Ds card against CPU (the Gs' serving rates,
     measurement alone, went in the time cut of phase 23's slice). No
@@ -7048,10 +7087,10 @@ def _vsr_options(root: str, data: dict, niter: int = CLI_NITER) -> dict:
 
 def _vsr_cli(smi: str, root: str, data: dict) -> dict:
     """The training CLI on ``train_video.yml`` at full width for
-    ``CLI_NITER`` iterations under a launch trace (``_retried_trace``):
+    ``SHORT_NITER`` iterations under a launch trace (``_retried_trace``):
     the card must run 69 block forwards and 69 backwards per step and 69
-    forwards per validation window (at ``CLI_FREQ`` and ``CLI_NITER``);
-    checkpoints at ``CLI_NITER``; then a resume to ``CLI_RESUME_NITER``
+    forwards per validation window (at ``CLI_FREQ`` and ``SHORT_NITER``);
+    checkpoints at ``SHORT_NITER``; then a resume to ``SHORT_RESUME``
     (69 + 69 per step, traced too) whose loaded state equals the saved one
     bit for bit. Prints the steady it/s and returns both traces."""
     import torch
@@ -7060,7 +7099,7 @@ def _vsr_cli(smi: str, root: str, data: dict) -> dict:
     from trainner_tpu_torch.train.vsr_trainer import VSRTrainer
     from trainner_tpu_torch.utils import checkpoint
 
-    opt = _vsr_options(root, data)
+    opt = _vsr_options(root, data, niter=SHORT_NITER)
     path = os.path.join(root, "vsr_cli.json")
     with open(path, "w") as f:
         json.dump(opt, f)
@@ -7095,10 +7134,10 @@ def _vsr_cli(smi: str, root: str, data: dict) -> dict:
         rec["other"].clear()
         return cli.main(["-opt", path])
 
-    n_val = 2 * windows
-    want = {"rdb5c": VSR_PER_G * (CLI_NITER + n_val),
-            "rdb5c_bwd": VSR_PER_G * CLI_NITER}
-    resumed = CLI_RESUME_NITER - CLI_NITER
+    n_val = SHORT_NITER // CLI_FREQ * windows
+    want = {"rdb5c": VSR_PER_G * (SHORT_NITER + n_val),
+            "rdb5c_bwd": VSR_PER_G * SHORT_NITER}
+    resumed = SHORT_RESUME - SHORT_NITER
     want2 = {"rdb5c": VSR_PER_G * resumed, "rdb5c_bwd": VSR_PER_G * resumed}
     VSRTrainer.train_step = train_step
     checkpoint.save_checkpoint = timed(orig[1])
@@ -7114,8 +7153,8 @@ def _vsr_cli(smi: str, root: str, data: dict) -> dict:
         saved = _cell_tensors(state)
         del state
         torch.cuda.empty_cache()
-        opt["train"]["niter"] = CLI_RESUME_NITER
-        opt["path"]["resume_state"] = _resume_state(exp, CLI_NITER)
+        opt["train"]["niter"] = SHORT_RESUME
+        opt["path"]["resume_state"] = _resume_state(exp, SHORT_NITER)
         with open(path, "w") as f:
             json.dump(opt, f)
         t1 = time.perf_counter()
@@ -7134,15 +7173,15 @@ def _vsr_cli(smi: str, root: str, data: dict) -> dict:
         else saved[k] == loaded[k])]
     files = {os.path.relpath(os.path.join(d, f), exp)
              for d, _, fs in os.walk(exp) for f in fs}
-    need = {f"models/{t}_G.ckpt" for t in (CLI_NITER, CLI_RESUME_NITER)} | {
-        f"training_state/{t}.state" for t in (CLI_NITER, CLI_RESUME_NITER)}
-    need |= {f"val_images/001/001_{t}.png" for t in (CLI_FREQ, CLI_NITER)}
+    need = {f"models/{t}_G.ckpt" for t in (SHORT_NITER, SHORT_RESUME)} | {
+        f"training_state/{t}.state" for t in (SHORT_NITER, SHORT_RESUME)}
+    need |= {f"val_images/001/001_{t}.png" for t in (CLI_FREQ, SHORT_NITER)}
     rows = [json.loads(line) for line in
             open(os.path.join(exp, "tb", "scalars.jsonl"))]
     ofr = [r["value"] for r in rows if r.get("tag") == "train/ofr"]
     print(f"vsr: training CLI on train_video.yml ({opt['network_G']}; batch "
           f"{opt['datasets']['train']['batch_size']}, crop "
-          f"{opt['datasets']['train']['crop_size']}, 3 frames) {CLI_NITER} "
+          f"{opt['datasets']['train']['crop_size']}, 3 frames) {SHORT_NITER} "
           f"iterations in {wall:.1f} s (traced, {trace['records']} "
           f"device records; the card ran {trace['ran']}: "
           f"{VSR_PER_G} + {VSR_PER_G} per step, {VSR_PER_G} per validation "
@@ -7150,11 +7189,11 @@ def _vsr_cli(smi: str, root: str, data: dict) -> dict:
           f"(the card ran {trace2['ran']}): {len(saved)} tensors and counts "
           f"of the saved state, {len(diff)} differ after loading; "
           f"{len(rows)} JSONL scalars, ofr logged {len(ofr)} times")
-    print(f"times: vsr CLI steps 3-{CLI_NITER} on the host clock: "
+    print(f"times: vsr CLI steps 3-{SHORT_NITER} on the host clock: "
           f"{n / (span - inside):.4f} it/s steady, {n / span:.4f} it/s "
           f"with the saves and validations ({smi})")
-    if diff or meta["iter"] != CLI_NITER or state2.step != \
-            CLI_RESUME_NITER or need - files or not ofr or not all(
+    if diff or meta["iter"] != SHORT_NITER or state2.step != \
+            SHORT_RESUME or need - files or not ofr or not all(
                 math.isfinite(r["value"]) for r in rows):
         raise AssertionError(f"vsr cli: differs {diff[:4]}, missing "
                              f"{sorted(need - files)[:4]}, ofr {ofr}")
@@ -7432,7 +7471,7 @@ def _vsr_f64(smi: str, root: str, data: dict) -> None:
 def _vsr_serve(smi: str, root: str, data: dict) -> dict:
     """The test CLI on ``test_video.yml`` (its first dataset; the second
     names a folder that is not there) with the CLI's G of
-    ``CLI_RESUME_NITER``, on the served clip (2 windows; the dataset makes
+    ``SHORT_RESUME``, on the served clip (2 windows; the dataset makes
     the LR 144 x 180 from the frames, as the JAX one does when only
     ``dataroot_LR`` is given): f32 and bf16, plain and with ``chop`` (four
     quadrants of 80 x 98 per window), each under a launch trace (69 block
@@ -7455,7 +7494,7 @@ def _vsr_serve(smi: str, root: str, data: dict) -> dict:
                                           dataroot_LR=data["serve"])}
         opt["path"] = {"root": os.path.join(root, name),
                        "pretrain_model_G": os.path.join(
-                           exp, "models", f"{CLI_RESUME_NITER}_G.ckpt")}
+                           exp, "models", f"{SHORT_RESUME}_G.ckpt")}
         opt["use_amp"] = amp
         opt["chop"] = chop
         path = os.path.join(root, name + ".json")
@@ -7506,7 +7545,7 @@ def phase_video(smi: str, root: str) -> dict:
     320, 3 frames, x4; nf 64, nb 23, gc 32; b 8, crop 128; cb pixel loss,
     the OFR term at 0.01 with ``ofr_wl1`` 0.1 and ``ofr_wl2`` 0.2; Adam;
     cosine restarts; bf16) on seeded folders of frames (``_vsr_data``):
-    the training CLI (``CLI_NITER`` and a resume to ``CLI_RESUME_NITER``,
+    the training CLI (``SHORT_NITER`` and a resume to ``SHORT_RESUME``,
     69 + 69 block launches per step and 69 per validation window from the
     traces), the block kernels against their plain versions at the
     shapes SOF-VSR gives them (``_vsr_kernels_vs_plain``), three steps
@@ -7550,7 +7589,7 @@ SRFLOW_TEST_YML = os.path.join(SRFLOW_DIR, "test_srflow.yml")
 SRFLOW_PER = NB        # srflow_net's encoder: block launches per pass
 SRFLOW_I_PER = NB * 3  # the interop net's 23 RRDBs
 SRFLOW_F = (16, 40, 40)  # the encoder's blocks in a template step (F)
-SRFLOW_UNFREEZE = CLI_NITER // 2  # train_RRDB_delay 0.5 of niter 12
+SRFLOW_UNFREEZE = SHORT_NITER // 2  # train_RRDB_delay 0.5 of niter 6
 SRFLOW_GRAPH_STEPS = 4   # graphed against eager, the unfreeze at 2
 # the f64 witness's cut: the encoder at its real block widths (nf 64, gc
 # 32) and nb 2, K 2, L 3, hidden 64; b=2, 16 -> 64 px; unfrozen; SGD
@@ -7610,9 +7649,9 @@ def _srflow_batch(seed: int, b: int = SRFLOW_F[0], px: int = SRFLOW_F[1]):
 
 def _srflow_cli(smi: str, root: str) -> dict:
     """The training CLI on ``train_srflow.yml`` at full width through
-    ``phase_cli``: 12 iterations, the encoder unfrozen at step 7 (6 frozen
+    ``phase_cli``: 6 iterations, the encoder unfrozen at step 4 (3 frozen
     steps: 23 block forwards and no backward each; then 23 and 23), 23
-    forwards per validation image (heat 0), no blur; a resume to 14 from
+    forwards per validation image (heat 0), no blur; a resume to 8 from
     the saved state, bit for bit."""
     from trainner_tpu_torch.train.srflow_trainer import SRFlowTrainer
 
@@ -7623,7 +7662,8 @@ def _srflow_cli(smi: str, root: str) -> dict:
         smi, root, SRFLOW_TRAIN_YML, "cli_srflow", per_batch=0, nets=("G",),
         edit=edit, trainer_cls=SRFlowTrainer, val_launches=SRFLOW_PER,
         g_launches=lambda n: (SRFLOW_PER, SRFLOW_PER
-                              if n > SRFLOW_UNFREEZE else 0)).items()}
+                              if n > SRFLOW_UNFREEZE else 0),
+        niter=SHORT_NITER, resume_niter=SHORT_RESUME).items()}
 
 
 def _srflow_kernels_vs_plain(smi: str) -> None:
@@ -7869,7 +7909,7 @@ def _srflow_serve(smi: str, root: str) -> dict:
     cli_opt = read_options_yml(SRFLOW_TRAIN_YML)
     g_files = {"srflow_net": os.path.join(
         root, "cli_srflow", "experiments", cli_opt["name"], "models",
-        f"{CLI_RESUME_NITER}_G.ckpt"),
+        f"{SHORT_RESUME}_G.ckpt"),
         "interop": os.path.join(root, "srflow_interop_G.ckpt")}
     traces = {}
     for name, per in (("srflow_net", SRFLOW_PER),
@@ -8096,8 +8136,8 @@ def phase_srflow(smi: str, root: str) -> dict:
     """Phase 22: SRFlow at the template's full width
     (``options/srflow/train_srflow.yml``: SRFlowNet nf 64, nb 23, K 16, L
     3, hidden 64; b 16, crop 160; f32), its encoder's 23 blocks on the
-    block kernels: the training CLI (12 iterations, the encoder unfrozen
-    at step 7, and a resume to 14), the kernels against their plain
+    block kernels: the training CLI (6 iterations, the encoder unfrozen
+    at step 4, and a resume to 8), the kernels against their plain
     versions at F, steps graphed against eager across the unfreeze, one
     f32 step at cut depth against an f64 witness, the interop net's
     steps graphed against eager (69 blocks per pass), the test CLI on
@@ -8250,7 +8290,8 @@ def _pbr_cli(smi: str, root: str, data: dict) -> dict:
         smi, root, TRAIN_YML, "cli_pbr", per_batch=0, nets=("G",),
         edit=_pbr_edit, corpus=data["pbr_train"], trainer_cls=PBRTrainer,
         val_launches=PBR_PER_PASS, g_launches=lambda n: PBR_PER_STEP,
-        val_root=data["pbr_val"]).items()}
+        val_root=data["pbr_val"], niter=SHORT_NITER,
+        resume_niter=SHORT_RESUME).items()}
 
 
 def _pbr_kernels_vs_plain(smi: str) -> None:
@@ -8402,7 +8443,7 @@ def _pbr_f64(smi: str) -> None:
 
 def _pbr_serve(smi: str, root: str, data: dict) -> dict:
     """The test CLI on the validation materials (a ``pbr`` set, crop
-    ``PBR_SERVE_CROP``) with the CLI's G of ``CLI_RESUME_NITER``: 69 block
+    ``PBR_SERVE_CROP``) with the CLI's G of ``SHORT_RESUME``: 69 block
     forwards per material at b=1 from the trace, PSNR on the primary map;
     G's f32 output on the first material's LR on the card (the kernels),
     on the card with the plain blocks and on the CPU, against an f64
@@ -8410,11 +8451,11 @@ def _pbr_serve(smi: str, root: str, data: dict) -> dict:
     of the output's size; each block on the kernels equal bit for bit to
     the kernels' arithmetic emulated on its witness input
     (``_pbr_block_trace``: what the kernels compute is the mma's
-    arithmetic as phase 2 finds it, and no other error). The kernels'
-    distance from the CPU's output is printed beside the 1e-5 of its size
-    that ROADMAP C 27 leaves open: the mma cuts every sum towards zero, so
-    each block's error leans one way and they add up over the 69
-    blocks."""
+    arithmetic as phase 2 finds it, and no other error); the kernels'
+    output within 1e-5 of its size of the CPU's (ROADMAP C 27: the f32
+    tile adds each k-step's mma sum to its running sum rounded to
+    nearest, so the blocks' errors no longer lean one way and add up over
+    the 69 blocks)."""
     import torch
 
     from trainner_tpu_torch import test as test_cli
@@ -8425,7 +8466,7 @@ def _pbr_serve(smi: str, root: str, data: dict) -> dict:
     with open(os.path.join(root, "cli_pbr_options.json")) as f:
         cli_opt = json.load(f)
     g_file = os.path.join(root, "cli_pbr", "experiments", cli_opt["name"],
-                          "models", f"{CLI_RESUME_NITER}_G.ckpt")
+                          "models", f"{SHORT_RESUME}_G.ckpt")
     ds = {"name": "materials", "mode": "pbr", "dataroot_HR": data["pbr_val"],
           "crop_size": PBR_SERVE_CROP}
     opt = {"name": "serve_pbr", "model": "pbr", "scale": 4,
@@ -8463,7 +8504,7 @@ def _pbr_serve(smi: str, root: str, data: dict) -> dict:
     if f32_ops:
         raise AssertionError(f"pbr witness f32 ops {set(f32_ops)}")
     r = _witness_reading(outs, exact)
-    print(f"zoo rest: pbr served by the test CLI from {CLI_RESUME_NITER}_"
+    print(f"zoo rest: pbr served by the test CLI from {SHORT_RESUME}_"
           f"G.ckpt: {N_VAL} materials at b=1 (LR {PBR_SERVE_CROP // 4} px) "
           f"in {wall:.2f} s (set-up included; traced, the card ran "
           f"{t['ran']}); PSNR {psnr}; G's f32 output, max|ref| "
@@ -8476,10 +8517,11 @@ def _pbr_serve(smi: str, root: str, data: dict) -> dict:
     _pbr_block_trace(recs, card_net, smi)
     print(f"zoo rest: pbr serving: plain blocks {r['plain'] / r['size']:.3e}"
           f" of the size from the witness (tol 1e-5); kernels against the "
-          f"CPU {r['card_cpu'] / r['size']:.3e} of the size, past the 1e-5 "
-          f"that ROADMAP C 27 leaves open")
+          f"CPU {r['card_cpu'] / r['size']:.3e} of the size (tol 1e-5, "
+          f"ROADMAP C 27)")
     if not (psnr and math.isfinite(psnr[0])) or \
             not r["plain"] <= 1e-5 * r["size"] or \
+            not r["card_cpu"] <= 1e-5 * r["size"] or \
             not math.isfinite(r["card"]):
         raise AssertionError(f"pbr serving: {psnr}, {r}")
     torch.cuda.empty_cache()
@@ -8574,19 +8616,35 @@ def _pbr_block_trace(recs: dict, card_net, smi: str,
     unequal = [i for i in range(n)
                if not torch.equal(kernel_out[i], emulated[i])]
     emu_s = time.perf_counter() - t0
+    with torch.inference_mode():
+        # the tile before C 27's repair, each mma straight onto the sum
+        one_way = rdb_forward_emulated(
+            torch.stack([x.float().permute(0, 2, 3, 1) for x, _ in
+                         exact]).to(dev),
+            [torch.stack([p[0][k] for p in packs]) for k in range(5)],
+            [torch.stack([p[1][k] for p in packs]) for k in range(5)],
+            one_way=True)
+    bias["one-way"] = []
+    for i, (x, y) in enumerate(exact):
+        err = one_way[i].permute(0, 3, 1, 2).double().cpu() - y
+        bias["one-way"].append(float((err * (y - x).sign()).sum()
+                                     / err.abs().sum().clamp(min=1e-300)))
     fmt = lambda v: "[" + ", ".join(f"{e:.2e}" for e in v) + "]"  # noqa
     for s in sides:
         print(f"pbr trace: {s}: chained {fmt(chained[s])}")
         print(f"pbr trace: {s}: local {fmt(local[s])}")
         print(f"pbr trace: {s}: local bias "
               f"[{', '.join(f'{e:.2f}' for e in bias[s])}]")
+    print(f"pbr trace: one-way emulation (the tile before C 27's repair): "
+          f"local bias [{', '.join(f'{e:.2f}' for e in bias['one-way'])}]")
     med = lambda v: sorted(v)[len(v) // 2]  # noqa
     ratio = [k / max(p, 1e-30) for k, p in zip(local["cuda"], local["cpu"])]
     worst = max(range(n), key=lambda i: local["cuda"][i])
     print(f"pbr trace: {n} blocks at b=1, 32 x 32, f32: local error, "
           f"kernels over the CPU's: median {med(ratio):.2f}x (from "
           f"{min(ratio):.2f} to {max(ratio):.2f}); local bias median "
-          f"kernels {med(bias['cuda']):.2f}, plain on the card "
+          f"kernels {med(bias['cuda']):.2f} (one-way emulation "
+          f"{med(bias['one-way']):.2f}), plain on the card "
           f"{med(bias['plain']):.2f}, CPU {med(bias['cpu']):.2f}; chained "
           f"at the last block: kernels {chained['cuda'][-1]:.3e}, plain "
           f"{chained['plain'][-1]:.3e}, CPU {chained['cpu'][-1]:.3e}; the "
@@ -9043,7 +9101,7 @@ def phase_zoo_rest(smi: str, root: str) -> dict:
     """Phase 23: the rest of the zoo. PBR on the block kernels at full
     width (``train_sr.yml``'s G, nf 64, nb 23, gc 32, as ``model: pbr``:
     b 8, crop 128, bf16, pixel L1 and VGG19 feature L1, four maps):
-    the training CLI (12 iterations and a resume to 14: 276 block
+    the training CLI (6 iterations and a resume to 8: 276 block
     forwards and 276 backwards per step, 69 forwards per validation
     material), the kernels against their plain versions at P, three
     steps graphed against eager, the f64 witness, the test CLI; DVD
@@ -9095,15 +9153,448 @@ def phase_graphs(smi: str, root: str) -> None:
           f"{', '.join(parts)} s) ({smi})")
 
 
+PAR_STEPS, PAR_TIMED = 3, 10   # phase 24 (a): steps compared, timed
+PAR_SPLIT = 16                  # (b): the global batch of 32 as 16 + 16
+# (b): a gradient that the one-process step itself moves by more when
+# its batch comes in another order (of PAR_REORDERS orders) is held to
+# PAR_REORDER_X times that move: one order's move is a single draw of the
+# rounding, 0.47-1.0x the 16 + 16 split's in the first runs
+PAR_REORDERS, PAR_REORDER_X = 2, 3.0
+# (b): faults planted in the two ranks' step, each of which the check
+# must reject (``_par_fault``)
+PAR_FAULTS = ("batch norm per rank", "relativistic means per rank",
+              "D's gradient not averaged")
+BAND_PX, N_BANDS, BAND_HALO = 512, 4, 32   # (d): the served LR image
+
+
+@contextlib.contextmanager
+def _group_of_one():
+    """A one-rank NCCL process group in this process (an in-process
+    store) and its ``(data: 1)`` mesh; the group is destroyed after."""
+    import torch
+    import torch.distributed as dist
+
+    from trainner_tpu_torch.parallel import mesh as M
+
+    dev = torch.device("cuda", 0)
+    M.init_distributed(dev)
+    try:
+        yield M.make_mesh(M.MeshConfig(data=1), device=dev)
+    finally:
+        dist.destroy_process_group()
+
+
+def _par_nccl_step(smi: str) -> dict:
+    """Phase 24 (a): the flagship GAN step (b 32, 32 -> 128 px, bf16,
+    graphed) on a one-rank NCCL group against the same step with no
+    group, from the same state and batches, ``PAR_STEPS`` steps (the
+    first eager and captured, the others replays): every tensor of the
+    state and every log bit for bit (cuDNN deterministic: its atomics
+    would differ between any two runs); then one more replay under a
+    launch trace (69 block forwards and 69 backwards on the kernels);
+    the all-reduces issued into the capture counted (``collectives.issued``;
+    a replay issues none from Python); then both timed in turns. Returns
+    the trace."""
+    import torch
+
+    from trainner_tpu_torch.parallel import collectives as C
+    from trainner_tpu_torch.train.sr_trainer import create_trainer
+
+    per_g = NB * 3
+    batches = [_train_batch(seed=s) for s in range(PAR_STEPS)]
+    prev = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        plain = create_trainer(_train_options())
+        ps = plain.init_state(0)
+        for b in batches:
+            ps, plogs = plain.train_step(ps, b)
+        with _group_of_one() as mesh:
+            tr = create_trainer(_train_options(), mesh=mesh)
+            st = tr.init_state(0)
+            issued = [C.issued]
+            for b in batches:
+                st, logs = tr.train_step(st, b)
+                issued.append(C.issued)
+            torch.cuda.synchronize()
+            # the first step runs eagerly and then captures: each issues
+            # the step's collectives once; a replay issues none
+            per_step = (issued[1] - issued[0]) // 2
+            replayed = [b - a for a, b in zip(issued[1:], issued[2:])]
+            want, got = _state_tensors(ps), _state_tensors(st)
+            unequal = [k for k, v in want.items()
+                       if not (torch.equal(v, got[k])
+                               if isinstance(v, torch.Tensor)
+                               else v == got[k])]
+            log_diff = {k: (float(plogs[k]), float(logs[k])) for k in plogs
+                        if not torch.equal(plogs[k], logs[k])}
+            # a replay of the captured step, traced
+            t, _ = _retried_trace(
+                lambda: tr.train_step(st, batches[0]),
+                {"rdb5c": per_g, "rdb5c_bwd": per_g}, fresh=False,
+                label="parallel: one-rank NCCL step")
+            ms = {"no group": [], "one-rank NCCL group": []}
+            for _ in range(2):
+                for name, (trn, state) in (("no group", (plain, ps)),
+                                           ("one-rank NCCL group",
+                                            (tr, st))):
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    for _ in range(PAR_TIMED):
+                        trn.train_step(state, batches[0])
+                    torch.cuda.synchronize()
+                    ms[name].append((time.perf_counter() - t0)
+                                    / PAR_TIMED * 1e3)
+            graphs = len(tr.step_graphs())
+            del tr, st
+    finally:
+        torch.backends.cudnn.deterministic = prev
+    print(f"parallel: (a) the flagship GAN step bf16 b=32 graphed on a "
+          f"one-rank NCCL group: {PAR_STEPS} steps, {len(want)} state "
+          f"tensors, {len(unequal)} differ from the step with no group, "
+          f"logs differing {log_diff}; {per_step} all-reduces captured "
+          f"into the step's graph ({graphs} graph(s); the replays issued "
+          f"{replayed} from Python); a traced replay: the card ran "
+          f"{t['ran']} ({per_g} + {per_g} per step) and {t['nccl']} NCCL "
+          f"kernels (an all-reduce in place over one rank launches none); "
+          f"times in turns, ms per step: "
+          f"{ {k: [round(v, 3) for v in vs] for k, vs in ms.items()} } "
+          f"({smi})")
+    if unequal or log_diff or per_step <= 0 or any(replayed) or \
+            (issued[1] - issued[0]) % 2:
+        raise AssertionError(f"parallel (a): {unequal[:8]} {log_diff} "
+                             f"collectives {issued}")
+    del plain, ps
+    torch.cuda.empty_cache()
+    return t
+
+
+def _par_grad_options() -> dict:
+    """Phase 24 (b)'s step: the flagship's in f32, G's latent noise off,
+    as phase 12's f32 gradient check runs it (with G's weights at gain
+    0.7, ``_gain_weights``): at init most of G's gradients are 1e-7 to
+    1e-11 of the largest, sums of rounding that any other order of the
+    same sums moves by 1e-2 of their size."""
+    opt = {**_train_options(), "use_amp": False}
+    opt["network_G"] = {**opt["network_G"], "gaussian_noise": False}
+    return opt
+
+
+@contextlib.contextmanager
+def _par_fault(name: str, d_params):
+    """One of ``PAR_FAULTS`` planted in this process's step while the
+    context is open: D's batch norms on this rank's statistics (their
+    ``batch_mean`` the identity), the relativistic loss's means over this
+    rank's samples (likewise), or D's gradients left unaveraged
+    (``average_grads`` skipped for ``d_params``)."""
+    from trainner_tpu_torch.losses import gan
+    from trainner_tpu_torch.ops import blocks
+    from trainner_tpu_torch.train import sr_trainer
+
+    if name == PAR_FAULTS[0]:
+        mod, attr, fn = blocks, "batch_mean", lambda x: x
+    elif name == PAR_FAULTS[1]:
+        mod, attr, fn = gan, "batch_mean", lambda x: x
+    elif name == PAR_FAULTS[2]:
+        whole = sr_trainer.average_grads
+        ids = {id(p) for p in d_params}
+
+        def fn(params):
+            params = list(params)
+            if not any(id(p) in ids for p in params):
+                whole(params)
+        mod, attr = sr_trainer, "average_grads"
+    else:
+        raise ValueError(name)
+    kept = getattr(mod, attr)
+    setattr(mod, attr, fn)
+    try:
+        yield
+    finally:
+        setattr(mod, attr, kept)
+
+
+def _par_rank(store: str, rank: int, out: str) -> int:
+    """One rank of phase 24 (b), in a process of its own: a gloo group of
+    two on the one card, the flagship's f32 step (eager, TF32 off) on
+    this rank's 16 of the 32 samples, from the same state, once sound and
+    once with each of ``PAR_FAULTS`` planted; rank 0 saves G's and D's
+    averaged gradients and the logs of each."""
+    import torch
+    import torch.distributed as dist
+
+    from trainner_tpu_torch.parallel import mesh as M
+    from trainner_tpu_torch.train.sr_trainer import create_trainer
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    M.init_distributed(dev, rank=rank, world_size=2,
+                       init_method=f"file://{store}", backend="gloo")
+    mesh = M.make_mesh(M.MeshConfig(data=2), device=dev)
+    tr = create_trainer(_par_grad_options(), graphs=False, mesh=mesh)
+    batch = M.shard_batch(_train_batch(seed=7), mesh)
+    runs = {}
+    for fault in ("sound",) + PAR_FAULTS:
+        st = tr.init_state(0)
+        _gain_weights(st.g.net, seed=3)
+        with contextlib.nullcontext() if fault == "sound" else \
+                _par_fault(fault, list(st.d.net.parameters())):
+            st, logs = tr.train_step(st, batch)
+        runs[fault] = {w: {k: p.grad.cpu() for k, p in
+                           getattr(st, w).net.named_parameters()}
+                       for w in ("g", "d")}
+        runs[fault]["logs"] = {k: float(v) for k, v in logs.items()}
+        del st
+    if rank == 0:
+        torch.save({"runs": runs, "b": int(batch["LR"].shape[0])}, out)
+    dist.barrier()
+    dist.destroy_process_group()
+    return 0
+
+
+def _grad_errors(got: dict, net, which: str) -> dict:
+    """Each of ``net``'s gradients against ``got`` (name -> tensor on the
+    host): the largest difference over the tensor's largest magnitude,
+    by ``{which}.{name}``; for D's biases whose gradient is 0 but for
+    rounding (a conv's that a batch norm follows, the dense layers')
+    over D's largest gradient instead."""
+    names = dict(net.named_parameters())
+    top = max(float(p.grad.abs().max()) for p in names.values())
+    out = {}
+    for k, p in names.items():
+        ref = p.grad.detach().cpu()
+        err = float((got[k] - ref).abs().max())
+        noise = which == "d" and k.endswith("bias") and (
+            k.startswith("linear")
+            or k.replace("bias", "norm.weight") in names)
+        size = top if noise else float(ref.abs().max())
+        out[f"{which}.{k}"] = err / max(size, 1e-30)
+    return out
+
+
+def _par_two_gloo_ranks(smi: str, root: str) -> None:
+    """Phase 24 (b): two processes on the one card over gloo, eager, f32
+    with TF32 off, the global batch of 32 split 16 + 16, G at phase 12's
+    gain (``_par_grad_options``): the averaged G and D gradients against
+    the one-process step's on the whole batch at phase 12's f32 gradient
+    tolerance (3e-3 of each tensor's size; D's biases whose gradient is 0
+    but for rounding, in front of a batch norm and in the dense layers
+    under the relativistic loss, at 3e-3 of D's largest gradient), or,
+    for a tensor whose one-process gradient itself moves by more when the
+    same batch comes in another order (sums of rounding: at init the
+    relativistic loss gives D's logits gradients that are differences of
+    near-equal terms), within ``PAR_REORDER_X`` times the larger move of
+    ``PAR_REORDERS`` such orders; the logs within 1e-3 relative. The same
+    check must reject each of ``PAR_FAULTS`` planted in the ranks' step
+    (a tensor over its limit or the logs over theirs)."""
+    import torch
+
+    from trainner_tpu_torch.train.sr_trainer import create_trainer
+
+    store = os.path.join(root, "par_store")
+    out = os.path.join(root, "par_grads.pt")
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--par-rank", str(r),
+         "--par-store", store, "--par-out", out],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
+        for r in range(2)]
+    logs = [p.communicate(timeout=600)[0].decode(errors="replace")
+            for p in procs]
+    wall = time.perf_counter() - t0
+    for p, log in zip(procs, logs):
+        if p.returncode != 0:
+            raise AssertionError(f"parallel (b): a rank failed:\n"
+                                 f"{log[-3000:]}")
+    saved = torch.load(out, weights_only=False)
+    runs = saved["runs"]
+
+    def one_process(order=None):
+        tr = create_trainer(_par_grad_options(), graphs=False)
+        st = tr.init_state(0)
+        _gain_weights(st.g.net, seed=3)
+        batch = _train_batch(seed=7)
+        if order is not None:
+            batch = {k: v[order] for k, v in batch.items()}
+        st, logs = tr.train_step(st, batch)
+        grads = {w: {k: p.grad.detach().cpu() for k, p in
+                     getattr(st, w).net.named_parameters()}
+                 for w in ("g", "d")}
+        return st, logs, grads
+
+    # the same step on the batch in two other orders: the same function,
+    # its sums in other orders, which read each gradient's own rounding
+    perm = torch.Generator().manual_seed(24)
+    agains = [one_process(torch.randperm(TRAIN_SHAPE[0], generator=perm))[2]
+              for _ in range(PAR_REORDERS)]
+    st, logs1, _ = one_process()
+    spread = {}
+    for w in ("g", "d"):
+        net = getattr(st, w).net
+        for again in agains:
+            for k, v in _grad_errors(again[w], net, w).items():
+                spread[k] = max(spread.get(k, 0.0), v)
+    readings = {name: _par_reading(run, st, logs1, spread)
+                for name, run in runs.items()}
+    worst, over, ratio, log_err = readings["sound"]
+    name = max(worst, key=worst.get)
+    n_over = sum(1 for k in worst if worst[k] > 3e-3)
+    faults = "; ".join(
+        f"{f}: {readings[f][2]:.3f}, {len(readings[f][1])} tensors over, "
+        f"logs {readings[f][3]:.3e}" for f in PAR_FAULTS)
+    print(f"parallel: (b) two gloo ranks on the one card, f32 eager, b "
+          f"{saved['b']} + {saved['b']} = 32: averaged gradients against "
+          f"the one-process step's, worst {worst[name]:.3e} of the "
+          f"tensor's size ({name}; the one-process step on the batch "
+          f"reordered moves it by up to {spread[name]:.3e}), tol 3e-3 or "
+          f"{PAR_REORDER_X}x the larger of {PAR_REORDERS} reorders' moves; "
+          f"{n_over} of {len(worst)} tensors past 3e-3, all within that; "
+          f"the largest reorder move "
+          f"{max(spread.values()):.3e} ({max(spread, key=spread.get)}); "
+          f"logs within {log_err:.2e} relative; the largest error over "
+          f"its limit {ratio:.3f}; planted faults (the largest error over "
+          f"its limit, the tensors over it, the logs' relative error): "
+          f"{faults}; the ranks' wall {wall:.1f} s ({smi})")
+    missed = [f for f in PAR_FAULTS
+              if not readings[f][1] and readings[f][3] <= 1e-3]
+    if saved["b"] != PAR_SPLIT or over or log_err > 1e-3 or missed:
+        raise AssertionError(f"parallel (b): {sorted(over.items())[:6]}, "
+                             f"logs {log_err}, faults not rejected "
+                             f"{missed}")
+    del st
+    torch.cuda.empty_cache()
+
+
+def _par_reading(run: dict, st, logs1: dict, spread: dict) -> tuple:
+    """Phase 24 (b)'s reading of one two-rank run (``run``: G's and D's
+    gradients and the logs) against the one-process step (``st``'s
+    gradients, ``logs1``): each tensor's error (``_grad_errors``), those
+    over their limit (3e-3, or ``PAR_REORDER_X`` times ``spread``, the
+    reorders' move) with their move, the largest error over its limit,
+    and the logs' largest relative error."""
+    worst = {}
+    for w in ("g", "d"):
+        worst.update(_grad_errors(run[w], getattr(st, w).net, w))
+    limit = {k: max(3e-3, PAR_REORDER_X * spread[k]) for k in worst}
+    over = {k: (v, spread[k]) for k, v in worst.items() if v > limit[k]}
+    ratio = max(v / limit[k] for k, v in worst.items())
+    log_err = max(abs(run["logs"][k] - float(v)) / max(abs(float(v)), 1e-3)
+                  for k, v in logs1.items())
+    return worst, over, ratio, log_err
+
+
+def _par_bands(smi: str) -> dict:
+    """Phase 24 (d): the flagship G (random weights from seed 0) served
+    in f32 on one LR image of ``BAND_PX`` x ``BAND_PX`` in ``N_BANDS``
+    bands on the one card, halo ``BAND_HALO``: the rows beyond halo x
+    scale from the outer edges within 1e-5 of the output's size of the
+    whole-image ``eval_step``, the edge rows' difference printed; every
+    band's 69 blocks on the kernel (a trace); both times; G's effective
+    radius. Returns the trace."""
+    import torch
+
+    from trainner_tpu_torch.parallel.spatial import effective_radius
+    from trainner_tpu_torch.train.sr_trainer import create_trainer
+
+    per_g = NB * 3
+    tr = create_trainer({"is_train": False, "scale": 4, "network_G": {
+        "type": "rrdb_net", "nf": NF, "nb": NB, "gc": GC, "upscale": 4}})
+    st = tr.init_state(0)
+    x = torch.rand(1, BAND_PX, BAND_PX, 3,
+                   generator=torch.Generator().manual_seed(24)).cuda()
+    devs = [torch.device("cuda", 0)] * N_BANDS
+    whole = tr.eval_step(st, x)
+    t, bands = _retried_trace(
+        lambda: tr.eval_step_spatial(st, x, devs, halo=BAND_HALO),
+        {"rdb5c": per_g * N_BANDS, "rdb5c_bwd": 0, "blur": 0},
+        label="parallel: bands")
+    edge = BAND_HALO * 4
+    size = float(whole.abs().max())
+    inner = float((bands - whole)[:, edge:-edge].abs().max()) / size
+    outer = float((bands - whole).abs().max()) / size
+    ms_whole = _time_ms(lambda: tr.eval_step(st, x), iters=3, warmup=1)
+    ms_bands = _time_ms(lambda: tr.eval_step_spatial(
+        st, x, devs, halo=BAND_HALO), iters=3, warmup=1)
+    small = x[:, :128, :128]
+    radius = {rtol: effective_radius(lambda v: tr.eval_step(st, v), small,
+                                     rtol=rtol, scale=4)
+              for rtol in (1e-3, 1e-4)}
+    band = BAND_PX // N_BANDS
+    print(f"parallel: (d) the flagship G f32 on a {BAND_PX} x {BAND_PX} LR "
+          f"image in {N_BANDS} bands of {band} rows on the one card, halo "
+          f"{BAND_HALO}: rows beyond {edge} of the outer edges "
+          f"{inner:.3e} of the output's size (max|y| {size:.3e}) from the "
+          f"whole-image eval_step (tol 1e-5), the edge rows {outer:.3e}; "
+          f"the card ran {t['ran']} ({per_g} per band); whole "
+          f"{ms_whole:.2f} ms, bands {ms_bands:.2f} ms "
+          f"({ms_bands / ms_whole:.3f}x; (band + 2 halo) / band = "
+          f"{(band + 2 * BAND_HALO) / band:.3f}); G's effective radius at "
+          f"128 x 128 (rtol: rows) {radius} ({smi})")
+    if inner > 1e-5 or not math.isfinite(outer) or \
+            tuple(bands.shape) != tuple(whole.shape):
+        raise AssertionError(f"parallel (d): interior {inner}")
+    del tr, st, whole, bands
+    torch.cuda.empty_cache()
+    return t
+
+
+def phase_parallel(smi: str, root: str) -> dict:
+    """Phase 24: several GPUs' paths on the one card at full width
+    (RRDBNet nf 64, nb 23, gc 32; D-VGG-128; the flagship's losses):
+    (a) a one-rank NCCL group's graphed step bit for bit against the step
+    with no group (``_par_nccl_step``); (b) two gloo ranks' averaged
+    gradients against one process's (``_par_two_gloo_ranks``); (c) the
+    training CLI on ``train_sr.yml`` with ``parallel: {data: 1}`` for 6
+    iterations, resumed to 8 by the CLI without ``parallel:`` (the blur
+    kernel runs in its degradations); (d) band serving (``_par_bands``).
+    Returns the traces."""
+    import torch
+
+    t0 = time.perf_counter()
+    traces, parts = {}, []
+
+    def par_edit(opt):
+        opt["parallel"] = {"data": 1}
+
+    def resume_edit(opt):
+        opt.pop("parallel", None)
+
+    for part in (lambda: traces.update({"parallel nccl step":
+                                        _par_nccl_step(smi)}),
+                 lambda: _par_two_gloo_ranks(smi, root),
+                 lambda: traces.update({
+                     f"parallel cli {k}": v for k, v in phase_cli(
+                         smi, root, TRAIN_YML, "cli_parallel",
+                         edit=par_edit, niter=6, resume_niter=8,
+                         resume_edit=resume_edit).items()}),
+                 lambda: traces.update({"parallel bands":
+                                        _par_bands(smi)})):
+        t1 = time.perf_counter()
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
+        part()
+        parts.append(f"{time.perf_counter() - t1:.1f}")
+    ran = {k: sum(t["ran"][k] for t in traces.values())
+           for k in ("rdb5c", "rdb5c_bwd", "blur")}
+    print(f"parallel: kernels {json.dumps(ran)} (launches the card ran in "
+          f"phase 24's traces)")
+    print(f"parallel: ok in {time.perf_counter() - t0:.1f} s (NCCL step, "
+          f"gloo ranks, CLI, bands: {', '.join(parts)} s) ({smi})")
+    return traces
+
+
 def _later_phases(smi: str, root: str, which: tuple) -> dict:
     """Phases 18 (``phase_producer_rest``), 19 (``phase_models``), 20
-    (``phase_i2i``), 21 (``phase_video``), 22 (``phase_srflow``) and 23
-    (``phase_zoo_rest``) of ``which``, TF32 off before each; returns their
-    traces."""
+    (``phase_i2i``), 21 (``phase_video``), 22 (``phase_srflow``), 23
+    (``phase_zoo_rest``) and 24 (``phase_parallel``) of ``which``, TF32
+    off before each; returns their traces."""
     import torch
 
     phases = {18: phase_producer_rest, 19: phase_models, 20: phase_i2i,
-              21: phase_video, 22: phase_srflow, 23: phase_zoo_rest}
+              21: phase_video, 22: phase_srflow, 23: phase_zoo_rest,
+              24: phase_parallel}
     traces = {}
     for n in which:
         torch.backends.cudnn.allow_tf32 = False
@@ -9124,13 +9615,20 @@ def main(argv=None) -> int:
                         "git archive) whose blur kernel is timed beside "
                         "this one's")
     parser.add_argument("--only", default="",
-                        help="comma-separated phases among 18 to 23: "
+                        help="comma-separated phases among 18 to 24: "
                         "build the kernels, write the corpus and run those "
                         "alone (no result line)")
+    # one rank of phase 24 (b), started by the phase itself
+    parser.add_argument("--par-rank", type=int, default=-1,
+                        help=argparse.SUPPRESS)
+    parser.add_argument("--par-store", default="", help=argparse.SUPPRESS)
+    parser.add_argument("--par-out", default="", help=argparse.SUPPRESS)
     flags = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 1
+    if flags.par_rank >= 0:
+        return _par_rank(flags.par_store, flags.par_rank, flags.par_out)
     from trainner_tpu_torch.ops import _build, rdb5c
 
     _time_parts()
@@ -9203,7 +9701,7 @@ def main(argv=None) -> int:
         cli_counts.update(phase_losses(smi, root))
         cli_counts.update(phase_trainer_options(smi, root))
         cli_counts.update(_later_phases(smi, root,
-                                        (18, 19, 20, 21, 22, 23)))
+                                        (18, 19, 20, 21, 22, 23, 24)))
         rows = phase_times(smi, root)
         blur_rows = phase_blur_times(smi, flags.parent)
         phase_trace(smi, root, {k: r["step_ms"] for k, r in train.items()})

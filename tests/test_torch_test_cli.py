@@ -131,11 +131,22 @@ def test_port_cli_deferred_branches_raise(tmp_path, key, value, item):
     """x8 and chop are served (test_torch_inference_modes), CEM too
     (test_torch_cem), and ``model: ppon`` (test_torch_ppon_trainer); what
     the JAX CLI cannot run with PPON (CEM's ``out_orig``: its
-    ``eval_step`` takes no ``apply_cem``) and the band-parallel branch
-    still raise and name their ROADMAP item."""
+    ``eval_step`` takes no ``apply_cem``) still raises and names its
+    ROADMAP item. The band-parallel branch, deferred until ``Queue A 9``,
+    serves now: on the CPU its bands run one after another
+    (test_torch_spatial holds it against the JAX CLI)."""
     extra = {key: value}
     if key == "model":
         extra.update(use_cem=True, cem_config={"out_orig": True})
+    else:
+        extra.update(spatial_halo=2)
+        _flax_ckpt(tmp_path / "G.ckpt")
+        path = _options(tmp_path, "bands", tmp_path / "G.ckpt", **extra)
+        got = port_test_cli.main(["-opt", path], device="cpu")
+        assert all(np.isfinite(m["average"]) for m in got["synth"])
+        assert len(list((tmp_path / "results" / "bands" / "synth"
+                         ).glob("*.png"))) == 2, item
+        return
     path = _options(tmp_path, "deferred", tmp_path / "none.ckpt", **extra)
     with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
         port_test_cli.main(["-opt", path], device="cpu")

@@ -194,10 +194,13 @@ _SYNTH = "mode: synthetic\n    n_samples: 16"
       (_SYNTH, "mode: synthetic\n    kind: dvd\n    n_samples: 16")), None),
     ((("model: sr", "model: pbr"),
       (_SYNTH, "mode: pbr\n    dataroot_HR: {mats}")), None),
-    ((("scale: 4", "scale: 4\nparallel: {data: 2}"),), "Queue A 9"),
+    ((("scale: 4", "scale: 4\nparallel: {data: 1}"),
+      ("model: sr", "model: cyclegan")), "Queue A 9"),
 ])
 def test_what_the_cli_does_not_port_raises(edit, item, tmp_path):
-    """``parallel`` raises and names its item; ``model: dvd`` (its
+    """``parallel`` with a model whose step is not on the data axis yet
+    raises and names its item (A 9 d; ``parallel`` itself trains since
+    Queue A 9 a-c: ``test_torch_parallel.py``); ``model: dvd`` (its
     synthetic kind, ``dvd_net``) and ``model: pbr`` (on seeded material
     folders), once refused here (ROADMAP Queue A 10.6), run 2
     iterations (both CLIs at length: ``test_torch_zoo_rest_cli.py``)."""

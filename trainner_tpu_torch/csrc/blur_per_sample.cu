@@ -74,6 +74,7 @@ constexpr int WIDE_MIN_BLOCKS = 2;  // resident wide blocks an SM must hold
 constexpr int HALO_UNROLL = 4;  // halo pixels a thread has in flight
 constexpr int MAX_K = 21;       // the largest k with a window of its own
 constexpr size_t MAX_SMEM = 232448;  // what one block may use on sm_90
+constexpr int MAX_DEVICES = 64;      // cards one process may launch on
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
@@ -252,15 +253,20 @@ int sm_count() {
 template <typename T, int K, int R, int NWX>
 int launch(const void* x, const float* kernels, void* out, int b, int h,
            int w, int c, int k, cudaStream_t stream) {
-  static size_t configured = 48 * 1024;  // the default limit
+  // the limit set on each card (0: the default 48 KiB), an attribute of
+  // each card: a process that launches on several sets it on each
+  static size_t configured[MAX_DEVICES] = {0};
+  int dev = 0;
+  cudaGetDevice(&dev);
+  if (dev >= MAX_DEVICES) return (int)cudaErrorInvalidDevice;
   const size_t smem = smem_bytes(R, NWX, c, k);
   if (smem > MAX_SMEM) return (int)cudaErrorInvalidValue;
-  if (smem > configured) {
+  if (smem > (configured[dev] ? configured[dev] : 48 * 1024)) {
     const cudaError_t e = cudaFuncSetAttribute(
         blur_kernel<T, K, R, NWX>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         (int)smem);
     if (e != cudaSuccess) return (int)e;
-    configured = smem;
+    configured[dev] = smem;
   }
   const int tw = R * NWX;
   const int tiles_x = (w + tw - 1) / tw;

@@ -19,7 +19,8 @@
 //  * f32: 3xTF32 on mma.sync.m16n8k8 (tf32 in, f32 sums). Each operand is
 //    split a = hi + lo (hi = cvt.rna.tf32(a), lo = cvt.rna.tf32(a - hi)) and
 //    each product taken as lo*hi' + hi*lo' + hi*hi'; lo*lo' (about 2^-22
-//    relative) is dropped. Three products of a 495 TFLOP/s unit make 165
+//    relative) is dropped. Each k-step's three products sum in an
+//    accumulator of their own, added to the output's with a rounding FADD. Three products of a 495 TFLOP/s unit make 165
 //    TFLOP/s of f32 work, against 67 on the CUDA cores. The tile is bound
 //    by issuing those HMMAs and the split's ALU work (a cvt.rna is four
 //    instructions, a split nine): an A fragment is split once per load and
@@ -84,6 +85,9 @@ namespace rdbm {
 
 typedef __nv_bfloat16 bf16;
 
+// a kernel's dynamic shared-memory limit is an attribute of each card:
+// a process that launches on several cards sets it once on each
+constexpr int MAX_DEVICES = 64;
 constexpr int TH = 16;                     // output rows per tile
 constexpr int TW = 16;                     // output columns per tile
 constexpr int HW = TW + 2;                 // halo tile columns
@@ -203,15 +207,23 @@ __device__ __forceinline__ void split_tf32(uint32_t x, uint32_t& hi,
   asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(lo) : "f"(f - __uint_as_float(hi)));
 }
 
-// d += a * b in 3xTF32, the small products first.
+// d += a * b in 3xTF32, the small products first. The three mmas sum into
+// a zeroed accumulator and that sum goes onto d with an FADD: an mma cuts
+// its running sum towards zero, so on d itself the cut of every one of a
+// conv's up to 648 steps leaned the same way and the block's output with
+// them; the FADD rounds to nearest, and the cuts inside one k-step are
+// small beside d.
 __device__ __forceinline__ void mma_3xtf32(float (&d)[4],
                                            const uint32_t (&ahi)[4],
                                            const uint32_t (&alo)[4],
                                            const uint32_t (&bhi)[2],
                                            const uint32_t (&blo)[2]) {
-  mma_tf32(d, alo, bhi[0], bhi[1]);
-  mma_tf32(d, ahi, blo[0], blo[1]);
-  mma_tf32(d, ahi, bhi[0], bhi[1]);
+  float p[4] = {0.f, 0.f, 0.f, 0.f};
+  mma_tf32(p, alo, bhi[0], bhi[1]);
+  mma_tf32(p, ahi, blo[0], blo[1]);
+  mma_tf32(p, ahi, bhi[0], bhi[1]);
+#pragma unroll
+  for (int e = 0; e < 4; ++e) d[e] += p[e];
 }
 
 // Byte offset of 16-byte group q of row `row` in a tile of 64-byte rows:

@@ -110,10 +110,13 @@ int launch_all(const void* x_, const void* const* wts,
     if constexpr (F32) return rdb_stage_tf32;
     else return rdb_stage_mma;
   }();
-  static bool configured = false;
+  static bool configured[rdbm::MAX_DEVICES] = {false};
   static int per_sm[rdbm::MAXCH + 1] = {0};
   static int per_sm_streamed[1] = {0};
-  if (!configured) {
+  int dev = 0;
+  cudaGetDevice(&dev);
+  if (dev >= rdbm::MAX_DEVICES) return (int)cudaErrorInvalidDevice;
+  if (!configured[dev]) {
     cudaError_t e = cudaFuncSetAttribute(
         stage, cudaFuncAttributeMaxDynamicSharedMemorySize,
         (int)rdbm::conv_smem_bytes<T>(rdbm::MAXCH));
@@ -124,7 +127,7 @@ int launch_all(const void* x_, const void* const* wts,
           (int)rdbm::conv_smem_bytes<T>(rdbm::MAXCH + 1));
       if (e != cudaSuccess) return (int)e;
     }
-    configured = true;
+    configured[dev] = true;
   }
   const T* x = static_cast<const T*>(x_);
   rdbm::ConvArgs<T> args;

@@ -603,10 +603,13 @@ int launch_bwd(const void* g_, const void* x_, void* const* cs,
     else return dw_mma_kernel;
   }();
   const size_t dw_smem = F32 ? DWT_SMEM_BYTES : DWM_SMEM_BYTES;
-  static bool configured = false;
+  static bool configured[rdbm::MAX_DEVICES] = {false};
   static int per_sm[rdbm::MAXCH + 1] = {0};
   static int per_sm_streamed[1] = {0};
-  if (!configured) {
+  int dev = 0;
+  cudaGetDevice(&dev);
+  if (dev >= rdbm::MAX_DEVICES) return (int)cudaErrorInvalidDevice;
+  if (!configured[dev]) {
     cudaError_t e = cudaFuncSetAttribute(
         dx_stage, cudaFuncAttributeMaxDynamicSharedMemorySize,
         (int)rdbm::conv_smem_bytes<T>(rdbm::MAXCH));
@@ -620,7 +623,7 @@ int launch_bwd(const void* g_, const void* x_, void* const* cs,
     e = cudaFuncSetAttribute(
         dw_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)dw_smem);
     if (e != cudaSuccess) return (int)e;
-    configured = true;
+    configured[dev] = true;
   }
   const T* g = static_cast<const T*>(g_);
   T* G = static_cast<T*>(G_);

@@ -17,7 +17,7 @@ import itertools
 import queue
 import threading
 from concurrent.futures import ThreadPoolExecutor
-from typing import Any, Dict, Iterator, List, Sequence, Union
+from typing import Any, Dict, Iterator, List, Optional, Sequence, Union
 
 import numpy as np
 import torch
@@ -46,12 +46,18 @@ def _collate(samples: List[Dict[str, Any]], pin: bool) -> Dict[str, Any]:
 class DataLoader:
     """Iterates a dataset in batches: in order, or in an order shuffled
     anew every epoch from ``seed`` plus the epoch's number. Batches are
-    produced by background threads (``num_workers`` > 0) or inline."""
+    produced by background threads (``num_workers`` > 0) or inline.
+    ``part`` (a slice of ``range(batch_size)``, a rank's
+    ``parallel.local_batch_slice``) reads only those samples of each
+    batch, in the one-process order: the ranks' parts put together are
+    the one-process batch."""
 
     def __init__(self, dataset, batch_size: int = 1, shuffle: bool = False,
                  drop_last: bool = False, num_workers: int = 1,
-                 seed: int = 0, prefetch: int = 4, pin_memory: bool = False):
+                 seed: int = 0, prefetch: int = 4, pin_memory: bool = False,
+                 part: Optional[slice] = None):
         self.dataset = dataset
+        self.part = part
         self.batch_size = batch_size
         self.shuffle = shuffle
         self.drop_last = drop_last
@@ -77,6 +83,8 @@ class DataLoader:
         if self.drop_last and batches and \
                 len(batches[-1]) < self.batch_size:
             batches.pop()
+        if self.part is not None:
+            batches = [b[self.part] for b in batches]
         return batches
 
     def __iter__(self) -> Iterator[Dict[str, Any]]:
@@ -237,15 +245,21 @@ def device_prefetch(iterator: Iterator[Dict[str, Any]], size: int = 2,
         yield take(buf.pop(0))
 
 
-def create_dataloader(dataset, dataset_opt: dict, pin_memory: bool = False):
+def create_dataloader(dataset, dataset_opt: dict, pin_memory: bool = False,
+                      part: Optional[slice] = None):
     """Train loaders shuffle (unless ``use_shuffle`` is off) and drop the
     last short batch; evaluation loaders are sequential, batch 1, one
     thread. A list of datasets trains through a ``WeightedMultiLoader``
     with ``sampler_weights`` (equal weights without them) and evaluates as
     one ``ConcatDataset``. The training CLI builds one dataset per phase,
-    as the JAX one does: a list comes only from Python."""
+    as the JAX one does: a list comes only from Python. ``part``: this
+    rank's slice of each train batch (``DataLoader``)."""
     train = dataset_opt.get("phase", "train") == "train"
     if isinstance(dataset, (list, tuple)):
+        if train and part is not None:
+            raise NotImplementedError(
+                "a list of train datasets on a data axis: the weighted "
+                "loader reads whole batches (ROADMAP Queue A 9 d)")
         if train:
             weights = dataset_opt.get("sampler_weights") or \
                 [1.0] * len(dataset)
@@ -264,6 +278,6 @@ def create_dataloader(dataset, dataset_opt: dict, pin_memory: bool = False):
             drop_last=True,
             num_workers=int(dataset_opt.get("n_workers", 2) or 2),
             seed=int(dataset_opt.get("seed", 0) or 0),
-            pin_memory=pin_memory)
+            pin_memory=pin_memory, part=part)
     return DataLoader(dataset, batch_size=1, num_workers=1,
                       pin_memory=pin_memory)

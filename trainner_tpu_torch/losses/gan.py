@@ -18,6 +18,7 @@ from typing import Callable, Dict, List, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from ..parallel.collectives import batch_mean, sample_draw
 from .basic import get_pixel_criterion
 
 WGAN_GP = ("wgan-gp", "wgangp")
@@ -122,8 +123,9 @@ class AdversarialLoss:
             else:
                 pr = reals[i].detach()
                 total = total + (
-                    gan_loss(self.gan_type, pr - pf.mean(), False)
-                    + gan_loss(self.gan_type, pf - pr.mean(), True)) / 2.0
+                    gan_loss(self.gan_type, pr - batch_mean(pf.mean()), False)
+                    + gan_loss(self.gan_type, pf - batch_mean(pr.mean()),
+                               True)) / 2.0
         l_g = self.gan_weight * total
 
         if feats_fake is not None:
@@ -157,16 +159,19 @@ class AdversarialLoss:
                                                is_disc=True)
             else:
                 l_d_real = l_d_real + gan_loss(
-                    self.gan_type, pr - pf.mean(), True, is_disc=True)
+                    self.gan_type, pr - batch_mean(pf.mean()), True,
+                    is_disc=True)
                 l_d_fake = l_d_fake + gan_loss(
-                    self.gan_type, pf - pr.mean(), False, is_disc=True)
+                    self.gan_type, pf - batch_mean(pr.mean()), False,
+                    is_disc=True)
         l_d_total = (l_d_fake + l_d_real) * 0.5
         logs = {"l_d_real": l_d_real, "l_d_fake": l_d_fake,
                 "D_real": reals[0].mean(), "D_fake": fakes[0].mean()}
         if self.uses_penalty:
             if alpha is None:
-                alpha = torch.rand((real.shape[0], 1, 1, 1),
-                                   generator=generator, device=real.device)
+                alpha = sample_draw(lambda n: torch.rand(
+                    (n, 1, 1, 1), generator=generator, device=real.device),
+                    real.shape[0])
             interp = alpha * fake + (1 - alpha) * real
             l_gp = float(self.gp_weight) * gradient_penalty(
                 lambda x: _as_list(d_fn(self._cond(x, condition)))[0],

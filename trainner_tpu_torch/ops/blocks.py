@@ -47,6 +47,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..parallel.collectives import batch_mean, sample_draw
 from ..utils.graphs import device_constant
 
 
@@ -401,7 +402,10 @@ class BatchNorm(nn.Module):
         x32 = x.float()
         if self.training:
             mean = x32.mean((0, 2, 3))
-            var = ((x32 * x32).mean((0, 2, 3)) - mean * mean).clamp_min(0.0)
+            mean2 = (x32 * x32).mean((0, 2, 3))
+            # the global batch's statistics under a data axis
+            mean, mean2 = batch_mean(torch.stack([mean, mean2])).unbind(0)
+            var = (mean2 - mean * mean).clamp_min(0.0)
             with torch.no_grad():
                 m = self.momentum
                 self.pending = (m * self.running_mean + (1 - m) * mean,
@@ -568,8 +572,9 @@ class GaussianNoise(nn.Module):
                 f"{noise.dtype} cannot serve a pass of {tuple(x.shape)} "
                 f"{x.dtype}")
         if noise is None:
-            noise = torch.randn(x.shape, dtype=x.dtype, device=x.device,
-                                generator=self.generator)
+            noise = sample_draw(lambda n: torch.randn(
+                (n, *x.shape[1:]), dtype=x.dtype, device=x.device,
+                generator=self.generator), x.shape[0])
             if self.hold:
                 self.held = noise
         return x + self.sigma * x.detach() * noise
@@ -724,8 +729,9 @@ class Dropout(nn.Module):
     def forward(self, x):
         if not self.training or not self.rate:
             return x
-        keep = torch.rand(x.shape, dtype=torch.float32, device=x.device,
-                          generator=self.generator) < 1.0 - self.rate
+        keep = sample_draw(lambda n: torch.rand(
+            (n, *x.shape[1:]), dtype=torch.float32, device=x.device,
+            generator=self.generator), x.shape[0]) < 1.0 - self.rate
         return torch.where(keep, x / (1.0 - self.rate), torch.zeros_like(x))
 
 

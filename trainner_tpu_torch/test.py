@@ -15,8 +15,10 @@ and scored, ``test.py:99-110``), ``dvd`` (a ``dvd`` dataset's interlaced
 ``{i}_bottom.png``, ``test.py:111-115``), ``wbc`` (G and its guided
 filter, from a ``single`` dataset) and ``pbr`` (G on the primary map of
 a ``pbr`` dataset, scored against its HR), with its x8 self-ensemble
-(``self_ensemble`` / ``x8``), tiled (``chop_forward`` / ``chop``) and plain
-``eval_step`` branches, taken in that order as the JAX CLI takes them, and
+(``self_ensemble`` / ``x8``), band-parallel (``spatial_shards`` bands with
+``spatial_halo`` rows of halo, 32 by default: ``eval_step_spatial``),
+tiled (``chop_forward`` / ``chop``) and plain ``eval_step`` branches,
+taken in that order as the JAX CLI takes them, and
 its CEM post-processing (``test.py:129-150``): with ``use_cem`` and
 ``cem_config.out_orig`` the output without CEM is computed too, and
 ``out_filter`` (a guided filter of the CEM correction, ``out_filter_ks``)
@@ -45,14 +47,6 @@ from typing import Dict, List, Optional, Union
 
 import torch
 
-# Options that select a branch of the JAX CLI this slice does not port,
-# with the ROADMAP item that will.
-_DEFERRED = (
-    (("spatial_shards",), "band-parallel spatial inference",
-     "Queue A 9, multi-GPU"),
-)
-
-
 def parse_options(argv=None):
     parser = argparse.ArgumentParser()
     parser.add_argument("-opt", type=str, required=True)
@@ -70,10 +64,22 @@ def _check_ported(opt) -> None:
             "CEM's out_orig with model [ppon]: PPON's eval_step takes no "
             "apply_cem, so the JAX CLI raises a TypeError there "
             "(ROADMAP C 20)")
-    for keys, what, item in _DEFERRED:
-        if any(opt.get(k) for k in keys):
-            raise NotImplementedError(
-                f"{what} is not ported yet (ROADMAP {item})")
+
+
+def _band_devices(opt, device: torch.device):
+    """The devices of ``spatial_shards`` bands (``test.py:63-72``): on the
+    card, cards 0 .. n-1 where at least n are visible (else None: the
+    image is served whole, as the JAX CLI serves it with fewer devices);
+    on the CPU, n bands one after another. None without
+    ``spatial_shards`` above 1."""
+    n = int(opt.get("spatial_shards") or 0)
+    if n <= 1:
+        return None
+    if device.type == "cpu":
+        return [device] * n
+    if torch.cuda.device_count() < n:
+        return None
+    return [torch.device("cuda", i) for i in range(n)]
 
 
 def _cem_post(sr_orig: torch.Tensor, sr: torch.Tensor,
@@ -141,6 +147,12 @@ def main(argv=None, device: Union[str, torch.device, None] = None
     n_sample = int((opt.get("val") or {}).get("n_sample", 1) or 1)
     if which not in ("g", "ema", "swa", "auto"):
         raise ValueError(f"which [{which}]: 'g', 'ema', 'swa' or 'auto'")
+    # band-parallel serving of big images (parallel/spatial.py)
+    bands = _band_devices(opt, trainer.device)
+    halo = int(opt.get("spatial_halo") or 32)
+    if bands is not None:
+        logger.info(f"Serving in {len(bands)} bands of the height, halo "
+                    f"{halo}, on {', '.join(str(d) for d in bands)}")
     znorm = False
     averages: Dict[str, List[Dict]] = {}
     for name, loader in test_loaders:
@@ -193,6 +205,9 @@ def main(argv=None, device: Union[str, torch.device, None] = None
                 sr = trainer.eval_step(state, batch["LR"], which=which)
             elif ensemble_x8:
                 sr = trainer.eval_step_x8(state, batch["LR"], which)
+            elif bands is not None:
+                sr = trainer.eval_step_spatial(state, batch["LR"], bands,
+                                               halo=halo, which=which)
             elif chop:
                 sr = trainer.eval_step_chop(state, batch["LR"], which=which)
             else:

@@ -37,7 +37,23 @@ TF32 off for cuDNN and matmul, any other value turns it on),
 ``debug_nans`` and ``profile`` (a ``torch.profiler`` trace in
 ``log/trace``).
 
+``parallel: {data: D, fsdp: M}`` trains on a mesh of D x M ranks
+(``parallel/mesh.py``), as ``train.py:438-469`` reads it: one process per
+card under ``torchrun``, NCCL on the card (gloo on the CPU), each rank
+reading its slice of every batch of the one-process loader (its
+degradations drawn from a generator of its own, ROADMAP C 28), the
+gradients averaged inside the step; logging, validation, sample grids
+and the checkpoints' files on rank 0 (every rank takes part in a save,
+which puts an fsdp-split optimizer together first). Where the JAX CLI
+warns and runs on one device, the port raises: when the ranks do not
+tile ``data x fsdp``, or the batch does not divide over them (N
+processes each running alone would be N copies of one run; ROADMAP
+C 28). Without ``torchrun`` a ``parallel:`` run is a group of one rank
+in this process. ``tensor:`` above 1 raises (ROADMAP Queue A 9 e), as
+does a model whose step is not on the data axis (Queue A 9 d).
+
 Usage: python -m trainner_tpu_torch.train -opt options/sr/train_sr.yml
+       torchrun --nproc_per_node N -m trainner_tpu_torch.train -opt ...
 ``main(argv, device="cpu")`` from Python runs on the CPU; without a card
 and without ``device`` it raises.
 """
@@ -60,6 +76,7 @@ from ..data import create_dataloader, create_dataset, device_prefetch
 from ..data.common import save_img, save_img_comp, tensor2img
 from ..ops.blocks import BatchNorm
 from ..options import check_resume, dict2str, parse
+from ..parallel import mesh as par
 from ..utils import checkpoint
 from ..utils.debug import check_finite, enable_nan_checks
 from ..utils.device import resolve_device
@@ -127,13 +144,22 @@ def get_resume_state(opt):
             "iter": meta.get("iter", 0)}
 
 
-def get_dataloaders(opt, pin_memory: bool = False):
+def get_dataloaders(opt, pin_memory: bool = False, mesh=None):
+    """The loader of each phase; under a mesh the train loader reads this
+    rank's slice of each batch, and only rank 0 builds the others."""
     loaders = {}
     for phase_key, dataset_opt in (opt.get("datasets") or {}).items():
         phase = phase_key.split("_")[0]
+        part = None
+        if mesh is not None:
+            if phase != "train" and mesh.rank != 0:
+                continue
+            if phase == "train":
+                part = par.local_batch_slice(
+                    int(dataset_opt.get("batch_size", 16) or 16), mesh)
         loaders[phase] = create_dataloader(create_dataset(dataset_opt),
                                            dataset_opt,
-                                           pin_memory=pin_memory)
+                                           pin_memory=pin_memory, part=part)
     if "train" not in loaders:
         raise ValueError("no train dataset in options")
     return loaders
@@ -200,15 +226,18 @@ def _sigterm(_signum, _frame):
 
 
 def _save(state, opt, epoch: int, current_step: int, swa_extra=None,
-          **kw) -> None:
+          mesh=None, **kw) -> None:
     """``checkpoint.save_checkpoint`` once the card has finished the
     replays that write the state; ``swa_extra()`` gives the SWA weights'
-    refreshed batch-norm statistics (or None)."""
+    refreshed batch-norm statistics (or None). Under a mesh every rank
+    calls it and rank 0 writes."""
     if next(state.g.net.parameters()).is_cuda:
         torch.cuda.synchronize()
+    lead = mesh is None or mesh.rank == 0
     checkpoint.save_checkpoint(
         state, opt, epoch, current_step,
-        swa_extra=swa_extra() if swa_extra is not None else None, **kw)
+        swa_extra=swa_extra() if swa_extra is not None and lead else None,
+        write=lead, **kw)
 
 
 def fit(trainer, opt, loaders, state, start_epoch: int, current_step: int,
@@ -231,12 +260,17 @@ def fit(trainer, opt, loaders, state, start_epoch: int, current_step: int,
 def _fit(trainer, opt, loaders, state, start_epoch, current_step, logger,
          tb):
     dev = trainer.device
+    mesh = trainer.mesh
+    lead = mesh is None or mesh.rank == 0
     train_opt = opt["train"] or {}
     logger_opt = opt.get("logger") or {}
     seed = int(train_opt.get("manual_seed") or 0)
+    # each rank degrades its own samples from a generator of its own
+    # (rank 0's is the one-process run's, ROADMAP C 28)
+    deg_seed = seed + 7 + (RANK_SEED_STRIDE * mesh.rank if mesh else 0)
     degrade = make_otf_degradation(
         opt, device=dev,
-        generator=torch.Generator(device=dev).manual_seed(seed + 7))
+        generator=torch.Generator(device=dev).manual_seed(deg_seed))
     niter = int(float(train_opt.get("niter") or 5e5))
     print_freq = int(logger_opt.get("print_freq") or 200)
     save_freq = int(logger_opt.get("save_checkpoint_freq") or 5e3)
@@ -285,7 +319,7 @@ def _fit(trainer, opt, loaders, state, start_epoch, current_step, logger,
                     check_finite(logs, current_step)
                 t_iter = timer.toc()
 
-                if current_step % print_freq == 0:
+                if current_step % print_freq == 0 and lead:
                     lr_now = trainer.schedG.get_lr(int(state.step))
                     eta = (niter - current_step) * timer.get_average_time()
                     loss_str = " ".join(
@@ -303,27 +337,29 @@ def _fit(trainer, opt, loaders, state, start_epoch, current_step, logger,
                                           current_step)
 
                 if display_freq and current_step % display_freq == 0 \
-                        and "A" in batch:
+                        and "A" in batch and lead:
                     save_sample_grid(trainer, state, batch, os.path.join(
                         opt["path"]["experiments_root"], "samples",
                         f"{current_step:08d}.png"))
 
                 if current_step % save_freq == 0:
-                    _save(state, opt, epoch, current_step, swa_extra,
+                    _save(state, opt, epoch, current_step, swa_extra, mesh,
                           latest_only=overwrite_chkp)
                     logger.info("Models and training state saved at iter "
                                 f"{current_step}.")
 
-                if "val" in loaders and current_step % val_freq == 0:
+                if "val" in loaders and current_step % val_freq == 0 \
+                        and lead:
                     validate(trainer, state, loaders["val"], opt, epoch,
                              current_step, logger, tb)
             epoch += 1
     except KeyboardInterrupt:
         logger.info("Training interrupted. Saving latest models and state.")
-        _save(state, opt, epoch, current_step, swa_extra, latest_only=True)
+        _save(state, opt, epoch, current_step, swa_extra, mesh,
+              latest_only=True)
         raise SystemExit(0)
 
-    _save(state, opt, epoch, current_step, swa_extra)
+    _save(state, opt, epoch, current_step, swa_extra, mesh)
     logger.info("Training finished. Saved final models and state.")
     return state
 
@@ -342,23 +378,98 @@ def _set_precision(opt, logger) -> None:
                 f"{'on' if tf32 else 'off'} for cuDNN and matmul")
 
 
+def _train_batch_size(opt) -> int:
+    for phase_key, ds in (opt.get("datasets") or {}).items():
+        if phase_key.split("_")[0] == "train":
+            return int(ds.get("batch_size", 16) or 16)
+    return 1
+
+
+def _run_mesh(opt, dev: torch.device):
+    """The mesh of ``parallel:`` (``train.py:438-469``): this rank's card
+    (``LOCAL_RANK`` under ``torchrun``), the process group (started here
+    unless one runs: then the caller owns it), the ``data x fsdp`` layout
+    with ``data: -1`` taking the ranks that remain. Raises where the axes
+    do not tile the ranks or the batch does not divide over them.
+    Returns (mesh, device, whether this call started the group)."""
+    import torch.distributed as dist
+
+    cfg = opt.get("parallel") or {}
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", int(os.environ.get("LOCAL_RANK", 0)))
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    owned = not dist.is_initialized()
+    _, world = par.init_distributed(dev)
+    try:
+        mesh = par.make_mesh(par.MeshConfig(
+            data=int(cfg.get("data", -1) or -1),
+            fsdp=max(1, int(cfg.get("fsdp", 1) or 1)),
+            tensor=max(1, int(cfg.get("tensor", 1) or 1))), device=dev)
+        bs = _train_batch_size(opt)
+        if bs % world:
+            raise ValueError(
+                f"batch_size {bs} does not divide over the {world} ranks of "
+                f"the mesh {mesh.shape}: the JAX CLI would run on one "
+                "device, the port raises (ROADMAP C 28)")
+    except BaseException:
+        if owned:
+            dist.destroy_process_group()
+        raise
+    return mesh, dev, owned
+
+
+# the degraders' generators of the ranks lie this far apart in seed
+RANK_SEED_STRIDE = 1009
+
+
 def main(argv=None, device: Union[str, torch.device, None] = None):
     """Runs the CLI and returns the final training state. ``device``
-    defaults to ``cuda`` (``cuda:0`` when several cards are visible)."""
+    defaults to ``cuda`` (``cuda:0``, or under ``parallel:`` the card of
+    ``LOCAL_RANK``)."""
     opt = parse_options(argv)
-    if opt.get("parallel"):
-        raise NotImplementedError(
-            "parallel: (a device mesh) is not ported yet (ROADMAP Queue A 9,"
-            " multi-GPU)")
     dev = resolve_device(device)
-    if dev.type == "cuda" and dev.index is None:
+    mesh, owned = None, False
+    if opt.get("parallel"):
+        mesh, dev, owned = _run_mesh(opt, dev)
+    elif dev.type == "cuda" and dev.index is None:
         dev = torch.device("cuda", 0)
+    lead = mesh is None or mesh.rank == 0
+    try:
+        return _main(opt, dev, mesh, lead)
+    finally:
+        if owned:
+            import gc
+
+            import torch.distributed as dist
+
+            # the trainer and its CUDA graphs (a reference cycle) go
+            # first: NCCL does not destroy a communicator that a live
+            # graph still holds, and would wait
+            gc.collect()
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
+            dist.destroy_process_group()
+
+
+def _main(opt, dev, mesh, lead: bool):
     resume = get_resume_state(opt)
-    dir_check(opt)
-    logger, tb = configure_loggers(opt)
-    if dev.type == "cuda" and torch.cuda.device_count() > 1:
-        logger.info(f"{torch.cuda.device_count()} cards visible; training "
-                    "runs on cuda:0 (several cards: ROADMAP Queue A 9)")
+    if lead:
+        dir_check(opt)
+    if mesh is not None and mesh.distributed:
+        import torch.distributed as dist
+
+        dist.barrier()
+    if lead:
+        logger, tb = configure_loggers(opt)
+    else:
+        logger, tb = logging.getLogger(f"base.rank{mesh.rank}"), None
+        logger.propagate = False
+        logger.addHandler(logging.NullHandler())
+    if mesh is not None:
+        logger.info(f"Device mesh: {mesh.shape} over {mesh.world} ranks "
+                    f"({mesh.backend or 'one process'}), fsdp "
+                    f"{mesh.fsdp}")
     flags = (torch.backends.cuda.matmul.allow_tf32,
              torch.backends.cudnn.allow_tf32)
     debug_nans = bool(opt.get("debug_nans"))
@@ -371,8 +482,9 @@ def main(argv=None, device: Union[str, torch.device, None] = None):
             enable_nan_checks(True)
             logger.info("autograd anomaly detection on; a non-finite "
                         "training log raises")
-        loaders = get_dataloaders(opt, pin_memory=dev.type == "cuda")
-        trainer = create_trainer(opt, device=dev)
+        loaders = get_dataloaders(opt, pin_memory=dev.type == "cuda",
+                                  mesh=mesh)
+        trainer = create_trainer(opt, device=dev, mesh=mesh)
         logger.info(f"Training on {trainer.device} in {trainer.dtype}")
         g_path = None if resume else opt["path"].get("pretrain_model_G")
         state = trainer.init_state(seed, g_path)
@@ -385,7 +497,7 @@ def main(argv=None, device: Union[str, torch.device, None] = None):
                         f"iter {current_step}.")
         elif g_path:
             logger.info(f"Loaded pretrained G from {g_path}")
-        if opt.get("profile"):
+        if opt.get("profile") and lead:
             trace_dir = os.path.join(opt["path"]["log"], "trace")
             os.makedirs(trace_dir, exist_ok=True)
             acts = [torch.profiler.ProfilerActivity.CPU]

@@ -29,6 +29,7 @@ import torch
 from ..losses.gan import build_adversarial
 from ..models.networks import define_D
 from ..ops.blocks import commit_stats
+from ..parallel.collectives import average_grads, mean_logs
 from .optimizers import build_optimizer, jax_view
 from .schedulers import build_scheduler
 from .sr_trainer import SRTrainer, _GraphedStep, _no_param_grad, clip_grads
@@ -39,8 +40,9 @@ class Pix2PixTrainer(SRTrainer):
     """``model: pix2pix``."""
 
     def __init__(self, opt: dict, dtype: torch.dtype = torch.float32,
-                 device=None, graphs: Optional[bool] = None):
-        super().__init__(opt, dtype=dtype, device=device, graphs=graphs)
+                 device=None, graphs: Optional[bool] = None, mesh=None):
+        super().__init__(opt, dtype=dtype, device=device, graphs=graphs,
+                         mesh=mesh)
         self.scale = 1
         self.znorm = bool(((opt.get("datasets") or {}).get("train")
                            or {}).get("znorm", True))
@@ -94,6 +96,7 @@ class Pix2PixTrainer(SRTrainer):
             total = total + l_g_gan
         total.backward()
         commit_stats(netG)
+        average_grads(state.g.opt.params)
         clip_grads(state.g.opt.params, self.grad_clip, self.grad_clip_value)
         state.g.opt.step(lr_g)
         logs.update(glogs)
@@ -105,13 +108,14 @@ class Pix2PixTrainer(SRTrainer):
                 lambda x: netD(x, train=True), fake_b.detach(), real_b,
                 condition=real_a, generator=state.noise_generator)
             l_d.backward()
+            average_grads(state.d.opt.params)
             clip_grads(state.d.opt.params, self.grad_clip,
                        self.grad_clip_value)
             netD.commit_stats()
             state.d.opt.step(lr_d)
             logs.update(dlogs)
             logs["l_d_total"] = l_d
-        return {k: v.detach() for k, v in logs.items()}
+        return mean_logs({k: v.detach() for k, v in logs.items()})
 
     def train_step(self, state: SRTrainState, batch: Dict[str, torch.Tensor]
                    ) -> Tuple[SRTrainState, Dict[str, torch.Tensor]]:
@@ -124,7 +128,7 @@ class Pix2PixTrainer(SRTrainer):
         step = state.step
         fn = self._step_fns.get(("p2p",))
         if fn is None:
-            fn = self._p2p_step
+            fn = self._in_mesh(self._p2p_step)
             if self.graphs:
                 fn = _GraphedStep(self, fn, ("A", "B"))
             self._step_fns[("p2p",)] = fn

@@ -32,6 +32,7 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
+from ..parallel.collectives import average_grads, mean_logs
 from .sr_trainer import SRTrainer, _GraphedStep, _no_param_grad
 from .state import SRTrainState
 
@@ -57,8 +58,9 @@ class PPONTrainer(SRTrainer):
     """``SRTrainer`` with PPON's phased step and its ``eval_step``."""
 
     def __init__(self, opt: dict, dtype: torch.dtype = torch.float32,
-                 device=None, graphs: Optional[bool] = None):
-        super().__init__(opt, dtype=dtype, device=device, graphs=graphs)
+                 device=None, graphs: Optional[bool] = None, mesh=None):
+        super().__init__(opt, dtype=dtype, device=device, graphs=graphs,
+                         mesh=mesh)
         train_opt = opt.get("train") or {}
         self.p1_losses = list(train_opt.get("p1_losses") or ["pix"])
         self.p2_losses = list(train_opt.get("p2_losses") or
@@ -108,6 +110,7 @@ class PPONTrainer(SRTrainer):
         for p in netG.parameters():
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
+        average_grads(state.g.opt.params)
         _, frozen = phase_params(netG, phase)
         for p in frozen:
             p.grad.zero_()
@@ -125,18 +128,20 @@ class PPONTrainer(SRTrainer):
                 lambda x: netD(x, train=True), out.detach(), hr_img,
                 generator=state.noise_generator)
             l_d.backward()
+            average_grads(state.d.opt.params)
             netD.commit_stats()
             state.d.opt.step(lr_d)
             logs.update(dlogs)
             logs["l_d_total"] = l_d
-        return {k: v.detach() for k, v in logs.items()}
+        return mean_logs({k: v.detach() for k, v in logs.items()})
 
     def _get_ppon_fn(self, phase: int):
         update_d = self.use_gan and phase == 3
         key = (phase, update_d)
         fn = self._step_fns.get(key)
         if fn is None:
-            fn = functools.partial(self._ppon_step, phase=phase)
+            fn = self._in_mesh(functools.partial(self._ppon_step,
+                                                 phase=phase))
             if self.graphs:
                 fn = _GraphedStep(self, fn)
             self._step_fns[key] = fn

@@ -60,8 +60,17 @@ may fall inside it. ``graphs=False`` runs the same programs eagerly (on
 the CPU they always are). With ``use_ema`` the EMA copy of G
 (``train/state.py``) is updated at the end of every step, inside its
 graph, and ``eval_step`` runs it by default, as the JAX package does; the
-SWA average is one pass of foreach ops launched after the step. Band-
-parallel inference is not ported (ROADMAP Queue A 9).
+SWA average is one pass of foreach ops launched after the step.
+
+Several cards (``mesh``, ``parallel/mesh.py``): one process per card runs
+the step on its slice of the global batch inside ``Mesh.active``, so that
+what couples samples sees the global batch (batch norms, the relativistic
+GAN's means, the batch augmentations, a virtual batch's microbatches,
+per-sample draws) and the gradients are averaged over the group in the
+step (``average_grads``) before the clips and the optimizers read them;
+the logs are averaged too. The ``sr`` models, ``ppon`` and ``pix2pix``
+run it; ``eval_step_spatial`` serves an image in bands over a list of
+devices (``parallel/spatial.py``).
 """
 
 from __future__ import annotations
@@ -86,6 +95,9 @@ from ..ops.blocks import (BatchNorm, Dropout, GaussianNoise, commit_stats,
 from ..ops.cem import cem_project
 from ..ops.diffaug import apply_diff_augment, draw_diff_augment
 from ..ops.filters import filter_high, filter_low
+from ..parallel.collectives import (average_grads, batch_world,
+                                    gather_batch, local_rows, mean_logs)
+from ..parallel.mesh import Mesh, replicate_state, shard_optimizers
 from ..utils.checkpoint import load_params
 from ..utils.device import resolve_device
 from ..utils.graphs import Captured, signature, warm_up
@@ -98,6 +110,8 @@ from .state import (NetState, SRTrainState, ema_update, init_ema, init_swa,
 AGC_HISTORY = 256  # the auto clip's ring buffer of G's gradient norms
 VIDEO_MODELS = ("vsr", "vsrgan", "evsrgan", "video")
 PBR_MODELS = ("pbr", "sr_pbr", "pbr_sr")
+# the models whose step runs on a data axis (``mesh``)
+DATA_AXIS_MODELS = ("sr", "srgan", "srragan", "ppon", "pix2pix")
 
 
 @contextlib.contextmanager
@@ -224,7 +238,7 @@ class Trainer:
 
     def __init__(self, opt: dict, dtype: torch.dtype = torch.float32,
                  device: Union[str, torch.device, None] = None,
-                 graphs: Optional[bool] = None):
+                 graphs: Optional[bool] = None, mesh: Optional[Mesh] = None):
         train_opt = opt.get("train") or {}
         self.opt = opt
         self.train_opt = train_opt
@@ -234,6 +248,12 @@ class Trainer:
             else bool(graphs)
         if self.graphs and self.device.type != "cuda":
             raise ValueError(f"CUDA graphs run on cuda, not {self.device}")
+        self.mesh = mesh
+        if mesh is not None and mesh.distributed and self.graphs and \
+                mesh.backend != "nccl":
+            raise ValueError(
+                f"a step over a {mesh.backend} group cannot be a CUDA graph "
+                "(its collectives wait on the host): pass graphs=False")
         self._step_fns: Dict[Tuple[bool, bool, bool], Callable] = {}
         # () -> the step's draws in place of the generator's (the tests
         # give JAX's; the smoke run shares the CPU's with the card)
@@ -247,6 +267,9 @@ class Trainer:
         # a step's replay changes G's weights behind the packed caches'
         # version check: set then, cleared where the caches are dropped
         self._packs_stale = False
+        # band serving's copies of an eval net on other cards, by (net,
+        # card): [source module, its weights' stamp or None, the copy]
+        self._twins: Dict[tuple, list] = {}
         self.is_train = bool(opt.get("is_train", True))
         self.scale = int(opt.get("scale", 4) or 4)
         self.znorm = bool(((opt.get("datasets") or {}).get("train")
@@ -358,7 +381,28 @@ class Trainer:
             init_swa(state)
         if self.use_ema:
             init_ema(state)
+        self._place(state)
         return state
+
+    def _place(self, state) -> None:
+        """With a mesh: the state's nets broadcast from rank 0 and its
+        optimizers split over the fsdp axis."""
+        if self.mesh is not None:
+            replicate_state(state, self.mesh)
+            shard_optimizers(state, self.mesh)
+
+    def _in_mesh(self, fn: Callable) -> Callable:
+        """``fn`` run inside the mesh's ``active`` context (the step's
+        program, eager or captured), or ``fn`` without a mesh."""
+        if self.mesh is None:
+            return fn
+        mesh = self.mesh
+
+        @functools.wraps(fn)
+        def run(*args, **kwargs):
+            with mesh.active():
+                return fn(*args, **kwargs)
+        return run
 
     def _to_device(self, x: torch.Tensor) -> torch.Tensor:
         return wire_to_f01(x.to(self.device, non_blocking=x.is_pinned()),
@@ -393,6 +437,8 @@ class Trainer:
                         self._graph_state.swa):
                 if net is not None:
                     drop_packed(net)
+            for entry in self._twins.values():
+                entry[1] = None
         self._packs_stale = False
 
     def graph_pool(self):
@@ -526,6 +572,68 @@ class Trainer:
                 k += 1
         return acc / cnt
 
+    def eval_step_spatial(self, state: SRTrainState, lr_img: torch.Tensor,
+                          devices=None, halo: int = 16,
+                          which: str = "auto") -> torch.Tensor:
+        """Band-parallel inference (``parallel/spatial.py::spatial_infer``):
+        the image's height cut into one band per device of ``devices``
+        (``[self.device] * 4`` by default), each band with ``halo`` rows
+        of its neighbours run through G (the EMA or SWA weights as
+        ``which`` picks them, with CEM under ``use_cem``, as ``eval_step``
+        serves), the halo rows cut away. A band on the trainer's device
+        goes through ``eval_step``; on another card through that card's
+        copy of the net (``_twin``), eagerly. Equal to ``eval_step``
+        wherever ``halo`` covers G's effective receptive field."""
+        from ..parallel.spatial import spatial_infer
+
+        home = self.device
+        if home.type == "cuda" and home.index is None:
+            home = torch.device("cuda", torch.cuda.current_device())
+        devices = [torch.device(d) for d in (devices or [home] * 4)]
+        devices = [home if d == self.device else d for d in devices]
+        net = self._eval_net(state, which)
+
+        def apply_fn(x, dev):
+            if dev == home:
+                return self.eval_step(state, x, which)
+            twin = self._twin(state, net, dev)
+            with torch.inference_mode():
+                y = self._g(twin, x.float())
+                if self.use_cem:
+                    y = cem_project(y, x.float(), self.scale,
+                                    kernel=self.cem_kernel)
+            return y
+
+        x = lr_img.to(self.device, non_blocking=lr_img.is_pinned())
+        return spatial_infer(apply_fn, x, devices, halo=halo,
+                             scale=self.scale, out_device=self.device)
+
+    def _twin(self, state: SRTrainState, net: str, dev: torch.device
+              ) -> torch.nn.Module:
+        """The eval net ``net`` ('g', 'ema' or 'swa') of ``state`` on card
+        ``dev``: copied there at its first use and kept, with its
+        packed-weight caches; its weights copied in again where the
+        source's have changed since (an in-place update moves their
+        version counters, a step's replay marks every copy stale in
+        ``_fresh_packs``)."""
+        module = {"ema": state.ema, "swa": state.swa}.get(net, state.g.net)
+        self._fresh_packs()
+        tensors = list(module.parameters()) + list(module.buffers())
+        stamp = tuple(t._version for t in tensors)
+        entry = self._twins.get((net, dev))
+        if entry is None or entry[0] is not module:
+            entry = [module, stamp, _net_copy(module).to(dev).eval()]
+            self._twins[(net, dev)] = entry
+        elif entry[1] != stamp:
+            twin = entry[2]
+            with torch.no_grad():
+                torch._foreach_copy_(
+                    list(twin.parameters()) + list(twin.buffers()),
+                    tensors)
+            drop_packed(twin)
+            entry[1] = stamp
+        return entry[2]
+
     def eval_step_x8(self, state: SRTrainState, lr_img: torch.Tensor,
                      which: str = "auto") -> torch.Tensor:
         """x8 geometric self-ensemble: ``eval_step`` on the four rotations
@@ -557,8 +665,9 @@ class SRTrainer(Trainer):
 
     def __init__(self, opt: dict, dtype: torch.dtype = torch.float32,
                  device: Union[str, torch.device, None] = None,
-                 graphs: Optional[bool] = None):
-        super().__init__(opt, dtype=dtype, device=device, graphs=graphs)
+                 graphs: Optional[bool] = None, mesh: Optional[Mesh] = None):
+        super().__init__(opt, dtype=dtype, device=device, graphs=graphs,
+                         mesh=mesh)
         self.unshuffle_scale = int(opt.get("unshuffle_scale") or 0) \
             if opt.get("use_unshuffle") else 0
         self.use_cem = bool(opt.get("use_cem"))
@@ -753,12 +862,20 @@ class SRTrainer(Trainer):
         b = hr_img.shape[0]
         a = self.accumulations
         if b % a:
+            share = " (this rank's share)" if self.mesh is not None else ""
             raise ValueError(
-                f"virtual_batch_size {a} does not divide the batch of {b}: "
-                "the JAX package takes it as the number of microbatches "
-                "(ROADMAP C 19)")
+                f"virtual_batch_size {a} does not divide the batch of "
+                f"{b}{share}: the JAX package takes it as the number of "
+                "microbatches (ROADMAP C 19)")
+        # under a data axis the draws are made for the global batch and
+        # what mixes samples runs on it; each microbatch of it is then
+        # split over the ranks (``local_rows``), this rank's parts in turn
+        w = batch_world()
         draws = self._draws(state, self._draw_shapes(
-            hr_img.shape, update_d, update_g, atg_on))
+            (b * w, *hr_img.shape[1:]), update_d, update_g, atg_on))
+        regroup = w > 1 and (self.batchaug is not None or a > 1)
+        if regroup:
+            lr_img, hr_img = gather_batch(lr_img), gather_batch(hr_img)
 
         mask = None
         if self.batchaug is not None:
@@ -774,6 +891,12 @@ class SRTrainer(Trainer):
             if up:
                 lr_img = interpolate(lr_img, scale=1.0 / self.scale,
                                      mode="nearest")
+        if regroup:
+            lr_img, hr_img = local_rows(lr_img, a), local_rows(hr_img, a)
+            if mask is not None:
+                mask = local_rows(mask, a)
+        if w > 1:
+            draws = self._local_draws(draws, a, atg_on)
 
         if update_g:
             state.g.opt.zero_grad()
@@ -791,7 +914,9 @@ class SRTrainer(Trainer):
             commit_stats(netG)
             total, glogs, fake_for_d = self._accumulated(
                 runs, state.g.opt.params, ag)
+            average_grads(state.g.opt.params)
             if atg_on:
+                average_grads(state.loc.opt.params)
                 # the LocNet's gradients clipped as the JAX step clips
                 # them, by its grad_clip with grad_clip_value
                 clip_grads(state.loc.opt.params, self.grad_clip,
@@ -823,6 +948,7 @@ class SRTrainer(Trainer):
                 l_d.backward()
                 runs.append((l_d.detach(), dlogs, None))
             l_d, dlogs, _ = self._accumulated(runs, state.d.opt.params, a)
+            average_grads(state.d.opt.params)
             if self.grad_clip == "auto":
                 # D by norm to the percentile of G's history (after G's
                 # update, or as it was on a step without one)
@@ -847,7 +973,24 @@ class SRTrainer(Trainer):
             logs["l_d_total"] = l_d
         if self.use_ema:
             ema_update(state, self.ema_decay)
-        return {k: v.detach() for k, v in logs.items()}
+        return mean_logs({k: v.detach() for k, v in logs.items()})
+
+    def _local_draws(self, draws: dict, a: int, atg_on: bool) -> dict:
+        """The step's draws for the global batch cut to this rank's
+        samples (``local_rows``): the batch augmentation's whole (it ran
+        on the global batch), DiffAugment's in the G stage per microbatch
+        (the whole batch under AdaTarget) and in the D stage for the batch
+        in the step's local order; batch-wide (0-d) draws as they are."""
+        def cut(ds, groups):
+            return [{k: local_rows(v, groups) if v.dim() > 0 else v
+                     for k, v in d.items()} for d in ds]
+
+        out = dict(draws)
+        if "da_g" in draws:
+            out["da_g"] = cut(draws["da_g"], a if atg_on else 1)
+        if "da_d" in draws:
+            out["da_d"] = cut(draws["da_d"], a)
+        return out
 
     def _get_step_fn(self, update_d: bool, update_g: bool,
                      atg_on: bool = False) -> Callable:
@@ -858,8 +1001,9 @@ class SRTrainer(Trainer):
         key = (update_d, update_g, atg_on)
         fn = self._step_fns.get(key)
         if fn is None:
-            fn = functools.partial(self._train_step, update_d=update_d,
-                                   update_g=update_g, atg_on=atg_on)
+            fn = self._in_mesh(functools.partial(
+                self._train_step, update_d=update_d, update_g=update_g,
+                atg_on=atg_on))
             if self.graphs:
                 fn = _GraphedStep(self, fn)
             self._step_fns[key] = fn
@@ -1001,14 +1145,29 @@ class _GraphedStep:
                   if k in batch}
         lrs = (torch.zeros((), dtype=torch.float32, device=dev),
                torch.zeros((), dtype=torch.float32, device=dev))
+        mesh = self.trainer.mesh
         cap = Captured(lambda: self.eager(state, inputs, *lrs),
                        pool=self.trainer.graph_pool(),
-                       generators=[state.noise_generator])
+                       generators=[state.noise_generator],
+                       capture_error_mode="thread_local"
+                       if mesh is not None and mesh.distributed
+                       else "global")
         return inputs, lrs, cap
 
 
+def _net_copy(net: torch.nn.Module) -> torch.nn.Module:
+    """A copy of a net for another card: its weights as they are now,
+    without the packed-weight caches."""
+    import copy
+
+    out = copy.deepcopy(net)
+    drop_packed(out)
+    return out
+
+
 def create_trainer(opt: dict, device: Union[str, torch.device, None] = None,
-                   graphs: Optional[bool] = None) -> SRTrainer:
+                   graphs: Optional[bool] = None,
+                   mesh: Optional[Mesh] = None) -> SRTrainer:
     """Model-strategy factory for ``model: sr`` (and its aliases),
     ``model: ppon`` (``ppon_trainer.PPONTrainer``), ``sftgan`` /
     ``sftgan_acd`` (``sftgan_trainer.SFTGANTrainer``), ``pix2pix``
@@ -1023,8 +1182,18 @@ def create_trainer(opt: dict, device: Union[str, torch.device, None] = None,
     otherwise, as in the JAX package. Runs on ``cuda`` unless ``device``
     names the CPU, and raises when no card is present. ``graphs``
     (default: on for ``cuda``) runs the step and ``eval_step`` as CUDA
-    graphs; ``False`` runs them eagerly, to compare the two."""
+    graphs; ``False`` runs them eagerly, to compare the two. ``mesh``
+    (``parallel/mesh.py``) runs the step on a data (and fsdp) axis: the
+    ``sr`` models, ``ppon`` and ``pix2pix``; any other model raises
+    (ROADMAP Queue A 9 d)."""
     model = (opt.get("model") or "sr").lower()
+    if mesh is not None and model not in DATA_AXIS_MODELS:
+        raise NotImplementedError(
+            f"model [{model}] on a data axis (parallel:) is not ported yet "
+            f"(ROADMAP Queue A 9 d): the port runs "
+            f"{', '.join(DATA_AXIS_MODELS)} there; the others couple their "
+            "samples in ways of their own (image pools, PBR's one latent "
+            "draw, video windows)")
     if model not in ("sr", "srgan", "srragan", "ppon", "sftgan",
                      "sftgan_acd", "pix2pix", "cyclegan", "srflow", "dvd",
                      "wbc") + PBR_MODELS + VIDEO_MODELS:
@@ -1052,4 +1221,6 @@ def create_trainer(opt: dict, device: Union[str, torch.device, None] = None,
         from .pbr_trainer import PBRTrainer as cls
     else:
         cls = SRTrainer
+    if mesh is not None:
+        return cls(opt, dtype=dtype, device=device, graphs=graphs, mesh=mesh)
     return cls(opt, dtype=dtype, device=device, graphs=graphs)

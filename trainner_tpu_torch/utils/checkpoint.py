@@ -340,11 +340,15 @@ def _generator_meta(gen: Optional[torch.Generator]) -> Optional[dict]:
 
 
 def save_state(state, path: str, epoch: int = 0,
-               backup: bool = True) -> None:
+               backup: bool = True, write: bool = True) -> None:
     """The whole training state -> ``path`` (the JAX ``SRTrainState``'s
     state dict) and ``path + ".json"`` (``{epoch, iter}``, and the port's
-    ``noise_generator``)."""
-    _write_state(train_state_to_jax(state), state, path, epoch, backup)
+    ``noise_generator``). Under a mesh every rank calls it (an optimizer
+    split over the fsdp axis is put together first) and the one with
+    ``write`` writes."""
+    tree = train_state_to_jax(state)
+    if write:
+        _write_state(tree, state, path, epoch, backup)
 
 
 def _write_state(tree: Any, state, path: str, epoch: int,
@@ -420,7 +424,8 @@ def latest_state_path(state_dir: str) -> Optional[str]:
 
 def save_checkpoint(state, opt: dict, epoch: int, niter: int,
                     latest_only: bool = False,
-                    swa_extra: Optional[dict] = None) -> None:
+                    swa_extra: Optional[dict] = None,
+                    write: bool = True) -> None:
     """``{tag}_G.ckpt``, ``{tag}_D.ckpt`` (when there is a D),
     ``{tag}_swaG.ckpt`` (when there are SWA weights: their param tree, or
     ``{"params": ..., **swa_extra}`` with the batch-norm statistics
@@ -431,11 +436,14 @@ def save_checkpoint(state, opt: dict, epoch: int, niter: int,
     ``{tag}_D_A.ckpt`` and ``{tag}_D_B.ckpt`` instead of G's and D's
     files, a WBC state ``{tag}_G.ckpt``, ``{tag}_D_S.ckpt`` and
     ``{tag}_D_T.ckpt`` (the names of each state's ``named_params``; JAX
-    ``utils/checkpoint.py:175-181``)."""
+    ``utils/checkpoint.py:175-181``). Under a mesh every rank calls it
+    (``save_state``) and the one with ``write`` writes."""
     model_dir = opt["path"]["models"]
     state_dir = opt["path"]["training_state"]
     tag = "latest" if latest_only else str(niter)
     tree = train_state_to_jax(state)
+    if not write:
+        return
     if hasattr(state, "D_FIELDS"):
         # one file per net, as the JAX package writes them
         g = tree["g"]["params"]

@@ -84,10 +84,14 @@ class Captured:
     drawing from ``generators``. ``outputs`` are the static tensors that
     ``fn`` returned: a replay overwrites them. Carries what the capture
     recorded: ``launches`` (per kernel wrapper, see ``kernel_launches``),
-    ``capture_s`` and ``pool_bytes`` (the memory the card reserved for it)."""
+    ``capture_s`` and ``pool_bytes`` (the memory the card reserved for it).
+    ``capture_error_mode`` is ``torch.cuda.graph``'s: a step with NCCL
+    collectives captures ``thread_local``, so that the process group's
+    watchdog thread may query its events meanwhile."""
 
     def __init__(self, fn: Callable, pool=None,
-                 generators: Iterable[Optional[torch.Generator]] = ()):
+                 generators: Iterable[Optional[torch.Generator]] = (),
+                 capture_error_mode: str = "global"):
         self.graph = torch.cuda.CUDAGraph()
         for gen in generators:
             if gen is not None:
@@ -101,7 +105,9 @@ class Captured:
         collecting = gc.isenabled()
         gc.disable()
         try:
-            with host_alloc_lock, torch.cuda.graph(self.graph, pool=pool):
+            with host_alloc_lock, torch.cuda.graph(
+                    self.graph, pool=pool,
+                    capture_error_mode=capture_error_mode):
                 reserved = torch.cuda.memory_reserved()
                 self.outputs = fn()
         finally:
