@@ -1491,7 +1491,8 @@ def phase_train(smi: str) -> dict:
     per_g = NB * 3
     batch = _train_batch()
     result = {}
-    for use_amp, n_check, n_timed in ((True, 3, 10), (False, 2, 10)):
+    # 5 timed steps each (10 until phase 25's time cut)
+    for use_amp, n_check, n_timed in ((True, 3, 5), (False, 2, 5)):
         torch.backends.cudnn.allow_tf32 = False
         torch.backends.cuda.matmul.allow_tf32 = False
         trainer = create_trainer({**_train_options(), "use_amp": use_amp})
@@ -2941,6 +2942,7 @@ def phase_trace(smi: str, root: str, step_ms: dict) -> None:
 # ---------------------------------------------------------------------------
 
 GRAPH_STEPS = 2     # graphed against eager steps, per type
+GRAPH_TIMED = 5     # timed steps each way (10 until phase 25's time cut)
 # the order of eager (False) and graphed (True) runs that a phase times:
 # one turn each (eager, graphed), where four turns ran before (eager,
 # graphed, graphed, eager)
@@ -3144,21 +3146,21 @@ def _graph_step(smi: str, options=None, types=(True, False),
             del runs, trainer, state, cap, caps
             torch.cuda.empty_cache()
             continue
-        # times: 10 steps each, in turns (eager, graphed)
+        # times: GRAPH_TIMED steps each, in turns (eager, graphed)
         ms = {}
         for graphs in TURNS:
             tr, st = runs[graphs][:2]
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            for _ in range(10):
+            for _ in range(GRAPH_TIMED):
                 tr.train_step(st, batches[1])
             torch.cuda.synchronize()
             ms.setdefault(graphs, []).append(
-                (time.perf_counter() - t0) * 1e2)
+                (time.perf_counter() - t0) / GRAPH_TIMED * 1e3)
         lr_px, hr_px = batches[1]["LR"].shape[1], batches[1]["HR"].shape[1]
         print(f"times: train_step {name} b={batches[1]['LR'].shape[0]} "
               f"{lr_px}->{hr_px} px, ms per step over "
-              f"10 (eager, graphed): eager {ms[False]}, "
+              f"{GRAPH_TIMED} (eager, graphed): eager {ms[False]}, "
               f"graphed {ms[True]}; it/s eager {1e3 / min(ms[False]):.4f}, "
               f"graphed {1e3 / min(ms[True]):.4f} ({smi})")
         tr, st = runs[True][:2]
@@ -6767,6 +6769,7 @@ def _i2i_graphed_vs_eager(smi: str, root: str, data: dict,
     trainers = {"graphed": create_trainer(opt),
                 "eager": create_trainer(opt, graphs=False)}
     states = {k: t.init_state(0) for k, t in trainers.items()}
+    twin = _GroupTwin(cell, opt)
     cudnn = torch.backends.cudnn
     saved = (cudnn.deterministic, cudnn.benchmark)
     cudnn.deterministic, cudnn.benchmark = True, False
@@ -6795,7 +6798,11 @@ def _i2i_graphed_vs_eager(smi: str, root: str, data: dict,
                     if a.count != b.count or not torch.equal(
                             a.images[:a.count], b.images[:b.count]):
                         unequal.append((i, pool))
+            twin.step(batch, trainers["graphed"], states["graphed"],
+                      logs["graphed"], ms["graphed"][-1])
+        twin.finish(batch)
     finally:
+        twin.close()
         cudnn.deterministic, cudnn.benchmark = saved
     graphs = trainers["graphed"].step_graphs()
     want = 2 if cell == "cyclegan" else 1
@@ -7085,14 +7092,18 @@ def _vsr_options(root: str, data: dict, niter: int = CLI_NITER) -> dict:
     return opt
 
 
-def _vsr_cli(smi: str, root: str, data: dict) -> dict:
+def _vsr_cli(smi: str, root: str, data: dict, label: str = "vsr",
+             edit=None, resume_edit=None) -> dict:
     """The training CLI on ``train_video.yml`` at full width for
     ``SHORT_NITER`` iterations under a launch trace (``_retried_trace``):
-    the card must run 69 block forwards and 69 backwards per step and 69
-    forwards per validation window (at ``CLI_FREQ`` and ``SHORT_NITER``);
-    checkpoints at ``SHORT_NITER``; then a resume to ``SHORT_RESUME``
-    (69 + 69 per step, traced too) whose loaded state equals the saved one
-    bit for bit. Prints the steady it/s and returns both traces."""
+    the card must run 69 block forwards and 69 backwards in each step
+    (between markers around it, ``_check_cli_trace``) and 69 forwards per
+    validation window (at ``CLI_FREQ`` and ``SHORT_NITER``); checkpoints
+    at ``SHORT_NITER``; then a resume to ``SHORT_RESUME`` (69 + 69 per
+    step, traced too) whose loaded state equals the saved one bit for bit.
+    ``edit`` and ``resume_edit`` edit the options of each run (phase 25
+    adds ``parallel:`` to the first); ``label`` names the run. Prints the
+    steady it/s and returns both traces."""
     import torch
 
     from trainner_tpu_torch.train import cli
@@ -7100,7 +7111,11 @@ def _vsr_cli(smi: str, root: str, data: dict) -> dict:
     from trainner_tpu_torch.utils import checkpoint
 
     opt = _vsr_options(root, data, niter=SHORT_NITER)
-    path = os.path.join(root, "vsr_cli.json")
+    tag = label.replace(" ", "_")
+    if edit is not None:
+        edit(opt)
+    parallel = opt.get("parallel")
+    path = os.path.join(root, f"{tag}_cli.json")
     with open(path, "w") as f:
         json.dump(opt, f)
     exp = os.path.join(opt["path"]["root"], "experiments", opt["name"])
@@ -7110,8 +7125,12 @@ def _vsr_cli(smi: str, root: str, data: dict) -> dict:
             checkpoint.load_state)
 
     def train_step(self, state, batch):
+        step = state.step
+        _mark()
         out = orig[0](self, state, batch)
+        _mark()
         rec["steps"].append(time.perf_counter())
+        rec["numbers"].append((step + 1, None))
         return out
 
     def timed(fn):
@@ -7132,22 +7151,26 @@ def _vsr_cli(smi: str, root: str, data: dict) -> dict:
     def main():
         rec["steps"].clear()
         rec["other"].clear()
+        rec["numbers"] = []
         return cli.main(["-opt", path])
 
     n_val = SHORT_NITER // CLI_FREQ * windows
     want = {"rdb5c": VSR_PER_G * (SHORT_NITER + n_val),
-            "rdb5c_bwd": VSR_PER_G * SHORT_NITER}
+            "rdb5c_bwd": VSR_PER_G * SHORT_NITER, "blur": 0}
     resumed = SHORT_RESUME - SHORT_NITER
-    want2 = {"rdb5c": VSR_PER_G * resumed, "rdb5c_bwd": VSR_PER_G * resumed}
+    want2 = {"rdb5c": VSR_PER_G * resumed, "rdb5c_bwd": VSR_PER_G * resumed,
+             "blur": 0}
     VSRTrainer.train_step = train_step
     checkpoint.save_checkpoint = timed(orig[1])
     cli.validate = timed(orig[2])
     checkpoint.load_state = load_state
     try:
         t0 = time.perf_counter()
-        trace, state = _retried_trace(main, want, label="vsr cli")
+        trace, state = _retried_trace(main, want, label=f"{label} cli")
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+        _check_cli_trace(f"{label} cli", trace, want, rec["numbers"],
+                         range(1, SHORT_NITER + 1), VSR_PER_G, 0)
         steps = list(rec["steps"])
         other = list(rec["other"])
         saved = _cell_tensors(state)
@@ -7155,10 +7178,13 @@ def _vsr_cli(smi: str, root: str, data: dict) -> dict:
         torch.cuda.empty_cache()
         opt["train"]["niter"] = SHORT_RESUME
         opt["path"]["resume_state"] = _resume_state(exp, SHORT_NITER)
+        if resume_edit is not None:
+            resume_edit(opt)
         with open(path, "w") as f:
             json.dump(opt, f)
         t1 = time.perf_counter()
-        trace2, state2 = _retried_trace(main, want2, label="vsr resume")
+        trace2, state2 = _retried_trace(main, want2,
+                                        label=f"{label} resume")
         wall2 = time.perf_counter() - t1
     finally:
         (VSRTrainer.train_step, checkpoint.save_checkpoint, cli.validate,
@@ -7179,7 +7205,8 @@ def _vsr_cli(smi: str, root: str, data: dict) -> dict:
     rows = [json.loads(line) for line in
             open(os.path.join(exp, "tb", "scalars.jsonl"))]
     ofr = [r["value"] for r in rows if r.get("tag") == "train/ofr"]
-    print(f"vsr: training CLI on train_video.yml ({opt['network_G']}; batch "
+    print(f"{label}: training CLI on train_video.yml ({opt['network_G']}; "
+          f"parallel {parallel}, the resume without; batch "
           f"{opt['datasets']['train']['batch_size']}, crop "
           f"{opt['datasets']['train']['crop_size']}, 3 frames) {SHORT_NITER} "
           f"iterations in {wall:.1f} s (traced, {trace['records']} "
@@ -7189,17 +7216,17 @@ def _vsr_cli(smi: str, root: str, data: dict) -> dict:
           f"(the card ran {trace2['ran']}): {len(saved)} tensors and counts "
           f"of the saved state, {len(diff)} differ after loading; "
           f"{len(rows)} JSONL scalars, ofr logged {len(ofr)} times")
-    print(f"times: vsr CLI steps 3-{SHORT_NITER} on the host clock: "
+    print(f"times: {label} CLI steps 3-{SHORT_NITER} on the host clock: "
           f"{n / (span - inside):.4f} it/s steady, {n / span:.4f} it/s "
           f"with the saves and validations ({smi})")
     if diff or meta["iter"] != SHORT_NITER or state2.step != \
             SHORT_RESUME or need - files or not ofr or not all(
                 math.isfinite(r["value"]) for r in rows):
-        raise AssertionError(f"vsr cli: differs {diff[:4]}, missing "
+        raise AssertionError(f"{label} cli: differs {diff[:4]}, missing "
                              f"{sorted(need - files)[:4]}, ofr {ofr}")
     del state2
     torch.cuda.empty_cache()
-    return {"vsr cli": trace, "vsr resume": trace2}
+    return {f"{label} cli": trace, f"{label} resume": trace2}
 
 
 def _vsr_batch(seed: int, shape=(8, 3, 32, 32, 3), scale: int = 4) -> dict:
@@ -7222,11 +7249,15 @@ def _vsr_batch(seed: int, shape=(8, 3, 32, 32, 3), scale: int = 4) -> dict:
     return {"LR": lr, "HR": hr}
 
 
-def _graphed_vs_eager(opt: dict, batches) -> tuple:
+def _graphed_vs_eager(opt: dict, batches, name: str = "",
+                      per=None) -> tuple:
     """``opt``'s step graphed against eager from one state (seed 0) and
     one noise generator state, a step per batch (on the card), under
     deterministic cuDNN. Returns the (step, tensor or log) pairs that
-    differ, the ms of each step each way, and the trainers and states."""
+    differ, the ms of each step each way, and the trainers and states.
+    While ``P25_GROUP`` is on, a model of ``P25_MODELS`` (``name``;
+    ``per`` its block launches per step) also runs graphed on a one-rank
+    group (``_GroupTwin``, phase 25 (a))."""
     import torch
 
     from trainner_tpu_torch.train.sr_trainer import create_trainer
@@ -7234,6 +7265,7 @@ def _graphed_vs_eager(opt: dict, batches) -> tuple:
     trainers = {"graphed": create_trainer(opt),
                 "eager": create_trainer(opt, graphs=False)}
     states = {k: t.init_state(0) for k, t in trainers.items()}
+    twin = _GroupTwin(name, opt, per)
     cudnn = torch.backends.cudnn
     saved = (cudnn.deterministic, cudnn.benchmark)
     cudnn.deterministic, cudnn.benchmark = True, False
@@ -7255,7 +7287,11 @@ def _graphed_vs_eager(opt: dict, batches) -> tuple:
                         if not torch.equal(v, after["eager"][k])]
             unequal += [(i, k) for k, v in logs["graphed"].items()
                         if not torch.equal(v, logs["eager"][k])]
+            twin.step(batch, trainers["graphed"], states["graphed"],
+                      logs["graphed"], ms["graphed"][-1])
+        twin.finish(batches[-1])
     finally:
+        twin.close()
         cudnn.deterministic, cudnn.benchmark = saved
     return unequal, ms, trainers, states
 
@@ -7272,7 +7308,7 @@ def _vsr_graphed_vs_eager(smi: str, root: str, data: dict) -> dict:
     opt = parse_dict(_vsr_options(root, data), is_train=True)
     unequal, ms, trainers, states = _graphed_vs_eager(opt, [
         {k: v.cuda() for k, v in _vsr_batch(70 + i).items()}
-        for i in range(VSR_GRAPH_STEPS)])
+        for i in range(VSR_GRAPH_STEPS)], "sofvsr", (VSR_PER_G, VSR_PER_G))
     graphs = trainers["graphed"].step_graphs()
     rep = sorted(ms["graphed"][1:])[len(ms["graphed"][1:]) // 2]
     eag = sorted(ms["eager"][1:])[len(ms["eager"][1:]) // 2]
@@ -7539,15 +7575,34 @@ def _vsr_nets_card_vs_cpu(smi: str) -> None:
         _card_vs_cpu_forward(kind, opt, shape, (torch.float32,), tag="vsr")
 
 
+def _par_data_edit(opt: dict) -> None:
+    opt["parallel"] = {"data": 1}
+
+
+def _par_drop_edit(opt: dict) -> None:
+    opt.pop("parallel", None)
+
+
+def _vsr_cli_on_a_group(smi: str, root: str, data: dict) -> dict:
+    """The video training CLI (``_vsr_cli``) with ``parallel: {data: 1}``,
+    resumed without it: phase 21's CLI run and phase 25 (c), which reads
+    its traces from ``P25_GROUP``."""
+    traces = _vsr_cli(smi, root, data, label="vsr parallel",
+                      edit=_par_data_edit, resume_edit=_par_drop_edit)
+    P25_GROUP["cli"] = traces
+    return traces
+
+
 def phase_video(smi: str, root: str) -> dict:
     """Phase 21: the video models. SOF-VSR with its RRDB tail at the
     template's full width (``options/video/train_video.yml``: channels
     320, 3 frames, x4; nf 64, nb 23, gc 32; b 8, crop 128; cb pixel loss,
     the OFR term at 0.01 with ``ofr_wl1`` 0.1 and ``ofr_wl2`` 0.2; Adam;
     cosine restarts; bf16) on seeded folders of frames (``_vsr_data``):
-    the training CLI (``SHORT_NITER`` and a resume to ``SHORT_RESUME``,
-    69 + 69 block launches per step and 69 per validation window from the
-    traces), the block kernels against their plain versions at the
+    the training CLI (``SHORT_NITER`` with ``parallel: {data: 1}``, on a
+    one-rank group, and a resume to ``SHORT_RESUME`` without it: phase
+    25 (c); 69 + 69 block launches per step and 69 per validation window
+    from the traces), the block kernels against their plain versions at the
     shapes SOF-VSR gives them (``_vsr_kernels_vs_plain``), three steps
     graphed against eager bit for bit, one f32 step at cut depth against
     an f64 witness, the test CLI on
@@ -7563,7 +7618,8 @@ def phase_video(smi: str, root: str) -> dict:
     torch.backends.cuda.matmul.allow_tf32 = False
     data = _vsr_data(root)
     traces, parts = {}, [f"{time.perf_counter() - t0:.1f}"]
-    for part in (lambda: traces.update(_vsr_cli(smi, root, data)),
+    for part in (lambda: traces.update(_vsr_cli_on_a_group(smi, root,
+                                                           data)),
                  lambda: _vsr_kernels_vs_plain(smi, root, data),
                  lambda: _vsr_graphed_vs_eager(smi, root, data),
                  lambda: _vsr_f64(smi, root, data),
@@ -7783,7 +7839,8 @@ def _srflow_graphed_vs_eager(smi: str, root: str, interop: bool) -> dict:
     per = SRFLOW_I_PER if interop else SRFLOW_PER
     opt = _srflow_options(interop, niter=steps)
     unequal, ms, trainers, states = _graphed_vs_eager(
-        opt, [_srflow_batch(70 + i) for i in range(steps)])
+        opt, [_srflow_batch(70 + i) for i in range(steps)],
+        "srflow_interop" if interop else "srflow", (per, per))
     graphs = trainers["graphed"].step_graphs()
     recorded = {key[1]: {k: cap.launches[k] for k in ("rdb5c", "rdb5c_bwd")}
                 for key, cap in graphs.items()}
@@ -8384,7 +8441,8 @@ def _pbr_graphed_vs_eager(smi: str) -> None:
 
     unequal, ms, trainers, states = _graphed_vs_eager(
         _pbr_options(), [_pbr_batch(70 + i)
-                         for i in range(ZOO_REST_GRAPH_STEPS)])
+                         for i in range(ZOO_REST_GRAPH_STEPS)], "pbr",
+        (PBR_PER_STEP, PBR_PER_STEP))
     graphs = trainers["graphed"].step_graphs()
     _steps_report("pbr bf16 b=8 32 -> 128 px, 4 maps", unequal, ms, graphs,
                   1, smi)
@@ -8794,6 +8852,39 @@ def _dvd_batch(seed: int, b: int = 16, px: int = 128,
                                          ("bottom", bottom))}
 
 
+def _dvd_graphed_vs_eager(smi: str, root: str, data: dict) -> None:
+    """DVD's template step (bf16, b 16, 128 px) graphed against eager bit
+    for bit, ``ZOO_REST_GRAPH_STEPS`` steps."""
+    from trainner_tpu_torch.options.config import parse_dict
+
+    opt = parse_dict(_dvd_options(root, data), is_train=True)
+    unequal, ms, trainers, states = _graphed_vs_eager(
+        opt, [_dvd_batch(60 + i) for i in range(ZOO_REST_GRAPH_STEPS)],
+        "dvd")
+    _steps_report("dvd bf16 b=16 128 px", unequal, ms,
+                  trainers["graphed"].step_graphs(), 1, smi)
+
+
+def _wbc_graphed_vs_eager(smi: str, root: str, data: dict) -> None:
+    """WBC's template step (bf16, b 16, 256 px) graphed against eager bit
+    for bit, ``ZOO_REST_GRAPH_STEPS`` steps, the pools' images too."""
+    import torch
+
+    from trainner_tpu_torch.options.config import parse_dict
+
+    opt = parse_dict(_wbc_options(root, data), is_train=True)
+    unequal, ms, trainers, states = _graphed_vs_eager(
+        opt, [_wbc_batch(60 + i) for i in range(ZOO_REST_GRAPH_STEPS)],
+        "wbc")
+    for pool in ("fake_s_pool", "fake_t_pool"):
+        a, b = (getattr(trainers[k], pool) for k in ("graphed", "eager"))
+        if a.count != b.count or not torch.equal(a.images[:a.count],
+                                                 b.images[:b.count]):
+            unequal.append(pool)
+    _steps_report("wbc bf16 b=16 256 px", unequal, ms,
+                  trainers["graphed"].step_graphs(), 2, smi)
+
+
 def _dvd(smi: str, root: str, data: dict) -> dict:
     """DVD on ``train_deinterlace.yml``: the CLI (``ZOO_REST_NITER`` and a
     resume to ``ZOO_REST_RESUME``; no kernel of the repo); three steps
@@ -8815,11 +8906,7 @@ def _dvd(smi: str, root: str, data: dict) -> dict:
     traces = _zoo_rest_cli(smi, root, "dvd", _dvd_options(root, data),
                            ("G",), DVDTrainer)
     opt = parse_dict(_dvd_options(root, data), is_train=True)
-    unequal, ms, trainers, states = _graphed_vs_eager(
-        opt, [_dvd_batch(60 + i) for i in range(ZOO_REST_GRAPH_STEPS)])
-    _steps_report("dvd bf16 b=16 128 px", unequal, ms,
-                  trainers["graphed"].step_graphs(), 1, smi)
-    del trainers, states
+    _dvd_graphed_vs_eager(smi, root, data)
     cfg = get_network_G_config(dict(opt["network_G"]), 1)
     _card_vs_cpu_forward("dvd_net", {"network_G": cfg}, (1, 128, 128, 3),
                          (torch.float32,), tag="zoo rest")
@@ -8955,16 +9042,7 @@ def _wbc(smi: str, root: str, data: dict) -> dict:
     traces = _zoo_rest_cli(smi, root, "wbc", _wbc_options(root, data),
                            ("G", "D_S", "D_T"), WBCTrainer)
     opt = parse_dict(_wbc_options(root, data), is_train=True)
-    unequal, ms, trainers, states = _graphed_vs_eager(
-        opt, [_wbc_batch(60 + i) for i in range(ZOO_REST_GRAPH_STEPS)])
-    for pool in ("fake_s_pool", "fake_t_pool"):
-        a, b = (getattr(trainers[k], pool) for k in ("graphed", "eager"))
-        if a.count != b.count or not torch.equal(a.images[:a.count],
-                                                 b.images[:b.count]):
-            unequal.append(pool)
-    _steps_report("wbc bf16 b=16 256 px", unequal, ms,
-                  trainers["graphed"].step_graphs(), 2, smi)
-    del trainers, states
+    _wbc_graphed_vs_eager(smi, root, data)
 
     small = dict(parse_dict({
         "name": "wbc_f64", "model": "wbc", "scale": 1, "pool_size": 50,
@@ -9153,7 +9231,8 @@ def phase_graphs(smi: str, root: str) -> None:
           f"{', '.join(parts)} s) ({smi})")
 
 
-PAR_STEPS, PAR_TIMED = 3, 10   # phase 24 (a): steps compared, timed
+PAR_STEPS, PAR_TIMED = 3, 5    # phase 24 (a): steps compared, timed
+#   (10 timed until phase 25's time cut)
 PAR_SPLIT = 16                  # (b): the global batch of 32 as 16 + 16
 # (b): a gradient that the one-process step itself moves by more when
 # its batch comes in another order (of PAR_REORDERS orders) is held to
@@ -9388,7 +9467,8 @@ def _par_two_gloo_ranks(smi: str, root: str) -> None:
     near-equal terms), within ``PAR_REORDER_X`` times the larger move of
     ``PAR_REORDERS`` such orders; the logs within 1e-3 relative. The same
     check must reject each of ``PAR_FAULTS`` planted in the ranks' step
-    (a tensor over its limit or the logs over theirs)."""
+    (a tensor over its limit or the logs over theirs). The one-process
+    steps run while the ranks do."""
     import torch
 
     from trainner_tpu_torch.train.sr_trainer import create_trainer
@@ -9396,20 +9476,8 @@ def _par_two_gloo_ranks(smi: str, root: str) -> None:
     store = os.path.join(root, "par_store")
     out = os.path.join(root, "par_grads.pt")
     t0 = time.perf_counter()
-    procs = [subprocess.Popen(
-        [sys.executable, os.path.abspath(__file__), "--par-rank", str(r),
-         "--par-store", store, "--par-out", out],
-        stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
-        for r in range(2)]
-    logs = [p.communicate(timeout=600)[0].decode(errors="replace")
-            for p in procs]
-    wall = time.perf_counter() - t0
-    for p, log in zip(procs, logs):
-        if p.returncode != 0:
-            raise AssertionError(f"parallel (b): a rank failed:\n"
-                                 f"{log[-3000:]}")
-    saved = torch.load(out, weights_only=False)
-    runs = saved["runs"]
+    procs = _rank_processes(root, "par", [
+        "--par-store", store, "--par-out", out])
 
     def one_process(order=None):
         tr = create_trainer(_par_grad_options(), graphs=False)
@@ -9427,9 +9495,20 @@ def _par_two_gloo_ranks(smi: str, root: str) -> None:
     # the same step on the batch in two other orders: the same function,
     # its sums in other orders, which read each gradient's own rounding
     perm = torch.Generator().manual_seed(24)
-    agains = [one_process(torch.randperm(TRAIN_SHAPE[0], generator=perm))[2]
-              for _ in range(PAR_REORDERS)]
-    st, logs1, _ = one_process()
+    try:
+        agains = [one_process(torch.randperm(TRAIN_SHAPE[0],
+                                             generator=perm))[2]
+                  for _ in range(PAR_REORDERS)]
+        st, logs1, _ = one_process()
+    finally:
+        logs = [_rank_log(p) for p in procs]
+    wall = time.perf_counter() - t0
+    for (p, _), log in zip(procs, logs):
+        if p.returncode != 0:
+            raise AssertionError(f"parallel (b): a rank failed:\n"
+                                 f"{log[-3000:]}")
+    saved = torch.load(out, weights_only=False)
+    runs = saved["runs"]
     spread = {}
     for w in ("g", "d"):
         net = getattr(st, w).net
@@ -9456,7 +9535,8 @@ def _par_two_gloo_ranks(smi: str, root: str) -> None:
           f"logs within {log_err:.2e} relative; the largest error over "
           f"its limit {ratio:.3f}; planted faults (the largest error over "
           f"its limit, the tensors over it, the logs' relative error): "
-          f"{faults}; the ranks' wall {wall:.1f} s ({smi})")
+          f"{faults}; the ranks' wall, the one-process steps beside them, "
+          f"{wall:.1f} s ({smi})")
     missed = [f for f in PAR_FAULTS
               if not readings[f][1] and readings[f][3] <= 1e-3]
     if saved["b"] != PAR_SPLIT or over or log_err > 1e-3 or missed:
@@ -9465,6 +9545,31 @@ def _par_two_gloo_ranks(smi: str, root: str) -> None:
                              f"{missed}")
     del st
     torch.cuda.empty_cache()
+
+
+def _rank_processes(root: str, tag: str, args: list) -> list:
+    """Two ranks of this script (``--par-rank 0`` and ``1`` with ``args``)
+    started in processes of their own, each writing its output to a file
+    under ``root`` (a pipe would fill while the caller works beside
+    them)."""
+    procs = []
+    for r in range(2):
+        log = open(os.path.join(root, f"{tag}_rank{r}.log"), "w+b")
+        procs.append((subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--par-rank",
+             str(r)] + args, stdout=log, stderr=subprocess.STDOUT), log))
+    return procs
+
+
+def _rank_log(proc) -> str:
+    """Waits for a (process, log file) pair of ``_rank_processes`` and
+    returns the process's output."""
+    p, log = proc
+    p.wait(timeout=600)
+    log.seek(0)
+    text = log.read().decode(errors="replace")
+    log.close()
+    return text
 
 
 def _par_reading(run: dict, st, logs1: dict, spread: dict) -> tuple:
@@ -9546,29 +9651,29 @@ def phase_parallel(smi: str, root: str) -> dict:
     (a) a one-rank NCCL group's graphed step bit for bit against the step
     with no group (``_par_nccl_step``); (b) two gloo ranks' averaged
     gradients against one process's (``_par_two_gloo_ranks``); (c) the
-    training CLI on ``train_sr.yml`` with ``parallel: {data: 1}`` for 6
-    iterations, resumed to 8 by the CLI without ``parallel:`` (the blur
-    kernel runs in its degradations); (d) band serving (``_par_bands``).
-    Returns the traces."""
+    training CLI on ``train_sr.yml`` with ``parallel: {data: 1}``, resumed
+    by the CLI without ``parallel:`` (the blur kernel runs in its
+    degradations): in a whole run the cli phase's run (12 iterations and
+    a resume to 14, ``P24_CLI``), alone 6 and a resume to 8; (d) band
+    serving (``_par_bands``). Returns the traces."""
     import torch
 
     t0 = time.perf_counter()
     traces, parts = {}, []
 
-    def par_edit(opt):
-        opt["parallel"] = {"data": 1}
-
-    def resume_edit(opt):
-        opt.pop("parallel", None)
+    def cli():
+        if P24_CLI:
+            print(f"parallel: (c) the cli phase's run of train_sr.yml ran "
+                  f"with parallel: {{data: 1}} and resumed without it: "
+                  f"{ {k: v['ran'] for k, v in P24_CLI.items()} }")
+            return
+        traces.update({f"parallel cli {k}": v for k, v in phase_cli(
+            smi, root, TRAIN_YML, "cli_parallel", edit=_par_data_edit,
+            niter=6, resume_niter=8, resume_edit=_par_drop_edit).items()})
 
     for part in (lambda: traces.update({"parallel nccl step":
                                         _par_nccl_step(smi)}),
-                 lambda: _par_two_gloo_ranks(smi, root),
-                 lambda: traces.update({
-                     f"parallel cli {k}": v for k, v in phase_cli(
-                         smi, root, TRAIN_YML, "cli_parallel",
-                         edit=par_edit, niter=6, resume_niter=8,
-                         resume_edit=resume_edit).items()}),
+                 lambda: _par_two_gloo_ranks(smi, root), cli,
                  lambda: traces.update({"parallel bands":
                                         _par_bands(smi)})):
         t1 = time.perf_counter()
@@ -9585,21 +9690,586 @@ def phase_parallel(smi: str, root: str) -> dict:
     return traces
 
 
+# the flagship CLI's traces where the cli phase ran it with parallel:
+# {data: 1} (phase 24 (c)'s check in a whole run)
+P24_CLI = {}
+P25_CYC_B, P25_POOL, P25_CYC_STEPS = 4, 4, 2   # (b): CycleGAN's global
+#   batch, its pools and its steps (the second swaps: the first fills)
+P25_CYC_PX = 128           # (b): its crop (the template's 256, cut)
+P25_PBR_B = 8              # (b): PBR's global batch (four maps, LR 32 px)
+# (b): faults planted in the two ranks' steps, one a model, each of which
+# the check must reject (``_p25_fault``)
+P25_FAULTS = {"cyclegan": "pool queried with the local batch",
+              "pbr": "PBR's held draw per rank, no sample_draw"}
+P25_DL_BATCHES = 2         # (d): the batches test_dataloader dumps
+
+
+# phase 25 (a)'s models, with the helper of phases 20-23 that runs each
+# one's graphed step against eager (and its twin on the group)
+P25_MODELS = ("cyclegan", "sftgan", "sofvsr", "srflow", "srflow_interop",
+              "pbr", "dvd", "wbc")
+# phase 25's state across phases: while ``on`` (``_p25_group``) the
+# graphed-vs-eager checks of ``P25_MODELS`` run a twin on a one-rank group;
+# its readings (``rows``) and traced replays (``traces``) by model, and the
+# video CLI's traces (``cli``) where phase 21 ran it on a group
+P25_GROUP = {"on": False, "rows": {}, "traces": {}, "cli": None}
+
+
+@contextlib.contextmanager
+def _p25_group():
+    """The graphed-vs-eager checks of ``P25_MODELS`` run their twins on a
+    one-rank group while the body runs (``_GroupTwin``)."""
+    P25_GROUP["on"] = True
+    try:
+        yield
+    finally:
+        P25_GROUP["on"] = False
+
+
+class _GroupTwin:
+    """Phase 25 (a)'s third run of a graphed-vs-eager check: while
+    ``P25_GROUP`` is on, a model of ``P25_MODELS`` runs the same steps
+    graphed on a one-rank NCCL group of its own (``_group_of_one``, open
+    until ``close``) from its own ``init_state(0)``, each step after the
+    graphed one with no group, and every log and state tensor (the image
+    pools' too, ``_p25_tensors``) must equal that one's bit for bit; it
+    counts the collectives each step issued and, with ``per`` (its block
+    launches per step, forward and backward), replays its step once more
+    under a launch trace. Inactive otherwise."""
+
+    def __init__(self, name: str, opt: dict, per=None):
+        from trainner_tpu_torch.train.sr_trainer import create_trainer
+
+        self.on = P25_GROUP["on"] and name in P25_MODELS
+        self.group = None
+        if not self.on:
+            return
+        self.name, self.per = name, per
+        self.group = _group_of_one()
+        mesh = self.group.__enter__()
+        self.trainer = create_trainer(opt, mesh=mesh)
+        self.state = self.trainer.init_state(0)
+        self.unequal, self.issued, self.ms, self.ref_ms = [], [], [], []
+
+    def close(self) -> None:
+        """Frees the twin's graphs, then its group (NCCL does not destroy
+        a communicator that a live graph holds)."""
+        import gc
+
+        import torch
+
+        if self.group is None:
+            return
+        self.trainer = self.state = None
+        gc.collect()
+        torch.cuda.synchronize()
+        group, self.group = self.group, None
+        group.__exit__(None, None, None)
+        torch.cuda.empty_cache()
+
+    def step(self, batch, trainer, state, logs, ref_ms: float) -> None:
+        import torch
+
+        from trainner_tpu_torch.parallel import collectives as C
+
+        if not self.on:
+            return
+        before = C.issued
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = self.trainer.train_step(self.state, batch)[1]
+        torch.cuda.synchronize()
+        self.ms.append((time.perf_counter() - t0) * 1e3)
+        self.ref_ms.append(ref_ms)
+        self.issued.append(C.issued - before)
+        i = len(self.ms) - 1
+        want = _p25_tensors(trainer, state)
+        have = _p25_tensors(self.trainer, self.state)
+        self.unequal += [(i, k) for k, v in want.items() if not (
+            torch.equal(v, have[k]) if isinstance(v, torch.Tensor)
+            else v == have[k])]
+        self.unequal += [(i, k) for k, v in logs.items()
+                         if not torch.equal(v, got[k])]
+        self.tensors = len(want)
+
+    def finish(self, batch) -> None:
+        import torch
+
+        if not self.on:
+            return
+        row = {"tensors": self.tensors, "unequal": self.unequal[:6],
+               "n_unequal": len(self.unequal), "issued": self.issued,
+               "graphs": len(self.trainer.step_graphs()),
+               "ms": [round(v, 2) for v in self.ms],
+               "ms_no_group": [round(v, 2) for v in self.ref_ms]}
+        if self.per is not None:
+            gf, gb = self.per
+            t, _ = _retried_trace(
+                lambda: self.trainer.train_step(self.state, batch),
+                {"rdb5c": gf, "rdb5c_bwd": gb, "blur": 0}, fresh=False,
+                label=f"parallel models: {self.name}")
+            P25_GROUP["traces"][self.name] = t
+            row["ran"] = t["ran"]
+        P25_GROUP["rows"][self.name] = row
+        self.close()
+
+
+def _p25_tensors(trainer, state) -> dict:
+    """The step and every tensor of a model's state (each net's
+    state_dict and optimizer state, as ``_cell_tensors`` reads them) and
+    its image pools' stored images, cloned on the card."""
+    out = {"step": state.step}
+    for w, ns in _net_states(state):
+        for k, v in ns.net.state_dict().items():
+            out[f"{w}.{k}"] = v.detach().clone()
+        for key, v in ns.opt.state_dict().items():
+            if isinstance(v, int):
+                out[f"{w}.{key}"] = v
+            else:
+                for i, t in enumerate(v):
+                    out[f"{w}.{key}.{i}"] = t.detach().clone()
+    for name in ("fake_a_pool", "fake_b_pool", "fake_s_pool",
+                 "fake_t_pool"):
+        pool = getattr(trainer, name, None)
+        if pool is not None and pool.images is not None:
+            out[name] = pool.images[:pool.count].detach().clone()
+    return out
+
+
+def _p25_nccl_steps(smi: str, root: str) -> dict:
+    """Phase 25 (a): each model of ``P25_MODELS`` graphed on a one-rank
+    NCCL group and with no group, in turns, from the same seeds, bit for
+    bit (``_GroupTwin``, the third run of its graphed-vs-eager check of
+    phases 20-23: CycleGAN, SFTGAN, SOF-VSR, PBR, DVD and WBC 3 steps,
+    SRFlow 4 across its unfreeze at 2, the interop net 2 across it at 1);
+    a traced replay runs PBR's 276 + 276 block launches, SOF-VSR's 69 +
+    69, SRFlow's 23 + 23 (interop 69 + 69). Where phases 20-23 did not run
+    with the group open (``--only 25``), their checks of these models run
+    here under it. Prints each model's reading; returns the traces."""
+    import torch
+
+    missing = [m for m in P25_MODELS if m not in P25_GROUP["rows"]]
+    if missing:
+        none = {k: "/nonexistent" for k in (
+            "A", "B", "seg", "val", "val_seg", "train", "dvd", "wbc_a",
+            "wbc_b")}
+        checks = {
+            "cyclegan": lambda: _i2i_graphed_vs_eager(smi, root, none,
+                                                      "cyclegan"),
+            "sftgan": lambda: _i2i_graphed_vs_eager(smi, root, none,
+                                                    "sftgan"),
+            "sofvsr": lambda: _vsr_graphed_vs_eager(smi, root, none),
+            "srflow": lambda: _srflow_graphed_vs_eager(smi, root, False),
+            "srflow_interop": lambda: _srflow_graphed_vs_eager(smi, root,
+                                                               True),
+            "pbr": lambda: _pbr_graphed_vs_eager(smi),
+            "dvd": lambda: _dvd_graphed_vs_eager(smi, root, none),
+            "wbc": lambda: _wbc_graphed_vs_eager(smi, root, none)}
+        with _p25_group():
+            for m in missing:
+                torch.backends.cudnn.allow_tf32 = False
+                torch.backends.cuda.matmul.allow_tf32 = False
+                checks[m]()
+    rows = P25_GROUP["rows"]
+    bad = {}
+    for m in P25_MODELS:
+        r = rows[m]
+        print(f"parallel models: (a) {m}: graphed on a one-rank NCCL group "
+              f"against graphed with no group, {len(r['ms'])} steps in "
+              f"turns: {r['tensors']} state tensors, {r['n_unequal']} differ "
+              f"or logs; collectives issued per step {r['issued']} (the "
+              f"first eager and captured; CycleGAN's and WBC's pools gather "
+              f"eagerly between the stages); {r['graphs']} graph(s); ms per "
+              f"step group {r['ms']}, no group {r['ms_no_group']}"
+              + (f"; a traced replay ran {r['ran']}" if "ran" in r else "")
+              + f" ({smi})")
+        if r["n_unequal"] or not r["issued"][0]:
+            bad[m] = r["unequal"]
+    if bad:
+        raise AssertionError(f"parallel models (a): {bad}")
+    return {f"parallel models {k}": v for k, v in
+            P25_GROUP["traces"].items()}
+
+
+def _p25_f32_options(name: str, root: str) -> dict:
+    """Phase 25 (b)'s options: CycleGAN's template (b ``P25_CYC_B``, crop
+    ``P25_CYC_PX``, pools of ``P25_POOL``) or the PBR cell (b
+    ``P25_PBR_B``, the latent noise on), in f32."""
+    from trainner_tpu_torch.options.config import parse_dict
+
+    if name == "pbr":
+        opt = _pbr_options()
+        opt["use_amp"] = False
+        return opt
+    none = {k: "/nonexistent" for k in ("A", "B")}
+    opt = _i2i_options(root, none, "cyclegan")
+    opt["use_amp"] = False
+    opt["pool_size"] = P25_POOL
+    opt["datasets"]["train"].update(batch_size=P25_CYC_B,
+                                    crop_size=P25_CYC_PX)
+    return dict(parse_dict(opt, is_train=True))
+
+
+def _p25_batches(name: str) -> list:
+    """Phase 25 (b)'s global batches, on the card, from seeds."""
+    import torch
+
+    if name == "pbr":
+        return [_pbr_batch(31, b=P25_PBR_B)]
+    out = []
+    for s in range(P25_CYC_STEPS):
+        gen = torch.Generator(device="cuda").manual_seed(260 + s)
+        out.append({k: torch.rand(P25_CYC_B, P25_CYC_PX, P25_CYC_PX, 3,
+                                  generator=gen, device="cuda") * 2 - 1
+                    for k in "AB"})
+    return out
+
+
+def _p25_nets(state) -> dict:
+    """A state's trained nets by field (CycleGAN's G holds G_A and G_B)."""
+    return {w: ns.net for w, ns in _net_states(state)}
+
+
+@contextlib.contextmanager
+def _p25_fault(name: str, trainer):
+    """``P25_FAULTS[name]`` planted while the context is open: CycleGAN's
+    pools queried by each rank with its local fakes alone, or PBR's held
+    latent draw made per rank for its own samples (``sample_draw``
+    skipped)."""
+    from trainner_tpu_torch.ops import blocks
+
+    if name == "cyclegan":
+        trainer._pooled = lambda pool, fakes: pool.query(fakes)
+        try:
+            yield
+        finally:
+            del trainer._pooled
+        return
+    kept = blocks.sample_draw
+    blocks.sample_draw = lambda draw, n: draw(n)
+    try:
+        yield
+    finally:
+        blocks.sample_draw = kept
+
+
+def _p25_trainer(name: str, root: str, mesh=None):
+    """Phase 25 (b)'s trainer of one model (``_p25_f32_options``), eager,
+    on ``mesh`` when given; its runs (``_p25_run``) share it."""
+    from trainner_tpu_torch.train.sr_trainer import create_trainer
+
+    return create_trainer(_p25_f32_options(name, root), graphs=False,
+                          mesh=mesh)
+
+
+def _p25_run(tr, name: str, fault: bool = False, perm=None) -> dict:
+    """Phase 25 (b)'s steps of one model with trainer ``tr``
+    (``_p25_trainer``; its pools made anew), f32 eager from
+    ``init_state(0)``: on this rank's part of each global batch under
+    ``tr``'s mesh, with its fault planted when ``fault``; or in one
+    process with the batches' rows in the order ``perm`` (its pools and
+    its latent draw kept in the batch's own order, so the function is the
+    same and only its sums run in another order). Under deterministic
+    cuDNN: its f32 weight gradients' atomics would move CycleGAN's from
+    run to run by as much as the reorders do. Returns the last step's
+    gradients by net and its logs."""
+    import torch
+
+    from trainner_tpu_torch.ops import blocks
+    from trainner_tpu_torch.parallel import mesh as M
+    from trainner_tpu_torch.utils.image_pool import ImagePool
+
+    mesh = tr.mesh
+    cudnn = torch.backends.cudnn
+    saved = (cudnn.deterministic, cudnn.benchmark)
+    cudnn.deterministic, cudnn.benchmark = True, False
+    for pool in ("fake_a_pool", "fake_b_pool"):
+        if hasattr(tr, pool):
+            setattr(tr, pool, ImagePool(P25_POOL))
+    st = tr.init_state(0)
+    batches = _p25_batches(name)
+    kept = blocks.sample_draw
+    ctx = _p25_fault(name, tr) if fault else contextlib.nullcontext()
+    if perm is not None:
+        inv = torch.argsort(perm)
+        real = tr._pooled
+        tr._pooled = lambda pool, fakes: real(pool, fakes[inv.cuda()])[
+            perm.cuda()]
+        blocks.sample_draw = lambda draw, n: kept(draw, n)[perm.cuda()]
+        batches = [{k: v[perm.cuda()] for k, v in b.items()}
+                   for b in batches]
+    try:
+        with ctx:
+            for b in batches:
+                if mesh is not None:
+                    b = M.shard_batch(b, mesh)
+                st, logs = tr.train_step(st, b)
+    finally:
+        blocks.sample_draw = kept
+        vars(tr).pop("_pooled", None)
+        cudnn.deterministic, cudnn.benchmark = saved
+    out = {w: {k: p.grad.detach().cpu() for k, p in net.named_parameters()
+               if p.grad is not None} for w, net in _p25_nets(st).items()}
+    out["logs"] = {k: float(v) for k, v in logs.items()}
+    swaps = [getattr(tr, p) for p in ("fake_a_pool", "fake_b_pool")
+             if hasattr(tr, p)]
+    out["pools"] = [p.count for p in swaps]
+    del st
+    torch.cuda.empty_cache()
+    return out
+
+
+def _p25_rank(store: str, rank: int, out: str, root: str) -> int:
+    """One rank of phase 25 (b), in a process of its own: a gloo group of
+    two on the one card, each model of ``P25_FAULTS`` sound and with its
+    fault planted; rank 0 saves the gradients and logs of each."""
+    import torch
+    import torch.distributed as dist
+
+    from trainner_tpu_torch.parallel import mesh as M
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    M.init_distributed(dev, rank=rank, world_size=2,
+                       init_method=f"file://{store}", backend="gloo")
+    mesh = M.make_mesh(M.MeshConfig(data=2), device=dev)
+    runs = {}
+    for name in P25_FAULTS:
+        tr = _p25_trainer(name, root, mesh)
+        for fault in (False, True):
+            runs[(name, fault)] = _p25_run(tr, name, fault)
+        del tr
+    if rank == 0:
+        torch.save(runs, out)
+    dist.barrier()
+    dist.destroy_process_group()
+    return 0
+
+
+def _p25_errors(got: dict, ref: dict) -> dict:
+    """Each net's gradients of ``got`` against ``ref`` (field -> name ->
+    tensor on the host), as ``_grad_errors`` reads them: the largest
+    difference over the tensor's largest magnitude, for a D's bias whose
+    gradient is 0 but for rounding (a conv's that a norm follows) over
+    that D's largest gradient, by ``{field}.{name}``."""
+    out = {}
+    for w, grads in ref.items():
+        if w in ("logs", "pools"):
+            continue
+        top = max(float(g.abs().max()) for g in grads.values())
+        for k, g in grads.items():
+            err = float((got[w][k] - g).abs().max())
+            noise = w.startswith("d") and k.endswith("bias") and \
+                k.replace("bias", "norm.weight") in grads
+            size = top if noise else float(g.abs().max())
+            out[f"{w}.{k}"] = err / max(size, 1e-30)
+    return out
+
+
+def _p25_reading(run: dict, ref: dict, spread: dict) -> tuple:
+    """Phase 25 (b)'s reading of one two-rank run against the one-process
+    step (``ref``), as ``_par_reading`` reads phase 24 (b): each tensor's
+    error (``_p25_errors``), the tensors over their limit (3e-3, or
+    ``PAR_REORDER_X`` times the reorders' move ``spread``), the largest
+    error over its limit and the logs' largest relative error."""
+    worst = _p25_errors(run, ref)
+    limit = {k: max(3e-3, PAR_REORDER_X * spread[k]) for k in worst}
+    over = {k: (v, spread[k]) for k, v in worst.items() if v > limit[k]}
+    ratio = max(v / limit[k] for k, v in worst.items())
+    log_err = max(abs(run["logs"][k] - v) / max(abs(v), 1e-3)
+                  for k, v in ref["logs"].items())
+    return worst, over, ratio, log_err
+
+
+def _p25_two_gloo_ranks(smi: str, root: str) -> None:
+    """Phase 25 (b): two processes on the one card over gloo, f32 eager,
+    TF32 off: CycleGAN (b ``P25_CYC_B`` split 2 + 2, pools of
+    ``P25_POOL``, ``P25_CYC_STEPS`` steps: the second's pools swap) and
+    PBR (b ``P25_PBR_B`` split 4 + 4, four maps, one held latent draw):
+    the last step's averaged gradients of every net against the
+    one-process step's on the global batch under phase 24 (b)'s rule (3e-3
+    of each tensor's size, or ``PAR_REORDER_X`` times the larger move of
+    ``PAR_REORDERS`` reorders of the batch), the logs within 1e-3; each
+    model's fault of ``P25_FAULTS`` planted in the ranks' steps must be
+    rejected. The one-process steps run while the ranks do."""
+    import torch
+
+    store = os.path.join(root, "p25_store")
+    out = os.path.join(root, "p25_grads.pt")
+    t0 = time.perf_counter()
+    procs = _rank_processes(root, "p25", [
+        "--par-store", store, "--par-out", out, "--par-phase", "25",
+        "--par-root", root])
+    refs = {}
+    try:
+        for name in P25_FAULTS:
+            tr = _p25_trainer(name, root)
+            ref = _p25_run(tr, name)
+            perm = torch.Generator().manual_seed(25)
+            n = P25_PBR_B if name == "pbr" else P25_CYC_B
+            spread = {}
+            for _ in range(PAR_REORDERS):
+                again = _p25_run(tr, name,
+                                 perm=torch.randperm(n, generator=perm))
+                for k, v in _p25_errors(again, ref).items():
+                    spread[k] = max(spread.get(k, 0.0), v)
+            refs[name] = (ref, spread)
+    finally:
+        logs = [_rank_log(p) for p in procs]
+    wall = time.perf_counter() - t0
+    for (p, _), log in zip(procs, logs):
+        if p.returncode != 0:
+            raise AssertionError(f"parallel models (b): a rank failed:\n"
+                                 f"{log[-3000:]}")
+    runs = torch.load(out, weights_only=False)
+    missed, failed = [], []
+    for name, fault_name in P25_FAULTS.items():
+        ref, spread = refs[name]
+        sound = _p25_reading(runs[(name, False)], ref, spread)
+        fault = _p25_reading(runs[(name, True)], ref, spread)
+        worst, over, ratio, log_err = sound
+        top = max(worst, key=worst.get)
+        print(f"parallel models: (b) {name} two gloo ranks on the one card, "
+              f"f32 eager: the last step's averaged gradients against the "
+              f"one-process step's on the global batch, worst "
+              f"{worst[top]:.3e} of the tensor's size ({top}; the reorders "
+              f"move it by up to {spread[top]:.3e}), "
+              f"{sum(v > 3e-3 for v in worst.values())} of {len(worst)} "
+              f"tensors past 3e-3; the largest error over its limit "
+              f"{ratio:.3f} (limit 1), logs within {log_err:.2e} (limit "
+              f"1e-3); planted fault '{fault_name}': the largest error over "
+              f"its limit {fault[2]:.3f}, {len(fault[1])} tensors over, "
+              f"logs {fault[3]:.3e}; pools' counts {ref['pools']} "
+              f"({smi})")
+        if over or log_err > 1e-3:
+            failed.append((name, sorted(over.items())[:4], log_err))
+        if not fault[1] and fault[3] <= 1e-3:
+            missed.append(fault_name)
+    print(f"parallel models: (b) the ranks' wall, the one-process steps "
+          f"beside them: {wall:.1f} s ({smi})")
+    if failed or missed:
+        raise AssertionError(f"parallel models (b): {failed}, faults not "
+                             f"rejected {missed}")
+    torch.cuda.empty_cache()
+
+
+def _p25_dataloader(smi: str, root: str) -> dict:
+    """Phase 25 (d): the port's ``test_dataloader`` on ``train_sr.yml``
+    (shuffled bsrgan, b 32, crop 128, the corpus) for ``P25_DL_BATCHES``
+    batches on the card under a launch trace, a marker around each
+    batch's degradations: 24 blur launches a batch (12 at the HR canvas,
+    12 at the LR one), no block; every array described and dumped (b
+    PNGs per key and batch). Returns the trace."""
+    from trainner_tpu_torch.options import parse
+    from trainner_tpu_torch.scripts import test_dataloader as tool
+
+    path = _cli_options(root, os.path.join(root, "corpus"), TRAIN_YML,
+                        "dataloader")
+    opt = parse(path, is_train=True)
+    out = os.path.join(root, "dataloader_vis")
+    per = 2 * 2 * SHUFFLE_K
+    made = tool.make_otf_degradation
+
+    def marked(*args, **kwargs):
+        degrade = made(*args, **kwargs)
+
+        def run(batch):
+            _mark()
+            out = degrade(batch)
+            _mark()
+            return out
+        return run
+
+    tool.make_otf_degradation = marked
+    try:
+        t, got = _retried_trace(
+            lambda: tool.run(opt, P25_DL_BATCHES, out),
+            {"blur": per * P25_DL_BATCHES, "rdb5c": 0, "rdb5c_bwd": 0},
+            label="test_dataloader")
+    finally:
+        tool.make_otf_degradation = made
+    per_batch = [s["blur"] for s in t["segments"][1::2]]
+    files = sum(len(fs) for _, _, fs in os.walk(out))
+    want_files = sum(v.shape[0] for b in got for v in b.values())
+    print(f"dataloader: the port's test_dataloader on train_sr.yml, "
+          f"{P25_DL_BATCHES} batches of {tuple(got[0]['HR'].shape)} HR / "
+          f"{tuple(got[0]['LR'].shape)} LR on the card: blur launches per "
+          f"batch {per_batch} (the card ran {t['ran']}); {files} PNGs "
+          f"dumped ({smi})")
+    if per_batch != [per] * P25_DL_BATCHES or files != want_files:
+        raise AssertionError(f"dataloader: {per_batch}, {files} files of "
+                             f"{want_files}")
+    return {"test_dataloader": t}
+
+
+def phase_parallel_models(smi: str, root: str) -> dict:
+    """Phase 25: every model on the data axis (Queue A 9 d) and the user
+    tools (A 12) on the card: (a) each model's graphed step on a one-rank
+    NCCL group bit for bit against no group (``_p25_nccl_steps``; in a
+    whole run the checks of phases 20-23 make it, ``_GroupTwin``); (b)
+    CycleGAN's and PBR's two gloo ranks against one process, each with a
+    planted fault rejected (``_p25_two_gloo_ranks``); (c) the training CLI
+    on ``train_video.yml`` with ``parallel: {data: 1}`` for
+    ``SHORT_NITER`` steps, resumed to ``SHORT_RESUME`` without it, each
+    step's launches checked (phase 21's CLI run, ``_vsr_cli_on_a_group``);
+    (d) ``test_dataloader`` on the card (``_p25_dataloader``). Returns the
+    traces."""
+    import torch
+
+    t0 = time.perf_counter()
+    traces, parts = {}, []
+
+    def cli():
+        # phase 21's CLI run is this check where it ran; its traces count
+        # there
+        if P25_GROUP["cli"] is None:
+            traces.update({f"parallel models {k}": v for k, v in
+                           _vsr_cli_on_a_group(smi, root,
+                                               _vsr_data(root)).items()})
+        else:
+            print(f"parallel models: (c) phase 21's video CLI ran with "
+                  f"parallel: {{data: 1}} and resumed without it: "
+                  f"{ {k: v['ran'] for k, v in P25_GROUP['cli'].items()} }")
+
+    for part in (lambda: traces.update(_p25_nccl_steps(smi, root)),
+                 lambda: _p25_two_gloo_ranks(smi, root), cli,
+                 lambda: traces.update(_p25_dataloader(smi, root))):
+        t1 = time.perf_counter()
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
+        part()
+        parts.append(f"{time.perf_counter() - t1:.1f}")
+    ran = {k: sum(t["ran"][k] for t in traces.values())
+           for k in ("rdb5c", "rdb5c_bwd", "blur")}
+    print(f"parallel models: kernels {json.dumps(ran)} (launches the card "
+          f"ran in phase 25's traces)")
+    print(f"parallel models: ok in {time.perf_counter() - t0:.1f} s (NCCL "
+          f"steps, gloo ranks, video CLI, test_dataloader: "
+          f"{', '.join(parts)} s) ({smi})")
+    return traces
+
+
 def _later_phases(smi: str, root: str, which: tuple) -> dict:
     """Phases 18 (``phase_producer_rest``), 19 (``phase_models``), 20
     (``phase_i2i``), 21 (``phase_video``), 22 (``phase_srflow``), 23
-    (``phase_zoo_rest``) and 24 (``phase_parallel``) of ``which``, TF32
-    off before each; returns their traces."""
+    (``phase_zoo_rest``), 24 (``phase_parallel``) and 25
+    (``phase_parallel_models``) of ``which``, TF32 off before each;
+    returns their traces."""
     import torch
 
     phases = {18: phase_producer_rest, 19: phase_models, 20: phase_i2i,
               21: phase_video, 22: phase_srflow, 23: phase_zoo_rest,
-              24: phase_parallel}
+              24: phase_parallel, 25: phase_parallel_models}
     traces = {}
     for n in which:
         torch.backends.cudnn.allow_tf32 = False
         torch.backends.cuda.matmul.allow_tf32 = False
-        traces.update(phases[n](smi, root))
+        # phase 25 (a) rides on phases 20-23's graphed checks
+        with _p25_group() if 25 in which and 20 <= n <= 23 else \
+                contextlib.nullcontext():
+            traces.update(phases[n](smi, root))
     return traces
 
 
@@ -9615,7 +10285,7 @@ def main(argv=None) -> int:
                         "git archive) whose blur kernel is timed beside "
                         "this one's")
     parser.add_argument("--only", default="",
-                        help="comma-separated phases among 18 to 24: "
+                        help="comma-separated phases among 18 to 25: "
                         "build the kernels, write the corpus and run those "
                         "alone (no result line)")
     # one rank of phase 24 (b), started by the phase itself
@@ -9623,10 +10293,17 @@ def main(argv=None) -> int:
                         help=argparse.SUPPRESS)
     parser.add_argument("--par-store", default="", help=argparse.SUPPRESS)
     parser.add_argument("--par-out", default="", help=argparse.SUPPRESS)
+    # one rank of phase 25 (b) with these two
+    parser.add_argument("--par-phase", type=int, default=24,
+                        help=argparse.SUPPRESS)
+    parser.add_argument("--par-root", default="", help=argparse.SUPPRESS)
     flags = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 1
+    if flags.par_rank >= 0 and flags.par_phase == 25:
+        return _p25_rank(flags.par_store, flags.par_rank, flags.par_out,
+                         flags.par_root)
     if flags.par_rank >= 0:
         return _par_rank(flags.par_store, flags.par_rank, flags.par_out)
     from trainner_tpu_torch.ops import _build, rdb5c
@@ -9686,7 +10363,11 @@ def main(argv=None) -> int:
         phase_g_gradient(smi)
         producer = phase_producer(smi, root)
         phase_shuffle(smi, root)
-        cli_counts = phase_cli(smi, root, save_breakdown=True)
+        # on a one-rank group, resumed without: phase 24 (c) too
+        cli_counts = phase_cli(smi, root, save_breakdown=True,
+                               edit=_par_data_edit,
+                               resume_edit=_par_drop_edit)
+        P24_CLI.update(cli_counts)
         phase_graphs(smi, root)
         cli_counts.update(phase_realesrgan(smi, root))
         torch.backends.cudnn.allow_tf32 = False
@@ -9701,7 +10382,7 @@ def main(argv=None) -> int:
         cli_counts.update(phase_losses(smi, root))
         cli_counts.update(phase_trainer_options(smi, root))
         cli_counts.update(_later_phases(smi, root,
-                                        (18, 19, 20, 21, 22, 23, 24)))
+                                        (18, 19, 20, 21, 22, 23, 24, 25)))
         rows = phase_times(smi, root)
         blur_rows = phase_blur_times(smi, flags.parent)
         phase_trace(smi, root, {k: r["step_ms"] for k, r in train.items()})

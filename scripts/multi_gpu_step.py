@@ -4,6 +4,7 @@ D-VGG-128; pixel, VGG19 feature and relativistic GAN losses; bf16,
 CUDA graphs) with every rank on its slice of a global batch of 32.
 
     torchrun --nproc_per_node N scripts/multi_gpu_step.py [--fsdp M]
+        [--model sr|cyclegan|wbc|pbr|vsr|srflow]
 
 Each rank takes the card of ``LOCAL_RANK``, joins an NCCL group and the
 ``(data: N / M, fsdp: M)`` mesh of ``trainner_tpu_torch.parallel``, and
@@ -15,7 +16,12 @@ step's ms per card (graph replays, host clock around synchronised runs),
 and rank 0's step at the whole batch on its card with no group, timed in
 the same call. Rank 0
 prints one JSON line. ``--cpu --debug`` runs the debug widths over gloo
-on the CPU, eagerly, to try it without a card.
+on the CPU, eagerly, to try it without a card. ``--model`` takes another
+model's template at its full width in place of the flagship (its
+options file, ``MODEL_TEMPLATES``; the global batch ``MODEL_BATCH``):
+CycleGAN (both Gs and Ds, the pools, whose stored images join the
+check), WBC, PBR (four maps), the video model (SOF-VSR) or SRFlow (f32,
+the encoder unfrozen half way through the steps).
 
     python scripts/multi_gpu_step.py --bands
 
@@ -52,6 +58,22 @@ from trainner_tpu_torch.train.sr_trainer import create_trainer  # noqa: E402
 
 BATCH, LR_PX = 32, 32
 BAND_PX, BAND_HALO = 512, 32
+OPTIONS = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
+    __file__))), "options")
+# --model: each model's template and its global batch (divisible by 4)
+MODEL_TEMPLATES = {"cyclegan": "i2i/train_cyclegan.yml",
+                   "wbc": "i2i/train_wbc.yml", "pbr": "sr/train_sr.yml",
+                   "vsr": "video/train_video.yml",
+                   "srflow": "srflow/train_srflow.yml"}
+MODEL_BATCH = {"cyclegan": 4, "wbc": 16, "pbr": 8, "vsr": 8, "srflow": 16}
+# and at --debug the narrow widths that try it on the CPU
+DEBUG_G = {"cyclegan": {"ngf": 8, "n_blocks": 1},
+           "wbc": {"nf": 8},
+           "pbr": {"nf": 8, "nb": 1, "gc": 4},
+           "vsr": {"channels": 8, "sr_nf": 8, "sr_nb": 1},
+           "srflow": {"nf": 8, "nb": 2, "gc": 4, "K": 2,
+                      "flow": {"L": 3, "hidden_channels": 8}}}
+PBR_MAPS = (("diffuse", 3), ("normal", 3), ("roughness", 1), ("height", 1))
 
 
 def options(debug: bool) -> dict:
@@ -69,6 +91,65 @@ def options(debug: bool) -> dict:
                       "lr_steps": [50000]}}
 
 
+def model_options(model: str, debug: bool, steps: int) -> dict:
+    """``--model``'s template (``MODEL_TEMPLATES``) as written, parsed by
+    the port, its global batch ``MODEL_BATCH``; PBR is ``train_sr.yml``
+    made a PBR run (``model: pbr``, no D, b 8, crop 128); SRFlow's
+    encoder unfreezes after half of ``steps``; ``debug`` narrows G (and
+    the Ds) to ``DEBUG_G``."""
+    from trainner_tpu_torch.options.config import parse_dict, read_yaml
+
+    opt = read_yaml(os.path.join(OPTIONS, MODEL_TEMPLATES[model]))
+    opt["datasets"] = {"train": opt["datasets"]["train"]}
+    opt["datasets"]["train"]["batch_size"] = MODEL_BATCH[model]
+    if model == "pbr":
+        opt["model"] = "pbr"
+        opt.pop("network_D", None)
+        opt["datasets"]["train"].update(mode="pbr", crop_size=128)
+    if model == "srflow":
+        opt["train"].update(niter=steps, train_RRDB_delay=0.5)
+    opt["path"] = {"root": "/nonexistent"}
+    if debug:
+        opt["network_G"].update(DEBUG_G[model])
+        if "network_D" in opt:
+            opt["network_D"].update(ndf=8)
+        opt["datasets"]["train"]["crop_size"] = 32
+    return dict(parse_dict(opt, is_train=True))
+
+
+def model_batch(model: str, step: int, device, debug: bool) -> dict:
+    """A global batch of ``--model`` from a seed: the images at the
+    template's crop (32 px at ``debug``), 4x LRs for the sr models."""
+    gen = torch.Generator().manual_seed(1000 + step)
+    b = MODEL_BATCH[model]
+    px = 32 if debug else {"cyclegan": 256, "wbc": 256, "pbr": 128,
+                           "vsr": 128, "srflow": 160}[model]
+
+    def rand(*shape):
+        return torch.rand(b, *shape, generator=gen)
+
+    if model == "cyclegan":
+        out = {k: rand(px, px, 3) * 2 - 1 for k in "AB"}
+    elif model == "wbc":
+        out = {k: rand(px, px, 3) for k in "AB"}
+    elif model == "pbr":
+        out = {}
+        for name, nc in PBR_MAPS:
+            out[f"HR_{name}"] = rand(px, px, nc)
+            out[f"LR_{name}"] = out[f"HR_{name}"].reshape(
+                b, px // 4, 4, px // 4, 4, nc).mean((2, 4))
+        out["LR"], out["HR"] = out["LR_diffuse"], out["HR_diffuse"]
+    elif model == "vsr":
+        hr = rand(3, px, px, 3)
+        out = {"HR": hr, "LR": hr.reshape(b, 3, px // 4, 4, px // 4, 4,
+                                          3).mean((3, 5))}
+    else:
+        hr = rand(px, px, 3)
+        out = {"HR": hr, "LR": hr.reshape(b, px // 4, 4, px // 4, 4,
+                                          3).mean((2, 4))}
+    return {k: v.to(device) for k, v in out.items()}
+
+
 def batch(step: int, device) -> dict:
     gen = torch.Generator().manual_seed(1000 + step)
     return {"LR": torch.rand(BATCH, LR_PX, LR_PX, 3, generator=gen
@@ -77,20 +158,31 @@ def batch(step: int, device) -> dict:
                              ).to(device)}
 
 
-def state_digest(state) -> torch.Tensor:
-    """Each tensor of the nets and the optimizers as (f64 sum, f64 sum of
-    squares), in a fixed order."""
+def state_digest(state, trainer=None) -> torch.Tensor:
+    """Each tensor of the nets and the optimizers (of every net a state
+    holds: G, D, CycleGAN's and WBC's Ds) and of the trainer's image
+    pools as (f64 sum, f64 sum of squares), in a fixed order."""
     out = []
-    for which in ("g", "d"):
-        ns = getattr(state, which)
+
+    def add(t):
+        out.append(t.double().sum())
+        out.append(t.double().square().sum())
+
+    for which in M.net_fields(state):
+        ns = getattr(state, which, None)
+        if ns is None:
+            continue
         for t in list(ns.net.state_dict().values()):
-            out.append(t.double().sum())
-            out.append(t.double().square().sum())
+            add(t)
         for key, vals in ns.opt.state_dict().items():
             if isinstance(vals, list):
                 for t in vals:
-                    out.append(t.double().sum())
-                    out.append(t.double().square().sum())
+                    add(t)
+    for name in ("fake_a_pool", "fake_b_pool", "fake_s_pool",
+                 "fake_t_pool"):
+        pool = getattr(trainer, name, None)
+        if pool is not None and pool.images is not None:
+            add(pool.images[:pool.count])
     return torch.stack(out)
 
 
@@ -201,6 +293,8 @@ def main(argv=None) -> int:
     p.add_argument("--cpu", action="store_true")
     p.add_argument("--debug", action="store_true")
     p.add_argument("--bands", action="store_true")
+    p.add_argument("--model", default="sr",
+                   choices=["sr"] + sorted(MODEL_TEMPLATES))
     args = p.parse_args(argv)
     if args.bands:
         return bands(args)
@@ -214,34 +308,46 @@ def main(argv=None) -> int:
     mesh = M.make_mesh(M.MeshConfig(data=world // args.fsdp,
                                     fsdp=args.fsdp), device=device)
     graphs = device.type == "cuda"
-    opt = options(args.debug)
+    if args.model == "sr":
+        opt, n_batch = options(args.debug), BATCH
+
+        def make(i):
+            return batch(i, device)
+    else:
+        opt = model_options(args.model, args.debug, args.steps)
+        n_batch = MODEL_BATCH[args.model]
+
+        def make(i):
+            return model_batch(args.model, i, device, args.debug)
+    if args.cpu and args.model != "sr":
+        opt["use_amp"] = False
     trainer = create_trainer(opt, device=device, graphs=graphs, mesh=mesh)
     state = trainer.init_state(0)
-    globals_ = [batch(i, device) for i in range(args.steps)]
+    globals_ = [make(i) for i in range(args.steps)]
     t0 = time.perf_counter()
     for b in globals_:
         state, logs = trainer.train_step(state, M.shard_batch(b, mesh))
     if graphs:
         torch.cuda.synchronize(device)
     first_s = time.perf_counter() - t0
-    digest = state_digest(state)
+    digest = state_digest(state, trainer)
     every = [torch.zeros_like(digest) for _ in range(world)]
     dist.all_gather(every, digest)
     unequal = [r for r, d in enumerate(every) if not torch.equal(d, every[0])]
-    local = [M.shard_batch(batch(100 + i, device), mesh)
-             for i in range(args.timed)]
+    local = [M.shard_batch(make(100 + i), mesh) for i in range(args.timed)]
     ms_group = timed(trainer, state, local, device)
     logs = {k: float(v) for k, v in logs.items()}
     out = None
     if rank == 0:
         one = create_trainer(opt, device=device, graphs=graphs)
         ones = one.init_state(0)
-        ms_one = timed(one, ones, [batch(100 + i, device)
+        ms_one = timed(one, ones, [make(100 + i)
                                    for i in range(args.timed)], device)
         name = torch.cuda.get_device_name(device) if graphs else "cpu"
-        out = {"ranks": world, "mesh": mesh.shape, "backend": mesh.backend,
-               "device": name, "batch": BATCH,
-               "per_rank": BATCH // world, "steps": args.steps,
+        out = {"model": args.model, "ranks": world, "mesh": mesh.shape,
+               "backend": mesh.backend,
+               "device": name, "batch": n_batch,
+               "per_rank": n_batch // world, "steps": args.steps,
                "replicas_unequal": unequal, "tensors": digest.numel() // 2,
                "first_steps_s": round(first_s, 3),
                "ms_per_step_group": round(ms_group, 3),

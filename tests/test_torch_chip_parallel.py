@@ -86,7 +86,7 @@ def test_phase_24_is_among_the_later_phases():
 
     src = inspect.getsource(chip_smoke._later_phases)
     assert "24: phase_parallel" in src
-    assert "(18, 19, 20, 21, 22, 23, 24)" in inspect.getsource(
+    assert "(18, 19, 20, 21, 22, 23, 24, 25)" in inspect.getsource(
         chip_smoke.main)
     assert chip_smoke.PAR_SPLIT * 2 == chip_smoke.TRAIN_SHAPE[0]
     assert chip_smoke.BAND_PX // chip_smoke.N_BANDS >= chip_smoke.BAND_HALO
@@ -151,3 +151,84 @@ def test_the_two_rank_reading_holds_each_tensor_to_its_limit():
     assert abs(ratio - 1e-2 / 3e-3) < 1e-3 and abs(log_err - 1e-2) < 1e-9
     spread["g.conv_first.weight"] = 4e-3
     assert not chip_smoke._par_reading(run, st, logs, spread)[1]
+
+
+def test_phase_25_is_among_the_later_phases_and_rides_on_20_to_23():
+    """``--only 25`` reaches phase 25; its (a) runs as the twins of the
+    graphed-vs-eager checks of phases 20-23 while their group flag is on,
+    and its models are those checks' names."""
+    import inspect
+
+    src = inspect.getsource(chip_smoke._later_phases)
+    assert "25: phase_parallel_models" in src and "_p25_group()" in src
+    assert set(chip_smoke.P25_MODELS) == {
+        "cyclegan", "sftgan", "sofvsr", "srflow", "srflow_interop", "pbr",
+        "dvd", "wbc"}
+    assert not chip_smoke.P25_GROUP["on"]
+    with chip_smoke._p25_group():
+        assert chip_smoke.P25_GROUP["on"]
+    assert not chip_smoke.P25_GROUP["on"]
+    # off, a twin does nothing and holds no group
+    twin = chip_smoke._GroupTwin("pbr", {})
+    assert not twin.on and twin.group is None
+    twin.step(None, None, None, {}, 0.0)
+    twin.finish(None)
+    twin.close()
+
+
+def test_phase_25_faults_patch_the_step_and_are_put_back():
+    """Phase 25 (b)'s planted faults: CycleGAN's pools queried with the
+    local fakes alone (the trainer's ``_pooled`` overridden, then its own
+    again), PBR's latent draw made per rank (``blocks.sample_draw``
+    replaced by the plain draw, then put back)."""
+    from trainner_tpu_torch.ops import blocks
+    from trainner_tpu_torch.utils.image_pool import ImagePool
+
+    class Trainer:
+        def _pooled(self, pool, fakes):
+            raise AssertionError("the global query ran")
+
+    tr = Trainer()
+    pool = ImagePool(2)
+    fakes = torch.rand(3, 4, 4, 3)
+    with chip_smoke._p25_fault("cyclegan", tr):
+        out = tr._pooled(pool, fakes)
+    assert torch.equal(out[:2], fakes[:2]) and pool.count == 2
+    assert "_pooled" not in vars(tr)
+    kept = blocks.sample_draw
+    with chip_smoke._p25_fault("pbr", tr):
+        assert blocks.sample_draw is not kept
+        assert blocks.sample_draw(lambda n: torch.arange(n), 3).tolist() \
+            == [0, 1, 2]
+    assert blocks.sample_draw is kept
+
+
+def test_phase_25_errors_and_reading():
+    """``_p25_errors``: each gradient's largest difference over its own
+    size, a D bias that a norm follows over that D's largest gradient;
+    ``_p25_reading`` holds each to 3e-3 or 3x the reorders' move, and the
+    logs to 1e-3 relative."""
+    ref = {"g": {"w": torch.tensor([1.0, -2.0])},
+           "d_a": {"c.weight": torch.tensor([4.0, 1.0]),
+                   "c.bias": torch.tensor([1e-6, 0.0]),
+                   "c.norm.weight": torch.tensor([1.0])},
+           "logs": {"l": 2.0}}
+    got = {"g": {"w": torch.tensor([1.0, -2.002])},
+           "d_a": {"c.weight": torch.tensor([4.0, 1.0]),
+                   "c.bias": torch.tensor([2e-6, 0.0]),
+                   "c.norm.weight": torch.tensor([1.0])},
+           "logs": {"l": 2.001}}
+    errs = chip_smoke._p25_errors(got, ref)
+    assert abs(errs["g.w"] - 1e-3) < 1e-6
+    assert abs(errs["d_a.c.bias"] - 1e-6 / 4.0) < 1e-9
+    worst, over, ratio, log_err = chip_smoke._p25_reading(
+        got, ref, {k: 0.0 for k in errs})
+    assert not over and ratio < 1 and abs(log_err - 5e-4) < 1e-9
+    got["g"]["w"] = torch.tensor([1.0, -2.1])
+    worst, over, ratio, _ = chip_smoke._p25_reading(
+        got, ref, {k: 0.0 for k in errs})
+    assert "g.w" in over and ratio > 1
+    # a tensor the reorders move by 0.02 of its size may be off by 0.06
+    _, over, _, _ = chip_smoke._p25_reading(
+        got, ref, {**{k: 0.0 for k in errs}, "g.w": 0.02})
+    assert not over

@@ -81,7 +81,14 @@ def test_port_has_modules_to_scan():
             "trainner_tpu_torch.models.ppon",
             "trainner_tpu_torch.models.pan",
             "trainner_tpu_torch.train.ppon_trainer",
-            "trainner_tpu_torch.scripts.create_lmdb"} <= names
+            "trainner_tpu_torch.scripts.create_lmdb",
+            "trainner_tpu_torch.utils.pth_convert"} <= names
+    # the user tools (ROADMAP Queue A 12), each scanned and imported above
+    tools = ("net_interp", "dir_interp", "net_splice", "swa2normal",
+             "transfer_params", "convert_torch_model", "calculate_psnr_ssim",
+             "generate_mod_lr_bic", "extract_subimgs", "color2gray",
+             "back_projection", "lmdb2tpak", "test_dataloader")
+    assert {f"trainner_tpu_torch.scripts.{t}" for t in tools} <= names
 
 
 _GUARD = """

@@ -195,15 +195,21 @@ _SYNTH = "mode: synthetic\n    n_samples: 16"
     ((("model: sr", "model: pbr"),
       (_SYNTH, "mode: pbr\n    dataroot_HR: {mats}")), None),
     ((("scale: 4", "scale: 4\nparallel: {data: 1}"),
-      ("model: sr", "model: cyclegan")), "Queue A 9"),
+      ("model: sr", "model: cyclegan"),
+      ("type: rrdb_net\n  nf: 16\n  nb: 2\n  gc: 8",
+       "type: resnet_net\n  ngf: 8\n  n_blocks: 1"),
+      ("type: discriminator_vgg\n  size: 64\n  base_nf: 16",
+       "type: patchgan\n  ndf: 8\n  n_layers: 2"),
+      (_SYNTH, "mode: synthetic\n    kind: ab\n    n_samples: 16")), None),
 ])
 def test_what_the_cli_does_not_port_raises(edit, item, tmp_path):
-    """``parallel`` with a model whose step is not on the data axis yet
-    raises and names its item (A 9 d; ``parallel`` itself trains since
-    Queue A 9 a-c: ``test_torch_parallel.py``); ``model: dvd`` (its
-    synthetic kind, ``dvd_net``) and ``model: pbr`` (on seeded material
-    folders), once refused here (ROADMAP Queue A 10.6), run 2
-    iterations (both CLIs at length: ``test_torch_zoo_rest_cli.py``)."""
+    """What the CLI once refused now trains: ``parallel`` with CycleGAN
+    (a one-rank group; every model is on the data axis since Queue A 9 d,
+    the models' steps on two ranks in ``test_torch_parallel_models.py``),
+    ``model: dvd`` (its synthetic kind, ``dvd_net``) and ``model: pbr``
+    (on seeded material folders), once refused here (ROADMAP Queue A
+    10.6), each run 2 iterations (both CLIs at length:
+    ``test_torch_zoo_rest_cli.py``)."""
     from test_torch_pbr import write_materials
 
     mats = write_materials(str(tmp_path / "mats"), n=4, px=(64, 64))

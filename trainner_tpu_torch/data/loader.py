@@ -140,17 +140,21 @@ class WeightedMultiLoader:
     ``default_rng(seed + epoch)``, and carries that dataset's index as the
     integer ``dataset_index``. Each dataset has its own shuffled loader
     that drops its last short batch; an epoch ends when every loader is
-    spent (a draw of a spent one is skipped)."""
+    spent (a draw of a spent one is skipped). ``part``: this rank's slice
+    of each batch (``DataLoader``); every rank draws the same dataset for
+    a batch, so the ranks' parts put together are the one-process
+    batch."""
 
     def __init__(self, datasets: Sequence, weights: Sequence[float],
                  batch_size: int = 1, seed: int = 0, num_workers: int = 2,
-                 pin_memory: bool = False):
+                 pin_memory: bool = False, part: Optional[slice] = None):
         if len(datasets) != len(weights):
             raise ValueError(f"{len(datasets)} datasets and {len(weights)} "
                              "weights")
         self.loaders = [DataLoader(d, batch_size, shuffle=True, seed=seed,
                                    drop_last=True, num_workers=num_workers,
-                                   pin_memory=pin_memory) for d in datasets]
+                                   pin_memory=pin_memory, part=part)
+                        for d in datasets]
         w = np.asarray(weights, np.float64)
         self.probs = w / w.sum()
         self.seed = seed
@@ -253,13 +257,10 @@ def create_dataloader(dataset, dataset_opt: dict, pin_memory: bool = False,
     with ``sampler_weights`` (equal weights without them) and evaluates as
     one ``ConcatDataset``. The training CLI builds one dataset per phase,
     as the JAX one does: a list comes only from Python. ``part``: this
-    rank's slice of each train batch (``DataLoader``)."""
+    rank's slice of each train batch (``DataLoader``,
+    ``WeightedMultiLoader``)."""
     train = dataset_opt.get("phase", "train") == "train"
     if isinstance(dataset, (list, tuple)):
-        if train and part is not None:
-            raise NotImplementedError(
-                "a list of train datasets on a data axis: the weighted "
-                "loader reads whole batches (ROADMAP Queue A 9 d)")
         if train:
             weights = dataset_opt.get("sampler_weights") or \
                 [1.0] * len(dataset)
@@ -268,7 +269,7 @@ def create_dataloader(dataset, dataset_opt: dict, pin_memory: bool = False,
                 batch_size=int(dataset_opt.get("batch_size", 16) or 16),
                 seed=int(dataset_opt.get("seed", 0) or 0),
                 num_workers=int(dataset_opt.get("n_workers", 2) or 2),
-                pin_memory=pin_memory)
+                pin_memory=pin_memory, part=part)
         dataset = ConcatDataset(dataset)
     if train:
         return DataLoader(

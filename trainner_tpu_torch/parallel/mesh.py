@@ -209,8 +209,9 @@ def replicate(tensors: Iterable[torch.Tensor], mesh: Mesh) -> None:
 
 def replicate_state(state, mesh: Mesh) -> None:
     """A training state's nets (parameters and buffers) broadcast from
-    rank 0."""
-    nets = [getattr(state, w).net for w in ("g", "d", "loc")
+    rank 0: G, D, the LocNet and the Ds a model keeps in fields of its
+    own (``D_FIELDS``: CycleGAN's D_A and D_B, WBC's D_S and D_T)."""
+    nets = [getattr(state, w).net for w in net_fields(state)
             if getattr(state, w, None) is not None]
     nets += [m for m in (getattr(state, "ema", None),
                          getattr(state, "swa", None)) if m is not None]
@@ -354,8 +355,9 @@ class ShardedOptimizer:
                     self._part_of(p.grad, p, d)
         self.inner.step(lr)
         idx = self._sharded()
-        whole = self._whole([self.parts[i] for i in idx], idx)
-        torch._foreach_copy_([self.params[i].data for i in idx], whole)
+        if idx:  # a net of small leaves alone keeps every one whole
+            whole = self._whole([self.parts[i] for i in idx], idx)
+            torch._foreach_copy_([self.params[i].data for i in idx], whole)
 
     def _part_of(self, t: torch.Tensor, p: torch.Tensor, d: int
                  ) -> torch.Tensor:
@@ -383,12 +385,17 @@ class ShardedOptimizer:
         self.inner.load_state_dict(parts)
 
 
+def net_fields(state) -> Tuple[str, ...]:
+    """The fields of a training state that hold a ``NetState``."""
+    return ("g", "d", "loc") + tuple(getattr(state, "D_FIELDS", ()))
+
+
 def shard_optimizers(state, mesh: Mesh) -> None:
     """Each of the state's optimizers split over the fsdp axis
     (``ShardedOptimizer``); nothing with an fsdp axis of 1."""
     if mesh.fsdp <= 1:
         return
-    for which in ("g", "d", "loc"):
+    for which in net_fields(state):
         ns = getattr(state, which, None)
         if ns is not None and ns.opt is not None and \
                 not isinstance(ns.opt, ShardedOptimizer):

@@ -49,8 +49,8 @@ warns and runs on one device, the port raises: when the ranks do not
 tile ``data x fsdp``, or the batch does not divide over them (N
 processes each running alone would be N copies of one run; ROADMAP
 C 28). Without ``torchrun`` a ``parallel:`` run is a group of one rank
-in this process. ``tensor:`` above 1 raises (ROADMAP Queue A 9 e), as
-does a model whose step is not on the data axis (Queue A 9 d).
+in this process. Every model trains there; the one refusal left is
+``tensor:`` above 1 (ROADMAP Queue A 9 e).
 
 Usage: python -m trainner_tpu_torch.train -opt options/sr/train_sr.yml
        torchrun --nproc_per_node N -m trainner_tpu_torch.train -opt ...

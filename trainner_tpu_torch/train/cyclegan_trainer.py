@@ -23,6 +23,14 @@ stage's outputs are its logs and the two fake batches, the pools' swap
 runs on the device between the two replays, and the D stage's graph
 reads the pooled batches from its static inputs. ``graphs=False`` runs
 both stages eagerly. ``eval_step`` serves G_A.
+
+Under a mesh each stage runs on this rank's slice of the global batch:
+the Ds' batch norms see the global batch, each net's gradients are
+averaged before its clip (both Gs' under one optimizer, each D's on its
+own) and the logs are averaged; between the stages each rank gathers the
+fakes and queries its own copy of a pool with the global batch
+(``Trainer._pooled``), as the JAX pool sees the gathered array
+(``trainner_tpu/train/cyclegan_trainer.py:281-282``).
 """
 
 from __future__ import annotations
@@ -38,6 +46,7 @@ from ..losses.basic import get_pixel_criterion
 from ..losses.gan import build_adversarial
 from ..models.networks import define_D
 from ..ops.blocks import Dropout, commit_stats, discard_stats
+from ..parallel.collectives import average_grads, mean_logs
 from ..utils.image_pool import ImagePool
 from ..utils.torch_interop import key_to_seed, seed_to_key
 from .pix2pix_trainer import Pix2PixTrainer
@@ -85,8 +94,9 @@ class CycleGANTrainer(SRTrainer):
     """``model: cyclegan``."""
 
     def __init__(self, opt: dict, dtype: torch.dtype = torch.float32,
-                 device=None, graphs: Optional[bool] = None):
-        super().__init__(opt, dtype=dtype, device=device, graphs=graphs)
+                 device=None, graphs: Optional[bool] = None, mesh=None):
+        super().__init__(opt, dtype=dtype, device=device, graphs=graphs,
+                         mesh=mesh)
         self.scale = 1
         self.znorm = bool(((opt.get("datasets") or {}).get("train")
                            or {}).get("znorm", True))
@@ -154,6 +164,7 @@ class CycleGANTrainer(SRTrainer):
                 net = net.to(self.device)
                 setattr(state, which, NetState(net,
                                                self._optimizer(net, "D")))
+        self._place(state)
         return state
 
     def _g_stage(self, state: CycleGANState, batch: Dict[str, torch.Tensor],
@@ -198,10 +209,11 @@ class CycleGANTrainer(SRTrainer):
             loss = loss + l_gan_a + l_gan_b
         loss.backward()
         discard_stats(state.g.net)  # the other passes leave nothing
+        average_grads(state.g.opt.params)
         clip_grads(state.g.opt.params, self.grad_clip, self.grad_clip_value)
         state.g.opt.step(lr_g)
         logs["l_g_total"] = loss
-        out = {k: v.detach() for k, v in logs.items()}
+        out = mean_logs({k: v.detach() for k, v in logs.items()})
         out["fake_A"], out["fake_B"] = fake_a.detach(), fake_b.detach()
         return out
 
@@ -222,11 +234,12 @@ class CycleGANTrainer(SRTrainer):
                 generator=state.noise_generator)
             l_d = l_d * 0.5
             l_d.backward()
+            average_grads(ns.opt.params)
             clip_grads(ns.opt.params, self.grad_clip, self.grad_clip_value)
             net.commit_stats()
             ns.opt.step(lr_d)
             logs[f"l_d_{tag}"] = l_d.detach()
-        return logs
+        return mean_logs(logs)
 
     def _stage(self, which: str):
         fn = self._step_fns.get((which,))
@@ -235,6 +248,7 @@ class CycleGANTrainer(SRTrainer):
                 fn, keys = self._g_stage, ("A", "B")
             else:
                 fn, keys = self._d_stage, ("A", "B", "fake_A", "fake_B")
+            fn = self._in_mesh(fn)
             if self.graphs:
                 fn = _GraphedStep(self, fn, keys)
             self._step_fns[(which,)] = fn
@@ -254,8 +268,8 @@ class CycleGANTrainer(SRTrainer):
         fake_a, fake_b = logs.pop("fake_A"), logs.pop("fake_B")
         if self.use_gan:
             pooled = {"A": batch["A"], "B": batch["B"],
-                      "fake_A": self.fake_a_pool.query(fake_a),
-                      "fake_B": self.fake_b_pool.query(fake_b)}
+                      "fake_A": self._pooled(self.fake_a_pool, fake_a),
+                      "fake_B": self._pooled(self.fake_b_pool, fake_b)}
             logs.update(self._stage("d")(state, pooled, 0.0,
                                          self.schedD.get_lr(step)))
         state.step = step + 1

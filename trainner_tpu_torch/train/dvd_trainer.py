@@ -17,6 +17,12 @@ default) and ``lr_D`` (``lr_G``'s by default).
 On the card the step is one CUDA graph per batch signature
 (``graphs=False`` runs it eagerly); ``eval_step`` returns the top frame
 and ``eval_step_both`` both, one graph per input shape.
+
+Under a mesh each rank runs the step on its slice of the global batch:
+wgan-gp's alpha is drawn for the global batch and this rank keeps its
+rows (``sample_draw``), D's batch norms see the global batch, G's and
+D's gradients are averaged before their clips and the logs are
+averaged.
 """
 
 from __future__ import annotations
@@ -26,6 +32,7 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from ..ops.blocks import commit_stats, discard_stats
+from ..parallel.collectives import average_grads, mean_logs, sample_draw
 from .sr_trainer import Trainer, _GraphedStep, _no_param_grad, clip_grads
 from .state import SRTrainState
 
@@ -34,8 +41,9 @@ class DVDTrainer(Trainer):
     """``model: dvd``."""
 
     def __init__(self, opt: dict, dtype: torch.dtype = torch.float32,
-                 device=None, graphs: Optional[bool] = None):
-        super().__init__(opt, dtype=dtype, device=device, graphs=graphs)
+                 device=None, graphs: Optional[bool] = None, mesh=None):
+        super().__init__(opt, dtype=dtype, device=device, graphs=graphs,
+                         mesh=mesh)
         self.scale = 1
 
     def _dvd_step(self, state: SRTrainState, batch: Dict[str, torch.Tensor],
@@ -67,6 +75,7 @@ class DVDTrainer(Trainer):
             total = total + l_gan
         total.backward()
         commit_stats(netG)
+        average_grads(state.g.opt.params)
         clip_grads(state.g.opt.params, self.grad_clip, self.grad_clip_value)
         state.g.opt.step(lr_g)
         logs["l_g_total"] = total
@@ -76,9 +85,9 @@ class DVDTrainer(Trainer):
             state.d.opt.zero_grad()
             alpha = None
             if self.adversarial.uses_penalty:
-                alpha = torch.rand((top.shape[0], 1, 1, 1),
-                                   generator=state.noise_generator,
-                                   device=top.device)
+                alpha = sample_draw(lambda n: torch.rand(
+                    (n, 1, 1, 1), generator=state.noise_generator,
+                    device=top.device), top.shape[0])
             l_dt, dlogs = self.adversarial.discriminator_loss(
                 lambda v: netD(v, train=True), fake_t.detach(), top,
                 alpha=alpha)
@@ -87,13 +96,14 @@ class DVDTrainer(Trainer):
                 alpha=alpha)
             l_d = l_dt + l_db
             l_d.backward()
+            average_grads(state.d.opt.params)
             clip_grads(state.d.opt.params, self.grad_clip,
                        self.grad_clip_value)
             netD.commit_stats()  # the last (bottom real) pass's statistics
             state.d.opt.step(lr_d)
             logs.update(dlogs)
             logs["l_d_total"] = l_d
-        return {k: v.detach() for k, v in logs.items()}
+        return mean_logs({k: v.detach() for k, v in logs.items()})
 
     def train_step(self, state: SRTrainState, batch: Dict[str, torch.Tensor]
                    ) -> Tuple[SRTrainState, Dict[str, torch.Tensor]]:
@@ -106,7 +116,7 @@ class DVDTrainer(Trainer):
         step = state.step
         fn = self._step_fns.get(("dvd",))
         if fn is None:
-            fn = self._dvd_step
+            fn = self._in_mesh(self._dvd_step)
             if self.graphs:
                 fn = _GraphedStep(self, fn, ("in", "top", "bottom"))
             self._step_fns[("dvd",)] = fn

@@ -23,6 +23,11 @@ On the card the step is one CUDA graph per map-key set and batch
 signature, as the JAX package jits one step per ``map_keys``
 (``graphs=False`` runs it eagerly); ``eval_step`` serves G on the
 primary map (``LR``) as the ``sr`` trainer's does.
+
+Under a mesh each rank runs the step on its slice of the global batch:
+the one latent-noise draw is made for the global batch and this rank
+keeps its rows (``GaussianNoise`` draws through ``sample_draw``), G's
+gradients are averaged before the clip and the logs are averaged.
 """
 
 from __future__ import annotations
@@ -33,6 +38,7 @@ import torch
 
 from ..losses.generator_loss import GeneratorLoss
 from ..ops.blocks import GaussianNoise, commit_stats
+from ..parallel.collectives import average_grads, mean_logs
 from .sr_trainer import Trainer, _GraphedStep, clip_grads
 from .state import SRTrainState
 
@@ -41,8 +47,9 @@ class PBRTrainer(Trainer):
     """``model: pbr`` / ``sr_pbr`` / ``pbr_sr``."""
 
     def __init__(self, opt: dict, dtype: torch.dtype = torch.float32,
-                 device=None, graphs: Optional[bool] = None):
-        super().__init__(opt, dtype=dtype, device=device, graphs=graphs)
+                 device=None, graphs: Optional[bool] = None, mesh=None):
+        super().__init__(opt, dtype=dtype, device=device, graphs=graphs,
+                         mesh=mesh)
         self.use_gan = False
         self.adversarial = self.schedD = None
         if self.is_train:
@@ -86,10 +93,11 @@ class PBRTrainer(Trainer):
                 m.hold, m.held = False, None
         total.backward()
         commit_stats(netG)
+        average_grads(state.g.opt.params)
         clip_grads(state.g.opt.params, self.grad_clip, self.grad_clip_value)
         state.g.opt.step(lr_g)
         logs["l_g_total"] = total
-        return {k: v.detach() for k, v in logs.items()}
+        return mean_logs({k: v.detach() for k, v in logs.items()})
 
     def train_step(self, state: SRTrainState, batch: Dict[str, torch.Tensor]
                    ) -> Tuple[SRTrainState, Dict[str, torch.Tensor]]:
@@ -105,6 +113,7 @@ class PBRTrainer(Trainer):
         if fn is None:
             def fn(st, b, lr_g, lr_d, keys=keys):
                 return self._pbr_step(st, b, lr_g, lr_d, map_keys=keys)
+            fn = self._in_mesh(fn)
             if self.graphs:
                 fn = _GraphedStep(self, fn, tuple(
                     f"{side}_{k}" for k in keys for side in ("LR", "HR")))

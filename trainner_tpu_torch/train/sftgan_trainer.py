@@ -20,6 +20,11 @@ step. ``eval_step`` serves G with the given maps, or uniform 1/8 maps.
 On the card the step is one CUDA graph per batch signature (the batch's
 ``LR``, ``HR``, ``seg`` and, when it has one, ``category``);
 ``graphs=False`` runs it eagerly. ``eval_step`` runs eagerly.
+
+Under a mesh each rank runs the step on its slice of the global batch:
+the ACD D's batch norms see the global batch (D keeps its real pass's
+statistics), G's and D's gradients are averaged before their clips and
+the logs are averaged.
 """
 
 from __future__ import annotations
@@ -32,6 +37,7 @@ import torch.nn.functional as F
 from ..losses.gan import gan_loss
 from ..models.sft import ACDVGGBN96, SFTNet
 from ..ops.blocks import commit_stats, discard_stats
+from ..parallel.collectives import average_grads, mean_logs
 from .optimizers import build_optimizer, jax_view
 from .sr_trainer import SRTrainer, _GraphedStep, _no_param_grad, clip_grads
 from .state import SRTrainState
@@ -52,8 +58,9 @@ class SFTGANTrainer(SRTrainer):
     """``model: sftgan`` / ``sftgan_acd``."""
 
     def __init__(self, opt: dict, dtype: torch.dtype = torch.float32,
-                 device=None, graphs: Optional[bool] = None):
-        super().__init__(opt, dtype=dtype, device=device, graphs=graphs)
+                 device=None, graphs: Optional[bool] = None, mesh=None):
+        super().__init__(opt, dtype=dtype, device=device, graphs=graphs,
+                         mesh=mesh)
         cfg = opt.get("network_G") or {}
         self.nf = cfg.get("nf", 64)
         self.cond_nf = cfg.get("cond_nf", 32)
@@ -100,6 +107,7 @@ class SFTGANTrainer(SRTrainer):
             total = total + l_gan + l_cls
         total.backward()
         commit_stats(netG)
+        average_grads(state.g.opt.params)
         clip_grads(state.g.opt.params, self.grad_clip, self.grad_clip_value)
         state.g.opt.step(lr_g)
         logs.update(glogs)
@@ -117,13 +125,14 @@ class SFTGANTrainer(SRTrainer):
             l_cls = xent(cls_r, labels) + xent(cls_f, labels)
             l_d = (l_real + l_fake) * 0.5 + l_cls
             l_d.backward()
+            average_grads(state.d.opt.params)
             clip_grads(state.d.opt.params, self.grad_clip,
                        self.grad_clip_value)
             state.d.opt.step(lr_d)
             logs.update({"l_d_real": l_real, "l_d_fake": l_fake,
                          "l_d_cls": l_cls, "D_real": gan_r.mean(),
                          "D_fake": gan_f.mean(), "l_d_total": l_d})
-        return {k: v.detach() for k, v in logs.items()}
+        return mean_logs({k: v.detach() for k, v in logs.items()})
 
     def train_step(self, state: SRTrainState, batch: Dict[str, torch.Tensor]
                    ) -> Tuple[SRTrainState, Dict[str, torch.Tensor]]:
@@ -136,7 +145,7 @@ class SFTGANTrainer(SRTrainer):
         step = state.step
         fn = self._step_fns.get(("sft",))
         if fn is None:
-            fn = self._sft_step
+            fn = self._in_mesh(self._sft_step)
             if self.graphs:
                 fn = _GraphedStep(self, fn, ("LR", "HR", "seg", "category"))
             self._step_fns[("sft",)] = fn

@@ -68,9 +68,12 @@ what couples samples sees the global batch (batch norms, the relativistic
 GAN's means, the batch augmentations, a virtual batch's microbatches,
 per-sample draws) and the gradients are averaged over the group in the
 step (``average_grads``) before the clips and the optimizers read them;
-the logs are averaged too. The ``sr`` models, ``ppon`` and ``pix2pix``
-run it; ``eval_step_spatial`` serves an image in bands over a list of
-devices (``parallel/spatial.py``).
+the logs are averaged too. Every model runs it: the base ``Trainer``
+broadcasts the state's nets and splits its optimizers (``_place``), runs
+a step's program inside the mesh (``_in_mesh``) and queries an image
+pool with the global batch (``_pooled``); each model's step averages its
+nets' gradients and its logs. ``eval_step_spatial`` serves an image in
+bands over a list of devices (``parallel/spatial.py``).
 """
 
 from __future__ import annotations
@@ -110,8 +113,6 @@ from .state import (NetState, SRTrainState, ema_update, init_ema, init_swa,
 AGC_HISTORY = 256  # the auto clip's ring buffer of G's gradient norms
 VIDEO_MODELS = ("vsr", "vsrgan", "evsrgan", "video")
 PBR_MODELS = ("pbr", "sr_pbr", "pbr_sr")
-# the models whose step runs on a data axis (``mesh``)
-DATA_AXIS_MODELS = ("sr", "srgan", "srragan", "ppon", "pix2pix")
 
 
 @contextlib.contextmanager
@@ -212,6 +213,16 @@ class Trainer:
     The state (networks, optimizers, step) is made by ``init_state`` and
     updated in place by ``train_step``. The ``sr`` step's own options are
     read by ``SRTrainer`` alone; the code here sees them off.
+
+    Under a ``mesh`` the parts shared here are the mesh's plumbing: a
+    state's nets broadcast from rank 0 and its optimizers split over the
+    fsdp axis (``_place``, which a model's own ``init_state`` calls too),
+    a step's program run inside ``Mesh.active`` (``_in_mesh``, eager or
+    captured) and an image pool queried with the global batch
+    (``_pooled``). What is per model: averaging each net's gradients
+    before its clip (``average_grads``), averaging the logs
+    (``mean_logs``) and drawing per-sample randomness for the global batch
+    (``sample_draw``).
 
     ``graphs`` (default: on for ``cuda``, off for the CPU) runs the step
     and ``eval_step`` as CUDA graphs. The graphs hold the tensors of the
@@ -403,6 +414,17 @@ class Trainer:
             with mesh.active():
                 return fn(*args, **kwargs)
         return run
+
+    def _pooled(self, pool, fakes: torch.Tensor) -> torch.Tensor:
+        """``pool.query`` (``utils/image_pool.py``) on the global batch of
+        fakes, as the JAX pool sees the gathered sharded array: under a
+        mesh every rank gathers the fakes, queries its own copy of the
+        pool (each seeded 0, so every copy makes the same choices) and
+        keeps its rows. Runs between a step's graphs, eagerly."""
+        if self.mesh is None:
+            return pool.query(fakes)
+        with self.mesh.active():
+            return local_rows(pool.query(gather_batch(fakes)))
 
     def _to_device(self, x: torch.Tensor) -> torch.Tensor:
         return wire_to_f01(x.to(self.device, non_blocking=x.is_pinned()),
@@ -1183,17 +1205,9 @@ def create_trainer(opt: dict, device: Union[str, torch.device, None] = None,
     names the CPU, and raises when no card is present. ``graphs``
     (default: on for ``cuda``) runs the step and ``eval_step`` as CUDA
     graphs; ``False`` runs them eagerly, to compare the two. ``mesh``
-    (``parallel/mesh.py``) runs the step on a data (and fsdp) axis: the
-    ``sr`` models, ``ppon`` and ``pix2pix``; any other model raises
-    (ROADMAP Queue A 9 d)."""
+    (``parallel/mesh.py``) runs every model's step on a data (and fsdp)
+    axis."""
     model = (opt.get("model") or "sr").lower()
-    if mesh is not None and model not in DATA_AXIS_MODELS:
-        raise NotImplementedError(
-            f"model [{model}] on a data axis (parallel:) is not ported yet "
-            f"(ROADMAP Queue A 9 d): the port runs "
-            f"{', '.join(DATA_AXIS_MODELS)} there; the others couple their "
-            "samples in ways of their own (image pools, PBR's one latent "
-            "draw, video windows)")
     if model not in ("sr", "srgan", "srragan", "ppon", "sftgan",
                      "sftgan_acd", "pix2pix", "cyclegan", "srflow", "dvd",
                      "wbc") + PBR_MODELS + VIDEO_MODELS:
@@ -1221,6 +1235,4 @@ def create_trainer(opt: dict, device: Union[str, torch.device, None] = None,
         from .pbr_trainer import PBRTrainer as cls
     else:
         cls = SRTrainer
-    if mesh is not None:
-        return cls(opt, dtype=dtype, device=device, graphs=graphs, mesh=mesh)
-    return cls(opt, dtype=dtype, device=device, graphs=graphs)
+    return cls(opt, dtype=dtype, device=device, graphs=graphs, mesh=mesh)

@@ -25,6 +25,12 @@ draws from ``PRNGKey(0)``: every draw at one heat is the same image, on
 either package (their streams differ, so only heat 0 agrees between them;
 ROADMAP C 26). The draws are made outside the graph and copied into it,
 so a replay gives what the eager call gives.
+
+Under a mesh each rank runs the step on its slice of the global batch:
+the quantisation noise is drawn for the global batch and this rank keeps
+its rows (``sample_draw``), the gradients are averaged before the
+global-norm clip and the logs are averaged; the freeze counter starts
+from the state's step, which is the same on every rank.
 """
 
 from __future__ import annotations
@@ -35,6 +41,7 @@ from typing import Dict, List, Optional, Tuple
 import torch
 
 from ..models.networks import define_G
+from ..parallel.collectives import average_grads, mean_logs, sample_draw
 from ..utils.checkpoint import load_params
 from ..utils.torch_interop import key_to_seed, seed_to_key
 from .optimizers import build_optimizer, jax_view
@@ -47,11 +54,11 @@ class SRFlowTrainer(SRTrainer):
     """``model: srflow``."""
 
     def __init__(self, opt: dict, dtype: torch.dtype = torch.float32,
-                 device=None, graphs: Optional[bool] = None):
+                 device=None, graphs: Optional[bool] = None, mesh=None):
         # the sr trainer's losses and schedules read none of SRFlow's
         # options: its state and graph machinery are what this one shares
         super().__init__({**opt, "train": {}}, dtype=torch.float32,
-                         device=device, graphs=graphs)
+                         device=device, graphs=graphs, mesh=mesh)
         train_opt = opt.get("train") or {}
         self.opt, self.train_opt = opt, train_opt
         self.generator_loss = None
@@ -90,8 +97,10 @@ class SRFlowTrainer(SRTrainer):
         rng = seed_to_key(seed + 2)
         noise = torch.Generator(device=self.device).manual_seed(
             key_to_seed(rng))
-        return SRTrainState(step=0, g=NetState(netG, opt),
-                            noise_generator=noise, rng=rng)
+        state = SRTrainState(step=0, g=NetState(netG, opt),
+                             noise_generator=noise, rng=rng)
+        self._place(state)
+        return state
 
     # ------------------------------------------------------------------
     # train step
@@ -115,7 +124,9 @@ class SRFlowTrainer(SRTrainer):
         netG = state.g.net.train()
         netG.train_encoder = train_rrdb
         state.g.opt.zero_grad()
-        noise = self._draws(state, {"noise": tuple(hr_img.shape)})["noise"]
+        rest = tuple(hr_img.shape[1:])
+        noise = sample_draw(lambda n: self._draws(
+            state, {"noise": (n, *rest)})["noise"], hr_img.shape[0])
         _, nll, _ = netG(gt=hr_img, lr=lr_img, noise=noise)
         nll = nll.mean()
         loss = self.fl_weight * nll
@@ -123,9 +134,10 @@ class SRFlowTrainer(SRTrainer):
         for p in state.g.opt.params:
             if p.grad is None:  # the frozen encoder, the unread head
                 p.grad = torch.zeros_like(p)
+        average_grads(state.g.opt.params)
         clip_grads(state.g.opt.params, self.grad_clip, self.grad_clip_value)
         state.g.opt.step(lr_g)
-        return {"nll": nll.detach(), "l_g_total": loss.detach()}
+        return mean_logs({"nll": nll.detach(), "l_g_total": loss.detach()})
 
     def train_step(self, state: SRTrainState, batch: Dict[str, torch.Tensor]
                    ) -> Tuple[SRTrainState, Dict[str, torch.Tensor]]:
@@ -143,7 +155,8 @@ class SRFlowTrainer(SRTrainer):
         train_rrdb = step >= self.rrdb_unfreeze_iter
         fn = self._step_fns.get(("flow", train_rrdb))
         if fn is None:
-            fn = functools.partial(self._flow_step, train_rrdb=train_rrdb)
+            fn = self._in_mesh(functools.partial(self._flow_step,
+                                                 train_rrdb=train_rrdb))
             if self.graphs:
                 fn = _GraphedStep(self, fn)
             self._step_fns[("flow", train_rrdb)] = fn

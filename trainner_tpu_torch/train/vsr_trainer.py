@@ -27,6 +27,13 @@ frame (a graph per input shape, as the ``sr`` trainer's);
 until each has at most 128² pixels. The traps of this slice (atomics in
 backward passes, the latent noise, the antialiased half-size resize,
 the tail options ``_build_sofvsr`` fixes) are ROADMAP C 25.
+
+Under a mesh each rank runs the step on its slice of the global batch:
+what couples samples (D's and RIFE's batch norms, the latent noise,
+wgan-gp's alpha) sees the global batch through ``ops/blocks.py`` and
+``losses/gan.py``, the flows, warps and OFR terms are per sample, G's
+and D's gradients are averaged before their clips and the logs are
+averaged.
 """
 
 from __future__ import annotations
@@ -38,6 +45,7 @@ import torch
 from ..ops.blocks import commit_stats, discard_stats
 from ..ops.imresize import jax_resize
 from ..ops.warp import flow_warp_vsr
+from ..parallel.collectives import average_grads, mean_logs
 from .sr_trainer import SRTrainer, _GraphedStep, _no_param_grad, clip_grads
 from .state import SRTrainState
 
@@ -65,8 +73,9 @@ class VSRTrainer(SRTrainer):
     """``model: vsr`` / ``vsrgan`` / ``evsrgan`` / ``video``."""
 
     def __init__(self, opt: dict, dtype: torch.dtype = torch.float32,
-                 device=None, graphs: Optional[bool] = None):
-        super().__init__(opt, dtype=dtype, device=device, graphs=graphs)
+                 device=None, graphs: Optional[bool] = None, mesh=None):
+        super().__init__(opt, dtype=dtype, device=device, graphs=graphs,
+                         mesh=mesh)
         # the JAX trainer reads none of the sr trainer's other options
         self.use_ema = self.use_swa = self.use_atg = False
         self.batchaug, self.dapolicy = None, ""
@@ -134,6 +143,7 @@ class VSRTrainer(SRTrainer):
             total = total + l_g_gan
         total.backward()
         commit_stats(netG)
+        average_grads(state.g.opt.params)
         clip_grads(state.g.opt.params, self.grad_clip, self.grad_clip_value)
         state.g.opt.step(lr_g)
         logs.update(glogs)
@@ -146,13 +156,14 @@ class VSRTrainer(SRTrainer):
                 lambda x: netD(x, train=True), sr.detach(), hr_center,
                 generator=state.noise_generator)
             l_d.backward()
+            average_grads(state.d.opt.params)
             clip_grads(state.d.opt.params, self.grad_clip,
                        self.grad_clip_value)
             netD.commit_stats()  # the last (real) pass's statistics
             state.d.opt.step(lr_d)
             logs.update(dlogs)
             logs["l_d_total"] = l_d
-        return {k: v.detach() for k, v in logs.items()}
+        return mean_logs({k: v.detach() for k, v in logs.items()})
 
     def train_step(self, state: SRTrainState, batch: Dict[str, torch.Tensor]
                    ) -> Tuple[SRTrainState, Dict[str, torch.Tensor]]:
@@ -165,7 +176,7 @@ class VSRTrainer(SRTrainer):
         step = state.step
         fn = self._step_fns.get(("vsr",))
         if fn is None:
-            fn = self._vsr_step
+            fn = self._in_mesh(self._vsr_step)
             if self.graphs:
                 fn = _GraphedStep(self, fn)
             self._step_fns[("vsr",)] = fn

@@ -35,7 +35,8 @@ The grey weights and the gammas come from the state's generator
 (``_draws``, or ``draw_hook``). On the card each stage is one CUDA graph
 per batch signature (``_GraphedStep``): the G stage returns its logs and
 the four representations the Ds read, the pools' swap runs on the device
-between the two replays, as in ``cyclegan_trainer.py``. ``sp_exact: true``
+between the two replays, as in ``cyclegan_trainer.py``, on the global
+batch under a mesh (``Trainer._pooled``). ``sp_exact: true``
 takes the host's exact superpixels (``data/host_superpixels.py::
 superpixels``, ``sp_algo``, ``sp_kind``, ``sp_reduction``,
 ``sp_max_size``) on the clipped fake_B and the same gamma: the batch goes
@@ -43,6 +44,13 @@ to the host and back inside the step, as the JAX step's
 ``pure_callback`` does, which a CUDA graph cannot hold, so that G stage
 runs eagerly on the card (its D stage is still a graph). ``eval_step``
 serves G and the guided filter.
+
+Under a mesh each rank runs the stages on its slice of the global batch:
+the gammas are drawn for the global batch and each rank keeps its rows,
+the grey weights are one draw that every rank's generator gives alike,
+SLIC (or the host's superpixels) runs on the local rows, the gradients
+of G, D_S and D_T are averaged before their clips and the logs are
+averaged.
 """
 
 from __future__ import annotations
@@ -59,6 +67,8 @@ from ..ops.blocks import commit_stats, discard_stats
 from ..ops.colors import color_shift, draw_color_shift
 from ..ops.filters import guided_filter
 from ..ops.superpixel import draw_superpixel_structure, superpixel_structure
+from ..parallel.collectives import (average_grads, batch_world, local_rows,
+                                    mean_logs)
 from ..utils.checkpoint import load_params
 from ..utils.image_pool import ImagePool
 from ..utils.torch_interop import key_to_seed, seed_to_key
@@ -112,8 +122,9 @@ class WBCTrainer(Trainer):
     """``model: wbc``."""
 
     def __init__(self, opt: dict, dtype: torch.dtype = torch.float32,
-                 device=None, graphs: Optional[bool] = None):
-        super().__init__(opt, dtype=dtype, device=device, graphs=graphs)
+                 device=None, graphs: Optional[bool] = None, mesh=None):
+        super().__init__(opt, dtype=dtype, device=device, graphs=graphs,
+                         mesh=mesh)
         self.scale = 1
         self.znorm = bool(((opt.get("datasets") or {}).get("train")
                            or {}).get("znorm", True))
@@ -190,17 +201,24 @@ class WBCTrainer(Trainer):
                 net = net.to(self.device)
                 setattr(state, which, NetState(net,
                                                self._optimizer(net, "D")))
+        self._place(state)
         return state
 
     def _draws(self, state: WBCState, shapes: dict) -> dict:
         """The G stage's draws: the grey projection's three weights
         (``cs``) and each sample's gamma of the structure (``gamma``, b x 1
-        x 1 x 1), from ``state.noise_generator`` (or ``draw_hook``)."""
+        x 1 x 1), from ``state.noise_generator`` (or ``draw_hook``). Under
+        a mesh both are drawn for the global batch (``shapes["b"]`` times
+        the ranks) and this rank keeps its gammas."""
+        glob = {"b": shapes["b"] * batch_world()}
         if self.draw_hook is not None:
-            return self.draw_hook(shapes)
-        gen = state.noise_generator
-        return {"cs": draw_color_shift(gen),
-                "gamma": draw_superpixel_structure(gen, shapes["b"])}
+            draws = dict(self.draw_hook(glob))
+        else:
+            gen = state.noise_generator
+            draws = {"cs": draw_color_shift(gen),
+                     "gamma": draw_superpixel_structure(gen, glob["b"])}
+        draws["gamma"] = local_rows(draws["gamma"])
+        return draws
 
     def _host_superpixels(self, images: torch.Tensor) -> torch.Tensor:
         """``sp_exact``: each image's exact superpixels on the host (the
@@ -299,10 +317,11 @@ class WBCTrainer(Trainer):
         if self.use_gan:
             discard_stats(state.d_s.net)  # the G stage's passes leave
             discard_stats(state.d_t.net)  # nothing
+        average_grads(state.g.opt.params)
         clip_grads(state.g.opt.params, self.grad_clip, self.grad_clip_value)
         state.g.opt.step(lr_g)
         logs["l_g_total"] = total
-        out = {k: v.detach() for k, v in logs.items()}
+        out = mean_logs({k: v.detach() for k, v in logs.items()})
         out.update(fake_blur=fake_blur.detach(), fake_gray=fake_gray.detach(),
                    real_blur=real_blur.detach(), real_gray=real_gray.detach())
         return out
@@ -321,11 +340,12 @@ class WBCTrainer(Trainer):
                 lambda x, n=net: n(x, train=True), fake, real,
                 generator=state.noise_generator)
             l_d.backward()
+            average_grads(ns.opt.params)
             clip_grads(ns.opt.params, self.grad_clip, self.grad_clip_value)
             net.commit_stats()  # its real pass's statistics
             ns.opt.step(lr_d)
             logs[f"l_d_{tag}"] = l_d.detach()
-        return logs
+        return mean_logs(logs)
 
     def _stage(self, which: str):
         fn = self._step_fns.get((which,))
@@ -335,6 +355,7 @@ class WBCTrainer(Trainer):
             else:
                 fn, keys = self._d_stage, ("fake_blur", "fake_gray",
                                            "real_blur", "real_gray")
+            fn = self._in_mesh(fn)
             # sp_exact's host round trip cannot be captured: eager G stage
             if self.graphs and not (which == "g" and self.sp_exact):
                 fn = _GraphedStep(self, fn, keys)
@@ -355,8 +376,10 @@ class WBCTrainer(Trainer):
                                         "real_blur", "real_gray")}
         logs = out
         if self.use_gan:
-            reps["fake_blur"] = self.fake_s_pool.query(reps["fake_blur"])
-            reps["fake_gray"] = self.fake_t_pool.query(reps["fake_gray"])
+            reps["fake_blur"] = self._pooled(self.fake_s_pool,
+                                             reps["fake_blur"])
+            reps["fake_gray"] = self._pooled(self.fake_t_pool,
+                                             reps["fake_gray"])
             logs.update(self._stage("d")(state, reps, 0.0,
                                          self.schedD.get_lr(step)))
         state.step = step + 1

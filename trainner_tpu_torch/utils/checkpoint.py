@@ -165,6 +165,27 @@ def _has_chunks(node: Any) -> bool:
     return False
 
 
+def load_tree(path: str) -> Any:
+    """A ``.ckpt`` or ``.state`` file -> its tree of nested dicts and
+    numpy leaves, as the JAX ``load_params`` without a template gives
+    it."""
+    with open(path, "rb") as f:
+        return msgpack_restore(f.read())
+
+
+def tree_map(fn, tree: Any, *rest: Any) -> Any:
+    """``fn`` over the leaves of ``tree`` (and the matching leaves of
+    ``rest``), the dicts' keys in sorted order, as ``jax.tree.map``
+    visits a tree of dicts; returns the tree of results."""
+    if isinstance(tree, dict):
+        for r in rest:
+            if not isinstance(r, dict) or set(r) != set(tree):
+                raise ValueError("the trees differ in structure")
+        return {k: tree_map(fn, tree[k], *(r[k] for r in rest))
+                for k in sorted(tree)}
+    return fn(tree, *rest)
+
+
 def load_params(path: str, net: Optional[torch.nn.Module] = None
                 ) -> Dict[str, torch.Tensor]:
     """One generator's weights -> the state_dict of the port's ``net``
