@@ -30,7 +30,14 @@ non-zero exit code and no result line:
    2x producer (32, 64, 64, 3) and at the shuffled
    program's two q-slices, at k 3 and 7 on the HR
    canvas, at ragged shapes with asymmetric kernels, k/2 close to h and a k
-   past the instantiated ones, and an identity kernel bit for bit;
+   past the instantiated ones, and an identity kernel bit for bit; the
+   tensor axis's kernels (``phase_split_kernels``, ``SPLIT_CASES``): the
+   block split by output column over 2 and 4 ranks in lock step (conv5 of
+   the flagship; conv2-5 of a gc 64 block), each column-range stage
+   against its plain version and against the unsplit kernel (bit for
+   bit, predicted), each rank's split backward against its plain version
+   and the ranks' parts joined against the unsplit backward, f32 and
+   bf16, with their times;
 4. serving slice: ``python -m trainner_tpu_torch.test`` at the full width
    of the ESRGAN generator (nf 64, nb 23, gc 32, 4x) on a synthetic test
    set, in f32 and with ``use_amp``, then in f32 with ``x8`` and with
@@ -278,10 +285,14 @@ non-zero exit code and no result line:
    full width: the flagship's graphed bf16 step (b 32) on a one-rank NCCL
    group bit for bit against the same step with no group, its
    all-reduces captured; two gloo processes on the card, 16 + 16 of the
-   batch, their averaged f32 gradients against one process's; the
-   training CLI on ``train_sr.yml`` with ``parallel: {data: 1}`` (6
-   iterations) resumed to 8 without it; the flagship G in f32 on a 512 x
-   512 LR image in 4 bands (69 blocks a band) against the whole image.
+   batch, their averaged f32 gradients against one process's, then the
+   two on ``tensor: 2`` (each on the whole batch, conv5 of the 69 blocks
+   on the column-range stages and the split backward, D-VGG's ten large
+   leaves by column, a launch trace), each run also with planted faults
+   that the check must reject; the training CLI on ``train_sr.yml`` with
+   ``parallel: {data: 1}`` (6 iterations) resumed to 8 without it; the
+   flagship G in f32 on a 512 x 512 LR image in 4 bands (69 blocks a
+   band) against the whole image.
 
 The launch traces of the serving slice, of phase 14's serving, of every
 training CLI and of phases 21 to 23 run their body again when the
@@ -632,21 +643,26 @@ TRACE_ATTEMPTS = 3
 
 
 def _retried_trace(body, want: dict, fresh: bool = True, label: str = "",
-                   trace=None):
+                   trace=None, setup=None):
     """``body()`` under ``_launch_trace(want, fresh, label)``; when the
     trace comes up short (``ShortTrace``: the profiler lost records), the
     body runs again in a fresh session, up to ``TRACE_ATTEMPTS`` times in
     all, and then the run fails. Every attempt's wrappers must count what
     the first one's did, or it fails at once; so must a trace over
-    ``want``. ``trace`` (a stub in the tests) stands for
-    ``_launch_trace``. Returns (the trace, what the body returned)."""
+    ``want``. ``setup`` (for a body that advances a state, such as a
+    trainer's steps with their graph captures) runs before each attempt,
+    outside its session, given the attempt's number from 1: it returns
+    what the body starts from, and the body is called with that. ``trace``
+    (a stub in the tests) stands for ``_launch_trace``. Returns (the
+    trace, what the body returned)."""
     trace = trace or _launch_trace
     first = None
     for attempt in range(1, TRACE_ATTEMPTS + 1):
         t = {}
+        start = setup(attempt) if setup else None
         try:
             with trace(want, fresh, label) as t:
-                result = body()
+                result = body(start) if setup else body()
             return t, result
         except ShortTrace as e:
             if first is None:
@@ -1165,6 +1181,278 @@ def phase_kernels(smi: str):
     return main_err, bwd_err
 
 
+# the tensor axis's block kernels: (nf, gc, convs split, T) per case, the
+# flagship's conv5 alone (the rule at 2^16), and a gc 64 block whose
+# conv2-5 split too (73,728 to 184,320 elements); T 4 leaves 16 columns of
+# a 64-wide conv a rank, inside one 32-column slice
+SPLIT_CASES = ((NF, GC, (4,), 2), (NF, GC, (4,), 4),
+               (64, 64, (1, 2, 3, 4), 2), (64, 64, (1, 2, 3, 4), 4))
+
+
+def _split_cols(nf: int, gc: int, which, n_ranks: int, t: int) -> tuple:
+    """Rank t's (first, count) of each split conv's output columns."""
+    out = []
+    for k in range(5):
+        width = gc if k < 4 else nf
+        out.append((width // n_ranks * t, width // n_ranks)
+                   if k in which else None)
+    return tuple(out)
+
+
+def _joined_grads(ranks, nf: int, gc: int, which) -> list:
+    """The T ranks' split backward joined: dx (equal on every rank), each
+    split conv's weight and bias gradients summed over the ranks (per
+    conv, OIHW), the others' as rank 0 has them; every whole part must be
+    equal bit for bit on every rank."""
+    import torch
+
+    from trainner_tpu_torch.ops.rdb5c import unpack_rdb_wgrads
+
+    per = [(r[0], *unpack_rdb_wgrads(r[1:6], nf, gc), *r[6:])
+           for r in ranks]
+    out = []
+    for i in range(11):
+        j = (i - 1) % 5  # the conv of dW_j (i 1..5) and db_j (i 6..10)
+        if i and j in which:
+            out.append(sum(p[i] for p in per))
+        elif all(torch.equal(p[i], per[0][i]) for p in per):
+            out.append(per[0][i])
+        else:
+            raise AssertionError(f"split backward: {BWD_NAMES[i]} of a "
+                                 "whole conv differs between tensor ranks")
+    return out
+
+
+def _compare_split(shape, dt, x, g_out, ws, bs, which, n_ranks: int,
+                   label: str) -> tuple:
+    """One block split by column over ``n_ranks`` tensor ranks, run in
+    lock step in this process (``rdb5c.run_lockstep``): the column-range
+    stages against the plain stages (the kernel tolerances) and against
+    the unsplit kernel (predicted equal bit for bit: each column's k-loop
+    order does not depend on the range, and a zero added is exact), and
+    with ``g_out`` each rank's split backward against its plain version
+    (every output, the backward tolerances), run twice bit for bit, and
+    joined against the unsplit kernel's backward. Returns (largest
+    forward error, largest backward error or None, forward equal to the
+    unsplit kernel)."""
+    import torch
+
+    from trainner_tpu_torch.ops import rdb5c as R
+
+    nf, gc = ws[0].shape[1], ws[0].shape[0]
+    packed = R.pack_rdb_weights([w.cuda() for w in ws], nf, gc, dt)
+    xd = x.to(dt).contiguous()
+    cols = [_split_cols(nf, gc, which, n_ranks, t) for t in range(n_ranks)]
+    whole = R.rdb5c_forward(xd, packed, bs, return_residuals=True)
+    got = R.run_lockstep([R.rdb5c_forward_split(xd, packed, bs, c)
+                          for c in cols])
+    ref = R.run_lockstep([R.rdb5c_forward_split(xd, packed, bs, c,
+                                                plain=True) for c in cols])
+    torch.cuda.synchronize()
+    tag = f"{label}split {which} over {n_ranks} {shape} {dt}"
+    errs, equal = [], True
+    for r_got, r_ref in zip(got, ref):
+        for name, a, r, w in zip(("out", "c1", "c2", "c3", "c4"), r_got,
+                                 r_ref, whole):
+            err = float((a.float() - r.float()).abs().max())
+            tol = _tolerance(dt, r.float())
+            if not err <= tol:
+                raise AssertionError(f"{tag} {name}: {err} > {tol}")
+            equal = equal and torch.equal(a, w)
+            errs.append(err)
+    print(f"kernels: {tag}: column-range stages max_abs_err {max(errs):.3e} "
+          f"against the plain stages; equal to the unsplit kernel bit for "
+          f"bit: {equal}")
+    if g_out is None:
+        return max(errs), None, equal
+    gd = g_out.to(dt).contiguous()
+    cs = got[0][1:]
+    run = lambda plain: R.run_lockstep([  # noqa: E731
+        R.rdb5c_backward_split(gd, xd, *cs, packed, c, plain=plain)
+        for c in cols])
+    got_b = run(False)
+    again = run(False)
+    cudnn = torch.backends.cudnn
+    saved, cudnn.deterministic = cudnn.deterministic, True
+    try:
+        ref_b = run(True)
+    finally:
+        cudnn.deterministic = saved
+    errs_b = []
+    for t, (a_r, b_r, r_r) in enumerate(zip(got_b, again, ref_b)):
+        if not all(torch.equal(a, b) for a, b in zip(a_r, b_r)):
+            raise AssertionError(f"{tag}: split backward differs from run "
+                                 "to run")
+        for name, a, r in zip(BWD_NAMES, a_r, r_r):
+            err = float((a.float() - r.float()).abs().max())
+            tol = _backward_tolerance(dt, name, r.float())
+            if not err <= tol:
+                raise AssertionError(f"{tag} rank {t} backward {name}: "
+                                     f"{err} > {tol}")
+            errs_b.append(err)
+    joined = _joined_grads(got_b, nf, gc, which)
+    unsplit = R.rdb5c_backward(gd, xd, *whole[1:], packed)
+    names = ("dx",) + tuple(f"dW{k + 1}" for k in range(5)) + BWD_NAMES[6:]
+    want = [unsplit[0], *R.unpack_rdb_wgrads(unsplit[1:6], nf, gc),
+            *unsplit[6:]]
+    # both sides round da_k from f32 sums taken in another order (the
+    # split conv's terms added as a summed partial): each within the
+    # tolerance of the plain arithmetic, so within twice it of each other
+    worst = max((float((a.float() - w.float()).abs().max())
+                 / (2 * _backward_tolerance(
+                     dt, "dx" if n == "dx" else "db" if n.startswith("db")
+                     else "dW", w.float())), n)
+                for a, w, n in zip(joined, want, names))
+    print(f"kernels: {tag}: split backward max_abs_err {max(errs_b):.3e} "
+          f"against its plain version on every rank; joined against the "
+          f"unsplit kernel: worst {worst[0]:.3f} of twice the tolerance "
+          f"({worst[1]})")
+    if not worst[0] <= 1.0:
+        raise AssertionError(f"{tag}: joined split backward {worst[1]} "
+                             f"off the unsplit kernel by {worst[0]:.3f} of "
+                             "twice the tolerance")
+    return max(errs), max(errs_b), equal
+
+
+def _library_split_backward(x, g, ws, bs, lo: int, n: int):
+    """The split backward's yardstick, as the unsplit one's: a call of
+    autograd's backward through the block's cuDNN chain (NCHW,
+    channels_last, in ``x``'s type) on a kept graph, with conv5 cut to
+    the columns [lo, lo + n) and ``g`` to them, so that it does one
+    rank's work: conv1-4 whole, conv5's columns."""
+    import torch
+    import torch.nn.functional as F
+
+    dt, cl = x.dtype, torch.channels_last
+    xin = x.permute(0, 3, 1, 2).contiguous(memory_format=cl)
+    xin.requires_grad_(True)
+    wl = [w[lo:lo + n] if k == 4 else w for k, w in enumerate(ws)]
+    bl = [b[lo:lo + n] if k == 4 else b for k, b in enumerate(bs)]
+    wl = [w.to(x.device, dt).contiguous(memory_format=cl)
+          .requires_grad_(True) for w in wl]
+    bl = [b.to(dt).contiguous().requires_grad_(True) for b in bl]
+    feats = [xin]
+    for k in range(4):
+        feats.append(F.leaky_relu(F.conv2d(torch.cat(feats, 1), wl[k], bl[k],
+                                           padding=1), 0.2))
+    out = F.conv2d(torch.cat(feats, 1), wl[4], bl[4], padding=1) * 0.2 \
+        + xin[:, lo:lo + n]
+    g_cols = g[..., lo:lo + n].permute(0, 3, 1, 2)
+    inputs = [xin, *wl, *bl]
+    return lambda: torch.autograd.grad(out, inputs, g_cols,
+                                       retain_graph=True)
+
+
+def _split_time_rows(smi: str, gen) -> dict:
+    """CUDA-event times at the training shape, T 2, conv5 split (the
+    flagship on the tensor axis): one column-range stage (conv5 over its
+    32 of 64 columns) beside its plain version and cuDNN's conv over the
+    same columns (``F.conv2d`` of [x|c1..c4] with those columns' weights
+    and bias, without the epilogue), and one rank's split backward (its
+    partial sums not exchanged) beside its plain version and
+    ``_library_split_backward``. Bounds: the
+    stage's operations are n / N of the whole stage's; the backward's are
+    the block's with conv5's columns cut to the rank's, its bytes the
+    block's plus the f32 partial buffer written and read."""
+    import torch
+    import torch.nn.functional as F
+
+    from trainner_tpu_torch.ops import rdb5c as R
+
+    ws, bs = _block_weights(gen)
+    bs = [b.cuda() for b in bs]
+    shape, n_ranks = TRAIN_SHAPE, 2
+    npix = shape[0] * shape[1] * shape[2]
+    cols = _split_cols(NF, GC, (4,), n_ranks, 0)
+    lo, n = cols[4]
+    rows = {}
+    for dt in (torch.float32, torch.bfloat16):
+        name = "float32" if dt == torch.float32 else "bfloat16"
+        packed = R.pack_rdb_weights([w.cuda() for w in ws], NF, GC, dt)
+        x = (torch.randn(*shape, NF, generator=gen) * 0.5).cuda().to(dt)
+        g = torch.randn(*shape, NF, generator=gen).cuda().to(dt)
+        out, *cs = R.rdb5c_forward(x, packed, bs, return_residuals=True)
+        feats = [x, *cs]
+        y = torch.zeros_like(out)
+        cat = torch.cat([f.permute(0, 3, 1, 2) for f in feats], 1).contiguous(
+            memory_format=torch.channels_last)
+        w5 = R._stage_weight(packed, 4, lo, n).to(dt).contiguous(
+            memory_format=torch.channels_last)
+        b5 = bs[4][lo:lo + n].to(dt)
+        stage_ms = _time_ms(lambda: R.rdb5c_stage(feats, packed, bs[4], 4,
+                                                  lo, n, y))
+        plain_ms = _time_ms(lambda: R.rdb5c_stage_plain(feats, packed, bs[4],
+                                                        4, lo, n, y))
+        lib_ms = _time_ms(lambda: F.conv2d(cat, w5, b5, padding=1))
+        cin = NF + 4 * GC
+        work = 2 * 9 * cin * n * npix
+        nbytes = (npix * (cin + 2 * n) * x.element_size()
+                  + 9 * cin * n * x.element_size())
+        rows["rdb5c_stage", name] = dict(
+            ms=stage_ms, plain_ms=plain_ms, library_ms=lib_ms,
+            **_bounds(name, work, nbytes))
+        print(f"times: rdb5c_stage conv5 columns [{lo}, {lo + n}) of {NF} "
+              f"at {shape} {name}: {stage_ms:.4f} ms, plain {plain_ms:.4f}, "
+              f"cuDNN's conv over the columns {lib_ms:.4f}; "
+              f"{_bound_text(rows['rdb5c_stage', name])} ({smi})")
+        bwd = lambda plain: R.run_split(  # noqa: E731
+            R.rdb5c_backward_split(g, x, *cs, packed, cols, plain=plain),
+            lambda t: None)
+        b_ms = _time_ms(lambda: bwd(False))
+        bp_ms = _time_ms(lambda: bwd(True))
+        lib_b_ms = _time_ms(_library_split_backward(x, g, ws, bs, lo, n))
+        per_px = sum((NF if k == 0 else GC) * (4 * GC + NF - k * GC
+                                              - NF + n) for k in range(5))
+        work = 4 * 9 * per_px * npix
+        nbytes = ((3 * NF + 4 * GC) * npix * x.element_size()
+                  + 2 * 4 * npix * (NF + 4 * GC)
+                  + sum(p.numel() * (x.element_size() + 4) for p in packed))
+        rows["rdb5c_backward_split", name] = dict(
+            ms=b_ms, plain_ms=bp_ms, library_ms=lib_b_ms,
+            **_bounds(name, work, nbytes))
+        print(f"times: rdb5c_backward_split (one rank of 2, conv5 split) at "
+              f"{shape} {name}: {b_ms:.4f} ms, plain {bp_ms:.4f}, autograd "
+              f"through the cuDNN chain with conv5 cut to the columns "
+              f"{lib_b_ms:.4f}; "
+              f"{_bound_text(rows['rdb5c_backward_split', name])} ({smi})")
+    return rows
+
+
+def phase_split_kernels(smi: str) -> dict:
+    """The tensor axis's block kernels on the card (``SPLIT_CASES``):
+    each case's column-range stages and split backward against their
+    plain versions and the unsplit kernel (``_compare_split``), in both
+    types, at the serving shape (forward) and the training shape; then
+    their times (``_split_time_rows``). Returns the largest errors and
+    the time rows."""
+    import torch
+
+    gen = torch.Generator().manual_seed(21)
+    fwd_err = bwd_err = 0.0
+    equal = True
+    for nf, gc, which, n_ranks in SPLIT_CASES:
+        ws, bs = _block_weights(gen, nf, gc)
+        bs = [b.cuda() for b in bs]
+        flagship = (nf, gc) == (NF, GC)
+        shapes = (MAIN_SHAPE, TRAIN_SHAPE) if flagship else (RAGGED_B1_SHAPE,)
+        for shape in shapes:
+            x = (torch.randn(*shape, nf, generator=gen) * 0.5).cuda()
+            g_out = None if shape == MAIN_SHAPE else \
+                torch.randn(*shape, nf, generator=gen).cuda()
+            for dt in (torch.float32, torch.bfloat16):
+                f, b, same = _compare_split(
+                    shape, dt, x, g_out, ws, bs, which, n_ranks,
+                    f"nf {nf} gc {gc}: ")
+                if flagship:
+                    fwd_err = max(fwd_err, f)
+                    bwd_err = max(bwd_err, b or 0.0)
+                equal = equal and same
+    print(f"kernels: split stages equal to the unsplit kernel bit for bit "
+          f"in every case: {equal} (predicted: equal) ({smi})")
+    return {"fwd_err": fwd_err, "bwd_err": bwd_err, "equal": equal,
+            "rows": _split_time_rows(smi, gen)}
+
+
 def _sinc_banks(gen, b: int, k: int = BLUR_K):
     """resrgan's sinc kernels (b, k, k) on the card: random odd supports
     7 to k and cutoffs as its blur stages draw them, from a CPU
@@ -1396,9 +1684,9 @@ def phase_debug_configs(smi: str, root: str) -> None:
         path = os.path.join(root, opt["name"] + ".json")
         with open(path, "w") as f:
             json.dump(opt, f)
-        with _launch_trace({"rdb5c": per_g * n_img},
-                           label="debug serving") as t:
-            averages = test_cli.main(["-opt", path])
+        t, averages = _retried_trace(lambda: test_cli.main(["-opt", path]),
+                                     {"rdb5c": per_g * n_img},
+                                     label="debug serving")
         vals = {m["name"]: m["average"] for v in averages.values()
                 for m in v}
         print(f"debug: {os.path.basename(DEBUG_TEST_YML)} G (nf "
@@ -1418,14 +1706,22 @@ def phase_debug_configs(smi: str, root: str) -> None:
     batch = {"LR": torch.rand(b, hr_px // 4, hr_px // 4, 3,
                               generator=gen).cuda(),
              "HR": torch.rand(b, hr_px, hr_px, 3, generator=gen).cuda()}
-    for use_amp in (False, True):
+
+    def setup(attempt):  # each attempt from a new trainer: its captures
         trainer = create_trainer({**train, "use_amp": use_amp})
         state = trainer.init_state(0)
-        g0 = _snapshot(state.g.net)
-        with _launch_trace({"rdb5c": 2 * per_g, "rdb5c_bwd": 2 * per_g},
-                           label="debug training") as t:
-            for _ in range(2):
-                state, logs = trainer.train_step(state, batch)
+        return trainer, state, _snapshot(state.g.net)
+
+    def body(start):
+        trainer, state, g0 = start
+        for _ in range(2):
+            state, logs = trainer.train_step(state, batch)
+        return trainer, state, g0, logs
+
+    for use_amp in (False, True):
+        t, (trainer, state, g0, logs) = _retried_trace(
+            body, {"rdb5c": 2 * per_g, "rdb5c_bwd": 2 * per_g},
+            label="debug training", setup=setup)
         vals = {k: float(v) for k, v in logs.items()}
         moved, total = _count_moved(state.g.net, g0, lambda k: True)
         print(f"debug: {os.path.basename(DEBUG_TRAIN_YML)} G and D, "
@@ -1495,15 +1791,26 @@ def phase_train(smi: str) -> dict:
     for use_amp, n_check, n_timed in ((True, 3, 5), (False, 2, 5)):
         torch.backends.cudnn.allow_tf32 = False
         torch.backends.cuda.matmul.allow_tf32 = False
-        trainer = create_trainer({**_train_options(), "use_amp": use_amp})
-        name = str(trainer.dtype).replace("torch.", "")
-        state = trainer.init_state(0)
-        g0, d0 = _snapshot(state.g.net), _snapshot(state.d.net)
-        with _launch_trace({"rdb5c": per_g * n_check,
-                            "rdb5c_bwd": per_g * n_check},
-                           label=f"train {name}") as t:
+        name = "bfloat16" if use_amp else "float32"
+
+        def setup(attempt, use_amp=use_amp):  # a new trainer each attempt
+            trainer = create_trainer({**_train_options(),
+                                      "use_amp": use_amp})
+            state = trainer.init_state(0)
+            return trainer, state, (_snapshot(state.g.net),
+                                    _snapshot(state.d.net))
+
+        def body(start, n_check=n_check):
+            trainer, state, before = start
             for _ in range(n_check):
                 state, logs = trainer.train_step(state, batch)
+            return trainer, state, before, logs
+
+        t, (trainer, state, (g0, d0), logs) = _retried_trace(
+            body, {"rdb5c": per_g * n_check, "rdb5c_bwd": per_g * n_check},
+            label=f"train {name}", setup=setup)
+        if str(trainer.dtype) != f"torch.{name}":
+            raise AssertionError(f"use_amp {use_amp}: {trainer.dtype}")
         vals = {k: float(v) for k, v in logs.items()}
         print(f"train: {name} b={batch['LR'].shape[0]} "
               f"{TRAIN_SHAPE[1]}->{TRAIN_SHAPE[1] * 4} px, {n_check} steps: "
@@ -1556,13 +1863,25 @@ def phase_train(smi: str) -> dict:
         torch.cuda.empty_cache()
 
     # D_update_ratio 2: the second step updates D only
-    trainer = create_trainer(_train_options(D_update_ratio=2))
-    state = trainer.init_state(1)
+    trainer = state = None
     for step, (want_f, want_b) in enumerate(((per_g, per_g), (per_g, 0))):
-        g0 = _snapshot(state.g.net)
-        with _launch_trace({"rdb5c": want_f, "rdb5c_bwd": want_b},
-                           label=f"D_update_ratio 2, step {step}") as t:
+        def setup(attempt, step=step):
+            nonlocal trainer, state
+            if trainer is None or attempt > 1:  # a retry starts anew
+                trainer = create_trainer(_train_options(D_update_ratio=2))
+                state = trainer.init_state(1)
+                for _ in range(step):
+                    state, _ = trainer.train_step(state, batch)
+            return _snapshot(state.g.net)
+
+        def body(g0):
+            nonlocal state
             state, logs = trainer.train_step(state, batch)
+            return g0, logs
+
+        t, (g0, logs) = _retried_trace(
+            body, {"rdb5c": want_f, "rdb5c_bwd": want_b},
+            label=f"D_update_ratio 2, step {step}", setup=setup)
         moved, _ = _count_moved(state.g.net, g0, lambda k: True)
         print(f"train: D_update_ratio 2, step {step}: launches the card "
               f"ran {t['ran']}, G tensors moved {moved}, logs "
@@ -1709,14 +2028,23 @@ def phase_producer(smi: str, root: str) -> dict:
         state, logs = trainer.train_step(state, batch)
         return batch, logs
 
+    def traced_steps(_):
+        return [e2e_step() for _ in range(n_traced)][-1]
+
+    def fresh_captures(attempt):  # a retried trace captures anew
+        nonlocal degrade, trainer, state
+        if attempt > 1:
+            degrade = make_otf_degradation(opt, generator=gen)
+            trainer = create_trainer(opt)
+            state = trainer.init_state(0)
+
     # the first steps (the degrader's and the step's captures, then
     # replays) under a launch trace, then timed steps without it
     n_traced = 3
-    with _launch_trace({"blur": 2 * n_traced, "rdb5c": per_g * n_traced,
-                        "rdb5c_bwd": per_g * n_traced},
-                       label="producer, fixed order") as traced:
-        for _ in range(n_traced):
-            batch, logs = e2e_step()
+    traced, (batch, logs) = _retried_trace(
+        traced_steps, {"blur": 2 * n_traced, "rdb5c": per_g * n_traced,
+                       "rdb5c_bwd": per_g * n_traced},
+        label="producer, fixed order", setup=fresh_captures)
     print(f"producer: {n_traced} end-to-end steps from the start: launches "
           f"the card ran {traced['ran']} (2 blur launches per batch, "
           f"{per_g} + {per_g} block launches per step), the wrappers "
@@ -1753,16 +2081,18 @@ def phase_producer(smi: str, root: str) -> dict:
     # program: blur and blur2 once per slot and pass, on q-slices); its
     # degrader captures in the trace, the step's graph replays
     degrade_fixed = degrade
-    degrade = make_otf_degradation(
-        parse_dict(_e2e_options(corpus, shuffle=True), is_train=True),
-        generator=gen)
+    opt_sh = parse_dict(_e2e_options(corpus, shuffle=True), is_train=True)
+
+    def fresh_shuffled(attempt):  # each attempt captures the degrader
+        nonlocal degrade
+        degrade = make_otf_degradation(opt_sh, generator=gen)
+
     per_batch = 2 * 2 * SHUFFLE_K
-    with _launch_trace({"blur": per_batch * n_traced,
-                        "rdb5c": per_g * n_traced,
-                        "rdb5c_bwd": per_g * n_traced}, fresh=False,
-                       label="producer, shuffled") as traced_sh:
-        for _ in range(n_traced):
-            batch, logs = e2e_step()
+    traced_sh, (batch, logs) = _retried_trace(
+        traced_steps, {"blur": per_batch * n_traced,
+                       "rdb5c": per_g * n_traced,
+                       "rdb5c_bwd": per_g * n_traced}, fresh=False,
+        label="producer, shuffled", setup=fresh_shuffled)
     print(f"producer: {n_traced} shuffled end-to-end steps from the "
           f"degrader's start: launches the card ran {traced_sh['ran']} "
           f"({per_batch} blur launches per batch), the wrappers counted "
@@ -1922,11 +2252,14 @@ def phase_shuffle(smi: str, root: str) -> dict:
             shapes[key] = shapes.get(key, 0) + 1
             return orig(xx, kern)
 
+        def body(deg=deg, shapes=shapes):
+            shapes.clear()  # a retried trace's blurs only
+            return deg(gen, x_u8)
+
         D.apply_kernels = spy
         try:
-            with _launch_trace({"blur": per_batch},
-                               label=f"bsrgan {label}") as t:
-                y = deg(gen, x_u8)
+            t, y = _retried_trace(body, {"blur": per_batch},
+                                  label=f"bsrgan {label}")
         finally:
             D.apply_kernels = orig
         launches = t["ran"]["blur"]
@@ -2860,6 +3193,39 @@ def _kernel_rows(rows, serving, train, main_err, bwd_err,
              k: row[k] for k in keys + ("device_ms",)}
              for (label, shape), row in caller_rows.items()}},
     ]
+
+
+def _split_kernel_rows(split: dict) -> list:
+    """The JSON summary's rows of the tensor axis's kernels: the
+    column-range stage and the split backward, each at the training shape
+    over 2 ranks with conv5 split (``_split_time_rows``), bf16 with f32
+    beside, their largest errors over ``SPLIT_CASES`` against the plain
+    versions, and the launches of phase 24 (b)'s traced tensor step (the
+    column-range stages; the split backward by its conv5 terms'
+    ``rdb_dx_part`` launches, five a block), the wrappers' counts beside
+    (the split backward counts one a block)."""
+    rows = split["rows"]
+    keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    ran = TP_LAUNCHES.get("ran", {})
+    counted = TP_LAUNCHES.get("counted", {})
+    out = []
+    for name, source, line, launch_key, err in (
+            ("rdb5c_stage", "rdb5c.cu", 180, "rdb5c_stage", "fwd_err"),
+            ("rdb5c_backward_split", "rdb5c_bwd.cu", 355, "rdb_dx_part",
+             "bwd_err")):
+        out.append({
+            "name": name, "route": "cuda",
+            "source": f"trainner_tpu_torch/csrc/{source}",
+            "replaces": f"trainner_tpu/ops/pallas_kernels.py:{line}",
+            "launches": ran.get(launch_key, 0),
+            "wrapper_counts": counted.get(name, 0),
+            "max_abs_err": split[err],
+            **{k: rows[name, "bfloat16"][k] for k in keys},
+            "shape": list(TRAIN_SHAPE), "dtype": "bfloat16",
+            "columns": "conv5's 32 of 64, tensor: 2",
+            "float32": {k: v for k, v in rows[name, "float32"].items()},
+            "equal_to_unsplit_forward": split["equal"]})
+    return out
 
 
 def _traced(fn, label: str, smi: str, untraced_ms: float = 0.0) -> None:
@@ -4024,11 +4390,14 @@ def _resrgan_degrader(smi: str, root: str) -> None:
         shapes[tuple(xx.shape)] = shapes.get(tuple(xx.shape), 0) + 1
         return orig(xx, kern)
 
+    def body():
+        shapes.clear()  # a retried trace's blurs only
+        return deg(gen, x_u8)
+
     D.apply_kernels = spy
     try:
-        with _launch_trace({"blur": RESRGAN_BLUR},
-                           label="resrgan degrader") as t:
-            y = deg(gen, x_u8)
+        t, y = _retried_trace(body, {"blur": RESRGAN_BLUR},
+                              label="resrgan degrader")
     finally:
         D.apply_kernels = orig
     off = float((y * 255 - (y * 255).round()).abs().max())
@@ -9243,6 +9612,12 @@ PAR_REORDERS, PAR_REORDER_X = 2, 3.0
 # must reject (``_par_fault``)
 PAR_FAULTS = ("batch norm per rank", "relativistic means per rank",
               "D's gradient not averaged")
+# (b): the tensor axis's run (``tensor: 2``, both ranks on the whole
+# batch, conv5 of every block and D-VGG's large leaves computed by
+# column) and its faults, each of which the check must reject
+TP_FAULTS = ("conv5's dx terms not summed over the tensor group",
+             "a split leaf's gradient not joined",
+             "the tensor ranks degrading with different seeds")
 BAND_PX, N_BANDS, BAND_HALO = 512, 4, 32   # (d): the served LR image
 
 
@@ -9360,17 +9735,39 @@ def _par_grad_options() -> dict:
 
 
 @contextlib.contextmanager
-def _par_fault(name: str, d_params):
-    """One of ``PAR_FAULTS`` planted in this process's step while the
-    context is open: D's batch norms on this rank's statistics (their
-    ``batch_mean`` the identity), the relativistic loss's means over this
-    rank's samples (likewise), or D's gradients left unaveraged
-    (``average_grads`` skipped for ``d_params``)."""
+def _par_fault(name: str, d_params, params=()):
+    """One of ``PAR_FAULTS`` or of the first two ``TP_FAULTS`` planted in
+    this process's step while the context is open: D's batch norms on
+    this rank's statistics (their ``batch_mean`` the identity), the
+    relativistic loss's means over this rank's samples (likewise), D's
+    gradients left unaveraged (``average_grads`` skipped for
+    ``d_params``); the split blocks' backward with its buffers of conv5's
+    dx terms left unsummed (each rank's stages add its own columns'
+    terms alone), or the split leaves' gradients averaged as whole ones
+    (``tensor_summed`` cleared on ``params``: their columns never
+    joined)."""
     from trainner_tpu_torch.losses import gan
-    from trainner_tpu_torch.ops import blocks
+    from trainner_tpu_torch.ops import blocks, rdb5c
     from trainner_tpu_torch.train import sr_trainer
 
-    if name == PAR_FAULTS[0]:
+    if name == TP_FAULTS[0]:
+        split = rdb5c.rdb5c_backward_split
+
+        def fn(*args, **kwargs):
+            return rdb5c.run_split(split(*args, **kwargs), lambda t: None)
+            yield  # a generator, as the split backward is
+        mod, attr = rdb5c, "rdb5c_backward_split"
+    elif name == TP_FAULTS[1]:
+        marked = [p for p in params if getattr(p, "tensor_summed", False)]
+        for p in marked:
+            p.tensor_summed = False
+        try:
+            yield
+        finally:
+            for p in marked:
+                p.tensor_summed = True
+        return
+    elif name == PAR_FAULTS[0]:
         mod, attr, fn = blocks, "batch_mean", lambda x: x
     elif name == PAR_FAULTS[1]:
         mod, attr, fn = gan, "batch_mean", lambda x: x
@@ -9397,11 +9794,15 @@ def _par_rank(store: str, rank: int, out: str) -> int:
     """One rank of phase 24 (b), in a process of its own: a gloo group of
     two on the one card, the flagship's f32 step (eager, TF32 off) on
     this rank's 16 of the 32 samples, from the same state, once sound and
-    once with each of ``PAR_FAULTS`` planted; rank 0 saves G's and D's
-    averaged gradients and the logs of each."""
+    once with each of ``PAR_FAULTS`` planted; then on ``tensor: 2``, both
+    ranks on the whole batch, once sound (traced: the column-range
+    stages' and the split backward's launches, and the wrappers' counts,
+    set to 0 just before) and once with each of ``TP_FAULTS``; rank 0
+    saves G's and D's averaged gradients and the logs of each."""
     import torch
     import torch.distributed as dist
 
+    from trainner_tpu_torch.ops import rdb5c
     from trainner_tpu_torch.parallel import mesh as M
     from trainner_tpu_torch.train.sr_trainer import create_trainer
 
@@ -9415,19 +9816,66 @@ def _par_rank(store: str, rank: int, out: str) -> int:
     tr = create_trainer(_par_grad_options(), graphs=False, mesh=mesh)
     batch = M.shard_batch(_train_batch(seed=7), mesh)
     runs = {}
-    for fault in ("sound",) + PAR_FAULTS:
+
+    def run(fault, tr, batch, tensor=False):
+        t0 = time.perf_counter()
         st = tr.init_state(0)
         _gain_weights(st.g.net, seed=3)
-        with contextlib.nullcontext() if fault == "sound" else \
-                _par_fault(fault, list(st.d.net.parameters())):
+        params = [p for w in ("g", "d")
+                  for p in getattr(st, w).net.parameters()]
+        with contextlib.nullcontext() if fault in ("sound", TP_FAULTS[2]) \
+                else _par_fault(fault, list(st.d.net.parameters()), params):
             st, logs = tr.train_step(st, batch)
-        runs[fault] = {w: {k: p.grad.cpu() for k, p in
-                           getattr(st, w).net.named_parameters()}
-                       for w in ("g", "d")}
-        runs[fault]["logs"] = {k: float(v) for k, v in logs.items()}
-        del st
+        key = f"tensor: {fault}" if tensor else fault
+        runs[key] = {w: {k: p.grad.cpu() for k, p in
+                         getattr(st, w).net.named_parameters()}
+                     for w in ("g", "d")}
+        runs[key]["logs"] = {k: float(v) for k, v in logs.items()}
+        runs[key]["split"] = sum(
+            1 for p in params if getattr(p, "tensor_summed", False))
+        runs[key]["s"] = time.perf_counter() - t0
+
+    for fault in ("sound",) + PAR_FAULTS:
+        run(fault, tr, batch)
+    # the tensor axis: both ranks on the whole batch, the flagship's
+    # rule (conv5 of the 69 blocks, D-VGG's ten large leaves)
+    tmesh = M.make_mesh(M.MeshConfig(data=1, tensor=2), device=dev)
+    ttr = create_trainer(_par_grad_options(), graphs=False, mesh=tmesh)
+    whole = M.shard_batch(_train_batch(seed=7), tmesh)
+    want = _tp_want()
+    for attempt in range(1, TRACE_ATTEMPTS + 1):
+        rdb5c.stage_launches = rdb5c.split_backward_launches = 0
+        with _profiled() as prof:
+            run("sound", ttr, whole, tensor=True)
+        counts = {"rdb5c_stage": rdb5c.stage_launches,
+                  "rdb5c_backward_split": rdb5c.split_backward_launches}
+        events = _device_events(prof)
+        ran = {"rdb5c_stage": sum(1 for _, _, n in events
+                                  if "rdb_stage" in n
+                                  or "rdb_streamed_stage" in n),
+               "rdb_dx_part": sum(1 for _, _, n in events
+                                  if "rdb_dx_part" in n),
+               "part_epilogue": sum(1 for _, _, n in events
+                                    if "part_epilogue" in n)}
+        # a trace short on some kernel and over on none lost records: both
+        # ranks run the step again (a run starts from init_state)
+        short = torch.tensor([float(ran != want and all(
+            ran[k] <= want[k] for k in want))])
+        dist.all_reduce(short)
+        if not float(short) or attempt == TRACE_ATTEMPTS:
+            break
+        print(f"trace: tensor: 2 rank {rank}: attempt {attempt} short "
+              f"(this rank ran {ran}, expected {want}); tracing the step "
+              "again", flush=True)
+    for fault in TP_FAULTS:
+        b = whole
+        if fault == TP_FAULTS[2]:  # each rank's LR from a seed of its own
+            b = {"LR": _train_batch(seed=7 + 1009 * rank)["LR"],
+                 "HR": whole["HR"]}
+        run(fault, ttr, b, tensor=True)
     if rank == 0:
-        torch.save({"runs": runs, "b": int(batch["LR"].shape[0])}, out)
+        torch.save({"runs": runs, "b": int(batch["LR"].shape[0]),
+                    "tensor_counts": counts, "tensor_ran": ran}, out)
     dist.barrier()
     dist.destroy_process_group()
     return 0
@@ -9517,6 +9965,7 @@ def _par_two_gloo_ranks(smi: str, root: str) -> None:
                 spread[k] = max(spread.get(k, 0.0), v)
     readings = {name: _par_reading(run, st, logs1, spread)
                 for name, run in runs.items()}
+    _par_tensor_check(smi, saved, readings)
     worst, over, ratio, log_err = readings["sound"]
     name = max(worst, key=worst.get)
     n_over = sum(1 for k in worst if worst[k] > 3e-3)
@@ -9545,6 +9994,58 @@ def _par_two_gloo_ranks(smi: str, root: str) -> None:
                              f"{missed}")
     del st
     torch.cuda.empty_cache()
+
+
+def _par_tensor_check(smi: str, saved: dict, readings: dict) -> None:
+    """Phase 24 (b)'s tensor run under the rule of the data run (each
+    tensor within 3e-3 of its size, or ``PAR_REORDER_X`` times its
+    reorders' move; the logs within 1e-3), every ``TP_FAULTS`` rejected,
+    and the kernels of the path launched: the column-range stages (five
+    a block forward) and the split backward (conv5's terms by
+    ``rdb_dx_part``, five a block backward, stage 4 by its epilogue
+    alone) in the traced run, the wrappers' counts beside."""
+    worst, over, ratio, log_err = readings["tensor: sound"]
+    name = max(worst, key=worst.get)
+    split = saved["runs"]["tensor: sound"]["split"]
+    faults = "; ".join(
+        f"{f}: {readings['tensor: ' + f][2]:.3f}, "
+        f"{len(readings['tensor: ' + f][1])} tensors over, logs "
+        f"{readings['tensor: ' + f][3]:.3e}" for f in TP_FAULTS)
+    ran, counts = saved["tensor_ran"], saved["tensor_counts"]
+    per_g = NB * 3
+    TP_LAUNCHES.update(ran=ran, counted=counts)
+    secs = {k: round(v["s"], 1) for k, v in saved["runs"].items()}
+    print(f"parallel: (b) tensor: 2, two gloo ranks on the one card, each "
+          f"on the whole batch of 32, {split} leaves computed by column "
+          f"(weights and biases): worst {worst[name]:.3e} of the tensor's "
+          f"size ({name}), logs within {log_err:.2e}, the largest error "
+          f"over its limit {ratio:.3f}; planted faults: {faults}; the "
+          f"traced step ran {ran} ({5 * per_g} column-range stages, "
+          f"{5 * per_g} split conv5 terms and {per_g} stage-4 epilogues "
+          f"a step), the wrappers counted {counts}; rank 0's seconds a run "
+          f"(init and step) {secs} ({smi})")
+    missed = [f for f in TP_FAULTS if not readings["tensor: " + f][1]
+              and readings["tensor: " + f][3] <= 1e-3]
+    if over or log_err > 1e-3 or missed or ran != _tp_want() or counts != {
+            "rdb5c_stage": 5 * per_g, "rdb5c_backward_split": per_g}:
+        raise AssertionError(f"parallel (b) tensor: "
+                             f"{sorted(over.items())[:6]}, logs {log_err}, "
+                             f"faults not rejected {missed}, launches "
+                             f"{ran} {counts}")
+
+
+# phase 24 (b)'s tensor run: the launches its trace holds and the
+# wrappers' counts (the kernels line's launches of the split kernels)
+TP_LAUNCHES = {}
+
+
+def _tp_want() -> dict:
+    """What phase 24 (b)'s traced tensor step must launch: five
+    column-range stages a block forward, the split conv5's terms five a
+    block backward (``rdb_dx_part``), stage 4 by its epilogue alone."""
+    per_g = NB * 3
+    return {"rdb5c_stage": 5 * per_g, "rdb_dx_part": 5 * per_g,
+            "part_epilogue": per_g}
 
 
 def _rank_processes(root: str, tag: str, args: list) -> list:
@@ -10338,6 +10839,7 @@ def main(argv=None) -> int:
 
     phase_tf32_mma(smi)
     main_err, bwd_err = phase_kernels(smi)
+    split = phase_split_kernels(smi)
     blur_err = phase_blur_kernel(smi)
     if flags.only:
         with tempfile.TemporaryDirectory() as root:
@@ -10389,7 +10891,7 @@ def main(argv=None) -> int:
     _print_parts(smi)
     kernels = _kernel_rows(rows, launches, train, main_err, bwd_err,
                            blur_rows, producer, blur_err, forms, cli_counts,
-                           caller_rows)
+                           caller_rows) + _split_kernel_rows(split)
     print(f"chip_smoke: {time.time() - t_start:.1f} s in all")
     print(json.dumps({"kernels": kernels}))
     print(smi)

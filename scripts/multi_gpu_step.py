@@ -1,17 +1,22 @@
-"""The port's training step on a data (and fsdp) axis of several cards,
-against one card: the flagship GAN step (RRDBNet nf 64, nb 23, gc 32;
-D-VGG-128; pixel, VGG19 feature and relativistic GAN losses; bf16,
-CUDA graphs) with every rank on its slice of a global batch of 32.
+"""The port's training step on the data, fsdp and tensor axes of several
+cards, against one card: the flagship GAN step (RRDBNet nf 64, nb 23, gc
+32; D-VGG-128; pixel, VGG19 feature and relativistic GAN losses; bf16,
+CUDA graphs) with every slice of the batch on its part of a global batch
+of 32.
 
     torchrun --nproc_per_node N scripts/multi_gpu_step.py [--fsdp M]
-        [--model sr|cyclegan|wbc|pbr|vsr|srflow]
+        [--tensor T] [--model sr|cyclegan|wbc|pbr|vsr|srflow]
 
 Each rank takes the card of ``LOCAL_RANK``, joins an NCCL group and the
-``(data: N / M, fsdp: M)`` mesh of ``trainner_tpu_torch.parallel``, and
-runs ``--steps`` steps from ``init_state(0)`` on its slice of seeded
-global batches. Checks: after the steps every rank holds the same state
-bit for bit (each tensor's f64 sum and sum of squares gathered and
-compared with rank 0's): what data parallelism means. Reported: the
+``(data: N / (M T), fsdp: M, tensor: T)`` mesh of
+``trainner_tpu_torch.parallel``, and runs ``--steps`` steps from
+``init_state(0)`` on its slice of seeded global batches (the T tensor
+ranks of a slice on the same samples, each computing its columns of the
+leaves the rule splits: on the flagship, conv5 of the 69 blocks by the
+column-range kernels, and D-VGG's ten large leaves). Checks: after the
+steps every rank holds the same state bit for bit (each tensor's f64
+sum and sum of squares gathered and compared with rank 0's): what data
+parallelism means. Reported: the
 step's ms per card (graph replays, host clock around synchronised runs),
 and rank 0's step at the whole batch on its card with no group, timed in
 the same call. Rank 0
@@ -288,6 +293,7 @@ def bands(args) -> int:
 def main(argv=None) -> int:
     p = argparse.ArgumentParser()
     p.add_argument("--fsdp", type=int, default=1)
+    p.add_argument("--tensor", type=int, default=1)
     p.add_argument("--steps", type=int, default=4)
     p.add_argument("--timed", type=int, default=10)
     p.add_argument("--cpu", action="store_true")
@@ -305,8 +311,9 @@ def main(argv=None) -> int:
         device = torch.device("cuda", int(os.environ.get("LOCAL_RANK", 0)))
         torch.cuda.set_device(device)
     rank, world = M.init_distributed(device)
-    mesh = M.make_mesh(M.MeshConfig(data=world // args.fsdp,
-                                    fsdp=args.fsdp), device=device)
+    mesh = M.make_mesh(M.MeshConfig(
+        data=world // (args.fsdp * args.tensor), fsdp=args.fsdp,
+        tensor=args.tensor), device=device)
     graphs = device.type == "cuda"
     if args.model == "sr":
         opt, n_batch = options(args.debug), BATCH
@@ -347,7 +354,14 @@ def main(argv=None) -> int:
         out = {"model": args.model, "ranks": world, "mesh": mesh.shape,
                "backend": mesh.backend,
                "device": name, "batch": n_batch,
-               "per_rank": n_batch // world, "steps": args.steps,
+               "per_rank": n_batch // mesh.batch_world,
+               "steps": args.steps,
+               "split_leaves": sum(
+                   1 for w in M.net_fields(state)
+                   if getattr(state, w, None) is not None
+                   for p in getattr(state, w).net.parameters()
+                   if getattr(p, "tensor_summed", False)),
+               "whole_leaves": trainer.whole_leaves,
                "replicas_unequal": unequal, "tensors": digest.numel() // 2,
                "first_steps_s": round(first_s, 3),
                "ms_per_step_group": round(ms_group, 3),

@@ -30,11 +30,14 @@ class StubTrace:
 
     def __init__(self, ran, counted):
         self.ran, self.counted, self.bodies = list(ran), list(counted), 0
+        self.open = False
 
     @contextlib.contextmanager
     def __call__(self, want, fresh, label):
         out = {}
+        self.open = True
         yield out
+        self.open = False
         self.bodies += 1
         out.update(ran=self.ran.pop(0), counted=self.counted.pop(0),
                    records=1)
@@ -64,6 +67,30 @@ def test_three_short_traces_fail():
     with pytest.raises(chip_smoke.ShortTrace, match="x8"):
         _retry(stub)
     assert stub.bodies == chip_smoke.TRACE_ATTEMPTS == 3
+
+
+def test_a_retry_starts_from_its_setup():
+    """A body that advances a state (a trainer's steps and captures)
+    starts each attempt from what ``setup`` made for it, outside the
+    attempt's session; ``setup`` is told the attempt's number."""
+    stub = StubTrace([_ran(60), _ran(69)], [_ran(9)] * 2)
+    made = []
+
+    def setup(attempt):
+        assert not stub.open
+        made.append({"attempt": attempt, "steps": 0})
+        return made[-1]
+
+    def body(start):
+        assert stub.open
+        start["steps"] += 2
+        return start
+
+    t, result = chip_smoke._retried_trace(body, {"rdb5c": 69}, label="x",
+                                          trace=stub, setup=setup)
+    assert stub.bodies == 2 and t["ran"] == _ran(69)
+    assert made == [{"attempt": 1, "steps": 2}, {"attempt": 2, "steps": 2}]
+    assert result is made[1]
 
 
 def test_a_trace_over_want_fails_at_once():

@@ -1,19 +1,25 @@
 """Every other model of the port on the data axis (ROADMAP Queue A 9 d)
-on the CPU: CycleGAN, WBC, PBR, the video Gs (SOF-VSR with its GAN and
-OFR term, SR3D, EDVR, EVSRGAN; RIFE's batch norms in train mode), both
-SRFlow nets across the encoder's unfreeze, SFTGAN and DVD (lsgan with a
-batch-norm D, and wgan-gp).
+and on the tensor axis (A 9 e) on the CPU: CycleGAN, WBC, PBR, the video
+Gs (SOF-VSR with its GAN and OFR term, SR3D, EDVR, EVSRGAN; RIFE's batch
+norms in train mode), both SRFlow nets across the encoder's unfreeze,
+SFTGAN and DVD (lsgan with a batch-norm D, and wgan-gp, whose penalty's
+double backward runs through the tensor axis's joins).
 
 One spawned gloo group of two ranks (``tests/torch_parallel_worker.py``
 processes, which import no JAX) runs each case's steps on the ranks'
-slices of the global batch; each must equal the one-rank step on the
+slices of the global batch, and on ``tensor: 2`` at min_shard 0 (every
+kernel the axis divides computed by column, both ranks on the whole
+batch); each must equal the one-rank step on the
 whole batch at the JAX package's mesh tolerance (rtol 2e-4, atol 2e-5,
 ``tests/test_parallel.py:146-152``): every log, every net's parameters,
 buffers and last gradients. Where a tensor misses it, ROADMAP C 22's rule
 holds it: an input that rounds across a ReLU-class kink moves the
 elements it feeds by their whole share, so such a tensor is held in L2
 norm, within 1e-2 of its update over the run (of its own norm for a
-gradient). The pools of CycleGAN and WBC, queried on every rank with the
+gradient). On the tensor axis every case is held so: a split conv
+computes fewer output channels, so its algorithm, and its rounding, may
+differ from the whole conv's, and any kink (a ReLU, an L1 loss) may then
+flip. The pools of CycleGAN and WBC, queried on every rank with the
 gathered batch, make the JAX ``ImagePool``'s choices on that batch; a
 two-rank CycleGAN checkpoint loads in the JAX package and into a one-rank
 port state bit for bit, which then trains on. The group takes about 15 s
@@ -29,7 +35,7 @@ import pytest
 import torch
 
 import torch_parallel_worker as W
-from test_torch_parallel import ATOL, RTOL, STEPS, _spawn
+from test_torch_parallel import ATOL, RTOL, STEPS, WHOLE_LEAVES, _spawn
 from trainner_tpu.utils.image_pool import ImagePool as JaxPool
 from trainner_tpu_torch.train.sr_trainer import create_trainer
 
@@ -55,6 +61,9 @@ def two_ranks(tmp_path_factory):
                  "fsdp": 1, "steps": STEPS, "save_at": STEPS,
                  "state_path": path})
     jobs.append({"id": "rife", "rife": True, "data": 2, "fsdp": 1})
+    jobs += [{"id": f"{c}_tp", "case": c, "data": 1, "fsdp": 1,
+              "tensor": 2, "steps": STEPS, "min_shard": 0}
+             for c in W.MODEL_CASES]
     res = _spawn(2, jobs, tmp)
     res["cyclegan"], res["cyclegan_loaded"] = (res["cyclegan"]["full"],
                                                res["cyclegan"]["resumed"])
@@ -91,10 +100,12 @@ def _close(have: torch.Tensor, want: torch.Tensor, old, what: str,
         (what, float((have - want).abs().max()), diff, scale)
 
 
-def same_models(got: dict, ref: dict, start: dict, case: str) -> None:
+def same_models(got: dict, ref: dict, start: dict, case: str,
+                kinked: bool = False) -> None:
     """Every log at the mesh tolerance; every net's tensors and last
-    gradients at it, or under C 22's L2 rule where the case has kinks."""
-    kinked = case in KINKED
+    gradients at it, or under C 22's L2 rule where the case has kinks
+    (or ``kinked``)."""
+    kinked = kinked or case in KINKED
     assert len(got["logs"]) == len(ref["logs"]) == STEPS
     for step, (lg, lr) in enumerate(zip(got["logs"], ref["logs"])):
         assert set(lg) == set(lr), (case, step)
@@ -122,6 +133,18 @@ def same_models(got: dict, ref: dict, start: dict, case: str) -> None:
 def test_two_ranks_equal_one(two_ranks, one_rank, case):
     ref, start = one_rank(case)
     same_models(two_ranks[0][case], ref, start, case)
+
+
+@pytest.mark.parametrize("case", W.MODEL_CASES)
+def test_models_train_on_the_tensor_axis(two_ranks, one_rank, case):
+    """``tensor: 2`` at min_shard 0: each case trains two steps equal to
+    the one-rank steps (C 22's L2 rule for every case, see above), some
+    of its leaves computed by column and the whole ones A 9 g's."""
+    got = two_ranks[0][f"{case}_tp"]
+    assert got["split"], case
+    assert set(got["whole"]) == WHOLE_LEAVES.get(case, set())
+    ref, start = one_rank(case)
+    same_models(got, ref, start, case, kinked=True)
 
 
 def test_rife_batch_norms_see_the_global_batch(two_ranks):

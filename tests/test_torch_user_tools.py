@@ -294,13 +294,141 @@ def _sofvsr_sd():
     return _keys_sd(keys, 4)
 
 
+def _wb(*prefixes):
+    return [f"{p}.{leaf}" for p in prefixes for leaf in ("weight", "bias")]
+
+
+def _bn(*prefixes):
+    return [f"{p}.{leaf}" for p in prefixes
+            for leaf in ("weight", "bias", "running_mean", "running_var")]
+
+
+def _layout_keys(kind):
+    """The keys of a reference checkpoint of each layout the convert
+    tool reads (``trainner_tpu/utils/torch_interop.py``'s converters)."""
+    if kind == "pan":
+        keys = _wb("conv_first", "conv_last", "trunk_conv", "upsample.0",
+                   "upsample.1.conv", "upsample.2", "upsample.3",
+                   "upsample.4.conv", "upsample.5")
+        for i in range(2):
+            keys += _wb(f"SCPA_trunk.{i}.k1.0", f"SCPA_trunk.{i}.conv1_a",
+                        f"SCPA_trunk.{i}.conv1_b", f"SCPA_trunk.{i}.conv3",
+                        *[f"SCPA_trunk.{i}.PACnv.k{j}" for j in (2, 3, 4)])
+        return keys
+    if kind == "resnet_g":
+        return _wb("model.1", "model.4", "model.7", "model.10.conv_block.1",
+                   "model.10.conv_block.5", "model.11.conv_block.1",
+                   "model.11.conv_block.5", "model.12", "model.15",
+                   "model.19")
+    if kind == "sftnet":
+        sft = ("SFT_scale_conv0", "SFT_scale_conv1", "SFT_shift_conv0",
+               "SFT_shift_conv1")
+        keys = _wb("conv0", "sft_branch.2", "HR_branch.0", "HR_branch.3",
+                   "HR_branch.6", "HR_branch.8",
+                   *[f"CondNet.{i}" for i in (0, 2, 4, 6, 8)],
+                   "sft_branch.0.conv0", "sft_branch.0.conv1",
+                   *[f"sft_branch.0.sft{j}.{c}" for j in (0, 1)
+                     for c in sft], *[f"sft_branch.1.{c}" for c in sft])
+        return keys
+    if kind == "unet":
+        return _wb("model.model.0", "model.model.3", "model.model.1.model.1",
+                   "model.model.1.model.5", "model.model.1.model.3.model.1",
+                   "model.model.1.model.3.model.3")
+    if kind == "aan":
+        keys = _wb("conv_first", "trunk_conv", "upconv1", "upconv2",
+                   "HRconv1", "HRconv2", "conv_last", "att1.conv",
+                   "att2.conv")
+        for i in range(2):
+            keys += _wb(f"AAB_trunk.{i}.ADM.0", f"AAB_trunk.{i}.ADM.2",
+                        f"AAB_trunk.{i}.conv_first", f"AAB_trunk.{i}.k1.0",
+                        f"AAB_trunk.{i}.conv_last")
+        return keys
+    if kind == "dvd":
+        return _wb("model_y.0.0.0", "model_y.0.1.0", "model_y.0.2",
+                   "model_y.1", "model_y.2", "model_z.0.0.0", "model_z.1",
+                   "model_z.2")
+    if kind == "wbcunet":
+        return _wb("conv", "conv_1", "conv_2", "block_0.conv1",
+                   "block_0.conv2", "conv_6", "conv_7")
+    if kind == "abpn":
+        return _wb("feat0", "feat1", "SA0.f", "up1.deconv", "down1.conv",
+                   "down10.conv", "SA10.f", "weight_down8.conv",
+                   "out") + ["up1.act.weight", "feat0.act.weight"]
+    if kind == "seg":
+        names = (["res2a", "res2b0", "res2b1", "res3a"] + [""] * 3
+                 + ["res4a"] + [""] * 22 + [""] * 3)
+        keys = _wb("feature.0", "feature.3", "feature.6", "feature.43",
+                   "feature.47") + ["deconv.weight"]
+        keys += _bn("feature.1", "feature.4", "feature.7", "feature.44")
+        for n, name in enumerate(names):
+            base = f"feature.{10 + n}"
+            keys += _wb(f"{base}.res.0", f"{base}.res.3", f"{base}.res.6")
+            keys += _bn(f"{base}.res.1", f"{base}.res.4", f"{base}.res.7")
+            if name.endswith("a"):
+                keys += [f"{base}.proj.0.weight"] + _bn(f"{base}.proj.1")
+        return keys
+    if kind == "srflow":
+        keys = _wb("RRDB.conv_first", "RRDB.trunk_conv", "RRDB.upconv1",
+                   "RRDB.upconv2", "RRDB.HRconv", "RRDB.conv_last")
+        keys += _wb(*[f"RRDB.RRDB_trunk.0.RDB{m}.conv{c}"
+                      for m in (1, 2, 3) for c in range(1, 6)])
+        step = "flowUpsamplerNet.layers.0"
+        keys += [f"{step}.actnorm.bias", f"{step}.actnorm.logs",
+                 f"{step}.invconv.weight"]
+        for f in ("fAffine", "fFeatures"):
+            for i in (0, 2):
+                keys += [f"{step}.affine.{f}.{i}.weight",
+                         f"{step}.affine.{f}.{i}.actnorm.bias",
+                         f"{step}.affine.{f}.{i}.actnorm.logs"]
+            keys += _wb(f"{step}.affine.{f}.4") + [
+                f"{step}.affine.{f}.4.logs"]
+        split = "flowUpsamplerNet.layers.1"
+        return keys + _wb(f"{split}.conv") + [f"{split}.conv.logs"]
+    if kind == "edvr":
+        keys = _wb("conv_first", "feature_extraction.0.conv1",
+                   "feature_extraction.0.conv2", "conv_l2_1", "conv_l2_2",
+                   "conv_l3_1", "conv_l3_2", "pcd_align.cas_offset_conv1",
+                   "pcd_align.cas_offset_conv2", "pcd_align.cas_dcnpack",
+                   "pcd_align.cas_dcnpack.conv_offset", "fusion",
+                   "reconstruction.0.conv1", "reconstruction.0.conv2",
+                   "upconv1.0", "upconv2.0", "conv_hr", "conv_last")
+        for lv in (1, 2, 3):
+            keys += _wb(f"pcd_align.offset_conv1.l{lv}",
+                        f"pcd_align.offset_conv2.l{lv}",
+                        f"pcd_align.dcn_pack.l{lv}",
+                        f"pcd_align.dcn_pack.l{lv}.conv_offset")
+            if lv < 3:
+                keys += _wb(f"pcd_align.offset_conv3.l{lv}",
+                            f"pcd_align.feat_conv.l{lv}")
+        return keys
+    raise KeyError(kind)
+
+
+def _layout_sd(kind):
+    """A seeded state dict of a layout: conv-shaped weights, vector
+    biases, logs and statistics, one-element PReLU slopes."""
+    sd = _keys_sd(_layout_keys(kind), 11)
+    for k in list(sd):
+        if k.endswith("act.weight"):
+            sd[k] = sd[k].reshape(-1)[:1].clone()
+        elif k.endswith("running_var"):
+            sd[k] = sd[k].abs()
+    return sd
+
+
+LAYOUTS = ("pan", "resnet_g", "sftnet", "unet", "aan", "dvd", "wbcunet",
+           "abpn", "seg", "srflow", "edvr")
+
+
 @pytest.mark.parametrize("kind", ["esrgan", "esrgan_old", "srresnet",
-                                  "discriminator", "ppon", "sofvsr"])
+                                  "discriminator", "ppon", "sofvsr",
+                                  *LAYOUTS])
 def test_convert_torch_model_ckpts(kind, tmp_path, monkeypatch):
     sd = {"esrgan": lambda: _esrgan_sd(),
           "esrgan_old": lambda: _esrgan_sd(old=True),
           "srresnet": _srresnet_sd, "discriminator": _dvgg_sd,
-          "ppon": _ppon_sd, "sofvsr": _sofvsr_sd}[kind]()
+          "ppon": _ppon_sd, "sofvsr": _sofvsr_sd,
+          **{k: (lambda k=k: _layout_sd(k)) for k in LAYOUTS}}[kind]()
     src = str(tmp_path / "in.pth")
     torch.save({"state_dict": sd} if kind == "esrgan" else sd, src)
     tool_kind = kind.replace("_old", "")
@@ -309,6 +437,14 @@ def test_convert_torch_model_ckpts(kind, tmp_path, monkeypatch):
     run_port("convert_torch_model", [tool_kind, src,
                                      str(tmp_path / "p.ckpt")])
     same_file(tmp_path / "j.ckpt", tmp_path / "p.ckpt")
+    if kind in LAYOUTS:  # the converter took the layout's tensors
+        from trainner_tpu_torch.utils.checkpoint import load_tree
+
+        def leaves(t):
+            return sum(leaves(v) for v in t.values()) \
+                if isinstance(t, dict) else 1
+        assert leaves(load_tree(str(tmp_path / "p.ckpt"))) >= \
+            len(sd) * 2 // 3, kind
 
 
 def test_convert_torch_model_export(tmp_path, monkeypatch):

@@ -4,9 +4,10 @@ tests/test_torch_parallel_models.py, and one rank that runs them.
 Imports torch and the port alone, no JAX, so that a rank starts fast:
 ``python tests/torch_parallel_worker.py SPEC.json`` joins a gloo group
 through the spec's file store, runs each job of the spec (a case on a
-``(data, fsdp)`` mesh for some steps, a checkpoint and a resume, or the
-training CLI on an options file with ``parallel:``) and rank 0 writes
-the results with ``torch.save``. The test runs the same
+``(data, fsdp, tensor)`` mesh for some steps, from the port's init or
+from saved weights, a checkpoint and a resume, or the training CLI on an
+options file with ``parallel:``) and rank 0 writes the results with
+``torch.save``. The test runs the same
 cases in one process without a group for the one-rank step.
 """
 
@@ -71,7 +72,13 @@ def options(case: str) -> dict:
     * ``srragan_auto``: the auto clip (``grad_clip: auto``);
     * ``ppon``: PPON in phase 3 (its GAN and pixel loss);
     * ``pix2pix``: the U-Net G and the PatchGAN, both with batch norms,
-      G with dropout.
+      G with dropout;
+    * ``sr_adamp``, ``sr_sgdp``, ``sr_ranger_gc``: ``sr`` with G under
+      AdamP, SGDP, or ranger with gradient centralisation
+      (``WHOLE_WEIGHT_CASES``), weight decay 1e-2;
+    * ``sr_plain``: ``sr`` without G's latent noise;
+    * ``sr_wide``: ``sr`` at the flagship's widths in one RRDB (nf 64,
+      gc 32) with a D of base_nf 64 (lr_D 1e-3), no latent noise.
     """
     if case == "sr":
         opt = _sr(gan_type="vanilla", gan_weight=5e-3)
@@ -116,9 +123,33 @@ def options(case: str) -> dict:
                          "pixel_weight": 100.0, "gan_type": "vanilla",
                          "gan_weight": 1.0, "lr_scheme": "MultiStepLR",
                          "lr_steps": [50]}}
+    elif case in WHOLE_WEIGHT_CASES:
+        # the rules that read whole weights, on G (A 9 f)
+        opt = _sr(gan_type="vanilla", gan_weight=5e-3,
+                  optim_G=WHOLE_WEIGHT_CASES[case][0], weight_decay_G=1e-2)
+    elif case == "sr_plain":
+        # sr without G's latent noise: the step that the JAX package's
+        # own tensor step is held to from the same weights
+        opt = _sr(gan_type="vanilla", gan_weight=5e-3)
+        opt["network_G"]["gaussian_noise"] = False
+    elif case == "sr_wide":
+        # the flagship's widths in one RRDB (nf 64, gc 32) and a D of
+        # base_nf 64: at the rule's 2^16, conv5 of each block and four D
+        # leaves split
+        opt = _sr(gan_type="vanilla", gan_weight=5e-3)
+        opt["network_G"].update(nf=64, gc=32, gaussian_noise=False)
+        opt["network_D"]["base_nf"] = 64
+        opt["train"]["lr_D"] = 1e-3
     else:
         opt = {"use_amp": False, **_model_options(case)}
     return dict(parse_dict(copy.deepcopy(opt), is_train=True))
+
+
+# case -> (optim_G, use_gc: G's optimizer built with gradient
+# centralisation, which no option of the sr trainer asks for)
+WHOLE_WEIGHT_CASES = {"sr_adamp": ("adamp", False),
+                      "sr_sgdp": ("sgdp", False),
+                      "sr_ranger_gc": ("ranger", True)}
 
 
 def _sgd(**train):
@@ -314,18 +345,39 @@ def grads(net) -> dict:
             for k, p in net.named_parameters() if p.grad is not None}
 
 
+def _trainer(case: str, mesh=None):
+    """The case's trainer on the CPU, eager; G's optimizer with gradient
+    centralisation where ``WHOLE_WEIGHT_CASES`` asks for it."""
+    trainer = create_trainer(options(case), device="cpu", graphs=False,
+                             mesh=mesh)
+    if WHOLE_WEIGHT_CASES.get(case, ("", False))[1]:
+        build = trainer._optimizer
+
+        def with_gc(net, which):
+            opt = build(net, which)
+            opt.use_gc = opt.use_gc or which == "G"
+            return opt
+        trainer._optimizer = with_gc
+    return trainer
+
+
 def run_case(case: str, steps: int, mesh=None, state_path: str = "",
-             save_at: int = -1) -> dict:
+             save_at: int = -1, init: str = "") -> dict:
     """``steps`` steps of a case from ``init_state(0)`` on the CPU, each
     on this rank's slice of the global batch (the whole batch without a
     mesh): the logs of each step, the gradients of the last and the nets'
-    state dicts at the end. With ``state_path`` the state is saved there
-    after ``save_at`` steps (rank 0 writes). A model with image pools also
+    state dicts at the end, and the split leaves computed whole
+    (``whole``). With ``state_path`` the state is saved there after
+    ``save_at`` steps (rank 0 writes); with ``init`` G's and D's state
+    dicts are loaded from that file first. A model with image pools also
     gives each query's global batch of fakes and what the Ds were given
     in its place (``pools``: the ranks' rows put together)."""
-    trainer = create_trainer(options(case), device="cpu", graphs=False,
-                             mesh=mesh)
+    trainer = _trainer(case, mesh)
     state = trainer.init_state(0)
+    if init:
+        saved = torch.load(init, weights_only=False)
+        for w in ("g", "d"):
+            getattr(state, w).net.load_state_dict(saved[w])
     pools = _spy_pools(trainer, mesh)
     logs = []
     for i in range(steps):
@@ -338,7 +390,8 @@ def run_case(case: str, steps: int, mesh=None, state_path: str = "",
         if i + 1 == save_at:
             checkpoint.save_state(state, state_path, epoch=1,
                                   write=mesh is None or mesh.rank == 0)
-    out = {"logs": logs, **nets(state)}
+    out = {"logs": logs, **nets(state), "whole": trainer.whole_leaves,
+           "split": split_leaves(state)}
     if pools is not None:
         out["pools"] = pools
     return out
@@ -405,6 +458,15 @@ def run_rife(mesh=None, swap: bool = False) -> dict:
     return {"outs": got, "g": sd(net), "g_grad": grads(net)}
 
 
+def split_leaves(state) -> list:
+    """The leaves computed by column on the tensor axis (their weights and
+    biases, ``tensor_summed``), as ``field.name``."""
+    return sorted(f"{w}.{k}" for w in NET_FIELDS
+                  if getattr(state, w, None) is not None
+                  for k, p in getattr(state, w).net.named_parameters()
+                  if getattr(p, "tensor_summed", False))
+
+
 def nets(state) -> dict:
     """Each net of the state (``NET_FIELDS``) and its last gradients."""
     out = {}
@@ -420,8 +482,7 @@ def resume_case(case: str, state_path: str, start: int, steps: int,
                 mesh=None) -> dict:
     """A fresh state that loads ``state_path`` and runs the case's steps
     ``start`` .. ``start + steps - 1``; its nets' state dicts."""
-    trainer = create_trainer(options(case), device="cpu", graphs=False,
-                             mesh=mesh)
+    trainer = _trainer(case, mesh)
     state = checkpoint.load_state(state_path, trainer.init_state(0))[0]
     for i in range(start, start + steps):
         b = batch(case, i)
@@ -454,7 +515,8 @@ def main(spec_path: str) -> None:
                                   "g": sd(state.g.net)}
             continue
         mesh = M.make_mesh(
-            M.MeshConfig(data=job["data"], fsdp=job["fsdp"]),
+            M.MeshConfig(data=job["data"], fsdp=job["fsdp"],
+                         tensor=job.get("tensor", 1)),
             min_shard_size=job.get("min_shard", M.MIN_SHARD_SIZE))
         if job.get("state_path"):
             path = job["state_path"]
@@ -465,7 +527,8 @@ def main(spec_path: str) -> None:
                               job["steps"] - job["save_at"], mesh)
             results[job["id"]] = {"full": full, "resumed": res}
         else:
-            results[job["id"]] = run_case(job["case"], job["steps"], mesh)
+            results[job["id"]] = run_case(job["case"], job["steps"], mesh,
+                                          init=job.get("init", ""))
     if rank == 0:
         torch.save(results, spec["out"])
     torch.distributed.barrier()

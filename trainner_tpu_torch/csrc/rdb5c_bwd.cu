@@ -46,6 +46,26 @@
 // on this card, by the tensor cores' rate (bf16 989 TFLOP/s; f32 as
 // 3xTF32, three tf32 products at 495 TFLOP/s per f32 product).
 //
+// On a tensor axis (trainner_tpu_torch/parallel/tensor.py), a conv j split
+// by output column computes only its own columns' share, by the entry
+// points below rdb5c_backward, which trainner_tpu_torch/ops/rdb5c.py::
+// rdb5c_backward_split calls in turn with the collectives between them:
+//  * rdb5c_bwd_part: once dy_j (conv j's output gradient) is known, the
+//    rank's columns' term of every dx stage s <= j, from a copy of dy_j
+//    that holds its columns alone in a 32-column window (zeros around
+//    them), against the window's columns of W_s: the dx tile with an
+//    epilogue that stores the f32 sums (rdb_dx_part_*). The terms are
+//    summed over the tensor group (in one all-reduce per split conv).
+//  * rdb5c_bwd_dx_stage: dx stage k reduces over the column runs of dy_k
+//    that belong to whole convs alone, and its epilogue adds the summed
+//    terms before lrelu' (or + g) (rdb_dx_*stage_part_*). A stage whose terms all came that way
+//    (stage 4 when conv5 is split) is that epilogue alone
+//    (part_epilogue_kernel).
+//  * rdb5c_bwd_dw: the dW slots of columns outside the rank's are skipped
+//    (their partials written as zeros), so the reduction keeps its fixed
+//    order and reruns stay bit-equal.
+//  * rdb5c_bwd_dc5 and rdb5c_bwd_db: dc5 and the column sums, as above.
+//
 // dW, per tap the product c_k[p + s_t]^T dy_k[p] with the pixels as K: a
 // block owns one (stage, 32 channels, 32 columns) slot for all nine taps
 // and keeps its sums in registers over all its pixel tiles. For each halo
@@ -108,6 +128,7 @@ struct Stages {
   int cin[5];
   int ncols[5];
   int off[6];
+  unsigned live[5];     // bit c: the 32-column group c of W_k is computed
 };
 
 // dc5 = 0.2 g, rounded, into the last nf columns of G.
@@ -166,7 +187,10 @@ __global__ void reduce_splits(const float* __restrict__ part,
 // ---------------------------------------------------------------------------
 // dx stages on the tile of conv3x3_mma.cuh.
 // ---------------------------------------------------------------------------
-template <typename T>
+// PART: the f32 terms of split convs added before lrelu' (a kernel of its
+// own, rdb_dx_*_part_*: the f32 tile of the plain stage has no register
+// to spare)
+template <typename T, bool PART>
 struct DxEpilogue {
   const T* act;  // c_k (k >= 1) or g (k == 0), pitch = ncols
   int ncols;
@@ -174,6 +198,8 @@ struct DxEpilogue {
   int dst_pitch;
   int last;      // k == 0
   int h, w;
+  const float* part;  // PART: the summed terms of split convs
+  int part_pitch;
 
   __device__ __forceinline__ void operator()(float (&acc)[2][4][4], int bi,
                                              int y0, int x0) const {
@@ -192,6 +218,11 @@ struct DxEpilogue {
           const int n = f.n + nt * 8;
           const float2 a = rdbm::load2(act + pix * ncols + n);
           float v0 = acc[mt][nt][2 * half], v1 = acc[mt][nt][2 * half + 1];
+          if constexpr (PART) {
+            const float2 q = rdbm::load2(part + pix * part_pitch + n);
+            v0 += q.x;
+            v1 += q.y;
+          }
           if (last) {
             v0 += a.x;
             v1 += a.y;
@@ -209,7 +240,7 @@ struct DxEpilogue {
 // two blocks fit an SM where the stage is narrow: at most 128 registers
 __global__ void __launch_bounds__(rdbm::THREADS, 2)
 rdb_dx_stage_mma(const __grid_constant__ rdbm::ConvArgs<bf16> args,
-                 const DxEpilogue<bf16> epi) {
+                 const DxEpilogue<bf16, false> epi) {
   rdbm::conv3x3_mma<true, false>(args, epi);
 }
 
@@ -217,15 +248,106 @@ rdb_dx_stage_mma(const __grid_constant__ rdbm::ConvArgs<bf16> args,
 // ring of three (halo tile, slab) pairs
 __global__ void __launch_bounds__(rdbm::THREADS, 1)
 rdb_dx_streamed_stage_mma(const __grid_constant__ rdbm::ConvArgs<bf16> args,
-                          const DxEpilogue<bf16> epi) {
+                          const DxEpilogue<bf16, false> epi) {
   rdbm::conv3x3_mma<true, true>(args, epi);
 }
 
 // one block per SM: the ring of two f32 (halo tile, slab) pairs
 __global__ void __launch_bounds__(rdbm::THREADS, 1)
 rdb_dx_stage_tf32(const __grid_constant__ rdbm::ConvArgs<float> args,
-                  const DxEpilogue<float> epi) {
+                  const DxEpilogue<float, false> epi) {
   rdbm::conv3x3_mma<true, false>(args, epi);
+}
+
+// the same three adding the summed terms of split convs
+__global__ void __launch_bounds__(rdbm::THREADS, 2)
+rdb_dx_stage_part_mma(const __grid_constant__ rdbm::ConvArgs<bf16> args,
+                      const DxEpilogue<bf16, true> epi) {
+  rdbm::conv3x3_mma<true, false>(args, epi);
+}
+
+__global__ void __launch_bounds__(rdbm::THREADS, 1)
+rdb_dx_streamed_stage_part_mma(
+    const __grid_constant__ rdbm::ConvArgs<bf16> args,
+    const DxEpilogue<bf16, true> epi) {
+  rdbm::conv3x3_mma<true, true>(args, epi);
+}
+
+__global__ void __launch_bounds__(rdbm::THREADS, 1)
+rdb_dx_stage_part_tf32(const __grid_constant__ rdbm::ConvArgs<float> args,
+                       const DxEpilogue<float, true> epi) {
+  rdbm::conv3x3_mma<true, false>(args, epi);
+}
+
+// A split conv's term of one dx stage: the f32 sums as they are.
+struct PartEpilogue {
+  float* out;  // (pixels, out_pitch)
+  int out_pitch;
+  int h, w;
+
+  __device__ __forceinline__ void operator()(float (&acc)[2][4][4], int bi,
+                                             int y0, int x0) const {
+    const rdbm::FragCoords f = rdbm::frag_coords();
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt) {
+      const int yy = y0 + f.row0 + mt;
+      if (yy >= h) continue;
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int xx = x0 + f.col0 + 8 * half;
+        if (xx >= w) continue;
+        const long long pix = ((long long)bi * h + yy) * w + xx;
+#pragma unroll
+        for (int nt = 0; nt < 4; ++nt)
+          rdbm::store2(out + pix * out_pitch + f.n + nt * 8,
+                       acc[mt][nt][2 * half], acc[mt][nt][2 * half + 1]);
+      }
+    }
+  }
+};
+
+__global__ void __launch_bounds__(rdbm::THREADS, 2)
+rdb_dx_part_mma(const __grid_constant__ rdbm::ConvArgs<bf16> args,
+                const PartEpilogue epi) {
+  rdbm::conv3x3_mma<true, false>(args, epi);
+}
+
+__global__ void __launch_bounds__(rdbm::THREADS, 1)
+rdb_dx_part_streamed_mma(const __grid_constant__ rdbm::ConvArgs<bf16> args,
+                         const PartEpilogue epi) {
+  rdbm::conv3x3_mma<true, true>(args, epi);
+}
+
+__global__ void __launch_bounds__(rdbm::THREADS, 1)
+rdb_dx_part_tf32(const __grid_constant__ rdbm::ConvArgs<float> args,
+                 const PartEpilogue epi) {
+  rdbm::conv3x3_mma<true, false>(args, epi);
+}
+
+// A dx stage whose every term came from split convs: its epilogue alone,
+// v = part, then lrelu' from the sign of c_k (or + g), rounded once.
+template <typename T>
+__global__ void part_epilogue_kernel(const float* __restrict__ part,
+                                     int part_pitch, const T* __restrict__ act,
+                                     int ncols, T* __restrict__ dst,
+                                     int dst_pitch, int last,
+                                     long long npix) {
+  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  const int q = ncols / 2;
+  if (i >= npix * q) return;
+  const long long pix = i / q;
+  const int c = (int)(i % q) * 2;
+  const float2 a = rdbm::load2(act + pix * ncols + c);
+  const float2 p = rdbm::load2(part + pix * part_pitch + c);
+  float v0 = p.x, v1 = p.y;
+  if (last) {
+    v0 += a.x;
+    v1 += a.y;
+  } else {
+    v0 *= a.x >= 0.f ? 1.f : 0.2f;
+    v1 *= a.y >= 0.f ? 1.f : 0.2f;
+  }
+  rdbm::store2(dst + pix * dst_pitch + c, v0, v1);
 }
 
 // ---------------------------------------------------------------------------
@@ -273,6 +395,8 @@ dw_mma_kernel(const __grid_constant__ Stages st,
   const int ns = slot % (ncols / BN);
   const bf16* act = static_cast<const bf16*>(st.act[k]) + cs * KC;
   const bf16* dy = G + k * gc + ns * BN;
+  // a slot of columns that another tensor rank owns: zeros, no tiles
+  const int first = (st.live[k] >> ns) & 1u ? (int)blockIdx.x : ntiles;
 
   const int tid = threadIdx.x;
   const int lane = tid & 31;
@@ -328,9 +452,9 @@ dw_mma_kernel(const __grid_constant__ Stages st,
       for (int e = 0; e < 4; ++e) acc[t][nt][e] = 0.f;
 
   int buf = 0;
-  start_loads(blockIdx.x, 0);
+  start_loads(first, 0);
 #pragma unroll 1
-  for (int tile = blockIdx.x; tile < ntiles; tile += nsplit, buf ^= 1) {
+  for (int tile = first; tile < ntiles; tile += nsplit, buf ^= 1) {
     cp_async_wait<0>();
     __syncthreads();
     start_loads(tile + nsplit, buf ^ 1);
@@ -416,6 +540,8 @@ dw_tf32_kernel(const __grid_constant__ Stages st,
   const int ns = slot % (ncols / BN);
   const float* act = static_cast<const float*>(st.act[k]) + cs * KC;
   const float* dy = G + k * gc + ns * BN;
+  // a slot of columns that another tensor rank owns: zeros, no tiles
+  const int first = (st.live[k] >> ns) & 1u ? (int)blockIdx.x : ntiles;
 
   const int tid = threadIdx.x;
   const int lane = tid & 31;
@@ -465,9 +591,9 @@ dw_tf32_kernel(const __grid_constant__ Stages st,
       for (int e = 0; e < 4; ++e) acc[t][nt][e] = 0.f;
 
   int buf = 0;
-  start_loads(blockIdx.x, 0);
+  start_loads(first, 0);
 #pragma unroll 1
-  for (int tile = blockIdx.x; tile < ntiles; tile += nsplit, buf ^= 1) {
+  for (int tile = first; tile < ntiles; tile += nsplit, buf ^= 1) {
     rdbm::cp_async_wait<0>();
     __syncthreads();
     start_loads(tile + nsplit, buf ^ 1);
@@ -588,129 +714,218 @@ int dw_split_count(int dtype, int b, int h, int w, int nf, int gc) {
 }
 
 template <typename T>
-int launch_bwd(const void* g_, const void* x_, void* const* cs,
-               const void* const* wts, void* G_, float* dw_part,
-               float* db_part, void* dx_, float* dw, float* db,
-               int b, int h, int w, int nf, int gc, int dw_splits,
-               int db_splits, cudaStream_t stream) {
+int configure_bwd() {
   constexpr bool F32 = std::is_same<T, float>::value;
-  const auto dx_stage = [] {
-    if constexpr (F32) return rdb_dx_stage_tf32;
-    else return rdb_dx_stage_mma;
-  }();
-  const auto dw_kernel = [] {
-    if constexpr (F32) return dw_tf32_kernel;
-    else return dw_mma_kernel;
-  }();
-  const size_t dw_smem = F32 ? DWT_SMEM_BYTES : DWM_SMEM_BYTES;
   static bool configured[rdbm::MAX_DEVICES] = {false};
-  static int per_sm[rdbm::MAXCH + 1] = {0};
-  static int per_sm_streamed[1] = {0};
   int dev = 0;
   cudaGetDevice(&dev);
   if (dev >= rdbm::MAX_DEVICES) return (int)cudaErrorInvalidDevice;
-  if (!configured[dev]) {
-    cudaError_t e = cudaFuncSetAttribute(
-        dx_stage, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)rdbm::conv_smem_bytes<T>(rdbm::MAXCH));
-    if (e != cudaSuccess) return (int)e;
-    if (!F32) {
-      e = cudaFuncSetAttribute(rdb_dx_streamed_stage_mma,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)rdbm::conv_smem_bytes<T>(rdbm::MAXCH + 1));
-      if (e != cudaSuccess) return (int)e;
-    }
-    e = cudaFuncSetAttribute(
-        dw_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)dw_smem);
-    if (e != cudaSuccess) return (int)e;
-    configured[dev] = true;
+  if (configured[dev]) return 0;
+  const size_t narrow = rdbm::conv_smem_bytes<T>(rdbm::MAXCH);
+  const size_t wide = rdbm::conv_smem_bytes<T>(rdbm::MAXCH + 1);
+  const void* kernels[8];
+  size_t bytes[8];
+  int n = 0;
+  if (F32) {
+    kernels[n] = (const void*)rdb_dx_stage_tf32, bytes[n++] = narrow;
+    kernels[n] = (const void*)rdb_dx_stage_part_tf32, bytes[n++] = narrow;
+    kernels[n] = (const void*)rdb_dx_part_tf32, bytes[n++] = narrow;
+    kernels[n] = (const void*)dw_tf32_kernel, bytes[n++] = DWT_SMEM_BYTES;
+  } else {
+    kernels[n] = (const void*)rdb_dx_stage_mma, bytes[n++] = narrow;
+    kernels[n] = (const void*)rdb_dx_stage_part_mma, bytes[n++] = narrow;
+    kernels[n] = (const void*)rdb_dx_part_mma, bytes[n++] = narrow;
+    kernels[n] = (const void*)rdb_dx_streamed_stage_mma, bytes[n++] = wide;
+    kernels[n] = (const void*)rdb_dx_streamed_stage_part_mma,
+    bytes[n++] = wide;
+    kernels[n] = (const void*)rdb_dx_part_streamed_mma, bytes[n++] = wide;
+    kernels[n] = (const void*)dw_mma_kernel, bytes[n++] = DWM_SMEM_BYTES;
   }
-  const T* g = static_cast<const T*>(g_);
-  T* G = static_cast<T*>(G_);
-  const int gw = 4 * gc + nf;
-  const long long npix = (long long)b * h * w;
+  for (int i = 0; i < n; ++i) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        kernels[i], cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)bytes[i]);
+    if (e != cudaSuccess) return (int)e;
+  }
+  configured[dev] = true;
+  return 0;
+}
 
+template <typename T>
+rdbm::ConvArgs<T> tile_args(int b, int h, int w) {
   rdbm::ConvArgs<T> args;
   args.h = h;
   args.w = w;
   args.tiles_x = (w + rdbm::TW - 1) / rdbm::TW;
   args.tiles_y = (h + rdbm::TH - 1) / rdbm::TH;
   args.ntiles = b * args.tiles_y * args.tiles_x;
-  args.nseg = 1;
+  args.nseg = 0;
+  args.nchunks = 0;
+  return args;
+}
 
-  Stages st;
-  st.off[0] = 0;
-  for (int k = 0; k < 5; ++k) {
-    st.w[k] = wts[k];
-    st.act[k] = k == 0 ? x_ : cs[k - 1];
-    st.cin[k] = k == 0 ? nf : gc;
-    st.ncols[k] = gw - k * gc;
-    st.off[k + 1] = st.off[k] + 9 * st.cin[k] * st.ncols[k];
+// One launch of the dx tile over args' segments, nslices 32-column slices
+// of output, with a stage's epilogue (DxEpilogue) or a split conv's term's
+// (PartEpilogue).
+template <typename T, typename Epi>
+int launch_dx_tile(const rdbm::ConvArgs<T>& args, const Epi& epi,
+                   int nslices, cudaStream_t stream) {
+  constexpr bool F32 = std::is_same<T, float>::value;
+  // a split conv's terms; a stage adding such terms; a plain stage
+  constexpr bool TERMS = std::is_same<Epi, PartEpilogue>::value;
+  constexpr bool ADDS = std::is_same<Epi, DxEpilogue<T, true>>::value;
+  static int per_sm[rdbm::MAXCH + 1] = {0};
+  static int per_sm_streamed[1] = {0};
+  const size_t smem = rdbm::conv_smem_bytes<T>(args.nchunks);
+  const auto grid = [&](auto kernel, auto& cache, int key) {
+    return dim3((unsigned)rdbm::conv_grid_x(kernel, cache, key, smem,
+                                            args.ntiles, nslices),
+                (unsigned)nslices);
+  };
+  constexpr int T_ = rdbm::THREADS;
+  if constexpr (F32) {
+    if constexpr (TERMS)
+      rdb_dx_part_tf32<<<grid(rdb_dx_part_tf32, per_sm, 0), T_, smem,
+                         stream>>>(args, epi);
+    else if constexpr (ADDS)
+      rdb_dx_stage_part_tf32<<<grid(rdb_dx_stage_part_tf32, per_sm, 0), T_,
+                               smem, stream>>>(args, epi);
+    else
+      rdb_dx_stage_tf32<<<grid(rdb_dx_stage_tf32, per_sm, 0), T_, smem,
+                          stream>>>(args, epi);
+  } else if (rdbm::bf16_streams(args.nchunks)) {
+    if constexpr (TERMS)
+      rdb_dx_part_streamed_mma<<<grid(rdb_dx_part_streamed_mma,
+                                      per_sm_streamed, 0),
+                                 T_, smem, stream>>>(args, epi);
+    else if constexpr (ADDS)
+      rdb_dx_streamed_stage_part_mma<<<grid(rdb_dx_streamed_stage_part_mma,
+                                            per_sm_streamed, 0),
+                                       T_, smem, stream>>>(args, epi);
+    else
+      rdb_dx_streamed_stage_mma<<<grid(rdb_dx_streamed_stage_mma,
+                                       per_sm_streamed, 0),
+                                  T_, smem, stream>>>(args, epi);
+  } else {
+    if constexpr (TERMS)
+      rdb_dx_part_mma<<<grid(rdb_dx_part_mma, per_sm, args.nchunks), T_,
+                        smem, stream>>>(args, epi);
+    else if constexpr (ADDS)
+      rdb_dx_stage_part_mma<<<grid(rdb_dx_stage_part_mma, per_sm,
+                                   args.nchunks),
+                              T_, smem, stream>>>(args, epi);
+    else
+      rdb_dx_stage_mma<<<grid(rdb_dx_stage_mma, per_sm, args.nchunks), T_,
+                         smem, stream>>>(args, epi);
   }
-  const int total = st.off[5];
+  return (int)cudaGetLastError();
+}
 
-  dc5_kernel<T><<<(unsigned)((npix * (nf / 4) + 255) / 256), 256, 0,
-                  stream>>>(g, G, npix, nf, gw);
-  RDB_CHECK_LAUNCH();
-
-  for (int k = 4; k >= 0; --k) {
-    const int ncols = st.cin[k];  // columns of dc_k
-    // dy_k = G's columns from k*gc against the packed W_k as it lies
-    rdbm::Segment<T>& sg = args.seg[0];
-    sg.a = G + k * gc;
+// dx stage k over the column runs [lo_i, lo_i + n_i) of dy_k (from G's
+// column k * gc, and of W_k's columns), adding part (pitch part_pitch)
+// before lrelu' (or + g) where it is not null. With no run, the
+// epilogue alone.
+template <typename T>
+int launch_dx_stage(int k, const T* G, const T* wk, int nruns,
+                    const int* run_lo, const int* run_n, const float* part,
+                    int part_pitch, const T* act, T* dst, int dst_pitch,
+                    int b, int h, int w, int nf, int gc,
+                    cudaStream_t stream) {
+  const int gw = 4 * gc + nf;
+  const int cin = k == 0 ? nf : gc;
+  const int ncols = gw - k * gc;  // columns of dy_k and of W_k
+  if (nruns < 0 || nruns > rdbm::NSEG) return (int)cudaErrorInvalidValue;
+  if (nruns == 0) {
+    if (part == nullptr) return (int)cudaErrorInvalidValue;
+    const long long npix = (long long)b * h * w;
+    part_epilogue_kernel<T><<<(unsigned)((npix * (cin / 2) + 255) / 256), 256,
+                              0, stream>>>(part, part_pitch, act, cin, dst,
+                                           dst_pitch, k == 0, npix);
+    return (int)cudaGetLastError();
+  }
+  rdbm::ConvArgs<T> args = tile_args<T>(b, h, w);
+  args.nseg = nruns;
+  for (int i = 0; i < nruns; ++i) {
+    if (run_lo[i] % rdbm::KC || run_n[i] % rdbm::KC || run_n[i] < 1 ||
+        run_lo[i] + run_n[i] > ncols)
+      return (int)cudaErrorInvalidValue;
+    rdbm::Segment<T>& sg = args.seg[i];
+    sg.a = G + k * gc + run_lo[i];
     sg.a_pitch = gw;
-    sg.w = static_cast<const T*>(wts[k]);
-    sg.w_pitch = st.ncols[k];
-    sg.w_tap = st.cin[k];
+    sg.w = wk + run_lo[i];
+    sg.w_pitch = ncols;
+    sg.w_tap = cin;
     sg.w_step = rdbm::KC;
-    sg.nchunks = st.ncols[k] / rdbm::KC;
-    args.nchunks = sg.nchunks;
-    DxEpilogue<T> epi;
-    epi.act = k == 0 ? g : static_cast<const T*>(cs[k - 1]);
-    epi.ncols = ncols;
-    epi.dst = k == 0 ? static_cast<T*>(dx_) : G + (k - 1) * gc;
-    epi.dst_pitch = k == 0 ? nf : gw;
+    sg.nchunks = run_n[i] / rdbm::KC;
+    args.nchunks += sg.nchunks;
+  }
+  const auto fill = [&](auto& epi) {
+    epi.act = act;
+    epi.ncols = cin;
+    epi.dst = dst;
+    epi.dst_pitch = dst_pitch;
     epi.last = k == 0;
     epi.h = h;
     epi.w = w;
-    const int nslices = ncols / rdbm::BN;
-    const size_t smem = rdbm::conv_smem_bytes<T>(args.nchunks);
-    if constexpr (F32) {
-      const dim3 grid((unsigned)rdbm::conv_grid_x(dx_stage, per_sm, 0, smem,
-                                                  args.ntiles, nslices),
-                      (unsigned)nslices);
-      rdb_dx_stage_tf32<<<grid, rdbm::THREADS, smem, stream>>>(args, epi);
-    } else if (rdbm::bf16_streams(args.nchunks)) {
-      const dim3 grid((unsigned)rdbm::conv_grid_x(rdb_dx_streamed_stage_mma,
-                                                  per_sm_streamed, 0, smem,
-                                                  args.ntiles, nslices),
-                      (unsigned)nslices);
-      rdb_dx_streamed_stage_mma<<<grid, rdbm::THREADS, smem, stream>>>(args,
-                                                                       epi);
-    } else {
-      const dim3 grid((unsigned)rdbm::conv_grid_x(dx_stage, per_sm,
-                                                  args.nchunks, smem,
-                                                  args.ntiles, nslices),
-                      (unsigned)nslices);
-      rdb_dx_stage_mma<<<grid, rdbm::THREADS, smem, stream>>>(args, epi);
-    }
-    RDB_CHECK_LAUNCH();
+    epi.part = part;
+    epi.part_pitch = part_pitch;
+  };
+  if (part == nullptr) {
+    DxEpilogue<T, false> epi;
+    fill(epi);
+    return launch_dx_tile<T>(args, epi, cin / rdbm::BN, stream);
   }
+  DxEpilogue<T, true> epi;
+  fill(epi);
+  return launch_dx_tile<T>(args, epi, cin / rdbm::BN, stream);
+}
 
+template <typename T>
+Stages make_stages(const void* x, void* const* cs, const void* const* wts,
+                   int nf, int gc, const unsigned* live) {
+  Stages st;
+  st.off[0] = 0;
+  for (int k = 0; k < 5; ++k) {
+    st.w[k] = wts ? wts[k] : nullptr;
+    st.act[k] = k == 0 ? x : cs[k - 1];
+    st.cin[k] = k == 0 ? nf : gc;
+    st.ncols[k] = 4 * gc + nf - k * gc;
+    st.off[k + 1] = st.off[k] + 9 * st.cin[k] * st.ncols[k];
+    st.live[k] = live ? live[k] : ~0u;
+  }
+  return st;
+}
+
+template <typename T>
+int launch_dw(const Stages& st, const T* G, float* dw_part, float* dw, int b,
+              int h, int w, int nf, int gc, int dw_splits,
+              cudaStream_t stream) {
+  constexpr bool F32 = std::is_same<T, float>::value;
+  const int gw = 4 * gc + nf;
+  const int tiles_x = (w + rdbm::TW - 1) / rdbm::TW;
+  const int tiles_y = (h + rdbm::TH - 1) / rdbm::TH;
+  const int ntiles = b * tiles_y * tiles_x;
   const dim3 dw_grid((unsigned)dw_splits, (unsigned)count_dw_slots(nf, gc));
   if constexpr (F32)
     dw_tf32_kernel<<<dw_grid, DWT_THREADS, DWT_SMEM_BYTES, stream>>>(
-        st, G, gw, gc, dw_part, h, w, args.tiles_x, args.tiles_y,
-        args.ntiles, dw_splits);
+        st, G, gw, gc, dw_part, h, w, tiles_x, tiles_y, ntiles, dw_splits);
   else
     dw_mma_kernel<<<dw_grid, DWM_THREADS, DWM_SMEM_BYTES, stream>>>(
-        st, G, gw, gc, dw_part, h, w, args.tiles_x, args.tiles_y,
-        args.ntiles, dw_splits);
+        st, G, gw, gc, dw_part, h, w, tiles_x, tiles_y, ntiles, dw_splits);
   RDB_CHECK_LAUNCH();
+  const int total = st.off[5];
   reduce_splits<<<(total + 255) / 256, 256, 0, stream>>>(dw_part, dw, total,
                                                          dw_splits);
   RDB_CHECK_LAUNCH();
+  return 0;
+}
 
+template <typename T>
+int launch_db(const T* G, const T* g, float* db_part, float* db, int b,
+              int h, int w, int nf, int gc, int db_splits,
+              cudaStream_t stream) {
+  const int gw = 4 * gc + nf;
+  const long long npix = (long long)b * h * w;
   const int rows = (int)((npix + db_splits - 1) / db_splits);
   colsum_kernel<T><<<db_splits, gw, 0, stream>>>(G, g, db_part, npix, nf, gw,
                                                  rows);
@@ -719,6 +934,45 @@ int launch_bwd(const void* g_, const void* x_, void* const* cs,
                                                       db_splits);
   RDB_CHECK_LAUNCH();
   return 0;
+}
+
+template <typename T>
+int launch_dc5(const T* g, T* G, int b, int h, int w, int nf, int gc,
+               cudaStream_t stream) {
+  const long long npix = (long long)b * h * w;
+  dc5_kernel<T><<<(unsigned)((npix * (nf / 4) + 255) / 256), 256, 0,
+                  stream>>>(g, G, npix, nf, 4 * gc + nf);
+  RDB_CHECK_LAUNCH();
+  return 0;
+}
+
+template <typename T>
+int launch_bwd(const void* g_, const void* x_, void* const* cs,
+               const void* const* wts, void* G_, float* dw_part,
+               float* db_part, void* dx_, float* dw, float* db,
+               int b, int h, int w, int nf, int gc, int dw_splits,
+               int db_splits, cudaStream_t stream) {
+  int e = configure_bwd<T>();
+  if (e) return e;
+  const T* g = static_cast<const T*>(g_);
+  T* G = static_cast<T*>(G_);
+  const int gw = 4 * gc + nf;
+  if ((e = launch_dc5<T>(g, G, b, h, w, nf, gc, stream))) return e;
+  for (int k = 4; k >= 0; --k) {
+    // dy_k = G's columns from k*gc against the packed W_k as it lies
+    const int lo = 0, n = gw - k * gc;
+    e = launch_dx_stage<T>(
+        k, G, static_cast<const T*>(wts[k]), 1, &lo, &n, nullptr, 0,
+        k == 0 ? g : static_cast<const T*>(cs[k - 1]),
+        k == 0 ? static_cast<T*>(dx_) : G + (k - 1) * gc, k == 0 ? nf : gw,
+        b, h, w, nf, gc, stream);
+    if (e) return e;
+  }
+  const Stages st = make_stages<T>(x_, cs, wts, nf, gc, nullptr);
+  if ((e = launch_dw<T>(st, G, dw_part, dw, b, h, w, nf, gc, dw_splits,
+                        stream)))
+    return e;
+  return launch_db<T>(G, g, db_part, db, b, h, w, nf, gc, db_splits, stream);
 }
 
 }  // namespace
@@ -753,6 +1007,126 @@ int rdb5c_backward(int dtype, const void* g, const void* x,
   if (dtype == 1)
     return launch_bwd<bf16>(g, x, cs, wts, G, dw_part, db_part, dx, dw, db,
                             b, h, w, nf, gc, dw_splits, db_splits, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+// The pieces of the split backward (see the top of this file), in the
+// layout of rdb5c_backward. dtype: 0 = float32, 1 = bfloat16.
+
+// dc5 = 0.2 g into G's last nf columns.
+int rdb5c_bwd_dc5(int dtype, const void* g, void* G, int b, int h, int w,
+                  int nf, int gc, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0)
+    return launch_dc5<float>(static_cast<const float*>(g),
+                             static_cast<float*>(G), b, h, w, nf, gc, s);
+  if (dtype == 1)
+    return launch_dc5<bf16>(static_cast<const bf16*>(g),
+                            static_cast<bf16*>(G), b, h, w, nf, gc, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+// A split conv's term of one dx stage: dyw (pixels, win) in the working
+// type, the conv's output gradient in a 32-column window (zeros outside
+// the rank's columns), against the columns [c0, c0 + win) of the packed
+// weight wk (9*cin, wpitch); the f32 sums into out (pixels, out_pitch),
+// its first cin columns.
+int rdb5c_bwd_part(int dtype, const void* dyw, const void* wk, float* out,
+                   int win, int cin, int wpitch, int c0, int out_pitch,
+                   int b, int h, int w, int nf, int gc, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (win % rdbm::KC || cin % rdbm::BN || c0 % rdbm::KC || c0 < 0 ||
+      c0 + win > wpitch)
+    return (int)cudaErrorInvalidValue;
+  PartEpilogue epi;
+  epi.out = out;
+  epi.out_pitch = out_pitch;
+  epi.h = h;
+  epi.w = w;
+  auto run = [&](auto tag) -> int {
+    using T = decltype(tag);
+    const int e = configure_bwd<T>();
+    if (e) return e;
+    rdbm::ConvArgs<T> args = tile_args<T>(b, h, w);
+    args.nseg = 1;
+    rdbm::Segment<T>& sg = args.seg[0];
+    sg.a = static_cast<const T*>(dyw);
+    sg.a_pitch = win;
+    sg.w = static_cast<const T*>(wk) + c0;
+    sg.w_pitch = wpitch;
+    sg.w_tap = cin;
+    sg.w_step = rdbm::KC;
+    sg.nchunks = win / rdbm::KC;
+    args.nchunks = sg.nchunks;
+    return launch_dx_tile<T>(args, epi, cin / rdbm::BN, s);
+  };
+  if (dtype == 0) return run(float());
+  if (dtype == 1) return run(bf16());
+  return (int)cudaErrorInvalidValue;
+}
+
+// dx stage k over nruns column runs of dy_k (run_lo, run_n: multiples of
+// 32, relative to conv k's first column), plus part where it is not null;
+// into dst (G's slot k-1 at pitch dst_pitch, or dx). act: c_k, or g.
+int rdb5c_bwd_dx_stage(int dtype, const void* G, const void* wk, int k,
+                       int nruns, const int* run_lo, const int* run_n,
+                       const float* part, const void* act, void* dst,
+                       int part_pitch, int dst_pitch, int last, int b, int h,
+                       int w, int nf, int gc, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (k < 0 || k > 4 || last != (k == 0 ? 1 : 0))
+    return (int)cudaErrorInvalidValue;
+  auto run = [&](auto tag) -> int {
+    using T = decltype(tag);
+    const int e = configure_bwd<T>();
+    if (e) return e;
+    return launch_dx_stage<T>(k, static_cast<const T*>(G),
+                              static_cast<const T*>(wk), nruns, run_lo, run_n,
+                              part, part_pitch, static_cast<const T*>(act),
+                              static_cast<T*>(dst), dst_pitch, b, h, w, nf,
+                              gc, s);
+  };
+  if (dtype == 0) return run(float());
+  if (dtype == 1) return run(bf16());
+  return (int)cudaErrorInvalidValue;
+}
+
+// dW of the five stages with the slots of dead 32-column groups (live[k]
+// bit c clear) written as zeros; dw_part as rdb5c_backward's.
+int rdb5c_bwd_dw(int dtype, const void* G, const void* x, void* c1, void* c2,
+                 void* c3, void* c4, float* dw_part, float* dw,
+                 const unsigned* live, int dw_splits, int b, int h, int w,
+                 int nf, int gc, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  void* cs[4] = {c1, c2, c3, c4};
+  if (dw_splits != dw_split_count(dtype, b, h, w, nf, gc))
+    return (int)cudaErrorInvalidValue;
+  auto run = [&](auto tag) -> int {
+    using T = decltype(tag);
+    const int e = configure_bwd<T>();
+    if (e) return e;
+    const Stages st = make_stages<T>(x, cs, nullptr, nf, gc, live);
+    return launch_dw<T>(st, static_cast<const T*>(G), dw_part, dw, b, h, w,
+                        nf, gc, dw_splits, s);
+  };
+  if (dtype == 0) return run(float());
+  if (dtype == 1) return run(bf16());
+  return (int)cudaErrorInvalidValue;
+}
+
+// db1..db5 as rdb5c_backward's.
+int rdb5c_bwd_db(int dtype, const void* G, const void* g, float* db_part,
+                 float* db, int db_splits, int b, int h, int w, int nf,
+                 int gc, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0)
+    return launch_db<float>(static_cast<const float*>(G),
+                            static_cast<const float*>(g), db_part, db, b, h,
+                            w, nf, gc, db_splits, s);
+  if (dtype == 1)
+    return launch_db<bf16>(static_cast<const bf16*>(G),
+                           static_cast<const bf16*>(g), db_part, db, b, h, w,
+                           nf, gc, db_splits, s);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -25,6 +25,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..parallel import tensor
 from ..ops.blocks import (Conv, TorchDeconv, _Conv, bicubic_torch,
                           lecun_init, named_flax_paths)
 
@@ -50,8 +51,8 @@ class _Conv4(_Conv):
         super().__init__(in_nc, out_nc, 6, stride=4)
 
     def forward(self, x):
-        return F.conv2d(x, self.weight.to(x.dtype), self.bias.to(x.dtype),
-                        stride=4, padding=1)
+        return tensor.apply(self, x, lambda x, w, b: F.conv2d(
+            x, w, b, stride=4, padding=1))
 
 
 class ConvB(nn.Module):

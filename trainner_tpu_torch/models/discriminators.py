@@ -18,6 +18,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..parallel import tensor
 from ..ops.blocks import (BatchNorm, ConvBlock, SpectralNorm, _Conv,
                           bilinear_torch, commit_stats, conv_paths)
 
@@ -38,6 +39,13 @@ class _Discriminator(nn.Module):
                         m.bias.zero_()
                 elif isinstance(m, SpectralNorm):
                     m.init_state(generator)
+
+    def route_linears(self) -> None:
+        """Its linear layers run through ``_linear``, by output column on
+        a tensor axis (``parallel/tensor.py``)."""
+        for m in self.modules():
+            if isinstance(m, nn.Linear):
+                m.tensor_routed = True
 
     def norms(self):
         """The modules whose state a pass leaves pending: batch norms and
@@ -312,4 +320,4 @@ def _avg_pool_valid(x: torch.Tensor) -> torch.Tensor:
 
 def _linear(layer: nn.Linear, x: torch.Tensor) -> torch.Tensor:
     """f32 parameters, product in the input's type."""
-    return F.linear(x, layer.weight.to(x.dtype), layer.bias.to(x.dtype))
+    return tensor.apply(layer, x, F.linear, out_dim=-1)

@@ -24,6 +24,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..parallel import tensor
 from ..ops.blocks import _Conv, lecun_init, named_flax_paths
 
 
@@ -60,9 +61,8 @@ class _FieldConv(_Conv):
         self.stride = stride
 
     def forward(self, x):
-        return F.conv2d(x, self.weight.to(x.dtype), self.bias.to(x.dtype),
-                        stride=self.stride, padding=(self.weight.shape[-1]
-                                                     - 1) // 2)
+        return tensor.apply(self, x, lambda x, w, b: F.conv2d(
+            x, w, b, stride=self.stride, padding=(w.shape[-1] - 1) // 2))
 
 
 class DVDNet(nn.Module):

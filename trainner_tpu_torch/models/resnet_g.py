@@ -30,6 +30,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..parallel import tensor
 from ..ops.blocks import (BatchNorm, Dropout, InstanceNorm, TorchDeconv,
                           _Conv, conv_paths, explicit_pad, lecun_init,
                           norm_paths)
@@ -48,9 +49,8 @@ def make_norm(norm_type: Optional[str], nc: int) -> nn.Module:
 def conv(m: _Conv, x: torch.Tensor, padding: int = 0) -> torch.Tensor:
     """The conv of ``m`` on ``x`` with zero padding ``padding`` on each
     side, in x's type."""
-    return F.conv2d(x, m.weight.to(x.dtype),
-                    None if m.bias is None else m.bias.to(x.dtype),
-                    stride=m.stride, padding=padding)
+    return tensor.apply(m, x, lambda x, w, b: F.conv2d(
+        x, w, b, stride=m.stride, padding=padding))
 
 
 def _fold(g: torch.Tensor, p: int, dim: int, reflect: bool):

@@ -20,6 +20,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..parallel import tensor
 from ..ops.blocks import BatchNorm, Conv, conv_nhwc, depth_to_space, \
     interpolate, lecun_init, named_flax_paths
 from ..ops.warp import flow_warp_pix
@@ -170,9 +171,8 @@ class _Deconv(Conv):
     one."""
 
     def forward(self, x):
-        w = self.weight.transpose(0, 1).flip(2, 3).to(x.dtype)
-        return F.conv_transpose2d(x, w, self.bias.to(x.dtype), stride=2,
-                                  padding=1)
+        return tensor.apply(self, x, lambda x, w, b: F.conv_transpose2d(
+            x, w.transpose(0, 1).flip(2, 3), b, stride=2, padding=1))
 
 
 class FusionNet(_Dtype):

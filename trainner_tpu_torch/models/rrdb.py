@@ -12,11 +12,14 @@ A residual dense block of the flagship form (CNA, LeakyReLU, no norm, no
 ``rrdb.py:496-500``) runs the hand-written kernels of ``ops.rdb5c`` (their
 plain PyTorch versions on the CPU): ``rdb5c_forward`` alone when no
 gradient is asked for, ``RDB5CFunction`` (forward with residuals, kernel
-backward) under autograd. Any other block runs the composite five-conv
-chain (``_unfused_forward``: the block's ``ConvBlock``s with their norm,
-mode and activation, ESRGAN+'s ``conv1x1`` path with ``plus``) on PyTorch's
-convolutions, as the JAX package runs it outside Pallas; for a kernel
-block that chain is the test oracle.
+backward) under autograd; on a tensor axis that splits some of its convs
+(``parallel/tensor.py``), the same kernels by stage over column ranges
+(``RDB5CSplitFunction``, ``rdb5c_forward_split``). Any other block runs
+the composite five-conv chain (``_unfused_forward``: the block's
+``ConvBlock``s with their norm, mode and activation, ESRGAN+'s
+``conv1x1`` path with ``plus``) on PyTorch's convolutions, as the JAX
+package runs it outside Pallas; for a kernel block that chain is the
+test oracle.
 """
 
 from __future__ import annotations
@@ -33,6 +36,8 @@ from ..ops.blocks import (ConvBlock, GaussianNoise, PixelShuffleBlock,
 _FAST_ACTS = ("leakyrelu", "lrelu")
 from ..ops import rdb5c
 from ..ops.rdb5c import pack_block
+from ..parallel import tensor
+from ..parallel.collectives import tensor_all_reduce
 
 
 class ResidualDenseBlock5C(nn.Module):
@@ -107,12 +112,22 @@ class ResidualDenseBlock5C(nn.Module):
             out = self._unfused_forward(x)
             return out if self.noise is None else self.noise(out)
         nhwc = x.permute(0, 2, 3, 1)
+        # on a tensor axis: this rank's columns of each split conv
+        cols = tuple(tensor.columns(c) for c in self.convs())
+        split = any(c is not None for c in cols)
         if torch.is_grad_enabled():
             params = [p for c in self.convs() for p in (c.weight, c.bias)]
-            out = rdb5c.RDB5CFunction.apply(nhwc, self.packed, *params)
+            if split:
+                out = rdb5c.RDB5CSplitFunction.apply(nhwc, self.packed,
+                                                     cols, *params)
+            else:
+                out = rdb5c.RDB5CFunction.apply(nhwc, self.packed, *params)
         else:
             ws, bs = self.packed(x.dtype)
-            out = rdb5c.rdb5c_forward(nhwc, ws, bs)
+            out = rdb5c.run_split(
+                rdb5c.rdb5c_forward_split(nhwc.contiguous(), ws, bs, cols),
+                tensor_all_reduce)[0] if split else \
+                rdb5c.rdb5c_forward(nhwc, ws, bs)
         out = out.permute(0, 3, 1, 2)
         return out if self.noise is None else self.noise(out)
 

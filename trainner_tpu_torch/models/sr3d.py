@@ -19,6 +19,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..parallel import tensor
 from ..ops.blocks import depth_to_space, lecun_init, named_flax_paths, \
     resize_torch, space_to_depth, _Conv
 
@@ -33,8 +34,8 @@ class _Conv3d(_Conv):
         self.pad = (0, 1, 1) if temporal_valid else (1, 1, 1)
 
     def forward(self, x):
-        return F.conv3d(x, self.weight.to(x.dtype), self.bias.to(x.dtype),
-                        padding=self.pad)
+        return tensor.apply(self, x, lambda x, w, b: F.conv3d(
+            x, w, b, padding=self.pad))
 
 
 class SR3DNet(nn.Module):

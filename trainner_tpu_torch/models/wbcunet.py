@@ -29,6 +29,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..parallel import tensor
 from ..ops.blocks import _Conv, lecun_init, named_flax_paths, resize_torch
 
 
@@ -74,8 +75,8 @@ class _WConv(_Conv):
         self.pad = (k - 1) // 2 if pad is None else pad
 
     def forward(self, x):
-        return F.conv2d(x, self.weight.to(x.dtype), self.bias.to(x.dtype),
-                        stride=self.stride, padding=self.pad)
+        return tensor.apply(self, x, lambda x, w, b: F.conv2d(
+            x, w, b, stride=self.stride, padding=self.pad))
 
 
 class WBCResBlock(nn.Module):

@@ -47,6 +47,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..parallel import tensor
 from ..parallel.collectives import batch_mean, sample_draw
 from ..utils.graphs import device_constant
 
@@ -340,7 +341,12 @@ class SpectralNorm(nn.Module):
 
 class _Conv(nn.Module):
     """Holds one conv's f32 ``weight`` (OIHW) and ``bias``, and with
-    ``spectral_norm`` the ``SpectralNorm`` of its weight (``sn``)."""
+    ``spectral_norm`` the ``SpectralNorm`` of its weight (``sn``). Its
+    conv runs through ``parallel/tensor.py::apply`` (by output column on
+    a tensor axis); a subclass that convolves at a site of its own routes
+    it there too, or sets ``tensor_routed`` False."""
+
+    tensor_routed = True
 
     def __init__(self, in_nc: int, out_nc: int, kernel_size: int,
                  use_bias: bool = True, stride: int = 1,
@@ -370,10 +376,9 @@ class _Conv(nn.Module):
             weight = self.sn(weight)
         bias = self.bias if bias is None else bias
         conv = F.conv3d if weight.dim() == 5 else F.conv2d
-        return conv(x, weight.to(x.dtype),
-                    None if bias is None else bias.to(x.dtype),
-                    stride=self.stride, padding=(weight.shape[-1] - 1) // 2,
-                    groups=self.groups)
+        return tensor.apply(self, x, lambda x, w, b: conv(
+            x, w, b, stride=self.stride, padding=(w.shape[-1] - 1) // 2,
+            groups=self.groups), weight, bias)
 
 
 class BatchNorm(nn.Module):
@@ -526,10 +531,9 @@ class ConvBlock(_Conv):
             return partial_conv(x, self.weight, self.bias, self.stride, pad)
         if self.pad_type in _PAD_MODES:
             weight = self.weight if self.sn is None else self.sn(self.weight)
-            return F.conv2d(explicit_pad(x, pad, self.pad_type),
-                            weight.to(x.dtype),
-                            None if self.bias is None
-                            else self.bias.to(x.dtype), stride=self.stride)
+            return tensor.apply(self, explicit_pad(x, pad, self.pad_type),
+                                lambda x, w, b: F.conv2d(
+                                    x, w, b, stride=self.stride), weight)
         return self._conv(x)
 
     def forward(self, x):
@@ -659,23 +663,24 @@ class Conv(_Conv):
         self.dilation = dilation
 
     def forward(self, x):
-        return F.conv2d(x, self.weight.to(x.dtype),
-                        None if self.bias is None else self.bias.to(x.dtype),
-                        stride=self.stride,
-                        padding=self.dilation * (self.weight.shape[-1] - 1)
-                        // 2, dilation=self.dilation, groups=self.groups)
+        return tensor.apply(self, x, lambda x, w, b: F.conv2d(
+            x, w, b, stride=self.stride,
+            padding=self.dilation * (w.shape[-1] - 1) // 2,
+            dilation=self.dilation, groups=self.groups))
 
 
 class Dense(nn.Module):
     """flax's ``nn.Dense`` without a bias: ``weight`` (out, in), torch's
     layout (flax's ``kernel`` is its transpose); runs in x's type."""
 
+    tensor_routed = True
+
     def __init__(self, in_f: int, out_f: int):
         super().__init__()
         self.weight = nn.Parameter(torch.zeros(out_f, in_f))
 
     def forward(self, x):
-        return F.linear(x, self.weight.to(x.dtype))
+        return tensor.apply(self, x, F.linear, out_dim=-1)
 
 
 class TorchDeconv(nn.Module):
@@ -706,12 +711,12 @@ class TorchDeconv(nn.Module):
             if self.bias is not None:
                 self.bias.zero_()
 
+    tensor_routed = True
+
     def forward(self, x):
-        return F.conv_transpose2d(
-            x, self.weight.to(x.dtype),
-            None if self.bias is None else self.bias.to(x.dtype),
-            stride=self.stride, padding=self.padding,
-            output_padding=self.output_padding)
+        return tensor.apply(self, x, lambda x, w, b: F.conv_transpose2d(
+            x, w, b, stride=self.stride, padding=self.padding,
+            output_padding=self.output_padding))
 
 
 class Dropout(nn.Module):

@@ -40,21 +40,37 @@ channel carries 0; every padded dW and db entry is a sum of products with a
 zero factor. So the padded block computes the narrow one exactly, with
 extra zeros. The residuals c1..c4 stay at gc'; out and dx come back at nf.
 ``pack_block`` packs and pads once, which is what ``models/rrdb.py`` caches.
+
+On a tensor axis (``parallel/tensor.py``) a block whose convs the rule
+splits runs the same kernels by stage: ``rdb5c_forward_split`` runs each
+stage k over a range of its output columns (``rdb5c_stage``: the whole
+range for a conv that stays whole, this rank's columns, written into a
+zeroed buffer, for a split one, whose ranks' buffers are then summed,
+which joins them), and ``rdb5c_backward_split`` computes, for a split
+conv, only its own columns' terms of every dx stage (in f32, summed over
+the tensor ranks before the stages' epilogues add them) and its own
+columns of dW. Both are generators that yield each buffer to be summed
+over the tensor group in place (``run_split``), so that a test can run T
+ranks in one process in lock step (``run_lockstep``). Column ranges are
+given per conv as (first, count) in its output columns, None for whole.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Sequence, Tuple
+from typing import Any, Callable, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
 
 # Launches of the CUDA kernels: one count per block forward (five stages)
-# and one per block backward.
+# and one per block backward; on a tensor axis, one per column-range
+# forward stage and one per split block backward.
 launches = 0
 backward_launches = 0
+stage_launches = 0
+split_backward_launches = 0
 
 _SOURCE = "rdb5c.cu"
 _BWD_SOURCE = "rdb5c_bwd.cu"
@@ -259,6 +275,8 @@ def _library():
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.rdb5c_forward.argtypes = [i] + [p] * 16 + [i] * 5 + [p]
         lib.rdb5c_forward.restype = i
+        lib.rdb5c_forward_stage.argtypes = [i, i] + [p] * 12 + [i] * 7 + [p]
+        lib.rdb5c_forward_stage.restype = i
         lib.rdb5c_stage_smem_bytes.argtypes = [i, i]
         lib.rdb5c_stage_smem_bytes.restype = i
         lib.rdb5c_error_string.argtypes = [i]
@@ -397,6 +415,16 @@ def _bwd_library():
         lib.rdb5c_backward.restype = i
         lib.rdb5c_backward_dw_splits.argtypes = [i] * 6
         lib.rdb5c_backward_dw_splits.restype = i
+        ints, uints = ctypes.POINTER(i), ctypes.POINTER(ctypes.c_uint)
+        lib.rdb5c_bwd_dc5.argtypes = [i, p, p] + [i] * 5 + [p]
+        lib.rdb5c_bwd_part.argtypes = [i, p, p, p] + [i] * 10 + [p]
+        lib.rdb5c_bwd_dx_stage.argtypes = [i, p, p, i, i, ints, ints, p, p,
+                                           p] + [i] * 8 + [p]
+        lib.rdb5c_bwd_dw.argtypes = [i] + [p] * 8 + [uints] + [i] * 6 + [p]
+        lib.rdb5c_bwd_db.argtypes = [i] + [p] * 4 + [i] * 6 + [p]
+        for name in ("rdb5c_bwd_dc5", "rdb5c_bwd_part",
+                     "rdb5c_bwd_dx_stage", "rdb5c_bwd_dw", "rdb5c_bwd_db"):
+            getattr(lib, name).restype = i
         lib.rdb5c_backward_dw_smem_bytes.argtypes = [i]
         lib.rdb5c_backward_dw_smem_bytes.restype = i
         lib.rdb5c_bwd_error_string.argtypes = [i]
@@ -478,6 +506,432 @@ def _backward_kernel(g, x, cs, packed_w):
     return (dx, *dws, *dbs)
 
 
+# -- the tensor axis: stages over column ranges, the split backward ---------
+
+def _stage_weight(packed_w: Sequence[torch.Tensor], k: int, lo: int,
+                  n: int) -> torch.Tensor:
+    """Conv k's output columns [lo, lo + n) over [x|c1..ck] as an f32 OIHW
+    weight: in each packed weight s <= k they start at (k - s) * gc."""
+    gc = packed_w[1].shape[0] // 9
+    parts = []
+    for s_ in range(k + 1):
+        p = packed_w[s_]
+        c0 = (k - s_) * gc + lo
+        parts.append(p.reshape(9, p.shape[0] // 9, -1)[..., c0:c0 + n])
+    w = torch.cat(parts, 1).float()
+    return w.reshape(3, 3, w.shape[1], n).permute(3, 2, 0, 1)
+
+
+def rdb5c_stage_plain(feats: Sequence[torch.Tensor],
+                      packed_w: Sequence[torch.Tensor], bias: torch.Tensor,
+                      k: int, lo: int, n: int, out: torch.Tensor
+                      ) -> torch.Tensor:
+    """Stage k of the block over its output columns [lo, lo + n), the
+    kernel's arithmetic in plain PyTorch: one f32 conv of the
+    working-type features [x|c1..ck] (``feats``, NHWC at the kernels'
+    widths) against those columns of the packed weights, plus the bias,
+    then lrelu (k < 4) or 0.2 v + x (k == 4), rounded to the working type
+    once, written into ``out[..., lo:lo + n]``; returns ``out``."""
+    cat = torch.cat([f.permute(0, 3, 1, 2).float() for f in feats], 1)
+    v = F.conv2d(cat, _stage_weight(packed_w, k, lo, n), padding=1)
+    v = v + bias.float()[lo:lo + n][None, :, None, None]
+    if k == 4:
+        v = v * 0.2 + feats[0][..., lo:lo + n].permute(0, 3, 1, 2).float()
+    else:
+        v = torch.where(v >= 0, v, v * 0.2)
+    out[..., lo:lo + n] = v.to(out.dtype).permute(0, 2, 3, 1)
+    return out
+
+
+def rdb5c_stage(feats: Sequence[torch.Tensor],
+                packed_w: Sequence[torch.Tensor], bias: torch.Tensor,
+                k: int, lo: int, n: int, out: torch.Tensor) -> torch.Tensor:
+    """Stage k over its output columns [lo, lo + n) into ``out`` (b, h, w,
+    conv k's width), everything at the kernels' widths; the other columns
+    of ``out`` are left as they are. On a CUDA tensor it launches the
+    column-range stage of ``csrc/rdb5c.cu`` (or raises); on a CPU tensor
+    it runs ``rdb5c_stage_plain``."""
+    if feats[0].device.type == "cpu":
+        return rdb5c_stage_plain(feats, packed_w, bias, k, lo, n, out)
+    return _stage_kernel(feats, packed_w, bias, k, lo, n, out)
+
+
+def _stage_kernel(feats, packed_w, bias, k, lo, n, out):
+    global stage_launches
+    x = feats[0]
+    nf, gc = _check_packed(x, packed_w)
+    width = gc if k < 4 else nf
+    if len(feats) != k + 1:
+        raise ValueError(f"stage {k} reads {k + 1} features")
+    for t, c in [(f, gc) for f in feats[1:]] + [(out, width)]:
+        if tuple(t.shape) != (*x.shape[:3], c) or not t.is_contiguous() \
+                or t.dtype != x.dtype or t.device != x.device:
+            raise ValueError(f"features and out must be contiguous NHWC "
+                             f"tensors of x's type, {c} channels")
+    if tuple(bias.shape) != (width,) or bias.dtype != torch.float32 or \
+            not bias.is_contiguous():
+        raise ValueError(f"bias must be a contiguous f32 ({width},) tensor")
+    if lo < 0 or n < 1 or lo + n > width:
+        raise ValueError(f"columns [{lo}, {lo + n}) outside 0..{width}")
+    b, h, w, _ = x.shape
+    lib = _library()
+    cs = list(feats[1:]) + [None] * (4 - k)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    with torch.cuda.device(x.device):
+        err = lib.rdb5c_forward_stage(
+            _DTYPES[x.dtype], k, *_pointers([x, *packed_w, bias, *cs, out]),
+            b, h, w, nf, gc, lo, n, stream)
+    if err:
+        raise RuntimeError("rdb5c stage kernel launch failed: "
+                           + lib.rdb5c_error_string(err).decode())
+    stage_launches += 1
+    return out
+
+
+def rdb5c_forward_split(x: torch.Tensor, packed_w: Sequence[torch.Tensor],
+                        biases: Sequence[torch.Tensor], cols: Sequence,
+                        plain: bool = False):
+    """One block forward by stage, a generator: stage k over all its
+    columns where ``cols[k]`` is None, else over this rank's (first,
+    count) into a zeroed buffer, which it yields to be summed over the
+    tensor ranks in place (``run_split``) before stage k + 1 reads it.
+    Any width, as ``rdb5c_forward``; ``plain`` runs the plain stages on
+    any device. Returns (out, c1, c2, c3, c4), out at x's width, c_k at
+    gc'."""
+    nf = x.shape[-1]
+    packed_w, biases = pad_packed(packed_w, biases)
+    xp = _padded_x(x, packed_w).contiguous()
+    nfp, gcp = _pack_widths(packed_w)
+    feats = [xp]
+    for k in range(5):
+        width = gcp if k < 4 else nfp
+        y = _alloc((*xp.shape[:3], width), xp.dtype, xp.device)
+        if cols[k] is not None:
+            y.zero_()
+        lo, n = cols[k] if cols[k] is not None else (0, width)
+        (rdb5c_stage_plain if plain else rdb5c_stage)(
+            feats, packed_w, biases[k], k, lo, n, y)
+        if cols[k] is not None:
+            yield y
+        feats.append(y)
+    out = feats[5] if xp is x else feats[5][..., :nf].contiguous()
+    return (out, *feats[1:5])
+
+
+class _PlainPieces:
+    """The split backward's pieces in plain PyTorch (the CPU's), on
+    flattened NHWC buffers: G (pixels, 4gc' + nf') in the working type."""
+
+    def __init__(self, shape, device):
+        self.b, self.h, self.w = shape
+        self.device = device
+
+    def nchw(self, t: torch.Tensor) -> torch.Tensor:
+        return t.reshape(self.b, self.h, self.w, -1).permute(0, 3, 1,
+                                                             2).float()
+
+    def flat(self, t: torch.Tensor) -> torch.Tensor:
+        return t.permute(0, 2, 3, 1).reshape(self.b * self.h * self.w, -1)
+
+    def dc5(self, g, G, nf):
+        G[:, G.shape[1] - nf:] = (g.reshape(-1, nf).float() * 0.2).to(
+            G.dtype)
+
+    def part(self, dyw, wk, c0, out):
+        w = _unpack9(wk[:, c0:c0 + dyw.shape[1]])
+        out.copy_(self.flat(F.conv_transpose2d(self.nchw(dyw), w,
+                                               padding=1)))
+
+    def dx(self, G, wk, k, gc, runs, part, act, dst, last):
+        cin, k0 = wk.shape[0] // 9, k * gc
+        dc = torch.zeros((self.b, cin, self.h, self.w), device=self.device)
+        if runs:
+            dy = torch.cat([G[:, k0 + a:k0 + a + n] for a, n in runs], 1)
+            w = torch.cat([wk[:, a:a + n] for a, n in runs], 1)
+            dc = F.conv_transpose2d(self.nchw(dy), _unpack9(w), padding=1)
+        if part is not None:
+            dc = dc + self.nchw(part)
+        a = self.nchw(act)
+        v = dc + a if last else dc * torch.where(a >= 0, 1.0, 0.2)
+        dst.copy_(self.flat(v).to(dst.dtype).reshape(dst.shape))
+
+    def dw(self, G, acts, ws, gc, live):
+        out = []
+        for k, (a, wk) in enumerate(zip(acts, ws)):
+            cin = wk.shape[0] // 9
+            dy = self.nchw(G[:, k * gc:])
+            d = torch.nn.grad.conv2d_weight(
+                self.nchw(a), (dy.shape[1], cin, 3, 3), dy, padding=1)
+            out.append(d.permute(2, 3, 1, 0).reshape(9 * cin, -1))
+        return out
+
+    def db(self, G, g, nf):
+        return torch.cat([G[:, :G.shape[1] - nf].float().sum(0),
+                          (g.reshape(-1, nf).float() * 0.2).sum(0)])
+
+
+class _KernelPieces:
+    """The split backward's pieces on the card: the entry points of
+    ``csrc/rdb5c_bwd.cu`` beside ``rdb5c_backward``."""
+
+    def __init__(self, shape, dtype, device, nf, gc):
+        self.b, self.h, self.w = shape
+        self.dt, self.dev = _DTYPES[dtype], device
+        self.nf, self.gc = nf, gc
+        self.lib = _bwd_library()
+        self.stream = torch.cuda.current_stream(device).cuda_stream
+
+    def _call(self, name, *args):
+        with torch.cuda.device(self.dev):
+            err = getattr(self.lib, name)(self.dt, *args)
+        if err:
+            raise RuntimeError(f"{name} launch failed: "
+                               + self.lib.rdb5c_bwd_error_string(err)
+                               .decode())
+
+    def _dims(self):
+        return (self.b, self.h, self.w, self.nf, self.gc, self.stream)
+
+    def dc5(self, g, G, nf):
+        self._call("rdb5c_bwd_dc5", *_pointers([g, G]), *self._dims())
+
+    def part(self, dyw, wk, c0, out):
+        self._call("rdb5c_bwd_part", *_pointers([dyw, wk, out]),
+                   dyw.shape[1], wk.shape[0] // 9, wk.shape[1], c0,
+                   out.stride(0), *self._dims())
+
+    def dx(self, G, wk, k, gc, runs, part, act, dst, last):
+        lo = (ctypes.c_int * 5)(*[a for a, _ in runs])
+        ns = (ctypes.c_int * 5)(*[n for _, n in runs])
+        self._call("rdb5c_bwd_dx_stage", *_pointers([G, wk]), k,
+                   len(runs), lo, ns, *_pointers([part, act, dst]),
+                   0 if part is None else part.stride(0),
+                   dst.stride(0) if dst.dim() == 2 else self.nf, int(last),
+                   *self._dims())
+
+    def dw(self, G, acts, ws, gc, live):
+        total = sum(p.numel() for p in ws)
+        splits = _dw_splits(self.dt, self.b, self.h, self.w, self.nf,
+                            self.gc, self.dev.index)
+        part = _alloc((splits, total), torch.float32, self.dev)
+        dw = _alloc(total, torch.float32, self.dev)
+        masks = (ctypes.c_uint * 5)(*live)
+        self._call("rdb5c_bwd_dw", *_pointers([G, *acts, part, dw]), masks,
+                   splits, *self._dims())
+        return [d.view(p.shape) for d, p in zip(
+            dw.split([p.numel() for p in ws]), ws)]
+
+    def db(self, G, g, nf):
+        npix = G.shape[0]
+        splits = min(npix, 256)
+        part = _alloc((splits, G.shape[1]), torch.float32, self.dev)
+        db = _alloc(G.shape[1], torch.float32, self.dev)
+        self._call("rdb5c_bwd_db", *_pointers([G, g, part, db]), splits,
+                   *self._dims())
+        return db
+
+
+def _runs(cols: Sequence, k: int, gc: int, nf: int):
+    """The column runs of dy_k (relative to conv k's first column) that
+    belong to the convs j >= k computed whole: (first, count) each,
+    neighbours merged."""
+    runs = []
+    for j in range(k, 5):
+        if cols[j] is not None:
+            continue
+        a, n = (j - k) * gc, gc if j < 4 else nf
+        if runs and runs[-1][0] + runs[-1][1] == a:
+            runs[-1] = (runs[-1][0], runs[-1][1] + n)
+        else:
+            runs.append((a, n))
+    return runs
+
+
+def rdb5c_backward_split(g: torch.Tensor, x: torch.Tensor, c1, c2, c3, c4,
+                         packed_w: Sequence[torch.Tensor], cols: Sequence,
+                         plain: bool = False):
+    """One block backward with convs split by column, a generator (see
+    ``rdb5c_forward_split``): for each split conv j (walking j = 4..0, as
+    the dx stages do), once its output's gradient is known, this rank's
+    columns' terms of every dx stage s <= j (an f32 (pixels, nf' + j gc')
+    buffer), yielded to be summed over the tensor ranks; each dx stage
+    then reduces over the convs computed whole alone and adds those sums
+    before its lrelu' (or + g). dW of a split conv holds this rank's
+    columns alone (the dW slots of the others' columns are skipped and
+    zeroed), and so does its db (the bias is split with the conv). On a
+    CUDA tensor the pieces are the kernels of ``csrc/rdb5c_bwd.cu``, on a
+    CPU tensor (or with ``plain``) their plain versions. Returns (dx,
+    dW0..dW4 packed f32, db1..db5 f32), as ``rdb5c_backward``."""
+    global split_backward_launches
+    nf = x.shape[-1]
+    widths = _pack_widths(packed_w)
+    ws, _ = pad_packed(packed_w)
+    nfp, gcp = _pack_widths(ws)
+    xp = _padded_x(x, ws).contiguous()
+    gp = _padded_x(g, ws).contiguous()
+    cs = [_pad_last(c, gcp).contiguous() for c in (c1, c2, c3, c4)]
+    shape, dev, dt = tuple(xp.shape[:3]), xp.device, xp.dtype
+    if dev.type == "cpu" or plain:
+        ops = _PlainPieces(shape, dev)
+    else:
+        _check_backward(gp, xp, cs, ws)
+        ops = _KernelPieces(shape, dt, dev, nfp, gcp)
+    npix = shape[0] * shape[1] * shape[2]
+    gw = 4 * gcp + nfp
+    G = _alloc((npix, gw), dt, dev)
+    ops.dc5(gp, G, nfp)
+    cin = [nfp] + [gcp] * 4
+    off = [0] + [nfp + i * gcp for i in range(4)]
+    width = lambda j: gcp if j < 4 else nfp  # noqa: E731
+    acts = [xp, *cs]
+    dx = _alloc(xp.shape, dt, dev)
+    part_sum = None
+    for k in range(4, -1, -1):
+        if cols[k] is not None:
+            lo, n = cols[k]
+            win_lo = lo // _CHUNK * _CHUNK
+            win = padded_width(lo + n) - win_lo
+            dyw = _alloc((npix, win), dt, dev).zero_()
+            dyw[:, lo - win_lo:lo - win_lo + n] = \
+                G[:, k * gcp + lo:k * gcp + lo + n]
+            q = _alloc((npix, off[k] + cin[k]), torch.float32, dev)
+            for s_ in range(k + 1):
+                ops.part(dyw, ws[s_], (k - s_) * gcp + win_lo,
+                         q[:, off[s_]:off[s_] + cin[s_]])
+            yield q
+            if part_sum is None:
+                part_sum = q
+            else:
+                part_sum[:, :q.shape[1]].add_(q)
+        part = None if part_sum is None else \
+            part_sum[:, off[k]:off[k] + cin[k]]
+        dst = dx if k == 0 else G[:, (k - 1) * gcp:k * gcp]
+        ops.dx(G, ws[k], k, gcp, _runs(cols, k, gcp, nfp), part,
+               gp if k == 0 else acts[k], dst, k == 0)
+    live = []
+    for s_ in range(5):
+        mask = 0
+        for c in range(ws[s_].shape[1] // _CHUNK):
+            j = s_ + min(c * _CHUNK // gcp, 4 - s_)
+            a = c * _CHUNK - (j - s_) * gcp
+            if cols[j] is None or (a < cols[j][0] + cols[j][1]
+                                   and cols[j][0] < a + _CHUNK):
+                mask |= 1 << c
+        live.append(mask)
+    dws = ops.dw(G, acts, ws, gcp, live)
+    for j in range(5):
+        if cols[j] is None:
+            continue
+        lo, n = cols[j]
+        for s_ in range(j + 1):
+            a = (j - s_) * gcp
+            dws[s_][:, a:a + lo] = 0
+            dws[s_][:, a + lo + n:a + width(j)] = 0
+    db = ops.db(G, gp, nfp)
+    for j in range(5):
+        if cols[j] is not None:
+            a = 4 * gcp if j == 4 else j * gcp
+            db[a:a + cols[j][0]] = 0
+            db[a + sum(cols[j]):a + width(j)] = 0
+    if isinstance(ops, _KernelPieces):
+        split_backward_launches += 1
+    if xp is not x:
+        dx = dx[..., :nf].contiguous()
+    dws, dbs = unpad_grads(dws, db.split([gcp] * 4 + [nfp]), *widths)
+    return (dx, *dws, *dbs)
+
+
+def run_split(gen, reduce: Callable[[torch.Tensor], Any]):
+    """Drives a split generator on one rank: each buffer it yields is
+    given to ``reduce`` (an in-place sum over the tensor group); returns
+    the generator's result."""
+    try:
+        buf = next(gen)
+        while True:
+            reduce(buf)
+            buf = gen.send(None)
+    except StopIteration as stop:
+        return stop.value
+
+
+def run_lockstep(gens: Sequence):
+    """Drives the split generators of T ranks in one process, in lock
+    step: the buffers they yield together are summed in rank order and
+    the sum written back into each. Returns each generator's result."""
+    gens = list(gens)
+    results = [None] * len(gens)
+    bufs = []
+    for i, gen in enumerate(gens):
+        try:
+            bufs.append(next(gen))
+        except StopIteration as stop:
+            results[i] = stop.value
+    while bufs:
+        total = bufs[0].clone()
+        for b in bufs[1:]:
+            total += b
+        for b in bufs:
+            b.copy_(total)
+        nxt = []
+        for i, gen in enumerate(gens):
+            try:
+                nxt.append(gen.send(None))
+            except StopIteration as stop:
+                results[i] = stop.value
+        bufs = nxt
+    return results
+
+
+def _packed(x: torch.Tensor, packer, params):
+    """(packed weights, f32 biases) of a block's ten parameters in x's
+    type, from ``packer`` (its cache) or packed here."""
+    if packer is not None:
+        return packer(x.dtype)
+    return pack_block(params[0::2], params[1::2], x.shape[-1],
+                      params[0].shape[0], x.dtype)
+
+
+class RDB5CSplitFunction(torch.autograd.Function):
+    """One residual dense block under autograd with convs split by output
+    column over the running step's tensor axis: ``rdb5c_forward_split``
+    and ``rdb5c_backward_split``, their buffers summed over the tensor
+    group (``collectives.tensor_all_reduce``). ``apply(x, packer, cols,
+    w1, b1, ..., w5, b5)`` as ``RDB5CFunction``; ``cols``: per conv this
+    rank's (first, count) of its output columns, or None. The input's
+    gradient is whole on every rank; a split conv's weight and bias
+    gradients hold this rank's columns alone."""
+
+    @staticmethod
+    def forward(ctx, x, packer, cols, *params):
+        from ..parallel.collectives import tensor_all_reduce
+
+        nf = x.shape[-1]
+        gc = params[0].shape[0]
+        with torch.no_grad():
+            ws, bs = _packed(x, packer, params)
+            x = x.contiguous()
+            out, *cs = run_split(rdb5c_forward_split(x, ws, bs, cols),
+                                 tensor_all_reduce)
+        ctx.save_for_backward(x, *cs, *ws)
+        ctx.dims, ctx.cols = (nf, gc), cols
+        return out
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, g):
+        from ..parallel.collectives import tensor_all_reduce
+
+        x, c1, c2, c3, c4, *ws = ctx.saved_tensors
+        nf, gc = ctx.dims
+        g = g.to(x.dtype).contiguous()
+        dx, *rest = run_split(rdb5c_backward_split(
+            g, x, c1, c2, c3, c4, ws, ctx.cols), tensor_all_reduce)
+        dws, dbs = unpad_grads(rest[:5], rest[5:], nf, gc)
+        dws = unpack_rdb_wgrads(dws, nf, gc)
+        param_grads = [t for pair in zip(dws, dbs) for t in pair]
+        return (dx, None, None, *param_grads)
+
+
 class RDB5CFunction(torch.autograd.Function):
     """One residual dense block under autograd: ``rdb5c_forward`` with its
     residuals kept, ``rdb5c_backward`` as the gradient.
@@ -495,11 +949,7 @@ class RDB5CFunction(torch.autograd.Function):
         nf = x.shape[-1]
         gc = params[0].shape[0]
         with torch.no_grad():
-            if packer is None:
-                ws, bs = pack_block(params[0::2], params[1::2], nf, gc,
-                                    x.dtype)
-            else:
-                ws, bs = packer(x.dtype)
+            ws, bs = _packed(x, packer, params)
             x = x.contiguous()
             out, *cs = rdb5c_forward(x, ws, bs, return_residuals=True)
         ctx.save_for_backward(x, *cs, *ws)

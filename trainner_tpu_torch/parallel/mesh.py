@@ -4,26 +4,37 @@
 ``_param_spec:98``, ``param_sharding:145``, ``local_batch_slice:166``) in
 PyTorch's own idiom: one process per card (``torchrun`` sets ``RANK``,
 ``WORLD_SIZE`` and ``LOCAL_RANK``), ``torch.distributed`` with NCCL on
-the card and gloo on the CPU, and a ``DeviceMesh`` with the axes ``data``
-and ``fsdp``.
+the card and gloo on the CPU, and the axes ``data``, ``fsdp`` and
+``tensor``, tensor innermost as in JAX: rank = (d * fsdp + f) * tensor +
+t.
 
 Where the JAX package lets GSPMD partition one program over a global
 batch, the port runs the same program on every rank over that rank's
 slice of the batch, and makes explicit what couples the samples. The
-batch is split over all ``data x fsdp`` ranks, each its own slice in
-rank order (``local_batch_slice``), as FSDP splits it. While a trainer's
-step runs inside ``Mesh.active``, the functions of ``collectives.py``
-see the group (batch means, per-sample draws, the gathered batch, the
-gradients' and the logs' averages).
+batch is split over the ``data x fsdp`` ranks of the batch group (the
+ranks of one tensor index), each its own slice in the order of its batch
+index, rank // tensor (``local_batch_slice``); the ``tensor`` ranks of
+one slice read the same samples. While a trainer's step runs inside
+``Mesh.active``, the functions of ``collectives.py`` see the groups
+(batch means, per-sample draws, the gathered batch, the gradients' and
+the logs' averages, the tensor axis's joins).
 
-On the fsdp axis the optimizer state and the update are split by JAX's
-rule (``_param_spec``: a leaf of fewer than 2^16 elements stays whole,
-a larger one is split along its largest dimension that the axis divides,
-in the JAX layout of the weight): ``ShardedOptimizer`` runs the rule on
-this rank's part, then the parts are put together on every rank of the
-fsdp group. Every collective is an all-reduce or a broadcast, which both
-backends take for tensors on the card (gloo stages them through the
-host), so two ranks may share one card over gloo.
+On the tensor axis a leaf that JAX's rule splits (a ``kernel`` of at
+least 2^16 elements whose output channels the axis divides) is computed
+by column where its module routes it (``tensor.py``): each tensor rank
+computes its own output columns and the ranks join them. Every rank holds
+whole weights.
+
+On the fsdp and tensor axes the optimizer state and the update are split
+by JAX's rule (``_param_spec``: a leaf of fewer than 2^16 elements stays
+whole; a kernel the tensor axis divides is split by its output channels
+over the tensor group; else a larger leaf is split along its largest
+dimension that the fsdp axis divides, in the JAX layout of the weight):
+``ShardedOptimizer`` runs the rule on this rank's part, then the parts
+are put together on every rank of the group. Every collective is an
+all-reduce or a broadcast, which both backends take for tensors on the
+card (gloo stages them through the host), so two ranks may share one
+card over gloo.
 """
 
 from __future__ import annotations
@@ -37,11 +48,11 @@ import torch.distributed as dist
 
 from . import collectives
 
-# the fsdp rule's smallest split leaf (JAX ``_param_spec``'s min_size)
+# the rule's smallest split leaf (JAX ``_param_spec``'s min_size)
 MIN_SHARD_SIZE = 2 ** 16
 # the rules that read a whole weight (AdamP's and SGDP's projection per
-# row of its first axis, ranger's gradient centralisation): on a part of
-# one they would compute another update
+# row of its first axis, ranger's gradient centralisation): a leaf under
+# one of them is updated whole on every rank, its moments whole
 WHOLE_WEIGHT_RULES = ("adamp", "sgdp")
 
 
@@ -83,29 +94,39 @@ def init_distributed(device: torch.device, rank: Optional[int] = None,
 
 
 class Mesh:
-    """The ranks of this run laid out as ``(data, fsdp)``, rank = d *
-    fsdp + f. ``group`` holds every rank (the batch is split over all of
-    them); ``fsdp_group`` the ranks that share this rank's data index,
-    over which the optimizer state is split. Without a process group
-    (``group`` None) it is a mesh of one rank and nothing is exchanged."""
+    """The ranks of this run laid out as ``(data, fsdp, tensor)``, rank =
+    (d * fsdp + f) * tensor + t. ``group`` holds every rank;
+    ``batch_group`` the ranks of this rank's tensor index, over which the
+    batch is split (every rank when the tensor axis is 1); ``fsdp_group``
+    the ranks that share this rank's data and tensor indices, over which
+    the optimizer state is split; ``tensor_group`` the ranks that share
+    its data and fsdp indices, which compute a split leaf's columns and
+    read the same samples. Without a process group (``group`` None) it is
+    a mesh of one rank and nothing is exchanged."""
 
-    def __init__(self, data: int, fsdp: int, device_mesh=None,
-                 min_shard_size: int = MIN_SHARD_SIZE):
-        self.data, self.fsdp = data, fsdp
+    def __init__(self, data: int, fsdp: int,
+                 min_shard_size: int = MIN_SHARD_SIZE, tensor: int = 1,
+                 groups: Optional[Dict[str, Any]] = None):
+        self.data, self.fsdp, self.tensor = data, fsdp, tensor
         self.min_shard_size = min_shard_size
-        self.device_mesh = device_mesh
-        if device_mesh is not None:
+        if groups is not None:
             self.group = dist.group.WORLD
-            self.fsdp_group = device_mesh.get_group("fsdp")
             self.rank, self.world = dist.get_rank(), dist.get_world_size()
             self.backend = dist.get_backend()
+            self.fsdp_group = groups["fsdp"]
+            self.tensor_group = groups.get("tensor")
+            self.batch_group = groups.get("batch", self.group)
         else:
-            self.group = self.fsdp_group = None
+            self.group = self.fsdp_group = self.tensor_group = None
+            self.batch_group = None
             self.rank, self.world = 0, 1
             self.backend = None
 
     @property
     def shape(self) -> Dict[str, int]:
+        if self.tensor > 1:
+            return {"data": self.data, "fsdp": self.fsdp,
+                    "tensor": self.tensor}
         return {"data": self.data, "fsdp": self.fsdp}
 
     @property
@@ -113,8 +134,22 @@ class Mesh:
         return self.group is not None
 
     @property
+    def batch_index(self) -> int:
+        """This rank's slice of the batch: d * fsdp + f."""
+        return self.rank // self.tensor
+
+    @property
+    def batch_world(self) -> int:
+        """How many slices the batch is split into: data x fsdp."""
+        return max(self.world // self.tensor, 1)
+
+    @property
     def fsdp_index(self) -> int:
-        return self.rank % self.fsdp
+        return self.batch_index % self.fsdp
+
+    @property
+    def tensor_index(self) -> int:
+        return self.rank % self.tensor
 
     def active(self):
         """A context in which the step's program sees this mesh
@@ -126,21 +161,11 @@ class Mesh:
                 f"{self.backend or 'one process'})")
 
 
-def make_mesh(cfg: Optional[MeshConfig] = None,
-              world_size: Optional[int] = None,
-              device: Optional[torch.device] = None,
-              min_shard_size: int = MIN_SHARD_SIZE) -> Mesh:
-    """The ``(data, fsdp)`` mesh over the process group's ranks (or
-    ``world_size`` of them, for checking a layout; one rank without a
-    group). ``min_shard_size``: the fsdp rule's smallest split leaf (as
-    the JAX ``param_sharding``'s ``min_size``). Raises where the JAX
-    ``make_mesh`` raises, when the axes do not tile the ranks; a
-    ``tensor`` axis above 1 raises too, as the port does not split the
-    block kernels' output channels yet (ROADMAP Queue A 9 e). The group's
-    first collective runs here, outside any CUDA graph capture."""
+def _layout(cfg: Optional[MeshConfig], world_size: int
+            ) -> Tuple[int, int, int]:
+    """(data, fsdp, tensor) of ``cfg`` over ``world_size`` ranks; raises
+    where the JAX ``make_mesh`` raises, when the axes do not tile them."""
     cfg = cfg or MeshConfig()
-    if world_size is None:
-        world_size = dist.get_world_size() if dist.is_initialized() else 1
     fsdp = max(1, cfg.fsdp)
     tensor = max(1, cfg.tensor)
     data = cfg.data if cfg.data > 0 else world_size // (fsdp * tensor)
@@ -148,11 +173,45 @@ def make_mesh(cfg: Optional[MeshConfig] = None,
         raise ValueError(
             f"mesh {data}x{fsdp}x{tensor} != {world_size} devices; "
             "set MeshConfig explicitly")
+    return data, fsdp, tensor
+
+
+def _groups(data: int, fsdp: int, tensor: int) -> Dict[str, Any]:
+    """This rank's fsdp group, and with a tensor axis its tensor and batch
+    groups (without one the batch group is every rank): every rank
+    creates every group, in one order."""
+    rank = dist.get_rank()
+    at = lambda d, f, t: (d * fsdp + f) * tensor + t  # noqa: E731
+    lists = {"fsdp": [[at(d, f, t) for f in range(fsdp)]
+                      for d in range(data) for t in range(tensor)]}
     if tensor > 1:
-        raise NotImplementedError(
-            f"a tensor axis of {tensor}: the port does not split the block "
-            "kernels' output channels over cards yet (ROADMAP Queue A 9 e, "
-            "the tensor axis)")
+        lists["tensor"] = [[at(d, f, t) for t in range(tensor)]
+                           for d in range(data) for f in range(fsdp)]
+        lists["batch"] = [[at(d, f, t) for d in range(data)
+                           for f in range(fsdp)] for t in range(tensor)]
+    out = {}
+    for name, members in lists.items():
+        for ranks in members:
+            g = dist.new_group(ranks)
+            if rank in ranks:
+                out[name] = g
+    return out
+
+
+def make_mesh(cfg: Optional[MeshConfig] = None,
+              world_size: Optional[int] = None,
+              device: Optional[torch.device] = None,
+              min_shard_size: int = MIN_SHARD_SIZE) -> Mesh:
+    """The ``(data, fsdp, tensor)`` mesh over the process group's ranks
+    (or ``world_size`` of them, for checking a layout, which then needs
+    no group; one rank without a group). ``min_shard_size``: the rule's
+    smallest split leaf (as the JAX ``param_sharding``'s ``min_size``).
+    Raises where the JAX ``make_mesh`` raises, when the axes do not tile
+    the ranks. The groups' first collectives run here, outside any CUDA
+    graph capture."""
+    if world_size is None:
+        world_size = dist.get_world_size() if dist.is_initialized() else 1
+    data, fsdp, tensor = _layout(cfg, world_size)
     device = torch.device(device) if device is not None else \
         torch.device("cpu")
     if not dist.is_initialized():
@@ -160,28 +219,29 @@ def make_mesh(cfg: Optional[MeshConfig] = None,
             raise RuntimeError(f"a mesh of {world_size} ranks needs a "
                                "process group (init_distributed)")
         return Mesh(data, fsdp, min_shard_size=min_shard_size)
-    from torch.distributed.device_mesh import init_device_mesh
-
-    # a DeviceMesh of type cuda would set each rank's card from its rank;
-    # the caller has set it (several ranks may share one card over gloo)
-    kind = "cuda" if dist.get_backend() == "nccl" else "cpu"
-    mesh = Mesh(data, fsdp, init_device_mesh(
-        kind, (data, fsdp), mesh_dim_names=("data", "fsdp")),
-        min_shard_size=min_shard_size)
-    for group in (mesh.group, mesh.fsdp_group):
-        warm = torch.zeros(1, device=device)
-        dist.all_reduce(warm, group=group)
+    mesh = Mesh(data, fsdp, min_shard_size, tensor,
+                _groups(data, fsdp, tensor))
+    for group in (mesh.group, mesh.fsdp_group, mesh.tensor_group,
+                  mesh.batch_group):
+        if group is not None:
+            warm = torch.zeros(1, device=device)
+            dist.all_reduce(warm, group=group)
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     return mesh
 
 
 def local_batch_slice(global_batch: int, mesh: Mesh) -> slice:
-    """This rank's slice of a global batch: ``global_batch / world``
-    samples in rank order (the whole batch for one rank): the batch is
-    split over every rank, data x fsdp."""
-    per = global_batch // max(mesh.world, 1)
-    return slice(mesh.rank * per, (mesh.rank + 1) * per)
+    """This rank's slice of a global batch: ``global_batch / (world /
+    tensor)`` samples in the order of the batch index (the whole batch
+    for one rank): the batch is split over data x fsdp, and the tensor
+    ranks of one slice read the same samples. ``mesh`` may be any object
+    with ``rank`` and ``world`` (and ``tensor``, 1 when it has none)."""
+    tensor = getattr(mesh, "tensor", 1)
+    slices = max(mesh.world // tensor, 1)
+    index = mesh.rank // tensor
+    per = global_batch // slices
+    return slice(index * per, (index + 1) * per)
 
 
 def shard_batch(batch: Dict[str, Any], mesh: Mesh) -> Dict[str, Any]:
@@ -252,45 +312,74 @@ def _param_spec(x, fsdp_size: int, fsdp_axis: str = "fsdp",
     return tuple(spec)
 
 
-def shard_dim(p: torch.Tensor, view: Sequence[int], fsdp_size: int,
-              min_size: int = MIN_SHARD_SIZE) -> Optional[int]:
-    """The dimension of the port's tensor ``p`` that the fsdp rule splits,
-    or None: the rule runs on the JAX layout (``view``, the permutation
-    ``optimizers.jax_view`` gives) and its dimension is mapped back."""
-    jshape = tuple(p.shape[i] for i in view)
-    spec = _param_spec(jshape, fsdp_size, min_size=min_size)
+def _jax_perm(p: torch.Tensor, kind: Optional[str]) -> Tuple[int, ...]:
+    """The permutation from ``p``'s layout to the JAX one: by its flax
+    kind for a kernel (``tensor.JAX_LAYOUT``), else
+    ``optimizers.jax_view``."""
+    from ..train.optimizers import jax_view
+    from .tensor import JAX_LAYOUT
+
+    return JAX_LAYOUT[kind] if kind in JAX_LAYOUT else jax_view(p)
+
+
+def leaf_split(p: torch.Tensor, kind: Optional[str], mesh: Mesh,
+               min_size: Optional[int] = None
+               ) -> Optional[Tuple[str, int]]:
+    """(axis, dimension of the port's tensor ``p``) that the rule splits,
+    or None: the rule runs on the JAX layout and its dimension is mapped
+    back. ``kind``: the flax kind of a ``kernel`` leaf (``tensor.
+    kernel_kinds``), None for any other leaf, which the tensor axis never
+    takes."""
+    perm = _jax_perm(p, kind)
+    jshape = tuple(p.shape[i] for i in perm)
+    spec = _param_spec(jshape, mesh.fsdp, "fsdp", mesh.tensor, "tensor",
+                       mesh.min_shard_size if min_size is None else min_size,
+                       is_kernel=kind is not None)
     for j, ax in enumerate(spec):
-        if ax == "fsdp":
-            return view[j]
+        if ax is not None:
+            return ax, perm[j]
     return None
 
 
 def param_sharding(net: torch.nn.Module, mesh: Mesh,
                    min_size: int = MIN_SHARD_SIZE) -> Dict[str, tuple]:
-    """Each parameter's spec in the JAX layout over the mesh's fsdp axis,
-    by name (``()``: whole on every rank)."""
-    from ..train.optimizers import jax_view
+    """Each parameter's spec in the JAX layout over the mesh's fsdp and
+    tensor axes, by name (``()``: whole on every rank): a ``kernel`` leaf
+    (``tensor.kernel_kinds``) in its flax kind's layout, any other in
+    ``optimizers.jax_view``'s."""
+    from .tensor import kernel_kinds
 
-    return {name: _param_spec(tuple(p.shape[i] for i in jax_view(p)),
-                              mesh.fsdp, min_size=min_size)
-            for name, p in net.named_parameters()}
+    kinds = kernel_kinds(net)
+    out = {}
+    for name, p in net.named_parameters():
+        kind = kinds.get(name)
+        perm = _jax_perm(p, kind)
+        out[name] = _param_spec(tuple(p.shape[i] for i in perm), mesh.fsdp,
+                                "fsdp", mesh.tensor, "tensor", min_size,
+                                is_kernel=kind is not None)
+    return out
 
 
-# -- the fsdp axis ------------------------------------------------------------
+# -- the fsdp and tensor axes of the optimizer --------------------------------
 
 class ShardedOptimizer:
     """An ``optimizers.Optimizer`` whose state and update are split over
-    the mesh's fsdp axis: for each parameter that the JAX rule splits
-    (``shard_dim``), this rank keeps the moments of its part alone and
-    updates that part, then the parts are put together on every rank of
-    its fsdp group (an all-reduce over a zeroed buffer, one for all
-    parameters); a parameter the rule keeps whole is updated whole on
-    every rank. The gradients it reads are the averaged whole ones. Its
-    ``state_dict`` gives whole tensors (a collective: every rank of the
-    group calls it) and ``load_state_dict`` takes whole ones, so a
-    checkpoint is the one-process format."""
+    the mesh's fsdp and tensor axes: for each parameter that the JAX rule
+    splits (``leaf_split``: a kernel's output channels over the tensor
+    group, else its largest dimension over the fsdp group, never both),
+    this rank keeps the moments of its part alone and updates that part,
+    then the parts are put together on every rank of the group (an
+    all-reduce over a zeroed buffer, one per axis for all parameters); a
+    parameter the rule keeps whole is updated whole on every rank. Under
+    a rule that reads a whole weight (``WHOLE_WEIGHT_RULES``, ranger with
+    ``use_gc``) every parameter is updated whole, its moments whole: the
+    one-process update. The gradients it reads are the averaged whole
+    ones. Its ``state_dict`` gives whole tensors (a collective: every rank
+    calls it) and ``load_state_dict`` takes whole ones, so a checkpoint is
+    the one-process format."""
 
-    def __init__(self, opt, mesh: Mesh):
+    def __init__(self, opt, mesh: Mesh,
+                 kinds: Optional[Sequence[Optional[str]]] = None):
         from ..train.optimizers import Optimizer
 
         self.params = list(opt.params)
@@ -298,24 +387,23 @@ class ShardedOptimizer:
         self.weight_decay = opt.weight_decay
         self.use_gc = opt.use_gc
         self.mesh = mesh
-        f, n = mesh.fsdp_index, mesh.fsdp
-        self.dims = [shard_dim(p, v, n, mesh.min_shard_size)
-                     for p, v in zip(self.params, opt.views)]
-        if any(d is not None for d in self.dims) and (
-                opt.name in WHOLE_WEIGHT_RULES
-                or (opt.name == "ranger" and opt.use_gc)):
-            raise NotImplementedError(
-                f"optimizer [{opt.name}]{' with use_gc' if opt.use_gc else ''}"
-                " reads whole weights (a projection or a centralisation per "
-                "row), so its update on an fsdp part would differ from the "
-                "one-process update; take fsdp: 1 for it (ROADMAP C 28)")
-        self.parts = [p.detach() if d is None else
-                      p.detach().narrow(d, f * (p.shape[d] // n),
-                                        p.shape[d] // n)
-                      for p, d in zip(self.params, self.dims)]
+        kinds = list(kinds) if kinds is not None else [None] * len(
+            self.params)
+        whole = opt.name in WHOLE_WEIGHT_RULES or (
+            opt.name == "ranger" and opt.use_gc)
+        self.splits = [None if whole else leaf_split(p, k, mesh)
+                       for p, k in zip(self.params, kinds)]
+        self.parts = [p.detach() if s is None else
+                      self._part_of(p.detach(), p, s)
+                      for p, s in zip(self.params, self.splits)]
         self.inner = Optimizer(self.parts, opt.name, opt.beta1, opt.beta2,
                                opt.eps, opt.weight_decay, opt.momentum,
                                views=opt.views, use_gc=opt.use_gc)
+
+    @property
+    def dims(self) -> List[Optional[int]]:
+        """The split dimension of each parameter (None: whole)."""
+        return [None if s is None else s[1] for s in self.splits]
 
     @property
     def lists(self) -> Tuple[str, ...]:
@@ -327,43 +415,54 @@ class ShardedOptimizer:
         for q in self.parts:
             q.grad = None
 
+    def _axis(self, axis: str) -> Tuple[int, int, Any]:
+        """(this rank's index, size, group) of an axis."""
+        m = self.mesh
+        if axis == "tensor":
+            return m.tensor_index, m.tensor, m.tensor_group
+        return m.fsdp_index, m.fsdp, m.fsdp_group
+
     def _sharded(self) -> List[int]:
-        return [i for i, d in enumerate(self.dims) if d is not None]
+        return [i for i, s in enumerate(self.splits) if s is not None]
 
     def _whole(self, parts: List[torch.Tensor], idx: List[int]
                ) -> List[torch.Tensor]:
         """Whole tensors from this rank's parts of parameters ``idx``, put
-        together over the fsdp group."""
-        f, n = self.mesh.fsdp_index, self.mesh.fsdp
+        together over each one's group."""
         out = []
         for q, i in zip(parts, idx):
-            p, d = self.params[i], self.dims[i]
+            p = self.params[i]
             full = torch.zeros(p.shape, dtype=q.dtype, device=q.device)
-            full.narrow(d, f * (p.shape[d] // n), p.shape[d] // n).copy_(q)
+            self._part_of(full, p, self.splits[i]).copy_(q)
             out.append(full)
         if self.mesh.distributed:
-            collectives.flat_all_reduce(out, self.mesh.fsdp_group)
+            for axis in ("fsdp", "tensor"):
+                mine = [t for t, i in zip(out, idx)
+                        if self.splits[i][0] == axis]
+                if mine:
+                    collectives.flat_all_reduce(mine, self._axis(axis)[2])
         return out
 
     @torch.no_grad()
     def step(self, lr) -> None:
-        for p, q, d in zip(self.params, self.parts, self.dims):
+        for p, q, s in zip(self.params, self.parts, self.splits):
             if p.grad is None:
                 q.grad = None
             else:
-                q.grad = p.grad if d is None else \
-                    self._part_of(p.grad, p, d)
+                q.grad = p.grad if s is None else \
+                    self._part_of(p.grad, p, s)
         self.inner.step(lr)
         idx = self._sharded()
         if idx:  # a net of small leaves alone keeps every one whole
             whole = self._whole([self.parts[i] for i in idx], idx)
             torch._foreach_copy_([self.params[i].data for i in idx], whole)
 
-    def _part_of(self, t: torch.Tensor, p: torch.Tensor, d: int
-                 ) -> torch.Tensor:
-        n = self.mesh.fsdp
+    def _part_of(self, t: torch.Tensor, p: torch.Tensor,
+                 split: Tuple[str, int]) -> torch.Tensor:
+        index, n, _ = self._axis(split[0])
+        d = split[1]
         s = p.shape[d] // n
-        return t.narrow(d, self.mesh.fsdp_index * s, s)
+        return t.narrow(d, index * s, s)
 
     def state_dict(self) -> Dict:
         inner = self.inner.state_dict()
@@ -379,9 +478,9 @@ class ShardedOptimizer:
         parts = dict(state)
         for key in self.lists:
             if key in parts:
-                parts[key] = [t if d is None else self._part_of(t, p, d)
-                              for t, p, d in zip(parts[key], self.params,
-                                                 self.dims)]
+                parts[key] = [t if s is None else self._part_of(t, p, s)
+                              for t, p, s in zip(parts[key], self.params,
+                                                 self.splits)]
         self.inner.load_state_dict(parts)
 
 
@@ -390,13 +489,33 @@ def net_fields(state) -> Tuple[str, ...]:
     return ("g", "d", "loc") + tuple(getattr(state, "D_FIELDS", ()))
 
 
+def place_tensor(state, mesh: Mesh) -> List[str]:
+    """Each of the state's nets marked for the tensor axis
+    (``tensor.place``: its split leaves computed by column); returns the
+    split leaves computed whole on every rank, as ``field.name``."""
+    from . import tensor
+
+    whole = []
+    for which in net_fields(state):
+        ns = getattr(state, which, None)
+        if ns is not None:
+            whole += [f"{which}.{k}" for k in tensor.place(ns.net, mesh)]
+    return whole
+
+
 def shard_optimizers(state, mesh: Mesh) -> None:
-    """Each of the state's optimizers split over the fsdp axis
-    (``ShardedOptimizer``); nothing with an fsdp axis of 1."""
-    if mesh.fsdp <= 1:
+    """Each of the state's optimizers split over the fsdp and tensor axes
+    (``ShardedOptimizer``); nothing where both are 1."""
+    if mesh.fsdp <= 1 and mesh.tensor <= 1:
         return
+    from .tensor import kernel_kinds
+
     for which in net_fields(state):
         ns = getattr(state, which, None)
         if ns is not None and ns.opt is not None and \
                 not isinstance(ns.opt, ShardedOptimizer):
-            ns.opt = ShardedOptimizer(ns.opt, mesh)
+            kinds = kernel_kinds(ns.net)
+            by_id = {id(p): kinds.get(name)
+                     for name, p in ns.net.named_parameters()}
+            ns.opt = ShardedOptimizer(
+                ns.opt, mesh, [by_id.get(id(p)) for p in ns.opt.params])

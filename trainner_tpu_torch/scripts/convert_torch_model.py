@@ -2,18 +2,16 @@
 port's counterpart of ``scripts/convert_torch_model.py``, on the host:
 
 * ``esrgan`` (both key layouts), ``srresnet``, ``discriminator``
-  (D-VGG: params and batch_stats), ``ppon``, ``sofvsr``: a ``.pth``
-  state dict -> the flax param ``.ckpt`` of the JAX layout, which both
-  packages load;
+  (D-VGG: params and batch_stats), ``ppon``, ``pan``, ``resnet_g``,
+  ``sftnet``, ``sofvsr``, ``unet``, ``aan``, ``dvd``, ``wbcunet``,
+  ``abpn``, ``seg`` (params and batch_stats), ``srflow``, ``edvr``: a
+  ``.pth`` state dict -> the flax param ``.ckpt`` of the JAX layout,
+  which both packages load;
 * ``vgg``: torchvision VGG features -> ``conv{b}_{c}/kernel|bias`` npz;
 * ``lpips``: the reference LPIPS lin weights -> ``lin{i}`` npz;
 * ``lpips-full``: a torchvision squeeze / alex / vgg16 backbone (and
   ``--lin`` weights) -> ``net/<layer>/kernel|bias`` npz;
 * ``export``: an RRDBNet ``.ckpt`` -> a reference-layout ``.pth``.
-
-The other layouts of the JAX tool (pan, resnet_g, sftnet, unet, aan, dvd,
-wbcunet, abpn, seg, srflow, edvr) are not ported yet (ROADMAP Queue
-A 12).
 
 Usage: python -m trainner_tpu_torch.scripts.convert_torch_model KIND SRC
        DST [--nb 23] [--net squeeze|alex|vgg] [--lin LIN.pth]
@@ -35,7 +33,13 @@ from ..utils.torch_interop import srresnet_to_params
 CONVERTERS = {"esrgan": pc.esrgan_to_params,
               "srresnet": srresnet_to_params,
               "discriminator": pc.discriminator_vgg_to_params,
-              "ppon": pc.ppon_to_params, "sofvsr": pc.sofvsr_to_params}
+              "ppon": pc.ppon_to_params, "sofvsr": pc.sofvsr_to_params,
+              "pan": pc.pan_to_params, "resnet_g": pc.resnet_g_to_params,
+              "sftnet": pc.sftnet_to_params, "unet": pc.unet_to_params,
+              "aan": pc.aan_to_params, "dvd": pc.dvdnet_to_params,
+              "wbcunet": pc.named_to_params, "abpn": pc.abpn_to_params,
+              "seg": pc.seg_to_params, "srflow": pc.srflow_to_params,
+              "edvr": pc.edvr_to_params}
 
 # torchvision state-dict conv prefixes -> the flax layer names, per backbone
 _LPIPS_BACKBONE_MAPS = {

@@ -37,20 +37,23 @@ TF32 off for cuDNN and matmul, any other value turns it on),
 ``debug_nans`` and ``profile`` (a ``torch.profiler`` trace in
 ``log/trace``).
 
-``parallel: {data: D, fsdp: M}`` trains on a mesh of D x M ranks
-(``parallel/mesh.py``), as ``train.py:438-469`` reads it: one process per
-card under ``torchrun``, NCCL on the card (gloo on the CPU), each rank
-reading its slice of every batch of the one-process loader (its
-degradations drawn from a generator of its own, ROADMAP C 28), the
-gradients averaged inside the step; logging, validation, sample grids
-and the checkpoints' files on rank 0 (every rank takes part in a save,
-which puts an fsdp-split optimizer together first). Where the JAX CLI
-warns and runs on one device, the port raises: when the ranks do not
-tile ``data x fsdp``, or the batch does not divide over them (N
-processes each running alone would be N copies of one run; ROADMAP
-C 28). Without ``torchrun`` a ``parallel:`` run is a group of one rank
-in this process. Every model trains there; the one refusal left is
-``tensor:`` above 1 (ROADMAP Queue A 9 e).
+``parallel: {data: D, fsdp: M, tensor: T}`` trains on a mesh of D x M x
+T ranks (``parallel/mesh.py``), as ``train.py:438-469`` reads it: one
+process per card under ``torchrun``, NCCL on the card (gloo on the CPU).
+The batch is split over the D x M slices of the batch index (rank //
+T): each rank reads its slice of every batch of the one-process loader,
+its degradations drawn from a generator of the slice's own (ROADMAP
+C 28), so the T tensor ranks of a slice read and degrade the same
+samples, and compute each split conv by output column
+(``parallel/tensor.py``); the gradients are averaged inside the step;
+logging, validation, sample grids and the checkpoints' files on rank 0
+(every rank takes part in a save, which puts a split optimizer together
+first). Where the JAX CLI warns and runs on one device, the port raises:
+when the ranks do not tile ``data x fsdp x tensor``, or the batch does
+not divide over the D x M slices (N processes each running alone would
+be N copies of one run; ROADMAP C 28). Without ``torchrun`` a
+``parallel:`` run is a group of one rank in this process. Every model
+trains there, on every axis.
 
 Usage: python -m trainner_tpu_torch.train -opt options/sr/train_sr.yml
        torchrun --nproc_per_node N -m trainner_tpu_torch.train -opt ...
@@ -265,9 +268,11 @@ def _fit(trainer, opt, loaders, state, start_epoch, current_step, logger,
     train_opt = opt["train"] or {}
     logger_opt = opt.get("logger") or {}
     seed = int(train_opt.get("manual_seed") or 0)
-    # each rank degrades its own samples from a generator of its own
-    # (rank 0's is the one-process run's, ROADMAP C 28)
-    deg_seed = seed + 7 + (RANK_SEED_STRIDE * mesh.rank if mesh else 0)
+    # each slice of the batch degrades its samples from a generator of its
+    # own (slice 0's is the one-process run's, ROADMAP C 28); the tensor
+    # ranks of a slice degrade the same samples alike
+    deg_seed = seed + 7 + (RANK_SEED_STRIDE * mesh.batch_index
+                           if mesh else 0)
     degrade = make_otf_degradation(
         opt, device=dev,
         generator=torch.Generator(device=dev).manual_seed(deg_seed))
@@ -400,18 +405,19 @@ def _run_mesh(opt, dev: torch.device):
     if dev.type == "cuda":
         torch.cuda.set_device(dev)
     owned = not dist.is_initialized()
-    _, world = par.init_distributed(dev)
+    par.init_distributed(dev)
     try:
         mesh = par.make_mesh(par.MeshConfig(
             data=int(cfg.get("data", -1) or -1),
             fsdp=max(1, int(cfg.get("fsdp", 1) or 1)),
             tensor=max(1, int(cfg.get("tensor", 1) or 1))), device=dev)
         bs = _train_batch_size(opt)
-        if bs % world:
+        if bs % mesh.batch_world:
             raise ValueError(
-                f"batch_size {bs} does not divide over the {world} ranks of "
-                f"the mesh {mesh.shape}: the JAX CLI would run on one "
-                "device, the port raises (ROADMAP C 28)")
+                f"batch_size {bs} does not divide over the "
+                f"{mesh.batch_world} slices of the batch of the mesh "
+                f"{mesh.shape}: the JAX CLI would run on one device, the "
+                "port raises (ROADMAP C 28)")
     except BaseException:
         if owned:
             dist.destroy_process_group()
@@ -469,7 +475,7 @@ def _main(opt, dev, mesh, lead: bool):
     if mesh is not None:
         logger.info(f"Device mesh: {mesh.shape} over {mesh.world} ranks "
                     f"({mesh.backend or 'one process'}), fsdp "
-                    f"{mesh.fsdp}")
+                    f"{mesh.fsdp}, tensor {mesh.tensor}")
     flags = (torch.backends.cuda.matmul.allow_tf32,
              torch.backends.cudnn.allow_tf32)
     debug_nans = bool(opt.get("debug_nans"))

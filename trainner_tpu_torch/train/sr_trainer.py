@@ -72,8 +72,11 @@ the logs are averaged too. Every model runs it: the base ``Trainer``
 broadcasts the state's nets and splits its optimizers (``_place``), runs
 a step's program inside the mesh (``_in_mesh``) and queries an image
 pool with the global batch (``_pooled``); each model's step averages its
-nets' gradients and its logs. ``eval_step_spatial`` serves an image in
-bands over a list of devices (``parallel/spatial.py``).
+nets' gradients and its logs. On a tensor axis the T ranks of a slice
+read the same samples and draw alike, and each split conv is computed by
+output column (``parallel/tensor.py``, marked by ``_place``).
+``eval_step_spatial`` serves an image in bands over a list of devices
+(``parallel/spatial.py``).
 """
 
 from __future__ import annotations
@@ -81,6 +84,7 @@ from __future__ import annotations
 import collections
 import contextlib
 import functools
+import logging
 from typing import Callable, Dict, Optional, Tuple, Union
 
 import numpy as np
@@ -100,7 +104,8 @@ from ..ops.diffaug import apply_diff_augment, draw_diff_augment
 from ..ops.filters import filter_high, filter_low
 from ..parallel.collectives import (average_grads, batch_world,
                                     gather_batch, local_rows, mean_logs)
-from ..parallel.mesh import Mesh, replicate_state, shard_optimizers
+from ..parallel.mesh import (Mesh, place_tensor, replicate_state,
+                             shard_optimizers)
 from ..utils.checkpoint import load_params
 from ..utils.device import resolve_device
 from ..utils.graphs import Captured, signature, warm_up
@@ -260,6 +265,8 @@ class Trainer:
         if self.graphs and self.device.type != "cuda":
             raise ValueError(f"CUDA graphs run on cuda, not {self.device}")
         self.mesh = mesh
+        # split leaves a net computes whole on every tensor rank (_place)
+        self.whole_leaves = []
         if mesh is not None and mesh.distributed and self.graphs and \
                 mesh.backend != "nccl":
             raise ValueError(
@@ -396,10 +403,17 @@ class Trainer:
         return state
 
     def _place(self, state) -> None:
-        """With a mesh: the state's nets broadcast from rank 0 and its
-        optimizers split over the fsdp axis."""
+        """With a mesh: the state's nets broadcast from rank 0, their
+        split leaves marked for the tensor axis (each leaf that a net
+        computes whole on every rank logged by name, ROADMAP A 9 g) and
+        its optimizers split over the fsdp and tensor axes."""
         if self.mesh is not None:
             replicate_state(state, self.mesh)
+            self.whole_leaves = place_tensor(state, self.mesh)
+            for name in self.whole_leaves:
+                logging.getLogger("base").info(
+                    f"tensor axis: {name} is split by the rule but computed "
+                    "whole on every rank (ROADMAP A 9 g)")
             shard_optimizers(state, self.mesh)
 
     def _in_mesh(self, fn: Callable) -> Callable:
